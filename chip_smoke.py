@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (paddle_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. device: the card's name and power limit (nvidia-smi).
+  2. build: every kernel under paddle_tpu_torch/csrc, one nvcc each, all
+     started together, for sm_90a.
+  3. kernels: each kernel's wrapper on tensors on the card at the decode
+     lane's shapes, held against its plain PyTorch version; timed against
+     the plain version and its bound.
+  4. path: GPTConfig() at full width (random weights from the port's own
+     startup program, fixed seed) served by DecodeEngine: 16 seeded
+     requests of 8-512 prompt tokens, 32 new tokens each.  Every
+     kernel's launch count must be exactly 12 (layers) x program runs.
+  5. parity: the same weights on a CPUPlace executor (plain versions):
+     logprobs of prefill chunks and a decode step, and the greedy ids of
+     two requests, against the card's.
+
+The last lines are the kernels JSON, the nvidia-smi line, and
+{"ok": true, "device": {...}}.  Exits non-zero (and prints no result)
+without CUDA or without the package beside it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 1234
+
+# K5 kernel vs plain: the kernel sums keys page by page with an online
+# softmax merged across four warps; the plain version takes one softmax
+# over the whole row and one matmul.  Same fp32 terms, other order.
+K5_TOL = dict(atol=2e-5, rtol=1e-4)
+# K4 kernel vs plain: the same elementwise formula; erfcf/tanhf in the
+# kernel and PyTorch's CUDA erfc/tanh may differ by an ulp.
+K4_TOL = dict(atol=1e-6, rtol=1e-6)
+# full model on the card vs on the CPU: 12 layers of fp32 matmuls summed
+# in other orders (cuBLAS vs the CPU BLAS) before a 32000-way log_softmax
+PATH_LOGP_ATOL = 1e-3
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
+# fp32 (non-tensor-core) flop/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+GELU_FLOPS_PER_ELEMENT = 10  # add, scale, erfc, mul... as counted in PERF.md
+SLEEP_CYCLES = 400_000_000  # ~0.2 s of device sleep ahead of a timed run
+
+
+def _gpu_place():
+    from paddle_tpu_torch import fluid
+
+    return fluid.CUDAPlace(0)
+
+
+def _model_config():
+    """The served model: GPTConfig() at its defaults (vocab 32000, hidden
+    768, 12 layers, 12 heads, FFN 3072, 1024 positions)."""
+    from paddle_tpu_torch.models import gpt
+
+    return gpt.GPTConfig()
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _time_ms(fn, iters, flush=None):
+    """Mean device time of one fn() call, CUDA events around each call;
+    `flush` (run between calls, untimed) evicts L2.  A device sleep is
+    queued first, so the host has enqueued every call before the card
+    reaches the first: the events then time the card's work, not the
+    host's launch overhead (checked: the sleep must outlast the
+    enqueueing, so `iters` x the launches of one call must stay within
+    the stream's queue of pending work, a few hundred entries)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for a, b in evs:
+        if flush is not None:
+            flush()
+        a.record()
+        fn()
+        b.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if start.elapsed_time(evs[0][0]) <= host_ms:
+        raise RuntimeError(f"timing: the device sleep ended before the host "
+                           f"finished enqueueing ({host_ms:.2f} ms); raise "
+                           f"SLEEP_CYCLES")
+    return sum(a.elapsed_time(b) for a, b in evs) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(dev, b, n, t, d, page_size, max_pages, num_pages,
+                  q_start, rng):
+    q = torch.from_numpy(rng.randn(b, n, t, d).astype(np.float32)).to(dev)
+    k = torch.from_numpy(rng.randn(num_pages, page_size, n, d)
+                         .astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.randn(num_pages, page_size, n, d)
+                         .astype(np.float32)).to(dev)
+    # page 0 is the trash page: poison it, so attending it would show
+    k[0] = 1e4
+    v[0] = 1e4
+    perm = rng.permutation(np.arange(1, num_pages))
+    table = np.zeros((b, max_pages), np.int32)
+    for r in range(b):
+        live = min(max_pages, (q_start[r] + t - 1) // page_size + 1)
+        table[r, :live] = perm[r * max_pages:r * max_pages + live]
+    return (q, k, v, torch.from_numpy(table).to(dev),
+            torch.tensor(q_start, dtype=torch.int32, device=dev))
+
+
+def _bound(byts, flops):
+    """(least ms on the card, what bounds it): bytes over the HBM rate vs
+    flops over the fp32 rate."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _paged_bound(b, n, t, d, page_size, q_start):
+    """Least time for one call with these q_start values: each visible
+    K/V row, q, out and the live page-table entries moved once; 4·d
+    flops per visible (query, key) pair."""
+    keys = sum(qs + t for qs in q_start)          # K/V rows per head
+    pairs = sum((qs + 1 + qs + t) * t // 2 for qs in q_start)
+    live_pages = sum(-(-(qs + t) // page_size) for qs in q_start)
+    byts = (keys * n * d * 4 * 2 + 2 * b * n * t * d * 4 + b * 4
+            + live_pages * 4)
+    return _bound(byts, pairs * n * 4 * d) + (byts,)
+
+
+def check_paged(dev, rng):
+    from paddle_tpu_torch.kernels.primitives import paged
+
+    n, d, page_size, max_pages, num_pages = 12, 64, 16, 64, 513
+    cases = [("decode", 8, 1, [0, 15, 16, 17, 500, 777, 1000, 1023])]
+    cases += [(f"prefill@{qs}", 1, 32, [qs]) for qs in (0, 32, 992)]
+    worst, timings = 0.0, {}
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)  # 256 MB > 50 MB L2
+    for name, b, t, q_start in cases:
+        args = _paged_inputs(dev, b, n, t, d, page_size, max_pages,
+                             num_pages, q_start, rng)
+        got = paged.paged_attention(*args, sm_scale=d ** -0.5)
+        want = paged.paged_attention_reference(*args, sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, **K5_TOL) \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f"paged_attention {name}: max abs err {err} "
+                                 f"outside {K5_TOL}")
+        worst = max(worst, err)
+        flush = flush_buf.zero_
+        ms = _time_ms(lambda: paged.paged_attention(*args, sm_scale=d ** -0.5),
+                      50, flush)
+        plain_ms = _time_ms(lambda: paged.paged_attention_reference(
+            *args, sm_scale=d ** -0.5), 20, flush)
+        bound_ms, bound_by, byts = _paged_bound(b, n, t, d, page_size,
+                                                q_start)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bytes=byts,
+                             max_abs_err=err)
+    del flush_buf
+    return worst, timings
+
+
+def _bias_gelu_bound(r, h, with_mask):
+    byts = r * h * 4 * 2 + h * 4 + (r * h if with_mask else 0)
+    return _bound(byts, r * h * GELU_FLOPS_PER_ELEMENT) + (byts,)
+
+
+def check_bias_gelu(dev, rng):
+    from paddle_tpu_torch.kernels import fused_bias_act as fba
+
+    worst, timings = 0.0, {}
+    for r in (8, 32, 37):
+        h = 3072
+        x = torch.from_numpy(rng.randn(r, h).astype(np.float32) * 3).to(dev)
+        bias = torch.from_numpy(rng.randn(h).astype(np.float32)).to(dev)
+        mask = torch.from_numpy((rng.rand(r, h) > 0.1).astype(np.uint8)).to(dev)
+        for with_mask in (False, True):
+            for approx in (False, True):
+                kw = dict(mask=mask if with_mask else None,
+                          scale=1 / 0.9 if with_mask else 1.0,
+                          approximate=approx)
+                got = fba.fused_bias_gelu(x, bias, **kw)
+                want = fba.fused_bias_gelu_reference(x, bias, **kw)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                if not torch.allclose(got, want, **K4_TOL):
+                    raise AssertionError(
+                        f"fused_bias_gelu [{r},{h}] mask={with_mask} "
+                        f"approximate={approx}: max abs err {err} outside "
+                        f"{K4_TOL}")
+                worst = max(worst, err)
+                if not approx:
+                    ms = _time_ms(lambda: fba.fused_bias_gelu(x, bias, **kw),
+                                  100)
+                    plain_ms = _time_ms(
+                        lambda: fba.fused_bias_gelu_reference(x, bias, **kw),
+                        30)
+                    bound_ms, bound_by, byts = _bias_gelu_bound(
+                        r, h, with_mask)
+                    timings[f"[{r},{h}] mask={with_mask}"] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, bytes=byts, max_abs_err=err)
+    return worst, timings
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the decode lane at full width, and its CPU parity
+# ---------------------------------------------------------------------------
+
+
+class Lane:
+    """The decode lane's two programs run directly on one executor, for
+    the parity checks: prefill a token list through pages 1.., then
+    decode steps, returning logprobs."""
+
+    def __init__(self, cfg, place, scope, pool_slots, page_size, max_len,
+                 chunk):
+        from paddle_tpu_torch import fluid
+        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.serving.kv_pool import KVPool
+
+        self.cfg, self.scope, self.chunk = cfg, scope, chunk
+        self.page_size = page_size
+        self.max_pages = max_len // page_size
+        num_pages = pool_slots * self.max_pages + 1
+        self.pool_slots = pool_slots
+        self.exe = fluid.Executor(place)
+        KVPool(cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
+               num_pages, page_size, self.max_pages).install(
+            scope, self.exe.device)
+        self.pf, self.dec = fluid.Program(), fluid.Program()
+        with fluid.program_guard(self.pf, fluid.Program()), \
+                fluid.unique_name.guard():
+            _, _, lp = gpt.build_gpt_prefill_chunk(cfg, chunk, num_pages,
+                                                   page_size, self.max_pages)
+        self.pf_logp = lp.name
+        with fluid.program_guard(self.dec, fluid.Program()), \
+                fluid.unique_name.guard():
+            _, _, lp = gpt.build_gpt_decode_step(cfg, pool_slots, num_pages,
+                                                 page_size, self.max_pages)
+        self.dec_logp = lp.name
+
+    def table(self, n_tokens):
+        row = np.zeros(self.max_pages, np.int32)
+        used = -(-n_tokens // self.page_size)
+        row[:used] = np.arange(1, used + 1)
+        return row
+
+    def prefill(self, tokens):
+        """Logprobs after each chunk of `tokens` (pages 1, 2, ...)."""
+        out, c, pgs = [], self.chunk, self.page_size
+        table = self.table(len(tokens))
+        for s in range(0, len(tokens), c):
+            valid = min(c, len(tokens) - s)
+            tok = np.zeros((1, c), np.int64)
+            tok[0, :valid] = tokens[s:s + valid]
+            wp = np.zeros(c // pgs, np.int32)
+            for j in range(c // pgs):
+                if s + j * pgs < s + valid:
+                    wp[j] = table[(s + j * pgs) // pgs]
+            feed = {"pf_tok": tok,
+                    "pf_pos": np.minimum(s + np.arange(c), 1023)[None, :]
+                    .astype(np.int64),
+                    "pf_page_table": table[None, :],
+                    "pf_write_pages": wp,
+                    "pf_qstart": np.asarray([s], np.int32),
+                    "pf_last_idx": np.asarray([valid - 1], np.int64)}
+            (lp,) = self.exe.run(self.pf, feed=feed,
+                                 fetch_list=[self.pf_logp], scope=self.scope)
+            out.append(lp[0])
+        return out
+
+    def decode(self, token, pos):
+        """Logprobs of one decode step with slot 0 active at `pos`."""
+        ps = self.pool_slots
+        table = np.zeros((ps, self.max_pages), np.int32)
+        table[0] = self.table(pos + 1)
+        feed = {"dec_tok": np.zeros((ps, 1), np.int64),
+                "dec_pos": np.zeros((ps, 1), np.int64),
+                "dec_page_table": table,
+                "dec_write_page": np.zeros(ps, np.int32),
+                "dec_write_off": np.zeros(ps, np.int32)}
+        feed["dec_tok"][0, 0] = token
+        feed["dec_pos"][0, 0] = pos
+        feed["dec_write_page"][0] = table[0, pos // self.page_size]
+        feed["dec_write_off"][0] = pos % self.page_size
+        (lp,) = self.exe.run(self.dec, feed=feed, fetch_list=[self.dec_logp],
+                             scope=self.scope)
+        return lp[0]
+
+
+def _param_names(cfg):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 1, 2, 16, 1)
+    return main, [p.name for p in main.all_parameters()]
+
+
+def run_path(dev, counters):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = _model_config()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 8, 513, 16, 64)
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+
+    eng = DecodeEngine(cfg, scope=scope, place=_gpu_place(),
+                       pool_slots=8, page_size=16, max_len=1024,
+                       name="smoke", auto_start=False)
+    eng.warmup()
+    rng = np.random.RandomState(SEED)
+    lens = [8, 512] + list(rng.randint(8, 513, 14))
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.start()
+    futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    outs = [f.result(timeout=900) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    stats = eng.stats()
+    eng.close()
+    if any(len(o) != 32 for o in outs):
+        raise AssertionError(f"wrong token counts {[len(o) for o in outs]}")
+    runs = stats["prefill_chunks"] + stats["steps"]
+    for k, got in launches.items():
+        if got != cfg.num_layers * runs:
+            raise AssertionError(
+                f"{k}: {got} launches, expected {cfg.num_layers} x {runs} "
+                f"program runs = {cfg.num_layers * runs}")
+    gen = sum(len(o) for o in outs)
+    path = dict(requests=len(prompts), prompt_tokens=int(sum(lens)),
+                generated_tokens=gen, wall_s=wall,
+                generated_tokens_per_s=gen / wall,
+                total_tokens_per_s=(gen + sum(lens)) / wall,
+                prefill_chunks=stats["prefill_chunks"],
+                decode_steps=stats["steps"],
+                decode_step_p50_ms=1e3 * float(np.median(eng.step_seconds)),
+                prefill_chunk_p50_ms=1e3 * float(
+                    np.median(eng.prefill_seconds)),
+                evictions=stats["evictions"], launches=launches)
+    return cfg, scope, prompts, outs, path
+
+
+def profile_decode_step(cfg, scope, steps=5):
+    """Host wall time vs summed device kernel time of decode steps
+    (torch.profiler): slot 0 active at positions 65-69, the other seven
+    slots on the trash page."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import fluid
+
+    lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32)
+    lane.prefill(list(range(1, 65)))
+    lane.decode(5, 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lane.decode(5, 65 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    dev, host = [], []
+    for e in prof.key_averages():
+        # device-side events (kernels, copies) only: a CPU op such as
+        # aten::mm also carries the device time of the kernels under it
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            d_us = (getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0) or 0)
+            dev.append((d_us, e.key, e.count))
+        else:
+            host.append((getattr(e, "self_cpu_time_total", 0) or 0, e.key,
+                         e.count))
+    dev_us = sum(t for t, _, _ in dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lane.decode(5, 70 + i)
+    torch.cuda.synchronize()
+    unprofiled = (time.perf_counter() - t0) / steps
+
+    def top(rows):
+        return [[k[:60], round(t / steps, 1), c // steps]
+                for t, k, c in sorted(rows, reverse=True)[:6]]
+
+    return dict(step_wall_ms=1e3 * unprofiled,
+                step_wall_profiled_ms=1e3 * wall,
+                step_device_busy_ms=dev_us / steps / 1e3 if dev_us else None,
+                device_events_per_step=sum(c for _, _, c in dev) // steps,
+                top_device_us_per_step=top(dev),
+                top_host_self_us_per_step=top(host))
+
+
+def _copy_scope(scope):
+    from paddle_tpu_torch import fluid
+
+    out = fluid.Scope()
+    for n in scope.keys():
+        if not n.startswith("@KVPOOL@"):
+            out.set(n, scope.get(n))
+    return out
+
+
+def run_parity(cfg, scope, prompts, outs):
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    main, names = _param_names(cfg)
+    cpu_scope = fluid.Scope()
+    convert.load_params(cpu_scope,
+                        {n: scope.get(n).cpu().numpy() for n in names},
+                        fluid.CPUPlace(), program=main)
+    rng = np.random.RandomState(SEED + 1)
+    tokens = rng.randint(1, cfg.vocab_size, 40).tolist()
+    lanes = {"gpu": Lane(cfg, _gpu_place(), _copy_scope(scope), 2, 16,
+                         1024, 32),
+             "cpu": Lane(cfg, fluid.CPUPlace(), cpu_scope, 2, 16, 1024, 32)}
+    res = {}
+    for k, lane in lanes.items():
+        chunks = lane.prefill(tokens)
+        nxt = int(np.argmax(chunks[-1]))
+        res[k] = chunks + [lane.decode(nxt, len(tokens))]
+    logp_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(res["gpu"], res["cpu"]))
+    if not logp_err < PATH_LOGP_ATOL:
+        raise AssertionError(f"card vs CPU logprobs: max abs err {logp_err} "
+                             f">= {PATH_LOGP_ATOL}")
+
+    # greedy ids of the two shortest requests, card vs CPU
+    order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
+    eng = DecodeEngine(cfg, scope=cpu_scope, place=fluid.CPUPlace(),
+                       pool_slots=2, page_size=16, max_len=1024,
+                       name="cpu-parity")
+    try:
+        cpu_outs = eng.generate([prompts[i] for i in order],
+                                max_new_tokens=32, timeout=900)
+    finally:
+        eng.close()
+    cpu_lane = lanes["cpu"]
+    ids = []
+    for i, cpu_ids in zip(order, cpu_outs):
+        gpu_ids = outs[i]
+        k = next((j for j, (a, b) in enumerate(zip(gpu_ids, cpu_ids))
+                  if a != b), None)
+        entry = dict(request=i, prompt_tokens=len(prompts[i]),
+                     first_mismatch=k)
+        if k is not None:
+            # allowed only at a near-tie: the CPU's top-two gap there must
+            # be below the logprob tolerance
+            lp = cpu_lane.prefill(prompts[i] + gpu_ids[:k])[-1]
+            top2 = np.sort(lp)[-2:]
+            gap = float(top2[1] - top2[0])
+            entry["top2_gap"] = gap
+            if not gap < PATH_LOGP_ATOL:
+                raise AssertionError(
+                    f"request {i}: greedy ids differ at step {k} with a "
+                    f"top-two gap {gap} >= {PATH_LOGP_ATOL}")
+        ids.append(entry)
+    return dict(logprob_max_abs_err=logp_err, logprob_atol=PATH_LOGP_ATOL,
+                greedy=ids)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is missing: {e}",
+              file=sys.stderr)
+        return 3
+    from paddle_tpu_torch.kernels import _build, kernel_wrappers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = _smi()
+    print(f"device: {smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    took = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"{json.dumps({k: round(v, 2) for k, v in took.items()})}",
+          flush=True)
+    for name in _build.sources():
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    rng = np.random.RandomState(SEED)
+    k5_err, k5_t = check_paged(dev, rng)
+    k4_err, k4_t = check_bias_gelu(dev, rng)
+    print("kernel timings " + json.dumps({"paged_attention": k5_t,
+                                          "fused_bias_act": k4_t}),
+          flush=True)
+
+    wrappers = kernel_wrappers()
+    cfg, scope, prompts, outs, path = run_path(dev, wrappers)
+    print("path " + json.dumps({"card": smi, **path}), flush=True)
+    prof = profile_decode_step(cfg, scope)
+    print("decode step " + json.dumps(prof), flush=True)
+    parity = run_parity(cfg, scope, prompts, outs)
+    print("parity " + json.dumps(parity), flush=True)
+
+    dec = k5_t["decode"]
+    k4 = k4_t["[8,3072] mask=False"]
+    kernels = [
+        dict(name="paged_attention", route="cuda",
+             source="paddle_tpu_torch/csrc/paged_attention.cu",
+             replaces="paddle_tpu/kernels/primitives/paged.py:121",
+             launches=path["launches"]["paged_attention"],
+             max_abs_err=k5_err, ms=dec["ms"], plain_ms=dec["plain_ms"],
+             bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
+             library_ms=None),
+        dict(name="fused_bias_act", route="cuda",
+             source="paddle_tpu_torch/csrc/fused_bias_act.cu",
+             replaces="paddle_tpu/kernels/fused_bias_act.py:106",
+             launches=path["launches"]["fused_bias_act"],
+             max_abs_err=k4_err, ms=k4["ms"], plain_ms=k4["plain_ms"],
+             bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
+             library_ms=None),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

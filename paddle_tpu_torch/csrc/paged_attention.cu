@@ -1,0 +1,360 @@
+// K5: paged attention over an fp32 KV pool, for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel paddle_tpu/kernels/primitives/paged.py
+// `_paged_kernel` (:121), launched by `_pallas_paged` (:197).  Contract,
+// kept exactly:
+//   q          [B, n, T, d]  f32, contiguous
+//   k/v pages  [P, page, n, d] f32, contiguous (the KV pool)
+//   page_table [B, max_pages] i32: physical page of each logical page
+//   q_start    [B] i32: tokens already in the pool before this q block
+//   out        [B, n, T, d]  f32
+// Query i of row b attends global key positions j <= q_start[b] + i.
+// Masked scores are -1e9 (the JAX kernel's constant); the softmax is
+// online, in fp32; a row whose softmax sum l is 0 returns 0.  Page 0 is
+// the allocator's trash page: no row's mask ever exposes it.
+//
+// What bounds it on this card: at T = 1 (a decode step) the work is a
+// matrix-vector product per (row, head) — about 4 flops per 8 bytes of
+// K/V read — so it is bound by the bytes of the live pages, far below
+// the ridge point; no tensor cores are needed.  At T = 32 (a prefill
+// chunk) each staged page is reused by the block's queries.
+//
+// Design.  The TPU grid walks (b, h, every logical page) in order and
+// carries the softmax state in VMEM scratch, skipping dead pages with
+// pl.when.  Blocks here run in parallel and in no order, so:
+//   - one block takes one (row b, head h) pair and a tile of QT queries;
+//     it reads q_start[b] and its page-table row itself (there is no
+//     scalar prefetch);
+//   - its eight warps split the row's live logical pages (warp w takes
+//     pages w, w+8, ...): only pages up to (q_start+last query)/page are
+//     visited, never max_pages;
+//   - each warp stages its physical page's K and V slice for head h in
+//     its own shared memory with coalesced row loads (rows of the pool
+//     are n*d floats apart), rows padded to d+1 floats so the per-key
+//     dot products read without bank conflicts.  The loads are float4
+//     and all issued before any is stored, so a page costs one memory
+//     round trip; a page of up to 256 float4 (16 x 64 floats) is
+//     prefetched into registers while the warp's previous page scores;
+//   - each warp keeps an online softmax (m, l, acc) per query in
+//     registers, one lane per key for the scores (two lanes per key, each
+//     summing half the columns, when a page holds <= 16 keys) and one
+//     lane per output column for the weighted sum of V;
+//   - the eight warps' partial states merge in shared memory at the end.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr float kMaskValue = -1e9f;  // the JAX kernel's NEG_INF
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+constexpr int kChunk = 8;  // float4 loads in flight per lane, for K and V
+
+// First pool row of logical page lp of a row's page table.
+__device__ __forceinline__ long long page_row0(const int* table, int lp,
+                                               int page_size,
+                                               int num_pages) {
+  const int phys = min(max(table[lp], 0), num_pages - 1);  // gather: clamp
+  return (long long)phys * page_size;
+}
+
+// Load float4 number base + u*32 + lane (u < kChunk) of a page's K and V
+// slice for head h: element e is row e / vrow, columns 4*(e % vrow)...
+__device__ __forceinline__ void load_chunk(const float4* __restrict__ k4,
+                                           const float4* __restrict__ v4,
+                                           long long row0, int n, int h,
+                                           int vrow, int nvec, int base,
+                                           int lane, float4 (&kr)[kChunk],
+                                           float4 (&vr)[kChunk]) {
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const int e = base + u * 32 + lane;
+    if (e < nvec) {
+      const int row = e / vrow, c4 = e - row * vrow;
+      const long long g = ((row0 + row) * n + h) * vrow + c4;
+      kr[u] = k4[g];
+      vr[u] = v4[g];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_chunk(float* sK, float* sV, int dp,
+                                            int vrow, int nvec, int base,
+                                            int lane,
+                                            const float4 (&kr)[kChunk],
+                                            const float4 (&vr)[kChunk]) {
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const int e = base + u * 32 + lane;
+    if (e < nvec) {
+      const int row = e / vrow, c = (e - row * vrow) * 4;
+      float* k = sK + row * dp + c;
+      float* v = sV + row * dp + c;
+      k[0] = kr[u].x; k[1] = kr[u].y; k[2] = kr[u].z; k[3] = kr[u].w;
+      v[0] = vr[u].x; v[1] = vr[u].y; v[2] = vr[u].z; v[3] = vr[u].w;
+    }
+  }
+}
+
+// QT: queries per block; R: output columns per lane (d <= 32 * R).
+template <int QT, int R>
+__global__ void __launch_bounds__(32 * kWarps)
+paged_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k_pages,
+                       const float* __restrict__ v_pages,
+                       const int* __restrict__ page_table,
+                       const int* __restrict__ q_start,
+                       float* __restrict__ out,
+                       int n, int T, int d, int page_size, int max_pages,
+                       int num_pages, float scale, bool vec) {
+  extern __shared__ float smem[];
+  const int t0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int dp = d + 1;  // padded row of a staged page
+
+  float* sQ = smem;                                    // [QT, d]
+  float* sK = sQ + QT * d + warp * 2 * page_size * dp;  // this warp's page
+  float* sV = sK + page_size * dp;
+  float* sMerge = sQ + QT * d + kWarps * 2 * page_size * dp;
+  // sMerge: per (warp, query) m, l, then acc[d]
+
+  const long long q_base = ((long long)b * n + h) * T;
+  for (int e = threadIdx.x; e < QT * d; e += blockDim.x) {
+    const int qi = e / d, c = e - qi * d;
+    const int t = t0 + qi;
+    sQ[e] = t < T ? q[(q_base + t) * d + c] : 0.f;
+  }
+  __syncthreads();
+
+  const int start = q_start[b];
+  const int t_last = min(t0 + QT, T) - 1;
+  const int last_key = start + t_last;
+  const int n_live = last_key < 0 ? 0
+                                  : min(max_pages, last_key / page_size + 1);
+
+  float m[QT], l[QT], acc[QT][R];
+#pragma unroll
+  for (int qi = 0; qi < QT; ++qi) {
+    m[qi] = -CUDART_INF_F;
+    l[qi] = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[qi][r] = 0.f;
+  }
+
+  // Staging.  With vec (d % 4 == 0, 16-byte aligned pool) each lane
+  // issues up to kChunk float4 loads of K and of V at once, so a page
+  // costs one memory round trip, not one per element; when a page fits
+  // one chunk, the warp's NEXT page is loaded into registers while the
+  // current page is scored (a register double buffer).
+  const float4* k4 = reinterpret_cast<const float4*>(k_pages);
+  const float4* v4 = reinterpret_cast<const float4*>(v_pages);
+  const int vrow = d >> 2;
+  const int nvec = page_size * vrow;
+  const bool one_chunk = vec && nvec <= 32 * kChunk;
+  const int* table = page_table + (long long)b * max_pages;
+  float4 kr[kChunk], vr[kChunk];
+  if (one_chunk && warp < n_live)
+    load_chunk(k4, v4, page_row0(table, warp, page_size, num_pages), n, h,
+               vrow, nvec, 0, lane, kr, vr);
+
+  // Scoring lanes: with pages of <= 16 keys, lanes l and l+16 share key
+  // l, each summing half of the d columns, so no lane idles.
+  const int kpl = page_size <= 16 ? 16 : 32;  // keys scored per pass
+  const int half = kpl == 16 ? lane >> 4 : 0;
+  const int c_lo = half ? d / 2 : 0;
+  const int c_hi = (kpl == 16 && !half) ? d / 2 : d;
+  const int jl = lane & (kpl - 1);
+
+  for (int lp = warp; lp < n_live; lp += kWarps) {
+    if (one_chunk) {
+      store_chunk(sK, sV, dp, vrow, nvec, 0, lane, kr, vr);
+      if (lp + kWarps < n_live)  // prefetch: lands while this page scores
+        load_chunk(k4, v4,
+                   page_row0(table, lp + kWarps, page_size, num_pages), n,
+                   h, vrow, nvec, 0, lane, kr, vr);
+    } else if (vec) {
+      const long long row0 = page_row0(table, lp, page_size, num_pages);
+      for (int base = 0; base < nvec; base += 32 * kChunk) {
+        load_chunk(k4, v4, row0, n, h, vrow, nvec, base, lane, kr, vr);
+        store_chunk(sK, sV, dp, vrow, nvec, base, lane, kr, vr);
+      }
+    } else {
+      const long long row0 = page_row0(table, lp, page_size, num_pages);
+      for (int e = lane; e < page_size * d; e += 32) {
+        const int row = e / d, c = e - row * d;
+        const long long g = ((row0 + row) * n + h) * d + c;
+        sK[row * dp + c] = k_pages[g];
+        sV[row * dp + c] = v_pages[g];
+      }
+    }
+    __syncwarp();
+    const int key0 = lp * page_size;
+#pragma unroll
+    for (int qi = 0; qi < QT; ++qi) {
+      const int t = t0 + qi;
+      const int qpos = start + t;
+      if (t >= T || key0 > qpos) continue;  // page wholly past this query
+      const float* qv = sQ + qi * d;
+      for (int j0 = 0; j0 < page_size; j0 += kpl) {
+        const int j = j0 + jl;
+        float dot = 0.f;
+        if (j < page_size) {
+          const float* krow = sK + j * dp;
+#pragma unroll 8
+          for (int c = c_lo; c < c_hi; ++c) dot = fmaf(qv[c], krow[c], dot);
+        }
+        if (kpl == 16) dot += __shfl_xor_sync(0xffffffffu, dot, 16);
+        float s = -CUDART_INF_F;  // lanes past the page hold no key
+        if (j < page_size) s = (key0 + j <= qpos) ? dot * scale : kMaskValue;
+        const float m_new = fmaxf(m[qi], warp_max(s));
+        const float alpha =
+            m[qi] == -CUDART_INF_F ? 0.f : expf(m[qi] - m_new);
+        const float p = j < page_size ? expf(s - m_new) : 0.f;
+        // a key shared by two lanes is summed once
+        l[qi] = l[qi] * alpha + warp_sum(half ? 0.f : p);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[qi][r] *= alpha;
+        const int kc = min(kpl, page_size - j0);
+#pragma unroll 4
+        for (int jj = 0; jj < kc; ++jj) {
+          const float pj = __shfl_sync(0xffffffffu, p, jj);
+          const float* vrow_s = sV + (j0 + jj) * dp;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int c = lane + 32 * r;
+            if (c < d) acc[qi][r] = fmaf(pj, vrow_s[c], acc[qi][r]);
+          }
+        }
+        m[qi] = m_new;
+      }
+    }
+    __syncwarp();  // the next page overwrites this warp's staging area
+  }
+
+  const int stride = d + 2;
+#pragma unroll
+  for (int qi = 0; qi < QT; ++qi) {
+    float* slot = sMerge + (warp * QT + qi) * stride;
+    if (lane == 0) {
+      slot[0] = m[qi];
+      slot[1] = l[qi];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int c = lane + 32 * r;
+      if (c < d) slot[2 + c] = acc[qi][r];
+    }
+  }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < QT * d; e += blockDim.x) {
+    const int qi = e / d, c = e - qi * d;
+    const int t = t0 + qi;
+    if (t >= T) continue;
+    float m_tot = -CUDART_INF_F;
+    for (int w = 0; w < kWarps; ++w)
+      m_tot = fmaxf(m_tot, sMerge[(w * QT + qi) * stride]);
+    float l_tot = 0.f, a_tot = 0.f;
+    if (m_tot != -CUDART_INF_F) {
+      for (int w = 0; w < kWarps; ++w) {
+        const float* slot = sMerge + (w * QT + qi) * stride;
+        if (slot[0] == -CUDART_INF_F) continue;
+        const float wgt = expf(slot[0] - m_tot);
+        l_tot = fmaf(wgt, slot[1], l_tot);
+        a_tot = fmaf(wgt, slot[2 + c], a_tot);
+      }
+    }
+    out[(q_base + t) * d + c] = l_tot == 0.f ? 0.f : a_tot / l_tot;
+  }
+}
+
+template <int QT, int R>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const int* pt, const int* qs, float* out, int B, int n,
+                   int T, int d, int page_size, int max_pages, int num_pages,
+                   float scale, bool vec, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)QT * d + (size_t)kWarps * 2 * page_size *
+                       (d + 1) + (size_t)kWarps * QT * (d + 2));
+  // above 48 KB a kernel must opt in to dynamic shared memory; raise the
+  // limit once per instantiation, to the largest size seen
+  static size_t opted_in = 48 * 1024;
+  if (smem > opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_kernel<QT, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted_in = smem;
+  }
+  dim3 grid((T + QT - 1) / QT, n, B);
+  paged_attention_kernel<QT, R><<<grid, 32 * kWarps, smem, stream>>>(
+      q, k, v, pt, qs, out, n, T, d, page_size, max_pages, num_pages,
+      scale, vec);
+  return cudaGetLastError();
+}
+
+template <int QT>
+cudaError_t dispatch_r(const float* q, const float* k, const float* v,
+                       const int* pt, const int* qs, float* out, int B,
+                       int n, int T, int d, int page_size, int max_pages,
+                       int num_pages, float scale, bool vec,
+                       cudaStream_t stream) {
+  switch ((d + 31) / 32) {
+    case 1: return launch<QT, 1>(q, k, v, pt, qs, out, B, n, T, d,
+                                 page_size, max_pages, num_pages, scale,
+                                 vec, stream);
+    case 2: return launch<QT, 2>(q, k, v, pt, qs, out, B, n, T, d,
+                                 page_size, max_pages, num_pages, scale,
+                                 vec, stream);
+    case 3: return launch<QT, 3>(q, k, v, pt, qs, out, B, n, T, d,
+                                 page_size, max_pages, num_pages, scale,
+                                 vec, stream);
+    case 4: return launch<QT, 4>(q, k, v, pt, qs, out, B, n, T, d,
+                                 page_size, max_pages, num_pages, scale,
+                                 vec, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the launch (0 on success).  d must be in
+// [1, 128]; every pointer is a device pointer; stream is a cudaStream_t.
+extern "C" int pt_paged_attention_f32(const float* q, const float* k_pages,
+                                      const float* v_pages,
+                                      const int* page_table,
+                                      const int* q_start, float* out, int B,
+                                      int n, int T, int d, int page_size,
+                                      int max_pages, int num_pages,
+                                      float scale, void* stream) {
+  if (d < 1 || d > 128 || page_size < 1 || num_pages < 1 || max_pages < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0 || T == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = d % 4 == 0 &&
+                   (reinterpret_cast<size_t>(k_pages) & 15) == 0 &&
+                   (reinterpret_cast<size_t>(v_pages) & 15) == 0;
+  if (T == 1)
+    return (int)dispatch_r<1>(q, k_pages, v_pages, page_table, q_start, out,
+                              B, n, T, d, page_size, max_pages, num_pages,
+                              scale, vec, s);
+  return (int)dispatch_r<4>(q, k_pages, v_pages, page_table, q_start, out, B,
+                            n, T, d, page_size, max_pages, num_pages, scale,
+                            vec, s);
+}

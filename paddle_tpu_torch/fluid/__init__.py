@@ -1,0 +1,21 @@
+"""paddle_tpu_torch.fluid — the Fluid front end on PyTorch.
+
+The same programming model as ``paddle_tpu.fluid``: build a Program with
+``fluid.layers.*`` and run it with ``fluid.Executor(place)``.  The
+executor runs each op's lowering eagerly on a torch device;
+``Executor()`` with no place runs on CUDAPlace(0).
+"""
+
+# ops must register before any program is built or run
+import paddle_tpu_torch.ops  # noqa: F401
+
+from . import framework  # noqa: F401
+from .framework import (  # noqa: F401
+    CPUPlace, CUDAPlace, Program, TPUPlace, Variable,
+    default_main_program, default_startup_program, program_guard,
+    unique_name,
+)
+from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
+from . import flags, initializer, layers  # noqa: F401
+from .param_attr import ParamAttr  # noqa: F401
+from .layers.io import data  # noqa: F401

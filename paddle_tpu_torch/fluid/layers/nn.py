@@ -1,0 +1,204 @@
+"""Layer functions the decode serving lane builds with (counterpart of
+``paddle_tpu/fluid/layers/nn.py``).  Each appends ops to the default
+main program through LayerHelper; nothing touches a device until the
+executor runs the block.  Op types, slots and attrs are those of the
+JAX package, so both packages build the same program."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..framework import convert_np_dtype_to_dtype_
+from ..initializer import Constant
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+__all__ = [
+    "fc", "embedding", "layer_norm", "log_softmax", "matmul",
+    "elementwise_add", "reshape", "transpose", "gather", "argmax", "cast",
+    "paged_attention", "kv_cache_write", "kv_cache_write_pages",
+]
+
+
+def _single_out_layer(helper, op_type, inputs, attrs=None, dtype=None):
+    out = helper.create_variable_for_type_inference(
+        dtype=dtype or next(iter(inputs.values()))[0].dtype)
+    helper.append_op(op_type, inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """Fully-connected: mul + elementwise_add + activation."""
+    helper = LayerHelper("fc", input=input, size=size, bias_attr=bias_attr,
+                         act=act, name=name)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = ParamAttr._to_attr(param_attr)
+    if not isinstance(param_attrs, list):
+        param_attrs = [param_attrs] * len(inputs)
+    mul_results = []
+    for inp, pa in zip(inputs, param_attrs):
+        w_shape = [int(np.prod(inp.shape[num_flatten_dims:])), size]
+        w = helper.create_parameter(pa, shape=w_shape, dtype=inp.dtype)
+        out = helper.create_variable_for_type_inference(dtype=inp.dtype)
+        helper.append_op("mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [out]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(out)
+    if len(mul_results) != 1:
+        raise NotImplementedError("fc over several inputs (the `sum` op) "
+                                  "is not ported yet")
+    pre_act = helper.append_bias_op(mul_results[0],
+                                    dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """lookup_table over a [vocab, width] parameter."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    pad = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op("lookup_table", inputs={"W": [w], "Ids": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"padding_idx": pad, "is_sparse": is_sparse,
+                            "is_distributed": is_distributed})
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", act=act, name=name)
+    dtype = input.dtype
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            param_attr, shape=norm_shape, dtype=dtype,
+            default_initializer=Constant(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(
+            bias_attr, shape=norm_shape, dtype=dtype, is_bias=True)]
+    out = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype,
+                                                     stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    helper.append_op("layer_norm", inputs=inputs,
+                     outputs={"Y": [out], "Mean": [mean],
+                              "Variance": [var]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    return _single_out_layer(helper, "log_softmax", {"X": [input]},
+                             {"axis": axis})
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    helper = LayerHelper("matmul", name=name)
+    return _single_out_layer(helper, "matmul", {"X": [x], "Y": [y]},
+                             {"transpose_X": transpose_x,
+                              "transpose_Y": transpose_y,
+                              "alpha": float(alpha)})
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_add", act=act, name=name)
+    out = _single_out_layer(helper, "elementwise_add", {"X": [x], "Y": [y]},
+                            {"axis": axis})
+    return helper.append_activation(out)
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    helper = LayerHelper("reshape2", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op("reshape2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op("transpose2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    return _single_out_layer(helper, "gather",
+                             {"X": [input], "Index": [index]})
+
+
+def argmax(x, axis=0, name=None):
+    helper = LayerHelper("arg_max", name=name)
+    return _single_out_layer(helper, "arg_max", {"X": [x]}, {"axis": axis},
+                             dtype="int64")
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dt = convert_np_dtype_to_dtype_(dtype)
+    return _single_out_layer(helper, "cast", {"X": [x]}, {"out_dtype": dt},
+                             dtype=dt)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, q_start,
+                    sm_scale=None, force=None, name=None):
+    """Attention of q [B, n_heads, T, d] against pool K/V read through a
+    per-sequence page table (kernels/primitives/paged.py).  Query i of
+    row b attends global key positions j <= q_start[b] + i."""
+    helper = LayerHelper("paged_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    attrs = {}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    if force is not None:
+        attrs["force"] = force
+    helper.append_op("paged_attention",
+                     inputs={"Q": [q], "KPages": [k_pages],
+                             "VPages": [v_pages], "PageTable": [page_table],
+                             "QStart": [q_start]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def kv_cache_write(pages, new, page_idx, offset, name=None):
+    """Scatter one decode step's K or V rows (new [B, n, d]) into the
+    pool at per-slot (page_idx[b], offset[b]); returns the pool var,
+    which the op updates in place."""
+    helper = LayerHelper("kv_cache_write", name=name)
+    helper.append_op("kv_cache_write",
+                     inputs={"Pages": [pages], "New": [new],
+                             "PageIdx": [page_idx], "Offset": [offset]},
+                     outputs={"PagesOut": [pages]})
+    return pages
+
+
+def kv_cache_write_pages(pages, new, page_idx, name=None):
+    """Scatter a prefill chunk's K or V (new [C, n, d], C a multiple of
+    the page size) into whole pool pages page_idx [C/page_size]."""
+    helper = LayerHelper("kv_cache_write_pages", name=name)
+    helper.append_op("kv_cache_write_pages",
+                     inputs={"Pages": [pages], "New": [new],
+                             "PageIdx": [page_idx]},
+                     outputs={"PagesOut": [pages]})
+    return pages

@@ -1,0 +1,33 @@
+"""ParamAttr (counterpart of ``paddle_tpu/fluid/param_attr.py``)."""
+
+from __future__ import annotations
+
+from .initializer import Initializer
+
+__all__ = ["ParamAttr"]
+
+
+class ParamAttr:
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+
+    @staticmethod
+    def _to_attr(arg):
+        if arg is None:
+            return ParamAttr()
+        if isinstance(arg, (list, tuple)):
+            return [ParamAttr._to_attr(a) for a in arg]
+        if isinstance(arg, ParamAttr):
+            return arg
+        if isinstance(arg, str):
+            return ParamAttr(name=arg)
+        if isinstance(arg, Initializer):
+            return ParamAttr(initializer=arg)
+        if arg is False:
+            return False  # "no parameter" marker (bias_attr=False)
+        raise TypeError(f"cannot convert {arg!r} to ParamAttr")

@@ -1,0 +1,18 @@
+"""Hand-written Hopper kernels and their launch layer.
+
+``_build`` builds ``csrc/*.cu`` with nvcc and binds it with ctypes
+(K0).  Kernels: K4 fused bias+GeLU (``fused_bias_act``) and K5 paged
+attention (``primitives.paged``).  Every wrapper launches its kernel
+for CUDA tensors, runs its plain PyTorch version for CPU tensors, and
+counts its launches in ``<wrapper>.launches``.
+"""
+
+
+def kernel_wrappers():
+    """{kernel name: wrapper} for every ported kernel — the functions
+    whose ``launches`` counters a run can read and reset."""
+    from .fused_bias_act import fused_bias_gelu
+    from .primitives.paged import paged_attention
+
+    return {"fused_bias_act": fused_bias_gelu,
+            "paged_attention": paged_attention}

@@ -1,0 +1,109 @@
+"""K4: fused bias + GeLU (+ dropout mask) forward.
+
+Counterpart of ``paddle_tpu/kernels/fused_bias_act.py``, whose Pallas
+kernel (``_pallas_chain`` :96) this replaces with the hand-written CUDA
+kernel ``csrc/fused_bias_act.cu``.  The ``fuse_bias_act_dropout`` pass
+(passes/fuse_bias_act.py) rewrites every FFN ``elementwise_add -> gelu``
+chain to one ``fused_bias_act_dropout`` op whose lowering
+(ops/fused_ops.py) calls :func:`fused_bias_gelu` here.
+
+Bound: one elementwise pass, bytes-bound (see the source note in the
+``.cu`` file).  The dropout mask is drawn outside the kernel and passed
+in as uint8, as in the JAX package; it is ported now, though the
+decode lane runs with p = 0, so that the training slice reuses the
+kernel.
+
+:func:`fused_bias_gelu` launches the kernel for a CUDA tensor and runs
+the plain version, :func:`fused_bias_gelu_reference`, for a CPU tensor
+(or a ``meta`` tensor during shape inference).  ``force="reference"``
+selects the plain version explicitly; nothing on the decode path sets
+it.  ``fused_bias_gelu.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["gelu_reference", "fused_bias_gelu_reference",
+           "fused_bias_gelu"]
+
+_SIGNATURES = {
+    "pt_fused_bias_gelu_f32": [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_int,
+                               ctypes.c_void_p],
+}
+
+
+def gelu_reference(x, approximate=False):
+    """GeLU spelled as ``jax.nn.gelu`` spells it: the exact form through
+    erfc, the tanh form with x**3 as x*x*x."""
+    if approximate:
+        k = math.sqrt(2.0 / math.pi)
+        cdf = 0.5 * (1.0 + torch.tanh(k * (x + 0.044715 * (x * x * x))))
+        return x * cdf
+    return 0.5 * x * torch.erfc(-x * math.sqrt(0.5))
+
+
+def fused_bias_gelu_reference(x, bias, mask=None, scale=1.0,
+                              approximate=False):
+    """The plain version: ``gelu(x + bias) [* mask * scale]`` in fp32."""
+    y = gelu_reference(x.float() + bias.float(), approximate)
+    if mask is not None:
+        y = y * mask.float() * scale
+    return y
+
+
+def _check(x, bias, mask):
+    if x.dim() < 1 or bias.dim() != 1 or bias.shape[0] != x.shape[-1]:
+        raise ValueError(f"fused_bias_gelu: bias {tuple(bias.shape)} must be "
+                         f"[H] for x {tuple(x.shape)}")
+    if x.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError(f"fused_bias_gelu: x and bias must be float32, got "
+                        f"{x.dtype} and {bias.dtype}")
+    if mask is not None and (mask.dtype != torch.uint8
+                             or mask.shape != x.shape):
+        raise ValueError(f"fused_bias_gelu: mask must be uint8 of x's shape "
+                         f"{tuple(x.shape)}, got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    for t in (bias, mask):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"fused_bias_gelu: tensors on {x.device} and "
+                             f"{t.device}")
+
+
+def fused_bias_gelu(x, bias, mask=None, scale=1.0, approximate=False,
+                    force=None):
+    """``gelu(x + bias) [* mask * scale]`` over x [..., H] float32 with
+    bias [H]; returns float32 of x's shape."""
+    _check(x, bias, mask)
+    if force not in (None, "reference"):
+        raise ValueError(f"fused_bias_gelu: force={force!r} (use None or "
+                         f"'reference')")
+    if force == "reference" or x.device.type in ("cpu", "meta"):
+        return fused_bias_gelu_reference(x, bias, mask, scale, approximate)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_bias_gelu: no kernel for {x.device}")
+    for name, t in (("x", x), ("bias", bias), ("mask", mask)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"fused_bias_gelu: {name} must be contiguous")
+    lib = _build.load("fused_bias_act", _SIGNATURES)
+    h = x.shape[-1]
+    out = torch.empty_like(x)
+    err = lib.pt_fused_bias_gelu_f32(
+        _build.ptr(x), _build.ptr(bias),
+        _build.ptr(mask) if mask is not None else None, _build.ptr(out),
+        x.numel() // h, h, float(scale), int(bool(approximate)),
+        _build.stream_of(x.device))
+    fused_bias_gelu.launches += 1
+    _build.check("fused_bias_gelu", err)
+    return out
+
+
+fused_bias_gelu.launches = 0

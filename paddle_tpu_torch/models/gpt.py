@@ -1,0 +1,232 @@
+"""GPT-style causal decoder LM: the paged decode lane's two programs
+(counterpart of ``paddle_tpu/models/gpt.py``).
+
+Ported: the config, the shared block builders, and the two fixed-shape
+programs of the decode serving lane — ``build_gpt_decode_step`` and
+``build_gpt_prefill_chunk`` — over an fp32 paged KV pool.  Parameter
+names are the JAX package's (``gpt_word_embedding``,
+``decoder_layer_{i}_att_query_fc.w_0``, ...), so weights carry across by
+name.  The training and whole-sequence generation programs, the int8
+pool and the builders' ``pool_dtype`` / ``pool_prefix`` / ``attn_force``
+arguments are still to be ported.
+"""
+
+from __future__ import annotations
+
+from paddle_tpu_torch import fluid
+from paddle_tpu_torch.fluid import layers
+from paddle_tpu_torch.fluid.initializer import Normal
+from paddle_tpu_torch.fluid.param_attr import ParamAttr
+
+__all__ = ["GPTConfig", "KV_POOL_PREFIX", "kv_pool_var_names",
+           "build_gpt_decode_step", "build_gpt_prefill_chunk"]
+
+
+class GPTConfig:
+    def __init__(self, vocab_size=32000, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=3072, max_position=1024,
+                 hidden_dropout=0.1, initializer_range=0.02,
+                 use_flash_attention=True):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size
+        self.max_position = max_position
+        self.hidden_dropout = hidden_dropout
+        self.initializer_range = initializer_range
+        self.use_flash_attention = use_flash_attention
+
+    @classmethod
+    def tiny(cls, **kw):
+        d = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+                 intermediate_size=128, max_position=128)
+        d.update(kw)
+        return cls(**d)
+
+
+def _fc(x, size, name, act=None, init_std=0.02, nfd=2):
+    return layers.fc(
+        x, size=size, num_flatten_dims=nfd, act=act,
+        param_attr=ParamAttr(name=name + ".w_0",
+                             initializer=Normal(0.0, init_std)),
+        bias_attr=ParamAttr(name=name + ".b_0"))
+
+
+def _ln(x, name, axis=2):
+    return layers.layer_norm(x, begin_norm_axis=axis,
+                             param_attr=ParamAttr(name=name + "_scale"),
+                             bias_attr=ParamAttr(name=name + "_bias"))
+
+
+def _ffn_block(x, cfg: GPTConfig, name):
+    """Pre-LN FFN + residual."""
+    ffn = _fc(_ln(x, name + "_ln_ffn"), cfg.intermediate_size,
+              name + "_ffn_fc_0", act="gelu", init_std=cfg.initializer_range)
+    ffn = _fc(ffn, cfg.hidden_size, name + "_ffn_fc_1",
+              init_std=cfg.initializer_range)
+    return layers.elementwise_add(x, ffn)
+
+
+def _lm_logits(h, cfg: GPTConfig):
+    """Weight-tied LM head: logits = h @ word_embedding^T."""
+    word_emb = fluid.default_main_program().global_block().var(
+        "gpt_word_embedding")
+    flat = layers.reshape(h, shape=[-1, cfg.hidden_size])
+    return layers.matmul(flat, word_emb, transpose_y=True)  # [B*S, V]
+
+
+# ---------------------------------------------------------------------------
+# Paged decode lane (serving/decode.py): fixed-shape prefill-chunk and
+# decode-step programs over a paged KV pool (serving/kv_pool.py).  The
+# pool vars are persistable program vars; the kv_cache_write ops update
+# them in place in the scope.
+# ---------------------------------------------------------------------------
+
+KV_POOL_PREFIX = "@KVPOOL@"
+
+
+def kv_pool_var_names(num_layers):
+    """The per-layer (K, V) pool var names the programs and
+    serving.kv_pool.KVPool agree on."""
+    return [(f"{KV_POOL_PREFIX}k_l{i}", f"{KV_POOL_PREFIX}v_l{i}")
+            for i in range(num_layers)]
+
+
+def _declare_pool_vars(cfg: GPTConfig, num_pages, page_size):
+    """The fp32 pool vars [num_pages, page_size, n, d], one K and one V
+    per layer."""
+    n, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    block = fluid.default_main_program().global_block()
+    return [tuple(block.create_var(name=nm,
+                                   shape=[num_pages, page_size, n, d],
+                                   dtype="float32", persistable=True)
+                  for nm in pair)
+            for pair in kv_pool_var_names(cfg.num_layers)]
+
+
+def _paged_layer(x, pool_kv, cfg, name, write_kv, page_table, q_start):
+    """One pre-LN decoder block whose attention writes this call's K/V
+    into the pool (``write_kv``) and reads the prefix back through the
+    page table."""
+    L = layers
+    h, n = cfg.hidden_size, cfg.num_heads
+    d = h // n
+    xa = _ln(x, name + "_ln_attn")
+    q = _fc(xa, h, name + "_att_query_fc", init_std=cfg.initializer_range)
+    k = _fc(xa, h, name + "_att_key_fc", init_std=cfg.initializer_range)
+    v = _fc(xa, h, name + "_att_value_fc", init_std=cfg.initializer_range)
+    q_h = L.transpose(L.reshape(q, shape=[0, 0, n, d]), perm=[0, 2, 1, 3])
+    k_pool, v_pool = pool_kv
+    write_kv(k_pool, L.reshape(k, shape=[-1, n, d]))
+    write_kv(v_pool, L.reshape(v, shape=[-1, n, d]))
+    ctx = L.paged_attention(q_h, k_pool, v_pool, page_table, q_start,
+                            sm_scale=float(d) ** -0.5)
+    ctx = L.reshape(L.transpose(ctx, perm=[0, 2, 1, 3]), shape=[0, 0, h])
+    attn = _fc(ctx, h, name + "_att_output_fc",
+               init_std=cfg.initializer_range)
+    return _ffn_block(L.elementwise_add(x, attn), cfg, name)
+
+
+def build_gpt_decode_step(cfg: GPTConfig, pool_slots, num_pages,
+                          page_size, max_pages):
+    """ONE token-level decode step over the paged KV pool.
+
+    Per slot s: embed dec_tok[s] at position dec_pos[s], write each
+    layer's new K/V at (dec_write_page[s], dec_write_off[s]), attend the
+    slot's pool prefix through dec_page_table[s], and emit the greedy
+    next token (log_softmax → argmax).  Inactive slots carry page-table
+    zeros (the trash page) and position 0; the scheduler ignores their
+    outputs.
+
+    Returns (feed_names, next_tok [pool_slots] int64, logprobs
+    [pool_slots, vocab])."""
+    L = layers
+    h = cfg.hidden_size
+    ps = int(pool_slots)
+
+    tok = fluid.data("dec_tok", [ps, 1], False, dtype="int64")
+    pos = fluid.data("dec_pos", [ps, 1], False, dtype="int64")
+    page_table = fluid.data("dec_page_table", [ps, int(max_pages)], False,
+                            dtype="int32")
+    write_page = fluid.data("dec_write_page", [ps], False, dtype="int32")
+    write_off = fluid.data("dec_write_off", [ps], False, dtype="int32")
+    pool = _declare_pool_vars(cfg, num_pages, page_size)
+    q_start = L.cast(L.reshape(pos, shape=[-1]), "int32")  # [PS]
+
+    emb = L.embedding(tok, size=[cfg.vocab_size, h],
+                      param_attr=ParamAttr(name="gpt_word_embedding"))
+    pemb = L.embedding(pos, size=[cfg.max_position, h],
+                       param_attr=ParamAttr(name="gpt_pos_embedding"))
+    x = L.reshape(L.elementwise_add(emb, pemb), shape=[-1, 1, h])
+
+    def write_kv(pool_var, new):
+        L.kv_cache_write(pool_var, new, write_page, write_off)
+
+    for li in range(cfg.num_layers):
+        x = _paged_layer(x, pool[li], cfg, f"decoder_layer_{li}", write_kv,
+                         page_table, q_start)
+
+    logits = _lm_logits(_ln(x, "gpt_final_ln"), cfg)       # [PS, V]
+    logp = L.log_softmax(logits)
+    next_tok = L.argmax(logp, axis=-1)                     # [PS] int64
+    feeds = ["dec_tok", "dec_pos", "dec_page_table", "dec_write_page",
+             "dec_write_off"]
+    return feeds, next_tok, logp
+
+
+def build_gpt_prefill_chunk(cfg: GPTConfig, chunk_len, num_pages,
+                            page_size, max_pages):
+    """One prefill CHUNK of a single sequence through the paged pool:
+    the chunk's K/V go into whole pool pages and the chunk attends the
+    previously written prefix through the page table.  ``chunk_len``
+    must be a multiple of ``page_size``.  The K/V are cast to the pool
+    dtype before the write (the JAX package's KVSink stamp).
+
+    Feeds: pf_tok/pf_pos [1, C] int64, pf_page_table [1, max_pages]
+    int32, pf_write_pages [C/page_size] int32 (trash page 0 past the
+    valid tail), pf_qstart [1] int32 (tokens already in the pool),
+    pf_last_idx [1] int64 (the last valid token of this chunk).
+
+    Returns (feed_names, next_tok [1] int64, logprobs [1, vocab])."""
+    L = layers
+    h = cfg.hidden_size
+    c = int(chunk_len)
+    if c % int(page_size):
+        raise ValueError(
+            f"prefill chunk_len {c} must be a multiple of page_size "
+            f"{page_size} (chunks write whole pages)")
+
+    tok = fluid.data("pf_tok", [1, c], False, dtype="int64")
+    pos = fluid.data("pf_pos", [1, c], False, dtype="int64")
+    page_table = fluid.data("pf_page_table", [1, int(max_pages)], False,
+                            dtype="int32")
+    write_pages = fluid.data("pf_write_pages", [c // int(page_size)], False,
+                             dtype="int32")
+    q_start = fluid.data("pf_qstart", [1], False, dtype="int32")
+    last_idx = fluid.data("pf_last_idx", [1], False, dtype="int64")
+    pool = _declare_pool_vars(cfg, num_pages, page_size)
+
+    emb = L.embedding(tok, size=[cfg.vocab_size, h],
+                      param_attr=ParamAttr(name="gpt_word_embedding"))
+    pemb = L.embedding(pos, size=[cfg.max_position, h],
+                       param_attr=ParamAttr(name="gpt_pos_embedding"))
+    x = L.elementwise_add(emb, pemb)                       # [1, C, H]
+
+    def write_kv(pool_var, new):
+        L.kv_cache_write_pages(pool_var, L.cast(new, "float32"),
+                               write_pages)
+
+    for li in range(cfg.num_layers):
+        x = _paged_layer(x, pool[li], cfg, f"decoder_layer_{li}", write_kv,
+                         page_table, q_start)
+
+    # logits of the last VALID chunk position
+    flat = L.reshape(x, shape=[-1, h])                     # [C, H]
+    h_last = L.reshape(L.gather(flat, last_idx), shape=[-1, 1, h])
+    logits = _lm_logits(_ln(h_last, "gpt_final_ln"), cfg)  # [1, V]
+    logp = L.log_softmax(logits)
+    next_tok = L.argmax(logp, axis=-1)                     # [1] int64
+    feeds = ["pf_tok", "pf_pos", "pf_page_table", "pf_write_pages",
+             "pf_qstart", "pf_last_idx"]
+    return feeds, next_tok, logp

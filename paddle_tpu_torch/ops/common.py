@@ -1,0 +1,34 @@
+"""Shared helpers for op lowerings (counterpart of
+``paddle_tpu/ops/common.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.fluid.registry import torch_dtype
+
+
+def np_dtype(name) -> torch.dtype:
+    """The torch dtype an op's dtype attr names."""
+    return torch_dtype(name)
+
+
+def bcast_to(y, x, axis):
+    """Fluid elementwise broadcast: Y's dims align with X's starting at
+    `axis`; axis=-1 means right-aligned (numpy rules)."""
+    xr, yr = x.dim(), y.dim()
+    if axis is None or axis == -1 or yr == xr:
+        return y
+    # pad Y with trailing 1s so its dims sit at positions [axis, axis+yr)
+    return y.reshape([1] * axis + list(y.shape) + [1] * (xr - axis - yr))
+
+
+def flatten_to_2d(x, num_col_dims):
+    """`mul` semantics: collapse the leading num_col_dims dims into rows,
+    the rest into cols."""
+    rows = cols = 1
+    for s in x.shape[:num_col_dims]:
+        rows *= s
+    for s in x.shape[num_col_dims:]:
+        cols *= s
+    return x.reshape(rows, cols)

@@ -1,0 +1,244 @@
+"""fuse_bias_act_dropout: fuse the FFN ``elementwise_add(bias) -> gelu
+-> [dropout]`` chain into one ``fused_bias_act_dropout`` op.
+
+The fc layer emits ``mul`` + ``elementwise_add`` + activation as three
+ops; with the hidden-dropout that follows in transformer FFN blocks, the
+chain materializes up to two activation-sized fp32 intermediates per
+block.  The fused op (ops/fused_ops.py -> kernels/fused_bias_act.py)
+runs the whole chain in one kernel — the hand-written CUDA kernel K4 on
+the GPU, its plain PyTorch version on the CPU.  This is the JAX
+package's pass unchanged (it rewrites the IR only), so both packages
+fuse exactly the same sites.  The grad op it emits for training
+programs is registered with the training slice.
+
+Match contract:
+
+- ``elementwise_add`` whose Y is a RANK-1 var sized to X's (static)
+  last dim, with the bias-broadcast axis (``axis`` in {-1, x_rank-1} —
+  the fc ``append_bias_op`` convention).  Residual adds (rank-N + rank-N)
+  never match.
+- its single forward consumer is ``gelu``; gelu's single forward
+  consumer may be a ``dropout`` (any mode) with
+  ``upscale_in_train`` semantics — the absorbed dropout's mask stream
+  is pinned via the ``rng_op_index`` attr (ops/common.py op_rng_key) so
+  the fused program draws the SAME masks the unfused one would; the
+  Mask output is preserved for the backward.
+- intermediates are single-use, non-persistable, not in keep_vars.
+- training programs: the chain's grad ops (``dropout_grad`` /
+  ``gelu_grad`` / ``elementwise_add_grad``, located by ``fwd_op_idx``)
+  are replaced by ONE ``fused_bias_act_dropout_grad`` that reapplies
+  the SAVED mask — forward/backward agree exactly, like the standalone
+  dropout op.
+"""
+
+from __future__ import annotations
+
+from paddle_tpu_torch.fluid.framework import Operator
+
+from .framework import (ProgramPass, consumer_map, grad_groups,
+                        rebuild_block, register_program_pass,
+                        single_forward_consumer, static_numel)
+
+_GRAD_TYPES = frozenset(("elementwise_add_grad", "gelu_grad",
+                         "dropout_grad", "sum"))
+
+
+def _var(block, name):
+    return block._find_var_recursive(name)
+
+
+@register_program_pass
+class FuseBiasActDropoutPass(ProgramPass):
+    name = "fuse_bias_act_dropout"
+
+    def apply(self, program, ctx):
+        block = program.global_block()
+        cons = consumer_map(program)
+        groups = grad_groups(block)
+        claimed = set()
+        matches = []
+        for idx, op in enumerate(block.ops):
+            if id(op) in claimed:
+                continue
+            m = self._match(program, block, cons, idx, op, ctx, claimed)
+            if m is None:
+                continue
+            g = self._match_backward(block, cons, groups, m)
+            if g is None:
+                continue
+            m["grad"] = g
+            for o in m["chain_ops"] + g["ops"]:
+                claimed.add(id(o))
+            matches.append(m)
+        if not matches:
+            return {"changed": False, "sites": 0}
+        modeled = self._rewrite(program, block, matches)
+        return {"changed": True, "sites": len(matches),
+                "modeled_bytes_saved": modeled,
+                "dropout_sites": sum(1 for m in matches if m["dropout"])}
+
+    # -- matching ------------------------------------------------------
+    def _match(self, program, block, cons, idx, op, ctx, claimed):
+        if op.type != "elementwise_add":
+            return None
+        x, b = op.input("X")[0], op.input("Y")[0]
+        xv, bv = _var(block, x), _var(block, b)
+        if xv is None or bv is None or xv.shape is None \
+                or bv.shape is None or len(bv.shape) != 1:
+            return None
+        if len(xv.shape) < 2 or bv.shape[0] <= 0 \
+                or xv.shape[-1] != bv.shape[0]:
+            return None
+        if op.attrs.get("axis", -1) not in (-1, len(xv.shape) - 1):
+            return None
+        chain = [op]
+        internals = []
+        cur = op.output("Out")[0]
+        # block-scoped walks: a sub-block consumer ends the chain — the
+        # matcher's indices and rewrite cover block 0 only
+        nxt = single_forward_consumer(cons, cur, block=block)
+        if nxt is None or nxt.type != "gelu" or nxt.input("X") != [cur]:
+            return None
+        chain.append(nxt)
+        internals.append(cur)
+        approximate = bool(nxt.attrs.get("approximate", False))
+        cur = nxt.output("Out")[0]
+        drop = None
+        nxt = single_forward_consumer(cons, cur, block=block)
+        if nxt is not None and nxt.type == "dropout" \
+                and nxt.input("X") == [cur] \
+                and nxt.attrs.get("dropout_implementation",
+                                  "downgrade_in_infer") \
+                == "upscale_in_train":
+            # (a fetched Mask stays fetchable: the fused op re-emits it
+            # under the same name with the same pinned stream)
+            mask = nxt.outputs.get("Mask", [None])[0]
+            drop = nxt
+            chain.append(nxt)
+            internals.append(cur)
+            cur = nxt.output("Out")[0]
+        if any(id(o) in claimed for o in chain):
+            return None
+        for n in internals:
+            if n in ctx.keep_vars:
+                return None
+            var = _var(block, n)
+            if var is not None and var.persistable:
+                return None
+        idx_of = {id(o): i for i, o in enumerate(block.ops)}
+        return {"chain_ops": chain, "internals": internals,
+                "x": x, "bias": b, "out": cur,
+                "approximate": approximate, "dropout": drop,
+                "mask": (drop.outputs.get("Mask", [None])[0]
+                         if drop is not None else None),
+                # the absorbed dropout's pre-fusion trace identity (the
+                # manager's pin_random_streams stamp): what op_rng_key
+                # would have folded in for the unfused program
+                "rng_op_index": (drop.attrs.get(
+                    "rng_op_index", (block.idx << 16) | idx_of[id(drop)])
+                    if drop is not None else None),
+                "op_role": chain[0].attrs.get("op_role")}
+
+    def _match_backward(self, block, cons, groups, m):
+        idx_of = {id(op): i for i, op in enumerate(block.ops)}
+        fwd_idxs = [idx_of[id(o)] for o in m["chain_ops"]]
+        gops = [g for i in fwd_idxs for g in groups.get(i, [])]
+        if not gops:
+            return {"ops": []}
+        if any(g.type not in _GRAD_TYPES for g in gops):
+            return None
+        add_g = [g for g in gops if g.type == "elementwise_add_grad"]
+        last = m["chain_ops"][-1]
+        last_g = [g for g in gops
+                  if g.attrs.get("fwd_op_idx") == idx_of[id(last)]]
+        if len(add_g) != 1 or len(last_g) != 1:
+            return None
+        out_grad = last_g[0].inputs.get("Out@GRAD", [None])[0]
+        if out_grad is None:
+            return None
+        xg = add_g[0].outputs.get("X@GRAD", [None])[0]
+        bg = add_g[0].outputs.get("Y@GRAD", [None])[0]
+        group_ids = {id(g) for g in gops}
+        chain_ids = {id(o) for o in m["chain_ops"]}
+        internal_ok = chain_ids | group_ids
+        exits = {n for n in (xg, bg) if n}
+        for g in gops:
+            for n in g.output_arg_names:
+                if n in exits:
+                    continue
+                for user in cons.get(n, []):
+                    if id(user) not in internal_ok:
+                        return None
+        for n in m["internals"]:
+            for user in cons.get(n, []):
+                if id(user) not in internal_ok:
+                    return None
+        # the saved mask feeds dropout_grad only (inside the group)
+        if m["mask"]:
+            for user in cons.get(m["mask"], []):
+                if id(user) not in internal_ok:
+                    return None
+        return {"ops": gops, "out_grad": out_grad, "xg": xg, "bg": bg}
+
+    # -- rewriting -----------------------------------------------------
+    def _rewrite(self, program, block, matches):
+        idx_of = {id(op): i for i, op in enumerate(block.ops)}
+        remove, inserts = set(), {}
+        modeled = 0
+        for m in matches:
+            for n in m["internals"]:
+                numel = static_numel(block, n)
+                if numel is not None:
+                    modeled += 8 * numel
+            drop = m["dropout"]
+            attrs = {"act": "gelu", "approximate": m["approximate"],
+                     "dropout_prob": (float(drop.attrs.get("dropout_prob",
+                                                           0.5))
+                                      if drop is not None else 0.0),
+                     "dropout_implementation": "upscale_in_train"}
+            if drop is not None:
+                attrs["is_test"] = bool(drop.attrs.get("is_test", False))
+                attrs["rng_op_index"] = int(m["rng_op_index"])
+                if drop.attrs.get("seed"):
+                    attrs["seed"] = drop.attrs["seed"]
+            if m["op_role"] is not None:
+                attrs["op_role"] = m["op_role"]
+            outputs = {"Out": [m["out"]]}
+            if m["mask"]:
+                outputs["Mask"] = [m["mask"]]
+            fused = Operator(block, "fused_bias_act_dropout",
+                             inputs={"X": [m["x"]], "Bias": [m["bias"]]},
+                             outputs=outputs, attrs=attrs)
+            out_var = _var(block, m["out"])
+            if out_var is not None:
+                out_var.op = fused
+            chain_idxs = [idx_of[id(o)] for o in m["chain_ops"]]
+            for o in m["chain_ops"]:
+                remove.add(id(o))
+            inserts[id(m["chain_ops"][0])] = ([fused], chain_idxs)
+            g = m["grad"]
+            if g["ops"]:
+                gin = {"X": [m["x"]], "Bias": [m["bias"]],
+                       "Out@GRAD": [g["out_grad"]]}
+                if m["mask"]:
+                    gin["Mask"] = [m["mask"]]
+                gouts = {}
+                if g["xg"]:
+                    gouts["X@GRAD"] = [g["xg"]]
+                if g["bg"]:
+                    gouts["Bias@GRAD"] = [g["bg"]]
+                gattrs = dict(attrs)
+                gattrs["op_role"] = "backward"
+                gattrs["fwd_op_idx"] = chain_idxs[0]
+                gop = Operator(block, "fused_bias_act_dropout_grad",
+                               inputs=gin, outputs=gouts, attrs=gattrs)
+                earliest = min(g["ops"], key=lambda o: idx_of[id(o)])
+                for o in g["ops"]:
+                    remove.add(id(o))
+                prev = inserts.get(id(earliest))
+                if prev is None:
+                    inserts[id(earliest)] = ([gop], [])
+                else:
+                    prev[0].append(gop)
+        rebuild_block(block, remove, inserts)
+        return modeled
