@@ -7,18 +7,31 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every kernel under paddle_tpu_torch/csrc, one nvcc each, all
      started together, for sm_90a.
-  3. kernels: each kernel's wrapper on tensors on the card at the decode
-     lane's shapes, held against its plain PyTorch version; timed against
-     the plain version and its bound.
-  4. path: GPTConfig() at full width (random weights from the port's own
-     startup program, fixed seed) served by DecodeEngine: 16 seeded
-     requests of 8-512 prompt tokens, 32 new tokens each.  Every
-     kernel's launch count must be exactly 12 (layers) x program runs.
-  5. parity: the same weights on a CPUPlace executor (plain versions):
-     logprobs of prefill chunks and a decode step, and the greedy ids of
-     two requests, against the card's.
+  3. kernels: each kernel's wrapper on tensors on the card at the shapes
+     its path gives it, held against its plain PyTorch version; timed
+     against the plain version, its bound and, where one PyTorch call
+     computes the same function, that call (library_ms).
+  4. train path: BERT-base pretraining (vocab 30528, flash attention,
+     hidden dropout 0.1) at b128 s128 under the bf16 dtype policy with
+     Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0):
+     2 warm-up and 10 timed steps on one batch.  Losses finite and
+     falling; launch counts exactly 24 (K1: 12 layers, forward and the
+     grad op's recompute), 12 (K2, K3) and 13 (K4) per step.  Then a
+     torch.profiler breakdown of one step.
+  5. train parity: the same network at full width, 2 layers, b4 s128,
+     fp32, dropout 0: 3 Adam steps on the card and on a CPUPlace
+     executor from the same parameters.
+  6. decode path: GPTConfig() at full width (random weights from the
+     port's own startup program, fixed seed) served by DecodeEngine: 16
+     seeded requests of 8-512 prompt tokens, 32 new tokens each.  K4 and
+     K5 launch exactly 12 (layers) x program runs.
+  7. decode parity: the same weights on a CPUPlace executor (plain
+     versions): logprobs of prefill chunks and a decode step, and the
+     greedy ids of two requests, against the card's.
 
-The last lines are the kernels JSON, the nvidia-smi line, and
+Each path runs with every launch count set to 0 just before it and read
+just after; a kernel of the path launched no time fails the run.  The
+last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Exits non-zero (and prints no result)
 without CUDA or without the package beside it.
 """
@@ -41,14 +54,33 @@ K5_TOL = dict(atol=2e-5, rtol=1e-4)
 # K4 kernel vs plain: the same elementwise formula; erfcf/tanhf in the
 # kernel and PyTorch's CUDA erfc/tanh may differ by an ulp.
 K4_TOL = dict(atol=1e-6, rtol=1e-6)
+# K4 in bf16: kernel and plain version both round the same fp32 value to
+# bf16, so they may differ by one bf16 ulp (2^-8 relative)
+K4_BF16_TOL = dict(atol=8e-3, rtol=8e-3)
+# K1-K3 vs plain: fp32 sums over 64-key (or 64-query) tiles vs one
+# matmul; in bf16 both round one fp32 result, so one bf16 ulp apart
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# dBias sums dL over every query: fp32 in both, other order
+FLASH_DBIAS_TOL = dict(atol=1e-4, rtol=1e-4)
 # full model on the card vs on the CPU: 12 layers of fp32 matmuls summed
 # in other orders (cuBLAS vs the CPU BLAS) before a 32000-way log_softmax
 PATH_LOGP_ATOL = 1e-3
+# BERT training on the card vs the CPU, fp32: per-step losses; and the
+# parameters of one layer after 3 Adam steps, where one element's update
+# is at most lr in size and its sign can follow a grad that is zero up
+# to the two BLAS libraries' rounding: max abs diff within 3 x lr, mean
+# abs diff within 1e-6
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_LR = 1e-4
+TRAIN_PARAM_MAX_ATOL = 3 * TRAIN_LR
+TRAIN_PARAM_MEAN_ATOL = 1e-6
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
-# fp32 (non-tensor-core) flop/s
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32
+# (non-tensor-core) flop/s and bf16 dense tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 GELU_FLOPS_PER_ELEMENT = 10  # add, scale, erfc, mul... as counted in PERF.md
 SLEEP_CYCLES = 400_000_000  # ~0.2 s of device sleep ahead of a timed run
 
@@ -130,10 +162,10 @@ def _paged_inputs(dev, b, n, t, d, page_size, max_pages, num_pages,
             torch.tensor(q_start, dtype=torch.int32, device=dev))
 
 
-def _bound(byts, flops):
+def _bound(byts, flops, peak=FP32_FLOPS):
     """(least ms on the card, what bounds it): bytes over the HBM rate vs
-    flops over the fp32 rate."""
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    flops over the ``peak`` rate (fp32 SIMT unless given)."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -228,8 +260,321 @@ def check_bias_gelu(dev, rng):
     return worst, timings
 
 
+def check_bias_gelu_bf16(dev, rng):
+    """K4 on bf16 input at the training path's two shapes: the 12 FFN
+    fc_0 outputs [b*s, 3072] and the MLM head [b*s/8, 768]."""
+    from paddle_tpu_torch.kernels import fused_bias_act as fba
+
+    worst, timings = 0.0, {}
+    for r, h in ((16384, 3072), (2048, 768)):
+        x = torch.from_numpy(rng.randn(r, h).astype(np.float32) * 3).to(
+            dev, torch.bfloat16)
+        bias = torch.from_numpy(rng.randn(h).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        got = fba.fused_bias_gelu(x, bias)
+        want = fba.fused_bias_gelu_reference(x, bias)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != torch.bfloat16 \
+                or not torch.allclose(got.float(), want.float(),
+                                      **K4_BF16_TOL):
+            raise AssertionError(f"fused_bias_gelu bf16 [{r},{h}]: max abs "
+                                 f"err {err} outside {K4_BF16_TOL}")
+        worst = max(worst, err)
+        ms = _time_ms(lambda: fba.fused_bias_gelu(x, bias), 50)
+        plain_ms = _time_ms(lambda: fba.fused_bias_gelu_reference(x, bias),
+                            20)
+        byts = r * h * 2 * 2 + h * 2
+        bound_ms, bound_by = _bound(byts, r * h * GELU_FLOPS_PER_ELEMENT)
+        timings[f"[{r},{h}] bf16"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=byts, max_abs_err=err)
+    return worst, timings
+
+
+def _flash_inputs(dev, b, h, s, d, dtype, rng):
+    """q, k, v, dO as the BERT program hands them to the op: [B, H, S, D]
+    transposed views of [B, S, H, D] activations; a key bias [B*H, S]
+    with -1e4 pads on a quarter of the rows' tails."""
+    def t():
+        a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+        return a.to(dev, dtype).transpose(1, 2)
+
+    q, k, v, do = t(), t(), t(), t()
+    bias = np.zeros((b, s), np.float32)
+    bias[::4, s - s // 4:] = -1e4
+    rows = torch.from_numpy(np.repeat(bias, h, axis=0)).to(dev)
+    return q, k, v, do, rows
+
+
+def _flash_bounds(bh, s, d, elem, causal):
+    """(ms, bound_by) of K1, K2, K3: each operand read once and each
+    output written once at HBM rate vs the products' flops (2 per
+    multiply-add over the live (query, key) pairs) at the bf16
+    tensor-core rate."""
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    mat = elem * bh * s * d      # one [BH, S, D] operand
+    row = 4 * bh * s             # one fp32 [BH, S] row vector
+    k1 = _bound(3 * mat + row + mat + row, 2 * 2 * pairs * d, BF16_TC_FLOPS)
+    k2 = _bound(4 * mat + 3 * row + mat, 3 * 2 * pairs * d, BF16_TC_FLOPS)
+    k3 = _bound(4 * mat + 3 * row + 2 * mat + row, 4 * 2 * pairs * d,
+                BF16_TC_FLOPS)
+    return k1, k2, k3
+
+
+def _sdpa_ms(q, k, v, do, rows, scale):
+    """The library yardstick: scaled_dot_product_attention with the same
+    float key mask, forward, and its backward (dQ, dK, dV together)."""
+    import torch.nn.functional as F
+
+    b, h, s, _ = q.shape
+    mask = rows.reshape(b, h, 1, s).to(q.dtype)
+    fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale), 20)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                         scale=scale)
+    bwd = _time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                               retain_graph=True), 20)
+    return fwd, bwd
+
+
+def check_flash(dev, rng):
+    """K1, K2, K3 against their plain versions: at the BERT path's shape
+    (BH = 1536, S = 128, D = 64, bf16) and at S = 200 (a ragged tile),
+    causal on and off, in fp32.  Timed at the path's shape."""
+    from paddle_tpu_torch.kernels.primitives import flash
+
+    cases = [("path", 128, 12, 128, 64, torch.bfloat16, False),
+             ("ragged", 4, 12, 200, 64, torch.float32, False),
+             ("ragged_causal", 4, 12, 200, 64, torch.float32, True)]
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    timings = {}
+    for name, b, h, s, d, dtype, causal in cases:
+        q, k, v, do, rows = _flash_inputs(dev, b, h, s, d, dtype, rng)
+        scale = d ** -0.5
+        o, lse = flash.flash_fwd(q, k, v, rows, causal, scale)
+        o_ref, lse_ref = flash.flash_fwd(q, k, v, rows, causal, scale,
+                                         force="reference")
+        lse_rows = lse_ref.reshape(b * h, s)
+        delta = (do.float() * o_ref.float()).sum(-1).reshape(b * h, s)
+        bargs = (q, k, v, rows, do, lse_rows, delta, causal, scale)
+        dq = flash.flash_bwd_dq(*bargs)
+        dk, dv, db = flash.flash_bwd_dkv(*bargs)
+        dq_ref = flash.flash_bwd_dq(*bargs, force="reference")
+        dk_ref, dv_ref, db_ref = flash.flash_bwd_dkv(*bargs,
+                                                     force="reference")
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        for kern, got, want, t in (
+                ("flash_fwd", o, o_ref, tol),
+                ("flash_fwd", lse, lse_ref, FLASH_TOL[torch.float32]),
+                ("flash_bwd_dq", dq, dq_ref, tol),
+                ("flash_bwd_dkv", dk, dk_ref, tol),
+                ("flash_bwd_dkv", dv, dv_ref, tol),
+                ("flash_bwd_dkv", db, db_ref, FLASH_DBIAS_TOL)):
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), **t) \
+                    or not torch.isfinite(got).all():
+                raise AssertionError(f"{kern} {name}: max abs err {err} "
+                                     f"outside {t}")
+            worst[kern] = max(worst[kern], err)
+        if name != "path":
+            continue
+        k1, k2, k3 = _flash_bounds(b * h, s, d, 2, causal)
+        lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do, rows, scale)
+        for kern, fn, plain, (bound_ms, bound_by), lib in (
+                ("flash_fwd",
+                 lambda: flash.flash_fwd(q, k, v, rows, causal, scale),
+                 lambda: flash.flash_fwd(q, k, v, rows, causal, scale,
+                                         force="reference"), k1, lib_fwd),
+                ("flash_bwd_dq", lambda: flash.flash_bwd_dq(*bargs),
+                 lambda: flash.flash_bwd_dq(*bargs, force="reference"), k2,
+                 lib_bwd),
+                ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(*bargs),
+                 lambda: flash.flash_bwd_dkv(*bargs, force="reference"), k3,
+                 lib_bwd)):
+            timings[kern] = dict(
+                ms=_time_ms(fn, 30), plain_ms=_time_ms(plain, 10),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                shape=[b * h, s, d], dtype="bfloat16")
+        timings["sdpa_note"] = ("library_ms: flash_fwd against SDPA "
+                                "forward; flash_bwd_dq and flash_bwd_dkv "
+                                "each against SDPA's whole backward")
+    return worst, timings
+
+
 # ---------------------------------------------------------------------------
-# phases 4-5: the decode lane at full width, and its CPU parity
+# phases 4-5: BERT-base training at full width, and its CPU parity
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 128, 128
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+
+
+def _bert_program(cfg, bf16):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    if bf16:
+        enable_bf16_policy(main)
+    startup.random_seed = SEED
+    return main, startup, loss
+
+
+def run_train_path(counters):
+    """BERT-base, b128 s128, bf16 policy, Adam, flash, on the card."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                               attn_dropout=0.0)
+    main, startup, loss = _bert_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(_gpu_place())
+    exe.run(startup, scope=scope)
+    feed = bert.make_fake_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counters.values():
+        w.launches = 0
+    losses, secs = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        secs.append(time.perf_counter() - t0)  # the fetch synchronizes
+        losses.append(float(lv))
+    launches = {k: w.launches for k, w in counters.items()}
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    expect = {"flash_fwd": 2 * cfg.num_layers * steps,
+              "flash_bwd_dq": cfg.num_layers * steps,
+              "flash_bwd_dkv": cfg.num_layers * steps,
+              "fused_bias_act": (cfg.num_layers + 1) * steps}
+    if launches != expect:
+        raise AssertionError(f"train path launches {launches}, expected "
+                             f"{expect}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train path losses not finite and falling: "
+                             f"{losses}")
+    timed = np.asarray(secs[TRAIN_WARMUP:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = bert.train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    path = dict(model="BertConfig.base(vocab_size=30528)", batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, dtype_policy="bf16", steps=TRAIN_STEPS,
+                warmup_steps=TRAIN_WARMUP, losses=losses,
+                tokens_per_s=tokens * TRAIN_STEPS / float(timed.sum()),
+                step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+                step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+                model_flops_per_step=flops,
+                mfu_vs_989_tflops=flops / float(np.median(timed))
+                / BF16_TC_FLOPS,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches)
+    return (exe, main, scope, feed, loss), path
+
+
+def _profile(step, n):
+    """Host wall time vs summed device time of ``n`` calls of ``step``
+    (torch.profiler), with the top device and host ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n
+    dev, host = [], []
+    for e in prof.key_averages():
+        # device-side events (kernels, copies) only: a CPU op such as
+        # aten::mm also carries the device time of the kernels under it
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            d_us = (getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0) or 0)
+            dev.append((d_us, e.key, e.count))
+        else:
+            host.append((getattr(e, "self_cpu_time_total", 0) or 0, e.key,
+                         e.count))
+    dev_us = sum(t for t, _, _ in dev)
+
+    def top(rows, k=8):
+        return [[key[:60], round(t / n, 1), c // n]
+                for t, key, c in sorted(rows, reverse=True)[:k]]
+
+    return dict(wall_profiled_ms=1e3 * wall,
+                device_busy_ms=dev_us / n / 1e3 if dev_us else None,
+                device_events=sum(c for _, _, c in dev) // n,
+                top_device_us=top(dev), top_host_self_us=top(host))
+
+
+def profile_train_step(state):
+    exe, main, scope, feed, loss = state
+    out = _profile(lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=scope), 1)
+    t0 = time.perf_counter()
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    if out["device_busy_ms"]:
+        out["device_idle_share"] = 1 - out["device_busy_ms"] \
+            / out["step_wall_ms"]
+    return out
+
+
+def run_train_parity():
+    """Full width, 2 layers, b4 s128, fp32, dropout 0: 3 Adam steps on
+    the card and on the CPU from the same parameters."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(vocab_size=30528, num_layers=2,
+                               use_flash_attention=True, attn_dropout=0.0,
+                               hidden_dropout=0.0)
+    main, startup, loss = _bert_program(cfg, bf16=False)
+    feed = bert.make_fake_batch(cfg, 4, 128, seed=1)
+    gpu = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=gpu)
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    convert.load_params(cpu, {p.name: gpu.get(p.name).cpu().numpy()
+                              for p in main.all_parameters()},
+                        fluid.CPUPlace(), program=main)
+    losses = {}
+    for key, scope, place in (("gpu", gpu, _gpu_place()),
+                              ("cpu", cpu, fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        losses[key] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0]) for _ in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["gpu"],
+                                                  losses["cpu"]))
+    if not rel < TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train parity: losses {losses}, max rel diff "
+                             f"{rel} >= {TRAIN_LOSS_RTOL}")
+    layer = [p.name for p in main.all_parameters()
+             if p.name.startswith("encoder_layer_1_")]
+    worst, mean = 0.0, 0.0
+    for n in layer:
+        d = np.abs(gpu.get(n).cpu().numpy() - cpu.get(n).numpy())
+        worst, mean = max(worst, float(d.max())), max(mean, float(d.mean()))
+    if not (worst <= TRAIN_PARAM_MAX_ATOL and mean <= TRAIN_PARAM_MEAN_ATOL):
+        raise AssertionError(f"train parity: encoder_layer_1 params differ "
+                             f"by max {worst} / mean {mean}")
+    return dict(losses=losses, loss_max_rel_diff=rel,
+                loss_rtol=TRAIN_LOSS_RTOL, layer="encoder_layer_1",
+                layer_params=len(layer), param_max_abs_diff=worst,
+                param_mean_abs_diff=mean,
+                param_tol=[TRAIN_PARAM_MAX_ATOL, TRAIN_PARAM_MEAN_ATOL])
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the decode lane at full width, and its CPU parity
 # ---------------------------------------------------------------------------
 
 
@@ -382,49 +727,18 @@ def profile_decode_step(cfg, scope, steps=5):
     """Host wall time vs summed device kernel time of decode steps
     (torch.profiler): slot 0 active at positions 65-69, the other seven
     slots on the trash page."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from paddle_tpu_torch import fluid
-
     lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32)
     lane.prefill(list(range(1, 65)))
     lane.decode(5, 64)
+    pos = iter(range(65, 65 + 2 * steps))
+    out = _profile(lambda: lane.decode(5, next(pos)), steps)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            lane.decode(5, 65 + i)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
-    dev, host = [], []
-    for e in prof.key_averages():
-        # device-side events (kernels, copies) only: a CPU op such as
-        # aten::mm also carries the device time of the kernels under it
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            d_us = (getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0) or 0)
-            dev.append((d_us, e.key, e.count))
-        else:
-            host.append((getattr(e, "self_cpu_time_total", 0) or 0, e.key,
-                         e.count))
-    dev_us = sum(t for t, _, _ in dev)
     t0 = time.perf_counter()
-    for i in range(steps):
-        lane.decode(5, 70 + i)
+    for _ in range(steps):
+        lane.decode(5, next(pos))
     torch.cuda.synchronize()
-    unprofiled = (time.perf_counter() - t0) / steps
-
-    def top(rows):
-        return [[k[:60], round(t / steps, 1), c // steps]
-                for t, k, c in sorted(rows, reverse=True)[:6]]
-
-    return dict(step_wall_ms=1e3 * unprofiled,
-                step_wall_profiled_ms=1e3 * wall,
-                step_device_busy_ms=dev_us / steps / 1e3 if dev_us else None,
-                device_events_per_step=sum(c for _, _, c in dev) // steps,
-                top_device_us_per_step=top(dev),
-                top_host_self_us_per_step=top(host))
+    out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+    return out
 
 
 def _copy_scope(scope):
@@ -529,35 +843,61 @@ def main():
     rng = np.random.RandomState(SEED)
     k5_err, k5_t = check_paged(dev, rng)
     k4_err, k4_t = check_bias_gelu(dev, rng)
-    print("kernel timings " + json.dumps({"paged_attention": k5_t,
-                                          "fused_bias_act": k4_t}),
-          flush=True)
+    k4b_err, k4b_t = check_bias_gelu_bf16(dev, rng)
+    fl_err, fl_t = check_flash(dev, rng)
+    print("kernel timings " + json.dumps({
+        "paged_attention": k5_t, "fused_bias_act": {**k4_t, **k4b_t},
+        "flash": fl_t, "card": smi}), flush=True)
 
     wrappers = kernel_wrappers()
-    cfg, scope, prompts, outs, path = run_path(dev, wrappers)
-    print("path " + json.dumps({"card": smi, **path}), flush=True)
+    train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "fused_bias_act")
+    state, train = run_train_path({k: wrappers[k] for k in train_kernels})
+    print("train path " + json.dumps({"card": smi, **train}), flush=True)
+    print("train step " + json.dumps(profile_train_step(state)), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    print("train parity " + json.dumps(run_train_parity()), flush=True)
+
+    decode_kernels = ("fused_bias_act", "paged_attention")
+    cfg, scope, prompts, outs, path = run_path(
+        dev, {k: wrappers[k] for k in decode_kernels})
+    print("decode path " + json.dumps({"card": smi, **path}), flush=True)
     prof = profile_decode_step(cfg, scope)
     print("decode step " + json.dumps(prof), flush=True)
     parity = run_parity(cfg, scope, prompts, outs)
-    print("parity " + json.dumps(parity), flush=True)
+    print("decode parity " + json.dumps(parity), flush=True)
 
     dec = k5_t["decode"]
-    k4 = k4_t["[8,3072] mask=False"]
+    k4 = k4b_t["[16384,3072] bf16"]
+    by_path = {"train": train["launches"], "decode": path["launches"]}
+
+    def launches(name):
+        return {p: n[name] for p, n in by_path.items() if name in n}
+
+    def row(name, source, replaces, err, t):
+        runs = launches(name)
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=sum(runs.values()),
+                    launches_by_path=runs, max_abs_err=err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=t["bound_by"],
+                    library_ms=t.get("library_ms"))
+
+    flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    flash_py = "paddle_tpu/kernels/primitives/flash.py"
     kernels = [
-        dict(name="paged_attention", route="cuda",
-             source="paddle_tpu_torch/csrc/paged_attention.cu",
-             replaces="paddle_tpu/kernels/primitives/paged.py:121",
-             launches=path["launches"]["paged_attention"],
-             max_abs_err=k5_err, ms=dec["ms"], plain_ms=dec["plain_ms"],
-             bound_ms=dec["bound_ms"], bound_by=dec["bound_by"],
-             library_ms=None),
-        dict(name="fused_bias_act", route="cuda",
-             source="paddle_tpu_torch/csrc/fused_bias_act.cu",
-             replaces="paddle_tpu/kernels/fused_bias_act.py:106",
-             launches=path["launches"]["fused_bias_act"],
-             max_abs_err=k4_err, ms=k4["ms"], plain_ms=k4["plain_ms"],
-             bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
-             library_ms=None),
+        row("flash_fwd", flash_src, f"{flash_py}:78", fl_err["flash_fwd"],
+            fl_t["flash_fwd"]),
+        row("flash_bwd_dq", flash_src, f"{flash_py}:130",
+            fl_err["flash_bwd_dq"], fl_t["flash_bwd_dq"]),
+        row("flash_bwd_dkv", flash_src, f"{flash_py}:167",
+            fl_err["flash_bwd_dkv"], fl_t["flash_bwd_dkv"]),
+        row("fused_bias_act", "paddle_tpu_torch/csrc/fused_bias_act.cu",
+            "paddle_tpu/kernels/fused_bias_act.py:106", max(k4_err, k4b_err),
+            k4),
+        row("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
+            "paddle_tpu/kernels/primitives/paged.py:121", k5_err, dec),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

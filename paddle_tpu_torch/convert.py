@@ -43,7 +43,9 @@ def load_params(scope, arrays, place, program=None):
             raise ValueError("load_params: parameters do not match the "
                              "program: " + "; ".join(problems))
     for name, a in arrays.items():
+        # a copy: ops such as adam update the scope's tensors in place
         t = torch.from_numpy(np.ascontiguousarray(a))
         scope.set(name, t.to(device=device,
-                             dtype=torch_dtype(np.dtype(a.dtype).name)))
+                             dtype=torch_dtype(np.dtype(a.dtype).name),
+                             copy=True))
     return sorted(arrays)

@@ -3,7 +3,8 @@
 The same programming model as ``paddle_tpu.fluid``: build a Program with
 ``fluid.layers.*`` and run it with ``fluid.Executor(place)``.  The
 executor runs each op's lowering eagerly on a torch device;
-``Executor()`` with no place runs on CUDAPlace(0).
+``Executor()`` with no place runs on CUDAPlace(0).  ``append_backward``
+and ``optimizer.Adam(...).minimize(loss)`` build a training program.
 """
 
 # ops must register before any program is built or run
@@ -17,5 +18,7 @@ from .framework import (  # noqa: F401
 )
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import flags, initializer, layers  # noqa: F401
+from . import backward, contrib, optimizer  # noqa: F401
+from .backward import append_backward  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .layers.io import data  # noqa: F401

@@ -4,17 +4,27 @@ Counterpart of ``paddle_tpu/fluid/executor.py``.  The JAX package traces
 the whole block once into one XLA computation (``trace_block``) and
 caches the compiled executable.  Here the block runs eagerly: each op's
 lowering is called on tensors that already live on the device, under
-``torch.inference_mode()`` when the block holds no backward op.  What
-is cached per (program version, feed names, fetch names) is the plan —
-the pruned op list with its resolved lowerings and the scope reads —
-so a steady-state step pays no graph analysis.
+``torch.no_grad()``.  What is cached per (program version, feed names,
+fetch names) is the plan — the pruned op list with its resolved
+lowerings and the scope reads — so a steady-state step pays no graph
+analysis.
 
 Scope semantics follow the JAX package: a name → tensor map; persistable
 vars (parameters, the KV pool) live in the scope across runs as device
 tensors and are written back after each run.  Where the JAX package
 donates a buffer and gets a new one back, an op here may update the
-scope's tensor in place (the kv_cache_write ops do; see
-ops/decode_ops.py).
+scope's tensor in place (the kv_cache_write ops and ``adam`` do; see
+ops/decode_ops.py and ops/optimizer_ops.py).  Not ``inference_mode``:
+a tensor one program makes (the startup program's parameters) is
+updated in place by another (``adam``), which PyTorch forbids for
+inference tensors.  Grad ops derived by autograd turn grad mode on for
+their own call.
+
+Each value leaves the run's environment after its last reader, so a
+training step holds what the backward still needs and no more.  Under
+the bf16 dtype policy (``program._dtype_policy == "bf16"``) each op's
+inputs are cast at the lowering, as in the JAX package's
+``trace_block`` (:func:`_apply_bf16_policy`).
 """
 
 from __future__ import annotations
@@ -73,6 +83,72 @@ def scope_guard(scope):
 
 
 # ---------------------------------------------------------------------------
+# bf16 dtype policy, applied per op at the lowering
+# ---------------------------------------------------------------------------
+
+# loss ops that compute in fp32 under the policy (inputs upcast; outputs
+# stay fp32 and a bf16 consumer casts its own inputs down)
+_BF16_FP32_OPS = frozenset({
+    "cross_entropy", "cross_entropy2", "mean", "reduce_mean",
+    "sigmoid_cross_entropy_with_logits",
+})
+
+# fp32-internal ops whose parameter inputs stay fp32 masters:
+# {op type: input positions the policy leaves untouched}
+_BF16_KEEP_FP32_INPUTS = {
+    "layer_norm": (1, 2),             # Scale, Bias
+    "layer_norm_grad": (1, 2),
+    "batch_norm": (1, 2, 3, 4),       # Scale, Bias, Mean, Variance
+    "batch_norm_grad": (1, 2, 3, 4),
+}
+
+
+def _map_floats(vals, fn):
+    def one(v):
+        if v is None:
+            return None
+        if isinstance(v, (list, tuple)):
+            return [one(x) for x in v]
+        return fn(v) if v.is_floating_point() else v
+    return [one(v) for v in vals]
+
+
+def _all_float_inputs_scalar(vals):
+    """True when the op reads floats and every one is a scalar (a loss
+    tail): such ops stay fp32, so the loss fetch stays fp32."""
+    found = False
+    stack = list(vals)
+    while stack:
+        v = stack.pop()
+        if v is None:
+            continue
+        if isinstance(v, (list, tuple)):
+            stack.extend(v)
+            continue
+        if v.is_floating_point():
+            found = True
+            if v.numel() > 1:
+                return False
+    return found
+
+
+def _apply_bf16_policy(op, vals):
+    """Counterpart of the JAX executor's ``_apply_bf16_policy``: compute
+    runs in bf16; optimizer ops, the fp32 loss ops and scalar tails see
+    fp32 (grads are upcast at the optimizer edge)."""
+    if (op.attrs.get("op_role") == "optimize"
+            or op.type in _BF16_FP32_OPS or _all_float_inputs_scalar(vals)):
+        return _map_floats(vals, lambda v: v.float()
+                           if v.dtype == torch.bfloat16 else v)
+    out = _map_floats(vals, lambda v: v.to(torch.bfloat16)
+                      if v.dtype == torch.float32 else v)
+    for i in _BF16_KEEP_FP32_INPUTS.get(op.type, ()):
+        if i < len(out):
+            out[i] = vals[i]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Plan: prune + scope-dataflow analysis, once per signature
 # ---------------------------------------------------------------------------
 
@@ -105,14 +181,12 @@ def _prune_ops(block, fetch_names):
 class _Plan:
     """One (program version, feed names, fetch names) signature: the
     pruned ops with their lowerings and slot bindings, the names read
-    from the scope and the names written back to it."""
+    from the scope, the names written back to it, and after each step
+    the names no later step, fetch or write-back reads."""
 
     def __init__(self, program, feed_names, fetch_names):
         block = program.global_block()
         ops = _prune_ops(block, fetch_names)
-        self.has_backward = any(
-            op.attrs.get("op_role") in ("backward", "optimize")
-            for op in ops)
         self.steps = []
         produced = set(feed_names)
         self.scope_reads, self.writes = [], []
@@ -142,6 +216,15 @@ class _Plan:
         if bad:
             raise ValueError(f"fetch target(s) {bad} are not produced by "
                              f"this program (not an op output or a feed)")
+        keep = set(fetch_names) | set(self.writes)
+        last = {}
+        for i, (op, _, _, _) in enumerate(self.steps):
+            for n in op.input_arg_names + op.output_arg_names:
+                last[n] = i
+        self.frees = [[] for _ in self.steps]
+        for n, i in last.items():
+            if n not in keep:
+                self.frees[i].append(n)
 
     def check_scope(self, scope):
         missing = [n for n in self.scope_reads if scope.get(n) is None]
@@ -218,13 +301,20 @@ class Executor:
             + self._step
         ctx = registry.LowerContext(self.device, seed=seed,
                                     is_test=program._is_test)
-        mode = (contextlib.nullcontext() if plan.has_backward
-                else torch.inference_mode())
-        with mode:
-            for op, lower, ins, outs in plan.steps:
+        bf16 = program._dtype_policy == "bf16"
+        if bf16 and self.device.type == "cuda":
+            # bf16 products accumulate in fp32, as the JAX package's do
+            torch.backends.cuda.matmul \
+                .allow_bf16_reduced_precision_reduction = False
+        with torch.no_grad():
+            for (op, lower, ins, outs), frees in zip(plan.steps,
+                                                     plan.frees):
                 vals = [[env[n] for n in names] if variadic
                         else (env.get(names) if names is not None else None)
                         for variadic, names in ins]
+                if bf16:
+                    vals = _apply_bf16_policy(op, vals)
+                ctx.cur_op = op
                 out = lower(ctx, *vals, attrs=op.attrs)
                 if not isinstance(out, tuple):
                     out = (out,)
@@ -235,6 +325,8 @@ class Executor:
                         env.update(zip(names, val))
                     else:
                         env[names[0]] = val
+                for n in frees:
+                    env.pop(n, None)
         for n in plan.writes:
             scope.set(n, env[n])
         self._step += 1

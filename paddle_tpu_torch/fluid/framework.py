@@ -22,8 +22,15 @@ __all__ = [
     "Variable", "Parameter", "Operator", "Block", "Program",
     "default_main_program", "default_startup_program", "program_guard",
     "unique_name", "CPUPlace", "CUDAPlace", "TPUPlace", "resolve_place",
-    "convert_np_dtype_to_dtype_",
+    "convert_np_dtype_to_dtype_", "grad_var_name", "GRAD_SUFFIX",
 ]
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
 
 _DTYPE_ALIASES = {
     "fp16": "float16", "fp32": "float32", "fp64": "float64",
@@ -324,7 +331,8 @@ class Block:
 class Program:
     """A list of blocks; block 0 is global.  ``_version`` increments on
     every mutation, so the executor's plan cache never serves a program
-    a pass has since rewritten."""
+    a pass has since rewritten.  ``_dtype_policy`` is None or "bf16"
+    (fluid/contrib/mixed_precision/bf16_policy.py)."""
 
     def __init__(self):
         self.blocks = [Block(self, 0)]
@@ -332,6 +340,7 @@ class Program:
         self._version = 0
         self.random_seed = 0
         self._is_test = False
+        self._dtype_policy = None
 
     def global_block(self):
         return self.blocks[0]

@@ -66,3 +66,15 @@ class LayerHelperBase:
         return self.block.create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
+
+    def create_global_variable(self, persistable=False, **kw):
+        return self.main_program.global_block().create_var(
+            persistable=persistable, **kw)
+
+    def set_variable_initializer(self, var, initializer):
+        """Declare ``var`` in the startup program and initialize it
+        there."""
+        sb = self.startup_program.global_block()
+        sv = sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                           persistable=True)
+        initializer(sv, sb)

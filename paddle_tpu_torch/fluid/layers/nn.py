@@ -1,8 +1,9 @@
-"""Layer functions the decode serving lane builds with (counterpart of
-``paddle_tpu/fluid/layers/nn.py``).  Each appends ops to the default
-main program through LayerHelper; nothing touches a device until the
-executor runs the block.  Op types, slots and attrs are those of the
-JAX package, so both packages build the same program."""
+"""Layer functions the decode serving lane and BERT pretraining build
+with (counterpart of ``paddle_tpu/fluid/layers/nn.py``).  Each appends
+ops to the default main program through LayerHelper; nothing touches a
+device until the executor runs the block.  Op types, slots and attrs
+are those of the JAX package, so both packages build the same
+program."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ __all__ = [
     "fc", "embedding", "layer_norm", "log_softmax", "matmul",
     "elementwise_add", "reshape", "transpose", "gather", "argmax", "cast",
     "paged_attention", "kv_cache_write", "kv_cache_write_pages",
+    "softmax", "dropout", "scale", "slice", "flash_attention",
+    "softmax_with_cross_entropy", "mean", "accuracy",
 ]
 
 
@@ -202,3 +205,106 @@ def kv_cache_write_pages(pages, new, page_idx, name=None):
                              "PageIdx": [page_idx]},
                      outputs={"PagesOut": [pages]})
     return pages
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    return _single_out_layer(helper, "softmax", {"X": [input]},
+                             {"axis": axis})
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Dropout with a saved uint8 Mask, which its grad op replays."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8",
+                                                     stop_gradient=True)
+    helper.append_op("dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed if seed is not None else 0,
+                            "dropout_implementation":
+                                dropout_implementation})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = _single_out_layer(helper, "scale", {"X": [x]},
+                            {"scale": float(scale), "bias": float(bias),
+                             "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    return _single_out_layer(helper, "slice", {"Input": [input]},
+                             {"axes": list(axes), "starts": list(starts),
+                              "ends": list(ends), "decrease_axis": []})
+
+
+def flash_attention(q, k, v, attn_bias=None, causal=False, sm_scale=None,
+                    sequence_parallel=False, name=None):
+    """Attention over [B, n_heads, S, d] without an S x S score tensor
+    in memory (kernels/primitives/flash.py: K1 forward, K2/K3 backward).
+    attn_bias: additive [B, 1, 1, S] key bias (the padding mask)."""
+    helper = LayerHelper("flash_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if attn_bias is not None:
+        inputs["Bias"] = [attn_bias]
+    attrs = {"causal": causal}
+    if sequence_parallel:
+        attrs["sequence_parallel"] = True
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    helper.append_op("flash_attention", inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    sm = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [sm], "Loss": [loss]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index, "axis": axis})
+    if return_softmax:
+        return loss, sm
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    return _single_out_layer(helper, "mean", {"X": [x]})
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy: ``top_k`` then ``accuracy``."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    topk_idx = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input]},
+                     outputs={"Out": [topk_out], "Indices": [topk_idx]},
+                     attrs={"k": k})
+    acc = helper.create_variable_for_type_inference("float32",
+                                                    stop_gradient=True)
+    correct = correct or helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    total = total or helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    helper.append_op("accuracy",
+                     inputs={"Out": [topk_out], "Indices": [topk_idx],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc], "Correct": [correct],
+                              "Total": [total]})
+    return acc

@@ -9,8 +9,20 @@ executor's device; the registry itself is the same table of
 Graph-build-time shape inference runs the lowering on ``meta`` tensors —
 the counterpart of ``jax.eval_shape`` — so layers that size parameters
 from an input's shape (``fc``) see the same shapes they see in the JAX
-package.  Grad ops (``torch.func.vjp`` of the forward lowering) come
-with the training slice.
+package.
+
+Grad ops are symbolic program nodes, as in the JAX package.  A
+``<type>_grad`` op without a hand-written lowering gets one derived
+from the forward lowering by reverse-mode autodiff
+(:func:`_register_auto_grad`, the counterpart of the JAX registry's
+``jax.vjp`` derivation).  It runs ``torch.autograd.grad`` over a fresh
+call of the forward lowering, not ``torch.func.vjp``: under
+``torch.func`` a ``torch.autograd.Function``'s backward sees functorch
+wrapper tensors, which have no storage for a hand-written kernel to
+read (flash attention's backward launches K2/K3 from there).  XLA's CSE
+removes the forward that the JAX derivation traces again; eager
+autograd runs it again, so the grads of the matrix products are written
+by hand (ops/math_ops.py).
 """
 
 from __future__ import annotations
@@ -20,8 +32,10 @@ import typing as _t
 
 import torch
 
+from .framework import GRAD_SUFFIX
+
 __all__ = ["LowerContext", "OpInfo", "register_op", "simple_op", "has_op",
-           "get_op", "infer_op_outputs"]
+           "get_op", "infer_op_outputs", "wanted_grads"]
 
 
 class LowerContext:
@@ -31,12 +45,15 @@ class LowerContext:
       device: the torch.device the run targets.
       seed: seed of the run's random stream.
       is_test: program-level eval flag.
+      cur_op: the op being lowered (set by the executor), so a grad
+        lowering can skip the products of grads no op asked for.
     """
 
     def __init__(self, device, seed=0, is_test=False):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.is_test = is_test
+        self.cur_op = None
         self._generator = None
 
     @property
@@ -56,8 +73,16 @@ class OpInfo:
     output_slots: list
     lower: _t.Callable  # lower(ctx, *inputs, attrs) -> output or tuple
     optional: frozenset
+    # None | "auto" | "custom": whether append_backward differentiates
+    # the op (a "custom" op brings its grad_maker)
+    grad: _t.Optional[str] = "auto"
+    # slots whose grad never flows (int labels, indices, masks)
+    no_grad_inputs: frozenset = frozenset()
+    # fn(op, out_grads, wanted, uniq) -> (grad op descs, (var, grad) pairs)
+    grad_maker: _t.Optional[_t.Callable] = None
     # outputs that alias an input in place (out_slot -> in_slot): the
-    # kv_cache_write ops update the scope's pool tensor itself
+    # kv_cache_write ops update the scope's pool tensor, adam the
+    # parameter and its moments
     inplace: _t.Optional[dict] = None
 
     def is_variadic(self, slot):
@@ -86,11 +111,19 @@ def get_op(type_) -> OpInfo:
     return info
 
 
-def register_op(type, inputs, outputs, lower, optional=(), inplace=None):
+def register_op(type, inputs, outputs, lower, grad="auto", optional=(),
+                no_grad_inputs=(), grad_maker=None, inplace=None):
+    """Register an op lowering; ``grad="auto"`` also registers its
+    ``<type>_grad`` op, derived by autograd (a hand-written grad op
+    registered later under that name replaces it)."""
     info = OpInfo(type=type, input_slots=list(inputs),
-                  output_slots=list(outputs), lower=lower,
-                  optional=frozenset(optional), inplace=inplace)
+                  output_slots=list(outputs), lower=lower, grad=grad,
+                  optional=frozenset(optional),
+                  no_grad_inputs=frozenset(no_grad_inputs),
+                  grad_maker=grad_maker, inplace=inplace)
     _OP_REGISTRY[type] = info
+    if grad == "auto":
+        _register_auto_grad(info)
     return info
 
 
@@ -102,6 +135,108 @@ def simple_op(type, inputs, outputs, **kw):
         return fn
 
     return deco
+
+
+# ---------------------------------------------------------------------------
+# Grad ops derived by autograd through the forward lowering.
+# ---------------------------------------------------------------------------
+
+
+def _is_float(t):
+    return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+
+def _grad_slot(slot):
+    return slot.rstrip("*") + GRAD_SUFFIX + ("*" if slot.endswith("*")
+                                             else "")
+
+
+def wanted_grads(ctx, gtype, out_slots):
+    """The grad output slots the op being lowered names, or all of
+    ``out_slots`` when the lowering runs outside an executor."""
+    op = getattr(ctx, "cur_op", None)
+    if op is None or op.type != gtype:
+        return {s.rstrip("*") for s in out_slots}
+    return {s for s, names in op.outputs.items() if names}
+
+
+def _register_auto_grad(fwd: OpInfo):
+    """Register ``<type>_grad``, whose lowering runs the forward lowering
+    again under autograd and returns ``torch.autograd.grad`` of its
+    outputs.
+
+    Signature (the JAX registry's): inputs are every forward input, then
+    one ``<OutSlot>@GRAD`` per forward output; outputs are one
+    ``<InSlot>@GRAD`` per forward input.  The differentiated inputs are
+    the float ones outside ``no_grad_inputs`` whose grad the op names; a
+    forward output with no incoming grad adds nothing (a zero
+    cotangent), and an integer output (a mask, indices) has none.
+    Random ops are never derived this way: they carry ``grad="custom"``
+    and a grad maker that replays their saved mask.
+    """
+    gtype = fwd.type + "_grad"
+    in_slots = list(fwd.input_slots) + [_grad_slot(s)
+                                        for s in fwd.output_slots]
+    out_slots = [_grad_slot(s) for s in fwd.input_slots]
+    n_in = len(fwd.input_slots)
+
+    def lower_grad(ctx, *vals, attrs):
+        fwd_vals = list(vals[:n_in])
+        out_grads = list(vals[n_in:])
+        wanted = wanted_grads(ctx, gtype, out_slots)
+        full = list(fwd_vals)
+        leaves = {}  # input position -> its leaf tensor(s)
+        for i, (slot, v) in enumerate(zip(fwd.input_slots, fwd_vals)):
+            cslot = slot.rstrip("*")
+            if cslot in fwd.no_grad_inputs or v is None \
+                    or cslot + GRAD_SUFFIX not in wanted:
+                continue
+            if fwd.is_variadic(slot):
+                if v and all(_is_float(x) for x in v):
+                    full[i] = leaves[i] = [x.detach().requires_grad_()
+                                           for x in v]
+            elif _is_float(v):
+                full[i] = leaves[i] = v.detach().requires_grad_()
+        if not leaves:
+            return (None,) * n_in
+        flat = [t for i in leaves for t in
+                (leaves[i] if isinstance(leaves[i], list) else [leaves[i]])]
+        # the forward lowering sees its own op, not the grad op
+        prev, ctx.cur_op = getattr(ctx, "cur_op", None), None
+        try:
+            with torch.enable_grad():
+                out = fwd.lower(ctx, *full, attrs=attrs)
+                out = out if isinstance(out, tuple) else (out,)
+                outs, cots = [], []
+                for k, (slot, o) in enumerate(zip(fwd.output_slots, out)):
+                    g = out_grads[k]
+                    if fwd.is_variadic(slot):
+                        pairs = zip(o or [], list(g or []))
+                    else:
+                        pairs = [(o, g)]
+                    for t, gt in pairs:
+                        if gt is not None and _is_float(t) \
+                                and t.requires_grad:
+                            outs.append(t)
+                            cots.append(gt.reshape(t.shape).to(t.dtype))
+                grads = (torch.autograd.grad(outs, flat, cots,
+                                             allow_unused=True)
+                         if outs else [None] * len(flat))
+        finally:
+            ctx.cur_op = prev
+        grads = iter(torch.zeros_like(t) if g is None else g
+                     for t, g in zip(flat, grads))
+        result = [None] * n_in
+        for i, leaf in leaves.items():
+            result[i] = ([next(grads) for _ in leaf]
+                         if isinstance(leaf, list) else next(grads))
+        return tuple(result)
+
+    info = OpInfo(type=gtype, input_slots=in_slots, output_slots=out_slots,
+                  lower=lower_grad, grad=None,
+                  optional=frozenset(s.rstrip("*") for s in in_slots))
+    _OP_REGISTRY[gtype] = info
+    return info
 
 
 # ---------------------------------------------------------------------------

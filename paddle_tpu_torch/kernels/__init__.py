@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels and their launch layer.
 
 ``_build`` builds ``csrc/*.cu`` with nvcc and binds it with ctypes
-(K0).  Kernels: K4 fused bias+GeLU (``fused_bias_act``) and K5 paged
-attention (``primitives.paged``).  Every wrapper launches its kernel
+(K0).  Kernels: K1-K3 flash attention forward and backward
+(``primitives.flash``), K4 fused bias+GeLU (``fused_bias_act``) and K5
+paged attention (``primitives.paged``).  Every wrapper launches its kernel
 for CUDA tensors, runs its plain PyTorch version for CPU tensors, and
 counts its launches in ``<wrapper>.launches``.
 """
@@ -12,7 +13,10 @@ def kernel_wrappers():
     """{kernel name: wrapper} for every ported kernel — the functions
     whose ``launches`` counters a run can read and reset."""
     from .fused_bias_act import fused_bias_gelu
+    from .primitives.flash import flash_bwd_dkv, flash_bwd_dq, flash_fwd
     from .primitives.paged import paged_attention
 
-    return {"fused_bias_act": fused_bias_gelu,
+    return {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv,
+            "fused_bias_act": fused_bias_gelu,
             "paged_attention": paged_attention}

@@ -1,4 +1,4 @@
-"""K4: fused bias + GeLU (+ dropout mask) forward.
+"""K4: fused bias + GeLU (+ dropout mask) forward, and its plain backward.
 
 Counterpart of ``paddle_tpu/kernels/fused_bias_act.py``, whose Pallas
 kernel (``_pallas_chain`` :96) this replaces with the hand-written CUDA
@@ -8,16 +8,21 @@ chain to one ``fused_bias_act_dropout`` op whose lowering
 (ops/fused_ops.py) calls :func:`fused_bias_gelu` here.
 
 Bound: one elementwise pass, bytes-bound (see the source note in the
-``.cu`` file).  The dropout mask is drawn outside the kernel and passed
-in as uint8, as in the JAX package; it is ported now, though the
-decode lane runs with p = 0, so that the training slice reuses the
-kernel.
+``.cu`` file).  x and bias are float32 or bfloat16 (the bf16 dtype
+policy hands the training path bf16 activations); the kernel computes
+in fp32 and returns x's dtype, as the JAX function does.  The dropout
+mask is drawn outside the kernel and passed in as uint8, as in the JAX
+package.
+
+The backward, :func:`fused_bias_gelu_dropout_grad`, is plain PyTorch:
+the JAX package computes it in XLA outside any Pallas kernel
+(``fused_bias_act.py:189``).
 
 :func:`fused_bias_gelu` launches the kernel for a CUDA tensor and runs
 the plain version, :func:`fused_bias_gelu_reference`, for a CPU tensor
 (or a ``meta`` tensor during shape inference).  ``force="reference"``
-selects the plain version explicitly; nothing on the decode path sets
-it.  ``fused_bias_gelu.launches`` counts kernel launches.
+selects the plain version explicitly; nothing on the decode or training
+path sets it.  ``fused_bias_gelu.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -30,15 +35,17 @@ import torch
 from . import _build
 
 __all__ = ["gelu_reference", "fused_bias_gelu_reference",
-           "fused_bias_gelu"]
+           "fused_bias_gelu", "fused_bias_gelu_dropout_grad"]
 
+# (x dtype, bias dtype, x, bias, mask, out, R, H, scale, approximate,
+# stream)
 _SIGNATURES = {
-    "pt_fused_bias_gelu_f32": [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_longlong, ctypes.c_int,
-                               ctypes.c_float, ctypes.c_int,
-                               ctypes.c_void_p],
+    "pt_fused_bias_gelu": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def gelu_reference(x, approximate=False):
@@ -53,20 +60,46 @@ def gelu_reference(x, approximate=False):
 
 def fused_bias_gelu_reference(x, bias, mask=None, scale=1.0,
                               approximate=False):
-    """The plain version: ``gelu(x + bias) [* mask * scale]`` in fp32."""
+    """The plain version: ``gelu(x + bias) [* mask * scale]`` in fp32,
+    returned in x's dtype."""
     y = gelu_reference(x.float() + bias.float(), approximate)
     if mask is not None:
         y = y * mask.float() * scale
-    return y
+    return y.to(x.dtype)
+
+
+def _gelu_derivative(t, approximate):
+    """d gelu(t) / dt in fp32, for the spellings of :func:`gelu_reference`."""
+    if approximate:
+        k = math.sqrt(2.0 / math.pi)
+        th = torch.tanh(k * (t + 0.044715 * (t * t * t)))
+        return 0.5 * (1.0 + th) + 0.5 * t * (1.0 - th * th) * k * (
+            1.0 + 3 * 0.044715 * (t * t))
+    pdf = torch.exp(-0.5 * t * t) * (1.0 / math.sqrt(2.0 * math.pi))
+    return 0.5 * torch.erfc(-t * math.sqrt(0.5)) + t * pdf
+
+
+def fused_bias_gelu_dropout_grad(x, bias, mask, dy, *, dropout_prob=0.0,
+                                 is_test=False, approximate=False):
+    """Backward of the fused chain through the saved mask:
+    ``d_pre = gelu'(x + bias) · dy [· mask / (1 - p)]``; returns
+    ``(dX = d_pre, dBias = Σ_rows d_pre)`` in x's and bias's dtypes."""
+    pre = x.float() + bias.float()
+    dyf = dy.float()
+    if dropout_prob > 0.0 and not is_test and mask is not None:
+        dyf = dyf * mask.float() / max(1.0 - dropout_prob, 1e-8)
+    dpre = _gelu_derivative(pre, approximate) * dyf
+    dbias = dpre.sum(dim=tuple(range(dpre.dim() - 1)))
+    return dpre.to(x.dtype), dbias.to(bias.dtype)
 
 
 def _check(x, bias, mask):
     if x.dim() < 1 or bias.dim() != 1 or bias.shape[0] != x.shape[-1]:
         raise ValueError(f"fused_bias_gelu: bias {tuple(bias.shape)} must be "
                          f"[H] for x {tuple(x.shape)}")
-    if x.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError(f"fused_bias_gelu: x and bias must be float32, got "
-                        f"{x.dtype} and {bias.dtype}")
+    if x.dtype not in _DTYPE_CODE or bias.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_bias_gelu: x and bias must be float32 or "
+                        f"bfloat16, got {x.dtype} and {bias.dtype}")
     if mask is not None and (mask.dtype != torch.uint8
                              or mask.shape != x.shape):
         raise ValueError(f"fused_bias_gelu: mask must be uint8 of x's shape "
@@ -80,8 +113,9 @@ def _check(x, bias, mask):
 
 def fused_bias_gelu(x, bias, mask=None, scale=1.0, approximate=False,
                     force=None):
-    """``gelu(x + bias) [* mask * scale]`` over x [..., H] float32 with
-    bias [H]; returns float32 of x's shape."""
+    """``gelu(x + bias) [* mask * scale]`` over x [..., H] with bias [H]
+    (each float32 or bfloat16), computed in fp32; returns x's shape and
+    dtype."""
     _check(x, bias, mask)
     if force not in (None, "reference"):
         raise ValueError(f"fused_bias_gelu: force={force!r} (use None or "
@@ -96,7 +130,8 @@ def fused_bias_gelu(x, bias, mask=None, scale=1.0, approximate=False,
     lib = _build.load("fused_bias_act", _SIGNATURES)
     h = x.shape[-1]
     out = torch.empty_like(x)
-    err = lib.pt_fused_bias_gelu_f32(
+    err = lib.pt_fused_bias_gelu(
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[bias.dtype],
         _build.ptr(x), _build.ptr(bias),
         _build.ptr(mask) if mask is not None else None, _build.ptr(out),
         x.numel() // h, h, float(scale), int(bool(approximate)),

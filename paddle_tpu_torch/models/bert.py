@@ -1,0 +1,261 @@
+"""BERT (Transformer encoder) pretraining, Fluid graph-building style
+(counterpart of ``paddle_tpu/models/bert.py``).
+
+The same layer calls, parameter names and op order as the JAX package,
+so under ``unique_name.guard`` both packages build the same program and
+one's parameters load into the other's scope by name.  Feeds:
+src_ids/pos_ids/sent_ids [B, S] int64, input_mask [B, S] float32,
+mask_label/mask_pos [M, 1] int64 (mask_pos holds flat positions into
+B*S), labels [B, 1] int64.
+
+Not ported: the mixture-of-experts FFN (``moe_experts``), which is the
+expert-parallel lane's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from paddle_tpu_torch import fluid
+from paddle_tpu_torch.fluid import layers
+from paddle_tpu_torch.fluid.initializer import Constant, Normal
+from paddle_tpu_torch.fluid.param_attr import ParamAttr
+
+__all__ = ["BertConfig", "build_bert_pretrain", "make_fake_batch",
+           "train_flops_per_step"]
+
+
+class BertConfig:
+    def __init__(self, vocab_size=30522, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=3072, max_position=512,
+                 type_vocab_size=2, hidden_dropout=0.1, attn_dropout=0.1,
+                 initializer_range=0.02, use_flash_attention=True,
+                 sequence_parallel=False, moe_experts=0, moe_top_k=2):
+        if moe_experts:
+            raise NotImplementedError("the MoE FFN is not ported to "
+                                      "paddle_tpu_torch")
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size
+        self.max_position = max_position
+        self.type_vocab_size = type_vocab_size
+        self.hidden_dropout = hidden_dropout
+        self.attn_dropout = attn_dropout
+        self.initializer_range = initializer_range
+        self.use_flash_attention = use_flash_attention
+        self.sequence_parallel = sequence_parallel
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+
+    @classmethod
+    def base(cls, **kw):
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        d = dict(vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,
+                 intermediate_size=128, max_position=64)
+        d.update(kw)
+        return cls(**d)
+
+
+def _fc(x, size, name, act=None, init_std=0.02, num_flatten_dims=2):
+    return layers.fc(
+        x, size=size, num_flatten_dims=num_flatten_dims, act=act,
+        param_attr=ParamAttr(name=name + ".w_0",
+                             initializer=Normal(0.0, init_std)),
+        bias_attr=ParamAttr(name=name + ".b_0"))
+
+
+def _dropout(x, cfg, is_test):
+    if cfg.hidden_dropout and not is_test:
+        return layers.dropout(x, dropout_prob=cfg.hidden_dropout,
+                              is_test=is_test,
+                              dropout_implementation="upscale_in_train")
+    return x
+
+
+def multi_head_attention(x, attn_bias, cfg, name, is_test=False):
+    """Self-attention over [B, S, H]; attn_bias is [B, 1, 1, S]."""
+    h, n = cfg.hidden_size, cfg.num_heads
+    d = h // n
+    q = _fc(x, h, name + "_query_fc", init_std=cfg.initializer_range)
+    k = _fc(x, h, name + "_key_fc", init_std=cfg.initializer_range)
+    v = _fc(x, h, name + "_value_fc", init_std=cfg.initializer_range)
+
+    def to_heads(t):
+        r = layers.reshape(t, shape=[0, 0, n, d])
+        return layers.transpose(r, perm=[0, 2, 1, 3])  # [B, n, S, d]
+
+    q, k, v = to_heads(q), to_heads(k), to_heads(v)
+    if cfg.use_flash_attention and (is_test or not cfg.attn_dropout):
+        ctx = layers.flash_attention(q, k, v, attn_bias=attn_bias,
+                                     sm_scale=float(d) ** -0.5,
+                                     sequence_parallel=cfg.sequence_parallel)
+    else:
+        scores = layers.matmul(q, k, transpose_y=True,
+                               alpha=float(d) ** -0.5)
+        if attn_bias is not None:
+            scores = layers.elementwise_add(scores, attn_bias)
+        weights = layers.softmax(scores)
+        if cfg.attn_dropout and not is_test:
+            weights = layers.dropout(
+                weights, dropout_prob=cfg.attn_dropout, is_test=is_test,
+                dropout_implementation="upscale_in_train")
+        ctx = layers.matmul(weights, v)  # [B, n, S, d]
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[0, 0, h])
+    return _fc(ctx, h, name + "_output_fc", init_std=cfg.initializer_range)
+
+
+def encoder_layer(x, attn_bias, cfg, name, is_test=False):
+    attn = multi_head_attention(x, attn_bias, cfg, name + "_multi_head_att",
+                                is_test=is_test)
+    attn = _dropout(attn, cfg, is_test)
+    x = layers.layer_norm(
+        layers.elementwise_add(x, attn), begin_norm_axis=2,
+        param_attr=ParamAttr(name=name + "_post_att_ln_scale"),
+        bias_attr=ParamAttr(name=name + "_post_att_ln_bias"))
+    ffn = _fc(x, cfg.intermediate_size, name + "_ffn_fc_0", act="gelu",
+              init_std=cfg.initializer_range)
+    ffn = _fc(ffn, cfg.hidden_size, name + "_ffn_fc_1",
+              init_std=cfg.initializer_range)
+    ffn = _dropout(ffn, cfg, is_test)
+    return layers.layer_norm(
+        layers.elementwise_add(x, ffn), begin_norm_axis=2,
+        param_attr=ParamAttr(name=name + "_post_ffn_ln_scale"),
+        bias_attr=ParamAttr(name=name + "_post_ffn_ln_bias"))
+
+
+def bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg,
+                 is_test=False):
+    """Embeddings + N encoder layers; returns [B, S, H]."""
+    def embed(ids, rows, name):
+        return layers.embedding(
+            ids, size=[rows, cfg.hidden_size],
+            param_attr=ParamAttr(name=name, initializer=Normal(
+                0.0, cfg.initializer_range)))
+
+    emb = embed(src_ids, cfg.vocab_size, "word_embedding")
+    pos = embed(pos_ids, cfg.max_position, "pos_embedding")
+    sent = embed(sent_ids, cfg.type_vocab_size, "sent_embedding")
+    emb = layers.elementwise_add(layers.elementwise_add(emb, pos), sent)
+    emb = layers.layer_norm(emb, begin_norm_axis=2,
+                            param_attr=ParamAttr(name="pre_encoder_ln_scale"),
+                            bias_attr=ParamAttr(name="pre_encoder_ln_bias"))
+    emb = _dropout(emb, cfg, is_test)
+
+    # additive attention bias [B, 1, 1, S]: (mask - 1) * 1e4 -> 0 for real
+    # tokens, -1e4 for padding
+    neg = layers.scale(input_mask, scale=10000.0, bias=-1.0,
+                       bias_after_scale=False)
+    attn_bias = layers.reshape(neg, shape=[0, 1, 1, input_mask.shape[-1]])
+    attn_bias.stop_gradient = True
+
+    x = emb
+    for i in range(cfg.num_layers):
+        x = encoder_layer(x, attn_bias, cfg, f"encoder_layer_{i}",
+                          is_test=is_test)
+    return x
+
+
+def build_bert_pretrain(cfg=None, is_test=False):
+    """The pretraining graph: masked-LM + next-sentence losses.  Returns
+    (feed_names, total_loss, mlm_loss, nsp_acc)."""
+    cfg = cfg or BertConfig.base()
+    src_ids = fluid.data("src_ids", [-1, -1], False, dtype="int64")
+    pos_ids = fluid.data("pos_ids", [-1, -1], False, dtype="int64")
+    sent_ids = fluid.data("sent_ids", [-1, -1], False, dtype="int64")
+    input_mask = fluid.data("input_mask", [-1, -1], False, dtype="float32")
+    mask_label = fluid.data("mask_label", [-1, 1], False, dtype="int64")
+    mask_pos = fluid.data("mask_pos", [-1, 1], False, dtype="int64")
+    labels = fluid.data("labels", [-1, 1], False, dtype="int64")
+
+    enc = bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg,
+                       is_test=is_test)
+
+    # masked LM head over the gathered positions
+    flat = layers.reshape(enc, shape=[-1, cfg.hidden_size])
+    masked = layers.gather(flat, mask_pos)
+    masked = layers.reshape(masked, shape=[-1, cfg.hidden_size])
+    trans = layers.fc(
+        masked, size=cfg.hidden_size, act="gelu",
+        param_attr=ParamAttr(name="mask_lm_trans_fc.w_0",
+                             initializer=Normal(0.0, cfg.initializer_range)),
+        bias_attr=ParamAttr(name="mask_lm_trans_fc.b_0"))
+    trans = layers.layer_norm(
+        trans, begin_norm_axis=1,
+        param_attr=ParamAttr(name="mask_lm_trans_ln_scale"),
+        bias_attr=ParamAttr(name="mask_lm_trans_ln_bias"))
+    # decode with the tied word embedding: trans @ word_embedding^T + b
+    word_emb = fluid.default_main_program().global_block().var(
+        "word_embedding")
+    mlm_logits = layers.matmul(trans, word_emb, transpose_y=True)
+    mlm_bias = layers.create_parameter(
+        shape=[cfg.vocab_size], dtype="float32", name="mask_lm_out_fc.b_0",
+        default_initializer=Constant(0.0))
+    mlm_logits = layers.elementwise_add(mlm_logits, mlm_bias)
+    mlm_loss = layers.softmax_with_cross_entropy(mlm_logits, mask_label)
+    mean_mlm_loss = layers.mean(mlm_loss)
+
+    # next-sentence head on [CLS]
+    first_tok = layers.slice(enc, axes=[1], starts=[0], ends=[1])
+    pooled = layers.fc(
+        layers.reshape(first_tok, shape=[-1, cfg.hidden_size]),
+        size=cfg.hidden_size, act="tanh",
+        param_attr=ParamAttr(name="pooled_fc.w_0",
+                             initializer=Normal(0.0, cfg.initializer_range)),
+        bias_attr=ParamAttr(name="pooled_fc.b_0"))
+    nsp_logits = layers.fc(
+        pooled, size=2,
+        param_attr=ParamAttr(name="next_sent_fc.w_0",
+                             initializer=Normal(0.0, cfg.initializer_range)),
+        bias_attr=ParamAttr(name="next_sent_fc.b_0"))
+    nsp_loss = layers.softmax_with_cross_entropy(nsp_logits, labels)
+    nsp_softmax = layers.softmax(nsp_logits)
+    nsp_acc = layers.accuracy(input=nsp_softmax, label=labels)
+    mean_nsp_loss = layers.mean(nsp_loss)
+
+    total_loss = layers.elementwise_add(mean_mlm_loss, mean_nsp_loss)
+    feeds = ["src_ids", "pos_ids", "sent_ids", "input_mask", "mask_label",
+             "mask_pos", "labels"]
+    return feeds, total_loss, mean_mlm_loss, nsp_acc
+
+
+def make_fake_batch(cfg, batch, seq_len, n_masked=None, seed=0):
+    """A synthetic pretraining batch with the right shapes and dtypes
+    (the JAX package's, draw for draw)."""
+    rng = np.random.RandomState(seed)
+    n_masked = n_masked or max(1, seq_len // 8)
+    return {
+        "src_ids": rng.randint(0, cfg.vocab_size,
+                               (batch, seq_len)).astype("int64"),
+        "pos_ids": np.tile(np.arange(seq_len, dtype="int64"), (batch, 1)),
+        "sent_ids": rng.randint(0, cfg.type_vocab_size,
+                                (batch, seq_len)).astype("int64"),
+        "input_mask": np.ones((batch, seq_len), dtype="float32"),
+        "mask_label": rng.randint(0, cfg.vocab_size,
+                                  (batch * n_masked, 1)).astype("int64"),
+        "mask_pos": rng.randint(0, batch * seq_len,
+                                (batch * n_masked, 1)).astype("int64"),
+        "labels": rng.randint(0, 2, (batch, 1)).astype("int64"),
+    }
+
+
+def train_flops_per_step(cfg, batch, seq_len):
+    """Model FLOPs of one train step (forward + backward ~ 3x forward),
+    the JAX package's ``bench.py:_bert_train_flops_per_step``.
+
+    Per layer forward: QKVO projections 8·b·s·h², FFN 4·b·s·h·i,
+    attention scores + context 4·b·s²·h.  The MLM head runs over the
+    M = b·s/8 gathered positions: transform 2·M·h² + vocab projection
+    2·M·h·V; the pooler 2·b·h².  Embedding gathers count 0."""
+    b, s = batch, seq_len
+    h, i, n, v = (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+                  cfg.vocab_size)
+    per_layer = 8 * b * s * h * h + 4 * b * s * h * i + 4 * b * s * s * h
+    m = b * max(1, s // 8)
+    head = 2 * m * h * h + 2 * m * h * v + 2 * b * h * h
+    return 3.0 * (n * per_layer + head)

@@ -1,4 +1,4 @@
 """Op lowerings: importing this package registers every ported op."""
 
 from . import (decode_ops, fused_ops, math_ops, nn_ops,  # noqa: F401
-               tensor_ops)
+               optimizer_ops, tensor_ops)

@@ -32,3 +32,22 @@ def flatten_to_2d(x, num_col_dims):
     for s in x.shape[num_col_dims:]:
         cols *= s
     return x.reshape(rows, cols)
+
+
+def op_generator(ctx, attrs):
+    """The stream a random op draws from: its own, seeded from a nonzero
+    ``seed`` attr, else the run's generator in program order."""
+    seed = int(attrs.get("seed", 0) or 0)
+    if not seed:
+        return ctx.generator
+    g = torch.Generator(device=ctx.device)
+    g.manual_seed(seed)
+    return g
+
+
+def rounded(v, dtype):
+    """The Python number ``v`` rounded to ``dtype``, as
+    ``jnp.asarray(v, x.dtype)`` rounds an op's scalar before the
+    arithmetic (a bf16 tensor times 10000.0 multiplies by 9984.0).  A
+    host float, so the op needs no host-to-device copy."""
+    return torch.tensor(v, dtype=dtype).item()

@@ -33,7 +33,7 @@ def _check_pool_dtype(op, pages, new):
 
 
 @simple_op("kv_cache_write", ["Pages", "New", "PageIdx", "Offset"],
-           ["PagesOut"], inplace={"PagesOut": "Pages"})
+           ["PagesOut"], grad=None, inplace={"PagesOut": "Pages"})
 def _kv_cache_write(ctx, pages, new, page_idx, offset, attrs):
     """One decode step's write: new [B, n, d] lands at
     pages[page_idx[b], offset[b]] per slot b.  Inactive slots point at
@@ -46,7 +46,7 @@ def _kv_cache_write(ctx, pages, new, page_idx, offset, attrs):
 
 
 @simple_op("kv_cache_write_pages", ["Pages", "New", "PageIdx"],
-           ["PagesOut"], inplace={"PagesOut": "Pages"})
+           ["PagesOut"], grad=None, inplace={"PagesOut": "Pages"})
 def _kv_cache_write_pages(ctx, pages, new, page_idx, attrs):
     """One prefill chunk's write: new [C, n, d] (C a multiple of the page
     size) viewed as C/page_size whole pages, scattered to
@@ -66,7 +66,8 @@ def _kv_cache_write_pages(ctx, pages, new, page_idx, attrs):
 
 
 @simple_op("paged_attention",
-           ["Q", "KPages", "VPages", "PageTable", "QStart"], ["Out"])
+           ["Q", "KPages", "VPages", "PageTable", "QStart"], ["Out"],
+           grad=None)
 def _paged_attention(ctx, q, k_pages, v_pages, page_table, q_start,
                      attrs):
     """Attention of q [B, n, T, d] against the pool through the page

@@ -1,15 +1,25 @@
-"""Elementwise / matmul / activation / softmax op lowerings (counterpart
-of ``paddle_tpu/ops/math_ops.py``).  A plain matrix product stays
-``torch.matmul``, as the JAX package left it to XLA."""
+"""Elementwise / matmul / activation / softmax / loss op lowerings
+(counterpart of ``paddle_tpu/ops/math_ops.py``).
+
+A plain matrix product stays ``torch.matmul``, as the JAX package left
+it to XLA.  Under the bf16 policy both operands arrive bf16 and cuBLAS
+accumulates in fp32 (the executor turns off reduced-precision
+reduction), which is what the JAX package's ``mxu_dot`` asks of XLA.
+
+The grads of ``mul`` and ``matmul`` are written by hand, as the two
+products they are: the registry's autograd derivation would
+run the forward product again on every step.  Every other grad op here
+is derived by the registry.
+"""
 
 from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.fluid.registry import simple_op
+from paddle_tpu_torch.fluid.registry import simple_op, wanted_grads
 from paddle_tpu_torch.kernels.fused_bias_act import gelu_reference
 
-from .common import bcast_to, flatten_to_2d
+from .common import bcast_to, flatten_to_2d, rounded
 
 
 @simple_op("elementwise_add", ["X", "Y"], ["Out"])
@@ -17,16 +27,41 @@ def _elementwise_add(ctx, x, y, attrs):
     return x + bcast_to(y, x, attrs.get("axis", -1))
 
 
+def _product(a, b, mm=torch.matmul):
+    """``mm(a, b)`` in the dtype of ``a``: one bf16 product when both are
+    bf16, else accumulated in fp32 (the JAX package's ``mxu_dot``)."""
+    if a.dtype == b.dtype:
+        return mm(a, b)
+    return mm(a.float(), b.float()).to(a.dtype)
+
+
 @simple_op("mul", ["X", "Y"], ["Out"])
 def _mul(ctx, x, y, attrs):
     xd = attrs.get("x_num_col_dims", 1)
     yd = attrs.get("y_num_col_dims", 1)
-    out = torch.matmul(flatten_to_2d(x, xd), flatten_to_2d(y, yd))
+    out = _product(flatten_to_2d(x, xd), flatten_to_2d(y, yd))
     return out.reshape(tuple(x.shape[:xd]) + tuple(y.shape[yd:]))
 
 
-@simple_op("matmul", ["X", "Y"], ["Out"])
-def _matmul(ctx, x, y, attrs):
+@simple_op("mul_grad", ["X", "Y", "Out@GRAD"], ["X@GRAD", "Y@GRAD"],
+           grad=None, optional=("X", "Y", "Out@GRAD"))
+def _mul_grad(ctx, x, y, dout, attrs):
+    """dX = dOut·Yᵀ and dY = Xᵀ·dOut over the 2-D views ``mul`` used;
+    only the grads the op names are computed."""
+    want = wanted_grads(ctx, "mul_grad", ["X@GRAD", "Y@GRAD"])
+    xd = attrs.get("x_num_col_dims", 1)
+    yd = attrs.get("y_num_col_dims", 1)
+    x2, y2 = flatten_to_2d(x, xd), flatten_to_2d(y, yd)
+    g = dout.reshape(x2.shape[0], y2.shape[1]).to(x.dtype)
+    dx = dy = None
+    if "X@GRAD" in want:
+        dx = _product(g, y2.t()).to(x.dtype).reshape(x.shape)
+    if "Y@GRAD" in want:
+        dy = _product(x2.t(), g).to(y.dtype).reshape(y.shape)
+    return dx, dy
+
+
+def _matmul_operands(x, y, attrs):
     if x.dim() == 1:
         x = x[None, :]
     if y.dim() == 1:
@@ -35,11 +70,79 @@ def _matmul(ctx, x, y, attrs):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    return x, y
+
+
+@simple_op("matmul", ["X", "Y"], ["Out"])
+def _matmul(ctx, x, y, attrs):
+    a, b = _matmul_operands(x, y, attrs)
+    out = _product(a, b)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
-        out = out * alpha
+        out = out * rounded(alpha, out.dtype)
     return out
+
+
+def _unbroadcast(g, shape):
+    """Sum ``g`` down to ``shape`` over the batch dims a batched matmul
+    broadcast."""
+    lead = g.dim() - len(shape)
+    if lead > 0:
+        g = g.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, s in enumerate(shape) if s == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+@simple_op("matmul_grad", ["X", "Y", "Out@GRAD"], ["X@GRAD", "Y@GRAD"],
+           grad=None, optional=("X", "Y", "Out@GRAD"))
+def _matmul_grad(ctx, x, y, dout, attrs):
+    """With A = op(X), B = op(Y) as ``matmul`` formed them and
+    G = alpha·dOut: dA = G·Bᵀ, dB = Aᵀ·G, taken back through the
+    transposes, the 1-D promotions and any batch broadcast."""
+    want = wanted_grads(ctx, "matmul_grad", ["X@GRAD", "Y@GRAD"])
+    a, b = _matmul_operands(x, y, attrs)
+    g = dout.to(a.dtype)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        g = g * rounded(alpha, g.dtype)
+    g = g.reshape(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                  + (a.shape[-2], b.shape[-1]))
+    dx = dy = None
+    if "X@GRAD" in want:
+        da = _unbroadcast(_product(g, b.transpose(-1, -2)), a.shape)
+        if attrs.get("transpose_X", False):
+            da = da.transpose(-1, -2)
+        dx = da.reshape(x.shape).to(x.dtype)
+    if "Y@GRAD" in want:
+        db = _unbroadcast(_product(a.transpose(-1, -2), g), b.shape)
+        if attrs.get("transpose_Y", False):
+            db = db.transpose(-1, -2)
+        dy = db.reshape(y.shape).to(y.dtype)
+    return dx, dy
+
+
+@simple_op("scale", ["X", "ScaleTensor"], ["Out"], optional=("ScaleTensor",),
+           no_grad_inputs=("ScaleTensor",))
+def _scale(ctx, x, scale_t, attrs):
+    s = scale_t.to(x.dtype) if scale_t is not None \
+        else rounded(attrs.get("scale", 1.0), x.dtype)
+    b = rounded(attrs.get("bias", 0.0), x.dtype)
+    if attrs.get("bias_after_scale", True):
+        return x * s + b
+    return (x + b) * s
+
+
+@simple_op("sum", ["X*"], ["Out"])
+def _sum(ctx, xs, attrs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+@simple_op("tanh", ["X"], ["Out"])
+def _tanh(ctx, x, attrs):
+    return torch.tanh(x)
 
 
 @simple_op("gelu", ["X"], ["Out"])
@@ -47,7 +150,37 @@ def _gelu(ctx, x, attrs):
     return gelu_reference(x, attrs.get("approximate", False))
 
 
+@simple_op("softmax", ["X"], ["Out"])
+def _softmax(ctx, x, attrs):
+    """Softmax in fp32, returned in the input dtype."""
+    return torch.softmax(x.float(), dim=attrs.get("axis", -1)).to(x.dtype)
+
+
 @simple_op("log_softmax", ["X"], ["Out"])
 def _log_softmax(ctx, x, attrs):
     return torch.log_softmax(x.float(), dim=attrs.get("axis", -1)).to(
         x.dtype)
+
+
+@simple_op("softmax_with_cross_entropy", ["Logits", "Label"],
+           ["Softmax", "Loss"], no_grad_inputs=("Label",))
+def _softmax_ce(ctx, logits, label, attrs):
+    """Softmax (input dtype) and the cross entropy against hard or soft
+    labels (fp32), computed in fp32; rows labelled ``ignore_index`` lose
+    0."""
+    axis = attrs.get("axis", -1)
+    lf = logits.float()
+    sm = torch.softmax(lf, dim=axis).to(logits.dtype)
+    logp = torch.log_softmax(lf, dim=axis)
+    if attrs.get("soft_label", False):
+        return sm, -(label * logp).sum(dim=axis, keepdim=True)
+    lbl = label.squeeze(axis) if label.dim() == logits.dim() else label
+    lbl = lbl.long()[..., None]
+    loss = -torch.gather(logp, axis, lbl.clamp(0, logp.shape[axis] - 1))
+    ignore = attrs.get("ignore_index", -100)
+    return sm, torch.where(lbl == ignore, torch.zeros_like(loss), loss)
+
+
+@simple_op("mean", ["X"], ["Out"])
+def _mean(ctx, x, attrs):
+    return x.mean()

@@ -1,11 +1,16 @@
-"""Normalization op lowerings (counterpart of
-``paddle_tpu/ops/nn_ops.py``)."""
+"""Normalization, dropout and attention op lowerings (counterpart of
+``paddle_tpu/ops/nn_ops.py``).  ``layer_norm_grad`` and
+``flash_attention_grad`` are derived by the registry; ``dropout`` has a
+grad maker that replays its saved mask."""
 
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch.fluid.registry import simple_op
+from paddle_tpu_torch.kernels.primitives import flash as _flash
+
+from .common import op_generator, rounded
 
 
 @simple_op("layer_norm", ["X", "Scale", "Bias"], ["Y", "Mean", "Variance"],
@@ -23,3 +28,66 @@ def _layer_norm(ctx, x, scale, bias, attrs):
     lead = tuple(x.shape[:begin])
     var = rstd.reshape(lead).pow(-2) - eps
     return y.to(x.dtype), mean.reshape(lead), var
+
+
+# ---------------------------------------------------------------------------
+# dropout: the grad op multiplies by the saved mask, so forward and
+# backward agree exactly
+# ---------------------------------------------------------------------------
+
+
+def _dropout_grad_maker(op, out_grads, wanted, uniq):
+    x = op.inputs["X"][0]
+    if x not in wanted:
+        return [], []
+    g = uniq(x)
+    ins = {"Out@GRAD": [out_grads[op.outputs["Out"][0]]],
+           "Mask": list(op.outputs["Mask"])}
+    return [("dropout_grad", ins, {"X@GRAD": [g]}, dict(op.attrs))], [(x, g)]
+
+
+def _upscale(attrs):
+    return 1.0 / max(1.0 - attrs.get("dropout_prob", 0.5), 1e-8)
+
+
+@simple_op("dropout", ["X"], ["Out", "Mask"], grad="custom",
+           grad_maker=_dropout_grad_maker)
+def _dropout(ctx, x, attrs):
+    """The uint8 keep-mask is drawn from the run's generator (or the op's
+    own, for a nonzero ``seed``) and returned as Mask."""
+    p = attrs.get("dropout_prob", 0.5)
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if attrs.get("is_test", False) or ctx.is_test:
+        ones = torch.ones(x.shape, dtype=torch.uint8, device=x.device)
+        if impl == "upscale_in_train":
+            return x, ones
+        return x * rounded(1.0 - p, x.dtype), ones
+    mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if x.device.type != "meta":
+        mask.bernoulli_(1.0 - p, generator=op_generator(ctx, attrs))
+    out = x * mask.to(x.dtype)
+    if impl == "upscale_in_train":
+        out = out * rounded(_upscale(attrs), x.dtype)
+    return out, mask
+
+
+@simple_op("dropout_grad", ["Out@GRAD", "Mask"], ["X@GRAD"], grad=None)
+def _dropout_grad(ctx, dy, mask, attrs):
+    m = mask.to(dy.dtype)
+    if attrs.get("dropout_implementation",
+                 "downgrade_in_infer") == "upscale_in_train":
+        m = m * rounded(_upscale(attrs), dy.dtype)
+    return dy * m
+
+
+@simple_op("flash_attention", ["Q", "K", "V", "Bias"], ["Out"],
+           optional=("Bias",))
+def _flash_attention(ctx, q, k, v, bias, attrs):
+    """Attention over [B, n_heads, S, d] through K1 (forward) and, when
+    differentiated, K2/K3.  The JAX op's ring-attention branch
+    (``sequence_parallel`` under an 'sp' mesh) is not ported: on one
+    device the JAX op runs this same kernel."""
+    return _flash.flash_attention(q, k, v, bias=bias,
+                                  causal=attrs.get("causal", False),
+                                  sm_scale=attrs.get("sm_scale"),
+                                  force=attrs.get("force"))

@@ -1,5 +1,7 @@
 """Tensor creation / manipulation / indexing op lowerings (counterpart
-of ``paddle_tpu/ops/tensor_ops.py``)."""
+of ``paddle_tpu/ops/tensor_ops.py``).  The grads of ``lookup_table``,
+``gather``, ``reshape2``, ``transpose2`` and ``slice`` are derived by
+the registry (autograd through the forward lowering)."""
 
 from __future__ import annotations
 
@@ -7,22 +9,11 @@ import torch
 
 from paddle_tpu_torch.fluid.registry import simple_op
 
-from .common import np_dtype
+from .common import np_dtype, op_generator
 
 
 def _shape(attrs):
     return tuple(int(s) for s in attrs.get("shape", [1]))
-
-
-def _op_generator(ctx, attrs):
-    """A random op with a nonzero `seed` attr draws its own stream; the
-    rest draw from the run's generator in program order."""
-    seed = int(attrs.get("seed", 0) or 0)
-    if not seed:
-        return ctx.generator
-    g = torch.Generator(device=ctx.device)
-    g.manual_seed(seed)
-    return g
 
 
 # ---------------------------------------------------------------------------
@@ -30,14 +21,21 @@ def _op_generator(ctx, attrs):
 # ---------------------------------------------------------------------------
 
 
-@simple_op("fill_constant", [], ["Out"])
+@simple_op("fill_constant", [], ["Out"], grad=None)
 def _fill_constant(ctx, attrs):
     return torch.full(_shape(attrs), attrs.get("value", 0.0),
                       dtype=np_dtype(attrs.get("dtype", "float32")),
                       device=ctx.device)
 
 
-@simple_op("uniform_random", [], ["Out"])
+@simple_op("fill_any_like", ["X"], ["Out"], grad=None)
+def _fill_any_like(ctx, x, attrs):
+    dtype = attrs.get("dtype")
+    return torch.full_like(x, attrs.get("value", 0.0),
+                           dtype=np_dtype(dtype) if dtype else None)
+
+
+@simple_op("uniform_random", [], ["Out"], grad=None)
 def _uniform_random(ctx, attrs):
     out = torch.empty(_shape(attrs),
                       dtype=np_dtype(attrs.get("dtype", "float32")),
@@ -45,16 +43,16 @@ def _uniform_random(ctx, attrs):
     if out.device.type == "meta":
         return out
     return out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
-                        generator=_op_generator(ctx, attrs))
+                        generator=op_generator(ctx, attrs))
 
 
-@simple_op("gaussian_random", [], ["Out"])
+@simple_op("gaussian_random", [], ["Out"], grad=None)
 def _gaussian_random(ctx, attrs):
     dt = np_dtype(attrs.get("dtype", "float32"))
     if ctx.device.type == "meta":
         return torch.empty(_shape(attrs), dtype=dt, device="meta")
     z = torch.randn(_shape(attrs), dtype=dt, device=ctx.device,
-                    generator=_op_generator(ctx, attrs))
+                    generator=op_generator(ctx, attrs))
     return attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z
 
 
@@ -77,7 +75,8 @@ def _resolve_reshape(x, shape):
 
 
 @simple_op("reshape2", ["X", "Shape", "ShapeTensor*"], ["Out", "XShape"],
-           optional=("Shape", "ShapeTensor"))
+           optional=("Shape", "ShapeTensor"),
+           no_grad_inputs=("Shape", "ShapeTensor"))
 def _reshape2(ctx, x, shape_t, shape_list, attrs):
     return x.reshape(_resolve_reshape(x, attrs.get("shape"))), None
 
@@ -93,7 +92,7 @@ def _transpose2(ctx, x, attrs):
 # ---------------------------------------------------------------------------
 
 
-@simple_op("lookup_table", ["W", "Ids"], ["Out"])
+@simple_op("lookup_table", ["W", "Ids"], ["Out"], no_grad_inputs=("Ids",))
 def _lookup_table(ctx, w, ids, attrs):
     """Embedding.  A trailing size-1 id dim is dropped from the output
     shape ([B, 1] ids -> [B, H]), as in the JAX package."""
@@ -108,12 +107,45 @@ def _lookup_table(ctx, w, ids, attrs):
     return out.reshape(id_shape + (w.shape[-1],))
 
 
-@simple_op("gather", ["X", "Index"], ["Out"])
+@simple_op("gather", ["X", "Index"], ["Out"], no_grad_inputs=("Index",))
 def _gather(ctx, x, index, attrs):
     return x[index.long()]
 
 
-@simple_op("arg_max", ["X"], ["Out"])
+@simple_op("arg_max", ["X"], ["Out"], grad=None)
 def _arg_max(ctx, x, attrs):
     return torch.argmax(x, dim=attrs.get("axis", -1)).to(
         np_dtype(attrs.get("dtype", "int64")))
+
+
+@simple_op("slice", ["Input"], ["Out"])
+def _slice(ctx, x, attrs):
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(attrs.get("axes", []), attrs.get("starts", []),
+                       attrs.get("ends", [])):
+        dim = x.shape[a]
+        s2 = s if s >= 0 else max(dim + s, 0)
+        e2 = min(e if e >= 0 else dim + e, dim)
+        idx[a] = slice(s2, e2)
+    out = x[tuple(idx)]
+    for a in sorted(attrs.get("decrease_axis", []), reverse=True):
+        out = out.squeeze(a)
+    return out
+
+
+@simple_op("top_k", ["X", "K"], ["Out", "Indices"], grad=None,
+           optional=("K",))
+def _top_k(ctx, x, k_t, attrs):
+    vals, idx = torch.topk(x, attrs.get("k", 1), dim=-1)
+    return vals, idx.to(torch.int64)
+
+
+@simple_op("accuracy", ["Out", "Indices", "Label"],
+           ["Accuracy", "Correct", "Total"], grad=None, optional=("Out",))
+def _accuracy(ctx, out, indices, label, attrs):
+    lbl = label if label.dim() == indices.dim() else label[..., None]
+    correct_rows = (indices == lbl.to(indices.dtype)).any(dim=-1)
+    total = torch.full((), correct_rows.shape[0], dtype=torch.int32,
+                       device=indices.device)
+    correct = correct_rows.to(torch.int32).sum().to(torch.int32)
+    return correct.float() / total.float(), correct, total

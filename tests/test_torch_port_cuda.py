@@ -7,10 +7,14 @@ file imports no jax, so it runs on a GPU machine without it:
 (``PADDLE_TPU_TEST_REAL=1`` keeps tests/cpu_mesh.py from importing jax.)
 
 Tolerances: K5 atol 2e-5 / rtol 1e-4 (online softmax over pages merged
-across warps vs one softmax: same fp32 terms, other order); K4 1e-6 (the
-same elementwise formula; erfcf/tanhf may differ by an ulp); the decode
-lane's greedy ids exactly (the tiny model's top-two gaps are far wider
-than the fp32 differences between cuBLAS and the CPU).
+across warps vs one softmax: same fp32 terms, other order); K4 1e-6 in
+fp32 (the same elementwise formula; erfcf/tanhf may differ by an ulp)
+and one bf16 rounding step (8e-3 relative) in bf16; K1-K3 2e-5 in fp32
+(fp32 sums over 64-key tiles vs one matmul) and 2e-2 in bf16 (both
+round an fp32 result to bf16, so they may differ by an ulp of it); the
+decode lane's greedy ids exactly (the tiny model's top-two gaps are far
+wider than the fp32 differences between cuBLAS and the CPU); the BERT
+step's losses on the card within 1e-4 of the CPU's.
 """
 
 import numpy as np
@@ -18,12 +22,15 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import fused_bias_act as fba
-from paddle_tpu_torch.kernels.primitives import paged
+from paddle_tpu_torch.kernels.primitives import flash, paged
 
 pytestmark = pytest.mark.cuda
 
 K5_TOL = dict(atol=2e-5, rtol=1e-4)
 K4_TOL = dict(atol=1e-6, rtol=1e-6)
+K4_BF16_TOL = dict(atol=8e-3, rtol=8e-3)
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
 @pytest.fixture
@@ -144,7 +151,8 @@ def test_decode_lane_on_cuda_matches_cpu(dev):
                               ("gpu", gpu, fluid.CUDAPlace(0))):
         eng = DecodeEngine(cfg, scope=scope, place=place, pool_slots=4,
                            page_size=4, prefill_chunk=8, max_len=32)
-        counters = kernel_wrappers()
+        counters = {k: w for k, w in kernel_wrappers().items()
+                    if k in ("fused_bias_act", "paged_attention")}
         before = {k: w.launches for k, w in counters.items()}
         try:
             outs[key] = eng.generate(prompts, max_new_tokens=8, timeout=120)
@@ -155,3 +163,141 @@ def test_decode_lane_on_cuda_matches_cpu(dev):
             expect = cfg.num_layers * runs if key == "gpu" else 0
             assert w.launches - before[k] == expect, k
     assert outs["gpu"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("rows,h", [(64, 3072), (37, 768), (5, 37)])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_bias_gelu_kernel_bf16_matches_plain(dev, rows, h, bias_dtype):
+    """bf16 x (the bf16 policy's activations): computed in fp32, returned
+    in bf16."""
+    rng = np.random.RandomState(rows + h)
+    x = torch.from_numpy(rng.randn(rows, h).astype(np.float32) * 3).to(
+        dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.randn(h).astype(np.float32)).to(
+        dev, bias_dtype)
+    mask = torch.from_numpy((rng.rand(rows, h) > .1).astype(np.uint8)).to(
+        dev)
+    for kw in (dict(), dict(mask=mask, scale=1 / 0.9)):
+        got = fba.fused_bias_gelu(x, bias, **kw)
+        want = fba.fused_bias_gelu_reference(x, bias, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, want, **K4_BF16_TOL)
+
+
+def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
+    """q, k, v, dO as [B, H, S, D]: contiguous, or the transposed views
+    of [B, S, H, D] tensors the BERT program hands the op; a key bias
+    with -1e4 pads on some rows."""
+    rng = np.random.RandomState(seed)
+
+    def t():
+        a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+        a = a.to(dev, dtype).transpose(1, 2)
+        return a if strided else a.contiguous()
+
+    q, k, v, do = t(), t(), t(), t()
+    bias = np.zeros((b, s), np.float32)
+    bias[0, s - s // 4:] = -1e4
+    if b > 1:
+        bias[1, 3:7] = -1e4
+    rows = torch.from_numpy(np.repeat(bias, h, axis=0)).to(dev)
+    return q, k, v, do, rows
+
+
+@pytest.mark.parametrize("dtype,s,d,causal,strided", [
+    (torch.bfloat16, 128, 64, False, True),   # the BERT path's case
+    (torch.float32, 200, 64, False, True),    # a ragged last tile
+    (torch.float32, 200, 64, True, False),
+    (torch.float32, 64, 32, True, True),
+    (torch.bfloat16, 77, 16, True, False),
+])
+def test_flash_kernels_match_plain(dev, dtype, s, d, causal, strided):
+    b, h = 2, 3
+    q, k, v, do, bias = _flash_case(dev, b, h, s, d, dtype, strided)
+    scale = d ** -0.5
+    counts = [f.launches for f in (flash.flash_fwd, flash.flash_bwd_dq,
+                                   flash.flash_bwd_dkv)]
+    o, lse = flash.flash_fwd(q, k, v, bias, causal, scale)
+    o_ref, lse_ref = flash.flash_fwd(q, k, v, bias, causal, scale,
+                                     force="reference")
+    assert o.stride() == q.stride() and o.dtype == dtype
+    lse_rows = lse_ref.reshape(b * h, s)
+    delta = (do.float() * o_ref.float()).sum(-1).reshape(b * h, s)
+    args = (q, k, v, bias, do, lse_rows, delta, causal, scale)
+    dq = flash.flash_bwd_dq(*args)
+    dk, dv, db = flash.flash_bwd_dkv(*args)
+    dq_ref = flash.flash_bwd_dq(*args, force="reference")
+    dk_ref, dv_ref, db_ref = flash.flash_bwd_dkv(*args, force="reference")
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash.flash_fwd, flash.flash_bwd_dq,
+                                 flash.flash_bwd_dkv)] == [c + 1
+                                                           for c in counts]
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o, o_ref, **tol)
+    torch.testing.assert_close(lse, lse_ref, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(dq, dq_ref, **tol)
+    torch.testing.assert_close(dk, dk_ref, **tol)
+    torch.testing.assert_close(dv, dv_ref, **tol)
+    torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_autograd_matches_plain(dev):
+    """The differentiable op: K1 forward, K2/K3 backward (under
+    autograd, as the registry's grad op runs it), against the plain
+    versions; the [B, 1, 1, S] bias gets its grad summed over heads."""
+    q, k, v, do, _ = _flash_case(dev, 2, 4, 96, 64, torch.float32, True)
+    bias = torch.zeros(2, 1, 1, 96, device=dev)
+    bias[1, ..., 90:] = -1e4
+    grads = {}
+    for force in (None, "reference"):
+        args = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        out = flash.flash_attention(*args, sm_scale=0.125, force=force)
+        grads[force] = (out.detach(),) + torch.autograd.grad(out, args, do)
+    torch.cuda.synchronize()
+    for got, want in zip(grads[None], grads["reference"]):
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+
+
+def test_flash_kernels_raise_not_fall_back(dev):
+    q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 96, torch.float32, False)
+    with pytest.raises(ValueError, match="head dim"):
+        flash.flash_fwd(q, k, v, bias[:, :16], False, 0.1)
+    q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 8, torch.float16, False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash.flash_fwd(q, k, v, bias, False, 0.1)
+
+
+def test_bert_train_steps_on_cuda_match_cpu(dev):
+    """Three Adam steps of a 2-layer BERT (fp32, dropout 0) on the card
+    and on the CPU from the same parameters; every flash and K4 launch
+    happens on the card."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(num_layers=2, use_flash_attention=True,
+                               attn_dropout=0.0, hidden_dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    startup.random_seed = 5
+    feed = bert.make_fake_batch(cfg, 4, 48, seed=1)
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    gpu = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=gpu)
+    convert.load_params(gpu, {p.name: cpu.get(p.name).numpy()
+                              for p in main.all_parameters()},
+                        fluid.CUDAPlace(0), program=main)
+    losses = {}
+    before = flash.flash_fwd.launches, fba.fused_bias_gelu.launches
+    for key, scope, place in (("gpu", gpu, fluid.CUDAPlace(0)),
+                              ("cpu", cpu, fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        losses[key] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0]) for _ in range(3)]
+    assert (flash.flash_fwd.launches - before[0],
+            fba.fused_bias_gelu.launches - before[1]) == (
+        3 * 2 * cfg.num_layers, 3 * (cfg.num_layers + 1))
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)

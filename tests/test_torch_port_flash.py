@@ -1,0 +1,143 @@
+"""K1-K3, flash attention forward and backward, of the PyTorch port
+against the JAX package.
+
+On the CPU the port's ``flash_attention`` runs the plain versions of
+K1 (forward) and, under autograd, K2/K3 (backward).  They are
+held here against the JAX package's two oracles on the same seeded
+numpy inputs: the materializing ``attention_reference`` (differentiated
+by ``jax.vjp``) and the Pallas kernels themselves in interpret mode
+(``force="pallas"``, as tests/test_flash_attention.py runs them), which
+also runs the JAX custom VJP, i.e. the Pallas backward kernels.  The
+CUDA kernels are held against these plain versions on the card
+(tests/test_torch_port_cuda.py, ``chip_smoke.py``).
+
+Cases: S in {64, 128, 200} (200 is a ragged tile for both packages),
+causal on and off, a key bias with -1e4 pads, float32 and bfloat16.
+Tolerances: 2e-5 in fp32 (the same fp32 math summed in another order);
+2e-2 in bf16 (both round an fp32 result to bf16, so they may differ by
+one bf16 ulp).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.kernels.primitives import flash as jflash
+
+from paddle_tpu_torch.kernels.primitives import flash as tflash
+
+B, H, D = 1, 2, 32
+SM_SCALE = 1.0 / math.sqrt(D)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _case(s, seed=0):
+    rng = np.random.RandomState(seed + s)
+    q, k, v, do = (rng.randn(B, H, s, D).astype(np.float32)
+                   for _ in range(4))
+    bias = np.zeros((B, 1, 1, s), np.float32)
+    bias[..., s - s // 5:] = -1e4  # padded keys
+    return q, k, v, bias, do
+
+
+def _jax(q, k, v, bias, do, causal, dtype, oracle):
+    args = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
+    args.append(jnp.asarray(bias))
+
+    def f(q, k, v, b):
+        if oracle == "reference":
+            bh = b.shape[0] * H
+            rows = jnp.broadcast_to(b.reshape(B, 1, -1),
+                                    (B, H, b.shape[-1])).reshape(bh, -1)
+            out = jflash.attention_reference(
+                q.reshape(bh, -1, D), k.reshape(bh, -1, D),
+                v.reshape(bh, -1, D), rows, causal, SM_SCALE)
+            return out.reshape(q.shape)
+        return jflash.flash_attention(q, k, v, b, causal=causal,
+                                      sm_scale=SM_SCALE, force="pallas")
+
+    out, vjp = jax.vjp(f, *args)
+    grads = vjp(jnp.asarray(do).astype(dtype))
+    return [np.asarray(jnp.asarray(t, jnp.float32)) for t in (out,) + grads]
+
+
+def _port(q, k, v, bias, do, causal, dtype):
+    tdt = getattr(torch, dtype)
+    args = [torch.from_numpy(a).to(tdt).requires_grad_()
+            for a in (q, k, v)]
+    args.append(torch.from_numpy(bias).requires_grad_())
+    out = tflash.flash_attention(*args, causal=causal, sm_scale=SM_SCALE)
+    grads = torch.autograd.grad(out, args, torch.from_numpy(do).to(tdt))
+    out = out.detach()
+    assert out.dtype == tdt and grads[0].dtype == tdt
+    assert grads[3].dtype == torch.float32
+    return [t.float().numpy() for t in (out,) + grads]
+
+
+@pytest.mark.parametrize("oracle", ["reference", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [64, 128, 200])
+def test_flash_plain_matches_jax(s, causal, dtype, oracle):
+    """O, dQ, dK, dV and dBias ([B, 1, 1, S], summed over heads)."""
+    case = _case(s)
+    got = _port(*case, causal, dtype)
+    want = _jax(*case, causal, getattr(jnp, dtype), oracle)
+    tol = TOL[dtype]
+    for name, g, w in zip(("O", "dQ", "dK", "dV", "dBias"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=name)
+
+
+def test_flash_kernel_entry_points_on_cpu_run_plain_versions():
+    """Each launcher runs its plain version on a CPU tensor, counts no
+    launch, and keeps the JAX contract: lse is the row logsumexp, O and
+    the grads keep q's dtype, dBias is fp32."""
+    q, k, v, bias, do = (torch.from_numpy(a) for a in _case(64))
+    rows = bias.reshape(B, 1, -1).expand(B, H, -1).reshape(B * H, -1)
+    counts = [f.launches for f in (tflash.flash_fwd, tflash.flash_bwd_dq,
+                                   tflash.flash_bwd_dkv)]
+    o, lse = tflash.flash_fwd(q, k, v, rows.contiguous(), False, SM_SCALE)
+    s = torch.matmul(q, k.transpose(-1, -2)) * SM_SCALE \
+        + bias.reshape(B, 1, 1, -1)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1))
+    delta = (do * o).sum(-1).reshape(B * H, -1)
+    args = (q, k, v, rows.contiguous(), do, lse.reshape(B * H, -1), delta,
+            False, SM_SCALE)
+    dq = tflash.flash_bwd_dq(*args)
+    dk, dv, db = tflash.flash_bwd_dkv(*args)
+    assert db.dtype == torch.float32 and tuple(db.shape) == (B * H, 64)
+    assert dq.shape == dk.shape == dv.shape == q.shape
+    assert [f.launches for f in (tflash.flash_fwd, tflash.flash_bwd_dq,
+                                 tflash.flash_bwd_dkv)] == counts
+
+
+def test_flash_three_dim_input_and_bias_forms_agree():
+    """[BH, S, D] with a [BH, S] bias gives what [B, H, S, D] with the
+    [B, 1, 1, S] and [B, S] bias forms give."""
+    q, k, v, bias, _ = (torch.from_numpy(a) for a in _case(64))
+    want = tflash.flash_attention(q, k, v, bias, sm_scale=SM_SCALE)
+    got_bs = tflash.flash_attention(q, k, v, bias.reshape(B, -1),
+                                    sm_scale=SM_SCALE)
+    rows = bias.reshape(B, 1, -1).expand(B, H, -1).reshape(B * H, -1)
+    got3 = tflash.flash_attention(q.reshape(B * H, -1, D),
+                                  k.reshape(B * H, -1, D),
+                                  v.reshape(B * H, -1, D), rows,
+                                  sm_scale=SM_SCALE)
+    torch.testing.assert_close(got_bs, want)
+    torch.testing.assert_close(got3.reshape(want.shape), want)
+
+
+def test_flash_wrapper_checks():
+    q, k, v, bias, _ = (torch.from_numpy(a) for a in _case(64))
+    with pytest.raises(ValueError, match="must match"):
+        tflash.flash_attention(q, k[..., :16], v, bias)
+    with pytest.raises(ValueError, match="force"):
+        tflash.flash_attention(q, k, v, bias, force="pallas")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tflash.flash_attention(q.double(), k.double(), v.double(), bias)
