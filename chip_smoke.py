@@ -7,10 +7,10 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every kernel under paddle_tpu_torch/csrc, one nvcc each, all
      started together, for sm_90a.
-  3. kernels: each kernel's wrapper on tensors on the card at the shapes
-     its path gives it, held against its plain PyTorch version; timed
-     against the plain version, its bound and, where one PyTorch call
-     computes the same function, that call (library_ms).
+  3. kernels: each kernel's wrapper (K1-K7) on tensors on the card at
+     the shapes its path gives it, held against its plain PyTorch
+     version; timed against the plain version, its bound and, where one
+     PyTorch call computes the same function, that call (library_ms).
   4. train path: BERT-base pretraining (vocab 30528, flash attention,
      hidden dropout 0.1) at b128 s128 under the bf16 dtype policy with
      Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0):
@@ -28,6 +28,20 @@ Phases, each fatal on failure:
   7. decode parity: the same weights on a CPUPlace executor (plain
      versions): logprobs of prefill chunks and a decode step, and the
      greedy ids of two requests, against the card's.
+  8. int8 decode path: phase 6 over the dual-int8 KV pool
+     (pool_dtype="int8"): K4 and K7 launch exactly 12 x program runs, K5
+     never.
+  9. int8 decode parity: phase 7 over the int8 pool.
+ 10. ragged Engine path: the repo's ragged scorer (vocab 8192, hidden
+     256, 8 heads, 4 layers, a causal ragged_attention a layer), saved
+     with save_inference_model and served by serving.Engine (batch
+     bucket 8, sequence buckets 32/64/128) in its ragged and its
+     bucketed arm: waves of two requests each of 20, 50, 90 and 126
+     tokens, one priming and 10 timed.  K6 launches exactly 4 x the
+     batches each arm ran, warmup included; the ragged arm warms one
+     shape and serves with no padding rows and no cold run.
+ 11. ragged Engine parity: each arm's scores against a CPUPlace engine
+     on the same saved model and requests.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  The
@@ -153,12 +167,19 @@ def _paged_inputs(dev, b, n, t, d, page_size, max_pages, num_pages,
     # page 0 is the trash page: poison it, so attending it would show
     k[0] = 1e4
     v[0] = 1e4
+    return (q, k, v) + _page_table(dev, b, t, page_size, max_pages,
+                                   num_pages, q_start, rng)
+
+
+def _page_table(dev, b, t, page_size, max_pages, num_pages, q_start, rng):
+    """(page_table, q_start) on the card: each row's live pages drawn
+    without repeats from pages 1.. (never the trash page)."""
     perm = rng.permutation(np.arange(1, num_pages))
     table = np.zeros((b, max_pages), np.int32)
     for r in range(b):
         live = min(max_pages, (q_start[r] + t - 1) // page_size + 1)
         table[r, :live] = perm[r * max_pages:r * max_pages + live]
-    return (q, k, v, torch.from_numpy(table).to(dev),
+    return (torch.from_numpy(table).to(dev),
             torch.tensor(q_start, dtype=torch.int32, device=dev))
 
 
@@ -214,6 +235,150 @@ def check_paged(dev, rng):
                              bound_by=bound_by, bytes=byts,
                              max_abs_err=err)
     del flush_buf
+    return worst, timings
+
+
+def _quant_pool(dev, num_pages, page_size, n, d, rng):
+    """A dual-int8 pool (hi, lo, scale for K and V) quantized from random
+    fp32 by the port's codec; the trash page's scales poisoned, so
+    attending it would show."""
+    from paddle_tpu_torch.kernels.primitives import int8
+
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.randn(num_pages, page_size, n, d)
+                             .astype(np.float32)).to(dev)
+        hi, lo, sc = int8.quantize_lastdim(x)
+        sc[0] = 1e4
+        out += [hi, lo, sc]
+    return out
+
+
+def _paged_quant_bound(b, n, t, d, page_size, q_start):
+    """Least time for one K7 call: as K5's, with each visible K/V row
+    read as 2 bytes a code (hi + lo) and a 4-byte scale."""
+    keys = sum(qs + t for qs in q_start)
+    pairs = sum((qs + 1 + qs + t) * t // 2 for qs in q_start)
+    live_pages = sum(-(-(qs + t) // page_size) for qs in q_start)
+    byts = (keys * n * (2 * d + 4) * 2 + 2 * b * n * t * d * 4 + b * 4
+            + live_pages * 4)
+    return _bound(byts, pairs * n * 4 * d) + (byts,)
+
+
+def check_paged_quant(dev, rng):
+    """K7 at the int8 decode lane's shapes: the decode step (8 slots) and
+    the prefill chunk (32 queries), over a 513-page pool with a poisoned
+    trash page."""
+    from paddle_tpu_torch.kernels.primitives import paged
+
+    n, d, page_size, max_pages, num_pages = 12, 64, 16, 64, 513
+    cases = [("decode", 8, 1, [0, 15, 16, 17, 500, 777, 1000, 1023])]
+    cases += [(f"prefill@{qs}", 1, 32, [qs]) for qs in (0, 32, 992)]
+    pool = _quant_pool(dev, num_pages, page_size, n, d, rng)
+    worst, timings = 0.0, {}
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)  # 256 MB > 50 MB L2
+    for name, b, t, q_start in cases:
+        q = torch.from_numpy(rng.randn(b, n, t, d).astype(np.float32)).to(dev)
+        args = (q, *pool, *_page_table(dev, b, t, page_size, max_pages,
+                                       num_pages, q_start, rng))
+        got = paged.paged_attention_quant(*args, sm_scale=d ** -0.5)
+        want = paged.paged_attention_quant_reference(*args,
+                                                     sm_scale=d ** -0.5)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, **K5_TOL) \
+                or not torch.isfinite(got).all():
+            raise AssertionError(f"paged_attention_quant {name}: max abs err "
+                                 f"{err} outside {K5_TOL}")
+        worst = max(worst, err)
+        flush = flush_buf.zero_
+        ms = _time_ms(lambda: paged.paged_attention_quant(
+            *args, sm_scale=d ** -0.5), 50, flush)
+        plain_ms = _time_ms(lambda: paged.paged_attention_quant_reference(
+            *args, sm_scale=d ** -0.5), 10, flush)
+        bound_ms, bound_by, byts = _paged_quant_bound(b, n, t, d, page_size,
+                                                      q_start)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, bytes=byts,
+                             max_abs_err=err, library_ms=None)
+    del flush_buf
+    return worst, timings
+
+
+def _ragged_bound(h, s, d, lengths, causal):
+    """Least time for one K6 call: q and o of every row, and K/V rows
+    below each row's length, moved once; 4·d flops per live (query, key)
+    pair — j < length (and j <= i when causal) — at the fp32 rate
+    without tensor cores (exact fp32 products)."""
+    pairs, kv_rows = 0, 0
+    for ln in lengths:
+        n_keys = min(max(ln, 0), s)
+        kv_rows += n_keys
+        pairs += (sum(min(i + 1, n_keys) for i in range(s)) if causal
+                  else s * n_keys)
+    byts = (2 * len(lengths) * h * s * d + 2 * h * kv_rows * d) * 4 \
+        + 4 * len(lengths)
+    return _bound(byts, h * pairs * 4 * d) + (byts,)
+
+
+def _sdpa_ragged_ms(q, k, v, lengths, causal, scale):
+    """The library yardstick: scaled_dot_product_attention with the same
+    boolean key mask (a length-0 row gives NaN there; timing only)."""
+    import torch.nn.functional as F
+
+    s = q.shape[2]
+    j = torch.arange(s, device=q.device)
+    mask = j.view(1, 1, 1, s) < lengths.view(-1, 1, 1, 1)
+    if causal:
+        mask = mask & (j.view(1, 1, 1, s) <= j.view(1, 1, s, 1))
+    return _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale), 50)
+
+
+def check_ragged(dev, rng):
+    """K6 at the ragged Engine path's shapes: q/k/v [8, 8, S, 32] fp32
+    transposed views of [8, S, 8, 32], S = 128 with the wave's lengths
+    (timed) and with a row of length 0, the bucketed arm's S = 32 and 64
+    whose padding rows carry length 0; and S = 200, D = 64, causal on
+    and off."""
+    from paddle_tpu_torch.kernels.primitives import ragged
+
+    wave = [20, 20, 50, 50, 90, 90, 126, 126]
+    cases = [("path", 8, 8, 128, 32, True, wave),
+             ("len0", 8, 8, 128, 32, True, [20, 50, 90, 126, 0, 126, 3, 128]),
+             ("bucket32", 8, 8, 32, 32, True, [20, 20, 0, 0, 0, 0, 0, 0]),
+             ("bucket64", 8, 8, 64, 32, True, [50, 50, 0, 0, 0, 0, 0, 0]),
+             ("s200_causal", 4, 4, 200, 64, True, [200, 150, 7, 0]),
+             ("s200", 4, 4, 200, 64, False, [200, 150, 7, 0])]
+    worst, timings = 0.0, {}
+    for name, b, h, s, d, causal, lens in cases:
+        q, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+                   .to(dev).transpose(1, 2) for _ in range(3))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        scale = d ** -0.5
+        got = ragged.ragged_attention(q, k, v, lengths, causal, scale)
+        want = ragged.ragged_attention(q, k, v, lengths, causal, scale,
+                                       force="reference")
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, **FLASH_TOL[torch.float32]) \
+                or not torch.isfinite(got).all() \
+                or got.stride() != q.stride():
+            raise AssertionError(f"ragged_attention {name}: max abs err "
+                                 f"{err} outside {FLASH_TOL[torch.float32]}")
+        worst = max(worst, err)
+        if name not in ("path", "bucket32", "bucket64"):
+            continue
+        bound_ms, bound_by, byts = _ragged_bound(h, s, d, lens, causal)
+        timings[name] = dict(
+            ms=_time_ms(lambda: ragged.ragged_attention(
+                q, k, v, lengths, causal, scale), 50),
+            plain_ms=_time_ms(lambda: ragged.ragged_attention(
+                q, k, v, lengths, causal, scale, force="reference"), 20),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=byts,
+            library_ms=_sdpa_ragged_ms(q, k, v, lengths, causal, scale),
+            max_abs_err=err, shape=[b, h, s, d], lengths=lens)
     return worst, timings
 
 
@@ -584,7 +749,7 @@ class Lane:
     decode steps, returning logprobs."""
 
     def __init__(self, cfg, place, scope, pool_slots, page_size, max_len,
-                 chunk):
+                 chunk, pool_dtype="float32"):
         from paddle_tpu_torch import fluid
         from paddle_tpu_torch.models import gpt
         from paddle_tpu_torch.serving.kv_pool import KVPool
@@ -596,18 +761,20 @@ class Lane:
         self.pool_slots = pool_slots
         self.exe = fluid.Executor(place)
         KVPool(cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
-               num_pages, page_size, self.max_pages).install(
-            scope, self.exe.device)
+               num_pages, page_size, self.max_pages,
+               dtype=pool_dtype).install(scope, self.exe.device)
         self.pf, self.dec = fluid.Program(), fluid.Program()
         with fluid.program_guard(self.pf, fluid.Program()), \
                 fluid.unique_name.guard():
-            _, _, lp = gpt.build_gpt_prefill_chunk(cfg, chunk, num_pages,
-                                                   page_size, self.max_pages)
+            _, _, lp = gpt.build_gpt_prefill_chunk(
+                cfg, chunk, num_pages, page_size, self.max_pages,
+                pool_dtype=pool_dtype)
         self.pf_logp = lp.name
         with fluid.program_guard(self.dec, fluid.Program()), \
                 fluid.unique_name.guard():
-            _, _, lp = gpt.build_gpt_decode_step(cfg, pool_slots, num_pages,
-                                                 page_size, self.max_pages)
+            _, _, lp = gpt.build_gpt_decode_step(
+                cfg, pool_slots, num_pages, page_size, self.max_pages,
+                pool_dtype=pool_dtype)
         self.dec_logp = lp.name
 
     def table(self, n_tokens):
@@ -669,7 +836,10 @@ def _param_names(cfg):
     return main, [p.name for p in main.all_parameters()]
 
 
-def run_path(dev, counters):
+def run_path(dev, counters, pool_dtype="float32"):
+    """The decode lane at full width over a ``pool_dtype`` KV pool.
+    ``counters`` maps each kernel the run reads to the launches it must
+    make per layer per program run (1 on the path, 0 off it)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.serving import DecodeEngine
@@ -684,33 +854,39 @@ def run_path(dev, counters):
 
     eng = DecodeEngine(cfg, scope=scope, place=_gpu_place(),
                        pool_slots=8, page_size=16, max_len=1024,
-                       name="smoke", auto_start=False)
+                       pool_dtype=pool_dtype, name=f"smoke-{pool_dtype}",
+                       auto_start=False)
     eng.warmup()
     rng = np.random.RandomState(SEED)
     lens = [8, 512] + list(rng.randint(8, 513, 14))
     prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
-    for w in counters.values():
+    for w, _ in counters.values():
         w.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng.start()
     futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
     outs = [f.result(timeout=900) for f in futs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in counters.items()}
+    launches = {k: w.launches for k, (w, _) in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = eng.stats()
     eng.close()
     if any(len(o) != 32 for o in outs):
         raise AssertionError(f"wrong token counts {[len(o) for o in outs]}")
     runs = stats["prefill_chunks"] + stats["steps"]
     for k, got in launches.items():
-        if got != cfg.num_layers * runs:
+        want = counters[k][1] * cfg.num_layers * runs
+        if got != want:
             raise AssertionError(
-                f"{k}: {got} launches, expected {cfg.num_layers} x {runs} "
-                f"program runs = {cfg.num_layers * runs}")
+                f"{k}: {got} launches, expected {counters[k][1]} x "
+                f"{cfg.num_layers} x {runs} program runs = {want}")
     gen = sum(len(o) for o in outs)
-    path = dict(requests=len(prompts), prompt_tokens=int(sum(lens)),
+    path = dict(pool_dtype=pool_dtype,
+                pool_bytes=eng.pool.modeled_bytes(),
+                requests=len(prompts), prompt_tokens=int(sum(lens)),
                 generated_tokens=gen, wall_s=wall,
                 generated_tokens_per_s=gen / wall,
                 total_tokens_per_s=(gen + sum(lens)) / wall,
@@ -719,15 +895,17 @@ def run_path(dev, counters):
                 decode_step_p50_ms=1e3 * float(np.median(eng.step_seconds)),
                 prefill_chunk_p50_ms=1e3 * float(
                     np.median(eng.prefill_seconds)),
-                evictions=stats["evictions"], launches=launches)
+                evictions=stats["evictions"], peak_memory_gb=peak_gb,
+                launches=launches)
     return cfg, scope, prompts, outs, path
 
 
-def profile_decode_step(cfg, scope, steps=5):
+def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32"):
     """Host wall time vs summed device kernel time of decode steps
     (torch.profiler): slot 0 active at positions 65-69, the other seven
     slots on the trash page."""
-    lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32)
+    lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32,
+                pool_dtype)
     lane.prefill(list(range(1, 65)))
     lane.decode(5, 64)
     pos = iter(range(65, 65 + 2 * steps))
@@ -751,7 +929,7 @@ def _copy_scope(scope):
     return out
 
 
-def run_parity(cfg, scope, prompts, outs):
+def run_parity(cfg, scope, prompts, outs, pool_dtype="float32"):
     from paddle_tpu_torch import convert, fluid
     from paddle_tpu_torch.serving import DecodeEngine
 
@@ -763,8 +941,9 @@ def run_parity(cfg, scope, prompts, outs):
     rng = np.random.RandomState(SEED + 1)
     tokens = rng.randint(1, cfg.vocab_size, 40).tolist()
     lanes = {"gpu": Lane(cfg, _gpu_place(), _copy_scope(scope), 2, 16,
-                         1024, 32),
-             "cpu": Lane(cfg, fluid.CPUPlace(), cpu_scope, 2, 16, 1024, 32)}
+                         1024, 32, pool_dtype),
+             "cpu": Lane(cfg, fluid.CPUPlace(), cpu_scope, 2, 16, 1024, 32,
+                         pool_dtype)}
     res = {}
     for k, lane in lanes.items():
         chunks = lane.prefill(tokens)
@@ -780,7 +959,7 @@ def run_parity(cfg, scope, prompts, outs):
     order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
     eng = DecodeEngine(cfg, scope=cpu_scope, place=fluid.CPUPlace(),
                        pool_slots=2, page_size=16, max_len=1024,
-                       name="cpu-parity")
+                       pool_dtype=pool_dtype, name="cpu-parity")
     try:
         cpu_outs = eng.generate([prompts[i] for i in order],
                                 max_new_tokens=32, timeout=900)
@@ -806,8 +985,172 @@ def run_parity(cfg, scope, prompts, outs):
                     f"request {i}: greedy ids differ at step {k} with a "
                     f"top-two gap {gap} >= {PATH_LOGP_ATOL}")
         ids.append(entry)
-    return dict(logprob_max_abs_err=logp_err, logprob_atol=PATH_LOGP_ATOL,
-                greedy=ids)
+    return dict(pool_dtype=pool_dtype, logprob_max_abs_err=logp_err,
+                logprob_atol=PATH_LOGP_ATOL, greedy=ids)
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: the ragged serving.Engine lane over a saved inference
+# model, both arms, and its CPU parity (phases 8-9 are phases 6-7 over
+# the int8 pool)
+# ---------------------------------------------------------------------------
+
+# the repo's ragged-serving model at its "base" size (bench.py :985-1017)
+RAGGED_VOCAB, RAGGED_HIDDEN, RAGGED_HEADS, RAGGED_LAYERS = 8192, 256, 8, 4
+RAGGED_SEQ_BUCKETS = [32, 64, 128]
+RAGGED_WAVE = (20, 50, 90, 126)  # two requests of each length a wave
+RAGGED_BATCH = 2 * len(RAGGED_WAVE)
+RAGGED_WAVES = 10
+# card vs CPU scores: 4 layers of fp32 products summed in other orders
+RAGGED_SCORE_ATOL = 1e-4
+
+
+def save_ragged_model(dirname):
+    """Build the ragged scorer with the port's front end (ids [-1, -1]
+    int64, lens [-1] int32; a causal ragged_attention per layer), give it
+    seeded random weights and save it with save_inference_model."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import layers as L
+
+    head_dim = RAGGED_HIDDEN // RAGGED_HEADS
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.data("ids", [-1, -1], False, dtype="int64")
+        lens = fluid.data("lens", [-1], False, dtype="int32")
+        x = L.embedding(ids, size=[RAGGED_VOCAB, RAGGED_HIDDEN])
+        for _ in range(RAGGED_LAYERS):
+            qkv = [L.reshape(L.fc(x, size=RAGGED_HIDDEN, num_flatten_dims=2),
+                             shape=[0, 0, RAGGED_HEADS, head_dim])
+                   for _ in range(3)]
+            q, k, v = [L.transpose(t, perm=[0, 2, 1, 3]) for t in qkv]
+            ctx = L.ragged_attention(q, k, v, lens, causal=True)
+            ctx = L.reshape(L.transpose(ctx, perm=[0, 2, 1, 3]),
+                            shape=[0, 0, RAGGED_HIDDEN])
+            x = L.elementwise_add(x, L.fc(ctx, size=RAGGED_HIDDEN,
+                                          num_flatten_dims=2))
+        score = L.reshape(L.reduce_mean(x, dim=[1, 2]), shape=[-1, 1])
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(_gpu_place())
+    exe.run(startup, scope=scope)
+    fluid.io.save_inference_model(dirname, ["ids", "lens"], [score], exe,
+                                  main_program=main, scope=scope)
+    return score.name
+
+
+def ragged_waves(n_waves):
+    """The traffic: waves of two requests of each RAGGED_WAVE length,
+    seeded; the first wave primes."""
+    rng = np.random.RandomState(SEED + 2)
+    return [[{"ids": rng.randint(1, RAGGED_VOCAB, (1, ln)).astype(np.int64),
+              "lens": np.full((1,), ln, np.int32)}
+             for ln in RAGGED_WAVE for _ in range(2)]
+            for _ in range(n_waves)]
+
+
+def _serve_rows(model, kind):
+    from paddle_tpu_torch.observability import metrics
+
+    fam = metrics.snapshot().get("pt_serve_rows_total")
+    return fam["samples"].get((model, kind), 0.0) if fam else 0.0
+
+
+def run_ragged_arm(model_dir, fetch, ragged, place, waves, counter=None):
+    """One Engine arm serving ``waves`` (the first primes).  Returns the
+    served scores of every request and the arm's figures; with a
+    ``counter`` (K6's wrapper) its launches are zeroed before the arm
+    and must equal 4 x the batches the arm executed, warmup included."""
+    from paddle_tpu_torch import serving
+
+    name = "ragged" if ragged else "bucketed"
+    if counter is not None:
+        counter.launches = 0
+    eng = serving.Engine(batch_buckets=[RAGGED_BATCH],
+                         seq_buckets=RAGGED_SEQ_BUCKETS, max_wait_ms=5,
+                         auto_start=False, name=f"smoke_{name}", place=place)
+    try:
+        eng.load_model(name, model_dir, ragged=ragged)
+        warmed = eng.warmup()[name]
+        eng.start()
+
+        def wave(feeds):
+            futs = [eng.submit(name, f) for f in feeds]
+            return [float(f.result(timeout=300)[fetch].reshape(-1)[0])
+                    for f in futs]
+
+        def cold():
+            return eng.stats()["models"][name]["executable_cache"]["cold"]
+
+        scores = [wave(waves[0])]
+        pad0, real0 = _serve_rows(name, "padding"), _serve_rows(name, "real")
+        cold0 = cold()
+        t0 = time.perf_counter()
+        for feeds in waves[1:]:
+            scores.append(wave(feeds))
+        dt = time.perf_counter() - t0
+        timed = len(waves) - 1
+        arm = dict(arm=name, warmed_shapes=warmed,
+                   real_tokens_per_s=timed * 2 * sum(RAGGED_WAVE) / dt,
+                   timed_waves=timed, wall_s=dt,
+                   real_rows=int(_serve_rows(name, "real") - real0),
+                   padding_rows=int(_serve_rows(name, "padding") - pad0),
+                   steady_state_cold=int(cold() - cold0))
+        prof = None
+        if counter is not None:  # one more wave, under the profiler
+            prof = _profile(lambda: wave(waves[1]), 1)
+            if prof["device_busy_ms"]:
+                prof["device_idle_share"] = (1 - prof["device_busy_ms"]
+                                             / prof["wall_profiled_ms"])
+        stats = eng.stats()["models"][name]
+    finally:
+        eng.close()
+    arm.update(batches=stats["batches"],
+               warmup_batches=stats["warmup_batches"],
+               executable_cache=stats["executable_cache"])
+    if counter is not None:
+        arm["launches"] = counter.launches
+        executed = stats["batches"] + stats["warmup_batches"]
+        if counter.launches != RAGGED_LAYERS * executed:
+            raise AssertionError(
+                f"{name} arm: ragged_attention launched {counter.launches} "
+                f"times, expected {RAGGED_LAYERS} x {executed} batches")
+        arm["profile_one_wave"] = prof
+    return scores, arm
+
+
+def run_ragged_path(counter):
+    """Both arms on the card, then each against a CPUPlace engine on the
+    same saved model and requests."""
+    import tempfile
+
+    from paddle_tpu_torch import fluid
+
+    waves = ragged_waves(1 + RAGGED_WAVES)
+    arms, parity = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pt_ragged_model_") as d:
+        fetch = save_ragged_model(d)
+        for ragged in (True, False):
+            scores, arm = run_ragged_arm(d, fetch, ragged, _gpu_place(),
+                                         waves, counter)
+            name = arm["arm"]
+            if not np.isfinite(scores).all():
+                raise AssertionError(f"{name} arm: non-finite scores")
+            if ragged and (arm["warmed_shapes"] != 1
+                           or arm["steady_state_cold"] != 0
+                           or arm["padding_rows"] != 0):
+                raise AssertionError(f"ragged arm: {arm}")
+            arms[name] = arm
+            cpu_scores, _ = run_ragged_arm(d, fetch, ragged,
+                                           fluid.CPUPlace(), waves[:1])
+            err = float(np.abs(np.asarray(scores[0])
+                               - np.asarray(cpu_scores[0])).max())
+            if not err < RAGGED_SCORE_ATOL:
+                raise AssertionError(f"{name} arm: card vs CPU scores differ "
+                                     f"by {err} >= {RAGGED_SCORE_ATOL}")
+            parity[name] = dict(score_max_abs_err=err,
+                                atol=RAGGED_SCORE_ATOL,
+                                requests=len(scores[0]))
+    return arms, parity
 
 
 def main():
@@ -845,9 +1188,12 @@ def main():
     k4_err, k4_t = check_bias_gelu(dev, rng)
     k4b_err, k4b_t = check_bias_gelu_bf16(dev, rng)
     fl_err, fl_t = check_flash(dev, rng)
+    k6_err, k6_t = check_ragged(dev, rng)
+    k7_err, k7_t = check_paged_quant(dev, rng)
     print("kernel timings " + json.dumps({
         "paged_attention": k5_t, "fused_bias_act": {**k4_t, **k4b_t},
-        "flash": fl_t, "card": smi}), flush=True)
+        "flash": fl_t, "ragged_attention": k6_t,
+        "paged_attention_quant": k7_t, "card": smi}), flush=True)
 
     wrappers = kernel_wrappers()
     train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -861,16 +1207,42 @@ def main():
 
     decode_kernels = ("fused_bias_act", "paged_attention")
     cfg, scope, prompts, outs, path = run_path(
-        dev, {k: wrappers[k] for k in decode_kernels})
+        dev, {k: (wrappers[k], 1) for k in decode_kernels})
     print("decode path " + json.dumps({"card": smi, **path}), flush=True)
     prof = profile_decode_step(cfg, scope)
     print("decode step " + json.dumps(prof), flush=True)
     parity = run_parity(cfg, scope, prompts, outs)
     print("decode parity " + json.dumps(parity), flush=True)
+    del scope
+    torch.cuda.empty_cache()
+
+    # the int8 KV pool: K4 and K7 once a layer per program run, K5 never
+    int8_counts = {"fused_bias_act": 1, "paged_attention_quant": 1,
+                   "paged_attention": 0}
+    cfg, scope, prompts, outs, path8 = run_path(
+        dev, {k: (wrappers[k], n) for k, n in int8_counts.items()},
+        pool_dtype="int8")
+    print("int8 decode path " + json.dumps({"card": smi, **path8}),
+          flush=True)
+    print("int8 decode step " + json.dumps(
+        profile_decode_step(cfg, scope, pool_dtype="int8")), flush=True)
+    print("int8 decode parity " + json.dumps(
+        run_parity(cfg, scope, prompts, outs, pool_dtype="int8")),
+        flush=True)
+    del scope
+    torch.cuda.empty_cache()
+
+    arms, ragged_parity = run_ragged_path(wrappers["ragged_attention"])
+    print("ragged engine path " + json.dumps({"card": smi, **arms}),
+          flush=True)
+    print("ragged engine parity " + json.dumps(ragged_parity), flush=True)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
-    by_path = {"train": train["launches"], "decode": path["launches"]}
+    by_path = {"train": train["launches"], "decode": path["launches"],
+               "decode_int8": path8["launches"],
+               **{f"engine_{k}": {"ragged_attention": a["launches"]}
+                  for k, a in arms.items()}}
 
     def launches(name):
         return {p: n[name] for p, n in by_path.items() if name in n}
@@ -898,6 +1270,13 @@ def main():
             k4),
         row("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
             "paddle_tpu/kernels/primitives/paged.py:121", k5_err, dec),
+        row("ragged_attention", "paddle_tpu_torch/csrc/ragged_attention.cu",
+            "paddle_tpu/kernels/primitives/ragged.py:74", k6_err,
+            k6_t["path"]),
+        row("paged_attention_quant",
+            "paddle_tpu_torch/csrc/paged_attention.cu",
+            "paddle_tpu/kernels/primitives/paged.py:241", k7_err,
+            k7_t["decode"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

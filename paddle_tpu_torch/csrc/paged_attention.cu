@@ -1,10 +1,16 @@
-// K5: paged attention over an fp32 KV pool, for Hopper (sm_90a).
+// K5 and K7: paged attention over an fp32 KV pool (K5) and over a
+// dual-int8 KV pool (K7), for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel paddle_tpu/kernels/primitives/paged.py
-// `_paged_kernel` (:121), launched by `_pallas_paged` (:197).  Contract,
-// kept exactly:
+// K5 replaces the Pallas kernel paddle_tpu/kernels/primitives/paged.py
+// `_paged_kernel` (:121), launched by `_pallas_paged` (:197).  K7
+// replaces `_paged_quant_kernel` (:241), launched by
+// `_pallas_paged_quant` (:298, the call at :315).  Contract, kept exactly:
 //   q          [B, n, T, d]  f32, contiguous
-//   k/v pages  [P, page, n, d] f32, contiguous (the KV pool)
+//   K5 pool    k/v pages [P, page, n, d] f32, contiguous
+//   K7 pool    k/v hi, lo [P, page, n, d] int8 and k/v scale
+//              [P, page, n, 1] f32, contiguous: a pool element is
+//              (hi + lo / 254) * scale, dequantised in registers, so fp32
+//              K/V never exist in device memory
 //   page_table [B, max_pages] i32: physical page of each logical page
 //   q_start    [B] i32: tokens already in the pool before this q block
 //   out        [B, n, T, d]  f32
@@ -15,9 +21,11 @@
 //
 // What bounds it on this card: at T = 1 (a decode step) the work is a
 // matrix-vector product per (row, head) — about 4 flops per 8 bytes of
-// K/V read — so it is bound by the bytes of the live pages, far below
-// the ridge point; no tensor cores are needed.  At T = 32 (a prefill
-// chunk) each staged page is reused by the block's queries.
+// fp32 K/V read (per 4.25 bytes of int8 K/V) — so it is bound by the
+// bytes of the live pages, far below the ridge point; no tensor cores
+// are needed.  At T = 32 (a prefill chunk) each staged page is reused by
+// the block's queries.  K7 reads 2 bytes + 4/d of scale per element
+// instead of 4, so its bound is about half of K5's.
 //
 // Design.  The TPU grid walks (b, h, every logical page) in order and
 // carries the softmax state in VMEM scratch, skipping dead pages with
@@ -29,12 +37,14 @@
 //     pages w, w+8, ...): only pages up to (q_start+last query)/page are
 //     visited, never max_pages;
 //   - each warp stages its physical page's K and V slice for head h in
-//     its own shared memory with coalesced row loads (rows of the pool
-//     are n*d floats apart), rows padded to d+1 floats so the per-key
-//     dot products read without bank conflicts.  The loads are float4
-//     and all issued before any is stored, so a page costs one memory
-//     round trip; a page of up to 256 float4 (16 x 64 floats) is
-//     prefetched into registers while the warp's previous page scores;
+//     its own shared memory as fp32 with coalesced row loads (rows of the
+//     pool are n*d elements apart), rows padded to d+1 floats so the
+//     per-key dot products read without bank conflicts.  K5 loads float4
+//     (16 bytes); K7 loads 16 int8 of hi and of lo at a time and the
+//     row's scale, and dequantises while it stores.  All loads of a page
+//     are issued before any is stored, so a page costs one memory round
+//     trip; a page that fits one chunk is prefetched into registers
+//     while the warp's previous page scores;
 //   - each warp keeps an online softmax (m, l, acc) per query in
 //     registers, one lane per key for the scores (two lanes per key, each
 //     summing half the columns, when a page holds <= 16 keys) and one
@@ -48,6 +58,20 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr float kMaskValue = -1e9f;  // the JAX kernel's NEG_INF
+constexpr float kInvResid = 1.0f / 254.0f;  // the codec's 1 / RESID_DIV
+
+// The pool one launch reads: fp32 k/v (K5) or int8 hi/lo + fp32 scale
+// (K7); the other set is null.
+struct Pool {
+  const float* k;
+  const float* v;
+  const signed char* khi;
+  const signed char* klo;
+  const float* ksc;
+  const signed char* vhi;
+  const signed char* vlo;
+  const float* vsc;
+};
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -62,6 +86,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 constexpr int kChunk = 8;  // float4 loads in flight per lane, for K and V
+constexpr int kChunkQ = 4;  // 16-byte int8 loads per lane, per hi/lo/K/V
 
 // First pool row of logical page lp of a row's page table.
 __device__ __forceinline__ long long page_row0(const int* table, int lp,
@@ -70,6 +95,10 @@ __device__ __forceinline__ long long page_row0(const int* table, int lp,
   const int phys = min(max(table[lp], 0), num_pages - 1);  // gather: clamp
   return (long long)phys * page_size;
 }
+
+// ---------------------------------------------------------------------------
+// K5 staging: fp32 pages, float4 at a time
+// ---------------------------------------------------------------------------
 
 // Load float4 number base + u*32 + lane (u < kChunk) of a page's K and V
 // slice for head h: element e is row e / vrow, columns 4*(e % vrow)...
@@ -109,12 +138,85 @@ __device__ __forceinline__ void store_chunk(float* sK, float* sV, int dp,
   }
 }
 
-// QT: queries per block; R: output columns per lane (d <= 32 * R).
-template <int QT, int R>
+// ---------------------------------------------------------------------------
+// K7 staging: int8 hi/lo pages, 16 codes at a time, plus the row's scale
+// ---------------------------------------------------------------------------
+
+struct QRegs {
+  int4 khi[kChunkQ], klo[kChunkQ], vhi[kChunkQ], vlo[kChunkQ];
+  float ksc[kChunkQ], vsc[kChunkQ];
+};
+
+// (hi + lo * (1/254)) * scale, rounded step by step as the plain version
+// rounds it (no fused multiply-add)
+__device__ __forceinline__ float dequant(int hi, int lo, float sc) {
+  return __fmul_rn(__fadd_rn((float)hi, __fmul_rn((float)lo, kInvResid)),
+                   sc);
+}
+
+// byte b (0..3) of a 32-bit word as a signed int8 value
+__device__ __forceinline__ int sbyte(int w, int b) {
+  return (int)((unsigned)w << (24 - 8 * b)) >> 24;
+}
+
+__device__ __forceinline__ void store16(float* dst, int4 hv, int4 lv,
+                                        float sc) {
+  const int hw[4] = {hv.x, hv.y, hv.z, hv.w};
+  const int lw[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      dst[4 * w + b] = dequant(sbyte(hw[w], b), sbyte(lw[w], b), sc);
+}
+
+// Load 16-byte vector number base + u*32 + lane (u < kChunkQ) of a
+// page's hi and lo codes for head h, K and V, with its row's scales:
+// vector e is row e / vrow, columns 16*(e % vrow)...
+__device__ __forceinline__ void load_chunk_q(const Pool& pool, long long row0,
+                                             int n, int h, int vrow,
+                                             int nvec, int base, int lane,
+                                             QRegs& r) {
+  const int4* khi = reinterpret_cast<const int4*>(pool.khi);
+  const int4* klo = reinterpret_cast<const int4*>(pool.klo);
+  const int4* vhi = reinterpret_cast<const int4*>(pool.vhi);
+  const int4* vlo = reinterpret_cast<const int4*>(pool.vlo);
+#pragma unroll
+  for (int u = 0; u < kChunkQ; ++u) {
+    const int e = base + u * 32 + lane;
+    if (e < nvec) {
+      const int row = e / vrow, c16 = e - row * vrow;
+      const long long vec = (row0 + row) * n + h;  // this row's vector
+      const long long g = vec * vrow + c16;
+      r.khi[u] = khi[g];
+      r.klo[u] = klo[g];
+      r.vhi[u] = vhi[g];
+      r.vlo[u] = vlo[g];
+      r.ksc[u] = pool.ksc[vec];
+      r.vsc[u] = pool.vsc[vec];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_chunk_q(float* sK, float* sV, int dp,
+                                              int vrow, int nvec, int base,
+                                              int lane, const QRegs& r) {
+#pragma unroll
+  for (int u = 0; u < kChunkQ; ++u) {
+    const int e = base + u * 32 + lane;
+    if (e < nvec) {
+      const int row = e / vrow, c = (e - row * vrow) * 16;
+      store16(sK + row * dp + c, r.khi[u], r.klo[u], r.ksc[u]);
+      store16(sV + row * dp + c, r.vhi[u], r.vlo[u], r.vsc[u]);
+    }
+  }
+}
+
+// QT: queries per block; R: output columns per lane (d <= 32 * R);
+// kQuant: the int8 pool (K7) rather than the fp32 pool (K5).
+template <int QT, int R, bool kQuant>
 __global__ void __launch_bounds__(32 * kWarps)
-paged_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k_pages,
-                       const float* __restrict__ v_pages,
+paged_attention_kernel(const float* __restrict__ q, const Pool pool,
                        const int* __restrict__ page_table,
                        const int* __restrict__ q_start,
                        float* __restrict__ out,
@@ -157,21 +259,27 @@ paged_attention_kernel(const float* __restrict__ q,
     for (int r = 0; r < R; ++r) acc[qi][r] = 0.f;
   }
 
-  // Staging.  With vec (d % 4 == 0, 16-byte aligned pool) each lane
-  // issues up to kChunk float4 loads of K and of V at once, so a page
-  // costs one memory round trip, not one per element; when a page fits
-  // one chunk, the warp's NEXT page is loaded into registers while the
-  // current page is scored (a register double buffer).
-  const float4* k4 = reinterpret_cast<const float4*>(k_pages);
-  const float4* v4 = reinterpret_cast<const float4*>(v_pages);
-  const int vrow = d >> 2;
+  // Staging.  With vec (whole 16-byte vectors per row, 16-byte aligned
+  // pool) each lane issues its chunk of loads of K and of V at once, so a
+  // page costs one memory round trip, not one per element; when a page
+  // fits one chunk, the warp's NEXT page is loaded into registers while
+  // the current page is scored (a register double buffer).
+  const float4* k4 = reinterpret_cast<const float4*>(pool.k);
+  const float4* v4 = reinterpret_cast<const float4*>(pool.v);
+  const int vrow = kQuant ? d >> 4 : d >> 2;  // 16-byte vectors per row
   const int nvec = page_size * vrow;
-  const bool one_chunk = vec && nvec <= 32 * kChunk;
+  const bool one_chunk =
+      vec && nvec <= 32 * (kQuant ? kChunkQ : kChunk);
   const int* table = page_table + (long long)b * max_pages;
   float4 kr[kChunk], vr[kChunk];
-  if (one_chunk && warp < n_live)
-    load_chunk(k4, v4, page_row0(table, warp, page_size, num_pages), n, h,
-               vrow, nvec, 0, lane, kr, vr);
+  QRegs qr;
+  if (one_chunk && warp < n_live) {
+    const long long row0 = page_row0(table, warp, page_size, num_pages);
+    if constexpr (kQuant)
+      load_chunk_q(pool, row0, n, h, vrow, nvec, 0, lane, qr);
+    else
+      load_chunk(k4, v4, row0, n, h, vrow, nvec, 0, lane, kr, vr);
+  }
 
   // Scoring lanes: with pages of <= 16 keys, lanes l and l+16 share key
   // l, each summing half of the d columns, so no lane idles.
@@ -183,24 +291,44 @@ paged_attention_kernel(const float* __restrict__ q,
 
   for (int lp = warp; lp < n_live; lp += kWarps) {
     if (one_chunk) {
-      store_chunk(sK, sV, dp, vrow, nvec, 0, lane, kr, vr);
-      if (lp + kWarps < n_live)  // prefetch: lands while this page scores
-        load_chunk(k4, v4,
-                   page_row0(table, lp + kWarps, page_size, num_pages), n,
-                   h, vrow, nvec, 0, lane, kr, vr);
+      const bool more = lp + kWarps < n_live;
+      const long long next =
+          more ? page_row0(table, lp + kWarps, page_size, num_pages) : 0;
+      if constexpr (kQuant) {
+        store_chunk_q(sK, sV, dp, vrow, nvec, 0, lane, qr);
+        if (more)  // prefetch: lands while this page scores
+          load_chunk_q(pool, next, n, h, vrow, nvec, 0, lane, qr);
+      } else {
+        store_chunk(sK, sV, dp, vrow, nvec, 0, lane, kr, vr);
+        if (more)
+          load_chunk(k4, v4, next, n, h, vrow, nvec, 0, lane, kr, vr);
+      }
     } else if (vec) {
       const long long row0 = page_row0(table, lp, page_size, num_pages);
-      for (int base = 0; base < nvec; base += 32 * kChunk) {
-        load_chunk(k4, v4, row0, n, h, vrow, nvec, base, lane, kr, vr);
-        store_chunk(sK, sV, dp, vrow, nvec, base, lane, kr, vr);
+      if constexpr (kQuant) {
+        for (int base = 0; base < nvec; base += 32 * kChunkQ) {
+          load_chunk_q(pool, row0, n, h, vrow, nvec, base, lane, qr);
+          store_chunk_q(sK, sV, dp, vrow, nvec, base, lane, qr);
+        }
+      } else {
+        for (int base = 0; base < nvec; base += 32 * kChunk) {
+          load_chunk(k4, v4, row0, n, h, vrow, nvec, base, lane, kr, vr);
+          store_chunk(sK, sV, dp, vrow, nvec, base, lane, kr, vr);
+        }
       }
     } else {
       const long long row0 = page_row0(table, lp, page_size, num_pages);
       for (int e = lane; e < page_size * d; e += 32) {
         const int row = e / d, c = e - row * d;
-        const long long g = ((row0 + row) * n + h) * d + c;
-        sK[row * dp + c] = k_pages[g];
-        sV[row * dp + c] = v_pages[g];
+        const long long vecn = (row0 + row) * n + h;
+        const long long g = vecn * d + c;
+        if constexpr (kQuant) {
+          sK[row * dp + c] = dequant(pool.khi[g], pool.klo[g], pool.ksc[vecn]);
+          sV[row * dp + c] = dequant(pool.vhi[g], pool.vlo[g], pool.vsc[vecn]);
+        } else {
+          sK[row * dp + c] = pool.k[g];
+          sV[row * dp + c] = pool.v[g];
+        }
       }
     }
     __syncwarp();
@@ -284,11 +412,11 @@ paged_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int QT, int R>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* pt, const int* qs, float* out, int B, int n,
-                   int T, int d, int page_size, int max_pages, int num_pages,
-                   float scale, bool vec, cudaStream_t stream) {
+template <int QT, int R, bool kQuant>
+cudaError_t launch(const float* q, const Pool& pool, const int* pt,
+                   const int* qs, float* out, int B, int n, int T, int d,
+                   int page_size, int max_pages, int num_pages, float scale,
+                   bool vec, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)QT * d + (size_t)kWarps * 2 * page_size *
                        (d + 1) + (size_t)kWarps * QT * (d + 2));
@@ -297,45 +425,68 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<QT, R>,
+        paged_attention_kernel<QT, R, kQuant>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
   dim3 grid((T + QT - 1) / QT, n, B);
-  paged_attention_kernel<QT, R><<<grid, 32 * kWarps, smem, stream>>>(
-      q, k, v, pt, qs, out, n, T, d, page_size, max_pages, num_pages,
-      scale, vec);
+  paged_attention_kernel<QT, R, kQuant><<<grid, 32 * kWarps, smem, stream>>>(
+      q, pool, pt, qs, out, n, T, d, page_size, max_pages, num_pages, scale,
+      vec);
   return cudaGetLastError();
 }
 
-template <int QT>
-cudaError_t dispatch_r(const float* q, const float* k, const float* v,
-                       const int* pt, const int* qs, float* out, int B,
-                       int n, int T, int d, int page_size, int max_pages,
-                       int num_pages, float scale, bool vec,
-                       cudaStream_t stream) {
+template <int QT, bool kQuant>
+cudaError_t dispatch_r(const float* q, const Pool& pool, const int* pt,
+                       const int* qs, float* out, int B, int n, int T, int d,
+                       int page_size, int max_pages, int num_pages,
+                       float scale, bool vec, cudaStream_t stream) {
   switch ((d + 31) / 32) {
-    case 1: return launch<QT, 1>(q, k, v, pt, qs, out, B, n, T, d,
-                                 page_size, max_pages, num_pages, scale,
-                                 vec, stream);
-    case 2: return launch<QT, 2>(q, k, v, pt, qs, out, B, n, T, d,
-                                 page_size, max_pages, num_pages, scale,
-                                 vec, stream);
-    case 3: return launch<QT, 3>(q, k, v, pt, qs, out, B, n, T, d,
-                                 page_size, max_pages, num_pages, scale,
-                                 vec, stream);
-    case 4: return launch<QT, 4>(q, k, v, pt, qs, out, B, n, T, d,
-                                 page_size, max_pages, num_pages, scale,
-                                 vec, stream);
+    case 1: return launch<QT, 1, kQuant>(q, pool, pt, qs, out, B, n, T, d,
+                                         page_size, max_pages, num_pages,
+                                         scale, vec, stream);
+    case 2: return launch<QT, 2, kQuant>(q, pool, pt, qs, out, B, n, T, d,
+                                         page_size, max_pages, num_pages,
+                                         scale, vec, stream);
+    case 3: return launch<QT, 3, kQuant>(q, pool, pt, qs, out, B, n, T, d,
+                                         page_size, max_pages, num_pages,
+                                         scale, vec, stream);
+    case 4: return launch<QT, 4, kQuant>(q, pool, pt, qs, out, B, n, T, d,
+                                         page_size, max_pages, num_pages,
+                                         scale, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <bool kQuant>
+int dispatch(const float* q, const Pool& pool, const int* page_table,
+             const int* q_start, float* out, int B, int n, int T, int d,
+             int page_size, int max_pages, int num_pages, float scale,
+             bool vec, void* stream) {
+  if (d < 1 || d > 128 || page_size < 1 || num_pages < 1 || max_pages < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0 || T == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 1)
+    return (int)dispatch_r<1, kQuant>(q, pool, page_table, q_start, out, B,
+                                      n, T, d, page_size, max_pages,
+                                      num_pages, scale, vec, s);
+  return (int)dispatch_r<4, kQuant>(q, pool, page_table, q_start, out, B, n,
+                                    T, d, page_size, max_pages, num_pages,
+                                    scale, vec, s);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  d must be in
+// Both return the cudaError_t of the launch (0 on success).  d must be in
 // [1, 128]; every pointer is a device pointer; stream is a cudaStream_t.
+
+// K5: the fp32 pool.
 extern "C" int pt_paged_attention_f32(const float* q, const float* k_pages,
                                       const float* v_pages,
                                       const int* page_table,
@@ -343,18 +494,30 @@ extern "C" int pt_paged_attention_f32(const float* q, const float* k_pages,
                                       int n, int T, int d, int page_size,
                                       int max_pages, int num_pages,
                                       float scale, void* stream) {
-  if (d < 1 || d > 128 || page_size < 1 || num_pages < 1 || max_pages < 1)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || n == 0 || T == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 &&
-                   (reinterpret_cast<size_t>(k_pages) & 15) == 0 &&
-                   (reinterpret_cast<size_t>(v_pages) & 15) == 0;
-  if (T == 1)
-    return (int)dispatch_r<1>(q, k_pages, v_pages, page_table, q_start, out,
-                              B, n, T, d, page_size, max_pages, num_pages,
-                              scale, vec, s);
-  return (int)dispatch_r<4>(q, k_pages, v_pages, page_table, q_start, out, B,
-                            n, T, d, page_size, max_pages, num_pages, scale,
-                            vec, s);
+  Pool pool = {};
+  pool.k = k_pages;
+  pool.v = v_pages;
+  const bool vec = d % 4 == 0 && aligned16(k_pages) && aligned16(v_pages);
+  return dispatch<false>(q, pool, page_table, q_start, out, B, n, T, d,
+                         page_size, max_pages, num_pages, scale, vec, stream);
+}
+
+// K7: the dual-int8 pool (hi, lo int8 and a per-vector fp32 scale).
+extern "C" int pt_paged_attention_quant_f32(
+    const float* q, const signed char* k_hi, const signed char* k_lo,
+    const float* k_scale, const signed char* v_hi, const signed char* v_lo,
+    const float* v_scale, const int* page_table, const int* q_start,
+    float* out, int B, int n, int T, int d, int page_size, int max_pages,
+    int num_pages, float scale, void* stream) {
+  Pool pool = {};
+  pool.khi = k_hi;
+  pool.klo = k_lo;
+  pool.ksc = k_scale;
+  pool.vhi = v_hi;
+  pool.vlo = v_lo;
+  pool.vsc = v_scale;
+  const bool vec = d % 16 == 0 && aligned16(k_hi) && aligned16(k_lo) &&
+                   aligned16(v_hi) && aligned16(v_lo);
+  return dispatch<true>(q, pool, page_table, q_start, out, B, n, T, d,
+                        page_size, max_pages, num_pages, scale, vec, stream);
 }

@@ -18,7 +18,8 @@ from .framework import (  # noqa: F401
 )
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import flags, initializer, layers  # noqa: F401
-from . import backward, contrib, optimizer  # noqa: F401
+from . import backward, contrib, io, ir, optimizer  # noqa: F401
 from .backward import append_backward  # noqa: F401
+from .flags import get_flags, set_flags  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .layers.io import data  # noqa: F401

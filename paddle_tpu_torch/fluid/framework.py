@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 
 import numpy as np
 import torch
@@ -164,7 +165,7 @@ class Variable:
 
     def __init__(self, block, name=None, shape=None, dtype="float32",
                  lod_level=0, persistable=False, stop_gradient=False,
-                 is_data=False, initializer=None, trainable=True):
+                 is_data=False, initializer=None, trainable=True, type=None):
         self.block = block
         self.name = name if name is not None else unique_name.generate(
             "_generated_var")
@@ -177,6 +178,7 @@ class Variable:
         self.is_data = is_data
         self.initializer = initializer
         self.trainable = trainable
+        self.type = type  # the saved-model var type field, kept as read
         self.op = None  # op that produced this var last
 
     def __repr__(self):
@@ -316,6 +318,18 @@ class Block:
         self.program._bump_version()
         return op
 
+    def _insert_op(self, index, type, inputs=None, outputs=None,
+                   attrs=None):
+        op = Operator(self, type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._bump_version()
+        return op
+
+    def _remove_op(self, index):
+        del self.ops[index]
+        self.program._bump_version()
+
     def __repr__(self):
         lines = [f"Block[{self.idx}] parent={self.parent_idx}"]
         lines += ["  " + repr(v) for v in self.vars.values()]
@@ -356,6 +370,40 @@ class Program:
 
     def all_parameters(self):
         return self.global_block().all_parameters()
+
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
+
+    def clone(self, for_test=False):
+        """A deep copy of the program.  ``for_test=True`` sets every
+        ``is_test`` attr and drops the backward and optimizer ops, as
+        the JAX package's clone does."""
+        p = Program()
+        p.random_seed = self.random_seed
+        p._is_test = for_test
+        p._dtype_policy = self._dtype_policy
+        p.blocks = []
+        for b in self.blocks:
+            nb = Block(p, b.idx, b.parent_idx)
+            for name, v in b.vars.items():
+                nv = copy.copy(v)
+                nv.block = nb
+                nb.vars[name] = nv
+            for op in b.ops:
+                if for_test and op.attrs.get("op_role", "forward") not in (
+                        "forward", "loss"):
+                    continue
+                nop = Operator(nb, None)
+                nop.type = op.type
+                nop.inputs = {k: list(v) for k, v in op.inputs.items()}
+                nop.outputs = {k: list(v) for k, v in op.outputs.items()}
+                nop.attrs = copy.deepcopy(op.attrs)
+                if for_test and "is_test" in nop.attrs:
+                    nop.attrs["is_test"] = True
+                nb.ops.append(nop)
+            p.blocks.append(nb)
+        return p
 
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)

@@ -19,7 +19,9 @@ __all__ = [
     "elementwise_add", "reshape", "transpose", "gather", "argmax", "cast",
     "paged_attention", "kv_cache_write", "kv_cache_write_pages",
     "softmax", "dropout", "scale", "slice", "flash_attention",
-    "softmax_with_cross_entropy", "mean", "accuracy",
+    "softmax_with_cross_entropy", "mean", "accuracy", "reduce_mean",
+    "ragged_attention", "paged_attention_quant", "kv_cache_write_quant",
+    "kv_cache_write_pages_quant",
 ]
 
 
@@ -207,6 +209,75 @@ def kv_cache_write_pages(pages, new, page_idx, name=None):
     return pages
 
 
+def ragged_attention(q, k, v, lengths, causal=False, sm_scale=None,
+                     force=None, name=None):
+    """Variable-length attention over [B, n_heads, S, d] driven by a
+    per-row length vector (kernels/primitives/ragged.py, K6): row b
+    attends key positions j < lengths[b] (and j <= i when causal), so
+    one fixed S serves every mixed-length batch.  Inference-only."""
+    helper = LayerHelper("ragged_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    attrs = {"causal": causal}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    if force is not None:
+        attrs["force"] = force
+    helper.append_op("ragged_attention",
+                     inputs={"Q": [q], "K": [k], "V": [v],
+                             "Lengths": [lengths]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def paged_attention_quant(q, k_hi, k_lo, k_scale, v_hi, v_lo, v_scale,
+                          page_table, q_start, sm_scale=None, force=None,
+                          name=None):
+    """paged_attention over the dual-int8 pool (hi/lo int8 + per-vector
+    fp32 scale): the kernel (K7) dequantises in registers."""
+    helper = LayerHelper("paged_attention_quant", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    attrs = {}
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    if force is not None:
+        attrs["force"] = force
+    helper.append_op("paged_attention_quant",
+                     inputs={"Q": [q], "KHi": [k_hi], "KLo": [k_lo],
+                             "KScale": [k_scale], "VHi": [v_hi],
+                             "VLo": [v_lo], "VScale": [v_scale],
+                             "PageTable": [page_table],
+                             "QStart": [q_start]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def kv_cache_write_quant(hi, lo, scale, new, page_idx, offset, name=None):
+    """kv_cache_write for the int8 pool: quantize one decode step's K or
+    V rows (new [B, n, d]) and write hi/lo/scale at per-slot
+    (page_idx[b], offset[b]); returns the pool vars, updated in place."""
+    helper = LayerHelper("kv_cache_write_quant", name=name)
+    helper.append_op("kv_cache_write_quant",
+                     inputs={"Hi": [hi], "Lo": [lo], "Scale": [scale],
+                             "New": [new], "PageIdx": [page_idx],
+                             "Offset": [offset]},
+                     outputs={"HiOut": [hi], "LoOut": [lo],
+                              "ScaleOut": [scale]})
+    return hi, lo, scale
+
+
+def kv_cache_write_pages_quant(hi, lo, scale, new, page_idx, name=None):
+    """kv_cache_write_pages for the int8 pool: quantize a prefill
+    chunk's K or V (new [C, n, d]) and write whole pages of
+    hi/lo/scale; returns the pool vars, updated in place."""
+    helper = LayerHelper("kv_cache_write_pages_quant", name=name)
+    helper.append_op("kv_cache_write_pages_quant",
+                     inputs={"Hi": [hi], "Lo": [lo], "Scale": [scale],
+                             "New": [new], "PageIdx": [page_idx]},
+                     outputs={"HiOut": [hi], "LoOut": [lo],
+                              "ScaleOut": [scale]})
+    return hi, lo, scale
+
+
 def softmax(input, use_cudnn=False, name=None, axis=-1):
     helper = LayerHelper("softmax", name=name)
     return _single_out_layer(helper, "softmax", {"X": [input]},
@@ -284,6 +355,17 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
 def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     return _single_out_layer(helper, "mean", {"X": [x]})
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    """Mean over ``dim`` (all dims when None)."""
+    helper = LayerHelper("reduce_mean", name=name)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        d = dim if isinstance(dim, (list, tuple)) else [dim]
+        attrs = {"dim": list(d), "keep_dim": keep_dim, "reduce_all": False}
+    return _single_out_layer(helper, "reduce_mean", {"X": [input]}, attrs)
 
 
 def accuracy(input, label, k=1, correct=None, total=None):

@@ -1,10 +1,12 @@
-"""K5: paged attention — K/V read through a per-sequence page table.
+"""K5 and K7: paged attention — K/V read through a per-sequence page
+table, from an fp32 pool (K5) or a dual-int8 pool (K7).
 
 Counterpart of ``paddle_tpu/kernels/primitives/paged.py``, whose Pallas
-kernel (``_paged_kernel`` :121, launched by ``_pallas_paged`` :197) this
-replaces with the hand-written CUDA kernel ``csrc/paged_attention.cu``
-(its source note says what bounds it on the card and how the design
-answers that).
+kernels (``_paged_kernel`` :121, launched by ``_pallas_paged`` :197;
+``_paged_quant_kernel`` :241, launched by ``_pallas_paged_quant``
+:298) this replaces with the hand-written CUDA kernels of
+``csrc/paged_attention.cu`` (its source note says what bounds them on
+the card and how the design answers that).
 
 Shapes:
   q           [B, n_heads, T, d]   T = 1 (decode step) or the prefill
@@ -17,12 +19,19 @@ Shapes:
 Page 0 of the pool is the allocator's trash page; no row's mask ever
 exposes it.
 
-:func:`paged_attention` launches the kernel for CUDA tensors and runs
-the plain version, :func:`paged_attention_reference`, for CPU tensors
-(or ``meta`` tensors during shape inference).  ``force="reference"``
-selects the plain version explicitly, as the JAX op's ``force`` attr
-does; nothing on the decode path sets it.  ``paged_attention.launches``
-counts kernel launches.
+The int8 pool (K7): hi/lo int8 ``[num_pages, page_size, n_heads, d]``
+plus a per-vector fp32 scale ``[num_pages, page_size, n_heads, 1]``
+(primitives/int8.py ``quantize_lastdim``); the kernel dequantises
+(hi + lo/254)·scale in registers.
+
+:func:`paged_attention` and :func:`paged_attention_quant` launch their
+kernel for CUDA tensors and run their plain version
+(:func:`paged_attention_reference`,
+:func:`paged_attention_quant_reference`) for CPU tensors (or ``meta``
+tensors during shape inference).  ``force="reference"`` selects the
+plain version explicitly, as the JAX op's ``force`` attr does; nothing
+on the decode path sets it.  Each wrapper's ``.launches`` counts its
+kernel launches.
 """
 
 from __future__ import annotations
@@ -33,14 +42,19 @@ import math
 import torch
 
 from .. import _build
+from .int8 import dequantize_lastdim
 
 NEG_INF = -1e9  # the JAX kernel's mask constant
 
-__all__ = ["paged_attention", "paged_attention_reference", "NEG_INF"]
+__all__ = ["paged_attention", "paged_attention_reference",
+           "paged_attention_quant", "paged_attention_quant_reference",
+           "NEG_INF"]
 
 _SIGNATURES = {
     "pt_paged_attention_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
+    "pt_paged_attention_quant_f32": [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 }
 
 
@@ -95,33 +109,51 @@ def _check(q, k_pages, v_pages, page_table, q_start):
                              f"{t.device}")
 
 
+def _use_kernel(name, q, force):
+    """False for the plain version (``force="reference"``, a CPU or meta
+    tensor); True for a CUDA tensor, which launches the kernel."""
+    if force not in (None, "reference"):
+        raise ValueError(f"{name}: force={force!r} (use None or "
+                         f"'reference')")
+    if force == "reference" or q.device.type in ("cpu", "meta"):
+        return False
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {q.device}")
+    if q.shape[-1] > 128:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} > 128")
+    return True
+
+
+def _require(name, tensors):
+    """The kernel's operands: each (name, tensor, dtype) contiguous in
+    that dtype, or raise."""
+    for nm, x, dt in tensors:
+        if x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous {dt}, got "
+                             f"{x.dtype} (contiguous={x.is_contiguous()})")
+
+
+def _scale(q, sm_scale):
+    return float(sm_scale if sm_scale is not None
+                 else 1.0 / math.sqrt(q.shape[-1]))
+
+
 def paged_attention(q, k_pages, v_pages, page_table, q_start, *,
                     sm_scale=None, force=None):
-    """Attention of q [B, n, T, d] against pool K/V read through
+    """K5: attention of q [B, n, T, d] against pool K/V read through
     ``page_table``; query i of row b attends key positions
     j <= q_start[b] + i."""
     _check(q, k_pages, v_pages, page_table, q_start)
-    if force not in (None, "reference"):
-        raise ValueError(f"paged_attention: force={force!r} (use None or "
-                         f"'reference')")
-    b, n, t, d = q.shape
-    scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))
-    if force == "reference" or q.device.type in ("cpu", "meta"):
+    scale = _scale(q, sm_scale)
+    if not _use_kernel("paged_attention", q, force):
         return paged_attention_reference(q, k_pages, v_pages, page_table,
                                          q_start, sm_scale=scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"paged_attention: no kernel for {q.device}")
-    for name, x, dt in (("q", q, torch.float32),
-                        ("k_pages", k_pages, torch.float32),
-                        ("v_pages", v_pages, torch.float32),
-                        ("page_table", page_table, torch.int32),
-                        ("q_start", q_start, torch.int32)):
-        if x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"paged_attention: {name} must be contiguous "
-                             f"{dt}, got {x.dtype} (contiguous="
-                             f"{x.is_contiguous()})")
-    if d > 128:
-        raise ValueError(f"paged_attention: head dim {d} > 128")
+    _require("paged_attention", (("q", q, torch.float32),
+                                 ("k_pages", k_pages, torch.float32),
+                                 ("v_pages", v_pages, torch.float32),
+                                 ("page_table", page_table, torch.int32),
+                                 ("q_start", q_start, torch.int32)))
+    b, n, t, d = q.shape
     lib = _build.load("paged_attention", _SIGNATURES)
     out = torch.empty_like(q)
     page_size, max_pages = k_pages.shape[1], page_table.shape[1]
@@ -136,3 +168,75 @@ def paged_attention(q, k_pages, v_pages, page_table, q_start, *,
 
 
 paged_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: the dual-int8 pool
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_quant_reference(q, k_hi, k_lo, k_scale, v_hi, v_lo,
+                                    v_scale, page_table, q_start,
+                                    sm_scale=None):
+    """The plain version: dequantise the whole pool, then the fp32
+    plain version — the JAX package's
+    ``paged_attention_quant_reference`` (the kernel never does this)."""
+    return paged_attention_reference(
+        q, dequantize_lastdim(k_hi, k_lo, k_scale),
+        dequantize_lastdim(v_hi, v_lo, v_scale), page_table, q_start,
+        sm_scale=sm_scale)
+
+
+def paged_attention_quant(q, k_hi, k_lo, k_scale, v_hi, v_lo, v_scale,
+                          page_table, q_start, *, sm_scale=None,
+                          force=None):
+    """K7: paged attention over a dual-int8 pool — hi/lo int8
+    [P, page, n, d] and a per-vector fp32 scale [P, page, n, 1]."""
+    for nm, arr in (("k_hi", k_hi), ("k_lo", k_lo), ("v_hi", v_hi),
+                    ("v_lo", v_lo)):
+        if arr.dtype != torch.int8:
+            raise ValueError(
+                f"paged_attention_quant: {nm} dtype {arr.dtype} != int8 "
+                f"— the quant pool stores the dual-int8 format "
+                f"(serving/kv_pool.py KVPool(dtype='int8'))")
+    _check(q, k_hi, v_hi, page_table, q_start)
+    sc_shape = tuple(k_hi.shape[:-1]) + (1,)
+    if k_lo.shape != k_hi.shape or v_lo.shape != v_hi.shape \
+            or tuple(k_scale.shape) != sc_shape \
+            or tuple(v_scale.shape) != sc_shape:
+        raise ValueError(
+            f"paged_attention_quant: hi {tuple(k_hi.shape)} / lo "
+            f"{tuple(k_lo.shape)}, {tuple(v_lo.shape)} / scale "
+            f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)} must be "
+            f"[P, page, n, d] twice and [P, page, n, 1]")
+    for t in (k_lo, k_scale, v_lo, v_scale):
+        if t.device != q.device:
+            raise ValueError(f"paged_attention_quant: tensors on "
+                             f"{q.device} and {t.device}")
+    scale = _scale(q, sm_scale)
+    if not _use_kernel("paged_attention_quant", q, force):
+        return paged_attention_quant_reference(
+            q, k_hi, k_lo, k_scale, v_hi, v_lo, v_scale, page_table,
+            q_start, sm_scale=scale)
+    _require("paged_attention_quant", (
+        ("q", q, torch.float32), ("k_hi", k_hi, torch.int8),
+        ("k_lo", k_lo, torch.int8), ("k_scale", k_scale, torch.float32),
+        ("v_hi", v_hi, torch.int8), ("v_lo", v_lo, torch.int8),
+        ("v_scale", v_scale, torch.float32),
+        ("page_table", page_table, torch.int32),
+        ("q_start", q_start, torch.int32)))
+    b, n, t, d = q.shape
+    lib = _build.load("paged_attention", _SIGNATURES)
+    out = torch.empty_like(q)
+    page_size, max_pages = k_hi.shape[1], page_table.shape[1]
+    err = lib.pt_paged_attention_quant_f32(
+        *map(_build.ptr, (q, k_hi, k_lo, k_scale, v_hi, v_lo, v_scale,
+                          page_table, q_start, out)),
+        b, n, t, d, page_size, max_pages, k_hi.shape[0], scale,
+        _build.stream_of(q.device))
+    paged_attention_quant.launches += 1
+    _build.check("paged_attention_quant", err)
+    return out
+
+
+paged_attention_quant.launches = 0

@@ -3,12 +3,12 @@
 
 Ported: the config, the shared block builders, and the two fixed-shape
 programs of the decode serving lane — ``build_gpt_decode_step`` and
-``build_gpt_prefill_chunk`` — over an fp32 paged KV pool.  Parameter
-names are the JAX package's (``gpt_word_embedding``,
-``decoder_layer_{i}_att_query_fc.w_0``, ...), so weights carry across by
-name.  The training and whole-sequence generation programs, the int8
-pool and the builders' ``pool_dtype`` / ``pool_prefix`` / ``attn_force``
-arguments are still to be ported.
+``build_gpt_prefill_chunk`` — over a paged KV pool in fp32 or in the
+dual-int8 format (``pool_dtype="int8"``: hi/lo int8 + a per-vector fp32
+scale per K and V).  Parameter names are the JAX package's
+(``gpt_word_embedding``, ``decoder_layer_{i}_att_query_fc.w_0``, ...),
+so weights carry across by name.  The training and whole-sequence
+generation programs are still to be ported.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from paddle_tpu_torch.fluid.initializer import Normal
 from paddle_tpu_torch.fluid.param_attr import ParamAttr
 
 __all__ = ["GPTConfig", "KV_POOL_PREFIX", "kv_pool_var_names",
-           "build_gpt_decode_step", "build_gpt_prefill_chunk"]
+           "kv_pool_quant_var_names", "build_gpt_decode_step",
+           "build_gpt_prefill_chunk"]
 
 
 class GPTConfig:
@@ -86,29 +87,52 @@ def _lm_logits(h, cfg: GPTConfig):
 KV_POOL_PREFIX = "@KVPOOL@"
 
 
-def kv_pool_var_names(num_layers):
+def kv_pool_var_names(num_layers, prefix=KV_POOL_PREFIX):
     """The per-layer (K, V) pool var names the programs and
     serving.kv_pool.KVPool agree on."""
-    return [(f"{KV_POOL_PREFIX}k_l{i}", f"{KV_POOL_PREFIX}v_l{i}")
+    return [(f"{prefix}k_l{i}", f"{prefix}v_l{i}")
             for i in range(num_layers)]
 
 
-def _declare_pool_vars(cfg: GPTConfig, num_pages, page_size):
-    """The fp32 pool vars [num_pages, page_size, n, d], one K and one V
-    per layer."""
+def kv_pool_quant_var_names(num_layers, prefix=KV_POOL_PREFIX):
+    """The per-layer ((k_hi, k_lo, k_scale), (v_hi, v_lo, v_scale)) var
+    names of the dual-int8 pool: each fp pool var's name is the stem of
+    its three."""
+    return [tuple((f"{nm}__qhi", f"{nm}__qlo", f"{nm}__scale")
+                  for nm in (kn, vn))
+            for kn, vn in kv_pool_var_names(num_layers, prefix)]
+
+
+def _declare_pool_vars(cfg: GPTConfig, num_pages, page_size, dtype,
+                       prefix=KV_POOL_PREFIX):
+    """The pool vars of every layer: (K, V) of shape [num_pages,
+    page_size, n, d] in ``dtype``, or for "int8" ((k_hi, k_lo,
+    k_scale), (v_hi, v_lo, v_scale)) with hi/lo int8 [P, page, n, d]
+    and scale fp32 [P, page, n, 1]."""
     n, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
     block = fluid.default_main_program().global_block()
-    return [tuple(block.create_var(name=nm,
-                                   shape=[num_pages, page_size, n, d],
-                                   dtype="float32", persistable=True)
-                  for nm in pair)
-            for pair in kv_pool_var_names(cfg.num_layers)]
+    shape = [num_pages, page_size, n, d]
+
+    def var(nm, dt, shp=shape):
+        return block.create_var(name=nm, shape=shp, dtype=dt,
+                                persistable=True)
+
+    if dtype == "int8":
+        return [tuple((var(hi, "int8"), var(lo, "int8"),
+                       var(sc, "float32", shape[:-1] + [1]))
+                      for hi, lo, sc in layer)
+                for layer in kv_pool_quant_var_names(cfg.num_layers,
+                                                     prefix)]
+    return [tuple(var(nm, dtype) for nm in pair)
+            for pair in kv_pool_var_names(cfg.num_layers, prefix)]
 
 
-def _paged_layer(x, pool_kv, cfg, name, write_kv, page_table, q_start):
+def _paged_layer(x, pool_kv, cfg, name, write_kv, page_table, q_start,
+                 attn_force):
     """One pre-LN decoder block whose attention writes this call's K/V
-    into the pool (``write_kv``) and reads the prefix back through the
-    page table."""
+    into the pool (``write_kv(pool var(s), new)``) and reads the prefix
+    back through the page table — K5 over an fp32 pool, K7 over an int8
+    one (pool entries of three vars)."""
     L = layers
     h, n = cfg.hidden_size, cfg.num_heads
     d = h // n
@@ -120,8 +144,13 @@ def _paged_layer(x, pool_kv, cfg, name, write_kv, page_table, q_start):
     k_pool, v_pool = pool_kv
     write_kv(k_pool, L.reshape(k, shape=[-1, n, d]))
     write_kv(v_pool, L.reshape(v, shape=[-1, n, d]))
-    ctx = L.paged_attention(q_h, k_pool, v_pool, page_table, q_start,
-                            sm_scale=float(d) ** -0.5)
+    if isinstance(k_pool, tuple):  # the int8 pool: (hi, lo, scale)
+        ctx = L.paged_attention_quant(q_h, *k_pool, *v_pool, page_table,
+                                      q_start, sm_scale=float(d) ** -0.5,
+                                      force=attn_force)
+    else:
+        ctx = L.paged_attention(q_h, k_pool, v_pool, page_table, q_start,
+                                sm_scale=float(d) ** -0.5, force=attn_force)
     ctx = L.reshape(L.transpose(ctx, perm=[0, 2, 1, 3]), shape=[0, 0, h])
     attn = _fc(ctx, h, name + "_att_output_fc",
                init_std=cfg.initializer_range)
@@ -129,7 +158,8 @@ def _paged_layer(x, pool_kv, cfg, name, write_kv, page_table, q_start):
 
 
 def build_gpt_decode_step(cfg: GPTConfig, pool_slots, num_pages,
-                          page_size, max_pages):
+                          page_size, max_pages, pool_dtype="float32",
+                          pool_prefix=KV_POOL_PREFIX, attn_force=None):
     """ONE token-level decode step over the paged KV pool.
 
     Per slot s: embed dec_tok[s] at position dec_pos[s], write each
@@ -137,7 +167,10 @@ def build_gpt_decode_step(cfg: GPTConfig, pool_slots, num_pages,
     slot's pool prefix through dec_page_table[s], and emit the greedy
     next token (log_softmax → argmax).  Inactive slots carry page-table
     zeros (the trash page) and position 0; the scheduler ignores their
-    outputs.
+    outputs.  ``pool_dtype="int8"`` writes through
+    ``kv_cache_write_quant`` and reads through ``paged_attention_quant``;
+    ``attn_force`` pins the attention implementation (the op's
+    ``force`` attr).
 
     Returns (feed_names, next_tok [pool_slots] int64, logprobs
     [pool_slots, vocab])."""
@@ -151,7 +184,8 @@ def build_gpt_decode_step(cfg: GPTConfig, pool_slots, num_pages,
                             dtype="int32")
     write_page = fluid.data("dec_write_page", [ps], False, dtype="int32")
     write_off = fluid.data("dec_write_off", [ps], False, dtype="int32")
-    pool = _declare_pool_vars(cfg, num_pages, page_size)
+    pool = _declare_pool_vars(cfg, num_pages, page_size, pool_dtype,
+                              pool_prefix)
     q_start = L.cast(L.reshape(pos, shape=[-1]), "int32")  # [PS]
 
     emb = L.embedding(tok, size=[cfg.vocab_size, h],
@@ -161,11 +195,14 @@ def build_gpt_decode_step(cfg: GPTConfig, pool_slots, num_pages,
     x = L.reshape(L.elementwise_add(emb, pemb), shape=[-1, 1, h])
 
     def write_kv(pool_var, new):
-        L.kv_cache_write(pool_var, new, write_page, write_off)
+        if pool_dtype == "int8":
+            L.kv_cache_write_quant(*pool_var, new, write_page, write_off)
+        else:
+            L.kv_cache_write(pool_var, new, write_page, write_off)
 
     for li in range(cfg.num_layers):
         x = _paged_layer(x, pool[li], cfg, f"decoder_layer_{li}", write_kv,
-                         page_table, q_start)
+                         page_table, q_start, attn_force)
 
     logits = _lm_logits(_ln(x, "gpt_final_ln"), cfg)       # [PS, V]
     logp = L.log_softmax(logits)
@@ -176,12 +213,14 @@ def build_gpt_decode_step(cfg: GPTConfig, pool_slots, num_pages,
 
 
 def build_gpt_prefill_chunk(cfg: GPTConfig, chunk_len, num_pages,
-                            page_size, max_pages):
+                            page_size, max_pages, pool_dtype="float32",
+                            pool_prefix=KV_POOL_PREFIX, attn_force=None):
     """One prefill CHUNK of a single sequence through the paged pool:
     the chunk's K/V go into whole pool pages and the chunk attends the
     previously written prefix through the page table.  ``chunk_len``
     must be a multiple of ``page_size``.  The K/V are cast to the pool
-    dtype before the write (the JAX package's KVSink stamp).
+    dtype before the write (the JAX package's KVSink stamp); an int8
+    pool's quant write op owns the conversion instead.
 
     Feeds: pf_tok/pf_pos [1, C] int64, pf_page_table [1, max_pages]
     int32, pf_write_pages [C/page_size] int32 (trash page 0 past the
@@ -205,7 +244,8 @@ def build_gpt_prefill_chunk(cfg: GPTConfig, chunk_len, num_pages,
                              dtype="int32")
     q_start = fluid.data("pf_qstart", [1], False, dtype="int32")
     last_idx = fluid.data("pf_last_idx", [1], False, dtype="int64")
-    pool = _declare_pool_vars(cfg, num_pages, page_size)
+    pool = _declare_pool_vars(cfg, num_pages, page_size, pool_dtype,
+                              pool_prefix)
 
     emb = L.embedding(tok, size=[cfg.vocab_size, h],
                       param_attr=ParamAttr(name="gpt_word_embedding"))
@@ -214,12 +254,16 @@ def build_gpt_prefill_chunk(cfg: GPTConfig, chunk_len, num_pages,
     x = L.elementwise_add(emb, pemb)                       # [1, C, H]
 
     def write_kv(pool_var, new):
-        L.kv_cache_write_pages(pool_var, L.cast(new, "float32"),
-                               write_pages)
+        if pool_dtype == "int8":
+            # no sink cast: the quant write op quantizes once at append
+            L.kv_cache_write_pages_quant(*pool_var, new, write_pages)
+        else:
+            L.kv_cache_write_pages(pool_var, L.cast(new, pool_dtype),
+                                   write_pages)
 
     for li in range(cfg.num_layers):
         x = _paged_layer(x, pool[li], cfg, f"decoder_layer_{li}", write_kv,
-                         page_table, q_start)
+                         page_table, q_start, attn_force)
 
     # logits of the last VALID chunk position
     flat = L.reshape(x, shape=[-1, h])                     # [C, H]

@@ -61,6 +61,24 @@ def _mul_grad(ctx, x, y, dout, attrs):
     return dx, dy
 
 
+@simple_op("fc", ["Input", "W", "Bias"], ["Out"], optional=("Bias",))
+def _fc(ctx, x, w, bias, attrs):
+    """The fused fully-connected op that ``fc_fuse_pass`` (fluid/ir.py)
+    makes of mul + elementwise_add [+ relu]: one product, then the
+    bias along the last axis and the activation."""
+    xd = attrs.get("in_num_col_dims", 1)
+    out = _product(flatten_to_2d(x, xd), w)
+    out = out.reshape(tuple(x.shape[:xd]) + (w.shape[1],))
+    if bias is not None:
+        out = out + bias
+    act = attrs.get("activation_type", "")
+    if act == "relu":
+        out = torch.relu(out)
+    elif act:
+        raise NotImplementedError(f"fc activation_type {act!r}")
+    return out
+
+
 def _matmul_operands(x, y, attrs):
     if x.dim() == 1:
         x = x[None, :]
@@ -184,3 +202,15 @@ def _softmax_ce(ctx, logits, label, attrs):
 @simple_op("mean", ["X"], ["Out"])
 def _mean(ctx, x, attrs):
     return x.mean()
+
+
+@simple_op("reduce_mean", ["X"], ["Out"])
+def _reduce_mean(ctx, x, attrs):
+    """Mean over ``dim`` (every dim with ``reduce_all``)."""
+    if attrs.get("reduce_all", False):
+        dims = tuple(range(x.dim()))
+    else:
+        dims = attrs.get("dim", [0])
+        dims = tuple(d % x.dim() for d in (dims if isinstance(
+            dims, (list, tuple)) else [dims]))
+    return x.mean(dim=dims, keepdim=attrs.get("keep_dim", False))

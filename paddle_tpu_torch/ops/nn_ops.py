@@ -1,7 +1,8 @@
 """Normalization, dropout and attention op lowerings (counterpart of
 ``paddle_tpu/ops/nn_ops.py``).  ``layer_norm_grad`` and
 ``flash_attention_grad`` are derived by the registry; ``dropout`` has a
-grad maker that replays its saved mask."""
+grad maker that replays its saved mask; ``ragged_attention`` is
+inference-only."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 
 from paddle_tpu_torch.fluid.registry import simple_op
 from paddle_tpu_torch.kernels.primitives import flash as _flash
+from paddle_tpu_torch.kernels.primitives import ragged as _ragged
 
 from .common import op_generator, rounded
 
@@ -91,3 +93,16 @@ def _flash_attention(ctx, q, k, v, bias, attrs):
                                   causal=attrs.get("causal", False),
                                   sm_scale=attrs.get("sm_scale"),
                                   force=attrs.get("force"))
+
+
+@simple_op("ragged_attention", ["Q", "K", "V", "Lengths"], ["Out"],
+           grad=None)
+def _ragged_attention(ctx, q, k, v, lengths, attrs):
+    """Variable-length attention driven by a per-row length vector (K6):
+    row b attends keys j < lengths[b].  q, k and v arrive as the
+    transpose2 views the serving model makes; the kernel reads them in
+    place."""
+    return _ragged.ragged_attention(
+        q, k, v, lengths.int().contiguous(),
+        causal=attrs.get("causal", False), sm_scale=attrs.get("sm_scale"),
+        force=attrs.get("force"))

@@ -28,9 +28,15 @@ and its request re-queues for re-prefill of prompt + already-generated
 tokens.  Greedy decode is deterministic, so the replay reproduces the
 same stream.
 
+The KV pool is fp32, or dual-int8 with ``pool_dtype="int8"`` (default:
+FLAGS_int8_kv_cache): hi/lo int8 plus a per-vector fp32 scale, written
+by the quant write ops and read by K7, which dequantises in registers.
+The modeled saving against the fp32 pool books once per engine on
+``pt_int8_bytes_saved_total{kind="kv_cache"}``.
+
 Not ported yet (ROADMAP.md): the pt_decode_* metrics, request spans and
 /servez; the SIGTERM drain; the fault-injection hook; router resume
-(``submit_request(prefix=...)``); int8 weights and the int8 pool.
+(``submit_request(prefix=...)``); int8 weights (``int8_weights``).
 Each program run's host-clock seconds are kept in ``prefill_seconds``
 and ``step_seconds``.
 """
@@ -100,14 +106,18 @@ class DecodeEngine:
 
     def __init__(self, cfg, *, scope=None, place=None, pool_slots=4,
                  page_size=16, prefill_chunk=None, max_len=None,
-                 num_pages=None, max_queue=None, name="decode",
-                 auto_start=True, tenant_quota=None):
+                 num_pages=None, max_queue=None, pool_dtype=None,
+                 attn_force=None, name="decode", auto_start=True,
+                 tenant_quota=None):
         from paddle_tpu_torch import fluid
         from paddle_tpu_torch.fluid import flags as _flags
         from paddle_tpu_torch.fluid.framework import resolve_place
         from paddle_tpu_torch.models import gpt as _gpt
 
         place = resolve_place(place)  # first: no GPU and no place raises
+        if pool_dtype is None:
+            pool_dtype = ("int8" if _flags.flag("int8_kv_cache")
+                          else "float32")
         self.cfg = cfg
         self.name = name
         self.scope = scope if scope is not None else fluid.global_scope()
@@ -137,9 +147,15 @@ class DecodeEngine:
                                  if tenant_quota is None else tenant_quota)
         self.pool = KVPool(cfg.num_layers, cfg.num_heads,
                            cfg.hidden_size // cfg.num_heads, num_pages,
-                           page_size, max_pages)
+                           page_size, max_pages, dtype=pool_dtype)
         self._exe = fluid.Executor(place)
         self.pool.install(self.scope, self._exe.device)
+        if pool_dtype == "int8":
+            from paddle_tpu_torch.kernels.primitives import int8 as _int8
+
+            _int8.book_bytes_saved(
+                "kv_cache",
+                self.pool.modeled_bytes_fp32() - self.pool.modeled_bytes())
 
         # two programs, built once against the parameter names the
         # training lanes use
@@ -147,12 +163,14 @@ class DecodeEngine:
         with fluid.program_guard(dec_prog, dec_start), \
                 fluid.unique_name.guard():
             _, dec_tok, _ = _gpt.build_gpt_decode_step(
-                cfg, self.pool_slots, num_pages, page_size, max_pages)
+                cfg, self.pool_slots, num_pages, page_size, max_pages,
+                pool_dtype=pool_dtype, attn_force=attn_force)
         pf_prog, pf_start = fluid.Program(), fluid.Program()
         with fluid.program_guard(pf_prog, pf_start), \
                 fluid.unique_name.guard():
             _, pf_tok, _ = _gpt.build_gpt_prefill_chunk(
-                cfg, prefill_chunk, num_pages, page_size, max_pages)
+                cfg, prefill_chunk, num_pages, page_size, max_pages,
+                pool_dtype=pool_dtype, attn_force=attn_force)
         self._dec_prog, self._dec_fetch = dec_prog, dec_tok.name
         self._pf_prog, self._pf_fetch = pf_prog, pf_tok.name
 

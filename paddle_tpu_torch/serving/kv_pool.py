@@ -1,10 +1,13 @@
 """Paged KV-cache slot pool — the decode lane's memory allocator (a copy
-of ``paddle_tpu/serving/kv_pool.py`` for the fp32 pool, whose device
-arrays are torch tensors).
+of ``paddle_tpu/serving/kv_pool.py``, whose device arrays are torch
+tensors here).
 
 The pool is one persistable program var per (layer, K/V) shaped
-``[num_pages, page_size, n_heads, head_dim]``; a sequence's cache is a
-LIST of page ids (its page table), not a contiguous slab.  Admission,
+``[num_pages, page_size, n_heads, head_dim]`` — or, with
+``dtype="int8"``, three: hi/lo int8 of that shape and a per-vector fp32
+scale ``[num_pages, page_size, n_heads, 1]`` (the dual-int8 format,
+kernels/primitives/int8.py).  A sequence's cache is a LIST of page ids
+(its page table), not a contiguous slab.  Admission,
 growth and eviction move no cache memory — they edit host-side page
 lists — and the decode step stays one fixed-shape program however
 sequences come and go.
@@ -34,8 +37,11 @@ class KVPool:
     ``num_pages`` INCLUDES the trash page."""
 
     def __init__(self, num_layers, num_heads, head_dim, num_pages,
-                 page_size, max_pages_per_seq):
-        from paddle_tpu_torch.models.gpt import kv_pool_var_names
+                 page_size, max_pages_per_seq, dtype="float32",
+                 prefix=None):
+        from paddle_tpu_torch.models.gpt import (KV_POOL_PREFIX,
+                                                 kv_pool_quant_var_names,
+                                                 kv_pool_var_names)
 
         if num_pages - 1 < max_pages_per_seq:
             raise ValueError(
@@ -48,7 +54,12 @@ class KVPool:
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.max_pages_per_seq = int(max_pages_per_seq)
-        self.var_names = kv_pool_var_names(self.num_layers)
+        self.dtype = dtype
+        self.prefix = KV_POOL_PREFIX if prefix is None else prefix
+        self.var_names = kv_pool_var_names(self.num_layers, self.prefix)
+        self.quant_var_names = (
+            kv_pool_quant_var_names(self.num_layers, self.prefix)
+            if dtype == "int8" else None)
         self._free = collections.deque(range(1, self.num_pages))
         self._tables = {}           # seq_id -> [page ids]
         self._ever_used = set()
@@ -58,22 +69,56 @@ class KVPool:
 
     # -- device tensors -----------------------------------------------------
 
-    def install(self, scope, device):
-        """Put zero pool tensors on ``device`` into ``scope``; a pool
-        already there with the same shape, dtype and device is kept."""
+    def _vars(self):
+        """(name, shape, torch dtype) of every pool var."""
         shape = (self.num_pages, self.page_size, self.num_heads,
                  self.head_dim)
+        if self.dtype == "int8":
+            return [(nm, shp, dt)
+                    for layer in self.quant_var_names
+                    for hi, lo, sc in layer
+                    for nm, shp, dt in ((hi, shape, torch.int8),
+                                        (lo, shape, torch.int8),
+                                        (sc, shape[:-1] + (1,),
+                                         torch.float32))]
+        dt = getattr(torch, self.dtype)
+        return [(nm, shape, dt) for pair in self.var_names for nm in pair]
+
+    def install(self, scope, device):
+        """Put zero pool tensors on ``device`` into ``scope``; a pool
+        already there with the same shape, dtype and device is kept (and
+        one of another dtype replaced, or every later write would trip
+        the dtype guard)."""
         device = torch.device(device)
-        for kn, vn in self.var_names:
-            for name in (kn, vn):
-                cur = scope.get(name)
-                if (isinstance(cur, torch.Tensor)
-                        and tuple(cur.shape) == shape
-                        and cur.dtype == torch.float32
-                        and cur.device == device):
-                    continue
-                scope.set(name, torch.zeros(shape, dtype=torch.float32,
-                                            device=device))
+        for name, shape, dt in self._vars():
+            cur = scope.get(name)
+            if (isinstance(cur, torch.Tensor) and tuple(cur.shape) == shape
+                    and cur.dtype == dt and cur.device == device):
+                continue
+            scope.set(name, torch.zeros(shape, dtype=dt, device=device))
+
+    # -- modeled bytes ------------------------------------------------------
+
+    def modeled_bytes(self):
+        """Device bytes of the resident pool across all layers and both
+        K/V: dual-int8 accounting (a scale block per head_dim vector)
+        when dtype == 'int8', dtype-width bytes otherwise."""
+        n_elems = (self.num_pages * self.page_size * self.num_heads
+                   * self.head_dim)
+        if self.dtype == "int8":
+            from paddle_tpu_torch.kernels.primitives import int8 as _int8
+
+            per_var = _int8.dual_int8_bytes(n_elems, self.head_dim)
+        else:
+            per_var = n_elems * getattr(torch, self.dtype).itemsize
+        return per_var * 2 * self.num_layers
+
+    def modeled_bytes_fp32(self):
+        """The same pool's bytes at fp32 — the denominator of the int8
+        saving."""
+        n_elems = (self.num_pages * self.page_size * self.num_heads
+                   * self.head_dim)
+        return n_elems * 4 * 2 * self.num_layers
 
     # -- allocation ---------------------------------------------------------
 

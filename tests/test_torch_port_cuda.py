@@ -6,15 +6,18 @@ file imports no jax, so it runs on a GPU machine without it:
 
 (``PADDLE_TPU_TEST_REAL=1`` keeps tests/cpu_mesh.py from importing jax.)
 
-Tolerances: K5 atol 2e-5 / rtol 1e-4 (online softmax over pages merged
-across warps vs one softmax: same fp32 terms, other order); K4 1e-6 in
+Tolerances: K5 and K7 atol 2e-5 / rtol 1e-4 (online softmax over pages
+merged across warps vs one softmax: same fp32 terms, other order); K6
+2e-5 (fp32 sums over 64-key tiles vs one matmul); K4 1e-6 in
 fp32 (the same elementwise formula; erfcf/tanhf may differ by an ulp)
 and one bf16 rounding step (8e-3 relative) in bf16; K1-K3 2e-5 in fp32
 (fp32 sums over 64-key tiles vs one matmul) and 2e-2 in bf16 (both
 round an fp32 result to bf16, so they may differ by an ulp of it); the
-decode lane's greedy ids exactly (the tiny model's top-two gaps are far
-wider than the fp32 differences between cuBLAS and the CPU); the BERT
-step's losses on the card within 1e-4 of the CPU's.
+decode lane's greedy ids exactly, over the fp32 and the int8 pool (the
+tiny model's top-two gaps are far wider than the fp32 differences
+between cuBLAS and the CPU); the ragged Engine's scores within 1e-5 of a
+CPU engine's; the BERT step's losses on the card within 1e-4 of the
+CPU's.
 """
 
 import numpy as np
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import fused_bias_act as fba
-from paddle_tpu_torch.kernels.primitives import flash, paged
+from paddle_tpu_torch.kernels.primitives import flash, int8, paged, ragged
 
 pytestmark = pytest.mark.cuda
 
@@ -301,3 +304,224 @@ def test_bert_train_steps_on_cuda_match_cpu(dev):
             fba.fused_bias_gelu.launches - before[1]) == (
         3 * 2 * cfg.num_layers, 3 * (cfg.num_layers + 1))
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K7: paged attention over the dual-int8 pool
+# ---------------------------------------------------------------------------
+
+
+def _quant_case(dev, b, n, t, d, page_size, max_pages, q_start, seed=0):
+    """A K5 case whose pool is quantized to the dual-int8 format; the
+    trash page's scales poisoned."""
+    q, kp, vp, table, qs = _paged_case(dev, b, n, t, d, page_size,
+                                       max_pages, q_start, seed)
+    pool = []
+    for p in (kp, vp):
+        hi, lo, sc = int8.quantize_lastdim(p)
+        sc[0] = 1e4
+        pool += [hi, lo, sc]
+    return [q, *pool, table, qs]
+
+
+@pytest.mark.parametrize("name,b,n,t,d,page_size,max_pages,q_start", [
+    # the int8 lane's decode step and prefill chunk (one-chunk prefetch)
+    ("decode", 4, 3, 1, 64, 16, 8, [0, 15, 16, 127]),
+    ("prefill", 1, 3, 32, 64, 16, 8, [64]),
+    ("ragged_tile", 2, 2, 7, 64, 16, 4, [0, 40]),
+    # page of 32 x 64 codes: more than one staging chunk
+    ("big_page", 2, 2, 4, 64, 32, 4, [5, 100]),
+    # d = 24: no 16-byte staging (scalar path); d = 128: four columns
+    ("d24", 2, 2, 3, 24, 4, 6, [0, 20]),
+    ("d128", 2, 2, 1, 128, 8, 4, [3, 31]),
+])
+def test_paged_quant_kernel_matches_plain(dev, name, b, n, t, d, page_size,
+                                          max_pages, q_start):
+    args = _quant_case(dev, b, n, t, d, page_size, max_pages, q_start)
+    before = paged.paged_attention_quant.launches
+    got = paged.paged_attention_quant(*args)
+    want = paged.paged_attention_quant(*args, force="reference")
+    assert paged.paged_attention_quant.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **K5_TOL)
+
+
+def test_paged_quant_kernel_unaligned_pool_uses_scalar_staging(dev):
+    """hi/lo views one byte off 16-byte alignment take the scalar path
+    and still agree."""
+    args = _quant_case(dev, 2, 2, 1, 32, 4, 4, [3, 9])
+    off = list(args)
+    for i in (1, 2, 4, 5):
+        flat = torch.empty(args[i].numel() + 1, dtype=torch.int8, device=dev)
+        off[i] = flat[1:].view(args[i].shape).copy_(args[i])
+        assert off[i].data_ptr() % 16 != 0
+    torch.testing.assert_close(paged.paged_attention_quant(*off),
+                               paged.paged_attention_quant(
+                                   *args, force="reference"), **K5_TOL)
+
+
+def test_paged_quant_kernel_raises_not_falls_back(dev):
+    args = _quant_case(dev, 2, 2, 4, 16, 4, 4, [3, 9])
+    bad = list(args)
+    bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged.paged_attention_quant(*bad)
+    bad = list(args)
+    bad[7] = args[7].long()
+    with pytest.raises(ValueError, match="int32"):
+        paged.paged_attention_quant(*bad)
+    bad = list(args)
+    bad[1] = args[1].float()
+    with pytest.raises(ValueError, match="int8"):
+        paged.paged_attention_quant(*bad)
+
+
+# ---------------------------------------------------------------------------
+# K6: ragged attention
+# ---------------------------------------------------------------------------
+
+
+def _ragged_case(dev, shape, lengths, strided, seed=0):
+    rng = np.random.RandomState(seed)
+
+    def t():
+        if len(shape) == 3:
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    ).to(dev)
+        b, h, s, d = shape
+        a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)).to(
+            dev).transpose(1, 2)
+        return a if strided else a.contiguous()
+
+    return t(), t(), t(), torch.tensor(lengths, dtype=torch.int32,
+                                       device=dev)
+
+
+@pytest.mark.parametrize("shape,lengths,causal,strided", [
+    # the serving path: transposed views, the wave's lengths, a 0 row
+    ((8, 8, 128, 32), [20, 20, 50, 90, 126, 128, 0, 3], True, True),
+    ((8, 8, 32, 32), [20, 20, 0, 0, 0, 0, 0, 0], True, True),
+    # S = 200 (a ragged last tile), D = 64, causal on and off
+    ((2, 3, 200, 64), [200, 77], True, False),
+    ((2, 3, 200, 64), [150, 0], False, True),
+    # [BH, S, D] with per-row lengths; an odd D; a length past S
+    ((5, 70, 20), [70, 64, 65, 1, 300], False, False),
+])
+def test_ragged_kernel_matches_plain(dev, shape, lengths, causal, strided):
+    q, k, v, lens = _ragged_case(dev, shape, lengths, strided)
+    before = ragged.ragged_attention.launches
+    got = ragged.ragged_attention(q, k, v, lens, causal)
+    want = ragged.ragged_attention(q, k, v, lens, causal, force="reference")
+    assert ragged.ragged_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()  # the output keeps q's layout
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+def test_ragged_kernel_raises_not_falls_back(dev):
+    q, k, v, lens = _ragged_case(dev, (1, 2, 16, 96), [16], False)
+    with pytest.raises(ValueError, match="head dim"):
+        ragged.ragged_attention(q, k, v, lens)
+    q, k, v, lens = _ragged_case(dev, (1, 2, 16, 32), [16], False)
+    with pytest.raises(TypeError, match="float32"):
+        ragged.ragged_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                lens)
+    with pytest.raises(ValueError, match="int32"):
+        ragged.ragged_attention(q, k, v, lens.long())
+
+
+# ---------------------------------------------------------------------------
+# the two serving lanes, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def test_int8_decode_lane_on_cuda_matches_cpu(dev):
+    """The tiny GPT over the int8 pool: the card's greedy ids equal the
+    CPU's; each program run launched K4 and K7 once a layer, K5 never."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.kernels import kernel_wrappers
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = gpt.GPTConfig.tiny(num_layers=2, initializer_range=0.2)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 4, 33, 4, 8)
+    startup.random_seed = 11
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    gpu = fluid.Scope()
+    convert.load_params(gpu, {p.name: cpu.get(p.name).numpy()
+                              for p in main.all_parameters()},
+                        fluid.CUDAPlace(0), program=main)
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], list(range(1, 20))]
+    per_run = {"fused_bias_act": 1, "paged_attention_quant": 1,
+               "paged_attention": 0}
+    wrappers = kernel_wrappers()
+    outs = {}
+    for key, scope, place in (("cpu", cpu, fluid.CPUPlace()),
+                              ("gpu", gpu, fluid.CUDAPlace(0))):
+        eng = DecodeEngine(cfg, scope=scope, place=place, pool_slots=4,
+                           page_size=4, prefill_chunk=8, max_len=32,
+                           pool_dtype="int8")
+        before = {k: wrappers[k].launches for k in per_run}
+        try:
+            outs[key] = eng.generate(prompts, max_new_tokens=8, timeout=120)
+        finally:
+            eng.close()
+        runs = eng.stats()["prefill_chunks"] + eng.stats()["steps"]
+        for k, n in per_run.items():
+            expect = n * cfg.num_layers * runs if key == "gpu" else 0
+            assert wrappers[k].launches - before[k] == expect, k
+    assert outs["gpu"] == outs["cpu"]
+
+
+def test_ragged_engine_on_cuda_matches_cpu(dev, tmp_path):
+    """A one-layer ragged scorer saved by the port, served by a ragged
+    Engine on the card and on the CPU: equal scores, and K6 launched once
+    a batch (warmup included)."""
+    from paddle_tpu_torch import fluid, serving
+    from paddle_tpu_torch.fluid import layers as L
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.data("ids", [-1, -1], False, dtype="int64")
+        lens = fluid.data("lens", [-1], False, dtype="int32")
+        x = L.embedding(ids, size=[64, 32])
+        q, k, v = [L.transpose(L.reshape(L.fc(x, size=32, num_flatten_dims=2),
+                                         shape=[0, 0, 2, 16]),
+                               perm=[0, 2, 1, 3]) for _ in range(3)]
+        ctx = L.reshape(L.transpose(L.ragged_attention(q, k, v, lens,
+                                                       causal=True),
+                                    perm=[0, 2, 1, 3]), shape=[0, 0, 32])
+        x = L.elementwise_add(x, L.fc(ctx, size=32, num_flatten_dims=2))
+        score = L.reshape(L.reduce_mean(x, dim=[1, 2]), shape=[-1, 1])
+    startup.random_seed = 3
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    fluid.io.save_inference_model(str(tmp_path), ["ids", "lens"], [score],
+                                  exe, main_program=main, scope=scope)
+    rng = np.random.RandomState(0)
+    feeds = [{"ids": rng.randint(1, 64, (1, n)).astype(np.int64),
+              "lens": np.full((1,), n, np.int32)} for n in (3, 5, 16, 9)]
+    scores = {}
+    for key, place in (("cpu", fluid.CPUPlace()), ("gpu", fluid.CUDAPlace(0))):
+        before = ragged.ragged_attention.launches
+        eng = serving.Engine(batch_buckets=[4], seq_buckets=[8, 16],
+                             max_wait_ms=20, auto_start=False, place=place)
+        try:
+            eng.load_model("m", str(tmp_path), ragged=True)
+            eng.warmup()
+            eng.start()
+            futs = [eng.submit("m", f) for f in feeds]
+            scores[key] = np.concatenate(
+                [f.result(timeout=120)[score.name] for f in futs])
+            st = eng.stats()["models"]["m"]
+        finally:
+            eng.close()
+        launched = ragged.ragged_attention.launches - before
+        assert launched == (st["batches"] + st["warmup_batches"]
+                            if key == "gpu" else 0)
+    np.testing.assert_allclose(scores["gpu"], scores["cpu"], atol=1e-5,
+                               rtol=1e-5)

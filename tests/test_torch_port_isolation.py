@@ -40,7 +40,10 @@ def test_fresh_interpreter_imports_no_jax():
     for mod in ("serving.decode", "kernels.primitives.paged",
                 "kernels.primitives.flash", "fluid.backward",
                 "fluid.optimizer", "fluid.contrib.mixed_precision.bf16_policy",
-                "fluid.layers.tensor", "ops.optimizer_ops", "models.bert"):
+                "fluid.layers.tensor", "ops.optimizer_ops", "models.bert",
+                "inference", "fluid.io", "fluid.ir", "observability.metrics",
+                "serving.engine", "serving.batching",
+                "kernels.primitives.ragged", "kernels.primitives.int8"):
         assert f"paddle_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
