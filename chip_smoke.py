@@ -7,7 +7,7 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every kernel under paddle_tpu_torch/csrc, one nvcc each, all
      started together, for sm_90a.
-  3. kernels: each kernel's wrapper (K1-K7) on tensors on the card at
+  3. kernels: each kernel's wrapper (K1-K8) on tensors on the card at
      the shapes its path gives it, held against its plain PyTorch
      version; timed against the plain version, its bound and, where one
      PyTorch call computes the same function, that call (library_ms).
@@ -42,6 +42,23 @@ Phases, each fatal on failure:
      shape and serves with no padding rows and no cold run.
  11. ragged Engine parity: each arm's scores against a CPUPlace engine
      on the same saved model and requests.
+ 12. data-parallel train path: phase 4's configuration through
+     CompiledProgram(...).with_data_parallel(places=[CUDAPlace(0)] * 4)
+     with the quantized gradient all-reduce: the global batch b128 s128
+     split into four replica shards of b32, 2 warm-up and 5 timed
+     steps.  Losses finite and falling; K8 launches exactly (the
+     program's fused_adam_quant_grad ops) x 4 a step and K1-K4 4x their
+     phase-4 counts; every replica's parameters bit-identical; the
+     bucket plan, modeled wire bytes, fused-update bytes saved, peak
+     memory and tokens/s (four replicas share one card: not a scaling
+     figure); a torch.profiler step with K8's device time against its
+     bound.
+ 13. data-parallel parity: full width, 2 layers, b8 s128, fp32,
+     dropout 0, 3 steps over four replicas on the card and over four
+     CPUPlace replicas from the same parameters: the losses, and each
+     parameter above the rounding floor by the relative norms of its
+     Moment1, Moment2 and change (DP_GRAD_FLOOR); the worst leaf of
+     each reading, and the leaves at the floor, are printed.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  The
@@ -569,6 +586,125 @@ def check_flash(dev, rng):
     return worst, timings
 
 
+K8_BLOCK = 256
+# K8 kernel vs plain: the kernel spells every operation in the plain
+# version's order with round-to-nearest intrinsics (no fused
+# multiply-add), so the two should agree bit for bit; 1e-6 relative is
+# the gate in case the card's sqrt or division rounds otherwise, and
+# the requant codes must be equal
+K8_RTOL = 1e-6
+# (name, numel): BERT-base's word embedding (30528 x 768), an FFN weight
+# (768 x 3072), a 768 bias (launch-bound), and a numel that is not a
+# multiple of the block
+K8_SHAPES = (("word_embedding", 30528 * 768), ("ffn_weight", 768 * 3072),
+             ("bias", 768), ("ragged", 1000003))
+# (kind, use_nesterov) of every K8 kind
+K8_KINDS = (("adam", False), ("adamw", False), ("momentum", False),
+            ("momentum", True), ("sgd", False))
+
+
+def _k8_case(dev, numel, rng, offset_blocks=3):
+    """Parameter state and a gradient bucket slice for one K8 call: the
+    member's blocks start ``offset_blocks`` into a wire image quantized
+    by the port's codec from random fp32 (zero in the member's padding),
+    with two blocks after it."""
+    from paddle_tpu_torch.kernels import quantized_collectives as qc
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    nb = -(-numel // K8_BLOCK)
+    bucket = rng.randn((offset_blocks + nb + 2) * K8_BLOCK)
+    # the member's alignment padding is zero, as coalesce_tensor pads it
+    bucket[offset_blocks * K8_BLOCK + numel:(offset_blocks + nb) * K8_BLOCK] = 0
+    hi, lo, sc = qc.quantize_block_scaled(f32(bucket), K8_BLOCK)
+    state = dict(p=f32(rng.randn(numel) * 0.1),
+                 m1=f32(rng.randn(numel) * 0.01),
+                 m2=f32(np.abs(rng.randn(numel)) * 0.01),
+                 lr=f32([1e-3]), b1p=f32([0.9 ** 3]), b2p=f32([0.999 ** 3]))
+    return state, (hi, lo, sc, offset_blocks, numel)
+
+
+def _k8_call(kind, nesterov, s, grad, requant, force=None):
+    """One fused update through the public entry; returns every tensor
+    it wrote (the state is updated in place)."""
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    pad = K8_BLOCK if requant else None
+    kw = dict(block_size=K8_BLOCK, requant_pad=pad, force=force)
+    if kind in ("adam", "adamw"):
+        fn = fu.fused_adam_update if kind == "adam" else fu.fused_adamw_update
+        out = fn(s["p"], grad, s["m1"], s["m2"], s["lr"], s["b1p"],
+                 s["b2p"], **kw)
+    elif kind == "momentum":
+        out = fu.fused_momentum_update(s["p"], grad, s["m1"], s["lr"],
+                                       use_nesterov=nesterov, **kw)
+    else:
+        out = fu.fused_sgd_update(s["p"], grad, s["lr"], **kw)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _k8_bytes(kind, numel):
+    """Bytes one K8 call must move: p (and each moment) read and
+    written, hi and lo read, one scale a block, lr and the powers."""
+    state = {"adam": 3, "adamw": 3, "momentum": 2, "sgd": 1}[kind]
+    return numel * (8 * state + 2) + 4 * -(-numel // K8_BLOCK) + 12
+
+
+def check_fused_update(dev, rng):
+    """K8 against its plain version for every kind, in the fp32 and the
+    requant form, at K8_SHAPES; the adam form timed at each shape."""
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    worst, timings = 0.0, {}
+    for name, numel in K8_SHAPES:
+        for kind, nesterov in K8_KINDS:
+            for requant in (False, True):
+                state, grad = _k8_case(dev, numel, rng)
+                ref = {k: v.clone() for k, v in state.items()}
+                got = _k8_call(kind, nesterov, state, grad, requant)
+                want = _k8_call(kind, nesterov, ref, grad, requant,
+                                force="reference")
+                torch.cuda.synchronize()
+                label = (f"{kind}{'-nesterov' if nesterov else ''} {name} "
+                         f"requant={requant}")
+                # the requant form writes p as the payload's dequantized
+                # image on the kernel's path: its codes and scales are
+                # what to compare
+                for g, w in list(zip(got, want))[1 if requant else 0:]:
+                    if g.dtype == torch.int8:
+                        bad = int((g != w).sum())
+                        if bad:
+                            raise AssertionError(f"fused_update {label}: "
+                                                 f"{bad} codes differ")
+                        continue
+                    err = (g - w).abs().max().item()
+                    if not torch.allclose(g, w, rtol=K8_RTOL,
+                                          atol=K8_RTOL * w.abs().max()) \
+                            or not torch.isfinite(g).all():
+                        raise AssertionError(f"fused_update {label}: max abs "
+                                             f"err {err}")
+                    worst = max(worst, err)
+        state, grad = _k8_case(dev, numel, rng)
+        s = state
+        hyper = (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8, 0.0)
+        ms = _time_ms(lambda: fu.fused_update_kernel(
+            "adam", s["p"], grad, s["m1"], s["m2"], s["lr"], s["b1p"],
+            s["b2p"], hyper, K8_BLOCK), 50 if numel > 1e6 else 200)
+        # the plain version launches some 30 kernels a call: few calls at
+        # the large shapes, so the host finishes enqueueing within the
+        # device sleep
+        plain_ms = _time_ms(lambda: _k8_call("adam", False, s, grad, False,
+                                             force="reference"),
+                            3 if numel > 1e6 else 20)
+        byts = _k8_bytes("adam", numel)
+        bound_ms, bound_by = _bound(byts, 0)
+        timings[name] = dict(numel=numel, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             bytes=byts, library_ms=None)
+    return worst, timings
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: BERT-base training at full width, and its CPU parity
 # ---------------------------------------------------------------------------
@@ -644,9 +780,11 @@ def run_train_path(counters):
     return (exe, main, scope, feed, loss), path
 
 
-def _profile(step, n):
+def _profile(step, n, match=None):
     """Host wall time vs summed device time of ``n`` calls of ``step``
-    (torch.profiler), with the top device and host ops."""
+    (torch.profiler), with the top device and host ops; with ``match``,
+    also the summed device time and count a call of the device events
+    whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -674,10 +812,15 @@ def _profile(step, n):
         return [[key[:60], round(t / n, 1), c // n]
                 for t, key, c in sorted(rows, reverse=True)[:k]]
 
-    return dict(wall_profiled_ms=1e3 * wall,
-                device_busy_ms=dev_us / n / 1e3 if dev_us else None,
-                device_events=sum(c for _, _, c in dev) // n,
-                top_device_us=top(dev), top_host_self_us=top(host))
+    out = dict(wall_profiled_ms=1e3 * wall,
+               device_busy_ms=dev_us / n / 1e3 if dev_us else None,
+               device_events=sum(c for _, _, c in dev) // n,
+               top_device_us=top(dev), top_host_self_us=top(host))
+    if match is not None:
+        hits = [(t, c) for t, key, c in dev if match in key]
+        out[f"{match}_device_ms"] = sum(t for t, _ in hits) / n / 1e3
+        out[f"{match}_events"] = sum(c for _, c in hits) // n
+    return out
 
 
 def profile_train_step(state):
@@ -736,6 +879,264 @@ def run_train_parity():
                 layer_params=len(layer), param_max_abs_diff=worst,
                 param_mean_abs_diff=mean,
                 param_tol=[TRAIN_PARAM_MAX_ATOL, TRAIN_PARAM_MEAN_ATOL])
+
+
+# ---------------------------------------------------------------------------
+# phases 12-13: the data-parallel training lane (four replicas on one
+# card, quantized gradient all-reduce, K8), and its CPU parity
+# ---------------------------------------------------------------------------
+
+DP_REPLICAS = 4
+DP_WARMUP, DP_STEPS = 2, 5
+# card vs CPU replicas, fp32, 3 Adam steps.  The losses within 1e-4
+# relative.  A leaf (a parameter) whose reference gradient sits at the
+# rounding floor — its bias-corrected RMS, read from the CPU run's
+# Moment2, under DP_GRAD_FLOOR x the median leaf's, about fp32's
+# relative rounding, as for the attention key biases whose true
+# gradient is 0 — has no direction to hold.  Every other leaf is held by
+# relative norms: Moment1 and Moment2 (which carry the gradient's scale,
+# which Adam's step hides) within DP_MOMENT_RTOL, the parameter's change
+# within DP_PARAM_RTOL.  The dual-int8 wire resolves 1/(127 x 254) of a
+# block's max, so card-vs-CPU rounding that flips a code moves a reduced
+# gradient by ~3e-5 of its block; a wrong average or scale index moves
+# a leaf's moments by 0.5 or more
+DP_GRAD_FLOOR = 1e-6
+DP_MOMENT_RTOL = 1e-3
+DP_PARAM_RTOL = 1e-2
+DP_PARITY_STEPS = 3
+
+
+def _dp_feed(cfg, batch, seq, seed):
+    """The global batch as DP_REPLICAS per-replica batches of
+    make_fake_batch, concatenated: each replica's mask_pos (flat
+    positions into its own rows) indexes its shard, as a user of the
+    data-parallel lane feeds it."""
+    from paddle_tpu_torch.models import bert
+
+    shards = [bert.make_fake_batch(cfg, batch // DP_REPLICAS, seq,
+                                   seed=seed + r)
+              for r in range(DP_REPLICAS)]
+    return {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+
+
+def _dp_compiled(main, loss, places):
+    """The lane as a user writes it: quantized all-reduce on, the fused
+    update and the rest at their flag defaults."""
+    from paddle_tpu_torch import fluid
+
+    bs = fluid.BuildStrategy()
+    bs.quant_allreduce = True
+    return fluid.CompiledProgram(main, build_strategy=bs).with_data_parallel(
+        loss_name=loss.name, places=places)
+
+
+def _counter_value(name):
+    from paddle_tpu_torch.observability import metrics
+
+    fam = metrics.snapshot().get(name)
+    return sum(fam["samples"].values()) if fam else 0.0
+
+
+def run_dp_path(counters):
+    """BERT-base (phase 4's configuration) over DP_REPLICAS replicas on
+    CUDAPlace(0): global batch b128 s128, b32 a replica.  K8 must launch
+    (fused_adam_quant_grad ops) x replicas a step, K1-K4 replicas x
+    their phase-4 counts; the replicas' parameters bit-identical after
+    the run."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                               attn_dropout=0.0)
+    main, startup, loss = _bert_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(_gpu_place())
+    exe.run(startup, scope=scope)
+    compiled = _dp_compiled(main, loss, [_gpu_place()] * DP_REPLICAS)
+    feed = _dp_feed(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    saved0 = _counter_value("pt_fused_update_bytes_saved_total")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counters.values():
+        w.launches = 0
+    losses, secs = [], []
+    for _ in range(DP_WARMUP + DP_STEPS):
+        t0 = time.perf_counter()
+        (lv,) = exe.run(compiled, feed=feed, fetch_list=[loss], scope=scope)
+        secs.append(time.perf_counter() - t0)  # the fetch synchronizes
+        losses.append([float(v) for v in lv])
+    launches = {k: w.launches for k, w in counters.items()}
+    runner = compiled._dp_runner
+    prog = runner.program
+    n_fused = sum(op.type == "fused_adam_quant_grad"
+                  for op in prog.global_block().ops)
+    steps, n = DP_WARMUP + DP_STEPS, DP_REPLICAS
+    expect = {"flash_fwd": 2 * cfg.num_layers * n * steps,
+              "flash_bwd_dq": cfg.num_layers * n * steps,
+              "flash_bwd_dkv": cfg.num_layers * n * steps,
+              "fused_bias_act": (cfg.num_layers + 1) * n * steps,
+              "fused_update": n_fused * n * steps}
+    expect = {k: v for k, v in expect.items() if k in counters}
+    if launches != expect:
+        raise AssertionError(f"dp path launches {launches}, expected "
+                             f"{expect} ({n_fused} fused_adam_quant_grad "
+                             f"ops)")
+    means = [float(np.mean(x)) for x in losses]
+    if not np.isfinite(losses).all() or not means[-1] < means[0]:
+        raise AssertionError(f"dp path losses not finite and falling: "
+                             f"{losses}")
+    params = main.all_parameters()
+    for p in params:
+        vals = runner.replica_values(p.name)
+        if not all(torch.equal(v, vals[0]) for v in vals[1:]):
+            raise AssertionError(f"dp path: replicas differ on {p.name}")
+    plan = prog._quant_allreduce_plan
+    timed = np.asarray(secs[DP_WARMUP:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    path = dict(
+        model="BertConfig.base(vocab_size=30528)", replicas=n,
+        places="[CUDAPlace(0)] x 4", global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, dtype_policy="bf16", steps=DP_STEPS,
+        warmup_steps=DP_WARMUP, losses=losses,
+        fused_adam_quant_grad_ops=n_fused,
+        plain_adam_ops=sum(op.type == "adam"
+                           for op in prog.global_block().ops),
+        parameters=len(params),
+        parameter_elements=int(sum(int(np.prod(p.shape)) for p in params)),
+        buckets=[[b["elements"], b["algo"], b["fused_update"]]
+                 for b in plan["buckets"]],
+        modeled_wire_bytes_per_step=prog._collective_bytes_per_step,
+        fused_update_bytes_saved_per_step=prog._fused_update_bytes_saved,
+        pt_fused_update_bytes_saved_total=_counter_value(
+            "pt_fused_update_bytes_saved_total") - saved0,
+        tokens_per_s=tokens * DP_STEPS / float(timed.sum()),
+        tokens_per_s_note=("global tokens a step over the host-clock step; "
+                           "four replicas share one card, so this is not a "
+                           "scaling figure"),
+        step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+        step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        replicas_bit_identical=True, launches=launches)
+    return (exe, compiled, scope, feed, loss, n_fused), path
+
+
+def profile_dp_step(state):
+    """One data-parallel step under torch.profiler: device busy and
+    idle, the top kernels, and K8's summed device time against its
+    bound (every fused op's bytes, every replica, at the HBM rate)."""
+    exe, compiled, scope, feed, loss, _ = state
+    out = _profile(lambda: exe.run(compiled, feed=feed, fetch_list=[loss],
+                                   scope=scope), 1,
+                   match="fused_update_kernel")
+    t0 = time.perf_counter()
+    exe.run(compiled, feed=feed, fetch_list=[loss], scope=scope)
+    out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    if out["device_busy_ms"]:
+        out["device_idle_share"] = 1 - out["device_busy_ms"] \
+            / out["wall_profiled_ms"]
+    prog = compiled._dp_runner.program
+    byts = sum(_k8_bytes("adam", int(op.attrs["numel"]))
+               for op in prog.global_block().ops
+               if op.type == "fused_adam_quant_grad") * DP_REPLICAS
+    out["k8_bound_ms_per_step"] = _bound(byts, 0)[0]
+    out["k8_bytes_per_step"] = byts
+    return out
+
+
+def _dp_parity_run(cfg, place, feed, init):
+    """DP_PARITY_STEPS steps over DP_REPLICAS replicas on ``place`` from
+    the parameters ``init`` (None: the startup's, returned).  Returns the
+    losses, ``init`` and {param: (param, Moment1, Moment2)} after the
+    run, read from the fused adam ops, with the ops' beta2."""
+    from paddle_tpu_torch import convert, fluid
+
+    main, startup, loss = _bert_program(cfg, bf16=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    if init is None:
+        init = {p.name: scope.get(p.name).cpu().numpy().copy()
+                for p in main.all_parameters()}
+    else:
+        convert.load_params(scope, init, place, program=main)
+    compiled = _dp_compiled(main, loss, [place] * DP_REPLICAS)
+    losses = [exe.run(compiled, feed=feed, fetch_list=[loss],
+                      scope=scope)[0].tolist()
+              for _ in range(DP_PARITY_STEPS)]
+    ops = [op for op in compiled._dp_runner.program.global_block().ops
+           if op.type == "fused_adam_quant_grad"]
+    state = {op.inputs["Param"][0]: tuple(
+        scope.get(op.inputs[slot][0]).cpu().numpy().astype(np.float64)
+        for slot in ("Param", "Moment1", "Moment2")) for op in ops}
+    return losses, init, state, float(ops[0].attrs["beta2"])
+
+
+def _dp_leaf_readings(init, gpu, cpu, beta2):
+    """Per leaf: the reference gradient's bias-corrected RMS (from the
+    CPU Moment2) against the median leaf's, and, card against CPU, the
+    relative norms of the Moment1, Moment2 and parameter-change
+    differences and the parameter's max abs difference."""
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    g_rms = {n: float(np.sqrt(cpu[n][2].mean()
+                              / (1 - beta2 ** DP_PARITY_STEPS)))
+             for n in cpu}
+    median = float(np.median(list(g_rms.values())))
+    out = {}
+    for n, (p, m1, m2) in gpu.items():
+        p0 = init[n].astype(np.float64)
+        out[n] = dict(grad_rms_to_median=g_rms[n] / median,
+                      held=g_rms[n] >= DP_GRAD_FLOOR * median,
+                      moment1_rel=rel(m1, cpu[n][1]),
+                      moment2_rel=rel(m2, cpu[n][2]),
+                      change_rel=rel(p - p0, cpu[n][0] - p0),
+                      param_max_abs=float(np.abs(p - cpu[n][0]).max()))
+    return out
+
+
+def run_dp_parity():
+    """Full width, 2 layers, b8 s128, fp32, dropout 0: 3 steps over four
+    replicas on the card and over four CPUPlace replicas (the plain
+    versions) from the same parameters; the losses, and each leaf's
+    moments and parameter change above the rounding floor (see
+    DP_GRAD_FLOOR)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(vocab_size=30528, num_layers=2,
+                               use_flash_attention=True, attn_dropout=0.0,
+                               hidden_dropout=0.0)
+    feed = _dp_feed(cfg, 8, 128, seed=1)
+    gl, init, gpu, beta2 = _dp_parity_run(cfg, _gpu_place(), feed, None)
+    cl, _, cpu, _ = _dp_parity_run(cfg, fluid.CPUPlace(), feed, init)
+    gl, cl = np.asarray(gl), np.asarray(cl)
+    rel = float(np.abs(gl - cl).max() / np.abs(cl).min())
+    if not rel < TRAIN_LOSS_RTOL:
+        raise AssertionError(f"dp parity: losses {gl.tolist()} (card) vs "
+                             f"{cl.tolist()} (CPU), max rel diff {rel}")
+    leaves = _dp_leaf_readings(init, gpu, cpu, beta2)
+    held = {n: r for n, r in leaves.items() if r["held"]}
+    worst = {}
+    for key, tol in (("moment1_rel", DP_MOMENT_RTOL),
+                     ("moment2_rel", DP_MOMENT_RTOL),
+                     ("change_rel", DP_PARAM_RTOL)):
+        name = max(held, key=lambda n: held[n][key])
+        worst[key] = dict(leaf=name, **held[name])
+        if not held[name][key] <= tol:
+            raise AssertionError(f"dp parity: {key} {held[name][key]} > "
+                                 f"{tol} on leaf {name}: {held[name]}")
+    floor = {n: r for n, r in leaves.items() if not r["held"]}
+    return dict(replicas=DP_REPLICAS, losses_gpu=gl.tolist(),
+                losses_cpu=cl.tolist(), loss_max_rel_diff=rel,
+                loss_rtol=TRAIN_LOSS_RTOL, leaves=len(leaves),
+                leaves_held=len(held), worst_held=worst,
+                rtol=dict(moments=DP_MOMENT_RTOL, change=DP_PARAM_RTOL),
+                floor_leaves=floor, grad_floor_to_median=DP_GRAD_FLOOR,
+                least_held_grad_to_median=min(
+                    r["grad_rms_to_median"] for r in held.values()),
+                param_max_abs_diff=max(r["param_max_abs"]
+                                       for r in leaves.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -1190,10 +1591,12 @@ def main():
     fl_err, fl_t = check_flash(dev, rng)
     k6_err, k6_t = check_ragged(dev, rng)
     k7_err, k7_t = check_paged_quant(dev, rng)
+    k8_err, k8_t = check_fused_update(dev, rng)
     print("kernel timings " + json.dumps({
         "paged_attention": k5_t, "fused_bias_act": {**k4_t, **k4b_t},
         "flash": fl_t, "ragged_attention": k6_t,
-        "paged_attention_quant": k7_t, "card": smi}), flush=True)
+        "paged_attention_quant": k7_t, "fused_update": k8_t,
+        "card": smi}), flush=True)
 
     wrappers = kernel_wrappers()
     train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -1236,10 +1639,20 @@ def main():
     print("ragged engine path " + json.dumps({"card": smi, **arms}),
           flush=True)
     print("ragged engine parity " + json.dumps(ragged_parity), flush=True)
+    torch.cuda.empty_cache()
+
+    dp_kernels = train_kernels + ("fused_update",)
+    state, dp = run_dp_path({k: wrappers[k] for k in dp_kernels})
+    print("dp train path " + json.dumps({"card": smi, **dp}), flush=True)
+    print("dp train step " + json.dumps(profile_dp_step(state)), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    print("dp train parity " + json.dumps(run_dp_parity()), flush=True)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
-    by_path = {"train": train["launches"], "decode": path["launches"],
+    by_path = {"train": train["launches"], "dp_train": dp["launches"],
+               "decode": path["launches"],
                "decode_int8": path8["launches"],
                **{f"engine_{k}": {"ragged_attention": a["launches"]}
                   for k, a in arms.items()}}
@@ -1277,6 +1690,9 @@ def main():
             "paddle_tpu_torch/csrc/paged_attention.cu",
             "paddle_tpu/kernels/primitives/paged.py:241", k7_err,
             k7_t["decode"]),
+        row("fused_update", "paddle_tpu_torch/csrc/fused_update.cu",
+            "paddle_tpu/kernels/fused_update.py:322", k8_err,
+            k8_t["word_embedding"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,7 +4,9 @@ The same programming model as ``paddle_tpu.fluid``: build a Program with
 ``fluid.layers.*`` and run it with ``fluid.Executor(place)``.  The
 executor runs each op's lowering eagerly on a torch device;
 ``Executor()`` with no place runs on CUDAPlace(0).  ``append_backward``
-and ``optimizer.Adam(...).minimize(loss)`` build a training program.
+and ``optimizer.Adam(...).minimize(loss)`` build a training program;
+``CompiledProgram(...).with_data_parallel(...)`` runs it over several
+replicas (parallel/data_parallel.py).
 """
 
 # ops must register before any program is built or run
@@ -18,7 +20,9 @@ from .framework import (  # noqa: F401
 )
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import flags, initializer, layers  # noqa: F401
-from . import backward, contrib, io, ir, optimizer  # noqa: F401
+from . import backward, compiler, contrib, io, ir, optimizer  # noqa: F401
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy)
 from .backward import append_backward  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401

@@ -25,6 +25,11 @@ training step holds what the backward still needs and no more.  Under
 the bf16 dtype policy (``program._dtype_policy == "bf16"``) each op's
 inputs are cast at the lowering, as in the JAX package's
 ``trace_block`` (:func:`_apply_bf16_policy`).
+
+:func:`run_plan` is the op loop; the data-parallel runner
+(parallel/data_parallel.py) drives it over one environment a replica.
+``run`` also accepts a ``CompiledProgram`` (fluid/compiler.py), as the
+JAX executor does.
 """
 
 from __future__ import annotations
@@ -187,10 +192,15 @@ class _Plan:
     def __init__(self, program, feed_names, fetch_names):
         block = program.global_block()
         ops = _prune_ops(block, fetch_names)
+        position = {id(op): i for i, op in enumerate(block.ops)}
         self.steps = []
+        # each op's index in its block, as the JAX executor numbers ops
+        # for the random streams (ctx.op_index)
+        self.op_index = []
         produced = set(feed_names)
         self.scope_reads, self.writes = [], []
         for op in ops:
+            self.op_index.append((block.idx << 16) | position[id(op)])
             info = registry.get_op(op.type)
             ins = []
             for slot in info.input_slots:
@@ -203,7 +213,7 @@ class _Plan:
             for slot in info.output_slots:
                 names = op.outputs.get(slot.rstrip("*"), [])
                 outs.append((info.is_variadic(slot), list(names)))
-            self.steps.append((op, info.lower, ins, outs))
+            self.steps.append((op, info, ins, outs))
             for n in op.input_arg_names:
                 if n not in produced and n not in self.scope_reads:
                     self.scope_reads.append(n)
@@ -235,6 +245,62 @@ class _Plan:
 
 
 # ---------------------------------------------------------------------------
+# The op loop, over one environment or a replica group's
+# ---------------------------------------------------------------------------
+
+
+def run_seed(program, step):
+    """Seed of a run's random stream: the program's random_seed and the
+    executor step."""
+    return (int(program.random_seed or 0) or 0x5EED) * 1000003 + step
+
+
+def run_plan(plan, envs, ctxs, bf16):
+    """Run ``plan``'s ops over ``envs`` (name -> tensor, one per replica;
+    one outside a replica group) with one LowerContext each, in
+    lockstep: each op runs once a replica on that replica's values, in
+    replica order, and a collective op runs once over the list of every
+    replica's values.  Values leave each env after their last reader."""
+    n_rep = len(envs)
+    if bf16 and ctxs[0].device.type == "cuda":
+        # bf16 products accumulate in fp32, as the JAX package's do
+        torch.backends.cuda.matmul \
+            .allow_bf16_reduced_precision_reduction = False
+    with torch.no_grad():
+        for (op, info, ins, outs), frees, idx in zip(plan.steps, plan.frees,
+                                                     plan.op_index):
+            per = []
+            for env in envs:
+                vals = [[env[n] for n in names] if variadic
+                        else (env.get(names) if names is not None else None)
+                        for variadic, names in ins]
+                per.append(_apply_bf16_policy(op, vals) if bf16 else vals)
+            for ctx in ctxs:
+                ctx.cur_op, ctx.op_index = op, idx
+            if info.collective:
+                out = info.lower(ctxs[0], *[list(c) for c in zip(*per)],
+                                 attrs=op.attrs)
+                out = out if isinstance(out, tuple) else (out,)
+                results = [tuple(o[r] if o is not None else None
+                                 for o in out) for r in range(n_rep)]
+            else:
+                results = []
+                for ctx, vals in zip(ctxs, per):
+                    o = info.lower(ctx, *vals, attrs=op.attrs)
+                    results.append(o if isinstance(o, tuple) else (o,))
+            for env, out in zip(envs, results):
+                for (variadic, names), val in zip(outs, out):
+                    if val is None or not names:
+                        continue
+                    if variadic:
+                        env.update(zip(names, val))
+                    else:
+                        env[names[0]] = val
+                for name in frees:
+                    env.pop(name, None)
+
+
+# ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
 
@@ -257,17 +323,18 @@ class Executor:
         _passes.apply_graph_passes(program, lane="single",
                                    keep_vars=fetch_names)
 
-    def _coerce_feed(self, program, feed):
-        """Feeds become tensors on the device, in the var's dtype."""
+    def _coerce_feed(self, program, feed, device=None):
+        """Feeds become tensors on the device (the executor's unless
+        ``device`` is given), in the var's dtype."""
+        device = self.device if device is None else device
         out = {}
         block = program.global_block()
         for name, val in (feed or {}).items():
             var = block._find_var_recursive(name)
             if isinstance(val, torch.Tensor):
-                t = val.to(self.device)
+                t = val.to(device)
             else:
-                t = torch.from_numpy(np.ascontiguousarray(val)).to(
-                    self.device)
+                t = torch.from_numpy(np.ascontiguousarray(val)).to(device)
             if var is not None and var.dtype is not None:
                 want = registry.torch_dtype(var.dtype)
                 if t.dtype != want:
@@ -277,6 +344,10 @@ class Executor:
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
+        from .compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope, return_numpy)
         if program is None:
             program = framework.default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -297,36 +368,11 @@ class Executor:
         env.update(feeds)
         # the run's random stream: seeded from the program's random_seed
         # and the executor step, so runs are reproducible
-        seed = (int(program.random_seed or 0) or 0x5EED) * 1000003 \
-            + self._step
-        ctx = registry.LowerContext(self.device, seed=seed,
-                                    is_test=program._is_test)
-        bf16 = program._dtype_policy == "bf16"
-        if bf16 and self.device.type == "cuda":
-            # bf16 products accumulate in fp32, as the JAX package's do
-            torch.backends.cuda.matmul \
-                .allow_bf16_reduced_precision_reduction = False
-        with torch.no_grad():
-            for (op, lower, ins, outs), frees in zip(plan.steps,
-                                                     plan.frees):
-                vals = [[env[n] for n in names] if variadic
-                        else (env.get(names) if names is not None else None)
-                        for variadic, names in ins]
-                if bf16:
-                    vals = _apply_bf16_policy(op, vals)
-                ctx.cur_op = op
-                out = lower(ctx, *vals, attrs=op.attrs)
-                if not isinstance(out, tuple):
-                    out = (out,)
-                for (variadic, names), val in zip(outs, out):
-                    if val is None or not names:
-                        continue
-                    if variadic:
-                        env.update(zip(names, val))
-                    else:
-                        env[names[0]] = val
-                for n in frees:
-                    env.pop(n, None)
+        ctx = registry.LowerContext(self.device, seed=run_seed(program,
+                                                               self._step),
+                                    is_test=program._is_test,
+                                    step=self._step)
+        run_plan(plan, [env], [ctx], program._dtype_policy == "bf16")
         for n in plan.writes:
             scope.set(n, env[n])
         self._step += 1

@@ -43,6 +43,24 @@ _DEFS = {
     "FLAGS_ragged_attention": (False, _parse_bool),
     # DecodeEngine(pool_dtype=None) resolves to the dual-int8 KV pool
     "FLAGS_int8_kv_cache": (False, _parse_bool),
+    # data-parallel lane (parallel/data_parallel.py): bucketed
+    # block-scaled int8 gradient all-reduce, its block size, algorithm
+    # ("auto" | "oneshot" | "ring" | "ring_bidir") and the fp32 payload
+    # size at which "auto" leaves the one-shot form for the ring
+    "FLAGS_quant_allreduce": (False, _parse_bool),
+    "FLAGS_quant_allreduce_block_size": (256, int),
+    "FLAGS_quant_allreduce_algo": ("auto", str),
+    "FLAGS_quant_allreduce_crossover_kb": (256, int),
+    # emit each bucket's collective right after its last gradient
+    "FLAGS_overlap_allreduce": (True, _parse_bool),
+    # keep reduced buckets in the wire format and fuse the dequant into
+    # the optimizer ops (kernels/fused_update.py, K8)
+    "FLAGS_fused_update": (True, _parse_bool),
+    # gradient bucket cap in MB
+    "FLAGS_fuse_grad_size_in_MB": (32, int),
+    # lanes not ported: DataParallelRunner raises when either is on
+    "FLAGS_gspmd_executor": (False, _parse_bool),
+    "FLAGS_health_sentinel": (False, _parse_bool),
 }
 
 _VALUES = {}

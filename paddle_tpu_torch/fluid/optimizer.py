@@ -7,9 +7,11 @@ initialized in the startup program.  The executor runs the update ops
 like any other op; ``adam`` updates the parameter and its state in
 place (ops/optimizer_ops.py), where the JAX package donates buffers.
 
-Ported so far: the ``Optimizer`` base and ``Adam``.  Regularization
-and gradient clipping are not: ``minimize`` raises when either is asked
-for, rather than train without it.
+Ported so far: the ``Optimizer`` base, ``SGD``, ``Momentum`` (with
+``use_nesterov``), ``Adam`` and ``AdamW``.  ``apply_gradients`` records
+``program._params_grads``, which the data-parallel transpiler reads.
+Regularization and gradient clipping are not ported: ``minimize``
+raises when either is asked for, rather than train without it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from .framework import unique_name
 from .initializer import Constant
 from .layer_helper import LayerHelper
 
-__all__ = ["Optimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW",
+           "AdamWOptimizer"]
 
 
 class Optimizer:
@@ -76,6 +80,8 @@ class Optimizer:
                 "paddle_tpu_torch yet")
         program = (params_grads[0][0].block.program if params_grads
                    else framework.default_main_program())
+        # the raw grads: the data-parallel transpiler all-reduces these
+        program._params_grads = [(p.name, g.name) for p, g in params_grads]
         with framework.program_guard(program):
             block = program.global_block()
             self._create_lr_var()
@@ -95,6 +101,40 @@ class Optimizer:
                 "the default startup program")
         params_grads = self.backward(loss, parameter_list, no_grad_set)
         return self.apply_gradients(params_grads), params_grads
+
+
+class SGDOptimizer(Optimizer):
+    type = "sgd"
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            "sgd", inputs={"Param": [p], "Grad": [g],
+                           "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p]})
+
+
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
 class AdamOptimizer(Optimizer):
@@ -129,7 +169,24 @@ class AdamOptimizer(Optimizer):
                      "Moment2Out": [m2], "Beta1PowOut": [b1p],
                      "Beta2PowOut": [b2p]},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
-                   "epsilon": self._epsilon})
+                   "epsilon": self._epsilon, **self._extra_attrs()})
+
+    def _extra_attrs(self):
+        return {}
 
 
+class AdamWOptimizer(AdamOptimizer):
+    type = "adamw"
+
+    def __init__(self, learning_rate=0.001, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, **kw)
+        self._coeff = weight_decay
+
+    def _extra_attrs(self):
+        return {"coeff": self._coeff}
+
+
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+AdamW = AdamWOptimizer

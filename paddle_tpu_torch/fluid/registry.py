@@ -35,7 +35,22 @@ import torch
 from .framework import GRAD_SUFFIX
 
 __all__ = ["LowerContext", "OpInfo", "register_op", "simple_op", "has_op",
-           "get_op", "infer_op_outputs", "wanted_grads"]
+           "get_op", "infer_op_outputs", "wanted_grads", "fold_seed"]
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(*parts):
+    """One 64-bit seed from integers (splitmix64 over each in turn): the
+    port's counterpart of folding values into a ``jax.random`` key."""
+    h = 0x9E3779B97F4A7C15
+    for x in parts:
+        h = (h ^ (int(x) & _MASK64)) & _MASK64
+        h = (h + 0x9E3779B97F4A7C15) & _MASK64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 31
+    return h
 
 
 class LowerContext:
@@ -45,15 +60,26 @@ class LowerContext:
       device: the torch.device the run targets.
       seed: seed of the run's random stream.
       is_test: program-level eval flag.
-      cur_op: the op being lowered (set by the executor), so a grad
-        lowering can skip the products of grads no op asked for.
+      step: the executor step (random ops fold it into their streams).
+      replica: this replica's index inside a replica group, else None.
+      group: the ReplicaGroup a collective lowering reduces over
+        (parallel/mesh.py), else None: the single-device meaning.
+      cur_op: the op being lowered and op_index its position in the
+        block (set by the executor), so a grad lowering can skip the
+        products of grads no op asked for and a seeded random op can key
+        its own stream.
     """
 
-    def __init__(self, device, seed=0, is_test=False):
+    def __init__(self, device, seed=0, is_test=False, step=0, replica=None,
+                 group=None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.is_test = is_test
+        self.step = int(step)
+        self.replica = replica
+        self.group = group
         self.cur_op = None
+        self.op_index = 0
         self._generator = None
 
     @property
@@ -84,6 +110,11 @@ class OpInfo:
     # kv_cache_write ops update the scope's pool tensor, adam the
     # parameter and its moments
     inplace: _t.Optional[dict] = None
+    # a collective (ops/collective_ops.py): called once for a whole
+    # replica group, each input the list of every replica's value, each
+    # output the list of every replica's result (lists of one outside a
+    # group)
+    collective: bool = False
 
     def is_variadic(self, slot):
         return slot.endswith("*")
@@ -112,7 +143,8 @@ def get_op(type_) -> OpInfo:
 
 
 def register_op(type, inputs, outputs, lower, grad="auto", optional=(),
-                no_grad_inputs=(), grad_maker=None, inplace=None):
+                no_grad_inputs=(), grad_maker=None, inplace=None,
+                collective=False):
     """Register an op lowering; ``grad="auto"`` also registers its
     ``<type>_grad`` op, derived by autograd (a hand-written grad op
     registered later under that name replaces it)."""
@@ -120,7 +152,8 @@ def register_op(type, inputs, outputs, lower, grad="auto", optional=(),
                   output_slots=list(outputs), lower=lower, grad=grad,
                   optional=frozenset(optional),
                   no_grad_inputs=frozenset(no_grad_inputs),
-                  grad_maker=grad_maker, inplace=inplace)
+                  grad_maker=grad_maker, inplace=inplace,
+                  collective=collective)
     _OP_REGISTRY[type] = info
     if grad == "auto":
         _register_auto_grad(info)
@@ -286,7 +319,12 @@ def infer_op_outputs(op, block):
             args.append(m)
     ctx = LowerContext(device="meta")
     try:
-        out = info.lower(ctx, *args, attrs=op.attrs)
+        if info.collective:
+            out = info.lower(ctx, *[[a] for a in args], attrs=op.attrs)
+            out = tuple(o[0] if o is not None else None for o in
+                        (out if isinstance(out, tuple) else (out,)))
+        else:
+            out = info.lower(ctx, *args, attrs=op.attrs)
     except Exception:  # best-effort, like the JAX package's eval_shape
         return
     out = out if isinstance(out, tuple) else (out,)

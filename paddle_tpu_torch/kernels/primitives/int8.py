@@ -1,15 +1,16 @@
 """Dual-int8 storage quantization of the KV cache (counterpart of
 ``paddle_tpu/kernels/primitives/int8.py``).
 
-The codec is the port's own copy of the JAX package's block-scaled
-symmetric int8 format (``paddle_tpu/kernels/quantized_collectives.py``
-:166-208): each block carries one fp32 scale; ``hi`` is the int8 code of
-x/scale and ``lo`` the int8 code of the residual at scale/254
-resolution, both clipped to ±127.  The KV cache treats each ``head_dim``
-vector as one block (:func:`quantize_lastdim`), so the pool becomes
-hi/lo int8 ``[P, page, n, d]`` plus a scale fp32 ``[P, page, n, 1]``,
-quantized once at append (ops/decode_ops.py) and dequantized inside the
-paged-attention kernel (primitives/paged.py, K7).
+The codec is the block-scaled symmetric int8 format of
+``kernels/quantized_collectives.py``, imported from there as the JAX
+package's ``primitives/int8.py`` imports it, so the bit-exact arithmetic
+lives in one place: each block carries one fp32 scale; ``hi`` is the
+int8 code of x/scale and ``lo`` the int8 code of the residual at
+scale/254 resolution, both clipped to ±127.  The KV cache treats each
+``head_dim`` vector as one block (:func:`quantize_lastdim`), so the pool
+becomes hi/lo int8 ``[P, page, n, d]`` plus a scale fp32
+``[P, page, n, 1]``, quantized once at append (ops/decode_ops.py) and
+dequantized inside the paged-attention kernel (primitives/paged.py, K7).
 
 The arithmetic is the JAX package's, step for step: scale =
 max(amax/127, 1e-30) (a NaN block keeps its NaN scale), hi =
@@ -25,37 +26,14 @@ from __future__ import annotations
 
 import torch
 
-QMAX = 127.0  # symmetric int8 range: never -128
-RESID_DIV = 2.0 * QMAX  # the residual is bounded by scale/2
+from ..quantized_collectives import (QMAX, RESID_DIV,
+                                     dequantize_block_scaled,
+                                     quantize_block_scaled)
 
 __all__ = ["QMAX", "RESID_DIV", "quantize_block_scaled",
            "dequantize_block_scaled", "quantize_lastdim",
            "dequantize_lastdim", "dual_int8_bytes", "bytes_saved",
            "book_bytes_saved"]
-
-
-def quantize_block_scaled(x, block_size):
-    """Block-scaled dual-int8 of a flat float tensor whose size is a
-    multiple of ``block_size``: returns ``(hi, lo, scales)`` with hi/lo
-    int8 of x's shape and one fp32 scale per block."""
-    xf = x.float().reshape(-1, block_size)
-    amax = xf.abs().amax(dim=1, keepdim=True)
-    # an all-zero block gets a tiny scale and quantizes to exact zeros;
-    # clamp_min keeps a NaN block's NaN scale, as jnp.maximum does
-    scale = (amax / QMAX).clamp_min(1e-30)
-    q_hi = torch.clamp(torch.round(xf / scale), -QMAX, QMAX)
-    resid = xf - q_hi * scale
-    q_lo = torch.clamp(torch.round(resid * (RESID_DIV / scale)), -QMAX, QMAX)
-    return (q_hi.to(torch.int8).reshape(x.shape),
-            q_lo.to(torch.int8).reshape(x.shape), scale[:, 0])
-
-
-def dequantize_block_scaled(q_hi, q_lo, scales, block_size):
-    """Inverse of :func:`quantize_block_scaled` (fp32)."""
-    hi = q_hi.float().reshape(-1, block_size)
-    s = scales.reshape(-1, 1)
-    lo = q_lo.float().reshape(-1, block_size)
-    return (hi * s + lo * (s / RESID_DIV)).reshape(q_hi.shape)
 
 
 def quantize_lastdim(x):

@@ -1,4 +1,5 @@
 """Op lowerings: importing this package registers every ported op."""
 
-from . import (decode_ops, fused_ops, math_ops, nn_ops,  # noqa: F401
-               optimizer_ops, tensor_ops)
+from . import (collective_ops, decode_ops, fused_ops,  # noqa: F401
+               interop_tail_ops, math_ops, nn_ops, optimizer_ops,
+               tensor_ops)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.fluid.registry import torch_dtype
+from paddle_tpu_torch.fluid.registry import fold_seed, torch_dtype
 
 
 def np_dtype(name) -> torch.dtype:
@@ -35,13 +35,25 @@ def flatten_to_2d(x, num_col_dims):
 
 
 def op_generator(ctx, attrs):
-    """The stream a random op draws from: its own, seeded from a nonzero
-    ``seed`` attr, else the run's generator in program order."""
+    """The stream a random op draws from: with a nonzero ``seed`` attr,
+    its own, keyed as the JAX package keys it (``op_rng_key``): the
+    seed, the op's index (or its ``rng_op_index`` attr, which a fusion
+    pass stamps on the op that absorbed it), the executor step and,
+    inside a replica group, the replica index — so its mask changes
+    every step, differs from another op's with the same seed, and
+    differs between replicas.  Otherwise the run's generator, in program
+    order (its seed already folds in the step and the replica)."""
     seed = int(attrs.get("seed", 0) or 0)
     if not seed:
         return ctx.generator
+    idx = attrs.get("rng_op_index")
+    if idx is None:
+        idx = ctx.op_index
+    parts = (seed, idx, ctx.step)
+    if ctx.replica is not None:
+        parts += (ctx.replica,)
     g = torch.Generator(device=ctx.device)
-    g.manual_seed(seed)
+    g.manual_seed(fold_seed(*parts))
     return g
 
 

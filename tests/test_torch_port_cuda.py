@@ -17,7 +17,10 @@ decode lane's greedy ids exactly, over the fp32 and the int8 pool (the
 tiny model's top-two gaps are far wider than the fp32 differences
 between cuBLAS and the CPU); the ragged Engine's scores within 1e-5 of a
 CPU engine's; the BERT step's losses on the card within 1e-4 of the
-CPU's.
+CPU's; K8 within 1e-6 of each tensor's largest element with equal
+requant codes, the quantized all-reduce forms within 1e-6 of each
+block's max of CPU replicas, and a dp 2 BERT-tiny run's losses within
+1e-4 of CPU replicas'.
 """
 
 import numpy as np
@@ -525,3 +528,151 @@ def test_ragged_engine_on_cuda_matches_cpu(dev, tmp_path):
                             if key == "gpu" else 0)
     np.testing.assert_allclose(scores["gpu"], scores["cpu"], atol=1e-5,
                                rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K8: the fused dequant -> update -> requant step, and the quantized
+# collectives of the data-parallel lane on replicas on the card
+# ---------------------------------------------------------------------------
+
+K8_KINDS = [("adam", False), ("adamw", False), ("momentum", False),
+            ("momentum", True), ("sgd", False)]
+
+
+def _k8_state(dev, numel, bs, offset=2, seed=0):
+    from paddle_tpu_torch.kernels import quantized_collectives as qc
+
+    rng = np.random.RandomState(seed)
+    nb = -(-numel // bs)
+    bucket = rng.randn((offset + nb + 1) * bs).astype(np.float32)
+    bucket[offset * bs + numel:(offset + nb) * bs] = 0  # member padding
+    hi, lo, sc = qc.quantize_block_scaled(torch.from_numpy(bucket).to(dev),
+                                          bs)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    state = dict(p=f(rng.randn(numel) * 0.1), m1=f(rng.randn(numel) * 0.01),
+                 m2=f(np.abs(rng.randn(numel)) * 0.01), lr=f([1e-3]),
+                 b1p=f([0.9 ** 2]), b2p=f([0.999 ** 2]))
+    return state, (hi, lo, sc, offset, numel)
+
+
+def _k8_run(kind, nesterov, s, grad, bs, requant, force=None):
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    kw = dict(block_size=bs, requant_pad=bs if requant else None,
+              force=force)
+    if kind in ("adam", "adamw"):
+        fn = fu.fused_adam_update if kind == "adam" else fu.fused_adamw_update
+        out = fn(s["p"], grad, s["m1"], s["m2"], s["lr"], s["b1p"], s["b2p"],
+                 **kw)
+    elif kind == "momentum":
+        out = fu.fused_momentum_update(s["p"], grad, s["m1"], s["lr"],
+                                       use_nesterov=nesterov, **kw)
+    else:
+        out = fu.fused_sgd_update(s["p"], grad, s["lr"], **kw)
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("requant", [False, True])
+@pytest.mark.parametrize("kind,nesterov", K8_KINDS)
+@pytest.mark.parametrize("numel,bs", [(1000, 256), (4096, 256), (77, 16),
+                                      (3000, 1024)])
+def test_fused_update_kernel_matches_plain(dev, kind, nesterov, requant,
+                                           numel, bs):
+    """K8 against its plain version: the same terms in the same order
+    with round-to-nearest intrinsics, so equal up to 1e-6 of each
+    tensor's largest element and equal codes."""
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    state, grad = _k8_state(dev, numel, bs)
+    ref = {k: v.clone() for k, v in state.items()}
+    before = fu.fused_update_kernel.launches
+    got = _k8_run(kind, nesterov, state, grad, bs, requant)
+    want = _k8_run(kind, nesterov, ref, grad, bs, requant, force="reference")
+    torch.cuda.synchronize()
+    assert fu.fused_update_kernel.launches == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        if requant and i == 0:
+            continue  # p: the payload's image on the kernel's path
+        if g.dtype == torch.int8:
+            assert torch.equal(g, w), i
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-6,
+                                       atol=1e-6 * w.abs().max().item())
+
+
+def test_fused_update_kernel_raises_not_falls_back(dev):
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    state, grad = _k8_state(dev, 1000, 256)
+    with pytest.raises(ValueError, match="block_size"):
+        fu.fused_sgd_update(state["p"], grad, state["lr"], block_size=2048)
+    with pytest.raises(ValueError, match="contiguous"):
+        fu.fused_sgd_update(state["p"][::2], (grad[0], grad[1], grad[2], 2,
+                                              500), state["lr"])
+
+
+@pytest.mark.parametrize("n,algo,size", [(2, "oneshot", 5000),
+                                         (4, "oneshot", 4096),
+                                         (4, "ring", 5003),
+                                         (4, "ring_bidir", 9000),
+                                         (4, "ring_bidir", 8192)])
+def test_quantized_all_reduce_on_card_matches_cpu_replicas(dev, n, algo,
+                                                           size):
+    """Each quantized all-reduce form over n replicas on the card
+    against the same inputs on n CPU replicas: the dequantized results
+    within 1e-6 of each block's max (cuBLAS-free elementwise math, but
+    the card and the CPU may round a division or a sum otherwise)."""
+    from paddle_tpu_torch.kernels import ring_collectives as rc
+
+    xs = np.random.RandomState(size).randn(n, size).astype(np.float32)
+    gpu = rc.adaptive_quantized_all_reduce(
+        [torch.from_numpy(x).to(dev) for x in xs], block_size=256, algo=algo)
+    cpu = rc.adaptive_quantized_all_reduce(
+        [torch.from_numpy(x) for x in xs], block_size=256, algo=algo)
+    bmax = np.abs(xs).sum(0)
+    pad = (-size) % 256
+    bmax = np.pad(bmax, (0, pad)).reshape(-1, 256).max(1).repeat(256)[:size]
+    for g, c in zip(gpu, cpu):
+        assert g.device.type == "cuda"
+        assert (np.abs(g.cpu().numpy() - c.numpy()) <= 1e-6 * bmax).all()
+
+
+def test_dp2_bert_tiny_on_card_matches_cpu_replicas(dev):
+    """Two steps of BERT-tiny at dp 2 through CompiledProgram on two
+    replicas of the card and on two CPUPlace replicas, from the same
+    parameters: every fused update on the card launches K8."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.kernels import fused_update as fu
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(use_flash_attention=True, attn_dropout=0.0,
+                               hidden_dropout=0.0)
+    shards = [bert.make_fake_batch(cfg, 2, 32, seed=r) for r in range(2)]
+    feed = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    losses, init = {}, None
+    for key, place in (("gpu", fluid.CUDAPlace(0)), ("cpu", fluid.CPUPlace())):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, loss, _, _ = bert.build_bert_pretrain(cfg)
+            fluid.optimizer.Adam(1e-3).minimize(loss)
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {p.name: scope.get(p.name).cpu().numpy().copy()
+                    for p in main.all_parameters()}
+        else:
+            convert.load_params(scope, init, place, program=main)
+        bs = fluid.BuildStrategy()
+        bs.quant_allreduce = True
+        cp = fluid.CompiledProgram(main, build_strategy=bs).with_data_parallel(
+            loss_name=loss.name, places=[place] * 2)
+        before = fu.fused_update_kernel.launches
+        losses[key] = [exe.run(cp, feed=feed, fetch_list=[loss],
+                               scope=scope)[0] for _ in range(2)]
+        launched = fu.fused_update_kernel.launches - before
+        n_fused = sum(op.type == "fused_adam_quant_grad"
+                      for op in cp._dp_runner.program.global_block().ops)
+        assert launched == (2 * 2 * n_fused if key == "gpu" else 0)
+    np.testing.assert_allclose(np.asarray(losses["gpu"]),
+                               np.asarray(losses["cpu"]), rtol=1e-4)

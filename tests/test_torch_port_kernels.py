@@ -179,7 +179,8 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 def test_build_names_library_by_source_hash():
     assert _build.sources() == ["flash_attention", "fused_bias_act",
-                                "paged_attention", "ragged_attention"]
+                                "fused_update", "paged_attention",
+                                "ragged_attention"]
     paths = [_build._so_path(n) for n in _build.sources()]
     assert all(p.parent == _build.BUILD_DIR for p in paths)
     assert len(set(paths)) == len(paths)

@@ -288,3 +288,50 @@ def test_bf16_policy_casts_like_jax(op_type, arg_dtypes, attrs):
     got = [str(v.dtype).replace("torch.", "").replace("int64", "int32")
            for v in texe._apply_bf16_policy(op, tv)]
     assert got == want
+
+
+def _two_seeded_dropouts(fluid_mod):
+    """x [4, 64] through two dropout(seed=7) ops; returns the program and
+    the two Mask var names."""
+    main, startup = fluid_mod.Program(), fluid_mod.Program()
+    with fluid_mod.program_guard(main, startup), \
+            fluid_mod.unique_name.guard():
+        x = fluid_mod.layers.data("x", [4, 64], False, dtype="float32")
+        for _ in range(2):
+            fluid_mod.layers.dropout(x, 0.5, seed=7)
+    masks = [op.outputs["Mask"][0] for op in main.global_block().ops
+             if op.type == "dropout"]
+    return main, masks
+
+
+def _masks_of_two_steps(fluid_mod, place):
+    main, masks = _two_seeded_dropouts(fluid_mod)
+    exe = fluid_mod.Executor(place)
+    scope = fluid_mod.Scope()
+    feed = {"x": np.ones((4, 64), np.float32)}
+    return [np.asarray(m).astype(np.uint8) for _ in range(2)
+            for m in exe.run(main, feed=feed, fetch_list=masks,
+                             scope=scope)]
+
+
+@pytest.mark.parametrize("pkg", ["jax", "torch"])
+def test_seeded_random_op_streams_follow_step_and_op(pkg):
+    """A random op with a nonzero seed draws from a stream keyed by the
+    seed, its op index and the executor step (paddle_tpu/ops/common.py
+    op_rng_key): two dropout(seed=7) ops over two steps draw four
+    different masks, and a second executor from the same start draws
+    the same four.  The JAX package's masks show the same properties
+    (they cannot match the port's bit for bit)."""
+    if pkg == "jax":
+        from paddle_tpu import fluid as fl
+    else:
+        from paddle_tpu_torch import fluid as fl
+    first = _masks_of_two_steps(fl, fl.CPUPlace())
+    assert len(first) == 4
+    for i in range(4):
+        assert 0.3 < first[i].mean() < 0.7
+        for j in range(i):
+            assert not np.array_equal(first[i], first[j]), (i, j)
+    again = _masks_of_two_steps(fl, fl.CPUPlace())
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
