@@ -6,11 +6,15 @@
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every kernel under paddle_tpu_torch/csrc, one nvcc each, all
-     started together, for sm_90a.
+     started together, for sm_90a; each flash kernel's registers, shared
+     memory and spills (ptxas) and tensor-core instructions (SASS): the
+     bf16 K1 and K3 spill nothing and hold HMMA.
   3. kernels: each kernel's wrapper (K1-K8) on tensors on the card at
      the shapes its path gives it, held against its plain PyTorch
      version; timed against the plain version, its bound and, where one
      PyTorch call computes the same function, that call (library_ms).
+     K1-K3 also at a dp replica's shard (timed) and at the bf16 edges:
+     a ragged tile, causal, D 32 and 12, S 1, fully masked rows.
   4. train path: BERT-base pretraining (vocab 30528, flash attention,
      hidden dropout 0.1) at b128 s128 under the bf16 dtype policy with
      Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0):
@@ -167,6 +171,82 @@ def _time_ms(fn, iters, flush=None):
                            f"finished enqueueing ({host_ms:.2f} ms); raise "
                            f"SLEEP_CYCLES")
     return sum(a.elapsed_time(b) for a, b in evs) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the compiler made of the flash kernels
+# ---------------------------------------------------------------------------
+
+
+def _demangle(names):
+    """C++ names of mangled symbols, where a demangler is installed."""
+    import shutil
+
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def flash_build_report():
+    """Each flash entry function's registers, static shared memory and
+    spill bytes (the build's -Xptxas -v), and the tensor-core (HMMA,
+    HGMMA) instructions in its SASS (cuobjdump, where the toolkit has
+    it).  The bf16 K1 and K3 (namespace flash_tc) must spill nothing and,
+    where SASS can be read, hold tensor-core instructions."""
+    import re
+    import shutil
+
+    from paddle_tpu_torch.kernels import _build
+
+    found, cur = {}, None
+    for line in _build.build_log("flash_attention").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line) \
+            or re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = found.setdefault(m.group(1), {"static_smem_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem_bytes"] = int(m.group(1))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+            capture_output=True, text=True).stdout
+        for block in sass.split("Function : ")[1:]:
+            name = block.split("\n", 1)[0].strip()
+            found.setdefault(name, {})["tensor_core_instructions"] = len(
+                re.findall(r"\bH(?:G)?MMA\b", block))
+    report = {}
+    for mangled, label in zip(found, _demangle(list(found))):
+        for a, b in (("(anonymous namespace)::", ""), ("<unnamed>::", ""),
+                     ("(bool)0", "false"), ("(bool)1", "true"),
+                     ("void ", "")):
+            label = label.replace(a, b)  # c++filt's and cu++filt's forms
+        label = label.split("(")[0]
+        # a function of namespace flash_tc (not one merely taking its
+        # Strides)
+        report[label] = dict(found[mangled],
+                             tensor_cores=mangled.startswith("_ZN8flash_tc"))
+    bad = [k for k, r in report.items() if r["tensor_cores"] and (
+        r.get("spill_bytes") != 0
+        or r.get("tensor_core_instructions", 1) == 0)]
+    if bad or not any(r["tensor_cores"] for r in report.values()):
+        raise AssertionError(f"flash build: tensor-core kernels spilling or "
+                             f"without HMMA: {bad or report}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -474,10 +554,11 @@ def check_bias_gelu_bf16(dev, rng):
     return worst, timings
 
 
-def _flash_inputs(dev, b, h, s, d, dtype, rng):
+def _flash_inputs(dev, b, h, s, d, dtype, rng, masked=False):
     """q, k, v, dO as the BERT program hands them to the op: [B, H, S, D]
     transposed views of [B, S, H, D] activations; a key bias [B*H, S]
-    with -1e4 pads on a quarter of the rows' tails."""
+    with -1e4 pads on a quarter of the rows' tails.  masked: every key
+    of batch 1's heads carries -1e30 instead (fully masked rows)."""
     def t():
         a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
         return a.to(dev, dtype).transpose(1, 2)
@@ -485,6 +566,8 @@ def _flash_inputs(dev, b, h, s, d, dtype, rng):
     q, k, v, do = t(), t(), t(), t()
     bias = np.zeros((b, s), np.float32)
     bias[::4, s - s // 4:] = -1e4
+    if masked:
+        bias[1] = -1e30
     rows = torch.from_numpy(np.repeat(bias, h, axis=0)).to(dev)
     return q, k, v, do, rows
 
@@ -521,19 +604,41 @@ def _sdpa_ms(q, k, v, do, rows, scale):
     return fwd, bwd
 
 
+# (name, b, h, s, d, dtype, causal, fully masked rows, timed): the BERT
+# path's shape and a dp replica's shard (both timed), then the edges of
+# the bf16 tensor-core K1/K3 (a ragged last tile, causal, D < 64, rows
+# that are not 16-byte multiples, one token, rows whose keys are all
+# masked) and the fp32 SIMT cases
+FLASH_CASES = (
+    ("path", 128, 12, 128, 64, torch.bfloat16, False, False, True),
+    ("dp_shard", 32, 12, 128, 64, torch.bfloat16, False, False, True),
+    ("bf16_ragged", 4, 12, 200, 64, torch.bfloat16, False, False, False),
+    ("bf16_ragged_causal", 4, 12, 200, 64, torch.bfloat16, True, False,
+     False),
+    ("bf16_d32", 4, 12, 96, 32, torch.bfloat16, False, False, False),
+    ("bf16_d12_causal", 4, 12, 77, 12, torch.bfloat16, True, False, False),
+    ("bf16_s1", 4, 12, 1, 64, torch.bfloat16, False, False, False),
+    ("bf16_masked_rows", 4, 12, 128, 64, torch.bfloat16, False, True,
+     False),
+    ("ragged", 4, 12, 200, 64, torch.float32, False, False, False),
+    ("ragged_causal", 4, 12, 200, 64, torch.float32, True, False, False),
+    ("masked_rows", 4, 12, 128, 64, torch.float32, False, True, False),
+)
+
+
 def check_flash(dev, rng):
-    """K1, K2, K3 against their plain versions: at the BERT path's shape
-    (BH = 1536, S = 128, D = 64, bf16) and at S = 200 (a ragged tile),
-    causal on and off, in fp32.  Timed at the path's shape."""
+    """K1, K2, K3 against their plain versions at FLASH_CASES; bf16 K1
+    and K3 run on the tensor cores, fp32 ones and K2 on the SIMT units.
+    Timed at the BERT path's shape (BH = 1536, S = 128, D = 64, bf16)
+    and at a dp replica's shard (BH = 384)."""
     from paddle_tpu_torch.kernels.primitives import flash
 
-    cases = [("path", 128, 12, 128, 64, torch.bfloat16, False),
-             ("ragged", 4, 12, 200, 64, torch.float32, False),
-             ("ragged_causal", 4, 12, 200, 64, torch.float32, True)]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    by_dtype, by_case = {}, {}
     timings = {}
-    for name, b, h, s, d, dtype, causal in cases:
-        q, k, v, do, rows = _flash_inputs(dev, b, h, s, d, dtype, rng)
+    for name, b, h, s, d, dtype, causal, masked, timed in FLASH_CASES:
+        q, k, v, do, rows = _flash_inputs(dev, b, h, s, d, dtype, rng,
+                                          masked)
         scale = d ** -0.5
         o, lse = flash.flash_fwd(q, k, v, rows, causal, scale)
         o_ref, lse_ref = flash.flash_fwd(q, k, v, rows, causal, scale,
@@ -548,6 +653,8 @@ def check_flash(dev, rng):
                                                      force="reference")
         torch.cuda.synchronize()
         tol = FLASH_TOL[dtype]
+        errs = by_dtype.setdefault(str(dtype).split(".")[-1], {})
+        case_errs = by_case.setdefault(name, {})
         for kern, got, want, t in (
                 ("flash_fwd", o, o_ref, tol),
                 ("flash_fwd", lse, lse_ref, FLASH_TOL[torch.float32]),
@@ -561,10 +668,18 @@ def check_flash(dev, rng):
                 raise AssertionError(f"{kern} {name}: max abs err {err} "
                                      f"outside {t}")
             worst[kern] = max(worst[kern], err)
-        if name != "path":
+            errs[kern] = max(errs.get(kern, 0.0), err)
+            case_errs[kern] = max(case_errs.get(kern, 0.0), err)
+        if masked:  # uniform weights: O of batch 1 is the mean of V
+            mean_v = v[1].float().mean(dim=1, keepdim=True).expand_as(v[1])
+            if not torch.allclose(o[1].float(), mean_v, **tol):
+                raise AssertionError(f"flash_fwd {name}: fully masked rows "
+                                     f"are not the mean of V")
+        if not timed:
             continue
         k1, k2, k3 = _flash_bounds(b * h, s, d, 2, causal)
         lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do, rows, scale)
+        shape = {}
         for kern, fn, plain, (bound_ms, bound_by), lib in (
                 ("flash_fwd",
                  lambda: flash.flash_fwd(q, k, v, rows, causal, scale),
@@ -576,13 +691,19 @@ def check_flash(dev, rng):
                 ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(*bargs),
                  lambda: flash.flash_bwd_dkv(*bargs, force="reference"), k3,
                  lib_bwd)):
-            timings[kern] = dict(
+            shape[kern] = dict(
                 ms=_time_ms(fn, 30), plain_ms=_time_ms(plain, 10),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                 shape=[b * h, s, d], dtype="bfloat16")
-        timings["sdpa_note"] = ("library_ms: flash_fwd against SDPA "
-                                "forward; flash_bwd_dq and flash_bwd_dkv "
-                                "each against SDPA's whole backward")
+        if name == "path":
+            timings.update(shape)
+        else:
+            timings[name] = shape
+    timings["max_abs_err_by_dtype"] = by_dtype
+    timings["max_abs_err_by_case"] = by_case
+    timings["sdpa_note"] = ("library_ms: flash_fwd against SDPA forward; "
+                            "flash_bwd_dq and flash_bwd_dkv each against "
+                            "SDPA's whole backward")
     return worst, timings
 
 
@@ -1580,9 +1701,13 @@ def main():
           f"{json.dumps({k: round(v, 2) for k, v in took.items()})}",
           flush=True)
     for name in _build.sources():
+        if name == "flash_attention":
+            continue  # reported kernel by kernel below
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    for label, r in flash_build_report().items():
+        print(f"ptxas flash_attention: {label}: " + json.dumps(r))
 
     rng = np.random.RandomState(SEED)
     k5_err, k5_t = check_paged(dev, rng)

@@ -17,18 +17,21 @@
 // -1e30 (the JAX constant); a row whose l is 0 gives O = 0 and
 // lse = m + log(1).
 //
-// What bounds it on this card: at the training shape (S = 128, D = 64,
-// bf16) K1 moves about 4·S·D·2 bytes per head for 4·S²·D flops, some 64
-// flops a byte (K2 ~77, K3 ~85): below the bf16 tensor cores' ridge
-// point (~295), so the least time is set by bytes.  This first version
-// does its products on the fp32 SIMT units (67 TFLOP/s, not the 989 of
-// bf16 tensor cores), so it is bound by those and by shared-memory
-// bandwidth instead; mma.sync/wgmma tiles and TMA staging are a later
-// step.
+// Two designs.  K1 and K3 on bfloat16, the training path's dtype, run
+// on the tensor cores: flash_tc.cuh, whose note gives their bound and
+// design.  Everything else here is the SIMT design below: K1 and K3 on
+// float32 (the parity checks, which hold them to 2e-5, tighter than a
+// TF32 tensor core could), and K2 in both dtypes.
 //
-// Design: one block of 256 threads per (bh, 64-row tile): K1 and K2 per
-// query tile looping over key tiles, K3 per key tile looping over query
-// tiles, so dK, dV and dBias need no atomics.  Tiles are staged in
+// What bounds the SIMT design: at the training shape (S = 128, D = 64)
+// K2 does some 77 flops a byte, below the bf16 tensor cores' ridge
+// point (~295), so the least time is set by bytes; on the fp32 SIMT
+// units (67 TFLOP/s, not the 989 of bf16 tensor cores) it is bound by
+// those and by shared-memory bandwidth instead.
+//
+// SIMT design: one block of 256 threads per (bh, 64-row tile): K1 and K2
+// per query tile looping over key tiles, K3 per key tile looping over
+// query tiles, so dK, dV and dBias need no atomics.  Tiles are staged in
 // shared memory as fp32, transposed where a product reads them along D
 // (row stride 68 floats keeps float4 reads aligned and spreads banks).
 // A thread owns a 4x4 piece of each 64x64 tile: the scores, the
@@ -40,18 +43,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_tc.cuh"
+
 namespace {
+
+using flash_tc::head;
+using flash_tc::kNegInf;
+using flash_tc::Strides;
 
 constexpr int kTile = 64;     // rows of a query tile and of a key tile
 constexpr int kDim = 64;      // head-dim capacity (zero-padded)
 constexpr int kLd = 68;       // padded row stride of a staged tile (floats)
 constexpr int kThreads = 256; // 16 x 16 threads, a 4x4 piece each
 constexpr int kTileFloats = kTile * kLd;
-constexpr float kNegInf = -1e30f;
-
-struct Strides {
-  long long b, h, s;
-};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -64,16 +68,6 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-template <typename T>
-__device__ __forceinline__ const T* head(const T* p, Strides st, int bh,
-                                         int H) {
-  return p + (long long)(bh / H) * st.b + (long long)(bh % H) * st.h;
-}
-template <typename T>
-__device__ __forceinline__ T* head(T* p, Strides st, int bh, int H) {
-  return p + (long long)(bh / H) * st.b + (long long)(bh % H) * st.h;
 }
 
 // Stage rows [row0, row0 + 64) x [0, 64) of a [S, D] matrix (row stride
@@ -475,9 +469,10 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 
 // C entry points.  Each returns the cudaError_t of its launch (0 on
-// success).  dtype: 0 = float32, 1 = bfloat16.  Every pointer is a
-// device pointer; strides are element strides (b, h, s) of each
-// [B, H, S, D] operand in argument order; stream is a cudaStream_t.
+// success).  dtype: 0 = float32, 1 = bfloat16 (K1 and K3 then run on the
+// tensor cores, flash_tc.cuh).  Every pointer is a device pointer;
+// strides are element strides (b, h, s) of each [B, H, S, D] operand in
+// argument order; stream is a cudaStream_t.
 
 extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k,
                             const void* v, const float* bias, void* o,
@@ -496,10 +491,10 @@ extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k,
                                            st, scale, s)
                         : fwd<float, false>(q, k, v, bias, o, lse, B, H, S,
                                             D, st, scale, s));
-  return (int)(causal ? fwd<__nv_bfloat16, true>(q, k, v, bias, o, lse, B, H,
-                                                 S, D, st, scale, s)
-                      : fwd<__nv_bfloat16, false>(q, k, v, bias, o, lse, B,
-                                                  H, S, D, st, scale, s));
+  return (int)(causal ? flash_tc::fwd<true>(q, k, v, bias, o, lse, B, H, S,
+                                            D, st, scale, s)
+                      : flash_tc::fwd<false>(q, k, v, bias, o, lse, B, H, S,
+                                             D, st, scale, s));
 }
 
 extern "C" int pt_flash_bwd_dq(int dtype, const void* q, const void* k,
@@ -552,11 +547,10 @@ extern "C" int pt_flash_bwd_dkv(
                         : bwd_dkv<float, false>(q, k, v, bias, dout, lse,
                                                 delta, dk, dv, dbias, B, H,
                                                 S, D, st, scale, s));
-  return (int)(causal ? bwd_dkv<__nv_bfloat16, true>(q, k, v, bias, dout, lse,
-                                                     delta, dk, dv, dbias, B,
-                                                     H, S, D, st, scale, s)
-                      : bwd_dkv<__nv_bfloat16, false>(q, k, v, bias, dout,
-                                                      lse, delta, dk, dv,
-                                                      dbias, B, H, S, D, st,
-                                                      scale, s));
+  return (int)(causal ? flash_tc::bwd_dkv<true>(q, k, v, bias, dout, lse,
+                                                delta, dk, dv, dbias, B, H,
+                                                S, D, st, scale, s)
+                      : flash_tc::bwd_dkv<false>(q, k, v, bias, dout, lse,
+                                                 delta, dk, dv, dbias, B, H,
+                                                 S, D, st, scale, s));
 }

@@ -31,7 +31,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "load", "ptr", "stream_of"]
+           "build_log", "library_path", "load", "ptr", "stream_of"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -99,6 +99,12 @@ def build_all(names=None):
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return took
+
+
+def library_path(name):
+    """Path of the built library of kernel ``name`` (it may not exist
+    yet)."""
+    return _so_path(name)
 
 
 def build_log(name):

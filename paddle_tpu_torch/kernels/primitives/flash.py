@@ -24,9 +24,13 @@ and K3.
 Numerics kept: fp32 scores, softmax and accumulators for bf16 or fp32
 q/k/v; O and dQ/dK/dV in the input dtype, lse and dBias in fp32; the
 -1e30 mask constant; a row with l == 0 returns 0 and
-lse = m + log(l_safe).  Not kept: the Mosaic 128-blocks and padding S
-up to a block (``_pad_to_block``); the kernels mask a ragged last tile
-themselves, so any S gives the reference's result.
+lse = m + log(l_safe); a row whose keys all carry -1e30 averages V.
+Not kept: the Mosaic 128-blocks and padding S up to a block
+(``_pad_to_block``); the kernels mask a ragged last tile themselves, so
+any S gives the reference's result.  On bf16 inputs K1 and K3 run on
+the tensor cores (``csrc/flash_tc.cuh``) and round P to bf16 before
+P·V and Pᵀ·dO, and carry dS as two bf16 parts into dSᵀ·Q, where the
+JAX kernel keeps both fp32; fp32 inputs and K2 keep fp32 products.
 
 Inputs: the kernels take q, k, v, dO and their outputs as [B, H, S, D]
 views with any strides whose last one is 1.  The flash op receives q,
@@ -90,10 +94,12 @@ def _scores(q, k, bias, causal, scale):
 
 
 def flash_fwd_reference(q, k, v, bias, causal, scale):
-    """(O in q's dtype, lse fp32 [..., S])."""
+    """(O in q's dtype, lse fp32 [..., S]).  P is the softmax, as the
+    JAX kernel's acc / l: where every logit of a row is -1e30, lse rounds
+    to -1e30 and exp(s - lse) would weigh each key 1, not 1/S."""
     s = _scores(q, k, bias, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype), lse
 
 

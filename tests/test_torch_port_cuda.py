@@ -12,12 +12,14 @@ merged across warps vs one softmax: same fp32 terms, other order); K6
 fp32 (the same elementwise formula; erfcf/tanhf may differ by an ulp)
 and one bf16 rounding step (8e-3 relative) in bf16; K1-K3 2e-5 in fp32
 (fp32 sums over 64-key tiles vs one matmul) and 2e-2 in bf16 (both
-round an fp32 result to bf16, so they may differ by an ulp of it); the
-decode lane's greedy ids exactly, over the fp32 and the int8 pool (the
-tiny model's top-two gaps are far wider than the fp32 differences
-between cuBLAS and the CPU); the ragged Engine's scores within 1e-5 of a
-CPU engine's; the BERT step's losses on the card within 1e-4 of the
-CPU's; K8 within 1e-6 of each tensor's largest element with equal
+round an fp32 result to bf16, so they may differ by an ulp of it; the
+bf16 K1 and K3 also round P and dS to bf16 before their second
+products, 2^-9 relative a term); the decode lane's greedy ids exactly,
+over the fp32 and the int8 pool (the tiny model's top-two gaps are far
+wider than the fp32 differences between cuBLAS and the CPU); the ragged
+Engine's scores within 1e-5 of a CPU engine's; the BERT step's losses
+on the card within 1e-4 of the CPU's in fp32 and within 2e-3 under the
+bf16 policy; K8 within 1e-6 of each tensor's largest element with equal
 requant codes, the quantized all-reduce forms within 1e-6 of each
 block's max of CPU replicas, and a dp 2 BERT-tiny run's losses within
 1e-4 of CPU replicas'.
@@ -211,15 +213,21 @@ def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
     return q, k, v, do, rows
 
 
-@pytest.mark.parametrize("dtype,s,d,causal,strided", [
-    (torch.bfloat16, 128, 64, False, True),   # the BERT path's case
-    (torch.float32, 200, 64, False, True),    # a ragged last tile
-    (torch.float32, 200, 64, True, False),
-    (torch.float32, 64, 32, True, True),
-    (torch.bfloat16, 77, 16, True, False),
+@pytest.mark.parametrize("dtype,b,h,s,d,causal,strided", [
+    (torch.bfloat16, 2, 3, 128, 64, False, True),   # the BERT path's case
+    (torch.bfloat16, 32, 12, 128, 64, False, True),  # a dp replica's shard
+    (torch.bfloat16, 2, 3, 200, 64, False, False),  # a ragged last tile
+    (torch.bfloat16, 2, 3, 200, 64, True, True),
+    (torch.bfloat16, 2, 3, 96, 32, False, True),    # D < 64, zero-padded
+    (torch.bfloat16, 2, 3, 77, 16, True, False),
+    (torch.bfloat16, 2, 3, 77, 12, True, True),     # 24-byte rows: scalar
+    (torch.bfloat16, 2, 3, 50, 12, False, False),   # staging and stores
+    (torch.bfloat16, 2, 3, 1, 64, False, True),     # one query, one key
+    (torch.float32, 2, 3, 200, 64, False, True),
+    (torch.float32, 2, 3, 200, 64, True, False),
+    (torch.float32, 2, 3, 64, 32, True, True),
 ])
-def test_flash_kernels_match_plain(dev, dtype, s, d, causal, strided):
-    b, h = 2, 3
+def test_flash_kernels_match_plain(dev, dtype, b, h, s, d, causal, strided):
     q, k, v, do, bias = _flash_case(dev, b, h, s, d, dtype, strided)
     scale = d ** -0.5
     counts = [f.launches for f in (flash.flash_fwd, flash.flash_bwd_dq,
@@ -243,6 +251,37 @@ def test_flash_kernels_match_plain(dev, dtype, s, d, causal, strided):
     torch.testing.assert_close(o, o_ref, **tol)
     torch.testing.assert_close(lse, lse_ref, **FLASH_TOL[torch.float32])
     torch.testing.assert_close(dq, dq_ref, **tol)
+    torch.testing.assert_close(dk, dk_ref, **tol)
+    torch.testing.assert_close(dv, dv_ref, **tol)
+    torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_fully_masked_rows_match_plain(dev, dtype):
+    """Every key of batch 1's heads carries the -1e30 bias: as in the JAX
+    kernel, such a row's logits all equal -1e30, so the kernels and the
+    plain versions give it uniform weights (O = the mean of V), and
+    nothing turns to NaN."""
+    b, h, s, d = 2, 3, 130, 64
+    q, k, v, do, bias = _flash_case(dev, b, h, s, d, dtype, True)
+    bias[h:] = -1e30
+    scale = d ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, bias, False, scale)
+    o_ref, lse_ref = flash.flash_fwd(q, k, v, bias, False, scale,
+                                     force="reference")
+    delta = (do.float() * o_ref.float()).sum(-1).reshape(b * h, s)
+    args = (q, k, v, bias, do, lse_ref.reshape(b * h, s), delta, False,
+            scale)
+    dk, dv, db = flash.flash_bwd_dkv(*args)
+    dk_ref, dv_ref, db_ref = flash.flash_bwd_dkv(*args, force="reference")
+    torch.cuda.synchronize()
+    for t in (o, lse, dk, dv, db):
+        assert torch.isfinite(t).all()
+    tol = FLASH_TOL[dtype]
+    mean_v = v[1].float().mean(dim=1, keepdim=True).expand(h, s, d)
+    torch.testing.assert_close(o[1].float(), mean_v, **tol)
+    torch.testing.assert_close(o, o_ref, **tol)
+    torch.testing.assert_close(lse, lse_ref, **FLASH_TOL[torch.float32])
     torch.testing.assert_close(dk, dk_ref, **tol)
     torch.testing.assert_close(dv, dv_ref, **tol)
     torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
@@ -307,6 +346,50 @@ def test_bert_train_steps_on_cuda_match_cpu(dev):
             fba.fused_bias_gelu.launches - before[1]) == (
         3 * 2 * cfg.num_layers, 3 * (cfg.num_layers + 1))
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+
+
+def test_bert_bf16_train_steps_on_cuda_match_cpu(dev):
+    """Three Adam steps of a 2-layer BERT-tiny under the bf16 policy
+    (dropout 0) on the card, through the bf16 tensor-core K1 and K3, and
+    on the CPU through the plain versions, from the same parameters.
+    Losses within 2e-3 relative, half a bf16 ulp: the card rounds P and
+    dS to bf16 before their second products (on the CPU, emulating that
+    rounding moves these losses by 5e-5), and cuBLAS and the CPU's bf16
+    GEMMs round fp32 sums taken in other orders, which can move an
+    activation by one bf16 ulp."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(num_layers=2, use_flash_attention=True,
+                               attn_dropout=0.0, hidden_dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    enable_bf16_policy(main)
+    startup.random_seed = 5
+    feed = bert.make_fake_batch(cfg, 4, 48, seed=1)
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    gpu = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=gpu)
+    convert.load_params(gpu, {p.name: cpu.get(p.name).numpy()
+                              for p in main.all_parameters()},
+                        fluid.CUDAPlace(0), program=main)
+    kernels = (flash.flash_fwd, flash.flash_bwd_dkv)
+    before = [f.launches for f in kernels]
+    losses = {}
+    for key, scope, place in (("gpu", gpu, fluid.CUDAPlace(0)),
+                              ("cpu", cpu, fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        losses[key] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0]) for _ in range(3)]
+    assert [f.launches - n for f, n in zip(kernels, before)] == [
+        3 * 2 * cfg.num_layers, 3 * cfg.num_layers]
+    assert np.isfinite(losses["gpu"]).all()
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=2e-3)
 
 
 # ---------------------------------------------------------------------------

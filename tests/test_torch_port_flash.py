@@ -16,6 +16,12 @@ causal on and off, a key bias with -1e4 pads, float32 and bfloat16.
 Tolerances: 2e-5 in fp32 (the same fp32 math summed in another order);
 2e-2 in bf16 (both round an fp32 result to bf16, so they may differ by
 one bf16 ulp).
+
+The bf16 CUDA K1 and K3 run on the tensor cores and round P (and dS, in
+two parts) to bf16 before their second products; a test-local copy of
+that arithmetic is held against ``attention_reference`` and its
+``jax.vjp`` within the same bf16 gate.  Rows whose keys all carry the
+-1e30 bias get uniform weights, as in the JAX kernel.
 """
 
 import math
@@ -141,3 +147,122 @@ def test_flash_wrapper_checks():
         tflash.flash_attention(q, k, v, bias, force="pallas")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tflash.flash_attention(q.double(), k.double(), v.double(), bias)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core K1 and K3: their roundings, held against JAX
+# ---------------------------------------------------------------------------
+
+TILE = 64  # keys a K1 stage
+
+
+def _k1_tensor_core(q, k, v, rows, causal, scale):
+    """K1 as the bf16 kernel computes it: bf16 q·kᵀ summed in fp32, the
+    online softmax over 64-key tiles in fp32, P rounded to bf16 before
+    P·V (fp32 sums); O in bf16, lse fp32.  q, k, v [BH, S, D] bf16."""
+    bh, s, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scores = qf @ kf.transpose(-1, -2)
+    m = torch.full((bh, s), tflash.NEG_INF)
+    l = torch.zeros(bh, s)
+    acc = torch.zeros(bh, s, d)
+    rows_i = torch.arange(s)[:, None]
+    for k0 in range(0, s, TILE):
+        j = torch.arange(k0, min(k0 + TILE, s))
+        x = scores[..., j] * scale + rows[:, None, j]
+        if causal:
+            x = torch.where(j[None, :] <= rows_i, x,
+                            torch.full_like(x, tflash.NEG_INF))
+        m_new = torch.maximum(m, x.max(-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.bfloat16().float() @ vf[:, j]
+        m = m_new
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).bfloat16(), m + torch.log(l_safe)
+
+
+def _k3_tensor_core(q, k, v, rows, do, lse, delta, causal, scale):
+    """K3 as the bf16 kernel computes it: P = exp(s·scale + bias - lse)
+    and dL = P·(dO·vᵀ - delta) in fp32; Pᵀ rounded to bf16 before Pᵀ·dO;
+    dSᵀ = dLᵀ·scale as two bf16 parts (dS rounded, and the remainder
+    rounded), each multiplied by q; fp32 sums; dK, dV bf16, dBias fp32
+    = Σ_q dL."""
+    s = q.shape[1]
+    x = (q.float() @ k.float().transpose(-1, -2)) * scale + rows[:, None]
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool).tril()
+        x = torch.where(keep, x, torch.full_like(x, tflash.NEG_INF))
+    p = torch.exp(x - lse[..., None])
+    dl = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
+    dv = p.bfloat16().float().transpose(-1, -2) @ do.float()
+    ds = dl * scale
+    hi = ds.bfloat16().float()
+    lo = (ds - hi).bfloat16().float()
+    dk = hi.transpose(-1, -2) @ q.float() + lo.transpose(-1, -2) @ q.float()
+    return dk.bfloat16(), dv.bfloat16(), dl.sum(dim=-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [12, 64])
+@pytest.mark.parametrize("s", [77, 128, 200])
+def test_tensor_core_roundings_match_jax(s, d, causal):
+    """The bf16 K1 and K3 round P to bf16, and split dS into two bf16
+    parts, where the JAX kernel keeps both fp32.  With those roundings
+    (and the 64-key online softmax), O, dK, dV and dBias stay within the
+    unchanged bf16 gate (2e-2) of the JAX package's attention_reference
+    and its jax.vjp on the same bf16 inputs, a -1e4 pad bias on a fifth
+    of the keys."""
+    rng = np.random.RandomState(s + d)
+    bh = B * H
+    q, k, v, do = (rng.randn(bh, s, d).astype(np.float32)
+                   for _ in range(4))
+    bias = np.zeros((bh, s), np.float32)
+    bias[:, s - s // 5:] = -1e4
+    scale = 1.0 / math.sqrt(d)
+
+    def ref(q, k, v, b):
+        return jflash.attention_reference(q, k, v, b, causal, scale)
+
+    jargs = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    out, vjp = jax.vjp(ref, *jargs, jnp.asarray(bias))
+    want = [np.asarray(jnp.asarray(t, jnp.float32))
+            for t in (out,) + vjp(jnp.asarray(do).astype(jnp.bfloat16))]
+
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    rows = torch.from_numpy(bias)
+    o, lse = _k1_tensor_core(tq, tk, tv, rows, causal, scale)
+    delta = (tdo.float() * o.float()).sum(-1)
+    dk, dv, dbias = _k3_tensor_core(tq, tk, tv, rows, tdo, lse, delta,
+                                    causal, scale)
+    got = {"O": o, "dK": dk, "dV": dv, "dBias": dbias}
+    for name, w in zip(("O", "dK", "dV", "dBias"),
+                       (want[0], want[2], want[3], want[4])):
+        np.testing.assert_allclose(got[name].float().numpy(), w,
+                                   atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"], err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_fully_masked_rows_match_jax(causal):
+    """Every key of a row carries the -1e30 bias: the JAX kernel (and
+    its reference) give the row uniform weights, O = the mean of V; the
+    plain forward once returned exp(s - lse)·V = S x that mean, because
+    lse rounds to -1e30.  The grads follow the JAX kernel's backward,
+    whose P = exp(s - lse) is 1 for every key of such a row.  S = 128, a
+    whole Pallas block: the Pallas kernel pads S to its block, and
+    padded keys would join a fully masked row's average."""
+    q, k, v, bias, do = _case(128)
+    bias[...] = -1e30
+    got = _port(q, k, v, bias, do, causal, "float32")
+    for oracle in ("reference", "pallas"):
+        want = _jax(q, k, v, bias, do, causal, jnp.float32, oracle)
+        np.testing.assert_allclose(got[0], want[0], atol=TOL["float32"],
+                                   rtol=TOL["float32"], err_msg=oracle)
+    for name, g, w in zip(("dQ", "dK", "dV", "dBias"), got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+    if not causal:
+        np.testing.assert_allclose(got[0], np.broadcast_to(
+            v.mean(axis=2, keepdims=True), v.shape), atol=1e-5, rtol=1e-5)
