@@ -8,13 +8,17 @@ Phases, each fatal on failure:
   2. build: every kernel under paddle_tpu_torch/csrc, one nvcc each, all
      started together, for sm_90a; each flash kernel's registers, shared
      memory and spills (ptxas) and tensor-core instructions (SASS): the
-     bf16 K1 and K3 spill nothing and hold HMMA.
+     bf16 K1, K2 and K3 (namespace flash_tc) are all built, spill
+     nothing and hold HMMA, and no SIMT flash kernel takes bf16.
   3. kernels: each kernel's wrapper (K1-K8) on tensors on the card at
      the shapes its path gives it, held against its plain PyTorch
      version; timed against the plain version, its bound and, where one
      PyTorch call computes the same function, that call (library_ms).
      K1-K3 also at a dp replica's shard (timed) and at the bf16 edges:
-     a ragged tile, causal, D 32 and 12, S 1, fully masked rows.
+     a ragged tile, causal (S 200 and 256), D 32 and 12, S 1, fully
+     masked rows.  K5 at the decode step and three prefill chunks, each
+     with its split plan and partials workspace, timed in turns against
+     its one-split form.
   4. train path: BERT-base pretraining (vocab 30528, flash attention,
      hidden dropout 0.1) at b128 s128 under the bf16 dtype policy with
      Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0):
@@ -83,8 +87,9 @@ import torch
 SEED = 1234
 
 # K5 kernel vs plain: the kernel sums keys page by page with an online
-# softmax merged across four warps; the plain version takes one softmax
-# over the whole row and one matmul.  Same fp32 terms, other order.
+# softmax merged across eight warps and then across splits; the plain
+# version takes one softmax over the whole row and one matmul.  Same fp32
+# terms, other order.
 K5_TOL = dict(atol=2e-5, rtol=1e-4)
 # K4 kernel vs plain: the same elementwise formula; erfcf/tanhf in the
 # kernel and PyTorch's CUDA erfc/tanh may differ by an ulp.
@@ -190,12 +195,17 @@ def _demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
+# the bf16 flash kernels of namespace flash_tc: K1, K2, K3
+FLASH_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+
+
 def flash_build_report():
     """Each flash entry function's registers, static shared memory and
     spill bytes (the build's -Xptxas -v), and the tensor-core (HMMA,
     HGMMA) instructions in its SASS (cuobjdump, where the toolkit has
-    it).  The bf16 K1 and K3 (namespace flash_tc) must spill nothing and,
-    where SASS can be read, hold tensor-core instructions."""
+    it).  The bf16 K1, K2 and K3 (namespace flash_tc) must all be there,
+    spill nothing and, where SASS can be read, hold tensor-core
+    instructions; no SIMT flash kernel may take bf16."""
     import re
     import shutil
 
@@ -243,9 +253,15 @@ def flash_build_report():
     bad = [k for k, r in report.items() if r["tensor_cores"] and (
         r.get("spill_bytes") != 0
         or r.get("tensor_core_instructions", 1) == 0)]
-    if bad or not any(r["tensor_cores"] for r in report.values()):
+    missing = [k for k in FLASH_TC_KERNELS
+               if not any(k in lb and r["tensor_cores"]
+                          for lb, r in report.items())]
+    simt_bf16 = [k for k, r in report.items()
+                 if not r["tensor_cores"] and "__nv_bfloat16" in k]
+    if bad or missing or simt_bf16:
         raise AssertionError(f"flash build: tensor-core kernels spilling or "
-                             f"without HMMA: {bad or report}")
+                             f"without HMMA {bad}, missing {missing}, bf16 "
+                             f"SIMT kernels {simt_bf16}: {report}")
     return report
 
 
@@ -300,9 +316,33 @@ def _paged_bound(b, n, t, d, page_size, q_start):
     return _bound(byts, pairs * n * 4 * d) + (byts,)
 
 
-def check_paged(dev, rng):
+def _k5_one_split(q, k, v, table, q_start, scale):
+    """K5's kernel in its one-split form (one CTA a query tile, head and
+    row, as before the split), through the same C entry: the yardstick of
+    the split form at each case."""
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels.primitives import paged
 
+    lib = _build.load("paged_attention", paged._SIGNATURES)
+    b, n, t, d = q.shape
+    out = torch.empty_like(q)
+    max_pages = table.shape[1]
+    err = lib.pt_paged_attention_f32(
+        *map(_build.ptr, (q, k, v, table, q_start, out)), None, None, b, n,
+        t, d, k.shape[1], max_pages, k.shape[0], max_pages, 1, scale,
+        _build.stream_of(q.device))
+    _build.check("paged_attention (one split)", err)
+    return out
+
+
+def check_paged(dev, rng):
+    """K5 at the decode lane's shapes (page 16, 64 logical pages: eight
+    splits of eight pages), with each case's split plan and partials
+    workspace, and timed in turns against its one-split form."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels.primitives import paged
+
+    warps = _build.load("paged_attention", paged._SIGNATURES).pt_paged_warps()
     n, d, page_size, max_pages, num_pages = 12, 64, 16, 64, 513
     cases = [("decode", 8, 1, [0, 15, 16, 17, 500, 777, 1000, 1023])]
     cases += [(f"prefill@{qs}", 1, 32, [qs]) for qs in (0, 32, 992)]
@@ -313,24 +353,41 @@ def check_paged(dev, rng):
         args = _paged_inputs(dev, b, n, t, d, page_size, max_pages,
                              num_pages, q_start, rng)
         got = paged.paged_attention(*args, sm_scale=d ** -0.5)
+        one = _k5_one_split(*args, d ** -0.5)
         want = paged.paged_attention_reference(*args, sm_scale=d ** -0.5)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, **K5_TOL) \
-                or not torch.isfinite(got).all():
-            raise AssertionError(f"paged_attention {name}: max abs err {err} "
-                                 f"outside {K5_TOL}")
+        for form, out in (("", got), (" (one split)", one)):
+            if not torch.allclose(out, want, **K5_TOL) \
+                    or not torch.isfinite(out).all():
+                raise AssertionError(
+                    f"paged_attention{form} {name}: max abs err "
+                    f"{(out - want).abs().max().item()} outside {K5_TOL}")
         worst = max(worst, err)
         flush = flush_buf.zero_
-        ms = _time_ms(lambda: paged.paged_attention(*args, sm_scale=d ** -0.5),
-                      50, flush)
+        # in turns: one split, split, split, one split
+        split_ms = [_time_ms(lambda: _k5_one_split(*args, d ** -0.5), 50,
+                             flush)]
+        split_ms += [_time_ms(lambda: paged.paged_attention(
+            *args, sm_scale=d ** -0.5), 50, flush) for _ in range(2)]
+        split_ms.append(_time_ms(lambda: _k5_one_split(*args, d ** -0.5),
+                                 50, flush))
+        ms = (split_ms[1] + split_ms[2]) / 2
         plain_ms = _time_ms(lambda: paged.paged_attention_reference(
             *args, sm_scale=d ** -0.5), 20, flush)
         bound_ms, bound_by, byts = _paged_bound(b, n, t, d, page_size,
                                                 q_start)
+        plan = paged.split_plan(b, n, t, d, max_pages, page_size, warps)
         timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bytes=byts,
-                             max_abs_err=err)
+                             max_abs_err=err, q_start=q_start,
+                             one_split_ms=(split_ms[0] + split_ms[3]) / 2,
+                             in_turns_ms=split_ms,
+                             pages_per_split=plan.pages_per_split,
+                             splits=plan.splits,
+                             workspace=plan.workspace,
+                             workspace_bytes=4 * int(np.prod(
+                                 plan.workspace or (0,))))
     del flush_buf
     return worst, timings
 
@@ -606,14 +663,16 @@ def _sdpa_ms(q, k, v, do, rows, scale):
 
 # (name, b, h, s, d, dtype, causal, fully masked rows, timed): the BERT
 # path's shape and a dp replica's shard (both timed), then the edges of
-# the bf16 tensor-core K1/K3 (a ragged last tile, causal, D < 64, rows
-# that are not 16-byte multiples, one token, rows whose keys are all
-# masked) and the fp32 SIMT cases
+# the bf16 tensor-core K1-K3 (a ragged last tile, causal, four key tiles
+# a causal row, D < 64, rows that are not 16-byte multiples, one token,
+# rows whose keys are all masked) and the fp32 SIMT cases
 FLASH_CASES = (
     ("path", 128, 12, 128, 64, torch.bfloat16, False, False, True),
     ("dp_shard", 32, 12, 128, 64, torch.bfloat16, False, False, True),
     ("bf16_ragged", 4, 12, 200, 64, torch.bfloat16, False, False, False),
     ("bf16_ragged_causal", 4, 12, 200, 64, torch.bfloat16, True, False,
+     False),
+    ("bf16_s256_causal", 4, 12, 256, 64, torch.bfloat16, True, False,
      False),
     ("bf16_d32", 4, 12, 96, 32, torch.bfloat16, False, False, False),
     ("bf16_d12_causal", 4, 12, 77, 12, torch.bfloat16, True, False, False),
@@ -627,8 +686,8 @@ FLASH_CASES = (
 
 
 def check_flash(dev, rng):
-    """K1, K2, K3 against their plain versions at FLASH_CASES; bf16 K1
-    and K3 run on the tensor cores, fp32 ones and K2 on the SIMT units.
+    """K1, K2, K3 against their plain versions at FLASH_CASES; bf16 ones
+    run on the tensor cores, fp32 ones on the SIMT units.
     Timed at the BERT path's shape (BH = 1536, S = 128, D = 64, bf16)
     and at a dp replica's shard (BH = 384)."""
     from paddle_tpu_torch.kernels.primitives import flash
@@ -903,9 +962,10 @@ def run_train_path(counters):
 
 def _profile(step, n, match=None):
     """Host wall time vs summed device time of ``n`` calls of ``step``
-    (torch.profiler), with the top device and host ops; with ``match``,
-    also the summed device time and count a call of the device events
-    whose name contains it."""
+    (torch.profiler), with the top device and host ops and the kernel
+    launch API calls (cudaLaunchKernel and its kin) a call; with
+    ``match``, also the summed device time and count a call of the
+    device events whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -936,6 +996,8 @@ def _profile(step, n, match=None):
     out = dict(wall_profiled_ms=1e3 * wall,
                device_busy_ms=dev_us / n / 1e3 if dev_us else None,
                device_events=sum(c for _, _, c in dev) // n,
+               launch_api_calls={key: c // n for _, key, c in host
+                                 if "LaunchKernel" in key},
                top_device_us=top(dev), top_host_self_us=top(host))
     if match is not None:
         hits = [(t, c) for t, key, c in dev if match in key]
@@ -1424,14 +1486,15 @@ def run_path(dev, counters, pool_dtype="float32"):
 
 def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32"):
     """Host wall time vs summed device kernel time of decode steps
-    (torch.profiler): slot 0 active at positions 65-69, the other seven
-    slots on the trash page."""
+    (torch.profiler), kernel launch calls and the paged attention
+    kernels' device time a step: slot 0 active at positions 65-69, the
+    other seven slots on the trash page."""
     lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32,
                 pool_dtype)
     lane.prefill(list(range(1, 65)))
     lane.decode(5, 64)
     pos = iter(range(65, 65 + 2 * steps))
-    out = _profile(lambda: lane.decode(5, next(pos)), steps)
+    out = _profile(lambda: lane.decode(5, next(pos)), steps, match="paged")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1439,6 +1502,63 @@ def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32"):
     torch.cuda.synchronize()
     out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0) / steps
     return out
+
+
+def profile_lane_paged(cfg, scope, prompts, pool_dtype="float32",
+                       one_split=False):
+    """The paged kernels' summed device time over one whole run of the
+    decode lane's workload (``run_path``'s requests on a fresh engine,
+    warmed up first; torch.profiler), and the ids it generated.  With
+    ``one_split`` K5's wrapper plans a single split: the kernel's form
+    before the split, through the same C entry."""
+    from paddle_tpu_torch.kernels.primitives import paged
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    form = "one" if one_split else "split"
+    eng = DecodeEngine(cfg, scope=_copy_scope(scope), place=_gpu_place(),
+                       pool_slots=8, page_size=16, max_len=1024,
+                       pool_dtype=pool_dtype, auto_start=False,
+                       max_queue=len(prompts),
+                       name=f"lane-{pool_dtype}-{form}")
+    eng.warmup()
+    plan = paged.split_plan
+    if one_split:
+        paged.split_plan = lambda b, n, t, d, max_pages, *a: \
+            paged.SplitPlan(max_pages, 1, None, 0)
+    outs = []
+
+    def run():  # every request queued before the scheduler starts
+        futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        eng.start()
+        outs.extend(f.result(timeout=900) for f in futs)
+
+    try:
+        prof = _profile(run, 1, match="paged")
+    finally:
+        paged.split_plan = plan
+        eng.close()
+    return dict(one_split=one_split,
+                paged_device_ms=prof["paged_device_ms"],
+                paged_events=prof["paged_events"],
+                device_busy_ms=prof["device_busy_ms"],
+                wall_profiled_ms=prof["wall_profiled_ms"]), outs
+
+
+def lane_k5_in_turns(cfg, scope, prompts, outs):
+    """K5 over the whole decode lane, one split and split in turns (one,
+    split, split, one): summed device ms of the paged kernels a run, and
+    whether each run's ids equal the main path's."""
+    runs = []
+    for one in (True, False, False, True):
+        r, got = profile_lane_paged(cfg, scope, prompts, one_split=one)
+        r["ids_equal_main_path"] = got == outs
+        runs.append(r)
+
+    def mean(rs):
+        return sum(r["paged_device_ms"] for r in rs) / len(rs)
+
+    return dict(split_ms=mean(runs[1:3]), one_split_ms=mean(runs[::3]),
+                runs=runs)
 
 
 def _copy_scope(scope):
@@ -1717,6 +1837,11 @@ def main():
     k6_err, k6_t = check_ragged(dev, rng)
     k7_err, k7_t = check_paged_quant(dev, rng)
     k8_err, k8_t = check_fused_update(dev, rng)
+    for name, t in k5_t.items():
+        print(f"K5 {name}: split plan {t['splits']} x {t['pages_per_split']} "
+              f"pages, partials {t['workspace']} = {t['workspace_bytes']} "
+              f"bytes; {t['ms']:.4f} ms (one split {t['one_split_ms']:.4f})",
+              flush=True)
     print("kernel timings " + json.dumps({
         "paged_attention": k5_t, "fused_bias_act": {**k4_t, **k4b_t},
         "flash": fl_t, "ragged_attention": k6_t,
@@ -1741,6 +1866,8 @@ def main():
     print("decode step " + json.dumps(prof), flush=True)
     parity = run_parity(cfg, scope, prompts, outs)
     print("decode parity " + json.dumps(parity), flush=True)
+    print("decode lane K5 " + json.dumps(
+        lane_k5_in_turns(cfg, scope, prompts, outs)), flush=True)
     del scope
     torch.cuda.empty_cache()
 
@@ -1757,6 +1884,9 @@ def main():
     print("int8 decode parity " + json.dumps(
         run_parity(cfg, scope, prompts, outs, pool_dtype="int8")),
         flush=True)
+    lane8, got8 = profile_lane_paged(cfg, scope, prompts, pool_dtype="int8")
+    print("int8 decode lane K7 " + json.dumps(
+        {**lane8, "ids_equal_main_path": got8 == outs}), flush=True)
     del scope
     torch.cuda.empty_cache()
 

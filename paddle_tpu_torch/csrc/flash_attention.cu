@@ -17,11 +17,13 @@
 // -1e30 (the JAX constant); a row whose l is 0 gives O = 0 and
 // lse = m + log(1).
 //
-// Two designs.  K1 and K3 on bfloat16, the training path's dtype, run
-// on the tensor cores: flash_tc.cuh, whose note gives their bound and
-// design.  Everything else here is the SIMT design below: K1 and K3 on
-// float32 (the parity checks, which hold them to 2e-5, tighter than a
-// TF32 tensor core could), and K2 in both dtypes.
+// Two designs.  K1-K3 on bfloat16, the training path's dtype, run on
+// the tensor cores: flash_tc.cuh, whose note gives their bound and
+// design (K2 since it was taken off the SIMT units: 0.495 ms at the
+// train step's [1536, 128, 64], 12.9x its byte bound and 2.5x SDPA's
+// whole backward, on the card).  float32 K1-K3 are the SIMT design
+// below: the parity checks hold them to 2e-5, tighter than a TF32
+// tensor core could.
 //
 // What bounds the SIMT design: at the training shape (S = 128, D = 64)
 // K2 does some 77 flops a byte, below the bf16 tensor cores' ridge
@@ -40,7 +42,6 @@
 // the kernel (rows or keys past S load as zeros and get P = 0), so S
 // needs no padding; D up to 64 is zero-padded in shared memory.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flash_tc.cuh"
@@ -57,29 +58,16 @@ constexpr int kLd = 68;       // padded row stride of a staged tile (floats)
 constexpr int kThreads = 256; // 16 x 16 threads, a 4x4 piece each
 constexpr int kTileFloats = kTile * kLd;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 // Stage rows [row0, row0 + 64) x [0, 64) of a [S, D] matrix (row stride
-// ss) as fp32: row-major dst[r * kLd + d], or transposed dst[d * kLd + r].
-// Rows past S and columns past D are zeros.
-template <typename T, bool kTrans>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
-                                      int row0, int S, int D) {
+// ss): row-major dst[r * kLd + d], or transposed dst[d * kLd + r].  Rows
+// past S and columns past D are zeros.
+template <bool kTrans>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long ss, int row0, int S, int D) {
   for (int idx = threadIdx.x; idx < kTile * kDim; idx += kThreads) {
     const int r = idx / kDim, d = idx % kDim;
     const int row = row0 + r;
-    const float v = (row < S && d < D) ? to_f(src[row * ss + d]) : 0.f;
+    const float v = (row < S && d < D) ? src[row * ss + d] : 0.f;
     if (kTrans)
       dst[d * kLd + r] = v;
     else
@@ -122,13 +110,14 @@ __device__ __forceinline__ float row_sum(float v) {
 // K1: grid (query tiles, B*H).  Thread (ty, tx) holds scores of queries
 // q0 + 4ty.. x keys k0 + 4tx.., and O of queries q0 + 4ty.. x dims 4tx..
 // ---------------------------------------------------------------------------
-template <typename T, bool kCausal>
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ o, float* __restrict__ lse, int H, int S,
-                     int D, Strides sq, Strides sk, Strides sv, Strides so,
-                     float scale) {
+    flash_fwd_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, float* __restrict__ o,
+                     float* __restrict__ lse, int H, int S, int D, Strides sq,
+                     Strides sk, Strides sv, Strides so, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;               // Qt[d][i]
   float* Kt = Qt + kTileFloats;   // Kt[d][j]
@@ -136,12 +125,12 @@ __global__ void __launch_bounds__(kThreads)
   float* Pt = Vs + kTileFloats;   // Pt[j][i] = P[i][j]
   const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* qh = head(q, sq, bh, H);
-  const T* kh = head(k, sk, bh, H);
-  const T* vh = head(v, sv, bh, H);
+  const float* qh = head(q, sq, bh, H);
+  const float* kh = head(k, sk, bh, H);
+  const float* vh = head(v, sv, bh, H);
   const float* brow = bias + (long long)bh * S;
 
-  stage<T, true>(Qt, qh, sq.s, q0, S, D);
+  stage<true>(Qt, qh, sq.s, q0, S, D);
   float acc[4][4] = {}, m[4], l[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) m[r] = kNegInf, l[r] = 0.f;
@@ -149,8 +138,8 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = kCausal ? min(S, q0 + kTile) : S;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();  // the previous tile's Kt / Vs / Pt reads are done
-    stage<T, true>(Kt, kh, sk.s, k0, S, D);
-    stage<T, false>(Vs, vh, sv.s, k0, S, D);
+    stage<true>(Kt, kh, sk.s, k0, S, D);
+    stage<false>(Vs, vh, sv.s, k0, S, D);
     __syncthreads();
     float s[4][4] = {};
     mma_4x4(s, Qt, 4 * ty, Kt, 4 * tx, kDim);
@@ -195,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
     mma_4x4(acc, Pt, 4 * ty, Vs, 4 * tx, kTile);
   }
 
-  T* oh = head(o, so, bh, H);
+  float* oh = head(o, so, bh, H);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + 4 * ty + r;
@@ -204,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = 4 * tx + c;
-      if (d < D) oh[i * so.s + d] = from_f<T>(acc[r][c] / l_safe);
+      if (d < D) oh[i * so.s + d] = acc[r][c] / l_safe;
     }
     if (tx == 0) lse[(long long)bh * S + i] = m[r] + logf(l_safe);
   }
@@ -214,16 +203,18 @@ __global__ void __launch_bounds__(kThreads)
 // K2: grid (query tiles, B*H).  Same thread layout as K1; dQ of queries
 // q0 + 4ty.. x dims 4tx..
 // ---------------------------------------------------------------------------
-template <typename T, bool kCausal>
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
                         const float* __restrict__ bias,
-                        const T* __restrict__ dout,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int H, int S, int D, Strides sq, Strides sk,
-                        Strides sv, Strides sdo, Strides sdq, float scale) {
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int S, int D,
+                        Strides sq, Strides sk, Strides sv, Strides sdo,
+                        Strides sdq, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                // Qt[d][i]
   float* dOt = Qt + kTileFloats;   // dOt[d][i]
@@ -233,12 +224,12 @@ __global__ void __launch_bounds__(kThreads)
   float* dSt = Ks + kTileFloats;   // dSt[j][i] = dS[i][j]
   const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* kh = head(k, sk, bh, H);
-  const T* vh = head(v, sv, bh, H);
+  const float* kh = head(k, sk, bh, H);
+  const float* vh = head(v, sv, bh, H);
   const float* brow = bias + (long long)bh * S;
 
-  stage<T, true>(Qt, head(q, sq, bh, H), sq.s, q0, S, D);
-  stage<T, true>(dOt, head(dout, sdo, bh, H), sdo.s, q0, S, D);
+  stage<true>(Qt, head(q, sq, bh, H), sq.s, q0, S, D);
+  stage<true>(dOt, head(dout, sdo, bh, H), sdo.s, q0, S, D);
   float lse_r[4], delta_r[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -251,9 +242,9 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = kCausal ? min(S, q0 + kTile) : S;
   for (int k0 = 0; k0 < kv_end; k0 += kTile) {
     __syncthreads();
-    stage<T, true>(Kt, kh, sk.s, k0, S, D);
-    stage<T, true>(Vt, vh, sv.s, k0, S, D);
-    stage<T, false>(Ks, kh, sk.s, k0, S, D);
+    stage<true>(Kt, kh, sk.s, k0, S, D);
+    stage<true>(Vt, vh, sv.s, k0, S, D);
+    stage<false>(Ks, kh, sk.s, k0, S, D);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     mma_4x4(s, Qt, 4 * ty, Kt, 4 * tx, kDim);
@@ -279,7 +270,7 @@ __global__ void __launch_bounds__(kThreads)
     mma_4x4(acc, dSt, 4 * ty, Ks, 4 * tx, kTile);
   }
 
-  T* dqh = head(dq, sdq, bh, H);
+  float* dqh = head(dq, sdq, bh, H);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + 4 * ty + r;
@@ -287,7 +278,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = 4 * tx + c;
-      if (d < D) dqh[i * sdq.s + d] = from_f<T>(acc[r][c]);
+      if (d < D) dqh[i * sdq.s + d] = acc[r][c];
     }
   }
 }
@@ -297,17 +288,19 @@ __global__ void __launch_bounds__(kThreads)
 // scores of keys k0 + 4ty.. x queries q0 + 4tx.., and dK, dV of keys
 // k0 + 4ty.. x dims 4tx..
 // ---------------------------------------------------------------------------
-template <typename T, bool kCausal>
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
                          const float* __restrict__ bias,
-                         const T* __restrict__ dout,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, float* __restrict__ dbias, int H,
-                         int S, int D, Strides sq, Strides sk, Strides sv,
-                         Strides sdo, Strides sdk, Strides sdv, float scale) {
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         float* __restrict__ dbias, int H, int S, int D,
+                         Strides sq, Strides sk, Strides sv, Strides sdo,
+                         Strides sdk, Strides sdv, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;                // Kt[d][j]
   float* Vt = Kt + kTileFloats;    // Vt[d][j]
@@ -321,12 +314,12 @@ __global__ void __launch_bounds__(kThreads)
   float* delta_s = lse_s + kTile;
   const int bh = blockIdx.y, k0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* qh = head(q, sq, bh, H);
-  const T* doh = head(dout, sdo, bh, H);
+  const float* qh = head(q, sq, bh, H);
+  const float* doh = head(dout, sdo, bh, H);
   const float* brow = bias + (long long)bh * S;
 
-  stage<T, true>(Kt, head(k, sk, bh, H), sk.s, k0, S, D);
-  stage<T, true>(Vt, head(v, sv, bh, H), sv.s, k0, S, D);
+  stage<true>(Kt, head(k, sk, bh, H), sk.s, k0, S, D);
+  stage<true>(Vt, head(v, sv, bh, H), sv.s, k0, S, D);
   float bj[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -337,10 +330,10 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int q0 = kCausal ? k0 : 0; q0 < S; q0 += kTile) {
     __syncthreads();
-    stage<T, true>(Qt, qh, sq.s, q0, S, D);
-    stage<T, true>(dOt, doh, sdo.s, q0, S, D);
-    stage<T, false>(Qs, qh, sq.s, q0, S, D);
-    stage<T, false>(dOs, doh, sdo.s, q0, S, D);
+    stage<true>(Qt, qh, sq.s, q0, S, D);
+    stage<true>(dOt, doh, sdo.s, q0, S, D);
+    stage<false>(Qs, qh, sq.s, q0, S, D);
+    stage<false>(dOs, doh, sdo.s, q0, S, D);
     if (threadIdx.x < kTile) {
       const int i = q0 + threadIdx.x;
       lse_s[threadIdx.x] = i < S ? lse[(long long)bh * S + i] : 0.f;
@@ -377,8 +370,8 @@ __global__ void __launch_bounds__(kThreads)
     mma_4x4(dk_acc, dSs, 4 * ty, Qs, 4 * tx, kTile);
   }
 
-  T* dkh = head(dk, sdk, bh, H);
-  T* dvh = head(dv, sdv, bh, H);
+  float* dkh = head(dk, sdk, bh, H);
+  float* dvh = head(dv, sdv, bh, H);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int j = k0 + 4 * ty + r;
@@ -388,8 +381,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 4; ++c) {
       const int d = 4 * tx + c;
       if (d < D) {
-        dkh[j * sdk.s + d] = from_f<T>(dk_acc[r][c]);
-        dvh[j * sdv.s + d] = from_f<T>(dv_acc[r][c]);
+        dkh[j * sdk.s + d] = dk_acc[r][c];
+        dvh[j * sdv.s + d] = dv_acc[r][c];
       }
     }
     if (tx == 0) dbias[(long long)bh * S + j] = dbj;
@@ -411,55 +404,56 @@ bool bad_shape(int B, int H, int S, int D) {
   return B < 1 || H < 1 || S < 1 || D < 1 || D > kDim;
 }
 
-template <typename T, bool kCausal>
+template <bool kCausal>
 cudaError_t fwd(const void* q, const void* k, const void* v,
                 const float* bias, void* o, float* lse, int B, int H, int S,
                 int D, const long long* st, float scale, cudaStream_t s) {
-  auto kernel = flash_fwd_kernel<T, kCausal>;
+  auto kernel = flash_fwd_kernel<kCausal>;
   cudaError_t e = allow_smem(kernel, kFwdSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kThreads, kFwdSmem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(o), lse, H, S, D,
-      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<float*>(o), lse, H, S,
+      D, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool kCausal>
+template <bool kCausal>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const float* bias, const void* dout, const float* lse,
                    const float* delta, void* dq, int B, int H, int S, int D,
                    const long long* st, float scale, cudaStream_t s) {
-  auto kernel = flash_bwd_dq_kernel<T, kCausal>;
+  auto kernel = flash_bwd_dq_kernel<kCausal>;
   cudaError_t e = allow_smem(kernel, kDqSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kThreads, kDqSmem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, S, D, Strides{st[0], st[1], st[2]},
-      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-      Strides{st[9], st[10], st[11]}, Strides{st[12], st[13], st[14]}, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
+      lse, delta, static_cast<float*>(dq), H, S, D,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool kCausal>
+template <bool kCausal>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const float* bias, const void* dout, const float* lse,
                     const float* delta, void* dk, void* dv, float* dbias,
                     int B, int H, int S, int D, const long long* st,
                     float scale, cudaStream_t s) {
-  auto kernel = flash_bwd_dkv_kernel<T, kCausal>;
+  auto kernel = flash_bwd_dkv_kernel<kCausal>;
   cudaError_t e = allow_smem(kernel, kDkvSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
   kernel<<<grid, kThreads, kDkvSmem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), dbias, H, S, D,
-      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
+      lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), dbias, H,
+      S, D, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
       Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]},
       scale);
@@ -469,10 +463,10 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 
 // C entry points.  Each returns the cudaError_t of its launch (0 on
-// success).  dtype: 0 = float32, 1 = bfloat16 (K1 and K3 then run on the
-// tensor cores, flash_tc.cuh).  Every pointer is a device pointer;
-// strides are element strides (b, h, s) of each [B, H, S, D] operand in
-// argument order; stream is a cudaStream_t.
+// success).  dtype: 0 = float32 (the SIMT kernels above), 1 = bfloat16
+// (the tensor-core kernels of flash_tc.cuh).  Every pointer is a device
+// pointer; strides are element strides (b, h, s) of each [B, H, S, D]
+// operand in argument order; stream is a cudaStream_t.
 
 extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k,
                             const void* v, const float* bias, void* o,
@@ -487,10 +481,10 @@ extern "C" int pt_flash_fwd(int dtype, const void* q, const void* k,
   const long long st[12] = {qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)(causal ? fwd<float, true>(q, k, v, bias, o, lse, B, H, S, D,
-                                           st, scale, s)
-                        : fwd<float, false>(q, k, v, bias, o, lse, B, H, S,
-                                            D, st, scale, s));
+    return (int)(causal ? fwd<true>(q, k, v, bias, o, lse, B, H, S, D, st,
+                                    scale, s)
+                        : fwd<false>(q, k, v, bias, o, lse, B, H, S, D, st,
+                                     scale, s));
   return (int)(causal ? flash_tc::fwd<true>(q, k, v, bias, o, lse, B, H, S,
                                             D, st, scale, s)
                       : flash_tc::fwd<false>(q, k, v, bias, o, lse, B, H, S,
@@ -514,17 +508,16 @@ extern "C" int pt_flash_bwd_dq(int dtype, const void* q, const void* k,
                             vs, db, dh, ds, gb, gh, gs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)(causal ? bwd_dq<float, true>(q, k, v, bias, dout, lse, delta,
-                                              dq, B, H, S, D, st, scale, s)
-                        : bwd_dq<float, false>(q, k, v, bias, dout, lse,
+    return (int)(causal ? bwd_dq<true>(q, k, v, bias, dout, lse, delta, dq,
+                                       B, H, S, D, st, scale, s)
+                        : bwd_dq<false>(q, k, v, bias, dout, lse, delta, dq,
+                                        B, H, S, D, st, scale, s));
+  return (int)(causal ? flash_tc::bwd_dq<true>(q, k, v, bias, dout, lse,
                                                delta, dq, B, H, S, D, st,
-                                               scale, s));
-  return (int)(causal ? bwd_dq<__nv_bfloat16, true>(q, k, v, bias, dout, lse,
-                                                    delta, dq, B, H, S, D, st,
-                                                    scale, s)
-                      : bwd_dq<__nv_bfloat16, false>(q, k, v, bias, dout, lse,
-                                                     delta, dq, B, H, S, D,
-                                                     st, scale, s));
+                                               scale, s)
+                      : flash_tc::bwd_dq<false>(q, k, v, bias, dout, lse,
+                                                delta, dq, B, H, S, D, st,
+                                                scale, s));
 }
 
 extern "C" int pt_flash_bwd_dkv(
@@ -541,12 +534,12 @@ extern "C" int pt_flash_bwd_dkv(
                             db, dh, ds, kgb, kgh, kgs, vgb, vgh, vgs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)(causal ? bwd_dkv<float, true>(q, k, v, bias, dout, lse,
-                                               delta, dk, dv, dbias, B, H, S,
-                                               D, st, scale, s)
-                        : bwd_dkv<float, false>(q, k, v, bias, dout, lse,
-                                                delta, dk, dv, dbias, B, H,
-                                                S, D, st, scale, s));
+    return (int)(causal ? bwd_dkv<true>(q, k, v, bias, dout, lse, delta,
+                                        dk, dv, dbias, B, H, S, D, st, scale,
+                                        s)
+                        : bwd_dkv<false>(q, k, v, bias, dout, lse, delta,
+                                         dk, dv, dbias, B, H, S, D, st,
+                                         scale, s));
   return (int)(causal ? flash_tc::bwd_dkv<true>(q, k, v, bias, dout, lse,
                                                 delta, dk, dv, dbias, B, H,
                                                 S, D, st, scale, s)

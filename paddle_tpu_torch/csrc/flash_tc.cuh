@@ -1,31 +1,37 @@
-// K1 and K3 on bfloat16 inputs, on Hopper's tensor cores (sm_90a).
+// K1, K2 and K3 on bfloat16 inputs, on Hopper's tensor cores (sm_90a).
 //
 // Replaces, for bf16 q/k/v, the Pallas kernels of
 // paddle_tpu/kernels/primitives/flash.py:
 //   K1 `_fwd_kernel` (:78, launched by `_pallas_fwd` :221): O and lse of
 //      softmax(q·kᵀ·scale + bias [+ causal mask])·v, online softmax;
+//   K2 `_bwd_dq_kernel` (:130, launched by `_pallas_bwd` :253):
+//      dQ = Σ_kv dS·K with P = exp(q·kᵀ·scale + bias - lse) and
+//      dS = P·(dO·Vᵀ - delta)·scale;
 //   K3 `_bwd_dkv_kernel` (:167, launched at :314): dV = Σ_q Pᵀ·dO,
 //      dK = Σ_q dSᵀ·Q, dBias[k] = Σ_q dL with dL = P·(dP - delta).
-// fp32 inputs, and K2 in both dtypes, keep the SIMT kernels of
-// flash_attention.cu, which includes this header; its entry points send
-// dtype code 1 (bf16) of K1 and K3 here.
+// fp32 inputs keep the SIMT kernels of flash_attention.cu, which
+// includes this header; its entry points send dtype code 1 (bf16) here.
 //
 // What bounds them on this card: at the BERT train step's shape
 // (BH = 1536, S = 128, D = 64) K1 reads q, k, v and the bias rows and
 // writes O and lse, 102.2 MB, 0.0305 ms at 3.35 TB/s, for 6.4 GFLOP
-// (0.0065 ms at 989 TFLOP/s); K3 moves 154.2 MB, 0.0460 ms, for 12.9
-// GFLOP.  About 64 flops a byte against the bf16 ridge of about 295:
-// both are bound by bytes.  mma.sync gives several times the rate the
-// byte bound needs, so no wgmma warpgroups.
+// (0.0065 ms at 989 TFLOP/s); K2 reads q, k, v, dO, the bias, lse and
+// delta and writes dQ, 128.2 MB, 0.0383 ms, for 9.7 GFLOP; K3 moves
+// 154.2 MB, 0.0460 ms, for 12.9 GFLOP.  About 64-77 flops a byte
+// against the bf16 ridge of about 295: all three are bound by bytes.
+// mma.sync gives several times the rate the byte bound needs, so no
+// wgmma warpgroups.
 //
 // Design (FlashAttention-2's, for this card):
-// - K1: one CTA of 4 warps per (bh, 64 query rows); each warp owns 16
-//   rows, which keeps a thread under 128 registers, so four CTAs fit an
-//   SM.  At S = 128 the two CTAs of a head start side by side, so the
-//   second read of its K and V comes from L2.  K3: one CTA of 4 warps
-//   per (bh, 64
-//   keys), each warp owning 16 keys, looping over 64-query tiles (from
-//   the diagonal tile when causal), so dK, dV and dBias need no atomics.
+// - K1 and K2: one CTA of 4 warps per (bh, 64 query rows); each warp
+//   owns 16 rows, which keeps a thread under 128 (K1) or 168 (K2)
+//   registers, so four or three CTAs fit an SM.  At S = 128 the two
+//   CTAs of a head start side by side, so the second read of its K and
+//   V comes from L2.  K3: one CTA of 4 warps per (bh, 64 keys), each
+//   warp owning 16 keys, looping over 64-query tiles (from the diagonal
+//   tile when causal), so dK, dV and dBias need no atomics.  K2 loops
+//   over 64-key tiles (up to the diagonal tile when causal), so dQ needs
+//   none either.
 // - Staging: operands stay bf16, unconverted, in shared tiles of 64 rows
 //   padded to 72 elements (144 bytes: the eight 16-byte rows an
 //   ldmatrix phase reads fall in eight different bank groups), filled by
@@ -36,12 +42,18 @@
 //   (four groups: Q with K(0), V(0), K(1), V(1)) are all in flight from
 //   the start, and V(t) lands while S(t) is computed.  K3 stages its K
 //   and V rows once through its second buffers into registers (A
-//   fragments), then double-buffers the Q and dO tiles.
+//   fragments), then double-buffers the Q and dO tiles; K2, turned
+//   round, does the same with its Q and dO rows and double-buffers the
+//   K and V tiles, reading K once for both of its products (S = Q·Kᵀ
+//   and dS·K).
 // - Products: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, with
 //   operands from ldmatrix (.trans where B is stored row-major: V in K1,
-//   dO and Q in K3).  S = Q·Kᵀ (K1), Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (K3)
-//   multiply bf16 operands and accumulate in fp32, as the JAX kernel
-//   does after its exact upcast.
+//   K in K2, dO and Q in K3).  S = Q·Kᵀ (K1, K2), dP = dO·Vᵀ (K2),
+//   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (K3) multiply bf16 operands and
+//   accumulate in fp32, as the JAX kernel does after its exact upcast.
+//   K2 takes a 64-key tile as two halves of 32 keys, which halves the
+//   S and dP accumulators a thread holds beside its Q, dO and dQ
+//   fragments.
 // - Softmax in registers: the scale, the bias, the causal and j >= S
 //   masks (-1e30, applied only in tiles that reach past S or the
 //   diagonal) and the online max and sum stay in the mma accumulator
@@ -50,29 +62,37 @@
 //   is 0 gives O = 0, lse = m + log 1.  Causal rows whose keys are all
 //   masked average the keys up to the end of their diagonal tile, as the
 //   JAX kernel averages over its blocks.
-// - P (K1), Pᵀ and dSᵀ (K3) go from the accumulators straight into the
-//   A fragments of the second products and never touch shared memory.
-//   Rounding: P·V and Pᵀ·dO take P rounded to bf16 where the JAX kernel
-//   keeps it fp32 (flash.py:114-115, 197): at most 2^-9 relative error a
-//   term, FlashAttention-2's standard choice; P lies in [0, 1], so the
-//   error stays under the outputs' own bf16 rounding.  dS is not bounded
-//   so: where every key of a row is masked, P is 1 for every key (the
-//   JAX kernel's lse rounds to -1e30) and dS is of order 1, and its
-//   bf16 rounding alone would move dK by about 2^-9·sqrt(S) (0.013 at
-//   S = 128, outside the 2e-2 gate near 0).  So dSᵀ·Q (flash.py:201) is
-//   two products, dS rounded to bf16 and the remainder rounded to bf16,
-//   which hold dS to about 2^-17: 8 more mma a 16-query chunk, on a
-//   kernel bound by bytes.  The row sum l, dL and dBias stay fp32.
-// - Outputs: O (K1), dK and dV (K3) go from the accumulators into shared
-//   memory (a warp's own rows), then out as whole rows, 16 bytes a lane,
-//   8 lanes a 128-byte row.  Stored straight from the accumulators, each
-//   4-byte-a-lane store would touch eight rows 1,536 bytes apart (the
-//   [B, S, H, D] layout), half a 32-byte sector each.
-// - Shared memory (static, under 48 KB): K1 46,592 bytes, K3 37,888.
+// - P (K1), dS (K2), Pᵀ and dSᵀ (K3) go from the accumulators straight
+//   into the A fragments of the second products and never touch shared
+//   memory.  Rounding: P·V and Pᵀ·dO take P rounded to bf16 where the
+//   JAX kernel keeps it fp32 (flash.py:114-115, 197): at most 2^-9
+//   relative error a term, FlashAttention-2's standard choice; P lies in
+//   [0, 1], so the error stays under the outputs' own bf16 rounding.  dS
+//   is not bounded so: where every key of a row is masked, P is 1 for
+//   every key (the JAX kernel's lse rounds to -1e30) and dS is of order
+//   1, and its bf16 rounding alone would move dK and dQ by about
+//   2^-9·sqrt(S) (0.013 at S = 128, outside the 2e-2 gate near 0).  So
+//   dS·K (flash.py:160) and dSᵀ·Q (flash.py:201) are each two products,
+//   dS rounded to bf16 and the remainder rounded to bf16, which hold dS
+//   to about 2^-17: 16 more mma a 32-key half tile in K2, 8 more a
+//   16-query chunk in K3, on kernels bound by bytes.  The row sum l, dL
+//   and dBias stay fp32.
+// - Outputs: O (K1), dQ (K2), dK and dV (K3) go from the accumulators
+//   into shared memory (a warp's own rows), then out as whole rows, 16
+//   bytes a lane, 8 lanes a 128-byte row.  Stored straight from the
+//   accumulators, each 4-byte-a-lane store would touch eight rows 1,536
+//   bytes apart (the [B, S, H, D] layout), half a 32-byte sector each.
+// - Shared memory (static, under 48 KB): K1 46,592 bytes, K2 37,376, K3
+//   37,888.
 // - ptxas (-Xptxas -v, sm_90a; chip_smoke.py phase 2 prints it with the
 //   HMMA count of each kernel's SASS): K1 127 registers (launch bound:
 //   4 CTAs an SM, at most 128), K3 168 (3 CTAs, at most 168), 0 bytes
-//   spilled; 64 HMMA in K1's tile loop, 40 in K3's 16-query chunk.
+//   spilled; 64 HMMA in K1's tile loop, 40 in K3's 16-query chunk.  K2
+//   runs under the same bound as K3 (3 CTAs, at most 168): 168
+//   registers, 0 bytes spilled, 128 HMMA in its tile loop (16 for S, 16
+//   for dP and 32 for dQ in each half).  On the card K2 takes 0.0665 ms
+//   at the train step's shape, 58% of its byte bound (the SIMT form took
+//   0.495; SDPA's whole backward 0.195).
 
 #pragma once
 
@@ -96,16 +116,17 @@ __device__ __forceinline__ T* head(T* p, Strides st, int bh, int H) {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 64;       // query rows (K1) or keys (K3) of a CTA
-constexpr int kStep = 64;       // keys (K1) or queries (K3) of a stage
+constexpr int kRows = 64;       // query rows (K1, K2) or keys (K3) of a CTA
+constexpr int kStep = 64;       // keys (K1, K2) or queries (K3) of a stage
 constexpr int kLdh = 72;        // padded row stride of a staged tile
 constexpr int kTileElems = 64 * kLdh;
 constexpr int kThreadsTc = 128; // 4 warps, 16 rows each
 constexpr float kLog2e = 1.4426950408889634f;
 // static shared memory (bytes), under 48 KB: a K1 CTA (Q, two K and two
-// V tiles, two bias rows) and a K3 CTA (two Q and two dO tiles, two lse
-// and two delta rows)
+// V tiles, two bias rows), a K2 CTA (two K and two V tiles, two bias
+// rows) and a K3 CTA (two Q and two dO tiles, two lse and two delta rows)
 constexpr int kFwdSmem = 5 * kTileElems * 2 + 2 * kStep * 4;  // 46,592
+constexpr int kDqSmem = 4 * kTileElems * 2 + 2 * kStep * 4;   // 37,376
 constexpr int kDkvSmem = 4 * kTileElems * 2 + 4 * kStep * 4;  // 37,888
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -445,6 +466,157 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
 }
 
 // ---------------------------------------------------------------------------
+// K2.  grid (query tiles of 64 rows, B*H), 128 threads.  Warp w owns
+// rows 16w..16w + 15 of the tile, as in K1; thread (lane 4g + t) holds
+// rows g and g + 8: their scores and dS of keys 8n + 2t, + 1 of each
+// 8-key n-block of a 32-key half tile, and their dQ of dims 8n + 2t, + 1.
+// ---------------------------------------------------------------------------
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreadsTc, 3)
+    flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ bias,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int H, int S, int D, Strides sq, Strides sk, Strides sv,
+                    Strides sdo, Strides sdq, float scale, int vec) {
+  __shared__ __align__(16) unsigned char smem[kDqSmem];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // two key tiles
+  bf16* Vs = Ks + 2 * kTileElems;            // two value tiles
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * kTileElems);  // two bias rows
+  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const bf16* kh = head(k, sk, bh, H);
+  const bf16* vh = head(v, sv, bh, H);
+  const float* brow = bias + (long long)bh * S;
+  const bool vk = vec & 2, vv = vec & 4;
+
+  const int kv_end = kCausal ? min(S, q0 + kRows) : S;
+  const int n_tiles = (kv_end + kStep - 1) / kStep;
+  // Q and dO of this CTA's rows go through the second buffers once
+  stage_tile(Ks + kTileElems, head(q, sq, bh, H), sq.s, q0, S, D, vec & 1);
+  stage_tile(Vs + kTileElems, head(dout, sdo, bh, H), sdo.s, q0, S, D,
+             vec & 8);
+  stage_tile(Ks, kh, sk.s, 0, S, D, vk);
+  stage_tile(Vs, vh, sv.s, 0, S, D, vv);
+  stage_row(Bs, brow, 0, S);
+  cp_async_commit();
+  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
+  float lse_r[2], delta_r[2];           // read once
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + r * 8;
+    lse_r[r] = i < S ? lse[(long long)bh * S + i] : 0.f;
+    delta_r[r] = i < S ? delta[(long long)bh * S + i] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[4][4], dof[4][4];  // this warp's 16 rows, 4 d-chunks
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    ldsm_x4(qf[kc], a_addr(Ks + kTileElems, warp * 16, kc * 16, lane));
+    ldsm_x4(dof[kc], a_addr(Vs + kTileElems, warp * 16, kc * 16, lane));
+  }
+  __syncthreads();  // the second buffers are free for tile 1
+
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile t is in; every warp is done with t - 1
+    }
+    const int k0 = t * kStep;
+    if (t + 1 < n_tiles) {
+      const int nb = (t + 1) & 1, k1 = k0 + kStep;
+      stage_tile(Ks + nb * kTileElems, kh, sk.s, k1, S, D, vk);
+      stage_tile(Vs + nb * kTileElems, vh, sv.s, k1, S, D, vv);
+      stage_row(Bs + nb * kStep, brow, k1, S);
+      cp_async_commit();
+    }
+    const bf16* Kt = Ks + (t & 1) * kTileElems;
+    const bf16* Vt = Vs + (t & 1) * kTileElems;
+    const float* bt = Bs + (t & 1) * kStep;
+    // the tile holds keys past S or crosses the diagonal
+    const bool edge = k0 + kStep > S || (kCausal && k0 + kStep - 1 > q0);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // 32 keys at a time
+      const int j0 = hh * 32;
+      // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows x 32 keys, 4 n-blocks
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned b[4];
+          ldsm_x4(b, b_addr(Kt, j0 + np * 16, kc * 16, lane));
+          mma16816(s[2 * np], qf[kc], b[0], b[1]);
+          mma16816(s[2 * np + 1], qf[kc], b[2], b[3]);
+          ldsm_x4(b, b_addr(Vt, j0 + np * 16, kc * 16, lane));
+          mma16816(dp[2 * np], dof[kc], b[0], b[1]);
+          mma16816(dp[2 * np + 1], dof[kc], b[2], b[3]);
+        }
+      // P = exp(S·scale + bias_j - lse_i), dS = P∘(dP - delta_i)·scale
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int jl = j0 + n * 8 + 2 * tig + (e & 1), r = e >> 1;
+          float p = ex2((fmaf(s[n][e], scale, bt[jl]) - lse_r[r]) * kLog2e);
+          const int j = k0 + jl;
+          if (edge && (j >= S || (kCausal && j > row0 + r * 8))) p = 0.f;
+          s[n][e] = p * (dp[n][e] - delta_r[r]) * scale;
+        }
+      // dQ += dS·K (dS as hi + lo), 16 keys a k-chunk; K [key][d] read
+      // transposed
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        unsigned sa[4], sl[4];
+        split_bf16(s[2 * kc][0], s[2 * kc][1], sa[0], sl[0]);
+        split_bf16(s[2 * kc][2], s[2 * kc][3], sa[1], sl[1]);
+        split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], sa[2], sl[2]);
+        split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], sa[3], sl[3]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < 4; ++dp2) {
+          unsigned b[4];
+          ldsm_x4_t(b, a_addr(Kt, j0 + kc * 16, dp2 * 16, lane));
+          mma16816(acc[2 * dp2], sa, b[0], b[1]);
+          mma16816(acc[2 * dp2 + 1], sa, b[2], b[3]);
+          mma16816(acc[2 * dp2], sl, b[0], b[1]);
+          mma16816(acc[2 * dp2 + 1], sl, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // dQ through shared memory (the key tiles are free once every warp is
+  // done): each warp writes its 16 rows, then stores them as whole rows
+  __syncthreads();
+  bf16* Ow = Ks + warp * 16 * kLdh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<unsigned*>(Ow + (g + r * 8) * kLdh + n * 8 +
+                                   2 * tig) =
+          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+  __syncwarp();
+  store_rows(head(dq, sdq, bh, H), sdq.s, Ow, q0 + warp * 16, S, D, lane,
+             vec & 16);
+}
+
+// ---------------------------------------------------------------------------
 // K3.  grid (key tiles, B*H), 128 threads.  Thread (warp w, lane 4g + t)
 // holds keys k0 + 16w + g and + 8: their transposed scores of queries
 // 8n + 2t, + 1 of each 8-query n-block, and their dK, dV of dims
@@ -631,6 +803,25 @@ cudaError_t fwd(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, H, S, D,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, scale,
+      vec);
+  return cudaGetLastError();
+}
+
+template <bool kCausal>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const float* bias, const void* dout, const float* lse,
+                   const float* delta, void* dq, int B, int H, int S, int D,
+                   const long long* st, float scale, cudaStream_t s) {
+  const int vec = vec16(q, st, D) | vec16(k, st + 3, D) << 1 |
+                  vec16(v, st + 6, D) << 2 | vec16(dout, st + 9, D) << 3 |
+                  vec16(dq, st + 12, D) << 4;
+  const dim3 grid((S + kRows - 1) / kRows, B * H);
+  flash_bwd_dq_tc<kCausal><<<grid, kThreadsTc, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), bias, static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq), H, S, D, Strides{st[0], st[1], st[2]},
+      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+      Strides{st[9], st[10], st[11]}, Strides{st[12], st[13], st[14]}, scale,
       vec);
   return cudaGetLastError();
 }

@@ -14,6 +14,11 @@
 //   page_table [B, max_pages] i32: physical page of each logical page
 //   q_start    [B] i32: tokens already in the pool before this q block
 //   out        [B, n, T, d]  f32
+//   K5 part    [B, n, T, splits, d + 2] f32 scratch of the split form
+//              (below), allocated by the wrapper; null for one split
+//   K5 arrivals [>= B * n * T] i32 arrival counters of the split form,
+//              zero between calls (the kernel resets what it counts);
+//              null for one split
 // Query i of row b attends global key positions j <= q_start[b] + i.
 // Masked scores are -1e9 (the JAX kernel's constant); the softmax is
 // online, in fp32; a row whose softmax sum l is 0 returns 0.  Page 0 is
@@ -25,7 +30,9 @@
 // bytes of the live pages, far below the ridge point; no tensor cores
 // are needed.  At T = 32 (a prefill chunk) each staged page is reused by
 // the block's queries.  K7 reads 2 bytes + 4/d of scale per element
-// instead of 4, so its bound is about half of K5's.
+// instead of 4, so its bound is about half of K5's.  At the decode
+// lane's step (8 rows, 12 heads, d 64, page 16, rows up to 1,024 keys)
+// K5's bound is 20.6 MB, 0.0062 ms at 3.35 TB/s.
 //
 // Design.  The TPU grid walks (b, h, every logical page) in order and
 // carries the softmax state in VMEM scratch, skipping dead pages with
@@ -50,6 +57,45 @@
 //     summing half the columns, when a page holds <= 16 keys) and one
 //     lane per output column for the weighted sum of V;
 //   - the eight warps' partial states merge in shared memory at the end.
+//
+// Split form (K5 only; flash-decoding).  With one CTA a (row, head), the
+// decode step's grid is 96 CTAs on 132 SMs, and the two longest rows'
+// 24 CTAs each chain eight pages a warp (load, stage, score, merge)
+// while the short rows' CTAs finish at once: 0.058 ms against the
+// 0.0062 ms bound on the card.  So the wrapper splits each row's
+// logical pages into chunks of `pages_per_split` (one page a warp at a
+// page of 16 keys) and the grid takes one CTA per (query tile, head,
+// split, row), blockIdx.z = split * B + b: the split is the grid's
+// slowest index, so every row's first split is dispatched before any
+// later one, and the CTAs of splits past a row's end pass through the
+// slots the live CTAs leave free.  The plan comes from
+// shapes alone (max_pages, page size, kWarps, which the library
+// exports), never from q_start or the page table: no host sync, and the
+// same launch every step.  Each CTA counts its tile's live splits from
+// q_start itself:
+//   - a CTA past its row's last live page returns at once, writing
+//     nothing;
+//   - where only the first split is live (every short row: a prefill
+//     chunk from q_start 0, a decode row under 129 keys) that CTA is
+//     the one-split form and writes `out` directly;
+//   - otherwise each live CTA writes its warps' merged (m, l, acc[d]) of
+//     each query to `part`, fences, and takes a ticket from its tile's
+//     arrival counter; the last to arrive resets the counter to 0 and
+//     merges the tile's partials by log-sum-exp (a partial whose keys
+//     are all masked for a query has m = -1e9 and weighs 0 beside the
+//     first split's real scores).
+// The merge is in the last-arriving CTA, not a second kernel: a second
+// launch and the empty CTAs' writes cost about 5 us a call where only
+// the first split is live, which is every prefill chunk from q_start 0
+// and every decode row under 129 keys.  The counters are the wrapper's,
+// one set a (device, stream), so two streams never share one.  One
+// split (max_pages <= pages_per_split) is the form above; K7 always
+// takes that form.  On an H100 (700 W; chip_smoke.py, against the
+// one-split form in turns): the timed decode case 0.058 -> 0.026 ms, a
+// prefill chunk at q_start 992 0.084 -> 0.050 ms, one at q_start 0
+// 0.0133 -> 0.0153 ms (the empty CTAs still cost 2 us there); summed
+// over a whole run of the decode lane (16 requests of 8-512 prompt
+// tokens + 32 new), 59.0 -> 42.7 ms.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -213,19 +259,26 @@ __device__ __forceinline__ void store_chunk_q(float* sK, float* sV, int dp,
 }
 
 // QT: queries per block; R: output columns per lane (d <= 32 * R);
-// kQuant: the int8 pool (K7) rather than the fp32 pool (K5).
-template <int QT, int R, bool kQuant>
-__global__ void __launch_bounds__(32 * kWarps)
-paged_attention_kernel(const float* __restrict__ q, const Pool pool,
-                       const int* __restrict__ page_table,
-                       const int* __restrict__ q_start,
-                       float* __restrict__ out,
-                       int n, int T, int d, int page_size, int max_pages,
-                       int num_pages, float scale, bool vec) {
+// kQuant: the int8 pool (K7) rather than the fp32 pool (K5); kSplit: the
+// split form, with partials in `part` and tickets from `arrivals` (the
+// file's note).  The body of the two kernels below.
+template <int QT, int R, bool kQuant, bool kSplit>
+__device__ __forceinline__ void
+paged_attention_block(const float* __restrict__ q, const Pool pool,
+                      const int* __restrict__ page_table,
+                      const int* __restrict__ q_start,
+                      float* __restrict__ out, float* __restrict__ part,
+                      int* __restrict__ arrivals, int n, int T, int d,
+                      int page_size, int max_pages, int num_pages,
+                      int pages_per_split, int splits, float scale,
+                      bool vec) {
   extern __shared__ float smem[];
+  __shared__ bool s_last;
+  const int B = kSplit ? gridDim.z / splits : gridDim.z;
+  const int split = kSplit ? blockIdx.z / B : 0;
+  const int b = kSplit ? blockIdx.z - split * B : blockIdx.z;
   const int t0 = blockIdx.x * QT;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int dp = d + 1;  // padded row of a staged page
@@ -237,18 +290,29 @@ paged_attention_kernel(const float* __restrict__ q, const Pool pool,
   // sMerge: per (warp, query) m, l, then acc[d]
 
   const long long q_base = ((long long)b * n + h) * T;
+  const int start = q_start[b];
+  const int t_last = min(t0 + QT, T) - 1;
+  const int last_key = start + t_last;
+  const int n_live = last_key < 0 ? 0
+                                  : min(max_pages, last_key / page_size + 1);
+  // this block's logical pages: every live one, or its split's share
+  const int live_splits =
+      kSplit ? max(1, (n_live + pages_per_split - 1) / pages_per_split) : 1;
+  if (split >= live_splits) return;  // past the row's last live page
+  const int p_begin = kSplit ? split * pages_per_split : 0;
+  const int p_end =
+      kSplit ? min(n_live, p_begin + pages_per_split) : n_live;
+  // the partial (m, l, acc[d]) of query t in split s
+  auto slot_of = [&](int t, int s) {
+    return part + ((q_base + t) * splits + s) * (d + 2);
+  };
+
   for (int e = threadIdx.x; e < QT * d; e += blockDim.x) {
     const int qi = e / d, c = e - qi * d;
     const int t = t0 + qi;
     sQ[e] = t < T ? q[(q_base + t) * d + c] : 0.f;
   }
   __syncthreads();
-
-  const int start = q_start[b];
-  const int t_last = min(t0 + QT, T) - 1;
-  const int last_key = start + t_last;
-  const int n_live = last_key < 0 ? 0
-                                  : min(max_pages, last_key / page_size + 1);
 
   float m[QT], l[QT], acc[QT][R];
 #pragma unroll
@@ -273,8 +337,9 @@ paged_attention_kernel(const float* __restrict__ q, const Pool pool,
   const int* table = page_table + (long long)b * max_pages;
   float4 kr[kChunk], vr[kChunk];
   QRegs qr;
-  if (one_chunk && warp < n_live) {
-    const long long row0 = page_row0(table, warp, page_size, num_pages);
+  if (one_chunk && p_begin + warp < p_end) {
+    const long long row0 =
+        page_row0(table, p_begin + warp, page_size, num_pages);
     if constexpr (kQuant)
       load_chunk_q(pool, row0, n, h, vrow, nvec, 0, lane, qr);
     else
@@ -289,9 +354,9 @@ paged_attention_kernel(const float* __restrict__ q, const Pool pool,
   const int c_hi = (kpl == 16 && !half) ? d / 2 : d;
   const int jl = lane & (kpl - 1);
 
-  for (int lp = warp; lp < n_live; lp += kWarps) {
+  for (int lp = p_begin + warp; lp < p_end; lp += kWarps) {
     if (one_chunk) {
-      const bool more = lp + kWarps < n_live;
+      const bool more = lp + kWarps < p_end;
       const long long next =
           more ? page_row0(table, lp + kWarps, page_size, num_pages) : 0;
       if constexpr (kQuant) {
@@ -408,73 +473,159 @@ paged_attention_kernel(const float* __restrict__ q, const Pool pool,
         a_tot = fmaf(wgt, slot[2 + c], a_tot);
       }
     }
+    if (live_splits > 1) {
+      float* slot = slot_of(t, split);
+      if (c == 0) {
+        slot[0] = m_tot;
+        slot[1] = l_tot;
+      }
+      slot[2 + c] = a_tot;
+    } else {
+      out[(q_base + t) * d + c] = l_tot == 0.f ? 0.f : a_tot / l_tot;
+    }
+  }
+  if (!kSplit || live_splits == 1) return;
+
+  // The split form: the last of the tile's live CTAs to arrive merges.
+  __threadfence();  // this CTA's partials before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* ctr = arrivals + ((long long)b * n + h) * gridDim.x + blockIdx.x;
+    s_last = atomicAdd(ctr, 1) == live_splits - 1;
+    if (s_last) atomicExch(ctr, 0);  // every live CTA has arrived
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int e = threadIdx.x; e < QT * d; e += blockDim.x) {
+    const int qi = e / d, c = e - qi * d;
+    const int t = t0 + qi;
+    if (t >= T) continue;
+    float m_tot = -CUDART_INF_F;
+    for (int s = 0; s < live_splits; ++s)
+      m_tot = fmaxf(m_tot, __ldcg(slot_of(t, s)));
+    float l_tot = 0.f, a_tot = 0.f;
+    for (int s = 0; s < live_splits; ++s) {  // L2 reads: other CTAs wrote
+      const float* slot = slot_of(t, s);
+      const float ms = __ldcg(slot);
+      if (ms == -CUDART_INF_F) continue;
+      const float wgt = expf(ms - m_tot);
+      l_tot = fmaf(wgt, __ldcg(slot + 1), l_tot);
+      a_tot = fmaf(wgt, __ldcg(slot + 2 + c), a_tot);
+    }
     out[(q_base + t) * d + c] = l_tot == 0.f ? 0.f : a_tot / l_tot;
   }
 }
 
+#define PAGED_KERNEL_PARAMS                                                 \
+  const float* __restrict__ q, const Pool pool,                            \
+      const int* __restrict__ page_table, const int* __restrict__ q_start, \
+      float* __restrict__ out, float* __restrict__ part,                   \
+      int* __restrict__ arrivals, int n, int T, int d, int page_size,      \
+      int max_pages, int num_pages, int pages_per_split, int splits,       \
+      float scale, bool vec
+#define PAGED_KERNEL_ARGS                                                \
+  q, pool, page_table, q_start, out, part, arrivals, n, T, d, page_size, \
+      max_pages, num_pages, pages_per_split, splits, scale, vec
+
+// One split: K7, and K5 where max_pages <= pages_per_split.
 template <int QT, int R, bool kQuant>
+__global__ void __launch_bounds__(32 * kWarps)
+paged_attention_kernel(PAGED_KERNEL_PARAMS) {
+  paged_attention_block<QT, R, kQuant, false>(PAGED_KERNEL_ARGS);
+}
+
+// K5's split form, held to two CTAs an SM (128 registers a thread): with
+// the merge's tail it compiles to 151-160 registers otherwise, one CTA an
+// SM, and a prefill chunk at q_start 992 reads 0.072 ms instead of
+// 0.050 on the card (chip_smoke.py phase 3).
+template <int QT, int R>
+__global__ void __launch_bounds__(32 * kWarps, 2)
+paged_attention_split_kernel(PAGED_KERNEL_PARAMS) {
+  paged_attention_block<QT, R, false, true>(PAGED_KERNEL_ARGS);
+}
+
+template <int QT, int R, bool kQuant, bool kSplit>
 cudaError_t launch(const float* q, const Pool& pool, const int* pt,
-                   const int* qs, float* out, int B, int n, int T, int d,
-                   int page_size, int max_pages, int num_pages, float scale,
-                   bool vec, cudaStream_t stream) {
+                   const int* qs, float* out, float* part, int* arrivals,
+                   int B, int n, int T, int d, int page_size, int max_pages,
+                   int num_pages, int pages_per_split, int splits,
+                   float scale, bool vec, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)QT * d + (size_t)kWarps * 2 * page_size *
                        (d + 1) + (size_t)kWarps * QT * (d + 2));
   // above 48 KB a kernel must opt in to dynamic shared memory; raise the
   // limit once per instantiation, to the largest size seen
   static size_t opted_in = 48 * 1024;
+  void (*kernel)(PAGED_KERNEL_PARAMS);
+  if constexpr (kSplit)
+    kernel = paged_attention_split_kernel<QT, R>;
+  else
+    kernel = paged_attention_kernel<QT, R, kQuant>;
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<QT, R, kQuant>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     opted_in = smem;
   }
-  dim3 grid((T + QT - 1) / QT, n, B);
-  paged_attention_kernel<QT, R, kQuant><<<grid, 32 * kWarps, smem, stream>>>(
-      q, pool, pt, qs, out, n, T, d, page_size, max_pages, num_pages, scale,
-      vec);
+  dim3 grid((T + QT - 1) / QT, n, B * splits);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(q, pool, pt, qs, out, part,
+                                              arrivals, n, T, d, page_size,
+                                              max_pages, num_pages,
+                                              pages_per_split, splits, scale,
+                                              vec);
   return cudaGetLastError();
 }
 
-template <int QT, bool kQuant>
+template <int QT, bool kQuant, bool kSplit>
 cudaError_t dispatch_r(const float* q, const Pool& pool, const int* pt,
-                       const int* qs, float* out, int B, int n, int T, int d,
-                       int page_size, int max_pages, int num_pages,
-                       float scale, bool vec, cudaStream_t stream) {
+                       const int* qs, float* out, float* part, int* arrivals,
+                       int B, int n, int T, int d, int page_size,
+                       int max_pages, int num_pages, int pages_per_split,
+                       int splits, float scale, bool vec,
+                       cudaStream_t stream) {
   switch ((d + 31) / 32) {
-    case 1: return launch<QT, 1, kQuant>(q, pool, pt, qs, out, B, n, T, d,
-                                         page_size, max_pages, num_pages,
-                                         scale, vec, stream);
-    case 2: return launch<QT, 2, kQuant>(q, pool, pt, qs, out, B, n, T, d,
-                                         page_size, max_pages, num_pages,
-                                         scale, vec, stream);
-    case 3: return launch<QT, 3, kQuant>(q, pool, pt, qs, out, B, n, T, d,
-                                         page_size, max_pages, num_pages,
-                                         scale, vec, stream);
-    case 4: return launch<QT, 4, kQuant>(q, pool, pt, qs, out, B, n, T, d,
-                                         page_size, max_pages, num_pages,
-                                         scale, vec, stream);
+    case 1: return launch<QT, 1, kQuant, kSplit>(
+        q, pool, pt, qs, out, part, arrivals, B, n, T, d, page_size,
+        max_pages,
+        num_pages, pages_per_split, splits, scale, vec, stream);
+    case 2: return launch<QT, 2, kQuant, kSplit>(
+        q, pool, pt, qs, out, part, arrivals, B, n, T, d, page_size,
+        max_pages,
+        num_pages, pages_per_split, splits, scale, vec, stream);
+    case 3: return launch<QT, 3, kQuant, kSplit>(
+        q, pool, pt, qs, out, part, arrivals, B, n, T, d, page_size,
+        max_pages,
+        num_pages, pages_per_split, splits, scale, vec, stream);
+    case 4: return launch<QT, 4, kQuant, kSplit>(
+        q, pool, pt, qs, out, part, arrivals, B, n, T, d, page_size,
+        max_pages,
+        num_pages, pages_per_split, splits, scale, vec, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kQuant>
+// One split (`part` and `arrivals` null, pages_per_split >= max_pages)
+// or the split form; K7 always takes one split.
+template <bool kQuant, bool kSplit>
 int dispatch(const float* q, const Pool& pool, const int* page_table,
-             const int* q_start, float* out, int B, int n, int T, int d,
-             int page_size, int max_pages, int num_pages, float scale,
+             const int* q_start, float* out, float* part, int* arrivals,
+             int B, int n, int T, int d, int page_size, int max_pages,
+             int num_pages, int pages_per_split, int splits, float scale,
              bool vec, void* stream) {
   if (d < 1 || d > 128 || page_size < 1 || num_pages < 1 || max_pages < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T == 1)
-    return (int)dispatch_r<1, kQuant>(q, pool, page_table, q_start, out, B,
-                                      n, T, d, page_size, max_pages,
-                                      num_pages, scale, vec, s);
-  return (int)dispatch_r<4, kQuant>(q, pool, page_table, q_start, out, B, n,
-                                    T, d, page_size, max_pages, num_pages,
-                                    scale, vec, s);
+    return (int)dispatch_r<1, kQuant, kSplit>(
+        q, pool, page_table, q_start, out, part, arrivals, B, n, T, d,
+        page_size, max_pages, num_pages, pages_per_split, splits, scale, vec,
+        s);
+  return (int)dispatch_r<4, kQuant, kSplit>(
+      q, pool, page_table, q_start, out, part, arrivals, B, n, T, d,
+      page_size, max_pages, num_pages, pages_per_split, splits, scale, vec,
+      s);
 }
 
 bool aligned16(const void* p) {
@@ -486,20 +637,39 @@ bool aligned16(const void* p) {
 // Both return the cudaError_t of the launch (0 on success).  d must be in
 // [1, 128]; every pointer is a device pointer; stream is a cudaStream_t.
 
-// K5: the fp32 pool.
+// The warps of a K5/K7 CTA: the wrapper's split plan gives each warp
+// about one page of a split.
+extern "C" int pt_paged_warps() { return kWarps; }
+
+// K5: the fp32 pool.  `splits` chunks of `pages_per_split` logical pages
+// must cover the page table; with more than one, `part` is the
+// [B, n, T, splits, d + 2] fp32 scratch of the split form and `arrivals`
+// its B * n * T zeroed i32 counters.
 extern "C" int pt_paged_attention_f32(const float* q, const float* k_pages,
                                       const float* v_pages,
                                       const int* page_table,
-                                      const int* q_start, float* out, int B,
+                                      const int* q_start, float* out,
+                                      float* part, int* arrivals, int B,
                                       int n, int T, int d, int page_size,
                                       int max_pages, int num_pages,
+                                      int pages_per_split, int splits,
                                       float scale, void* stream) {
+  if (splits < 1 || pages_per_split < 1 ||
+      (long long)splits * pages_per_split < max_pages ||
+      (splits > 1 && (part == nullptr || arrivals == nullptr)))
+    return (int)cudaErrorInvalidValue;
   Pool pool = {};
   pool.k = k_pages;
   pool.v = v_pages;
   const bool vec = d % 4 == 0 && aligned16(k_pages) && aligned16(v_pages);
-  return dispatch<false>(q, pool, page_table, q_start, out, B, n, T, d,
-                         page_size, max_pages, num_pages, scale, vec, stream);
+  if (splits > 1)
+    return dispatch<false, true>(q, pool, page_table, q_start, out, part,
+                                 arrivals, B, n, T, d, page_size, max_pages,
+                                 num_pages, pages_per_split, splits, scale,
+                                 vec, stream);
+  return dispatch<false, false>(q, pool, page_table, q_start, out, nullptr,
+                                nullptr, B, n, T, d, page_size, max_pages,
+                                num_pages, max_pages, 1, scale, vec, stream);
 }
 
 // K7: the dual-int8 pool (hi, lo int8 and a per-vector fp32 scale).
@@ -518,6 +688,7 @@ extern "C" int pt_paged_attention_quant_f32(
   pool.vsc = v_scale;
   const bool vec = d % 16 == 0 && aligned16(k_hi) && aligned16(k_lo) &&
                    aligned16(v_hi) && aligned16(v_lo);
-  return dispatch<true>(q, pool, page_table, q_start, out, B, n, T, d,
-                        page_size, max_pages, num_pages, scale, vec, stream);
+  return dispatch<true, false>(q, pool, page_table, q_start, out, nullptr,
+                               nullptr, B, n, T, d, page_size, max_pages,
+                               num_pages, max_pages, 1, scale, vec, stream);
 }

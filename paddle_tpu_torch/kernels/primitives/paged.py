@@ -31,13 +31,20 @@ kernel for CUDA tensors and run their plain version
 tensors during shape inference).  ``force="reference"`` selects the
 plain version explicitly, as the JAX op's ``force`` attr does; nothing
 on the decode path sets it.  Each wrapper's ``.launches`` counts its
-kernel launches.
+kernel launches (one a call, whatever the kernel launches inside).
+
+K5 splits each row's logical pages across CTAs (flash-decoding):
+:func:`split_plan` computes the split from shapes alone, and the wrapper
+allocates the kernel's partials with ``torch.empty`` and keeps its
+arrival counters, one zeroed set a (device, stream) that the kernel
+resets after each use.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -48,14 +55,62 @@ NEG_INF = -1e9  # the JAX kernel's mask constant
 
 __all__ = ["paged_attention", "paged_attention_reference",
            "paged_attention_quant", "paged_attention_quant_reference",
-           "NEG_INF"]
+           "split_plan", "SplitPlan", "NEG_INF"]
 
 _SIGNATURES = {
-    "pt_paged_attention_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    "pt_paged_warps": [],
+    "pt_paged_attention_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p],
     "pt_paged_attention_quant_f32": [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
 }
+
+
+# a split gives each of the CTA's warps about 16 keys (one page of 16 or
+# more, several smaller pages)
+_KEYS_PER_WARP = 16
+
+
+class SplitPlan(NamedTuple):
+    """K5's split of each row's logical pages: ``splits`` chunks of
+    ``pages_per_split`` (the last may be shorter), one CTA per (query
+    tile, chunk, head, row).  ``workspace`` is the shape of the fp32
+    partials (m, l, acc[d]) of every (row, head, query, chunk) and
+    ``arrivals`` the number of i32 arrival counters, or None and 0 for
+    one chunk (the kernel then writes the output directly)."""
+
+    pages_per_split: int
+    splits: int
+    workspace: tuple | None
+    arrivals: int
+
+
+def split_plan(b, n, t, d, max_pages, page_size, warps):
+    """K5's split from shapes and the kernel's ``warps`` a CTA alone —
+    never from ``q_start`` or ``page_table`` values, so planning reads
+    nothing from the device and every decode step makes the same
+    launch."""
+    pages_per_split = warps * max(1, _KEYS_PER_WARP // page_size)
+    splits = -(-max_pages // pages_per_split)
+    if splits == 1:
+        return SplitPlan(pages_per_split, 1, None, 0)
+    return SplitPlan(pages_per_split, splits, (b, n, t, splits, d + 2),
+                     b * n * t)
+
+
+_arrivals = {}  # (device, stream) -> zeroed i32 counters of the split form
+
+
+def _arrival_counters(device, stream, count):
+    """At least ``count`` zeroed arrival counters for launches on
+    ``stream``: the kernel leaves each at 0 after the call that counts
+    on it, so launches in one stream reuse them."""
+    key = (device, stream.value)
+    have = _arrivals.get(key)
+    if have is None or have.numel() < count:
+        have = _arrivals[key] = torch.zeros(count, dtype=torch.int32,
+                                            device=device)
+    return have
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, q_start,
@@ -157,11 +212,19 @@ def paged_attention(q, k_pages, v_pages, page_table, q_start, *,
     lib = _build.load("paged_attention", _SIGNATURES)
     out = torch.empty_like(q)
     page_size, max_pages = k_pages.shape[1], page_table.shape[1]
+    plan = split_plan(b, n, t, d, max_pages, page_size, lib.pt_paged_warps())
+    stream = _build.stream_of(q.device)
+    part = arrivals = None
+    if plan.splits > 1:
+        part = torch.empty(plan.workspace, dtype=torch.float32,
+                           device=q.device)
+        arrivals = _arrival_counters(q.device, stream, plan.arrivals)
     err = lib.pt_paged_attention_f32(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(page_table), _build.ptr(q_start), _build.ptr(out),
-        b, n, t, d, page_size, max_pages, k_pages.shape[0], scale,
-        _build.stream_of(q.device))
+        *(None if x is None else _build.ptr(x) for x in (part, arrivals)),
+        b, n, t, d, page_size, max_pages, k_pages.shape[0],
+        plan.pages_per_split, plan.splits, scale, stream)
     paged_attention.launches += 1
     _build.check("paged_attention", err)
     return out

@@ -7,7 +7,8 @@ file imports no jax, so it runs on a GPU machine without it:
 (``PADDLE_TPU_TEST_REAL=1`` keeps tests/cpu_mesh.py from importing jax.)
 
 Tolerances: K5 and K7 atol 2e-5 / rtol 1e-4 (online softmax over pages
-merged across warps vs one softmax: same fp32 terms, other order); K6
+merged across warps, and K5's across splits, vs one softmax: same fp32
+terms, other order); K6
 2e-5 (fp32 sums over 64-key tiles vs one matmul); K4 1e-6 in
 fp32 (the same elementwise formula; erfcf/tanhf may differ by an ulp)
 and one bf16 rounding step (8e-3 relative) in bf16; K1-K3 2e-5 in fp32
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import fused_bias_act as fba
 from paddle_tpu_torch.kernels.primitives import flash, int8, paged, ragged
 
@@ -76,17 +78,40 @@ def _paged_case(dev, b, n, t, d, page_size, max_pages, q_start, seed=0):
     # d = 6: no float4 staging (scalar path); d = 128: four columns a lane
     ("d6", 2, 2, 3, 6, 4, 6, [0, 20]),
     ("d128", 2, 2, 1, 128, 8, 4, [3, 31]),
+    # the split form (64 pages of 16: eight splits of eight pages): a row
+    # through every split beside rows whose later splits are empty
+    ("split_full", 4, 3, 1, 64, 16, 64, [1023, 5, 300, 640]),
+    # the query on a split's first and last key
+    ("split_edges", 4, 2, 1, 64, 16, 64, [127, 128, 255, 256]),
+    # a prefill chunk whose 4-query tile 3 straddles keys 127 | 128
+    ("split_prefill", 1, 3, 32, 64, 16, 64, [114]),
+    # q_start 0 beside a full row
+    ("split_zero_and_full", 2, 2, 1, 64, 16, 64, [0, 1023]),
+    # a prefill chunk from q_start 0: only the first split live, written
+    # directly by its CTA
+    ("split_prefill_first", 1, 3, 32, 64, 16, 64, [0]),
+    # pages of 4 keys (32 a split) and the scalar staging path
+    ("split_d6", 2, 2, 3, 6, 4, 40, [0, 150]),
 ])
 def test_paged_kernel_matches_plain(dev, name, b, n, t, d, page_size,
                                     max_pages, q_start):
+    warps = _build.load("paged_attention", paged._SIGNATURES).pt_paged_warps()
+    plan = paged.split_plan(b, n, t, d, max_pages, page_size, warps)
+    assert (plan.splits > 1) == name.startswith("split")
     args = _paged_case(dev, b, n, t, d, page_size, max_pages, q_start)
     before = paged.paged_attention.launches
     got = paged.paged_attention(*args)
     assert paged.paged_attention.launches == before + 1
+    # a second launch on the stream reuses the arrival counters, which
+    # the first must have left at 0
+    again = paged.paged_attention(*args)
+    assert paged.paged_attention.launches == before + 2
     want = paged.paged_attention(*args, force="reference")
-    assert paged.paged_attention.launches == before + 1
+    assert paged.paged_attention.launches == before + 2
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **K5_TOL)
+    torch.testing.assert_close(again, want, **K5_TOL)
+    assert not any(c.any() for c in paged._arrivals.values())
 
 
 def test_paged_kernel_unaligned_pool_uses_scalar_staging(dev):
@@ -218,6 +243,7 @@ def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
     (torch.bfloat16, 32, 12, 128, 64, False, True),  # a dp replica's shard
     (torch.bfloat16, 2, 3, 200, 64, False, False),  # a ragged last tile
     (torch.bfloat16, 2, 3, 200, 64, True, True),
+    (torch.bfloat16, 2, 3, 256, 64, True, True),    # 4 key tiles (K2)
     (torch.bfloat16, 2, 3, 96, 32, False, True),    # D < 64, zero-padded
     (torch.bfloat16, 2, 3, 77, 16, True, False),
     (torch.bfloat16, 2, 3, 77, 12, True, True),     # 24-byte rows: scalar
@@ -272,16 +298,19 @@ def test_flash_kernels_fully_masked_rows_match_plain(dev, dtype):
     delta = (do.float() * o_ref.float()).sum(-1).reshape(b * h, s)
     args = (q, k, v, bias, do, lse_ref.reshape(b * h, s), delta, False,
             scale)
+    dq = flash.flash_bwd_dq(*args)
+    dq_ref = flash.flash_bwd_dq(*args, force="reference")
     dk, dv, db = flash.flash_bwd_dkv(*args)
     dk_ref, dv_ref, db_ref = flash.flash_bwd_dkv(*args, force="reference")
     torch.cuda.synchronize()
-    for t in (o, lse, dk, dv, db):
+    for t in (o, lse, dq, dk, dv, db):
         assert torch.isfinite(t).all()
     tol = FLASH_TOL[dtype]
     mean_v = v[1].float().mean(dim=1, keepdim=True).expand(h, s, d)
     torch.testing.assert_close(o[1].float(), mean_v, **tol)
     torch.testing.assert_close(o, o_ref, **tol)
     torch.testing.assert_close(lse, lse_ref, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(dq, dq_ref, **tol)
     torch.testing.assert_close(dk, dk_ref, **tol)
     torch.testing.assert_close(dv, dv_ref, **tol)
     torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)

@@ -17,7 +17,7 @@ Tolerances: 2e-5 in fp32 (the same fp32 math summed in another order);
 2e-2 in bf16 (both round an fp32 result to bf16, so they may differ by
 one bf16 ulp).
 
-The bf16 CUDA K1 and K3 run on the tensor cores and round P (and dS, in
+The bf16 CUDA K1-K3 run on the tensor cores and round P (and dS, in
 two parts) to bf16 before their second products; a test-local copy of
 that arithmetic is held against ``attention_reference`` and its
 ``jax.vjp`` within the same bf16 gate.  Rows whose keys all carry the
@@ -183,23 +183,41 @@ def _k1_tensor_core(q, k, v, rows, causal, scale):
     return (acc / l_safe[..., None]).bfloat16(), m + torch.log(l_safe)
 
 
-def _k3_tensor_core(q, k, v, rows, do, lse, delta, causal, scale):
-    """K3 as the bf16 kernel computes it: P = exp(s·scale + bias - lse)
-    and dL = P·(dO·vᵀ - delta) in fp32; Pᵀ rounded to bf16 before Pᵀ·dO;
-    dSᵀ = dLᵀ·scale as two bf16 parts (dS rounded, and the remainder
-    rounded), each multiplied by q; fp32 sums; dK, dV bf16, dBias fp32
-    = Σ_q dL."""
+def _p_dl(q, k, v, rows, do, lse, delta, causal, scale):
+    """P = exp(s·scale + bias - lse) and dL = P·(dO·vᵀ - delta) as the
+    bf16 K2 and K3 compute them: bf16 products summed in fp32."""
     s = q.shape[1]
     x = (q.float() @ k.float().transpose(-1, -2)) * scale + rows[:, None]
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool).tril()
         x = torch.where(keep, x, torch.full_like(x, tflash.NEG_INF))
     p = torch.exp(x - lse[..., None])
-    dl = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
-    dv = p.bfloat16().float().transpose(-1, -2) @ do.float()
-    ds = dl * scale
+    return p, p * (do.float() @ v.float().transpose(-1, -2)
+                   - delta[..., None])
+
+
+def _split(ds):
+    """dS as the kernels hand it to the tensor cores: two bf16 parts, dS
+    rounded and the remainder rounded."""
     hi = ds.bfloat16().float()
-    lo = (ds - hi).bfloat16().float()
+    return hi, (ds - hi).bfloat16().float()
+
+
+def _k2_tensor_core(q, k, v, rows, do, lse, delta, causal, scale):
+    """K2 as the bf16 kernel computes it: dS = dL·scale as two bf16
+    parts, each multiplied by k; fp32 sums; dQ bf16."""
+    _, dl = _p_dl(q, k, v, rows, do, lse, delta, causal, scale)
+    hi, lo = _split(dl * scale)
+    return (hi @ k.float() + lo @ k.float()).bfloat16()
+
+
+def _k3_tensor_core(q, k, v, rows, do, lse, delta, causal, scale):
+    """K3 as the bf16 kernel computes it: Pᵀ rounded to bf16 before
+    Pᵀ·dO; dSᵀ = dLᵀ·scale as two bf16 parts, each multiplied by q; fp32
+    sums; dK, dV bf16, dBias fp32 = Σ_q dL."""
+    p, dl = _p_dl(q, k, v, rows, do, lse, delta, causal, scale)
+    dv = p.bfloat16().float().transpose(-1, -2) @ do.float()
+    hi, lo = _split(dl * scale)
     dk = hi.transpose(-1, -2) @ q.float() + lo.transpose(-1, -2) @ q.float()
     return dk.bfloat16(), dv.bfloat16(), dl.sum(dim=-2)
 
@@ -208,12 +226,12 @@ def _k3_tensor_core(q, k, v, rows, do, lse, delta, causal, scale):
 @pytest.mark.parametrize("d", [12, 64])
 @pytest.mark.parametrize("s", [77, 128, 200])
 def test_tensor_core_roundings_match_jax(s, d, causal):
-    """The bf16 K1 and K3 round P to bf16, and split dS into two bf16
-    parts, where the JAX kernel keeps both fp32.  With those roundings
-    (and the 64-key online softmax), O, dK, dV and dBias stay within the
-    unchanged bf16 gate (2e-2) of the JAX package's attention_reference
-    and its jax.vjp on the same bf16 inputs, a -1e4 pad bias on a fifth
-    of the keys."""
+    """The bf16 K1 and K3 round P to bf16, and K2 and K3 split dS into
+    two bf16 parts, where the JAX kernel keeps both fp32.  With those
+    roundings (and the 64-key online softmax), O, dQ, dK, dV and dBias
+    stay within the unchanged bf16 gate (2e-2) of the JAX package's
+    attention_reference and its jax.vjp on the same bf16 inputs, a -1e4
+    pad bias on a fifth of the keys."""
     rng = np.random.RandomState(s + d)
     bh = B * H
     q, k, v, do = (rng.randn(bh, s, d).astype(np.float32)
@@ -234,11 +252,11 @@ def test_tensor_core_roundings_match_jax(s, d, causal):
     rows = torch.from_numpy(bias)
     o, lse = _k1_tensor_core(tq, tk, tv, rows, causal, scale)
     delta = (tdo.float() * o.float()).sum(-1)
+    dq = _k2_tensor_core(tq, tk, tv, rows, tdo, lse, delta, causal, scale)
     dk, dv, dbias = _k3_tensor_core(tq, tk, tv, rows, tdo, lse, delta,
                                     causal, scale)
-    got = {"O": o, "dK": dk, "dV": dv, "dBias": dbias}
-    for name, w in zip(("O", "dK", "dV", "dBias"),
-                       (want[0], want[2], want[3], want[4])):
+    got = {"O": o, "dQ": dq, "dK": dk, "dV": dv, "dBias": dbias}
+    for name, w in zip(("O", "dQ", "dK", "dV", "dBias"), want):
         np.testing.assert_allclose(got[name].float().numpy(), w,
                                    atol=TOL["bfloat16"],
                                    rtol=TOL["bfloat16"], err_msg=name)
