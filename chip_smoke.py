@@ -6,19 +6,27 @@
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi).
   2. build: every kernel under paddle_tpu_torch/csrc, one nvcc each, all
-     started together, for sm_90a; each flash kernel's registers, shared
-     memory and spills (ptxas) and tensor-core instructions (SASS): the
-     bf16 K1, K2 and K3 (namespace flash_tc) are all built, spill
-     nothing and hold HMMA, and no SIMT flash kernel takes bf16.
+     started together, for sm_90a; each kernel's registers, shared
+     memory and spills (ptxas), and each flash kernel's tensor-core
+     instructions (SASS): the bf16 K1, K2 and K3 (namespace flash_tc)
+     are all built, spill nothing and hold HMMA, no SIMT flash kernel
+     takes bf16, and K7's split instantiations of the int8 decode lane
+     (d 64) spill nothing.
   3. kernels: each kernel's wrapper (K1-K8) on tensors on the card at
      the shapes its path gives it, held against its plain PyTorch
      version; timed against the plain version, its bound and, where one
      PyTorch call computes the same function, that call (library_ms).
      K1-K3 also at a dp replica's shard (timed) and at the bf16 edges:
      a ragged tile, causal (S 200 and 256), D 32 and 12, S 1, fully
-     masked rows.  K5 at the decode step and three prefill chunks, each
-     with its split plan and partials workspace, timed in turns against
-     its one-split form.
+     masked rows.  K5 and K7 at the decode step and three prefill
+     chunks, each with its split plan and partials workspace, both forms
+     held against the plain version and timed in turns, one split
+     against split.  K4 also at a dp shard's FFN shape.  K8's group
+     form over the dp lane's real segment list (BERT-base's 206
+     parameters x 4 replicas), held against the plain version member by
+     member and timed against the same segments as single launches, its
+     bound and torch._fused_adam_ (a yardstick); the word embedding as
+     a one-segment group against its single launch, in turns.
   4. train path: BERT-base pretraining (vocab 30528, flash attention,
      hidden dropout 0.1) at b128 s128 under the bf16 dtype policy with
      Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0):
@@ -38,7 +46,8 @@ Phases, each fatal on failure:
      greedy ids of two requests, against the card's.
   8. int8 decode path: phase 6 over the dual-int8 KV pool
      (pool_dtype="int8"): K4 and K7 launch exactly 12 x program runs, K5
-     never.
+     never; K7's device time summed over whole lane runs, one split and
+     split in turns, each run's ids equal to the main path's.
   9. int8 decode parity: phase 7 over the int8 pool.
  10. ragged Engine path: the repo's ragged scorer (vocab 8192, hidden
      256, 8 heads, 4 layers, a causal ragged_attention a layer), saved
@@ -54,13 +63,15 @@ Phases, each fatal on failure:
      CompiledProgram(...).with_data_parallel(places=[CUDAPlace(0)] * 4)
      with the quantized gradient all-reduce: the global batch b128 s128
      split into four replica shards of b32, 2 warm-up and 5 timed
-     steps.  Losses finite and falling; K8 launches exactly (the
-     program's fused_adam_quant_grad ops) x 4 a step and K1-K4 4x their
-     phase-4 counts; every replica's parameters bit-identical; the
-     bucket plan, modeled wire bytes, fused-update bytes saved, peak
-     memory and tokens/s (four replicas share one card: not a scaling
-     figure); a torch.profiler step with K8's device time against its
-     bound.
+     steps.  Losses finite and falling; K8's group form launches
+     exactly once a table-full of the plan's group step (the program's
+     fused_adam_quant_grad ops on all 4 replicas) a step, its
+     per-parameter form never, and K1-K4 4x their phase-4 counts; every
+     replica's parameters bit-identical; the bucket plan, modeled wire
+     bytes, fused-update bytes saved, peak memory and tokens/s (four
+     replicas share one card: not a scaling figure); a torch.profiler
+     step with K8's device time against its bound, the beta powers'
+     multi-tensor launches and the kernel launch calls.
  13. data-parallel parity: full width, 2 layers, b8 s128, fp32,
      dropout 0, 3 steps over four replicas on the card and over four
      CPUPlace replicas from the same parameters: the losses, and each
@@ -199,20 +210,16 @@ def _demangle(names):
 FLASH_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
 
 
-def flash_build_report():
-    """Each flash entry function's registers, static shared memory and
-    spill bytes (the build's -Xptxas -v), and the tensor-core (HMMA,
-    HGMMA) instructions in its SASS (cuobjdump, where the toolkit has
-    it).  The bf16 K1, K2 and K3 (namespace flash_tc) must all be there,
-    spill nothing and, where SASS can be read, hold tensor-core
-    instructions; no SIMT flash kernel may take bf16."""
+def _ptxas_entries(name):
+    """[(mangled name, C++ label, {registers, static_smem_bytes,
+    spill_bytes})] of each entry function of kernel library ``name``,
+    from its build's -Xptxas -v."""
     import re
-    import shutil
 
     from paddle_tpu_torch.kernels import _build
 
     found, cur = {}, None
-    for line in _build.build_log("flash_attention").splitlines():
+    for line in _build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line) \
             or re.search(r"Function properties for (\S+)", line)
         if m:
@@ -230,26 +237,47 @@ def flash_build_report():
         m = re.search(r"(\d+) bytes smem", line)
         if m:
             cur["static_smem_bytes"] = int(m.group(1))
+    out = []
+    for mangled, label in zip(found, _demangle(list(found))):
+        for a, b in (("(anonymous namespace)::", ""), ("<unnamed>::", ""),
+                     ("(bool)0", "false"), ("(bool)1", "true"),
+                     ("void ", "")):
+            label = label.replace(a, b)  # c++filt's and cu++filt's forms
+        out.append((mangled, label.split("(")[0], found[mangled]))
+    return out
+
+
+def flash_build_report():
+    """Each flash entry function's registers, static shared memory and
+    spill bytes (the build's -Xptxas -v), and the tensor-core (HMMA,
+    HGMMA) instructions in its SASS (cuobjdump, where the toolkit has
+    it).  The bf16 K1, K2 and K3 (namespace flash_tc) must all be there,
+    spill nothing and, where SASS can be read, hold tensor-core
+    instructions; no SIMT flash kernel may take bf16."""
+    import re
+    import shutil
+
+    from paddle_tpu_torch.kernels import _build
+
+    entries = _ptxas_entries("flash_attention")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    hmma = {}
     if os.path.exists(cuobjdump):
         sass = subprocess.run(
             [cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
             capture_output=True, text=True).stdout
         for block in sass.split("Function : ")[1:]:
             name = block.split("\n", 1)[0].strip()
-            found.setdefault(name, {})["tensor_core_instructions"] = len(
-                re.findall(r"\bH(?:G)?MMA\b", block))
+            hmma[name] = len(re.findall(r"\bH(?:G)?MMA\b", block))
     report = {}
-    for mangled, label in zip(found, _demangle(list(found))):
-        for a, b in (("(anonymous namespace)::", ""), ("<unnamed>::", ""),
-                     ("(bool)0", "false"), ("(bool)1", "true"),
-                     ("void ", "")):
-            label = label.replace(a, b)  # c++filt's and cu++filt's forms
-        label = label.split("(")[0]
+    for mangled, label, props in entries:
+        r = dict(props)
+        if mangled in hmma:
+            r["tensor_core_instructions"] = hmma[mangled]
         # a function of namespace flash_tc (not one merely taking its
         # Strides)
-        report[label] = dict(found[mangled],
-                             tensor_cores=mangled.startswith("_ZN8flash_tc"))
+        r["tensor_cores"] = mangled.startswith("_ZN8flash_tc")
+        report[label] = r
     bad = [k for k, r in report.items() if r["tensor_cores"] and (
         r.get("spill_bytes") != 0
         or r.get("tensor_core_instructions", 1) == 0)]
@@ -262,6 +290,24 @@ def flash_build_report():
         raise AssertionError(f"flash build: tensor-core kernels spilling or "
                              f"without HMMA {bad}, missing {missing}, bf16 "
                              f"SIMT kernels {simt_bf16}: {report}")
+    return report
+
+
+def paged_build_report():
+    """Registers, static shared memory and spill bytes of every K5 and
+    K7 instantiation (template arguments <query tile, columns a lane,
+    int8 pool>).  The split form is held to two CTAs an SM (128
+    registers); K7's split instantiations of the int8 decode lane (d 64:
+    two columns a lane) must spill nothing."""
+    report = {label: props
+              for _, label, props in _ptxas_entries("paged_attention")}
+    lane = [k for k in report
+            if "split_kernel" in k and k.endswith(", 2, true>")]
+    bad = [k for k in lane if report[k].get("spill_bytes") != 0]
+    if len(lane) != 2 or bad:
+        raise AssertionError(f"paged build: K7's lane split instantiations "
+                             f"{lane} (2 expected), spilling {bad}: "
+                             f"{report}")
     return report
 
 
@@ -316,29 +362,34 @@ def _paged_bound(b, n, t, d, page_size, q_start):
     return _bound(byts, pairs * n * 4 * d) + (byts,)
 
 
-def _k5_one_split(q, k, v, table, q_start, scale):
-    """K5's kernel in its one-split form (one CTA a query tile, head and
-    row, as before the split), through the same C entry: the yardstick of
-    the split form at each case."""
+def _paged_one_split(quant, args, scale):
+    """K5's kernel (K7's with ``quant``) in its one-split form (one CTA a
+    query tile, head and row, as before the split), through the same C
+    entry: the yardstick of the split form at each case.  ``args`` are
+    the wrapper's positional arguments."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels.primitives import paged
 
     lib = _build.load("paged_attention", paged._SIGNATURES)
+    q, pool, table = args[0], args[1], args[-2]
     b, n, t, d = q.shape
     out = torch.empty_like(q)
     max_pages = table.shape[1]
-    err = lib.pt_paged_attention_f32(
-        *map(_build.ptr, (q, k, v, table, q_start, out)), None, None, b, n,
-        t, d, k.shape[1], max_pages, k.shape[0], max_pages, 1, scale,
-        _build.stream_of(q.device))
-    _build.check("paged_attention (one split)", err)
+    fn = (lib.pt_paged_attention_quant_f32 if quant
+          else lib.pt_paged_attention_f32)
+    err = fn(*map(_build.ptr, tuple(args) + (out,)), None, None, b, n, t, d,
+             pool.shape[1], max_pages, pool.shape[0], max_pages, 1, scale,
+             _build.stream_of(q.device))
+    _build.check("paged attention (one split)", err)
     return out
 
 
-def check_paged(dev, rng):
-    """K5 at the decode lane's shapes (page 16, 64 logical pages: eight
+def check_paged(dev, rng, quant=False):
+    """K5 (K7 with ``quant``, over a dual-int8 pool with a poisoned trash
+    page) at the decode lanes' shapes (page 16, 64 logical pages: eight
     splits of eight pages), with each case's split plan and partials
-    workspace, and timed in turns against its one-split form."""
+    workspace, both forms held against the plain version and timed in
+    turns, one split against split."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels.primitives import paged
 
@@ -346,48 +397,69 @@ def check_paged(dev, rng):
     n, d, page_size, max_pages, num_pages = 12, 64, 16, 64, 513
     cases = [("decode", 8, 1, [0, 15, 16, 17, 500, 777, 1000, 1023])]
     cases += [(f"prefill@{qs}", 1, 32, [qs]) for qs in (0, 32, 992)]
+    if quant:
+        pool = _quant_pool(dev, num_pages, page_size, n, d, rng)
+        fn, ref = paged.paged_attention_quant, \
+            paged.paged_attention_quant_reference
+        bound, plain_iters, label = _paged_quant_bound, 10, \
+            "paged_attention_quant"
+    else:
+        fn, ref = paged.paged_attention, paged.paged_attention_reference
+        bound, plain_iters, label = _paged_bound, 20, "paged_attention"
     worst, timings = 0.0, {}
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                             device=dev)  # 256 MB > 50 MB L2
+    scale = d ** -0.5
     for name, b, t, q_start in cases:
-        args = _paged_inputs(dev, b, n, t, d, page_size, max_pages,
-                             num_pages, q_start, rng)
-        got = paged.paged_attention(*args, sm_scale=d ** -0.5)
-        one = _k5_one_split(*args, d ** -0.5)
-        want = paged.paged_attention_reference(*args, sm_scale=d ** -0.5)
+        if quant:
+            q = torch.from_numpy(rng.randn(b, n, t, d).astype(np.float32)
+                                 ).to(dev)
+            args = (q, *pool, *_page_table(dev, b, t, page_size, max_pages,
+                                           num_pages, q_start, rng))
+        else:
+            args = _paged_inputs(dev, b, n, t, d, page_size, max_pages,
+                                 num_pages, q_start, rng)
+        got = fn(*args, sm_scale=scale)
+        one = _paged_one_split(quant, args, scale)
+        want = ref(*args, sm_scale=scale)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        one_err = (one - want).abs().max().item()
         for form, out in (("", got), (" (one split)", one)):
             if not torch.allclose(out, want, **K5_TOL) \
                     or not torch.isfinite(out).all():
                 raise AssertionError(
-                    f"paged_attention{form} {name}: max abs err "
+                    f"{label}{form} {name}: max abs err "
                     f"{(out - want).abs().max().item()} outside {K5_TOL}")
-        worst = max(worst, err)
+        worst = max(worst, err, one_err)
         flush = flush_buf.zero_
+
+        def one_split():
+            return _paged_one_split(quant, args, scale)
+
+        def split():
+            return fn(*args, sm_scale=scale)
+
         # in turns: one split, split, split, one split
-        split_ms = [_time_ms(lambda: _k5_one_split(*args, d ** -0.5), 50,
-                             flush)]
-        split_ms += [_time_ms(lambda: paged.paged_attention(
-            *args, sm_scale=d ** -0.5), 50, flush) for _ in range(2)]
-        split_ms.append(_time_ms(lambda: _k5_one_split(*args, d ** -0.5),
-                                 50, flush))
-        ms = (split_ms[1] + split_ms[2]) / 2
-        plain_ms = _time_ms(lambda: paged.paged_attention_reference(
-            *args, sm_scale=d ** -0.5), 20, flush)
-        bound_ms, bound_by, byts = _paged_bound(b, n, t, d, page_size,
-                                                q_start)
+        in_turns = [_time_ms(f, 50, flush)
+                    for f in (one_split, split, split, one_split)]
+        plain_ms = _time_ms(lambda: ref(*args, sm_scale=scale), plain_iters,
+                            flush)
+        bound_ms, bound_by, byts = bound(b, n, t, d, page_size, q_start)
         plan = paged.split_plan(b, n, t, d, max_pages, page_size, warps)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        timings[name] = dict(ms=(in_turns[1] + in_turns[2]) / 2,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bytes=byts,
-                             max_abs_err=err, q_start=q_start,
-                             one_split_ms=(split_ms[0] + split_ms[3]) / 2,
-                             in_turns_ms=split_ms,
+                             max_abs_err=err, one_split_max_abs_err=one_err,
+                             q_start=q_start,
+                             one_split_ms=(in_turns[0] + in_turns[3]) / 2,
+                             in_turns_ms=in_turns,
                              pages_per_split=plan.pages_per_split,
                              splits=plan.splits,
                              workspace=plan.workspace,
                              workspace_bytes=4 * int(np.prod(
-                                 plan.workspace or (0,))))
+                                 plan.workspace or (0,))),
+                             library_ms=None)
     del flush_buf
     return worst, timings
 
@@ -417,47 +489,6 @@ def _paged_quant_bound(b, n, t, d, page_size, q_start):
     byts = (keys * n * (2 * d + 4) * 2 + 2 * b * n * t * d * 4 + b * 4
             + live_pages * 4)
     return _bound(byts, pairs * n * 4 * d) + (byts,)
-
-
-def check_paged_quant(dev, rng):
-    """K7 at the int8 decode lane's shapes: the decode step (8 slots) and
-    the prefill chunk (32 queries), over a 513-page pool with a poisoned
-    trash page."""
-    from paddle_tpu_torch.kernels.primitives import paged
-
-    n, d, page_size, max_pages, num_pages = 12, 64, 16, 64, 513
-    cases = [("decode", 8, 1, [0, 15, 16, 17, 500, 777, 1000, 1023])]
-    cases += [(f"prefill@{qs}", 1, 32, [qs]) for qs in (0, 32, 992)]
-    pool = _quant_pool(dev, num_pages, page_size, n, d, rng)
-    worst, timings = 0.0, {}
-    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
-                            device=dev)  # 256 MB > 50 MB L2
-    for name, b, t, q_start in cases:
-        q = torch.from_numpy(rng.randn(b, n, t, d).astype(np.float32)).to(dev)
-        args = (q, *pool, *_page_table(dev, b, t, page_size, max_pages,
-                                       num_pages, q_start, rng))
-        got = paged.paged_attention_quant(*args, sm_scale=d ** -0.5)
-        want = paged.paged_attention_quant_reference(*args,
-                                                     sm_scale=d ** -0.5)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, **K5_TOL) \
-                or not torch.isfinite(got).all():
-            raise AssertionError(f"paged_attention_quant {name}: max abs err "
-                                 f"{err} outside {K5_TOL}")
-        worst = max(worst, err)
-        flush = flush_buf.zero_
-        ms = _time_ms(lambda: paged.paged_attention_quant(
-            *args, sm_scale=d ** -0.5), 50, flush)
-        plain_ms = _time_ms(lambda: paged.paged_attention_quant_reference(
-            *args, sm_scale=d ** -0.5), 10, flush)
-        bound_ms, bound_by, byts = _paged_quant_bound(b, n, t, d, page_size,
-                                                      q_start)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, bytes=byts,
-                             max_abs_err=err, library_ms=None)
-    del flush_buf
-    return worst, timings
 
 
 def _ragged_bound(h, s, d, lengths, causal):
@@ -580,12 +611,13 @@ def check_bias_gelu(dev, rng):
 
 
 def check_bias_gelu_bf16(dev, rng):
-    """K4 on bf16 input at the training path's two shapes: the 12 FFN
-    fc_0 outputs [b*s, 3072] and the MLM head [b*s/8, 768]."""
+    """K4 on bf16 input at the training path's two shapes, the 12 FFN
+    fc_0 outputs [b*s, 3072] and the MLM head [b*s/8, 768], and the FFN's
+    at a dp replica's shard [b*s/4, 3072]."""
     from paddle_tpu_torch.kernels import fused_bias_act as fba
 
     worst, timings = 0.0, {}
-    for r, h in ((16384, 3072), (2048, 768)):
+    for r, h in ((16384, 3072), (2048, 768), (4096, 3072)):
         x = torch.from_numpy(rng.randn(r, h).astype(np.float32) * 3).to(
             dev, torch.bfloat16)
         bias = torch.from_numpy(rng.randn(h).astype(np.float32)).to(
@@ -867,10 +899,10 @@ def check_fused_update(dev, rng):
                     worst = max(worst, err)
         state, grad = _k8_case(dev, numel, rng)
         s = state
-        hyper = (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8, 0.0)
         ms = _time_ms(lambda: fu.fused_update_kernel(
             "adam", s["p"], grad, s["m1"], s["m2"], s["lr"], s["b1p"],
-            s["b2p"], hyper, K8_BLOCK), 50 if numel > 1e6 else 200)
+            s["b2p"], fu._consts("adam"), K8_BLOCK),
+            50 if numel > 1e6 else 200)
         # the plain version launches some 30 kernels a call: few calls at
         # the large shapes, so the host finishes enqueueing within the
         # device sleep
@@ -883,6 +915,168 @@ def check_fused_update(dev, rng):
                              bound_ms=bound_ms, bound_by=bound_by,
                              bytes=byts, library_ms=None)
     return worst, timings
+
+
+def _dp_group_members(dev):
+    """The data-parallel lane's K8 segments: phase 12's BERT-base program
+    transpiled for DP_REPLICAS replicas, its plan's one group step (every
+    fused_adam_quant_grad op, in order), and for each member on each
+    replica (replica-major, as the executor hands them over) seeded fp32
+    state and its bucket's wire image, quantized by the port's codec
+    from seeded data of the bucket's padded size.  Returns (members,
+    hyper, block size, ops a replica)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import executor as ex
+    from paddle_tpu_torch.kernels import fused_update as fu
+    from paddle_tpu_torch.kernels import quantized_collectives as qc
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.data_parallel import DataParallelRunner
+
+    cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                               attn_dropout=0.0)
+    main, _, loss = _bert_program(cfg, bf16=True)
+    strategy = fluid.BuildStrategy()
+    strategy.quant_allreduce = True
+    prog = DataParallelRunner(main, loss.name, build_strategy=strategy,
+                              places=[_gpu_place()] * DP_REPLICAS).program
+    plan = ex._Plan(prog, list(bert.make_fake_batch(cfg, 1, 8)),
+                    [loss.name])
+    (group,) = [g for g in plan.steps if isinstance(g, ex._Group)]
+    attrs = group.ops[0].attrs
+    bs = int(attrs["block_size"])
+    hyper = dict(beta1=attrs["beta1"], beta2=attrs["beta2"],
+                 epsilon=attrs["epsilon"])
+    block = prog.global_block()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def randn(n, scale):
+        return torch.randn(n, generator=gen, device=dev) * scale
+
+    members = []
+    for _ in range(DP_REPLICAS):
+        images = {}
+        lr = torch.tensor([1e-4], device=dev)
+        for op in group.ops:
+            name = op.inputs["QHi"][0]
+            if name not in images:
+                images[name] = qc.quantize_block_scaled(
+                    randn(block.var(name).shape[0], 1e-3), bs)
+            hi, lo, sc = images[name]
+            numel = int(op.attrs["numel"])
+            members.append(fu.GroupMember(
+                randn(numel, 0.02), (hi, lo, sc, int(op.attrs["offset_blocks"]),
+                                     numel),
+                lr, randn(numel, 1e-4), randn(numel, 1e-4).abs(),
+                torch.tensor([0.9 ** 3], device=dev),
+                torch.tensor([0.999 ** 3], device=dev)))
+    return members, hyper, bs, len(group.ops)
+
+
+def check_fused_update_group(dev):
+    """K8's group form over the dp lane's real segment list (206
+    parameters x 4 replicas): held against the plain version member by
+    member under the per-parameter gate, with the launches it takes;
+    its kernels' device time (torch.profiler) against the same segments
+    as 824 single launches and against its bound, both entries' whole
+    device time (the beta powers included), and torch._fused_adam_ over
+    the same tensors with an fp32 gradient (a yardstick only: another
+    function); and the word embedding alone as a one-segment group
+    against its single launch, in turns."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    members, hyper, bs, n_ops = _dp_group_members(dev)
+    cap = _build.load("fused_update",
+                      fu._SIGNATURES).pt_fused_update_group_capacity()
+    ref = [fu.GroupMember(*(t.clone() if isinstance(t, torch.Tensor) else t
+                            for t in m)) for m in members]
+    before = (fu.fused_update_group.launches, fu.fused_update_kernel.launches)
+    fu.fused_update_group("adam", members, hyper, bs)
+    launches = (fu.fused_update_group.launches - before[0],
+                fu.fused_update_kernel.launches - before[1])
+    fu.fused_update_group("adam", ref, hyper, bs, force="reference")
+    torch.cuda.synchronize()
+    if launches != (-(-len(members) // cap), 0):
+        raise AssertionError(f"fused_update_group: {launches} (group, "
+                             f"single) launches over {len(members)} "
+                             f"members, table of {cap}")
+    worst, differing = 0.0, 0
+    for i, (m, r) in enumerate(zip(members, ref)):
+        for g, w in zip(m, r):
+            if not isinstance(g, torch.Tensor) or g.dtype != torch.float32 \
+                    or g is m.lr:
+                continue
+            err = (g - w).abs().max().item()
+            differing += int((g != w).sum())
+            if not torch.allclose(g, w, rtol=K8_RTOL,
+                                  atol=K8_RTOL * w.abs().max()) \
+                    or not torch.isfinite(g).all():
+                raise AssertionError(f"fused_update_group member {i}: max "
+                                     f"abs err {err}")
+            worst = max(worst, err)
+    del ref
+    consts = fu._consts("adam", **hyper)
+
+    def singles():
+        for m in members:
+            fu.fused_update_kernel("adam", m.p, m.grad, m.m1, m.m2, m.lr,
+                                   m.b1p, m.b2p, consts, bs)
+
+    def per_op_entries():
+        for m in members:
+            fu.fused_adam_update(m.p, m.grad, m.m1, m.m2, m.lr, m.b1p,
+                                 m.b2p, **hyper, block_size=bs)
+
+    group = _profile(lambda: fu.launch_group("adam", members, hyper, bs), 3,
+                     match="fused_update_group_kernel")
+    single = _profile(singles, 1, match="fused_update_kernel")
+    group_entry = _profile(lambda: fu.fused_update_group(
+        "adam", members, hyper, bs), 3)
+    single_entry = _profile(per_op_entries, 1)
+    grads = [torch.randn_like(m.p) for m in members]
+    steps = [torch.ones((), device=dev) for _ in members]
+    fused_adam = _profile(lambda: torch._fused_adam_(
+        [m.p for m in members], grads, [m.m1 for m in members],
+        [m.m2 for m in members], [], steps, lr=1e-4, beta1=hyper["beta1"],
+        beta2=hyper["beta2"], weight_decay=0.0, eps=hyper["epsilon"],
+        amsgrad=False, maximize=False), 3)
+    del grads, steps
+    plain = _profile(lambda: fu.fused_update_group(
+        "adam", members, hyper, bs, force="reference"), 1)
+    we = max(members[:n_ops], key=lambda m: m.grad[4])
+
+    def we_single():
+        fu.fused_update_kernel("adam", we.p, we.grad, we.m1, we.m2, we.lr,
+                               we.b1p, we.b2p, consts, bs)
+
+    def we_group():
+        fu.launch_group("adam", [we], hyper, bs)
+
+    we_turns = [_time_ms(f, 50) for f in (we_single, we_group, we_group,
+                                          we_single)]
+    byts = sum(_k8_bytes("adam", m.grad[4]) for m in members)
+    bound_ms, bound_by = _bound(byts, 0)
+    return worst, dict(
+        members=len(members), ops_a_replica=n_ops, table=cap,
+        launches=launches[0], differing_elements=differing,
+        ms=group["fused_update_group_kernel_device_ms"],
+        group_kernel_events=group["fused_update_group_kernel_events"],
+        single_launches_ms=single["fused_update_kernel_device_ms"],
+        single_launch_events=single["fused_update_kernel_events"],
+        group_entry_device_ms=group_entry["device_busy_ms"],
+        group_entry_device_events=group_entry["device_events"],
+        per_op_entries_device_ms=single_entry["device_busy_ms"],
+        per_op_entries_device_events=single_entry["device_events"],
+        fused_adam_fp32_grad_ms=fused_adam["device_busy_ms"],
+        fused_adam_note=("torch._fused_adam_ over the same tensors with an "
+                         "fp32 gradient: another function, a yardstick "
+                         "only"),
+        plain_ms=plain["device_busy_ms"], bound_ms=bound_ms,
+        bound_by=bound_by, bytes=byts, library_ms=None,
+        word_embedding=dict(numel=we.grad[4], in_turns_ms=we_turns,
+                            single_ms=(we_turns[0] + we_turns[3]) / 2,
+                            group_ms=(we_turns[1] + we_turns[2]) / 2))
 
 
 # ---------------------------------------------------------------------------
@@ -964,8 +1158,8 @@ def _profile(step, n, match=None):
     """Host wall time vs summed device time of ``n`` calls of ``step``
     (torch.profiler), with the top device and host ops and the kernel
     launch API calls (cudaLaunchKernel and its kin) a call; with
-    ``match``, also the summed device time and count a call of the
-    device events whose name contains it."""
+    ``match`` (a name or a tuple of names), also the summed device time
+    and count a call of the device events whose name contains each."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -999,10 +1193,10 @@ def _profile(step, n, match=None):
                launch_api_calls={key: c // n for _, key, c in host
                                  if "LaunchKernel" in key},
                top_device_us=top(dev), top_host_self_us=top(host))
-    if match is not None:
-        hits = [(t, c) for t, key, c in dev if match in key]
-        out[f"{match}_device_ms"] = sum(t for t, _ in hits) / n / 1e3
-        out[f"{match}_events"] = sum(c for _, c in hits) // n
+    for name in (match,) if isinstance(match, str) else (match or ()):
+        hits = [(t, c) for t, key, c in dev if name in key]
+        out[f"{name}_device_ms"] = sum(t for t, _ in hits) / n / 1e3
+        out[f"{name}_events"] = sum(c for _, c in hits) // n
     return out
 
 
@@ -1123,10 +1317,13 @@ def _counter_value(name):
 def run_dp_path(counters):
     """BERT-base (phase 4's configuration) over DP_REPLICAS replicas on
     CUDAPlace(0): global batch b128 s128, b32 a replica.  K8 must launch
-    (fused_adam_quant_grad ops) x replicas a step, K1-K4 replicas x
-    their phase-4 counts; the replicas' parameters bit-identical after
-    the run."""
+    its group form once a table-full of the plan's group step (every
+    fused_adam_quant_grad op on every replica) a step and its
+    per-parameter form never, K1-K4 replicas x their phase-4 counts;
+    the replicas' parameters bit-identical after the run."""
     from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_update as fu
     from paddle_tpu_torch.models import bert
 
     cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
@@ -1142,6 +1339,7 @@ def run_dp_path(counters):
     torch.cuda.reset_peak_memory_stats()
     for w in counters.values():
         w.launches = 0
+    fu.fused_update_kernel.launches = 0
     losses, secs = [], []
     for _ in range(DP_WARMUP + DP_STEPS):
         t0 = time.perf_counter()
@@ -1149,21 +1347,32 @@ def run_dp_path(counters):
         secs.append(time.perf_counter() - t0)  # the fetch synchronizes
         losses.append([float(v) for v in lv])
     launches = {k: w.launches for k, w in counters.items()}
+    single_k8 = fu.fused_update_kernel.launches
     runner = compiled._dp_runner
     prog = runner.program
     n_fused = sum(op.type == "fused_adam_quant_grad"
                   for op in prog.global_block().ops)
+    (exec_plan,) = runner._plans.values()
+    cap = _build.load("fused_update",
+                      fu._SIGNATURES).pt_fused_update_group_capacity()
+    # the group launches the plan makes: one a table-full of each group
+    # step's members on every replica
+    group_launches = sum(-(-m * DP_REPLICAS // cap)
+                         for _, m in exec_plan.group_sizes)
     steps, n = DP_WARMUP + DP_STEPS, DP_REPLICAS
     expect = {"flash_fwd": 2 * cfg.num_layers * n * steps,
               "flash_bwd_dq": cfg.num_layers * n * steps,
               "flash_bwd_dkv": cfg.num_layers * n * steps,
               "fused_bias_act": (cfg.num_layers + 1) * n * steps,
-              "fused_update": n_fused * n * steps}
+              "fused_update": group_launches * steps}
     expect = {k: v for k, v in expect.items() if k in counters}
-    if launches != expect:
+    groups = exec_plan.group_sizes
+    if launches != expect or single_k8 \
+            or groups != [("fused_adam_quant_grad", n_fused)]:
         raise AssertionError(f"dp path launches {launches}, expected "
-                             f"{expect} ({n_fused} fused_adam_quant_grad "
-                             f"ops)")
+                             f"{expect}; per-parameter K8 {single_k8}, "
+                             f"expected 0; plan groups {groups} "
+                             f"({n_fused} fused_adam_quant_grad ops)")
     means = [float(np.mean(x)) for x in losses]
     if not np.isfinite(losses).all() or not means[-1] < means[0]:
         raise AssertionError(f"dp path losses not finite and falling: "
@@ -1181,7 +1390,8 @@ def run_dp_path(counters):
         places="[CUDAPlace(0)] x 4", global_batch=TRAIN_BATCH,
         seq_len=TRAIN_SEQ, dtype_policy="bf16", steps=DP_STEPS,
         warmup_steps=DP_WARMUP, losses=losses,
-        fused_adam_quant_grad_ops=n_fused,
+        fused_adam_quant_grad_ops=n_fused, plan_groups=groups,
+        group_table=cap, group_launches_per_step=group_launches,
         plain_adam_ops=sum(op.type == "adam"
                            for op in prog.global_block().ops),
         parameters=len(params),
@@ -1205,12 +1415,16 @@ def run_dp_path(counters):
 
 def profile_dp_step(state):
     """One data-parallel step under torch.profiler: device busy and
-    idle, the top kernels, and K8's summed device time against its
-    bound (every fused op's bytes, every replica, at the HBM rate)."""
+    idle, the top kernels, the kernel launch calls, K8's summed device
+    time (its group kernel, and its per-parameter kernel, which must not
+    run) against its bound (every fused op's bytes, every replica, at
+    the HBM rate), and the multi-tensor kernels that advance the beta
+    powers."""
     exe, compiled, scope, feed, loss, _ = state
     out = _profile(lambda: exe.run(compiled, feed=feed, fetch_list=[loss],
                                    scope=scope), 1,
-                   match="fused_update_kernel")
+                   match=("fused_update_group_kernel", "fused_update_kernel",
+                          "multi_tensor_apply"))
     t0 = time.perf_counter()
     exe.run(compiled, feed=feed, fetch_list=[loss], scope=scope)
     out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
@@ -1504,36 +1718,47 @@ def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32"):
     return out
 
 
+def _lane_engine(cfg, scope, prompts, pool_dtype, name):
+    """A fresh DecodeEngine of the decode lane on a copy of ``scope``,
+    warmed up, that queues all of ``prompts``."""
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    eng = DecodeEngine(cfg, scope=_copy_scope(scope), place=_gpu_place(),
+                       pool_slots=8, page_size=16, max_len=1024,
+                       pool_dtype=pool_dtype, auto_start=False,
+                       max_queue=len(prompts), name=name)
+    eng.warmup()
+    return eng
+
+
+def _drive_lane(eng, prompts):
+    """Every request queued before the scheduler starts; the ids."""
+    futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    eng.start()
+    return [f.result(timeout=900) for f in futs]
+
+
 def profile_lane_paged(cfg, scope, prompts, pool_dtype="float32",
                        one_split=False):
     """The paged kernels' summed device time over one whole run of the
     decode lane's workload (``run_path``'s requests on a fresh engine,
     warmed up first; torch.profiler), and the ids it generated.  With
-    ``one_split`` K5's wrapper plans a single split: the kernel's form
-    before the split, through the same C entry."""
+    ``one_split`` the wrapper (K5's, or K7's over the int8 pool) plans a
+    single split: the kernel's form before the split, through the same
+    C entry."""
     from paddle_tpu_torch.kernels.primitives import paged
-    from paddle_tpu_torch.serving import DecodeEngine
 
     form = "one" if one_split else "split"
-    eng = DecodeEngine(cfg, scope=_copy_scope(scope), place=_gpu_place(),
-                       pool_slots=8, page_size=16, max_len=1024,
-                       pool_dtype=pool_dtype, auto_start=False,
-                       max_queue=len(prompts),
-                       name=f"lane-{pool_dtype}-{form}")
-    eng.warmup()
+    eng = _lane_engine(cfg, scope, prompts, pool_dtype,
+                       f"lane-{pool_dtype}-{form}")
     plan = paged.split_plan
     if one_split:
         paged.split_plan = lambda b, n, t, d, max_pages, *a: \
             paged.SplitPlan(max_pages, 1, None, 0)
     outs = []
-
-    def run():  # every request queued before the scheduler starts
-        futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
-        eng.start()
-        outs.extend(f.result(timeout=900) for f in futs)
-
     try:
-        prof = _profile(run, 1, match="paged")
+        prof = _profile(lambda: outs.extend(_drive_lane(eng, prompts)), 1,
+                        match="paged")
     finally:
         paged.split_plan = plan
         eng.close()
@@ -1544,21 +1769,65 @@ def profile_lane_paged(cfg, scope, prompts, pool_dtype="float32",
                 wall_profiled_ms=prof["wall_profiled_ms"]), outs
 
 
-def lane_k5_in_turns(cfg, scope, prompts, outs):
-    """K5 over the whole decode lane, one split and split in turns (one,
-    split, split, one): summed device ms of the paged kernels a run, and
-    whether each run's ids equal the main path's."""
+def lane_paged_bound(cfg, scope, prompts, pool_dtype):
+    """The paged kernel's least device time over one whole lane run: a
+    run of its own (unprofiled) records each call's shapes and q_start
+    values, and each call's bytes (``_paged_bound``, or
+    ``_paged_quant_bound`` over the int8 pool: the live K/V rows, q and
+    out moved once) are summed at the HBM rate.  The decode ops reach
+    the wrappers through their module reference, which the run points
+    at a recorder (the wrappers themselves, and their launch counts,
+    stay as they are)."""
+    import types
+
+    from paddle_tpu_torch.ops import decode_ops
+
+    name = ("paged_attention_quant" if pool_dtype == "int8"
+            else "paged_attention")
+    bound = _paged_quant_bound if pool_dtype == "int8" else _paged_bound
+    kernels, calls = decode_ops._paged, []
+
+    def recording(q, pool, *args, **kw):
+        calls.append((q.shape, pool.shape[1], args[-1].tolist()))
+        return getattr(kernels, name)(q, pool, *args, **kw)
+
+    eng = _lane_engine(cfg, scope, prompts, pool_dtype, f"bound-{pool_dtype}")
+    decode_ops._paged = types.SimpleNamespace(
+        paged_attention=kernels.paged_attention,
+        paged_attention_quant=kernels.paged_attention_quant)
+    setattr(decode_ops._paged, name, recording)
+    try:
+        _drive_lane(eng, prompts)
+    finally:
+        decode_ops._paged = kernels
+        eng.close()
+    byts = sum(bound(*shape, page, q_start)[2]
+               for shape, page, q_start in calls)
+    return dict(calls=len(calls), bytes=byts,
+                bound_ms=_bound(byts, 0)[0])
+
+
+def lane_in_turns(cfg, scope, prompts, outs, pool_dtype="float32"):
+    """The paged kernel (K5, or K7 over the int8 pool) over the whole
+    decode lane, one split and split in turns (one, split, split, one):
+    summed device ms of the paged kernels a run, whether each run's ids
+    equal the main path's, and the lane-wide bound."""
     runs = []
     for one in (True, False, False, True):
-        r, got = profile_lane_paged(cfg, scope, prompts, one_split=one)
+        r, got = profile_lane_paged(cfg, scope, prompts, pool_dtype,
+                                    one_split=one)
         r["ids_equal_main_path"] = got == outs
         runs.append(r)
+    if not all(r["ids_equal_main_path"] for r in runs):
+        raise AssertionError(f"{pool_dtype} lane in turns: ids differ from "
+                             f"the main path's: {runs}")
 
     def mean(rs):
         return sum(r["paged_device_ms"] for r in rs) / len(rs)
 
     return dict(split_ms=mean(runs[1:3]), one_split_ms=mean(runs[::3]),
-                runs=runs)
+                runs=runs, bound=lane_paged_bound(cfg, scope, prompts,
+                                                  pool_dtype))
 
 
 def _copy_scope(scope):
@@ -1808,6 +2077,15 @@ def main():
         return 3
     from paddle_tpu_torch.kernels import _build, kernel_wrappers
 
+    t_main = time.perf_counter()
+
+    def say(label, reading):
+        """One phase's reading as a JSON line, with the script's
+        elapsed seconds (the run must end within its time limit)."""
+        print(f"{label} " + json.dumps(
+            {**reading, "elapsed_s": time.perf_counter() - t_main}),
+            flush=True)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1821,13 +2099,14 @@ def main():
           f"{json.dumps({k: round(v, 2) for k, v in took.items()})}",
           flush=True)
     for name in _build.sources():
-        if name == "flash_attention":
+        if name in ("flash_attention", "paged_attention"):
             continue  # reported kernel by kernel below
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        for _, label, props in _ptxas_entries(name):
+            print(f"ptxas {name}: {label}: " + json.dumps(props))
     for label, r in flash_build_report().items():
         print(f"ptxas flash_attention: {label}: " + json.dumps(r))
+    for label, r in paged_build_report().items():
+        print(f"ptxas paged_attention: {label}: " + json.dumps(r))
 
     rng = np.random.RandomState(SEED)
     k5_err, k5_t = check_paged(dev, rng)
@@ -1835,39 +2114,41 @@ def main():
     k4b_err, k4b_t = check_bias_gelu_bf16(dev, rng)
     fl_err, fl_t = check_flash(dev, rng)
     k6_err, k6_t = check_ragged(dev, rng)
-    k7_err, k7_t = check_paged_quant(dev, rng)
+    k7_err, k7_t = check_paged(dev, rng, quant=True)
     k8_err, k8_t = check_fused_update(dev, rng)
-    for name, t in k5_t.items():
-        print(f"K5 {name}: split plan {t['splits']} x {t['pages_per_split']} "
-              f"pages, partials {t['workspace']} = {t['workspace_bytes']} "
-              f"bytes; {t['ms']:.4f} ms (one split {t['one_split_ms']:.4f})",
-              flush=True)
-    print("kernel timings " + json.dumps({
+    k8g_err, k8g_t = check_fused_update_group(dev)
+    torch.cuda.empty_cache()
+    for k, timed in (("K5", k5_t), ("K7", k7_t)):
+        for name, t in timed.items():
+            print(f"{k} {name}: split plan {t['splits']} x "
+                  f"{t['pages_per_split']} pages, partials {t['workspace']} "
+                  f"= {t['workspace_bytes']} bytes; {t['ms']:.4f} ms (one "
+                  f"split {t['one_split_ms']:.4f})", flush=True)
+    say("kernel timings", {
         "paged_attention": k5_t, "fused_bias_act": {**k4_t, **k4b_t},
         "flash": fl_t, "ragged_attention": k6_t,
         "paged_attention_quant": k7_t, "fused_update": k8_t,
-        "card": smi}), flush=True)
+        "fused_update_group": k8g_t, "card": smi})
 
     wrappers = kernel_wrappers()
     train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                      "fused_bias_act")
     state, train = run_train_path({k: wrappers[k] for k in train_kernels})
-    print("train path " + json.dumps({"card": smi, **train}), flush=True)
-    print("train step " + json.dumps(profile_train_step(state)), flush=True)
+    say("train path", {"card": smi, **train})
+    say("train step", profile_train_step(state))
     del state
     torch.cuda.empty_cache()
-    print("train parity " + json.dumps(run_train_parity()), flush=True)
+    say("train parity", run_train_parity())
 
     decode_kernels = ("fused_bias_act", "paged_attention")
     cfg, scope, prompts, outs, path = run_path(
         dev, {k: (wrappers[k], 1) for k in decode_kernels})
-    print("decode path " + json.dumps({"card": smi, **path}), flush=True)
+    say("decode path", {"card": smi, **path})
     prof = profile_decode_step(cfg, scope)
-    print("decode step " + json.dumps(prof), flush=True)
+    say("decode step", prof)
     parity = run_parity(cfg, scope, prompts, outs)
-    print("decode parity " + json.dumps(parity), flush=True)
-    print("decode lane K5 " + json.dumps(
-        lane_k5_in_turns(cfg, scope, prompts, outs)), flush=True)
+    say("decode parity", parity)
+    say("decode lane K5", lane_in_turns(cfg, scope, prompts, outs))
     del scope
     torch.cuda.empty_cache()
 
@@ -1877,32 +2158,28 @@ def main():
     cfg, scope, prompts, outs, path8 = run_path(
         dev, {k: (wrappers[k], n) for k, n in int8_counts.items()},
         pool_dtype="int8")
-    print("int8 decode path " + json.dumps({"card": smi, **path8}),
-          flush=True)
-    print("int8 decode step " + json.dumps(
-        profile_decode_step(cfg, scope, pool_dtype="int8")), flush=True)
-    print("int8 decode parity " + json.dumps(
-        run_parity(cfg, scope, prompts, outs, pool_dtype="int8")),
-        flush=True)
-    lane8, got8 = profile_lane_paged(cfg, scope, prompts, pool_dtype="int8")
-    print("int8 decode lane K7 " + json.dumps(
-        {**lane8, "ids_equal_main_path": got8 == outs}), flush=True)
+    say("int8 decode path", {"card": smi, **path8})
+    say("int8 decode step",
+        profile_decode_step(cfg, scope, pool_dtype="int8"))
+    say("int8 decode parity",
+        run_parity(cfg, scope, prompts, outs, pool_dtype="int8"))
+    say("int8 decode lane K7",
+        lane_in_turns(cfg, scope, prompts, outs, pool_dtype="int8"))
     del scope
     torch.cuda.empty_cache()
 
     arms, ragged_parity = run_ragged_path(wrappers["ragged_attention"])
-    print("ragged engine path " + json.dumps({"card": smi, **arms}),
-          flush=True)
-    print("ragged engine parity " + json.dumps(ragged_parity), flush=True)
+    say("ragged engine path", {"card": smi, **arms})
+    say("ragged engine parity", ragged_parity)
     torch.cuda.empty_cache()
 
     dp_kernels = train_kernels + ("fused_update",)
     state, dp = run_dp_path({k: wrappers[k] for k in dp_kernels})
-    print("dp train path " + json.dumps({"card": smi, **dp}), flush=True)
-    print("dp train step " + json.dumps(profile_dp_step(state)), flush=True)
+    say("dp train path", {"card": smi, **dp})
+    say("dp train step", profile_dp_step(state))
     del state
     torch.cuda.empty_cache()
-    print("dp train parity " + json.dumps(run_dp_parity()), flush=True)
+    say("dp train parity", run_dp_parity())
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
@@ -1946,8 +2223,8 @@ def main():
             "paddle_tpu/kernels/primitives/paged.py:241", k7_err,
             k7_t["decode"]),
         row("fused_update", "paddle_tpu_torch/csrc/fused_update.cu",
-            "paddle_tpu/kernels/fused_update.py:322", k8_err,
-            k8_t["word_embedding"]),
+            "paddle_tpu/kernels/fused_update.py:322", max(k8_err, k8g_err),
+            k8g_t),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,9 +14,9 @@
 //   page_table [B, max_pages] i32: physical page of each logical page
 //   q_start    [B] i32: tokens already in the pool before this q block
 //   out        [B, n, T, d]  f32
-//   K5 part    [B, n, T, splits, d + 2] f32 scratch of the split form
+//   part       [B, n, T, splits, d + 2] f32 scratch of the split form
 //              (below), allocated by the wrapper; null for one split
-//   K5 arrivals [>= B * n * T] i32 arrival counters of the split form,
+//   arrivals   [>= B * n * T] i32 arrival counters of the split form,
 //              zero between calls (the kernel resets what it counts);
 //              null for one split
 // Query i of row b attends global key positions j <= q_start[b] + i.
@@ -58,21 +58,21 @@
 //     lane per output column for the weighted sum of V;
 //   - the eight warps' partial states merge in shared memory at the end.
 //
-// Split form (K5 only; flash-decoding).  With one CTA a (row, head), the
-// decode step's grid is 96 CTAs on 132 SMs, and the two longest rows'
-// 24 CTAs each chain eight pages a warp (load, stage, score, merge)
-// while the short rows' CTAs finish at once: 0.058 ms against the
-// 0.0062 ms bound on the card.  So the wrapper splits each row's
-// logical pages into chunks of `pages_per_split` (one page a warp at a
-// page of 16 keys) and the grid takes one CTA per (query tile, head,
-// split, row), blockIdx.z = split * B + b: the split is the grid's
-// slowest index, so every row's first split is dispatched before any
-// later one, and the CTAs of splits past a row's end pass through the
-// slots the live CTAs leave free.  The plan comes from
-// shapes alone (max_pages, page size, kWarps, which the library
-// exports), never from q_start or the page table: no host sync, and the
-// same launch every step.  Each CTA counts its tile's live splits from
-// q_start itself:
+// Split form (flash-decoding), K5's and K7's alike.  With one CTA a
+// (row, head), the decode step's grid is 96 CTAs on 132 SMs, and the two
+// longest rows' 24 CTAs each chain eight pages a warp (load, stage,
+// score, merge) while the short rows' CTAs finish at once: K5 read 0.058
+// ms against its 0.0062 ms bound on the card, K7 0.035 against 0.0032.
+// So the wrapper splits each row's logical pages into chunks of
+// `pages_per_split` (one page a warp at a page of 16 keys) and the grid
+// takes one CTA per (query tile, head, split, row), blockIdx.z = split *
+// B + b: the split is the grid's slowest index, so every row's first
+// split is dispatched before any later one, and the CTAs of splits past
+// a row's end pass through the slots the live CTAs leave free.  The plan
+// comes from shapes alone (max_pages, page size, kWarps, which the
+// library exports), never from q_start or the page table: no host sync,
+// and the same launch every step.  Each CTA counts its tile's live splits
+// from q_start itself:
 //   - a CTA past its row's last live page returns at once, writing
 //     nothing;
 //   - where only the first split is live (every short row: a prefill
@@ -89,13 +89,19 @@
 // the first split is live, which is every prefill chunk from q_start 0
 // and every decode row under 129 keys.  The counters are the wrapper's,
 // one set a (device, stream), so two streams never share one.  One
-// split (max_pages <= pages_per_split) is the form above; K7 always
-// takes that form.  On an H100 (700 W; chip_smoke.py, against the
-// one-split form in turns): the timed decode case 0.058 -> 0.026 ms, a
-// prefill chunk at q_start 992 0.084 -> 0.050 ms, one at q_start 0
-// 0.0133 -> 0.0153 ms (the empty CTAs still cost 2 us there); summed
-// over a whole run of the decode lane (16 requests of 8-512 prompt
-// tokens + 32 new), 59.0 -> 42.7 ms.
+// split (max_pages <= pages_per_split) is the form above.  The two pools
+// share every line of the split form but the staging: K7's split form
+// stages a page when its warp reaches it, two 16-byte vectors of hi and
+// of lo (for K and V) a lane; with the one-split form's register double
+// buffer and four it spilled 52-308 bytes under the two-CTA register
+// cap.  K5 on an H100 (700 W; chip_smoke.py, against the one-split form
+// in turns): the timed decode case 0.058 -> 0.026 ms, a prefill chunk at
+// q_start 992 0.084 -> 0.050 ms, one at q_start 0 0.0133 -> 0.0153 ms
+// (the empty CTAs still cost 2 us there); summed over a whole run of the
+// decode lane (16 requests of 8-512 prompt tokens + 32 new), 59.0 ->
+// 42.7 ms.  K7, the same comparison: decode 0.035 -> 0.026 ms, prefill
+// at q_start 992 0.066 -> 0.048 ms, at q_start 0 0.0125 -> 0.0128 ms;
+// a whole int8-lane run 45.0 -> 37.7 ms.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -133,6 +139,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 constexpr int kChunk = 8;  // float4 loads in flight per lane, for K and V
 constexpr int kChunkQ = 4;  // 16-byte int8 loads per lane, per hi/lo/K/V
+// ... in K7's split form, held to 128 registers a thread: a page of 16
+// keys at d 64 (64 vectors) still stages in one chunk
+constexpr int kChunkQSplit = 2;
 
 // First pool row of logical page lp of a row's page table.
 __device__ __forceinline__ long long page_row0(const int* table, int lp,
@@ -188,9 +197,10 @@ __device__ __forceinline__ void store_chunk(float* sK, float* sV, int dp,
 // K7 staging: int8 hi/lo pages, 16 codes at a time, plus the row's scale
 // ---------------------------------------------------------------------------
 
+template <int CQ>
 struct QRegs {
-  int4 khi[kChunkQ], klo[kChunkQ], vhi[kChunkQ], vlo[kChunkQ];
-  float ksc[kChunkQ], vsc[kChunkQ];
+  int4 khi[CQ], klo[CQ], vhi[CQ], vlo[CQ];
+  float ksc[CQ], vsc[CQ];
 };
 
 // (hi + lo * (1/254)) * scale, rounded step by step as the plain version
@@ -216,19 +226,20 @@ __device__ __forceinline__ void store16(float* dst, int4 hv, int4 lv,
       dst[4 * w + b] = dequant(sbyte(hw[w], b), sbyte(lw[w], b), sc);
 }
 
-// Load 16-byte vector number base + u*32 + lane (u < kChunkQ) of a
-// page's hi and lo codes for head h, K and V, with its row's scales:
-// vector e is row e / vrow, columns 16*(e % vrow)...
+// Load 16-byte vector number base + u*32 + lane (u < CQ) of a page's hi
+// and lo codes for head h, K and V, with its row's scales: vector e is
+// row e / vrow, columns 16*(e % vrow)...
+template <int CQ>
 __device__ __forceinline__ void load_chunk_q(const Pool& pool, long long row0,
                                              int n, int h, int vrow,
                                              int nvec, int base, int lane,
-                                             QRegs& r) {
+                                             QRegs<CQ>& r) {
   const int4* khi = reinterpret_cast<const int4*>(pool.khi);
   const int4* klo = reinterpret_cast<const int4*>(pool.klo);
   const int4* vhi = reinterpret_cast<const int4*>(pool.vhi);
   const int4* vlo = reinterpret_cast<const int4*>(pool.vlo);
 #pragma unroll
-  for (int u = 0; u < kChunkQ; ++u) {
+  for (int u = 0; u < CQ; ++u) {
     const int e = base + u * 32 + lane;
     if (e < nvec) {
       const int row = e / vrow, c16 = e - row * vrow;
@@ -244,11 +255,12 @@ __device__ __forceinline__ void load_chunk_q(const Pool& pool, long long row0,
   }
 }
 
+template <int CQ>
 __device__ __forceinline__ void store_chunk_q(float* sK, float* sV, int dp,
                                               int vrow, int nvec, int base,
-                                              int lane, const QRegs& r) {
+                                              int lane, const QRegs<CQ>& r) {
 #pragma unroll
-  for (int u = 0; u < kChunkQ; ++u) {
+  for (int u = 0; u < CQ; ++u) {
     const int e = base + u * 32 + lane;
     if (e < nvec) {
       const int row = e / vrow, c = (e - row * vrow) * 16;
@@ -330,13 +342,20 @@ paged_attention_block(const float* __restrict__ q, const Pool pool,
   // the current page is scored (a register double buffer).
   const float4* k4 = reinterpret_cast<const float4*>(pool.k);
   const float4* v4 = reinterpret_cast<const float4*>(pool.v);
+  constexpr int CQ = kSplit ? kChunkQSplit : kChunkQ;
   const int vrow = kQuant ? d >> 4 : d >> 2;  // 16-byte vectors per row
   const int nvec = page_size * vrow;
+  // The register double buffer keeps the next page's codes live across
+  // the scores; under the split form's 128-register cap K7's spilled
+  // (52-308 bytes, chip_smoke.py phase 2), so K7's split form stages
+  // each page when its warp reaches it.  At a page of 16 keys a warp
+  // holds one page of a split: there was nothing to prefetch.
+  constexpr bool kPrefetch = !(kQuant && kSplit);
   const bool one_chunk =
-      vec && nvec <= 32 * (kQuant ? kChunkQ : kChunk);
+      kPrefetch && vec && nvec <= 32 * (kQuant ? CQ : kChunk);
   const int* table = page_table + (long long)b * max_pages;
   float4 kr[kChunk], vr[kChunk];
-  QRegs qr;
+  QRegs<CQ> qr;
   if (one_chunk && p_begin + warp < p_end) {
     const long long row0 =
         page_row0(table, p_begin + warp, page_size, num_pages);
@@ -371,7 +390,7 @@ paged_attention_block(const float* __restrict__ q, const Pool pool,
     } else if (vec) {
       const long long row0 = page_row0(table, lp, page_size, num_pages);
       if constexpr (kQuant) {
-        for (int base = 0; base < nvec; base += 32 * kChunkQ) {
+        for (int base = 0; base < nvec; base += 32 * CQ) {
           load_chunk_q(pool, row0, n, h, vrow, nvec, base, lane, qr);
           store_chunk_q(sK, sV, dp, vrow, nvec, base, lane, qr);
         }
@@ -528,21 +547,22 @@ paged_attention_block(const float* __restrict__ q, const Pool pool,
   q, pool, page_table, q_start, out, part, arrivals, n, T, d, page_size, \
       max_pages, num_pages, pages_per_split, splits, scale, vec
 
-// One split: K7, and K5 where max_pages <= pages_per_split.
+// One split: K5 and K7 where max_pages <= pages_per_split.
 template <int QT, int R, bool kQuant>
 __global__ void __launch_bounds__(32 * kWarps)
 paged_attention_kernel(PAGED_KERNEL_PARAMS) {
   paged_attention_block<QT, R, kQuant, false>(PAGED_KERNEL_ARGS);
 }
 
-// K5's split form, held to two CTAs an SM (128 registers a thread): with
-// the merge's tail it compiles to 151-160 registers otherwise, one CTA an
-// SM, and a prefill chunk at q_start 992 reads 0.072 ms instead of
-// 0.050 on the card (chip_smoke.py phase 3).
-template <int QT, int R>
+// The split form of K5 and K7, held to two CTAs an SM (128 registers a
+// thread): with the merge's tail K5's compiles to 151-160 registers
+// otherwise, one CTA an SM, and a prefill chunk at q_start 992 reads
+// 0.072 ms instead of 0.050 on the card (chip_smoke.py phase 3).  The
+// one-split form keeps its registers: it is its own __global__.
+template <int QT, int R, bool kQuant>
 __global__ void __launch_bounds__(32 * kWarps, 2)
 paged_attention_split_kernel(PAGED_KERNEL_PARAMS) {
-  paged_attention_block<QT, R, false, true>(PAGED_KERNEL_ARGS);
+  paged_attention_block<QT, R, kQuant, true>(PAGED_KERNEL_ARGS);
 }
 
 template <int QT, int R, bool kQuant, bool kSplit>
@@ -559,7 +579,7 @@ cudaError_t launch(const float* q, const Pool& pool, const int* pt,
   static size_t opted_in = 48 * 1024;
   void (*kernel)(PAGED_KERNEL_PARAMS);
   if constexpr (kSplit)
-    kernel = paged_attention_split_kernel<QT, R>;
+    kernel = paged_attention_split_kernel<QT, R, kQuant>;
   else
     kernel = paged_attention_kernel<QT, R, kQuant>;
   if (smem > opted_in) {
@@ -606,7 +626,7 @@ cudaError_t dispatch_r(const float* q, const Pool& pool, const int* pt,
 }
 
 // One split (`part` and `arrivals` null, pages_per_split >= max_pages)
-// or the split form; K7 always takes one split.
+// or the split form.
 template <bool kQuant, bool kSplit>
 int dispatch(const float* q, const Pool& pool, const int* page_table,
              const int* q_start, float* out, float* part, int* arrivals,
@@ -632,6 +652,30 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
+// Both take the split plan: `splits` chunks of `pages_per_split` logical
+// pages must cover the page table; with more than one, `part` is the
+// [B, n, T, splits, d + 2] fp32 scratch of the split form and `arrivals`
+// its B * n * T zeroed i32 counters.
+template <bool kQuant>
+int dispatch_plan(const float* q, const Pool& pool, const int* page_table,
+                  const int* q_start, float* out, float* part,
+                  int* arrivals, int B, int n, int T, int d, int page_size,
+                  int max_pages, int num_pages, int pages_per_split,
+                  int splits, float scale, bool vec, void* stream) {
+  if (splits < 1 || pages_per_split < 1 ||
+      (long long)splits * pages_per_split < max_pages ||
+      (splits > 1 && (part == nullptr || arrivals == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1)
+    return dispatch<kQuant, true>(q, pool, page_table, q_start, out, part,
+                                  arrivals, B, n, T, d, page_size,
+                                  max_pages, num_pages, pages_per_split,
+                                  splits, scale, vec, stream);
+  return dispatch<kQuant, false>(q, pool, page_table, q_start, out, nullptr,
+                                 nullptr, B, n, T, d, page_size, max_pages,
+                                 num_pages, max_pages, 1, scale, vec, stream);
+}
+
 }  // namespace
 
 // Both return the cudaError_t of the launch (0 on success).  d must be in
@@ -641,10 +685,7 @@ bool aligned16(const void* p) {
 // about one page of a split.
 extern "C" int pt_paged_warps() { return kWarps; }
 
-// K5: the fp32 pool.  `splits` chunks of `pages_per_split` logical pages
-// must cover the page table; with more than one, `part` is the
-// [B, n, T, splits, d + 2] fp32 scratch of the split form and `arrivals`
-// its B * n * T zeroed i32 counters.
+// K5: the fp32 pool.
 extern "C" int pt_paged_attention_f32(const float* q, const float* k_pages,
                                       const float* v_pages,
                                       const int* page_table,
@@ -654,22 +695,14 @@ extern "C" int pt_paged_attention_f32(const float* q, const float* k_pages,
                                       int max_pages, int num_pages,
                                       int pages_per_split, int splits,
                                       float scale, void* stream) {
-  if (splits < 1 || pages_per_split < 1 ||
-      (long long)splits * pages_per_split < max_pages ||
-      (splits > 1 && (part == nullptr || arrivals == nullptr)))
-    return (int)cudaErrorInvalidValue;
   Pool pool = {};
   pool.k = k_pages;
   pool.v = v_pages;
   const bool vec = d % 4 == 0 && aligned16(k_pages) && aligned16(v_pages);
-  if (splits > 1)
-    return dispatch<false, true>(q, pool, page_table, q_start, out, part,
-                                 arrivals, B, n, T, d, page_size, max_pages,
-                                 num_pages, pages_per_split, splits, scale,
-                                 vec, stream);
-  return dispatch<false, false>(q, pool, page_table, q_start, out, nullptr,
-                                nullptr, B, n, T, d, page_size, max_pages,
-                                num_pages, max_pages, 1, scale, vec, stream);
+  return dispatch_plan<false>(q, pool, page_table, q_start, out, part,
+                              arrivals, B, n, T, d, page_size, max_pages,
+                              num_pages, pages_per_split, splits, scale, vec,
+                              stream);
 }
 
 // K7: the dual-int8 pool (hi, lo int8 and a per-vector fp32 scale).
@@ -677,8 +710,9 @@ extern "C" int pt_paged_attention_quant_f32(
     const float* q, const signed char* k_hi, const signed char* k_lo,
     const float* k_scale, const signed char* v_hi, const signed char* v_lo,
     const float* v_scale, const int* page_table, const int* q_start,
-    float* out, int B, int n, int T, int d, int page_size, int max_pages,
-    int num_pages, float scale, void* stream) {
+    float* out, float* part, int* arrivals, int B, int n, int T, int d,
+    int page_size, int max_pages, int num_pages, int pages_per_split,
+    int splits, float scale, void* stream) {
   Pool pool = {};
   pool.khi = k_hi;
   pool.klo = k_lo;
@@ -688,7 +722,8 @@ extern "C" int pt_paged_attention_quant_f32(
   pool.vsc = v_scale;
   const bool vec = d % 16 == 0 && aligned16(k_hi) && aligned16(k_lo) &&
                    aligned16(v_hi) && aligned16(v_lo);
-  return dispatch<true, false>(q, pool, page_table, q_start, out, nullptr,
-                               nullptr, B, n, T, d, page_size, max_pages,
-                               num_pages, max_pages, 1, scale, vec, stream);
+  return dispatch_plan<true>(q, pool, page_table, q_start, out, part,
+                             arrivals, B, n, T, d, page_size, max_pages,
+                             num_pages, pages_per_split, splits, scale, vec,
+                             stream);
 }

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import typing
 
 import numpy as np
 import torch
@@ -183,24 +184,69 @@ def _prune_ops(block, fetch_names):
     return list(reversed(kept))
 
 
+class _Group(typing.NamedTuple):
+    """A run of consecutive ops that run as one call of their lowering's
+    group form (registry.GroupLowering): the ops and each one's input
+    and output bindings."""
+
+    ops: list
+    info: object
+    ins: list
+    outs: list
+
+
+def _merge_groups(steps, index):
+    """Each maximal run of consecutive ops of one type whose lowering has
+    a group form, with equal group keys and no member reading or
+    writing a name an earlier member of the run writes (a shared
+    ``Beta1Pow``, say, which op by op the second op reads advanced),
+    becomes one :class:`_Group` step; so does a lone such op, since the
+    group form is how it runs.  Returns the steps and each one's op
+    index (a list for a group)."""
+    out, out_index, i = [], [], 0
+    while i < len(steps):
+        op, info = steps[i][:2]
+        if info.group is None:
+            out.append(steps[i])
+            out_index.append(index[i])
+            i += 1
+            continue
+        key, written, j = info.group.key(op), set(), i
+        while j < len(steps):
+            opj = steps[j][0]
+            if opj.type != op.type or info.group.key(opj) != key \
+                    or not written.isdisjoint(opj.input_arg_names
+                                              + opj.output_arg_names):
+                break
+            written.update(opj.output_arg_names)
+            j += 1
+        run = steps[i:j]
+        out.append(_Group([s[0] for s in run], info, [s[2] for s in run],
+                          [s[3] for s in run]))
+        out_index.append(index[i:j])
+        i = j
+    return out, out_index
+
+
 class _Plan:
     """One (program version, feed names, fetch names) signature: the
-    pruned ops with their lowerings and slot bindings, the names read
-    from the scope, the names written back to it, and after each step
-    the names no later step, fetch or write-back reads."""
+    pruned ops with their lowerings and slot bindings (runs of ops with
+    a group form merged into one step each), the names read from the
+    scope, the names written back to it, and after each step the names
+    no later step, fetch or write-back reads."""
 
     def __init__(self, program, feed_names, fetch_names):
         block = program.global_block()
         ops = _prune_ops(block, fetch_names)
         position = {id(op): i for i, op in enumerate(block.ops)}
-        self.steps = []
+        steps = []
         # each op's index in its block, as the JAX executor numbers ops
         # for the random streams (ctx.op_index)
-        self.op_index = []
+        op_index = []
         produced = set(feed_names)
         self.scope_reads, self.writes = [], []
         for op in ops:
-            self.op_index.append((block.idx << 16) | position[id(op)])
+            op_index.append((block.idx << 16) | position[id(op)])
             info = registry.get_op(op.type)
             ins = []
             for slot in info.input_slots:
@@ -213,7 +259,7 @@ class _Plan:
             for slot in info.output_slots:
                 names = op.outputs.get(slot.rstrip("*"), [])
                 outs.append((info.is_variadic(slot), list(names)))
-            self.steps.append((op, info, ins, outs))
+            steps.append((op, info, ins, outs))
             for n in op.input_arg_names:
                 if n not in produced and n not in self.scope_reads:
                     self.scope_reads.append(n)
@@ -226,11 +272,16 @@ class _Plan:
         if bad:
             raise ValueError(f"fetch target(s) {bad} are not produced by "
                              f"this program (not an op output or a feed)")
+        self.steps, self.op_index = _merge_groups(steps, op_index)
+        # (op type, members) of each group step
+        self.group_sizes = [(g.ops[0].type, len(g.ops)) for g in self.steps
+                            if isinstance(g, _Group)]
         keep = set(fetch_names) | set(self.writes)
         last = {}
-        for i, (op, _, _, _) in enumerate(self.steps):
-            for n in op.input_arg_names + op.output_arg_names:
-                last[n] = i
+        for i, step in enumerate(self.steps):
+            for op in step.ops if isinstance(step, _Group) else step[:1]:
+                for n in op.input_arg_names + op.output_arg_names:
+                    last[n] = i
         self.frees = [[] for _ in self.steps]
         for n, i in last.items():
             if n not in keep:
@@ -255,47 +306,78 @@ def run_seed(program, step):
     return (int(program.random_seed or 0) or 0x5EED) * 1000003 + step
 
 
+def _inputs(env, ins):
+    return [[env[n] for n in names] if variadic
+            else (env.get(names) if names is not None else None)
+            for variadic, names in ins]
+
+
+def _write(env, outs, out):
+    for (variadic, names), val in zip(outs, out):
+        if val is None or not names:
+            continue
+        if variadic:
+            env.update(zip(names, val))
+        else:
+            env[names[0]] = val
+
+
+def _as_tuple(o):
+    return o if isinstance(o, tuple) else (o,)
+
+
+def _run_op(step, idx, envs, ctxs, bf16):
+    """One op over every env: [[(output bindings, outputs)]] a env."""
+    op, info, ins, outs = step
+    per = []
+    for env in envs:
+        vals = _inputs(env, ins)
+        per.append(_apply_bf16_policy(op, vals) if bf16 else vals)
+    for ctx in ctxs:
+        ctx.cur_op, ctx.op_index = op, idx
+    if info.collective:
+        out = _as_tuple(info.lower(ctxs[0], *[list(c) for c in zip(*per)],
+                                   attrs=op.attrs))
+        return [[(outs, tuple(o[r] if o is not None else None
+                              for o in out))] for r in range(len(envs))]
+    return [[(outs, _as_tuple(info.lower(ctx, *vals, attrs=op.attrs)))]
+            for ctx, vals in zip(ctxs, per)]
+
+
+def _run_group(step, idx, envs, ctxs, bf16):
+    """A group step: one call of the group form over every member op on
+    every env, in replica order."""
+    calls = []
+    for env, ctx in zip(envs, ctxs):
+        ctx.cur_op, ctx.op_index = step.ops[0], idx[0]
+        for op, ins in zip(step.ops, step.ins):
+            vals = _inputs(env, ins)
+            calls.append((ctx, _apply_bf16_policy(op, vals) if bf16
+                          else vals, op.attrs))
+    out = step.info.group.lower(calls)
+    k = len(step.ops)
+    return [list(zip(step.outs, map(_as_tuple, out[r * k:(r + 1) * k])))
+            for r in range(len(envs))]
+
+
 def run_plan(plan, envs, ctxs, bf16):
     """Run ``plan``'s ops over ``envs`` (name -> tensor, one per replica;
     one outside a replica group) with one LowerContext each, in
     lockstep: each op runs once a replica on that replica's values, in
-    replica order, and a collective op runs once over the list of every
-    replica's values.  Values leave each env after their last reader."""
-    n_rep = len(envs)
+    replica order, a collective op runs once over the list of every
+    replica's values, and a group step (a run of ops with a group form)
+    runs once over every member op on every replica.  Values leave each
+    env after their last reader."""
     if bf16 and ctxs[0].device.type == "cuda":
         # bf16 products accumulate in fp32, as the JAX package's do
         torch.backends.cuda.matmul \
             .allow_bf16_reduced_precision_reduction = False
     with torch.no_grad():
-        for (op, info, ins, outs), frees, idx in zip(plan.steps, plan.frees,
-                                                     plan.op_index):
-            per = []
-            for env in envs:
-                vals = [[env[n] for n in names] if variadic
-                        else (env.get(names) if names is not None else None)
-                        for variadic, names in ins]
-                per.append(_apply_bf16_policy(op, vals) if bf16 else vals)
-            for ctx in ctxs:
-                ctx.cur_op, ctx.op_index = op, idx
-            if info.collective:
-                out = info.lower(ctxs[0], *[list(c) for c in zip(*per)],
-                                 attrs=op.attrs)
-                out = out if isinstance(out, tuple) else (out,)
-                results = [tuple(o[r] if o is not None else None
-                                 for o in out) for r in range(n_rep)]
-            else:
-                results = []
-                for ctx, vals in zip(ctxs, per):
-                    o = info.lower(ctx, *vals, attrs=op.attrs)
-                    results.append(o if isinstance(o, tuple) else (o,))
-            for env, out in zip(envs, results):
-                for (variadic, names), val in zip(outs, out):
-                    if val is None or not names:
-                        continue
-                    if variadic:
-                        env.update(zip(names, val))
-                    else:
-                        env[names[0]] = val
+        for step, frees, idx in zip(plan.steps, plan.frees, plan.op_index):
+            run = _run_group if isinstance(step, _Group) else _run_op
+            for env, results in zip(envs, run(step, idx, envs, ctxs, bf16)):
+                for outs, out in results:
+                    _write(env, outs, out)
                 for name in frees:
                     env.pop(name, None)
 

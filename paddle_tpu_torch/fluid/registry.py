@@ -34,8 +34,9 @@ import torch
 
 from .framework import GRAD_SUFFIX
 
-__all__ = ["LowerContext", "OpInfo", "register_op", "simple_op", "has_op",
-           "get_op", "infer_op_outputs", "wanted_grads", "fold_seed"]
+__all__ = ["LowerContext", "OpInfo", "GroupLowering", "register_op",
+           "simple_op", "has_op", "get_op", "infer_op_outputs",
+           "wanted_grads", "fold_seed"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -92,6 +93,18 @@ class LowerContext:
         return self._generator
 
 
+class GroupLowering(_t.NamedTuple):
+    """How the executor may run a run of consecutive ops of one type as
+    one call (fluid/executor.py ``_Plan``): ``key(op)`` says which ops
+    may share a call (equal keys), and ``lower(calls)`` takes every
+    member's ``(ctx, inputs, attrs)`` — every op of the run on every
+    replica — and returns each member's outputs, in order, as the op's
+    own lowering would."""
+
+    key: _t.Callable
+    lower: _t.Callable
+
+
 @dataclasses.dataclass
 class OpInfo:
     type: str
@@ -115,6 +128,9 @@ class OpInfo:
     # output the list of every replica's result (lists of one outside a
     # group)
     collective: bool = False
+    # a GroupLowering: runs of these ops may run as one call (the fused
+    # optimizer ops: one K8 launch a run)
+    group: _t.Optional[GroupLowering] = None
 
     def is_variadic(self, slot):
         return slot.endswith("*")
@@ -144,7 +160,7 @@ def get_op(type_) -> OpInfo:
 
 def register_op(type, inputs, outputs, lower, grad="auto", optional=(),
                 no_grad_inputs=(), grad_maker=None, inplace=None,
-                collective=False):
+                collective=False, group=None):
     """Register an op lowering; ``grad="auto"`` also registers its
     ``<type>_grad`` op, derived by autograd (a hand-written grad op
     registered later under that name replaces it)."""
@@ -153,7 +169,7 @@ def register_op(type, inputs, outputs, lower, grad="auto", optional=(),
                   optional=frozenset(optional),
                   no_grad_inputs=frozenset(no_grad_inputs),
                   grad_maker=grad_maker, inplace=inplace,
-                  collective=collective)
+                  collective=collective, group=group)
     _OP_REGISTRY[type] = info
     if grad == "auto":
         _register_auto_grad(info)

@@ -30,12 +30,23 @@ package's.  An fp32 gradient always takes the plain version, as it
 takes the XLA path in the JAX package.  ``force="reference"`` selects
 the plain version explicitly; nothing on the training path sets it.
 ``fused_update_kernel.launches`` counts launches.
+
+:func:`fused_update_group` is the form the data-parallel step runs
+(the executor groups a run of fused optimizer ops, fluid/executor.py):
+one launch updates every member of a table of up to
+``pt_fused_update_group_capacity()`` parameters, so a step pays a few
+launches where it paid one a parameter.  On the TPU the JAX package's
+Pallas calls all ran inside one XLA executable; here each launch costs
+a few microseconds, which is the whole update of a bias.
+``fused_update_group.launches`` counts its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -47,7 +58,9 @@ __all__ = [
     "bytes_saved", "dequant_slice", "adam_math", "adamw_math", "sgd_math",
     "momentum_math", "quantize_for_gather", "fused_adam_update",
     "fused_adamw_update", "fused_sgd_update", "fused_momentum_update",
-    "fused_update_kernel", "MAX_BLOCK_SIZE",
+    "fused_update_kernel", "fused_update_group", "launch_group",
+    "GroupMember",
+    "MAX_BLOCK_SIZE",
 ]
 
 MAX_BLOCK_SIZE = 1024  # one CTA a block in the requant form
@@ -61,6 +74,10 @@ _SIGNATURES = {
                        [ctypes.c_void_p] * 9 +
                        [ctypes.c_float] * 6 +
                        [ctypes.c_void_p] * 4,
+    "pt_fused_update_group_capacity": [],
+    # (kind, dual, block_size, n, rows, c0..c5, stream)
+    "pt_fused_update_group": [ctypes.c_int] * 4 + [ctypes.c_void_p] +
+                             [ctypes.c_float] * 6 + [ctypes.c_void_p],
 }
 
 
@@ -179,12 +196,26 @@ def _check_kernel_args(p, grad, moments, block_size):
                              f"{t.device}")
 
 
-def fused_update_kernel(kind, p, grad, m1, m2, lr, b1p, b2p, hyper,
+def _consts(kind, beta1=0.9, beta2=0.999, epsilon=1e-8, coeff=0.0, mu=0.9,
+            use_nesterov=False):
+    """The kernel's six constants of ``kind``: adam and adamw (beta1,
+    1 - beta1, beta2, 1 - beta2, epsilon, coeff; adam's coeff 0),
+    momentum (mu, use_nesterov), sgd none; zero-padded."""
+    if kind == "momentum":
+        c = (mu, 1.0 if use_nesterov else 0.0)
+    elif kind in ("adam", "adamw"):
+        c = (beta1, 1 - beta1, beta2, 1 - beta2, epsilon,
+             coeff if kind == "adamw" else 0.0)
+    else:
+        c = ()
+    return [float(x) for x in c] + [0.0] * (6 - len(c))
+
+
+def fused_update_kernel(kind, p, grad, m1, m2, lr, b1p, b2p, consts,
                         block_size, requant=False):
     """Launch K8 once on CUDA tensors.  ``grad`` is the bucket slice
-    ``(hi, lo, scales, offset_blocks, numel)``; ``hyper`` the kind's
-    constants: adam and adamw (beta1, 1 - beta1, beta2, 1 - beta2,
-    epsilon, coeff), momentum (mu, use_nesterov), sgd none.  Updates p (unless
+    ``(hi, lo, scales, offset_blocks, numel)``; ``consts`` the kind's
+    six constants (:func:`_consts`).  Updates p (unless
     ``requant``), m1 and m2 in place; with ``requant`` returns the
     updated parameter's ``(hi, lo, scales)`` over ceil(numel/block)
     blocks, else None.  The beta powers are read, not advanced."""
@@ -204,7 +235,6 @@ def fused_update_kernel(kind, p, grad, m1, m2, lr, b1p, b2p, hyper,
     def ptr(t):
         return _build.ptr(t) if t is not None else None
 
-    consts = [float(h) for h in hyper] + [0.0] * (6 - len(hyper))
     err = lib.pt_fused_update(
         _KIND[kind], int(bool(requant)), int(numel), bs, int(offset_blocks),
         ptr(p), ptr(m1), ptr(m2), ptr(q_hi), ptr(q_lo), ptr(scales),
@@ -275,7 +305,7 @@ def _adam_like(kind, p, grad, m1, m2, lr, b1p, b2p, beta1, beta2, epsilon,
     if _use_kernel(p, grad, force):
         q = fused_update_kernel(
             kind, p, grad, m1, m2, lr, b1p, b2p,
-            (beta1, 1 - beta1, beta2, 1 - beta2, epsilon, coeff), bs,
+            _consts(kind, beta1, beta2, epsilon, coeff), bs,
             requant=requant_pad is not None)
         # after the launch: the kernel reads the powers on the stream
         b1p.mul_(beta1)
@@ -328,7 +358,7 @@ def fused_sgd_update(p, grad, lr, *, block_size=DEFAULT_BLOCK_SIZE,
     bs = int(block_size)
     if _use_kernel(p, grad, force):
         q = fused_update_kernel("sgd", p, grad, None, None, lr, None, None,
-                                (), bs,
+                                _consts("sgd"), bs,
                                 requant=requant_pad is not None)
         if q is not None:
             q = _requant_out(p, q, bs, requant_pad)
@@ -347,7 +377,8 @@ def fused_momentum_update(p, grad, v, lr, *, mu=0.9, use_nesterov=False,
     bs = int(block_size)
     if _use_kernel(p, grad, force):
         q = fused_update_kernel("momentum", p, grad, v, None, lr, None, None,
-                                (mu, 1.0 if use_nesterov else 0.0), bs,
+                                _consts("momentum", mu=mu,
+                                        use_nesterov=use_nesterov), bs,
                                 requant=requant_pad is not None)
         if q is not None:
             q = _requant_out(p, q, bs, requant_pad)
@@ -356,3 +387,120 @@ def fused_momentum_update(p, grad, v, lr, *, mu=0.9, use_nesterov=False,
                                      lr, mu, use_nesterov)
         q = _finish_plain(p, p_new, [(v, v_new)], bs, requant_pad)
     return (p, v) + tuple(q) if q is not None else (p, v)
+
+
+# ---------------------------------------------------------------------------
+# the group form: one launch over many parameters
+# ---------------------------------------------------------------------------
+
+
+class GroupMember(NamedTuple):
+    """One parameter of a group update: the tensors its fused op reads
+    and updates.  ``grad`` is the bucket slice ``(hi, lo, scales,
+    offset_blocks, numel)``; ``m1`` is momentum's velocity; the kinds
+    without moments or beta powers leave them None."""
+
+    p: torch.Tensor
+    grad: tuple
+    lr: torch.Tensor
+    m1: torch.Tensor = None
+    m2: torch.Tensor = None
+    b1p: torch.Tensor = None
+    b2p: torch.Tensor = None
+
+
+def _member_plain(kind, m, hyper, bs, force):
+    """One member through its per-parameter entry."""
+    kw = dict(block_size=bs, force=force)
+    if kind == "sgd":
+        fused_sgd_update(m.p, m.grad, m.lr, **kw)
+    elif kind == "momentum":
+        fused_momentum_update(m.p, m.grad, m.m1, m.lr, mu=hyper["mu"],
+                              use_nesterov=hyper["use_nesterov"], **kw)
+    else:
+        fn = fused_adam_update if kind == "adam" else fused_adamw_update
+        extra = {"coeff": hyper["coeff"]} if kind == "adamw" else {}
+        fn(m.p, m.grad, m.m1, m.m2, m.lr, m.b1p, m.b2p,
+           beta1=hyper["beta1"], beta2=hyper["beta2"],
+           epsilon=hyper["epsilon"], **extra, **kw)
+
+
+def _group_rows(kind, members, bs):
+    """The launch table's rows (int64: the nine pointers, 0 for none,
+    then offset_blocks and numel), each member checked as the
+    per-parameter entry checks it."""
+    rows = []
+    dual = members[0].grad[1] is not None
+    for m in members:
+        q_hi, q_lo, scales, offset_blocks, numel = m.grad
+        moments = [(n, t) for n, t in (("Moment1", m.m1), ("Moment2", m.m2))
+                   if t is not None]
+        _check_kernel_args(m.p, m.grad, moments, bs)
+        if (q_lo is not None) != dual:
+            raise ValueError("fused_update_group: members mix a dual-int8 "
+                             "and a single-int8 wire")
+        state = (m.lr, m.b1p, m.b2p)
+        for t in state:
+            if t is not None and (t.dtype != torch.float32
+                                  or t.device != m.p.device):
+                raise ValueError("fused_update_group: LearningRate and the "
+                                 "beta powers must be float32 on the "
+                                 "parameter's device")
+        rows.append([0 if t is None else t.data_ptr() for t in (
+            m.p, m.m1, m.m2, q_hi, q_lo, scales) + state]
+            + [int(offset_blocks), int(numel)])
+    return np.asarray(rows, dtype=np.int64), dual
+
+
+def fused_update_group(kind, members, hyper, block_size, force=None):
+    """The fp32 update of every member (a :class:`GroupMember`) of one
+    ``kind`` in place, as its per-parameter entry would: on CUDA tensors
+    one launch per device per table-full of members, the beta powers
+    then advanced by one ``torch._foreach_mul_`` a list; on CPU tensors
+    (or with ``force="reference"``) the plain version member by member.
+    ``hyper``: adam and adamw ``beta1``, ``beta2``, ``epsilon`` (adamw
+    also ``coeff``); momentum ``mu``, ``use_nesterov``; sgd none."""
+    if kind not in _KIND:
+        raise ValueError(f"fused_update_group: kind {kind!r}")
+    bs = int(block_size)
+    by_device = {}
+    for m in members:
+        if not isinstance(m.grad, tuple):
+            raise ValueError("fused_update_group: a member's gradient must "
+                             "be a bucket slice (hi, lo, scales, "
+                             "offset_blocks, numel)")
+        by_device.setdefault(m.p.device, []).append(m)
+    for device, group in by_device.items():
+        if not _use_kernel(group[0].p, group[0].grad, force):
+            for m in group:
+                _member_plain(kind, m, hyper, bs, force)
+            continue
+        with torch.cuda.device(device):
+            launch_group(kind, group, hyper, bs)
+            if kind in ("adam", "adamw"):
+                # after the launches: the kernels read the powers on the
+                # stream
+                torch._foreach_mul_([m.b1p for m in group], hyper["beta1"])
+                torch._foreach_mul_([m.b2p for m in group], hyper["beta2"])
+
+
+def launch_group(kind, group, hyper, block_size):
+    """The group kernel over ``group`` (members on the current CUDA
+    device), one launch a table-full of members; the beta powers are
+    read, not advanced."""
+    bs = int(block_size)
+    rows, dual = _group_rows(kind, group, bs)
+    lib = _build.load("fused_update", _SIGNATURES)
+    cap = lib.pt_fused_update_group_capacity()
+    consts = _consts(kind, **hyper)
+    stream = _build.stream_of(group[0].p.device)
+    for i in range(0, len(rows), cap):
+        table = np.ascontiguousarray(rows[i:i + cap])
+        err = lib.pt_fused_update_group(
+            _KIND[kind], int(dual), bs, len(table),
+            table.ctypes.data_as(ctypes.c_void_p), *consts, stream)
+        fused_update_group.launches += 1
+        _build.check("fused_update_group", err)
+
+
+fused_update_group.launches = 0

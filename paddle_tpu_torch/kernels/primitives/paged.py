@@ -33,11 +33,11 @@ plain version explicitly, as the JAX op's ``force`` attr does; nothing
 on the decode path sets it.  Each wrapper's ``.launches`` counts its
 kernel launches (one a call, whatever the kernel launches inside).
 
-K5 splits each row's logical pages across CTAs (flash-decoding):
-:func:`split_plan` computes the split from shapes alone, and the wrapper
-allocates the kernel's partials with ``torch.empty`` and keeps its
-arrival counters, one zeroed set a (device, stream) that the kernel
-resets after each use.
+K5 and K7 split each row's logical pages across CTAs (flash-decoding):
+:func:`split_plan` computes the split from shapes alone, and each
+wrapper allocates the kernel's partials with ``torch.empty`` and takes
+its arrival counters from one zeroed set a (device, stream), which the
+kernel resets after each use.
 """
 
 from __future__ import annotations
@@ -61,8 +61,8 @@ _SIGNATURES = {
     "pt_paged_warps": [],
     "pt_paged_attention_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p],
-    "pt_paged_attention_quant_f32": [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    "pt_paged_attention_quant_f32": [ctypes.c_void_p] * 12
+    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p],
 }
 
 
@@ -72,7 +72,7 @@ _KEYS_PER_WARP = 16
 
 
 class SplitPlan(NamedTuple):
-    """K5's split of each row's logical pages: ``splits`` chunks of
+    """The split of each row's logical pages: ``splits`` chunks of
     ``pages_per_split`` (the last may be shorter), one CTA per (query
     tile, chunk, head, row).  ``workspace`` is the shape of the fp32
     partials (m, l, acc[d]) of every (row, head, query, chunk) and
@@ -86,7 +86,8 @@ class SplitPlan(NamedTuple):
 
 
 def split_plan(b, n, t, d, max_pages, page_size, warps):
-    """K5's split from shapes and the kernel's ``warps`` a CTA alone —
+    """K5's and K7's split from shapes and the kernel's ``warps`` a CTA
+    alone —
     never from ``q_start`` or ``page_table`` values, so planning reads
     nothing from the device and every decode step makes the same
     launch."""
@@ -193,6 +194,29 @@ def _scale(q, sm_scale):
                  else 1.0 / math.sqrt(q.shape[-1]))
 
 
+def _ptr_or_none(t):
+    return None if t is None else _build.ptr(t)
+
+
+def _plan_launch(lib, q, pool, page_table):
+    """The split plan's launch arguments for q over ``pool`` (one of its
+    [P, page, n, d] tensors): the partials and the arrival counters
+    (None for one split; the caller keeps them alive past the launch),
+    then (B, n, T, d, page size, max_pages, P, pages_per_split,
+    splits)."""
+    b, n, t, d = q.shape
+    page_size, max_pages = pool.shape[1], page_table.shape[1]
+    plan = split_plan(b, n, t, d, max_pages, page_size, lib.pt_paged_warps())
+    part = arrivals = None
+    if plan.splits > 1:
+        part = torch.empty(plan.workspace, dtype=torch.float32,
+                           device=q.device)
+        arrivals = _arrival_counters(q.device, _build.stream_of(q.device),
+                                     plan.arrivals)
+    return part, arrivals, (b, n, t, d, page_size, max_pages, pool.shape[0],
+                            plan.pages_per_split, plan.splits)
+
+
 def paged_attention(q, k_pages, v_pages, page_table, q_start, *,
                     sm_scale=None, force=None):
     """K5: attention of q [B, n, T, d] against pool K/V read through
@@ -208,23 +232,14 @@ def paged_attention(q, k_pages, v_pages, page_table, q_start, *,
                                  ("v_pages", v_pages, torch.float32),
                                  ("page_table", page_table, torch.int32),
                                  ("q_start", q_start, torch.int32)))
-    b, n, t, d = q.shape
     lib = _build.load("paged_attention", _SIGNATURES)
     out = torch.empty_like(q)
-    page_size, max_pages = k_pages.shape[1], page_table.shape[1]
-    plan = split_plan(b, n, t, d, max_pages, page_size, lib.pt_paged_warps())
-    stream = _build.stream_of(q.device)
-    part = arrivals = None
-    if plan.splits > 1:
-        part = torch.empty(plan.workspace, dtype=torch.float32,
-                           device=q.device)
-        arrivals = _arrival_counters(q.device, stream, plan.arrivals)
+    part, arrivals, plan_args = _plan_launch(lib, q, k_pages, page_table)
     err = lib.pt_paged_attention_f32(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(page_table), _build.ptr(q_start), _build.ptr(out),
-        *(None if x is None else _build.ptr(x) for x in (part, arrivals)),
-        b, n, t, d, page_size, max_pages, k_pages.shape[0],
-        plan.pages_per_split, plan.splits, scale, stream)
+        *map(_ptr_or_none, (part, arrivals)), *plan_args, scale,
+        _build.stream_of(q.device))
     paged_attention.launches += 1
     _build.check("paged_attention", err)
     return out
@@ -288,14 +303,13 @@ def paged_attention_quant(q, k_hi, k_lo, k_scale, v_hi, v_lo, v_scale,
         ("v_scale", v_scale, torch.float32),
         ("page_table", page_table, torch.int32),
         ("q_start", q_start, torch.int32)))
-    b, n, t, d = q.shape
     lib = _build.load("paged_attention", _SIGNATURES)
     out = torch.empty_like(q)
-    page_size, max_pages = k_hi.shape[1], page_table.shape[1]
+    part, arrivals, plan_args = _plan_launch(lib, q, k_hi, page_table)
     err = lib.pt_paged_attention_quant_f32(
         *map(_build.ptr, (q, k_hi, k_lo, k_scale, v_hi, v_lo, v_scale,
                           page_table, q_start, out)),
-        b, n, t, d, page_size, max_pages, k_hi.shape[0], scale,
+        *map(_ptr_or_none, (part, arrivals)), *plan_args, scale,
         _build.stream_of(q.device))
     paged_attention_quant.launches += 1
     _build.check("paged_attention_quant", err)

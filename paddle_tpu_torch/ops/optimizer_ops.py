@@ -11,6 +11,10 @@ The ``*_quant_grad`` ops take the gradient as a block-aligned member of
 a reduced bucket kept in its wire format (``QHi``, ``QLo``, ``QScale``
 from ``c_allreduce_quant_keep``; attrs ``offset_blocks``, ``numel``,
 ``block_size``) and run kernel K8 (kernels/fused_update.py) on it.
+Each registers a group form (registry.GroupLowering): the executor runs
+a run of consecutive fused ops of one kind and hyperparameters as one
+``fused_update_group`` call, one K8 launch for up to a table-full of
+parameters of every replica.
 Not ported yet: the ``*_quant_gather`` ops of the ZeRO-1 lane, lamb,
 dgc and the rest of the JAX package's optimizer ops.
 """
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.fluid.registry import simple_op
+from paddle_tpu_torch.fluid.registry import GroupLowering, simple_op
 from paddle_tpu_torch.kernels import fused_update as fu
 
 _ADAM_SLOTS = dict(
@@ -120,9 +124,59 @@ def _wire(qh, ql, qsc, attrs):
     return (qh, ql, qsc, int(attrs["offset_blocks"]), int(attrs["numel"]))
 
 
+def _hyper(kind, attrs):
+    """The kind's constants from a fused op's attrs, at the defaults its
+    lowering takes."""
+    if kind == "momentum":
+        return dict(mu=attrs.get("mu", 0.9),
+                    use_nesterov=bool(attrs.get("use_nesterov", False)))
+    if kind in ("adam", "adamw"):
+        h = dict(beta1=attrs.get("beta1", 0.9),
+                 beta2=attrs.get("beta2", 0.999),
+                 epsilon=attrs.get("epsilon", 1e-8))
+        if kind == "adamw":
+            h["coeff"] = attrs.get("coeff", 0.01)
+        return h
+    return {}
+
+
+def _grouped(kind):
+    """The group form of ``fused_<kind>_quant_grad``: ops of one block
+    size, wire (dual or single int8) and hyperparameters share a call."""
+
+    def key(op):
+        return (int(op.attrs.get("block_size", 256)),
+                bool(op.inputs.get("QLo")),
+                tuple(sorted(_hyper(kind, op.attrs).items())))
+
+    def lower(calls):
+        members, outs = [], []
+        for _, (p, qh, ql, qsc, *state), attrs in calls:
+            grad = _wire(qh, ql, qsc, attrs)
+            if kind == "sgd":
+                (lr,) = state
+                members.append(fu.GroupMember(p, grad, lr))
+                outs.append(p)
+            elif kind == "momentum":
+                v, lr = state
+                members.append(fu.GroupMember(p, grad, lr, m1=v))
+                outs.append((p, v))
+            else:
+                m1, m2, lr, b1p, b2p = state
+                members.append(fu.GroupMember(p, grad, lr, m1, m2, b1p, b2p))
+                outs.append((p, m1, m2, b1p, b2p))
+        attrs = calls[0][2]
+        fu.fused_update_group(kind, members, _hyper(kind, attrs),
+                              attrs.get("block_size", 256))
+        return outs
+
+    return GroupLowering(key, lower)
+
+
 @simple_op("fused_sgd_quant_grad",
            ["Param"] + _QUANT_IN + ["LearningRate"], ["ParamOut"],
-           grad=None, optional=("QLo",), inplace={"ParamOut": "Param"})
+           grad=None, optional=("QLo",), inplace={"ParamOut": "Param"},
+           group=_grouped("sgd"))
 def _fused_sgd_quant_grad(ctx, p, qh, ql, qsc, lr, attrs):
     return fu.fused_sgd_update(p, _wire(qh, ql, qsc, attrs), lr,
                                block_size=attrs.get("block_size", 256))
@@ -131,35 +185,32 @@ def _fused_sgd_quant_grad(ctx, p, qh, ql, qsc, lr, attrs):
 @simple_op("fused_momentum_quant_grad",
            ["Param"] + _QUANT_IN + ["Velocity", "LearningRate"],
            ["ParamOut", "VelocityOut"], grad=None, optional=("QLo",),
-           inplace={"ParamOut": "Param", "VelocityOut": "Velocity"})
+           inplace={"ParamOut": "Param", "VelocityOut": "Velocity"},
+           group=_grouped("momentum"))
 def _fused_momentum_quant_grad(ctx, p, qh, ql, qsc, v, lr, attrs):
+    h = _hyper("momentum", attrs)
     return fu.fused_momentum_update(
-        p, _wire(qh, ql, qsc, attrs), v, lr, mu=attrs.get("mu", 0.9),
-        use_nesterov=attrs.get("use_nesterov", False),
+        p, _wire(qh, ql, qsc, attrs), v, lr, **h,
         block_size=attrs.get("block_size", 256))
 
 
 @simple_op("fused_adam_quant_grad",
            ["Param"] + _QUANT_IN + ["Moment1", "Moment2", "LearningRate",
                                     "Beta1Pow", "Beta2Pow"],
-           optional=("QLo",), **_ADAM_SLOTS)
+           optional=("QLo",), group=_grouped("adam"), **_ADAM_SLOTS)
 def _fused_adam_quant_grad(ctx, p, qh, ql, qsc, m1, m2, lr, b1p, b2p,
                            attrs):
     return fu.fused_adam_update(
         p, _wire(qh, ql, qsc, attrs), m1, m2, lr, b1p, b2p,
-        beta1=attrs.get("beta1", 0.9), beta2=attrs.get("beta2", 0.999),
-        epsilon=attrs.get("epsilon", 1e-8),
-        block_size=attrs.get("block_size", 256))
+        **_hyper("adam", attrs), block_size=attrs.get("block_size", 256))
 
 
 @simple_op("fused_adamw_quant_grad",
            ["Param"] + _QUANT_IN + ["Moment1", "Moment2", "LearningRate",
                                     "Beta1Pow", "Beta2Pow"],
-           optional=("QLo",), **_ADAM_SLOTS)
+           optional=("QLo",), group=_grouped("adamw"), **_ADAM_SLOTS)
 def _fused_adamw_quant_grad(ctx, p, qh, ql, qsc, m1, m2, lr, b1p, b2p,
                             attrs):
     return fu.fused_adamw_update(
         p, _wire(qh, ql, qsc, attrs), m1, m2, lr, b1p, b2p,
-        beta1=attrs.get("beta1", 0.9), beta2=attrs.get("beta2", 0.999),
-        epsilon=attrs.get("epsilon", 1e-8), coeff=attrs.get("coeff", 0.01),
-        block_size=attrs.get("block_size", 256))
+        **_hyper("adamw", attrs), block_size=attrs.get("block_size", 256))

@@ -20,10 +20,10 @@ over the fp32 and the int8 pool (the tiny model's top-two gaps are far
 wider than the fp32 differences between cuBLAS and the CPU); the ragged
 Engine's scores within 1e-5 of a CPU engine's; the BERT step's losses
 on the card within 1e-4 of the CPU's in fp32 and within 2e-3 under the
-bf16 policy; K8 within 1e-6 of each tensor's largest element with equal
-requant codes, the quantized all-reduce forms within 1e-6 of each
-block's max of CPU replicas, and a dp 2 BERT-tiny run's losses within
-1e-4 of CPU replicas'.
+bf16 policy; K8 (its per-parameter and its group form) within 1e-6 of
+each tensor's largest element with equal requant codes, the quantized
+all-reduce forms within 1e-6 of each block's max of CPU replicas, and a
+dp 2 BERT-tiny run's losses within 1e-4 of CPU replicas'.
 """
 
 import numpy as np
@@ -461,6 +461,44 @@ def test_paged_quant_kernel_matches_plain(dev, name, b, n, t, d, page_size,
     torch.testing.assert_close(got, want, **K5_TOL)
 
 
+@pytest.mark.parametrize("name,b,t,q_start", [
+    # decode rows with 1 live chunk (q_start 0, 32), 2 (200), 5 (600) and
+    # all 8 (992, 1023) of 8 pages
+    ("decode", 6, 1, [0, 32, 200, 600, 992, 1023]),
+    # prefill chunks: only the first chunk live, two tiles across chunks,
+    # every chunk live
+    ("prefill@0", 1, 32, [0]),
+    ("prefill@32", 1, 32, [32]),
+    ("prefill@300", 1, 32, [300]),
+    ("prefill@992", 1, 32, [992]),
+])
+def test_paged_quant_split_kernel_matches_plain(dev, name, b, t, q_start):
+    """K7's split form (64 pages of 16 keys: eight chunks of eight pages)
+    against its plain version, launched twice on each of two streams:
+    the arrival counters, one set a stream, are all 0 after each call."""
+    n, d, page_size, max_pages = 3, 64, 16, 64
+    warps = _build.load("paged_attention", paged._SIGNATURES).pt_paged_warps()
+    assert paged.split_plan(b, n, t, d, max_pages, page_size,
+                            warps).splits == 8
+    args = _quant_case(dev, b, n, t, d, page_size, max_pages, q_start)
+    want = paged.paged_attention_quant(*args, force="reference")
+    side = torch.cuda.Stream(dev)
+    before = paged.paged_attention_quant.launches
+    outs = []
+    for stream in (torch.cuda.current_stream(dev), side):
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                outs.append(paged.paged_attention_quant(*args))
+                stream.synchronize()
+                assert not any(c.any() for c in paged._arrivals.values())
+    torch.cuda.synchronize()
+    assert paged.paged_attention_quant.launches == before + 4
+    assert sum(k[0] == dev for k in paged._arrivals) >= 2
+    for got in outs:
+        torch.testing.assert_close(got, want, **K5_TOL)
+
+
 def test_paged_quant_kernel_unaligned_pool_uses_scalar_staging(dev):
     """hi/lo views one byte off 16-byte alignment take the scalar path
     and still agree."""
@@ -712,6 +750,64 @@ def test_fused_update_kernel_matches_plain(dev, kind, nesterov, requant,
                                        atol=1e-6 * w.abs().max().item())
 
 
+@pytest.mark.parametrize("kind,nesterov", K8_KINDS)
+@pytest.mark.parametrize("dual", [True, False])
+def test_fused_update_group_matches_plain(dev, kind, nesterov, dual):
+    """The group kernel over odd segments (one element, ragged numels,
+    block offsets that are not multiples of 4 elements at block size 6,
+    members of two buckets) against the plain version member by member,
+    within the per-parameter form's gate (1e-6 of each tensor's largest
+    element); one launch a table-full of members, none of the
+    per-parameter form."""
+    from paddle_tpu_torch.kernels import fused_update as fu
+    from paddle_tpu_torch.kernels import quantized_collectives as qc
+
+    bs, numels = 6, (1, 7, 13, 40, 25, 6, 1000, 3)
+    rng = np.random.RandomState(len(numels) + dual)
+    members = []
+    for bucket_numels in (numels[:5], numels[5:]):
+        offsets, off = [], 1
+        for n in bucket_numels:
+            offsets.append(off)
+            off += -(-n // bs)
+        flat = np.zeros((off + 1) * bs, np.float32)
+        for o, n in zip(offsets, bucket_numels):
+            flat[o * bs:o * bs + n] = rng.randn(n)
+        hi, lo, sc = qc.quantize_block_scaled(
+            torch.from_numpy(flat).to(dev), bs, dual_int8=dual)
+        lr = torch.tensor([1e-2], device=dev)
+        for o, n in zip(offsets, bucket_numels):
+            f = lambda a: torch.from_numpy(  # noqa: E731
+                np.asarray(a, np.float32)).to(dev)
+            adam = kind in ("adam", "adamw")
+            members.append(fu.GroupMember(
+                f(rng.randn(n) * 0.1), (hi, lo if dual else None, sc, o, n),
+                lr, f(rng.randn(n) * 0.01) if kind != "sgd" else None,
+                f(np.abs(rng.randn(n)) * 0.01) if adam else None,
+                f([0.9 ** 2]) if adam else None,
+                f([0.999 ** 2]) if adam else None))
+    hyper = {"sgd": {}, "momentum": dict(mu=0.9, use_nesterov=nesterov),
+             "adam": dict(beta1=0.9, beta2=0.999, epsilon=1e-8),
+             "adamw": dict(beta1=0.9, beta2=0.999, epsilon=1e-8,
+                           coeff=0.01)}[kind]
+    ref = [fu.GroupMember(*(t.clone() if isinstance(t, torch.Tensor)
+                            else t for t in m)) for m in members]
+    lib = _build.load("fused_update", fu._SIGNATURES)
+    cap = lib.pt_fused_update_group_capacity()
+    before = (fu.fused_update_group.launches, fu.fused_update_kernel.launches)
+    fu.fused_update_group(kind, members, hyper, bs)
+    fu.fused_update_group(kind, ref, hyper, bs, force="reference")
+    torch.cuda.synchronize()
+    assert (fu.fused_update_group.launches,
+            fu.fused_update_kernel.launches) == (
+        before[0] + -(-len(members) // cap), before[1])
+    for m, r in zip(members, ref):
+        for g, w in zip(m, r):
+            if isinstance(g, torch.Tensor) and g.dtype == torch.float32:
+                torch.testing.assert_close(g, w, rtol=1e-6,
+                                           atol=1e-6 * w.abs().max().item())
+
+
 def test_fused_update_kernel_raises_not_falls_back(dev):
     from paddle_tpu_torch.kernels import fused_update as fu
 
@@ -752,7 +848,9 @@ def test_quantized_all_reduce_on_card_matches_cpu_replicas(dev, n, algo,
 def test_dp2_bert_tiny_on_card_matches_cpu_replicas(dev):
     """Two steps of BERT-tiny at dp 2 through CompiledProgram on two
     replicas of the card and on two CPUPlace replicas, from the same
-    parameters: every fused update on the card launches K8."""
+    parameters: the fused updates on the card launch K8's group form
+    once a table-full of the plan's group of both replicas' members,
+    and never its per-parameter form."""
     from paddle_tpu_torch import convert, fluid
     from paddle_tpu_torch.kernels import fused_update as fu
     from paddle_tpu_torch.models import bert
@@ -779,12 +877,17 @@ def test_dp2_bert_tiny_on_card_matches_cpu_replicas(dev):
         bs.quant_allreduce = True
         cp = fluid.CompiledProgram(main, build_strategy=bs).with_data_parallel(
             loss_name=loss.name, places=[place] * 2)
-        before = fu.fused_update_kernel.launches
+        before = (fu.fused_update_group.launches,
+                  fu.fused_update_kernel.launches)
         losses[key] = [exe.run(cp, feed=feed, fetch_list=[loss],
                                scope=scope)[0] for _ in range(2)]
-        launched = fu.fused_update_kernel.launches - before
-        n_fused = sum(op.type == "fused_adam_quant_grad"
-                      for op in cp._dp_runner.program.global_block().ops)
-        assert launched == (2 * 2 * n_fused if key == "gpu" else 0)
+        launched = (fu.fused_update_group.launches - before[0],
+                    fu.fused_update_kernel.launches - before[1])
+        plan = next(iter(cp._dp_runner._plans.values()))
+        cap = _build.load("fused_update",
+                          fu._SIGNATURES).pt_fused_update_group_capacity()
+        group = sum(-(-n * 2 // cap) for _, n in plan.group_sizes)
+        assert plan.group_sizes
+        assert launched == ((2 * group, 0) if key == "gpu" else (0, 0))
     np.testing.assert_allclose(np.asarray(losses["gpu"]),
                                np.asarray(losses["cpu"]), rtol=1e-4)

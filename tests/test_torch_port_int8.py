@@ -9,6 +9,9 @@ Kernel and op level, in this process, on the same seeded numpy inputs:
 - K7's plain version, ``paged_attention_quant_reference``, against the
   JAX reference and the JAX Pallas kernel in interpret mode, at 2e-5
   (fp32: the oracles sum keys in another order).
+- K7's split plan at the int8 lane's shapes, and what its wrapper hands
+  the kernel (build stubbed): the plan's workspace and the shared,
+  zeroed arrival counters.
 
 Lane level, against a child process (tests/torch_port_serving_oracle.py)
 that runs the JAX ``DecodeEngine(pool_dtype="int8")`` on the tiny GPT of
@@ -243,6 +246,86 @@ def test_paged_quant_wrapper_checks():
     out = tpaged.paged_attention_quant(*case, force="reference")
     assert tpaged.paged_attention_quant.launches == launches  # no kernel
     assert out.shape == case[0].shape
+
+
+@pytest.mark.parametrize("case,b,t", [("decode", 8, 1), ("prefill", 1, 32)])
+def test_paged_quant_split_plan_at_lane_shapes(case, b, t):
+    """K7 plans as K5 does: at the int8 lane's shapes (12 heads, d 64,
+    pages of 16, 64 logical pages) eight splits of eight pages, one page
+    a warp of the library's eight, with the partials and counters of
+    every (row, head, query)."""
+    plan = tpaged.split_plan(b, 12, t, 64, 64, 16, 8)
+    assert (plan.pages_per_split, plan.splits) == (8, 8)
+    assert plan.workspace == (b, 12, t, 8, 66)
+    assert plan.arrivals == b * 12 * t
+
+
+class _FakeQuantLib:
+    """Stands in for the built library: a CTA of ``warps`` warps, and
+    each K7 launch's arguments recorded."""
+
+    def __init__(self, warps):
+        self.warps = warps
+        self.calls = []
+
+    def pt_paged_warps(self):
+        return self.warps
+
+    def pt_paged_attention_quant_f32(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_paged_quant_wrapper_passes_the_shape_plan(monkeypatch):
+    """K7's kernel branch, driven on CPU tensors with the build stubbed
+    (each pointer argument handed over as its tensor): the plan from
+    shapes and the library's warps, a workspace of the plan's shape,
+    zeroed arrival counters shared with the next launch in the stream
+    (and with K5's), the same plan for other q_start and page-table
+    values, and null workspace and counters for one split."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _FakeQuantLib(warps=4)
+    monkeypatch.setattr(tpaged, "_use_kernel", lambda *a: True)
+    monkeypatch.setattr(_build, "load", lambda *a: lib)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    monkeypatch.setattr(_build, "stream_of",
+                        lambda dev: ctypes.c_void_p(1234))
+    monkeypatch.setattr(tpaged, "_arrivals", {})
+    rng = np.random.RandomState(0)
+    b, n, t, d, pgs, maxp = 2, 3, 1, 16, 16, 64
+    q = torch.from_numpy(rng.randn(b, n, t, d).astype(np.float32))
+    codes = torch.zeros(2 * maxp + 1, pgs, n, d, dtype=torch.int8)
+    scale = torch.ones(2 * maxp + 1, pgs, n, 1)
+    plan = tpaged.split_plan(b, n, t, d, maxp, pgs, 4)
+    assert (plan.pages_per_split, plan.splits) == (4, 16)
+    before = tpaged.paged_attention_quant.launches
+    for starts in ([0, 5], [1023, 700]):
+        table = torch.from_numpy(rng.randint(1, 2 * maxp + 1, (b, maxp))
+                                 .astype(np.int32))
+        tpaged.paged_attention_quant(
+            q, codes, codes, scale, codes, codes, scale, table,
+            torch.tensor(starts, dtype=torch.int32))
+    assert tpaged.paged_attention_quant.launches == before + 2
+    for part, arrivals, *ints in (c[10:21] for c in lib.calls):
+        assert part.shape == plan.workspace and part.dtype == torch.float32
+        assert arrivals.dtype == torch.int32
+        assert arrivals.numel() >= plan.arrivals and not arrivals.any()
+        assert tuple(ints) == (b, n, t, d, pgs, maxp, 2 * maxp + 1,
+                               plan.pages_per_split, plan.splits)
+    assert lib.calls[0][11] is lib.calls[1][11]  # one set for the stream
+    lib.calls.clear()
+    few = torch.zeros(5, pgs, n, d, dtype=torch.int8)
+    one = tpaged.split_plan(b, n, t, d, 2, pgs, 4)
+    tpaged.paged_attention_quant(
+        q, few, few, torch.ones(5, pgs, n, 1), few, few,
+        torch.ones(5, pgs, n, 1), torch.ones(b, 2, dtype=torch.int32),
+        torch.zeros(b, dtype=torch.int32))
+    assert one.splits == 1 and one.workspace is None
+    assert lib.calls[0][10:12] == (None, None)
+    assert lib.calls[0][19:21] == (one.pages_per_split, 1)
 
 
 # ---------------------------------------------------------------------------
