@@ -10,8 +10,10 @@ Phases, each fatal on failure:
      memory and spills (ptxas), and each flash kernel's tensor-core
      instructions (SASS): the bf16 K1, K2 and K3 (namespace flash_tc)
      are all built, spill nothing and hold HMMA, no SIMT flash kernel
-     takes bf16, and K7's split instantiations of the int8 decode lane
-     (d 64) spill nothing.
+     takes bf16, K7's split instantiations of the int8 decode lane
+     (d 64) spill nothing, and no K4 or K6 instantiation spills; the
+     SASS instructions an element of each K4 instantiation's main loop
+     (cuobjdump), the bf16 one (the train path's) printed alone.
   3. kernels: each kernel's wrapper (K1-K8) on tensors on the card at
      the shapes its path gives it, held against its plain PyTorch
      version; timed against the plain version, its bound and, where one
@@ -21,12 +23,16 @@ Phases, each fatal on failure:
      masked rows.  K5 and K7 at the decode step and three prefill
      chunks, each with its split plan and partials workspace, both forms
      held against the plain version and timed in turns, one split
-     against split.  K4 also at a dp shard's FFN shape.  K8's group
+     against split.  K4 also at a dp shard's FFN shape and the MLM
+     head's.  K6 at the Engine path's S 128 and the bucketed arm's S 32
+     and 64 (timed, with SDPA beside it), then at D 96 and 128, bf16 at
+     D 32 and 64, S 1 and S 1024.  K8's group
      form over the dp lane's real segment list (BERT-base's 206
      parameters x 4 replicas), held against the plain version member by
      member and timed against the same segments as single launches, its
      bound and torch._fused_adam_ (a yardstick); the word embedding as
-     a one-segment group against its single launch, in turns.
+     a one-segment group against its single launch, in turns.  The
+     launch floor of the timing: a one-cycle device sleep.
   4. train path: BERT-base pretraining (vocab 30528, flash attention,
      hidden dropout 0.1) at b128 s128 under the bf16 dtype policy with
      Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0):
@@ -56,7 +62,8 @@ Phases, each fatal on failure:
      bucketed arm: waves of two requests each of 20, 50, 90 and 126
      tokens, one priming and 10 timed.  K6 launches exactly 4 x the
      batches each arm ran, warmup included; the ragged arm warms one
-     shape and serves with no padding rows and no cold run.
+     shape and serves with no padding rows and no cold run.  Each arm's
+     device busy time over one profiled wave.
  11. ragged Engine parity: each arm's scores against a CPUPlace engine
      on the same saved model and requests.
  12. data-parallel train path: phase 4's configuration through
@@ -78,6 +85,10 @@ Phases, each fatal on failure:
      parameter above the rounding floor by the relative norms of its
      Moment1, Moment2 and change (DP_GRAD_FLOOR); the worst leaf of
      each reading, and the leaves at the floor, are printed.
+
+``python3 chip_smoke.py --only k4,k6,k6_contract`` runs phases 1-3 for
+the named kernels alone (a quick check of a kernel change; see ONLY);
+``--only engine`` adds phases 10-11.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  The
@@ -157,6 +168,12 @@ def _smi():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def launch_floor_ms():
+    """What the timing below reads for a kernel that does nothing: a
+    one-cycle device sleep, the floor under every small kernel's time."""
+    return _time_ms(lambda: torch.cuda._sleep(1), 100)
+
+
 def _time_ms(fn, iters, flush=None):
     """Mean device time of one fn() call, CUDA events around each call;
     `flush` (run between calls, untimed) evicts L2.  A device sleep is
@@ -227,6 +244,9 @@ def _ptxas_entries(name):
             continue
         if cur is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack_frame_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -309,6 +329,112 @@ def paged_build_report():
                              f"{lane} (2 expected), spilling {bad}: "
                              f"{report}")
     return report
+
+
+def _sass(name):
+    """{mangled entry: ([(address, instruction)], {label: address})} of
+    kernel library ``name`` (cuobjdump -sass); {} where the toolkit has
+    no cuobjdump."""
+    import re
+    import shutil
+
+    from paddle_tpu_torch.kernels import _build
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        return {}
+    text = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        fname, body = block.split("\n", 1)
+        instrs, labels, pending = [], {}, []
+        for line in body.splitlines():
+            s = line.strip()
+            m = re.match(r"(\.L_x_\d+):", s)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = re.match(r"/\*([0-9a-f]+)\*/\s+(.*?)\s*;", s)
+            if m:
+                addr = int(m.group(1), 16)
+                labels.update((lb, addr) for lb in pending)
+                pending = []
+                instrs.append((addr, m.group(2)))
+        out[fname.strip()] = (instrs, labels)
+    return out
+
+
+def _store_bytes(ins):
+    """Bytes one SASS global store writes (0 for any other
+    instruction)."""
+    op = next(t for t in ins.split() if not t.startswith("@"))
+    if not op.startswith("STG"):
+        return 0
+    parts = op.split(".")
+    for width, n in (("128", 16), ("64", 8), ("U16", 2), ("S16", 2),
+                     ("U8", 1), ("S8", 1)):
+        if width in parts:
+            return n
+    return 4
+
+
+def _main_loop(instrs, labels, elem_bytes):
+    """The loop (a backward branch and the instructions from its target
+    to it) that stores the most bytes an iteration: its static
+    instruction count, the elements it stores (``elem_bytes`` each) and
+    the instructions an element.  None if the function has no loop."""
+    import re
+
+    best = None
+    for addr, ins in instrs:
+        m = re.search(r"\bBRA\s+`?\(?([.\w]+)\)?", ins)
+        if not m:
+            continue
+        tgt = m.group(1)
+        start = labels.get(tgt) if tgt.startswith(".L") else int(tgt, 16)
+        if start is None or start > addr:
+            continue
+        body = [i for a, i in instrs
+                if start <= a <= addr and not i.startswith("NOP")]
+        stored = sum(_store_bytes(i) for i in body)
+        key = (stored, -len(body))
+        if stored and (best is None or key > best[0]):
+            best = (key, dict(instructions=len(body),
+                              elements=stored // elem_bytes,
+                              per_element=len(body) / (stored // elem_bytes)
+                              if stored >= elem_bytes else None))
+    return best[1] if best else None
+
+
+def k4_k6_build_report():
+    """Registers, static shared memory and spill bytes of every K4 and
+    K6 instantiation (ptxas), and for each K4 one its main loop's SASS
+    instructions an element stored.  Fails if one spills.  Returns the
+    report and the bf16 K4 loop's count (x and bias bf16, no mask,
+    exact GeLU: the training path's)."""
+    report, spilling, bf16_loop = {}, [], None
+    for name in ("fused_bias_act", "ragged_attention"):
+        sass = _sass(name) if name == "fused_bias_act" else {}
+        for mangled, label, props in _ptxas_entries(name):
+            r = dict(props)
+            if mangled in sass:
+                elem = 2 if "<__nv_bfloat16" in label else 4  # out's
+                r["main_loop"] = _main_loop(*sass[mangled], elem)
+                if ("__nv_bfloat16, __nv_bfloat16" in label
+                        and label.endswith("false, false>")
+                        and r["main_loop"]
+                        and (bf16_loop is None
+                             or r["main_loop"]["elements"]
+                             > bf16_loop["elements"])):
+                    bf16_loop = dict(r["main_loop"], kernel=label)
+            if r.get("spill_bytes", 0) != 0:
+                spilling.append(label)
+            report[f"{name}: {label}"] = r
+    if spilling:
+        raise AssertionError(f"K4/K6 build: spilling {spilling}: {report}")
+    return report, bf16_loop
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +693,54 @@ def check_ragged(dev, rng):
     return worst, timings
 
 
+# (name, b, h, s, d, dtype, causal, strided, lengths): the contract the
+# redesigned K6 takes beyond the serving path's shape: D 96 and 128,
+# bf16 at D 32 and 64, causal and not, transposed views, a length 0 and
+# one past S, S 1, and a row of length 1000 at S 1024 (32 key tiles)
+RAGGED_CONTRACT_CASES = (
+    ("d96", 2, 3, 150, 96, torch.float32, True, True, [150, 0]),
+    ("d128", 2, 3, 150, 128, torch.float32, False, True, [97, 300]),
+    ("d128_causal", 2, 2, 64, 128, torch.float32, True, False, [64, 31]),
+    ("bf16_d32", 8, 8, 128, 32, torch.bfloat16, True, True,
+     [20, 20, 50, 50, 90, 90, 126, 0]),
+    ("bf16_d64", 2, 3, 200, 64, torch.bfloat16, False, True, [200, 77]),
+    ("bf16_d64_causal", 2, 3, 200, 64, torch.bfloat16, True, False,
+     [0, 500]),
+    ("s1", 3, 2, 1, 32, torch.float32, True, True, [1, 0, 5]),
+    ("s1024", 1, 2, 1024, 64, torch.float32, True, True, [1000]),
+)
+
+
+def check_ragged_contract(dev, rng):
+    """K6 at RAGGED_CONTRACT_CASES against its plain version (FLASH_TOL
+    of the dtype; the plain version computes in fp32 and rounds once to
+    q's dtype); the output keeps q's dtype and layout."""
+    from paddle_tpu_torch.kernels.primitives import ragged
+
+    worst = {}
+    for name, b, h, s, d, dtype, causal, strided, lens in \
+            RAGGED_CONTRACT_CASES:
+        q, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+                   .to(dev, dtype).transpose(1, 2) for _ in range(3))
+        if not strided:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = ragged.ragged_attention(q, k, v, lengths, causal)
+        want = ragged.ragged_attention(q, k, v, lengths, causal,
+                                       force="reference")
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FLASH_TOL[dtype]
+        if got.dtype != dtype or got.stride() != q.stride() \
+                or not torch.isfinite(got).all() \
+                or not torch.allclose(got.float(), want.float(), **tol):
+            raise AssertionError(f"ragged_attention {name}: max abs err "
+                                 f"{err} outside {tol} (dtype {got.dtype}, "
+                                 f"strides {got.stride()})")
+        worst[name] = err
+    return max(worst.values()), worst
+
+
 def _bias_gelu_bound(r, h, with_mask):
     byts = r * h * 4 * 2 + h * 4 + (r * h if with_mask else 0)
     return _bound(byts, r * h * GELU_FLOPS_PER_ELEMENT) + (byts,)
@@ -635,11 +809,16 @@ def check_bias_gelu_bf16(dev, rng):
         ms = _time_ms(lambda: fba.fused_bias_gelu(x, bias), 50)
         plain_ms = _time_ms(lambda: fba.fused_bias_gelu_reference(x, bias),
                             20)
+        # what the card reaches moving the same bytes: PyTorch's device
+        # copy of x into a tensor of its shape (a yardstick, not the
+        # function)
+        dst = torch.empty_like(x)
+        copy_ms = _time_ms(lambda: dst.copy_(x), 50)
         byts = r * h * 2 * 2 + h * 2
         bound_ms, bound_by = _bound(byts, r * h * GELU_FLOPS_PER_ELEMENT)
         timings[f"[{r},{h}] bf16"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bytes=byts, max_abs_err=err)
+            bytes=byts, max_abs_err=err, copy_ms=copy_ms)
     return worst, timings
 
 
@@ -1154,17 +1333,23 @@ def run_train_path(counters):
     return (exe, main, scope, feed, loss), path
 
 
-def _profile(step, n, match=None):
+def _profile(step, n, match=None, device_only=False):
     """Host wall time vs summed device time of ``n`` calls of ``step``
     (torch.profiler), with the top device and host ops and the kernel
     launch API calls (cudaLaunchKernel and its kin) a call; with
     ``match`` (a name or a tuple of names), also the summed device time
-    and count a call of the device events whose name contains each."""
+    and count a call of the device events whose name contains each.
+    ``device_only`` traces the card alone, for a step whose kernels
+    another thread launches (the serving Engine's scheduler): a trace
+    with host activity keeps only some of them.  Traced alone, the step
+    keeps all of them when it is the first trace of its process
+    (``--only engine``), not always after earlier ones."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] if device_only else [
+        ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -2008,7 +2193,8 @@ def run_ragged_arm(model_dir, fetch, ragged, place, waves, counter=None):
                    steady_state_cold=int(cold() - cold0))
         prof = None
         if counter is not None:  # one more wave, under the profiler
-            prof = _profile(lambda: wave(waves[1]), 1)
+            prof = _profile(lambda: wave(waves[1]), 1,
+                            match="ragged_fwd_kernel", device_only=True)
             if prof["device_busy_ms"]:
                 prof["device_idle_share"] = (1 - prof["device_busy_ms"]
                                              / prof["wall_profiled_ms"])
@@ -2064,7 +2250,62 @@ def run_ragged_path(counter):
     return arms, parity
 
 
-def main():
+def wave_readings(arms):
+    """Each Engine arm's profiled wave: device busy time and events, and
+    K6's share of them."""
+    return {name: {k: a["profile_one_wave"][k] for k in (
+        "device_busy_ms", "device_events", "wall_profiled_ms",
+        "device_idle_share", "ragged_fwd_kernel_device_ms",
+        "ragged_fwd_kernel_events") if k in a["profile_one_wave"]}
+        for name, a in arms.items()}
+
+
+# what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
+# "engine" runs phases 10-11 (the ragged Engine, both arms) instead
+ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
+                                     "check_bias_gelu_bf16")),
+        "k6": (("ragged_attention",), ("check_ragged",)),
+        "k6_contract": (("ragged_attention",), ("check_ragged_contract",)),
+        "engine": (("ragged_attention",), ())}
+
+
+def run_only(keys, dev, smi, say):
+    """Phases 2-3 for the kernels of ``keys`` alone: their build, the
+    K4/K6 build report and their checks against the plain versions."""
+    from paddle_tpu_torch.kernels import _build
+
+    from paddle_tpu_torch.kernels import kernel_wrappers
+
+    libs = sorted({lib for k in keys for lib in ONLY[k][0]})
+    say("build", {k: round(v, 2) for k, v in _build.build_all(libs).items()})
+    rng = np.random.RandomState(SEED)
+    timings = {}
+    for k in keys:
+        for check in ONLY[k][1]:
+            err, timed = globals()[check](dev, rng)
+            timings[check] = dict(max_abs_err=err, timings=timed)
+    say("kernel timings", {"card": smi, "launch_floor_ms": launch_floor_ms(),
+                           **timings})
+    if "engine" in keys:
+        arms, parity = run_ragged_path(kernel_wrappers()["ragged_attention"])
+        say("ragged engine waves", {"card": smi, **wave_readings(arms)})
+        say("ragged engine parity", parity)
+    report, bf16_loop = k4_k6_build_report()  # fails on a spill
+    for label, r in report.items():
+        print(f"ptxas {label}: " + json.dumps(r))
+    say("K4 bf16 loop", {"sass": bf16_loop})
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU (see the module docstring).")
+    ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
+                    "k6_contract, engine): "
+                    "phases 1-3 for those kernels alone; the default runs "
+                    "every phase")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -2093,13 +2334,22 @@ def main():
     print(f"device: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
+    if args.only:
+        run_only(args.only.split(","), dev, smi, say)
+        print(smi)
+        print(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     t0 = time.perf_counter()
     took = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"{json.dumps({k: round(v, 2) for k, v in took.items()})}",
           flush=True)
     for name in _build.sources():
-        if name in ("flash_attention", "paged_attention"):
+        if name in ("flash_attention", "paged_attention", "fused_bias_act",
+                    "ragged_attention"):
             continue  # reported kernel by kernel below
         for _, label, props in _ptxas_entries(name):
             print(f"ptxas {name}: {label}: " + json.dumps(props))
@@ -2107,6 +2357,10 @@ def main():
         print(f"ptxas flash_attention: {label}: " + json.dumps(r))
     for label, r in paged_build_report().items():
         print(f"ptxas paged_attention: {label}: " + json.dumps(r))
+    k4k6_report, k4_loop = k4_k6_build_report()
+    for label, r in k4k6_report.items():
+        print(f"ptxas {label}: " + json.dumps(r))
+    say("K4 bf16 loop", {"sass": k4_loop})
 
     rng = np.random.RandomState(SEED)
     k5_err, k5_t = check_paged(dev, rng)
@@ -2114,6 +2368,7 @@ def main():
     k4b_err, k4b_t = check_bias_gelu_bf16(dev, rng)
     fl_err, fl_t = check_flash(dev, rng)
     k6_err, k6_t = check_ragged(dev, rng)
+    k6c_err, k6c_t = check_ragged_contract(dev, rng)
     k7_err, k7_t = check_paged(dev, rng, quant=True)
     k8_err, k8_t = check_fused_update(dev, rng)
     k8g_err, k8g_t = check_fused_update_group(dev)
@@ -2127,8 +2382,10 @@ def main():
     say("kernel timings", {
         "paged_attention": k5_t, "fused_bias_act": {**k4_t, **k4b_t},
         "flash": fl_t, "ragged_attention": k6_t,
+        "ragged_attention_contract": k6c_t, "k4_bf16_loop_sass": k4_loop,
         "paged_attention_quant": k7_t, "fused_update": k8_t,
-        "fused_update_group": k8g_t, "card": smi})
+        "fused_update_group": k8g_t, "launch_floor_ms": launch_floor_ms(),
+        "card": smi})
 
     wrappers = kernel_wrappers()
     train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -2170,6 +2427,7 @@ def main():
 
     arms, ragged_parity = run_ragged_path(wrappers["ragged_attention"])
     say("ragged engine path", {"card": smi, **arms})
+    say("ragged engine waves", {"card": smi, **wave_readings(arms)})
     say("ragged engine parity", ragged_parity)
     torch.cuda.empty_cache()
 

@@ -7,8 +7,11 @@ kernel ``csrc/fused_bias_act.cu``.  The ``fuse_bias_act_dropout`` pass
 chain to one ``fused_bias_act_dropout`` op whose lowering
 (ops/fused_ops.py) calls :func:`fused_bias_gelu` here.
 
-Bound: one elementwise pass, bytes-bound (see the source note in the
-``.cu`` file).  x and bias are float32 or bfloat16 (the bf16 dtype
+Bound: one elementwise pass, bytes-bound on paper; the source note in
+the ``.cu`` file says why the first kernel was bound by issue instead,
+and how the redesign (a 2-D grid with the bias in registers, 16-byte
+streaming accesses, the exact GeLU as 2^(−u²)·P(q) in place of erfcf)
+cuts the instructions an element.  x and bias are float32 or bfloat16 (the bf16 dtype
 policy hands the training path bf16 activations); the kernel computes
 in fp32 and returns x's dtype, as the JAX function does.  The dropout
 mask is drawn outside the kernel and passed in as uint8, as in the JAX
@@ -111,19 +114,27 @@ def _check(x, bias, mask):
                              f"{t.device}")
 
 
+def _use_kernel(x, force):
+    """False for the plain version (``force="reference"``, a CPU or meta
+    tensor); True for a CUDA tensor, which launches the kernel."""
+    if force not in (None, "reference"):
+        raise ValueError(f"fused_bias_gelu: force={force!r} (use None or "
+                         f"'reference')")
+    if force == "reference" or x.device.type in ("cpu", "meta"):
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_bias_gelu: no kernel for {x.device}")
+    return True
+
+
 def fused_bias_gelu(x, bias, mask=None, scale=1.0, approximate=False,
                     force=None):
     """``gelu(x + bias) [* mask * scale]`` over x [..., H] with bias [H]
     (each float32 or bfloat16), computed in fp32; returns x's shape and
     dtype."""
     _check(x, bias, mask)
-    if force not in (None, "reference"):
-        raise ValueError(f"fused_bias_gelu: force={force!r} (use None or "
-                         f"'reference')")
-    if force == "reference" or x.device.type in ("cpu", "meta"):
+    if not _use_kernel(x, force):
         return fused_bias_gelu_reference(x, bias, mask, scale, approximate)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"fused_bias_gelu: no kernel for {x.device}")
     for name, t in (("x", x), ("bias", bias), ("mask", mask)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"fused_bias_gelu: {name} must be contiguous")

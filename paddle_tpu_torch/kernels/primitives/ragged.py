@@ -18,7 +18,8 @@ Shapes: ``[B, H, S, D]`` with lengths ``[B]`` broadcast over heads, or
 ``[BH, S, D]`` with lengths ``[BH]``.  The kernel takes (b, h, s)
 strides with a contiguous D, so the op's ``transpose2`` views are read
 in place; any S (rows and keys past S are masked, no padding to a
-block) and D <= 64.
+block) and D <= 128; q, k and v float32 or bfloat16 (one dtype; the
+kernel computes in fp32 and returns q's dtype, as the JAX kernel does).
 
 Not kept from the JAX function: the Mosaic block autotune and the
 padding of S up to a block (``_select_block``, ``_ceil_to``).
@@ -40,15 +41,16 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30  # flash's mask constant, as the JAX kernel uses it
-MAX_HEAD_DIM = 64  # the kernel's head-dim capacity
+MAX_HEAD_DIM = 128  # the kernel's head-dim capacity
 
 __all__ = ["ragged_attention", "ragged_attention_reference", "NEG_INF"]
 
 _SIGNATURES = {
-    "pt_ragged_attention_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int,
-                                  ctypes.c_void_p],
+    "pt_ragged_attention_f32": [ctypes.c_int] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def ragged_attention_reference(q, k, v, lengths, causal=False,
@@ -81,6 +83,19 @@ def _strides(t):
     return list(t.stride()[:3])
 
 
+def _use_kernel(q, force):
+    """False for the plain version (``force="reference"``, a CPU or meta
+    tensor); True for a CUDA tensor, which launches the kernel."""
+    if force not in (None, "reference"):
+        raise ValueError(f"ragged_attention: force={force!r} (use None or "
+                         f"'reference')")
+    if force == "reference" or q.device.type in ("cpu", "meta"):
+        return False
+    if q.device.type != "cuda":
+        raise RuntimeError(f"ragged_attention: no kernel for {q.device}")
+    return True
+
+
 def ragged_attention(q, k, v, lengths, causal=False, sm_scale=None,
                      force=None):
     """Variable-length attention over [B, H, S, D] (lengths [B]) or
@@ -97,12 +112,9 @@ def ragged_attention(q, k, v, lengths, causal=False, sm_scale=None,
         if t.device != q.device:
             raise ValueError(f"ragged_attention: tensors on {q.device} and "
                              f"{t.device}")
-    if force not in (None, "reference"):
-        raise ValueError(f"ragged_attention: force={force!r} (use None or "
-                         f"'reference')")
     s, d = q.shape[-2:]
     scale = float(sm_scale if sm_scale is not None else 1.0 / math.sqrt(d))
-    if force == "reference" or q.device.type in ("cpu", "meta"):
+    if not _use_kernel(q, force):
         if q.dim() == 3:
             return ragged_attention_reference(q, k, v, lengths, causal,
                                               scale)
@@ -112,15 +124,14 @@ def ragged_attention(q, k, v, lengths, causal=False, sm_scale=None,
             q.reshape(b * h, s, d), k.reshape(b * h, s, d),
             v.reshape(b * h, s, d), lens, causal, scale)
         return out.reshape(b, h, s, d)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"ragged_attention: no kernel for {q.device}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"ragged_attention: head dim {d} > {MAX_HEAD_DIM}, "
                          f"the kernel's capacity")
-    for nm, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"ragged_attention: {nm} must be float32, got "
-                            f"{t.dtype}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"ragged_attention: q, k and v must be float32 or "
+                        f"bfloat16 of one dtype, got {q.dtype}, {k.dtype} "
+                        f"and {v.dtype}")
     if lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise ValueError(f"ragged_attention: lengths must be contiguous "
                          f"int32, got {lengths.dtype}")
@@ -130,7 +141,8 @@ def ragged_attention(q, k, v, lengths, causal=False, sm_scale=None,
     o4 = out if out.dim() == 4 else out.unsqueeze(1)
     lib = _build.load("ragged_attention", _SIGNATURES)
     err = lib.pt_ragged_attention_f32(
-        *map(_build.ptr, (q4, k4, v4, lengths, o4)), b, h, s, d,
+        _DTYPE_CODE[q.dtype], *map(_build.ptr, (q4, k4, v4, lengths, o4)),
+        b, h, s, d,
         *(_strides(q4) + _strides(k4) + _strides(v4) + _strides(o4)),
         scale, int(bool(causal)), _build.stream_of(q.device))
     ragged_attention.launches += 1

@@ -9,7 +9,8 @@ file imports no jax, so it runs on a GPU machine without it:
 Tolerances: K5 and K7 atol 2e-5 / rtol 1e-4 (online softmax over pages
 merged across warps, and K5's across splits, vs one softmax: same fp32
 terms, other order); K6
-2e-5 (fp32 sums over 64-key tiles vs one matmul); K4 1e-6 in
+2e-5 in fp32 (sums over 32-key tiles vs one matmul) and 2e-2 in bf16
+(both round one fp32 result to bf16); K4 1e-6 in
 fp32 (the same elementwise formula; erfcf/tanhf may differ by an ulp)
 and one bf16 rounding step (8e-3 relative) in bf16; K1-K3 2e-5 in fp32
 (fp32 sums over 64-key tiles vs one matmul) and 2e-2 in bf16 (both
@@ -528,22 +529,66 @@ def test_paged_quant_kernel_raises_not_falls_back(dev):
     with pytest.raises(ValueError, match="int8"):
         paged.paged_attention_quant(*bad)
 
+@pytest.mark.parametrize("rows,h,dtype,offset", [
+    # the train step's FFN, a dp shard's and the MLM head's, in bf16
+    (16384, 3072, torch.bfloat16, 0),
+    (4096, 3072, torch.bfloat16, 0),
+    (2048, 768, torch.bfloat16, 0),
+    # H not a multiple of the vector width (the one-column form)
+    (37, 3070, torch.bfloat16, 0),
+    (37, 3070, torch.float32, 0),
+    # x at an 8-byte, not 16-byte, offset: the one-column form
+    (37, 3072, torch.bfloat16, 4),
+    (37, 3072, torch.float32, 2),
+    # rows below one group of four, and a ragged last group
+    (3, 3072, torch.bfloat16, 0),
+    (1, 768, torch.float32, 0),
+    (4099, 768, torch.bfloat16, 0),
+])
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_bias_gelu_kernel_shapes_and_views(dev, rows, h, dtype, offset,
+                                           approximate, with_mask):
+    """Each vector and one-column form of the redesigned K4, with and
+    without the mask, exact and tanh: one launch, x's dtype and shape,
+    within the gate of its dtype."""
+    rng = np.random.RandomState(rows + h + offset)
+    n = rows * h
+    buf = torch.from_numpy(rng.randn(n + offset).astype(np.float32) * 3).to(
+        dev, dtype)
+    x = buf[offset:].view(rows, h)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(offset)
+    bias = torch.from_numpy(rng.randn(h).astype(np.float32)).to(dev, dtype)
+    mask = (torch.from_numpy((rng.rand(rows, h) > .1).astype(np.uint8))
+            .to(dev) if with_mask else None)
+    kw = dict(mask=mask, scale=1 / 0.9 if with_mask else 1.0,
+              approximate=approximate)
+    before = fba.fused_bias_gelu.launches
+    got = fba.fused_bias_gelu(x, bias, **kw)
+    assert fba.fused_bias_gelu.launches == before + 1
+    want = fba.fused_bias_gelu_reference(x, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = K4_TOL if dtype == torch.float32 else K4_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
 
 # ---------------------------------------------------------------------------
 # K6: ragged attention
 # ---------------------------------------------------------------------------
 
 
-def _ragged_case(dev, shape, lengths, strided, seed=0):
+def _ragged_case(dev, shape, lengths, strided, seed=0,
+                 dtype=torch.float32):
     rng = np.random.RandomState(seed)
 
     def t():
         if len(shape) == 3:
             return torch.from_numpy(rng.randn(*shape).astype(np.float32)
-                                    ).to(dev)
+                                    ).to(dev, dtype)
         b, h, s, d = shape
         a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)).to(
-            dev).transpose(1, 2)
+            dev, dtype).transpose(1, 2)
         return a if strided else a.contiguous()
 
     return t(), t(), t(), torch.tensor(lengths, dtype=torch.int32,
@@ -571,14 +616,57 @@ def test_ragged_kernel_matches_plain(dev, shape, lengths, causal, strided):
     torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
 
 
+@pytest.mark.parametrize("shape,lengths,causal,strided,dtype", [
+    # D 96 and 128 (the 128-column form), fp32
+    ((2, 3, 150, 96), [150, 0], True, True, torch.float32),
+    ((2, 3, 150, 96), [97, 300], False, False, torch.float32),
+    ((2, 3, 150, 128), [150, 0], True, False, torch.float32),
+    ((2, 3, 150, 128), [97, 300], False, True, torch.float32),
+    # bf16 at D 32 and 64, causal and not, lengths 0 and past S
+    ((8, 8, 128, 32), [20, 20, 50, 50, 90, 90, 126, 0], True, True,
+     torch.bfloat16),
+    ((2, 3, 77, 32), [0, 500], False, False, torch.bfloat16),
+    ((2, 3, 200, 64), [200, 77], True, True, torch.bfloat16),
+    ((2, 3, 200, 64), [150, 0], False, True, torch.bfloat16),
+    # bf16 at D 96 and an odd D (element-by-element staging)
+    ((2, 2, 40, 96), [40, 13], True, True, torch.bfloat16),
+    ((5, 70, 20), [70, 64, 65, 1, 300], True, False, torch.bfloat16),
+    # S 1
+    ((3, 2, 1, 32), [1, 0, 5], True, True, torch.float32),
+    ((3, 2, 1, 64), [1, 0, 5], False, False, torch.bfloat16),
+    # S 1024, a row of length 1000: 32 live key tiles
+    ((1, 2, 1024, 64), [1000], True, True, torch.float32),
+    ((1, 2, 1024, 32), [1000], False, False, torch.float32),
+])
+def test_ragged_kernel_contract(dev, shape, lengths, causal, strided,
+                                dtype):
+    """The redesigned K6 takes any D up to 128 and bf16 inputs (fp32
+    arithmetic, q's dtype out), within the gate of the dtype."""
+    q, k, v, lens = _ragged_case(dev, shape, lengths, strided, dtype=dtype)
+    before = ragged.ragged_attention.launches
+    got = ragged.ragged_attention(q, k, v, lens, causal)
+    want = ragged.ragged_attention(q, k, v, lens, causal, force="reference")
+    assert ragged.ragged_attention.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    zero = [i for i, n in enumerate(lengths) if n == 0]
+    if zero and len(shape) == 4:
+        assert not got[zero].any()  # length 0: zeros
+
+
 def test_ragged_kernel_raises_not_falls_back(dev):
-    q, k, v, lens = _ragged_case(dev, (1, 2, 16, 96), [16], False)
+    q, k, v, lens = _ragged_case(dev, (1, 2, 16, 160), [16], False)
     with pytest.raises(ValueError, match="head dim"):
         ragged.ragged_attention(q, k, v, lens)
     q, k, v, lens = _ragged_case(dev, (1, 2, 16, 32), [16], False)
-    with pytest.raises(TypeError, match="float32"):
-        ragged.ragged_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
-                                lens)
+    out = ragged.ragged_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                  lens)  # bf16 is taken since the redesign
+    assert out.dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="one dtype"):
+        ragged.ragged_attention(q, k.bfloat16(), v, lens)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ragged.ragged_attention(q.half(), k.half(), v.half(), lens)
     with pytest.raises(ValueError, match="int32"):
         ragged.ragged_attention(q, k, v, lens.long())
 

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import jax
+from scipy.special import erfc
 
 from paddle_tpu.kernels import fused_bias_act as jfba
 from paddle_tpu.kernels.primitives import paged as jpaged
@@ -333,3 +334,132 @@ def test_build_names_library_by_source_hash():
     assert len(set(paths)) == len(paths)
     a = paths[1]
     assert a == _build._so_path("fused_bias_act")  # stable
+
+
+# ---------------------------------------------------------------------------
+# K4's GeLU as the CUDA kernel evaluates it, and what the wrapper hands it
+# ---------------------------------------------------------------------------
+
+# gelu_exact in csrc/fused_bias_act.cu: u = min(|x|·√(log2(e)/2), UMAX),
+# q = (u − 3)/(u + 3), h = 2^(−u²)·P(q) = 0.5·erfc(|x|/√2), Φ = 1 − h for
+# x >= 0 else h.  P's coefficients, highest degree first.
+GELU_U_SCALE, GELU_UMAX, GELU_K = 8.493218003e-01, 1.141066288e+01, 3.0
+GELU_P = (1.417925960e-04, 3.844848543e-04, -1.354722423e-03,
+          -1.940678339e-03, 1.988566667e-02, -6.243826821e-02,
+          1.258567274e-01, -1.859859377e-01, 1.054900959e-01)
+# the bounds the source note states, in fp32 ulps of the result: against
+# the exact GeLU (float64) and against jax.nn.gelu, itself off in the
+# tail by the same rounding of x² in its exponent
+GELU_ULP_BOUND = {"exact": {"x >= -4": 32, "x < -4": 256},
+                  "jax": {"x >= -4": 32, "x < -4": 320}}
+
+
+def _gelu_kernel_f32(x, rcp_ulps=0, ex2_ulps=0):
+    """The kernel's formula in float32, each operation rounded once (an
+    FMA as one rounding of the exact product and sum).  The reciprocal
+    and 2^y are correctly rounded, then moved by ``rcp_ulps`` and
+    ``ex2_ulps`` ulps: the card's rcp.approx and ex2.approx may each be
+    1-2 ulp off."""
+    f32, f64 = np.float32, np.float64
+
+    def off(a, ulps):
+        return (a + f32(ulps) * np.spacing(a)).astype(f32)
+
+    u = np.minimum(np.abs(x) * f32(GELU_U_SCALE), f32(GELU_UMAX))
+    q = ((u - f32(GELU_K)) * off(f32(1) / (u + f32(GELU_K)), rcp_ulps))
+    p = np.full_like(x, f32(GELU_P[0]))
+    for c in GELU_P[1:]:
+        p = (p.astype(f64) * q.astype(f64) + f64(f32(c))).astype(f32)
+    e = off(np.exp2(-(u * u).astype(f32).astype(f64)).astype(f32), ex2_ulps)
+    h = e * p
+    return x * np.where(x >= 0, f32(1) - h, h)
+
+
+def test_gelu_kernel_formula_matches_the_source():
+    """The copy above is the kernel's formula: the same constants, in the
+    same order, in csrc/fused_bias_act.cu."""
+    import re
+
+    src = (_build.CSRC / "fused_bias_act.cu").read_text()
+    body = src[src.index("float gelu_exact(float x)"):]
+    body = body[:body.index("\n}\n")]
+    consts = [float(c) for c in re.findall(r"-?\d\.\d+e[+-]\d+", body)]
+    assert consts == [GELU_U_SCALE, GELU_UMAX, *GELU_P]
+    assert "(u - 3.0f) * rcp_approx(u + 3.0f)" in body
+
+
+def test_gelu_kernel_formula_within_ulp_bound():
+    """Over every bf16 value in [-12, 12] and a dense fp32 grid, the
+    formula stays within the stated bounds of jax.nn.gelu (exact form)
+    in fp32 ulps of the result.  Below |x| = 2^-100 the result is x/2
+    near or under the smallest normal, where XLA on the CPU flushes to
+    zero: held there to x/2 within an ulp."""
+    bits = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    bf16 = bits[np.isfinite(bits) & (np.abs(bits) <= 12)]
+    tiny = bf16[np.abs(bf16) < 2.0 ** -100]
+    np.testing.assert_allclose(_gelu_kernel_f32(tiny), tiny * np.float32(.5),
+                               rtol=2 ** -22, atol=0)
+    bf16 = bf16[np.abs(bf16) >= 2.0 ** -100]
+    x = np.concatenate([bf16, np.linspace(-12, 12, 600_001,
+                                          dtype=np.float32)])
+    got = _gelu_kernel_f32(x).astype(np.float64)
+    x64 = x.astype(np.float64)
+    wants = {"jax": np.asarray(jax.nn.gelu(x, approximate=False)).astype(
+                 np.float64),
+             "exact": 0.5 * x64 * erfc(-x64 / np.sqrt(2.0))}
+    tail = x < -4
+    for name, want in wants.items():
+        ulp = np.spacing(np.maximum(np.abs(want), 2.0 ** -126).astype(
+            np.float32)).astype(np.float64)
+        # the card's approximate reciprocal and 2^y: 2 ulp off either way
+        for rcp, ex2 in ((0, 0), (2, 2), (-2, -2), (2, -2), (-2, 2)):
+            y = _gelu_kernel_f32(x, rcp, ex2).astype(np.float64)
+            err = np.abs(y - want) / ulp
+            bound = GELU_ULP_BOUND[name]
+            assert err[~tail].max() <= bound["x >= -4"], (name, rcp, ex2)
+            assert err[tail].max() <= bound["x < -4"], (name, rcp, ex2)
+    assert np.array_equal(got[x >= 6], x64[x >= 6])  # Φ rounds to 1
+    assert np.all(got[x == 0] == 0)
+
+
+class _FakeK4:
+    def __init__(self):
+        self.calls = []
+
+    def pt_fused_bias_gelu(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("x_dtype,b_dtype,codes", [
+    (torch.bfloat16, torch.bfloat16, (1, 1)),
+    (torch.bfloat16, torch.float32, (1, 0)),
+    (torch.float32, torch.float32, (0, 0))])
+def test_bias_gelu_wrapper_hands_kernel_its_arguments(monkeypatch, x_dtype,
+                                                      b_dtype, codes):
+    """The kernel branch with the build stubbed: the dtype codes, x, bias,
+    the mask (or null), a fresh output of x's shape and dtype, R and H of
+    the flattened [R, H] view, the scale and the GeLU form; one launch
+    counted."""
+    lib = _FakeK4()
+    monkeypatch.setattr(tfba, "_use_kernel", lambda *a: True)
+    monkeypatch.setattr(_build, "load", lambda *a: lib)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    monkeypatch.setattr(_build, "stream_of",
+                        lambda dev: ctypes.c_void_p(1234))
+    x = torch.zeros(2, 3, 37, dtype=x_dtype)
+    bias = torch.zeros(37, dtype=b_dtype)
+    mask = torch.ones(2, 3, 37, dtype=torch.uint8)
+    before = tfba.fused_bias_gelu.launches
+    out = tfba.fused_bias_gelu(x, bias)
+    out_m = tfba.fused_bias_gelu(x, bias, mask=mask, scale=1.25,
+                                 approximate=True)
+    assert tfba.fused_bias_gelu.launches == before + 2
+    for (args, o, m, sc, ap) in ((lib.calls[0], out, None, 1.0, 0),
+                                 (lib.calls[1], out_m, mask, 1.25, 1)):
+        assert args[:2] == codes
+        assert args[2] is x and args[3] is bias and args[4] is m
+        assert args[5] is o and o.shape == x.shape and o.dtype == x_dtype
+        assert args[6:10] == (6, 37, sc, ap)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfba.fused_bias_gelu(x.transpose(0, 1), bias)

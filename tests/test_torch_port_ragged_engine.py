@@ -92,6 +92,107 @@ def test_ragged_plain_matches_jax(case, causal, oracle):
         assert not got.numpy()[3].any()  # length 0: zeros
 
 
+# the redesigned kernel's contract: D 96 and 128, and bf16 (computed in
+# fp32, returned in q's dtype).  bf16: both round one fp32 result to
+# bf16, so one bf16 step (2^-8 relative) apart at most
+K6_BF16_TOL = 1e-2
+CONTRACT_CASES = {
+    "3d_s40_d96": ((3, 40, 96), [40, 17, 0], np.float32),
+    "4d_s24_d128": ((2, 2, 24, 128), [24, 9], np.float32),
+    "4d_s32_d32_bf16": ((3, 2, 32, 32), [20, 32, 0], "bfloat16"),
+    "3d_s40_d64_bf16": ((3, 40, 64), [40, 5, 0], "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("oracle", ["reference", "pallas"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", sorted(CONTRACT_CASES))
+def test_ragged_plain_contract_matches_jax(case, causal, oracle):
+    """The port's plain K6 at the head dims and dtype the redesigned
+    kernel takes, against the JAX reference and the Pallas kernel in
+    interpret mode on the same inputs (bf16 made from the same fp32)."""
+    shape, lengths, dtype = CONTRACT_CASES[case]
+    q, k, v, lens = _ragged_case(shape, lengths)
+    if dtype == "bfloat16":
+        tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        tol = K6_BF16_TOL
+    else:
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        jq, jk, jv = q, k, v
+        tol = K6_TOL
+    got = tragged.ragged_attention(tq, tk, tv, torch.from_numpy(lens),
+                                   causal=causal)
+    want = jragged.ragged_attention(jq, jk, jv, lens, causal=causal,
+                                    force=oracle)
+    assert got.dtype == tq.dtype and str(want.dtype) == str(jq.dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               atol=tol, rtol=tol)
+
+
+class _FakeK6:
+    def __init__(self):
+        self.calls = []
+
+    def pt_ragged_attention_f32(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+def test_ragged_wrapper_hands_kernel_its_arguments(monkeypatch, dtype,
+                                                   code):
+    """The kernel branch with the build stubbed: the dtype code, q/k/v as
+    [B, H, S, D] views read in place (a [BH, S, D] input as H = 1), the
+    lengths, an output in q's layout and dtype, B, H, S, D, the twelve
+    (b, h, s) strides, the scale and the causal flag; one launch
+    counted.  D 128 is taken, D 160 and mixed dtypes are refused by
+    name before the build is asked for."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _FakeK6()
+    monkeypatch.setattr(tragged, "_use_kernel", lambda *a: True)
+    monkeypatch.setattr(_build, "load", lambda *a: lib)
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    monkeypatch.setattr(_build, "stream_of",
+                        lambda dev: ctypes.c_void_p(1234))
+    q, k, v = (torch.zeros(2, 24, 3, 128, dtype=dtype).transpose(1, 2)
+               for _ in range(3))
+    lens = torch.tensor([24, 7], dtype=torch.int32)
+    before = tragged.ragged_attention.launches
+    out = tragged.ragged_attention(q, k, v, lens, causal=True)
+    args = lib.calls[-1]
+    assert args[0] == code
+    assert args[1] is q and args[2] is k and args[3] is v
+    assert args[4] is lens and args[5] is out
+    assert out.dtype == dtype and out.stride() == q.stride()
+    assert args[6:10] == (2, 3, 24, 128)
+    assert args[10:22] == tuple(q.stride()[:3]) * 4
+    assert args[22] == pytest.approx(128 ** -0.5) and args[23] == 1
+    q3 = torch.zeros(5, 7, 20, dtype=dtype)
+    out3 = tragged.ragged_attention(q3, q3, q3, torch.ones(5, dtype=torch.int32),
+                                    sm_scale=0.5)
+    args = lib.calls[-1]
+    assert args[6:10] == (5, 1, 7, 20) and args[5].shape == (5, 1, 7, 20)
+    assert args[10:13] == (140, 140, 20) and args[22:24] == (0.5, 0)
+    assert out3.shape == q3.shape
+    assert tragged.ragged_attention.launches == before + 2
+    calls = len(lib.calls)
+    wide = torch.zeros(1, 2, 16, 160, dtype=dtype)
+    with pytest.raises(ValueError, match="head dim 160 > 128"):
+        tragged.ragged_attention(wide, wide, wide, lens[:1])
+    with pytest.raises(TypeError, match="one dtype"):
+        tragged.ragged_attention(q, k.half(), v, lens)
+    with pytest.raises(ValueError, match="int32"):
+        tragged.ragged_attention(q, k, v, lens.long())
+    assert len(lib.calls) == calls
+    assert tragged.ragged_attention.launches == before + 2
+
+
 def test_ragged_plain_reads_transposed_views():
     """The op's q/k/v are transpose2 views of [B, S, H, D]: the plain
     version takes them as they are."""
