@@ -35,50 +35,73 @@ Phases, each fatal on failure:
      launch floor of the timing: a one-cycle device sleep.
   4. train path: BERT-base pretraining (vocab 30528, flash attention,
      hidden dropout 0.1) at b128 s128 under the bf16 dtype policy with
-     Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0):
-     2 warm-up and 10 timed steps on one batch.  Losses finite and
-     falling; launch counts exactly 24 (K1: 12 layers, forward and the
-     grad op's recompute), 12 (K2, K3) and 13 (K4) per step.  Then a
-     torch.profiler breakdown of one step.
+     Adam(1e-4), through the port's fluid.Executor on CUDAPlace(0), in
+     its two modes in turns from the same state and feed: captured (the
+     default: the step's first run warms up and captures a CUDA graph,
+     every later one replays it) and eager (FLAGS_cuda_graph_capture
+     off), 2 warm-up and 10 timed steps each.  Losses finite and
+     falling; in each mode the card launches exactly 24 (K1: 12 layers,
+     forward and the grad op's recompute), 12 (K2, K3) and 13 (K4) per
+     step, counted by the kernels themselves (see below); the two modes'
+     losses and final state bit-equal; per mode the step p50 / p95,
+     MFU against the port's peak table (profiling.device_peaks), peak
+     memory and the capture's seconds.  Then a torch.profiler step of
+     each mode (device busy, idle share, cudaLaunchKernel and
+     cudaGraphLaunch calls) with the step's elementwise device time
+     split between the bf16 policy's casts and Adam's kernels, and
+     run_steps(10) from the same start: its last loss and state equal
+     to the 10th captured run()'s, its kernels launched 10 x a step's
+     on the card.
   5. train parity: the same network at full width, 2 layers, b4 s128,
      fp32, dropout 0: 3 Adam steps on the card and on a CPUPlace
      executor from the same parameters.
   6. decode path: GPTConfig() at full width (random weights from the
      port's own startup program, fixed seed) served by DecodeEngine: 16
-     seeded requests of 8-512 prompt tokens, 32 new tokens each.  K4 and
-     K5 launch exactly 12 (layers) x program runs.
+     seeded requests of 8-512 prompt tokens, 32 new tokens each, on an
+     engine whose warmup captures both programs, then on an eager one
+     from the same weights: the same ids.  K4 and K5 launch exactly 12
+     (layers) x program runs on the card in each, the warmup's
+     included.  Decode steps of each mode under
+     the profiler, their logprobs bit-equal.
   7. decode parity: the same weights on a CPUPlace executor (plain
      versions): logprobs of prefill chunks and a decode step, and the
      greedy ids of two requests, against the card's.
   8. int8 decode path: phase 6 over the dual-int8 KV pool
-     (pool_dtype="int8"): K4 and K7 launch exactly 12 x program runs, K5
-     never; K7's device time summed over whole lane runs, one split and
-     split in turns, each run's ids equal to the main path's.
+     (pool_dtype="int8"): K4 and K7 launch exactly 12 x program runs on
+     the card, K5 never; K7's device time summed over whole lane runs,
+     one split and split in turns, each run's ids equal to the main
+     path's.
   9. int8 decode parity: phase 7 over the int8 pool.
  10. ragged Engine path: the repo's ragged scorer (vocab 8192, hidden
      256, 8 heads, 4 layers, a causal ragged_attention a layer), saved
      with save_inference_model and served by serving.Engine (batch
      bucket 8, sequence buckets 32/64/128) in its ragged and its
      bucketed arm: waves of two requests each of 20, 50, 90 and 126
-     tokens, one priming and 10 timed.  K6 launches exactly 4 x the
-     batches each arm ran, warmup included; the ragged arm warms one
-     shape and serves with no padding rows and no cold run.  Each arm's
-     device busy time over one profiled wave.
+     tokens, one priming and 10 timed.  Each arm captured (one graph
+     the ragged arm, three the bucketed) and then eager: the same
+     scores.  K6 launches exactly 4 x the batches each arm ran on the
+     card, warmup included; the ragged arm warms one shape and serves with no
+     padding rows and no cold run.  Each arm's device busy time over
+     one profiled wave, in each mode.
  11. ragged Engine parity: each arm's scores against a CPUPlace engine
      on the same saved model and requests.
  12. data-parallel train path: phase 4's configuration through
      CompiledProgram(...).with_data_parallel(places=[CUDAPlace(0)] * 4)
      with the quantized gradient all-reduce: the global batch b128 s128
      split into four replica shards of b32, 2 warm-up and 5 timed
-     steps.  Losses finite and falling; K8's group form launches
-     exactly once a table-full of the plan's group step (the program's
-     fused_adam_quant_grad ops on all 4 replicas) a step, its
-     per-parameter form never, and K1-K4 4x their phase-4 counts; every
-     replica's parameters bit-identical; the bucket plan, modeled wire
-     bytes, fused-update bytes saved, peak memory and tokens/s (four
-     replicas share one card: not a scaling figure); a torch.profiler
-     step with K8's device time against its bound, the beta powers'
-     multi-tensor launches and the kernel launch calls.
+     steps, captured (the whole lockstep step of the four replicas one
+     graph) and eager in turns.  Losses finite and falling; in each
+     mode, on the card, K8's group form launches exactly once a
+     table-full of the
+     plan's group step (the program's fused_adam_quant_grad ops on all
+     4 replicas) a step, its per-parameter form never, and K1-K4 4x
+     their phase-4 counts; every replica's parameters bit-identical and
+     replica 0's the scope's; the two modes' losses and state
+     bit-equal; the bucket plan, modeled wire bytes, fused-update bytes
+     saved, peak memory and tokens/s (four replicas share one card: not
+     a scaling figure); a torch.profiler step of each mode with K8's
+     device time against its bound, the beta powers' multi-tensor
+     launches and the launch API calls.
  13. data-parallel parity: full width, 2 layers, b8 s128, fp32,
      dropout 0, 3 steps over four replicas on the card and over four
      CPUPlace replicas from the same parameters: the losses, and each
@@ -91,12 +114,22 @@ the named kernels alone (a quick check of a kernel change; see ONLY);
 ``--only engine`` adds phases 10-11.
 
 Each path runs with every launch count set to 0 just before it and read
-just after; a kernel of the path launched no time fails the run.  The
+just after; a kernel of the path launched no time fails the run.  Two
+counts, both gated exactly: each wrapper's (``.launches``, Python: the
+calls that launched its kernel, or recorded it into a graph being
+captured; a replay runs no Python, so in the captured mode the wrappers
+see each signature's eager warm-up run and its capture only) and each
+kernel's own on the card (``kernels.device_launch_counts``: the first
+thread of a launch's first block adds one, so it counts every run the
+device made, replays included).  The kernels JSON gives both, summed
+over each path's two modes (``launches``, ``device_launches``).  The
 last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Exits non-zero (and prints no result)
 without CUDA or without the package beside it.
 """
 
+import contextlib
+import difflib
 import json
 import os
 import subprocess
@@ -204,6 +237,101 @@ def _time_ms(fn, iters, flush=None):
                            f"finished enqueueing ({host_ms:.2f} ms); raise "
                            f"SLEEP_CYCLES")
     return sum(a.elapsed_time(b) for a, b in evs) / iters
+
+
+# ---------------------------------------------------------------------------
+# the executor's two modes: every path runs captured (the default) and,
+# in turns from the same state and feeds, eager
+# ---------------------------------------------------------------------------
+
+# (mode, capture): the captured executor replays a CUDA graph per
+# signature; the eager one (FLAGS_cuda_graph_capture off) runs the op loop
+MODES = (("captured", True), ("eager", False))
+
+
+@contextlib.contextmanager
+def capture_mode(on):
+    """Executors made inside (an engine's too) capture their programs
+    (FLAGS_cuda_graph_capture on, the default) or run the eager loop."""
+    from paddle_tpu_torch import fluid
+
+    old = fluid.get_flags("FLAGS_cuda_graph_capture")
+    fluid.set_flags({"FLAGS_cuda_graph_capture": on})
+    try:
+        yield
+    finally:
+        fluid.set_flags(old)
+
+
+def _clone_scope(scope):
+    """A scope of copies of ``scope``'s tensors."""
+    from paddle_tpu_torch import fluid
+
+    out = fluid.Scope()
+    for n in scope.keys():
+        out.set(n, scope.get(n).clone())
+    return out
+
+
+def _scope_diff(a, b):
+    """Names whose tensors differ (bit for bit) between two scopes."""
+    return sorted(n for n in a.keys()
+                  if b.get(n) is None or not torch.equal(a.get(n), b.get(n)))
+
+
+def _snap():
+    """Both launch counts so far: the wrappers' ({name: calls that
+    launched the kernel or recorded it into a graph being captured})
+    and the kernels' own on the card ({name: launches the device ran,
+    graph replays included}, ``kernels.device_launch_counts``; it
+    synchronizes the device)."""
+    from paddle_tpu_torch import kernels
+
+    return kernels.launch_counts(), kernels.device_launch_counts()
+
+
+def _since(snap, names):
+    """(wrapper launches, device launches) of ``names`` since ``snap``."""
+    return tuple({k: now[k] - was[k] for k in names}
+                 for now, was in zip(_snap(), snap))
+
+
+def _times(counts, n):
+    return {k: n * v for k, v in counts.items()}
+
+
+def _add(total, delta):
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _summed(per_mode):
+    """{kernel: count} summed over the modes of {mode: {kernel: count}}."""
+    out = {}
+    for counts in per_mode.values():
+        _add(out, counts)
+    return out
+
+
+def _capture_seconds(exe, *programs):
+    """Summed capture seconds of the graphs ``exe`` holds for
+    ``programs``."""
+    return sum(e.graph.capture_seconds for p in programs
+               for e in exe.compiled_for(p) if e.graph is not None)
+
+
+def graph_pools_gb():
+    """GB the CUDA graphs' private memory pools hold (segments outside
+    the allocator's default pool): a replay's activations live there,
+    which ``max_memory_allocated`` does not count once captured."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) / 1e9
+
+
+def _ms_quantiles(secs):
+    a = np.asarray(secs)
+    return dict(p50_ms=1e3 * float(np.percentile(a, 50)),
+                p95_ms=1e3 * float(np.percentile(a, 95)))
 
 
 # ---------------------------------------------------------------------------
@@ -1264,6 +1392,7 @@ def check_fused_update_group(dev):
 
 TRAIN_BATCH, TRAIN_SEQ = 128, 128
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+CHAIN_STEPS = 10  # run_steps on the train step
 
 
 def _bert_program(cfg, bf16):
@@ -1282,68 +1411,245 @@ def _bert_program(cfg, bf16):
     return main, startup, loss
 
 
+def _executors():
+    """{mode: an executor on the card} of MODES: the captured one and
+    the eager one (FLAGS_cuda_graph_capture as each is made)."""
+    from paddle_tpu_torch import fluid
+
+    out = {}
+    for m, c in MODES:
+        with capture_mode(c):
+            out[m] = fluid.Executor(_gpu_place())
+    return out
+
+
+def _train_step_launches(cfg, replicas=1):
+    """{kernel: launches} of one BERT train step over ``replicas``."""
+    return {"flash_fwd": 2 * cfg.num_layers * replicas,
+            "flash_bwd_dq": cfg.num_layers * replicas,
+            "flash_bwd_dkv": cfg.num_layers * replicas,
+            "fused_bias_act": (cfg.num_layers + 1) * replicas}
+
+
+def _gate_launches(what, launches, on_card, per_run, runs, first_runs):
+    """The exact launch gates of a path run in both modes: on the card
+    (the kernels' own counters) every program run of either mode
+    launches ``per_run``, ``runs`` runs a mode; the wrappers see every
+    eager run, and of the captured mode only its ``first_runs`` (each a
+    signature's eager warm-up and its capture: a replay runs no
+    Python)."""
+    want_card = _times(per_run, runs)
+    want = {"captured": _times(per_run, 2 * first_runs),
+            "eager": want_card}
+    if any(on_card[m] != want_card for m in on_card) or launches != want:
+        raise AssertionError(
+            f"{what}: launches {launches} (wrappers) and {on_card} (on the "
+            f"card), expected {want} and {want_card} a mode")
+
+
 def run_train_path(counters):
-    """BERT-base, b128 s128, bf16 policy, Adam, flash, on the card."""
+    """BERT-base, b128 s128, bf16 policy, Adam, flash, hidden dropout
+    0.1, on the card: the captured executor and the eager one in turns
+    (a step each), from the same state and feed, TRAIN_WARMUP +
+    TRAIN_STEPS steps each.  Each mode's launches exact, on the card and
+    in the wrappers; the two modes' losses and final state bit-equal.
+    The captured state after CHAIN_STEPS steps is kept for
+    run_train_chain."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.observability import profiling
 
     cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
                                attn_dropout=0.0)
     main, startup, loss = _bert_program(cfg, bf16=True)
     scope = fluid.Scope()
-    exe = fluid.Executor(_gpu_place())
-    exe.run(startup, scope=scope)
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    start = _clone_scope(scope)  # run_train_chain starts from here
+    exes = _executors()
     feed = bert.make_fake_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    losses = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    snap = None
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for w in counters.values():
         w.launches = 0
-    losses, secs = [], []
-    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
-        t0 = time.perf_counter()
-        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        secs.append(time.perf_counter() - t0)  # the fetch synchronizes
-        losses.append(float(lv))
-    launches = {k: w.launches for k, w in counters.items()}
-    steps = TRAIN_WARMUP + TRAIN_STEPS
-    expect = {"flash_fwd": 2 * cfg.num_layers * steps,
-              "flash_bwd_dq": cfg.num_layers * steps,
-              "flash_bwd_dkv": cfg.num_layers * steps,
-              "fused_bias_act": (cfg.num_layers + 1) * steps}
-    if launches != expect:
-        raise AssertionError(f"train path launches {launches}, expected "
-                             f"{expect}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    for i in range(steps):
+        for m, exe in exes.items():  # in turns
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[m])
+            secs[m].append(time.perf_counter() - t0)  # the fetch syncs
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            if i >= TRAIN_WARMUP:
+                peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+            losses[m].append(float(lv))
+        if i == CHAIN_STEPS - 1:
+            snap = _clone_scope(scopes["captured"])
+    total = {k: w.launches for k, w in counters.items()}
+    _gate_launches("train path", launches, on_card,
+                   _train_step_launches(cfg), steps, 1)
+    if total != {k: launches["captured"][k] + launches["eager"][k]
+                 for k in total}:
+        raise AssertionError(f"train path: the wrappers read {total}, the "
+                             f"runs {launches}")
+    loss_c = losses["captured"]
+    if not all(np.isfinite(loss_c)) or not loss_c[-1] < loss_c[0]:
         raise AssertionError(f"train path losses not finite and falling: "
-                             f"{losses}")
-    timed = np.asarray(secs[TRAIN_WARMUP:])
+                             f"{loss_c}")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"train path: captured and eager differ: "
+                             f"losses {losses}, state {diff[:5]}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = bert.train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    _, peak_flops, _, _ = profiling.device_peaks()
+    modes = {}
+    for m in exes:
+        timed = np.asarray(secs[m][TRAIN_WARMUP:])
+        modes[m] = dict(
+            tokens_per_s=tokens * TRAIN_STEPS / float(timed.sum()),
+            step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+            step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+            first_step_s=secs[m][0],
+            mfu=flops / float(np.median(timed)) / peak_flops,
+            peak_memory_gb=peak[m] / 1e9, launches=launches[m],
+            device_launches=on_card[m])
+    held = [h.graph for h in exes["captured"].compiled_for(main)]
+    if exes["captured"].capture and held == [None]:
+        raise AssertionError("train path: the captured executor holds no "
+                             "graph")
+    modes["captured"]["capture_s"] = _capture_seconds(exes["captured"], main)
+    modes["captured"]["graph_pools_gb"] = graph_pools_gb()
     path = dict(model="BertConfig.base(vocab_size=30528)", batch=TRAIN_BATCH,
                 seq_len=TRAIN_SEQ, dtype_policy="bf16", steps=TRAIN_STEPS,
-                warmup_steps=TRAIN_WARMUP, losses=losses,
-                tokens_per_s=tokens * TRAIN_STEPS / float(timed.sum()),
-                step_p50_ms=1e3 * float(np.percentile(timed, 50)),
-                step_p95_ms=1e3 * float(np.percentile(timed, 95)),
-                model_flops_per_step=flops,
-                mfu_vs_989_tflops=flops / float(np.median(timed))
-                / BF16_TC_FLOPS,
-                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                launches=launches)
-    return (exe, main, scope, feed, loss), path
+                warmup_steps=TRAIN_WARMUP, losses=loss_c,
+                captured_eager_bit_equal=True, model_flops_per_step=flops,
+                mfu_peak_flops=peak_flops, modes=modes, launches=total,
+                device_launches=_summed(on_card))
+    state = dict(exes=exes, main=main, scopes=scopes, feed=feed, loss=loss,
+                 cfg=cfg, start=start, snap=snap, losses=loss_c)
+    return state, path
 
 
-def _profile(step, n, match=None, device_only=False):
+def time_lookup_grads(dev):
+    """The train step's three lookup_table reads and derived grads (the
+    word [30528, 768], position [512, 768] and token-type [2, 768]
+    tables, b128 s128 ids, bf16 as the policy casts them): the port's
+    lowering (an exact integer index-add, ops/tensor_ops.py
+    ``index_add_exact``) against the library's forms it replaces, each
+    forward and backward timed and each grad checked for equality over
+    eight repeats: ``index_select`` (the lowering before the captured
+    executor), ``F.embedding``, indexing, and a one-hot product for the
+    tables of at most 1,024 rows (the port uses none of them).  The
+    lowering's grad must be equal run to run: captured and eager steps
+    agree on it."""
+    from paddle_tpu_torch.fluid import registry
+
+    lower = registry.get_op("lookup_table").lower
+    ctx = registry.LowerContext(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = {"word": torch.randint(0, 30528, shape, generator=g, device=dev),
+           "position": torch.arange(TRAIN_SEQ, device=dev).repeat(
+               TRAIN_BATCH, 1),
+           "token_type": torch.randint(0, 2, shape, generator=g,
+                                       device=dev)}
+    rows = {"word": 30528, "position": 512, "token_type": 2}
+    forms = {"lowering": lambda w, i: lower(ctx, w, i, attrs={}),
+             "index_select": lambda w, i: torch.index_select(
+                 w, 0, i.reshape(-1)),
+             "embedding": lambda w, i: torch.nn.functional.embedding(
+                 i.reshape(-1), w),
+             "indexing": lambda w, i: w[i.reshape(-1)],
+             "one_hot": lambda w, i: torch.nn.functional.one_hot(
+                 i.reshape(-1), w.shape[0]).to(w.dtype) @ w}
+    out = {}
+    for name, i in ids.items():
+        w = (0.02 * torch.randn(rows[name], 768, generator=g, device=dev)
+             ).to(torch.bfloat16).requires_grad_()
+        dout = torch.randn(TRAIN_BATCH * TRAIN_SEQ, 768, generator=g,
+                           device=dev).to(torch.bfloat16)
+        out[name] = {}
+        for form in forms:
+            if form == "one_hot" and rows[name] > 1024:
+                continue
+
+            def grad():
+                o = forms[form](w, i).reshape(-1, 768)
+                return torch.autograd.grad(o, w, dout)[0]
+
+            ref = grad()
+            same = all(torch.equal(ref, grad()) for _ in range(8))
+            if form == "lowering" and not same:
+                raise AssertionError(f"lookup_table grad ({name} table) "
+                                     f"differs from run to run")
+            out[name][form] = dict(ms=_time_ms(grad, 10),
+                                   equal_run_to_run=same)
+    return out
+
+
+def run_train_chain(state):
+    """run_steps(CHAIN_STEPS) on the train step from the path's start:
+    its last loss and final state equal to the path's captured run()
+    calls at that step (bit for bit); one graph replayed a step, so the
+    card launches CHAIN_STEPS x a step's kernels and the wrappers see
+    the first step's warm-up and capture only."""
+    from paddle_tpu_torch import fluid
+
+    # the path's executors and the eager state go first: one more
+    # graph's pool of activations comes next
+    state["exes"].clear()
+    state["scopes"].clear()
+    torch.cuda.empty_cache()
+    exe = fluid.Executor(_gpu_place())
+    per = _train_step_launches(state["cfg"])
+    before = _snap()
+    t0 = time.perf_counter()
+    (last,) = exe.run_steps(state["main"], feed=state["feed"],
+                            n_steps=CHAIN_STEPS, fetch_list=[state["loss"]],
+                            scope=state["start"])
+    wall = time.perf_counter() - t0
+    got, on_card = _since(before, per)
+    want = (_times(per, 2), _times(per, CHAIN_STEPS))
+    diff = _scope_diff(state["start"], state["snap"])
+    ref = state["losses"][CHAIN_STEPS - 1]
+    if float(last) != ref or diff or (got, on_card) != want:
+        raise AssertionError(f"run_steps({CHAIN_STEPS}): last loss "
+                             f"{float(last)} vs run() {ref}, state diff "
+                             f"{diff[:5]}, launches {got} (wrappers) and "
+                             f"{on_card} (on the card) vs {want}")
+    (handle,) = [h for h in exe.compiled_for(state["main"])
+                 if "chain" in h.label]
+    return dict(n_steps=CHAIN_STEPS, last_loss=float(last),
+                equal_to_run_calls=True, wall_s=wall,
+                step_mean_ms=1e3 * wall / CHAIN_STEPS,
+                capture_s=_capture_seconds(exe, state["main"]),
+                graph_of_one_step=handle.graph is not None, launches=got,
+                device_launches=on_card)
+
+
+def _profile(step, n, match=None, device_only=False, kernels=False):
     """Host wall time vs summed device time of ``n`` calls of ``step``
-    (torch.profiler), with the top device and host ops and the kernel
-    launch API calls (cudaLaunchKernel and its kin) a call; with
-    ``match`` (a name or a tuple of names), also the summed device time
-    and count a call of the device events whose name contains each.
-    ``device_only`` traces the card alone, for a step whose kernels
-    another thread launches (the serving Engine's scheduler): a trace
-    with host activity keeps only some of them.  Traced alone, the step
-    keeps all of them when it is the first trace of its process
-    (``--only engine``), not always after earlier ones."""
+    (torch.profiler), with the top device and host ops and the launch
+    API calls (cudaLaunchKernel and its kin, cudaGraphLaunch) a call;
+    with ``match`` (a name or a tuple of names), also the summed device
+    time and count a call of the device events whose name contains each;
+    with ``kernels``, the profiler itself (``"prof"``) for
+    :func:`_kernel_sequence`.  ``device_only`` traces the card alone,
+    for a step whose kernels another thread launches (the serving
+    Engine's scheduler): a trace with host activity keeps only some of
+    them.  Traced alone, the step keeps all of them when it is the
+    first trace of its process (``--only engine``), not always after
+    earlier ones."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1357,6 +1663,8 @@ def _profile(step, n, match=None, device_only=False):
         wall = (time.perf_counter() - t0) / n
     dev, host = [], []
     for e in prof.key_averages():
+        if e.key in SPLIT_LABELS:
+            continue  # a record_function range, mirrored on the device
         # device-side events (kernels, copies) only: a CPU op such as
         # aten::mm also carries the device time of the kernels under it
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -1376,25 +1684,134 @@ def _profile(step, n, match=None, device_only=False):
                device_busy_ms=dev_us / n / 1e3 if dev_us else None,
                device_events=sum(c for _, _, c in dev) // n,
                launch_api_calls={key: c // n for _, key, c in host
-                                 if "LaunchKernel" in key},
+                                 if "LaunchKernel" in key
+                                 or "GraphLaunch" in key},
                top_device_us=top(dev), top_host_self_us=top(host))
+    if out["device_busy_ms"]:
+        out["device_idle_share"] = 1 - out["device_busy_ms"] / out[
+            "wall_profiled_ms"]
     for name in (match,) if isinstance(match, str) else (match or ()):
         hits = [(t, c) for t, key, c in dev if name in key]
         out[f"{name}_device_ms"] = sum(t for t, _ in hits) / n / 1e3
         out[f"{name}_events"] = sum(c for _, c in hits) // n
+    if kernels:
+        out["prof"] = prof
+    return out
+
+
+def _kernel_sequence(prof, labels=()):
+    """The device kernels of a trace in start order (copies and sets
+    left out): (name, microseconds, label), the label the innermost
+    ``record_function`` range of ``labels`` that holds the CPU op that
+    launched the kernel (linked by correlation id), else None."""
+    from torch.autograd import DeviceType
+
+    def start(e):
+        return e.start_ns() if hasattr(e, "start_ns") else 1e3 * e.start_us()
+
+    def dur(e):
+        return (e.duration_ns() if hasattr(e, "duration_ns")
+                else 1e3 * e.duration_us())
+
+    evs = list(prof.profiler.kineto_results.events())
+    ranges = [(start(e), start(e) + dur(e), e.name())
+              for e in evs if e.name() in labels]
+    ops = {e.correlation_id(): start(e) for e in evs
+           if e.device_type() == DeviceType.CPU
+           and not e.name().startswith("cuda")}
+    out = []
+    for e in sorted((e for e in evs if e.device_type() == DeviceType.CUDA
+                     and e.name() not in labels
+                     and not e.name().startswith(("Memcpy", "Memset"))),
+                    key=start):
+        t = ops.get(e.linked_correlation_id())
+        held = [(b - a, n) for a, b, n in ranges
+                if t is not None and a <= t <= b]
+        out.append((e.name(), dur(e) / 1e3, min(held)[1] if held else None))
+    return out
+
+
+# record_function ranges of the train step's elementwise split
+SPLIT_LABELS = ("pt_bf16_policy_cast", "pt_adam")
+
+
+@contextlib.contextmanager
+def _split_annotations():
+    """The bf16 policy's casts (``executor._apply_bf16_policy``) and the
+    adam op's lowering each inside a record_function range, for one
+    eager profiled step (chip_smoke only: the port carries no
+    annotation)."""
+    from paddle_tpu_torch.fluid import executor as ex
+    from paddle_tpu_torch.fluid import registry
+
+    cast, adam = ex._apply_bf16_policy, registry.get_op("adam")
+    lower = adam.lower
+
+    def cast_annotated(op, vals):
+        with torch.profiler.record_function(SPLIT_LABELS[0]):
+            return cast(op, vals)
+
+    def adam_annotated(*a, **kw):
+        with torch.profiler.record_function(SPLIT_LABELS[1]):
+            return lower(*a, **kw)
+
+    ex._apply_bf16_policy, adam.lower = cast_annotated, adam_annotated
+    try:
+        yield
+    finally:
+        ex._apply_bf16_policy, adam.lower = cast, lower
+
+
+def _split(seq):
+    """Device ms of each label of a labelled kernel sequence."""
+    out = {}
+    for _, us, label in seq:
+        key = label or "other"
+        out[key] = out.get(key, 0.0) + us / 1e3
     return out
 
 
 def profile_train_step(state):
-    exe, main, scope, feed, loss = state
-    out = _profile(lambda: exe.run(main, feed=feed, fetch_list=[loss],
-                                   scope=scope), 1)
-    t0 = time.perf_counter()
-    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-    out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
-    if out["device_busy_ms"]:
-        out["device_idle_share"] = 1 - out["device_busy_ms"] \
-            / out["step_wall_ms"]
+    """One train step of each mode under torch.profiler, and one
+    unprofiled: device busy and idle, the launch API calls, and the
+    elementwise split of the step's device time between the bf16
+    policy's casts and Adam's kernels.  The eager step carries the
+    split's ranges; the captured step's kernels (one graph launch: no
+    op launches them) take the labels of the eager step's kernels they
+    align with, name by name in order (difflib), and any left unaligned
+    are counted apart."""
+    exes, scopes = state["exes"], state["scopes"]
+    main, feed, loss = state["main"], state["feed"], state["loss"]
+    out, seqs = {}, {}
+    for m, exe in exes.items():
+        def step():
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scopes[m])
+
+        if m == "eager":
+            with _split_annotations():
+                r = _profile(step, 1, kernels=True)
+        else:
+            r = _profile(step, 1, kernels=True)
+        seqs[m] = _kernel_sequence(r.pop("prof"), SPLIT_LABELS)
+        t0 = time.perf_counter()
+        step()
+        r["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        out[m] = r
+    eager, cap = seqs["eager"], seqs["captured"]
+    sm = difflib.SequenceMatcher(a=[k[0] for k in eager],
+                                 b=[k[0] for k in cap], autojunk=False)
+    labelled, aligned = [], 0
+    for a, b, size in sm.get_matching_blocks():
+        labelled += [(cap[b + i][0], cap[b + i][1], eager[a + i][2])
+                     for i in range(size)]
+        aligned += size
+    unaligned = (sum(us for _, us, _ in cap)
+                 - sum(us for _, us, _ in labelled)) / 1e3
+    out["elementwise_split_ms"] = {
+        "eager": _split(eager), "captured": _split(labelled),
+        "captured_unaligned_ms": unaligned,
+        "kernels": {"eager": len(eager), "captured": len(cap),
+                    "aligned": aligned}}
     return out
 
 
@@ -1501,11 +1918,16 @@ def _counter_value(name):
 
 def run_dp_path(counters):
     """BERT-base (phase 4's configuration) over DP_REPLICAS replicas on
-    CUDAPlace(0): global batch b128 s128, b32 a replica.  K8 must launch
-    its group form once a table-full of the plan's group step (every
+    CUDAPlace(0): global batch b128 s128, b32 a replica, the captured
+    executor and the eager one in turns (a step each) from the same
+    state and feed.  In each mode the card must launch K8's group form
+    once a table-full of the plan's group step (every
     fused_adam_quant_grad op on every replica) a step and its
-    per-parameter form never, K1-K4 replicas x their phase-4 counts;
-    the replicas' parameters bit-identical after the run."""
+    per-parameter form never, K1-K4 replicas x their phase-4 counts
+    (the wrappers: every eager step, and the captured mode's warm-up
+    and capture); the replicas' parameters
+    bit-identical and the scope's; the two modes' losses and replica
+    state bit-equal."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import fused_update as fu
@@ -1513,27 +1935,46 @@ def run_dp_path(counters):
 
     cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
                                attn_dropout=0.0)
-    main, startup, loss = _bert_program(cfg, bf16=True)
+    # a program a mode: the data-parallel transpile rewrites its program
+    # in place (the same names: one state serves both)
+    progs = {m: _bert_program(cfg, bf16=True) for m, _ in MODES}
+    main, startup, loss = progs["captured"]
     scope = fluid.Scope()
-    exe = fluid.Executor(_gpu_place())
-    exe.run(startup, scope=scope)
-    compiled = _dp_compiled(main, loss, [_gpu_place()] * DP_REPLICAS)
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    compiled = {m: _dp_compiled(progs[m][0], progs[m][2],
+                                [_gpu_place()] * DP_REPLICAS)
+                for m in exes}
     feed = _dp_feed(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     saved0 = _counter_value("pt_fused_update_bytes_saved_total")
+    names = list(counters) + ["fused_update_kernel"]
+    losses = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for w in counters.values():
         w.launches = 0
     fu.fused_update_kernel.launches = 0
-    losses, secs = [], []
-    for _ in range(DP_WARMUP + DP_STEPS):
-        t0 = time.perf_counter()
-        (lv,) = exe.run(compiled, feed=feed, fetch_list=[loss], scope=scope)
-        secs.append(time.perf_counter() - t0)  # the fetch synchronizes
-        losses.append([float(v) for v in lv])
-    launches = {k: w.launches for k, w in counters.items()}
-    single_k8 = fu.fused_update_kernel.launches
-    runner = compiled._dp_runner
+    steps, n = DP_WARMUP + DP_STEPS, DP_REPLICAS
+    for i in range(steps):
+        for m, exe in exes.items():  # in turns
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(compiled[m], feed=feed, fetch_list=[loss],
+                            scope=scopes[m])
+            secs[m].append(time.perf_counter() - t0)  # the fetch syncs
+            py, dev = _since(before, names)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            if i >= DP_WARMUP:
+                peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+            losses[m].append([float(v) for v in lv])
+    total = {k: w.launches for k, w in counters.items()}
+    runner = compiled["captured"]._dp_runner
     prog = runner.program
     n_fused = sum(op.type == "fused_adam_quant_grad"
                   for op in prog.global_block().ops)
@@ -1542,39 +1983,59 @@ def run_dp_path(counters):
                       fu._SIGNATURES).pt_fused_update_group_capacity()
     # the group launches the plan makes: one a table-full of each group
     # step's members on every replica
-    group_launches = sum(-(-m * DP_REPLICAS // cap)
+    group_launches = sum(-(-m * n // cap)
                          for _, m in exec_plan.group_sizes)
-    steps, n = DP_WARMUP + DP_STEPS, DP_REPLICAS
-    expect = {"flash_fwd": 2 * cfg.num_layers * n * steps,
-              "flash_bwd_dq": cfg.num_layers * n * steps,
-              "flash_bwd_dkv": cfg.num_layers * n * steps,
-              "fused_bias_act": (cfg.num_layers + 1) * n * steps,
-              "fused_update": group_launches * steps}
-    expect = {k: v for k, v in expect.items() if k in counters}
+    per = dict(_train_step_launches(cfg, n), fused_update=group_launches,
+               fused_update_kernel=0)
+    per = {k: v for k, v in per.items() if k in names}
     groups = exec_plan.group_sizes
-    if launches != expect or single_k8 \
-            or groups != [("fused_adam_quant_grad", n_fused)]:
-        raise AssertionError(f"dp path launches {launches}, expected "
-                             f"{expect}; per-parameter K8 {single_k8}, "
-                             f"expected 0; plan groups {groups} "
-                             f"({n_fused} fused_adam_quant_grad ops)")
-    means = [float(np.mean(x)) for x in losses]
-    if not np.isfinite(losses).all() or not means[-1] < means[0]:
+    if groups != [("fused_adam_quant_grad", n_fused)]:
+        raise AssertionError(f"dp path: plan groups {groups} ({n_fused} "
+                             f"fused_adam_quant_grad ops)")
+    _gate_launches("dp path", launches, on_card, per, steps, 1)
+    if total != {k: launches["captured"][k] + launches["eager"][k]
+                 for k in total}:
+        raise AssertionError(f"dp path: the wrappers read {total}, the "
+                             f"runs {launches}")
+    means = [float(np.mean(x)) for x in losses["captured"]]
+    if not np.isfinite(losses["captured"]).all() or not means[-1] < means[0]:
         raise AssertionError(f"dp path losses not finite and falling: "
-                             f"{losses}")
+                             f"{losses['captured']}")
     params = main.all_parameters()
-    for p in params:
-        vals = runner.replica_values(p.name)
-        if not all(torch.equal(v, vals[0]) for v in vals[1:]):
-            raise AssertionError(f"dp path: replicas differ on {p.name}")
+    for m in exes:
+        r = compiled[m]._dp_runner
+        for p in params:
+            vals = r.replica_values(p.name)
+            if not all(torch.equal(v, vals[0]) for v in vals[1:]) \
+                    or scopes[m].get(p.name) is not vals[0]:
+                raise AssertionError(f"dp path ({m}): replicas differ on "
+                                     f"{p.name}, or replica 0 is not the "
+                                     f"scope's")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"dp path: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
     plan = prog._quant_allreduce_plan
-    timed = np.asarray(secs[DP_WARMUP:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    modes = {}
+    for m in exes:
+        timed = np.asarray(secs[m][DP_WARMUP:])
+        modes[m] = dict(
+            tokens_per_s=tokens * DP_STEPS / float(timed.sum()),
+            step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+            step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+            first_step_s=secs[m][0], peak_memory_gb=peak[m] / 1e9,
+            launches=launches[m], device_launches=on_card[m])
+    (graph,) = [e.graph for e in runner._entries.values()]
+    if exes["captured"].capture and graph is None:
+        raise AssertionError("dp path: the captured executor holds no graph")
+    modes["captured"]["capture_s"] = getattr(graph, "capture_seconds", None)
+    modes["captured"]["graph_pools_gb"] = graph_pools_gb()
     path = dict(
         model="BertConfig.base(vocab_size=30528)", replicas=n,
         places="[CUDAPlace(0)] x 4", global_batch=TRAIN_BATCH,
         seq_len=TRAIN_SEQ, dtype_policy="bf16", steps=DP_STEPS,
-        warmup_steps=DP_WARMUP, losses=losses,
+        warmup_steps=DP_WARMUP, losses=losses["captured"],
         fused_adam_quant_grad_ops=n_fused, plan_groups=groups,
         group_table=cap, group_launches_per_step=group_launches,
         plain_adam_ops=sum(op.type == "adam"
@@ -1587,36 +2048,37 @@ def run_dp_path(counters):
         fused_update_bytes_saved_per_step=prog._fused_update_bytes_saved,
         pt_fused_update_bytes_saved_total=_counter_value(
             "pt_fused_update_bytes_saved_total") - saved0,
-        tokens_per_s=tokens * DP_STEPS / float(timed.sum()),
         tokens_per_s_note=("global tokens a step over the host-clock step; "
                            "four replicas share one card, so this is not a "
                            "scaling figure"),
-        step_p50_ms=1e3 * float(np.percentile(timed, 50)),
-        step_p95_ms=1e3 * float(np.percentile(timed, 95)),
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-        replicas_bit_identical=True, launches=launches)
-    return (exe, compiled, scope, feed, loss, n_fused), path
+        replicas_bit_identical=True, captured_eager_bit_equal=True,
+        modes=modes, launches=total, device_launches=_summed(on_card))
+    state = dict(exes=exes, compiled=compiled, scopes=scopes, feed=feed,
+                 loss=loss, n_fused=n_fused)
+    return state, path
 
 
 def profile_dp_step(state):
-    """One data-parallel step under torch.profiler: device busy and
-    idle, the top kernels, the kernel launch calls, K8's summed device
-    time (its group kernel, and its per-parameter kernel, which must not
-    run) against its bound (every fused op's bytes, every replica, at
-    the HBM rate), and the multi-tensor kernels that advance the beta
-    powers."""
-    exe, compiled, scope, feed, loss, _ = state
-    out = _profile(lambda: exe.run(compiled, feed=feed, fetch_list=[loss],
-                                   scope=scope), 1,
-                   match=("fused_update_group_kernel", "fused_update_kernel",
-                          "multi_tensor_apply"))
-    t0 = time.perf_counter()
-    exe.run(compiled, feed=feed, fetch_list=[loss], scope=scope)
-    out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
-    if out["device_busy_ms"]:
-        out["device_idle_share"] = 1 - out["device_busy_ms"] \
-            / out["wall_profiled_ms"]
-    prog = compiled._dp_runner.program
+    """One data-parallel step of each mode under torch.profiler: device
+    busy and idle, the top kernels, the launch API calls, K8's summed
+    device time (its group kernel, and its per-parameter kernel, which
+    must not run) against its bound (every fused op's bytes, every
+    replica, at the HBM rate), and the multi-tensor kernels that advance
+    the beta powers."""
+    out = {}
+    for m, exe in state["exes"].items():
+        def step():
+            exe.run(state["compiled"][m], feed=state["feed"],
+                    fetch_list=[state["loss"]], scope=state["scopes"][m])
+
+        r = _profile(step, 1, match=("fused_update_group_kernel",
+                                     "fused_update_kernel",
+                                     "multi_tensor_apply"))
+        t0 = time.perf_counter()
+        step()
+        r["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        out[m] = r
+    prog = state["compiled"]["captured"]._dp_runner.program
     byts = sum(_k8_bytes("adam", int(op.attrs["numel"]))
                for op in prog.global_block().ops
                if op.type == "fused_adam_quant_grad") * DP_REPLICAS
@@ -1732,7 +2194,7 @@ class Lane:
     decode steps, returning logprobs."""
 
     def __init__(self, cfg, place, scope, pool_slots, page_size, max_len,
-                 chunk, pool_dtype="float32"):
+                 chunk, pool_dtype="float32", capture=None):
         from paddle_tpu_torch import fluid
         from paddle_tpu_torch.models import gpt
         from paddle_tpu_torch.serving.kv_pool import KVPool
@@ -1742,7 +2204,8 @@ class Lane:
         self.max_pages = max_len // page_size
         num_pages = pool_slots * self.max_pages + 1
         self.pool_slots = pool_slots
-        self.exe = fluid.Executor(place)
+        with capture_mode(True if capture is None else capture):
+            self.exe = fluid.Executor(place)
         KVPool(cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
                num_pages, page_size, self.max_pages,
                dtype=pool_dtype).install(scope, self.exe.device)
@@ -1819,13 +2282,83 @@ def _param_names(cfg):
     return main, [p.name for p in main.all_parameters()]
 
 
+def _lane_workload(cfg):
+    """The decode cell's requests: 16 seeded prompts of 8-512 tokens."""
+    rng = np.random.RandomState(SEED)
+    lens = [8, 512] + list(rng.randint(8, 513, 14))
+    return lens, [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def _serve_lane(cfg, scope, prompts, counters, pool_dtype, capture):
+    """One run of the decode workload on a fresh DecodeEngine (warmed
+    up: on the captured executor, each program captured there) over
+    ``scope``'s weights, with every launch count set to 0 before the
+    engine is made and read after the run.  Returns the ids and the
+    run's figures; gates each kernel at its count a layer per program
+    run on the card (the warmup's runs included), and in the wrappers,
+    which see every eager run and of the captured engine only the
+    warmup's warm-up runs and captures."""
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    for w, _ in counters.values():
+        w.launches = 0
+    before = _snap()
+    with capture_mode(capture):
+        eng = DecodeEngine(cfg, scope=scope, place=_gpu_place(),
+                           pool_slots=8, page_size=16, max_len=1024,
+                           pool_dtype=pool_dtype,
+                           name=f"smoke-{pool_dtype}-{capture}",
+                           auto_start=False, max_queue=len(prompts))
+    warmed = eng.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    eng.start()
+    outs = [f.result(timeout=900) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, (w, _) in counters.items()}
+    _, on_card = _since(before, counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = eng.stats()
+    eng.close()
+    if any(len(o) != 32 for o in outs):
+        raise AssertionError(f"wrong token counts {[len(o) for o in outs]}")
+    runs = stats["prefill_chunks"] + stats["steps"] + warmed
+    seen = 2 * warmed if capture else runs
+    for k, got in launches.items():
+        each = counters[k][1] * cfg.num_layers
+        if (got, on_card[k]) != (each * seen, each * runs):
+            raise AssertionError(
+                f"{k}: {got} launches (wrappers), {on_card[k]} on the card, "
+                f"expected {counters[k][1]} x {cfg.num_layers} x {seen} and "
+                f"x {runs} program runs ({warmed} at the warmup)")
+    gen = sum(len(o) for o in outs)
+    prompt_tokens = sum(len(p) for p in prompts)
+    figures = dict(
+        wall_s=wall, generated_tokens_per_s=gen / wall,
+        total_tokens_per_s=(gen + prompt_tokens) / wall,
+        prefill_chunks=stats["prefill_chunks"], decode_steps=stats["steps"],
+        decode_step_ms=_ms_quantiles(eng.step_seconds),
+        prefill_chunk_ms=_ms_quantiles(eng.prefill_seconds),
+        evictions=stats["evictions"], peak_memory_gb=peak_gb,
+        launches=launches, device_launches=on_card)
+    if capture:
+        figures["capture_s"] = _capture_seconds(eng._exe, eng._dec_prog,
+                                                eng._pf_prog)
+        figures["graph_pools_gb"] = graph_pools_gb()
+    return outs, figures, eng.pool.modeled_bytes()
+
+
 def run_path(dev, counters, pool_dtype="float32"):
-    """The decode lane at full width over a ``pool_dtype`` KV pool.
-    ``counters`` maps each kernel the run reads to the launches it must
-    make per layer per program run (1 on the path, 0 off it)."""
+    """The decode lane at full width over a ``pool_dtype`` KV pool,
+    captured (the main path) and then eager on a copy of the weights:
+    the same ids.  ``counters`` maps each kernel the run reads to the
+    launches it must make per layer per program run (1 on the path, 0
+    off it)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.serving import DecodeEngine
 
     cfg = _model_config()
     main, startup = fluid.Program(), fluid.Program()
@@ -1834,78 +2367,65 @@ def run_path(dev, counters, pool_dtype="float32"):
     startup.random_seed = SEED
     scope = fluid.Scope()
     fluid.Executor(_gpu_place()).run(startup, scope=scope)
-
-    eng = DecodeEngine(cfg, scope=scope, place=_gpu_place(),
-                       pool_slots=8, page_size=16, max_len=1024,
-                       pool_dtype=pool_dtype, name=f"smoke-{pool_dtype}",
-                       auto_start=False)
-    eng.warmup()
-    rng = np.random.RandomState(SEED)
-    lens = [8, 512] + list(rng.randint(8, 513, 14))
-    prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
-    for w, _ in counters.values():
-        w.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng.start()
-    futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
-    outs = [f.result(timeout=900) for f in futs]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, (w, _) in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    stats = eng.stats()
-    eng.close()
-    if any(len(o) != 32 for o in outs):
-        raise AssertionError(f"wrong token counts {[len(o) for o in outs]}")
-    runs = stats["prefill_chunks"] + stats["steps"]
-    for k, got in launches.items():
-        want = counters[k][1] * cfg.num_layers * runs
-        if got != want:
-            raise AssertionError(
-                f"{k}: {got} launches, expected {counters[k][1]} x "
-                f"{cfg.num_layers} x {runs} program runs = {want}")
-    gen = sum(len(o) for o in outs)
-    path = dict(pool_dtype=pool_dtype,
-                pool_bytes=eng.pool.modeled_bytes(),
+    lens, prompts = _lane_workload(cfg)
+    modes, ids = {}, {}
+    for m, capture in MODES:
+        ids[m], modes[m], pool_bytes = _serve_lane(
+            cfg, _copy_scope(scope), prompts, counters, pool_dtype, capture)
+        torch.cuda.empty_cache()
+    if ids["captured"] != ids["eager"]:
+        raise AssertionError(f"{pool_dtype} decode lane: captured and eager "
+                             f"ids differ")
+    path = dict(pool_dtype=pool_dtype, pool_bytes=pool_bytes,
                 requests=len(prompts), prompt_tokens=int(sum(lens)),
-                generated_tokens=gen, wall_s=wall,
-                generated_tokens_per_s=gen / wall,
-                total_tokens_per_s=(gen + sum(lens)) / wall,
-                prefill_chunks=stats["prefill_chunks"],
-                decode_steps=stats["steps"],
-                decode_step_p50_ms=1e3 * float(np.median(eng.step_seconds)),
-                prefill_chunk_p50_ms=1e3 * float(
-                    np.median(eng.prefill_seconds)),
-                evictions=stats["evictions"], peak_memory_gb=peak_gb,
-                launches=launches)
-    return cfg, scope, prompts, outs, path
+                generated_tokens=sum(len(o) for o in ids["captured"]),
+                captured_eager_ids_equal=True, modes=modes,
+                launches=_summed({m: r["launches"]
+                                  for m, r in modes.items()}),
+                device_launches=_summed({m: r["device_launches"]
+                                         for m, r in modes.items()}))
+    return cfg, scope, prompts, ids["captured"], path
 
 
 def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32"):
-    """Host wall time vs summed device kernel time of decode steps
-    (torch.profiler), kernel launch calls and the paged attention
+    """Host wall time vs summed device kernel time of decode steps of
+    each mode (torch.profiler), launch API calls and the paged attention
     kernels' device time a step: slot 0 active at positions 65-69, the
-    other seven slots on the trash page."""
-    lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32,
-                pool_dtype)
-    lane.prefill(list(range(1, 65)))
-    lane.decode(5, 64)
-    pos = iter(range(65, 65 + 2 * steps))
-    out = _profile(lambda: lane.decode(5, next(pos)), steps, match="paged")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        lane.decode(5, next(pos))
-    torch.cuda.synchronize()
-    out["step_wall_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+    other seven slots on the trash page.  The two modes' logprobs of
+    every step bit-equal."""
+    out, logp = {}, {}
+    for m, capture in MODES:
+        torch.cuda.reset_peak_memory_stats()
+        lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32,
+                    pool_dtype, capture=capture)
+        got = lane.prefill(list(range(1, 65)))
+        got.append(lane.decode(5, 64))
+        pos = iter(range(65, 65 + 2 * steps))
+        r = _profile(lambda: got.append(lane.decode(5, next(pos))), steps,
+                     match="paged")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            got.append(lane.decode(5, next(pos)))
+        torch.cuda.synchronize()
+        r["step_wall_ms"] = 1e3 * (time.perf_counter() - t0) / steps
+        r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if capture:
+            r["capture_s"] = _capture_seconds(lane.exe, lane.pf, lane.dec)
+        out[m], logp[m] = r, got
+        del lane
+        torch.cuda.empty_cache()
+    if not all(np.array_equal(a, b) for a, b in zip(logp["captured"],
+                                                    logp["eager"])):
+        raise AssertionError(f"{pool_dtype} decode step: captured and eager "
+                             f"logprobs differ")
+    out["logprobs_bit_equal"] = len(logp["captured"])
     return out
 
 
 def _lane_engine(cfg, scope, prompts, pool_dtype, name):
     """A fresh DecodeEngine of the decode lane on a copy of ``scope``,
-    warmed up, that queues all of ``prompts``."""
+    warmed up (its programs captured), that queues all of ``prompts``."""
     from paddle_tpu_torch.serving import DecodeEngine
 
     eng = DecodeEngine(cfg, scope=_copy_scope(scope), place=_gpu_place(),
@@ -1930,23 +2450,26 @@ def profile_lane_paged(cfg, scope, prompts, pool_dtype="float32",
     warmed up first; torch.profiler), and the ids it generated.  With
     ``one_split`` the wrapper (K5's, or K7's over the int8 pool) plans a
     single split: the kernel's form before the split, through the same
-    C entry."""
+    C entry; the plan is set before the engine's warmup, where its
+    programs are captured."""
     from paddle_tpu_torch.kernels.primitives import paged
 
     form = "one" if one_split else "split"
-    eng = _lane_engine(cfg, scope, prompts, pool_dtype,
-                       f"lane-{pool_dtype}-{form}")
     plan = paged.split_plan
     if one_split:
         paged.split_plan = lambda b, n, t, d, max_pages, *a: \
             paged.SplitPlan(max_pages, 1, None, 0)
     outs = []
     try:
-        prof = _profile(lambda: outs.extend(_drive_lane(eng, prompts)), 1,
-                        match="paged")
+        eng = _lane_engine(cfg, scope, prompts, pool_dtype,
+                           f"lane-{pool_dtype}-{form}")
+        try:
+            prof = _profile(lambda: outs.extend(_drive_lane(eng, prompts)),
+                            1, match="paged")
+        finally:
+            eng.close()
     finally:
         paged.split_plan = plan
-        eng.close()
     return dict(one_split=one_split,
                 paged_device_ms=prof["paged_device_ms"],
                 paged_events=prof["paged_events"],
@@ -1956,13 +2479,14 @@ def profile_lane_paged(cfg, scope, prompts, pool_dtype="float32",
 
 def lane_paged_bound(cfg, scope, prompts, pool_dtype):
     """The paged kernel's least device time over one whole lane run: a
-    run of its own (unprofiled) records each call's shapes and q_start
-    values, and each call's bytes (``_paged_bound``, or
-    ``_paged_quant_bound`` over the int8 pool: the live K/V rows, q and
-    out moved once) are summed at the HBM rate.  The decode ops reach
-    the wrappers through their module reference, which the run points
-    at a recorder (the wrappers themselves, and their launch counts,
-    stay as they are)."""
+    run of its own (unprofiled, eager: the recorder reads each call's
+    q_start on the host, which a capture cannot) records each call's
+    shapes and q_start values, and each call's bytes (``_paged_bound``,
+    or ``_paged_quant_bound`` over the int8 pool: the live K/V rows, q
+    and out moved once) are summed at the HBM rate.  The decode ops
+    reach the wrappers through their module reference, which the run
+    points at a recorder (the wrappers themselves, and their launch
+    counts, stay as they are)."""
     import types
 
     from paddle_tpu_torch.ops import decode_ops
@@ -1976,7 +2500,9 @@ def lane_paged_bound(cfg, scope, prompts, pool_dtype):
         calls.append((q.shape, pool.shape[1], args[-1].tolist()))
         return getattr(kernels, name)(q, pool, *args, **kw)
 
-    eng = _lane_engine(cfg, scope, prompts, pool_dtype, f"bound-{pool_dtype}")
+    with capture_mode(False):
+        eng = _lane_engine(cfg, scope, prompts, pool_dtype,
+                           f"bound-{pool_dtype}")
     decode_ops._paged = types.SimpleNamespace(
         paged_attention=kernels.paged_attention,
         paged_attention_quant=kernels.paged_attention_quant)
@@ -1994,9 +2520,9 @@ def lane_paged_bound(cfg, scope, prompts, pool_dtype):
 
 def lane_in_turns(cfg, scope, prompts, outs, pool_dtype="float32"):
     """The paged kernel (K5, or K7 over the int8 pool) over the whole
-    decode lane, one split and split in turns (one, split, split, one):
-    summed device ms of the paged kernels a run, whether each run's ids
-    equal the main path's, and the lane-wide bound."""
+    decode lane, captured, one split and split in turns (one, split,
+    split, one): summed device ms of the paged kernels a run, whether
+    each run's ids equal the main path's, and the lane-wide bound."""
     runs = []
     for one in (True, False, False, True):
         r, got = profile_lane_paged(cfg, scope, prompts, pool_dtype,
@@ -2151,21 +2677,29 @@ def _serve_rows(model, kind):
     return fam["samples"].get((model, kind), 0.0) if fam else 0.0
 
 
-def run_ragged_arm(model_dir, fetch, ragged, place, waves, counter=None):
-    """One Engine arm serving ``waves`` (the first primes).  Returns the
-    served scores of every request and the arm's figures; with a
-    ``counter`` (K6's wrapper) its launches are zeroed before the arm
-    and must equal 4 x the batches the arm executed, warmup included."""
+def run_ragged_arm(model_dir, fetch, ragged, place, waves, counter=None,
+                   capture=True):
+    """One Engine arm serving ``waves`` (the first primes), its programs
+    captured (on the card, at the warmup) or, without ``capture``, run
+    by the eager loop.  Returns the served scores of every request and
+    the arm's figures; with a ``counter`` (K6's wrapper) its launches
+    are zeroed before the arm, and on the card K6 must launch 4 x the
+    batches the arm executed, warmup included, and the wrapper 4 x the
+    eager ones (the warmup's warm-up runs and captures on the captured
+    engine, every batch on the eager one)."""
     from paddle_tpu_torch import serving
 
     name = "ragged" if ragged else "bucketed"
     if counter is not None:
         counter.launches = 0
+        before = _snap()
     eng = serving.Engine(batch_buckets=[RAGGED_BATCH],
                          seq_buckets=RAGGED_SEQ_BUCKETS, max_wait_ms=5,
-                         auto_start=False, name=f"smoke_{name}", place=place)
+                         auto_start=False, name=f"smoke_{name}_{capture}",
+                         place=place)
     try:
-        eng.load_model(name, model_dir, ragged=ragged)
+        with capture_mode(capture):  # the model's predictor's executor
+            eng.load_model(name, model_dir, ragged=ragged)
         warmed = eng.warmup()[name]
         eng.start()
 
@@ -2180,17 +2714,32 @@ def run_ragged_arm(model_dir, fetch, ragged, place, waves, counter=None):
         scores = [wave(waves[0])]
         pad0, real0 = _serve_rows(name, "padding"), _serve_rows(name, "real")
         cold0 = cold()
+        on_card = place.torch_device().type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        wave_s = []
         for feeds in waves[1:]:
+            t1 = time.perf_counter()
             scores.append(wave(feeds))
+            wave_s.append(time.perf_counter() - t1)
         dt = time.perf_counter() - t0
         timed = len(waves) - 1
-        arm = dict(arm=name, warmed_shapes=warmed,
+        arm = dict(arm=name, capture=capture, warmed_shapes=warmed,
                    real_tokens_per_s=timed * 2 * sum(RAGGED_WAVE) / dt,
                    timed_waves=timed, wall_s=dt,
+                   wave_ms=_ms_quantiles(wave_s) if wave_s else None,
                    real_rows=int(_serve_rows(name, "real") - real0),
                    padding_rows=int(_serve_rows(name, "padding") - pad0),
                    steady_state_cold=int(cold() - cold0))
+        if on_card:
+            pred = eng._lanes[name].predictor
+            arm["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            arm["capture_s"] = _capture_seconds(pred._exe, pred._program)
+            arm["graph_pools_gb"] = graph_pools_gb()
+            arm["graphs"] = sum(h.graph is not None for h in
+                                pred._exe.compiled_for(pred._program))
         prof = None
         if counter is not None:  # one more wave, under the profiler
             prof = _profile(lambda: wave(waves[1]), 1,
@@ -2205,12 +2754,18 @@ def run_ragged_arm(model_dir, fetch, ragged, place, waves, counter=None):
                warmup_batches=stats["warmup_batches"],
                executable_cache=stats["executable_cache"])
     if counter is not None:
+        _, on_card = _since(before, ("ragged_attention",))
         arm["launches"] = counter.launches
+        arm["device_launches"] = on_card["ragged_attention"]
         executed = stats["batches"] + stats["warmup_batches"]
-        if counter.launches != RAGGED_LAYERS * executed:
+        seen = 2 * stats["warmup_batches"] if capture else executed
+        if (counter.launches, arm["device_launches"]) != (
+                RAGGED_LAYERS * seen, RAGGED_LAYERS * executed):
             raise AssertionError(
                 f"{name} arm: ragged_attention launched {counter.launches} "
-                f"times, expected {RAGGED_LAYERS} x {executed} batches")
+                f"times (wrapper) and {arm['device_launches']} on the card, "
+                f"expected {RAGGED_LAYERS} x {seen} and x {executed} "
+                f"batches")
         arm["profile_one_wave"] = prof
     return scores, arm
 
@@ -2236,6 +2791,18 @@ def run_ragged_path(counter):
                            or arm["steady_state_cold"] != 0
                            or arm["padding_rows"] != 0):
                 raise AssertionError(f"ragged arm: {arm}")
+            eager_scores, eager = run_ragged_arm(
+                d, fetch, ragged, _gpu_place(), waves, counter,
+                capture=False)
+            graphs = (arm.get("graphs"), eager.get("graphs"))
+            if graphs != (1 if ragged else len(RAGGED_SEQ_BUCKETS), 0):
+                raise AssertionError(f"{name} arm: the captured and the "
+                                     f"eager engine hold {graphs} graphs")
+            if eager_scores != scores:
+                raise AssertionError(f"{name} arm: captured and eager "
+                                     f"scores differ")
+            arm["eager"] = eager
+            arm["captured_eager_scores_equal"] = True
             arms[name] = arm
             cpu_scores, _ = run_ragged_arm(d, fetch, ragged,
                                            fluid.CPUPlace(), waves[:1])
@@ -2251,13 +2818,19 @@ def run_ragged_path(counter):
 
 
 def wave_readings(arms):
-    """Each Engine arm's profiled wave: device busy time and events, and
-    K6's share of them."""
-    return {name: {k: a["profile_one_wave"][k] for k in (
-        "device_busy_ms", "device_events", "wall_profiled_ms",
-        "device_idle_share", "ragged_fwd_kernel_device_ms",
-        "ragged_fwd_kernel_events") if k in a["profile_one_wave"]}
-        for name, a in arms.items()}
+    """Each Engine arm's profiled wave, captured and eager: device busy
+    time and events, the launch API calls, and K6's share of them."""
+    keys = ("device_busy_ms", "device_events", "wall_profiled_ms",
+            "device_idle_share", "launch_api_calls",
+            "ragged_fwd_kernel_device_ms", "ragged_fwd_kernel_events")
+    out = {}
+    for name, a in arms.items():
+        for mode, arm in (("captured", a), ("eager", a.get("eager"))):
+            if arm is not None:
+                prof = arm["profile_one_wave"]
+                out[f"{name}_{mode}"] = {k: prof[k] for k in keys
+                                         if k in prof}
+    return out
 
 
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -2331,8 +2904,13 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = _smi()
+    from paddle_tpu_torch.observability import profiling
+
+    platform, peak_flops, peak_bw, peak_link = profiling.device_peaks()
     print(f"device: {smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda}", flush=True)
+          f"{torch.version.cuda} | peaks ({platform}, the port's table): "
+          f"{peak_flops:.4g} flop/s, {peak_bw:.4g} B/s HBM, "
+          f"{peak_link:.4g} B/s link", flush=True)
 
     if args.only:
         run_only(args.only.split(","), dev, smi, say)
@@ -2392,7 +2970,9 @@ def main(argv=None):
                      "fused_bias_act")
     state, train = run_train_path({k: wrappers[k] for k in train_kernels})
     say("train path", {"card": smi, **train})
-    say("train step", profile_train_step(state))
+    say("train lookup grads", {"card": smi, **time_lookup_grads(dev)})
+    say("train step", {"card": smi, **profile_train_step(state)})
+    say("train run_steps", run_train_chain(state))
     del state
     torch.cuda.empty_cache()
     say("train parity", run_train_parity())
@@ -2401,8 +2981,7 @@ def main(argv=None):
     cfg, scope, prompts, outs, path = run_path(
         dev, {k: (wrappers[k], 1) for k in decode_kernels})
     say("decode path", {"card": smi, **path})
-    prof = profile_decode_step(cfg, scope)
-    say("decode step", prof)
+    say("decode step", {"card": smi, **profile_decode_step(cfg, scope)})
     parity = run_parity(cfg, scope, prompts, outs)
     say("decode parity", parity)
     say("decode lane K5", lane_in_turns(cfg, scope, prompts, outs))
@@ -2416,8 +2995,8 @@ def main(argv=None):
         dev, {k: (wrappers[k], n) for k, n in int8_counts.items()},
         pool_dtype="int8")
     say("int8 decode path", {"card": smi, **path8})
-    say("int8 decode step",
-        profile_decode_step(cfg, scope, pool_dtype="int8"))
+    say("int8 decode step", {"card": smi, **profile_decode_step(
+        cfg, scope, pool_dtype="int8")})
     say("int8 decode parity",
         run_parity(cfg, scope, prompts, outs, pool_dtype="int8"))
     say("int8 decode lane K7",
@@ -2434,29 +3013,35 @@ def main(argv=None):
     dp_kernels = train_kernels + ("fused_update",)
     state, dp = run_dp_path({k: wrappers[k] for k in dp_kernels})
     say("dp train path", {"card": smi, **dp})
-    say("dp train step", profile_dp_step(state))
+    say("dp train step", {"card": smi, **profile_dp_step(state)})
     del state
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
-    by_path = {"train": train["launches"], "dp_train": dp["launches"],
-               "decode": path["launches"],
-               "decode_int8": path8["launches"],
-               **{f"engine_{k}": {"ragged_attention": a["launches"]}
-                  for k, a in arms.items()}}
+    # each path's counts over its run in both modes: the wrappers'
+    # (eager runs, warm-ups and captures) and the card's (every run)
+    by_path = {key: {"train": train[key], "dp_train": dp[key],
+                     "decode": path[key], "decode_int8": path8[key],
+                     **{f"engine_{k}": {"ragged_attention": a[key]
+                                        + a["eager"][key]}
+                        for k, a in arms.items()}}
+               for key in ("launches", "device_launches")}
 
-    def launches(name):
-        return {p: n[name] for p, n in by_path.items() if name in n}
+    def launches(name, key="launches"):
+        return {p: n[name] for p, n in by_path[key].items() if name in n}
 
     def row(name, source, replaces, err, t):
         runs = launches(name)
+        on_card = launches(name, "device_launches")
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(runs.values()),
-                    launches_by_path=runs, max_abs_err=err, ms=t["ms"],
-                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                    bound_by=t["bound_by"],
+                    launches_by_path=runs,
+                    device_launches=sum(on_card.values()),
+                    device_launches_by_path=on_card, max_abs_err=err,
+                    ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t.get("library_ms"))
 
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"

@@ -118,6 +118,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ bias, float* __restrict__ o,
                      float* __restrict__ lse, int H, int S, int D, Strides sq,
                      Strides sk, Strides sv, Strides so, float scale) {
+  count_launch(0);
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;               // Qt[d][i]
   float* Kt = Qt + kTileFloats;   // Kt[d][j]
@@ -215,6 +216,7 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ dq, int H, int S, int D,
                         Strides sq, Strides sk, Strides sv, Strides sdo,
                         Strides sdq, float scale) {
+  count_launch(1);
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                // Qt[d][i]
   float* dOt = Qt + kTileFloats;   // dOt[d][i]
@@ -301,6 +303,7 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ dbias, int H, int S, int D,
                          Strides sq, Strides sk, Strides sv, Strides sdo,
                          Strides sdk, Strides sdv, float scale) {
+  count_launch(2);
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;                // Kt[d][j]
   float* Vt = Kt + kTileFloats;    // Vt[d][j]

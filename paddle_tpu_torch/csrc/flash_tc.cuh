@@ -98,6 +98,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include "launch_count.cuh"
 
 #include <cstdint>
 
@@ -347,6 +348,7 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
                  bf16* __restrict__ o, float* __restrict__ lse, int H, int S,
                  int D, Strides sq, Strides sk, Strides sv, Strides so,
                  float scale, int vec) {
+  count_launch(0);
   __shared__ __align__(16) unsigned char smem[kFwdSmem];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // the query tile
   bf16* Ks = Qs + kTileElems;                // two key tiles
@@ -481,6 +483,7 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int H, int S, int D, Strides sq, Strides sk, Strides sv,
                     Strides sdo, Strides sdq, float scale, int vec) {
+  count_launch(1);
   __shared__ __align__(16) unsigned char smem[kDqSmem];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // two key tiles
   bf16* Vs = Ks + 2 * kTileElems;            // two value tiles
@@ -634,6 +637,7 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
                      int S, int D, Strides sq, Strides sk, Strides sv,
                      Strides sdo, Strides sdk, Strides sdv, float scale,
                      int vec) {
+  count_launch(2);
   __shared__ __align__(16) unsigned char smem[kDkvSmem];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // two query tiles
   bf16* dOs = Qs + 2 * kTileElems;           // two dO tiles

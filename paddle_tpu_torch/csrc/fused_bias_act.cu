@@ -55,6 +55,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include "launch_count.cuh"
 
 #include <cstring>
 
@@ -181,6 +182,7 @@ __global__ void __launch_bounds__(kThreads, 8)
     bias_gelu_rows(const T* __restrict__ x, const TB* __restrict__ bias,
                    const unsigned char* __restrict__ mask,
                    T* __restrict__ out, long long R, int H, float scale) {
+  count_launch(0);
   const int c0 = (blockIdx.x * kThreads + threadIdx.x) * V;
   if (c0 >= H) return;
   float b[V];

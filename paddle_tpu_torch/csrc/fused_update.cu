@@ -58,6 +58,7 @@
 // group form against 0.221 ms in its own launch.
 
 #include <cuda_runtime.h>
+#include "launch_count.cuh"
 #include <stdint.h>
 
 namespace {
@@ -198,6 +199,7 @@ bool vec_ok(const Member& m, int bs) {
 // elements
 template <int K, bool kDual, bool kVec>
 __global__ void fused_update_kernel(Args a) {
+  count_launch(1);
   const Step st = load_step<K>(a.m);
   const long long groups = (a.m.numel + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -219,6 +221,7 @@ __device__ __forceinline__ float clip127(float x) {
 // requant form: one CTA a quantization block, one thread an element
 template <int K, bool kDual>
 __global__ void fused_update_requant_kernel(Args a) {
+  count_launch(1);
   __shared__ float warp_max[32];
   __shared__ float block_max;
   const Step st = load_step<K>(a.m);
@@ -297,6 +300,7 @@ static_assert(sizeof(Group) <= 32764, "the group table outgrows the kernel "
 template <int K, bool kDual>
 __global__ void __launch_bounds__(kThreads)
 fused_update_group_kernel(const __grid_constant__ Group g) {
+  count_launch(0);
   for (int chunk = blockIdx.x; chunk < g.chunks; chunk += gridDim.x) {
     int lo = 0, hi = g.n - 1;  // the last segment with chunk0 <= chunk
     while (lo < hi) {

@@ -104,6 +104,7 @@
 // a whole int8-lane run 45.0 -> 37.7 ms.
 
 #include <cuda_runtime.h>
+#include "launch_count.cuh"
 #include <math_constants.h>
 
 namespace {
@@ -551,6 +552,7 @@ paged_attention_block(const float* __restrict__ q, const Pool pool,
 template <int QT, int R, bool kQuant>
 __global__ void __launch_bounds__(32 * kWarps)
 paged_attention_kernel(PAGED_KERNEL_PARAMS) {
+  count_launch(kQuant ? 1 : 0);
   paged_attention_block<QT, R, kQuant, false>(PAGED_KERNEL_ARGS);
 }
 
@@ -562,6 +564,7 @@ paged_attention_kernel(PAGED_KERNEL_PARAMS) {
 template <int QT, int R, bool kQuant>
 __global__ void __launch_bounds__(32 * kWarps, 2)
 paged_attention_split_kernel(PAGED_KERNEL_PARAMS) {
+  count_launch(kQuant ? 1 : 0);
   paged_attention_block<QT, R, kQuant, true>(PAGED_KERNEL_ARGS);
 }
 

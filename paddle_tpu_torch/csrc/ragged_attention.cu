@@ -62,6 +62,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include "launch_count.cuh"
 
 #include <cstring>
 #include <initializer_list>
@@ -201,6 +202,7 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ lengths, T* __restrict__ o,
                       int H, int S, int D, Strides sq, Strides sk, Strides sv,
                       Strides so, float scale, int vec) {
+  count_launch(0);
   using L = Layout<T, kD>;
   constexpr int kC = kD / 32;        // output columns a lane
   constexpr int kW = 16 / sizeof(T); // elements of a 16-byte chunk

@@ -2,7 +2,10 @@
 
 The same programming model as ``paddle_tpu.fluid``: build a Program with
 ``fluid.layers.*`` and run it with ``fluid.Executor(place)``.  The
-executor runs each op's lowering eagerly on a torch device;
+executor runs each op's lowering on a torch device: on the card it
+captures each fixed-shape program once as a CUDA graph and replays it,
+on the CPU (or with FLAGS_cuda_graph_capture off) it runs them
+eagerly;
 ``Executor()`` with no place runs on CUDAPlace(0).  ``append_backward``
 and ``optimizer.Adam(...).minimize(loss)`` build a training program;
 ``CompiledProgram(...).with_data_parallel(...)`` runs it over several

@@ -1,5 +1,5 @@
 """Global flags: the subset of ``paddle_tpu/fluid/flags.py`` the port's
-serving lanes and graph passes read.
+executor, observability, serving lanes and graph passes read.
 
 Any ``FLAGS_<name>`` environment variable seen at import time seeds the
 flag, as in the JAX package; a malformed value warns and keeps the
@@ -61,6 +61,25 @@ _DEFS = {
     # lanes not ported: DataParallelRunner raises when either is on
     "FLAGS_gspmd_executor": (False, _parse_bool),
     "FLAGS_health_sentinel": (False, _parse_bool),
+    # the executor on a CUDA place captures each fixed-shape program
+    # once per signature as a CUDA graph and replays it
+    # (fluid/executor.py); off runs the eager op loop there too, the
+    # counterpart of running the JAX package under jax.disable_jit()
+    "FLAGS_cuda_graph_capture": (True, _parse_bool),
+    # step-time attribution (observability/profiling.py): decompose
+    # every executed step into feed_prep / dispatch / device_wait /
+    # fetch_sync phases; off by default, since device_wait synchronizes
+    # the device every step
+    "FLAGS_profile_phases": (False, _parse_bool),
+    # roofline peak overrides (0 = the table in profiling.device_peaks):
+    # peak flop/s, HBM bytes/s and interconnect bytes/s of one device
+    "FLAGS_device_peak_flops": (0.0, float),
+    "FLAGS_device_peak_bandwidth": (0.0, float),
+    "FLAGS_device_peak_ici_bandwidth": (0.0, float),
+    # directory of the structured JSONL event log
+    # (observability/events.py); empty disables it, PT_EVENT_LOG_DIR
+    # wins
+    "FLAGS_event_log_dir": ("", str),
 }
 
 _VALUES = {}

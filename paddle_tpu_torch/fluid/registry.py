@@ -34,9 +34,9 @@ import torch
 
 from .framework import GRAD_SUFFIX
 
-__all__ = ["LowerContext", "OpInfo", "GroupLowering", "register_op",
-           "simple_op", "has_op", "get_op", "infer_op_outputs",
-           "wanted_grads", "fold_seed"]
+__all__ = ["LowerContext", "RandomStreams", "OpInfo", "GroupLowering",
+           "register_op", "simple_op", "has_op", "get_op",
+           "infer_op_outputs", "wanted_grads", "fold_seed"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -54,6 +54,64 @@ def fold_seed(*parts):
     return h
 
 
+class RandomStreams:
+    """The generators the random ops of one program signature draw from
+    on one replica, kept from run to run so a captured CUDA graph can
+    draw from them (fluid/executor.py registers each with the graph).
+
+    A stream is the run's (key None: random ops without a ``seed``
+    attr, drawing in program order) or one op's (key ``(seed, op
+    index)``).  ``reseed(run_seed, step)`` seeds every stream for the
+    coming run before it starts, as the JAX package derives a key from
+    the step inside its compiled program: the run's stream from
+    ``run_seed``, an op's from ``fold_seed(seed, op index, step[,
+    replica])``.  So eager runs and graph replays draw the same values
+    at the same step, and another executor started from the same state
+    draws them again.  A generator is made on first use, seeded at once;
+    once ``frozen`` (while a graph is captured, which must know every
+    generator beforehand) a first use raises."""
+
+    def __init__(self, device, replica=None):
+        self.device = torch.device(device)
+        self.replica = replica
+        self.frozen = False
+        self._gens = {}
+        self._run_seed = 0
+        self._step = 0
+
+    def _seed_of(self, key):
+        if key is None:
+            return self._run_seed
+        parts = key + (self._step,)
+        if self.replica is not None:
+            parts += (self.replica,)
+        return fold_seed(*parts)
+
+    def reseed(self, run_seed, step):
+        """Seed every stream for the run at ``step``."""
+        self._run_seed, self._step = int(run_seed), int(step)
+        for key, g in self._gens.items():
+            g.manual_seed(self._seed_of(key))
+
+    def get(self, key, what):
+        """The generator of stream ``key``; ``what`` names the op for
+        the error a first use under capture raises."""
+        g = self._gens.get(key)
+        if g is None:
+            if self.frozen:
+                raise RuntimeError(
+                    f"{what}: random stream {key!r} is first drawn while a "
+                    f"CUDA graph is captured; every stream must be drawn "
+                    f"in the eager warm-up run first")
+            g = torch.Generator(device=self.device)
+            g.manual_seed(self._seed_of(key))
+            self._gens[key] = g
+        return g
+
+    def generators(self):
+        return list(self._gens.values())
+
+
 class LowerContext:
     """Per-run context handed to op lowerings.
 
@@ -65,6 +123,9 @@ class LowerContext:
       replica: this replica's index inside a replica group, else None.
       group: the ReplicaGroup a collective lowering reduces over
         (parallel/mesh.py), else None: the single-device meaning.
+      streams: the RandomStreams random ops draw from, seeded for this
+        run (the executor keeps one a signature and replica; a context
+        made without one gets its own).
       cur_op: the op being lowered and op_index its position in the
         block (set by the executor), so a grad lowering can skip the
         products of grads no op asked for and a seeded random op can key
@@ -72,25 +133,26 @@ class LowerContext:
     """
 
     def __init__(self, device, seed=0, is_test=False, step=0, replica=None,
-                 group=None):
+                 group=None, streams=None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.is_test = is_test
         self.step = int(step)
         self.replica = replica
         self.group = group
+        if streams is None:
+            streams = RandomStreams(self.device, replica)
+            streams.reseed(self.seed, self.step)
+        self.streams = streams
         self.cur_op = None
         self.op_index = 0
-        self._generator = None
 
     @property
     def generator(self):
-        """The run's torch.Generator on the run's device, made on first
-        use (random ops draw from it in program order)."""
-        if self._generator is None:
-            self._generator = torch.Generator(device=self.device)
-            self._generator.manual_seed(self.seed)
-        return self._generator
+        """The run's stream (random ops without a seed attr draw from it
+        in program order)."""
+        what = self.cur_op.type if self.cur_op is not None else "run"
+        return self.streams.get(None, what)
 
 
 class GroupLowering(_t.NamedTuple):

@@ -31,7 +31,8 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "build_log", "library_path", "load", "ptr", "stream_of"]
+           "build_log", "library_path", "load", "device_launches", "ptr",
+           "stream_of"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -123,12 +124,28 @@ def load(name, signatures):
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(str(_so_path(name)))
+            signatures = dict(signatures, pt_device_launch_counts=(
+                ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int))
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def device_launches(name, n):
+    """The first ``n`` device launch counters of kernel library ``name``
+    on the current device (``csrc/launch_count.cuh``: launches the card
+    ran, graph replays included), or None when the library is not
+    loaded (nothing of it ran).  Synchronizes the device."""
+    lib = _libs.get(name)
+    if lib is None:
+        return None
+    out = (ctypes.c_ulonglong * n)()
+    check(f"{name} device launch counters",
+          lib.pt_device_launch_counts(out, n))
+    return list(out)
 
 
 def ptr(t):

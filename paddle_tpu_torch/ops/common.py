@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.fluid.registry import fold_seed, torch_dtype
+from paddle_tpu_torch.fluid.registry import torch_dtype
 
 
 def np_dtype(name) -> torch.dtype:
@@ -41,20 +41,18 @@ def op_generator(ctx, attrs):
     pass stamps on the op that absorbed it), the executor step and,
     inside a replica group, the replica index — so its mask changes
     every step, differs from another op's with the same seed, and
-    differs between replicas.  Otherwise the run's generator, in program
-    order (its seed already folds in the step and the replica)."""
+    differs between replicas.  Otherwise the run's stream, in program
+    order (its seed already folds in the step and the replica).  Both
+    are ``ctx.streams``' generators, seeded for the run before it
+    starts (fluid/registry.py ``RandomStreams``)."""
     seed = int(attrs.get("seed", 0) or 0)
     if not seed:
         return ctx.generator
     idx = attrs.get("rng_op_index")
     if idx is None:
         idx = ctx.op_index
-    parts = (seed, idx, ctx.step)
-    if ctx.replica is not None:
-        parts += (ctx.replica,)
-    g = torch.Generator(device=ctx.device)
-    g.manual_seed(fold_seed(*parts))
-    return g
+    what = ctx.cur_op.type if ctx.cur_op is not None else "random op"
+    return ctx.streams.get((seed, int(idx)), what)
 
 
 def rounded(v, dtype):

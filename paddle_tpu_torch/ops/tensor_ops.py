@@ -92,13 +92,57 @@ def _transpose2(ctx, x, attrs):
 # ---------------------------------------------------------------------------
 
 
+def index_add_exact(rows, idx, src):
+    """[rows, H] of ``src``'s rows summed by ``idx``, with a result no
+    order of the adds can change.  Each table row's inputs are scaled by
+    the power of two that its largest input fixes, so that any
+    ``len(idx)`` of them fit 62 bits, and cut to 64-bit integers;
+    integer adds commute exactly, so the atomics' order changes nothing.
+    The cut loses under 2**-47 of the row's largest input at the train
+    step's 16,384 ids, far below float32's rounding.  A row with a
+    non-finite input reads nan."""
+    top = torch.zeros(rows, dtype=torch.float64, device=src.device)
+    top.scatter_reduce_(0, idx, src.abs().amax(1).double(), "amax")
+    exp = (62 - max(1, src.shape[0] - 1).bit_length()
+           - torch.frexp(top).exponent).double()
+    q = (src * torch.exp2(exp)[idx, None]).long()  # the product is exact
+    acc = torch.zeros(rows, src.shape[1], dtype=q.dtype, device=src.device)
+    back = torch.where(torch.isfinite(top), torch.exp2(-exp), torch.nan)
+    return (acc.index_add_(0, idx, q) * back[:, None]).to(src.dtype)
+
+
+class _Lookup(torch.autograd.Function):
+    """Rows of W by id; the grad sums each id's rows with
+    :func:`index_add_exact`, so an eager run and a graph replay of the
+    same step agree bit for bit.  The library's grads do not:
+    ``index_select``'s (``index_add_``) and ``F.embedding``'s add
+    float rows of a repeated id in an order that changes from run to
+    run (on the card, at the train step's 16,384 ids over the 2-row
+    token-type and 512-row position tables), and indexing's
+    (``index_put_``, sorted) sums an id's rows on one warp, which takes
+    milliseconds for the token-type table (chip_smoke.py
+    ``time_lookup_grads`` times them all)."""
+
+    @staticmethod
+    def forward(ctx, w, flat):
+        ctx.save_for_backward(flat)
+        ctx.rows = w.shape[0]
+        return w.index_select(0, flat)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (flat,) = ctx.saved_tensors
+        return index_add_exact(ctx.rows, flat, dout), None
+
+
 @simple_op("lookup_table", ["W", "Ids"], ["Out"], no_grad_inputs=("Ids",))
 def _lookup_table(ctx, w, ids, attrs):
     """Embedding.  A trailing size-1 id dim is dropped from the output
-    shape ([B, 1] ids -> [B, H]), as in the JAX package."""
+    shape ([B, 1] ids -> [B, H]), as in the JAX package.  Its derived
+    grad is deterministic (:class:`_Lookup`)."""
     pad = attrs.get("padding_idx", -1)
     flat = ids.reshape(-1).long()
-    out = torch.index_select(w, 0, flat)
+    out = _Lookup.apply(w, flat)
     if pad is not None and pad >= 0:
         out = out.masked_fill((flat == pad)[:, None], 0)
     id_shape = tuple(ids.shape)

@@ -39,10 +39,25 @@ batch shard; a collective runs once over every replica's value
   (ops/common.py ``op_generator``), as the JAX package folds the mesh
   axis index into every op key: each batch shard draws its own dropout
   masks.
+- **The captured step.** With every replica on one CUDA card and an
+  executor that captures (fluid/executor.py), the whole lockstep
+  ``run_plan`` over the replicas' envs — the forward and backward of
+  every replica, the quantized all-reduce in plain PyTorch and K8's
+  group launches — is captured once per signature and scope as one
+  CUDA graph after an eager warm-up step, and replayed on every later
+  step: the runner keeps an ``executor._Signature`` of the group a
+  signature and is its scope binding (``values``, ``adopt``,
+  ``left``).  The replicas' tensors are the graph's storage: a
+  scope tensor replaced or edited in place since the last step is
+  copied into them (a replay moves no version counter, so a moved one
+  is a user's edit), and the scope keeps replica 0's tensors.  Replicas
+  on several cards run the eager loop by rule.
 
-Not ported: the GSPMD lane and the health sentinel (the runner raises
-when either is asked for), the autotune pin, ``cost_analysis``, and the
-executor's step-time metrics.
+Each step books the executor's metrics under ``path="dp"``
+(``pt_compile_cache_total``, ``pt_step_seconds``, ``pt_examples_total``
+and the step phases).  Not ported: the GSPMD lane and the health
+sentinel (the runner raises when either is asked for), the autotune
+pin and ``cost_analysis``.
 """
 
 from __future__ import annotations
@@ -50,7 +65,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paddle_tpu_torch.fluid.framework import Operator, grad_var_name
+from paddle_tpu_torch.fluid import executor as ex
+from paddle_tpu_torch.fluid.framework import (Operator, Variable,
+                                              grad_var_name)
 from . import mesh as pmesh
 
 __all__ = ["DataParallelRunner", "transpile_data_parallel",
@@ -455,27 +472,65 @@ class DataParallelRunner:
             overlap=knob("overlap_allreduce"),
             fused_update=knob("fused_update"))
         self._plans = {}
+        self._entries = {}    # key -> executor._Signature of the group
+        self._pins = {}       # key -> the scope whose id it holds
         self._replicas = {}   # name -> [tensor of each replica]
         # name -> (scope tensor, its version) as the runner last left it
         self._written = {}
+        self.label = f"dp_block@{id(self):x}"
 
-    # -- replica state ---------------------------------------------------
-    def _replica_values(self, scope, names):
+    # -- replica state: the binding of the group's executor._Signature --
+    def _fresh(self, scope, name):
+        """Whether the scope's ``name`` is the tensor the runner left
+        there, unwritten since."""
+        t, seen = scope.get(name), self._written.get(name)
+        return seen is not None and seen[0] is t and seen[1] == t._version
+
+    def values(self, scope, names):
         """Each replica's copy of the scope's ``names``: made on first
         use and again when the scope's tensor is not the one the runner
         left there, or was written in place since (a plain run on the
         same scope, an in-place edit of the learning rate)."""
         for name in names:
-            t = scope.get(name)
-            seen = self._written.get(name)
-            if seen is not None and seen[0] is t and seen[1] == t._version:
-                continue
-            self._replicas[name] = [t.to(dev, copy=r > 0)
-                                    for r, dev in enumerate(
-                                        self.group.devices)]
-            self._written[name] = (t, t._version)
+            if not self._fresh(scope, name):
+                t = scope.get(name)
+                self._replicas[name] = [t.to(dev, copy=r > 0)
+                                        for r, dev in enumerate(
+                                            self.group.devices)]
+                self._written[name] = (t, t._version)
         return [{n: self._replicas[n][r] for n in names}
                 for r in range(self.num_devices)]
+
+    def adopt(self, scope, inputs):
+        """Before a replay: a scope tensor that is not the graph's
+        replica 0 input, or was written in place since the runner left
+        it (a replay moves no version counter, so a moved one is a
+        user's edit), is copied into every replica's input tensor (the
+        graph's storage, ``inputs`` a dict a replica), and the scope
+        takes replica 0's back.  False when one no longer fits (the
+        step is captured again)."""
+        for name in inputs[0]:
+            have = [inp[name] for inp in inputs]
+            t = scope.get(name)
+            if not (t is have[0] and self._fresh(scope, name)):
+                if not all(ex._same_storage_shape(t, h) for h in have):
+                    return False
+                for h in have:
+                    if h is not t:
+                        h.copy_(t)
+                scope.set(name, have[0])
+            self._replicas[name] = have
+            self._written[name] = (have[0], have[0]._version)
+        return True
+
+    def left(self, scope, names, values):
+        """Record ``values`` (a dict a replica) as the replicas' tensors
+        of ``names``, replica 0's as the scope's."""
+        for name in names:
+            vals = [v[name] for v in values]
+            self._replicas[name] = vals
+            scope.set(name, vals[0])
+            self._written[name] = (vals[0], vals[0]._version)
 
     def _split_feed(self, executor, feed):
         n = self.num_devices
@@ -494,44 +549,55 @@ class DataParallelRunner:
         return shards
 
     def run(self, executor, feed, fetch_list, scope, return_numpy=True):
-        from paddle_tpu_torch.fluid import executor as ex
-        from paddle_tpu_torch.fluid import registry
-        from paddle_tpu_torch.fluid.framework import Variable
+        import time
+
+        from paddle_tpu_torch.observability import profiling
 
         scope = scope if scope is not None else ex.global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         shards = self._split_feed(executor, feed or {})
-        key = (self.program._version, tuple(sorted(shards[0])),
-               tuple(fetch_names))
-        plan = self._plans.get(key)
-        if plan is None:
-            plan = self._plans[key] = ex._Plan(self.program, shards[0].keys(),
-                                               fetch_names)
-        plan.check_scope(scope)
-        envs = self._replica_values(scope, plan.scope_reads)
-        for env, shard in zip(envs, shards):
-            env.update(shard)
-        seed = ex.run_seed(self.program, executor._step)
-        ctxs = [registry.LowerContext(
-            dev, seed=registry.fold_seed(seed, r),
-            is_test=self.program._is_test, step=executor._step, replica=r,
-            group=self.group) for r, dev in enumerate(self.group.devices)]
-        ex.run_plan(plan, envs, ctxs, self.program._dtype_policy == "bf16")
-        for name in plan.writes:
-            self._replicas[name] = [env[name] for env in envs]
-            scope.set(name, envs[0][name])
-            self._written[name] = (envs[0][name], envs[0][name]._version)
+        # the step is captured when the executor captures and every
+        # replica sits on one CUDA card; a graph is its scope's
+        capture = executor.capture and len(set(self.group.devices)) == 1
+        key = (self.program._version,
+               tuple((k, tuple(v.shape), str(v.dtype))
+                     for k, v in sorted(shards[0].items())),
+               tuple(fetch_names), tuple(self.group.devices),
+               id(scope) if capture else None)
+        entry = self._entries.get(key)
+        new = entry is None
+        if new:
+            t0 = time.perf_counter()
+            plan = self._plans[key] = ex._Plan(
+                self.program, shards[0].keys(), fetch_names)
+            entry = self._entries[key] = ex._Signature(
+                self.program, plan, self.group.devices, self.label,
+                self.group)
+            self._pins[key] = scope
+            ex._m_compile_seconds().labels(path="dp", phase="trace").inc(
+                time.perf_counter() - t0)
+        first_run = not entry.ran
+        t0 = time.perf_counter()
+        with profiling.step_phases("dp", self.label) as ph:
+            fetches = executor._run_signature(
+                entry, self, scope, shards, fetch_names, ph, "dp", new,
+                capture=capture and not entry.plan.eager_only)
+            with ph.phase("fetch_sync"):
+                # concatenate on dim 0 on the first replica's device; a
+                # scalar becomes one element a replica
+                dev0 = self.group.devices[0]
+                fetches = [torch.cat([(f.reshape(1) if f.dim() == 0
+                                       else f).to(dev0) for f in per])
+                           for per in fetches]
+                if return_numpy:
+                    fetches = [f.detach().cpu().numpy() for f in fetches]
+        step_s = time.perf_counter() - t0
+        ex._record_step("dp", step_s, first_run)
+        ex._report_examples("dp", ex._feed_batch(feed or {}), step_s)
+        entry.ran = True
         executor._step += 1
         self._report()
-        # concatenate on dim 0 on the first replica's device; a scalar
-        # becomes one element a replica
-        dev0 = self.group.devices[0]
-        fetches = [torch.cat([(env[n].reshape(1) if env[n].dim() == 0
-                               else env[n]).to(dev0) for env in envs])
-                   for n in fetch_names]
-        if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
         return fetches
 
     def replica_values(self, name):

@@ -255,8 +255,11 @@ class DecodeEngine:
     def warmup(self):
         """Run both programs once outside the request path (one
         all-inactive decode step + one trash-page prefill chunk; writes
-        land only on the trash page).  Returns the number of programs
-        warmed (2)."""
+        land only on the trash page).  On a CUDA place this is where
+        the executor warms up and captures each program as a CUDA graph
+        (fluid/executor.py), which every later run replays — from the
+        scheduler's thread too.  Returns the number of programs warmed
+        (2)."""
         self._run_prefill_feed(
             tokens=[0], pos0=0, table_row=self.pool.padded_table(None),
             write_pages=np.zeros(self.prefill_chunk // self.pool.page_size,

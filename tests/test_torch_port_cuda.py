@@ -44,6 +44,15 @@ FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
              torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
+def _on_card():
+    """{wrapper name: launches of its kernel the card ran}: the kernels'
+    own counters, which count graph replays too (the wrappers' Python
+    counters see an eager launch or a capture, never a replay)."""
+    from paddle_tpu_torch import kernels
+
+    return kernels.device_launch_counts()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -162,7 +171,8 @@ def test_bias_gelu_kernel_matches_plain(dev, rows, h, approximate,
 
 def test_decode_lane_on_cuda_matches_cpu(dev):
     """A tiny GPT served on the card gives the CPU plain path's greedy
-    ids, and every program run launched each kernel once a layer."""
+    ids, and every program run launched each kernel once a layer on the
+    card (replays included); the CPU run launched none."""
     from paddle_tpu_torch import convert, fluid
     from paddle_tpu_torch.kernels import kernel_wrappers
     from paddle_tpu_torch.models import gpt
@@ -188,14 +198,19 @@ def test_decode_lane_on_cuda_matches_cpu(dev):
         counters = {k: w for k, w in kernel_wrappers().items()
                     if k in ("fused_bias_act", "paged_attention")}
         before = {k: w.launches for k, w in counters.items()}
+        card = _on_card()
         try:
             outs[key] = eng.generate(prompts, max_new_tokens=8, timeout=120)
         finally:
             eng.close()
         runs = eng.stats()["prefill_chunks"] + eng.stats()["steps"]
+        after = _on_card()
         for k, w in counters.items():
-            expect = cfg.num_layers * runs if key == "gpu" else 0
-            assert w.launches - before[k] == expect, k
+            if key == "gpu":
+                assert after[k] - card[k] == cfg.num_layers * runs, k
+            else:
+                assert (w.launches - before[k], after[k] - card[k]) == (
+                    0, 0), k
     assert outs["gpu"] == outs["cpu"]
 
 
@@ -366,14 +381,15 @@ def test_bert_train_steps_on_cuda_match_cpu(dev):
                               for p in main.all_parameters()},
                         fluid.CUDAPlace(0), program=main)
     losses = {}
-    before = flash.flash_fwd.launches, fba.fused_bias_gelu.launches
+    before = _on_card()
     for key, scope, place in (("gpu", gpu, fluid.CUDAPlace(0)),
                               ("cpu", cpu, fluid.CPUPlace())):
         exe = fluid.Executor(place)
         losses[key] = [float(exe.run(main, feed=feed, fetch_list=[loss],
                                      scope=scope)[0]) for _ in range(3)]
-    assert (flash.flash_fwd.launches - before[0],
-            fba.fused_bias_gelu.launches - before[1]) == (
+    after = _on_card()
+    assert (after["flash_fwd"] - before["flash_fwd"],
+            after["fused_bias_act"] - before["fused_bias_act"]) == (
         3 * 2 * cfg.num_layers, 3 * (cfg.num_layers + 1))
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
 
@@ -408,15 +424,16 @@ def test_bert_bf16_train_steps_on_cuda_match_cpu(dev):
     convert.load_params(gpu, {p.name: cpu.get(p.name).numpy()
                               for p in main.all_parameters()},
                         fluid.CUDAPlace(0), program=main)
-    kernels = (flash.flash_fwd, flash.flash_bwd_dkv)
-    before = [f.launches for f in kernels]
+    kernels = ("flash_fwd", "flash_bwd_dkv")
+    before = _on_card()
     losses = {}
     for key, scope, place in (("gpu", gpu, fluid.CUDAPlace(0)),
                               ("cpu", cpu, fluid.CPUPlace())):
         exe = fluid.Executor(place)
         losses[key] = [float(exe.run(main, feed=feed, fetch_list=[loss],
                                      scope=scope)[0]) for _ in range(3)]
-    assert [f.launches - n for f, n in zip(kernels, before)] == [
+    after = _on_card()
+    assert [after[k] - before[k] for k in kernels] == [
         3 * 2 * cfg.num_layers, 3 * cfg.num_layers]
     assert np.isfinite(losses["gpu"]).all()
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=2e-3)
@@ -706,14 +723,19 @@ def test_int8_decode_lane_on_cuda_matches_cpu(dev):
                            page_size=4, prefill_chunk=8, max_len=32,
                            pool_dtype="int8")
         before = {k: wrappers[k].launches for k in per_run}
+        card = _on_card()
         try:
             outs[key] = eng.generate(prompts, max_new_tokens=8, timeout=120)
         finally:
             eng.close()
         runs = eng.stats()["prefill_chunks"] + eng.stats()["steps"]
+        after = _on_card()
         for k, n in per_run.items():
-            expect = n * cfg.num_layers * runs if key == "gpu" else 0
-            assert wrappers[k].launches - before[k] == expect, k
+            if key == "gpu":
+                assert after[k] - card[k] == n * cfg.num_layers * runs, k
+            else:
+                assert (wrappers[k].launches - before[k],
+                        after[k] - card[k]) == (0, 0), k
     assert outs["gpu"] == outs["cpu"]
 
 
@@ -749,6 +771,7 @@ def test_ragged_engine_on_cuda_matches_cpu(dev, tmp_path):
     scores = {}
     for key, place in (("cpu", fluid.CPUPlace()), ("gpu", fluid.CUDAPlace(0))):
         before = ragged.ragged_attention.launches
+        card = _on_card()["ragged_attention"]
         eng = serving.Engine(batch_buckets=[4], seq_buckets=[8, 16],
                              max_wait_ms=20, auto_start=False, place=place)
         try:
@@ -761,9 +784,12 @@ def test_ragged_engine_on_cuda_matches_cpu(dev, tmp_path):
             st = eng.stats()["models"]["m"]
         finally:
             eng.close()
-        launched = ragged.ragged_attention.launches - before
-        assert launched == (st["batches"] + st["warmup_batches"]
-                            if key == "gpu" else 0)
+        launched = (ragged.ragged_attention.launches - before,
+                    _on_card()["ragged_attention"] - card)
+        if key == "gpu":
+            assert launched[1] == st["batches"] + st["warmup_batches"]
+        else:
+            assert launched == (0, 0)
     np.testing.assert_allclose(scores["gpu"], scores["cpu"], atol=1e-5,
                                rtol=1e-5)
 
@@ -938,7 +964,8 @@ def test_dp2_bert_tiny_on_card_matches_cpu_replicas(dev):
     replicas of the card and on two CPUPlace replicas, from the same
     parameters: the fused updates on the card launch K8's group form
     once a table-full of the plan's group of both replicas' members,
-    and never its per-parameter form."""
+    and never its per-parameter form (counted by the kernels on the
+    card)."""
     from paddle_tpu_torch import convert, fluid
     from paddle_tpu_torch.kernels import fused_update as fu
     from paddle_tpu_torch.models import bert
@@ -967,10 +994,15 @@ def test_dp2_bert_tiny_on_card_matches_cpu_replicas(dev):
             loss_name=loss.name, places=[place] * 2)
         before = (fu.fused_update_group.launches,
                   fu.fused_update_kernel.launches)
+        card = _on_card()
         losses[key] = [exe.run(cp, feed=feed, fetch_list=[loss],
                                scope=scope)[0] for _ in range(2)]
-        launched = (fu.fused_update_group.launches - before[0],
-                    fu.fused_update_kernel.launches - before[1])
+        after = _on_card()
+        launched = ((after["fused_update"] - card["fused_update"],
+                     after["fused_update_kernel"]
+                     - card["fused_update_kernel"]) if key == "gpu" else
+                    (fu.fused_update_group.launches - before[0],
+                     fu.fused_update_kernel.launches - before[1]))
         plan = next(iter(cp._dp_runner._plans.values()))
         cap = _build.load("fused_update",
                           fu._SIGNATURES).pt_fused_update_group_capacity()
@@ -979,3 +1011,449 @@ def test_dp2_bert_tiny_on_card_matches_cpu_replicas(dev):
         assert launched == ((2 * group, 0) if key == "gpu" else (0, 0))
     np.testing.assert_allclose(np.asarray(losses["gpu"]),
                                np.asarray(losses["cpu"]), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the captured executor: every fixed-shape program as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _bert_tiny_train(bf16=False, hidden_dropout=0.1):
+    """BERT-tiny pretraining with hidden dropout, Adam, started on the
+    card by its own executor (the run executors then start at step 0)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(use_flash_attention=True, attn_dropout=0.0,
+                               hidden_dropout=hidden_dropout)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    if bf16:
+        enable_bf16_policy(main)
+    main.random_seed = startup.random_seed = 5
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    return cfg, main, loss, scope
+
+
+def _clone_scope(scope):
+    from paddle_tpu_torch import fluid
+
+    out = fluid.Scope()
+    for n in scope.keys():
+        out.set(n, scope.get(n).clone())
+    return out
+
+
+def _executor(capture=True):
+    """An executor on the card that captures, or runs the eager loop
+    (FLAGS_cuda_graph_capture as it is made)."""
+    from paddle_tpu_torch import fluid
+
+    old = fluid.get_flags("FLAGS_cuda_graph_capture")
+    fluid.set_flags({"FLAGS_cuda_graph_capture": capture})
+    try:
+        return fluid.Executor(fluid.CUDAPlace(0))
+    finally:
+        fluid.set_flags(old)
+
+
+def _delta(before, after):
+    return {n: after[n] - before[n] for n in after if after[n] - before[n]}
+
+
+def _bert_step_launches(cfg):
+    return {"flash_fwd": 2 * cfg.num_layers,
+            "flash_bwd_dq": cfg.num_layers,
+            "flash_bwd_dkv": cfg.num_layers,
+            "fused_bias_act": cfg.num_layers + 1}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_captured_and_eager_bert_steps_are_bit_equal(dev, bf16):
+    """Three BERT-tiny steps with hidden dropout 0.1, captured (one
+    warm-up run, two replays) and eager, from the same state: the same
+    losses and every persistable bit for bit, the same kernels run on
+    the card each step (the kernels' device counters), and the captured
+    executor holds one graph.  The wrappers' counters see the eager
+    runs, and of the captured executor's its warm-up and capture only."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import bert
+
+    cfg, main, loss, scope = _bert_tiny_train(bf16)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = {"captured": _executor(True), "eager": _executor(False)}
+    feed = bert.make_fake_batch(cfg, 4, 32, seed=1)
+    losses = {k: [] for k in exes}
+    launches = {k: [] for k in exes}
+    on_card = {k: [] for k in exes}
+    for _ in range(3):
+        for k in exes:  # in turns
+            before = kernels.launch_counts()
+            dev_before = kernels.device_launch_counts()
+            (lv,) = exes[k].run(main, feed=feed, fetch_list=[loss],
+                                scope=scopes[k])
+            on_card[k].append(_delta(dev_before,
+                                     kernels.device_launch_counts()))
+            launches[k].append(_delta(before, kernels.launch_counts()))
+            losses[k].append(lv.item())
+    assert losses["captured"] == losses["eager"]
+    step = _bert_step_launches(cfg)
+    assert on_card["captured"] == on_card["eager"] == [step] * 3
+    assert launches["eager"] == [step] * 3
+    assert launches["captured"] == [{n: 2 * c for n, c in step.items()},
+                                    {}, {}]
+    for n in scopes["eager"].keys():
+        assert torch.equal(scopes["captured"].get(n),
+                           scopes["eager"].get(n)), n
+    (sig,) = exes["captured"].compiled_for(main)
+    assert sig.graph is not None
+    assert all(h.graph is None for h in exes["eager"].compiled_for(main))
+
+
+def _dropout_net(seed=0):
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[64], dtype="float32")
+        h = fluid.layers.fc(x, size=64, act="tanh")
+        h = fluid.layers.dropout(h, dropout_prob=0.5, seed=seed or None,
+                                 dropout_implementation="upscale_in_train")
+        loss = fluid.layers.mean(fluid.layers.fc(h, size=8))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    (mask,) = [op.outputs["Mask"][0] for op in main.global_block().ops
+               if op.type == "dropout"]
+    return main, startup, loss, mask
+
+
+@pytest.mark.parametrize("seed", [0, 7], ids=["run_stream", "op_stream"])
+def test_replayed_masks_change_every_step_and_match_eager(dev, seed):
+    """The dropout mask of each replay differs from the last, and equals
+    the eager executor's at the same step (the run's stream, and an
+    op's own for a seed attr); a second captured executor from the same
+    start draws the same masks again."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss, mask = _dropout_net(seed)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    feed = {"x": np.ones((8, 64), np.float32)}
+    masks = {}
+    for k, capture in (("captured", True), ("again", True),
+                       ("eager", False)):
+        exe = _executor(capture)
+        s = _clone_scope(scope)
+        masks[k] = [exe.run(main, feed=feed, fetch_list=[mask],
+                            scope=s)[0] for _ in range(4)]
+    for i in range(1, 4):
+        assert not np.array_equal(masks["captured"][i],
+                                  masks["captured"][i - 1]), i
+    for k in ("again", "eager"):
+        for a, b in zip(masks["captured"], masks[k]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_replaced_scope_tensor_is_read_by_the_next_replay(dev):
+    """A parameter the user replaces between replays is copied into the
+    graph's storage, which the scope takes back: the next replay's loss
+    equals an eager run's from the same replacement."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss, _ = _dropout_net()
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    feed = {"x": np.ones((8, 64), np.float32)}
+    name = main.all_parameters()[0].name
+    out = {}
+    for k, capture in (("captured", True), ("eager", False)):
+        exe = _executor(capture)
+        s = _clone_scope(scope)
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=s)
+        held = s.get(name)
+        s.set(name, torch.full_like(held, 0.01))
+        out[k] = [exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=s)[0].item() for _ in range(2)]
+        if capture:
+            (sig,) = exe.compiled_for(main)
+            assert s.get(name) is held is sig.graph.inputs[0][name]
+    assert out["captured"] == out["eager"]
+
+
+def test_new_feed_shape_captures_a_new_graph(dev):
+    """A second batch size is a second signature: its own graph, a
+    second cache miss, and each replays at its own shape."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import executor as ex
+
+    main, startup, loss, _ = _dropout_net()
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    misses = ex._m_cache().labels(path="single", result="miss")
+    hits = ex._m_cache().labels(path="single", result="hit")
+    m0, h0 = misses.value, hits.value
+    for batch in (8, 4, 8, 4):
+        (lv,) = exe.run(main, feed={"x": np.ones((batch, 64), np.float32)},
+                        fetch_list=[loss], scope=scope)
+        assert np.isfinite(lv).all()
+    assert (misses.value - m0, hits.value - h0) == (2, 2)
+    sigs = exe.compiled_for(main)
+    assert len(sigs) == 2 and all(s.graph is not None for s in sigs)
+    assert sorted(s.graph.feeds[0]["x"].shape[0] for s in sigs) == [4, 8]
+
+
+def test_run_steps_on_card_equals_run_calls(dev):
+    """run_steps(5) on the card (the signature's graph replayed) equals
+    five captured run() calls: the last loss and every persistable."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg, main, loss, scope = _bert_tiny_train()
+    feed = bert.make_fake_batch(cfg, 4, 32, seed=2)
+    a, b = scope, _clone_scope(scope)
+    exe_a, exe_b = fluid.Executor(fluid.CUDAPlace(0)), \
+        fluid.Executor(fluid.CUDAPlace(0))
+    for _ in range(5):
+        (la,) = exe_a.run(main, feed=feed, fetch_list=[loss], scope=a)
+    (lb,) = exe_b.run_steps(main, feed=feed, n_steps=5, fetch_list=[loss],
+                            scope=b)
+    assert la.item() == lb.item() and exe_a._step == exe_b._step == 5
+    for n in a.keys():
+        assert torch.equal(a.get(n), b.get(n)), n
+
+
+def test_dp_captured_step_is_bit_equal_to_eager(dev):
+    """BERT-tiny over two replicas on the card with the quantized
+    all-reduce and K8's group form: the captured step (warm-up, then
+    replays) and the eager one agree bit for bit, and the replicas stay
+    identical and the scope's."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg, main, loss, scope = _bert_tiny_train()
+    shards = [bert.make_fake_batch(cfg, 2, 32, seed=r) for r in range(2)]
+    feed = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    out = {}
+    for k, capture in (("captured", True), ("eager", False)):
+        s = _clone_scope(scope)
+        bs = fluid.BuildStrategy()
+        bs.quant_allreduce = True
+        # a program a mode: the transpile rewrites its program in place
+        _, prog, prog_loss, _ = _bert_tiny_train()
+        cp = fluid.CompiledProgram(prog, build_strategy=bs) \
+            .with_data_parallel(loss_name=prog_loss.name,
+                                places=[fluid.CUDAPlace(0)] * 2)
+        exe = _executor(capture)
+        out[k] = ([exe.run(cp, feed=feed, fetch_list=[prog_loss],
+                           scope=s)[0].tolist() for _ in range(3)], s, cp)
+    assert out["captured"][0] == out["eager"][0]
+    runner = out["captured"][2]._dp_runner
+    assert next(iter(runner._entries.values())).graph is not None
+    for p in main.all_parameters():
+        vals = runner.replica_values(p.name)
+        assert torch.equal(vals[0], vals[1]) and \
+            out["captured"][1].get(p.name) is vals[0]
+        assert torch.equal(vals[0], out["eager"][1].get(p.name)), p.name
+
+
+def test_failed_capture_raises_naming_the_op(dev):
+    """A lowering that reads a device value on the host cannot be
+    captured: the run raises, naming the op, and nothing falls back to
+    the eager loop."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import registry
+    from paddle_tpu_torch.fluid.layer_helper import LayerHelper
+
+    if not registry.has_op("test_host_read"):
+        @registry.simple_op("test_host_read", ["X"], ["Out"], grad=None)
+        def _host_read(ctx, x, attrs):
+            if x.device.type != "meta":
+                float(x.sum())  # a host read: fails a capture
+            return x * 2.0
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        helper = LayerHelper("test_host_read")
+        out = helper.create_variable_for_type_inference("float32")
+        helper.append_op("test_host_read", inputs={"X": [x]},
+                         outputs={"Out": [out]})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = {"x": np.ones((2, 4), np.float32)}
+    with pytest.raises(RuntimeError, match="test_host_read"):
+        exe.run(main, feed=feed, fetch_list=[out], scope=fluid.Scope())
+    torch.cuda.synchronize()
+    (got,) = _executor(False).run(
+        main, feed=feed, fetch_list=[out], scope=fluid.Scope())
+    np.testing.assert_array_equal(got, 2 * feed["x"])
+
+
+def _scaled_scope(scope, factor):
+    """A copy of ``scope`` with every float tensor scaled."""
+    from paddle_tpu_torch import fluid
+
+    out = fluid.Scope()
+    for n in scope.keys():
+        t = scope.get(n)
+        out.set(n, t * factor if t.is_floating_point() else t.clone())
+    return out
+
+
+def _assert_scopes_apart(a, b):
+    """No tensor is held by both scopes."""
+    held = {id(a.get(n)) for n in a.keys()}
+    assert held.isdisjoint(id(b.get(n)) for n in b.keys())
+
+
+def test_one_executor_keeps_two_scopes_apart(dev):
+    """One capturing executor runs the same program and feed on scope
+    A, then B, then A again: each scope gets its own graph, no tensor
+    ends up in both, and each matches its own run by the eager loop
+    bit for bit."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss, _ = _dropout_net()
+    base = fluid.Scope()
+    _executor(False).run(startup, scope=base)
+    feed = {"x": np.ones((8, 64), np.float32)}
+    starts = {"a": base, "b": _scaled_scope(base, 0.5)}
+    out = {}
+    for mode in ("captured", "eager"):
+        exe = _executor(mode == "captured")
+        scopes = {k: _clone_scope(s) for k, s in starts.items()}
+        losses = [exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scopes[k])[0].item()
+                  for k in ("a", "b", "a", "b", "a")]
+        out[mode] = (losses, scopes, exe)
+    assert out["captured"][0] == out["eager"][0]
+    scopes = out["captured"][1]
+    for k, s in scopes.items():
+        for n in s.keys():
+            assert torch.equal(s.get(n), out["eager"][1][k].get(n)), (k, n)
+    _assert_scopes_apart(scopes["a"], scopes["b"])
+    sigs = out["captured"][2].compiled_for(main)
+    assert len(sigs) == 2 and all(s.graph is not None for s in sigs)
+
+
+def test_dp_one_runner_keeps_two_scopes_apart(dev):
+    """The data-parallel runner over two replicas on the card, captured,
+    on scope A, then B, then A again: each scope matches its own eager
+    run bit for bit, its replicas stay identical, and no tensor ends up
+    in both scopes."""
+    from paddle_tpu_torch import fluid
+
+    main, startup, loss, _ = _dropout_net()
+    base = fluid.Scope()
+    _executor(False).run(startup, scope=base)
+    feed = {"x": np.random.RandomState(3).rand(8, 64).astype(np.float32)}
+    starts = {"a": base, "b": _scaled_scope(base, 0.5)}
+    out = {}
+    for mode in ("captured", "eager"):
+        # a program a mode: the transpile rewrites its program in place
+        prog, _, prog_loss, _ = _dropout_net()
+        cp = fluid.CompiledProgram(prog).with_data_parallel(
+            loss_name=prog_loss.name, places=[fluid.CUDAPlace(0)] * 2)
+        exe = _executor(mode == "captured")
+        scopes = {k: _clone_scope(s) for k, s in starts.items()}
+        losses = []
+        for k in ("a", "b", "a", "b", "a"):
+            losses.append(exe.run(cp, feed=feed, fetch_list=[prog_loss],
+                                  scope=scopes[k])[0].tolist())
+            runner = cp._dp_runner
+            for p in prog.all_parameters():
+                vals = runner.replica_values(p.name)
+                assert torch.equal(vals[0], vals[1])
+                assert scopes[k].get(p.name) is vals[0]
+        out[mode] = (losses, scopes, cp)
+    assert out["captured"][0] == out["eager"][0]
+    scopes = out["captured"][1]
+    for k, s in scopes.items():
+        for n in s.keys():
+            assert torch.equal(s.get(n), out["eager"][1][k].get(n)), (k, n)
+    _assert_scopes_apart(scopes["a"], scopes["b"])
+    entries = out["captured"][2]._dp_runner._entries.values()
+    assert len(entries) == 2 and all(e.graph is not None for e in entries)
+
+
+def test_graph_cache_frees_the_least_recently_run(dev, monkeypatch):
+    """With MAX_GRAPHS 2, feeds of four batch sizes leave two graphs
+    held: the least recently run one's graph (and its memory pool) is
+    freed, a shape run again captures again (a cache miss), and every
+    run matches the eager loop's bit for bit."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import executor as ex
+
+    main, startup, loss, _ = _dropout_net()
+    base = fluid.Scope()
+    _executor(False).run(startup, scope=base)
+    scopes = {"captured": _clone_scope(base), "eager": _clone_scope(base)}
+    monkeypatch.setattr(ex, "MAX_GRAPHS", 2)
+    exes = {"captured": _executor(True), "eager": _executor(False)}
+    misses = ex._m_cache().labels(path="single", result="miss")
+    missed, refs = 0, []
+    for batch in (8, 4, 2, 6, 8):
+        feed = {"x": np.full((batch, 64), 0.5, np.float32)}
+        got = {}
+        for k, exe in exes.items():
+            m0 = misses.value
+            got[k] = exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scopes[k])[0].item()
+            if k == "captured":
+                missed += misses.value - m0
+        assert got["captured"] == got["eager"]
+        held = [s.graph for s in exes["captured"].compiled_for(main)
+                if s.graph is not None]
+        assert len(held) <= 2
+        refs += [weakref.ref(g) for g in held]
+    assert missed == 5
+    gc.collect()
+    assert len({id(r()) for r in refs if r() is not None}) == 2
+
+
+@pytest.mark.parametrize("rows", [2, 512, 30528])
+def test_lookup_grad_is_deterministic_on_card(dev, rows):
+    """The lookup_table grad at the train step's 16,384 bf16 ids (the
+    token-type, position and word tables' sizes): the same bits run to
+    run, in a CUDA graph replay, and on the CPU."""
+    from paddle_tpu_torch.fluid import registry
+
+    lower = registry.get_op("lookup_table").lower
+    g = torch.Generator().manual_seed(rows)
+    ids = torch.randint(0, rows, (128, 128), generator=g)
+    w = (0.02 * torch.randn(rows, 768, generator=g)).to(torch.bfloat16)
+    dout = torch.randn(128 * 128, 768, generator=g).to(torch.bfloat16)
+
+    on = {d: (w.to(d), ids.to(d), dout.to(d)) for d in ("cpu", dev)}
+
+    def grad(device):
+        wd, i, d = on[device]
+        wd = wd.detach().requires_grad_()
+        out = lower(registry.LowerContext(device), wd, i,
+                    attrs={}).reshape(-1, 768)
+        return torch.autograd.grad(out, wd, d)[0]
+
+    first = grad(dev)
+    assert all(torch.equal(first, grad(dev)) for _ in range(3))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        grad(dev)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = grad(dev)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, first)
+    assert torch.equal(first.cpu(), grad("cpu"))

@@ -233,3 +233,41 @@ def test_shape_inference_matches_jax_program():
             gpt.build_gpt_decode_step(cfg, 3, 9, 4, 8)
         shapes.append({n: v.shape for n, v in main.global_block().vars.items()})
     assert shapes[0] == shapes[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,n", [(2, 4096), (512, 4096), (3000, 700)],
+                         ids=["2x4096", "512x4096", "3000x700"])
+def test_index_add_exact_is_the_rounded_exact_sum(rows, n, dtype):
+    """The lookup_table grad's index-add (ops/tensor_ops.py
+    index_add_exact) gives each row's sum to within 2**-47 of its
+    largest input, rounded to the output dtype — the float64 sum
+    rounded, here — whatever the order of its inputs: a permutation
+    gives the same bits."""
+    from paddle_tpu_torch.ops.tensor_ops import index_add_exact
+
+    g = torch.Generator().manual_seed(rows + n)
+    idx = torch.randint(0, rows, (n,), generator=g)
+    src = (torch.randn(n, 8, generator=g)
+           * torch.rand(n, 1, generator=g) * 100).to(dtype)
+    want = torch.zeros(rows, 8, dtype=torch.float64).index_add_(
+        0, idx, src.double()).to(dtype)
+    got = index_add_exact(rows, idx, src)
+    assert got.dtype == dtype and torch.equal(got, want)
+    perm = torch.randperm(n, generator=g)
+    assert torch.equal(index_add_exact(rows, idx[perm], src[perm]), got)
+
+
+def test_index_add_exact_non_finite_rows():
+    """A row with an inf or a nan input reads nan; the other rows keep
+    their sums."""
+    from paddle_tpu_torch.ops.tensor_ops import index_add_exact
+
+    idx = torch.tensor([0, 1, 2, 0, 1, 2])
+    src = torch.ones(6, 3)
+    src[3, 1], src[4, 0] = float("inf"), float("nan")
+    got = index_add_exact(4, idx, src)
+    assert torch.isnan(got[0]).all() and torch.isnan(got[1]).all()
+    assert torch.equal(got[2], torch.full((3,), 2.0))
+    assert torch.equal(got[3], torch.zeros(3))

@@ -168,6 +168,13 @@ CASES = {
                           [_f(10, 6), r.randint(0, 10, (3, 4)).astype(
                               np.int64), _f(3, 4, 6)],
                           {"padding_idx": -1}, 1e-6),
+    # 2,048 ids over 2 rows (the token-type table's repeats): the port
+    # sums exactly (ops/tensor_ops.py index_add_exact), the JAX package
+    # in float32, whose rounding over a sum of ~1,000 unit rows is ~1e-5
+    "lookup_table_grad_repeated": ("lookup_table_grad",
+                                   [_f(2, 6), r.randint(0, 2, (64, 32))
+                                    .astype(np.int64), _f(64, 32, 6)],
+                                   {"padding_idx": -1}, 1e-4),
     "gather_grad": ("gather_grad", [_f(7, 5), np.array([[4], [1], [4]],
                                                         np.int64),
                                     _f(3, 5)], {}, 1e-6),
