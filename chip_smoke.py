@@ -108,10 +108,42 @@ Phases, each fatal on failure:
      parameter above the rounding floor by the relative norms of its
      Moment1, Moment2 and change (DP_GRAD_FLOOR); the worst leaf of
      each reading, and the leaves at the floor, are printed.
+ 14. passes A/B: BERT-base built unfused (use_flash_attention=False, no
+     dropout; the reference's passes rung, bench.py:1298-1316) at b128
+     s128 under the bf16 policy with Adam(1e-4), one program with
+     FLAGS_graph_passes="default" and one with "none", each run by the
+     captured and the eager executor, all four in turns from one
+     state, 2 warm-up and 6 timed steps.  On arm: the pass report reads
+     12 fuse_attention sites (12 with a key bias) and 13
+     fuse_bias_act_dropout sites, and K1-K4 launch phase 4's counts a
+     step; off arm: none of them.  Each arm's captured and eager losses
+     and state bit-equal; per arm and mode the step p50 / p95, peak
+     memory, the step's transient memory (eager) and the graph's pool
+     (captured), and a profiled step's device busy and idle.  Then full
+     width, 2 layers, fp32, b8 s128, 3 steps, passes on against off:
+     losses within 1e-4 relative, K1 4, K2 2, K3 2, K4 3 a step on arm.
+ 15. predictor: BERT-base's encoder built unfused (is_test), saved with
+     save_inference_model and served by AnalysisPredictor on the card at
+     b8 s128 fp32, passes on and off, each captured and eager, in turns:
+     on arm 12 flash_attention ops in the loaded program and K1 and K4
+     12 a run on the card (off arm none); captured equal to eager, on
+     within 1e-4 of off; run p50 / p95, peak memory, device busy.
+ 16. int8-weight decode path: phase 6's lane with
+     DecodeEngine(int8_weights=True): the weights claimed, the modeled
+     bytes saved, ``torch.cuda.memory_allocated()`` an engine adds at
+     rest with fp32 and with int8 weights; K4 and K5 12 a program run
+     on the card; captured and eager ids equal; the ids equal to phase
+     6's counted (not gated); decode steps profiled; logprobs (1e-3) and
+     greedy ids against the port's CPU run of the same int8 weights.
+
+Phases 1-13 also check that this slice's passes (fuse_attention,
+fuse_softmax_cross_entropy) match nothing on their programs.  Each
+phase's line carries the seconds since the previous one (``phase_s``).
 
 ``python3 chip_smoke.py --only k4,k6,k6_contract`` runs phases 1-3 for
 the named kernels alone (a quick check of a kernel change; see ONLY);
-``--only engine`` adds phases 10-11.
+``--only engine`` adds phases 10-11, and ``--only passes,predictor,int8w``
+phases 14, 15 and 16.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -1497,6 +1529,7 @@ def run_train_path(counters):
     total = {k: w.launches for k, w in counters.items()}
     _gate_launches("train path", launches, on_card,
                    _train_step_launches(cfg), steps, 1)
+    sites = check_no_new_sites("train path", main)
     if total != {k: launches["captured"][k] + launches["eager"][k]
                  for k in total}:
         raise AssertionError(f"train path: the wrappers read {total}, the "
@@ -1534,7 +1567,7 @@ def run_train_path(counters):
                 warmup_steps=TRAIN_WARMUP, losses=loss_c,
                 captured_eager_bit_equal=True, model_flops_per_step=flops,
                 mfu_peak_flops=peak_flops, modes=modes, launches=total,
-                device_launches=_summed(on_card))
+                device_launches=_summed(on_card), new_pass_sites=sites)
     state = dict(exes=exes, main=main, scopes=scopes, feed=feed, loss=loss,
                  cfg=cfg, start=start, snap=snap, losses=loss_c)
     return state, path
@@ -1993,6 +2026,7 @@ def run_dp_path(counters):
         raise AssertionError(f"dp path: plan groups {groups} ({n_fused} "
                              f"fused_adam_quant_grad ops)")
     _gate_launches("dp path", launches, on_card, per, steps, 1)
+    sites = check_no_new_sites("dp path", *(progs[m][0] for m in exes))
     if total != {k: launches["captured"][k] + launches["eager"][k]
                  for k in total}:
         raise AssertionError(f"dp path: the wrappers read {total}, the "
@@ -2052,7 +2086,8 @@ def run_dp_path(counters):
                            "four replicas share one card, so this is not a "
                            "scaling figure"),
         replicas_bit_identical=True, captured_eager_bit_equal=True,
-        modes=modes, launches=total, device_launches=_summed(on_card))
+        modes=modes, launches=total, device_launches=_summed(on_card),
+        new_pass_sites=sites)
     state = dict(exes=exes, compiled=compiled, scopes=scopes, feed=feed,
                  loss=loss, n_fused=n_fused)
     return state, path
@@ -2191,12 +2226,18 @@ def run_dp_parity():
 class Lane:
     """The decode lane's two programs run directly on one executor, for
     the parity checks: prefill a token list through pages 1.., then
-    decode steps, returning logprobs."""
+    decode steps, returning logprobs.  ``int8_weights``: both programs
+    through the int8_weight_storage pass and ``scope``'s weights
+    quantized, as DecodeEngine(int8_weights=True) does."""
 
     def __init__(self, cfg, place, scope, pool_slots, page_size, max_len,
-                 chunk, pool_dtype="float32", capture=None):
+                 chunk, pool_dtype="float32", capture=None,
+                 int8_weights=False):
         from paddle_tpu_torch import fluid
         from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.passes import PassManager
+        from paddle_tpu_torch.passes.int8_weights import (
+            quantize_scope_weights)
         from paddle_tpu_torch.serving.kv_pool import KVPool
 
         self.cfg, self.scope, self.chunk = cfg, scope, chunk
@@ -2222,6 +2263,10 @@ class Lane:
                 cfg, pool_slots, num_pages, page_size, self.max_pages,
                 pool_dtype=pool_dtype)
         self.dec_logp = lp.name
+        if int8_weights:  # as DecodeEngine(int8_weights=True) does
+            for p in (self.pf, self.dec):
+                PassManager(["int8_weight_storage"]).run(p)
+            quantize_scope_weights(scope, self.dec, book=False)
 
     def table(self, n_tokens):
         row = np.zeros(self.max_pages, np.int32)
@@ -2289,7 +2334,8 @@ def _lane_workload(cfg):
     return lens, [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
 
 
-def _serve_lane(cfg, scope, prompts, counters, pool_dtype, capture):
+def _serve_lane(cfg, scope, prompts, counters, pool_dtype, capture,
+                int8_weights=False):
     """One run of the decode workload on a fresh DecodeEngine (warmed
     up: on the captured executor, each program captured there) over
     ``scope``'s weights, with every launch count set to 0 before the
@@ -2303,11 +2349,13 @@ def _serve_lane(cfg, scope, prompts, counters, pool_dtype, capture):
     for w, _ in counters.values():
         w.launches = 0
     before = _snap()
+    start = torch.cuda.memory_allocated()
     with capture_mode(capture):
         eng = DecodeEngine(cfg, scope=scope, place=_gpu_place(),
                            pool_slots=8, page_size=16, max_len=1024,
-                           pool_dtype=pool_dtype,
-                           name=f"smoke-{pool_dtype}-{capture}",
+                           pool_dtype=pool_dtype, int8_weights=int8_weights,
+                           name=f"smoke-{pool_dtype}-{int8_weights}-"
+                                f"{capture}",
                            auto_start=False, max_queue=len(prompts))
     warmed = eng.warmup()
     torch.cuda.synchronize()
@@ -2323,6 +2371,7 @@ def _serve_lane(cfg, scope, prompts, counters, pool_dtype, capture):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = eng.stats()
     eng.close()
+    sites = check_no_new_sites("decode lane", eng._dec_prog, eng._pf_prog)
     if any(len(o) != 32 for o in outs):
         raise AssertionError(f"wrong token counts {[len(o) for o in outs]}")
     runs = stats["prefill_chunks"] + stats["steps"] + warmed
@@ -2343,7 +2392,10 @@ def _serve_lane(cfg, scope, prompts, counters, pool_dtype, capture):
         decode_step_ms=_ms_quantiles(eng.step_seconds),
         prefill_chunk_ms=_ms_quantiles(eng.prefill_seconds),
         evictions=stats["evictions"], peak_memory_gb=peak_gb,
-        launches=launches, device_launches=on_card)
+        peak_over_start_gb=peak_gb - start / 1e9, launches=launches,
+        device_launches=on_card, new_pass_sites=sites)
+    if int8_weights:
+        figures["int8_weights"] = stats["int8_weights"]
     if capture:
         figures["capture_s"] = _capture_seconds(eng._exe, eng._dec_prog,
                                                 eng._pf_prog)
@@ -2387,7 +2439,8 @@ def run_path(dev, counters, pool_dtype="float32"):
     return cfg, scope, prompts, ids["captured"], path
 
 
-def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32"):
+def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32",
+                        int8_weights=False):
     """Host wall time vs summed device kernel time of decode steps of
     each mode (torch.profiler), launch API calls and the paged attention
     kernels' device time a step: slot 0 active at positions 65-69, the
@@ -2397,7 +2450,7 @@ def profile_decode_step(cfg, scope, steps=5, pool_dtype="float32"):
     for m, capture in MODES:
         torch.cuda.reset_peak_memory_stats()
         lane = Lane(cfg, _gpu_place(), _copy_scope(scope), 8, 16, 1024, 32,
-                    pool_dtype, capture=capture)
+                    pool_dtype, capture=capture, int8_weights=int8_weights)
         got = lane.prefill(list(range(1, 65)))
         got.append(lane.decode(5, 64))
         pos = iter(range(65, 65 + 2 * steps))
@@ -2551,7 +2604,8 @@ def _copy_scope(scope):
     return out
 
 
-def run_parity(cfg, scope, prompts, outs, pool_dtype="float32"):
+def run_parity(cfg, scope, prompts, outs, pool_dtype="float32",
+               int8_weights=False):
     from paddle_tpu_torch import convert, fluid
     from paddle_tpu_torch.serving import DecodeEngine
 
@@ -2563,9 +2617,9 @@ def run_parity(cfg, scope, prompts, outs, pool_dtype="float32"):
     rng = np.random.RandomState(SEED + 1)
     tokens = rng.randint(1, cfg.vocab_size, 40).tolist()
     lanes = {"gpu": Lane(cfg, _gpu_place(), _copy_scope(scope), 2, 16,
-                         1024, 32, pool_dtype),
+                         1024, 32, pool_dtype, int8_weights=int8_weights),
              "cpu": Lane(cfg, fluid.CPUPlace(), cpu_scope, 2, 16, 1024, 32,
-                         pool_dtype)}
+                         pool_dtype, int8_weights=int8_weights)}
     res = {}
     for k, lane in lanes.items():
         chunks = lane.prefill(tokens)
@@ -2581,7 +2635,8 @@ def run_parity(cfg, scope, prompts, outs, pool_dtype="float32"):
     order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
     eng = DecodeEngine(cfg, scope=cpu_scope, place=fluid.CPUPlace(),
                        pool_slots=2, page_size=16, max_len=1024,
-                       pool_dtype=pool_dtype, name="cpu-parity")
+                       pool_dtype=pool_dtype, int8_weights=int8_weights,
+                       name="cpu-parity")
     try:
         cpu_outs = eng.generate([prompts[i] for i in order],
                                 max_new_tokens=32, timeout=900)
@@ -2607,8 +2662,9 @@ def run_parity(cfg, scope, prompts, outs, pool_dtype="float32"):
                     f"request {i}: greedy ids differ at step {k} with a "
                     f"top-two gap {gap} >= {PATH_LOGP_ATOL}")
         ids.append(entry)
-    return dict(pool_dtype=pool_dtype, logprob_max_abs_err=logp_err,
-                logprob_atol=PATH_LOGP_ATOL, greedy=ids)
+    return dict(pool_dtype=pool_dtype, int8_weights=int8_weights,
+                logprob_max_abs_err=logp_err, logprob_atol=PATH_LOGP_ATOL,
+                greedy=ids)
 
 
 # ---------------------------------------------------------------------------
@@ -2833,13 +2889,470 @@ def wave_readings(arms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the default graph passes on the unfused BERT-base step
+# (fuse_attention sends the composed attention to K1-K3), the predictor
+# over a saved unfused BERT-base encoder, and the decode lane with int8
+# weights
+# ---------------------------------------------------------------------------
+
+# (arm, FLAGS_graph_passes): the reference's passes A/B rung
+PASS_ARMS = (("on", "default"), ("off", "none"))
+AB_WARMUP, AB_STEPS = 2, 6
+# the passes the train, decode, Engine and dp paths must not match (they
+# are built fused, or run paged and ragged attention)
+NEW_PASSES = ("fuse_attention", "fuse_softmax_cross_entropy")
+PRED_BATCH, PRED_SEQ, PRED_RUNS = 8, 128, 10
+# the predictor with the passes on vs off, fp32: K1's tiles against
+# cuBLAS's products, 12 layers deep
+PRED_ATOL = 1e-4
+
+
+@contextlib.contextmanager
+def graph_passes(spec):
+    """FLAGS_graph_passes = ``spec`` inside: a program's passes are
+    chosen at its first run, and every run reads the flag again (a
+    changed selection warns and rewrites nothing)."""
+    from paddle_tpu_torch import fluid
+
+    old = fluid.get_flags("FLAGS_graph_passes")
+    fluid.set_flags({"FLAGS_graph_passes": spec})
+    try:
+        yield
+    finally:
+        fluid.set_flags(old)
+
+
+def check_no_new_sites(what, *programs):
+    """The paths of phases 1-13 match none of this slice's passes."""
+    for p in programs:
+        sites = {e["pass"]: e["sites"]
+                 for e in getattr(p, "_pass_report", None) or ()}
+        hit = {k: sites[k] for k in NEW_PASSES if sites.get(k)}
+        if hit:
+            raise AssertionError(f"{what}: the passes matched {hit}")
+    return {k: 0 for k in NEW_PASSES}
+
+
+def _unfused_base(**kw):
+    """BertConfig.base as the reference's passes A/B rung builds it
+    (bench.py:1298-1316): no flash attention, no dropout."""
+    from paddle_tpu_torch.models import bert
+
+    return bert.BertConfig.base(vocab_size=30528, attn_dropout=0.0,
+                                hidden_dropout=0.0, use_flash_attention=False,
+                                **kw)
+
+
+def _no_launches(names):
+    return dict.fromkeys(names, 0)
+
+
+def run_passes_ab(counters):
+    """Unfused BERT-base, b128 s128, bf16 policy, Adam: a program an arm
+    (passes on and off), each run by the captured and the eager
+    executor, all four in turns from one starting state.  On arm: the
+    pass report reads 12 attention sites (12 with a key bias) and 13
+    bias-GeLU sites, and every run launches K1-K4 as phase 4's step;
+    off arm: none.  Each arm's captured and eager losses and state
+    bit-equal."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = _unfused_base()
+    progs = {a: _bert_program(cfg, bf16=True) for a, _ in PASS_ARMS}
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(progs["on"][1], scope=scope)
+    scopes = {(a, m): _clone_scope(scope) for a, _ in PASS_ARMS
+              for m, _ in MODES}
+    del scope
+    exes = {a: _executors() for a, _ in PASS_ARMS}
+    feed = bert.make_fake_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    per_run = {"on": _train_step_launches(cfg),
+               "off": _no_launches(counters)}
+    cells = [(a, spec, m) for a, spec in PASS_ARMS for m, _ in MODES]
+    losses = {c[::2]: [] for c in cells}
+    secs = {c[::2]: [] for c in cells}
+    peak = {c[::2]: 0 for c in cells}
+    transient = {c[::2]: 0 for c in cells}
+    pools = {}
+    launches = {a: {m: {} for m, _ in MODES} for a, _ in PASS_ARMS}
+    on_card = {a: {m: {} for m, _ in MODES} for a, _ in PASS_ARMS}
+    steps = AB_WARMUP + AB_STEPS
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    for i in range(steps):
+        for a, spec, m in cells:  # in turns
+            main, _, loss = progs[a]
+            pool0 = graph_pools_gb() if i == 0 else None
+            torch.cuda.reset_peak_memory_stats()
+            rest = torch.cuda.memory_allocated()
+            before = _snap()
+            t0 = time.perf_counter()
+            with graph_passes(spec):
+                (lv,) = exes[a][m].run(main, feed=feed, fetch_list=[loss],
+                                       scope=scopes[a, m])
+            secs[a, m].append(time.perf_counter() - t0)
+            py, dev = _since(before, counters)
+            _add(launches[a][m], py)
+            _add(on_card[a][m], dev)
+            if i == 0 and m == "captured":
+                pools[a] = graph_pools_gb() - pool0
+            if i >= AB_WARMUP:
+                hi = torch.cuda.max_memory_allocated()
+                peak[a, m] = max(peak[a, m], hi)
+                transient[a, m] = max(transient[a, m], hi - rest)
+            losses[a, m].append(float(lv))
+    out = {}
+    for a, spec in PASS_ARMS:
+        main = progs[a][0]
+        _gate_launches(f"passes {a}", launches[a], on_card[a], per_run[a],
+                       steps, 1)
+        types = [op.type for op in main.global_block().ops]
+        report = getattr(main, "_pass_report", None)
+        if a == "on":
+            sites = {e["pass"]: (e["sites"], e.get("bias_sites"))
+                     for e in report}
+            want = {"fuse_attention": (12, 12),
+                    "fuse_bias_act_dropout": (13, None),
+                    "fuse_softmax_cross_entropy": (0, None)}
+            if sites != want or types.count("flash_attention") != 12 \
+                    or types.count("flash_attention_grad") != 12:
+                raise AssertionError(f"passes on: report {sites}, "
+                                     f"{types.count('flash_attention')} "
+                                     f"flash_attention ops")
+        elif report is not None or "flash_attention" in types:
+            raise AssertionError("passes off: the program was rewritten")
+        for m, _ in MODES:
+            if not all(np.isfinite(losses[a, m])) \
+                    or not losses[a, m][-1] < losses[a, m][0]:
+                raise AssertionError(f"passes {a} {m}: losses not finite "
+                                     f"and falling: {losses[a, m]}")
+        diff = _scope_diff(scopes[a, "captured"], scopes[a, "eager"])
+        if losses[a, "captured"] != losses[a, "eager"] or diff:
+            raise AssertionError(f"passes {a}: captured and eager differ: "
+                                 f"state {diff[:5]}")
+        modes = {}
+        for m, _ in MODES:
+            timed = np.asarray(secs[a, m][AB_WARMUP:])
+            modes[m] = dict(
+                step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+                step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+                tokens_per_s=(TRAIN_BATCH * TRAIN_SEQ * AB_STEPS
+                              / float(timed.sum())),
+                first_step_s=secs[a, m][0],
+                peak_memory_gb=peak[a, m] / 1e9,
+                step_transient_gb=transient[a, m] / 1e9,
+                launches=launches[a][m], device_launches=on_card[a][m])
+        modes["captured"]["graph_pool_gb"] = pools[a]
+        out[a] = dict(flags=spec, pass_report=report, ops=len(types),
+                      losses=losses[a, "captured"],
+                      captured_eager_bit_equal=True, modes=modes,
+                      launches=_summed(launches[a]),
+                      device_launches=_summed(on_card[a]))
+    rel = max(abs(x - y) / abs(y) for x, y in zip(
+        losses["on", "captured"], losses["off", "captured"]))
+    path = dict(model="BertConfig.base(vocab_size=30528, "
+                "use_flash_attention=False, dropout 0)",
+                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, dtype_policy="bf16",
+                steps=AB_STEPS, warmup_steps=AB_WARMUP, arms=out,
+                on_off_loss_max_rel_diff_bf16=rel)
+    state = dict(progs=progs, exes=exes, scopes=scopes, feed=feed)
+    return state, path
+
+
+def profile_passes_ab(state):
+    """One profiled step of each arm in each mode: device busy, idle,
+    events, launch API calls and the top device kernels."""
+    out = {}
+    for a, spec in PASS_ARMS:
+        main, _, loss = state["progs"][a]
+        for m, _ in MODES:
+            exe, scope = state["exes"][a][m], state["scopes"][a, m]
+
+            def step():
+                exe.run(main, feed=state["feed"], fetch_list=[loss],
+                        scope=scope)
+
+            with graph_passes(spec):
+                r = _profile(step, 1)
+            out[f"{a}_{m}"] = {k: r[k] for k in (
+                "device_busy_ms", "device_idle_share", "wall_profiled_ms",
+                "device_events", "launch_api_calls", "top_device_us")
+                if k in r}
+    return out
+
+
+def run_passes_parity(counters):
+    """Full width, 2 layers, b8 s128, fp32, 3 Adam steps on the card,
+    passes on against off from one state: losses within 1e-4 relative;
+    on the card K1 4, K2 2, K3 2, K4 3 a step on arm, none off arm."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = _unfused_base(num_layers=2)
+    progs = {a: _bert_program(cfg, bf16=False) for a, _ in PASS_ARMS}
+    start = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(progs["on"][1], scope=start)
+    feed = bert.make_fake_batch(cfg, 8, 128, seed=1)
+    want = {"on": _train_step_launches(cfg), "off": _no_launches(counters)}
+    losses, on_card = {}, {}
+    for a, spec in PASS_ARMS:
+        main, _, loss = progs[a]
+        scope = _clone_scope(start)
+        exe = fluid.Executor(_gpu_place())
+        before = _snap()
+        with graph_passes(spec):
+            losses[a] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                       scope=scope)[0]) for _ in range(3)]
+        on_card[a] = _since(before, counters)[1]
+        if on_card[a] != _times(want[a], 3):
+            raise AssertionError(f"passes parity {a}: {on_card[a]} on the "
+                                 f"card, expected 3 x {want[a]}")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses["on"],
+                                                  losses["off"]))
+    if not rel < TRAIN_LOSS_RTOL:
+        raise AssertionError(f"passes parity: losses {losses}, max rel diff "
+                             f"{rel} >= {TRAIN_LOSS_RTOL}")
+    return dict(losses=losses, loss_max_rel_diff=rel,
+                loss_rtol=TRAIN_LOSS_RTOL, device_launches=on_card)
+
+
+def save_unfused_encoder(dirname):
+    """BERT-base's encoder built unfused (is_test: no dropout), seeded
+    random weights made on the card, saved with save_inference_model."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = _unfused_base()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds = [fluid.data(n, [-1, -1], False, dtype=dt)
+                 for n, dt in (("src_ids", "int64"), ("pos_ids", "int64"),
+                               ("sent_ids", "int64"),
+                               ("input_mask", "float32"))]
+        enc = bert.bert_encoder(*feeds, cfg, is_test=True)
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    exe = fluid.Executor(_gpu_place())
+    exe.run(startup, scope=scope)
+    fluid.io.save_inference_model(dirname, [f.name for f in feeds], [enc],
+                                  exe, main_program=main, scope=scope)
+    feed = bert.make_fake_batch(cfg, PRED_BATCH, PRED_SEQ, seed=2)
+    return cfg, {f.name: feed[f.name] for f in feeds}
+
+
+def run_predictor_path(counters):
+    """The saved unfused BERT-base encoder through the port's
+    AnalysisPredictor on the card, b8 s128 fp32: a predictor an arm
+    (passes on and off) and mode (captured and eager), all four run in
+    turns.  On arm: 12 flash_attention ops in the loaded program, K1 and
+    K4 12 a run on the card, K2/K3 none; off arm: none.  Captured equal
+    to eager, on within 1e-4 of off."""
+    import tempfile
+
+    from paddle_tpu_torch import inference as inf
+
+    cells = [(a, spec, m, c) for a, spec in PASS_ARMS for m, c in MODES]
+    layers = 12
+    per_run = {"on": {**_no_launches(counters), "flash_fwd": layers,
+                      "fused_bias_act": layers},
+               "off": _no_launches(counters)}
+    with tempfile.TemporaryDirectory(prefix="pt_unfused_bert_") as d:
+        cfg, feed = save_unfused_encoder(d)
+        tensors = [inf.PaddleTensor(v, name=k) for k, v in feed.items()]
+        preds = {}
+        for a, spec, m, capture in cells:
+            with graph_passes(spec), capture_mode(capture):
+                preds[a, m] = inf.create_paddle_predictor(
+                    inf.AnalysisConfig(d), place=_gpu_place())
+    outs = {c[::2]: [] for c in cells}
+    secs = {c[::2]: [] for c in cells}
+    peak = {c[::2]: 0 for c in cells}
+    launches = {a: {m: {} for m, _ in MODES} for a, _ in PASS_ARMS}
+    on_card = {a: {m: {} for m, _ in MODES} for a, _ in PASS_ARMS}
+    for w in counters.values():
+        w.launches = 0
+    runs = 1 + PRED_RUNS
+    for i in range(runs):
+        for a, spec, m, _ in cells:
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            with graph_passes(spec):
+                (out,) = preds[a, m].run(tensors)
+            secs[a, m].append(time.perf_counter() - t0)
+            py, dev = _since(before, counters)
+            _add(launches[a][m], py)
+            _add(on_card[a][m], dev)
+            peak[a, m] = max(peak[a, m], torch.cuda.max_memory_allocated())
+            outs[a, m].append(out.as_ndarray())
+    result = {}
+    for a, spec in PASS_ARMS:
+        _gate_launches(f"predictor {a}", launches[a], on_card[a],
+                       per_run[a], runs, 1)
+        types = [op.type for op in preds[a, "captured"]._program
+                 .global_block().ops]
+        if types.count("flash_attention") != (layers if a == "on" else 0):
+            raise AssertionError(f"predictor {a}: "
+                                 f"{types.count('flash_attention')} "
+                                 f"flash_attention ops")
+        ref = outs[a, "captured"][0]
+        if ref.shape != (PRED_BATCH, PRED_SEQ, cfg.hidden_size) \
+                or not np.isfinite(ref).all():
+            raise AssertionError(f"predictor {a}: output {ref.shape}")
+        if not all(np.array_equal(ref, o) for m, _ in MODES
+                   for o in outs[a, m]):
+            raise AssertionError(f"predictor {a}: runs or modes differ")
+        modes = {}
+        for m, _ in MODES:
+            timed = np.asarray(secs[a, m][1:])
+            with graph_passes(spec):
+                prof = _profile(lambda: preds[a, m].run(tensors), 1)
+            modes[m] = dict(
+                run_p50_ms=1e3 * float(np.percentile(timed, 50)),
+                run_p95_ms=1e3 * float(np.percentile(timed, 95)),
+                first_run_s=secs[a, m][0], peak_memory_gb=peak[a, m] / 1e9,
+                launches=launches[a][m], device_launches=on_card[a][m],
+                **{k: prof[k] for k in ("device_busy_ms",
+                                        "device_idle_share",
+                                        "launch_api_calls") if k in prof})
+        result[a] = dict(flags=spec, flash_attention_ops=types.count(
+            "flash_attention"), ops=len(types), modes=modes,
+            launches=_summed(launches[a]),
+            device_launches=_summed(on_card[a]))
+    err = float(np.abs(outs["on", "captured"][0]
+                       - outs["off", "captured"][0]).max())
+    if not err < PRED_ATOL:
+        raise AssertionError(f"predictor: passes on vs off differ by {err} "
+                             f">= {PRED_ATOL}")
+    preds.clear()
+    return dict(model="BertConfig.base(vocab_size=30528) encoder, unfused",
+                batch=PRED_BATCH, seq_len=PRED_SEQ, dtype="float32",
+                runs=PRED_RUNS, on_off_max_abs_err=err, atol=PRED_ATOL,
+                captured_eager_equal=True, arms=result)
+
+
+def int8w_at_rest(cfg, scope):
+    """``torch.cuda.memory_allocated()`` an engine adds at rest (its
+    pool and its own copy of the weights), with fp32 weights and with
+    int8 weights, built on a private copy of ``scope``'s tensors so the
+    fp32 originals do not count; and what the pass and the conversion
+    report."""
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    out = {}
+    for key, int8 in (("fp32_weights", False), ("int8_weights", True)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        eng = DecodeEngine(cfg, scope=_clone_scope(scope), place=_gpu_place(),
+                           pool_slots=8, page_size=16, max_len=1024,
+                           int8_weights=int8, auto_start=False,
+                           name=f"rest-{key}")
+        torch.cuda.synchronize()
+        out[f"{key}_at_rest_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+        out["pool_gb"] = eng.pool.modeled_bytes() / 1e9
+        if int8:
+            out.update(eng.int8_weights)
+        eng.close()
+        del eng
+    out["measured_saving_gb"] = (out["fp32_weights_at_rest_gb"]
+                                 - out["int8_weights_at_rest_gb"])
+    return out
+
+
+def run_int8w_path(counters, fp32_outs):
+    """Phase 6's decode lane with int8 weights (DecodeEngine(...,
+    int8_weights=True)), captured then eager on copies of the same
+    weights: the same ids; K4 and K5 12 a program run on the card.  The
+    ids that agree with the fp32-weight lane's (``fp32_outs``) are
+    counted, not gated: random full-width weights can flip a near-tie."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = _model_config()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 8, 513, 16, 64)
+    startup.random_seed = SEED
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    lens, prompts = _lane_workload(cfg)
+    rest = int8w_at_rest(cfg, scope)
+    modes, ids = {}, {}
+    for m, capture in MODES:
+        ids[m], modes[m], _ = _serve_lane(
+            cfg, _copy_scope(scope), prompts, counters, "float32", capture,
+            int8_weights=True)
+        torch.cuda.empty_cache()
+    if ids["captured"] != ids["eager"]:
+        raise AssertionError("int8-weight decode lane: captured and eager "
+                             "ids differ")
+    agree = [sum(a == b for a, b in zip(x, y))
+             for x, y in zip(ids["captured"], fp32_outs)]
+    path = dict(int8_weights=True, requests=len(prompts),
+                prompt_tokens=int(sum(lens)), at_rest=rest,
+                generated_tokens=sum(len(o) for o in ids["captured"]),
+                captured_eager_ids_equal=True,
+                ids_equal_to_fp32_weight_lane=dict(
+                    requests=sum(a == 32 for a in agree),
+                    tokens=int(sum(agree)), of=32 * len(prompts)),
+                modes=modes,
+                launches=_summed({m: r["launches"]
+                                  for m, r in modes.items()}),
+                device_launches=_summed({m: r["device_launches"]
+                                         for m, r in modes.items()}))
+    return cfg, scope, prompts, ids["captured"], path
+
+
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
-# "engine" runs phases 10-11 (the ragged Engine, both arms) instead
+# "engine" runs phases 10-11 (the ragged Engine, both arms) instead, and
+# "passes", "predictor" and "int8w" phases 14, 15 and 16
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
         "k6_contract": (("ragged_attention",), ("check_ragged_contract",)),
-        "engine": (("ragged_attention",), ())}
+        "engine": (("ragged_attention",), ()),
+        "passes": (("flash_attention", "fused_bias_act"), ()),
+        "predictor": (("flash_attention", "fused_bias_act"), ()),
+        "int8w": (("fused_bias_act", "paged_attention"), ())}
+NEW_PHASES = ("passes", "predictor", "int8w")
+
+
+def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
+                   keys=NEW_PHASES):
+    """Phases 14-16 (those of ``keys``); returns their path readings
+    (None for a phase not run).  Phase 16's ids are compared with
+    ``fp32_outs``, the fp32-weight lane's, where given (printed, not
+    gated)."""
+    ab = pred = path_w = None
+    if "passes" in keys:
+        counters = {k: wrappers[k] for k in train_kernels}
+        state, ab = run_passes_ab(counters)
+        say("passes ab path", {"card": smi, **ab})
+        say("passes ab step", {"card": smi, **profile_passes_ab(state)})
+        del state
+        torch.cuda.empty_cache()
+        say("passes ab parity", run_passes_parity(counters))
+    if "predictor" in keys:
+        pred = run_predictor_path({k: wrappers[k] for k in train_kernels})
+        say("predictor path", {"card": smi, **pred})
+        torch.cuda.empty_cache()
+    if "int8w" in keys:
+        counters = {k: (wrappers[k], 1)
+                    for k in ("fused_bias_act", "paged_attention")}
+        cfg, scope, prompts, outs, path_w = run_int8w_path(
+            counters, fp32_outs or [[]] * 16)
+        say("int8 weights decode path", {"card": smi, **path_w})
+        say("int8 weights decode step", {"card": smi, **profile_decode_step(
+            cfg, scope, int8_weights=True)})
+        say("int8 weights decode parity",
+            run_parity(cfg, scope, prompts, outs, int8_weights=True))
+        del scope
+        torch.cuda.empty_cache()
+    return ab, pred, path_w
 
 
 def run_only(keys, dev, smi, say):
@@ -2863,6 +3376,11 @@ def run_only(keys, dev, smi, say):
         arms, parity = run_ragged_path(kernel_wrappers()["ragged_attention"])
         say("ragged engine waves", {"card": smi, **wave_readings(arms)})
         say("ragged engine parity", parity)
+    new = [k for k in keys if k in NEW_PHASES]
+    if new:
+        run_new_phases(kernel_wrappers(), ("flash_fwd", "flash_bwd_dq",
+                                           "flash_bwd_dkv", "fused_bias_act"),
+                       None, smi, say, keys=new)
     report, bf16_loop = k4_k6_build_report()  # fails on a spill
     for label, r in report.items():
         print(f"ptxas {label}: " + json.dumps(r))
@@ -2875,9 +3393,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
-                    "k6_contract, engine): "
-                    "phases 1-3 for those kernels alone; the default runs "
-                    "every phase")
+                    "k6_contract, engine, passes, predictor, int8w): "
+                    "phases 1-3 for those kernels alone (engine: phases "
+                    "10-11; passes, predictor, int8w: phases 14, 15, 16); "
+                    "the default runs every phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2892,13 +3411,17 @@ def main(argv=None):
     from paddle_tpu_torch.kernels import _build, kernel_wrappers
 
     t_main = time.perf_counter()
+    t_last = [t_main]
 
     def say(label, reading):
         """One phase's reading as a JSON line, with the script's
-        elapsed seconds (the run must end within its time limit)."""
+        elapsed seconds (the run must end within its time limit) and
+        the seconds since the previous line."""
+        now = time.perf_counter()
         print(f"{label} " + json.dumps(
-            {**reading, "elapsed_s": time.perf_counter() - t_main}),
-            flush=True)
+            {**reading, "elapsed_s": now - t_main,
+             "phase_s": now - t_last[0]}), flush=True)
+        t_last[0] = now
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2985,6 +3508,7 @@ def main(argv=None):
     parity = run_parity(cfg, scope, prompts, outs)
     say("decode parity", parity)
     say("decode lane K5", lane_in_turns(cfg, scope, prompts, outs))
+    fp32_outs = outs
     del scope
     torch.cuda.empty_cache()
 
@@ -3018,12 +3542,20 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
+    ab, pred, path_w = run_new_phases(wrappers, train_kernels, fp32_outs,
+                                      smi, say)
+
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
     # each path's counts over its run in both modes: the wrappers'
     # (eager runs, warm-ups and captures) and the card's (every run)
     by_path = {key: {"train": train[key], "dp_train": dp[key],
                      "decode": path[key], "decode_int8": path8[key],
+                     "passes_on": ab["arms"]["on"][key],
+                     "passes_off": ab["arms"]["off"][key],
+                     "predictor_on": pred["arms"]["on"][key],
+                     "predictor_off": pred["arms"]["off"][key],
+                     "decode_int8_weights": path_w[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}

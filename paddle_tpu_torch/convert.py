@@ -4,7 +4,9 @@ port's scope.
 Parameter names are the same in both packages
 (``gpt_word_embedding``, ``decoder_layer_{i}_att_query_fc.w_0``, ...),
 so the JAX package's scope, read out as numpy, loads here by name with
-no renaming table.
+no renaming table.  A weight that the ``int8_weight_storage`` pass has
+claimed may arrive as its dual-int8 storage triple instead (a scope the
+JAX package's ``quantize_scope_weights`` converted).
 """
 
 from __future__ import annotations
@@ -23,22 +25,39 @@ def load_params(scope, arrays, place, program=None):
     on ``place``.
 
     With ``program`` given, every parameter of the program must be in
-    ``arrays`` with the parameter's shape and dtype; a missing or
-    mismatched parameter raises ValueError naming it, and nothing is
-    loaded.  Returns the sorted list of names loaded."""
+    ``arrays`` with the parameter's shape and dtype — or, for a weight
+    the program stores dual-int8 (passes/int8_weights.py), its storage
+    triple: hi and lo int8 of the weight's shape and a [rows, 1] fp32
+    scale.  A missing or mismatched parameter raises ValueError naming
+    it, and nothing is loaded.  Returns the sorted list of names
+    loaded."""
+    from .passes.int8_weights import storage_var_names
+
     device = resolve_place(place).torch_device()
     arrays = {str(k): np.asarray(v) for k, v in arrays.items()}
     if program is not None:
+        claimed = {op.output("Out")[0] for op in program.global_block().ops
+                   if op.type == "dequantize_weight_storage"}
         problems = []
-        for p in program.all_parameters():
-            a = arrays.get(p.name)
+
+        def check(name, shape, dtype):
+            a = arrays.get(name)
             if a is None:
-                problems.append(f"{p.name}: missing")
-            elif tuple(a.shape) != tuple(p.shape):
-                problems.append(f"{p.name}: shape {tuple(a.shape)} != "
-                                f"{tuple(p.shape)}")
-            elif np.dtype(a.dtype).name != p.dtype:
-                problems.append(f"{p.name}: dtype {a.dtype} != {p.dtype}")
+                problems.append(f"{name}: missing")
+            elif tuple(a.shape) != tuple(shape):
+                problems.append(f"{name}: shape {tuple(a.shape)} != "
+                                f"{tuple(shape)}")
+            elif np.dtype(a.dtype).name != dtype:
+                problems.append(f"{name}: dtype {a.dtype} != {dtype}")
+
+        for p in program.all_parameters():
+            if p.name in claimed and p.name not in arrays:
+                hi, lo, sc = storage_var_names(p.name)
+                check(hi, p.shape, "int8")
+                check(lo, p.shape, "int8")
+                check(sc, (p.shape[0], 1), "float32")
+            else:
+                check(p.name, p.shape, p.dtype)
         if problems:
             raise ValueError("load_params: parameters do not match the "
                              "program: " + "; ".join(problems))

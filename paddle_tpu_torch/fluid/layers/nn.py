@@ -21,7 +21,8 @@ __all__ = [
     "softmax", "dropout", "scale", "slice", "flash_attention",
     "softmax_with_cross_entropy", "mean", "accuracy", "reduce_mean",
     "ragged_attention", "paged_attention_quant", "kv_cache_write_quant",
-    "kv_cache_write_pages_quant",
+    "kv_cache_write_pages_quant", "cross_entropy",
+    "softmax_mask_fuse_upper_triangle",
 ]
 
 
@@ -284,6 +285,14 @@ def softmax(input, use_cudnn=False, name=None, axis=-1):
                              {"axis": axis})
 
 
+def softmax_mask_fuse_upper_triangle(x, name=None):
+    """Causal softmax of [..., S, S] scores: the positions above the
+    diagonal (the future) are masked before the softmax."""
+    helper = LayerHelper("softmax_mask_fuse_upper_triangle", name=name)
+    return _single_out_layer(helper, "softmax_mask_fuse_upper_triangle",
+                             {"X": [x]})
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation="downgrade_in_infer"):
     """Dropout with a saved uint8 Mask, which its grad op replays."""
@@ -333,6 +342,18 @@ def flash_attention(q, k, v, attn_bias=None, causal=False, sm_scale=None,
         attrs["sm_scale"] = float(sm_scale)
     helper.append_op("flash_attention", inputs=inputs, outputs={"Out": [out]},
                      attrs=attrs)
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """Cross entropy of probabilities ``input`` against hard (int64
+    [.., 1]) or soft labels; returns [.., 1]."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy", inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
     return out
 
 

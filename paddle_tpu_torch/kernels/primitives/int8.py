@@ -1,5 +1,5 @@
-"""Dual-int8 storage quantization of the KV cache (counterpart of
-``paddle_tpu/kernels/primitives/int8.py``).
+"""Dual-int8 storage quantization of the KV cache and of weights
+(counterpart of ``paddle_tpu/kernels/primitives/int8.py``).
 
 The codec is the block-scaled symmetric int8 format of
 ``kernels/quantized_collectives.py``, imported from there as the JAX
@@ -18,22 +18,25 @@ clip(round(x / scale)) by division, lo =
 clip(round(resid * (254 / scale))) with that association, and
 ``torch.round`` rounds half to even as ``jnp.round`` does.
 
-Not ported: the flat weight format (``quantize_weight``), which the
-decode lane's ``int8_weights`` option uses.
+Weights: the ``int8_weight_storage`` pass (passes/int8_weights.py)
+stores each claimed [r, c] weight with :func:`quantize_lastdim`, one
+scale a row, and ``dequantize_weight_storage`` rebuilds it inside each
+program run; :func:`quantize_weight` is the flat block layout of the
+collectives' wire format applied to a weight at rest.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..quantized_collectives import (QMAX, RESID_DIV,
+from ..quantized_collectives import (DEFAULT_BLOCK_SIZE, QMAX, RESID_DIV,
                                      dequantize_block_scaled,
                                      quantize_block_scaled)
 
 __all__ = ["QMAX", "RESID_DIV", "quantize_block_scaled",
            "dequantize_block_scaled", "quantize_lastdim",
-           "dequantize_lastdim", "dual_int8_bytes", "bytes_saved",
-           "book_bytes_saved"]
+           "dequantize_lastdim", "quantize_weight", "dequantize_weight",
+           "dual_int8_bytes", "bytes_saved", "book_bytes_saved"]
 
 
 def quantize_lastdim(x):
@@ -54,6 +57,28 @@ def dequantize_lastdim(hi, lo, scale):
     return (hi.float() + lo.float() * (1.0 / RESID_DIV)) * scale.float()
 
 
+def quantize_weight(w, block_size=DEFAULT_BLOCK_SIZE):
+    """Flat block-scaled dual-int8 of a weight of any shape: ``(hi, lo,
+    scales, pad)``, hi/lo int8 ``[padded_numel]``, scales fp32
+    ``[padded_numel / block_size]``, and ``pad`` the zeros appended to
+    reach a whole block."""
+    flat = w.reshape(-1).float()
+    pad = (-flat.numel()) % block_size
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    hi, lo, scales = quantize_block_scaled(flat, block_size)
+    return hi, lo, scales, int(pad)
+
+
+def dequantize_weight(hi, lo, scales, shape, block_size=DEFAULT_BLOCK_SIZE):
+    """Inverse of :func:`quantize_weight` back to fp32 ``shape``."""
+    flat = dequantize_block_scaled(hi, lo, scales, block_size)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return flat[:n].reshape(tuple(shape))
+
+
 def dual_int8_bytes(n_elements, block_size):
     """Bytes at rest for ``n_elements`` in the dual-int8 format: 2 per
     element (hi + lo) + 4 per block (the fp32 scale)."""
@@ -71,7 +96,7 @@ def bytes_saved(n_elements, block_size, fp_bytes=4):
 
 def book_bytes_saved(kind, n_bytes):
     """Book a storage saving on ``pt_int8_bytes_saved_total{kind}``
-    (kind: "kv_cache")."""
+    (kind: "kv_cache" or "weights")."""
     from paddle_tpu_torch.observability import metrics as obs
 
     obs.counter(

@@ -163,6 +163,11 @@ def _tanh(ctx, x, attrs):
     return torch.tanh(x)
 
 
+@simple_op("relu", ["X"], ["Out"])
+def _relu(ctx, x, attrs):
+    return torch.relu(x)
+
+
 @simple_op("gelu", ["X"], ["Out"])
 def _gelu(ctx, x, attrs):
     return gelu_reference(x, attrs.get("approximate", False))
@@ -178,6 +183,40 @@ def _softmax(ctx, x, attrs):
 def _log_softmax(ctx, x, attrs):
     return torch.log_softmax(x.float(), dim=attrs.get("axis", -1)).to(
         x.dtype)
+
+
+@simple_op("cross_entropy", ["X", "Label"], ["Y"], no_grad_inputs=("Label",))
+def _cross_entropy(ctx, x, label, attrs):
+    """-log of the probability ``x`` gives the label (``soft_label``: the
+    label-weighted sum), clamped at 1e-8 as the JAX op clamps; rows
+    labelled ``ignore_index`` lose 0."""
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        return -(label * torch.log(torch.clamp_min(x, eps))).sum(
+            dim=-1, keepdim=True)
+    lbl = label.squeeze(-1) if label.dim() == x.dim() else label
+    lbl = lbl.long()[..., None]
+    # an ignored row's label may lie outside [0, C): gather a clamped
+    # index, then zero the row, as the JAX op's fill-and-where does
+    p = torch.gather(x, -1, lbl.clamp(0, x.shape[-1] - 1))
+    loss = -torch.log(torch.clamp_min(p, eps))
+    ignore = attrs.get("ignore_index", -100)
+    return torch.where(lbl == ignore, torch.zeros_like(loss), loss)
+
+
+@simple_op("fused_softmax_cross_entropy", ["X", "Label"], ["Out"],
+           no_grad_inputs=("Label",))
+def _fused_softmax_ce(ctx, x, label, attrs):
+    """What the ``fuse_softmax_cross_entropy`` pass
+    (passes/fuse_softmax_xent.py) writes for a softmax -> cross_entropy
+    pair: the composition of the two lowerings above, the same
+    functions in the same order, so a program gives the same bits with
+    the pass on and off."""
+    sm = _softmax(ctx, x, {"axis": attrs.get("axis", -1)})
+    return _cross_entropy(
+        ctx, sm, label,
+        {"soft_label": attrs.get("soft_label", False),
+         "ignore_index": attrs.get("ignore_index", -100)})
 
 
 @simple_op("softmax_with_cross_entropy", ["Logits", "Label"],

@@ -1,8 +1,8 @@
 """Normalization, dropout and attention op lowerings (counterpart of
-``paddle_tpu/ops/nn_ops.py``).  ``layer_norm_grad`` and
-``flash_attention_grad`` are derived by the registry; ``dropout`` has a
-grad maker that replays its saved mask; ``ragged_attention`` is
-inference-only."""
+``paddle_tpu/ops/nn_ops.py``).  ``layer_norm_grad``,
+``flash_attention_grad`` and ``softmax_mask_fuse_upper_triangle_grad``
+are derived by the registry; ``dropout`` has a grad maker that replays
+its saved mask; ``ragged_attention`` is inference-only."""
 
 from __future__ import annotations
 
@@ -80,6 +80,17 @@ def _dropout_grad(ctx, dy, mask, attrs):
                  "downgrade_in_infer") == "upscale_in_train":
         m = m * rounded(_upscale(attrs), dy.dtype)
     return dy * m
+
+
+@simple_op("softmax_mask_fuse_upper_triangle", ["X"], ["Out"])
+def _causal_softmax(ctx, x, attrs):
+    """Causal softmax over the last axis of [..., S, S] scores: the
+    future positions (above the diagonal) are filled with -1e9, as the
+    JAX op fills them, and the softmax runs in x's dtype."""
+    s = x.shape[-1]
+    keep = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    return torch.softmax(torch.where(keep, x, rounded(-1e9, x.dtype)),
+                         dim=-1)
 
 
 @simple_op("flash_attention", ["Q", "K", "V", "Bias"], ["Out"],

@@ -462,7 +462,8 @@ class DataParallelRunner:
         self.quant_grads = bool(knob("quant_allreduce", flag=True))
         # graph passes before the transpile, so the bucket and
         # fused-update scans see the final forward graph
-        _graph_passes.apply_graph_passes(program, lane="dp")
+        _graph_passes.apply_graph_passes(program, lane="dp",
+                                         loss_name=loss_name)
         # the transpile reads the flags where these are None
         self.program = transpile_data_parallel(
             program, loss_name, n,

@@ -1,50 +1,68 @@
 """Program-pass framework (counterpart of
 ``paddle_tpu/passes/framework.py``): passes run between program
-construction and execution, their order is declared once, and every
-application records what it changed into ``program._pass_report``.
+construction and execution, their order is declared once
+(``PASS_ORDER``), and every application records what it changed — the
+op-inventory delta, the matched sites, the statically modeled bytes
+saved — into ``program._pass_report``.
 
 Passes rewrite the IR only, so the port's copy matches exactly what the
-JAX package matches.  The port's ``DEFAULT_PASSES`` lists only the
-passes it has: ``fuse_attention`` and ``fuse_softmax_cross_entropy``
-are still to be ported (neither fires on the decode lane's programs).
+JAX package matches, and ``DEFAULT_PASSES`` is the JAX package's list.
 
 Contracts every ``ProgramPass`` honours, as in the JAX package:
 in-place rewrite returning ``{"changed": bool, "sites": int}``;
-idempotence (a second apply is a no-op); off = identity.
+idempotence (a second apply is a no-op: ``PassManager.run(...,
+selfcheck=True)``, or ``PT_PASS_SELFCHECK=1``, applies each pass that
+changed the program a second time and raises if it changes it again);
+off = identity.
 
 Selection (``FLAGS_graph_passes``): ``"default"``/``"auto"`` = the
 DEFAULT_PASSES pipeline; ``"none"``/``""`` = off; otherwise a
 comma-separated ordered list of pass names, each optionally prefixed
 with ``-`` to drop it from the default set.
+
+Not ported: ``attribute_costs``, the JAX package's per-pass
+``cost_analysis`` probe (an XLA compile of each pipeline prefix), and
+the ``pt_pass_*`` counters.
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import warnings
 
 import numpy as np
 
 __all__ = ["ProgramPass", "PassManager", "PassContext",
-           "register_program_pass", "get_program_pass", "resolve_passes",
-           "apply_graph_passes", "op_inventory", "DEFAULT_PASSES",
-           "PASS_ORDER"]
+           "register_program_pass", "get_program_pass",
+           "list_program_passes", "resolve_passes", "apply_graph_passes",
+           "op_inventory", "DEFAULT_PASSES", "PASS_ORDER"]
 
-DEFAULT_PASSES = ["fuse_bias_act_dropout"]
+# the default pipeline FLAGS_graph_passes="default" expands to
+DEFAULT_PASSES = ["fuse_attention", "fuse_bias_act_dropout",
+                  "fuse_softmax_cross_entropy"]
 
 # the ordering contract: passes that both appear in a pipeline run in
-# this relative order (the JAX package's list, for the passes ported)
+# this relative order — fusion first (the data-parallel transpile must
+# see the final forward graph), the int8 weight rewrite on the muls the
+# fusions leave, the health sentinel last
 PASS_ORDER = ["fuse_attention", "fuse_bias_act_dropout",
-              "fuse_softmax_cross_entropy"]
+              "fuse_softmax_cross_entropy", "int8_weight_storage",
+              "data_parallel_transpile", "health_sentinel"]
 
 
 class PassContext:
-    """The caller's lane and the var names that must keep a producer
-    (fetch targets live outside the program)."""
+    """What a pass application may know about its caller: the lane
+    (``single``/``chain``/``dp``/``serving``), the var names that must
+    keep a producer (fetch targets live outside the program) and the
+    loss name where the lane knows it."""
 
-    def __init__(self, lane="single", keep_vars=()):
+    def __init__(self, lane="single", keep_vars=(), loss_name=None,
+                 **extra):
         self.lane = lane
         self.keep_vars = frozenset(keep_vars or ())
+        self.loss_name = loss_name
+        self.extra = dict(extra)
 
 
 class ProgramPass:
@@ -76,6 +94,10 @@ _PASS_REGISTRY: dict = {}
 def register_program_pass(cls):
     _PASS_REGISTRY[cls.name] = cls
     return cls
+
+
+def list_program_passes():
+    return sorted(_PASS_REGISTRY)
 
 
 def get_program_pass(name):
@@ -164,15 +186,20 @@ def _inventory_delta(before, after):
 
 
 class PassManager:
-    """Ordered pass pipeline over a Program; records one report entry
-    per application into ``program._pass_report``."""
+    """Ordered pass pipeline over a Program: applies and validates each
+    pass, records one report entry per application into
+    ``program._pass_report``, and with ``selfcheck`` (default: the
+    ``PT_PASS_SELFCHECK`` env) enforces idempotence."""
 
     def __init__(self, names):
         _check_order(list(names))
         self.names = list(names)
 
-    def run(self, program, ctx=None):
+    def run(self, program, ctx=None, selfcheck=None):
         ctx = ctx or PassContext()
+        if selfcheck is None:
+            selfcheck = os.environ.get("PT_PASS_SELFCHECK", "") not in (
+                "", "0")
         report = getattr(program, "_pass_report", None)
         if report is None:
             report = program._pass_report = []
@@ -189,6 +216,12 @@ class PassManager:
             entry["op_delta"] = _inventory_delta(before,
                                                  op_inventory(program))
             p.validate(program, ctx)
+            if selfcheck and entry["changed"]:
+                second = p.apply(program, ctx) or {}
+                if second.get("changed"):
+                    raise AssertionError(
+                        f"pass {name!r} violated the idempotence contract: "
+                        f"second apply still reports changes ({second})")
             report.append(entry)
         if self.names and any(e["changed"]
                               for e in report[-len(self.names):]):
@@ -196,10 +229,12 @@ class PassManager:
         return report
 
 
-def apply_graph_passes(program, lane="single", spec=None, keep_vars=()):
+def apply_graph_passes(program, lane="single", spec=None, keep_vars=(),
+                       loss_name=None):
     """Resolve FLAGS_graph_passes and run the pipeline once per program;
     re-entry is a no-op (a changed selection warns and keeps the first
-    rewrite)."""
+    rewrite).  Callers run it before any plan or graph of the program
+    exists.  Returns the pass report, or None when passes are off."""
     raw = spec
     if raw is None:
         from paddle_tpu_torch.fluid import flags as _flags
@@ -224,7 +259,7 @@ def apply_graph_passes(program, lane="single", spec=None, keep_vars=()):
     if not names:
         program._graph_passes_done = ()
         return None
-    ctx = PassContext(lane=lane, keep_vars=keep_vars)
+    ctx = PassContext(lane=lane, keep_vars=keep_vars, loss_name=loss_name)
     report = PassManager(names).run(program, ctx)
     program._graph_passes_done = tuple(names)
     return report

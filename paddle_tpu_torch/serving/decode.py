@@ -34,9 +34,17 @@ by the quant write ops and read by K7, which dequantises in registers.
 The modeled saving against the fp32 pool books once per engine on
 ``pt_int8_bytes_saved_total{kind="kv_cache"}``.
 
+``int8_weights=True`` stores the matmul weights dual-int8 at rest: the
+``int8_weight_storage`` pass (passes/int8_weights.py) rewrites both
+programs, and the scope's fp32 weights are quantized once and dropped,
+before ``warmup()`` captures anything, so no graph reads a dropped
+tensor.  Each program run rebuilds the weights in fp32 for its matmuls
+(``dequantize_weight_storage``): the saving is at rest, booked on
+``pt_int8_bytes_saved_total{kind="weights"}``.
+
 Not ported yet (ROADMAP.md): the pt_decode_* metrics, request spans and
 /servez; the SIGTERM drain; the fault-injection hook; router resume
-(``submit_request(prefix=...)``); int8 weights (``int8_weights``).
+(``submit_request(prefix=...)``).
 Each program run's host-clock seconds are kept in ``prefill_seconds``
 and ``step_seconds``.
 """
@@ -102,13 +110,17 @@ class DecodeEngine:
     Sizing: ``pool_slots`` concurrent decoding sequences; ``max_len`` >=
     prompt + max_new_tokens per request (default cfg.max_position);
     ``num_pages`` defaults to every slot at full length (+1 trash) —
-    shrink it to exercise eviction."""
+    shrink it to exercise eviction.
+
+    ``int8_weights`` quantizes the scope's matmul weights in place (the
+    fp32 tensors leave the scope): use it on a scope no other program
+    shares."""
 
     def __init__(self, cfg, *, scope=None, place=None, pool_slots=4,
                  page_size=16, prefill_chunk=None, max_len=None,
                  num_pages=None, max_queue=None, pool_dtype=None,
                  attn_force=None, name="decode", auto_start=True,
-                 tenant_quota=None):
+                 tenant_quota=None, int8_weights=False):
         from paddle_tpu_torch import fluid
         from paddle_tpu_torch.fluid import flags as _flags
         from paddle_tpu_torch.fluid.framework import resolve_place
@@ -173,6 +185,9 @@ class DecodeEngine:
                 pool_dtype=pool_dtype, attn_force=attn_force)
         self._dec_prog, self._dec_fetch = dec_prog, dec_tok.name
         self._pf_prog, self._pf_fetch = pf_prog, pf_tok.name
+        self.int8_weights = None
+        if int8_weights:
+            self.int8_weights = self._store_weights_int8(dec_prog, pf_prog)
 
         self._queue = collections.deque()   # prefill-pending, FIFO
         self._ready = collections.deque()   # prefill done, need a slot
@@ -194,6 +209,31 @@ class DecodeEngine:
         self.step_seconds = []     # host seconds of each decode-step run
         if auto_start:
             self.start()
+
+    def _store_weights_int8(self, dec_prog, pf_prog):
+        """Both programs through the int8_weight_storage pass, then the
+        scope's claimed weights quantized once (the fp32 tensors
+        dropped).  Returns {"weights", "bytes_saved",
+        "modeled_bytes_saved"}."""
+        from paddle_tpu_torch import passes as _passes
+        from paddle_tpu_torch.passes.int8_weights import (
+            quantize_scope_weights)
+
+        ctx = _passes.PassContext(lane="serving")
+        mgr = _passes.PassManager(["int8_weight_storage"])
+        modeled = [mgr.run(p, ctx)[-1]["modeled_bytes_saved"]
+                   for p in (dec_prog, pf_prog)]
+        claimed = [{op.output("Out")[0] for op in p.global_block().ops
+                    if op.type == "dequantize_weight_storage"}
+                   for p in (dec_prog, pf_prog)]
+        if claimed[0] != claimed[1]:
+            raise RuntimeError(
+                f"int8_weights: decode and prefill programs claimed "
+                f"different weight sets ({sorted(claimed[0] ^ claimed[1])}) "
+                f"— the shared scope cannot satisfy both")
+        info = quantize_scope_weights(self.scope, dec_prog)
+        info["modeled_bytes_saved"] = modeled[0]
+        return info
 
     # -- public API ---------------------------------------------------------
 
@@ -309,6 +349,7 @@ class DecodeEngine:
             "steps": self._steps, "prefill_chunks": self._chunks,
             "tokens": self._tokens, "evictions": self._evictions,
             "kv_pool": self.pool.stats(),
+            "int8_weights": self.int8_weights,
         }
 
     # -- scheduler ----------------------------------------------------------

@@ -1457,3 +1457,201 @@ def test_lookup_grad_is_deterministic_on_card(dev, rows):
         torch.cuda.synchronize()
         assert torch.equal(replayed, first)
     assert torch.equal(first.cpu(), grad("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the default graph passes on the card (fuse_attention sends the unfused
+# attention chain to K1-K3) and the decode lane's int8 weights
+# ---------------------------------------------------------------------------
+
+
+def _with_passes(spec, fn):
+    from paddle_tpu_torch import fluid
+
+    old = fluid.get_flags("FLAGS_graph_passes")
+    fluid.set_flags({"FLAGS_graph_passes": spec})
+    try:
+        return fn()
+    finally:
+        fluid.set_flags(old)
+
+
+def test_unfused_bert_steps_passes_on_off_on_card(dev):
+    """BERT-tiny (2 layers) built unfused, fp32, 3 Adam steps from the
+    same state with FLAGS_graph_passes default and none: losses within
+    1e-4; on the card the fused program launches K1 4, K2 2, K3 2 and
+    K4 3 a step (the derived grad recomputes the forward), the composed
+    one none of them."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(use_flash_attention=False, attn_dropout=0.0,
+                               hidden_dropout=0.0, num_layers=2)
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, loss, _, _ = bert.build_bert_pretrain(cfg)
+            fluid.optimizer.Adam(1e-3).minimize(loss)
+        startup.random_seed = 5
+        return main, startup, loss
+
+    feed = bert.make_fake_batch(cfg, 4, 32, seed=1)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_bias_act")
+    want = {"default": dict(zip(names, (4, 2, 2, 3))),
+            "none": dict.fromkeys(names, 0)}
+    losses = {}
+    for spec in want:
+        def run():
+            main, startup, loss = build()
+            scope = fluid.Scope()
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup, scope=scope)
+            out = []
+            for _ in range(3):
+                card = _on_card()
+                (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)
+                got = _on_card()
+                assert {n: got[n] - card[n] for n in names} == want[spec]
+                out.append(lv.item())
+            return out
+
+        losses[spec] = _with_passes(spec, run)
+    np.testing.assert_allclose(losses["default"], losses["none"], rtol=1e-4)
+
+
+def test_fused_softmax_cross_entropy_bit_equal_on_card(dev):
+    """The fc -> softmax -> cross_entropy head trained 20 SGD steps on
+    the card with the pass on and off: the same losses, bit for bit."""
+    from paddle_tpu_torch import fluid
+
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.uniform(-1, 1, (16, 8)).astype("float32"),
+            "y": rng.randint(0, 4, (16, 1)).astype("int64")}
+
+    def run(spec):
+        def go():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup), \
+                    fluid.unique_name.guard():
+                x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+                y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+                h = fluid.layers.fc(x, size=16, act="relu")
+                probs = fluid.layers.softmax(fluid.layers.fc(h, size=4))
+                loss = fluid.layers.mean(fluid.layers.cross_entropy(probs, y))
+                fluid.optimizer.SGD(0.1).minimize(loss)
+            startup.random_seed = 5
+            scope = fluid.Scope()
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup, scope=scope)
+            out = [exe.run(main, feed=feed, fetch_list=[loss],
+                           scope=scope)[0].item() for _ in range(20)]
+            types = [op.type for op in main.global_block().ops]
+            return out, types
+
+        return _with_passes(spec, go)
+
+    on, types = run("fuse_softmax_cross_entropy")
+    off, _ = run("none")
+    assert "fused_softmax_cross_entropy" in types
+    assert on == off and on[-1] < on[0]
+
+
+def test_predictor_over_unfused_bert_on_card(dev, tmp_path):
+    """An unfused BERT-tiny encoder saved by the port, served on the
+    card: the loaded program holds one flash_attention a layer, each
+    run launches K1 once a layer, and the outputs are within 1e-5 of
+    the passes-off predictor's."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(use_flash_attention=False, num_layers=2)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds = [fluid.data(n, [-1, -1], False, dtype=dt)
+                 for n, dt in (("src_ids", "int64"), ("pos_ids", "int64"),
+                               ("sent_ids", "int64"),
+                               ("input_mask", "float32"))]
+        enc = bert.bert_encoder(*feeds, cfg, is_test=True)
+    startup.random_seed = 3
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(str(tmp_path), [f.name for f in feeds],
+                                      [enc], exe, main_program=main)
+    data = bert.make_fake_batch(cfg, 2, 32, seed=9)
+    tensors = [inf.PaddleTensor(data[f.name], name=f.name) for f in feeds]
+
+    def serve(spec):
+        def go():
+            p = inf.create_paddle_predictor(inf.AnalysisConfig(str(tmp_path)))
+            outs = []
+            for _ in range(3):
+                card = _on_card()["flash_fwd"]
+                (out,) = p.run(tensors)
+                outs.append((out.as_ndarray(),
+                             _on_card()["flash_fwd"] - card))
+            return p, outs
+
+        return _with_passes(spec, go)
+
+    p_on, on = serve("default")
+    _, off = serve("none")
+    types = [op.type for op in p_on._program.global_block().ops]
+    assert types.count("flash_attention") == cfg.num_layers
+    assert [n for _, n in on] == [cfg.num_layers] * 3
+    assert [n for _, n in off] == [0] * 3
+    for (a, _), (b, _) in zip(on, off):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+def test_int8_weight_decode_on_card_matches_cpu(dev):
+    """A tiny GPT served with int8 weights on the card, captured and
+    eager, and on the CPU: the same greedy ids; the scope holds the
+    int8 triples only, and K4 and K5 launch once a layer a program
+    run."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = gpt.GPTConfig.tiny(num_layers=2, initializer_range=0.2)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 4, 33, 4, 8)
+    startup.random_seed = 11
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    arrays = {p.name: init.get(p.name).numpy()
+              for p in main.all_parameters()}
+    prompts = [[3, 1, 4, 1, 5], [9, 2, 6], list(range(1, 20))]
+    outs = {}
+    for key, place, capture in (("cpu", fluid.CPUPlace(), False),
+                                ("captured", fluid.CUDAPlace(0), True),
+                                ("eager", fluid.CUDAPlace(0), False)):
+        scope = fluid.Scope()
+        convert.load_params(scope, arrays, place, program=main)
+        old = fluid.get_flags("FLAGS_cuda_graph_capture")
+        fluid.set_flags({"FLAGS_cuda_graph_capture": capture})
+        try:
+            eng = DecodeEngine(cfg, scope=scope, place=place, pool_slots=4,
+                               page_size=4, prefill_chunk=8, max_len=32,
+                               int8_weights=True, auto_start=False)
+        finally:
+            fluid.set_flags(old)
+        assert eng.stats()["int8_weights"]["weights"] == 6 * cfg.num_layers
+        card = _on_card()
+        try:
+            warmed = eng.warmup()
+            eng.start()
+            outs[key] = eng.generate(prompts, max_new_tokens=8, timeout=120)
+        finally:
+            eng.close()
+        runs = eng.stats()["prefill_chunks"] + eng.stats()["steps"] + warmed
+        after = _on_card()
+        for k in ("fused_bias_act", "paged_attention"):
+            assert after[k] - card[k] == (
+                0 if key == "cpu" else cfg.num_layers * runs), (key, k)
+    assert outs["captured"] == outs["eager"] == outs["cpu"]
