@@ -18,13 +18,14 @@ Phases, each fatal on failure:
      the shapes its path gives it, held against its plain PyTorch
      version; timed against the plain version, its bound and, where one
      PyTorch call computes the same function, that call (library_ms).
-     K1-K3 also at a dp replica's shard (timed) and at the bf16 edges:
-     a ragged tile, causal (S 200 and 256), D 32 and 12, S 1, fully
-     masked rows.  K5 and K7 at the decode step and three prefill
+     K1-K3 also at a dp replica's shard and at GPT-2 small's causal
+     [96, 1024, 64] (both timed; SDPA with is_causal beside the latter)
+     and at the bf16 edges: a ragged tile, causal (S 200 and 256), D 32
+     and 12, S 1, fully masked rows.  K5 and K7 at the decode step and three prefill
      chunks, each with its split plan and partials workspace, both forms
      held against the plain version and timed in turns, one split
-     against split.  K4 also at a dp shard's FFN shape and the MLM
-     head's.  K6 at the Engine path's S 128 and the bucketed arm's S 32
+     against split.  K4 also at a dp shard's FFN shape, the MLM
+     head's and GPT-2 small's FFN [8192, 3072].  K6 at the Engine path's S 128 and the bucketed arm's S 32
      and 64 (timed, with SDPA beside it), then at D 96 and 128, bf16 at
      D 32 and 64, S 1 and S 1024.  K8's group
      form over the dp lane's real segment list (BERT-base's 206
@@ -135,6 +136,30 @@ Phases, each fatal on failure:
      on the card; captured and eager ids equal; the ids equal to phase
      6's counted (not gated); decode steps profiled; logprobs (1e-3) and
      greedy ids against the port's CPU run of the same int8 weights.
+ 17. GPT train path: GPT-2 small (vocab 50304, hidden 768, 12 layers,
+     12 heads, FFN 3072, 1024 positions, hidden dropout 0.1, causal
+     flash attention) through build_gpt_lm at b8 s1024 under the bf16
+     policy with fp32 masters, AdamW(6e-4, beta2 0.95, weight decay 0.1)
+     and GradientClipByGlobalNorm(1.0), the default passes, captured
+     and eager in turns from one state and feed, 2 warm-up and 10 timed
+     steps each: losses finite and falling, the clip's global norm
+     (its sqrt output) finite every step and printed, K1 24, K2 12, K3
+     12 and K4 12 launches a step on the card in each mode, the two
+     modes' losses, norms and state bit-equal; step p50 / p95,
+     tokens/s, MFU (gpt_train_flops_per_step), peak memory, capture
+     seconds, one profiled step's busy and idle.  Then the same
+     configuration built unfused (use_flash_attention=False), 2 + 3
+     steps captured: the pass report reads 12 fuse_attention sites, all
+     causal, and K1-K4 launch the counts above.
+ 18. GPT parity: 2 layers at full width, fp32, dropout 0: the recipe's
+     AdamW with the global-norm clip at b2 s1024, then each optimizer
+     of the training front end (LarsMomentum, Adagrad, Adamax,
+     DecayedAdagrad, Adadelta, RMSProp, Ftrl, Lamb, and Adam with
+     L2Decay and GradientClipByValue) at b2 s256, 3 steps on the card
+     and on a CPUPlace executor from the same parameters: losses within
+     1e-4; Adam's family phase 5's parameter rule, the others each
+     parameter's change within 1e-3 of its norm (leaves at the
+     gradient's rounding floor printed only); the worst leaf of each.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -142,8 +167,9 @@ phase's line carries the seconds since the previous one (``phase_s``).
 
 ``python3 chip_smoke.py --only k4,k6,k6_contract`` runs phases 1-3 for
 the named kernels alone (a quick check of a kernel change; see ONLY);
-``--only engine`` adds phases 10-11, and ``--only passes,predictor,int8w``
-phases 14, 15 and 16.
+``--only engine`` adds phases 10-11, ``--only passes,predictor,int8w``
+phases 14, 15 and 16, and ``--only gpt`` phase 3's K1-K4 checks and
+phases 17-18.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -946,12 +972,13 @@ def check_bias_gelu(dev, rng):
 
 def check_bias_gelu_bf16(dev, rng):
     """K4 on bf16 input at the training path's two shapes, the 12 FFN
-    fc_0 outputs [b*s, 3072] and the MLM head [b*s/8, 768], and the FFN's
-    at a dp replica's shard [b*s/4, 3072]."""
+    fc_0 outputs [b*s, 3072] and the MLM head [b*s/8, 768], the FFN's
+    at a dp replica's shard [b*s/4, 3072], and GPT-2 small's FFN at b8
+    s1024 [8192, 3072]."""
     from paddle_tpu_torch.kernels import fused_bias_act as fba
 
     worst, timings = 0.0, {}
-    for r, h in ((16384, 3072), (2048, 768), (4096, 3072)):
+    for r, h in ((16384, 3072), (2048, 768), (4096, 3072), (8192, 3072)):
         x = torch.from_numpy(rng.randn(r, h).astype(np.float32) * 3).to(
             dev, torch.bfloat16)
         bias = torch.from_numpy(rng.randn(h).astype(np.float32)).to(
@@ -982,19 +1009,22 @@ def check_bias_gelu_bf16(dev, rng):
     return worst, timings
 
 
-def _flash_inputs(dev, b, h, s, d, dtype, rng, masked=False):
-    """q, k, v, dO as the BERT program hands them to the op: [B, H, S, D]
-    transposed views of [B, S, H, D] activations; a key bias [B*H, S]
-    with -1e4 pads on a quarter of the rows' tails.  masked: every key
-    of batch 1's heads carries -1e30 instead (fully masked rows)."""
+def _flash_inputs(dev, b, h, s, d, dtype, rng, bias_mode="pads"):
+    """q, k, v, dO as the BERT and GPT programs hand them to the op:
+    [B, H, S, D] transposed views of [B, S, H, D] activations; a key
+    bias [B*H, S] with -1e4 pads on a quarter of the rows' tails
+    ("pads"), or with every key of batch 1's heads at -1e30 on top
+    ("masked": fully masked rows), or zero (GPT's op has no bias, and
+    the op hands the kernels zero rows)."""
     def t():
         a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
         return a.to(dev, dtype).transpose(1, 2)
 
     q, k, v, do = t(), t(), t(), t()
     bias = np.zeros((b, s), np.float32)
-    bias[::4, s - s // 4:] = -1e4
-    if masked:
+    if bias_mode != "zero":
+        bias[::4, s - s // 4:] = -1e4
+    if bias_mode == "masked":
         bias[1] = -1e30
     rows = torch.from_numpy(np.repeat(bias, h, axis=0)).to(dev)
     return q, k, v, do, rows
@@ -1015,60 +1045,69 @@ def _flash_bounds(bh, s, d, elem, causal):
     return k1, k2, k3
 
 
-def _sdpa_ms(q, k, v, do, rows, scale):
+def _sdpa_ms(q, k, v, do, rows, scale, causal=False):
     """The library yardstick: scaled_dot_product_attention with the same
-    float key mask, forward, and its backward (dQ, dK, dV together)."""
+    float key mask (causal: ``is_causal=True`` and no mask, the same
+    function over zero bias rows), forward, and its backward (dQ, dK, dV
+    together)."""
     import torch.nn.functional as F
 
     b, h, s, _ = q.shape
-    mask = rows.reshape(b, h, 1, s).to(q.dtype)
-    fwd = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, scale=scale), 20)
+    kw = dict(scale=scale)
+    if causal:
+        kw["is_causal"] = True
+    else:
+        kw["attn_mask"] = rows.reshape(b, h, 1, s).to(q.dtype)
+    fwd = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw),
+                   20)
     qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                         scale=scale)
+    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
     bwd = _time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                                retain_graph=True), 20)
     return fwd, bwd
 
 
-# (name, b, h, s, d, dtype, causal, fully masked rows, timed): the BERT
-# path's shape and a dp replica's shard (both timed), then the edges of
-# the bf16 tensor-core K1-K3 (a ragged last tile, causal, four key tiles
-# a causal row, D < 64, rows that are not 16-byte multiples, one token,
-# rows whose keys are all masked) and the fp32 SIMT cases
+# (name, b, h, s, d, dtype, causal, bias mode (_flash_inputs), timed):
+# the BERT path's shape, a dp replica's shard and GPT-2 small's causal
+# b8 s1024 (all timed), then the edges of the bf16 tensor-core K1-K3 (a
+# ragged last tile, causal, four key tiles a causal row, D < 64, rows
+# that are not 16-byte multiples, one token, rows whose keys are all
+# masked) and the fp32 SIMT cases
 FLASH_CASES = (
-    ("path", 128, 12, 128, 64, torch.bfloat16, False, False, True),
-    ("dp_shard", 32, 12, 128, 64, torch.bfloat16, False, False, True),
-    ("bf16_ragged", 4, 12, 200, 64, torch.bfloat16, False, False, False),
-    ("bf16_ragged_causal", 4, 12, 200, 64, torch.bfloat16, True, False,
+    ("path", 128, 12, 128, 64, torch.bfloat16, False, "pads", True),
+    ("dp_shard", 32, 12, 128, 64, torch.bfloat16, False, "pads", True),
+    ("gpt", 8, 12, 1024, 64, torch.bfloat16, True, "zero", True),
+    ("bf16_ragged", 4, 12, 200, 64, torch.bfloat16, False, "pads", False),
+    ("bf16_ragged_causal", 4, 12, 200, 64, torch.bfloat16, True, "pads",
      False),
-    ("bf16_s256_causal", 4, 12, 256, 64, torch.bfloat16, True, False,
+    ("bf16_s256_causal", 4, 12, 256, 64, torch.bfloat16, True, "pads",
      False),
-    ("bf16_d32", 4, 12, 96, 32, torch.bfloat16, False, False, False),
-    ("bf16_d12_causal", 4, 12, 77, 12, torch.bfloat16, True, False, False),
-    ("bf16_s1", 4, 12, 1, 64, torch.bfloat16, False, False, False),
-    ("bf16_masked_rows", 4, 12, 128, 64, torch.bfloat16, False, True,
+    ("bf16_d32", 4, 12, 96, 32, torch.bfloat16, False, "pads", False),
+    ("bf16_d12_causal", 4, 12, 77, 12, torch.bfloat16, True, "pads",
      False),
-    ("ragged", 4, 12, 200, 64, torch.float32, False, False, False),
-    ("ragged_causal", 4, 12, 200, 64, torch.float32, True, False, False),
-    ("masked_rows", 4, 12, 128, 64, torch.float32, False, True, False),
+    ("bf16_s1", 4, 12, 1, 64, torch.bfloat16, False, "pads", False),
+    ("bf16_masked_rows", 4, 12, 128, 64, torch.bfloat16, False, "masked",
+     False),
+    ("ragged", 4, 12, 200, 64, torch.float32, False, "pads", False),
+    ("ragged_causal", 4, 12, 200, 64, torch.float32, True, "pads", False),
+    ("masked_rows", 4, 12, 128, 64, torch.float32, False, "masked", False),
 )
 
 
 def check_flash(dev, rng):
     """K1, K2, K3 against their plain versions at FLASH_CASES; bf16 ones
     run on the tensor cores, fp32 ones on the SIMT units.
-    Timed at the BERT path's shape (BH = 1536, S = 128, D = 64, bf16)
-    and at a dp replica's shard (BH = 384)."""
+    Timed at the BERT path's shape (BH = 1536, S = 128, D = 64, bf16),
+    at a dp replica's shard (BH = 384) and at GPT-2 small's (BH = 96,
+    S = 1024, causal; SDPA with ``is_causal`` beside it)."""
     from paddle_tpu_torch.kernels.primitives import flash
 
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     by_dtype, by_case = {}, {}
     timings = {}
-    for name, b, h, s, d, dtype, causal, masked, timed in FLASH_CASES:
+    for name, b, h, s, d, dtype, causal, bias_mode, timed in FLASH_CASES:
         q, k, v, do, rows = _flash_inputs(dev, b, h, s, d, dtype, rng,
-                                          masked)
+                                          bias_mode)
         scale = d ** -0.5
         o, lse = flash.flash_fwd(q, k, v, rows, causal, scale)
         o_ref, lse_ref = flash.flash_fwd(q, k, v, rows, causal, scale,
@@ -1100,7 +1139,8 @@ def check_flash(dev, rng):
             worst[kern] = max(worst[kern], err)
             errs[kern] = max(errs.get(kern, 0.0), err)
             case_errs[kern] = max(case_errs.get(kern, 0.0), err)
-        if masked:  # uniform weights: O of batch 1 is the mean of V
+        if bias_mode == "masked":  # uniform weights: O of batch 1 is the
+            # mean of V
             mean_v = v[1].float().mean(dim=1, keepdim=True).expand_as(v[1])
             if not torch.allclose(o[1].float(), mean_v, **tol):
                 raise AssertionError(f"flash_fwd {name}: fully masked rows "
@@ -1108,7 +1148,8 @@ def check_flash(dev, rng):
         if not timed:
             continue
         k1, k2, k3 = _flash_bounds(b * h, s, d, 2, causal)
-        lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do, rows, scale)
+        lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do, rows, scale,
+                                    causal=bias_mode == "zero")
         shape = {}
         for kern, fn, plain, (bound_ms, bound_by), lib in (
                 ("flash_fwd",
@@ -3307,9 +3348,391 @@ def run_int8w_path(counters, fp32_outs):
     return cfg, scope, prompts, ids["captured"], path
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: GPT-2 small causal-LM training (causal K1-K3 at S 1024,
+# global-norm clipping, AdamW's decoupled weight decay), and its CPU parity
+# with every optimizer of the training front end
+# ---------------------------------------------------------------------------
+
+GPT_BATCH, GPT_SEQ = 8, 1024
+GPT_WARMUP, GPT_STEPS = 2, 10
+GPT_UNFUSED_WARMUP, GPT_UNFUSED_STEPS = 2, 3
+# the usual GPT-2 pretraining recipe (Radford et al. 2019; the
+# Megatron and nanoGPT settings): AdamW, beta2 0.95, decoupled weight
+# decay 0.1, the gradients' global norm clipped at 1.0
+GPT_LR, GPT_BETA2, GPT_WEIGHT_DECAY, GPT_CLIP_NORM = 6e-4, 0.95, 0.1, 1.0
+# card vs CPU, fp32, 3 steps (phase 5's rules): losses within 1e-4
+# relative; for Adam's family the parameters within 3 x lr max and 1e-6
+# mean abs difference (an element's update is at most about lr in size,
+# and its sign can follow a gradient that is zero up to the two BLAS
+# libraries' rounding); for the other optimizers, whose steps scale with
+# the gradient, each parameter's change within 1e-3 of its norm.  A leaf
+# whose gradient sits at the rounding floor (DP_GRAD_FLOOR of the median
+# leaf's RMS: the attention key biases, whose true gradient is 0) has no
+# direction to hold and is printed only
+GPT_PARITY_STEPS = 3
+GPT_CHANGE_RTOL = 1e-3
+# the parity runs' batch and sequence: the recipe's, then each optimizer's
+GPT_PARITY_SHAPE, GPT_PARITY_OPT_SHAPE = (2, 1024), (2, 256)
+
+
+def gpt_config(**kw):
+    """GPT-2 small (Radford et al. 2019, the 124M model; ``bench.py``'s
+    gpt-base): vocab 50304 (50257 padded to a multiple of 64), hidden
+    768, 12 layers, 12 heads, FFN 3072, 1024 positions, hidden dropout
+    0.1, causal flash attention."""
+    from paddle_tpu_torch.models import gpt
+
+    d = dict(vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
+             intermediate_size=3072, max_position=1024, hidden_dropout=0.1,
+             use_flash_attention=True)
+    d.update(kw)
+    return gpt.GPTConfig(**d)
+
+
+def gpt_train_flops_per_step(cfg, batch, seq):
+    """Model FLOPs of one training step (forward and backward, 6 a
+    multiply-add of the weights), T = batch x seq tokens: 6·T·(12·L·H² +
+    V·H) for the layers' and the tied head's matmuls, plus 6·L·T·S·H for
+    the causal attention's two products (half of the S x S pairs)."""
+    t, L, h = batch * seq, cfg.num_layers, cfg.hidden_size
+    return 6 * t * (12 * L * h * h + cfg.vocab_size * h) \
+        + 6 * L * t * seq * h
+
+
+def _gpt_program(cfg, bf16, make_opt=None):
+    """build_gpt_lm with ``make_opt(fluid)`` minimizing it (default: the
+    recipe's AdamW with the global-norm clip); returns (main, startup,
+    loss, the clip's global-norm var name or None)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import gpt
+
+    if make_opt is None:
+        def make_opt(fl):
+            return fl.optimizer.AdamW(
+                learning_rate=GPT_LR, beta2=GPT_BETA2,
+                weight_decay=GPT_WEIGHT_DECAY,
+                grad_clip=fl.clip.GradientClipByGlobalNorm(GPT_CLIP_NORM))
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss = gpt.build_gpt_lm(cfg)
+        make_opt(fluid).minimize(loss)
+    if bf16:
+        enable_bf16_policy(main)
+    startup.random_seed = SEED
+    norms = [op.outputs["Out"][0] for op in main.global_block().ops
+             if op.type == "sqrt" and op.attrs.get("op_role") == "backward"]
+    return main, startup, loss, (norms[0] if norms else None)
+
+
+def _gpt_step_launches(cfg):
+    """{kernel: launches} of one GPT train step: K1 twice a layer (the
+    forward and the derived grad's recompute), K2 and K3 once, K4 once a
+    layer (the FFN's bias + GeLU; no MLM head)."""
+    L = cfg.num_layers
+    return {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "fused_bias_act": L}
+
+
+def _gpt_feed(cfg, batch, seq, seed=0):
+    from paddle_tpu_torch.models import gpt
+
+    return gpt.make_fake_lm_batch(cfg, batch, seq, seed=seed)
+
+
+def run_gpt_train_path(counters):
+    """GPT-2 small, b8 s1024, bf16 policy with fp32 masters, AdamW with
+    the global-norm clip, hidden dropout 0.1, on the card: the captured
+    and the eager executor in turns from the same state and feed,
+    GPT_WARMUP + GPT_STEPS steps each.  Each mode's launches exact (on
+    the card and in the wrappers); the two modes' losses, global norms
+    and final state bit-equal; the losses finite and falling, the global
+    norm finite at every step."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.observability import profiling
+
+    cfg = gpt_config()
+    main, startup, loss, gnorm = _gpt_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    feed = _gpt_feed(cfg, GPT_BATCH, GPT_SEQ)
+    steps = GPT_WARMUP + GPT_STEPS
+    losses = {m: [] for m in exes}
+    norms = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    for _ in range(steps):
+        for m, exe in exes.items():  # in turns
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            lv, nv = exe.run(main, feed=feed, fetch_list=[loss, gnorm],
+                             scope=scopes[m])
+            secs[m].append(time.perf_counter() - t0)  # the fetch syncs
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+            losses[m].append(float(lv))
+            norms[m].append(float(np.asarray(nv).reshape(())))
+    total = {k: w.launches for k, w in counters.items()}
+    _gate_launches("gpt train path", launches, on_card,
+                   _gpt_step_launches(cfg), steps, 1)
+    sites = check_no_new_sites("gpt train path", main)
+    report = {e["pass"]: e["sites"] for e in main._pass_report}
+    loss_c, norm_c = losses["captured"], norms["captured"]
+    if not all(np.isfinite(loss_c)) or not loss_c[-1] < loss_c[0]:
+        raise AssertionError(f"gpt train path losses not finite and "
+                             f"falling: {loss_c}")
+    if not all(np.isfinite(norm_c)):
+        raise AssertionError(f"gpt train path: global norms {norm_c}")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or norms["captured"] \
+            != norms["eager"] or diff:
+        raise AssertionError(f"gpt train path: captured and eager differ: "
+                             f"losses {losses}, norms {norms}, state "
+                             f"{diff[:5]}")
+    tokens = GPT_BATCH * GPT_SEQ
+    flops = gpt_train_flops_per_step(cfg, GPT_BATCH, GPT_SEQ)
+    _, peak_flops, _, _ = profiling.device_peaks()
+    modes = {}
+    for m in exes:
+        timed = np.asarray(secs[m][GPT_WARMUP:])
+        modes[m] = dict(
+            tokens_per_s=tokens * GPT_STEPS / float(timed.sum()),
+            step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+            step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+            first_step_s=secs[m][0],
+            mfu=flops / float(np.median(timed)) / peak_flops,
+            peak_memory_gb=peak[m] / 1e9, launches=launches[m],
+            device_launches=on_card[m])
+    held = [h.graph for h in exes["captured"].compiled_for(main)]
+    if held == [None]:
+        raise AssertionError("gpt train path: the captured executor holds "
+                             "no graph")
+    modes["captured"]["capture_s"] = _capture_seconds(exes["captured"], main)
+    modes["captured"]["graph_pools_gb"] = graph_pools_gb()
+    types = [op.type for op in main.global_block().ops]
+    path = dict(model="GPTConfig(vocab 50304, hidden 768, 12 layers, 12 "
+                "heads, FFN 3072, 1024 positions, hidden dropout 0.1, "
+                "flash)", batch=GPT_BATCH, seq_len=GPT_SEQ,
+                dtype_policy="bf16",
+                optimizer=f"AdamW(lr {GPT_LR}, beta2 {GPT_BETA2}, weight "
+                f"decay {GPT_WEIGHT_DECAY}), GradientClipByGlobalNorm("
+                f"{GPT_CLIP_NORM})", steps=GPT_STEPS,
+                warmup_steps=GPT_WARMUP, losses=loss_c, global_norms=norm_c,
+                clip_engaged_steps=sum(n > GPT_CLIP_NORM for n in norm_c),
+                captured_eager_bit_equal=True, model_flops_per_step=flops,
+                mfu_peak_flops=peak_flops, ops=len(types),
+                clip_ops={t: types.count(t) for t in (
+                    "squared_l2_norm", "sqrt", "clip", "elementwise_div",
+                    "elementwise_mul", "fill_constant")},
+                pass_report=report, modes=modes, launches=total,
+                device_launches=_summed(on_card), new_pass_sites=sites)
+    state = dict(exes=exes, main=main, scopes=scopes, feed=feed,
+                 fetch=[loss, gnorm])
+    return state, path
+
+
+def run_gpt_unfused(counters):
+    """The same configuration built unfused (use_flash_attention=False:
+    matmul, softmax_mask_fuse_upper_triangle, matmul a layer), the
+    default passes on, GPT_UNFUSED_WARMUP + GPT_UNFUSED_STEPS steps
+    captured: the pass report reads 12 fuse_attention sites, all causal,
+    and K1-K4 launch the flash build's counts a step."""
+    from paddle_tpu_torch import fluid
+
+    cfg = gpt_config(use_flash_attention=False)
+    main, startup, loss, gnorm = _gpt_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(_gpu_place())
+    exe.run(startup, scope=scope)
+    feed = _gpt_feed(cfg, GPT_BATCH, GPT_SEQ)
+    per = _gpt_step_launches(cfg)
+    steps = GPT_UNFUSED_WARMUP + GPT_UNFUSED_STEPS
+    losses, norms, secs = [], [], []
+    torch.cuda.synchronize()
+    before = _snap()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lv, nv = exe.run(main, feed=feed, fetch_list=[loss, gnorm],
+                         scope=scope)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(lv))
+        norms.append(float(np.asarray(nv).reshape(())))
+    got, on_card = _since(before, counters)
+    report = {e["pass"]: e for e in main._pass_report}
+    att = report["fuse_attention"]
+    types = [op.type for op in main.global_block().ops]
+    want = (_times(per, 2), _times(per, steps))
+    if (att["sites"], att.get("causal_sites"), att.get("bias_sites")) \
+            != (cfg.num_layers, cfg.num_layers, 0) \
+            or types.count("flash_attention") != cfg.num_layers \
+            or "softmax_mask_fuse_upper_triangle" in types \
+            or (got, on_card) != want:
+        raise AssertionError(f"gpt unfused: report {att}, launches {got} "
+                             f"(wrappers) and {on_card} (on the card) vs "
+                             f"{want}")
+    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt unfused: losses {losses}, global norms "
+                             f"{norms}")
+    timed = np.asarray(secs[GPT_UNFUSED_WARMUP:])
+    return dict(model="GPTConfig as phase 17, use_flash_attention=False",
+                pass_report=main._pass_report, losses=losses,
+                global_norms=norms,
+                step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+                launches=got, device_launches=on_card)
+
+
+def profile_gpt_step(state):
+    """One train step of each mode under torch.profiler (the path's own
+    fetches, so the captured step replays its graph): device busy and
+    idle, the launch API calls and the top device kernels."""
+    out = {}
+    for m, exe in state["exes"].items():
+        out[m] = _profile(lambda: exe.run(
+            state["main"], feed=state["feed"], fetch_list=state["fetch"],
+            scope=state["scopes"][m]), 1)
+    return out
+
+
+def _gpt_parity_run(cfg, place, feed, init, make_opt, steps):
+    """``steps`` fp32 steps of the GPT program minimized by
+    ``make_opt(fluid)`` on ``place`` from ``init`` (None: the startup's,
+    returned).  Returns the losses, ``init``, the parameters after the
+    run and, with ``grads``, each parameter's first-step gradient."""
+    from paddle_tpu_torch import convert, fluid
+
+    main, startup, loss, _ = _gpt_program(cfg, bf16=False,
+                                          make_opt=make_opt)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    if init is None:
+        init = {p.name: scope.get(p.name).cpu().numpy().copy()
+                for p in main.all_parameters()}
+    else:
+        convert.load_params(scope, init, place, program=main)
+    grads = dict(main._params_grads)
+    losses, first = [], None
+    for i in range(steps):
+        fetch = [loss] + (list(grads.values()) if i == 0 else [])
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        losses.append(float(out[0]))
+        if i == 0:
+            first = {p: np.asarray(g, np.float64)
+                     for p, g in zip(grads, out[1:])}
+    final = {n: scope.get(n).cpu().numpy().astype(np.float64)
+             for n in init}
+    return losses, init, final, first
+
+
+def _gpt_parity(cfg, batch, seq, make_opt, adam_family, lr):
+    """One card-vs-CPU parity reading (see GPT_PARITY_STEPS)."""
+    from paddle_tpu_torch import fluid
+
+    feed = _gpt_feed(cfg, batch, seq, seed=1)
+    gl, init, gpu, _ = _gpt_parity_run(cfg, _gpu_place(), feed, None,
+                                       make_opt, GPT_PARITY_STEPS)
+    cl, _, cpu, grads = _gpt_parity_run(cfg, fluid.CPUPlace(), feed, init,
+                                        make_opt, GPT_PARITY_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    if not rel < TRAIN_LOSS_RTOL:
+        raise AssertionError(f"gpt parity: losses {gl} (card) vs {cl} "
+                             f"(CPU), max rel diff {rel}")
+    g_rms = {n: float(np.sqrt(np.mean(g * g))) for n, g in grads.items()}
+    median = float(np.median(list(g_rms.values())))
+    leaves = {}
+    for n, p in gpu.items():
+        p0 = init[n].astype(np.float64)
+        d = np.abs(p - cpu[n])
+        change = np.linalg.norm(cpu[n] - p0)
+        leaves[n] = dict(
+            grad_rms_to_median=g_rms[n] / median,
+            held=g_rms[n] >= DP_GRAD_FLOOR * median,
+            max_abs=float(d.max()), mean_abs=float(d.mean()),
+            change_rel=float(np.linalg.norm((p - p0) - (cpu[n] - p0))
+                             / max(change, 1e-30)))
+    held = {n: r for n, r in leaves.items() if r["held"]}
+    if adam_family:
+        checks = (("max_abs", 3 * lr), ("mean_abs", TRAIN_PARAM_MEAN_ATOL))
+    else:
+        checks = (("change_rel", GPT_CHANGE_RTOL),)
+    worst = {}
+    for key, tol in checks:
+        name = max(held, key=lambda n: held[n][key])
+        worst[key] = dict(leaf=name, tol=tol, **held[name])
+        if not held[name][key] <= tol:
+            raise AssertionError(f"gpt parity: {key} {held[name][key]} > "
+                                 f"{tol} on leaf {name}: {held[name]}")
+    return dict(losses_gpu=gl, losses_cpu=cl, loss_max_rel_diff=rel,
+                leaves=len(leaves), leaves_held=len(held), worst_held=worst,
+                floor_leaves=sorted(set(leaves) - set(held)))
+
+
+def _adam_l2_value_clip(fl):
+    """Adam with L2Decay and GradientClipByValue set as every
+    parameter's clip (``set_gradient_clip``: the caller clears it)."""
+    fl.clip.set_gradient_clip(fl.clip.GradientClipByValue(1e-3))
+    return fl.optimizer.Adam(TRAIN_LR,
+                             regularization=fl.regularizer.L2Decay(1e-2))
+
+
+# {name: (make_opt(fluid), Adam's family, lr)}: every optimizer the
+# training front end adds, and Adam with L2Decay and GradientClipByValue;
+# Adam's family at phase 5's lr
+GPT_PARITY_OPTIMIZERS = {
+    "LarsMomentum": (lambda fl: fl.optimizer.LarsMomentum(0.1, 0.9), False,
+                     0.1),
+    "Adagrad": (lambda fl: fl.optimizer.Adagrad(0.01), False, 0.01),
+    "Adamax": (lambda fl: fl.optimizer.Adamax(TRAIN_LR), True, TRAIN_LR),
+    "DecayedAdagrad": (lambda fl: fl.optimizer.DecayedAdagrad(0.01), False,
+                       0.01),
+    "Adadelta": (lambda fl: fl.optimizer.Adadelta(1.0), False, 1.0),
+    "RMSProp": (lambda fl: fl.optimizer.RMSProp(1e-3, momentum=0.9), False,
+                1e-3),
+    "Ftrl": (lambda fl: fl.optimizer.Ftrl(0.1, l1=1e-4, l2=1e-4), False,
+             0.1),
+    "Lamb": (lambda fl: fl.optimizer.Lamb(TRAIN_LR), True, TRAIN_LR),
+    "Adam+L2Decay+ClipByValue": (_adam_l2_value_clip, True, TRAIN_LR),
+}
+
+
+def run_gpt_parity():
+    """2 layers at full width (hidden 768, vocab 50304), fp32, dropout
+    0: the recipe's AdamW with the global-norm clip at b2 s1024, then
+    each optimizer of the training front end at b2 s256, 3 steps on the
+    card and on a CPUPlace executor from the same parameters."""
+    from paddle_tpu_torch import fluid
+
+    cfg = gpt_config(num_layers=2, hidden_dropout=0.0)
+    out = {"adamw_global_norm_clip": dict(
+        batch_seq=GPT_PARITY_SHAPE, **_gpt_parity(
+            cfg, *GPT_PARITY_SHAPE, None, True, GPT_LR))}
+    for name, (make, adam_family, lr) in GPT_PARITY_OPTIMIZERS.items():
+        try:
+            out[name] = dict(batch_seq=GPT_PARITY_OPT_SHAPE, lr=lr,
+                             **_gpt_parity(cfg, *GPT_PARITY_OPT_SHAPE, make,
+                                           adam_family, lr))
+        finally:
+            fluid.clip.set_gradient_clip(None)
+    return out
+
+
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
-# "engine" runs phases 10-11 (the ragged Engine, both arms) instead, and
-# "passes", "predictor" and "int8w" phases 14, 15 and 16
+# "engine" runs phases 10-11 (the ragged Engine, both arms) instead,
+# "passes", "predictor" and "int8w" phases 14, 15 and 16, and "gpt"
+# phase 3's K1-K4 checks (GPT-2 small's shapes among them) and phases
+# 17-18
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -3317,17 +3740,19 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         "engine": (("ragged_attention",), ()),
         "passes": (("flash_attention", "fused_bias_act"), ()),
         "predictor": (("flash_attention", "fused_bias_act"), ()),
-        "int8w": (("fused_bias_act", "paged_attention"), ())}
-NEW_PHASES = ("passes", "predictor", "int8w")
+        "int8w": (("fused_bias_act", "paged_attention"), ()),
+        "gpt": (("flash_attention", "fused_bias_act"),
+                ("check_flash", "check_bias_gelu_bf16"))}
+NEW_PHASES = ("passes", "predictor", "int8w", "gpt")
 
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 14-16 (those of ``keys``); returns their path readings
+    """Phases 14-18 (those of ``keys``); returns their path readings
     (None for a phase not run).  Phase 16's ids are compared with
     ``fp32_outs``, the fp32-weight lane's, where given (printed, not
     gated)."""
-    ab = pred = path_w = None
+    ab = pred = path_w = gpt = None
     if "passes" in keys:
         counters = {k: wrappers[k] for k in train_kernels}
         state, ab = run_passes_ab(counters)
@@ -3352,7 +3777,18 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
             run_parity(cfg, scope, prompts, outs, int8_weights=True))
         del scope
         torch.cuda.empty_cache()
-    return ab, pred, path_w
+    if "gpt" in keys:
+        counters = {k: wrappers[k] for k in train_kernels}
+        state, gpt = run_gpt_train_path(counters)
+        say("gpt train path", {"card": smi, **gpt})
+        say("gpt train step", {"card": smi, **profile_gpt_step(state)})
+        del state
+        torch.cuda.empty_cache()
+        gpt["unfused"] = run_gpt_unfused(counters)
+        say("gpt unfused path", {"card": smi, **gpt["unfused"]})
+        torch.cuda.empty_cache()
+        say("gpt parity", run_gpt_parity())
+    return ab, pred, path_w, gpt
 
 
 def run_only(keys, dev, smi, say):
@@ -3393,10 +3829,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
-                    "k6_contract, engine, passes, predictor, int8w): "
+                    "k6_contract, engine, passes, predictor, int8w, gpt): "
                     "phases 1-3 for those kernels alone (engine: phases "
-                    "10-11; passes, predictor, int8w: phases 14, 15, 16); "
-                    "the default runs every phase")
+                    "10-11; passes, predictor, int8w: phases 14, 15, 16; "
+                    "gpt: K1-K4 and phases 17-18); the default runs every "
+                    "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3542,8 +3979,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
-    ab, pred, path_w = run_new_phases(wrappers, train_kernels, fp32_outs,
-                                      smi, say)
+    ab, pred, path_w, gpt = run_new_phases(wrappers, train_kernels,
+                                           fp32_outs, smi, say)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
@@ -3556,6 +3993,8 @@ def main(argv=None):
                      "predictor_on": pred["arms"]["on"][key],
                      "predictor_off": pred["arms"]["off"][key],
                      "decode_int8_weights": path_w[key],
+                     "gpt_train": gpt[key],
+                     "gpt_unfused": gpt["unfused"][key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}
@@ -3564,30 +4003,36 @@ def main(argv=None):
     def launches(name, key="launches"):
         return {p: n[name] for p, n in by_path[key].items() if name in n}
 
-    def row(name, source, replaces, err, t):
+    def row(name, source, replaces, err, t, gpt_t=None):
         runs = launches(name)
         on_card = launches(name, "device_launches")
-        return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=sum(runs.values()),
-                    launches_by_path=runs,
-                    device_launches=sum(on_card.values()),
-                    device_launches_by_path=on_card, max_abs_err=err,
-                    ms=t["ms"], plain_ms=t["plain_ms"],
-                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                    library_ms=t.get("library_ms"))
+        out = dict(name=name, route="cuda", source=source,
+                   replaces=replaces, launches=sum(runs.values()),
+                   launches_by_path=runs,
+                   device_launches=sum(on_card.values()),
+                   device_launches_by_path=on_card, max_abs_err=err,
+                   ms=t["ms"], plain_ms=t["plain_ms"],
+                   bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                   library_ms=t.get("library_ms"))
+        if gpt_t is not None:  # the same readings at GPT-2 small's shape
+            out["at_gpt_shape"] = {k: gpt_t.get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        return out
 
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     flash_py = "paddle_tpu/kernels/primitives/flash.py"
     kernels = [
         row("flash_fwd", flash_src, f"{flash_py}:78", fl_err["flash_fwd"],
-            fl_t["flash_fwd"]),
+            fl_t["flash_fwd"], fl_t["gpt"]["flash_fwd"]),
         row("flash_bwd_dq", flash_src, f"{flash_py}:130",
-            fl_err["flash_bwd_dq"], fl_t["flash_bwd_dq"]),
+            fl_err["flash_bwd_dq"], fl_t["flash_bwd_dq"],
+            fl_t["gpt"]["flash_bwd_dq"]),
         row("flash_bwd_dkv", flash_src, f"{flash_py}:167",
-            fl_err["flash_bwd_dkv"], fl_t["flash_bwd_dkv"]),
+            fl_err["flash_bwd_dkv"], fl_t["flash_bwd_dkv"],
+            fl_t["gpt"]["flash_bwd_dkv"]),
         row("fused_bias_act", "paddle_tpu_torch/csrc/fused_bias_act.cu",
             "paddle_tpu/kernels/fused_bias_act.py:106", max(k4_err, k4b_err),
-            k4),
+            k4, k4b_t["[8192,3072] bf16"]),
         row("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
             "paddle_tpu/kernels/primitives/paged.py:121", k5_err, dec),
         row("ragged_attention", "paddle_tpu_torch/csrc/ragged_attention.cu",

@@ -7,7 +7,8 @@ captures each fixed-shape program once as a CUDA graph and replays it,
 on the CPU (or with FLAGS_cuda_graph_capture off) it runs them
 eagerly;
 ``Executor()`` with no place runs on CUDAPlace(0).  ``append_backward``
-and ``optimizer.Adam(...).minimize(loss)`` build a training program;
+and ``optimizer.Adam(...).minimize(loss)`` build a training program
+(with ``regularizer`` and ``clip``);
 ``CompiledProgram(...).with_data_parallel(...)`` runs it over several
 replicas (parallel/data_parallel.py).
 """
@@ -23,7 +24,8 @@ from .framework import (  # noqa: F401
 )
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import flags, initializer, layers  # noqa: F401
-from . import backward, compiler, contrib, io, ir, optimizer  # noqa: F401
+from . import (backward, clip, compiler, contrib, io, ir,  # noqa: F401
+               optimizer, regularizer)
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .backward import append_backward  # noqa: F401

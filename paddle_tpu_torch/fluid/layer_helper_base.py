@@ -54,6 +54,7 @@ class LayerHelperBase:
             regularizer=attr.regularizer, trainable=attr.trainable,
             stop_gradient=not attr.trainable)
         p.optimize_attr = {"learning_rate": attr.learning_rate}
+        p.gradient_clip_attr = attr.gradient_clip
         # ... and create + initialize it in the startup program
         sb = self.startup_program.global_block()
         sp = sb.create_parameter(name=attr.name, shape=shape, dtype=dtype,

@@ -22,7 +22,10 @@ __all__ = [
     "softmax_with_cross_entropy", "mean", "accuracy", "reduce_mean",
     "ragged_attention", "paged_attention_quant", "kv_cache_write_quant",
     "kv_cache_write_pages_quant", "cross_entropy",
-    "softmax_mask_fuse_upper_triangle",
+    "softmax_mask_fuse_upper_triangle", "elementwise_sub",
+    "elementwise_mul", "elementwise_div", "elementwise_max",
+    "elementwise_min", "elementwise_pow", "elementwise_mod",
+    "elementwise_floordiv", "sqrt", "sign", "clip", "clip_by_norm",
 ]
 
 
@@ -36,7 +39,8 @@ def _single_out_layer(helper, op_type, inputs, attrs=None, dtype=None):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully-connected: mul + elementwise_add + activation."""
+    """Fully-connected: mul (one a input, then their sum) +
+    elementwise_add + activation."""
     helper = LayerHelper("fc", input=input, size=size, bias_attr=bias_attr,
                          act=act, name=name)
     inputs = input if isinstance(input, (list, tuple)) else [input]
@@ -53,11 +57,14 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          attrs={"x_num_col_dims": num_flatten_dims,
                                 "y_num_col_dims": 1})
         mul_results.append(out)
-    if len(mul_results) != 1:
-        raise NotImplementedError("fc over several inputs (the `sum` op) "
-                                  "is not ported yet")
-    pre_act = helper.append_bias_op(mul_results[0],
-                                    dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:  # several inputs: one product each, summed
+        pre_bias = helper.create_variable_for_type_inference(
+            dtype=inputs[0].dtype)
+        helper.append_op("sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -118,11 +125,70 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
                               "alpha": float(alpha)})
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", act=act, name=name)
-    out = _single_out_layer(helper, "elementwise_add", {"X": [x], "Y": [y]},
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, act=act, name=name)
+    out = _single_out_layer(helper, op_type, {"X": [x], "Y": [y]},
                             {"axis": axis})
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
+
+
+def _act_layer(op_type, x, attrs=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    return _single_out_layer(helper, op_type, {"X": [x]}, attrs or {})
+
+
+def sqrt(x, name=None):
+    return _act_layer("sqrt", x, name=name)
+
+
+def sign(x, name=None):
+    return _act_layer("sign", x, name=name)
+
+
+def clip(x, min, max, name=None):
+    return _act_layer("clip", x, {"min": float(min), "max": float(max)},
+                      name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _act_layer("clip_by_norm", x, {"max_norm": float(max_norm)},
+                      name)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False,

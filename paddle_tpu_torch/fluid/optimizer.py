@@ -1,30 +1,47 @@
 """Optimizers (counterpart of ``paddle_tpu/fluid/optimizer.py``).
 
-``minimize(loss)`` is ``append_backward`` plus one optimizer op per
-parameter, appended to the program; the accumulators (moments, beta
-powers) and the learning-rate var are persistable vars created and
-initialized in the startup program.  The executor runs the update ops
-like any other op; ``adam`` updates the parameter and its state in
-place (ops/optimizer_ops.py), where the JAX package donates buffers.
+``minimize(loss)`` is ``append_backward``, then, in the JAX package's
+order (``apply_gradients``): the raw grads recorded in
+``program._params_grads`` (the data-parallel transpiler all-reduces
+these, so decay and clipping see the whole gradient), the
+learning-rate var, the regularizers' ops (fluid/regularizer.py; a
+parameter's own regularizer wins over the optimizer's), the optimizer's
+``grad_clip`` or else each parameter's own clip (fluid/clip.py), the
+accumulators, one update op a parameter and the optimizer's
+``_finish_update`` ops.  The accumulators (moments, beta powers) and
+the learning-rate var are persistable vars created and initialized in
+the default startup program; ``minimize(startup_program=...)`` is
+accepted and, as in the JAX package, changes nothing.  The executor
+runs the update ops like any other op; they update the parameter and
+its state in place (ops/optimizer_ops.py), where the JAX package
+donates buffers.
 
-Ported so far: the ``Optimizer`` base, ``SGD``, ``Momentum`` (with
-``use_nesterov``), ``Adam`` and ``AdamW``.  ``apply_gradients`` records
-``program._params_grads``, which the data-parallel transpiler reads.
-Regularization and gradient clipping are not ported: ``minimize``
-raises when either is asked for, rather than train without it.
+Ported: the ``Optimizer`` base, ``SGD``, ``Momentum`` (with
+``use_nesterov``), ``LarsMomentum``, ``Adagrad``, ``Adam``, ``AdamW``,
+``Adamax``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp``, ``Ftrl``,
+``Lamb`` and ``ExponentialMovingAverage``.  Not ported: ``DGCMomentum``
+(the ``dgc`` ops), ``ModelAverage``, ``GradientMergeOptimizer`` and the
+dygraph paths.
 """
 
 from __future__ import annotations
 
-from . import framework
+import contextlib
+
+from . import clip, framework
 from .backward import append_backward
-from .framework import unique_name
+from .framework import default_main_program, unique_name
 from .initializer import Constant
 from .layer_helper import LayerHelper
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW",
-           "AdamWOptimizer"]
+__all__ = [
+    "Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "Adamax", "AdamW",
+    "DecayedAdagrad", "Adadelta", "RMSProp", "Ftrl", "Lamb", "LarsMomentum",
+    "SGDOptimizer", "MomentumOptimizer", "AdagradOptimizer", "AdamOptimizer",
+    "AdamaxOptimizer", "AdamWOptimizer", "DecayedAdagradOptimizer",
+    "AdadeltaOptimizer", "RMSPropOptimizer", "FtrlOptimizer",
+    "LambOptimizer", "LarsMomentumOptimizer", "ExponentialMovingAverage",
+]
 
 
 class Optimizer:
@@ -68,38 +85,54 @@ class Optimizer:
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
 
-    def backward(self, loss, parameter_list=None, no_grad_set=None):
+    def _finish_update(self, block, params_grads):
+        pass
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
         return append_backward(loss, parameter_list, no_grad_set)
 
     def apply_gradients(self, params_grads):
-        if self.regularization is not None or self._grad_clip is not None \
-                or any(getattr(p, "regularizer", None) is not None
-                       for p, _ in params_grads):
-            raise NotImplementedError(
-                "regularization and gradient clipping are not ported to "
-                "paddle_tpu_torch yet")
+        """The JAX package's ``_apply_gradients_impl``, in the
+        parameters' program (a caller may minimize after leaving its
+        program_guard)."""
         program = (params_grads[0][0].block.program if params_grads
-                   else framework.default_main_program())
-        # the raw grads: the data-parallel transpiler all-reduces these
+                   else default_main_program())
+        # the raw grads, before decay and clipping: the data-parallel
+        # transpiler all-reduces these
         program._params_grads = [(p.name, g.name) for p, g in params_grads]
         with framework.program_guard(program):
             block = program.global_block()
             self._create_lr_var()
+            params_grads = self._append_regularization_ops(block,
+                                                           params_grads)
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip(params_grads)
+            else:
+                params_grads = clip.append_gradient_clip_ops(params_grads)
             self._create_accumulators(block, [p for p, _ in params_grads])
             ops = []
             for pg in params_grads:
                 op = self._append_optimize_op(block, pg)
                 op.attrs["op_role"] = "optimize"
                 ops.append(op)
+            self._finish_update(block, params_grads)
         return ops
+
+    def _append_regularization_ops(self, block, params_grads):
+        """grad + the decay term of the parameter's own regularizer, or
+        else of the optimizer's ``regularization``."""
+        out = []
+        for p, g in params_grads:
+            reg = getattr(p, "regularizer", None) or self.regularization
+            out.append((p, g) if reg is None else
+                       (p, reg._append_ops(block, p, g)))
+        return out
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        if startup_program is not None:
-            raise NotImplementedError(
-                "minimize(startup_program=...): the accumulators go to "
-                "the default startup program")
-        params_grads = self.backward(loss, parameter_list, no_grad_set)
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
         return self.apply_gradients(params_grads), params_grads
 
 
@@ -186,7 +219,267 @@ class AdamWOptimizer(AdamOptimizer):
         return {"coeff": self._coeff}
 
 
+class _ElementwiseOptimizer(Optimizer):
+    """An optimizer whose op reads Param, Grad, its accumulators and
+    (``_uses_lr``) LearningRate, and writes ParamOut and each
+    accumulator's ``<slot>Out``: ``_slots`` maps the op's accumulator
+    slots to (accumulator name, initial value)."""
+
+    _slots = {}
+    _uses_lr = True
+    _out_slot = {}  # an accumulator slot whose output slot is not <slot>Out
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            for acc, fill in self._slots.values():
+                self._add_accumulator(acc, p, fill_value=fill(self))
+
+    def _attrs(self):
+        return {}
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        inputs = {"Param": [p], "Grad": [g]}
+        outputs = {"ParamOut": [p]}
+        for slot, (acc, _) in self._slots.items():
+            v = self._get_accumulator(acc, p)
+            inputs[slot] = [v]
+            outputs[self._out_slot.get(slot, slot + "Out")] = [v]
+        if self._uses_lr:
+            inputs["LearningRate"] = [self._lr_var]
+        return block.append_op(self.type, inputs=inputs, outputs=outputs,
+                               attrs=self._attrs())
+
+
+def _zero(opt):
+    return 0.0
+
+
+class LarsMomentumOptimizer(_ElementwiseOptimizer):
+    type = "lars_momentum"
+    _slots = {"Velocity": ("velocity", _zero)}
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _attrs(self):
+        return {"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                "lars_weight_decay": self._lars_weight_decay}
+
+
+class AdagradOptimizer(_ElementwiseOptimizer):
+    type = "adagrad"
+    _slots = {"Moment": ("moment", lambda o: o._init_acc)}
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _attrs(self):
+        return {"epsilon": self._epsilon}
+
+
+class AdamaxOptimizer(Optimizer):
+    """Adamax: the op reads the beta1 power and ``_finish_update``
+    advances it with one ``scale`` op a parameter."""
+
+    type = "adamax"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p,
+                                  fill_value=self._beta1, shape=[1])
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        m = self._get_accumulator("moment", p)
+        inf = self._get_accumulator("inf_norm", p)
+        return block.append_op(
+            "adamax",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "InfNorm": [inf], "LearningRate": [self._lr_var],
+                    "Beta1Pow": [self._get_accumulator("beta1_pow_acc", p)]},
+            outputs={"ParamOut": [p], "MomentOut": [m], "InfNormOut": [inf]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+
+    def _finish_update(self, block, params_grads):
+        for p, _ in params_grads:
+            b1p = self._get_accumulator("beta1_pow_acc", p)
+            block.append_op("scale", inputs={"X": [b1p]},
+                            outputs={"Out": [b1p]},
+                            attrs={"scale": self._beta1,
+                                   "op_role": "optimize"})
+
+
+class DecayedAdagradOptimizer(_ElementwiseOptimizer):
+    type = "decayed_adagrad"
+    _slots = {"Moment": ("moment", _zero)}
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _attrs(self):
+        return {"decay": self._decay, "epsilon": self._epsilon}
+
+
+class AdadeltaOptimizer(_ElementwiseOptimizer):
+    type = "adadelta"
+    _slots = {"AvgSquaredGrad": ("__avg_squared_grad", _zero),
+              "AvgSquaredUpdate": ("__avg_squared_update", _zero)}
+    _uses_lr = False
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _attrs(self):
+        return {"epsilon": self._epsilon, "rho": self._rho}
+
+
+class RMSPropOptimizer(_ElementwiseOptimizer):
+    type = "rmsprop"
+    _slots = {"Moment": ("momentum", _zero),
+              "MeanSquare": ("mean_square", _zero),
+              "MeanGrad": ("mean_grad", _zero)}
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _attrs(self):
+        return {"decay": self._rho, "epsilon": self._epsilon,
+                "momentum": self._momentum, "centered": self._centered}
+
+
+class FtrlOptimizer(_ElementwiseOptimizer):
+    type = "ftrl"
+    _slots = {"SquaredAccumulator": ("squared", _zero),
+              "LinearAccumulator": ("linear", _zero)}
+    _out_slot = {"SquaredAccumulator": "SquaredAccumOut",
+                 "LinearAccumulator": "LinearAccumOut"}
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _attrs(self):
+        return {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power}
+
+
+class LambOptimizer(AdamOptimizer):
+    type = "lamb"
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, beta1=beta1, beta2=beta2,
+                         epsilon=epsilon, **kw)
+        self._weight_decay = lamb_weight_decay
+
+    def _extra_attrs(self):
+        return {"weight_decay": self._weight_decay}
+
+
+class ExponentialMovingAverage:
+    """An exponential moving average of every trainable parameter of the
+    default main program: ``update()`` appends ema = decay·ema +
+    (1 - decay)·p for each (``scale``, ``scale``, ``elementwise_add``,
+    ``op_role="optimize"``); ``apply(executor)`` is a context in which
+    the scope's parameters hold their averages, restored on exit unless
+    ``need_restore`` is False.  The averages start at 0 and are not
+    bias-corrected, as in the JAX package."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._name = name or "ema"
+        self._ema_vars = {}
+        self._params = []
+        program = default_main_program()
+        helper = LayerHelper(self._name)
+        for p in program.all_parameters():
+            if not p.trainable:
+                continue
+            ema = helper.create_global_variable(
+                name=unique_name.generate(f"{p.name}_ema"),
+                shape=list(p.shape), dtype=p.dtype, persistable=True,
+                stop_gradient=True)
+            helper.set_variable_initializer(ema, Constant(0.0))
+            self._ema_vars[p.name] = ema
+            self._params.append(p)
+
+    def update(self):
+        block = default_main_program().global_block()
+        for p in self._params:
+            ema = self._ema_vars[p.name]
+            tmp = block.create_var(name=unique_name.generate("ema_tmp"),
+                                   dtype=p.dtype, stop_gradient=True)
+            block.append_op("scale", inputs={"X": [ema]},
+                            outputs={"Out": [tmp]},
+                            attrs={"scale": self._decay,
+                                   "op_role": "optimize"})
+            tmp2 = block.create_var(name=unique_name.generate("ema_tmp"),
+                                    dtype=p.dtype, stop_gradient=True)
+            block.append_op("scale", inputs={"X": [p]},
+                            outputs={"Out": [tmp2]},
+                            attrs={"scale": 1.0 - self._decay,
+                                   "op_role": "optimize"})
+            block.append_op("elementwise_add",
+                            inputs={"X": [tmp], "Y": [tmp2]},
+                            outputs={"Out": [ema]},
+                            attrs={"op_role": "optimize"})
+
+    def apply(self, executor, need_restore=True):
+        from .executor import global_scope
+
+        # The values are swapped in place: a captured graph's inputs are
+        # the scope's own tensors, so the scope keeps its tensor objects
+        # and only their contents change.
+        @contextlib.contextmanager
+        def guard():
+            scope = global_scope()
+            backup = {p.name: scope.get(p.name).clone() for p in self._params}
+            for p in self._params:
+                scope.get(p.name).copy_(
+                    scope.get(self._ema_vars[p.name].name))
+            try:
+                yield
+            finally:
+                if need_restore:
+                    for p in self._params:
+                        scope.get(p.name).copy_(backup[p.name])
+
+        return guard()
+
+    def restore(self, executor):
+        """A no-op: ``apply``'s context restores (the JAX package's
+        contract)."""
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
 AdamW = AdamWOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+Lamb = LambOptimizer
+LarsMomentum = LarsMomentumOptimizer

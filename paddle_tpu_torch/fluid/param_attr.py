@@ -9,12 +9,15 @@ __all__ = ["ParamAttr"]
 
 class ParamAttr:
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
-                 regularizer=None, trainable=True):
+                 regularizer=None, trainable=True, gradient_clip=None,
+                 do_model_average=False):
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
         self.regularizer = regularizer
         self.trainable = trainable
+        self.gradient_clip = gradient_clip
+        self.do_model_average = do_model_average
 
     @staticmethod
     def _to_attr(arg):

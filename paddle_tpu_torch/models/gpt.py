@@ -1,26 +1,33 @@
 """GPT-style causal decoder LM: the paged decode lane's two programs
 (counterpart of ``paddle_tpu/models/gpt.py``).
 
-Ported: the config, the shared block builders, and the two fixed-shape
-programs of the decode serving lane — ``build_gpt_decode_step`` and
-``build_gpt_prefill_chunk`` — over a paged KV pool in fp32 or in the
-dual-int8 format (``pool_dtype="int8"``: hi/lo int8 + a per-vector fp32
-scale per K and V).  Parameter names are the JAX package's
-(``gpt_word_embedding``, ``decoder_layer_{i}_att_query_fc.w_0``, ...),
-so weights carry across by name.  The training and whole-sequence
-generation programs are still to be ported.
+Ported: the config, the shared block builders, the causal-LM training
+program (``build_gpt_lm``: pre-LN blocks, causal flash attention or the
+composed matmul / ``softmax_mask_fuse_upper_triangle`` / matmul chain,
+the weight-tied LM head, ``make_fake_lm_batch``), and the two
+fixed-shape programs of the decode serving lane —
+``build_gpt_decode_step`` and ``build_gpt_prefill_chunk`` — over a
+paged KV pool in fp32 or in the dual-int8 format (``pool_dtype="int8"``:
+hi/lo int8 + a per-vector fp32 scale per K and V).  Parameter names are
+the JAX package's (``gpt_word_embedding``,
+``decoder_layer_{i}_att_query_fc.w_0``, ...), so weights carry across by
+name.  The whole-sequence generation programs (``build_gpt_generate*``)
+are still to be ported: they need the while and beam-search ops.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from paddle_tpu_torch import fluid
 from paddle_tpu_torch.fluid import layers
 from paddle_tpu_torch.fluid.initializer import Normal
 from paddle_tpu_torch.fluid.param_attr import ParamAttr
 
-__all__ = ["GPTConfig", "KV_POOL_PREFIX", "kv_pool_var_names",
-           "kv_pool_quant_var_names", "build_gpt_decode_step",
-           "build_gpt_prefill_chunk"]
+__all__ = ["GPTConfig", "KVSink", "causal_self_attention", "decoder_layer",
+           "gpt_decoder", "build_gpt_lm", "make_fake_lm_batch",
+           "KV_POOL_PREFIX", "kv_pool_var_names", "kv_pool_quant_var_names",
+           "build_gpt_decode_step", "build_gpt_prefill_chunk"]
 
 
 class GPTConfig:
@@ -75,6 +82,142 @@ def _lm_logits(h, cfg: GPTConfig):
         "gpt_word_embedding")
     flat = layers.reshape(h, shape=[-1, cfg.hidden_size])
     return layers.matmul(flat, word_emb, transpose_y=True)  # [B*S, V]
+
+
+# ---------------------------------------------------------------------------
+# The causal-LM training program
+# ---------------------------------------------------------------------------
+
+
+class KVSink(list):
+    """Collects each layer's prefill (K, V) [B, n, S, d].  With a
+    ``dtype``, every K and V goes through a ``cast`` to it first, so the
+    program states the cache dtype whatever the dtype policy computes
+    the attention in; a plain list keeps the compute dtype."""
+
+    def __init__(self, dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.shapes = []
+
+    def append(self, kv):
+        k, v = kv
+        if self.dtype:
+            k = layers.cast(k, self.dtype)
+            v = layers.cast(v, self.dtype)
+        self.shapes.append(tuple(k.shape or ()))
+        super().append((k, v))
+
+
+def causal_self_attention(x, cfg: GPTConfig, name, is_test=False,
+                          kv_sink=None):
+    """Q, K, V projections, causal attention over [B, n, S, d] heads
+    (flash attention, K1-K3, or the composed matmul / masked softmax /
+    matmul chain that ``fuse_attention`` rewrites to it), the output
+    projection."""
+    h, n = cfg.hidden_size, cfg.num_heads
+    d = h // n
+    q = _fc(x, h, name + "_query_fc", init_std=cfg.initializer_range)
+    k = _fc(x, h, name + "_key_fc", init_std=cfg.initializer_range)
+    v = _fc(x, h, name + "_value_fc", init_std=cfg.initializer_range)
+
+    def to_heads(t):
+        r = layers.reshape(t, shape=[0, 0, n, d])
+        return layers.transpose(r, perm=[0, 2, 1, 3])  # [B, n, S, d]
+
+    q, k, v = to_heads(q), to_heads(k), to_heads(v)
+    if kv_sink is not None:
+        kv_sink.append((k, v))
+    if cfg.use_flash_attention:
+        ctx = layers.flash_attention(q, k, v, causal=True,
+                                     sm_scale=float(d) ** -0.5)
+    else:
+        scores = layers.matmul(q, k, transpose_y=True,
+                               alpha=float(d) ** -0.5)
+        probs = layers.softmax_mask_fuse_upper_triangle(scores)
+        ctx = layers.matmul(probs, v)
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[0, 0, h])
+    return _fc(ctx, h, name + "_output_fc", init_std=cfg.initializer_range)
+
+
+def decoder_layer(x, cfg: GPTConfig, name, is_test=False, kv_sink=None):
+    """A pre-LN block (GPT-2): x + attn(ln(x)), then x + ffn(ln(x)),
+    each branch through hidden dropout in training."""
+    attn = causal_self_attention(_ln(x, name + "_ln_attn"), cfg,
+                                 name + "_att", is_test=is_test,
+                                 kv_sink=kv_sink)
+    if cfg.hidden_dropout and not is_test:
+        attn = layers.dropout(attn, dropout_prob=cfg.hidden_dropout,
+                              is_test=is_test,
+                              dropout_implementation="upscale_in_train")
+    x = layers.elementwise_add(x, attn)
+    ffn = _fc(_ln(x, name + "_ln_ffn"), cfg.intermediate_size,
+              name + "_ffn_fc_0", act="gelu",
+              init_std=cfg.initializer_range)
+    ffn = _fc(ffn, cfg.hidden_size, name + "_ffn_fc_1",
+              init_std=cfg.initializer_range)
+    if cfg.hidden_dropout and not is_test:
+        ffn = layers.dropout(ffn, dropout_prob=cfg.hidden_dropout,
+                             is_test=is_test,
+                             dropout_implementation="upscale_in_train")
+    return layers.elementwise_add(x, ffn)
+
+
+def gpt_decoder(ids, pos_ids, cfg: GPTConfig, is_test=False, kv_sink=None,
+                final_ln=True):
+    """Word and position embeddings, then ``num_layers`` blocks (and the
+    final LN): [B, S, H]."""
+    emb = layers.embedding(
+        ids, size=[cfg.vocab_size, cfg.hidden_size],
+        param_attr=ParamAttr(name="gpt_word_embedding",
+                             initializer=Normal(0.0, cfg.initializer_range)))
+    pos = layers.embedding(
+        pos_ids, size=[cfg.max_position, cfg.hidden_size],
+        param_attr=ParamAttr(name="gpt_pos_embedding",
+                             initializer=Normal(0.0, cfg.initializer_range)))
+    x = layers.elementwise_add(emb, pos)
+    if cfg.hidden_dropout and not is_test:
+        x = layers.dropout(x, dropout_prob=cfg.hidden_dropout,
+                           is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+    for i in range(cfg.num_layers):
+        x = decoder_layer(x, cfg, f"decoder_layer_{i}", is_test=is_test,
+                          kv_sink=kv_sink)
+    return _ln(x, "gpt_final_ln") if final_ln else x
+
+
+def build_gpt_lm(cfg: GPTConfig = None, is_test=False):
+    """The causal-LM training program: feeds gpt_ids, gpt_pos_ids and
+    gpt_labels (the next tokens), [B, S] int64; the mean softmax cross
+    entropy of the weight-tied logits [B·S, V].  The word embedding has
+    two grads, the lookup's and the head's, which the backward sums.
+    Returns (feed_names, loss)."""
+    cfg = cfg or GPTConfig()
+    ids = fluid.data("gpt_ids", [-1, -1], False, dtype="int64")
+    pos_ids = fluid.data("gpt_pos_ids", [-1, -1], False, dtype="int64")
+    labels = fluid.data("gpt_labels", [-1, -1], False, dtype="int64")
+    h = gpt_decoder(ids, pos_ids, cfg, is_test=is_test)
+    logits = _lm_logits(h, cfg)
+    lbl = layers.reshape(labels, shape=[-1, 1])
+    loss = layers.mean(layers.softmax_with_cross_entropy(logits, lbl))
+    return ["gpt_ids", "gpt_pos_ids", "gpt_labels"], loss
+
+
+def make_fake_lm_batch(cfg: GPTConfig, batch, seq_len, seed=0):
+    """A learnable next-token task: token t+1 = (3·token t + 7) mod V,
+    from a seeded first token a row."""
+    rng = np.random.RandomState(seed)
+    seq = [rng.randint(0, cfg.vocab_size, (batch, 1))]
+    for _ in range(seq_len):
+        seq.append((seq[-1] * 3 + 7) % cfg.vocab_size)
+    toks = np.concatenate(seq, axis=1).astype("int64")
+    return {
+        "gpt_ids": toks[:, :seq_len],
+        "gpt_pos_ids": np.tile(np.arange(seq_len, dtype="int64"),
+                               (batch, 1)),
+        "gpt_labels": toks[:, 1:seq_len + 1],
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -16,15 +16,32 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.fluid.registry import simple_op, wanted_grads
+from paddle_tpu_torch.fluid.registry import (register_op, simple_op,
+                                             wanted_grads)
 from paddle_tpu_torch.kernels.fused_bias_act import gelu_reference
 
 from .common import bcast_to, flatten_to_2d, rounded
 
 
-@simple_op("elementwise_add", ["X", "Y"], ["Out"])
-def _elementwise_add(ctx, x, y, attrs):
-    return x + bcast_to(y, x, attrs.get("axis", -1))
+def _ew(name, fn):
+    """An elementwise binary op: Y broadcast against X by the Fluid
+    ``axis`` rule (ops/common.py ``bcast_to``); its grad is derived."""
+
+    def lower(ctx, x, y, attrs):
+        return fn(x, bcast_to(y, x, attrs.get("axis", -1)))
+
+    register_op(name, ["X", "Y"], ["Out"], lower)
+
+
+_ew("elementwise_add", torch.add)
+_ew("elementwise_sub", torch.sub)
+_ew("elementwise_mul", torch.mul)
+_ew("elementwise_div", torch.true_divide)
+_ew("elementwise_max", torch.maximum)
+_ew("elementwise_min", torch.minimum)
+_ew("elementwise_pow", torch.pow)
+_ew("elementwise_mod", torch.remainder)         # the divisor's sign
+_ew("elementwise_floordiv", torch.floor_divide)  # rounds toward -inf
 
 
 def _product(a, b, mm=torch.matmul):
@@ -163,6 +180,11 @@ def _tanh(ctx, x, attrs):
     return torch.tanh(x)
 
 
+@simple_op("sqrt", ["X"], ["Out"])
+def _sqrt(ctx, x, attrs):
+    return torch.sqrt(x)
+
+
 @simple_op("relu", ["X"], ["Out"])
 def _relu(ctx, x, attrs):
     return torch.relu(x)
@@ -253,3 +275,45 @@ def _reduce_mean(ctx, x, attrs):
         dims = tuple(d % x.dim() for d in (dims if isinstance(
             dims, (list, tuple)) else [dims]))
     return x.mean(dim=dims, keepdim=attrs.get("keep_dim", False))
+
+
+def _sum_of_squares(x):
+    """sum(x²) in the dtype of ``x``: the squares rounded to it, summed
+    in fp32 (``jnp.sum`` upcasts a bf16 reduction) and rounded back."""
+    return torch.square(x).float().sum().to(x.dtype)
+
+
+@simple_op("squared_l2_norm", ["X"], ["Out"])
+def _squared_l2_norm(ctx, x, attrs):
+    """sum(x²) as a [1] tensor (the global-norm clip sums these)."""
+    return _sum_of_squares(x).reshape(1)
+
+
+@simple_op("clip", ["X", "Min", "Max"], ["Out"], optional=("Min", "Max"),
+           no_grad_inputs=("Min", "Max"))
+def _clip(ctx, x, mn, mx, attrs):
+    """max(x, min) then min(·, max), the bounds the ``Min``/``Max``
+    tensors where given, else the attrs (no bound: ±inf).  A tensor
+    bound promotes as ``jnp.clip`` does and splits the grad at a tie."""
+    if mn is None and mx is None:
+        return torch.clamp(x, attrs.get("min", float("-inf")),
+                           attrs.get("max", float("inf")))
+    if mn is None:
+        x = torch.clamp_min(x, attrs.get("min", float("-inf")))
+    else:
+        x = torch.maximum(mn, x)
+    if mx is None:
+        return torch.clamp_max(x, attrs.get("max", float("inf")))
+    return torch.minimum(mx, x)
+
+
+@simple_op("clip_by_norm", ["X"], ["Out"])
+def _clip_by_norm(ctx, x, attrs):
+    """x scaled to norm ``max_norm`` where its L2 norm exceeds it."""
+    mn = rounded(attrs.get("max_norm", 1.0), x.dtype)
+    norm = torch.sqrt(_sum_of_squares(x))
+    # a true division (a Python number over a tensor would multiply by
+    # the tensor's reciprocal)
+    scaled = x * (torch.full_like(norm, mn)
+                  / torch.clamp_min(norm, rounded(1e-12, x.dtype)))
+    return torch.where(norm > mn, scaled, x)

@@ -177,6 +177,11 @@ def _slice(ctx, x, attrs):
     return out
 
 
+@simple_op("sign", ["X"], ["Out"], grad=None)
+def _sign(ctx, x, attrs):
+    return torch.sign(x)
+
+
 @simple_op("top_k", ["X", "K"], ["Out", "Indices"], grad=None,
            optional=("K",))
 def _top_k(ctx, x, k_t, attrs):

@@ -260,6 +260,7 @@ def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
     (torch.bfloat16, 2, 3, 200, 64, False, False),  # a ragged last tile
     (torch.bfloat16, 2, 3, 200, 64, True, True),
     (torch.bfloat16, 2, 3, 256, 64, True, True),    # 4 key tiles (K2)
+    (torch.bfloat16, 8, 12, 1024, 64, True, True),  # GPT-2 small's causal
     (torch.bfloat16, 2, 3, 96, 32, False, True),    # D < 64, zero-padded
     (torch.bfloat16, 2, 3, 77, 16, True, False),
     (torch.bfloat16, 2, 3, 77, 12, True, True),     # 24-byte rows: scalar
@@ -1209,6 +1210,46 @@ def test_new_feed_shape_captures_a_new_graph(dev):
     assert sorted(s.graph.feeds[0]["x"].shape[0] for s in sigs) == [4, 8]
 
 
+def test_ema_apply_around_captured_eval_restores_trained_params(dev):
+    """An eval program captured on the raw weights, replayed inside
+    ``ExponentialMovingAverage.apply()``, reads the averages (its loss
+    equals an eager run's on them), and leaving the context gives the
+    scope back the trained parameters, not the averages."""
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[64], dtype="float32")
+        h = fluid.layers.fc(x, size=64, act="tanh")
+        loss = fluid.layers.mean(fluid.layers.fc(h, size=8))
+        test = main.clone(for_test=True)
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        ema = fluid.optimizer.ExponentialMovingAverage(0.5)
+        ema.update()
+    feed = {"x": np.random.RandomState(0).randn(8, 64).astype(np.float32)}
+    scope = fluid.Scope()
+    exe = _executor(True)
+    exe.run(startup, scope=scope)
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    names = [p.name for p in main.all_parameters()]
+    trained = {n: scope.get(n).clone() for n in names}
+    (raw,) = exe.run(test, feed=feed, fetch_list=[loss], scope=scope)
+    with fluid.scope_guard(scope):
+        with ema.apply(exe):
+            (avg,) = exe.run(test, feed=feed, fetch_list=[loss],
+                             scope=scope)
+            (eager,) = _executor(False).run(
+                test, feed=feed, fetch_list=[loss], scope=_clone_scope(scope))
+    assert not np.array_equal(avg, raw)
+    np.testing.assert_array_equal(avg, eager)
+    for n in names:
+        assert torch.equal(scope.get(n), trained[n]), n
+    (again,) = exe.run(test, feed=feed, fetch_list=[loss], scope=scope)
+    np.testing.assert_array_equal(again, raw)
+
+
 def test_run_steps_on_card_equals_run_calls(dev):
     """run_steps(5) on the card (the signature's graph replayed) equals
     five captured run() calls: the last loss and every persistable."""
@@ -1655,3 +1696,56 @@ def test_int8_weight_decode_on_card_matches_cpu(dev):
             assert after[k] - card[k] == (
                 0 if key == "cpu" else cfg.num_layers * runs), (key, k)
     assert outs["captured"] == outs["eager"] == outs["cpu"]
+
+
+def test_gpt_two_layer_step_on_card_matches_cpu(dev):
+    """GPT-tiny (2 layers, dropout 0), fp32, AdamW with the global-norm
+    clip, 3 steps on the card (captured) and on the CPU from the same
+    parameters: losses and the clip's global norms within 1e-4; the
+    card launches K1 4, K2 2, K3 2 and K4 2 a step (causal flash, the
+    derived grad's recompute, no MLM head)."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.tiny(num_layers=2, hidden_dropout=0.0)
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, loss = gpt.build_gpt_lm(cfg)
+            fluid.optimizer.AdamW(
+                1e-3, beta2=0.95, weight_decay=0.1,
+                grad_clip=fluid.clip.GradientClipByGlobalNorm(0.5)).minimize(
+                    loss)
+        startup.random_seed = 5
+        (gnorm,) = [op.outputs["Out"][0] for op in main.global_block().ops
+                    if op.type == "sqrt"]
+        return main, startup, loss, gnorm
+
+    feed = gpt.make_fake_lm_batch(cfg, 4, 64, seed=1)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_bias_act")
+    out, init = {}, None
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        main, startup, loss, gnorm = build()
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {p.name: scope.get(p.name).cpu().numpy()
+                    for p in main.all_parameters()}
+        else:
+            convert.load_params(scope, init, place, program=main)
+        rows = []
+        on_card = isinstance(place, fluid.CUDAPlace)
+        for _ in range(3):
+            card = _on_card() if on_card else None
+            lv, nv = exe.run(main, feed=feed, fetch_list=[loss, gnorm],
+                             scope=scope)
+            if on_card:
+                got = _on_card()
+                assert {n: got[n] - card[n] for n in names} == dict(
+                    zip(names, (4, 2, 2, 2)))
+            rows.append((float(lv), float(np.asarray(nv).reshape(()))))
+        out[type(place).__name__] = np.asarray(rows)
+    np.testing.assert_allclose(out["CUDAPlace"], out["CPUPlace"], rtol=1e-4)
+    assert np.isfinite(out["CUDAPlace"]).all()

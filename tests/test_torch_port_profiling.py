@@ -5,10 +5,12 @@ JAX package's functions on the same inputs: the phase recorder,
 ``roofline`` verdicts, ``device_peaks`` (flag overrides, the CPU
 placeholder row, the H100 row chosen from the device name) and
 ``events.emit`` / ``read_events``.  Mirrors tests/test_profiling.py's
-recorder, EMA and MFU cases.  Times are compared within 5 ms: each
-package times its own sleeps."""
+recorder, EMA and MFU cases.  The recorder test drives both packages
+from one stub clock, so their moving averages compare exactly, and
+books its phases on a lane of its own, which no executor uses."""
 
 import time
+import types
 
 import pytest
 
@@ -55,23 +57,45 @@ def _phase_keys(before, snap, lane):
             if k[1] == lane and n > before.get(k, 0)}
 
 
-def test_recorder_deposits_phases_and_total(attribution):
+class _StubClock:
+    """``time`` as a profiling module sees it, with ``perf_counter``
+    read from a clock that only ``sleep`` advances."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+    def sleep(self, seconds):
+        self.now += seconds
+
+
+# a lane no executor books, so a run on another thread of the worker
+# adds no (phase, lane) key to the test's
+_TEST_LANE = "recorder_test"
+
+
+def test_recorder_deposits_phases_and_total(attribution, monkeypatch):
     got = {}
     for k, (_, prof, snap) in PKGS.items():
+        clock = _StubClock()
+        monkeypatch.setattr(prof, "time", types.SimpleNamespace(
+            perf_counter=clock.perf_counter, time=time.time))
         before = _counts(snap)
-        with prof.step_phases("single", "sig-a") as ph:
+        with prof.step_phases(_TEST_LANE, "sig-a") as ph:
             with ph.phase("feed_prep"):
-                time.sleep(0.01)
+                clock.sleep(0.01)
             with ph.phase("dispatch"):
-                time.sleep(0.005)
-        prof.note_step("single", first_run=False)
+                clock.sleep(0.005)
+        prof.note_step(_TEST_LANE, first_run=False)
         s = prof.signature_stats()["sig-a"]
         got[k] = (s["lane"], s["steps"], s["ema_step_s"],
-                  _phase_keys(before, snap, "single"))
+                  _phase_keys(before, snap, _TEST_LANE))
     (jl, jn, jema, jkeys), (tl, tn, tema, tkeys) = got["jax"], got["torch"]
-    assert (tl, tn) == (jl, jn) == ("single", 1)
-    assert tema >= 0.015 and tema == pytest.approx(jema, abs=5e-3)
-    assert {("feed_prep", "single"), ("dispatch", "single")} <= tkeys
+    assert (tl, tn) == (jl, jn) == (_TEST_LANE, 1)
+    assert tema >= 0.015 and tema == jema
+    assert {("feed_prep", _TEST_LANE), ("dispatch", _TEST_LANE)} <= tkeys
     assert tkeys == jkeys
 
 
