@@ -27,7 +27,10 @@ Phases, each fatal on failure:
      against split.  K4 also at a dp shard's FFN shape, the MLM
      head's and GPT-2 small's FFN [8192, 3072].  K6 at the Engine path's S 128 and the bucketed arm's S 32
      and 64 (timed, with SDPA beside it), then at D 96 and 128, bf16 at
-     D 32 and 64, S 1 and S 1024.  K8's group
+     D 32 and 64, S 1 and S 1024.  The fp32 K1 (the SIMT kernel) at
+     the predictor path's b8 s128, 12 heads, D 64, timed against its
+     bound, SDPA in fp32 and the composed matmul / softmax / matmul.
+     K8's group
      form over the dp lane's real segment list (BERT-base's 206
      parameters x 4 replicas), held against the plain version member by
      member and timed against the same segments as single launches, its
@@ -160,6 +163,36 @@ Phases, each fatal on failure:
      1e-4; Adam's family phase 5's parameter rule, the others each
      parameter's change within 1e-3 of its norm (leaves at the
      gradient's rounding floor printed only); the worst leaf of each.
+ 19. the serving fleet: two DecodeEngine replicas of phase 6's GPTConfig()
+     (pool_slots 8, page 16, max_len 1024; replica 1's scope filled from
+     replica 0's arrays; both warmed up, both programs captured, before
+     either starts) and a ragged Engine over phase 10's scorer, behind
+     one serving.Router and a serving.Frontend on 127.0.0.1 (the OS's
+     port).  (1) Phase 6's 16 requests as POST /v1/generate from 4
+     client threads: every stream equal to a one-replica generate; a
+     model the Engine has not run, loaded then, answers one /v1/infer
+     while the decode traffic replays (its graph captured beside the
+     live replicas) with the warm model's scores; the HTTP p50 / p99 a
+     request (reqtrace), tokens/s through the frontend against the
+     one-replica direct generate, and one lone request direct and over
+     HTTP.  (2) The failover drill (serving/drill.py) through the
+     frontend: replica_kill:replica0 a few decode steps into a loaded
+     run; every stream token-exact, failovers and recovery seconds
+     booked, no executor-cache miss, the availability SLO's page alert
+     fired and cleared, and a failed-over request's trace holds its
+     root, serve:replica0 in error and serve:replica1 ok.  (3) The
+     hedge drill: two Engines of a small MLP, one slow; the hedge wins
+     and every loser is cancelled.  (4) Phase 10's waves as POST
+     /v1/infer: scores bit-equal to a direct Engine submit of the same
+     feeds.  (5) /healthz, /routerz (the frontend), /servez, /metricsz
+     and /tracez (an exposition server) answer 200 with the JAX
+     package's top-level keys.  (6) SIGTERM lands in a child process
+     (one replica behind a Frontend with install_drain) mid-request:
+     the client gets its complete tokens, equal to the child's
+     one-replica generate, /healthz answers 503 while draining, and the
+     child exits 0 or by SIGTERM.  (7) On the card, K4 and K5 launch
+     exactly 12 x the program runs of both replicas (warmups
+     included), K6 4 x the Engine's batches, K7 never.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -168,8 +201,9 @@ phase's line carries the seconds since the previous one (``phase_s``).
 ``python3 chip_smoke.py --only k4,k6,k6_contract`` runs phases 1-3 for
 the named kernels alone (a quick check of a kernel change; see ONLY);
 ``--only engine`` adds phases 10-11, ``--only passes,predictor,int8w``
-phases 14, 15 and 16, and ``--only gpt`` phase 3's K1-K4 checks and
-phases 17-18.
+phases 14, 15 and 16 (``predictor`` with phase 3's fp32 K1 at its
+shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18, and
+``--only fleet`` phase 19.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -190,6 +224,7 @@ import contextlib
 import difflib
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1176,6 +1211,55 @@ def check_flash(dev, rng):
                             "flash_bwd_dq and flash_bwd_dkv each against "
                             "SDPA's whole backward")
     return worst, timings
+
+
+def check_flash_fp32_predictor(dev, rng):
+    """K1 in fp32 (the SIMT kernel of csrc/flash_attention.cu) at the
+    predictor path's shape, b8 s128, 12 heads, D 64 ([96, 128, 64] fp32,
+    a key bias with pads): held against its plain version, and timed
+    against its bound (fp32 products at the SIMT rate), SDPA in fp32 with
+    the same float mask, and the composed matmul / softmax / matmul that
+    the passes-off predictor runs.  Measurement only."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.primitives import flash
+
+    b, h, s, d = 8, 12, 128, 64
+    q, k, v, _, rows = _flash_inputs(dev, b, h, s, d, torch.float32, rng)
+    scale = d ** -0.5
+    mask = rows.reshape(b, h, 1, s)
+
+    def composed():
+        p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale
+                          + mask, dim=-1)
+        return torch.matmul(p, v)
+
+    o, lse = flash.flash_fwd(q, k, v, rows, False, scale)
+    o_ref, lse_ref = flash.flash_fwd(q, k, v, rows, False, scale,
+                                     force="reference")
+    tol = FLASH_TOL[torch.float32]
+    err = 0.0
+    for got, want in ((o, o_ref), (lse, lse_ref), (o, composed())):
+        e = (got - want).abs().max().item()
+        if not torch.allclose(got, want, **tol):
+            raise AssertionError(f"flash_fwd fp32 predictor shape: max abs "
+                                 f"err {e} outside {tol}")
+        err = max(err, e)
+    bh, elem = b * h, 4
+    mat, row = elem * bh * s * d, 4 * bh * s
+    bound_ms, bound_by = _bound(3 * mat + row + mat + row,
+                                2 * 2 * bh * s * s * d, FP32_FLOPS)
+    return err, dict(
+        shape=[bh, s, d], dtype="float32",
+        ms=_time_ms(lambda: flash.flash_fwd(q, k, v, rows, False, scale),
+                    30),
+        plain_ms=_time_ms(lambda: flash.flash_fwd(
+            q, k, v, rows, False, scale, force="reference"), 10),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), 20),
+        composed_ms=_time_ms(composed, 20),
+        max_abs_err=err)
 
 
 K8_BLOCK = 256
@@ -3728,31 +3812,452 @@ def run_gpt_parity():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the serving fleet
+# ---------------------------------------------------------------------------
+
+FLEET_CLIENTS = 4          # client threads posting /v1/generate
+FLEET_NEW_TOKENS = 32      # phase 6's budget a request
+FLEET_KILL_AFTER = 4       # decode steps of the loaded failover run
+FLEET_HEDGE_REQUESTS = 12
+FLEET_CHILD_PROMPT = 512   # the SIGTERM child's one request
+FLEET_CHILD_NEW = 200
+FLEET_CHILD_KILL_AT = 16   # decode steps of it before the SIGTERM
+# the reference's top-level keys of each page
+FLEET_PAGE_KEYS = {
+    "/healthz": ["draining", "frontend", "ok"],
+    "/routerz": ["failovers", "hedge_ms", "hedges", "replicas", "retries",
+                 "retry_times", "router"],
+    "/servez": ["decode", "engines", "reqtrace"],
+}
+
+# The SIGTERM drill in a child process (the counterpart of the JAX
+# package's test_frontend_sigterm_drain_completes_inflight_subprocess):
+# one replica of phase 6's weights behind a Frontend with install_drain;
+# SIGTERM lands once FLEET_CHILD_KILL_AT decode steps of the one request
+# ran.  The child prints its one-replica baseline, the HTTP response,
+# and /healthz as polled after the signal.
+_FLEET_CHILD = r"""
+import json, os, signal, threading, time, urllib.error, urllib.request
+import numpy as np
+import chip_smoke as cs
+from paddle_tpu_torch import fluid, serving
+from paddle_tpu_torch.models import gpt
+
+place = cs._gpu_place()
+cfg = cs._model_config()
+plen, new = cs.FLEET_CHILD_PROMPT, cs.FLEET_CHILD_NEW
+main, startup = fluid.Program(), fluid.Program()
+with fluid.program_guard(main, startup), fluid.unique_name.guard():
+    gpt.build_gpt_decode_step(cfg, 8, 513, 16, 64)
+startup.random_seed = cs.SEED
+scope = fluid.Scope()
+fluid.Executor(place).run(startup, scope=scope)
+eng = serving.DecodeEngine(cfg, scope=scope, place=place, pool_slots=8,
+                           page_size=16, max_len=1024, auto_start=False,
+                           name="child")
+eng.warmup()
+eng.start()
+prompt = np.random.RandomState(cs.SEED + 7).randint(
+    1, cfg.vocab_size, plen).tolist()
+base = eng.generate([prompt], new, timeout=600)[0]
+fe = serving.Frontend(eng)
+fe.install_drain(timeout=300, poll_s=0.02)
+url = f"http://{fe.host}:{fe.port}"
+out = {"baseline": base}
+
+
+def client():
+    req = urllib.request.Request(
+        url + "/v1/generate",
+        data=json.dumps({"prompt": prompt, "max_new_tokens": new}).encode())
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        out["status"] = resp.status
+        out["tokens"] = json.loads(resp.read())["tokens"]
+
+
+t = threading.Thread(target=client)
+steps0 = eng.stats()["steps"]
+t.start()
+at = steps0 + cs.FLEET_CHILD_KILL_AT
+while eng.stats()["steps"] < at and t.is_alive():
+    time.sleep(0.0005)
+out["steps_at_signal"] = eng.stats()["steps"] - steps0
+os.kill(os.getpid(), signal.SIGTERM)
+health = []
+deadline = time.monotonic() + 60
+while time.monotonic() < deadline:
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=5) as r:
+            health.append(r.status)
+    except urllib.error.HTTPError as e:
+        health.append(e.code)
+        if e.code == 503:
+            break
+    except OSError:
+        health.append("closed")
+        break
+    time.sleep(0.002)
+t.join(timeout=600)
+out["healthz"] = health
+out["steps_total"] = eng.stats()["steps"] - steps0
+out["engine_draining"] = eng.stats()["draining"]
+out["device"] = str(place.torch_device())
+eng.close()
+print("FLEET_CHILD " + json.dumps(out), flush=True)
+"""
+
+
+def _http(url, payload=None, timeout=600):
+    """(status, body) of a GET (``payload`` None) or a JSON POST; the
+    body parsed as JSON where it is JSON, else text."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+    try:
+        return code, json.loads(raw)
+    except ValueError:
+        return code, raw.decode()
+
+
+def _generate_quantiles(reqtrace, n):
+    """``reqtrace.request_quantiles``' latency / TTFT / TPOT p50 and p99
+    over the completed traces whose root is ``generate`` (the ring also
+    holds the /v1/infer request sent beside them), by its nearest-rank
+    rule; there must be ``n``."""
+    traces = [t for t in reqtrace.completed()
+              if t["name"] == "generate" and t["status"] == "ok"]
+    if len(traces) != n:
+        raise AssertionError(f"fleet: {len(traces)} completed generate "
+                             f"traces, expected {n}")
+    out = {"count": len(traces)}
+    for key in ("latency_s", "ttft_s", "tpot_s"):
+        vs = sorted(t[key] for t in traces if t[key] is not None)
+        out[key] = {f"p{int(q * 100)}": vs[min(int(q * (len(vs) - 1)
+                                                   + 0.5), len(vs) - 1)]
+                    for q in (0.5, 0.99)} if vs else None
+    return out
+
+
+def run_fleet_child():
+    """Step 6 of phase 19: the SIGTERM drill in a child process."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _FLEET_CHILD], cwd=here,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("FLEET_CHILD ")]
+    if not lines:
+        raise AssertionError(f"fleet SIGTERM child rc={proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    got = json.loads(lines[-1][len("FLEET_CHILD "):])
+    tokens, base = got.pop("tokens", None), got.pop("baseline")
+    got.update(returncode=proc.returncode, seconds=time.perf_counter() - t0,
+               tokens_equal_baseline=tokens == base,
+               tokens=len(tokens or ()))
+    if not (got.get("status") == 200 and tokens == base
+            and 503 in got["healthz"] and got["engine_draining"]
+            and 0 < got["steps_at_signal"] < got["steps_total"]
+            and got["device"].startswith("cuda")
+            and proc.returncode in (0, -signal.SIGTERM)):
+        raise AssertionError(f"fleet SIGTERM child: {got}")
+    return got
+
+
+def run_fleet_path(counters):
+    """Phase 19 (see the module docstring): two DecodeEngine replicas of
+    GPTConfig() and the ragged Engine behind a Router and a Frontend on
+    127.0.0.1, driven over HTTP.  ``counters``: the wrappers of K4, K5,
+    K6 and K7, set to 0 before the fleet is built and read after it is
+    closed.  Returns the phase's readings; every step is gated."""
+    import concurrent.futures as cf
+    import tempfile
+
+    from paddle_tpu_torch import fluid, serving
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.observability import exposition, reqtrace
+    from paddle_tpu_torch.serving import drill
+
+    t_phase = time.perf_counter()
+    place = _gpu_place()
+    cfg = _model_config()
+    out = {}
+    for w in counters.values():
+        w.launches = 0
+    before = _snap()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 8, 513, 16, 64)
+    startup.random_seed = SEED
+    scope0 = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope0)
+    scope1 = fluid.Scope()  # replica 1's: replica 0's arrays, copied
+    for p in main.all_parameters():
+        scope1.set(p.name, scope0.get(p.name).clone())
+    reps = [serving.DecodeEngine(
+        cfg, scope=s, place=place, pool_slots=8, page_size=16,
+        max_len=min(1024, cfg.max_position), auto_start=False,
+        name=f"replica{i}", max_queue=64, drain_on_sigterm=False)
+        for i, s in enumerate((scope0, scope1))]
+    for r in reps:  # both programs of both captured before either starts
+        r.warmup()
+    for r in reps:
+        r.start()
+    r0, r1 = reps
+    tmp = tempfile.TemporaryDirectory(prefix="pt_fleet_model_")
+    fetch = save_ragged_model(tmp.name)
+    eng = serving.Engine(batch_buckets=[RAGGED_BATCH],
+                         seq_buckets=RAGGED_SEQ_BUCKETS, max_wait_ms=5,
+                         auto_start=False, name="fleet_engine", place=place)
+    eng.load_model("scorer", tmp.name, ragged=True)
+    eng.warmup()
+    eng.start()
+    router = serving.Router([r0, r1, eng], name="fleet", hedge_ms=0,
+                            probe_interval_ms=20)
+    fe = serving.Frontend(router)
+    pages = exposition.MetricsServer(port=0)
+    base = f"http://{fe.host}:{fe.port}"
+    pool = cf.ThreadPoolExecutor(FLEET_CLIENTS)
+    wave_pool = cf.ThreadPoolExecutor(RAGGED_BATCH)
+
+    def http_generate(prompt, n):
+        """A Future of one /v1/generate's tokens (raises on non-200)."""
+        def call():
+            code, body = _http(f"{base}/v1/generate",
+                               {"prompt": prompt, "max_new_tokens": n})
+            if code != 200:
+                raise AssertionError(f"/v1/generate {code}: {body}")
+            return body["tokens"]
+        return pool.submit(call)
+
+    def http_infer(model, feed):
+        def call():
+            code, body = _http(f"{base}/v1/infer", {
+                "model": model,
+                "feed": {k: v.tolist() for k, v in feed.items()}})
+            if code != 200:
+                raise AssertionError(f"/v1/infer {code}: {body}")
+            return np.asarray(body["outputs"][fetch], np.float32)
+        return wave_pool.submit(call)
+
+    try:
+        # step 1: phase 6's 16 requests over HTTP from 4 client threads,
+        # against a one-replica generate of the same prompts
+        lens, prompts = _lane_workload(cfg)
+        t0 = time.perf_counter()
+        baseline = r0.generate(prompts, FLEET_NEW_TOKENS, timeout=900)
+        direct_s = time.perf_counter() - t0
+        reqtrace.reset()
+        waves = ragged_waves(1 + RAGGED_WAVES)
+        # a model the Engine has not run yet, loaded now: its first
+        # request captures its graph while decode traffic replays
+        eng.load_model("scorer_cold", tmp.name, ragged=True)
+        steps0 = r0.stats()["steps"] + r1.stats()["steps"]
+        t0 = time.perf_counter()
+        futs = [http_generate(p, FLEET_NEW_TOKENS) for p in prompts]
+        while (r0.stats()["steps"] + r1.stats()["steps"] < steps0 + 8
+               and not all(f.done() for f in futs)):
+            time.sleep(0.001)
+        live = r0.load() + r1.load()
+        if live == 0:
+            raise AssertionError("fleet: no decode sequence was live when "
+                                 "the cold model's request was sent")
+        cold = http_infer("scorer_cold", waves[0][0])
+        outs = [f.result(timeout=900) for f in futs]
+        http_s = time.perf_counter() - t0
+        cold_scores = cold.result(timeout=300)
+        warm_scores = eng.infer("scorer", waves[0][0], timeout=300)[fetch]
+        quant = _generate_quantiles(reqtrace, len(prompts))
+        if outs != baseline:
+            raise AssertionError("fleet: HTTP streams differ from the "
+                                 "one-replica baseline at requests "
+                                 f"{[i for i, (a, b) in enumerate(zip(outs, baseline)) if a != b]}")
+        if not np.array_equal(cold_scores, warm_scores):
+            raise AssertionError("fleet: the lazily captured model's scores "
+                                 "differ from the warm model's")
+        gen = sum(len(o) for o in outs)
+        # the HTTP path's own cost: one request alone, direct and over
+        # HTTP, on the same replica (the router's least-loaded pick)
+        t0 = time.perf_counter()
+        alone = r1.submit(prompts[0], FLEET_NEW_TOKENS).result(timeout=300)
+        alone_direct = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone_http = http_generate(prompts[0], FLEET_NEW_TOKENS).result(300)
+        alone_http_s = time.perf_counter() - t0
+        if alone != baseline[0] or alone_http != baseline[0]:
+            raise AssertionError("fleet: a lone request differs from the "
+                                 "baseline")
+        out["generate"] = dict(
+            requests=len(prompts), prompt_tokens=int(sum(lens)),
+            generated_tokens=gen, wall_s=http_s,
+            tokens_per_s_http=gen / http_s,
+            tokens_per_s_one_replica_direct=gen / direct_s,
+            request_quantiles=quant, token_equal_baseline=True,
+            lone_request_s={"direct": alone_direct, "http": alone_http_s},
+            http_added_ms_per_token=1e3 * (alone_http_s - alone_direct)
+            / FLEET_NEW_TOKENS,
+            cold_capture_beside_live_decode=dict(
+                live_sequences=live, scores_equal_warm_model=True))
+
+        # step 2: the failover drill through the frontend
+        fail = drill.failover_drill(
+            engines=[r0, r1], prompts=prompts,
+            max_new_tokens=FLEET_NEW_TOKENS, kill_after=FLEET_KILL_AFTER,
+            baseline=baseline, router=router, submit=http_generate,
+            timeout_s=900)
+        trace = fail["failed_over_trace"]
+        if not fail["ok"] or trace["root"] != "generate":
+            raise AssertionError(f"fleet failover drill: {fail}")
+        # the printed trace: its spans but the decode-step batch spans,
+        # which are counted
+        trace["batch_spans"] = sum(k == "batch" for k, _, _ in
+                                   trace["spans"])
+        trace["spans"] = [sp for sp in trace["spans"] if sp[0] != "batch"]
+        out["failover"] = fail
+
+        # step 3: the hedge drill (two Engines of a small MLP, one slow)
+        hedge = drill.hedge_drill(n_requests=FLEET_HEDGE_REQUESTS,
+                                  place=place)
+        if not hedge["ok"]:
+            raise AssertionError(f"fleet hedge drill: {hedge}")
+        out["hedge"] = hedge
+
+        # step 4: phase 10's waves over /v1/infer against a direct infer
+        def direct_wave(feeds):
+            fs = [eng.submit("scorer", f) for f in feeds]
+            return [f.result(timeout=300)[fetch] for f in fs]
+
+        t0 = time.perf_counter()
+        http_scores = [[f.result(timeout=300) for f in
+                        [http_infer("scorer", fd) for fd in feeds]]
+                       for feeds in waves]
+        infer_s = time.perf_counter() - t0
+        direct_scores = [direct_wave(feeds) for feeds in waves]
+        same = all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for hw, dw in zip(http_scores, direct_scores)
+                   for a, b in zip(hw, dw))
+        if not same or not np.isfinite(np.concatenate(
+                [np.ravel(a) for w in http_scores for a in w])).all():
+            raise AssertionError("fleet: /v1/infer scores differ from a "
+                                 "direct Engine.infer")
+        out["infer"] = dict(waves=len(waves),
+                            requests=sum(len(w) for w in waves),
+                            wall_s=infer_s, scores_bit_equal=True)
+
+        # step 5: the pages
+        got = {}
+        for path, url in (("/healthz", base), ("/routerz", base),
+                          ("/servez", f"http://127.0.0.1:{pages.port}"),
+                          ("/metricsz", f"http://127.0.0.1:{pages.port}"),
+                          ("/tracez", f"http://127.0.0.1:{pages.port}")):
+            code, body = _http(url + path)
+            if code != 200:
+                raise AssertionError(f"fleet: {path} answered {code}")
+            got[path] = body
+        for path, keys in FLEET_PAGE_KEYS.items():
+            if sorted(got[path]) != keys:
+                raise AssertionError(f"fleet: {path} keys {sorted(got[path])}")
+        fams = exposition.parse_text(got["/metricsz"])
+        need = ("pt_serve_failovers_total", "pt_serve_recovery_seconds",
+                "pt_decode_tokens_total", "pt_serve_request_latency_seconds")
+        if not all(n in fams for n in need) \
+                or not got["/tracez"].startswith("reqtrace"):
+            raise AssertionError("fleet: /metricsz or /tracez incomplete")
+        out["pages"] = dict(
+            answered=sorted(got), routerz_replicas=[
+                (r["name"], r["healthy"], r["breaker"])
+                for r in got["/routerz"]["replicas"]],
+            servez_decode=[d["engine"] for d in got["/servez"]["decode"]],
+            metric_families=len(fams))
+        stats_engine = eng.stats()["models"]
+    finally:
+        pool.shutdown(wait=True)
+        wave_pool.shutdown(wait=True)
+        fe.close()
+        router.close()
+        pages.stop()
+        for r in reps:
+            r.close()
+        eng.close()
+        tmp.cleanup()
+    runs = {r.name: r.stats()["prefill_chunks"] + r.stats()["steps"] + 2
+            for r in reps}
+
+    # step 6: SIGTERM in a child process
+    out["sigterm_child"] = run_fleet_child()
+
+    # step 7: launches, by the wrappers and by the card
+    k6_batches = sum(stats_engine[m]["batches"]
+                     + stats_engine[m]["warmup_batches"]
+                     for m in ("scorer", "scorer_cold"))
+    launches = {k: w.launches for k, w in counters.items()}
+    per_layer = cfg.num_layers
+    want_dev = {"fused_bias_act": per_layer * sum(runs.values()),
+                "paged_attention": per_layer * sum(runs.values()),
+                "ragged_attention": RAGGED_LAYERS * k6_batches,
+                "paged_attention_quant": 0}
+    # the wrappers see each captured signature's warm-up and capture:
+    # two programs a replica; the scorer's one warmed shape and the cold
+    # model's one
+    want_py = {"fused_bias_act": per_layer * 2 * 2 * len(reps),
+               "paged_attention": per_layer * 2 * 2 * len(reps),
+               "ragged_attention": RAGGED_LAYERS * 2 * 2,
+               "paged_attention_quant": 0}
+    out["launches"] = launches
+    out["program_runs"] = runs
+    out["engine_batches"] = k6_batches
+    _, dev = _since(before, counters)
+    out["device_launches"] = dev
+    if dev != want_dev or launches != want_py:
+        raise AssertionError(
+            f"fleet launches: wrappers {launches} (expected {want_py}), "
+            f"on the card {dev} (expected {want_dev})")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
 # "engine" runs phases 10-11 (the ragged Engine, both arms) instead,
-# "passes", "predictor" and "int8w" phases 14, 15 and 16, and "gpt"
-# phase 3's K1-K4 checks (GPT-2 small's shapes among them) and phases
-# 17-18
+# "passes", "predictor" and "int8w" phases 14, 15 and 16 ("predictor"
+# with phase 3's fp32 K1 at its shape), "gpt" phase 3's K1-K4 checks
+# (GPT-2 small's shapes among them) and phases 17-18, and "fleet" phase
+# 19
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
         "k6_contract": (("ragged_attention",), ("check_ragged_contract",)),
         "engine": (("ragged_attention",), ()),
         "passes": (("flash_attention", "fused_bias_act"), ()),
-        "predictor": (("flash_attention", "fused_bias_act"), ()),
+        "predictor": (("flash_attention", "fused_bias_act"),
+                      ("check_flash_fp32_predictor",)),
         "int8w": (("fused_bias_act", "paged_attention"), ()),
         "gpt": (("flash_attention", "fused_bias_act"),
-                ("check_flash", "check_bias_gelu_bf16"))}
-NEW_PHASES = ("passes", "predictor", "int8w", "gpt")
+                ("check_flash", "check_bias_gelu_bf16")),
+        "fleet": (("fused_bias_act", "paged_attention", "ragged_attention"),
+                  ())}
+NEW_PHASES = ("passes", "predictor", "int8w", "gpt", "fleet")
+# the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
+FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
+                 "paged_attention_quant")
 
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 14-18 (those of ``keys``); returns their path readings
+    """Phases 14-19 (those of ``keys``); returns their path readings
     (None for a phase not run).  Phase 16's ids are compared with
     ``fp32_outs``, the fp32-weight lane's, where given (printed, not
     gated)."""
-    ab = pred = path_w = gpt = None
+    ab = pred = path_w = gpt = fleet = None
     if "passes" in keys:
         counters = {k: wrappers[k] for k in train_kernels}
         state, ab = run_passes_ab(counters)
@@ -3788,7 +4293,24 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         say("gpt unfused path", {"card": smi, **gpt["unfused"]})
         torch.cuda.empty_cache()
         say("gpt parity", run_gpt_parity())
-    return ab, pred, path_w, gpt
+    if "fleet" in keys:
+        torch.cuda.empty_cache()
+        fleet = run_fleet_path({k: wrappers[k] for k in FLEET_KERNELS})
+        g = fleet["generate"]
+        say("fleet path", {"card": smi, **fleet})
+        say("fleet summary", {
+            "card": smi,
+            "http_latency_s": g["request_quantiles"]["latency_s"],
+            "http_ttft_s": g["request_quantiles"]["ttft_s"],
+            "tokens_per_s_http": g["tokens_per_s_http"],
+            "tokens_per_s_one_replica_direct":
+                g["tokens_per_s_one_replica_direct"],
+            "http_added_ms_per_token": g["http_added_ms_per_token"],
+            "recovery_s": fleet["failover"]["recovery"],
+            "mttr_s": fleet["failover"]["mttr_s"],
+            "hedge_win_rate": fleet["hedge"]["hedge_win_rate"],
+            "fleet_seconds": fleet["seconds"]})
+    return ab, pred, path_w, gpt, fleet
 
 
 def run_only(keys, dev, smi, say):
@@ -3829,11 +4351,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
-                    "k6_contract, engine, passes, predictor, int8w, gpt): "
-                    "phases 1-3 for those kernels alone (engine: phases "
-                    "10-11; passes, predictor, int8w: phases 14, 15, 16; "
-                    "gpt: K1-K4 and phases 17-18); the default runs every "
-                    "phase")
+                    "k6_contract, engine, passes, predictor, int8w, gpt, "
+                    "fleet): phases 1-3 for those kernels alone (engine: "
+                    "phases 10-11; passes, predictor, int8w: phases 14, "
+                    "15, 16; gpt: K1-K4 and phases 17-18; fleet: phase "
+                    "19); the default runs every phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3910,6 +4432,7 @@ def main(argv=None):
     k7_err, k7_t = check_paged(dev, rng, quant=True)
     k8_err, k8_t = check_fused_update(dev, rng)
     k8g_err, k8g_t = check_fused_update_group(dev)
+    k1p_err, k1p_t = check_flash_fp32_predictor(dev, rng)
     torch.cuda.empty_cache()
     for k, timed in (("K5", k5_t), ("K7", k7_t)):
         for name, t in timed.items():
@@ -3922,8 +4445,8 @@ def main(argv=None):
         "flash": fl_t, "ragged_attention": k6_t,
         "ragged_attention_contract": k6c_t, "k4_bf16_loop_sass": k4_loop,
         "paged_attention_quant": k7_t, "fused_update": k8_t,
-        "fused_update_group": k8g_t, "launch_floor_ms": launch_floor_ms(),
-        "card": smi})
+        "fused_update_group": k8g_t, "flash_fp32_predictor": k1p_t,
+        "launch_floor_ms": launch_floor_ms(), "card": smi})
 
     wrappers = kernel_wrappers()
     train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -3979,8 +4502,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
-    ab, pred, path_w, gpt = run_new_phases(wrappers, train_kernels,
-                                           fp32_outs, smi, say)
+    ab, pred, path_w, gpt, fleet = run_new_phases(wrappers, train_kernels,
+                                                  fp32_outs, smi, say)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
@@ -3995,6 +4518,7 @@ def main(argv=None):
                      "decode_int8_weights": path_w[key],
                      "gpt_train": gpt[key],
                      "gpt_unfused": gpt["unfused"][key],
+                     "fleet": fleet[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}
@@ -4003,7 +4527,7 @@ def main(argv=None):
     def launches(name, key="launches"):
         return {p: n[name] for p, n in by_path[key].items() if name in n}
 
-    def row(name, source, replaces, err, t, gpt_t=None):
+    def row(name, source, replaces, err, t, gpt_t=None, pred_t=None):
         runs = launches(name)
         on_card = launches(name, "device_launches")
         out = dict(name=name, route="cuda", source=source,
@@ -4014,16 +4538,20 @@ def main(argv=None):
                    ms=t["ms"], plain_ms=t["plain_ms"],
                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                    library_ms=t.get("library_ms"))
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         if gpt_t is not None:  # the same readings at GPT-2 small's shape
-            out["at_gpt_shape"] = {k: gpt_t.get(k) for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            out["at_gpt_shape"] = {k: gpt_t.get(k) for k in keys}
+        if pred_t is not None:  # fp32 at the predictor's shape
+            out["at_predictor_shape_fp32"] = {
+                k: pred_t.get(k) for k in keys + ("composed_ms",)}
         return out
 
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     flash_py = "paddle_tpu/kernels/primitives/flash.py"
     kernels = [
-        row("flash_fwd", flash_src, f"{flash_py}:78", fl_err["flash_fwd"],
-            fl_t["flash_fwd"], fl_t["gpt"]["flash_fwd"]),
+        row("flash_fwd", flash_src, f"{flash_py}:78",
+            max(fl_err["flash_fwd"], k1p_err), fl_t["flash_fwd"],
+            fl_t["gpt"]["flash_fwd"], k1p_t),
         row("flash_bwd_dq", flash_src, f"{flash_py}:130",
             fl_err["flash_bwd_dq"], fl_t["flash_bwd_dq"],
             fl_t["gpt"]["flash_bwd_dq"]),

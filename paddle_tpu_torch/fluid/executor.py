@@ -796,6 +796,11 @@ class Executor:
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._step = 0
         self._stream = None
+        # FLAGS_metrics_port: the process's exposition server (and the
+        # flag-driven SLO evaluator) start with its first executor
+        from paddle_tpu_torch.observability import exposition
+
+        exposition.ensure_from_flags()
 
     def _side_stream(self):
         """The stream signatures warm up and capture on."""

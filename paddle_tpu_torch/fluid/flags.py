@@ -36,6 +36,17 @@ _DEFS = {
     "FLAGS_serving_max_queue": (256, int),
     "FLAGS_serving_deadline_ms": (0, int),
     "FLAGS_serving_tenant_quota": (0, int),
+    # the serving router (serving/router.py): the hedge delay on the
+    # stateless lane (0 off, -1 from the router's rolling p99), and the
+    # per-replica circuit breaker's consecutive failures to open and its
+    # cooldown before one probe
+    "FLAGS_serving_hedge_ms": (0, int),
+    "FLAGS_serving_breaker_failures": (5, int),
+    "FLAGS_serving_breaker_cooldown_ms": (1000, int),
+    # retry budget and base backoff of distributed.resilience.RetryPolicy
+    # (the router's default policy for typed admission rejections)
+    "FLAGS_rpc_retry_times": (3, int),
+    "FLAGS_rpc_retry_backoff_ms": (100, int),
     # serving.Engine.load_model(ragged=None): pad every dynamic dim-1
     # feed to ONE length (the largest sequence bucket) so mixed-length
     # traffic batches together; the model masks the tail itself
@@ -80,6 +91,18 @@ _DEFS = {
     # (observability/events.py); empty disables it, PT_EVENT_LOG_DIR
     # wins
     "FLAGS_event_log_dir": ("", str),
+    # nonzero: this process serves /metricsz, /statusz, /healthz and the
+    # registered pages (/servez, /routerz, /tracez, /sloz) on that port
+    # (observability/exposition.py ensure_from_flags); 0 = off
+    "FLAGS_metrics_port": (0, int),
+    # request-scoped serving traces (observability/reqtrace.py) and the
+    # completed-trace ring's capacity
+    "FLAGS_reqtrace": (True, _parse_bool),
+    "FLAGS_reqtrace_ring": (256, int),
+    # the flag-driven SLO evaluator (observability/slo.py): its period
+    # and its ';'-separated specs (empty: no evaluator)
+    "FLAGS_slo_eval_interval_s": (10.0, float),
+    "FLAGS_slo_specs": ("", str),
 }
 
 _VALUES = {}

@@ -13,9 +13,10 @@ call sites create their instruments lazily and converge on one object;
 a name re-registered with another type or label set raises.
 
 Thread-safe: the registry and every family share one re-entrant lock,
-so ``snapshot()`` is a consistent cut.  Not ported: the OpenMetrics
-exemplars the JAX package attaches for its request traces (the port has
-no request tracing yet).
+so ``snapshot()`` is a consistent cut.  A histogram observation may
+carry an OpenMetrics exemplar (a request's trace id, from
+``observability/reqtrace.py``), kept per bucket and rendered by
+``observability/exposition.py``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ _INF = float("inf")
 class _Child:
     """One labeled time series of a family."""
 
-    __slots__ = ("_family", "_value", "_bucket_counts", "_sum", "_count")
+    __slots__ = ("_family", "_value", "_bucket_counts", "_sum", "_count",
+                 "_exemplars")
 
     def __init__(self, family):
         self._family = family
@@ -48,6 +50,8 @@ class _Child:
             self._bucket_counts = [0] * (len(family.buckets) + 1)  # +Inf
             self._sum = 0.0
             self._count = 0
+            # last exemplar per bucket: None | (labels_dict, value)
+            self._exemplars = [None] * (len(family.buckets) + 1)
 
     # -- counter / gauge -------------------------------------------------
     def inc(self, amount=1.0):
@@ -76,10 +80,15 @@ class _Child:
             return self._value
 
     # -- histogram -------------------------------------------------------
-    def observe(self, value):
+    def observe(self, value, exemplar=None):
+        """Record one observation.  ``exemplar`` (a trace-id string or a
+        label dict) attaches to the bucket the observation lands in;
+        the last writer per bucket wins."""
         if self._family.type != "histogram":
             raise TypeError(f"{self._family.type} has no observe()")
         v = float(value)
+        if exemplar is not None and not isinstance(exemplar, dict):
+            exemplar = {"trace_id": str(exemplar)}
         with self._family._lock:
             # first bucket whose upper bound contains v (le semantics);
             # falls through to the +Inf bucket
@@ -91,18 +100,27 @@ class _Child:
             self._bucket_counts[idx] += 1
             self._sum += v
             self._count += 1
+            if exemplar is not None:
+                self._exemplars[idx] = (dict(exemplar), v)
 
     def hist_data(self):
         """-> {"buckets": [(le, CUMULATIVE count)], "sum": s, "count": n}
         (Prometheus exposition semantics: the +Inf bucket equals
-        count)."""
+        count).  When a bucket carries an exemplar, ``"exemplars"`` maps
+        its ``le`` to ``(labels_dict, observed_value)``; the key is
+        absent otherwise."""
         with self._family._lock:
-            cum, out = 0, []
-            for ub, c in zip((*self._family.buckets, _INF),
-                             self._bucket_counts):
+            cum, out, ex = 0, [], {}
+            for ub, c, e in zip((*self._family.buckets, _INF),
+                                self._bucket_counts, self._exemplars):
                 cum += c
                 out.append((ub, cum))
-            return {"buckets": out, "sum": self._sum, "count": self._count}
+                if e is not None:
+                    ex[ub] = (dict(e[0]), e[1])
+            data = {"buckets": out, "sum": self._sum, "count": self._count}
+            if ex:
+                data["exemplars"] = ex
+            return data
 
 
 class _Family:
@@ -147,12 +165,17 @@ class _Family:
     def set(self, value):
         self._default_child().set(value)
 
-    def observe(self, value):
-        self._default_child().observe(value)
+    def observe(self, value, exemplar=None):
+        self._default_child().observe(value, exemplar=exemplar)
 
     @property
     def value(self):
         return self._default_child().value
+
+    def clear(self):
+        """Drop every child series."""
+        with self._lock:
+            self._children.clear()
 
     def _snapshot(self):
         with self._lock:

@@ -29,6 +29,8 @@ stdlib-only at module level; torch is read inside functions.
 
 from __future__ import annotations
 
+import json
+import sys
 import threading
 import time
 
@@ -37,7 +39,7 @@ from . import metrics as _metrics
 __all__ = [
     "step_phases", "StepPhaseRecorder", "NullRecorder", "note_step",
     "note_cost", "device_peaks", "roofline", "signature_stats", "reset",
-    "PHASES",
+    "record_span", "PHASES",
 ]
 
 # the canonical phase decomposition of one executed step, in order
@@ -384,6 +386,20 @@ def note_step(lane, seconds=None, first_run=False):
         s["device_s_sum"] += device_s
         s["device_steps"] += 1
         _update_mfu(s)
+
+
+def record_span(name, args):
+    """A finished request-trace span into the running torch.profiler
+    session, if one records: a ``record_function`` range named ``name``
+    with ``args`` (its ids and duration) as JSON.  The range marks the
+    span's end; its duration is in the args.  No-op when torch is not
+    imported or no profiler records."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return
+    with torch.profiler.record_function(name, json.dumps(args,
+                                                         default=str)):
+        pass
 
 
 def reset():

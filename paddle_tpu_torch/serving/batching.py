@@ -90,7 +90,7 @@ class Request:
     the latency metric is measured from."""
 
     __slots__ = ("feed", "rows", "tenant", "future", "t_arrival",
-                 "shape_key", "seq_pad", "deadline")
+                 "shape_key", "seq_pad", "deadline", "span")
 
     def __init__(self, feed, rows, tenant, future, shape_key,
                  seq_pad=None, deadline_s=0.0):
@@ -98,6 +98,7 @@ class Request:
         self.rows = rows
         self.tenant = tenant
         self.future = future
+        self.span = None  # serve span (observability.reqtrace), if traced
         self.t_arrival = time.monotonic()
         # absolute monotonic deadline (FLAGS_serving_deadline_ms): a
         # request older than this resolves ServingDeadlineError instead

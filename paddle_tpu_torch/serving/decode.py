@@ -42,11 +42,20 @@ tensor.  Each program run rebuilds the weights in fp32 for its matmuls
 (``dequantize_weight_storage``): the saving is at rest, booked on
 ``pt_int8_bytes_saved_total{kind="weights"}``.
 
-Not ported yet (ROADMAP.md): the pt_decode_* metrics, request spans and
-/servez; the SIGTERM drain; the fault-injection hook; router resume
-(``submit_request(prefix=...)``).
-Each program run's host-clock seconds are kept in ``prefill_seconds``
-and ``step_seconds``.
+Observability and resilience, as in the JAX lane: the ``pt_decode_*``
+families and the shared ``pt_serve_*`` request, latency and rejection
+families; a serve span a request (joined to the caller's trace, see
+``observability/reqtrace.py``) and a batch span a decode step; /servez
+tracking (``serving/status.py``); ``healthy()`` / ``load()`` for the
+router; ``submit_request(prefix=...)``, which resumes a stream an
+earlier replica started by re-prefilling prompt + prefix[:-1] through
+the eviction-replay path; ``drain()`` and the SIGTERM drain
+(``distributed/elastic.py``); and the ``replica_kill:`` fault hook
+before each decode step (``distributed/fault_injection.py``).  Each
+program run's host-clock seconds are also kept in ``prefill_seconds``
+and ``step_seconds``.  The JAX lane's AOT executable cache has no
+counterpart: a restarted replica captures its two graphs again in
+``warmup()``.
 """
 
 from __future__ import annotations
@@ -58,10 +67,110 @@ import time
 
 import numpy as np
 
+from paddle_tpu_torch.distributed import elastic as _elastic
+from paddle_tpu_torch.distributed import fault_injection as _fault
+from paddle_tpu_torch.observability import reqtrace as _reqtrace
+
 from .errors import PoolExhaustedError, ServingOverloadError
 from .kv_pool import TRASH_PAGE, KVPool
 
 __all__ = ["DecodeEngine", "DecodeRequest"]
+
+
+# ---------------------------------------------------------------------------
+# metrics (lazy idempotent registration; the JAX lane's families)
+# ---------------------------------------------------------------------------
+
+
+def _m_tokens():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.counter(
+        "pt_decode_tokens_total",
+        "Tokens generated by the decode lane (one per active slot per "
+        "decode step, plus each prefill's seed token)",
+        labels=("engine",))
+
+
+def _m_step_seconds():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.histogram(
+        "pt_decode_step_seconds",
+        "Wall time of one decode step — the per-token latency of every "
+        "sequence active in it (fixed-shape program: independent of "
+        "prompt length after prefill)", labels=("engine",))
+
+
+def _m_phase_seconds():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.counter(
+        "pt_decode_phase_seconds_total",
+        "Wall seconds by decode-lane phase (prefill vs decode) — the "
+        "phase split that tells a prompt-bound fleet from a "
+        "decode-bound one", labels=("engine", "phase"))
+
+
+def _m_prefill_chunks():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.counter(
+        "pt_decode_prefill_chunks_total",
+        "Prefill chunk executions (a P-token prompt is "
+        "ceil(P/chunk) of these)", labels=("engine",))
+
+
+def _m_slot_occupancy():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.gauge(
+        "pt_decode_slot_occupancy",
+        "Active decode slots / pool_slots after the last step — "
+        "sustained < 1.0 with a non-empty queue names admission, not "
+        "the device", labels=("engine",))
+
+
+def _m_pages_in_use():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.gauge(
+        "pt_decode_kv_pages_in_use",
+        "KV pool pages currently allocated to live sequences",
+        labels=("engine",))
+
+
+def _m_evictions():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.counter(
+        "pt_decode_evictions_total",
+        "Sequences evicted under KV-pool pressure (pages freed, request "
+        "re-queued for re-prefill of its prompt + generated prefix)",
+        labels=("engine",))
+
+
+def _m_queue_depth():
+    from paddle_tpu_torch import observability as obs
+
+    return obs.gauge(
+        "pt_decode_queue_depth",
+        "Requests waiting for prefill in the decode lane",
+        labels=("engine",))
+
+
+def _m_rejected():
+    # the family serving/engine.py owns: one admission-rejection surface
+    # across both lanes, with the decode engine's name as the model
+    from .engine import _m_rejected as _engine_rejected
+
+    return _engine_rejected()
+
+
+def _engine_max_tenants():
+    from .engine import _MAX_TENANT_LABELS
+
+    return _MAX_TENANT_LABELS
 
 
 class DecodeRequest:
@@ -70,7 +179,8 @@ class DecodeRequest:
     including the eos token when one stops the sequence)."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "tenant", "future",
-                 "seq_id", "generated", "prefilled")
+                 "seq_id", "generated", "prefilled", "t_arrival", "span",
+                 "t_first")
 
     def __init__(self, prompt, max_new_tokens, eos_id, tenant):
         self.prompt = [int(t) for t in prompt]
@@ -81,6 +191,9 @@ class DecodeRequest:
         self.seq_id = None
         self.generated = []  # greedy stream; [-1] is the pending token
         self.prefilled = 0   # tokens whose K/V sit in the pool
+        self.span = None     # serve span (observability.reqtrace)
+        self.t_first = None  # first-token time: TTFT = t_first - t_arrival
+        self.t_arrival = time.monotonic()
 
     @property
     def written_target(self):
@@ -114,13 +227,15 @@ class DecodeEngine:
 
     ``int8_weights`` quantizes the scope's matmul weights in place (the
     fp32 tensors leave the scope): use it on a scope no other program
-    shares."""
+    shares.  ``drain_on_sigterm`` makes the scheduler honour a process
+    drain handler (``distributed.elastic``)."""
 
     def __init__(self, cfg, *, scope=None, place=None, pool_slots=4,
                  page_size=16, prefill_chunk=None, max_len=None,
                  num_pages=None, max_queue=None, pool_dtype=None,
                  attn_force=None, name="decode", auto_start=True,
-                 tenant_quota=None, int8_weights=False):
+                 tenant_quota=None, drain_on_sigterm=True,
+                 int8_weights=False):
         from paddle_tpu_torch import fluid
         from paddle_tpu_torch.fluid import flags as _flags
         from paddle_tpu_torch.fluid.framework import resolve_place
@@ -197,6 +312,11 @@ class DecodeEngine:
         self._thread = None
         self._closed = False
         self._failed = None  # the exception that killed the scheduler
+        # graceful drain: admission stops, queued futures fail typed,
+        # sequences in decode slots run to completion
+        self._draining = False
+        self._drained = threading.Event()
+        self._drain_on_sigterm = bool(drain_on_sigterm)
         # serializes program runs: a user-thread warmup() racing the
         # scheduler's step would interleave two runs' in-place pool writes
         self._exec_lock = threading.Lock()
@@ -207,8 +327,45 @@ class DecodeEngine:
         self._evictions = 0
         self.prefill_seconds = []  # host seconds of each prefill-chunk run
         self.step_seconds = []     # host seconds of each decode-step run
+        # tenant labels this lane has minted on pt_serve_requests_total
+        # (capped like the Engine's lanes)
+        self._tenants_seen = set()
+        self._bind_metrics()
+        from . import status as _status
+
+        _status.track_decode_engine(self)
         if auto_start:
             self.start()
+
+    def _bind_metrics(self):
+        """Resolve each family's label child once; the entry points
+        rebind after an ``observability.reset()`` (_check_metrics_epoch)."""
+        from paddle_tpu_torch import observability as obs
+
+        from .engine import _m_latency, _m_requests
+
+        self._metrics_epoch = obs.REGISTRY.epoch
+        e = self.name
+        self._tok_ctr = _m_tokens().labels(engine=e)
+        self._step_hist = _m_step_seconds().labels(engine=e)
+        self._phase = {p: _m_phase_seconds().labels(engine=e, phase=p)
+                       for p in ("prefill", "decode")}
+        self._chunk_ctr = _m_prefill_chunks().labels(engine=e)
+        self._occupancy = _m_slot_occupancy().labels(engine=e)
+        self._pages_gauge = _m_pages_in_use().labels(engine=e)
+        self._evict_ctr = _m_evictions().labels(engine=e)
+        self._depth = _m_queue_depth().labels(engine=e)
+        # the Engine's families: end-to-end request latency (with the
+        # trace id as exemplar) and admitted requests, this engine's
+        # name as the model
+        self._req_lat = _m_latency().labels(model=e)
+        self._requests_family = _m_requests()
+
+    def _check_metrics_epoch(self):
+        from paddle_tpu_torch import observability as obs
+
+        if self._metrics_epoch != obs.REGISTRY.epoch:
+            self._bind_metrics()
 
     def _store_weights_int8(self, dec_prog, pf_prog):
         """Both programs through the int8_weight_storage pass, then the
@@ -241,6 +398,22 @@ class DecodeEngine:
                tenant="default"):
         """Enqueue one greedy generation; returns a Future resolving to
         the generated token ids (list[int])."""
+        return self.submit_request(prompt, max_new_tokens, eos_id=eos_id,
+                                   tenant=tenant).future
+
+    def submit_request(self, prompt, max_new_tokens, eos_id=None,
+                       tenant="default", prefix=None):
+        """`submit` returning the `DecodeRequest` itself (the router's
+        surface: it reads the request's ``generated`` progress to fail a
+        victim over).
+
+        ``prefix`` seeds the stream with tokens an earlier replica
+        already emitted: the request re-prefills prompt + prefix[:-1]
+        through the eviction-replay path and resumes decoding from
+        prefix[-1].  Greedy decode is deterministic, so the resumed
+        stream equals the uninterrupted one.  ``max_new_tokens`` stays
+        the original budget: the prefix counts toward it."""
+        self._check_metrics_epoch()
         prompt = list(prompt)
         if not prompt:
             raise ValueError("decode: empty prompt")
@@ -255,35 +428,85 @@ class DecodeEngine:
                 f"{self.max_len} — raise max_len or split the request")
         tenant = str(tenant)
         req = DecodeRequest(prompt, max_new_tokens, eos_id, tenant)
+        if prefix:
+            prefix = [int(t) for t in prefix]
+            if len(prefix) > int(max_new_tokens):
+                raise ValueError(
+                    f"decode: resume prefix ({len(prefix)}) exceeds "
+                    f"max_new_tokens ({max_new_tokens})")
+            req.generated = prefix
+            if req.done():
+                # the stream was already complete: nothing to decode
+                req.future.set_result(list(req.generated))
+                return req
         with self._cv:
             if self._closed:
-                raise ServingOverloadError(
-                    f"decode engine {self.name!r} is closed",
-                    reason="closed")
+                raise self._reject(
+                    "closed", f"decode engine {self.name!r} is closed")
             if self._failed is not None:
-                raise ServingOverloadError(
+                raise self._reject(
+                    "scheduler_failed",
                     f"decode engine {self.name!r} scheduler died: "
-                    f"{self._failed!r} — close and recreate the engine",
-                    reason="scheduler_failed")
+                    f"{self._failed!r} — close and recreate the engine")
+            if self._draining:
+                raise self._reject(
+                    "draining",
+                    f"decode engine {self.name!r} is draining (graceful "
+                    f"preemption) — resubmit to another replica")
             if len(self._queue) >= self._max_queue:
-                raise ServingOverloadError(
+                raise self._reject(
+                    "overload",
                     f"decode engine {self.name!r}: queue at admission limit "
-                    f"({self._max_queue}) — retry with backoff",
-                    reason="overload")
+                    f"({self._max_queue}) — retry with backoff")
             if self._tenant_quota > 0:
                 live = sum(1 for r in (*self._queue, *self._ready,
                                        *(s for s in self._slots
                                          if s is not None))
                            if r.tenant == tenant)
                 if live >= self._tenant_quota:
-                    raise ServingOverloadError(
+                    raise self._reject(
+                        "tenant_quota",
                         f"decode engine {self.name!r}: tenant {tenant!r} "
                         f"holds {live} live requests, at "
                         f"FLAGS_serving_tenant_quota={self._tenant_quota} "
-                        f"— retry with backoff", reason="tenant_quota")
+                        f"— retry with backoff")
+            req.span = self._serve_span(req, tenant)
+            if tenant not in self._tenants_seen and \
+                    len(self._tenants_seen) >= _engine_max_tenants():
+                tenant = "__other__"
+            self._tenants_seen.add(tenant)
             self._queue.append(req)
+            self._depth.set(len(self._queue))
             self._cv.notify_all()
-        return req.future
+        self._requests_family.labels(model=self.name, tenant=tenant).inc()
+        return req
+
+    def _serve_span(self, req, tenant):
+        """The engine-side serve span of one admitted request: a child of
+        the caller's attached span (router, frontend), else the root of
+        a new trace.  It finishes with the request's future."""
+        parent = _reqtrace.current_span()
+        attrs = {"engine": self.name, "tenant": tenant,
+                 "prompt_tokens": len(req.prompt),
+                 "max_new_tokens": req.max_new_tokens,
+                 "resumed": bool(req.generated)}
+        if parent is not None:
+            span = _reqtrace.start_span(f"serve:{self.name}",
+                                        kind="serve", parent=parent,
+                                        attrs=attrs)
+        else:
+            span = _reqtrace.start_request(f"serve:{self.name}",
+                                           kind="serve", attrs=attrs)
+        if span is not None:
+            req.future.add_done_callback(
+                lambda f, s=span: _reqtrace.finish_future(s, f))
+        return span
+
+    def _reject(self, reason, msg):
+        """Book one typed admission rejection on
+        pt_serve_rejected_total{model=<engine>, reason} and build it."""
+        _m_rejected().labels(model=self.name, reason=reason).inc()
+        return ServingOverloadError(msg, reason=reason)
 
     def generate(self, prompts, max_new_tokens, eos_id=None, timeout=None):
         """Blocking convenience: submit every prompt, wait for all.
@@ -307,6 +530,29 @@ class DecodeEngine:
         self._run_decode_feed([], warm=True)
         return 2
 
+    def drain(self, timeout=None):
+        """Graceful drain: stop admission (new submits reject typed with
+        ``reason="draining"``), fail every queued and prefill-pending
+        future typed (their pool pages return), and let the sequences
+        already in decode slots run to completion.  The flush runs on
+        the scheduler thread, the only owner of the pool and slots.
+        Blocks up to ``timeout`` seconds for the in-flight work (None:
+        returns at once).  Idempotent."""
+        with self._cv:
+            if self._closed:
+                return True
+            self._draining = True
+            self._cv.notify_all()
+        if timeout is not None:
+            return self._drained.wait(timeout=timeout)
+        return True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
     def start(self):
         with self._cv:
             if self._thread is not None or self._closed:
@@ -322,6 +568,7 @@ class DecodeEngine:
             if self._closed:
                 return
             self._closed = True
+            self._drained.set()  # a close supersedes a pending drain
             self._cv.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=30)
@@ -336,14 +583,38 @@ class DecodeEngine:
                 req.future.set_exception(ServingOverloadError(
                     f"decode engine {self.name!r} closed before the request "
                     f"finished", reason="closed"))
+        from . import status as _status
+
+        _status.untrack_decode_engine(self)
+
+    def healthy(self):
+        """The router's liveness probe: True while the scheduler thread
+        lives and the engine takes work (not closed, draining or dead).
+        An engine not yet started counts as healthy: its submits queue
+        until start()."""
+        with self._cv:
+            if self._closed or self._draining or self._failed is not None:
+                return False
+            thread = self._thread
+        return thread is None or thread.is_alive()
+
+    def load(self):
+        """Live sequences (queued + prefill-done + decoding): the
+        router's least-loaded measure."""
+        with self._cv:
+            return (len(self._queue) + len(self._ready)
+                    + sum(s is not None for s in self._slots))
 
     def stats(self):
+        """The /servez decode section for this engine (the JAX lane's
+        keys, plus ``prefill_chunks`` and ``int8_weights``)."""
         with self._cv:
             depth, ready = len(self._queue), len(self._ready)
             active = sum(s is not None for s in self._slots)
         return {
             "engine": self.name, "pool_slots": self.pool_slots,
             "active_slots": active, "queue_depth": depth, "ready": ready,
+            "draining": self._draining, "tenant_quota": self._tenant_quota,
             "failed": repr(self._failed) if self._failed else None,
             "prefill_chunk": self.prefill_chunk, "max_len": self.max_len,
             "steps": self._steps, "prefill_chunks": self._chunks,
@@ -360,7 +631,10 @@ class DecodeEngine:
                 while (not self._closed and not self._queue
                        and not self._ready
                        and all(s is None for s in self._slots)):
-                    self._cv.wait()  # close()/submit() notify
+                    if self._draining:
+                        # nothing in flight: the drain is complete
+                        self._drained.set()
+                    self._cv.wait()  # close()/submit()/drain() notify
                 if self._closed:
                     return
             try:
@@ -372,6 +646,31 @@ class DecodeEngine:
                 if isinstance(e, (KeyboardInterrupt, SystemExit)):
                     raise
                 return
+
+    def _flush_for_drain(self):
+        """The scheduler-thread half of drain(): fail queued and
+        prefill-done futures typed, free the pages a mid-prefill request
+        held, leave the slotted sequences running."""
+        with self._cv:
+            victims = list(self._queue) + list(self._ready)
+            self._queue.clear()
+            self._ready.clear()
+            self._depth.set(0)
+        for req in victims:
+            if req.seq_id is not None:
+                if req in self._live_order:
+                    self._live_order.remove(req)
+                self.pool.free_seq(req.seq_id)
+                req.seq_id = None
+                req.prefilled = 0
+            if req.future.set_running_or_notify_cancel():
+                req.future.set_exception(self._reject(
+                    "draining",
+                    f"decode engine {self.name!r} drained before this "
+                    f"request started decoding — resubmit to another "
+                    f"replica"))
+        if all(s is None for s in self._slots):
+            self._drained.set()
 
     def _fail_all(self, exc):
         with self._cv:
@@ -386,10 +685,25 @@ class DecodeEngine:
                 req.future.set_exception(exc)
 
     def _step_once(self):
-        """<=1 prefill chunk, admissions, <=1 decode step."""
+        """<=1 prefill chunk, admissions, <=1 decode step.  A requested
+        drain (drain(), or SIGTERM with drain_on_sigterm) flushes the
+        queued work typed first, so only running sequences take further
+        device steps."""
+        self._check_metrics_epoch()
+        if (not self._draining and self._drain_on_sigterm
+                and _elastic.drain_requested()):  # SIGTERM: drain
+            with self._cv:
+                self._draining = True
+        if self._draining:
+            self._flush_for_drain()
         self._prefill_one_chunk()
         self._admit_ready()
         self._decode_step()
+        self._occupancy.set(
+            sum(s is not None for s in self._slots) / self.pool_slots)
+        self._pages_gauge.set(self.pool.pages_in_use())
+        # a deque's len() is atomic: no need to hold _cv for a gauge
+        self._depth.set(len(self._queue))
 
     # -- eviction -----------------------------------------------------------
 
@@ -414,6 +728,7 @@ class DecodeEngine:
                 if req not in self._queue:
                     self._queue.appendleft(req)
             self._evictions += 1
+            self._evict_ctr.inc()
             return True
         return False
 
@@ -460,7 +775,11 @@ class DecodeEngine:
             if not req.generated:
                 # fresh prompt: the prefill's argmax seeds the stream
                 req.generated.append(int(next_tok))
+                self._tok_ctr.inc()
                 self._tokens += 1
+                # the TTFT anchor (a resumed request arrives with its
+                # prefix: a replay is not a first token)
+                req.t_first = time.monotonic()
             with self._cv:
                 # remove by identity: an eviction during _ensure_pages may
                 # have re-queued a victim ahead of us
@@ -492,6 +811,8 @@ class DecodeEngine:
         if not warm:
             self.prefill_seconds.append(dt)
             self._chunks += 1
+            self._phase["prefill"].inc(dt)
+            self._chunk_ctr.inc()
         return int(np.asarray(out).reshape(-1)[0])
 
     # -- decode -------------------------------------------------------------
@@ -518,13 +839,35 @@ class DecodeEngine:
                   if s is not None]
         if not active:
             return
-        next_toks = self._run_decode_feed(active)
+        # a replica_kill: rule raises here, before the step runs, so the
+        # step's tokens are never emitted; the scheduler loop fans the
+        # error to every live future and the router resumes each stream
+        # from its last completed step
+        _fault.on_replica_step(self.name, self._steps + 1)
+        # one shared span a decode step: every active request links to it
+        bspan = _reqtrace.start_batch(
+            f"decode_step:{self.name}",
+            attrs={"engine": self.name, "step": self._steps + 1,
+                   "n_active": len(active)})
+        try:
+            next_toks = self._run_decode_feed(active)
+        except BaseException as e:
+            if bspan is not None:
+                bspan.finish("error", error=e)
+            raise
+        if bspan is not None:
+            for _, req in active:
+                if req.span is not None:
+                    req.span.link(bspan)
+            bspan.finish("ok")
         now_done = []
         for i, req in active:
             req.generated.append(int(next_toks[i]))
-            self._tokens += 1
             if req.done():
                 now_done.append((i, req))
+        # one token a slot, booked once a step (before any future resolves)
+        self._tok_ctr.inc(len(active))
+        self._tokens += len(active)
         for i, req in now_done:
             self._finish(i, req)
 
@@ -554,6 +897,8 @@ class DecodeEngine:
         if not warm:
             self.step_seconds.append(dt)
             self._steps += 1
+            self._phase["decode"].inc(dt)
+            self._step_hist.observe(dt)
         return np.asarray(out).reshape(-1)
 
     def _finish(self, slot, req):
@@ -561,5 +906,22 @@ class DecodeEngine:
         if req in self._live_order:
             self._live_order.remove(req)
         self.pool.free_seq(req.seq_id)
+        now = time.monotonic()
+        n = len(req.generated)
+        if req.span is not None:
+            # TTFT (arrival to first token) and TPOT (seconds a later
+            # token), set before set_result: the future's callback
+            # finishes the span.  A resumed request has no first token.
+            req.span.set_attr("tokens", n)
+            if req.t_first is not None:
+                req.span.set_attr(
+                    "ttft_s", max(req.t_first - req.t_arrival, 0.0))
+                if n > 1:
+                    req.span.set_attr(
+                        "tpot_s", max(now - req.t_first, 0.0) / (n - 1))
         if req.future.set_running_or_notify_cancel():
             req.future.set_result(list(req.generated))
+            self._req_lat.observe(
+                max(now - req.t_arrival, 0.0),
+                exemplar=(req.span.trace_id if req.span is not None
+                          else None))

@@ -29,11 +29,13 @@ The JAX package compiles one XLA executable per (model, bucket shape).
 The port runs eagerly and compiles nothing; the warm/cold bookkeeping
 carries over as is, and "cold" means the first run of a shape key.
 
-Not ported yet (ROADMAP.md): the request-trace spans
-(``observability.reqtrace``), the per-step phase attribution
-(``profiling.step_phases`` / ``note_step``), ``/servez`` tracking
-(``serving/status.py``) and the process-level SIGTERM drain
-(``distributed.elastic``); ``Engine.drain()`` is ported.
+Each admitted request gets a serve span (``observability.reqtrace``; a
+child of the caller's attached span, else a trace of its own) and each
+executed batch a batch span its requests link to; each batch is booked
+through ``profiling.step_phases("serve", model)`` and ``note_step``; the
+engine shows on ``/servez`` (``serving/status.py``); and a lane turns a
+process-level SIGTERM drain (``distributed.elastic``) into
+``drain()``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ import threading
 import time
 
 import numpy as np
+
+from paddle_tpu_torch.distributed import elastic as _elastic
+from paddle_tpu_torch.observability import reqtrace as _reqtrace
 
 from .batching import BucketPolicy, Request, assemble_batch, split_outputs, \
     pad_seq
@@ -403,6 +408,24 @@ class _ModelLane:
         if self._metrics_epoch != obs.REGISTRY.epoch:
             self._bind_metrics()
 
+    def _serve_span(self, fut, rows, tenant):
+        """The engine-side serve span of one admitted request: a child of
+        the caller's attached span (router, frontend), else the root of
+        a new trace.  It finishes when the request's future resolves."""
+        parent = _reqtrace.current_span()
+        attrs = {"model": self.name, "tenant": tenant, "rows": rows}
+        if parent is not None:
+            span = _reqtrace.start_span(
+                f"serve:{self.name}", kind="serve", parent=parent,
+                attrs=attrs)
+        else:
+            span = _reqtrace.start_request(
+                f"serve:{self.name}", kind="serve", attrs=attrs)
+        if span is not None:
+            fut.add_done_callback(
+                lambda f, s=span: _reqtrace.finish_future(s, f))
+        return span
+
     # -- feed validation edge ---------------------------------------------
 
     def _var(self, name):
@@ -583,7 +606,7 @@ class _ModelLane:
                 tenant = "__other__"
             req = Request(padded, rows, tenant, fut, key, seq_pad,
                           deadline_s=self.deadline_s)
-            # request-trace spans (observability.reqtrace): not ported
+            req.span = self._serve_span(fut, rows, tenant)
             self._queue.append(req)
             self._queued_rows[key] += rows
             self._queue_depth.set(len(self._queue))
@@ -648,11 +671,27 @@ class _ModelLane:
         with self._cv:
             while True:
                 while not self._queue and not self._closed:
-                    # the process-level SIGTERM drain the JAX engine
-                    # polls here (distributed.elastic) is not ported
+                    # bounded wait: an idle lane must still observe a
+                    # process-level SIGTERM drain (nothing queues on a
+                    # draining lane, so no submit would wake it)
+                    if not self._draining and _elastic.drain_requested():
+                        # the queue is empty under the lock: setting the
+                        # flag is the whole drain here
+                        self._draining = True
                     self._cv.wait(timeout=0.5)
                 if not self._queue:
                     return None  # closed and drained
+                # a process drain seen here fails the woken queue typed
+                # before any of it reaches the device
+                if not self._draining and _elastic.drain_requested():
+                    # drain() takes the lock itself and resolves futures,
+                    # whose callbacks may call back in
+                    self._cv.release()
+                    try:
+                        self.drain()
+                    finally:
+                        self._cv.acquire()
+                    continue
                 self._expire_queued()
                 if not self._queue:
                     if self._closed:
@@ -724,12 +763,24 @@ class _ModelLane:
             self._execute_locked(batch, t_batch, warmup=warmup)
 
     def _execute_locked(self, batch, t_batch, warmup=False):
+        from paddle_tpu_torch.observability import profiling as _profiling
+
         rows = sum(r.rows for r in batch)
         bucket = self.policy.batch_bucket(rows)
-        # the per-step phase attribution (profiling.step_phases) and the
-        # batch span (reqtrace.start_batch) are not ported
+        # warmup batches stay out of the attribution (NullRecorder), as
+        # they stay out of the latency histograms below
+        ph = _profiling.step_phases("serve", self.name, enabled=not warmup)
+        # one shared batch span: every traced request of the batch links
+        # to it (fan-in)
+        bspan = None
+        if not warmup:
+            bspan = _reqtrace.start_batch(
+                f"batch:{self.name}",
+                attrs={"model": self.name, "rows": rows, "bucket": bucket})
+        ph.__enter__()
         try:
-            feed, slices = assemble_batch(batch, bucket)
+            with ph.phase("feed_prep"):
+                feed, slices = assemble_batch(batch, bucket)
             exec_key = (bucket, batch[0].shape_key)
             if warmup:
                 result = "warmup"
@@ -737,7 +788,9 @@ class _ModelLane:
                 result = "warm" if exec_key in self._warm else "cold"
             # validate=False: every request was already validated at
             # submit against the lane's cached vars
-            outputs = self.predictor.run_feed_dict(feed, validate=False)
+            with ph.phase("dispatch"):
+                outputs = self.predictor.run_feed_dict(feed,
+                                                       validate=False)
             # booked only after the run succeeds: a failed batch must
             # not count phantom warm/cold dispatches (each retry would
             # re-book "cold" and drag the hit rate toward 0)
@@ -752,15 +805,19 @@ class _ModelLane:
             # split_outputs also slices dynamic-dim-1 outputs back to
             # each request's pre-pad sequence length: padding positions
             # must not reach the caller
-            per_req = split_outputs(
-                outputs, slices, seq_pads=[r.seq_pad for r in batch],
-                dyn_seq=self._dyn_seq_outputs)
+            with ph.phase("fetch_sync"):
+                per_req = split_outputs(
+                    outputs, slices, seq_pads=[r.seq_pad for r in batch],
+                    dyn_seq=self._dyn_seq_outputs)
         except BaseException as e:
             # covers post-run splitting/slicing too: an exception there
             # must fail the batch's futures, not kill the scheduler
             # thread and leave callers blocked forever (no future is
             # resolved before this point, so the fan-out never races a
             # set_result)
+            ph.__exit__(type(e), e, None)
+            if bspan is not None:
+                bspan.finish("error", error=e)
             for r in batch:
                 if not r.future.set_running_or_notify_cancel():
                     continue
@@ -768,6 +825,11 @@ class _ModelLane:
             if isinstance(e, (KeyboardInterrupt, SystemExit)):
                 raise
             return
+        ph.__exit__(None, None, None)
+        if not warmup:
+            # a cold batch ran its shape's first run (and capture) in the
+            # request path: first_run keeps it out of the moving average
+            _profiling.note_step("serve", first_run=(result != "warm"))
         now = time.monotonic()
         execute_s = max(now - t_batch, 0.0)
         for r, out in zip(batch, per_req):
@@ -783,6 +845,14 @@ class _ModelLane:
                         f"{self.deadline_s * 1000:.0f} ms deadline in "
                         f"flight (FLAGS_serving_deadline_ms)"))
                 continue
+            if r.span is not None:
+                # attrs and the fan-in link land before set_result:
+                # resolving the future finishes the serve span
+                if bspan is not None:
+                    r.span.link(bspan)
+                r.span.set_attr("queue_wait_s",
+                                max(t_batch - r.t_arrival, 0.0))
+                r.span.set_attr("execute_s", execute_s)
             if r.future.set_running_or_notify_cancel():
                 r.future.set_result(out)
             if not warmup:
@@ -790,10 +860,15 @@ class _ModelLane:
                 # is judged by.  The split: queue_wait (submit -> batch
                 # formation) + execute (batch formation -> resolve) ≈
                 # the total latency, so a p99 breach names its phase
-                self._lat.observe(max(now - r.t_arrival, 0.0))
+                self._lat.observe(
+                    max(now - r.t_arrival, 0.0),
+                    exemplar=(r.span.trace_id if r.span is not None
+                              else None))
                 self._queue_wait.observe(
                     max(t_batch - r.t_arrival, 0.0))
                 self._execute_hist.observe(execute_s)
+        if bspan is not None:
+            bspan.finish("ok", n_requests=len(batch))
         if warmup:
             self._warmup_batches += 1
         else:
@@ -1160,7 +1235,11 @@ class Engine:
         try:
             for mname, model in (models or {}).items():
                 self.load_model(mname, model)
-            # /servez tracking (serving/status.py): not ported
+            from . import status as _status
+
+            # inside the cleanup block: register_page('/servez') raises
+            # when another subsystem owns the path
+            _status.track_engine(self)
             # auto_start inside the cleanup block: a scheduler thread
             # that fails to spawn (process thread limit) must not leak
             # the built lanes
@@ -1214,8 +1293,20 @@ class Engine:
         lane = _ModelLane(name, predictor, self.policy, self._max_wait_s,
                           self._max_queue, deadline_s=self._deadline_s,
                           ragged=ragged)
-        # the JAX engine warns here when another live engine serves the
-        # same model name (its /servez registry): not ported
+        # pt_serve_* series are keyed by model name: a second engine of
+        # this process serving the same name would alias its series (and
+        # /servez stats) onto this one — warn, don't corrupt silently
+        from . import status as _status
+
+        for other in _status.live_engines():
+            if other is not self and name in getattr(other, "_lanes", {}):
+                import warnings
+
+                warnings.warn(
+                    f"model name {name!r} is already served by engine "
+                    f"{other.name!r} in this process; pt_serve_* metrics "
+                    f"and /servez stats for the two will alias — use "
+                    f"distinct model names")
         with self._lock:
             # re-check under the lock: a close() between the cheap early
             # guard and here must not end with a live lane on a dead
@@ -1295,6 +1386,9 @@ class Engine:
             lanes = list(self._lanes.values())
         for lane in lanes:
             lane.close()
+        from . import status as _status
+
+        _status.untrack_engine(self)
 
     def __enter__(self):
         return self

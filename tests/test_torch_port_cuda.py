@@ -1749,3 +1749,162 @@ def test_gpt_two_layer_step_on_card_matches_cpu(dev):
         out[type(place).__name__] = np.asarray(rows)
     np.testing.assert_allclose(out["CUDAPlace"], out["CPUPlace"], rtol=1e-4)
     assert np.isfinite(out["CUDAPlace"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet on the card: Router, Frontend, failover, launches
+# ---------------------------------------------------------------------------
+
+
+def _card_replicas(n=2):
+    """Two tiny GPT DecodeEngines on the card with equal weights (replica
+    1's scope filled from replica 0's arrays), both warmed up before
+    either starts."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = gpt.GPTConfig.tiny(num_layers=2, initializer_range=0.2)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 4, 33, 4, 8)
+    startup.random_seed = 11
+    scopes = [fluid.Scope() for _ in range(n)]
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scopes[0])
+    for s in scopes[1:]:
+        for p in main.all_parameters():
+            s.set(p.name, scopes[0].get(p.name).clone())
+    engines = [DecodeEngine(cfg, scope=s, place=fluid.CUDAPlace(0),
+                            pool_slots=4, page_size=4, prefill_chunk=8,
+                            max_len=32, auto_start=False, name=f"replica{i}",
+                            drain_on_sigterm=False)
+               for i, s in enumerate(scopes)]
+    for eng in engines:
+        eng.warmup()
+    for eng in engines:
+        eng.start()
+    return cfg, engines
+
+
+def test_fleet_failover_on_card_token_exact(dev):
+    """The failover drill over two replicas on the card, through a Router
+    and the HTTP Frontend: every stream token-exact with the one-replica
+    baseline, failovers and recovery booked, no executor-cache miss (no
+    new capture), the SLO alert fired and cleared; K4 and K5 launched
+    once a layer per program run of both replicas, warmups included."""
+    import json
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.serving import Frontend, Router, drill
+
+    card = _on_card()
+    cfg, engines = _card_replicas()
+    router = Router(engines, name="card-fleet", hedge_ms=0,
+                    probe_interval_ms=20)
+    fe = Frontend(router)
+    pool = ThreadPoolExecutor(4)
+
+    def http(prompt, n):
+        def call():
+            req = urllib.request.Request(
+                f"http://{fe.host}:{fe.port}/v1/generate",
+                data=json.dumps({"prompt": prompt,
+                                 "max_new_tokens": n}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())["tokens"]
+        return pool.submit(call)
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in (3, 9, 17, 5, 12, 7)]
+    try:
+        report = drill.failover_drill(
+            engines=engines, prompts=prompts, max_new_tokens=12,
+            kill_after=3, router=router, submit=http, timeout_s=120)
+    finally:
+        pool.shutdown()
+        fe.close()
+        router.close()
+        for eng in engines:
+            eng.close()
+    assert report["ok"], report
+    assert report["failed_over_trace"]["root"] == "generate"
+    runs = sum(e.stats()["prefill_chunks"] + e.stats()["steps"] + 2
+               for e in engines)
+    after = _on_card()
+    for k in ("fused_bias_act", "paged_attention"):
+        assert after[k] - card[k] == cfg.num_layers * runs, k
+    assert after["paged_attention_quant"] == card["paged_attention_quant"]
+
+
+def test_fleet_http_infer_on_card_bit_equal(dev, tmp_path):
+    """/v1/infer through the Router to a ragged Engine on the card equals
+    a direct submit of the same feeds bit for bit; a model loaded after
+    the warmup captures its graph on its first request beside a live
+    decode replica; K6 launched once a layer a batch."""
+    import json
+    import urllib.request
+
+    from paddle_tpu_torch import fluid, serving
+    from paddle_tpu_torch.fluid import layers as L
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = fluid.data("ids", [-1, -1], False, dtype="int64")
+        lens = fluid.data("lens", [-1], False, dtype="int32")
+        x = L.embedding(ids, size=[64, 32])
+        q, k, v = [L.transpose(L.reshape(L.fc(x, size=32, num_flatten_dims=2),
+                                         shape=[0, 0, 2, 16]),
+                               perm=[0, 2, 1, 3]) for _ in range(3)]
+        ctx = L.reshape(L.transpose(L.ragged_attention(q, k, v, lens,
+                                                       causal=True),
+                                    perm=[0, 2, 1, 3]), shape=[0, 0, 32])
+        x = L.elementwise_add(x, L.fc(ctx, size=32, num_flatten_dims=2))
+        score = L.reshape(L.reduce_mean(x, dim=[1, 2]), shape=[-1, 1])
+    startup.random_seed = 3
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    fluid.io.save_inference_model(str(tmp_path), ["ids", "lens"], [score],
+                                  exe, main_program=main, scope=scope)
+    rng = np.random.RandomState(0)
+    feeds = [{"ids": rng.randint(1, 64, (1, n)).astype(np.int64),
+              "lens": np.full((1,), n, np.int32)} for n in (3, 5, 16, 9)]
+    card = _on_card()["ragged_attention"]
+    _, (dec,) = _card_replicas(1)
+    eng = serving.Engine(batch_buckets=[4], seq_buckets=[8, 16],
+                         max_wait_ms=2, auto_start=False,
+                         place=fluid.CUDAPlace(0), name="card-infer")
+    eng.load_model("m", str(tmp_path), ragged=True)
+    eng.warmup()
+    eng.start()
+    router = serving.Router([dec, eng], name="card-infer", hedge_ms=0)
+    fe = serving.Frontend(router)
+    try:
+        def post(model, feed):
+            req = urllib.request.Request(
+                f"http://{fe.host}:{fe.port}/v1/infer",
+                data=json.dumps({"model": model, "feed": {
+                    n: a.tolist() for n, a in feed.items()}}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return np.asarray(json.loads(r.read())["outputs"][
+                    score.name], np.float32)
+
+        live = dec.submit(list(range(1, 20)), 12)
+        eng.load_model("cold", str(tmp_path), ragged=True)
+        cold = post("cold", feeds[0])
+        got = [post("m", f) for f in feeds]
+        want = [eng.submit("m", f).result(timeout=60)[score.name]
+                for f in feeds]
+        live.result(timeout=60)
+        st = eng.stats()["models"]
+    finally:
+        fe.close()
+        router.close()
+        eng.close()
+        dec.close()
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert np.array_equal(cold, want[0])
+    batches = sum(s["batches"] + s["warmup_batches"] for s in st.values())
+    assert _on_card()["ragged_attention"] - card == batches

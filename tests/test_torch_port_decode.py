@@ -234,3 +234,119 @@ def test_eos_and_single_token():
         assert stop == full[:full.index(full[2]) + 1]
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------------------
+# the fleet's decode surface: failover, resume, drain (oracle weights)
+# ---------------------------------------------------------------------------
+
+
+def _replica(oracle, name, **kw):
+    cfg, scope = _params_scope(oracle)
+    slots, page, chunk, max_len = (int(v) for v in oracle["engine"])
+    eng = DecodeEngine(cfg, scope=scope, place=fluid.CPUPlace(),
+                       pool_slots=slots, page_size=page, prefill_chunk=chunk,
+                       max_len=max_len, auto_start=False, name=name,
+                       drain_on_sigterm=False, **kw)
+    eng.warmup()
+    return eng
+
+
+@pytest.mark.parametrize("kill_after", [1, 3])
+def test_failover_drill_token_exact_with_jax(oracle, kill_after):
+    """replica_kill lands ``kill_after`` decode steps into the loaded run
+    on replica0; the router resumes every victim on replica1 from its
+    emitted prefix, and every stream equals the JAX engine's greedy ids.
+    The drill also gates the failovers and recovery booked, no new
+    executor plan, the SLO page alert fired and cleared, and the trace of
+    a failed-over request."""
+    from paddle_tpu_torch.serving import drill
+
+    engines = [_replica(oracle, f"replica{i}") for i in range(2)]
+    for eng in engines:
+        eng.start()
+    try:
+        prompts = [list(p) for p in oracle["prompts_base"]]
+        report = drill.failover_drill(
+            engines=engines, prompts=prompts, max_new_tokens=6,
+            kill_after=kill_after,
+            baseline=oracle["ids_base"].tolist())
+    finally:
+        for eng in engines:
+            eng.close()
+    assert report["ok"], report
+    assert report["failovers"] > 0 and report["token_exact"]
+    spans = report["failed_over_trace"]["spans"]
+    assert ("request", "generate", "ok") in spans
+
+
+@pytest.mark.parametrize("j", [1, 2, 4, 6])
+def test_submit_with_prefix_resumes_token_exact(oracle, j):
+    """A stream resumed from its first j tokens (re-prefilled prompt +
+    prefix[:-1]) equals the JAX engine's uninterrupted one; j = the whole
+    budget resolves without a prefill."""
+    eng = _replica(oracle, "resume")
+    eng.start()
+    try:
+        reqs = [eng.submit_request(list(p), 6, prefix=list(ids[:j]))
+                for p, ids in zip(oracle["prompts_base"], oracle["ids_base"])]
+        got = [r.future.result(timeout=120) for r in reqs]
+        assert all(r.span is None for r in reqs) == (j == 6)
+    finally:
+        eng.close()
+    np.testing.assert_array_equal(np.asarray(got), oracle["ids_base"])
+    with pytest.raises(ValueError, match="prefix"):
+        eng.submit_request([1], 2, prefix=[1, 2, 3])
+
+
+def test_drain_fails_queued_typed_and_finishes_slotted(oracle):
+    """drain(): admission stops typed, queued futures fail with reason
+    "draining", sequences already in decode slots finish token-exact."""
+    eng = _replica(oracle, "drain")
+    prompts = [list(p) for p in oracle["prompts_base"]]
+    try:
+        first = [eng.submit(p, 6) for p in prompts[:2]]
+        # drive the scheduler by hand until both hold decode slots
+        while eng.stats()["active_slots"] < 2:
+            eng._step_once()
+        queued = [eng.submit(p, 6) for p in prompts[2:] + prompts[:2]]
+        assert eng.drain() is True and not eng.healthy()
+        with pytest.raises(ServingOverloadError) as e:
+            eng.submit(prompts[0], 6)
+        assert e.value.reason == "draining"
+        eng.start()
+        assert eng.drain(timeout=120) is True
+        for f in queued:
+            with pytest.raises(ServingOverloadError) as e:
+                f.result(timeout=60)
+            assert e.value.reason == "draining"
+        got = [f.result(timeout=60) for f in first]
+        np.testing.assert_array_equal(np.asarray(got),
+                                      oracle["ids_base"][:2])
+        assert eng.stats()["draining"] and eng.load() == 0
+        assert eng.pool.stats()["pages_in_use"] == 0
+    finally:
+        eng.close()
+
+
+def test_killed_replica_fails_every_future_and_rejects_typed(oracle):
+    """A replica_kill: rule kills the scheduler before the step runs; every
+    live future gets the injected death, later submits reject typed
+    (scheduler_failed), and close() still works."""
+    from paddle_tpu_torch.distributed import fault_injection
+
+    eng = _replica(oracle, "victim")
+    fault_injection.install("replica_kill:victim:step:2")
+    try:
+        futs = [eng.submit(list(p), 6) for p in oracle["prompts_base"]]
+        eng.start()
+        for f in futs:
+            with pytest.raises(fault_injection.InjectedReplicaDeath):
+                f.result(timeout=60)
+        assert eng.stats()["steps"] == 1 and not eng.healthy()
+        with pytest.raises(ServingOverloadError) as e:
+            eng.submit([1, 2], 2)
+        assert e.value.reason == "scheduler_failed"
+    finally:
+        fault_injection.uninstall()
+        eng.close()

@@ -43,7 +43,12 @@ def test_fresh_interpreter_imports_no_jax():
                 "fluid.layers.tensor", "ops.optimizer_ops", "models.bert",
                 "inference", "fluid.io", "fluid.ir", "observability.metrics",
                 "serving.engine", "serving.batching",
-                "kernels.primitives.ragged", "kernels.primitives.int8"):
+                "kernels.primitives.ragged", "kernels.primitives.int8",
+                "observability.reqtrace", "observability.exposition",
+                "observability.slo", "serving.status", "serving.router",
+                "serving.frontend", "serving.drill",
+                "distributed.resilience", "distributed.fault_injection",
+                "distributed.elastic"):
         assert f"paddle_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
