@@ -9,8 +9,10 @@ Phases, each fatal on failure:
      started together, for sm_90a; each kernel's registers, shared
      memory and spills (ptxas), and each flash kernel's tensor-core
      instructions (SASS): the bf16 K1, K2 and K3 (namespace flash_tc)
-     are all built, spill nothing and hold HMMA, no SIMT flash kernel
-     takes bf16, K7's split instantiations of the int8 decode lane
+     and the fp32 K1 in split TF32 (namespace flash_tf32), at head-dim
+     capacities 64 and 128, causal and not, are all built, spill nothing
+     and hold HMMA, no SIMT flash kernel takes bf16, K7's split
+     instantiations of the int8 decode lane
      (d 64) spill nothing, and no K4 or K6 instantiation spills; the
      SASS instructions an element of each K4 instantiation's main loop
      (cuobjdump), the bf16 one (the train path's) printed alone.
@@ -18,18 +20,21 @@ Phases, each fatal on failure:
      the shapes its path gives it, held against its plain PyTorch
      version; timed against the plain version, its bound and, where one
      PyTorch call computes the same function, that call (library_ms).
-     K1-K3 also at a dp replica's shard and at GPT-2 small's causal
-     [96, 1024, 64] (both timed; SDPA with is_causal beside the latter)
-     and at the bf16 edges: a ragged tile, causal (S 200 and 256), D 32
-     and 12, S 1, fully masked rows.  K5 and K7 at the decode step and three prefill
+     K1-K3 also at a dp replica's shard, at GPT-2 small's causal
+     [96, 1024, 64] and one GPT-3 6.7B layer's causal [32, 2048, 128]
+     bf16, and in fp32 at [96, 128, 128] (all timed; SDPA with is_causal
+     beside the causal ones), at the bf16 edges: a ragged tile, causal
+     (S 200 and 256), D 32 and 12, S 1, fully masked rows, and in both
+     dtypes at D 80, 96 and 128 (ragged, causal, fully masked rows).  K5 and K7 at the decode step and three prefill
      chunks, each with its split plan and partials workspace, both forms
      held against the plain version and timed in turns, one split
      against split.  K4 also at a dp shard's FFN shape, the MLM
      head's and GPT-2 small's FFN [8192, 3072].  K6 at the Engine path's S 128 and the bucketed arm's S 32
      and 64 (timed, with SDPA beside it), then at D 96 and 128, bf16 at
-     D 32 and 64, S 1 and S 1024.  The fp32 K1 (the SIMT kernel) at
-     the predictor path's b8 s128, 12 heads, D 64, timed against its
-     bound, SDPA in fp32 and the composed matmul / softmax / matmul.
+     D 32 and 64, S 1 and S 1024.  The fp32 K1 (split TF32) at the
+     predictor path's b8 s128, 12 heads, D 64, timed against its bound
+     (and the SIMT-rate figure), SDPA in fp32 and the composed matmul /
+     softmax / matmul.
      K8's group
      form over the dp lane's real segment list (BERT-base's 206
      parameters x 4 replicas), held against the plain version member by
@@ -131,7 +136,8 @@ Phases, each fatal on failure:
      b8 s128 fp32, passes on and off, each captured and eager, in turns:
      on arm 12 flash_attention ops in the loaded program and K1 and K4
      12 a run on the card (off arm none); captured equal to eager, on
-     within 1e-4 of off; run p50 / p95, peak memory, device busy.
+     within 1e-4 of off; run p50 / p95, peak memory, device busy and
+     K1's device time a run (profiler).
  16. int8-weight decode path: phase 6's lane with
      DecodeEngine(int8_weights=True): the weights claimed, the modeled
      bytes saved, ``torch.cuda.memory_allocated()`` an engine adds at
@@ -199,7 +205,8 @@ fuse_softmax_cross_entropy) match nothing on their programs.  Each
 phase's line carries the seconds since the previous one (``phase_s``).
 
 ``python3 chip_smoke.py --only k4,k6,k6_contract`` runs phases 1-3 for
-the named kernels alone (a quick check of a kernel change; see ONLY);
+the named kernels alone (a quick check of a kernel change; see ONLY;
+``--only flash``: K1-K3 with phase 2's flash report);
 ``--only engine`` adds phases 10-11, ``--only passes,predictor,int8w``
 phases 14, 15 and 16 (``predictor`` with phase 3's fp32 K1 at its
 shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18, and
@@ -265,9 +272,10 @@ TRAIN_PARAM_MAX_ATOL = 3 * TRAIN_LR
 TRAIN_PARAM_MEAN_ATOL = 1e-6
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32
-# (non-tensor-core) flop/s and bf16 dense tensor-core flop/s
+# (non-tensor-core) flop/s, TF32 and bf16 dense tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_TC_FLOPS = 494.7e12
 BF16_TC_FLOPS = 989e12
 GELU_FLOPS_PER_ELEMENT = 10  # add, scale, erfc, mul... as counted in PERF.md
 SLEEP_CYCLES = 400_000_000  # ~0.2 s of device sleep ahead of a timed run
@@ -444,8 +452,13 @@ def _demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
-# the bf16 flash kernels of namespace flash_tc: K1, K2, K3
-FLASH_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+# the tensor-core flash kernels: bf16 K1, K2, K3 (namespace flash_tc)
+# and the fp32 K1 in split TF32 (namespace flash_tf32), each at both
+# head-dim capacities and causal or not
+FLASH_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
+                    "flash_fwd_tf32")
+FLASH_HEAD_DIMS = (64, 128)
+FLASH_TC_NAMESPACES = ("_ZN8flash_tc", "_ZN10flash_tf32")
 
 
 def _ptxas_entries(name):
@@ -492,9 +505,12 @@ def flash_build_report():
     """Each flash entry function's registers, static shared memory and
     spill bytes (the build's -Xptxas -v), and the tensor-core (HMMA,
     HGMMA) instructions in its SASS (cuobjdump, where the toolkit has
-    it).  The bf16 K1, K2 and K3 (namespace flash_tc) must all be there,
-    spill nothing and, where SASS can be read, hold tensor-core
-    instructions; no SIMT flash kernel may take bf16."""
+    it; the split-TF32 products show as HMMA too).  Every instantiation
+    of the bf16 K1, K2 and K3 (namespace flash_tc) and of the fp32 K1
+    (namespace flash_tf32), at head-dim capacities 64 and 128, causal
+    and not, must be there, spill nothing and, where SASS can be read,
+    hold tensor-core instructions; no SIMT flash kernel may take
+    bf16."""
     import re
     import shutil
 
@@ -515,16 +531,21 @@ def flash_build_report():
         r = dict(props)
         if mangled in hmma:
             r["tensor_core_instructions"] = hmma[mangled]
-        # a function of namespace flash_tc (not one merely taking its
-        # Strides)
-        r["tensor_cores"] = mangled.startswith("_ZN8flash_tc")
+        # a function of namespace flash_tc or flash_tf32 (not one merely
+        # taking their Strides)
+        r["tensor_cores"] = mangled.startswith(FLASH_TC_NAMESPACES)
         report[label] = r
     bad = [k for k, r in report.items() if r["tensor_cores"] and (
         r.get("spill_bytes") != 0
         or r.get("tensor_core_instructions", 1) == 0)]
-    missing = [k for k in FLASH_TC_KERNELS
-               if not any(k in lb and r["tensor_cores"]
-                          for lb, r in report.items())]
+    # each kernel at each capacity, causal and not (template arguments
+    # <bool, int> mangle as Lb0/Lb1 then Li64E/Li128E)
+    tc_mangled = [m for m, _, _ in entries
+                  if m.startswith(FLASH_TC_NAMESPACES)]
+    missing = [f"{k}<{bool(c)}, {d}>" for k in FLASH_TC_KERNELS
+               for d in FLASH_HEAD_DIMS for c in (0, 1)
+               if not any(k in m and f"Lb{c}ELi{d}E" in m
+                          for m in tc_mangled)]
     simt_bf16 = [k for k, r in report.items()
                  if not r["tensor_cores"] and "__nv_bfloat16" in k]
     if bad or missing or simt_bf16:
@@ -1065,18 +1086,29 @@ def _flash_inputs(dev, b, h, s, d, dtype, rng, bias_mode="pads"):
     return q, k, v, do, rows
 
 
-def _flash_bounds(bh, s, d, elem, causal):
+def _flash_bounds(bh, s, d, dtype, causal, simt=False):
     """(ms, bound_by) of K1, K2, K3: each operand read once and each
     output written once at HBM rate vs the products' flops (2 per
-    multiply-add over the live (query, key) pairs) at the bf16
-    tensor-core rate."""
+    multiply-add over the live (query, key) pairs).  bf16 at the bf16
+    tensor-core rate.  fp32 at the card's rate for fp32-accurate
+    products, whatever implements them: three TF32 products each (split
+    TF32, as K1 takes them) at the TF32 tensor-core rate.  ``simt``: the
+    fp32 products once each at the fp32 SIMT rate instead, the bound of
+    SIMT kernels (K2 and K3 in fp32, PR 12's K1)."""
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    elem = 2 if dtype == torch.bfloat16 else 4
     mat = elem * bh * s * d      # one [BH, S, D] operand
     row = 4 * bh * s             # one fp32 [BH, S] row vector
-    k1 = _bound(3 * mat + row + mat + row, 2 * 2 * pairs * d, BF16_TC_FLOPS)
-    k2 = _bound(4 * mat + 3 * row + mat, 3 * 2 * pairs * d, BF16_TC_FLOPS)
-    k3 = _bound(4 * mat + 3 * row + 2 * mat + row, 4 * 2 * pairs * d,
-                BF16_TC_FLOPS)
+    if dtype == torch.bfloat16:
+        per_product, peak = 1, BF16_TC_FLOPS
+    elif simt:
+        per_product, peak = 1, FP32_FLOPS
+    else:
+        per_product, peak = 3, TF32_TC_FLOPS
+    ops = 2 * pairs * d * per_product   # one [S, S] x [S, D] product
+    k1 = _bound(3 * mat + row + mat + row, 2 * ops, peak)
+    k2 = _bound(4 * mat + 3 * row + mat, 3 * ops, peak)
+    k3 = _bound(4 * mat + 3 * row + 2 * mat + row, 4 * ops, peak)
     return k1, k2, k3
 
 
@@ -1103,15 +1135,21 @@ def _sdpa_ms(q, k, v, do, rows, scale, causal=False):
 
 
 # (name, b, h, s, d, dtype, causal, bias mode (_flash_inputs), timed):
-# the BERT path's shape, a dp replica's shard and GPT-2 small's causal
-# b8 s1024 (all timed), then the edges of the bf16 tensor-core K1-K3 (a
-# ragged last tile, causal, four key tiles a causal row, D < 64, rows
-# that are not 16-byte multiples, one token, rows whose keys are all
-# masked) and the fp32 SIMT cases
+# the BERT path's shape, a dp replica's shard, GPT-2 small's causal
+# b8 s1024, the attention of one GPT-3 6.7B layer (b1 s2048, 32 heads,
+# d_head 128; Brown et al. 2020, Table 2.1) and the fp32 kernels at the
+# predictor's b8 s128 12 heads with D 128 (all timed), then the edges of
+# the bf16 tensor-core K1-K3 (a ragged last tile, causal, four key
+# tiles a causal row, D < 64, rows that are not 16-byte multiples, one
+# token, rows whose keys are all masked), the fp32 cases (K1 split TF32,
+# K2 and K3 SIMT) and both dtypes at D 80, 96 and 128 (a head-dim
+# capacity of 128 columns)
 FLASH_CASES = (
     ("path", 128, 12, 128, 64, torch.bfloat16, False, "pads", True),
     ("dp_shard", 32, 12, 128, 64, torch.bfloat16, False, "pads", True),
     ("gpt", 8, 12, 1024, 64, torch.bfloat16, True, "zero", True),
+    ("gpt3_6p7b", 1, 32, 2048, 128, torch.bfloat16, True, "zero", True),
+    ("fp32_d128", 8, 12, 128, 128, torch.float32, False, "pads", True),
     ("bf16_ragged", 4, 12, 200, 64, torch.bfloat16, False, "pads", False),
     ("bf16_ragged_causal", 4, 12, 200, 64, torch.bfloat16, True, "pads",
      False),
@@ -1126,15 +1164,32 @@ FLASH_CASES = (
     ("ragged", 4, 12, 200, 64, torch.float32, False, "pads", False),
     ("ragged_causal", 4, 12, 200, 64, torch.float32, True, "pads", False),
     ("masked_rows", 4, 12, 128, 64, torch.float32, False, "masked", False),
+    ("bf16_d80_ragged_causal", 4, 12, 200, 80, torch.bfloat16, True,
+     "pads", False),
+    ("bf16_d96_ragged", 4, 12, 200, 96, torch.bfloat16, False, "pads",
+     False),
+    ("bf16_d128_ragged_causal", 4, 12, 200, 128, torch.bfloat16, True,
+     "pads", False),
+    ("bf16_d128_masked_rows", 4, 12, 128, 128, torch.bfloat16, False,
+     "masked", False),
+    ("d80_ragged_causal", 4, 12, 200, 80, torch.float32, True, "pads",
+     False),
+    ("d96_ragged", 4, 12, 200, 96, torch.float32, False, "pads", False),
+    ("d128_ragged_causal", 4, 12, 200, 128, torch.float32, True, "pads",
+     False),
+    ("d128_masked_rows", 4, 12, 128, 128, torch.float32, False, "masked",
+     False),
 )
 
 
 def check_flash(dev, rng):
     """K1, K2, K3 against their plain versions at FLASH_CASES; bf16 ones
-    run on the tensor cores, fp32 ones on the SIMT units.
-    Timed at the BERT path's shape (BH = 1536, S = 128, D = 64, bf16),
-    at a dp replica's shard (BH = 384) and at GPT-2 small's (BH = 96,
-    S = 1024, causal; SDPA with ``is_causal`` beside it)."""
+    run on the tensor cores, fp32 K1 on the tensor cores in split TF32,
+    fp32 K2 and K3 on the SIMT units.  Timed at the BERT path's shape
+    (BH = 1536, S = 128, D = 64, bf16), at a dp replica's shard
+    (BH = 384), at GPT-2 small's (BH = 96, S = 1024, causal) and GPT-3
+    6.7B's (BH = 32, S = 2048, D = 128, causal; SDPA with ``is_causal``
+    beside both), and in fp32 at [96, 128, 128]."""
     from paddle_tpu_torch.kernels.primitives import flash
 
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -1182,25 +1237,32 @@ def check_flash(dev, rng):
                                      f"are not the mean of V")
         if not timed:
             continue
-        k1, k2, k3 = _flash_bounds(b * h, s, d, 2, causal)
+        k1, k2, k3 = _flash_bounds(b * h, s, d, dtype, causal)
+        simt = (_flash_bounds(b * h, s, d, dtype, causal, simt=True)
+                if dtype == torch.float32 else (None,) * 3)
         lib_fwd, lib_bwd = _sdpa_ms(q, k, v, do, rows, scale,
                                     causal=bias_mode == "zero")
         shape = {}
-        for kern, fn, plain, (bound_ms, bound_by), lib in (
+        for kern, fn, plain, (bound_ms, bound_by), simt_bound, lib in (
                 ("flash_fwd",
                  lambda: flash.flash_fwd(q, k, v, rows, causal, scale),
                  lambda: flash.flash_fwd(q, k, v, rows, causal, scale,
-                                         force="reference"), k1, lib_fwd),
+                                         force="reference"), k1, simt[0],
+                 lib_fwd),
                 ("flash_bwd_dq", lambda: flash.flash_bwd_dq(*bargs),
                  lambda: flash.flash_bwd_dq(*bargs, force="reference"), k2,
-                 lib_bwd),
+                 simt[1], lib_bwd),
                 ("flash_bwd_dkv", lambda: flash.flash_bwd_dkv(*bargs),
                  lambda: flash.flash_bwd_dkv(*bargs, force="reference"), k3,
-                 lib_bwd)):
+                 simt[2], lib_bwd)):
             shape[kern] = dict(
                 ms=_time_ms(fn, 30), plain_ms=_time_ms(plain, 10),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-                shape=[b * h, s, d], dtype="bfloat16")
+                shape=[b * h, s, d], dtype=str(dtype).split(".")[-1],
+                causal=causal)
+            if simt_bound is not None:
+                shape[kern].update(bound_simt_ms=simt_bound[0],
+                                   bound_simt_by=simt_bound[1])
         if name == "path":
             timings.update(shape)
         else:
@@ -1214,12 +1276,15 @@ def check_flash(dev, rng):
 
 
 def check_flash_fp32_predictor(dev, rng):
-    """K1 in fp32 (the SIMT kernel of csrc/flash_attention.cu) at the
+    """K1 in fp32 (the split-TF32 kernel of csrc/flash_tf32.cuh) at the
     predictor path's shape, b8 s128, 12 heads, D 64 ([96, 128, 64] fp32,
-    a key bias with pads): held against its plain version, and timed
-    against its bound (fp32 products at the SIMT rate), SDPA in fp32 with
-    the same float mask, and the composed matmul / softmax / matmul that
-    the passes-off predictor runs.  Measurement only."""
+    a key bias with pads): held against its plain version and the
+    composed path, and timed against its bound (the bytes, or the
+    products as split TF32 does them, three TF32 products each, at the
+    TF32 tensor-core rate; beside it the products at the fp32 SIMT rate,
+    the bound of the SIMT form it replaced), SDPA in fp32 with the same
+    float mask, and the composed matmul / softmax / matmul that the
+    passes-off predictor runs."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels.primitives import flash
@@ -1245,12 +1310,14 @@ def check_flash_fp32_predictor(dev, rng):
             raise AssertionError(f"flash_fwd fp32 predictor shape: max abs "
                                  f"err {e} outside {tol}")
         err = max(err, e)
-    bh, elem = b * h, 4
-    mat, row = elem * bh * s * d, 4 * bh * s
-    bound_ms, bound_by = _bound(3 * mat + row + mat + row,
-                                2 * 2 * bh * s * s * d, FP32_FLOPS)
+    bh = b * h
+    (bound_ms, bound_by), _, _ = _flash_bounds(bh, s, d, torch.float32,
+                                               False)
+    (simt_ms, simt_by), _, _ = _flash_bounds(bh, s, d, torch.float32, False,
+                                             simt=True)
     return err, dict(
-        shape=[bh, s, d], dtype="float32",
+        shape=[bh, s, d], dtype="float32", bound_simt_ms=simt_ms,
+        bound_simt_by=simt_by,
         ms=_time_ms(lambda: flash.flash_fwd(q, k, v, rows, False, scale),
                     30),
         plain_ms=_time_ms(lambda: flash.flash_fwd(
@@ -3274,7 +3341,8 @@ def run_predictor_path(counters):
     (passes on and off) and mode (captured and eager), all four run in
     turns.  On arm: 12 flash_attention ops in the loaded program, K1 and
     K4 12 a run on the card, K2/K3 none; off arm: none.  Captured equal
-    to eager, on within 1e-4 of off."""
+    to eager, on within 1e-4 of off.  A profiled run of each gives the
+    device busy time and K1's device time and kernels a run."""
     import tempfile
 
     from paddle_tpu_torch import inference as inf
@@ -3334,12 +3402,15 @@ def run_predictor_path(counters):
         for m, _ in MODES:
             timed = np.asarray(secs[a, m][1:])
             with graph_passes(spec):
-                prof = _profile(lambda: preds[a, m].run(tensors), 1)
+                prof = _profile(lambda: preds[a, m].run(tensors), 1,
+                                match="flash_fwd")
             modes[m] = dict(
                 run_p50_ms=1e3 * float(np.percentile(timed, 50)),
                 run_p95_ms=1e3 * float(np.percentile(timed, 95)),
                 first_run_s=secs[a, m][0], peak_memory_gb=peak[a, m] / 1e9,
                 launches=launches[a][m], device_launches=on_card[a][m],
+                k1_device_ms=prof["flash_fwd_device_ms"],
+                k1_kernels=prof["flash_fwd_events"],
                 **{k: prof[k] for k in ("device_busy_ms",
                                         "device_idle_share",
                                         "launch_api_calls") if k in prof})
@@ -4227,6 +4298,8 @@ def run_fleet_path(counters):
 
 
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
+# "flash" phase 2's flash report and phase 3's K1-K3 checks (every
+# FLASH_CASES case and the fp32 K1 at the predictor's shape);
 # "engine" runs phases 10-11 (the ragged Engine, both arms) instead,
 # "passes", "predictor" and "int8w" phases 14, 15 and 16 ("predictor"
 # with phase 3's fp32 K1 at its shape), "gpt" phase 3's K1-K4 checks
@@ -4236,6 +4309,8 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
         "k6_contract": (("ragged_attention",), ("check_ragged_contract",)),
+        "flash": (("flash_attention",), ("check_flash",
+                                         "check_flash_fp32_predictor")),
         "engine": (("ragged_attention",), ()),
         "passes": (("flash_attention", "fused_bias_act"), ()),
         "predictor": (("flash_attention", "fused_bias_act"),
@@ -4322,6 +4397,9 @@ def run_only(keys, dev, smi, say):
 
     libs = sorted({lib for k in keys for lib in ONLY[k][0]})
     say("build", {k: round(v, 2) for k, v in _build.build_all(libs).items()})
+    if "flash_attention" in libs:
+        for label, r in flash_build_report().items():  # fails on a spill
+            print(f"ptxas flash_attention: {label}: " + json.dumps(r))
     rng = np.random.RandomState(SEED)
     timings = {}
     for k in keys:
@@ -4351,8 +4429,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
-                    "k6_contract, engine, passes, predictor, int8w, gpt, "
-                    "fleet): phases 1-3 for those kernels alone (engine: "
+                    "k6_contract, flash, engine, passes, predictor, int8w, "
+                    "gpt, fleet): phases 1-3 for those kernels alone "
+                    "(flash: with phase 2's flash report; engine: "
                     "phases 10-11; passes, predictor, int8w: phases 14, "
                     "15, 16; gpt: K1-K4 and phases 17-18; fleet: phase "
                     "19); the default runs every phase")
@@ -4527,7 +4606,8 @@ def main(argv=None):
     def launches(name, key="launches"):
         return {p: n[name] for p, n in by_path[key].items() if name in n}
 
-    def row(name, source, replaces, err, t, gpt_t=None, pred_t=None):
+    def row(name, source, replaces, err, t, gpt_t=None, pred_t=None,
+            shapes=None):
         runs = launches(name)
         on_card = launches(name, "device_launches")
         out = dict(name=name, route="cuda", source=source,
@@ -4543,21 +4623,32 @@ def main(argv=None):
             out["at_gpt_shape"] = {k: gpt_t.get(k) for k in keys}
         if pred_t is not None:  # fp32 at the predictor's shape
             out["at_predictor_shape_fp32"] = {
-                k: pred_t.get(k) for k in keys + ("composed_ms",)}
+                k: pred_t.get(k) for k in keys + (
+                    "composed_ms", "bound_simt_ms", "bound_simt_by")}
+        for label, st in (shapes or {}).items():  # other timed shapes
+            out[f"at_{label}"] = {
+                k: st[k] for k in keys + ("shape", "dtype", "causal",
+                                          "bound_simt_ms", "bound_simt_by")
+                if k in st}
         return out
 
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     flash_py = "paddle_tpu/kernels/primitives/flash.py"
+
+    def flash_shapes(kern):
+        return {n: fl_t[n][kern] for n in ("gpt3_6p7b", "fp32_d128")}
+
     kernels = [
         row("flash_fwd", flash_src, f"{flash_py}:78",
             max(fl_err["flash_fwd"], k1p_err), fl_t["flash_fwd"],
-            fl_t["gpt"]["flash_fwd"], k1p_t),
+            fl_t["gpt"]["flash_fwd"], k1p_t, flash_shapes("flash_fwd")),
         row("flash_bwd_dq", flash_src, f"{flash_py}:130",
             fl_err["flash_bwd_dq"], fl_t["flash_bwd_dq"],
-            fl_t["gpt"]["flash_bwd_dq"]),
+            fl_t["gpt"]["flash_bwd_dq"], shapes=flash_shapes("flash_bwd_dq")),
         row("flash_bwd_dkv", flash_src, f"{flash_py}:167",
             fl_err["flash_bwd_dkv"], fl_t["flash_bwd_dkv"],
-            fl_t["gpt"]["flash_bwd_dkv"]),
+            fl_t["gpt"]["flash_bwd_dkv"],
+            shapes=flash_shapes("flash_bwd_dkv")),
         row("fused_bias_act", "paddle_tpu_torch/csrc/fused_bias_act.cu",
             "paddle_tpu/kernels/fused_bias_act.py:106", max(k4_err, k4b_err),
             k4, k4b_t["[8192,3072] bf16"]),

@@ -9,8 +9,9 @@
 //      dS = P·(dO·Vᵀ - delta)·scale;
 //   K3 `_bwd_dkv_kernel` (:167, launched at :314): dV = Σ_q Pᵀ·dO,
 //      dK = Σ_q dSᵀ·Q, dBias[k] = Σ_q dL with dL = P·(dP - delta).
-// fp32 inputs keep the SIMT kernels of flash_attention.cu, which
-// includes this header; its entry points send dtype code 1 (bf16) here.
+// fp32 inputs take flash_tf32.cuh (K1) and the SIMT kernels of
+// flash_attention.cu (K2, K3), which includes both headers; its entry
+// points send dtype code 1 (bf16) here.
 //
 // What bounds them on this card: at the BERT train step's shape
 // (BH = 1536, S = 128, D = 64) K1 reads q, k, v and the bias rows and
@@ -82,8 +83,18 @@
 //   bytes a lane, 8 lanes a 128-byte row.  Stored straight from the
 //   accumulators, each 4-byte-a-lane store would touch eight rows 1,536
 //   bytes apart (the [B, S, H, D] layout), half a 32-byte sector each.
-// - Shared memory (static, under 48 KB): K1 46,592 bytes, K2 37,376, K3
-//   37,888.
+// - Head dims: each kernel is instantiated at a head-dim capacity kD of
+//   64 or 128 columns (D <= 64 takes 64, 64 < D <= 128 takes 128); the
+//   tiles are zero-filled past D.  kD 64 is the design above, unchanged.
+//   kD 128 doubles the d-chunks of every product and the O, dQ, dK, dV
+//   accumulators (64 fp32 registers a thread each), so it runs under its
+//   own launch bounds (2 CTAs an SM, at most 255 registers), and K2 and
+//   K3 no longer hold their Q and dO (K2) or K and V rows (K3) as A
+//   fragments (64 more registers): they stay in two more shared tiles,
+//   read again by ldmatrix where a product needs them.
+// - Shared memory: kD 64 static, under 48 KB: K1 46,592 bytes, K2
+//   37,376, K3 37,888.  kD 128 (136-element rows) dynamic, set by
+//   cudaFuncSetAttribute: K1 87,552, K2 104,960, K3 105,472.
 // - ptxas (-Xptxas -v, sm_90a; chip_smoke.py phase 2 prints it with the
 //   HMMA count of each kernel's SASS): K1 127 registers (launch bound:
 //   4 CTAs an SM, at most 128), K3 168 (3 CTAs, at most 168), 0 bytes
@@ -92,7 +103,9 @@
 //   registers, 0 bytes spilled, 128 HMMA in its tile loop (16 for S, 16
 //   for dP and 32 for dQ in each half).  On the card K2 takes 0.0665 ms
 //   at the train step's shape, 58% of its byte bound (the SIMT form took
-//   0.495; SDPA's whole backward 0.195).
+//   0.495; SDPA's whole backward 0.195).  kD 128, under 2 CTAs an SM:
+//   K1 168 (causal 174) registers, K2 224-226, K3 228, 0 bytes spilled;
+//   128 HMMA in K1's tile loop, 256 in K2's, 80 in K3's chunk.
 
 #pragma once
 
@@ -101,6 +114,7 @@
 #include "launch_count.cuh"
 
 #include <cstdint>
+#include <type_traits>
 
 namespace flash_tc {
 
@@ -119,16 +133,52 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;       // query rows (K1, K2) or keys (K3) of a CTA
 constexpr int kStep = 64;       // keys (K1, K2) or queries (K3) of a stage
-constexpr int kLdh = 72;        // padded row stride of a staged tile
-constexpr int kTileElems = 64 * kLdh;
 constexpr int kThreadsTc = 128; // 4 warps, 16 rows each
 constexpr float kLog2e = 1.4426950408889634f;
-// static shared memory (bytes), under 48 KB: a K1 CTA (Q, two K and two
-// V tiles, two bias rows), a K2 CTA (two K and two V tiles, two bias
-// rows) and a K3 CTA (two Q and two dO tiles, two lse and two delta rows)
-constexpr int kFwdSmem = 5 * kTileElems * 2 + 2 * kStep * 4;  // 46,592
-constexpr int kDqSmem = 4 * kTileElems * 2 + 2 * kStep * 4;   // 37,376
-constexpr int kDkvSmem = 4 * kTileElems * 2 + 4 * kStep * 4;  // 37,888
+constexpr int kStaticSmemMax = 48 * 1024;  // above it, dynamic only
+
+// The tiles of a head-dim capacity kD (64 or 128 columns): rows padded
+// by 8 elements (16 bytes), and each kernel's shared memory in bytes: a
+// K1 CTA (Q, two K and two V tiles, two bias rows), a K2 CTA (two K and
+// two V tiles, two bias rows) and a K3 CTA (two Q and two dO tiles, at
+// kD 128 also a K and a V tile, two lse and two delta rows)
+template <int kD>
+struct Geo {
+  static_assert(kD == 64 || kD == 128, "head-dim capacity 64 or 128");
+  static constexpr int kLd = kD + 8;
+  static constexpr int kElems = 64 * kLd;
+  static constexpr int kChunkShift = kD == 64 ? 3 : 4;  // log2(kD / 8)
+  // kD 64 keeps K2's Q and dO rows and K3's K and V rows in registers
+  // (A fragments); kD 128 keeps them in shared tiles
+  static constexpr bool kHoldRows = kD == 64;
+  static constexpr int kFwdSmem = 5 * kElems * 2 + 2 * kStep * 4;
+  static constexpr int kDqSmem =
+      (kHoldRows ? 4 : 6) * kElems * 2 + 2 * kStep * 4;
+  static constexpr int kDkvSmem =
+      (kHoldRows ? 4 : 6) * kElems * 2 + 4 * kStep * 4;
+  static constexpr bool kStatic = kD == 64;  // every kernel under 48 KB
+};
+
+// A kernel's shared memory: a static array where it fits under 48 KB
+// (kD 64), else the dynamic allocation its launch sets up.  Declared in
+// the kernel (a static array of 16 bytes where unused), so every
+// address derived from it stays in the shared space.
+#define FLASH_TC_SMEM(name, bytes)                                         \
+  __shared__ __align__(16) unsigned char name##_static[G::kStatic ? (bytes) \
+                                                                  : 16];   \
+  extern __shared__ __align__(16) unsigned char flash_tc_dynamic[];        \
+  unsigned char* name = G::kStatic ? name##_static : flash_tc_dynamic
+
+// Before a launch: allow `bytes` of dynamic shared memory where they pass
+// the static limit.  Returns the dynamic bytes the launch passes (0 for
+// a static kernel) in *dyn.
+template <typename Kernel>
+inline cudaError_t smem_setup(Kernel kernel, int bytes, int* dyn) {
+  *dyn = bytes <= kStaticSmemMax ? 0 : bytes;
+  if (*dyn == 0) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -214,28 +264,32 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Stage rows [row0, row0 + 64) x [0, 64) of a [S, D] bf16 matrix (row
-// stride ss) into dst (kLdh stride).  Rows past S and columns past D
-// are zeros.  vec: 16-byte cp.async (asynchronous, completes at a later
-// wait); else scalar loads, done when the call returns.
+// Stage rows [row0, row0 + 64) x [0, kD) of a [S, D] bf16 matrix (row
+// stride ss) into dst (Geo<kD>::kLd stride).  Rows past S and columns
+// past D are zeros.  vec: 16-byte cp.async (asynchronous, completes at a
+// later wait); else scalar loads, done when the call returns.
+template <int kD>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
                                            long long ss, int row0, int S,
                                            int D, bool vec) {
+  constexpr int kLd = Geo<kD>::kLd, kChunks = kD / 8;  // 16 bytes each
+  constexpr int kShift = Geo<kD>::kChunkShift;
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < 64 * 8 / kThreadsTc; ++it) {
+    for (int it = 0; it < 64 * kChunks / kThreadsTc; ++it) {
       const int c = threadIdx.x + it * kThreadsTc;
-      const int r = c >> 3, col = (c & 7) << 3, row = row0 + r;
+      const int r = c >> kShift, col = (c & (kChunks - 1)) << 3;
+      const int row = row0 + r;
       const bool ok = row < S && col < D;
-      cp_async16(dst + r * kLdh + col, ok ? src + row * ss + col : src,
+      cp_async16(dst + r * kLd + col, ok ? src + row * ss + col : src,
                  ok ? 16 : 0);
     }
   } else {
-    for (int it = 0; it < 64 * 64 / kThreadsTc; ++it) {
+    for (int it = 0; it < 64 * kD / kThreadsTc; ++it) {
       const int e = threadIdx.x + it * kThreadsTc;
-      const int r = e >> 6, col = e & 63, row = row0 + r;
-      dst[r * kLdh + col] = (row < S && col < D) ? src[row * ss + col]
-                                                 : __float2bfloat16(0.f);
+      const int r = e >> (kShift + 3), col = e & (kD - 1), row = row0 + r;
+      dst[r * kLd + col] = (row < S && col < D) ? src[row * ss + col]
+                                                : __float2bfloat16(0.f);
     }
   }
 }
@@ -257,31 +311,36 @@ __device__ __forceinline__ void stage_row(float* dst, const float* src,
 // and b0, b1 of n-block r0 + 8.  A B stored [k][n] (rows r0.. are k,
 // columns c0..c0+15 two n-blocks) takes a_addr's addresses with
 // ldmatrix .trans: b0, b1 of n-block c0, then of n-block c0 + 8.
+template <int kD>
 __device__ __forceinline__ const bf16* a_addr(const bf16* t, int r0, int c0,
                                               int lane) {
-  return t + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdh + c0 +
+  return t + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * Geo<kD>::kLd + c0 +
          (lane >> 4) * 8;
 }
+template <int kD>
 __device__ __forceinline__ const bf16* b_addr(const bf16* t, int r0, int c0,
                                               int lane) {
-  return t + (r0 + (lane & 7) + (lane >> 4) * 8) * kLdh + c0 +
+  return t + (r0 + (lane & 7) + (lane >> 4) * 8) * Geo<kD>::kLd + c0 +
          ((lane >> 3) & 1) * 8;
 }
 
-// A warp stores 16 rows (kLdh stride in shared memory) as rows row0..
-// of a [S, D] bf16 matrix (row stride ss): 16 bytes a lane, 8 lanes a
-// row, where aligned (vec); else element by element.  Rows past S and
-// columns past D are not written.
+// A warp stores 16 rows (Geo<kD>::kLd stride in shared memory) as rows
+// row0.. of a [S, D] bf16 matrix (row stride ss): 16 bytes a lane, kD/8
+// lanes a row, where aligned (vec); else element by element.  Rows past
+// S and columns past D are not written.
+template <int kD>
 __device__ __forceinline__ void store_rows(bf16* dst, long long ss,
                                            const bf16* src, int row0, int S,
                                            int D, int lane, bool vec) {
+  constexpr int kChunks = kD / 8, kShift = Geo<kD>::kChunkShift;
 #pragma unroll
-  for (int it = 0; it < 16 * 8 / 32; ++it) {
-    const int c = lane + it * 32, r = c >> 3, col = (c & 7) << 3;
+  for (int it = 0; it < 16 * kChunks / 32; ++it) {
+    const int c = lane + it * 32, r = c >> kShift;
+    const int col = (c & (kChunks - 1)) << 3;
     const int row = row0 + r;
     if (row >= S) continue;
     bf16* out = dst + row * ss + col;
-    const bf16* in = src + r * kLdh + col;
+    const bf16* in = src + r * Geo<kD>::kLd + col;
     if (vec) {  // D % 8 == 0
       if (col < D)
         *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(in);
@@ -299,11 +358,12 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long ss,
 // ---------------------------------------------------------------------------
 
 // One key tile's online-softmax step for a row block: s (the raw
-// products) becomes P; m, l and acc are rescaled.  kMask: the tile
-// holds keys past S or past the causal diagonal.
-template <bool kCausal, bool kMask>
+// products) becomes P; m, l and acc (kN 8-column blocks of O) are
+// rescaled.  kMask: the tile holds keys past S or past the causal
+// diagonal.
+template <bool kCausal, bool kMask, int kN>
 __device__ __forceinline__ void softmax_step(float (&s)[8][4],
-                                             float (&acc)[8][4],
+                                             float (&acc)[kN][4],
                                              float (&m)[2], float (&l)[2],
                                              const float* bt, int k0, int S,
                                              int row0, int tig, float scale) {
@@ -339,21 +399,26 @@ __device__ __forceinline__ void softmax_step(float (&s)[8][4],
       l[e >> 1] += p;
       acc[n][e] *= alpha[e >> 1];
     }
+#pragma unroll
+  for (int n = 8; n < kN; ++n)  // the O columns past 64 (kD 128)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 }
 
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreadsTc, 4)
+template <bool kCausal, int kD>
+__global__ void __launch_bounds__(kThreadsTc, kD == 64 ? 4 : 2)
     flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
                  bf16* __restrict__ o, float* __restrict__ lse, int H, int S,
                  int D, Strides sq, Strides sk, Strides sv, Strides so,
                  float scale, int vec) {
+  using G = Geo<kD>;
   count_launch(0);
-  __shared__ __align__(16) unsigned char smem[kFwdSmem];
+  FLASH_TC_SMEM(smem, G::kFwdSmem);
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // the query tile
-  bf16* Ks = Qs + kTileElems;                // two key tiles
-  bf16* Vs = Ks + 2 * kTileElems;            // two value tiles
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * kTileElems);  // two bias rows
+  bf16* Ks = Qs + G::kElems;                 // two key tiles
+  bf16* Vs = Ks + 2 * G::kElems;             // two value tiles
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * G::kElems);  // two bias rows
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -370,21 +435,21 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
   auto prefetch = [&](int t) {
     const int buf = t & 1;
     if (t < n_tiles) {
-      stage_tile(Ks + buf * kTileElems, kh, sk.s, t * kStep, S, D, vk);
+      stage_tile<kD>(Ks + buf * G::kElems, kh, sk.s, t * kStep, S, D, vk);
       stage_row(Bs + buf * kStep, brow, t * kStep, S);
     }
     cp_async_commit();
     if (t < n_tiles)
-      stage_tile(Vs + buf * kTileElems, vh, sv.s, t * kStep, S, D, vv);
+      stage_tile<kD>(Vs + buf * G::kElems, vh, sv.s, t * kStep, S, D, vv);
     cp_async_commit();
   };
-  stage_tile(Qs, head(q, sq, bh, H), sq.s, q0, S, D, vec & 1);
+  stage_tile<kD>(Qs, head(q, sq, bh, H), sq.s, q0, S, D, vec & 1);
   prefetch(0);
   prefetch(1);
 
-  float acc[8][4];
+  float acc[kD / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -394,8 +459,8 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
     const int k0 = t * kStep;
     cp_async_wait<3>();  // K(t) and its bias are in
     __syncthreads();
-    const bf16* Kt = Ks + (t & 1) * kTileElems;
-    const bf16* Vt = Vs + (t & 1) * kTileElems;
+    const bf16* Kt = Ks + (t & 1) * G::kElems;
+    const bf16* Vt = Vs + (t & 1) * G::kElems;
     const float* bt = Bs + (t & 1) * kStep;
 
     // S = Q·Kᵀ: 16 rows x 64 keys a warp; Q's fragments are read again
@@ -406,13 +471,13 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
+    for (int kc = 0; kc < kD / 16; ++kc) {
       unsigned qf[4];
-      ldsm_x4(qf, a_addr(Qs, warp * 16, kc * 16, lane));
+      ldsm_x4(qf, a_addr<kD>(Qs, warp * 16, kc * 16, lane));
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         unsigned b[4];
-        ldsm_x4(b, b_addr(Kt, np * 16, kc * 16, lane));
+        ldsm_x4(b, b_addr<kD>(Kt, np * 16, kc * 16, lane));
         mma16816(s[2 * np], qf, b[0], b[1]);
         mma16816(s[2 * np + 1], qf, b[2], b[3]);
       }
@@ -434,9 +499,9 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
+      for (int dp = 0; dp < kD / 16; ++dp) {
         unsigned b[4];
-        ldsm_x4_t(b, a_addr(Vt, kc * 16, dp * 16, lane));
+        ldsm_x4_t(b, a_addr<kD>(Vt, kc * 16, dp * 16, lane));
         mma16816(acc[2 * dp], a, b[0], b[1]);
         mma16816(acc[2 * dp + 1], a, b[2], b[3]);
       }
@@ -448,23 +513,39 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
   // O through shared memory: each warp writes its 16 rows into its own
   // rows of the Q tile (no other warp reads them), then stores them as
   // whole rows
-  bf16* Ow = Qs + warp * 16 * kLdh;
+  bf16* Ow = Qs + warp * 16 * G::kLd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l_row = quad_sum(l[r]);
     const float l_safe = l_row == 0.f ? 1.f : l_row;
     const float inv = 1.f / l_safe;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<unsigned*>(Ow + (g + r * 8) * kLdh + n * 8 +
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<unsigned*>(Ow + (g + r * 8) * G::kLd + n * 8 +
                                    2 * tig) =
           pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     const int i = row0 + r * 8;
     if (tig == 0 && i < S) lse[(long long)bh * S + i] = m[r] + logf(l_safe);
   }
   __syncwarp();
-  store_rows(head(o, so, bh, H), so.s, Ow, q0 + warp * 16, S, D, lane,
+  store_rows<kD>(head(o, so, bh, H), so.s, Ow, q0 + warp * 16, S, D, lane,
                  vec & 8);
+}
+
+// The A fragment of d-chunk kc of this warp's 16 rows (K2: queries, K3:
+// keys): held in registers (kD 64) or read from its resident shared
+// tile (kD 128)
+template <int kD, int kN>
+__device__ __forceinline__ void row_frag(unsigned (&a)[4],
+                                         const unsigned (&held)[kN][4],
+                                         const bf16* tile, int kc, int warp,
+                                         int lane) {
+  if constexpr (Geo<kD>::kHoldRows) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = held[kc][i];
+  } else {
+    ldsm_x4(a, a_addr<kD>(tile, warp * 16, kc * 16, lane));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -473,8 +554,8 @@ __global__ void __launch_bounds__(kThreadsTc, 4)
 // rows g and g + 8: their scores and dS of keys 8n + 2t, + 1 of each
 // 8-key n-block of a 32-key half tile, and their dQ of dims 8n + 2t, + 1.
 // ---------------------------------------------------------------------------
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreadsTc, 3)
+template <bool kCausal, int kD>
+__global__ void __launch_bounds__(kThreadsTc, kD == 64 ? 3 : 2)
     flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
                     const float* __restrict__ bias,
@@ -483,11 +564,16 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
                     const float* __restrict__ delta, bf16* __restrict__ dq,
                     int H, int S, int D, Strides sq, Strides sk, Strides sv,
                     Strides sdo, Strides sdq, float scale, int vec) {
+  using G = Geo<kD>;
+  constexpr bool kHold = G::kHoldRows;
   count_launch(1);
-  __shared__ __align__(16) unsigned char smem[kDqSmem];
+  FLASH_TC_SMEM(smem, G::kDqSmem);
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // two key tiles
-  bf16* Vs = Ks + 2 * kTileElems;            // two value tiles
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * kTileElems);  // two bias rows
+  bf16* Vs = Ks + 2 * G::kElems;             // two value tiles
+  // kD 128: the Q and dO tiles of this CTA's rows, resident
+  bf16* QDs = Vs + 2 * G::kElems;
+  // two bias rows
+  float* Bs = reinterpret_cast<float*>(QDs + (kHold ? 0 : 2 * G::kElems));
   const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -498,12 +584,14 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
 
   const int kv_end = kCausal ? min(S, q0 + kRows) : S;
   const int n_tiles = (kv_end + kStep - 1) / kStep;
-  // Q and dO of this CTA's rows go through the second buffers once
-  stage_tile(Ks + kTileElems, head(q, sq, bh, H), sq.s, q0, S, D, vec & 1);
-  stage_tile(Vs + kTileElems, head(dout, sdo, bh, H), sdo.s, q0, S, D,
-             vec & 8);
-  stage_tile(Ks, kh, sk.s, 0, S, D, vk);
-  stage_tile(Vs, vh, sv.s, 0, S, D, vv);
+  // Q and dO of this CTA's rows go through the second buffers once (kD
+  // 64: into registers), or into their resident tiles (kD 128)
+  bf16* Qres = kHold ? Ks + G::kElems : QDs;
+  bf16* dOres = kHold ? Vs + G::kElems : QDs + G::kElems;
+  stage_tile<kD>(Qres, head(q, sq, bh, H), sq.s, q0, S, D, vec & 1);
+  stage_tile<kD>(dOres, head(dout, sdo, bh, H), sdo.s, q0, S, D, vec & 8);
+  stage_tile<kD>(Ks, kh, sk.s, 0, S, D, vk);
+  stage_tile<kD>(Vs, vh, sv.s, 0, S, D, vv);
   stage_row(Bs, brow, 0, S);
   cp_async_commit();
   const int row0 = q0 + warp * 16 + g;  // and row0 + 8
@@ -516,17 +604,21 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
   }
   cp_async_wait<0>();
   __syncthreads();
-  unsigned qf[4][4], dof[4][4];  // this warp's 16 rows, 4 d-chunks
+  // this warp's 16 rows, kD/16 d-chunks (kD 64; one unused at kD 128)
+  constexpr int kHeld = kHold ? kD / 16 : 1;
+  unsigned qf[kHeld][4], dof[kHeld][4];
+  if constexpr (kHold) {
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    ldsm_x4(qf[kc], a_addr(Ks + kTileElems, warp * 16, kc * 16, lane));
-    ldsm_x4(dof[kc], a_addr(Vs + kTileElems, warp * 16, kc * 16, lane));
+    for (int kc = 0; kc < kHeld; ++kc) {
+      ldsm_x4(qf[kc], a_addr<kD>(Qres, warp * 16, kc * 16, lane));
+      ldsm_x4(dof[kc], a_addr<kD>(dOres, warp * 16, kc * 16, lane));
+    }
+    __syncthreads();  // the second buffers are free for tile 1
   }
-  __syncthreads();  // the second buffers are free for tile 1
 
-  float acc[8][4];
+  float acc[kD / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -538,13 +630,13 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
     const int k0 = t * kStep;
     if (t + 1 < n_tiles) {
       const int nb = (t + 1) & 1, k1 = k0 + kStep;
-      stage_tile(Ks + nb * kTileElems, kh, sk.s, k1, S, D, vk);
-      stage_tile(Vs + nb * kTileElems, vh, sv.s, k1, S, D, vv);
+      stage_tile<kD>(Ks + nb * G::kElems, kh, sk.s, k1, S, D, vk);
+      stage_tile<kD>(Vs + nb * G::kElems, vh, sv.s, k1, S, D, vv);
       stage_row(Bs + nb * kStep, brow, k1, S);
       cp_async_commit();
     }
-    const bf16* Kt = Ks + (t & 1) * kTileElems;
-    const bf16* Vt = Vs + (t & 1) * kTileElems;
+    const bf16* Kt = Ks + (t & 1) * G::kElems;
+    const bf16* Vt = Vs + (t & 1) * G::kElems;
     const float* bt = Bs + (t & 1) * kStep;
     // the tile holds keys past S or crosses the diagonal
     const bool edge = k0 + kStep > S || (kCausal && k0 + kStep - 1 > q0);
@@ -559,17 +651,21 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc)
+      for (int kc = 0; kc < kD / 16; ++kc) {
+        unsigned qa[4], da[4];
+        row_frag<kD>(qa, qf, Qres, kc, warp, lane);
+        row_frag<kD>(da, dof, dOres, kc, warp, lane);
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           unsigned b[4];
-          ldsm_x4(b, b_addr(Kt, j0 + np * 16, kc * 16, lane));
-          mma16816(s[2 * np], qf[kc], b[0], b[1]);
-          mma16816(s[2 * np + 1], qf[kc], b[2], b[3]);
-          ldsm_x4(b, b_addr(Vt, j0 + np * 16, kc * 16, lane));
-          mma16816(dp[2 * np], dof[kc], b[0], b[1]);
-          mma16816(dp[2 * np + 1], dof[kc], b[2], b[3]);
+          ldsm_x4(b, b_addr<kD>(Kt, j0 + np * 16, kc * 16, lane));
+          mma16816(s[2 * np], qa, b[0], b[1]);
+          mma16816(s[2 * np + 1], qa, b[2], b[3]);
+          ldsm_x4(b, b_addr<kD>(Vt, j0 + np * 16, kc * 16, lane));
+          mma16816(dp[2 * np], da, b[0], b[1]);
+          mma16816(dp[2 * np + 1], da, b[2], b[3]);
         }
+      }
       // P = exp(S·scale + bias_j - lse_i), dS = P∘(dP - delta_i)·scale
 #pragma unroll
       for (int n = 0; n < 4; ++n)
@@ -591,9 +687,9 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
         split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], sa[2], sl[2]);
         split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], sa[3], sl[3]);
 #pragma unroll
-        for (int dp2 = 0; dp2 < 4; ++dp2) {
+        for (int dp2 = 0; dp2 < kD / 16; ++dp2) {
           unsigned b[4];
-          ldsm_x4_t(b, a_addr(Kt, j0 + kc * 16, dp2 * 16, lane));
+          ldsm_x4_t(b, a_addr<kD>(Kt, j0 + kc * 16, dp2 * 16, lane));
           mma16816(acc[2 * dp2], sa, b[0], b[1]);
           mma16816(acc[2 * dp2 + 1], sa, b[2], b[3]);
           mma16816(acc[2 * dp2], sl, b[0], b[1]);
@@ -606,17 +702,17 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
   // dQ through shared memory (the key tiles are free once every warp is
   // done): each warp writes its 16 rows, then stores them as whole rows
   __syncthreads();
-  bf16* Ow = Ks + warp * 16 * kLdh;
+  bf16* Ow = Ks + warp * 16 * G::kLd;
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<unsigned*>(Ow + (g + r * 8) * kLdh + n * 8 +
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<unsigned*>(Ow + (g + r * 8) * G::kLd + n * 8 +
                                    2 * tig) =
           pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
   __syncwarp();
-  store_rows(head(dq, sdq, bh, H), sdq.s, Ow, q0 + warp * 16, S, D, lane,
-             vec & 16);
+  store_rows<kD>(head(dq, sdq, bh, H), sdq.s, Ow, q0 + warp * 16, S, D,
+                 lane, vec & 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -625,8 +721,9 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
 // 8n + 2t, + 1 of each 8-query n-block, and their dK, dV of dims
 // 8n + 2t, + 1.
 // ---------------------------------------------------------------------------
-template <bool kCausal>
-__global__ void __launch_bounds__(kThreadsTc, 3)
+
+template <bool kCausal, int kD>
+__global__ void __launch_bounds__(kThreadsTc, kD == 64 ? 3 : 2)
     flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const float* __restrict__ bias,
@@ -637,12 +734,16 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
                      int S, int D, Strides sq, Strides sk, Strides sv,
                      Strides sdo, Strides sdk, Strides sdv, float scale,
                      int vec) {
+  using G = Geo<kD>;
+  constexpr bool kHold = G::kHoldRows;
   count_launch(2);
-  __shared__ __align__(16) unsigned char smem[kDkvSmem];
+  FLASH_TC_SMEM(smem, G::kDkvSmem);
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // two query tiles
-  bf16* dOs = Qs + 2 * kTileElems;           // two dO tiles
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * kTileElems);  // two lse
-  float* Dl = Ls + 2 * kStep;                                  // two delta
+  bf16* dOs = Qs + 2 * G::kElems;            // two dO tiles
+  // kD 128: the K and V tiles of this CTA's keys, resident
+  bf16* KVs = dOs + 2 * G::kElems;
+  float* Ls = reinterpret_cast<float*>(KVs + (kHold ? 0 : 2 * G::kElems));
+  float* Dl = Ls + 2 * kStep;  // two lse rows, then two delta rows
   const int bh = blockIdx.y, k0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -654,32 +755,39 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
 
   const int q_begin = kCausal ? k0 : 0;
   const int n_tiles = (S - q_begin + kStep - 1) / kStep;
-  // K and V of this CTA's keys go through the second buffers once
-  stage_tile(Qs + kTileElems, head(k, sk, bh, H), sk.s, k0, S, D, vec & 2);
-  stage_tile(dOs + kTileElems, head(v, sv, bh, H), sv.s, k0, S, D, vec & 4);
-  stage_tile(Qs, qh, sq.s, q_begin, S, D, vq);
-  stage_tile(dOs, doh, sdo.s, q_begin, S, D, vdo);
+  // K and V of this CTA's keys go through the second buffers once (kD
+  // 64: into registers), or into their resident tiles (kD 128)
+  bf16* Kres = kHold ? Qs + G::kElems : KVs;
+  bf16* Vres = kHold ? dOs + G::kElems : KVs + G::kElems;
+  stage_tile<kD>(Kres, head(k, sk, bh, H), sk.s, k0, S, D, vec & 2);
+  stage_tile<kD>(Vres, head(v, sv, bh, H), sv.s, k0, S, D, vec & 4);
+  stage_tile<kD>(Qs, qh, sq.s, q_begin, S, D, vq);
+  stage_tile<kD>(dOs, doh, sdo.s, q_begin, S, D, vdo);
   stage_row(Ls, lrow, q_begin, S);
   stage_row(Dl, drow, q_begin, S);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  unsigned kf[4][4], vf[4][4];  // this warp's 16 keys, 4 d-chunks
+  // this warp's 16 keys, kD/16 d-chunks (kD 64; one unused at kD 128)
+  constexpr int kHeld = kHold ? kD / 16 : 1;
+  unsigned kf[kHeld][4], vf[kHeld][4];
+  if constexpr (kHold) {
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    ldsm_x4(kf[kc], a_addr(Qs + kTileElems, warp * 16, kc * 16, lane));
-    ldsm_x4(vf[kc], a_addr(dOs + kTileElems, warp * 16, kc * 16, lane));
+    for (int kc = 0; kc < kHeld; ++kc) {
+      ldsm_x4(kf[kc], a_addr<kD>(Kres, warp * 16, kc * 16, lane));
+      ldsm_x4(vf[kc], a_addr<kD>(Vres, warp * 16, kc * 16, lane));
+    }
+    __syncthreads();  // the second buffers are free for tile 1
   }
-  __syncthreads();  // the second buffers are free for tile 1
 
   const int key_j[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   const float* brow = bias + (long long)bh * S;
   float bj[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) bj[r] = key_j[r] < S ? brow[key_j[r]] : 0.f;
-  float dk_acc[8][4], dv_acc[8][4], db[2] = {0.f, 0.f};
+  float dk_acc[kD / 8][4], dv_acc[kD / 8][4], db[2] = {0.f, 0.f};
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -691,14 +799,14 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
     const int qt0 = q_begin + t * kStep;
     if (t + 1 < n_tiles) {
       const int nb = (t + 1) & 1, q1 = qt0 + kStep;
-      stage_tile(Qs + nb * kTileElems, qh, sq.s, q1, S, D, vq);
-      stage_tile(dOs + nb * kTileElems, doh, sdo.s, q1, S, D, vdo);
+      stage_tile<kD>(Qs + nb * G::kElems, qh, sq.s, q1, S, D, vq);
+      stage_tile<kD>(dOs + nb * G::kElems, doh, sdo.s, q1, S, D, vdo);
       stage_row(Ls + nb * kStep, lrow, q1, S);
       stage_row(Dl + nb * kStep, drow, q1, S);
       cp_async_commit();
     }
-    const bf16* Qt = Qs + (t & 1) * kTileElems;
-    const bf16* dOt = dOs + (t & 1) * kTileElems;
+    const bf16* Qt = Qs + (t & 1) * G::kElems;
+    const bf16* dOt = dOs + (t & 1) * G::kElems;
     const float* lt = Ls + (t & 1) * kStep;
     const float* dt = Dl + (t & 1) * kStep;
     // the tile holds queries or keys past S, or crosses the diagonal
@@ -713,14 +821,16 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        unsigned b[4];
-        ldsm_x4(b, b_addr(Qt, qc * 16, kc * 16, lane));
-        mma16816(st[0], kf[kc], b[0], b[1]);
-        mma16816(st[1], kf[kc], b[2], b[3]);
-        ldsm_x4(b, b_addr(dOt, qc * 16, kc * 16, lane));
-        mma16816(dpt[0], vf[kc], b[0], b[1]);
-        mma16816(dpt[1], vf[kc], b[2], b[3]);
+      for (int kc = 0; kc < kD / 16; ++kc) {
+        unsigned a[4], b[4];
+        row_frag<kD>(a, kf, Kres, kc, warp, lane);
+        ldsm_x4(b, b_addr<kD>(Qt, qc * 16, kc * 16, lane));
+        mma16816(st[0], a, b[0], b[1]);
+        mma16816(st[1], a, b[2], b[3]);
+        row_frag<kD>(a, vf, Vres, kc, warp, lane);
+        ldsm_x4(b, b_addr<kD>(dOt, qc * 16, kc * 16, lane));
+        mma16816(dpt[0], a, b[0], b[1]);
+        mma16816(dpt[1], a, b[2], b[3]);
       }
       // Pᵀ = exp(Sᵀ·scale + bias_j - lse_i), dLᵀ = Pᵀ∘(dPᵀ - delta_i)
 #pragma unroll
@@ -748,12 +858,12 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
       split_bf16(dpt[1][0], dpt[1][1], sa[2], sl[2]);
       split_bf16(dpt[1][2], dpt[1][3], sa[3], sl[3]);
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
+      for (int dp = 0; dp < kD / 16; ++dp) {
         unsigned b[4];
-        ldsm_x4_t(b, a_addr(dOt, qc * 16, dp * 16, lane));
+        ldsm_x4_t(b, a_addr<kD>(dOt, qc * 16, dp * 16, lane));
         mma16816(dv_acc[2 * dp], pa, b[0], b[1]);
         mma16816(dv_acc[2 * dp + 1], pa, b[2], b[3]);
-        ldsm_x4_t(b, a_addr(Qt, qc * 16, dp * 16, lane));
+        ldsm_x4_t(b, a_addr<kD>(Qt, qc * 16, dp * 16, lane));
         mma16816(dk_acc[2 * dp], sa, b[0], b[1]);
         mma16816(dk_acc[2 * dp + 1], sa, b[2], b[3]);
         mma16816(dk_acc[2 * dp], sl, b[0], b[1]);
@@ -766,16 +876,16 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
   // warp is done): each warp writes its 16 keys' rows of dK, then of dV,
   // then stores them as whole rows
   __syncthreads();
-  bf16* Ew = Qs + warp * 32 * kLdh;
+  bf16* Ew = Qs + warp * 32 * G::kLd;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float dbj = quad_sum(db[r]);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int at = (g + r * 8) * kLdh + n * 8 + 2 * tig;
+    for (int n = 0; n < kD / 8; ++n) {
+      const int at = (g + r * 8) * G::kLd + n * 8 + 2 * tig;
       *reinterpret_cast<unsigned*>(Ew + at) =
           pack_bf16(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
-      *reinterpret_cast<unsigned*>(Ew + 16 * kLdh + at) =
+      *reinterpret_cast<unsigned*>(Ew + 16 * G::kLd + at) =
           pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
     const int j = key_j[r];
@@ -783,8 +893,8 @@ __global__ void __launch_bounds__(kThreadsTc, 3)
   }
   __syncwarp();
   const int j0 = k0 + warp * 16;
-  store_rows(head(dk, sdk, bh, H), sdk.s, Ew, j0, S, D, lane, vec & 16);
-  store_rows(head(dv, sdv, bh, H), sdv.s, Ew + 16 * kLdh, j0, S, D,
+  store_rows<kD>(head(dk, sdk, bh, H), sdk.s, Ew, j0, S, D, lane, vec & 16);
+  store_rows<kD>(head(dv, sdv, bh, H), sdv.s, Ew + 16 * G::kLd, j0, S, D,
                  lane, vec & 32);
 }
 
@@ -795,14 +905,29 @@ inline int vec16(const void* p, const long long* st, int D) {
          st[0] % 8 == 0 && st[1] % 8 == 0 && st[2] % 8 == 0;
 }
 
-template <bool kCausal>
-cudaError_t fwd(const void* q, const void* k, const void* v,
-                const float* bias, void* o, float* lse, int B, int H, int S,
-                int D, const long long* st, float scale, cudaStream_t s) {
+// Calls f(std::integral_constant<int, kD>{}) at D's head-dim capacity
+// kD: 64 for D <= 64, else 128.  Every flash launcher (bf16 here,
+// split TF32 in flash_tf32.cuh, fp32 SIMT in flash_attention.cu) picks
+// its instantiation through this; the entry points have refused D > 128.
+template <typename F>
+cudaError_t with_capacity(int D, F&& f) {
+  if (D <= 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
+template <bool kCausal, int kD>
+cudaError_t fwd_d(const void* q, const void* k, const void* v,
+                  const float* bias, void* o, float* lse, int B, int H,
+                  int S, int D, const long long* st, float scale,
+                  cudaStream_t s) {
   const int vec = vec16(q, st, D) | vec16(k, st + 3, D) << 1 |
                   vec16(v, st + 6, D) << 2 | vec16(o, st + 9, D) << 3;
+  auto kernel = flash_fwd_tc<kCausal, kD>;
+  int dyn = 0;
+  cudaError_t e = smem_setup(kernel, Geo<kD>::kFwdSmem, &dyn);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_fwd_tc<kCausal><<<grid, kThreadsTc, 0, s>>>(
+  kernel<<<grid, kThreadsTc, dyn, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, H, S, D,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
@@ -812,15 +937,29 @@ cudaError_t fwd(const void* q, const void* k, const void* v,
 }
 
 template <bool kCausal>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v,
-                   const float* bias, const void* dout, const float* lse,
-                   const float* delta, void* dq, int B, int H, int S, int D,
-                   const long long* st, float scale, cudaStream_t s) {
+cudaError_t fwd(const void* q, const void* k, const void* v,
+                const float* bias, void* o, float* lse, int B, int H, int S,
+                int D, const long long* st, float scale, cudaStream_t s) {
+  return with_capacity(D, [&](auto kD) {
+    return fwd_d<kCausal, decltype(kD)::value>(q, k, v, bias, o, lse, B, H,
+                                               S, D, st, scale, s);
+  });
+}
+
+template <bool kCausal, int kD>
+cudaError_t bwd_dq_d(const void* q, const void* k, const void* v,
+                     const float* bias, const void* dout, const float* lse,
+                     const float* delta, void* dq, int B, int H, int S, int D,
+                     const long long* st, float scale, cudaStream_t s) {
   const int vec = vec16(q, st, D) | vec16(k, st + 3, D) << 1 |
                   vec16(v, st + 6, D) << 2 | vec16(dout, st + 9, D) << 3 |
                   vec16(dq, st + 12, D) << 4;
+  auto kernel = flash_bwd_dq_tc<kCausal, kD>;
+  int dyn = 0;
+  cudaError_t e = smem_setup(kernel, Geo<kD>::kDqSmem, &dyn);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_bwd_dq_tc<kCausal><<<grid, kThreadsTc, 0, s>>>(
+  kernel<<<grid, kThreadsTc, dyn, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, static_cast<const bf16*>(dout), lse,
       delta, static_cast<bf16*>(dq), H, S, D, Strides{st[0], st[1], st[2]},
@@ -831,16 +970,31 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
 }
 
 template <bool kCausal>
-cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
-                    const float* bias, const void* dout, const float* lse,
-                    const float* delta, void* dk, void* dv, float* dbias,
-                    int B, int H, int S, int D, const long long* st,
-                    float scale, cudaStream_t s) {
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const float* bias, const void* dout, const float* lse,
+                   const float* delta, void* dq, int B, int H, int S, int D,
+                   const long long* st, float scale, cudaStream_t s) {
+  return with_capacity(D, [&](auto kD) {
+    return bwd_dq_d<kCausal, decltype(kD)::value>(
+        q, k, v, bias, dout, lse, delta, dq, B, H, S, D, st, scale, s);
+  });
+}
+
+template <bool kCausal, int kD>
+cudaError_t bwd_dkv_d(const void* q, const void* k, const void* v,
+                      const float* bias, const void* dout, const float* lse,
+                      const float* delta, void* dk, void* dv, float* dbias,
+                      int B, int H, int S, int D, const long long* st,
+                      float scale, cudaStream_t s) {
   const int vec = vec16(q, st, D) | vec16(k, st + 3, D) << 1 |
                   vec16(v, st + 6, D) << 2 | vec16(dout, st + 9, D) << 3 |
                   vec16(dk, st + 12, D) << 4 | vec16(dv, st + 15, D) << 5;
+  auto kernel = flash_bwd_dkv_tc<kCausal, kD>;
+  int dyn = 0;
+  cudaError_t e = smem_setup(kernel, Geo<kD>::kDkvSmem, &dyn);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_bwd_dkv_tc<kCausal><<<grid, kThreadsTc, 0, s>>>(
+  kernel<<<grid, kThreadsTc, dyn, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, static_cast<const bf16*>(dout), lse,
       delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dbias, H, S, D,
@@ -849,6 +1003,19 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
       Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]},
       scale, vec);
   return cudaGetLastError();
+}
+
+template <bool kCausal>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
+                    const float* bias, const void* dout, const float* lse,
+                    const float* delta, void* dk, void* dv, float* dbias,
+                    int B, int H, int S, int D, const long long* st,
+                    float scale, cudaStream_t s) {
+  return with_capacity(D, [&](auto kD) {
+    return bwd_dkv_d<kCausal, decltype(kD)::value>(
+        q, k, v, bias, dout, lse, delta, dk, dv, dbias, B, H, S, D, st,
+        scale, s);
+  });
 }
 
 }  // namespace flash_tc

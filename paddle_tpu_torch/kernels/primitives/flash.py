@@ -27,10 +27,18 @@ q/k/v; O and dQ/dK/dV in the input dtype, lse and dBias in fp32; the
 lse = m + log(l_safe); a row whose keys all carry -1e30 averages V.
 Not kept: the Mosaic 128-blocks and padding S up to a block
 (``_pad_to_block``); the kernels mask a ragged last tile themselves, so
-any S gives the reference's result.  On bf16 inputs K1 and K3 run on
-the tensor cores (``csrc/flash_tc.cuh``) and round P to bf16 before
-P·V and Pᵀ·dO, and carry dS as two bf16 parts into dSᵀ·Q, where the
-JAX kernel keeps both fp32; fp32 inputs and K2 keep fp32 products.
+any S gives the reference's result.  On bf16 inputs K1-K3 run on the
+tensor cores (``csrc/flash_tc.cuh``) and round P to bf16 before P·V and
+Pᵀ·dO, and carry dS as two bf16 parts into dS·K and dSᵀ·Q, where the
+JAX kernel keeps both fp32.  On fp32 inputs K1 runs on the tensor cores
+in split TF32 (``csrc/flash_tf32.cuh``: each product as three TF32
+products of the operands' rounded parts, about 2^-21 relative), K2 and
+K3 on the SIMT units in fp32.
+
+Head dims: the kernels take D up to :data:`MAX_HEAD_DIM` (128) in both
+dtypes, each instantiated at a capacity of 64 or 128 columns and
+zero-filled past D; the JAX kernel takes any D, so a larger D raises by
+name here (no fallback to the plain version).
 
 Inputs: the kernels take q, k, v, dO and their outputs as [B, H, S, D]
 views with any strides whose last one is 1.  The flash op receives q,
@@ -56,7 +64,7 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30  # the JAX kernel's mask constant
-MAX_HEAD_DIM = 64  # the kernels' head-dim capacity
+MAX_HEAD_DIM = 128  # the kernels' head-dim capacity
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_reference", "flash_bwd_dq_reference",

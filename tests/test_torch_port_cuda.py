@@ -269,6 +269,19 @@ def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
     (torch.float32, 2, 3, 200, 64, False, True),
     (torch.float32, 2, 3, 200, 64, True, False),
     (torch.float32, 2, 3, 64, 32, True, True),
+    # head dims above 64: a capacity of 128 columns, zero-filled past D
+    (torch.bfloat16, 2, 3, 200, 80, True, True),
+    (torch.bfloat16, 2, 3, 130, 96, False, False),
+    (torch.bfloat16, 2, 3, 256, 128, True, True),   # GPT-3 6.7B's D
+    (torch.bfloat16, 2, 3, 77, 128, False, True),
+    (torch.bfloat16, 2, 3, 77, 100, True, True),    # 200-byte rows: scalar
+    (torch.float32, 2, 3, 200, 80, False, True),
+    (torch.float32, 2, 3, 130, 96, True, False),
+    (torch.float32, 2, 3, 256, 128, True, True),
+    (torch.float32, 2, 3, 77, 128, False, False),
+    (torch.float32, 2, 3, 77, 90, False, True),     # 360-byte rows: scalar
+    (torch.float32, 2, 3, 50, 30, True, False),
+    (torch.float32, 8, 12, 128, 64, False, True),   # the predictor's shape
 ])
 def test_flash_kernels_match_plain(dev, dtype, b, h, s, d, causal, strided):
     q, k, v, do, bias = _flash_case(dev, b, h, s, d, dtype, strided)
@@ -299,13 +312,8 @@ def test_flash_kernels_match_plain(dev, dtype, b, h, s, d, causal, strided):
     torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_kernels_fully_masked_rows_match_plain(dev, dtype):
-    """Every key of batch 1's heads carries the -1e30 bias: as in the JAX
-    kernel, such a row's logits all equal -1e30, so the kernels and the
-    plain versions give it uniform weights (O = the mean of V), and
-    nothing turns to NaN."""
-    b, h, s, d = 2, 3, 130, 64
+def _fully_masked_rows(dev, dtype, d):
+    b, h, s = 2, 3, 130
     q, k, v, do, bias = _flash_case(dev, b, h, s, d, dtype, True)
     bias[h:] = -1e30
     scale = d ** -0.5
@@ -333,6 +341,23 @@ def test_flash_kernels_fully_masked_rows_match_plain(dev, dtype):
     torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_fully_masked_rows_match_plain(dev, dtype):
+    """Every key of batch 1's heads carries the -1e30 bias: as in the JAX
+    kernel, such a row's logits all equal -1e30, so the kernels and the
+    plain versions give it uniform weights (O = the mean of V), and
+    nothing turns to NaN."""
+    _fully_masked_rows(dev, dtype, 64)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_fully_masked_rows_wide_heads_match_plain(dev, dtype,
+                                                                d):
+    """The same at the head-dim capacity of 128 columns."""
+    _fully_masked_rows(dev, dtype, d)
+
+
 def test_flash_attention_autograd_matches_plain(dev):
     """The differentiable op: K1 forward, K2/K3 backward (under
     autograd, as the registry's grad op runs it), against the plain
@@ -351,8 +376,8 @@ def test_flash_attention_autograd_matches_plain(dev):
 
 
 def test_flash_kernels_raise_not_fall_back(dev):
-    q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 96, torch.float32, False)
-    with pytest.raises(ValueError, match="head dim"):
+    q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 160, torch.float32, False)
+    with pytest.raises(ValueError, match="head dim 160 > 128"):
         flash.flash_fwd(q, k, v, bias[:, :16], False, 0.1)
     q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 8, torch.float16, False)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -393,6 +418,46 @@ def test_bert_train_steps_on_cuda_match_cpu(dev):
             after["fused_bias_act"] - before["fused_bias_act"]) == (
         3 * 2 * cfg.num_layers, 3 * (cfg.num_layers + 1))
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+
+
+def test_gpt_d128_train_steps_on_cuda_match_cpu(dev):
+    """Three fp32 AdamW steps of a 2-layer GPT with 128-wide heads
+    (hidden 512, 4 heads, dropout 0) on the card and on the CPU from the
+    same parameters: the causal K1 (split TF32) and the SIMT K2 and K3 at
+    their head-dim capacity of 128.  Losses within 1e-4, as the BERT
+    steps; the card launches K1 4, K2 2 and K3 2 a step."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig(num_layers=2, hidden_size=512, num_heads=4,
+                        hidden_dropout=0.0)
+    feed = gpt.make_fake_lm_batch(cfg, 2, 96, seed=1)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    losses, init = {}, None
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, loss = gpt.build_gpt_lm(cfg)
+            fluid.optimizer.AdamW(1e-3, weight_decay=0.01).minimize(loss)
+        startup.random_seed = 5
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {p.name: scope.get(p.name).cpu().numpy()
+                    for p in main.all_parameters()}
+        else:
+            convert.load_params(scope, init, place, program=main)
+        on_card = isinstance(place, fluid.CUDAPlace)
+        before = _on_card()
+        losses[on_card] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                         scope=scope)[0]) for _ in range(3)]
+        if on_card:
+            after = _on_card()
+            assert {n: after[n] - before[n] for n in names} == dict(
+                zip(names, (3 * 4, 3 * 2, 3 * 2)))
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)
+    assert np.isfinite(losses[True]).all()
 
 
 def test_bert_bf16_train_steps_on_cuda_match_cpu(dev):

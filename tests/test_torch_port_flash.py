@@ -12,7 +12,8 @@ CUDA kernels are held against these plain versions on the card
 (tests/test_torch_port_cuda.py, ``chip_smoke.py``).
 
 Cases: S in {64, 128, 200} (200 is a ragged tile for both packages),
-causal on and off, a key bias with -1e4 pads, float32 and bfloat16.
+causal on and off, a key bias with -1e4 pads, float32 and bfloat16; and
+the head dims above 64 the kernels take (D 80 and 128, S 77 and 128).
 Tolerances: 2e-5 in fp32 (the same fp32 math summed in another order);
 2e-2 in bf16 (both round an fp32 result to bf16, so they may differ by
 one bf16 ulp).
@@ -20,11 +21,15 @@ one bf16 ulp).
 The bf16 CUDA K1-K3 run on the tensor cores and round P (and dS, in
 two parts) to bf16 before their second products; a test-local copy of
 that arithmetic is held against ``attention_reference`` and its
-``jax.vjp`` within the same bf16 gate.  Rows whose keys all carry the
--1e30 bias get uniform weights, as in the JAX kernel.
+``jax.vjp`` within the same bf16 gate.  The fp32 CUDA K1 runs on the
+tensor cores in split TF32; a test-local copy of its roundings is held
+against ``attention_reference`` within the unchanged fp32 gate.  Rows
+whose keys all carry the -1e30 bias get uniform weights, as in the JAX
+kernel.
 """
 
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -42,18 +47,19 @@ SM_SCALE = 1.0 / math.sqrt(D)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
-def _case(s, seed=0):
+def _case(s, seed=0, d=D):
     rng = np.random.RandomState(seed + s)
-    q, k, v, do = (rng.randn(B, H, s, D).astype(np.float32)
+    q, k, v, do = (rng.randn(B, H, s, d).astype(np.float32)
                    for _ in range(4))
     bias = np.zeros((B, 1, 1, s), np.float32)
     bias[..., s - s // 5:] = -1e4  # padded keys
     return q, k, v, bias, do
 
 
-def _jax(q, k, v, bias, do, causal, dtype, oracle):
+def _jax(q, k, v, bias, do, causal, dtype, oracle, scale=SM_SCALE):
     args = [jnp.asarray(a).astype(dtype) for a in (q, k, v)]
     args.append(jnp.asarray(bias))
+    d = q.shape[-1]
 
     def f(q, k, v, b):
         if oracle == "reference":
@@ -61,23 +67,23 @@ def _jax(q, k, v, bias, do, causal, dtype, oracle):
             rows = jnp.broadcast_to(b.reshape(B, 1, -1),
                                     (B, H, b.shape[-1])).reshape(bh, -1)
             out = jflash.attention_reference(
-                q.reshape(bh, -1, D), k.reshape(bh, -1, D),
-                v.reshape(bh, -1, D), rows, causal, SM_SCALE)
+                q.reshape(bh, -1, d), k.reshape(bh, -1, d),
+                v.reshape(bh, -1, d), rows, causal, scale)
             return out.reshape(q.shape)
         return jflash.flash_attention(q, k, v, b, causal=causal,
-                                      sm_scale=SM_SCALE, force="pallas")
+                                      sm_scale=scale, force="pallas")
 
     out, vjp = jax.vjp(f, *args)
     grads = vjp(jnp.asarray(do).astype(dtype))
     return [np.asarray(jnp.asarray(t, jnp.float32)) for t in (out,) + grads]
 
 
-def _port(q, k, v, bias, do, causal, dtype):
+def _port(q, k, v, bias, do, causal, dtype, scale=SM_SCALE):
     tdt = getattr(torch, dtype)
     args = [torch.from_numpy(a).to(tdt).requires_grad_()
             for a in (q, k, v)]
     args.append(torch.from_numpy(bias).requires_grad_())
-    out = tflash.flash_attention(*args, causal=causal, sm_scale=SM_SCALE)
+    out = tflash.flash_attention(*args, causal=causal, sm_scale=scale)
     grads = torch.autograd.grad(out, args, torch.from_numpy(do).to(tdt))
     out = out.detach()
     assert out.dtype == tdt and grads[0].dtype == tdt
@@ -94,6 +100,25 @@ def test_flash_plain_matches_jax(s, causal, dtype, oracle):
     case = _case(s)
     got = _port(*case, causal, dtype)
     want = _jax(*case, causal, getattr(jnp, dtype), oracle)
+    tol = TOL[dtype]
+    for name, g, w in zip(("O", "dQ", "dK", "dV", "dBias"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("oracle", ["reference", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("s", [77, 128])
+def test_flash_plain_matches_jax_wide_heads(s, d, causal, dtype, oracle):
+    """The head dims the kernels take above 64 (D 80: a capacity of 128
+    zero-filled past D; D 128, GPT-3 6.7B's): O, dQ, dK, dV and dBias of
+    the plain versions against both JAX oracles, which take any D."""
+    case = _case(s, d=d)
+    scale = 1.0 / math.sqrt(d)
+    got = _port(*case, causal, dtype, scale=scale)
+    want = _jax(*case, causal, getattr(jnp, dtype), oracle, scale=scale)
     tol = TOL[dtype]
     for name, g, w in zip(("O", "dQ", "dK", "dV", "dBias"), got, want):
         assert g.shape == w.shape, name
@@ -223,7 +248,7 @@ def _k3_tensor_core(q, k, v, rows, do, lse, delta, causal, scale):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [12, 64])
+@pytest.mark.parametrize("d", [12, 64, 128])
 @pytest.mark.parametrize("s", [77, 128, 200])
 def test_tensor_core_roundings_match_jax(s, d, causal):
     """The bf16 K1 and K3 round P to bf16, and K2 and K3 split dS into
@@ -260,6 +285,114 @@ def test_tensor_core_roundings_match_jax(s, d, causal):
         np.testing.assert_allclose(got[name].float().numpy(), w,
                                    atol=TOL["bfloat16"],
                                    rtol=TOL["bfloat16"], err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 split-TF32 K1: its roundings, held against JAX
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x rounded to TF32 as the kernel's ``to_tf32`` rounds it (and
+    ``cvt.rna.tf32.f32`` a finite x): to 10 explicit mantissa bits, ties
+    away from zero (the float's bits as an integer: half of the 13
+    dropped bits added, then those bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split_tf32(a, b):
+    """a @ b as the kernel's tensor cores take it: each operand as its
+    TF32 part hi and the TF32 rounding lo of the rest, the product as
+    lo_a·hi_b + hi_a·lo_b + hi_a·hi_b, summed in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _k1_split_tf32(q, k, v, rows, causal, scale):
+    """K1 as the fp32 kernel computes it: q·kᵀ and P·V in split TF32,
+    the online softmax over 64-key tiles in fp32; O and lse fp32.  q, k,
+    v [BH, S, D] fp32, rows the [BH, S] key bias."""
+    bh, s, d = q.shape
+    scores = _mm_split_tf32(q, k.transpose(-1, -2))
+    m = torch.full((bh, s), tflash.NEG_INF)
+    l = torch.zeros(bh, s)
+    acc = torch.zeros(bh, s, d)
+    rows_i = torch.arange(s)[:, None]
+    for k0 in range(0, s, TILE):
+        j = torch.arange(k0, min(k0 + TILE, s))
+        x = scores[..., j] * scale + rows[:, None, j]
+        if causal:
+            x = torch.where(j[None, :] <= rows_i, x,
+                            torch.full_like(x, tflash.NEG_INF))
+        m_new = torch.maximum(m, x.max(-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _mm_split_tf32(p, v[:, j])
+        m = m_new
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """_tf32 keeps 10 mantissa bits: 1 + 2^-11 (a tie) rounds up to
+    1 + 2^-10, 1 + 2^-12 down to 1, and the sign is kept; the kernel's
+    source rounds with the same integer operations."""
+    src = (pathlib.Path(tflash.__file__).parents[2] / "csrc"
+           / "flash_tf32.cuh").read_text()
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in src
+    x = torch.tensor([1 + 2 ** -11, 1 + 2 ** -12, -(1 + 2 ** -11), 3.0,
+                      tflash.NEG_INF])
+    want = torch.tensor([1 + 2 ** -10, 1.0, -(1 + 2 ** -10), 3.0,
+                         _tf32(torch.tensor([tflash.NEG_INF]))[0]])
+    assert torch.equal(_tf32(x), want)
+    y = torch.from_numpy(np.random.RandomState(0).randn(1000)
+                         .astype(np.float32))
+    hi = _tf32(y)
+    assert float(((y - hi).abs() / y.abs()).max()) <= 2.0 ** -11
+    assert float(((y - hi - _tf32(y - hi)).abs() / y.abs()).max()) \
+        <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("causal,bias_mode", [(False, "pads"),
+                                              (True, "pads"),
+                                              (False, "masked")])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [77, 128])
+def test_split_tf32_k1_matches_jax(s, d, causal, bias_mode):
+    """The fp32 K1 takes each product in split TF32 (lo·lo dropped, each
+    part rounded to TF32), where the JAX kernel multiplies in fp32.  With
+    that rounding (and the 64-key online softmax), O stays within the
+    unchanged fp32 gate (2e-5) of the JAX package's attention_reference,
+    and lse within it of the JAX Pallas forward's (interpret mode, S
+    padded to its block with -1e30 keys): with a -1e4 pad bias on a
+    fifth of the keys, and ("masked") with every key of the second head
+    at -1e30, whose rows get uniform weights."""
+    rng = np.random.RandomState(s + d)
+    bh = B * H
+    q, k, v = (rng.randn(bh, s, d).astype(np.float32) for _ in range(3))
+    bias = np.zeros((bh, s), np.float32)
+    bias[:, s - s // 5:] = -1e4
+    if bias_mode == "masked":
+        bias[1] = -1e30
+    scale = 1.0 / math.sqrt(d)
+    want = np.asarray(jflash.attention_reference(
+        *(jnp.asarray(a) for a in (q, k, v, bias)), causal, scale))
+    tq, tk, tv, rows = (torch.from_numpy(a) for a in (q, k, v, bias))
+    o, lse = _k1_split_tf32(tq, tk, tv, rows, causal, scale)
+    np.testing.assert_allclose(o.numpy(), want, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    block = jflash.DEFAULT_BLOCK
+    padded = jflash._pad_to_block(*(jnp.asarray(a) for a in (q, k, v, bias)),
+                                  block)
+    _, lse_want = jflash._pallas_fwd(*padded, causal, scale, True, block)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_want)[:, :s],
+                               atol=TOL["float32"], rtol=TOL["float32"])
+    if bias_mode == "masked":
+        np.testing.assert_allclose(o[1].numpy(), np.broadcast_to(
+            v[1].mean(axis=0), (s, d)), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])
