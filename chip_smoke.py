@@ -9,9 +9,9 @@ Phases, each fatal on failure:
      started together, for sm_90a; each kernel's registers, shared
      memory and spills (ptxas), and each flash kernel's tensor-core
      instructions (SASS): the bf16 K1, K2 and K3 (namespace flash_tc)
-     and the fp32 K1 in split TF32 (namespace flash_tf32), at head-dim
-     capacities 64 and 128, causal and not, are all built, spill nothing
-     and hold HMMA, no SIMT flash kernel takes bf16, K7's split
+     and the fp32 K1, K2 and K3 in split TF32 (namespace flash_tf32), at
+     head-dim capacities 64 and 128, causal and not, are all built, spill
+     nothing and hold HMMA, no SIMT flash kernel remains, K7's split
      instantiations of the int8 decode lane
      (d 64) spill nothing, and no K4 or K6 instantiation spills; the
      SASS instructions an element of each K4 instantiation's main loop
@@ -22,10 +22,12 @@ Phases, each fatal on failure:
      PyTorch call computes the same function, that call (library_ms).
      K1-K3 also at a dp replica's shard, at GPT-2 small's causal
      [96, 1024, 64] and one GPT-3 6.7B layer's causal [32, 2048, 128]
-     bf16, and in fp32 at [96, 128, 128] (all timed; SDPA with is_causal
-     beside the causal ones), at the bf16 edges: a ragged tile, causal
-     (S 200 and 256), D 32 and 12, S 1, fully masked rows, and in both
-     dtypes at D 80, 96 and 128 (ragged, causal, fully masked rows).  K5 and K7 at the decode step and three prefill
+     bf16, and in fp32 at [96, 128, 128], at the fp32 train step's
+     [1536, 128, 64] and at GPT-2 small's causal [96, 1024, 64] (all
+     timed; SDPA with is_causal beside the causal ones), at the edges: a
+     ragged tile, causal (S 200 and 256), D 32 and 12, S 1, fully masked
+     rows, and in both dtypes at D 80, 96 and 128 (ragged, causal, fully
+     masked rows).  K5 and K7 at the decode step and three prefill
      chunks, each with its split plan and partials workspace, both forms
      held against the plain version and timed in turns, one split
      against split.  K4 also at a dp shard's FFN shape, the MLM
@@ -199,6 +201,15 @@ Phases, each fatal on failure:
      child exits 0 or by SIGTERM.  (7) On the card, K4 and K5 launch
      exactly 12 x the program runs of both replicas (warmups
      included), K6 4 x the Engine's batches, K7 never.
+ 20. fp32 train path: phase 4 without the bf16 policy (Fluid's default
+     dtype; the reference bench's fp32 rung, PT_BENCH_FP32=1): BERT-base
+     b128 s128 fp32 with Adam(1e-4), captured and eager in turns, 2
+     warm-up and 10 timed steps each, phase 4's gates (losses finite
+     and falling, K1 24, K2 12, K3 12, K4 13 launches a step on the card
+     and in the wrappers, the modes bit-equal) and readings (MFU against
+     the fp32 SIMT peak: the step's matmuls run in full fp32), run
+     before phases 14-19; then one profiled step a mode: device busy,
+     idle share, and the split-TF32 K2 and K3's device time a step.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -209,8 +220,8 @@ the named kernels alone (a quick check of a kernel change; see ONLY;
 ``--only flash``: K1-K3 with phase 2's flash report);
 ``--only engine`` adds phases 10-11, ``--only passes,predictor,int8w``
 phases 14, 15 and 16 (``predictor`` with phase 3's fp32 K1 at its
-shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18, and
-``--only fleet`` phase 19.
+shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18,
+``--only fleet`` phase 19, and ``--only fp32train`` phase 20.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -453,24 +464,22 @@ def _demangle(names):
 
 
 # the tensor-core flash kernels: bf16 K1, K2, K3 (namespace flash_tc)
-# and the fp32 K1 in split TF32 (namespace flash_tf32), each at both
+# and fp32 K1, K2, K3 in split TF32 (namespace flash_tf32), each at both
 # head-dim capacities and causal or not
 FLASH_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
-                    "flash_fwd_tf32")
+                    "flash_fwd_tf32", "flash_bwd_dq_tf32",
+                    "flash_bwd_dkv_tf32")
 FLASH_HEAD_DIMS = (64, 128)
 FLASH_TC_NAMESPACES = ("_ZN8flash_tc", "_ZN10flash_tf32")
 
 
-def _ptxas_entries(name):
-    """[(mangled name, C++ label, {registers, static_smem_bytes,
-    spill_bytes})] of each entry function of kernel library ``name``,
-    from its build's -Xptxas -v."""
+def _ptxas_parse(log):
+    """{mangled name: {registers, static_smem_bytes, spill_bytes, ...}}
+    of each entry function in an nvcc -Xptxas -v log."""
     import re
 
-    from paddle_tpu_torch.kernels import _build
-
     found, cur = {}, None
-    for line in _build.build_log(name).splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line) \
             or re.search(r"Function properties for (\S+)", line)
         if m:
@@ -491,6 +500,16 @@ def _ptxas_entries(name):
         m = re.search(r"(\d+) bytes smem", line)
         if m:
             cur["static_smem_bytes"] = int(m.group(1))
+    return found
+
+
+def _ptxas_entries(name):
+    """[(mangled name, C++ label, {registers, static_smem_bytes,
+    spill_bytes})] of each entry function of kernel library ``name``,
+    from its build's -Xptxas -v."""
+    from paddle_tpu_torch.kernels import _build
+
+    found = _ptxas_parse(_build.build_log(name))
     out = []
     for mangled, label in zip(found, _demangle(list(found))):
         for a, b in (("(anonymous namespace)::", ""), ("<unnamed>::", ""),
@@ -506,11 +525,11 @@ def flash_build_report():
     spill bytes (the build's -Xptxas -v), and the tensor-core (HMMA,
     HGMMA) instructions in its SASS (cuobjdump, where the toolkit has
     it; the split-TF32 products show as HMMA too).  Every instantiation
-    of the bf16 K1, K2 and K3 (namespace flash_tc) and of the fp32 K1
-    (namespace flash_tf32), at head-dim capacities 64 and 128, causal
-    and not, must be there, spill nothing and, where SASS can be read,
-    hold tensor-core instructions; no SIMT flash kernel may take
-    bf16."""
+    of the bf16 K1, K2 and K3 (namespace flash_tc) and of the fp32 K1,
+    K2 and K3 (namespace flash_tf32), at head-dim capacities 64 and 128,
+    causal and not, must be there, spill nothing and, where SASS can be
+    read, hold tensor-core instructions; no SIMT flash kernel may
+    remain."""
     import re
     import shutil
 
@@ -546,12 +565,12 @@ def flash_build_report():
                for d in FLASH_HEAD_DIMS for c in (0, 1)
                if not any(k in m and f"Lb{c}ELi{d}E" in m
                           for m in tc_mangled)]
-    simt_bf16 = [k for k, r in report.items()
-                 if not r["tensor_cores"] and "__nv_bfloat16" in k]
-    if bad or missing or simt_bf16:
+    simt = [k for k, r in report.items()
+            if not r["tensor_cores"] and "flash" in k]
+    if bad or missing or simt:
         raise AssertionError(f"flash build: tensor-core kernels spilling or "
-                             f"without HMMA {bad}, missing {missing}, bf16 "
-                             f"SIMT kernels {simt_bf16}: {report}")
+                             f"without HMMA {bad}, missing {missing}, SIMT "
+                             f"flash kernels {simt}: {report}")
     return report
 
 
@@ -989,14 +1008,20 @@ def _bias_gelu_bound(r, h, with_mask):
 
 
 def check_bias_gelu(dev, rng):
+    """K4 in fp32 at the decode path's rows [8, 32, 37] x 3072, and at the
+    fp32 train step's two shapes, the 12 FFN fc_0 outputs [b*s, 3072]
+    and the MLM head [b*s/8, 768] (their inputs from a generator of
+    their own, so the later checks' data stays as it was)."""
     from paddle_tpu_torch.kernels import fused_bias_act as fba
 
     worst, timings = 0.0, {}
-    for r in (8, 32, 37):
-        h = 3072
-        x = torch.from_numpy(rng.randn(r, h).astype(np.float32) * 3).to(dev)
-        bias = torch.from_numpy(rng.randn(h).astype(np.float32)).to(dev)
-        mask = torch.from_numpy((rng.rand(r, h) > 0.1).astype(np.uint8)).to(dev)
+    path_rng = np.random.RandomState(SEED + 1)
+    for r, h in ((8, 3072), (32, 3072), (37, 3072), (16384, 3072),
+                 (2048, 768)):
+        src = rng if r < 64 else path_rng
+        x = torch.from_numpy(src.randn(r, h).astype(np.float32) * 3).to(dev)
+        bias = torch.from_numpy(src.randn(h).astype(np.float32)).to(dev)
+        mask = torch.from_numpy((src.rand(r, h) > 0.1).astype(np.uint8)).to(dev)
         for with_mask in (False, True):
             for approx in (False, True):
                 kw = dict(mask=mask if with_mask else None,
@@ -1022,7 +1047,8 @@ def check_bias_gelu(dev, rng):
                         r, h, with_mask)
                     timings[f"[{r},{h}] mask={with_mask}"] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, bytes=byts, max_abs_err=err)
+                        bound_by=bound_by, bytes=byts, max_abs_err=err,
+                        shape=[r, h], dtype="float32")
     return worst, timings
 
 
@@ -1092,9 +1118,9 @@ def _flash_bounds(bh, s, d, dtype, causal, simt=False):
     multiply-add over the live (query, key) pairs).  bf16 at the bf16
     tensor-core rate.  fp32 at the card's rate for fp32-accurate
     products, whatever implements them: three TF32 products each (split
-    TF32, as K1 takes them) at the TF32 tensor-core rate.  ``simt``: the
-    fp32 products once each at the fp32 SIMT rate instead, the bound of
-    SIMT kernels (K2 and K3 in fp32, PR 12's K1)."""
+    TF32, as K1-K3 take them) at the TF32 tensor-core rate.  ``simt``:
+    the fp32 products once each at the fp32 SIMT rate instead, the best
+    the SIMT kernels the split-TF32 ones replaced could reach."""
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     elem = 2 if dtype == torch.bfloat16 else 4
     mat = elem * bh * s * d      # one [BH, S, D] operand
@@ -1137,19 +1163,22 @@ def _sdpa_ms(q, k, v, do, rows, scale, causal=False):
 # (name, b, h, s, d, dtype, causal, bias mode (_flash_inputs), timed):
 # the BERT path's shape, a dp replica's shard, GPT-2 small's causal
 # b8 s1024, the attention of one GPT-3 6.7B layer (b1 s2048, 32 heads,
-# d_head 128; Brown et al. 2020, Table 2.1) and the fp32 kernels at the
-# predictor's b8 s128 12 heads with D 128 (all timed), then the edges of
-# the bf16 tensor-core K1-K3 (a ragged last tile, causal, four key
-# tiles a causal row, D < 64, rows that are not 16-byte multiples, one
-# token, rows whose keys are all masked), the fp32 cases (K1 split TF32,
-# K2 and K3 SIMT) and both dtypes at D 80, 96 and 128 (a head-dim
-# capacity of 128 columns)
+# d_head 128; Brown et al. 2020, Table 2.1), the fp32 kernels at the
+# predictor's b8 s128 12 heads with D 128, at the fp32 train step's
+# shape (the BERT path's, without the bf16 policy) and at GPT-2 small's
+# causal b8 s1024 (all timed), then the edges of the tensor-core K1-K3
+# in both dtypes (a ragged last tile, causal, four key tiles a causal
+# row, D < 64, rows that are not 16-byte multiples, one token, rows
+# whose keys are all masked) and both dtypes at D 80, 96 and 128 (a
+# head-dim capacity of 128 columns)
 FLASH_CASES = (
     ("path", 128, 12, 128, 64, torch.bfloat16, False, "pads", True),
     ("dp_shard", 32, 12, 128, 64, torch.bfloat16, False, "pads", True),
     ("gpt", 8, 12, 1024, 64, torch.bfloat16, True, "zero", True),
     ("gpt3_6p7b", 1, 32, 2048, 128, torch.bfloat16, True, "zero", True),
     ("fp32_d128", 8, 12, 128, 128, torch.float32, False, "pads", True),
+    ("fp32_path", 128, 12, 128, 64, torch.float32, False, "pads", True),
+    ("fp32_gpt", 8, 12, 1024, 64, torch.float32, True, "zero", True),
     ("bf16_ragged", 4, 12, 200, 64, torch.bfloat16, False, "pads", False),
     ("bf16_ragged_causal", 4, 12, 200, 64, torch.bfloat16, True, "pads",
      False),
@@ -1164,6 +1193,8 @@ FLASH_CASES = (
     ("ragged", 4, 12, 200, 64, torch.float32, False, "pads", False),
     ("ragged_causal", 4, 12, 200, 64, torch.float32, True, "pads", False),
     ("masked_rows", 4, 12, 128, 64, torch.float32, False, "masked", False),
+    ("d12_causal", 4, 12, 77, 12, torch.float32, True, "pads", False),
+    ("s1", 4, 12, 1, 64, torch.float32, False, "pads", False),
     ("bf16_d80_ragged_causal", 4, 12, 200, 80, torch.bfloat16, True,
      "pads", False),
     ("bf16_d96_ragged", 4, 12, 200, 96, torch.bfloat16, False, "pads",
@@ -1184,12 +1215,13 @@ FLASH_CASES = (
 
 def check_flash(dev, rng):
     """K1, K2, K3 against their plain versions at FLASH_CASES; bf16 ones
-    run on the tensor cores, fp32 K1 on the tensor cores in split TF32,
-    fp32 K2 and K3 on the SIMT units.  Timed at the BERT path's shape
-    (BH = 1536, S = 128, D = 64, bf16), at a dp replica's shard
-    (BH = 384), at GPT-2 small's (BH = 96, S = 1024, causal) and GPT-3
-    6.7B's (BH = 32, S = 2048, D = 128, causal; SDPA with ``is_causal``
-    beside both), and in fp32 at [96, 128, 128]."""
+    run on the tensor cores, fp32 ones on the tensor cores in split
+    TF32.  Timed at the BERT path's shape (BH = 1536, S = 128, D = 64,
+    bf16), at a dp replica's shard (BH = 384), at GPT-2 small's (BH = 96,
+    S = 1024, causal) and GPT-3 6.7B's (BH = 32, S = 2048, D = 128,
+    causal; SDPA with ``is_causal`` beside both), and in fp32 at
+    [96, 128, 128], at the fp32 train step's [1536, 128, 64] and at
+    GPT-2 small's causal [96, 1024, 64]."""
     from paddle_tpu_torch.kernels.primitives import flash
 
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -1671,21 +1703,23 @@ def _gate_launches(what, launches, on_card, per_run, runs, first_runs):
             f"card), expected {want} and {want_card} a mode")
 
 
-def run_train_path(counters):
-    """BERT-base, b128 s128, bf16 policy, Adam, flash, hidden dropout
-    0.1, on the card: the captured executor and the eager one in turns
-    (a step each), from the same state and feed, TRAIN_WARMUP +
-    TRAIN_STEPS steps each.  Each mode's launches exact, on the card and
-    in the wrappers; the two modes' losses and final state bit-equal.
-    The captured state after CHAIN_STEPS steps is kept for
-    run_train_chain."""
+def run_train_path(counters, bf16=True):
+    """BERT-base, b128 s128, bf16 policy (``bf16``; else fp32, Fluid's
+    default dtype), Adam, flash, hidden dropout 0.1, on the card: the
+    captured executor and the eager one in turns (a step each), from the
+    same state and feed, TRAIN_WARMUP + TRAIN_STEPS steps each.  Each
+    mode's launches exact, on the card and in the wrappers; the two
+    modes' losses and final state bit-equal.  The captured state after
+    CHAIN_STEPS steps is kept for run_train_chain.  MFU against the
+    port's peak table under the bf16 policy, and against the fp32 SIMT
+    peak in fp32 (the step's matmuls run in full fp32)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.observability import profiling
 
     cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
                                attn_dropout=0.0)
-    main, startup, loss = _bert_program(cfg, bf16=True)
+    main, startup, loss = _bert_program(cfg, bf16=bf16)
     scope = fluid.Scope()
     fluid.Executor(_gpu_place()).run(startup, scope=scope)
     scopes = {"captured": scope, "eager": _clone_scope(scope)}
@@ -1736,7 +1770,13 @@ def run_train_path(counters):
                              f"losses {losses}, state {diff[:5]}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = bert.train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    _, peak_flops, _, _ = profiling.device_peaks()
+    if bf16:
+        _, peak_flops, _, _ = profiling.device_peaks()
+        peak_name = "profiling.device_peaks() (bf16 dense tensor cores)"
+    else:
+        peak_flops = FP32_FLOPS
+        peak_name = ("FP32_FLOPS (fp32 SIMT: the step's matmuls run in full "
+                     "fp32)")
     modes = {}
     for m in exes:
         timed = np.asarray(secs[m][TRAIN_WARMUP:])
@@ -1748,6 +1788,11 @@ def run_train_path(counters):
             mfu=flops / float(np.median(timed)) / peak_flops,
             peak_memory_gb=peak[m] / 1e9, launches=launches[m],
             device_launches=on_card[m])
+        if not bf16:
+            # against the rate the flash bounds hold fp32 products to:
+            # fp32-accurate products as three TF32 tensor-core products
+            modes[m]["mfu_fp32_tc"] = (flops / float(np.median(timed))
+                                       / (TF32_TC_FLOPS / 3))
     held = [h.graph for h in exes["captured"].compiled_for(main)]
     if exes["captured"].capture and held == [None]:
         raise AssertionError("train path: the captured executor holds no "
@@ -1755,10 +1800,16 @@ def run_train_path(counters):
     modes["captured"]["capture_s"] = _capture_seconds(exes["captured"], main)
     modes["captured"]["graph_pools_gb"] = graph_pools_gb()
     path = dict(model="BertConfig.base(vocab_size=30528)", batch=TRAIN_BATCH,
-                seq_len=TRAIN_SEQ, dtype_policy="bf16", steps=TRAIN_STEPS,
-                warmup_steps=TRAIN_WARMUP, losses=loss_c,
+                seq_len=TRAIN_SEQ, dtype_policy="bf16" if bf16 else "fp32",
+                steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP, losses=loss_c,
                 captured_eager_bit_equal=True, model_flops_per_step=flops,
-                mfu_peak_flops=peak_flops, modes=modes, launches=total,
+                mfu_peak_flops=peak_flops, mfu_peak=peak_name, modes=modes,
+                **({} if bf16 else dict(
+                    mfu_fp32_tc_peak_flops=TF32_TC_FLOPS / 3,
+                    mfu_fp32_tc_peak="TF32_TC_FLOPS / 3 (fp32-accurate "
+                                     "products as three TF32 products, as "
+                                     "_flash_bounds takes them)")),
+                launches=total,
                 device_launches=_summed(on_card), new_pass_sites=sites)
     state = dict(exes=exes, main=main, scopes=scopes, feed=feed, loss=loss,
                  cfg=cfg, start=start, snap=snap, losses=loss_c)
@@ -2037,6 +2088,28 @@ def profile_train_step(state):
         "captured_unaligned_ms": unaligned,
         "kernels": {"eager": len(eager), "captured": len(cap),
                     "aligned": aligned}}
+    return out
+
+
+# the fp32 K2 and K3 as the profiler names them (flash_tf32.cuh)
+FP32_BWD_KERNELS = ("flash_bwd_dq_tf32", "flash_bwd_dkv_tf32")
+
+
+def profile_fp32_train_step(state):
+    """One fp32 train step of each mode under torch.profiler: device
+    busy and idle, and the device time of the split-TF32 K2 and K3 a
+    step (each, and summed)."""
+    exes, scopes = state["exes"], state["scopes"]
+    main, feed, loss = state["main"], state["feed"], state["loss"]
+    out = {}
+    for m, exe in exes.items():
+        def step():
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scopes[m])
+
+        r = _profile(step, 1, match=FP32_BWD_KERNELS)
+        r["k2_k3_device_ms"] = sum(r[f"{k}_device_ms"]
+                                   for k in FP32_BWD_KERNELS)
+        out[m] = r
     return out
 
 
@@ -4303,8 +4376,8 @@ def run_fleet_path(counters):
 # "engine" runs phases 10-11 (the ragged Engine, both arms) instead,
 # "passes", "predictor" and "int8w" phases 14, 15 and 16 ("predictor"
 # with phase 3's fp32 K1 at its shape), "gpt" phase 3's K1-K4 checks
-# (GPT-2 small's shapes among them) and phases 17-18, and "fleet" phase
-# 19
+# (GPT-2 small's shapes among them) and phases 17-18, "fleet" phase 19,
+# and "fp32train" phase 20
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -4319,8 +4392,9 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         "gpt": (("flash_attention", "fused_bias_act"),
                 ("check_flash", "check_bias_gelu_bf16")),
         "fleet": (("fused_bias_act", "paged_attention", "ragged_attention"),
-                  ())}
-NEW_PHASES = ("passes", "predictor", "int8w", "gpt", "fleet")
+                  ()),
+        "fp32train": (("flash_attention", "fused_bias_act"), ())}
+NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -4328,11 +4402,23 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 14-19 (those of ``keys``); returns their path readings
+    """Phases 20 and 14-19 (those of ``keys``, in that order); returns
+    their path readings
     (None for a phase not run).  Phase 16's ids are compared with
     ``fp32_outs``, the fp32-weight lane's, where given (printed, not
     gated)."""
-    ab = pred = path_w = gpt = fleet = None
+    ab = pred = path_w = gpt = fleet = fp32 = None
+    if "fp32train" in keys:
+        torch.cuda.empty_cache()
+        pools = graph_pools_gb()
+        state, fp32 = run_train_path(
+            {k: wrappers[k] for k in train_kernels}, bf16=False)
+        fp32["graph_pools_gb_before"] = pools
+        say("fp32 train path", {"card": smi, **fp32})
+        say("fp32 train step", {"card": smi,
+                                **profile_fp32_train_step(state)})
+        del state
+        torch.cuda.empty_cache()
     if "passes" in keys:
         counters = {k: wrappers[k] for k in train_kernels}
         state, ab = run_passes_ab(counters)
@@ -4385,7 +4471,7 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
             "mttr_s": fleet["failover"]["mttr_s"],
             "hedge_win_rate": fleet["hedge"]["hedge_win_rate"],
             "fleet_seconds": fleet["seconds"]})
-    return ab, pred, path_w, gpt, fleet
+    return ab, pred, path_w, gpt, fleet, fp32
 
 
 def run_only(keys, dev, smi, say):
@@ -4430,11 +4516,12 @@ def main(argv=None):
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
-                    "gpt, fleet): phases 1-3 for those kernels alone "
-                    "(flash: with phase 2's flash report; engine: "
+                    "gpt, fleet, fp32train): phases 1-3 for those kernels "
+                    "alone (flash: with phase 2's flash report; engine: "
                     "phases 10-11; passes, predictor, int8w: phases 14, "
                     "15, 16; gpt: K1-K4 and phases 17-18; fleet: phase "
-                    "19); the default runs every phase")
+                    "19; fp32train: phase 20); the default runs every "
+                    "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4581,8 +4668,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
-    ab, pred, path_w, gpt, fleet = run_new_phases(wrappers, train_kernels,
-                                                  fp32_outs, smi, say)
+    ab, pred, path_w, gpt, fleet, fp32 = run_new_phases(
+        wrappers, train_kernels, fp32_outs, smi, say)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
@@ -4595,7 +4682,7 @@ def main(argv=None):
                      "predictor_on": pred["arms"]["on"][key],
                      "predictor_off": pred["arms"]["off"][key],
                      "decode_int8_weights": path_w[key],
-                     "gpt_train": gpt[key],
+                     "gpt_train": gpt[key], "fp32_train": fp32[key],
                      "gpt_unfused": gpt["unfused"][key],
                      "fleet": fleet[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
@@ -4636,7 +4723,8 @@ def main(argv=None):
     flash_py = "paddle_tpu/kernels/primitives/flash.py"
 
     def flash_shapes(kern):
-        return {n: fl_t[n][kern] for n in ("gpt3_6p7b", "fp32_d128")}
+        return {n: fl_t[n][kern] for n in ("gpt3_6p7b", "fp32_d128",
+                                           "fp32_path", "fp32_gpt")}
 
     kernels = [
         row("flash_fwd", flash_src, f"{flash_py}:78",
@@ -4651,7 +4739,10 @@ def main(argv=None):
             shapes=flash_shapes("flash_bwd_dkv")),
         row("fused_bias_act", "paddle_tpu_torch/csrc/fused_bias_act.cu",
             "paddle_tpu/kernels/fused_bias_act.py:106", max(k4_err, k4b_err),
-            k4, k4b_t["[8192,3072] bf16"]),
+            k4, k4b_t["[8192,3072] bf16"], shapes={
+                f"fp32_{n}_mask_{m}".lower(): k4_t[f"[{r},{h}] mask={m}"]
+                for n, r, h in (("ffn", 16384, 3072), ("mlm", 2048, 768))
+                for m in (False, True)}),
         row("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
             "paddle_tpu/kernels/primitives/paged.py:121", k5_err, dec),
         row("ragged_attention", "paddle_tpu_torch/csrc/ragged_attention.cu",

@@ -9,9 +9,9 @@
 //      dS = P·(dO·Vᵀ - delta)·scale;
 //   K3 `_bwd_dkv_kernel` (:167, launched at :314): dV = Σ_q Pᵀ·dO,
 //      dK = Σ_q dSᵀ·Q, dBias[k] = Σ_q dL with dL = P·(dP - delta).
-// fp32 inputs take flash_tf32.cuh (K1) and the SIMT kernels of
-// flash_attention.cu (K2, K3), which includes both headers; its entry
-// points send dtype code 1 (bf16) here.
+// fp32 inputs take flash_tf32.cuh (K1-K3, split TF32);
+// flash_attention.cu includes both headers, and its entry points send
+// dtype code 1 (bf16) here.
 //
 // What bounds them on this card: at the BERT train step's shape
 // (BH = 1536, S = 128, D = 64) K1 reads q, k, v and the bias rows and
@@ -906,9 +906,9 @@ inline int vec16(const void* p, const long long* st, int D) {
 }
 
 // Calls f(std::integral_constant<int, kD>{}) at D's head-dim capacity
-// kD: 64 for D <= 64, else 128.  Every flash launcher (bf16 here,
-// split TF32 in flash_tf32.cuh, fp32 SIMT in flash_attention.cu) picks
-// its instantiation through this; the entry points have refused D > 128.
+// kD: 64 for D <= 64, else 128.  Every flash launcher (bf16 here, fp32
+// split TF32 in flash_tf32.cuh) picks its instantiation through this;
+// the entry points have refused D > 128.
 template <typename F>
 cudaError_t with_capacity(int D, F&& f) {
   if (D <= 64) return f(std::integral_constant<int, 64>{});

@@ -30,10 +30,10 @@ Not kept: the Mosaic 128-blocks and padding S up to a block
 any S gives the reference's result.  On bf16 inputs K1-K3 run on the
 tensor cores (``csrc/flash_tc.cuh``) and round P to bf16 before P·V and
 Pᵀ·dO, and carry dS as two bf16 parts into dS·K and dSᵀ·Q, where the
-JAX kernel keeps both fp32.  On fp32 inputs K1 runs on the tensor cores
-in split TF32 (``csrc/flash_tf32.cuh``: each product as three TF32
-products of the operands' rounded parts, about 2^-21 relative), K2 and
-K3 on the SIMT units in fp32.
+JAX kernel keeps both fp32.  On fp32 inputs K1, K2 and K3 run on the
+tensor cores in split TF32 (``csrc/flash_tf32.cuh``: each product as
+three TF32 products of the operands' rounded parts, about 2^-21
+relative).
 
 Head dims: the kernels take D up to :data:`MAX_HEAD_DIM` (128) in both
 dtypes, each instantiated at a capacity of 64 or 128 columns and

@@ -13,7 +13,8 @@ terms, other order); K6
 (both round one fp32 result to bf16); K4 1e-6 in
 fp32 (the same elementwise formula; erfcf/tanhf may differ by an ulp)
 and one bf16 rounding step (8e-3 relative) in bf16; K1-K3 2e-5 in fp32
-(fp32 sums over 64-key tiles vs one matmul) and 2e-2 in bf16 (both
+(each product split TF32, about 2^-21 relative, summed over 64-key
+tiles vs one fp32 matmul) and 2e-2 in bf16 (both
 round an fp32 result to bf16, so they may differ by an ulp of it; the
 bf16 K1 and K3 also round P and dS to bf16 before their second
 products, 2^-9 relative a term); the decode lane's greedy ids exactly,
@@ -236,13 +237,16 @@ def test_bias_gelu_kernel_bf16_matches_plain(dev, rows, h, bias_dtype):
 
 def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
     """q, k, v, dO as [B, H, S, D]: contiguous, or the transposed views
-    of [B, S, H, D] tensors the BERT program hands the op; a key bias
-    with -1e4 pads on some rows."""
+    of [B, S, H, D] tensors the BERT program hands the op (``strided``;
+    "unaligned": of [B, S, H, D + 1] tensors past their first column,
+    rows one element off 16 bytes, which the kernels stage element by
+    element); a key bias with -1e4 pads on some rows."""
     rng = np.random.RandomState(seed)
+    pad = int(strided == "unaligned")
 
     def t():
-        a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
-        a = a.to(dev, dtype).transpose(1, 2)
+        a = torch.from_numpy(rng.randn(b, s, h, d + pad).astype(np.float32))
+        a = a.to(dev, dtype)[..., pad:].transpose(1, 2)
         return a if strided else a.contiguous()
 
     q, k, v, do = t(), t(), t(), t()
@@ -282,6 +286,11 @@ def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
     (torch.float32, 2, 3, 77, 90, False, True),     # 360-byte rows: scalar
     (torch.float32, 2, 3, 50, 30, True, False),
     (torch.float32, 8, 12, 128, 64, False, True),   # the predictor's shape
+    # split-TF32 K2 and K3: the fp32 train step's shape; D 12 with rows
+    # off 16 bytes (scalar staging)
+    (torch.float32, 128, 12, 128, 64, False, True),
+    (torch.float32, 2, 3, 77, 12, True, "unaligned"),
+    (torch.float32, 2, 3, 130, 12, False, "unaligned"),
 ])
 def test_flash_kernels_match_plain(dev, dtype, b, h, s, d, causal, strided):
     q, k, v, do, bias = _flash_case(dev, b, h, s, d, dtype, strided)
@@ -291,7 +300,11 @@ def test_flash_kernels_match_plain(dev, dtype, b, h, s, d, causal, strided):
     o, lse = flash.flash_fwd(q, k, v, bias, causal, scale)
     o_ref, lse_ref = flash.flash_fwd(q, k, v, bias, causal, scale,
                                      force="reference")
-    assert o.stride() == q.stride() and o.dtype == dtype
+    # O takes q's layout (empty_like); a view that is not dense, as the
+    # unaligned ones, gets dense strides in q's dimension order
+    if strided != "unaligned":
+        assert o.stride() == q.stride()
+    assert o.dtype == dtype
     lse_rows = lse_ref.reshape(b * h, s)
     delta = (do.float() * o_ref.float()).sum(-1).reshape(b * h, s)
     args = (q, k, v, bias, do, lse_rows, delta, causal, scale)
@@ -379,6 +392,11 @@ def test_flash_kernels_raise_not_fall_back(dev):
     q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 160, torch.float32, False)
     with pytest.raises(ValueError, match="head dim 160 > 128"):
         flash.flash_fwd(q, k, v, bias[:, :16], False, 0.1)
+    rows = torch.zeros(2, 16, device=dev)
+    args = (q, k, v, bias, do, rows, rows, False, 0.1)
+    for fn in (flash.flash_bwd_dq, flash.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="head dim 160 > 128"):
+            fn(*args)
     q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 8, torch.float16, False)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash.flash_fwd(q, k, v, bias, False, 0.1)
@@ -420,11 +438,48 @@ def test_bert_train_steps_on_cuda_match_cpu(dev):
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
 
 
+@pytest.mark.parametrize("capture", [True, False], ids=["captured", "eager"])
+def test_bert_fp32_train_step_launches_k2_k3_on_card(dev, capture):
+    """An fp32 train step (Fluid's default dtype, no bf16 policy) of a
+    2-layer BERT-tiny with dropout, captured and eager: the card runs
+    the split-TF32 K2 and K3 once a layer a step, K1 twice, K4 once a
+    layer and once for the MLM head, counted by the kernels themselves;
+    the losses are finite."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(num_layers=2, use_flash_attention=True,
+                               attn_dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        fluid.optimizer.Adam(1e-3).minimize(loss)
+    startup.random_seed = 5
+    old = fluid.get_flags("FLAGS_cuda_graph_capture")
+    fluid.set_flags({"FLAGS_cuda_graph_capture": capture})
+    try:
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+    finally:
+        fluid.set_flags(old)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.make_fake_batch(cfg, 4, 48, seed=1)
+    steps, n = 3, cfg.num_layers
+    before = _on_card()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0]) for _ in range(steps)]
+    after = _on_card()
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_bias_act")
+    assert {k: after[k] - before[k] for k in names} == dict(
+        zip(names, (steps * 2 * n, steps * n, steps * n, steps * (n + 1))))
+    assert np.isfinite(losses).all()
+
+
 def test_gpt_d128_train_steps_on_cuda_match_cpu(dev):
     """Three fp32 AdamW steps of a 2-layer GPT with 128-wide heads
     (hidden 512, 4 heads, dropout 0) on the card and on the CPU from the
-    same parameters: the causal K1 (split TF32) and the SIMT K2 and K3 at
-    their head-dim capacity of 128.  Losses within 1e-4, as the BERT
+    same parameters: the causal K1, K2 and K3 (split TF32) at their
+    head-dim capacity of 128.  Losses within 1e-4, as the BERT
     steps; the card launches K1 4, K2 2 and K3 2 a step."""
     from paddle_tpu_torch import convert, fluid
     from paddle_tpu_torch.models import gpt

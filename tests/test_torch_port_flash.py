@@ -23,9 +23,10 @@ two parts) to bf16 before their second products; a test-local copy of
 that arithmetic is held against ``attention_reference`` and its
 ``jax.vjp`` within the same bf16 gate.  The fp32 CUDA K1 runs on the
 tensor cores in split TF32; a test-local copy of its roundings is held
-against ``attention_reference`` within the unchanged fp32 gate.  Rows
-whose keys all carry the -1e30 bias get uniform weights, as in the JAX
-kernel.
+against ``attention_reference`` within the unchanged fp32 gate, and
+one of the fp32 K2's and K3's (``-k split_tf32``) against the Pallas
+backward in interpret mode.  Rows whose keys all carry the -1e30 bias
+get uniform weights, as in the JAX kernel.
 """
 
 import math
@@ -288,7 +289,7 @@ def test_tensor_core_roundings_match_jax(s, d, causal):
 
 
 # ---------------------------------------------------------------------------
-# the fp32 split-TF32 K1: its roundings, held against JAX
+# the fp32 split-TF32 K1, K2 and K3: their roundings, held against JAX
 # ---------------------------------------------------------------------------
 
 
@@ -393,6 +394,77 @@ def test_split_tf32_k1_matches_jax(s, d, causal, bias_mode):
     if bias_mode == "masked":
         np.testing.assert_allclose(o[1].numpy(), np.broadcast_to(
             v[1].mean(axis=0), (s, d)), atol=1e-5, rtol=1e-5)
+
+
+def _k2_k3_split_tf32(q, k, v, rows, do, lse, delta, causal, scale):
+    """K2 and K3 as the fp32 kernels compute them: S = q·kᵀ and
+    dP = dO·vᵀ in split TF32 over the head dim; P = exp(S·scale + bias -
+    lse) (-1e30 past the diagonal); dL = P·(dP - delta), dS = dL·scale;
+    dQ summed over key chunks, dK and dV over query chunks (64 at
+    D <= 64, 16 above: the kernels' chunks), each chunk's product in
+    split TF32 (dS, Pᵀ and dSᵀ split as they enter), the sums in fp32;
+    dBias = Σ_q dL.  q, k, v, do [BH, S, D] fp32, rows the
+    [BH, S] key bias, lse and delta [BH, S]."""
+    s, d = q.shape[1], q.shape[2]
+    x = _mm_split_tf32(q, k.transpose(-1, -2)) * scale + rows[:, None]
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool).tril()
+        x = torch.where(keep, x, torch.full_like(x, tflash.NEG_INF))
+    p = torch.exp(x - lse[..., None])
+    dl = p * (_mm_split_tf32(do, v.transpose(-1, -2)) - delta[..., None])
+    ds = dl * scale
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    chunk = TILE if d <= 64 else 16
+    for c0 in range(0, s, chunk):  # K2: key chunks; K3: query chunks
+        c = slice(c0, c0 + chunk)
+        dq += _mm_split_tf32(ds[..., c], k[:, c])
+        dv += _mm_split_tf32(p[:, c].transpose(-1, -2), do[:, c])
+        dk += _mm_split_tf32(ds[:, c].transpose(-1, -2), q[:, c])
+    return dq, dk, dv, dl.sum(dim=-2)
+
+
+@pytest.mark.parametrize("causal,bias_mode", [(False, "pads"),
+                                              (True, "pads"),
+                                              (False, "masked")])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [77, 128])
+def test_split_tf32_k2_k3_match_jax(s, d, causal, bias_mode):
+    """The fp32 K2 and K3 take each product in split TF32 (lo·lo
+    dropped, each part rounded to TF32) where the JAX kernels multiply
+    in fp32, and dP - delta cancels after it.  With that rounding and
+    the kernels' tiles, dQ, dK and dV stay within the fp32 gate (2e-5)
+    and dBias within 1e-4 of the JAX package's Pallas backward
+    (``_pallas_bwd``, interpret mode, S padded to its block with -1e30
+    keys), given its forward's lse and O: with a -1e4 pad bias on a
+    fifth of the keys, and ("masked") every key of the second head at
+    -1e30, whose rows take P = 1 for every key."""
+    rng = np.random.RandomState(2 * s + d)
+    bh = B * H
+    q, k, v, do = (rng.randn(bh, s, d).astype(np.float32)
+                   for _ in range(4))
+    bias = np.zeros((bh, s), np.float32)
+    bias[:, s - s // 5:] = -1e4
+    if bias_mode == "masked":
+        bias[1] = -1e30
+    scale = 1.0 / math.sqrt(d)
+    block = jflash.DEFAULT_BLOCK
+    padded = jflash._pad_to_block(*(jnp.asarray(a) for a in (q, k, v, bias)),
+                                  block)
+    do_pad = jnp.pad(jnp.asarray(do),
+                     ((0, 0), (0, padded[0].shape[1] - s), (0, 0)))
+    o, lse = jflash._pallas_fwd(*padded, causal, scale, True, block)
+    want = jflash._pallas_bwd(*padded, o, lse, do_pad, causal, scale, True,
+                              block)
+    o, lse = (torch.from_numpy(np.array(t)[:, :s]) for t in (o, lse))
+    tq, tk, tv, tdo, rows = (torch.from_numpy(a)
+                             for a in (q, k, v, do, bias))
+    delta = (tdo * o).sum(-1)
+    got = _k2_k3_split_tf32(tq, tk, tv, rows, tdo, lse, delta, causal,
+                            scale)
+    for name, g, w in zip(("dQ", "dK", "dV", "dBias"), got, want):
+        tol = 1e-4 if name == "dBias" else TOL["float32"]
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:, :s],
+                                   atol=tol, rtol=tol, err_msg=name)
 
 
 @pytest.mark.parametrize("causal", [False, True])

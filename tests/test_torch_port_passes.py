@@ -369,16 +369,41 @@ def test_sub_block_consumer_ends_the_bias_act_chain():
     assert [op.type for op in main.blocks[1].ops] == ["scale"]
 
 
-def test_second_probs_reader_vetoes_softmax_xent():
+def _second_probs_reader_veto():
+    """A second reader of the softmax output (a reduce_mean) vetoes the
+    fusion in both packages.  The reader is built under its own
+    unique_name guard: its output name then comes from a fresh counter
+    in each package, not from the process-wide ones, which drift apart
+    with whatever the process built before."""
     def build(pkg):
         fluid = PKGS[pkg][0]
         main, _, _, probs = _sce(pkg, optimizer=False)
-        with fluid.program_guard(main):
+        with fluid.program_guard(main), fluid.unique_name.guard():
             fluid.layers.reduce_mean(probs)
         return main
 
     main = _vetoed(build, ["fuse_softmax_cross_entropy"])
     assert "cross_entropy" in _types(main)
+
+
+def test_second_probs_reader_vetoes_softmax_xent():
+    _second_probs_reader_veto()
+
+
+def test_second_probs_reader_veto_after_jax_layers_built():
+    """The veto check after the JAX package has built a reduce_mean of
+    its own outside the check's guards (as an earlier test in the same
+    worker may): its name counter is then one ahead of the port's, and
+    the two op lists must still agree name for name.  Both packages'
+    counters start fresh here and are given back on exit, so the drift
+    is the same whatever the worker ran before and does not outlive the
+    test."""
+    with jfluid.unique_name.guard(), tfluid.unique_name.guard():
+        main, startup = jfluid.Program(), jfluid.Program()
+        with jfluid.program_guard(main, startup):
+            x = jfluid.layers.data(name="x", shape=[4], dtype="float32")
+            jfluid.layers.reduce_mean(x)
+        _second_probs_reader_veto()
 
 
 def test_downgrade_dropout_rejected_by_fused_bias_act():

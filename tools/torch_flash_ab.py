@@ -1,5 +1,6 @@
 """Flash attention kernels of several kernel sources, on one card, in
-turns: the fp32 K1, and the bf16 K1-K3 at their paths' head dim 64.
+turns: the fp32 K1, the fp32 K1-K3 at their timed shapes, and the bf16
+K1-K3 at their paths' head dim 64.
 
 Each arm is a ``csrc`` directory of the port (``paddle_tpu_torch/csrc``
 of a checkout).  Its ``flash_attention.cu`` is built into a library of
@@ -10,7 +11,9 @@ on the command line.
 
 Shapes: fp32 K1 at the predictor path's [96, 128, 64] (b8 s128, 12
 heads, a key bias with pads, ``chip_smoke._flash_inputs``) and the same
-at D 128; bf16 K1, K2 and K3 at ``chip_smoke.FLASH_CASES``' timed D 64
+at D 128; fp32 K1, K2 and K3 at ``chip_smoke.FLASH_CASES``' timed fp32
+cases (the fp32 train step's [1536, 128, 64], GPT-2 small's causal
+[96, 1024, 64], [96, 128, 128]); bf16 K1, K2 and K3 at its timed D 64
 cases (the BERT path's [1536, 128, 64], a dp shard's [384, 128, 64],
 GPT-2 small's causal [96, 1024, 64]).  Each shape runs the arms in
 turns, A B C ... C B A, each reading ``chip_smoke._time_ms`` (30 calls),
@@ -48,7 +51,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FP32_SHAPES = ((8, 12, 128, 64), (8, 12, 128, 128))  # b, h, s, d
-BF16_CASES = ("path", "dp_shard", "gpt")  # of chip_smoke.FLASH_CASES
+# of chip_smoke.FLASH_CASES
+FP32_CASES = ("fp32_path", "fp32_gpt", "fp32_d128")
+BF16_CASES = ("path", "dp_shard", "gpt")
 ITERS = 30
 # what the wrapper raises when an entry point returns
 # cudaErrorInvalidValue, as bad_shape makes it do for a head dim it lacks
@@ -56,15 +61,17 @@ REFUSAL = "kernel launch failed with cudaError_t 1"
 
 
 def _build_all(arms, work):
-    """{label: bound library}: one nvcc an arm, all started together."""
+    """{label: bound library}: one nvcc an arm, all started together;
+    each arm's split-TF32 kernels' registers and spills printed."""
+    import chip_smoke as cs
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels.primitives import flash
 
     procs = {}
     for label, src in arms:
         so = os.path.join(work, f"{label}.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-               os.path.join(src, "flash_attention.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               so, os.path.join(src, "flash_attention.cu")]
         procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT,
                                          text=True), so)
@@ -75,6 +82,10 @@ def _build_all(arms, work):
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"arm {label}: build failed\n{log[-3000:]}")
+        tf32 = {fn: {k: p[k] for k in ("registers", "spill_bytes") if k in p}
+                for fn, p in cs._ptxas_parse(log).items()
+                if "flash_tf32" in fn}
+        print(f"AB ptxas {label} {json.dumps(tf32)}", flush=True)
         lib = ctypes.CDLL(so)
         for fn, argtypes in sigs.items():
             getattr(lib, fn).argtypes = list(argtypes)
@@ -140,7 +151,7 @@ def _fp32_k1(labels, libs, b, h, s, d, rng):
     return out
 
 
-def _bf16_k1_k3(labels, libs, case, rng):
+def _k1_k3(labels, libs, case, rng):
     import torch
 
     import chip_smoke as cs
@@ -190,14 +201,19 @@ def main(argv=None):
         labels = [label for label, _ in arms]
         rng = np.random.RandomState(cs.SEED)
         result = {"card": cs._smi(), "launch_floor_ms": cs.launch_floor_ms(),
-                  "arms": dict(arms), "fp32_k1": {}, "bf16_d64": {}}
+                  "arms": dict(arms), "fp32_k1": {}, "fp32_k1_k3": {},
+                  "bf16_d64": {}}
         for b, h, s, d in FP32_SHAPES:
             name = f"[{b * h}, {s}, {d}]"
             result["fp32_k1"][name] = _fp32_k1(labels, libs, b, h, s, d, rng)
             print(f"AB fp32 K1 {name} {json.dumps(result['fp32_k1'][name])}",
                   flush=True)
+        for case in FP32_CASES:
+            result["fp32_k1_k3"][case] = _k1_k3(labels, libs, case, rng)
+            print(f"AB fp32 {case} "
+                  f"{json.dumps(result['fp32_k1_k3'][case])}", flush=True)
         for case in BF16_CASES:
-            result["bf16_d64"][case] = _bf16_k1_k3(labels, libs, case, rng)
+            result["bf16_d64"][case] = _k1_k3(labels, libs, case, rng)
             print(f"AB bf16 {case} {json.dumps(result['bf16_d64'][case])}",
                   flush=True)
     finally:
