@@ -210,6 +210,37 @@ Phases, each fatal on failure:
      the fp32 SIMT peak: the step's matmuls run in full fp32), run
      before phases 14-19; then one profiled step a mode: device busy,
      idle share, and the split-TF32 K2 and K3's device time a step.
+ 21. resnet train path: ResNet-50 ImageNet training as bench.py:412-452
+     runs it (models.resnet.build_resnet(depth=50), b128, 3x224x224,
+     1000 classes, Momentum(0.1, 0.9), the bf16 policy with fp32 masters
+     and fp32 BN statistics, startup weights from a fixed seed, one
+     synthetic batch from RandomState(0)), captured and eager in turns
+     from one state, 2 warm-up and 8 timed steps each: losses finite and
+     falling, the modes' losses and whole state (parameters, velocities,
+     moving statistics) bit-equal, every moving statistic changed by
+     every captured step, K1-K8 launched 0 times (no TPU kernel on this
+     path); images/s, step p50 / p95, MFU from the program's conv2d and
+     mul shapes (2 x multiply-adds x 3 a step: 8.18 GFLOP a forward
+     image, 3.14 TFLOP a step, over 989 TFLOP/s), peak memory, graph
+     pools and capture seconds; one profiled step a mode: busy, idle,
+     launch API calls and device time by kernel family (cuDNN conv
+     forward, dgrad, wgrad and layout transposes, BN, ReLU, Momentum,
+     the policy's casts).  Then ResNet-50 in fp32 at b4, 64x64: 3 steps
+     on the card and on a CPUPlace executor from the same state, losses
+     within 1e-4 and state within 1e-3 of its norm, with cuDNN's flags
+     first set to the library's defaults (TF32 on): the executor turns
+     TF32 off and picks deterministic algorithms itself.
+ 22. resnet predictor: phase 21's trained weights saved by
+     save_inference_model (BN in the is_test form) from an fp32 program,
+     served by AnalysisPredictor at b8 fp32 with the default passes,
+     captured and eager: within 1e-4 of a CPU predictor over the same
+     files; run p50, busy and idle.
+ 23. cnn path: VGG-16, MobileNet v1, SE-ResNeXt-50 (32x4d), DenseNet-121
+     and GoogLeNet (with its auxiliary heads) at 224x224, 1000 classes,
+     and the MNIST conv net at 28x28, each at b8 under the bf16 policy
+     with Momentum(0.1, 0.9): 3 steps captured and eager in turns,
+     bit-equal, finite losses, K1-K8 never launched; each step's
+     seconds.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -221,7 +252,8 @@ the named kernels alone (a quick check of a kernel change; see ONLY;
 ``--only engine`` adds phases 10-11, ``--only passes,predictor,int8w``
 phases 14, 15 and 16 (``predictor`` with phase 3's fp32 K1 at its
 shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18,
-``--only fleet`` phase 19, and ``--only fp32train`` phase 20.
+``--only fleet`` phase 19, ``--only fp32train`` phase 20, ``--only
+resnet`` phases 21-22 and ``--only cnn`` phase 23.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -1939,7 +1971,7 @@ def _profile(step, n, match=None, device_only=False, kernels=False):
         wall = (time.perf_counter() - t0) / n
     dev, host = [], []
     for e in prof.key_averages():
-        if e.key in SPLIT_LABELS:
+        if e.key.startswith("pt_"):
             continue  # a record_function range, mirrored on the device
         # device-side events (kernels, copies) only: a CPU op such as
         # aten::mm also carries the device time of the kernels under it
@@ -2011,31 +2043,11 @@ def _kernel_sequence(prof, labels=()):
 SPLIT_LABELS = ("pt_bf16_policy_cast", "pt_adam")
 
 
-@contextlib.contextmanager
 def _split_annotations():
     """The bf16 policy's casts (``executor._apply_bf16_policy``) and the
     adam op's lowering each inside a record_function range, for one
-    eager profiled step (chip_smoke only: the port carries no
-    annotation)."""
-    from paddle_tpu_torch.fluid import executor as ex
-    from paddle_tpu_torch.fluid import registry
-
-    cast, adam = ex._apply_bf16_policy, registry.get_op("adam")
-    lower = adam.lower
-
-    def cast_annotated(op, vals):
-        with torch.profiler.record_function(SPLIT_LABELS[0]):
-            return cast(op, vals)
-
-    def adam_annotated(*a, **kw):
-        with torch.profiler.record_function(SPLIT_LABELS[1]):
-            return lower(*a, **kw)
-
-    ex._apply_bf16_policy, adam.lower = cast_annotated, adam_annotated
-    try:
-        yield
-    finally:
-        ex._apply_bf16_policy, adam.lower = cast, lower
+    eager profiled step."""
+    return _op_annotations({SPLIT_LABELS[1]: ("adam",)}, SPLIT_LABELS[0])
 
 
 def _split(seq):
@@ -2047,15 +2059,16 @@ def _split(seq):
     return out
 
 
-def profile_train_step(state):
-    """One train step of each mode under torch.profiler, and one
-    unprofiled: device busy and idle, the launch API calls, and the
-    elementwise split of the step's device time between the bf16
-    policy's casts and Adam's kernels.  The eager step carries the
-    split's ranges; the captured step's kernels (one graph launch: no
-    op launches them) take the labels of the eager step's kernels they
-    align with, name by name in order (difflib), and any left unaligned
-    are counted apart."""
+def _profile_labelled(state, labels, annotate):
+    """One step of each mode of ``state`` under torch.profiler, and one
+    unprofiled (``step_wall_ms``): device busy and idle and the launch
+    API calls a mode.  The eager step runs inside ``annotate()``, which
+    puts the ranges of ``labels`` around its ops; the captured step's
+    kernels (one graph launch: no op launches them) take the labels of
+    the eager step's kernels they align with, name by name in order
+    (difflib).  Returns (readings by mode, the eager labelled kernel
+    sequence, the captured one's aligned kernels, and the captured
+    kernels left unaligned (ms) with the kernel counts)."""
     exes, scopes = state["exes"], state["scopes"]
     main, feed, loss = state["main"], state["feed"], state["loss"]
     out, seqs = {}, {}
@@ -2063,12 +2076,9 @@ def profile_train_step(state):
         def step():
             exe.run(main, feed=feed, fetch_list=[loss], scope=scopes[m])
 
-        if m == "eager":
-            with _split_annotations():
-                r = _profile(step, 1, kernels=True)
-        else:
+        with annotate() if m == "eager" else contextlib.nullcontext():
             r = _profile(step, 1, kernels=True)
-        seqs[m] = _kernel_sequence(r.pop("prof"), SPLIT_LABELS)
+        seqs[m] = _kernel_sequence(r.pop("prof"), labels)
         t0 = time.perf_counter()
         step()
         r["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
@@ -2076,18 +2086,26 @@ def profile_train_step(state):
     eager, cap = seqs["eager"], seqs["captured"]
     sm = difflib.SequenceMatcher(a=[k[0] for k in eager],
                                  b=[k[0] for k in cap], autojunk=False)
-    labelled, aligned = [], 0
+    labelled = []
     for a, b, size in sm.get_matching_blocks():
         labelled += [(cap[b + i][0], cap[b + i][1], eager[a + i][2])
                      for i in range(size)]
-        aligned += size
-    unaligned = (sum(us for _, us, _ in cap)
-                 - sum(us for _, us, _ in labelled)) / 1e3
-    out["elementwise_split_ms"] = {
-        "eager": _split(eager), "captured": _split(labelled),
-        "captured_unaligned_ms": unaligned,
-        "kernels": {"eager": len(eager), "captured": len(cap),
-                    "aligned": aligned}}
+    unaligned = {"captured_unaligned_ms": (
+                     sum(us for _, us, _ in cap)
+                     - sum(us for _, us, _ in labelled)) / 1e3,
+                 "kernels": {"eager": len(eager), "captured": len(cap),
+                             "aligned": len(labelled)}}
+    return out, eager, labelled, unaligned
+
+
+def profile_train_step(state):
+    """One train step of each mode profiled (:func:`_profile_labelled`),
+    with the elementwise split of the step's device time between the
+    bf16 policy's casts and Adam's kernels."""
+    out, eager, labelled, unaligned = _profile_labelled(
+        state, SPLIT_LABELS, _split_annotations)
+    out["elementwise_split_ms"] = {"eager": _split(eager),
+                                   "captured": _split(labelled), **unaligned}
     return out
 
 
@@ -3025,7 +3043,11 @@ def run_ragged_arm(model_dir, fetch, ragged, place, waves, counter=None,
         eng.start()
 
         def wave(feeds):
-            futs = [eng.submit(name, f) for f in feeds]
+            # the wave's requests reach the scheduler together (its
+            # lock is re-entrant): a host stall between two submits
+            # would otherwise let max_wait split a full wave and pad it
+            with eng._lanes[name]._cv:
+                futs = [eng.submit(name, f) for f in feeds]
             return [float(f.result(timeout=300)[fetch].reshape(-1)[0])
                     for f in futs]
 
@@ -4370,6 +4392,580 @@ def run_fleet_path(counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the image models (no TPU kernel on their path; K1-K8 must
+# launch 0 times)
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 128, (3, 224, 224), 1000
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9  # bench.py:431
+RESNET_WARMUP, RESNET_STEPS = 2, 8
+# card against CPU, fp32: ResNet-50 at b4, 64x64, each step from one
+# state (run_resnet_parity says why), at a learning rate whose updates
+# stand well above the weights' fp32 rounding (``update_rel_of_norm``
+# in the output) and under which the losses still fall over 3 steps
+RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE = 4, (3, 64, 64)
+RESNET_PARITY_STEPS, RESNET_PARITY_LR = 3, 1e-3
+# each step's loss, and each leaf's update (card against CPU, relative
+# to the CPU's update).  The update's limit is set from its reading on
+# an H100 (4.0e-2 at worst, a BN offset): the step is ill-conditioned
+# at this size (``cpu_update_vs_input_1e-6`` in the output: how far a
+# relative change of 1e-6 in the input moves the CPU's updates).  A
+# zero or wrong grad reads about 1.
+RESNET_PARITY_LOSS_RTOL, RESNET_PARITY_CHANGE_RTOL = 1e-4, 0.1
+RESNET_PRED_BATCH, RESNET_PRED_RUNS, RESNET_PRED_ATOL = 8, 10, 1e-4
+# fp32 training steps at learning rate 0 that bring the moving
+# statistics to the batch statistics before the predictor is saved
+# (0.9^40: 1.5% of the old statistics left)
+RESNET_PRED_CALIB_STEPS = 40
+CNN_BATCH, CNN_STEPS = 8, 3
+# the ops each label of a profiled ResNet step covers
+RESNET_LABELS = {"pt_conv": ("conv2d", "conv2d_grad"),
+                 "pt_bn": ("batch_norm", "batch_norm_grad"),
+                 "pt_relu": ("relu", "relu_grad"),
+                 "pt_momentum": ("momentum",)}
+
+
+def _image_program(image=None, lr=None, bf16=True, build=None):
+    """A training program of ``build`` (default: models.resnet
+    ``build_resnet(depth=50)`` at ``image``, RESNET_IMAGE unless given)
+    with Momentum(lr, 0.9) (RESNET_LR unless given), under the bf16
+    policy where asked; returns (main, startup, loss, prediction)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if build is None:
+            _, pred, loss, _ = resnet.build_resnet(
+                depth=50, class_dim=RESNET_CLASSES,
+                image_shape=image or RESNET_IMAGE)
+        else:
+            _, pred, loss, _ = build()
+        fluid.optimizer.Momentum(learning_rate=lr or RESNET_LR,
+                                 momentum=RESNET_MOMENTUM).minimize(loss)
+    if bf16:
+        enable_bf16_policy(main)
+    startup.random_seed = SEED
+    return main, startup, loss, pred
+
+
+def _image_feed(batch, image, classes, seed=0):
+    """One synthetic batch as bench.py makes it (RandomState(0))."""
+    rng = np.random.RandomState(seed)
+    return {"img": rng.rand(batch, *image).astype("float32"),
+            "label": rng.randint(0, classes, (batch, 1)).astype("int64")}
+
+
+def cnn_flops_per_image(program):
+    """Forward FLOPs an image of the program's conv2d, depthwise_conv2d
+    and mul ops: two per multiply-add, from the ops' shapes (output
+    elements x input channels a group x filter taps; rows x columns of
+    a product)."""
+    block = program.global_block()
+    macs = 0
+    for op in block.ops:
+        if op.attrs.get("op_role", "forward") != "forward":
+            continue
+        if op.type in ("conv2d", "depthwise_conv2d"):
+            w = block.var(op.inputs["Filter"][0]).shape
+            out = block.var(op.outputs["Output"][0]).shape
+            macs += int(np.prod(out[1:])) * int(np.prod(w[1:]))
+        elif op.type == "mul":
+            y = block.var(op.inputs["Y"][0]).shape
+            macs += int(np.prod(y))
+    return 2 * macs
+
+
+def _state_of(program, kind):
+    """Names of the program's BN moving statistics (``stats``) or
+    Momentum velocities (``velocity``)."""
+    block = program.global_block()
+    if kind == "stats":
+        return sorted({n for op in block.ops if op.type == "batch_norm"
+                       for n in op.inputs["Mean"] + op.inputs["Variance"]})
+    return sorted({n for op in block.ops if op.type == "momentum"
+                   for n in op.inputs["Velocity"]})
+
+
+def _cnn_in_turns(main, startup, loss, feed, counters, steps, what,
+                  stats_move=False):
+    """``steps`` runs of ``main`` in each executor mode in turns from
+    one state made on the card by ``startup``: losses, host seconds,
+    peak memory a mode; K1-K8 launch 0 times (wrappers and card); the
+    modes' losses and whole state (parameters, velocities, moving
+    statistics) bit-equal; with ``stats_move``, every moving statistic
+    changes at every captured step."""
+    from paddle_tpu_torch import fluid
+
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    stats = _state_of(main, "stats")
+    losses = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    unmoved = []
+    torch.cuda.synchronize()
+    for i in range(steps):
+        for m, exe in exes.items():
+            prev = ({n: scopes[m].get(n).clone() for n in stats}
+                    if stats_move and m == "captured" else None)
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[m])
+            secs[m].append(time.perf_counter() - t0)
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+            losses[m].append(float(lv))
+            if prev is not None:
+                unmoved += [(i, n) for n, t in prev.items()
+                            if torch.equal(scopes[m].get(n), t)]
+    if any(launches[m] != _no_launches(counters) for m in exes) or any(
+            on_card[m] != _no_launches(counters) for m in exes):
+        raise AssertionError(f"{what}: K1-K8 launched: {launches} "
+                             f"(wrappers), {on_card} (on the card)")
+    if not all(np.isfinite(losses["captured"])):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"{what}: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
+    if unmoved:
+        raise AssertionError(f"{what}: moving statistics unchanged by a "
+                             f"captured step: {unmoved[:5]}")
+    held = [h.graph for h in exes["captured"].compiled_for(main)]
+    if exes["captured"].capture and held == [None]:
+        raise AssertionError(f"{what}: the captured executor holds no "
+                             f"graph")
+    return dict(exes=exes, scopes=scopes, losses=losses, secs=secs,
+                peak=peak, launches=launches, on_card=on_card, stats=stats)
+
+
+def run_resnet_path(counters):
+    """Phase 21: ResNet-50 ImageNet training as bench.py:412-452 runs it
+    (b128, 3x224x224, 1000 classes, Momentum(0.1, 0.9), the bf16 policy
+    with fp32 masters and fp32 BN statistics, one synthetic batch), the
+    captured and the eager executor in turns from one state made by the
+    startup program, RESNET_WARMUP + RESNET_STEPS steps each."""
+    main, startup, loss, pred = _image_program()
+    feed = _image_feed(RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES)
+    steps = RESNET_WARMUP + RESNET_STEPS
+    r = _cnn_in_turns(main, startup, loss, feed, counters, steps,
+                      "resnet path", stats_move=True)
+    loss_c = r["losses"]["captured"]
+    if not loss_c[-1] < loss_c[0]:
+        raise AssertionError(f"resnet path: losses not falling: {loss_c}")
+    fwd = cnn_flops_per_image(main)
+    flops = 3 * fwd * RESNET_BATCH
+    types = [op.type for op in main.global_block().ops]
+    modes = {}
+    for m in r["exes"]:
+        timed = np.asarray(r["secs"][m][RESNET_WARMUP:])
+        p50 = float(np.median(timed))
+        modes[m] = dict(
+            images_per_s=RESNET_BATCH * RESNET_STEPS / float(timed.sum()),
+            step_p50_ms=1e3 * p50,
+            step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+            first_step_s=r["secs"][m][0], mfu=flops / p50 / BF16_TC_FLOPS,
+            peak_memory_gb=r["peak"][m] / 1e9, launches=r["launches"][m],
+            device_launches=r["on_card"][m])
+    modes["captured"]["capture_s"] = _capture_seconds(r["exes"]["captured"],
+                                                      main)
+    modes["captured"]["graph_pools_gb"] = graph_pools_gb()
+    path = dict(
+        model="models.resnet.build_resnet(depth=50), bench.py:412-452",
+        batch=RESNET_BATCH, image=list(RESNET_IMAGE),
+        classes=RESNET_CLASSES, optimizer=f"Momentum({RESNET_LR}, "
+        f"{RESNET_MOMENTUM})", dtype_policy="bf16", steps=RESNET_STEPS,
+        warmup_steps=RESNET_WARMUP, losses=loss_c,
+        captured_eager_bit_equal=True, moving_stats_change_each_step=True,
+        ops=len(types), conv2d_ops=types.count("conv2d"),
+        batch_norm_ops=types.count("batch_norm"),
+        model_flops_per_image_fwd=fwd, model_flops_per_step=flops,
+        mfu_formula="2 x multiply-adds of the program's conv2d and mul "
+                    "ops a forward image x 3 (forward + two backward "
+                    "products) x batch / step p50 / 989 TFLOP/s (bf16 "
+                    "dense); bench.py's 4.1e9 a forward image is the "
+                    "multiply-add count",
+        modes=modes, launches=_summed(r["launches"]),
+        device_launches=_summed(r["on_card"]))
+    state = dict(exes=r["exes"], scopes=r["scopes"], main=main, feed=feed,
+                 loss=loss, pred=pred)
+    return state, path
+
+
+@contextlib.contextmanager
+def _op_annotations(labels, cast_label=None):
+    """Each op lowering of ``labels`` ({label: op types}) inside a
+    record_function range of its label, and the bf16 policy's casts in
+    ``cast_label``'s, for one eager profiled step (chip_smoke only: the
+    port carries no annotation)."""
+    from paddle_tpu_torch.fluid import executor as ex
+    from paddle_tpu_torch.fluid import registry
+
+    saved = {}
+    for label, types in labels.items():
+        for t in types:
+            info = registry.get_op(t)
+            saved[t] = info.lower
+
+            def annotated(*a, _lower=info.lower, _label=label, **kw):
+                with torch.profiler.record_function(_label):
+                    return _lower(*a, **kw)
+
+            info.lower = annotated
+    cast = ex._apply_bf16_policy
+    if cast_label:
+        def cast_annotated(op, vals):
+            with torch.profiler.record_function(cast_label):
+                return cast(op, vals)
+
+        ex._apply_bf16_policy = cast_annotated
+    try:
+        yield
+    finally:
+        ex._apply_bf16_policy = cast
+        for t, lower in saved.items():
+            registry.get_op(t).lower = lower
+
+
+def _conv_family(name):
+    """The kernel family of a kernel a conv op launched, by its name."""
+    low = name.lower()
+    if "nchwtonhwc" in low or "nhwctonchw" in low or "transpose" in low:
+        return "conv_layout_transpose"
+    for key in ("dgrad", "wgrad", "fprop"):
+        if key in low:
+            return f"conv_{key}"
+    return "conv_other"
+
+
+def _families(seq):
+    """Device ms and kernel count by family of a labelled kernel
+    sequence, with the top kernel names of each."""
+    fam = {}
+    for name, us, label in seq:
+        if label == "pt_conv":
+            key = _conv_family(name)
+        elif label:
+            key = label[3:]
+        else:
+            key = "other"
+        f = fam.setdefault(key, dict(ms=0.0, kernels=0, names={}))
+        f["ms"] += us / 1e3
+        f["kernels"] += 1
+        f["names"][name[:70]] = f["names"].get(name[:70], 0.0) + us / 1e3
+    for f in fam.values():
+        f["names"] = dict(sorted(f["names"].items(), key=lambda kv: -kv[1])
+                          [:3])
+    return fam
+
+
+def profile_resnet_step(state):
+    """One ResNet-50 step of each mode profiled
+    (:func:`_profile_labelled`), with the device time by kernel family:
+    cuDNN's conv forward, dgrad and wgrad, the layout transposes cuDNN
+    adds around NCHW, BN, ReLU, Momentum and the bf16 policy's
+    casts."""
+    out, eager, labelled, unaligned = _profile_labelled(
+        state, tuple(RESNET_LABELS) + ("pt_bf16_policy_cast",),
+        lambda: _op_annotations(RESNET_LABELS, "pt_bf16_policy_cast"))
+    out["families_ms"] = {"eager": _families(eager),
+                          "captured": _families(labelled), **unaligned}
+    return out
+
+
+def run_resnet_parity():
+    """ResNet-50 in fp32 at b4, 64x64: RESNET_PARITY_STEPS Momentum steps
+    at RESNET_PARITY_LR on the card, the port on the CPU taking each
+    step from the card's state (parameters, velocities, moving
+    statistics): each step's loss within 1e-4, and each parameter's
+    and moving statistic's update (after − before: the backward and
+    the update ops) within RESNET_PARITY_CHANGE_RTOL of the CPU's
+    update.  As both devices start each step from one state, a leaf's
+    difference after the step is its update's difference: held to the
+    update, not to the leaf's norm, which a BN offset (zero at the
+    start) does not have.  Each step starts from one state because the
+    step is ill-conditioned at this size (its last batch norms see 16
+    values a channel): run freely, the two devices' roundings grow
+    about tenfold a step.  The conditioning is read with each step: the
+    CPU's step again from the same state with the input scaled by
+    1 + 1e-6, its updates against the CPU's.  cuDNN's flags start
+    at the library's defaults (TF32 on, benchmark on): the executor
+    must turn TF32 off and pick deterministic algorithms itself."""
+    from paddle_tpu_torch import convert, fluid
+
+    main, startup, loss, _ = _image_program(
+        image=RESNET_PARITY_IMAGE, lr=RESNET_PARITY_LR, bf16=False)
+    feed = _image_feed(RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE,
+                       RESNET_CLASSES, seed=1)
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = True, False, True
+    gpu = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=gpu)
+    cpu = fluid.Scope()
+    cexe = fluid.Executor(fluid.CPUPlace())
+    cexe.run(startup, scope=cpu)
+    gexe = fluid.Executor(_gpu_place())
+    names = sorted({p.name for p in main.all_parameters()}
+                   | set(_state_of(main, "stats")))
+    persist = sorted(n for n, v in main.global_block().vars.items()
+                     if v.persistable and gpu.get(n) is not None)
+
+    def rel(x, y, floor):
+        return float(np.linalg.norm(x - y) / max(np.linalg.norm(y), floor,
+                                                 1e-30))
+
+    def update_rel(x, y, start):
+        # the update floored at 1e-6 of the tensor (fp32 rounds the sum
+        # at 6e-8 of it)
+        return rel(x - start, y - start, 1e-6 * np.linalg.norm(start))
+
+    nudged = dict(feed, img=feed["img"] * np.float32(1 + 1e-6))
+    cpu2 = fluid.Scope()
+    cexe.run(startup, scope=cpu2)
+    losses = {"card": [], "cpu": []}
+    worst, worst_change, updates, nudge = ("", 0.0), ("", 0.0), [], []
+    for _ in range(RESNET_PARITY_STEPS):
+        start = {n: np.array(gpu.get(n).cpu()) for n in persist}
+        convert.load_params(cpu, start, fluid.CPUPlace(), program=main)
+        convert.load_params(cpu2, start, fluid.CPUPlace(), program=main)
+        losses["card"].append(float(gexe.run(main, feed=feed,
+                                              fetch_list=[loss],
+                                              scope=gpu)[0]))
+        losses["cpu"].append(float(cexe.run(main, feed=feed,
+                                             fetch_list=[loss],
+                                             scope=cpu)[0]))
+        cexe.run(main, feed=nudged, fetch_list=[loss], scope=cpu2)
+        for n in names:
+            g, c = gpu.get(n).cpu().numpy(), cpu.get(n).numpy()
+            worst = max(worst, (n, rel(g, c, 1e-3 * np.sqrt(c.size))),
+                        key=lambda t: t[1])
+            worst_change = max(worst_change,
+                               (n, update_rel(g, c, start[n])),
+                               key=lambda t: t[1])
+            nudge.append(update_rel(cpu2.get(n).numpy(), c, start[n]))
+            if np.linalg.norm(start[n]):
+                updates.append(float(np.linalg.norm(c - start[n])
+                                     / np.linalg.norm(start[n])))
+    flags = dict(allow_tf32=cudnn.allow_tf32,
+                 deterministic=cudnn.deterministic,
+                 benchmark=cudnn.benchmark,
+                 matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    if flags != dict(allow_tf32=False, deterministic=True, benchmark=False,
+                     matmul_allow_tf32=False):
+        raise AssertionError(f"resnet parity: the executor left cuDNN's "
+                             f"flags at {flags}")
+    a, b = np.asarray(losses["card"]), np.asarray(losses["cpu"])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    if not (np.all(np.isfinite(a)) and a[-1] < a[0]
+            and loss_rel <= RESNET_PARITY_LOSS_RTOL
+            and worst_change[1] <= RESNET_PARITY_CHANGE_RTOL):
+        raise AssertionError(f"resnet parity: losses {losses} (max rel "
+                             f"{loss_rel}), worst state {worst}, worst "
+                             f"update {worst_change}")
+    return dict(model="resnet50 fp32", batch=RESNET_PARITY_BATCH,
+                image=list(RESNET_PARITY_IMAGE), lr=RESNET_PARITY_LR,
+                steps=RESNET_PARITY_STEPS,
+                each_step_from_the_cards_state=True, losses=losses,
+                loss_max_rel=loss_rel, loss_rtol=RESNET_PARITY_LOSS_RTOL,
+                state_worst=list(worst),
+                change_worst=list(worst_change),
+                change_rtol=RESNET_PARITY_CHANGE_RTOL,
+                **{"cpu_update_vs_input_1e-6": dict(
+                    median=float(np.median(nudge)),
+                    max=float(np.max(nudge)))},
+                update_rel_of_norm=dict(
+                    median=float(np.median(updates)),
+                    min=float(np.min(updates)), max=float(np.max(updates))),
+                cudnn_flags_after_run=flags)
+
+
+def run_resnet_predictor(counters):
+    """Phase 22: ResNet-50 saved with save_inference_model (BN in the
+    is_test form) from an fp32 program of phase 21's names, with the
+    logits and the probabilities as targets, served by AnalysisPredictor
+    at b8 fp32 with the default passes, captured and eager in turns on
+    the card, then by a predictor on the CPU over the same files: the
+    logits within 1e-4 of their largest magnitude, the probabilities
+    within 1e-4.  The weights are phase 21's seeded start, its
+    moving statistics brought to the batch statistics by
+    RESNET_PRED_CALIB_STEPS fp32 steps at learning rate 0, so that the
+    logits are of moderate size and the probabilities not saturated:
+    at the startup statistics (mean 0, variance 1) the is_test form
+    normalizes nothing, and phase 21's ten steps at 0.1 leave its
+    statistics far from its weights (logits of 1e7)."""
+    import tempfile
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import inference as inf
+
+    main, startup, loss, pred = _image_program(bf16=False)
+    block = main.global_block()
+    (logits,) = [block.var(op.inputs["X"][0]) for op in block.ops
+                 if op.type == "softmax" and op.outputs["Out"] == [pred.name]]
+    scope = fluid.Scope()
+    exe = fluid.Executor(_gpu_place())
+    exe.run(startup, scope=scope)
+    start = {p.name: scope.get(p.name).clone()
+             for p in main.all_parameters()}
+    for op in block.ops:
+        if op.type == "momentum":
+            lr = scope.get(op.inputs["LearningRate"][0])
+            scope.set(op.inputs["LearningRate"][0], torch.zeros_like(lr))
+    calib = _image_feed(RESNET_PRED_BATCH, RESNET_IMAGE, RESNET_CLASSES,
+                        seed=3)
+    for _ in range(RESNET_PRED_CALIB_STEPS):
+        exe.run(main, feed=calib, fetch_list=[loss], scope=scope)
+    moved = [n for n, t in start.items() if not torch.equal(scope.get(n), t)]
+    if moved:
+        raise AssertionError(f"resnet predictor: steps at learning rate 0 "
+                             f"changed weights: {moved[:5]}")
+    feed = _image_feed(RESNET_PRED_BATCH, RESNET_IMAGE, RESNET_CLASSES,
+                       seed=2)["img"]
+    tensors = [inf.PaddleTensor(feed, name="img")]
+    with tempfile.TemporaryDirectory(prefix="pt_resnet50_") as d:
+        fluid.io.save_inference_model(d, ["img"], [logits, pred],
+                                      fluid.Executor(_gpu_place()),
+                                      main_program=main, scope=scope)
+        preds = {}
+        for m, c in MODES:
+            with capture_mode(c):
+                preds[m] = inf.create_paddle_predictor(
+                    inf.AnalysisConfig(d), place=_gpu_place())
+        cpu = inf.create_paddle_predictor(inf.AnalysisConfig(d),
+                                          place=fluid.CPUPlace())
+        want = [t.as_ndarray() for t in cpu.run(tensors)]
+    bn = [op for op in preds["captured"]._program.global_block().ops
+          if op.type == "batch_norm"]
+    if len(bn) != 53 or not all(op.attrs["is_test"] for op in bn):
+        raise AssertionError("resnet predictor: the saved program's batch "
+                             "norms are not in the is_test form")
+    outs = {m: [] for m in preds}
+    secs = {m: [] for m in preds}
+    before = _snap()
+    for _ in range(1 + RESNET_PRED_RUNS):
+        for m, p in preds.items():
+            t0 = time.perf_counter()
+            got = p.run(tensors)
+            secs[m].append(time.perf_counter() - t0)
+            outs[m].append([t.as_ndarray() for t in got])
+    py, dev = _since(before, counters)
+    if py != _no_launches(counters) or dev != _no_launches(counters):
+        raise AssertionError(f"resnet predictor: K1-K8 launched: {py}, "
+                             f"{dev}")
+    ref = outs["captured"][0]
+    if any(r.shape != (RESNET_PRED_BATCH, RESNET_CLASSES)
+           or not np.isfinite(r).all() for r in ref):
+        raise AssertionError(f"resnet predictor: outputs "
+                             f"{[r.shape for r in ref]}")
+    if not all(np.array_equal(r, x) for v in outs.values() for o in v
+               for r, x in zip(ref, o)):
+        raise AssertionError("resnet predictor: runs or modes differ")
+    # the logits within 1e-4 of their largest magnitude (at least 1),
+    # the probabilities within 1e-4
+    top_logit = float(np.abs(want[0]).max())
+    errs = [float(np.abs(ref[0] - want[0]).max()) / max(1.0, top_logit),
+            float(np.abs(ref[1] - want[1]).max())]
+    if not max(errs) <= RESNET_PRED_ATOL:
+        raise AssertionError(f"resnet predictor: card vs CPU {errs} > "
+                             f"{RESNET_PRED_ATOL} (largest logit "
+                             f"{top_logit})")
+    top = float(want[1].max(axis=1).mean())
+    if not top < 0.99:
+        raise AssertionError(f"resnet predictor: the probabilities are "
+                             f"saturated (mean top {top})")
+    modes = {}
+    for m, p in preds.items():
+        timed = np.asarray(secs[m][1:])
+        prof = _profile(lambda: p.run(tensors), 1)
+        modes[m] = dict(run_p50_ms=1e3 * float(np.percentile(timed, 50)),
+                        run_p95_ms=1e3 * float(np.percentile(timed, 95)),
+                        first_run_s=secs[m][0],
+                        **{k: prof[k] for k in ("device_busy_ms",
+                                                "device_idle_share",
+                                                "launch_api_calls")
+                           if k in prof})
+    return dict(model="resnet50 inference, save_inference_model",
+                batch=RESNET_PRED_BATCH, dtype="float32",
+                runs=RESNET_PRED_RUNS, card_cpu_err_logits=errs[0],
+                card_cpu_err_probs=errs[1],
+                card_cpu_abs_err_logits=float(np.abs(ref[0] - want[0]).max()),
+                card_cpu_rel_err_probs=float(np.max(np.abs(ref[1] - want[1])
+                                                    / want[1])),
+                logits_max_abs=top_logit,
+                logits_std=float(want[0].std()), top_prob_mean=top,
+                calib_steps=RESNET_PRED_CALIB_STEPS,
+                atol=RESNET_PRED_ATOL, captured_eager_equal=True,
+                ops=len(preds["captured"]._program.global_block().ops),
+                modes=modes, launches=py, device_launches=dev)
+
+
+def _cnn_models():
+    """{name: (builder, image, classes)} of phase 23: the JAX package's
+    other image models at their published widths."""
+    from paddle_tpu_torch.models import (densenet, googlenet, mlp,
+                                         mobilenet, se_resnext, vgg)
+
+    return {
+        "vgg16": (lambda: vgg.build_vgg(depth=16), (3, 224, 224), 1000),
+        "mobilenet_v1": (lambda: mobilenet.build_mobilenet(),
+                         (3, 224, 224), 1000),
+        "se_resnext50_32x4d": (lambda: se_resnext.build_se_resnext(
+            depth=50), (3, 224, 224), 1000),
+        "densenet121": (lambda: densenet.build_densenet(depth=121),
+                        (3, 224, 224), 1000),
+        "googlenet": (lambda: googlenet.build_googlenet(), (3, 224, 224),
+                      1000),
+        "mnist_conv_net": (mlp.build_conv_net, (1, 28, 28), 10),
+    }
+
+
+def run_cnn_path(counters):
+    """Phase 23: each other image model at b8 under the bf16 policy with
+    Momentum(0.1, 0.9), CNN_STEPS steps captured and eager in turns
+    from one state: bit-equal, finite losses, K1-K8 never launched; each
+    step's host seconds a mode."""
+    out = {}
+    for name, (build, image, classes) in _cnn_models().items():
+        t0 = time.perf_counter()
+        main, startup, loss, _ = _image_program(build=build)
+        feed = _image_feed(CNN_BATCH, image, classes)
+        r = _cnn_in_turns(main, startup, loss, feed, counters, CNN_STEPS,
+                          f"cnn path {name}")
+        types = [op.type for op in main.global_block().ops]
+        out[name] = dict(
+            image=list(image), classes=classes, ops=len(types),
+            losses=r["losses"]["captured"],
+            step_ms={m: [1e3 * s for s in v] for m, v in r["secs"].items()},
+            peak_memory_gb={m: v / 1e9 for m, v in r["peak"].items()},
+            capture_s=_capture_seconds(r["exes"]["captured"], main),
+            model_flops_per_image_fwd=cnn_flops_per_image(main),
+            launches=_summed(r["launches"]),
+            device_launches=_summed(r["on_card"]),
+            seconds=time.perf_counter() - t0)
+        del r
+        torch.cuda.empty_cache()
+    return dict(batch=CNN_BATCH, steps=CNN_STEPS, dtype_policy="bf16",
+                optimizer=f"Momentum({RESNET_LR}, {RESNET_MOMENTUM})",
+                captured_eager_bit_equal=True, models=out,
+                launches=_summed({n: m["launches"] for n, m in out.items()}),
+                device_launches=_summed({n: m["device_launches"]
+                                         for n, m in out.items()}))
+
+
+ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
+                 "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
 # "flash" phase 2's flash report and phase 3's K1-K3 checks (every
 # FLASH_CASES case and the fp32 K1 at the predictor's shape);
@@ -4377,7 +4973,7 @@ def run_fleet_path(counters):
 # "passes", "predictor" and "int8w" phases 14, 15 and 16 ("predictor"
 # with phase 3's fp32 K1 at its shape), "gpt" phase 3's K1-K4 checks
 # (GPT-2 small's shapes among them) and phases 17-18, "fleet" phase 19,
-# and "fp32train" phase 20
+# "fp32train" phase 20, "resnet" phases 21-22 and "cnn" phase 23
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -4393,8 +4989,13 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                 ("check_flash", "check_bias_gelu_bf16")),
         "fleet": (("fused_bias_act", "paged_attention", "ragged_attention"),
                   ()),
-        "fp32train": (("flash_attention", "fused_bias_act"), ())}
-NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet")
+        "fp32train": (("flash_attention", "fused_bias_act"), ()),
+        # no kernel on their path: every library is built so that the
+        # kernels' own counters can show 0 launches
+        "resnet": (ALL_LIBRARIES, ()),
+        "cnn": (ALL_LIBRARIES, ())}
+NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
+              "resnet", "cnn")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -4402,12 +5003,11 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 20 and 14-19 (those of ``keys``, in that order); returns
-    their path readings
-    (None for a phase not run).  Phase 16's ids are compared with
-    ``fp32_outs``, the fp32-weight lane's, where given (printed, not
-    gated)."""
-    ab = pred = path_w = gpt = fleet = fp32 = None
+    """Phases 20, 14-19 and 21-23 (those of ``keys``, in that order);
+    returns their path readings (None for a phase not run).  Phase 16's
+    ids are compared with ``fp32_outs``, the fp32-weight lane's, where
+    given (printed, not gated)."""
+    ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -4471,7 +5071,23 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
             "mttr_s": fleet["failover"]["mttr_s"],
             "hedge_win_rate": fleet["hedge"]["hedge_win_rate"],
             "fleet_seconds": fleet["seconds"]})
-    return ab, pred, path_w, gpt, fleet, fp32
+    if "resnet" in keys:
+        torch.cuda.empty_cache()
+        state, resnet = run_resnet_path(wrappers)
+        say("resnet train path", {"card": smi, **resnet})
+        say("resnet train step", {"card": smi,
+                                  **profile_resnet_step(state)})
+        del state
+        torch.cuda.empty_cache()
+        resnet["predictor"] = run_resnet_predictor(wrappers)
+        say("resnet predictor path", {"card": smi, **resnet["predictor"]})
+        say("resnet parity", run_resnet_parity())
+    if "cnn" in keys:
+        torch.cuda.empty_cache()
+        cnn = run_cnn_path(wrappers)
+        say("cnn path", {"card": smi, **cnn})
+        torch.cuda.empty_cache()
+    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn
 
 
 def run_only(keys, dev, smi, say):
@@ -4516,11 +5132,12 @@ def main(argv=None):
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
-                    "gpt, fleet, fp32train): phases 1-3 for those kernels "
-                    "alone (flash: with phase 2's flash report; engine: "
-                    "phases 10-11; passes, predictor, int8w: phases 14, "
-                    "15, 16; gpt: K1-K4 and phases 17-18; fleet: phase "
-                    "19; fp32train: phase 20); the default runs every "
+                    "gpt, fleet, fp32train, resnet, cnn): phases 1-3 for "
+                    "those kernels alone (flash: with phase 2's flash "
+                    "report; engine: phases 10-11; passes, predictor, "
+                    "int8w: phases 14, 15, 16; gpt: K1-K4 and phases "
+                    "17-18; fleet: phase 19; fp32train: phase 20; resnet: "
+                    "phases 21-22; cnn: phase 23); the default runs every "
                     "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4549,7 +5166,6 @@ def main(argv=None):
         t_last[0] = now
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = _smi()
     from paddle_tpu_torch.observability import profiling
@@ -4668,7 +5284,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
-    ab, pred, path_w, gpt, fleet, fp32 = run_new_phases(
+    ab, pred, path_w, gpt, fleet, fp32, resnet, cnn = run_new_phases(
         wrappers, train_kernels, fp32_outs, smi, say)
 
     dec = k5_t["decode"]
@@ -4685,6 +5301,10 @@ def main(argv=None):
                      "gpt_train": gpt[key], "fp32_train": fp32[key],
                      "gpt_unfused": gpt["unfused"][key],
                      "fleet": fleet[key],
+                     # the image models: no TPU kernel on their path
+                     "resnet_train": resnet[key],
+                     "resnet_predictor": resnet["predictor"][key],
+                     "cnn": cnn[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}

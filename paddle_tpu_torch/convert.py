@@ -28,9 +28,13 @@ def load_params(scope, arrays, place, program=None):
     ``arrays`` with the parameter's shape and dtype — or, for a weight
     the program stores dual-int8 (passes/int8_weights.py), its storage
     triple: hi and lo int8 of the weight's shape and a [rows, 1] fp32
-    scale.  A missing or mismatched parameter raises ValueError naming
-    it, and nothing is loaded.  Returns the sorted list of names
-    loaded."""
+    scale — and so must every other persistable that the startup
+    program writes and a forward op reads: model state such as batch
+    norm's moving mean and variance, which would otherwise keep its
+    startup value silently (optimizer state, read by the update ops
+    only, is not asked for).  A missing or mismatched one raises
+    ValueError naming it, and nothing is loaded.  Returns the sorted
+    list of names loaded."""
     from .passes.int8_weights import storage_var_names
 
     device = resolve_place(place).torch_device()
@@ -58,9 +62,12 @@ def load_params(scope, arrays, place, program=None):
                 check(sc, (p.shape[0], 1), "float32")
             else:
                 check(p.name, p.shape, p.dtype)
+        for v in _model_state(program):
+            check(v.name, v.shape, v.dtype)
         if problems:
-            raise ValueError("load_params: parameters do not match the "
-                             "program: " + "; ".join(problems))
+            raise ValueError("load_params: parameters and model state do "
+                             "not match the program: "
+                             + "; ".join(problems))
     for name, a in arrays.items():
         # a copy: ops such as adam update the scope's tensors in place
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -68,3 +75,18 @@ def load_params(scope, arrays, place, program=None):
                              dtype=torch_dtype(np.dtype(a.dtype).name),
                              copy=True))
     return sorted(arrays)
+
+
+def _model_state(program):
+    """The persistables besides parameters that the startup program
+    initializes (``Variable.initializer``, set by
+    ``LayerHelperBase.set_variable_initializer``) and a forward op
+    reads."""
+    block = program.global_block()
+    read = {n for op in block.ops
+            if op.attrs.get("op_role", "forward") in ("forward", "loss")
+            for n in op.input_arg_names}
+    params = {p.name for p in program.all_parameters()}
+    return [v for n, v in sorted(block.vars.items())
+            if v.persistable and n in read and n not in params
+            and v.initializer is not None]

@@ -25,7 +25,7 @@ from .framework import (  # noqa: F401
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import flags, initializer, layers  # noqa: F401
 from . import (backward, clip, compiler, contrib, io, ir,  # noqa: F401
-               optimizer, regularizer)
+               nets, optimizer, regularizer)
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .backward import append_backward  # noqa: F401

@@ -484,12 +484,25 @@ def _run_group(step, idx, envs, ctxs, bf16):
             for r in range(len(envs))]
 
 
-def _matmul_policy(bf16, device):
-    """Under the bf16 policy, bf16 products accumulate in fp32, as the
-    JAX package's do: set before a run or a capture starts."""
-    if bf16 and device.type == "cuda":
+def _precision_policy(bf16, device):
+    """The precision and determinism policy of the library's products,
+    set before a run or a capture starts on the card.  fp32 matmuls run
+    in full fp32, never TF32; under the bf16 policy, bf16 products
+    accumulate in fp32, as the JAX package's do.  cuDNN's convs never
+    run in TF32 (fp32 convs accumulate in fp32, as
+    ``mxu_conv_kwargs`` asks of XLA), and pick deterministic algorithms
+    by heuristics, not by timing (``benchmark`` off): a captured step
+    and an eager one give the same bits."""
+    if device.type != "cuda":
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if bf16:
         torch.backends.cuda.matmul \
             .allow_bf16_reduced_precision_reduction = False
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
+    cudnn.benchmark = False
 
 
 def _step_name(step):
@@ -507,7 +520,7 @@ def run_plan(plan, envs, ctxs, bf16):
     runs once over every member op on every replica.  Values leave each
     env after their last reader.  An exception leaves with the failing
     op's type in its ``pt_op`` attribute."""
-    _matmul_policy(bf16, ctxs[0].device)
+    _precision_policy(bf16, ctxs[0].device)
     step = None
     try:
         with torch.no_grad():
@@ -582,7 +595,7 @@ class CapturedGraph:
             for g in st.generators():
                 self.graph.register_generator_state(g)
             st.frozen = True
-        _matmul_policy(bf16, stream.device)
+        _precision_policy(bf16, stream.device)
         envs = [dict(i, **f) for i, f in zip(inputs, self.feeds)]
         t0 = time.perf_counter()
         try:

@@ -185,6 +185,22 @@ class Variable:
         return (f"Variable(name={self.name}, shape={self.shape}, "
                 f"dtype={self.dtype}, persistable={self.persistable})")
 
+    # arithmetic sugar: ``+`` and ``*`` (GoogLeNet's ``loss + 0.3 *
+    # aux_loss``), as the JAX package's math_op_patch subset builds them
+    def __add__(self, other):
+        from .layers import nn as _nn  # lazy: layers import framework
+
+        return _nn._elementwise_binary_var(self, other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __mul__(self, other):
+        from .layers import nn as _nn
+
+        return _nn._elementwise_binary_var(self, other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
 
 class Parameter(Variable):
     """Persistable, trainable variable."""

@@ -72,9 +72,17 @@ class LayerHelperBase:
         return self.main_program.global_block().create_var(
             persistable=persistable, **kw)
 
+    def create_or_get_global_variable(self, name, **kw):
+        gb = self.main_program.global_block()
+        if name in gb.vars:
+            return gb.vars[name]
+        return gb.create_var(name=name, **kw)
+
     def set_variable_initializer(self, var, initializer):
         """Declare ``var`` in the startup program and initialize it
-        there."""
+        there; ``var.initializer`` records that the startup program
+        writes it (``convert.load_params`` checks such model state)."""
+        var.initializer = initializer
         sb = self.startup_program.global_block()
         sv = sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
                            persistable=True)

@@ -1,6 +1,7 @@
-"""Layer functions the decode serving lane and BERT pretraining build
-with (counterpart of ``paddle_tpu/fluid/layers/nn.py``).  Each appends
-ops to the default main program through LayerHelper; nothing touches a
+"""Layer functions the decode serving lane, BERT and GPT training and
+the image models build with (counterpart of
+``paddle_tpu/fluid/layers/nn.py``).  Each appends ops to the default
+main program through LayerHelper; nothing touches a
 device until the executor runs the block.  Op types, slots and attrs
 are those of the JAX package, so both packages build the same
 program."""
@@ -10,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..framework import convert_np_dtype_to_dtype_
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
@@ -26,6 +27,9 @@ __all__ = [
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min", "elementwise_pow", "elementwise_mod",
     "elementwise_floordiv", "sqrt", "sign", "clip", "clip_by_norm",
+    "conv2d", "conv3d", "conv2d_transpose", "pool2d", "adaptive_pool2d",
+    "batch_norm", "square_error_cost", "relu", "sigmoid", "tanh", "square",
+    "flatten", "concat",
 ]
 
 
@@ -175,6 +179,22 @@ def _act_layer(op_type, x, attrs=None, name=None):
 
 def sqrt(x, name=None):
     return _act_layer("sqrt", x, name=name)
+
+
+def relu(x, name=None):
+    return _act_layer("relu", x, name=name)
+
+
+def sigmoid(x, name=None):
+    return _act_layer("sigmoid", x, name=name)
+
+
+def tanh(x, name=None):
+    return _act_layer("tanh", x, name=name)
+
+
+def square(x, name=None):
+    return _act_layer("square", x, name=name)
 
 
 def sign(x, name=None):
@@ -477,3 +497,195 @@ def accuracy(input, label, k=1, correct=None, total=None):
                      outputs={"Accuracy": [acc], "Correct": [correct],
                               "Total": [total]})
     return acc
+
+
+def _elementwise_binary_var(x, y, op_type):
+    """``Variable``'s ``+`` and ``*``: with a Python number, the ``scale``
+    op the JAX package emits (y·1 + n, or y·n), else the elementwise
+    op."""
+    if isinstance(y, (int, float)):
+        if op_type == "elementwise_add":
+            return scale(x, 1.0, float(y))
+        return scale(x, float(y))
+    return _elementwise(op_type, x, y)
+
+
+# ---------------------------------------------------------------------------
+# convolution, pooling, batch norm (the image models)
+# ---------------------------------------------------------------------------
+
+
+def _pair(v, n=2):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * n
+
+
+def _conv_bias(helper, conv_out, bias_attr, num_filters, dtype):
+    """The conv's bias as an ``elementwise_add`` at axis 1."""
+    if bias_attr is False:
+        return conv_out
+    b = helper.create_parameter(ParamAttr._to_attr(bias_attr),
+                                shape=[num_filters], dtype=dtype,
+                                is_bias=True)
+    if b is None:
+        return conv_out
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op("elementwise_add", inputs={"X": [conv_out], "Y": [b]},
+                     outputs={"Out": [out]}, attrs={"axis": 1})
+    return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """A fully grouped conv declined cuDNN (``use_cudnn=False``) emits
+    ``depthwise_conv2d``, as era MobileNet code relies on; the filter's
+    default initializer is Normal(0, sqrt(2 / fan_in))."""
+    helper = LayerHelper("conv2d", input=input, size=num_filters,
+                         bias_attr=bias_attr, act=act, name=name)
+    chans = input.shape[1]
+    op_type = ("depthwise_conv2d"
+               if chans == groups and num_filters % max(chans, 1) == 0
+               and not use_cudnn else "conv2d")
+    fs = _pair(filter_size)
+    fan_in = (chans // groups) * fs[0] * fs[1]
+    w = helper.create_parameter(
+        param_attr, shape=[num_filters, chans // groups] + fs,
+        dtype=input.dtype,
+        default_initializer=Normal(0.0, float((2.0 / fan_in) ** 0.5)))
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(op_type, inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _pair(stride),
+                            "paddings": _pair(padding),
+                            "dilations": _pair(dilation), "groups": groups,
+                            "data_format": data_format})
+    return helper.append_activation(
+        _conv_bias(helper, out, bias_attr, num_filters, input.dtype))
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None,
+           **kw):
+    helper = LayerHelper("conv3d", input=input, size=num_filters,
+                         bias_attr=bias_attr, act=act, name=name)
+    chans = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, shape=[num_filters, chans // groups]
+        + _pair(filter_size, 3), dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("conv3d", inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _pair(stride, 3),
+                            "paddings": _pair(padding, 3),
+                            "dilations": _pair(dilation, 3),
+                            "groups": groups})
+    return helper.append_activation(
+        _conv_bias(helper, out, bias_attr, num_filters, input.dtype))
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None,
+                     **kw):
+    """The filter is laid out (in, out/groups, kh, kw)."""
+    helper = LayerHelper("conv2d_transpose", input=input, size=num_filters,
+                         bias_attr=bias_attr, act=act, name=name)
+    chans = input.shape[1]
+    w = helper.create_parameter(
+        param_attr, shape=[chans, num_filters // groups]
+        + _pair(filter_size), dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _pair(stride),
+                            "paddings": _pair(padding),
+                            "dilations": _pair(dilation), "groups": groups})
+    return helper.append_activation(
+        _conv_bias(helper, out, bias_attr, num_filters, input.dtype))
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, adaptive=False,
+           data_format="NCHW"):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": _pair(pool_size),
+                            "strides": _pair(pool_stride),
+                            "paddings": _pair(pool_padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode, "exclusive": exclusive,
+                            "adaptive": adaptive})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    return pool2d(input, pool_size=pool_size, pool_type=pool_type,
+                  adaptive=True, name=name)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Scale (Constant(1)) and Bias parameters; the moving mean and
+    variance are persistable globals (Constant(0) and Constant(1)),
+    which the op updates in place."""
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    dtype = input.dtype
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale_p = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                      default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        moving_mean_name or f"{helper.name}.mean", shape=[c], dtype=dtype,
+        persistable=True, stop_gradient=True)
+    var = helper.create_or_get_global_variable(
+        moving_variance_name or f"{helper.name}.var", shape=[c],
+        dtype=dtype, persistable=True, stop_gradient=True)
+    helper.set_variable_initializer(mean, Constant(0.0))
+    helper.set_variable_initializer(var, Constant(1.0))
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale_p], "Bias": [bias],
+                "Mean": [mean], "Variance": [var]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [var],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    return _single_out_layer(helper, "square_error_cost",
+                             {"X": [input], "Y": [label]})
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op("flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    return _single_out_layer(helper, "concat", {"X": list(input)},
+                             {"axis": axis})

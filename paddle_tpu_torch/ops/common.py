@@ -61,3 +61,73 @@ def rounded(v, dtype):
     arithmetic (a bf16 tensor times 10000.0 multiplies by 9984.0).  A
     host float, so the op needs no host-to-device copy."""
     return torch.tensor(v, dtype=dtype).item()
+
+
+def conv_pads(paddings, nd):
+    """Paddle's conv paddings as ((before, after), ...) a spatial dim:
+    one int a dim, or the flattened (before, after) pairs."""
+    p = [int(v) for v in paddings]
+    if len(p) == 2 * nd:
+        return [(p[2 * i], p[2 * i + 1]) for i in range(nd)]
+    return [(v, v) for v in p]
+
+
+def pad_spatial(x, pads, value=0.0):
+    """``x`` padded by ``pads`` (((before, after), ...) over its trailing
+    spatial dims), or ``x`` itself when every pad is 0."""
+    if not any(b or a for b, a in pads):
+        return x
+    flat = [v for b, a in reversed(pads) for v in (b, a)]
+    return torch.nn.functional.pad(x, flat, value=value)
+
+
+def conv_operands(x, w):
+    """The dtypes a conv runs in: bf16 x bf16 natively (cuDNN
+    accumulates in fp32), anything else in fp32 (the JAX package's
+    ``mxu_conv_kwargs``; the executor turns TF32 off for cuDNN).  The
+    result is cast back to ``x``'s dtype."""
+    if x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+        return x, w
+    return x.float(), w.float()
+
+
+def conv_nd_raw(x, w, strides, paddings, dilations, groups, nd=2):
+    """Paddle-convention n-D conv (NCHW / OIHW, or NCDHW / OIDHW): int
+    paddings a spatial dim, or flattened (before, after) pairs; the one
+    home of the geometry, as the JAX package's ``conv_nd_raw`` is.  A
+    symmetric padding goes to the conv; an asymmetric one is padded
+    explicitly first (the library's convs pad both sides alike).
+    Returns the result in ``x``'s dtype."""
+    pads = conv_pads(paddings, nd)
+    sym = all(b == a for b, a in pads)
+    xs, ws = conv_operands(x, w)
+    conv = (torch.nn.functional.conv2d if nd == 2
+            else torch.nn.functional.conv3d)
+    out = conv(xs if sym else pad_spatial(xs, pads), ws, None,
+               tuple(strides), [b for b, _ in pads] if sym else 0,
+               tuple(dilations), groups)
+    return out.to(x.dtype)
+
+
+def conv_nd_grad(x, w, dout, strides, paddings, dilations, groups, nd,
+                 want_x, want_w):
+    """The grads of :func:`conv_nd_raw` w.r.t. ``x`` and ``w`` (None for
+    one not wanted), in their dtypes: one ``convolution_backward``, the
+    data grad and the filter grad of the same product, with no forward
+    conv run again.  An asymmetric padding's grad is cropped from the
+    padded input's."""
+    pads = conv_pads(paddings, nd)
+    sym = all(b == a for b, a in pads)
+    xs, ws = conv_operands(x, w)
+    xp = xs if sym else pad_spatial(xs, pads)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dout.to(xs.dtype), xp, ws, None, list(strides),
+        [b for b, _ in pads] if sym else [0] * nd, list(dilations), False,
+        [0] * nd, groups, [want_x, want_w, False])
+    if dx is not None:
+        if not sym:
+            dx = dx[(Ellipsis,) + tuple(
+                slice(b, dx.shape[2 + i] - a) for i, (b, a) in
+                enumerate(pads))]
+        dx = dx.to(x.dtype)
+    return dx, None if dw is None else dw.to(w.dtype)

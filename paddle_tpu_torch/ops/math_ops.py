@@ -190,6 +190,16 @@ def _relu(ctx, x, attrs):
     return torch.relu(x)
 
 
+@simple_op("sigmoid", ["X"], ["Out"])
+def _sigmoid(ctx, x, attrs):
+    return torch.sigmoid(x)
+
+
+@simple_op("square", ["X"], ["Out"])
+def _square(ctx, x, attrs):
+    return torch.square(x)
+
+
 @simple_op("gelu", ["X"], ["Out"])
 def _gelu(ctx, x, attrs):
     return gelu_reference(x, attrs.get("approximate", False))
@@ -258,6 +268,11 @@ def _softmax_ce(ctx, logits, label, attrs):
     loss = -torch.gather(logp, axis, lbl.clamp(0, logp.shape[axis] - 1))
     ignore = attrs.get("ignore_index", -100)
     return sm, torch.where(lbl == ignore, torch.zeros_like(loss), loss)
+
+
+@simple_op("square_error_cost", ["X", "Y"], ["Out"])
+def _square_error_cost(ctx, x, y, attrs):
+    return torch.square(x - y)
 
 
 @simple_op("mean", ["X"], ["Out"])

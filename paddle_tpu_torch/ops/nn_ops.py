@@ -1,18 +1,276 @@
-"""Normalization, dropout and attention op lowerings (counterpart of
-``paddle_tpu/ops/nn_ops.py``).  ``layer_norm_grad``,
-``flash_attention_grad`` and ``softmax_mask_fuse_upper_triangle_grad``
-are derived by the registry; ``dropout`` has a grad maker that replays
-its saved mask; ``ragged_attention`` is inference-only."""
+"""Convolution, pooling, normalization, dropout and attention op
+lowerings (counterpart of ``paddle_tpu/ops/nn_ops.py``).
+
+The convs run on the library's convolutions (cuDNN on the card), as the
+JAX package leaves them to XLA; their grad ops are written by hand, one
+``convolution_backward`` each, since the registry's autograd derivation
+would run the forward conv again every step.  ``batch_norm`` has a grad
+maker that emits one ``batch_norm_grad`` (closed form).  The grads of
+``pool2d``, ``layer_norm``, ``flash_attention`` and
+``softmax_mask_fuse_upper_triangle`` are derived by the registry;
+``dropout`` has a grad maker that replays its saved mask;
+``ragged_attention`` is inference-only."""
 
 from __future__ import annotations
 
-import torch
+import math
 
-from paddle_tpu_torch.fluid.registry import simple_op
+import torch
+import torch.nn.functional as F
+
+from paddle_tpu_torch.fluid.registry import simple_op, wanted_grads
 from paddle_tpu_torch.kernels.primitives import flash as _flash
 from paddle_tpu_torch.kernels.primitives import ragged as _ragged
 
-from .common import op_generator, rounded
+from .common import (conv_nd_grad, conv_nd_raw, conv_operands, op_generator,
+                     pad_spatial, rounded)
+
+# ---------------------------------------------------------------------------
+# convolution: NCHW / OIHW; Paddle's paddings (ops/common.py conv_nd_raw)
+# ---------------------------------------------------------------------------
+
+_CONV_SLOTS = (["Input", "Filter", "Bias"], ["Output"])
+_CONV_GRAD_SLOTS = (["Input", "Filter", "Bias", "Output@GRAD"],
+                    ["Input@GRAD", "Filter@GRAD", "Bias@GRAD"])
+
+
+def _conv_geometry(attrs, nd):
+    return (attrs.get("strides", [1] * nd), attrs.get("paddings", [0] * nd),
+            attrs.get("dilations", [1] * nd))
+
+
+def _add_bias(out, bias):
+    if bias is None:
+        return out
+    return out + bias.reshape((1, -1) + (1,) * (out.dim() - 2))
+
+
+def _bias_grad(dout, bias, want):
+    if bias is None or "Bias@GRAD" not in want:
+        return None
+    return dout.sum(dim=[0] + list(range(2, dout.dim()))).to(bias.dtype)
+
+
+def _register_conv(op_type, nd, depthwise=False):
+    def groups(x, attrs):
+        return x.shape[1] if depthwise else attrs.get("groups", 1)
+
+    def lower(ctx, x, w, bias, attrs):
+        return _add_bias(conv_nd_raw(x, w, *_conv_geometry(attrs, nd),
+                                     groups(x, attrs), nd), bias)
+
+    def lower_grad(ctx, x, w, bias, dout, attrs):
+        want = wanted_grads(ctx, op_type + "_grad", _CONV_GRAD_SLOTS[1])
+        dx, dw = conv_nd_grad(x, w, dout, *_conv_geometry(attrs, nd),
+                              groups(x, attrs), nd, "Input@GRAD" in want,
+                              "Filter@GRAD" in want)
+        return dx, dw, _bias_grad(dout, bias, want)
+
+    simple_op(op_type, *_CONV_SLOTS, optional=("Bias",))(lower)
+    simple_op(op_type + "_grad", *_CONV_GRAD_SLOTS, grad=None,
+              optional=("Bias", "Output@GRAD"))(lower_grad)
+
+
+_register_conv("conv2d", 2)
+_register_conv("depthwise_conv2d", 2, depthwise=True)  # groups = C
+_register_conv("conv3d", 3)
+
+
+def _transpose_args(attrs):
+    """stride, padding, dilation and groups of ``conv2d_transpose``:
+    the JAX lowering pads each side by d·(k − 1) − p of the first two
+    paddings, which is the library's transposed conv at padding p."""
+    return (list(attrs.get("strides", [1, 1])),
+            list(attrs.get("paddings", [0, 0]))[:2],
+            list(attrs.get("dilations", [1, 1])), attrs.get("groups", 1))
+
+
+@simple_op("conv2d_transpose", *_CONV_SLOTS, optional=("Bias",))
+def _conv2d_transpose(ctx, x, w, bias, attrs):
+    """Filter laid out (in, out/groups, kh, kw), as the library's."""
+    stride, pad, dil, groups = _transpose_args(attrs)
+    xs, ws = conv_operands(x, w)
+    out = F.conv_transpose2d(xs, ws, None, stride, pad, 0, groups, dil)
+    return _add_bias(out.to(x.dtype), bias)
+
+
+@simple_op("conv2d_transpose_grad", *_CONV_GRAD_SLOTS, grad=None,
+           optional=("Bias", "Output@GRAD"))
+def _conv2d_transpose_grad(ctx, x, w, bias, dout, attrs):
+    want = wanted_grads(ctx, "conv2d_transpose_grad", _CONV_GRAD_SLOTS[1])
+    stride, pad, dil, groups = _transpose_args(attrs)
+    xs, ws = conv_operands(x, w)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dout.to(xs.dtype), xs, ws, None, stride, pad, dil, True, [0, 0],
+        groups, ["Input@GRAD" in want, "Filter@GRAD" in want, False])
+    return (None if dx is None else dx.to(x.dtype),
+            None if dw is None else dw.to(w.dtype),
+            _bias_grad(dout, bias, want))
+
+
+# ---------------------------------------------------------------------------
+# pooling: the JAX lowering's contract (explicit pads, then a pool with
+# no padding of its own)
+# ---------------------------------------------------------------------------
+
+
+def _ceil_extra(size, k, s, p):
+    """Rows (or columns) ``ceil_mode`` pads past the right edge: enough
+    for the last window the ceiling counts, checked no further (a last
+    window may start in the padding, which the library's ceil_mode
+    drops)."""
+    out_floor = (size + 2 * p - k) // s + 1
+    out_ceil = math.ceil((size + 2 * p - k) / s) + 1
+    return (out_ceil - out_floor) * s
+
+
+@simple_op("pool2d", ["X"], ["Out"])
+def _pool2d(ctx, x, attrs):
+    """Max pooling pads with −inf; average pooling sums the window
+    (zeros in the padding) and divides by the count inside the input
+    only when ``exclusive`` and a padding is nonzero, else by kh·kw.
+    ``global_pooling`` (or ``adaptive`` to 1x1) reduces H and W;
+    ``adaptive`` splits them into ksize bins, which must divide them."""
+    ptype = attrs.get("pooling_type", "max")
+    ksize = list(attrs.get("ksize", [2, 2]))
+    strides = list(attrs.get("strides", ksize))
+    paddings = list(attrs.get("paddings", [0, 0]))
+    if attrs.get("global_pooling", False) or attrs.get(
+            "adaptive", False) and ksize == [1, 1]:
+        if ptype == "max":
+            return x.amax(dim=(2, 3), keepdim=True)
+        return x.mean(dim=(2, 3), keepdim=True)
+    if attrs.get("adaptive", False):
+        n, c, h, wd = x.shape
+        oh, ow = ksize
+        if h % oh or wd % ow:
+            raise ValueError(f"pool2d: adaptive pooling to {ksize} needs "
+                             f"divisible dims, got {h}x{wd}")
+        r = x.reshape(n, c, oh, h // oh, ow, wd // ow)
+        return r.amax(dim=(3, 5)) if ptype == "max" else r.mean(dim=(3, 5))
+    pads = [(paddings[0], paddings[0]), (paddings[1], paddings[1])]
+    if attrs.get("ceil_mode", False):
+        pads = [(p, p + _ceil_extra(size, k, s, p)) for (p, _), size, k, s
+                in zip(pads, x.shape[2:], ksize, strides)]
+    if ptype == "max":
+        low = (float("-inf") if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        return F.max_pool2d(pad_spatial(x, pads, low), ksize, strides)
+    summed = F.avg_pool2d(pad_spatial(x, pads), ksize, strides,
+                          divisor_override=1)
+    if attrs.get("exclusive", True) and (paddings[0] or paddings[1]):
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        return summed / F.avg_pool2d(pad_spatial(ones, pads), ksize,
+                                     strides, divisor_override=1)
+    return summed / (ksize[0] * ksize[1])
+
+
+# ---------------------------------------------------------------------------
+# batch_norm: statistics in fp32 as E[x²] − E[x]²; SavedVariance is the
+# inverse standard deviation; the running statistics are written in place
+# ---------------------------------------------------------------------------
+
+
+def _bn_axes(x, attrs):
+    """The reduced axes and the channel axis of ``x`` for the layout."""
+    ch = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    return tuple(i for i in range(x.dim()) if i != ch), ch
+
+
+def _bn_mode(ctx, attrs):
+    """True for the training form: is_test (the op's or the run's)
+    without trainable_statistics uses the running statistics."""
+    return not ((attrs.get("is_test", False) or ctx.is_test)
+                and not attrs.get("trainable_statistics", False))
+
+
+def _bn_stats(xf, axes):
+    """Batch mean and biased variance, E[x²] − E[x]², of fp32 ``xf``."""
+    mean = xf.mean(dim=axes)
+    return mean, (xf * xf).mean(dim=axes) - mean * mean
+
+
+def _bn_grad_maker(op, out_grads, wanted, uniq):
+    """One ``batch_norm_grad`` with inputs X, Scale, Bias, Mean,
+    Variance and Y@GRAD: d(Y) -> d(X, Scale, Bias); the running
+    statistics' update carries no grad."""
+    ins = {k: list(v) for k, v in op.inputs.items()}
+    ins["Y@GRAD"] = [out_grads[op.outputs["Y"][0]]]
+    outs, pairs = {}, []
+    for slot in ("X", "Scale", "Bias"):
+        n = op.inputs[slot][0]
+        if n in wanted:
+            g = uniq(n)
+            outs[slot + "@GRAD"] = [g]
+            pairs.append((n, g))
+    return [("batch_norm_grad", ins, outs, dict(op.attrs))], pairs
+
+
+@simple_op("batch_norm", ["X", "Scale", "Bias", "Mean", "Variance"],
+           ["Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"],
+           grad="custom", grad_maker=_bn_grad_maker,
+           inplace={"MeanOut": "Mean", "VarianceOut": "Variance"})
+def _batch_norm(ctx, x, scale, bias, mean, var, attrs):
+    """Y in x's dtype, computed in fp32.  Training: the batch
+    statistics; the running ones become momentum·old + (1 − momentum)·
+    batch (biased variance), written into Mean and Variance in place;
+    SavedMean is the batch mean and SavedVariance rsqrt(var + eps).  In
+    the is_test form: the running statistics, returned as the outputs
+    unchanged."""
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    axes, ch = _bn_axes(x, attrs)
+    shape = [1] * x.dim()
+    shape[ch] = -1
+    xf = x.float()
+    if not _bn_mode(ctx, attrs):
+        inv = torch.rsqrt(var.float() + eps)
+        y = ((xf - mean.float().reshape(shape))
+             * (inv * scale.float()).reshape(shape)
+             + bias.float().reshape(shape))
+        return y.to(x.dtype), mean, var, mean, var
+    bmean, bvar = _bn_stats(xf, axes)
+    inv = torch.rsqrt(bvar + eps)
+    y = ((xf - bmean.reshape(shape)) * inv.reshape(shape)
+         * scale.float().reshape(shape) + bias.float().reshape(shape))
+    mean.copy_(momentum * mean + (1 - momentum) * bmean.to(mean.dtype))
+    var.copy_(momentum * var + (1 - momentum) * bvar.to(var.dtype))
+    return y.to(x.dtype), mean, var, bmean, inv
+
+
+@simple_op("batch_norm_grad",
+           ["X", "Scale", "Bias", "Mean", "Variance", "Y@GRAD"],
+           ["X@GRAD", "Scale@GRAD", "Bias@GRAD"], grad=None,
+           optional=("Mean", "Variance"))
+def _batch_norm_grad(ctx, x, scale, bias, mean, var, dy, attrs):
+    """The closed form of the normalization's grads in fp32, the batch
+    statistics computed again as the forward computed them: with x̂ the
+    normalized input, dBias = Σ dy, dScale = Σ dy·x̂ and dX = scale·inv·
+    (dy − dBias/N − x̂·dScale/N); in the is_test form dX = dy·scale·inv
+    of the running variance."""
+    eps = attrs.get("epsilon", 1e-5)
+    axes, ch = _bn_axes(x, attrs)
+    shape = [1] * x.dim()
+    shape[ch] = -1
+    xf, g = x.float(), dy.float()
+    train = _bn_mode(ctx, attrs)
+    if train:
+        bmean, bvar = _bn_stats(xf, axes)
+    else:
+        bmean, bvar = mean.float(), var.float()
+    inv = torch.rsqrt(bvar + eps)
+    xhat = (xf - bmean.reshape(shape)) * inv.reshape(shape)
+    dbias = g.sum(dim=axes)
+    dscale = (g * xhat).sum(dim=axes)
+    k = (scale.float() * inv).reshape(shape)
+    if train:
+        n = xf.numel() // xf.shape[ch]
+        dx = k * (g - (dbias / n).reshape(shape)
+                  - xhat * (dscale / n).reshape(shape))
+    else:
+        dx = k * g
+    return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
 @simple_op("layer_norm", ["X", "Scale", "Bias"], ["Y", "Mean", "Variance"],

@@ -1,7 +1,8 @@
 """Tensor creation / manipulation / indexing op lowerings (counterpart
 of ``paddle_tpu/ops/tensor_ops.py``).  The grads of ``lookup_table``,
-``gather``, ``reshape2``, ``transpose2`` and ``slice`` are derived by
-the registry (autograd through the forward lowering)."""
+``gather``, ``reshape2``, ``transpose2``, ``flatten2``, ``concat`` and
+``slice`` are derived by the registry (autograd through the forward
+lowering)."""
 
 from __future__ import annotations
 
@@ -85,6 +86,27 @@ def _reshape2(ctx, x, shape_t, shape_list, attrs):
 def _transpose2(ctx, x, attrs):
     # a view: a consumer that needs contiguous memory asks for it
     return x.permute(*attrs.get("axis")), None
+
+
+@simple_op("flatten2", ["X"], ["Out", "XShape"])
+def _flatten2(ctx, x, attrs):
+    """[prod(shape[:axis]), prod(shape[axis:])]."""
+    ax = attrs.get("axis", 1)
+    rows = 1
+    for s in x.shape[:ax]:
+        rows *= s
+    return x.reshape(rows, -1), None
+
+
+@simple_op("flatten", ["X"], ["Out"])
+def _flatten(ctx, x, attrs):
+    return _flatten2(ctx, x, attrs)[0]
+
+
+@simple_op("concat", ["X*", "AxisTensor"], ["Out"], optional=("AxisTensor",),
+           no_grad_inputs=("AxisTensor",))
+def _concat(ctx, xs, axis_t, attrs):
+    return torch.cat(xs, dim=attrs.get("axis", 0))
 
 
 # ---------------------------------------------------------------------------

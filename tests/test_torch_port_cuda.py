@@ -2028,3 +2028,96 @@ def test_fleet_http_infer_on_card_bit_equal(dev, tmp_path):
     assert np.array_equal(cold, want[0])
     batches = sum(s["batches"] + s["warmup_batches"] for s in st.values())
     assert _on_card()["ragged_attention"] - card == batches
+
+
+# ---------------------------------------------------------------------------
+# the image models (no kernel of the port on their path)
+# ---------------------------------------------------------------------------
+
+
+def _narrow_resnet(bf16):
+    """ResNet-18 at 3x32x32, 10 classes, with Momentum(0.1, 0.9),
+    startup run on the card from a fixed seed."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, loss, _ = resnet.build_resnet(depth=18, class_dim=10,
+                                            image_shape=(3, 32, 32))
+        fluid.optimizer.Momentum(0.1, 0.9).minimize(loss)
+    if bf16:
+        enable_bf16_policy(main)
+    startup.random_seed = 5
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    return main, loss, scope
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_captured_and_eager_resnet_steps_are_bit_equal(dev, bf16):
+    """Three ResNet-18 steps (b8) captured and eager from one state: the
+    same losses and every parameter, velocity and moving statistic bit
+    for bit (cuDNN's deterministic algorithms, the pool grads and the
+    batch norm reductions); no kernel of the port launches; the moving
+    statistics change every captured step."""
+    from paddle_tpu_torch import kernels
+
+    main, loss, scope = _narrow_resnet(bf16)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = {"captured": _executor(True), "eager": _executor(False)}
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(8, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (8, 1)).astype(np.int64)}
+    stats = sorted({n for op in main.global_block().ops
+                    if op.type == "batch_norm"
+                    for n in op.inputs["Mean"] + op.inputs["Variance"]})
+    losses = {k: [] for k in exes}
+    before = kernels.device_launch_counts()
+    for _ in range(3):
+        for k in exes:
+            prev = {n: scopes[k].get(n).clone() for n in stats}
+            (lv,) = exes[k].run(main, feed=feed, fetch_list=[loss],
+                                scope=scopes[k])
+            losses[k].append(lv.item())
+            assert not any(torch.equal(scopes[k].get(n), t)
+                           for n, t in prev.items())
+    assert _delta(before, kernels.device_launch_counts()) == {}
+    assert np.all(np.isfinite(losses["captured"]))
+    assert losses["captured"] == losses["eager"]
+    for n in scopes["eager"].keys():
+        assert torch.equal(scopes["captured"].get(n),
+                           scopes["eager"].get(n)), n
+    (sig,) = exes["captured"].compiled_for(main)
+    assert sig.graph is not None
+
+
+def test_executor_sets_cudnn_precision_and_determinism(dev):
+    """A run on the card turns TF32 off for cuDNN's convs and fp32
+    matmuls and picks deterministic cuDNN algorithms with benchmark off,
+    whatever the flags were (the library's defaults: TF32 on for
+    cuDNN); an fp32 conv then matches a float64 conv as fp32
+    accumulation does."""
+    from paddle_tpu_torch import fluid
+
+    cudnn = torch.backends.cudnn
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = True, False, True
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.data("x", [-1, 64, 16, 16], append_batch_size=False)
+        y = fluid.layers.conv2d(x, 64, 3, padding=1, bias_attr=False)
+    scope = fluid.Scope()
+    exe = _executor(False)
+    exe.run(startup, scope=scope)
+    assert (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark) == (
+        False, True, False)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    xv = np.random.RandomState(0).randn(4, 64, 16, 16).astype(np.float32)
+    (got,) = exe.run(main, feed={"x": xv}, fetch_list=[y], scope=scope)
+    w = scope.get(main.all_parameters()[0].name).double().cpu()
+    want = torch.nn.functional.conv2d(torch.from_numpy(xv).double(), w,
+                                      padding=1).numpy()
+    # fp32 accumulation over 576 terms of O(1): far below TF32's 2^-11
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
