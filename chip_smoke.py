@@ -27,7 +27,7 @@ Phases, each fatal on failure:
      timed; SDPA with is_causal beside the causal ones), at the edges: a
      ragged tile, causal (S 200 and 256), D 32 and 12, S 1, fully masked
      rows, and in both dtypes at D 80, 96 and 128 (ragged, causal, fully
-     masked rows).  K5 and K7 at the decode step and three prefill
+     masked rows); last, at the NMT path's shapes (phase 25, timed).  K5 and K7 at the decode step and three prefill
      chunks, each with its split plan and partials workspace, both forms
      held against the plain version and timed in turns, one split
      against split.  K4 also at a dp shard's FFN shape, the MLM
@@ -241,6 +241,54 @@ Phases, each fatal on failure:
      with Momentum(0.1, 0.9): 3 steps captured and eager in turns,
      bit-equal, finite losses, K1-K8 never launched; each step's
      seconds.
+ 24. nmt train path: Transformer NMT as bench.py:454-560 measure_nmt
+     runs it: TransformerConfig.big() (vocabularies 30000, hidden 1024,
+     16 heads, FFN 4096, 6 + 6 layers) with dropout 0.1, the bf16 policy
+     with fp32 masters, Adam(1e-4), the default passes; ragged batches
+     bucketed to source lengths 32, 64, 128 and 256 (targets a token
+     shorter) under an 8192-token budget, made as the bench's
+     ragged_batch makes them (RandomState(0), lengths uniform in (the
+     previous bucket, bucket], source pads 0, label_weight zero past
+     each length) by the port's make_fake_batch.  Captured and eager in
+     turns from one state: one warm-up round (an eager warm-up and a
+     capture a bucket: 4 graphs), then 3 timed rounds.  Losses finite,
+     the modes' losses and whole state bit-equal, 4 graphs held, the
+     pass report's fuse_attention sites 0 (the attention dropout vetoes
+     the rewrite), K1-K8 launched 0 times (wrappers and card); per mode
+     the effective tokens/s (non-pad source and target tokens, as the
+     bench counts them), padding overhead, step p50 / p95 a bucket, MFU
+     (forward_flops x 3 at each bucket's shapes over 989 TFLOP/s), peak
+     memory, graph pools and capture seconds; one profiled step a mode
+     at bucket 128.  Then the executors and graphs are freed.
+ 25. nmt flash train path: phase 24 with dropout 0.0: the pass report
+     reads 12 fuse_attention sites (6 encoder self-attentions with the
+     -1e9 pad bias, 6 causal decoder ones; no cross-attention), and the
+     card runs K1 24, K2 12 and K3 12 a step, K4-K8 none, gated exactly
+     in each mode; the same gates and readings.  Phase 3 holds K1-K3
+     against their plain versions at this path's shapes (the encoder's
+     [8192/S, 16, S, 64] with the pad bias and the decoder's causal
+     [8192/S, 16, S-1, 64], S 32 and 256, bf16; and phase 26's fp32
+     [512, 64, 64] with the unrounded -1e9 pad bias and causal
+     [512, 17, 64]), timed against their bounds and SDPA.
+ 26. nmt decode path: build_greedy_decode(TransformerConfig.big(),
+     max_out_len=16), fp32, the default passes, over its startup's
+     seeded weights: 32 seeded sources padded to 64, one warm-up (the
+     capture) and 5 timed runs a mode in turns: the ids equal across
+     runs and modes, at least 8 distinct outputs, K1 102 a run on the
+     card (6 encoder + 16 x 6 decoder self-attentions), K2-K8 none; run
+     p50; the ids and every pass's logits held against a CPU run of the
+     same program on the same feed (logits within 1e-3; a row's ids may
+     part only at a near-tie).  Then the card-vs-CPU parity: 2 + 2
+     layers at full width, fp32, dropout 0, the passes on, a padded
+     bucket-32 batch of 16: 3 Adam steps on the card and on a CPUPlace
+     executor from one state, losses within 1e-4; on every parameter
+     above the gradient floor the first step's gradient within 4e-3 of
+     its norm and the updates within 1e-6 mean abs and 5e-2 of their
+     norm (the max abs printed beside the CPU's own reading from a
+     start moved by 1e-6: see NMT_PARITY_GRAD_RTOL), and control runs
+     on the card with a planted error in K2's dQ failing them (1%: the
+     gradient and mean abs limits; 10%: all three); the greedy decode
+     of the card's final weights held against the CPU's as above.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -253,7 +301,8 @@ the named kernels alone (a quick check of a kernel change; see ONLY;
 phases 14, 15 and 16 (``predictor`` with phase 3's fp32 K1 at its
 shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18,
 ``--only fleet`` phase 19, ``--only fp32train`` phase 20, ``--only
-resnet`` phases 21-22 and ``--only cnn`` phase 23.
+resnet`` phases 21-22, ``--only cnn`` phase 23 and ``--only nmt`` phase
+3's K1-K3 at the NMT shapes and phases 24-26.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -1129,14 +1178,21 @@ def _flash_inputs(dev, b, h, s, d, dtype, rng, bias_mode="pads"):
     bias [B*H, S] with -1e4 pads on a quarter of the rows' tails
     ("pads"), or with every key of batch 1's heads at -1e30 on top
     ("masked": fully masked rows), or zero (GPT's op has no bias, and
-    the op hands the kernels zero rows)."""
+    the op hands the kernels zero rows), or the NMT encoder's ("nmt"):
+    each sentence's keys past a length uniform in [1, S] at -1e9 as
+    ``dtype`` holds it (bf16, under the bf16 policy: -999817216), the
+    value the op widens to fp32."""
     def t():
         a = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
         return a.to(dev, dtype).transpose(1, 2)
 
     q, k, v, do = t(), t(), t(), t()
     bias = np.zeros((b, s), np.float32)
-    if bias_mode != "zero":
+    if bias_mode == "nmt":
+        pad = torch.tensor(-1e9).to(dtype).item()
+        for i, ln in enumerate(rng.randint(1, s + 1, b)):
+            bias[i, ln:] = pad
+    elif bias_mode != "zero":
         bias[::4, s - s // 4:] = -1e4
     if bias_mode == "masked":
         bias[1] = -1e30
@@ -1245,8 +1301,8 @@ FLASH_CASES = (
 )
 
 
-def check_flash(dev, rng):
-    """K1, K2, K3 against their plain versions at FLASH_CASES; bf16 ones
+def check_flash(dev, rng, cases=FLASH_CASES):
+    """K1, K2, K3 against their plain versions at ``cases``; bf16 ones
     run on the tensor cores, fp32 ones on the tensor cores in split
     TF32.  Timed at the BERT path's shape (BH = 1536, S = 128, D = 64,
     bf16), at a dp replica's shard (BH = 384), at GPT-2 small's (BH = 96,
@@ -1259,7 +1315,7 @@ def check_flash(dev, rng):
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     by_dtype, by_case = {}, {}
     timings = {}
-    for name, b, h, s, d, dtype, causal, bias_mode, timed in FLASH_CASES:
+    for name, b, h, s, d, dtype, causal, bias_mode, timed in cases:
         q, k, v, do, rows = _flash_inputs(dev, b, h, s, d, dtype, rng,
                                           bias_mode)
         scale = d ** -0.5
@@ -3899,34 +3955,56 @@ def _gpt_parity(cfg, batch, seq, make_opt, adam_family, lr):
     if not rel < TRAIN_LOSS_RTOL:
         raise AssertionError(f"gpt parity: losses {gl} (card) vs {cl} "
                              f"(CPU), max rel diff {rel}")
+    # Adam's family: each element's update at most lr in size, its sign
+    # following a gradient that may be zero up to rounding; the others:
+    # each leaf's change against its norm
+    checks = ((("max_abs", 3 * lr), ("mean_abs", TRAIN_PARAM_MEAN_ATOL))
+              if adam_family else (("change_rel", GPT_CHANGE_RTOL),))
+    return dict(losses_gpu=gl, losses_cpu=cl, loss_max_rel_diff=rel,
+                **_update_gates("gpt parity", _update_readings(
+                    init, gpu, cpu, grads), checks))
+
+
+def _update_readings(init, gpu, cpu, grads, init_gpu=None):
+    """Each parameter's update in a card run (``gpu``, from ``init_gpu``,
+    default ``init``) against the CPU's (``cpu``, from ``init``), on
+    every leaf whose first gradient's RMS (``grads``) is at least
+    DP_GRAD_FLOOR of the median leaf's.  Returns the counts and each
+    reading's worst leaf (max_abs, mean_abs, and change_rel: the
+    difference of the updates over the norm of the CPU's)."""
     g_rms = {n: float(np.sqrt(np.mean(g * g))) for n, g in grads.items()}
     median = float(np.median(list(g_rms.values())))
+    init_gpu = init if init_gpu is None else init_gpu
     leaves = {}
     for n, p in gpu.items():
-        p0 = init[n].astype(np.float64)
-        d = np.abs(p - cpu[n])
-        change = np.linalg.norm(cpu[n] - p0)
+        up = p.astype(np.float64) - init_gpu[n]
+        uc = cpu[n].astype(np.float64) - init[n]
+        d = np.abs(up - uc)
         leaves[n] = dict(
             grad_rms_to_median=g_rms[n] / median,
             held=g_rms[n] >= DP_GRAD_FLOOR * median,
             max_abs=float(d.max()), mean_abs=float(d.mean()),
-            change_rel=float(np.linalg.norm((p - p0) - (cpu[n] - p0))
-                             / max(change, 1e-30)))
+            change_rel=float(np.linalg.norm(up - uc)
+                             / max(np.linalg.norm(uc), 1e-30)))
     held = {n: r for n, r in leaves.items() if r["held"]}
-    if adam_family:
-        checks = (("max_abs", 3 * lr), ("mean_abs", TRAIN_PARAM_MEAN_ATOL))
-    else:
-        checks = (("change_rel", GPT_CHANGE_RTOL),)
     worst = {}
-    for key, tol in checks:
+    for key in ("max_abs", "mean_abs", "change_rel"):
         name = max(held, key=lambda n: held[n][key])
-        worst[key] = dict(leaf=name, tol=tol, **held[name])
-        if not held[name][key] <= tol:
-            raise AssertionError(f"gpt parity: {key} {held[name][key]} > "
-                                 f"{tol} on leaf {name}: {held[name]}")
-    return dict(losses_gpu=gl, losses_cpu=cl, loss_max_rel_diff=rel,
-                leaves=len(leaves), leaves_held=len(held), worst_held=worst,
+        worst[key] = dict(leaf=name, **held[name])
+    return dict(leaves=len(leaves), leaves_held=len(held), worst_held=worst,
                 floor_leaves=sorted(set(leaves) - set(held)))
+
+
+def _update_gates(what, readings, checks):
+    """``readings`` (_update_readings) with each (reading, bound) of
+    ``checks`` held on its worst leaf; raises on the first one over."""
+    worst = readings["worst_held"]
+    for key, tol in checks:
+        worst[key]["tol"] = tol
+        if not worst[key][key] <= tol:
+            raise AssertionError(f"{what}: {key} {worst[key][key]} > {tol} "
+                                 f"on leaf {worst[key]['leaf']}: {worst}")
+    return readings
 
 
 def _adam_l2_value_clip(fl):
@@ -4964,6 +5042,685 @@ def run_cnn_path(counters):
                                          for n, m in out.items()}))
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: Transformer NMT (bench.py:454-560 measure_nmt)
+# ---------------------------------------------------------------------------
+
+# measure_nmt's setup: transformer-big, ragged lengths bucketed to these
+# source lengths (the target's is a bucket less one), a batch of
+# NMT_TOKENS // bucket sentences, Adam(1e-4), the bf16 policy
+NMT_BUCKETS = (32, 64, 128, 256)
+NMT_TOKENS = 8192
+NMT_ROUNDS = 3   # timed rounds over the buckets, after one warm-up round
+NMT_LR = 1e-4
+# phases 24-25: the eager peak and a program's four bucket graphs, each
+# in a private pool, held together (82 GB of an H100's 85 at dropout
+# 0.1) must stay within this share of the card's memory, so that growth
+# fails by name here and not as an allocation failure in a later run
+NMT_MEMORY_SHARE = 0.98
+# phase 26: build_greedy_decode over 32 sources padded to 64, 16 new ids
+NMT_DECODE_BATCH, NMT_DECODE_SRC, NMT_DECODE_OUT = 32, 64, 16
+NMT_DECODE_RUNS = 5  # timed runs a mode, after one warm-up (capture)
+# the decode's outputs must depend on the source: at least this many
+# distinct id rows among the batch's (a quarter)
+NMT_DECODE_MIN_DISTINCT = NMT_DECODE_BATCH // 4
+# the card-vs-CPU parity: 2 layers a stack at full width, fp32, a padded
+# bucket-32 batch of 16 sentences, 3 Adam steps; then greedy ids
+NMT_PARITY_LAYERS, NMT_PARITY_STEPS, NMT_PARITY_OUT = 2, 3, 8
+# Its updates and gradients are ill-conditioned element by element: a
+# ReLU unit at its threshold switches one token's term of its FFN
+# weights' gradient, and a gradient element at its rounding floor flips
+# its Adam update by up to 2 lr a step.  On an H100 machine's CPU alone,
+# a start moved by NMT_PARITY_NUDGE of each element moved the first
+# gradient by 1.19e-3 of its norm and the updates after 3 steps by up to
+# 4.33e-4 (over phase 5's 3 x lr max gate), 1.03e-6 mean abs and 2.61e-2
+# of a leaf's update norm (printed as cpu_conditioning at every run).
+# So the parity holds, on every leaf above the gradient floor, the first
+# step's gradient within NMT_PARITY_GRAD_RTOL of its norm (the backward
+# itself, which Adam's near-sign updates would hide) and the updates
+# within phase 5's mean abs and NMT_PARITY_CHANGE_RTOL of their norm,
+# and prints the max abs.  Each limit lies between those readings and
+# the controls', card runs with a planted fault that every run repeats
+# and that must fail the gates named: K2's dQ plus a share of itself
+# rolled by one head-dim column (_planted_dq_fault), an error of that
+# share of its norm, uncorrelated with it.  At 1% the update norms
+# cannot see it (the query weights' updates moved by 3.76e-2 of their
+# norm on the card, beside the CPU's own 2.61e-2); at 10% every gate
+# does
+NMT_PARITY_GRAD_RTOL = 4e-3
+NMT_PARITY_CHANGE_RTOL = 5e-2
+NMT_PARITY_CHECKS = (("mean_abs", TRAIN_PARAM_MEAN_ATOL),
+                     ("change_rel", NMT_PARITY_CHANGE_RTOL))
+NMT_PARITY_NUDGE = 1e-6
+NMT_PARITY_CONTROLS = {1e-2: ("first_grad", "mean_abs"),
+                       1e-1: ("first_grad", "mean_abs", "change_rel")}
+
+
+# the NMT paths' K1-K3 shapes: in training (bf16), an encoder
+# self-attention at a bucket of S with the -1e9 key-padding bias,
+# [8192 / S, 16, S, 64], and a decoder one, causal over S - 1 target
+# positions, at the smallest and the largest bucket; in phase 26's
+# greedy decode (fp32, K1 alone on its path), the encoder's
+# [32 x 16, 64, 64] with the unrounded fp32 -1e9 and the decoder's
+# causal pass over its NMT_DECODE_OUT + 1 slot buffer, [32 x 16, 17, 64].
+# All timed (SDPA with is_causal beside the causal ones); checked and
+# timed apart from FLASH_CASES, after every other kernel check, so the
+# seeded inputs of those stay as they were
+NMT_FLASH_CASES = tuple(
+    case for s in (32, 256) for case in (
+        (f"nmt_enc_s{s}", NMT_TOKENS // s, 16, s, 64, torch.bfloat16,
+         False, "nmt", True),
+        (f"nmt_dec_s{s - 1}", NMT_TOKENS // s, 16, s - 1, 64,
+         torch.bfloat16, True, "zero", True))) + (
+    (f"nmt_decode_enc_s{NMT_DECODE_SRC}_fp32", NMT_DECODE_BATCH, 16,
+     NMT_DECODE_SRC, 64, torch.float32, False, "nmt", True),
+    (f"nmt_decode_dec_s{NMT_DECODE_OUT + 1}_fp32", NMT_DECODE_BATCH, 16,
+     NMT_DECODE_OUT + 1, 64, torch.float32, True, "zero", True))
+
+
+def check_flash_nmt(dev, rng):
+    """K1, K2, K3 against their plain versions and timed at
+    NMT_FLASH_CASES."""
+    return check_flash(dev, rng, NMT_FLASH_CASES)
+
+
+def nmt_config(**kw):
+    """Transformer-big (Vaswani et al. 2017; BASELINE.md north-star #4):
+    vocabularies 30000, hidden 1024, 16 heads, FFN 4096, 6 + 6 layers,
+    dropout 0.1 unless given."""
+    from paddle_tpu_torch.models import transformer
+
+    return transformer.TransformerConfig.big(**kw)
+
+
+def nmt_batches(cfg, buckets=NMT_BUCKETS, tokens=NMT_TOKENS, seed=0):
+    """measure_nmt's batches (bench.py:491 ``ragged_batch``), from the
+    port's ``make_fake_batch``: one RandomState(seed) over the buckets
+    in order; a bucket's batch of tokens // bucket sentences has lengths
+    uniform in (the previous bucket, bucket], the source's tail past a
+    length set to pad id 0 and ``label_weight`` 1 on a sentence's first
+    length - 1 targets only.  Returns [(bucket, feed, effective tokens:
+    non-pad source plus weighted target tokens, as the bench counts)]."""
+    from paddle_tpu_torch.models import transformer
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for bucket, lo in zip(buckets, (0,) + tuple(buckets[:-1])):
+        batch = max(tokens // bucket, 1)
+        lens = rng.randint(lo + 1, bucket + 1, batch)
+        data = transformer.make_fake_batch(cfg, batch=batch, src_len=bucket,
+                                           trg_len=bucket - 1,
+                                           seed=int(lens[0]))
+        w = np.zeros_like(data["label_weight"])
+        for i, ln in enumerate(lens):
+            data["src_ids"][i, ln:] = 0
+            w[i, :ln - 1] = 1.0
+        data["label_weight"] = w
+        out.append((bucket, data, int(lens.sum()) + int(w.sum())))
+    return out
+
+
+def _nmt_program(cfg, bf16=True):
+    """build_transformer_nmt with Adam(NMT_LR); returns (main, startup,
+    cost)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, cost, _ = transformer.build_transformer_nmt(cfg)
+        fluid.optimizer.Adam(learning_rate=NMT_LR).minimize(cost)
+    if bf16:
+        enable_bf16_policy(main)
+    startup.random_seed = SEED
+    return main, startup, cost
+
+
+def _nmt_decode_program(cfg, max_out_len):
+    """build_greedy_decode(cfg, max_out_len) (fp32); returns (main,
+    startup, out ids)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, out = transformer.build_greedy_decode(cfg, max_out_len)
+    startup.random_seed = SEED
+    return main, startup, out
+
+
+def nmt_step_launches(cfg):
+    """{kernel: launches} of one NMT train step with the self-attentions
+    on flash (dropout 0): K1 twice a self-attention (the forward and the
+    derived grad's recompute), K2 and K3 once; the cross-attentions stay
+    composed."""
+    n = cfg.num_encoder_layers + cfg.num_decoder_layers
+    return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def forward_flops(program, feed):
+    """Forward FLOPs of ``program`` on ``feed``: 2 a multiply-add of its
+    ``mul``, ``matmul`` and ``flash_attention`` ops (a causal one over
+    the (query, key) pairs at or below the diagonal), at the shapes the
+    ops see on this feed: every forward op's lowering run on meta
+    tensors, in program order."""
+    from paddle_tpu_torch.fluid import registry
+
+    block = program.global_block()
+    ctx = registry.LowerContext(device="meta")
+    env = {n: torch.empty(np.shape(v), device="meta",
+                          dtype=registry.torch_dtype(np.asarray(v).dtype.name))
+           for n, v in feed.items()}
+
+    def value(name):
+        if name not in env:  # a parameter
+            v = block.var(name)
+            env[name] = torch.empty(v.shape, device="meta",
+                                    dtype=registry.torch_dtype(v.dtype))
+        return env[name]
+
+    macs = 0
+    with torch.no_grad():
+        for op in block.ops:
+            if op.attrs.get("op_role", "forward") not in ("forward", "loss"):
+                continue
+            info = registry.get_op(op.type)
+            args = []
+            for slot in info.input_slots:
+                names = op.inputs.get(slot.rstrip("*"), [])
+                args.append([value(n) for n in names]
+                            if info.is_variadic(slot)
+                            else value(names[0]) if names else None)
+            ctx.cur_op = op
+            out = info.lower(ctx, *args, attrs=op.attrs)
+            out = out if isinstance(out, tuple) else (out,)
+            for slot, o in zip(info.output_slots, out):
+                names = op.outputs.get(slot.rstrip("*"), [])
+                if info.is_variadic(slot):
+                    env.update(zip(names, o or []))
+                elif names and o is not None:
+                    env[names[0]] = o
+            a = op.attrs
+            if op.type == "mul":
+                x, y = args[0].shape, args[1].shape
+                xd, yd = a.get("x_num_col_dims", 1), a.get("y_num_col_dims", 1)
+                macs += (int(np.prod(x[:xd])) * int(np.prod(x[xd:]))
+                         * int(np.prod(y[yd:])))
+            elif op.type == "matmul":
+                x = args[0].shape
+                k = x[-2] if a.get("transpose_X", False) else x[-1]
+                macs += int(np.prod(out[0].shape)) * int(k)
+            elif op.type == "flash_attention":
+                b, h, s, d = args[0].shape
+                pairs = s * (s + 1) // 2 if a.get("causal") else s * s
+                macs += 2 * b * h * pairs * d
+    return 2 * macs
+
+
+def _close(exes):
+    """Free every plan and graph of ``exes`` (their pools with them)."""
+    for exe in exes.values():
+        exe.close()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def run_nmt_train_path(counters, dropout):
+    """Phase 24 (``dropout`` 0.1, measure_nmt's) or 25 (0.0): Transformer-
+    big NMT training as measure_nmt runs it, the captured and the eager
+    executor in turns from one state made on the card by the startup
+    program: one warm-up round over the buckets (one eager warm-up and
+    one capture a bucket: 4 graphs), then NMT_ROUNDS timed rounds.
+    Gates: losses finite; the modes' losses and whole state bit-equal; 4
+    graphs held; the eager peak and the graph pools within
+    NMT_MEMORY_SHARE of the card's memory; the pass report's fuse_attention sites (0 at dropout
+    0.1, whose attention dropout vetoes the rewrite; 12 at 0.0: 6
+    encoder self-attentions with the pad bias, 6 causal decoder ones);
+    the launches exact, on the card and in the wrappers (none at dropout
+    0.1; nmt_step_launches a step at 0.0, K4-K8 none).  Returns (state,
+    readings): effective tokens/s, padding overhead, step p50 / p95 a
+    bucket, MFU (forward_flops x 3 at each bucket's shapes, over
+    profiling.device_peaks()), peak memory, graph pools and capture
+    seconds, per mode."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.observability import profiling
+
+    what = f"nmt train path (dropout {dropout})"
+    cfg = nmt_config(dropout=dropout)
+    main, startup, cost = _nmt_program(cfg)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    batches = nmt_batches(cfg)
+    per_step = _no_launches(counters)
+    if not dropout:
+        per_step.update(nmt_step_launches(cfg))
+    losses = {m: [] for m in exes}
+    secs = {m: {b: [] for b, _, _ in batches} for m in exes}
+    first_s = {m: {} for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    torch.cuda.synchronize()
+    for rnd in range(1 + NMT_ROUNDS):
+        for bucket, feed, _ in batches:
+            for m, exe in exes.items():  # in turns
+                torch.cuda.reset_peak_memory_stats()
+                before = _snap()
+                t0 = time.perf_counter()
+                (lv,) = exe.run(main, feed=feed, fetch_list=[cost],
+                                scope=scopes[m])
+                dt = time.perf_counter() - t0  # the fetch syncs
+                py, dev = _since(before, counters)
+                _add(launches[m], py)
+                _add(on_card[m], dev)
+                peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+                losses[m].append(float(lv))
+                if rnd:
+                    secs[m][bucket].append(dt)
+                else:
+                    first_s[m][bucket] = dt
+    runs = len(batches) * (1 + NMT_ROUNDS)
+    _gate_launches(what, launches, on_card, per_step, runs, len(batches))
+    att = {e["pass"]: e for e in main._pass_report}["fuse_attention"]
+    n = cfg.num_encoder_layers + cfg.num_decoder_layers
+    want_sites = ((0, 0, 0) if dropout else
+                  (n, cfg.num_encoder_layers, cfg.num_decoder_layers))
+    if (att["sites"], att.get("bias_sites", 0),
+            att.get("causal_sites", 0)) != want_sites:
+        raise AssertionError(f"{what}: fuse_attention report {att}, "
+                             f"expected (sites, bias, causal) {want_sites}")
+    if not all(np.isfinite(losses["captured"])):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"{what}: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
+    held = [e.graph for e in exes["captured"].compiled_for(main)]
+    if len(held) != len(batches) or None in held:
+        raise AssertionError(f"{what}: the captured executor holds {held}, "
+                             f"expected one graph a bucket")
+    pools = graph_pools_gb()
+    held_gb = max(peak.values()) / 1e9 + pools
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    if not held_gb <= NMT_MEMORY_SHARE * card_gb:
+        raise AssertionError(
+            f"{what}: eager peak {max(peak.values()) / 1e9} GB + graph "
+            f"pools {pools} GB = {held_gb} GB, over {NMT_MEMORY_SHARE} of "
+            f"the card's {card_gb} GB")
+    flops = {b: 3 * forward_flops(main, feed) for b, feed, _ in batches}
+    eff = sum(e for _, _, e in batches)
+    padded = sum(f["src_ids"].size + f["labels"].size
+                 for _, f, _ in batches)
+    _, peak_flops, _, _ = profiling.device_peaks()
+    modes = {}
+    for m in exes:
+        total_s = sum(sum(v) for v in secs[m].values())
+        modes[m] = dict(
+            effective_tokens_per_s=NMT_ROUNDS * eff / total_s,
+            mfu=NMT_ROUNDS * sum(flops.values()) / total_s / peak_flops,
+            round_s=total_s / NMT_ROUNDS,
+            buckets={b: dict(**_ms_quantiles(v), first_run_s=first_s[m][b],
+                             mfu_p50=flops[b] / float(np.median(v))
+                             / peak_flops)
+                     for b, v in secs[m].items()},
+            peak_memory_gb=peak[m] / 1e9, launches=launches[m],
+            device_launches=on_card[m])
+    modes["captured"]["capture_s"] = _capture_seconds(exes["captured"], main)
+    modes["captured"]["graph_pools_gb"] = pools
+    modes["captured"]["graphs"] = len(held)
+    types = [op.type for op in main.global_block().ops]
+    path = dict(
+        model=f"TransformerConfig.big(dropout={dropout}) (vocabularies "
+        "30000, hidden 1024, 16 heads, FFN 4096, 6 + 6 layers)",
+        buckets=list(NMT_BUCKETS), tokens_budget=NMT_TOKENS,
+        batches={b: list(f["src_ids"].shape) for b, f, _ in batches},
+        effective_tokens_a_round=eff, padded_tokens_a_round=padded,
+        padding_overhead=padded / eff - 1, dtype_policy="bf16",
+        optimizer=f"Adam({NMT_LR})", rounds=NMT_ROUNDS, warmup_rounds=1,
+        losses=losses["captured"], captured_eager_bit_equal=True,
+        ops=len(types), flash_attention_ops=types.count("flash_attention"),
+        pass_report=main._pass_report, memory_held_gb=held_gb,
+        memory_limit_gb=NMT_MEMORY_SHARE * card_gb,
+        model_flops_a_step={b: f for b, f in flops.items()},
+        mfu_peak_flops=peak_flops, modes=modes,
+        launches=_summed(launches), device_launches=_summed(on_card))
+    state = dict(exes=exes, main=main, scopes=scopes, cost=cost,
+                 batches=batches, cfg=cfg)
+    return state, path
+
+
+def profile_nmt_step(state, bucket=128):
+    """One train step of each mode at ``bucket`` under torch.profiler
+    (the captured one replays its graph): device busy and idle, launch
+    API calls, the top device kernels."""
+    feed = {b: f for b, f, _ in state["batches"]}[bucket]
+    out = {"bucket": bucket}
+    for m, exe in state["exes"].items():
+        out[m] = _profile(lambda: exe.run(
+            state["main"], feed=feed, fetch_list=[state["cost"]],
+            scope=state["scopes"][m]), 1)
+    return out
+
+
+def nmt_decode_feed(cfg, batch, src_len, seed):
+    """``batch`` source sentences of ids in [2, vocab), padded to
+    ``src_len`` with pad id 0 past lengths uniform in [1, src_len]."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, src_len + 1, batch)
+    src = rng.randint(2, cfg.src_vocab, (batch, src_len)).astype("int64")
+    for i, ln in enumerate(lens):
+        src[i, ln:] = 0
+    return {"src_ids": src}
+
+
+def _nmt_decode_logits(main):
+    """The names of build_greedy_decode's pass logits ([B, 1, V]: the
+    ``slice`` ops' outputs, in pass order)."""
+    return [op.output("Out")[0] for op in main.global_block().ops
+            if op.type == "slice"]
+
+
+def _nmt_decode_on_cpu(what, main, out, feed, exe, scope):
+    """A greedy decode program on ``feed`` once more on the card
+    (``exe``) and once on a CPUPlace executor over the same parameters,
+    fetching the ids and every pass's logits.  Pass i reads buffer slots
+    0..i (the self-attention is causal) and writes slot i + 1, so where
+    a row's ids first differ at slot k, its passes before k ran on equal
+    inputs: their logits must agree within PATH_LOGP_ATOL, and pass
+    k - 1 may pick another id only at a near-tie (the CPU's top-two gap
+    there below PATH_LOGP_ATOL).  Returns the readings and the card's
+    ids."""
+    from paddle_tpu_torch import convert, fluid
+
+    fetch = [out] + _nmt_decode_logits(main)
+    card = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    cpu_scope = fluid.Scope()
+    convert.load_params(cpu_scope, {
+        p.name: scope.get(p.name).cpu().numpy()
+        for p in main.all_parameters()}, fluid.CPUPlace(), program=main)
+    t0 = time.perf_counter()
+    cpu = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                               fetch_list=fetch,
+                                               scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    ids = {"card": np.asarray(card[0]), "cpu": np.asarray(cpu[0])}
+    logits = {k: np.stack([np.asarray(a).reshape(len(ids[k]), -1)
+                           for a in v[1:]], axis=1)
+              for k, v in (("card", card), ("cpu", cpu))}
+    err, rows = 0.0, []
+    for r in range(len(ids["cpu"])):
+        differ = np.flatnonzero(ids["card"][r] != ids["cpu"][r])
+        k = int(differ[0]) if differ.size else None
+        passes = len(fetch) - 1 if k is None else k
+        err = max(err, float(np.abs(logits["card"][r, :passes]
+                                    - logits["cpu"][r, :passes]).max()))
+        if k is not None:
+            top2 = np.sort(logits["cpu"][r, k - 1])[-2:]
+            gap = float(top2[1] - top2[0])
+            rows.append(dict(row=r, first_mismatch=k, top2_gap=gap))
+            if not k >= 1 or not gap < PATH_LOGP_ATOL:
+                raise AssertionError(
+                    f"{what}: row {r}'s ids on the card {ids['card'][r]} "
+                    f"and the CPU {ids['cpu'][r]} differ at slot {k}, CPU "
+                    f"top-two gap {gap} >= {PATH_LOGP_ATOL}")
+    if not err < PATH_LOGP_ATOL:
+        raise AssertionError(f"{what}: card vs CPU logits max abs err {err} "
+                             f">= {PATH_LOGP_ATOL}")
+    return dict(ids_equal=not rows, mismatched_rows=rows,
+                logits_max_abs_err=err, logits_atol=PATH_LOGP_ATOL,
+                logits_max_abs=float(np.abs(logits["cpu"]).max()),
+                cpu_run_s=cpu_s), ids["card"]
+
+
+def run_nmt_decode_path(counters):
+    """Phase 26: build_greedy_decode(TransformerConfig.big(),
+    max_out_len=NMT_DECODE_OUT), fp32, the default passes on, over its
+    own startup program's seeded parameters (a trained model of a few
+    steps decodes every source to one token, which could not show a
+    wrong kernel): 32 seeded sources padded to 64, one warm-up run (the
+    capture) and NMT_DECODE_RUNS timed runs a mode, in turns.  Gates:
+    the pass report reads a flash site a self-attention of the encoder
+    and of each of the NMT_DECODE_OUT decoder passes; K1 launches that
+    many times a run on the card, K2-K8 never; captured ids equal eager
+    ids at every run, start with bos and lie in the vocabulary; at least
+    NMT_DECODE_MIN_DISTINCT distinct outputs; ids and logits held
+    against a CPU run of the same program (_nmt_decode_on_cpu)."""
+    from paddle_tpu_torch import fluid
+
+    cfg = nmt_config(dropout=0.0)
+    main, startup, out = _nmt_decode_program(cfg, NMT_DECODE_OUT)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    feed = nmt_decode_feed(cfg, NMT_DECODE_BATCH, NMT_DECODE_SRC, SEED)
+    exes = _executors()
+    sites = cfg.num_encoder_layers + NMT_DECODE_OUT * cfg.num_decoder_layers
+    per_run = dict(_no_launches(counters), flash_fwd=sites)
+    ids = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    for _ in range(1 + NMT_DECODE_RUNS):
+        for m, exe in exes.items():
+            before = _snap()
+            t0 = time.perf_counter()
+            (got,) = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+            secs[m].append(time.perf_counter() - t0)
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            ids[m].append(np.asarray(got))
+    _gate_launches("nmt decode path", launches, on_card, per_run,
+                   1 + NMT_DECODE_RUNS, 1)
+    att = {e["pass"]: e for e in main._pass_report}["fuse_attention"]
+    if att["sites"] != sites:
+        raise AssertionError(f"nmt decode path: fuse_attention report {att}, "
+                             f"expected {sites} sites")
+    first = ids["captured"][0]
+    if any(not np.array_equal(a, first) for m in ids for a in ids[m]):
+        raise AssertionError(f"nmt decode path: ids differ between runs or "
+                             f"modes: {ids}")
+    distinct = len({tuple(r) for r in first.tolist()})
+    if first.shape != (NMT_DECODE_BATCH, NMT_DECODE_OUT + 1) \
+            or (first[:, 0] != cfg.bos_id).any() or first.min() < 0 \
+            or first.max() >= cfg.trg_vocab \
+            or distinct < NMT_DECODE_MIN_DISTINCT:
+        raise AssertionError(f"nmt decode path: ids {first}, {distinct} "
+                             f"distinct outputs")
+    cpu, card_ids = _nmt_decode_on_cpu("nmt decode path", main, out, feed,
+                                       exes["eager"], scope)
+    if not np.array_equal(card_ids, first):
+        raise AssertionError("nmt decode path: the eager run fetching the "
+                             "logits gave other ids")
+    modes = {m: dict(**_ms_quantiles(secs[m][1:]), first_run_s=secs[m][0],
+                     launches=launches[m], device_launches=on_card[m])
+             for m in exes}
+    modes["captured"]["capture_s"] = _capture_seconds(exes["captured"], main)
+    _close(exes)
+    return dict(model="build_greedy_decode(TransformerConfig.big(), "
+                f"max_out_len={NMT_DECODE_OUT}), fp32, its startup's "
+                f"seeded parameters (seed {SEED})",
+                batch=NMT_DECODE_BATCH, src_len=NMT_DECODE_SRC,
+                ops=len(main.global_block().ops), flash_sites=sites,
+                distinct_outputs=distinct,
+                min_distinct=NMT_DECODE_MIN_DISTINCT,
+                ids_head=first[:4].tolist(), captured_eager_equal=True,
+                cpu=cpu, modes=modes, launches=_summed(launches),
+                device_launches=_summed(on_card))
+
+
+def _nmt_parity_run(cfg, place, feed, init, steps):
+    """``steps`` fp32 steps of the NMT program with Adam(NMT_LR) on
+    ``place`` from ``init`` (None: the startup's, returned).  Returns
+    the losses, ``init``, the parameters after the run and each
+    parameter's first-step gradient."""
+    from paddle_tpu_torch import convert, fluid
+
+    main, startup, cost = _nmt_program(cfg, bf16=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    if init is None:
+        init = {p.name: scope.get(p.name).cpu().numpy().copy()
+                for p in main.all_parameters()}
+    else:
+        convert.load_params(scope, init, place, program=main)
+    grads = dict(main._params_grads)
+    losses, first = [], None
+    for i in range(steps):
+        fetch = [cost] + (list(grads.values()) if i == 0 else [])
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        losses.append(float(out[0]))
+        if i == 0:
+            first = {p: np.asarray(g, np.float64)
+                     for p, g in zip(grads, out[1:])}
+    final = {n: scope.get(n).cpu().numpy() for n in init}
+    return losses, init, final, first
+
+
+def _grad_rel(grads, ref, held):
+    """Worst ||g - ref|| / ||ref|| over the ``held`` leaves, and its leaf."""
+    rel = {n: float(np.linalg.norm(grads[n] - ref[n])
+                    / max(np.linalg.norm(ref[n]), 1e-30)) for n in held}
+    leaf = max(rel, key=rel.get)
+    return dict(leaf=leaf, rel=rel[leaf])
+
+
+@contextlib.contextmanager
+def _planted_dq_fault(eps):
+    """The NMT parity's control: K2's dQ off by ``eps`` of itself rolled
+    by one head-dim column.  The op's backward looks ``flash_bwd_dq`` up
+    in its module at each call, so the planted function takes its
+    place until the block ends (and takes K2's launches meanwhile: the
+    wrapper counts on the function its module names)."""
+    from paddle_tpu_torch.kernels.primitives import flash
+
+    kernel = flash.flash_bwd_dq
+
+    def planted(*args, **kw):
+        dq = kernel(*args, **kw)
+        return dq + eps * dq.roll(1, dims=-1)
+
+    planted.launches = 0
+    flash.flash_bwd_dq = planted
+    try:
+        yield
+    finally:
+        flash.flash_bwd_dq = kernel
+
+
+def run_nmt_parity():
+    """2 + 2 layers at full width (hidden 1024, 16 heads, FFN 4096,
+    vocabularies 30000), dropout 0, fp32, the default passes (the
+    self-attentions on flash: fp32 K1-K3 on the card, their plain
+    versions on the CPU): a padded bucket-32 batch of 16 sentences
+    (nmt_batches' recipe, seed 1), 3 Adam steps on the card and on a
+    CPUPlace executor from the same parameters.  Gates (see
+    NMT_PARITY_GRAD_RTOL): losses within TRAIN_LOSS_RTOL; on every leaf
+    above the gradient floor, the first step's gradient within
+    NMT_PARITY_GRAD_RTOL of its norm, and NMT_PARITY_CHECKS on the
+    updates; each control (_planted_dq_fault on the card, see
+    NMT_PARITY_CONTROLS) failing the gates it names; the CPU's
+    conditioning (a run from a start moved by NMT_PARITY_NUDGE of each
+    element) printed beside.  Then the greedy decode (NMT_PARITY_OUT new
+    ids) of the card run's final parameters over the batch's sources,
+    held against the CPU's (_nmt_decode_on_cpu)."""
+    from paddle_tpu_torch import convert, fluid
+
+    cfg = nmt_config(num_encoder_layers=NMT_PARITY_LAYERS,
+                     num_decoder_layers=NMT_PARITY_LAYERS, dropout=0.0)
+    (_, feed, _), = nmt_batches(cfg, buckets=(32,), tokens=16 * 32, seed=1)
+    gl, init, gpu, ggrads = _nmt_parity_run(cfg, _gpu_place(), feed, None,
+                                            NMT_PARITY_STEPS)
+    cl, _, cpu, grads = _nmt_parity_run(cfg, fluid.CPUPlace(), feed, init,
+                                        NMT_PARITY_STEPS)
+    controls = {}
+    for eps in NMT_PARITY_CONTROLS:
+        with _planted_dq_fault(eps):
+            controls[eps] = _nmt_parity_run(cfg, _gpu_place(), feed, init,
+                                            NMT_PARITY_STEPS)
+    signs = np.random.RandomState(SEED)
+    nudged = {n: (a * (1 + NMT_PARITY_NUDGE * signs.choice(
+        [-1.0, 1.0], a.shape))).astype(a.dtype) for n, a in init.items()}
+    nl, _, ncpu, ngrads = _nmt_parity_run(cfg, fluid.CPUPlace(), feed,
+                                          nudged, NMT_PARITY_STEPS)
+
+    def loss_rel(losses):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, cl))
+
+    readings = _update_readings(init, gpu, cpu, grads)
+    held = [n for n in grads if n not in readings["floor_leaves"]]
+    grad = _grad_rel(ggrads, grads, held)
+    rel = loss_rel(gl)
+    control = {
+        f"dq + {eps} x dq rolled by one column": dict(
+            must_fail=gates, losses=kl, loss_max_rel_diff=loss_rel(kl),
+            first_grad=_grad_rel(kgrads, grads, held),
+            worst_held=_update_readings(init, ctl, cpu, grads)[
+                "worst_held"])
+        for eps, gates in NMT_PARITY_CONTROLS.items()
+        for kl, _, ctl, kgrads in (controls[eps],)}
+    reading = dict(batch=list(feed["src_ids"].shape), losses_gpu=gl,
+                   losses_cpu=cl, loss_max_rel_diff=rel, first_grad=grad,
+                   grad_rtol=NMT_PARITY_GRAD_RTOL, controls=control,
+                   cpu_conditioning=dict(
+                       nudge=NMT_PARITY_NUDGE, losses=nl,
+                       loss_max_rel_diff=loss_rel(nl),
+                       first_grad=_grad_rel(ngrads, grads, held),
+                       worst_held=_update_readings(
+                           init, ncpu, cpu, grads,
+                           init_gpu=nudged)["worst_held"]))
+    bounds = dict(NMT_PARITY_CHECKS)
+    for c in control.values():
+        seen = {k: w[k] > bounds[k] for k, w in c["worst_held"].items()
+                if k in bounds}
+        seen["first_grad"] = c["first_grad"]["rel"] > NMT_PARITY_GRAD_RTOL
+        if not all(seen[g] for g in c["must_fail"]):
+            raise AssertionError(f"nmt parity: a control passes a gate it "
+                                 f"must fail: {reading}")
+    if not rel < TRAIN_LOSS_RTOL or not grad["rel"] <= NMT_PARITY_GRAD_RTOL:
+        raise AssertionError(f"nmt parity: {reading}")
+    reading.update(_update_gates("nmt parity", readings, NMT_PARITY_CHECKS))
+    main, _, out = _nmt_decode_program(cfg, NMT_PARITY_OUT)
+    scope = fluid.Scope()
+    convert.load_params(scope, {p.name: gpu[p.name]
+                                for p in main.all_parameters()},
+                        _gpu_place(), program=main)
+    greedy, ids = _nmt_decode_on_cpu(
+        "nmt parity greedy", main, out, {"src_ids": feed["src_ids"]},
+        fluid.Executor(_gpu_place()), scope)
+    return dict(reading, greedy=greedy, greedy_max_out_len=NMT_PARITY_OUT,
+                greedy_distinct_outputs=len({tuple(r) for r in
+                                             ids.tolist()}))
+
+
+def run_nmt_phases(wrappers, say, smi):
+    """Phases 24-26 and the card-vs-CPU parity; returns {path: readings}
+    for the kernels line."""
+    out = {}
+    torch.cuda.empty_cache()
+    state, out["nmt_train"] = run_nmt_train_path(wrappers, dropout=0.1)
+    say("nmt train path", {"card": smi, **out["nmt_train"]})
+    say("nmt train step", {"card": smi, **profile_nmt_step(state)})
+    _close(state.pop("exes"))
+    del state
+    torch.cuda.empty_cache()
+    state, out["nmt_train_flash"] = run_nmt_train_path(wrappers, dropout=0.0)
+    say("nmt flash train path", {"card": smi, **out["nmt_train_flash"]})
+    say("nmt flash train step", {"card": smi, **profile_nmt_step(state)})
+    _close(state.pop("exes"))
+    del state
+    torch.cuda.empty_cache()
+    out["nmt_decode"] = run_nmt_decode_path(wrappers)
+    say("nmt decode path", {"card": smi, **out["nmt_decode"]})
+    torch.cuda.empty_cache()
+    say("nmt parity", run_nmt_parity())
+    return out
+
+
 ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
                  "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -4973,7 +5730,8 @@ ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
 # "passes", "predictor" and "int8w" phases 14, 15 and 16 ("predictor"
 # with phase 3's fp32 K1 at its shape), "gpt" phase 3's K1-K4 checks
 # (GPT-2 small's shapes among them) and phases 17-18, "fleet" phase 19,
-# "fp32train" phase 20, "resnet" phases 21-22 and "cnn" phase 23
+# "fp32train" phase 20, "resnet" phases 21-22, "cnn" phase 23 and "nmt"
+# phase 3's K1-K3 at the NMT shapes and phases 24-26
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -4993,9 +5751,11 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         # no kernel on their path: every library is built so that the
         # kernels' own counters can show 0 launches
         "resnet": (ALL_LIBRARIES, ()),
-        "cnn": (ALL_LIBRARIES, ())}
+        "cnn": (ALL_LIBRARIES, ()),
+        # K1-K3 on phase 25's path, none on phase 24's: every library
+        "nmt": (ALL_LIBRARIES, ("check_flash_nmt",))}
 NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
-              "resnet", "cnn")
+              "resnet", "cnn", "nmt")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -5003,11 +5763,11 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 20, 14-19 and 21-23 (those of ``keys``, in that order);
+    """Phases 20, 14-19 and 21-26 (those of ``keys``, in that order);
     returns their path readings (None for a phase not run).  Phase 16's
     ids are compared with ``fp32_outs``, the fp32-weight lane's, where
     given (printed, not gated)."""
-    ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = None
+    ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = nmt = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -5087,7 +5847,9 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         cnn = run_cnn_path(wrappers)
         say("cnn path", {"card": smi, **cnn})
         torch.cuda.empty_cache()
-    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn
+    if "nmt" in keys:
+        nmt = run_nmt_phases(wrappers, say, smi)
+    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt
 
 
 def run_only(keys, dev, smi, say):
@@ -5132,12 +5894,13 @@ def main(argv=None):
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
-                    "gpt, fleet, fp32train, resnet, cnn): phases 1-3 for "
-                    "those kernels alone (flash: with phase 2's flash "
+                    "gpt, fleet, fp32train, resnet, cnn, nmt): phases 1-3 "
+                    "for those kernels alone (flash: with phase 2's flash "
                     "report; engine: phases 10-11; passes, predictor, "
                     "int8w: phases 14, 15, 16; gpt: K1-K4 and phases "
                     "17-18; fleet: phase 19; fp32train: phase 20; resnet: "
-                    "phases 21-22; cnn: phase 23); the default runs every "
+                    "phases 21-22; cnn: phase 23; nmt: K1-K3 at the NMT "
+                    "shapes and phases 24-26); the default runs every "
                     "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5215,6 +5978,7 @@ def main(argv=None):
     k8_err, k8_t = check_fused_update(dev, rng)
     k8g_err, k8g_t = check_fused_update_group(dev)
     k1p_err, k1p_t = check_flash_fp32_predictor(dev, rng)
+    nmt_err, nmt_t = check_flash_nmt(dev, rng)
     torch.cuda.empty_cache()
     for k, timed in (("K5", k5_t), ("K7", k7_t)):
         for name, t in timed.items():
@@ -5228,6 +5992,7 @@ def main(argv=None):
         "ragged_attention_contract": k6c_t, "k4_bf16_loop_sass": k4_loop,
         "paged_attention_quant": k7_t, "fused_update": k8_t,
         "fused_update_group": k8g_t, "flash_fp32_predictor": k1p_t,
+        "flash_nmt": nmt_t,
         "launch_floor_ms": launch_floor_ms(), "card": smi})
 
     wrappers = kernel_wrappers()
@@ -5284,7 +6049,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
-    ab, pred, path_w, gpt, fleet, fp32, resnet, cnn = run_new_phases(
+    ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt = run_new_phases(
         wrappers, train_kernels, fp32_outs, smi, say)
 
     dec = k5_t["decode"]
@@ -5305,6 +6070,9 @@ def main(argv=None):
                      "resnet_train": resnet[key],
                      "resnet_predictor": resnet["predictor"][key],
                      "cnn": cnn[key],
+                     # phase 24 none; 25 K1-K3; 26 K1
+                     **{p: nmt[p][key] for p in (
+                         "nmt_train", "nmt_train_flash", "nmt_decode")},
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}
@@ -5343,18 +6111,23 @@ def main(argv=None):
     flash_py = "paddle_tpu/kernels/primitives/flash.py"
 
     def flash_shapes(kern):
-        return {n: fl_t[n][kern] for n in ("gpt3_6p7b", "fp32_d128",
-                                           "fp32_path", "fp32_gpt")}
+        return {**{n: fl_t[n][kern] for n in ("gpt3_6p7b", "fp32_d128",
+                                              "fp32_path", "fp32_gpt")},
+                **{case[0]: nmt_t[case[0]][kern]
+                   for case in NMT_FLASH_CASES}}
 
     kernels = [
         row("flash_fwd", flash_src, f"{flash_py}:78",
-            max(fl_err["flash_fwd"], k1p_err), fl_t["flash_fwd"],
+            max(fl_err["flash_fwd"], k1p_err, nmt_err["flash_fwd"]),
+            fl_t["flash_fwd"],
             fl_t["gpt"]["flash_fwd"], k1p_t, flash_shapes("flash_fwd")),
         row("flash_bwd_dq", flash_src, f"{flash_py}:130",
-            fl_err["flash_bwd_dq"], fl_t["flash_bwd_dq"],
+            max(fl_err["flash_bwd_dq"], nmt_err["flash_bwd_dq"]),
+            fl_t["flash_bwd_dq"],
             fl_t["gpt"]["flash_bwd_dq"], shapes=flash_shapes("flash_bwd_dq")),
         row("flash_bwd_dkv", flash_src, f"{flash_py}:167",
-            fl_err["flash_bwd_dkv"], fl_t["flash_bwd_dkv"],
+            max(fl_err["flash_bwd_dkv"], nmt_err["flash_bwd_dkv"]),
+            fl_t["flash_bwd_dkv"],
             fl_t["gpt"]["flash_bwd_dkv"],
             shapes=flash_shapes("flash_bwd_dkv")),
         row("fused_bias_act", "paddle_tpu_torch/csrc/fused_bias_act.cu",

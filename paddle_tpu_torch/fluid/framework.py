@@ -185,21 +185,49 @@ class Variable:
         return (f"Variable(name={self.name}, shape={self.shape}, "
                 f"dtype={self.dtype}, persistable={self.persistable})")
 
-    # arithmetic sugar: ``+`` and ``*`` (GoogLeNet's ``loss + 0.3 *
-    # aux_loss``), as the JAX package's math_op_patch subset builds them
-    def __add__(self, other):
+    # arithmetic sugar: the JAX package's math_op_patch subset (``+``,
+    # ``-``, ``*``, ``/``, ``@``, unary ``-`` and ``astype``), built as
+    # the JAX package builds them (layers/nn.py _elementwise_binary_var)
+    def _binary(self, other, op_type):
         from .layers import nn as _nn  # lazy: layers import framework
 
-        return _nn._elementwise_binary_var(self, other, "elementwise_add")
+        return _nn._elementwise_binary_var(self, other, op_type)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
 
     __radd__ = __add__
 
-    def __mul__(self, other):
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
         from .layers import nn as _nn
 
-        return _nn._elementwise_binary_var(self, other, "elementwise_mul")
+        return _nn._elementwise_binary_var(other, self, "elementwise_sub")
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
 
     __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __matmul__(self, other):
+        from .layers import nn as _nn
+
+        return _nn.matmul(self, other)
+
+    def __neg__(self):
+        from .layers import nn as _nn
+
+        return _nn.scale(self, scale=-1.0)
+
+    def astype(self, dtype):
+        from .layers import nn as _nn
+
+        return _nn.cast(self, dtype)
 
 
 class Parameter(Variable):

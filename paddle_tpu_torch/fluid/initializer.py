@@ -1,7 +1,8 @@
 """Initializers append init ops to the startup program (counterpart of
 ``paddle_tpu/fluid/initializer.py``).
 
-They emit ``fill_constant``, ``uniform_random`` and ``gaussian_random``;
+They emit ``fill_constant``, ``uniform_random``, ``gaussian_random`` and
+``assign_value`` (:class:`NumpyArrayInitializer`);
 the startup run executes them on the executor's device, drawing from a
 ``torch.Generator`` seeded from the program's ``random_seed``
 (ops/tensor_ops.py).
@@ -13,7 +14,8 @@ import numpy as np
 
 __all__ = ["Initializer", "Constant", "Uniform", "Normal", "Xavier",
            "ConstantInitializer", "UniformInitializer",
-           "NormalInitializer", "XavierInitializer"]
+           "NormalInitializer", "XavierInitializer",
+           "NumpyArrayInitializer"]
 
 
 class Initializer:
@@ -54,6 +56,27 @@ class NormalInitializer(Initializer):
             attrs={"shape": list(var.shape), "dtype": var.dtype,
                    "mean": float(self.loc), "std": float(self.scale),
                    "seed": self.seed})
+
+
+class NumpyArrayInitializer(Initializer):
+    """The array's values as an ``assign_value`` op: ``fp32_values`` for
+    a float array, ``int64_values`` for int64, else ``int32_values``."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        v = self.value
+        flat = v.reshape(-1)
+        if v.dtype in (np.float32, np.float64, np.float16):
+            attr = {"fp32_values": [float(x) for x in flat]}
+        elif v.dtype == np.int64:
+            attr = {"int64_values": [int(x) for x in flat]}
+        else:
+            attr = {"int32_values": [int(x) for x in flat]}
+        return block.append_op(
+            "assign_value", outputs={"Out": var},
+            attrs={"shape": list(v.shape), "dtype": var.dtype, **attr})
 
 
 def _fans(var):

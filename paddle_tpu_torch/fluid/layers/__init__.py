@@ -3,6 +3,9 @@
 from .io import data  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
-from .tensor import create_parameter  # noqa: F401
+from .nn_tail2 import *  # noqa: F401,F403
+from .nn_tail2 import __all__ as _nn_tail2_all
+from .tensor import *  # noqa: F401,F403
+from .tensor import __all__ as _tensor_all
 
-__all__ = ["data", "create_parameter"] + list(_nn_all)
+__all__ = ["data"] + list(_nn_all) + list(_nn_tail2_all) + list(_tensor_all)

@@ -1,5 +1,5 @@
 """Layer functions the decode serving lane, BERT and GPT training and
-the image models build with (counterpart of
+the image models and Transformer NMT build with (counterpart of
 ``paddle_tpu/fluid/layers/nn.py``).  Each appends ops to the default
 main program through LayerHelper; nothing touches a
 device until the executor runs the block.  Op types, slots and attrs
@@ -29,13 +29,15 @@ __all__ = [
     "elementwise_floordiv", "sqrt", "sign", "clip", "clip_by_norm",
     "conv2d", "conv3d", "conv2d_transpose", "pool2d", "adaptive_pool2d",
     "batch_norm", "square_error_cost", "relu", "sigmoid", "tanh", "square",
-    "flatten", "concat",
+    "flatten", "concat", "reduce_sum", "equal", "expand_as",
 ]
 
 
-def _single_out_layer(helper, op_type, inputs, attrs=None, dtype=None):
-    out = helper.create_variable_for_type_inference(
-        dtype=dtype or next(iter(inputs.values()))[0].dtype)
+def _single_out_layer(helper, op_type, inputs, attrs=None, dtype=None,
+                      out=None):
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=dtype or next(iter(inputs.values()))[0].dtype)
     helper.append_op(op_type, inputs=inputs, outputs={"Out": [out]},
                      attrs=attrs or {})
     return out
@@ -464,15 +466,39 @@ def mean(x, name=None):
     return _single_out_layer(helper, "mean", {"X": [x]})
 
 
-def reduce_mean(input, dim=None, keep_dim=False, name=None):
-    """Mean over ``dim`` (all dims when None)."""
-    helper = LayerHelper("reduce_mean", name=name)
+def _reduce_layer(op_type, input, dim=None, keep_dim=False, name=None):
+    """A reduction over ``dim`` (every dim when None)."""
+    helper = LayerHelper(op_type, name=name)
     if dim is None:
         attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
     else:
         d = dim if isinstance(dim, (list, tuple)) else [dim]
         attrs = {"dim": list(d), "keep_dim": keep_dim, "reduce_all": False}
-    return _single_out_layer(helper, "reduce_mean", {"X": [input]}, attrs)
+    return _single_out_layer(helper, op_type, {"X": [input]}, attrs)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce_layer("reduce_mean", input, dim, keep_dim, name)
+
+
+def _cmp_layer(op_type, x, y, name=None, out=None):
+    helper = LayerHelper(op_type, name=name)
+    return _single_out_layer(helper, op_type, {"X": [x], "Y": [y]},
+                             dtype="bool", out=out)
+
+
+def equal(x, y, cond=None):
+    return _cmp_layer("equal", x, y, out=cond)
+
+
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", name=name)
+    return _single_out_layer(helper, "expand_as",
+                             {"X": [x], "target_tensor": [target_tensor]})
 
 
 def accuracy(input, label, k=1, correct=None, total=None):
@@ -500,13 +526,31 @@ def accuracy(input, label, k=1, correct=None, total=None):
 
 
 def _elementwise_binary_var(x, y, op_type):
-    """``Variable``'s ``+`` and ``*``: with a Python number, the ``scale``
-    op the JAX package emits (y·1 + n, or y·n), else the elementwise
-    op."""
+    """``Variable``'s operators (the JAX package's math_op_patch
+    subset): with a Python number on either side, the ``scale`` op the
+    JAX package emits (n·1 + v, v·n, n − v, v − n, v·(1/n)) where one
+    does, else a [1] ``fill_constant`` of the number and the
+    elementwise op."""
+    from . import tensor as _t
+
+    if isinstance(x, (int, float)):
+        if op_type == "elementwise_add":
+            return scale(y, 1.0, float(x))
+        if op_type == "elementwise_mul":
+            return scale(y, float(x))
+        if op_type == "elementwise_sub":
+            return scale(y, -1.0, float(x))
+        x = _t.fill_constant(shape=[1], dtype=y.dtype, value=float(x))
     if isinstance(y, (int, float)):
         if op_type == "elementwise_add":
             return scale(x, 1.0, float(y))
-        return scale(x, float(y))
+        if op_type == "elementwise_mul":
+            return scale(x, float(y))
+        if op_type == "elementwise_sub":
+            return scale(x, 1.0, -float(y))
+        if op_type == "elementwise_div":
+            return scale(x, 1.0 / float(y))
+        y = _t.fill_constant(shape=[1], dtype=x.dtype, value=float(y))
     return _elementwise(op_type, x, y)
 
 

@@ -1,13 +1,20 @@
 """Tensor-creation layers (counterpart of
 ``paddle_tpu/fluid/layers/tensor.py``).  Ported so far:
-``create_parameter``, which the BERT MLM head's output bias uses."""
+``create_parameter`` (the BERT MLM head's output bias),
+``fill_constant``, ``fill_constant_batch_size_like`` and ``assign``
+(Transformer NMT: its pad bias and its greedy decode's buffer)."""
 
 from __future__ import annotations
 
+import numpy as np
+
+from ..framework import convert_np_dtype_to_dtype_
+from ..initializer import NumpyArrayInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter"]
+__all__ = ["create_parameter", "fill_constant",
+           "fill_constant_batch_size_like", "assign"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -16,3 +23,50 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     attr = attr or ParamAttr(name=name)
     return helper.create_parameter(attr, shape, dtype, is_bias,
                                    default_initializer)
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    dt = convert_np_dtype_to_dtype_(dtype)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dt,
+                                                        stop_gradient=True)
+    helper.append_op("fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dt,
+                            "value": float(value)})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """``shape`` filled with ``value``, its ``output_dim_idx`` dim taken
+    at run time from ``input``'s ``input_dim_idx`` dim."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    dt = convert_np_dtype_to_dtype_(dtype)
+    out = helper.create_variable_for_type_inference(dt, stop_gradient=True)
+    helper.append_op("fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dt,
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def assign(input, output=None):
+    """``output`` = ``input``: an ``assign`` op for a Variable, an
+    ``assign_value`` op holding the values for a numpy array or a
+    list."""
+    helper = LayerHelper("assign")
+    if isinstance(input, (np.ndarray, list, tuple)):
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                str(arr.dtype))
+        NumpyArrayInitializer(arr)(output, helper.block)
+        return output
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("assign", inputs={"X": [input]},
+                     outputs={"Out": [output]})
+    return output

@@ -44,6 +44,24 @@ _ew("elementwise_mod", torch.remainder)         # the divisor's sign
 _ew("elementwise_floordiv", torch.floor_divide)  # rounds toward -inf
 
 
+def _cmp(name, fn):
+    """A comparison (bool out, no grad): Y broadcast against X by the
+    same ``axis`` rule."""
+
+    def lower(ctx, x, y, attrs):
+        return fn(x, bcast_to(y, x, attrs.get("axis", -1)))
+
+    register_op(name, ["X", "Y"], ["Out"], lower, grad=None)
+
+
+_cmp("equal", torch.eq)
+_cmp("not_equal", torch.ne)
+_cmp("less_than", torch.lt)
+_cmp("less_equal", torch.le)
+_cmp("greater_than", torch.gt)
+_cmp("greater_equal", torch.ge)
+
+
 def _product(a, b, mm=torch.matmul):
     """``mm(a, b)`` in the dtype of ``a``: one bf16 product when both are
     bf16, else accumulated in fp32 (the JAX package's ``mxu_dot``)."""
@@ -280,16 +298,36 @@ def _mean(ctx, x, attrs):
     return x.mean()
 
 
-@simple_op("reduce_mean", ["X"], ["Out"])
-def _reduce_mean(ctx, x, attrs):
-    """Mean over ``dim`` (every dim with ``reduce_all``)."""
-    if attrs.get("reduce_all", False):
-        dims = tuple(range(x.dim()))
-    else:
-        dims = attrs.get("dim", [0])
-        dims = tuple(d % x.dim() for d in (dims if isinstance(
-            dims, (list, tuple)) else [dims]))
-    return x.mean(dim=dims, keepdim=attrs.get("keep_dim", False))
+def _reduce(name, fn):
+    """A reduction over ``dim`` (negative dims counted from the end;
+    every dim with ``reduce_all``), keeping the reduced dims as 1 with
+    ``keep_dim``; its grad is derived.  ``fn(x, dims, keepdim)``."""
+
+    def lower(ctx, x, attrs):
+        if attrs.get("reduce_all", False):
+            dims = tuple(range(x.dim()))
+        else:
+            dims = attrs.get("dim", [0])
+            dims = tuple(d % x.dim() for d in (dims if isinstance(
+                dims, (list, tuple)) else [dims]))
+        return fn(x, dims, attrs.get("keep_dim", False))
+
+    register_op(name, ["X"], ["Out"], lower)
+
+
+def _reduced_sum(x, dims, keepdim):
+    """A sum that accumulates a bf16 or fp16 input in fp32 and rounds
+    the result back, as ``jnp.sum`` does."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.sum(dim=dims, keepdim=keepdim, dtype=torch.float32).to(
+            x.dtype)
+    return x.sum(dim=dims, keepdim=keepdim)
+
+
+_reduce("reduce_sum", _reduced_sum)
+_reduce("reduce_mean", lambda x, d, k: x.mean(dim=d, keepdim=k))
+_reduce("reduce_max", lambda x, d, k: x.amax(dim=d, keepdim=k))
+_reduce("reduce_min", lambda x, d, k: x.amin(dim=d, keepdim=k))
 
 
 def _sum_of_squares(x):

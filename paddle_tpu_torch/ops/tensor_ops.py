@@ -2,7 +2,7 @@
 of ``paddle_tpu/ops/tensor_ops.py``).  The grads of ``lookup_table``,
 ``gather``, ``reshape2``, ``transpose2``, ``flatten2``, ``concat`` and
 ``slice`` are derived by the registry (autograd through the forward
-lowering)."""
+lowering), and so is ``expand_as``'s."""
 
 from __future__ import annotations
 
@@ -34,6 +34,49 @@ def _fill_any_like(ctx, x, attrs):
     dtype = attrs.get("dtype")
     return torch.full_like(x, attrs.get("value", 0.0),
                            dtype=np_dtype(dtype) if dtype else None)
+
+
+@simple_op("fill_constant_batch_size_like", ["Input"], ["Out"], grad=None)
+def _fill_constant_batch_size_like(ctx, inp, attrs):
+    """``shape`` filled with ``value``, its ``output_dim_idx`` dim taken
+    from ``Input``'s ``input_dim_idx`` dim (the batch)."""
+    shape = list(_shape(attrs))
+    shape[attrs.get("output_dim_idx", 0)] = \
+        inp.shape[attrs.get("input_dim_idx", 0)]
+    return torch.full(shape, attrs.get("value", 0.0),
+                      dtype=np_dtype(attrs.get("dtype", "float32")),
+                      device=ctx.device)
+
+
+@simple_op("assign", ["X"], ["Out"])
+def _assign(ctx, x, attrs):
+    """A copy of X: ops update scope tensors in place (``adam``), so the
+    output must not share X's storage."""
+    return x.clone()
+
+
+@simple_op("assign_value", [], ["Out"], grad=None)
+def _assign_value(ctx, attrs):
+    """The attrs' values (``fp32_values``, else ``int32_values``, else
+    ``int64_values``, the JAX lowering's order) as a tensor of ``shape``
+    and ``dtype``.  A CUDA graph cannot capture a copy from pageable
+    host memory, so the op makes its values on a device once, at its
+    first run there (on the card the eager warm-up), and returns a copy
+    of them each run; new attrs make them anew."""
+    vals = attrs.get("fp32_values") or attrs.get("int32_values") \
+        or attrs.get("int64_values")
+    dt = np_dtype(attrs.get("dtype", "float32"))
+    shape = tuple(int(s) for s in attrs.get("shape", [-1]))
+    if ctx.device.type == "meta":
+        return torch.empty(len(vals), dtype=dt, device="meta").reshape(shape)
+    key = (ctx.device, dt, shape)
+    made = getattr(ctx.cur_op, "_assigned", {})
+    if made.get(key, (None,))[0] is not vals:
+        made = {**made, key: (vals, torch.tensor(
+            vals, dtype=dt, device=ctx.device).reshape(shape))}
+        if ctx.cur_op is not None:
+            ctx.cur_op._assigned = made
+    return made[key][1].clone()
 
 
 @simple_op("uniform_random", [], ["Out"], grad=None)
@@ -101,6 +144,15 @@ def _flatten2(ctx, x, attrs):
 @simple_op("flatten", ["X"], ["Out"])
 def _flatten(ctx, x, attrs):
     return _flatten2(ctx, x, attrs)[0]
+
+
+@simple_op("expand_as", ["X", "target_tensor"], ["Out"],
+           no_grad_inputs=("target_tensor",))
+def _expand_as(ctx, x, target, attrs):
+    """X broadcast to ``target_tensor``'s shape (numpy's rule, as
+    ``jnp.broadcast_to``); its derived grad sums over the broadcast
+    dims."""
+    return x.expand(target.shape)
 
 
 @simple_op("concat", ["X*", "AxisTensor"], ["Out"], optional=("AxisTensor",),

@@ -325,6 +325,112 @@ def test_flash_kernels_match_plain(dev, dtype, b, h, s, d, causal, strided):
     torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,causal,pads", [
+    (32, False, True),    # an NMT encoder's bucket with its pad bias
+    (31, True, False),    # the decoder's causal S - 1: a ragged tile
+    (31, False, True),
+    (32, True, True),
+    (64, False, True),    # the greedy decode's encoder over 64 sources
+    (17, True, False),    # its decoder pass over a 17-slot buffer
+], ids=["enc_s32", "dec_s31", "pads_s31", "causal_pads_s32", "enc_s64",
+        "dec_s17"])
+def test_flash_kernels_nmt_shapes_match_plain(dev, dtype, s, causal, pads):
+    """K1-K3 at the Transformer NMT paths' shapes ([B, 16, S, 64]) with
+    their key-padding bias: each sentence's keys past a seeded length
+    carry -1e9 as ``dtype`` holds it (the bf16 policy rounds it to
+    -999817216), the value the op widens to fp32; against the plain
+    versions, finite."""
+    b, h, d = 8, 16, 64
+    q, k, v, do, _ = _flash_case(dev, b, h, s, d, dtype, True, seed=3)
+    bias = torch.zeros(b, s)
+    if pads:
+        lens = np.random.RandomState(4).randint(1, s + 1, b)
+        for i, ln in enumerate(lens):
+            bias[i, ln:] = torch.tensor(-1e9).to(dtype).float()
+    rows = bias.repeat_interleave(h, dim=0).to(dev)
+    scale = d ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, rows, causal, scale)
+    o_ref, lse_ref = flash.flash_fwd(q, k, v, rows, causal, scale,
+                                     force="reference")
+    delta = (do.float() * o_ref.float()).sum(-1).reshape(b * h, s)
+    args = (q, k, v, rows, do, lse_ref.reshape(b * h, s), delta, causal,
+            scale)
+    dq = flash.flash_bwd_dq(*args)
+    dk, dv, db = flash.flash_bwd_dkv(*args)
+    dq_ref = flash.flash_bwd_dq(*args, force="reference")
+    dk_ref, dv_ref, db_ref = flash.flash_bwd_dkv(*args, force="reference")
+    torch.cuda.synchronize()
+    for t in (o, lse, dq, dk, dv, db):
+        assert torch.isfinite(t).all()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o, o_ref, **tol)
+    torch.testing.assert_close(lse, lse_ref, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(dq, dq_ref, **tol)
+    torch.testing.assert_close(dk, dk_ref, **tol)
+    torch.testing.assert_close(dv, dv_ref, **tol)
+    torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
+
+
+def test_nmt_tiny_train_and_decode_on_card(dev):
+    """Transformer NMT at tiny (dropout 0, the bf16 policy, the default
+    passes) on a padded bucket of 16: three steps captured and eager in
+    turns from one state, bit-equal losses and state, K1 8, K2 4 and K3
+    4 launches a step on the card (4 self-attentions); then the greedy
+    decode (fp32, max_out_len 4) of the trained weights, captured ids
+    equal to eager ids and to a CPU run's."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig.tiny(dropout=0.0)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, cost, _ = transformer.build_transformer_nmt(cfg)
+        fluid.optimizer.Adam(1e-3).minimize(cost)
+    enable_bf16_policy(main)
+    startup.random_seed = 5
+    feed = transformer.make_fake_batch(cfg, 4, 16, 15, seed=2)
+    feed["src_ids"][1, 9:] = 0
+    feed["label_weight"][1, 8:] = 0
+    exes = {c: _executor(c) for c in (True, False)}
+    scopes = {True: fluid.Scope()}
+    exes[True].run(startup, scope=scopes[True])
+    scopes[False] = fluid.Scope()
+    for n in scopes[True].keys():
+        scopes[False].set(n, scopes[True].get(n).clone())
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    losses = {True: [], False: []}
+    for _ in range(3):
+        for c, exe in exes.items():
+            before = _on_card()
+            losses[c].append(float(exe.run(main, feed=feed,
+                                           fetch_list=[cost],
+                                           scope=scopes[c])[0]))
+            after = _on_card()
+            assert {n: after[n] - before[n] for n in names} == dict(
+                zip(names, (8, 4, 4)))
+    assert losses[True] == losses[False] and np.isfinite(losses[True]).all()
+    for n in scopes[True].keys():
+        assert torch.equal(scopes[True].get(n), scopes[False].get(n)), n
+
+    dec, dec_startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(dec, dec_startup), fluid.unique_name.guard():
+        _, out = transformer.build_greedy_decode(cfg, max_out_len=4)
+    src = {"src_ids": feed["src_ids"]}
+    ids = {c: exe.run(dec, feed=src, fetch_list=[out],
+                      scope=scopes[True])[0] for c, exe in exes.items()}
+    params = {p.name: scopes[True].get(p.name).cpu().numpy()
+              for p in dec.all_parameters()}
+    cpu_scope = fluid.Scope()
+    convert.load_params(cpu_scope, params, fluid.CPUPlace(), program=dec)
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        dec, feed=src, fetch_list=[out], scope=cpu_scope)[0]
+    np.testing.assert_array_equal(ids[True], ids[False])
+    np.testing.assert_array_equal(ids[True], want)
+
+
 def _fully_masked_rows(dev, dtype, d):
     b, h, s = 2, 3, 130
     q, k, v, do, bias = _flash_case(dev, b, h, s, d, dtype, True)

@@ -48,7 +48,8 @@ def test_fresh_interpreter_imports_no_jax():
                 "observability.slo", "serving.status", "serving.router",
                 "serving.frontend", "serving.drill",
                 "distributed.resilience", "distributed.fault_injection",
-                "distributed.elastic"):
+                "distributed.elastic", "models.transformer",
+                "ops.nn_extra_ops", "fluid.layers.nn_tail2"):
         assert f"paddle_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
