@@ -289,6 +289,30 @@ Phases, each fatal on failure:
      on the card with a planted error in K2's dQ failing them (1%: the
      gradient and mean abs limits; 10%: all three); the greedy decode
      of the card's final weights held against the CPU's as above.
+ 27. book path: the ten book programs of tests/book/ through the port
+     (tests/torch_port_books.py: fit_a_line, recognize_digits mlp and
+     conv, image_classification vgg and resnet, word2vec, ctr,
+     understand_sentiment conv and stacked LSTM, rnn_encoder_decoder,
+     recommender_system, label_semantic_roles and the attention-fusion
+     Transformer book), each at its own batch, widths, epochs, optimizer
+     and learning rate on CUDAPlace(0), the captured and the eager
+     executor in turns from one state (one executor pair a book, freed
+     after it): the modes' losses and whole state bit-equal, every
+     state tensor on the card, the book's own loss threshold met; the
+     inference model saved and reloaded on the card, its prediction
+     within rtol 2e-4, atol 2e-5 of clone(for_test=True); the first 3
+     losses within 1e-4 of a CPUPlace run of the port from the card's
+     startup state; label_semantic_roles' Viterbi paths from the card's
+     trained state equal to the CPU's on the same batch (a differing
+     step prints the margin between its top two path scores).  K1 8, K2
+     4 and K3 4 a step on the fused Transformer book (4 self-attention
+     sites, fp32: split TF32 at D 16), none elsewhere, gated exactly in
+     each mode; per book the step p50 / p95 a mode, examples/s, launch
+     API calls a step (one profiled step a mode), capture seconds and
+     the final loss beside its threshold.  Phase 3 holds K1-K3 at the
+     Transformer book's fp32 shapes ([32, 12, 16] with the key bias,
+     causal [32, 10, 16]) against their plain versions, timed against
+     their bounds and SDPA.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -301,8 +325,9 @@ the named kernels alone (a quick check of a kernel change; see ONLY;
 phases 14, 15 and 16 (``predictor`` with phase 3's fp32 K1 at its
 shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18,
 ``--only fleet`` phase 19, ``--only fp32train`` phase 20, ``--only
-resnet`` phases 21-22, ``--only cnn`` phase 23 and ``--only nmt`` phase
-3's K1-K3 at the NMT shapes and phases 24-26.
+resnet`` phases 21-22, ``--only cnn`` phase 23, ``--only nmt`` phase
+3's K1-K3 at the NMT shapes and phases 24-26, and ``--only book`` phase
+3's K1-K3 at the Transformer book's shapes and phase 27.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -325,6 +350,7 @@ import json
 import os
 import signal
 import subprocess
+import tempfile
 import sys
 import time
 
@@ -456,13 +482,14 @@ def capture_mode(on):
         fluid.set_flags(old)
 
 
-def _clone_scope(scope):
-    """A scope of copies of ``scope``'s tensors."""
+def _clone_scope(scope, device=None):
+    """A scope of copies of ``scope``'s tensors (on ``device`` where
+    given)."""
     from paddle_tpu_torch import fluid
 
     out = fluid.Scope()
     for n in scope.keys():
-        out.set(n, scope.get(n).clone())
+        out.set(n, scope.get(n).detach().to(device).clone())
     return out
 
 
@@ -5721,6 +5748,252 @@ def run_nmt_phases(wrappers, say, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the book lane (tests/book/, tests/torch_port_books.py)
+# ---------------------------------------------------------------------------
+
+# the attention-fusion Transformer book (TransformerConfig.tiny: hidden
+# 64, 4 heads of D 16, fp32, one fixed batch of 8 with 12 source and 10
+# target positions): its encoder self-attentions with the key bias and
+# its causal decoder ones, K1-K3 in split TF32, checked and timed after
+# every other kernel check
+BOOK_FLASH_CASES = (
+    ("book_enc_s12_fp32", 8, 4, 12, 16, torch.float32, False, "nmt", True),
+    ("book_dec_s10_fp32", 8, 4, 10, 16, torch.float32, True, "zero", True))
+# the card against a CPUPlace run of the port from the card's startup
+# state: the first BOOK_PARITY_STEPS losses within BOOK_CPU_RTOL
+BOOK_PARITY_STEPS, BOOK_CPU_RTOL = 3, 1e-4
+# the reloaded inference model against clone(for_test=True): the book
+# harness's tolerance (tests/book/book_util.py)
+BOOK_INFER_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def check_flash_book(dev, rng):
+    """K1, K2, K3 against their plain versions and timed at
+    BOOK_FLASH_CASES."""
+    return check_flash(dev, rng, BOOK_FLASH_CASES)
+
+
+def _book_programs():
+    """tests/torch_port_books.py: the book programs, written once for
+    either package (it imports neither)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_port_books
+
+    return torch_port_books
+
+
+def book_step_launches(name):
+    """{kernel: launches} of one step of book ``name``: the fused
+    Transformer book's 4 self-attention sites launch K1 twice (the
+    forward and the derived grad's recompute) and K2, K3 once; no other
+    book runs a kernel."""
+    if name != "transformer_fusion":
+        return {}
+    return {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+
+
+def _viterbi_margins(em, trans, length, where):
+    """At each (row, step) of ``where``, the gap between the top two
+    Viterbi scores over the tags there (numpy, fp64, over the card's
+    emissions and transitions)."""
+    em, trans = np.asarray(em, np.float64), np.asarray(trans, np.float64)
+    out = []
+    for b, t in where:
+        v = trans[0] + em[b, 0]
+        for s in range(1, min(t, int(length[b]) - 1) + 1):
+            v = em[b, s] + (v[:, None] + trans[2:]).max(axis=0)
+        top = np.sort(v)[-2:]
+        out.append(dict(row=int(b), step=int(t),
+                        margin=float(top[1] - top[0])))
+    return out
+
+
+def _book_viterbi_on_cpu(paddle, books, main, scope, feed, exe):
+    """label_semantic_roles' Viterbi paths from the card's trained state
+    (``scope``) on ``feed``, on the card and on a CPUPlace executor over
+    a copy of the state: equal, or the run fails printing the margins of
+    the differing steps."""
+    fluid = paddle.fluid
+    test = main.clone(for_test=True)
+    (op,) = [o for o in test.global_block().ops if o.type == "crf_decoding"]
+    fetch = [books.decode_var(test), op.input("Emission")[0]]
+    card = exe.run(test, feed=feed, fetch_list=fetch, scope=scope)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=feed, fetch_list=fetch[:1],
+        scope=_clone_scope(scope, "cpu"))
+    where = np.argwhere(np.asarray(card[0]) != np.asarray(cpu[0]))
+    if len(where):
+        trans = scope.get(op.input("Transition")[0]).cpu().numpy()
+        margins = _viterbi_margins(card[1], trans, feed["length"],
+                                   where[:10])
+        raise AssertionError(f"book label_semantic_roles: Viterbi paths on "
+                             f"the card and the CPU differ at {len(where)} "
+                             f"steps; margins {margins}")
+    return dict(viterbi_steps=int(np.asarray(feed["length"]).sum()),
+                viterbi_paths_equal_cpu=True)
+
+
+def run_book(book, counters, books):
+    """One book of phase 27 (see the module docstring); returns its
+    readings."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fluid
+
+    what = f"book {book.name}"
+    t_book = time.perf_counter()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds_vars, loss, predict = book.build(paddle)
+        book.optimizer(paddle).minimize(loss)
+    feeds = books.train_feeds(book, paddle)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    init = _clone_scope(scope, "cpu")
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    per_step = {**_no_launches(counters), **book_step_launches(book.name)}
+    losses = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    torch.cuda.synchronize()
+    for i, feed in enumerate(feeds):
+        for m, exe in exes.items():  # in turns
+            before = _snap()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[m])
+            dt = time.perf_counter() - t0  # the fetch syncs
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            losses[m].append(float(lv))
+            if i:
+                secs[m].append(dt)
+    _gate_launches(what, launches, on_card, per_step, len(feeds), 1)
+    if not all(np.isfinite(losses["captured"])):
+        raise AssertionError(f"{what}: losses not finite: {losses}")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"{what}: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
+    off_card = sorted({n for sc in scopes.values() for n in sc.keys()
+                       if sc.get(n).device.type != "cuda"})
+    if off_card:
+        raise AssertionError(f"{what}: state off the card: {off_card[:5]}")
+    held = [e.graph for e in exes["captured"].compiled_for(main)]
+    if len(held) != 1 or None in held:
+        raise AssertionError(f"{what}: the captured executor holds {held}, "
+                             f"expected one graph")
+    book.check(losses["captured"])  # the book's own threshold
+
+    # the first steps against the CPU, from the card's startup state
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_losses = [float(cpu_exe.run(main, feed=f, fetch_list=[loss],
+                                    scope=init)[0])
+                  for f in feeds[:BOOK_PARITY_STEPS]]
+    card_losses = losses["captured"][:BOOK_PARITY_STEPS]
+    cpu_rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    if not max(cpu_rel) <= BOOK_CPU_RTOL:
+        raise AssertionError(f"{what}: card losses {card_losses} vs the "
+                             f"CPU's {cpu_losses}: relative {cpu_rel}, "
+                             f"over {BOOK_CPU_RTOL}")
+
+    # save -> load -> infer on the card
+    feed_names = book.feed_names or [v.name for v in feeds_vars]
+    infer_feed = {n: v for n, v in books.first_feed(book, paddle).items()
+                  if n in feed_names}
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        fluid.io.save_inference_model(d, feed_names, [predict],
+                                      exes["captured"], main_program=main,
+                                      scope=scope)
+        (expected,) = exes["captured"].run(
+            main.clone(for_test=True), feed=infer_feed,
+            fetch_list=[predict.name], scope=scope)
+        s2 = fluid.Scope()
+        exe2 = fluid.Executor(_gpu_place())
+        prog, fns, fetches = fluid.io.load_inference_model(d, exe2,
+                                                           scope=s2)
+        (got,) = exe2.run(prog, feed={n: infer_feed[n] for n in fns},
+                          fetch_list=[fetches[0].name], scope=s2)
+        exe2.close()
+    if set(fns) != set(feed_names) or not np.allclose(
+            np.asarray(got), np.asarray(expected), **BOOK_INFER_TOL):
+        raise AssertionError(
+            f"{what}: the reloaded inference model's prediction differs "
+            f"from clone(for_test=True) by "
+            f"{np.abs(np.asarray(got) - np.asarray(expected)).max()}")
+    if book.name == "label_semantic_roles":
+        out.update(_book_viterbi_on_cpu(
+            paddle, books, main, scope,
+            books.first_feed(book, paddle), exes["captured"]))
+    # one profiled step a mode, on the last batch (after the gates)
+    prof = {m: _profile(lambda: exe.run(main, feed=feeds[-1],
+                                        fetch_list=[loss],
+                                        scope=scopes[m]), 1)
+            for m, exe in exes.items()}
+    modes = {m: dict(**_ms_quantiles(v),
+                     examples_per_s=book.batch / float(np.median(v)),
+                     launch_api_calls=prof[m]["launch_api_calls"],
+                     device_busy_ms=prof[m]["device_busy_ms"],
+                     device_idle_share=prof[m].get("device_idle_share"),
+                     launches=launches[m], device_launches=on_card[m])
+             for m, v in secs.items()}
+    modes["captured"]["capture_s"] = _capture_seconds(exes["captured"],
+                                                      main)
+    _close(exes)
+    types = [op.type for op in main.global_block().ops]
+    out.update(
+        batch=book.batch, epochs=book.epochs, steps=len(feeds),
+        ops=len(types), flash_attention_ops=types.count("flash_attention"),
+        first_loss=losses["captured"][0], final_loss=losses["captured"][-1],
+        tail_loss_mean_5=float(np.mean(losses["captured"][-5:])),
+        threshold_met=True, captured_eager_bit_equal=True,
+        card_vs_cpu_losses=dict(card=card_losses, cpu=cpu_losses,
+                                max_rel=max(cpu_rel)),
+        infer_max_abs=float(np.abs(np.asarray(got)
+                                   - np.asarray(expected)).max()),
+        modes=modes, launches=_summed(launches),
+        device_launches=_summed(on_card),
+        seconds=time.perf_counter() - t_book)
+    return out
+
+
+def run_book_path(counters):
+    """Phase 27: every book of tests/torch_port_books.py in turn."""
+    books = _book_programs()
+    out = {}
+    for name, book in books.BOOKS.items():
+        with (graph_passes(book.graph_passes) if book.graph_passes
+              else contextlib.nullcontext()):
+            out[name] = run_book(book, counters, books)
+        torch.cuda.empty_cache()
+    return dict(books=out, captured_eager_bit_equal=True,
+                launches=_summed({n: b["launches"] for n, b in out.items()}),
+                device_launches=_summed({n: b["device_launches"]
+                                         for n, b in out.items()}))
+
+
+def book_summary(path):
+    """The phase's readings a book, one short row each."""
+    return {n: dict(captured_p50_ms=b["modes"]["captured"]["p50_ms"],
+                    captured_p95_ms=b["modes"]["captured"]["p95_ms"],
+                    eager_p50_ms=b["modes"]["eager"]["p50_ms"],
+                    eager_p95_ms=b["modes"]["eager"]["p95_ms"],
+                    examples_per_s_captured=b["modes"]["captured"][
+                        "examples_per_s"],
+                    launch_api_calls=[b["modes"][m]["launch_api_calls"]
+                                      for m in ("captured", "eager")],
+                    capture_s=b["modes"]["captured"]["capture_s"],
+                    final_loss=b["final_loss"],
+                    tail_loss_mean_5=b["tail_loss_mean_5"],
+                    seconds=b["seconds"])
+            for n, b in path["books"].items()}
+
+
 ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
                  "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -5730,8 +6003,9 @@ ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
 # "passes", "predictor" and "int8w" phases 14, 15 and 16 ("predictor"
 # with phase 3's fp32 K1 at its shape), "gpt" phase 3's K1-K4 checks
 # (GPT-2 small's shapes among them) and phases 17-18, "fleet" phase 19,
-# "fp32train" phase 20, "resnet" phases 21-22, "cnn" phase 23 and "nmt"
-# phase 3's K1-K3 at the NMT shapes and phases 24-26
+# "fp32train" phase 20, "resnet" phases 21-22, "cnn" phase 23, "nmt"
+# phase 3's K1-K3 at the NMT shapes and phases 24-26, and "book" phase
+# 3's K1-K3 at the Transformer book's shapes and phase 27
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -5753,9 +6027,11 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         "resnet": (ALL_LIBRARIES, ()),
         "cnn": (ALL_LIBRARIES, ()),
         # K1-K3 on phase 25's path, none on phase 24's: every library
-        "nmt": (ALL_LIBRARIES, ("check_flash_nmt",))}
+        "nmt": (ALL_LIBRARIES, ("check_flash_nmt",)),
+        # K1-K3 on the fused Transformer book, none on the others
+        "book": (ALL_LIBRARIES, ("check_flash_book",))}
 NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
-              "resnet", "cnn", "nmt")
+              "resnet", "cnn", "nmt", "book")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -5763,11 +6039,12 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 20, 14-19 and 21-26 (those of ``keys``, in that order);
+    """Phases 20, 14-19 and 21-27 (those of ``keys``, in that order);
     returns their path readings (None for a phase not run).  Phase 16's
     ids are compared with ``fp32_outs``, the fp32-weight lane's, where
     given (printed, not gated)."""
     ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = nmt = None
+    book = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -5849,7 +6126,13 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         torch.cuda.empty_cache()
     if "nmt" in keys:
         nmt = run_nmt_phases(wrappers, say, smi)
-    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt
+    if "book" in keys:
+        torch.cuda.empty_cache()
+        book = run_book_path(wrappers)
+        say("book path", {"card": smi, **book})
+        say("book summary", {"card": smi, **book_summary(book)})
+        torch.cuda.empty_cache()
+    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book
 
 
 def run_only(keys, dev, smi, say):
@@ -5894,14 +6177,16 @@ def main(argv=None):
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
-                    "gpt, fleet, fp32train, resnet, cnn, nmt): phases 1-3 "
+                    "gpt, fleet, fp32train, resnet, cnn, nmt, book): "
+                    "phases 1-3 "
                     "for those kernels alone (flash: with phase 2's flash "
                     "report; engine: phases 10-11; passes, predictor, "
                     "int8w: phases 14, 15, 16; gpt: K1-K4 and phases "
                     "17-18; fleet: phase 19; fp32train: phase 20; resnet: "
                     "phases 21-22; cnn: phase 23; nmt: K1-K3 at the NMT "
-                    "shapes and phases 24-26); the default runs every "
-                    "phase")
+                    "shapes and phases 24-26; book: K1-K3 at the "
+                    "Transformer book's shapes and phase 27); the default "
+                    "runs every phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5979,6 +6264,7 @@ def main(argv=None):
     k8g_err, k8g_t = check_fused_update_group(dev)
     k1p_err, k1p_t = check_flash_fp32_predictor(dev, rng)
     nmt_err, nmt_t = check_flash_nmt(dev, rng)
+    book_err, book_t = check_flash_book(dev, rng)
     torch.cuda.empty_cache()
     for k, timed in (("K5", k5_t), ("K7", k7_t)):
         for name, t in timed.items():
@@ -5992,7 +6278,7 @@ def main(argv=None):
         "ragged_attention_contract": k6c_t, "k4_bf16_loop_sass": k4_loop,
         "paged_attention_quant": k7_t, "fused_update": k8_t,
         "fused_update_group": k8g_t, "flash_fp32_predictor": k1p_t,
-        "flash_nmt": nmt_t,
+        "flash_nmt": nmt_t, "flash_book": book_t,
         "launch_floor_ms": launch_floor_ms(), "card": smi})
 
     wrappers = kernel_wrappers()
@@ -6049,8 +6335,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
-    ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt = run_new_phases(
-        wrappers, train_kernels, fp32_outs, smi, say)
+    (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt,
+     book) = run_new_phases(wrappers, train_kernels, fp32_outs, smi, say)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
@@ -6073,6 +6359,8 @@ def main(argv=None):
                      # phase 24 none; 25 K1-K3; 26 K1
                      **{p: nmt[p][key] for p in (
                          "nmt_train", "nmt_train_flash", "nmt_decode")},
+                     # phase 27: K1-K3 on the fused Transformer book
+                     "book": book[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}
@@ -6114,19 +6402,24 @@ def main(argv=None):
         return {**{n: fl_t[n][kern] for n in ("gpt3_6p7b", "fp32_d128",
                                               "fp32_path", "fp32_gpt")},
                 **{case[0]: nmt_t[case[0]][kern]
-                   for case in NMT_FLASH_CASES}}
+                   for case in NMT_FLASH_CASES},
+                **{case[0]: book_t[case[0]][kern]
+                   for case in BOOK_FLASH_CASES}}
 
     kernels = [
         row("flash_fwd", flash_src, f"{flash_py}:78",
-            max(fl_err["flash_fwd"], k1p_err, nmt_err["flash_fwd"]),
+            max(fl_err["flash_fwd"], k1p_err, nmt_err["flash_fwd"],
+                book_err["flash_fwd"]),
             fl_t["flash_fwd"],
             fl_t["gpt"]["flash_fwd"], k1p_t, flash_shapes("flash_fwd")),
         row("flash_bwd_dq", flash_src, f"{flash_py}:130",
-            max(fl_err["flash_bwd_dq"], nmt_err["flash_bwd_dq"]),
+            max(fl_err["flash_bwd_dq"], nmt_err["flash_bwd_dq"],
+                book_err["flash_bwd_dq"]),
             fl_t["flash_bwd_dq"],
             fl_t["gpt"]["flash_bwd_dq"], shapes=flash_shapes("flash_bwd_dq")),
         row("flash_bwd_dkv", flash_src, f"{flash_py}:167",
-            max(fl_err["flash_bwd_dkv"], nmt_err["flash_bwd_dkv"]),
+            max(fl_err["flash_bwd_dkv"], nmt_err["flash_bwd_dkv"],
+                book_err["flash_bwd_dkv"]),
             fl_t["flash_bwd_dkv"],
             fl_t["gpt"]["flash_bwd_dkv"],
             shapes=flash_shapes("flash_bwd_dkv")),

@@ -5,7 +5,12 @@ from .nn import *  # noqa: F401,F403
 from .nn import __all__ as _nn_all
 from .nn_tail2 import *  # noqa: F401,F403
 from .nn_tail2 import __all__ as _nn_tail2_all
+from .rnn import *  # noqa: F401,F403
+from .rnn import __all__ as _rnn_all
+from .structured import *  # noqa: F401,F403
+from .structured import __all__ as _structured_all
 from .tensor import *  # noqa: F401,F403
 from .tensor import __all__ as _tensor_all
 
-__all__ = ["data"] + list(_nn_all) + list(_nn_tail2_all) + list(_tensor_all)
+__all__ = (["data"] + list(_nn_all) + list(_nn_tail2_all) + list(_rnn_all)
+           + list(_structured_all) + list(_tensor_all))

@@ -1,7 +1,7 @@
-"""Layer functions the decode serving lane, BERT and GPT training and
-the image models and Transformer NMT build with (counterpart of
-``paddle_tpu/fluid/layers/nn.py``).  Each appends ops to the default
-main program through LayerHelper; nothing touches a
+"""Layer functions the decode serving lane, BERT and GPT training, the
+image models, Transformer NMT and the book programs build with
+(counterpart of ``paddle_tpu/fluid/layers/nn.py``).  Each appends ops
+to the default main program through LayerHelper; nothing touches a
 device until the executor runs the block.  Op types, slots and attrs
 are those of the JAX package, so both packages build the same
 program."""
@@ -30,6 +30,11 @@ __all__ = [
     "conv2d", "conv3d", "conv2d_transpose", "pool2d", "adaptive_pool2d",
     "batch_norm", "square_error_cost", "relu", "sigmoid", "tanh", "square",
     "flatten", "concat", "reduce_sum", "equal", "expand_as",
+    "expand", "squeeze", "unsqueeze", "l2_normalize", "cos_sim",
+    "sequence_conv", "sequence_pool", "sequence_softmax", "sequence_expand",
+    "sequence_reverse", "sequence_first_step", "sequence_last_step",
+    "sequence_mask", "sequence_unpad", "sequence_concat",
+    "sequence_expand_as", "sequence_slice", "sequence_enumerate",
 ]
 
 
@@ -719,17 +724,197 @@ def square_error_cost(input, label):
 
 
 def flatten(x, axis=1, name=None):
-    helper = LayerHelper("flatten2", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    xshape = helper.create_variable_for_type_inference(x.dtype,
-                                                       stop_gradient=True)
-    helper.append_op("flatten2", inputs={"X": [x]},
-                     outputs={"Out": [out], "XShape": [xshape]},
-                     attrs={"axis": axis})
-    return out
+    return _with_xshape("flatten2", x, {"axis": axis}, name)
 
 
 def concat(input, axis=0, name=None):
     helper = LayerHelper("concat", name=name)
     return _single_out_layer(helper, "concat", {"X": list(input)},
                              {"axis": axis})
+
+
+def _with_xshape(op_type, x, attrs, name):
+    """A reshaping op's ``Out``, with its ``XShape`` output beside it."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(op_type, inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs=attrs)
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _with_xshape("squeeze2", input, {"axes": list(axes)}, name)
+
+
+def unsqueeze(input, axes, name=None):
+    return _with_xshape("unsqueeze2", input, {"axes": list(axes)}, name)
+
+
+def expand(x, expand_times, name=None):
+    return _act_layer("expand", x, {"expand_times": list(expand_times)},
+                      name)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op("l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [B, 1], as the JAX package's layer
+    builds it: each side L2-normalized, then their ``dot``."""
+    xn = l2_normalize(X, axis=-1)
+    yn = l2_normalize(Y, axis=-1)
+    helper = LayerHelper("cos_sim")
+    return _single_out_layer(helper, "dot", {"X": [xn], "Y": [yn]})
+
+
+# ---------------------------------------------------------------------------
+# sequence layers: padded dense [B, T, D] with optional lengths [B]
+# (ops/sequence_ops.py)
+# ---------------------------------------------------------------------------
+
+
+def _seq_inputs(inputs, length):
+    if length is not None:
+        inputs["Length"] = [length]
+    return inputs
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=True, bias_attr=None, param_attr=None, act=None,
+                  name=None, length=None):
+    if filter_stride != 1:
+        raise ValueError(
+            "sequence_conv supports contextStride == 1 only (same "
+            "restriction as the reference sequence_conv_op.cc)")
+    helper = LayerHelper("sequence_conv", act=act, name=name,
+                         size=num_filters, bias_attr=bias_attr)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr,
+                                shape=[filter_size * d, num_filters],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("sequence_conv",
+                     inputs=_seq_inputs({"X": [input], "Filter": [w]},
+                                        length),
+                     outputs={"Out": [out]},
+                     attrs={"contextLength": filter_size,
+                            "contextStart": -((filter_size - 1) // 2),
+                            "contextStride": filter_stride})
+    out = helper.append_bias_op(out, dim_start=2)
+    return helper.append_activation(out)
+
+
+def sequence_pool(input, pool_type="average", is_test=False, length=None):
+    helper = LayerHelper("sequence_pool")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    max_index = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    helper.append_op("sequence_pool",
+                     inputs=_seq_inputs({"X": [input]}, length),
+                     outputs={"Out": [out], "MaxIndex": [max_index]},
+                     attrs={"pooltype": pool_type.upper()})
+    return out
+
+
+def sequence_softmax(input, use_cudnn=False, name=None, length=None):
+    helper = LayerHelper("sequence_softmax", name=name)
+    return _single_out_layer(helper, "sequence_softmax",
+                             _seq_inputs({"X": [input]}, length))
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    helper = LayerHelper("sequence_expand", name=name)
+    return _single_out_layer(helper, "sequence_expand",
+                             {"X": [x], "Y": [y]})
+
+
+def sequence_reverse(x, name=None, length=None):
+    helper = LayerHelper("sequence_reverse", name=name)
+    return _single_out_layer(helper, "sequence_reverse",
+                             _seq_inputs({"X": [x]}, length))
+
+
+def sequence_first_step(input, length=None):
+    return sequence_pool(input, pool_type="first", length=length)
+
+
+def sequence_last_step(input, length=None):
+    return sequence_pool(input, pool_type="last", length=length)
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    if maxlen is None:
+        # the reference's maxlen=None (the max of the lengths) is a
+        # data-dependent extent, which a fixed-shape program cannot hold
+        raise ValueError(
+            "sequence_mask requires an explicit maxlen: the reference's "
+            "maxlen=None (max of the lengths) is a data-dependent shape")
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    helper.append_op("sequence_mask", inputs={"X": [x]},
+                     outputs={"Y": [out]},
+                     attrs={"maxlen": int(maxlen), "out_dtype": dtype})
+    return out
+
+
+def sequence_unpad(x, length, name=None):
+    """The padding tail zeroed (the dense counterpart of
+    sequence_unpad)."""
+    helper = LayerHelper("sequence_unpad", name=name)
+    return _single_out_layer(helper, "sequence_unpad",
+                             {"X": [x], "Length": [length]})
+
+
+def sequence_concat(input, lengths=None, name=None):
+    """Row-wise concat of valid prefixes; ``lengths``: an optional list
+    matching ``input``.  Returns (out, out_lengths) when lengths are
+    given, else out."""
+    helper = LayerHelper("sequence_concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    out_len = helper.create_variable_for_type_inference("int32",
+                                                        stop_gradient=True)
+    inputs = {"X": list(input)}
+    if lengths is not None:
+        inputs["Length"] = list(lengths)
+    helper.append_op("sequence_concat", inputs=inputs,
+                     outputs={"Out": [out], "OutLength": [out_len]})
+    return (out, out_len) if lengths is not None else out
+
+
+def sequence_expand_as(x, y, name=None):
+    helper = LayerHelper("sequence_expand_as", name=name)
+    return _single_out_layer(helper, "sequence_expand_as",
+                             {"X": [x], "Y": [y]})
+
+
+def sequence_slice(input, offset, length, name=None):
+    """Per-row time window, left-aligned and zero-padded."""
+    helper = LayerHelper("sequence_slice", name=name)
+    return _single_out_layer(helper, "sequence_slice",
+                             {"X": [input], "Offset": [offset],
+                              "Length": [length]})
+
+
+def sequence_enumerate(input, win_size, pad_value=0, length=None,
+                       name=None):
+    """Sliding id windows [B, T] → [B, T, win]."""
+    helper = LayerHelper("sequence_enumerate", name=name)
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op("sequence_enumerate",
+                     inputs=_seq_inputs({"X": [input]}, length),
+                     outputs={"Out": [out]},
+                     attrs={"win_size": win_size, "pad_value": pad_value})
+    return out

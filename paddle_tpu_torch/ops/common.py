@@ -13,6 +13,37 @@ def np_dtype(name) -> torch.dtype:
     return torch_dtype(name)
 
 
+def mxu_dot(a, b, mm=torch.matmul):
+    """``mm(a, b)`` in the dtype of ``a``: one bf16 product when both are
+    bf16, else accumulated in fp32 (the JAX package's ``mxu_dot``)."""
+    if a.dtype == b.dtype:
+        return mm(a, b)
+    return mm(a.float(), b.float()).to(a.dtype)
+
+
+def length_mask(length, t):
+    """[B, T] bool mask of valid time positions from lengths [B]; None →
+    None.  The one home of the dense-sequence masking convention (the
+    sequence, recurrent and structured op families)."""
+    if length is None:
+        return None
+    return (torch.arange(t, device=length.device)[None, :]
+            < length.reshape(-1, 1))
+
+
+_ACT_ENUM = {0: "identity", 1: "sigmoid", 2: "tanh", 3: "relu"}
+
+
+def act_attr(val, default):
+    """An activation attr that may be a string or the reference's int
+    enum (gru_unit_op.cc ActType), as a canonical string name."""
+    if val is None:
+        return default
+    if isinstance(val, str):
+        return val
+    return _ACT_ENUM.get(int(val), default)
+
+
 def bcast_to(y, x, axis):
     """Fluid elementwise broadcast: Y's dims align with X's starting at
     `axis`; axis=-1 means right-aligned (numpy rules)."""

@@ -20,7 +20,7 @@ from paddle_tpu_torch.fluid.registry import (register_op, simple_op,
                                              wanted_grads)
 from paddle_tpu_torch.kernels.fused_bias_act import gelu_reference
 
-from .common import bcast_to, flatten_to_2d, rounded
+from .common import bcast_to, flatten_to_2d, mxu_dot, rounded
 
 
 def _ew(name, fn):
@@ -62,19 +62,11 @@ _cmp("greater_than", torch.gt)
 _cmp("greater_equal", torch.ge)
 
 
-def _product(a, b, mm=torch.matmul):
-    """``mm(a, b)`` in the dtype of ``a``: one bf16 product when both are
-    bf16, else accumulated in fp32 (the JAX package's ``mxu_dot``)."""
-    if a.dtype == b.dtype:
-        return mm(a, b)
-    return mm(a.float(), b.float()).to(a.dtype)
-
-
 @simple_op("mul", ["X", "Y"], ["Out"])
 def _mul(ctx, x, y, attrs):
     xd = attrs.get("x_num_col_dims", 1)
     yd = attrs.get("y_num_col_dims", 1)
-    out = _product(flatten_to_2d(x, xd), flatten_to_2d(y, yd))
+    out = mxu_dot(flatten_to_2d(x, xd), flatten_to_2d(y, yd))
     return out.reshape(tuple(x.shape[:xd]) + tuple(y.shape[yd:]))
 
 
@@ -90,9 +82,9 @@ def _mul_grad(ctx, x, y, dout, attrs):
     g = dout.reshape(x2.shape[0], y2.shape[1]).to(x.dtype)
     dx = dy = None
     if "X@GRAD" in want:
-        dx = _product(g, y2.t()).to(x.dtype).reshape(x.shape)
+        dx = mxu_dot(g, y2.t()).to(x.dtype).reshape(x.shape)
     if "Y@GRAD" in want:
-        dy = _product(x2.t(), g).to(y.dtype).reshape(y.shape)
+        dy = mxu_dot(x2.t(), g).to(y.dtype).reshape(y.shape)
     return dx, dy
 
 
@@ -102,7 +94,7 @@ def _fc(ctx, x, w, bias, attrs):
     makes of mul + elementwise_add [+ relu]: one product, then the
     bias along the last axis and the activation."""
     xd = attrs.get("in_num_col_dims", 1)
-    out = _product(flatten_to_2d(x, xd), w)
+    out = mxu_dot(flatten_to_2d(x, xd), w)
     out = out.reshape(tuple(x.shape[:xd]) + (w.shape[1],))
     if bias is not None:
         out = out + bias
@@ -129,7 +121,7 @@ def _matmul_operands(x, y, attrs):
 @simple_op("matmul", ["X", "Y"], ["Out"])
 def _matmul(ctx, x, y, attrs):
     a, b = _matmul_operands(x, y, attrs)
-    out = _product(a, b)
+    out = mxu_dot(a, b)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         out = out * rounded(alpha, out.dtype)
@@ -162,12 +154,12 @@ def _matmul_grad(ctx, x, y, dout, attrs):
                   + (a.shape[-2], b.shape[-1]))
     dx = dy = None
     if "X@GRAD" in want:
-        da = _unbroadcast(_product(g, b.transpose(-1, -2)), a.shape)
+        da = _unbroadcast(mxu_dot(g, b.transpose(-1, -2)), a.shape)
         if attrs.get("transpose_X", False):
             da = da.transpose(-1, -2)
         dx = da.reshape(x.shape).to(x.dtype)
     if "Y@GRAD" in want:
-        db = _unbroadcast(_product(a.transpose(-1, -2), g), b.shape)
+        db = _unbroadcast(mxu_dot(a.transpose(-1, -2), g), b.shape)
         if attrs.get("transpose_Y", False):
             db = db.transpose(-1, -2)
         dy = db.reshape(y.shape).to(y.dtype)
@@ -370,3 +362,22 @@ def _clip_by_norm(ctx, x, attrs):
     scaled = x * (torch.full_like(norm, mn)
                   / torch.clamp_min(norm, rounded(1e-12, x.dtype)))
     return torch.where(norm > mn, scaled, x)
+
+
+@simple_op("dot", ["X", "Y"], ["Out"])
+def _dot(ctx, x, y, attrs):
+    """Row-wise inner product over the last axis, kept as a size-1 dim."""
+    return (x * y).sum(dim=-1, keepdim=True)
+
+
+@simple_op("l2_normalize", ["X"], ["Out", "Norm"])
+def _l2_normalize(ctx, x, attrs):
+    """x over its L2 norm along ``axis`` (the norm floored at
+    ``epsilon``), and the norm."""
+    norm = torch.sqrt(torch.square(x).sum(dim=attrs.get("axis", -1),
+                                          keepdim=True))
+    return x / torch.clamp_min(norm, attrs.get("epsilon", 1e-12)), norm
+
+
+register_op("norm", ["X"], ["Out", "Norm"],
+            lambda ctx, x, attrs: _l2_normalize(ctx, x, attrs))

@@ -2,7 +2,7 @@
 of ``paddle_tpu/ops/tensor_ops.py``).  The grads of ``lookup_table``,
 ``gather``, ``reshape2``, ``transpose2``, ``flatten2``, ``concat`` and
 ``slice`` are derived by the registry (autograd through the forward
-lowering), and so is ``expand_as``'s."""
+lowering), and so are ``expand_as``'s, ``expand``'s and the squeezes'."""
 
 from __future__ import annotations
 
@@ -144,6 +144,45 @@ def _flatten2(ctx, x, attrs):
 @simple_op("flatten", ["X"], ["Out"])
 def _flatten(ctx, x, attrs):
     return _flatten2(ctx, x, attrs)[0]
+
+
+@simple_op("squeeze2", ["X"], ["Out", "XShape"])
+def _squeeze2(ctx, x, attrs):
+    """X without its size-1 dims ``axes`` (every size-1 dim when none
+    are given).  ``XShape`` is None, as in the JAX package."""
+    axes = attrs.get("axes", [])
+    if axes:
+        return x.squeeze(tuple(a % x.dim() for a in axes)), None
+    return x.squeeze(), None
+
+
+@simple_op("squeeze", ["X"], ["Out"])
+def _squeeze(ctx, x, attrs):
+    return _squeeze2(ctx, x, attrs)[0]
+
+
+@simple_op("unsqueeze2", ["X"], ["Out", "XShape"])
+def _unsqueeze2(ctx, x, attrs):
+    """X with a size-1 dim inserted at each of ``axes``, in ascending
+    order.  ``XShape`` is None, as in the JAX package."""
+    out = x
+    for a in sorted(attrs.get("axes", [])):
+        out = out.unsqueeze(a)
+    return out, None
+
+
+@simple_op("unsqueeze", ["X"], ["Out"])
+def _unsqueeze(ctx, x, attrs):
+    return _unsqueeze2(ctx, x, attrs)[0]
+
+
+@simple_op("expand", ["X"], ["Out"])
+def _expand(ctx, x, attrs):
+    """X tiled ``expand_times`` times along each dim (``jnp.tile``);
+    its derived grad sums the tiles.  Fewer times than dims tile the
+    trailing dims, as ``jnp.tile`` does."""
+    times = [int(t) for t in attrs.get("expand_times", [])]
+    return x.repeat([1] * (x.dim() - len(times)) + times)
 
 
 @simple_op("expand_as", ["X", "target_tensor"], ["Out"],

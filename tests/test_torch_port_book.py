@@ -1,0 +1,352 @@
+"""The book lane through the PyTorch port, against the JAX package, on
+the CPU.
+
+Programs (tests/torch_port_books.py, written once for both packages;
+each book's program, reader, optimizer, epochs and threshold are its
+tests/book/ script's): fit_a_line, recognize_digits (mlp, conv),
+image_classification (vgg, resnet), word2vec, ctr (local),
+understand_sentiment (conv, stacked LSTM), rnn_encoder_decoder,
+recommender_system, label_semantic_roles and the attention-fusion
+Transformer book.
+
+- Each is built in both packages under one ``unique_name.guard()`` (and
+  the Transformer's numpy seed): the op lists (types, slots, attrs)
+  after the graph passes are equal.  The JAX startup program runs, and
+  its values load into the port's scope by name
+  (``convert.load_params(..., program=...)``, which names a missing
+  persistable).  Then both take 5 steps on the reader's first 5
+  batches: the first loss within 1e-6 relative, all five within 1e-5
+  (the same fp32 math summed in another order, through 5 optimizer
+  steps).  The two books with batch norm (image_classification vgg and
+  resnet) are held within 5e-6 (first loss) and 2e-3 (all five): both
+  packages take the batch variance as E[x²] − E[x]², whose cancellation
+  magnifies the sums' order, and Adam turns the conv grads' differences
+  into steps of up to the learning rate.  The JAX package against
+  itself moves as far when only the batch's order is reversed: on the
+  CPU its vgg losses move by 1.1e-6 at the first step and 2.4e-4 at the
+  fourth (the port's gap: 1.0e-6 and 1.6e-4).
+- The port alone (its own startup program) trains each book to the
+  book's threshold, then the book harness's save → load → infer check
+  (a copy of tests/book/book_util.py, which imports the JAX package):
+  the reloaded inference model's prediction within rtol 2e-4, atol
+  2e-5 of the training program's ``clone(for_test=True)``.
+- label_semantic_roles: the trained tagger's Viterbi decode beats
+  chance (accuracy > 0.5), and the paths equal the JAX op's on the
+  port's emissions and transitions.
+- The Transformer book: ``fuse_attention`` fuses the 4 self-attention
+  sites (2 with a key bias, 2 causal) and rejects the 2
+  cross-attention sites; at dropout 0.1 nothing fuses; the fused
+  script trains and tracks the unfused run (rtol 1e-4, atol 1e-5, the
+  book's own).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as jpaddle
+import paddle_tpu_torch as tpaddle
+from paddle_tpu_torch import convert
+from paddle_tpu_torch.passes.framework import PassContext, PassManager
+
+import torch_port_books as books
+
+FIRST_RTOL, LOSS_RTOL, PARITY_STEPS = 1e-6, 1e-5, 5
+# the books with batch norm: (first loss, all five), see the docstring
+BN_RTOL = {"image_classification_vgg": (5e-6, 2e-3),
+           "image_classification_resnet": (5e-6, 2e-3)}
+INFER_RTOL, INFER_ATOL = 2e-4, 2e-5
+NAMES = sorted(books.BOOKS)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test runs PyTorch's CPU ops on one thread: the suite runs
+    several test processes at once, and their small ops slow down many
+    times over when every process spreads them over every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _op_list(program):
+    def attr(v):
+        if isinstance(v, np.generic):
+            return v.item()
+        return list(v) if isinstance(v, tuple) else v
+
+    return [(op.type, op.inputs, op.outputs,
+             {k: attr(v) for k, v in sorted(op.attrs.items())})
+            for op in program.global_block().ops]
+
+
+class _Passes:
+    """FLAGS_graph_passes set to ``spec`` in both packages."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+    def __enter__(self):
+        self.old = [p.fluid.get_flags("FLAGS_graph_passes")
+                    for p in (jpaddle, tpaddle)]
+        if self.spec is not None:
+            for p in (jpaddle, tpaddle):
+                p.fluid.set_flags({"FLAGS_graph_passes": self.spec})
+
+    def __exit__(self, *exc):
+        for p, old in zip((jpaddle, tpaddle), self.old):
+            p.fluid.set_flags(old)
+
+
+def _build(paddle, book):
+    fluid = paddle.fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, loss, predict = book.build(paddle)
+        book.optimizer(paddle).minimize(loss)
+    return main, startup, feeds, loss, predict
+
+
+# ---------------------------------------------------------------------------
+# the book harness (tests/book/book_util.py), on the port
+# ---------------------------------------------------------------------------
+
+
+def train_save_load_infer(book, tmp_path, return_scope=False):
+    """Train ``book`` through the port on the CPU, assert its threshold,
+    save its inference model, reload it in a fresh scope and hold its
+    prediction against the training program's ``clone(for_test=True)``
+    on the reader's first batch."""
+    fluid = tpaddle.fluid
+    main, startup, feeds, loss, predict = _build(tpaddle, book)
+    scope = fluid.Scope()
+    losses = []
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    for feed in books.train_feeds(book, tpaddle):
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss.name],
+                        scope=scope)
+        losses.append(float(np.asarray(lv)))
+    book.check(losses)
+
+    feed_names = book.feed_names or [f.name for f in feeds]
+    d = str(tmp_path / "model")
+    fluid.io.save_inference_model(d, feed_names, [predict], exe,
+                                  main_program=main, scope=scope)
+    infer_feed = {n: v for n, v in books.first_feed(book, tpaddle).items()
+                  if n in feed_names}
+    (expected,) = exe.run(main.clone(for_test=True), feed=infer_feed,
+                          fetch_list=[predict.name], scope=scope)
+    s2 = fluid.Scope()
+    exe2 = fluid.Executor(fluid.CPUPlace())
+    prog, fns, fetches = fluid.io.load_inference_model(d, exe2, scope=s2)
+    assert set(fns) == set(feed_names)
+    (got,) = exe2.run(prog, feed={n: infer_feed[n] for n in fns},
+                      fetch_list=[fetches[0].name], scope=s2)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
+                               rtol=INFER_RTOL, atol=INFER_ATOL)
+    if return_scope:
+        return losses, scope, main
+    return losses
+
+
+# ---------------------------------------------------------------------------
+# the first steps against the JAX package, from one start
+# ---------------------------------------------------------------------------
+
+
+def _first_losses_both(book):
+    jfluid, tfluid = jpaddle.fluid, tpaddle.fluid
+    with _Passes(book.graph_passes):
+        jmain, jstart, _, jloss, _ = _build(jpaddle, book)
+        tmain, tstart, _, tloss, _ = _build(tpaddle, book)
+        jscope = jfluid.Scope()
+        jexe = jfluid.Executor(jfluid.CPUPlace())
+        jexe.run(jstart, scope=jscope)
+        init = {}
+        for op in jstart.global_block().ops:
+            for n in op.output_arg_names:
+                v = jstart.global_block().vars.get(n)
+                if v is not None and v.persistable:
+                    init[n] = np.asarray(jscope.get(n))
+        tscope = tfluid.Scope()
+        texe = tfluid.Executor(tfluid.CPUPlace())
+        texe.run(tstart, scope=tscope)
+        convert.load_params(tscope, init, tfluid.CPUPlace(), program=tmain)
+        feeds = books.train_feeds(book, tpaddle)[:PARITY_STEPS]
+        jl, tl = [], []
+        for f in feeds:
+            jl.append(float(np.asarray(jexe.run(
+                jmain, feed=f, fetch_list=[jloss.name], scope=jscope)[0])))
+            tl.append(float(np.asarray(texe.run(
+                tmain, feed=f, fetch_list=[tloss.name], scope=tscope)[0])))
+    return jmain, tmain, np.asarray(jl), np.asarray(tl)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_book_first_losses_match_jax(name):
+    jmain, tmain, jl, tl = _first_losses_both(books.BOOKS[name])
+    assert _op_list(tmain) == _op_list(jmain)
+    assert np.all(np.isfinite(tl))
+    first, all_five = BN_RTOL.get(name, (FIRST_RTOL, LOSS_RTOL))
+    np.testing.assert_allclose(tl[0], jl[0], rtol=first, atol=0)
+    np.testing.assert_allclose(tl, jl, rtol=all_five, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the port alone, to each book's threshold
+# ---------------------------------------------------------------------------
+
+_SRL = {}
+
+
+@pytest.mark.parametrize("name", [n for n in NAMES if n not in (
+    "label_semantic_roles", "transformer_fusion")])
+def test_book_trains_to_threshold(name, tmp_path):
+    book = books.BOOKS[name]
+    with _Passes(book.graph_passes):
+        train_save_load_infer(book, tmp_path)
+
+
+def _srl_trained(tmp_path):
+    if not _SRL:
+        losses, scope, main = train_save_load_infer(
+            books.BOOKS["label_semantic_roles"], tmp_path,
+            return_scope=True)
+        _SRL.update(losses=losses, scope=scope, main=main)
+    return _SRL
+
+
+def test_label_semantic_roles_trains_to_threshold(tmp_path):
+    losses = _srl_trained(tmp_path)["losses"]
+    assert losses[0] > 10.0
+
+
+def test_srl_crf_decode_accuracy(tmp_path):
+    """The trained tagger's Viterbi decode beats chance comfortably, and
+    its paths equal the JAX op's on the same emissions and
+    transitions."""
+    import jax.numpy as jnp
+
+    import paddle_tpu.ops  # noqa: F401  (registers the JAX lowerings)
+    from paddle_tpu.fluid import registry as jreg
+
+    t = _srl_trained(tmp_path)
+    book = books.BOOKS["label_semantic_roles"]
+    feed = books.first_feed(book, tpaddle)
+    fluid = tpaddle.fluid
+    test_prog = t["main"].clone(for_test=True)
+    (op,) = [o for o in test_prog.global_block().ops
+             if o.type == "crf_decoding"]
+    emission = op.input("Emission")[0]
+    exe = fluid.Executor(fluid.CPUPlace())
+    path, em = exe.run(test_prog, feed=feed,
+                       fetch_list=[books.decode_var(test_prog), emission],
+                       scope=t["scope"])
+    mask = np.arange(books.SRL_MAXLEN)[None, :] < feed["length"][:, None]
+    acc = (np.asarray(path) == feed["label"])[mask].mean()
+    assert acc > 0.5, acc  # chance = 1/N_LABELS = 0.1
+    trans = t["scope"].get("crfw").numpy()
+    ctx = jreg.LowerContext(step=0)
+    want = jreg.get_op("crf_decoding").lower(
+        ctx, jnp.asarray(np.asarray(em)), jnp.asarray(trans), None,
+        jnp.asarray(feed["length"].astype(np.int32)), attrs={})
+    np.testing.assert_array_equal(np.asarray(path), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the attention-fusion Transformer book
+# ---------------------------------------------------------------------------
+
+
+def _types(program):
+    return [op.type for op in program.global_block().ops]
+
+
+def test_fuse_attention_fires_on_transformer_book_spelling():
+    """tiny: 2 encoder layers (biased self-attention) and 2 decoder
+    layers (causal self-attention and cross-attention): the 4
+    self-attention sites fuse, 2 with a key bias and 2 causal, and the
+    2 cross-attention sites keep the composed path."""
+    cfg, main, _, _ = books.transformer_build(tpaddle)
+    before = _types(main)
+    rep = PassManager(["fuse_attention"]).run(main, PassContext(),
+                                              selfcheck=True)
+    e = rep[-1]
+    assert e["changed"]
+    assert e["sites"] == cfg.num_encoder_layers + cfg.num_decoder_layers
+    assert e["causal_sites"] == cfg.num_decoder_layers
+    assert e["bias_sites"] == cfg.num_encoder_layers
+    after = _types(main)
+    assert after.count("flash_attention") == 4
+    assert after.count("flash_attention_grad") == 4
+    assert "softmax_mask_fuse_upper_triangle" not in after
+    causal = [op.attrs["causal"] for op in main.global_block().ops
+              if op.type == "flash_attention"]
+    assert sorted(causal) == [False, False, True, True]
+    assert after.count("softmax") == cfg.num_decoder_layers
+    assert after.count("softmax") == before.count("softmax") - 2
+
+
+def test_transformer_attention_dropout_keeps_composed_path():
+    """At the book's default dropout 0.1 the attention dropout cannot be
+    expressed in the kernel, so nothing fuses."""
+    _, main, _, _ = books.transformer_build(tpaddle, dropout=0.1)
+    rep = PassManager(["fuse_attention"]).run(main, PassContext())
+    assert rep[-1]["changed"] is False
+    assert "flash_attention" not in _types(main)
+
+
+def test_fused_transformer_book_script_trains():
+    """The fused program trains the teacher-forced book script, and its
+    losses track the unfused run's within the book's fp32 fusion
+    tolerance."""
+    fluid = tpaddle.fluid
+    feed = books.transformer_feed(tpaddle)
+
+    def run(spec):
+        with _Passes(spec):
+            _, main, startup, loss = books.transformer_build(tpaddle)
+            scope = fluid.Scope()
+            exe = fluid.Executor(fluid.CPUPlace())
+            exe.run(startup, scope=scope)
+            out = [float(np.asarray(exe.run(
+                main, feed=feed, fetch_list=[loss.name], scope=scope)[0]))
+                for _ in range(books.TF_STEPS)]
+        assert ("flash_attention" in _types(main)) == (spec != "none")
+        return out
+
+    unfused = run("none")
+    fused = run("fuse_attention")
+    np.testing.assert_allclose(fused, unfused, rtol=1e-4, atol=1e-5)
+    assert fused[-1] < fused[0]
+
+
+def test_transformer_book_inference_model_reloads(tmp_path):
+    """The fused book program's inference model (its cost over the
+    fixed batch) saved, reloaded in a fresh scope and run: equal to the
+    training program's ``clone(for_test=True)``."""
+    fluid = tpaddle.fluid
+    feed = books.transformer_feed(tpaddle)
+    with _Passes("fuse_attention"):
+        _, main, startup, loss = books.transformer_build(tpaddle)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup, scope=scope)
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss.name], scope=scope)
+        d = str(tmp_path / "model")
+        fluid.io.save_inference_model(d, sorted(feed), [loss], exe,
+                                      main_program=main, scope=scope)
+        (expected,) = exe.run(main.clone(for_test=True), feed=feed,
+                              fetch_list=[loss.name], scope=scope)
+        s2 = fluid.Scope()
+        prog, fns, fetches = fluid.io.load_inference_model(
+            d, fluid.Executor(fluid.CPUPlace()), scope=s2)
+        (got,) = fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed={n: feed[n] for n in fns},
+            fetch_list=[fetches[0].name], scope=s2)
+    assert "flash_attention" in _types(prog)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
+                               rtol=INFER_RTOL, atol=INFER_ATOL)

@@ -2227,3 +2227,106 @@ def test_executor_sets_cudnn_precision_and_determinism(dev):
                                       padding=1).numpy()
     # fp32 accumulation over 576 terms of O(1): far below TF32's 2^-11
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,causal,pads", [
+    (12, False, True),   # the encoder's self-attention with the key bias
+    (10, True, False),   # the decoder's causal self-attention
+], ids=["enc_s12", "dec_s10"])
+def test_flash_kernels_book_shapes_match_plain(dev, s, causal, pads):
+    """fp32 K1-K3 (split TF32) at the attention-fusion Transformer book's
+    shapes, TransformerConfig.tiny's [8, 4, S, 16], with its key bias
+    (-1e9 past each sentence's seeded length): against the plain
+    versions within the fp32 2e-5, finite."""
+    b, h, d = 8, 4, 16
+    q, k, v, do, _ = _flash_case(dev, b, h, s, d, torch.float32, True,
+                                 seed=5)
+    bias = torch.zeros(b, s)
+    if pads:
+        for i, ln in enumerate(np.random.RandomState(6).randint(1, s + 1,
+                                                                b)):
+            bias[i, ln:] = -1e9
+    rows = bias.repeat_interleave(h, dim=0).to(dev)
+    scale = d ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, rows, causal, scale)
+    o_ref, lse_ref = flash.flash_fwd(q, k, v, rows, causal, scale,
+                                     force="reference")
+    delta = (do.float() * o_ref.float()).sum(-1).reshape(b * h, s)
+    args = (q, k, v, rows, do, lse_ref.reshape(b * h, s), delta, causal,
+            scale)
+    dq = flash.flash_bwd_dq(*args)
+    dk, dv, db = flash.flash_bwd_dkv(*args)
+    dq_ref = flash.flash_bwd_dq(*args, force="reference")
+    dk_ref, dv_ref, db_ref = flash.flash_bwd_dkv(*args, force="reference")
+    torch.cuda.synchronize()
+    for t in (o, lse, dq, dk, dv, db):
+        assert torch.isfinite(t).all()
+    tol = FLASH_TOL[torch.float32]
+    for got, want in ((o, o_ref), (lse, lse_ref), (dq, dq_ref),
+                      (dk, dk_ref), (dv, dv_ref)):
+        torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(db, db_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["understand_sentiment_stacked_lstm",
+                                  "label_semantic_roles"])
+def test_book_train_steps_on_card_match_cpu(dev, name):
+    """A book with a recurrence (the stacked LSTM) and the CRF book, at
+    their own sizes: 3 steps on the card from its startup state, captured
+    and eager in turns (bit-equal), against a CPUPlace run of the port
+    from the same state (losses within 1e-4 relative); for the CRF book
+    the Viterbi paths of the card's state on the first batch equal the
+    CPU's."""
+    import os
+    import sys
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import fluid
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_port_books as books
+
+    book = books.BOOKS[name]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _ = book.build(paddle)
+        book.optimizer(paddle).minimize(loss)
+    feeds = books.train_feeds(book, paddle)[:3]
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+
+    def copy(sc, device):
+        out = fluid.Scope()
+        for n in sc.keys():
+            out.set(n, sc.get(n).detach().to(device).clone())
+        return out
+
+    cpu_scope, eager_scope = copy(scope, "cpu"), copy(scope, dev)
+    old = fluid.get_flags("FLAGS_cuda_graph_capture")
+    fluid.set_flags({"FLAGS_cuda_graph_capture": False})
+    try:
+        eager = fluid.Executor(fluid.CUDAPlace(0))
+    finally:
+        fluid.set_flags(old)
+    captured = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    got, got_eager, want = [], [], []
+    for f in feeds:
+        got.append(float(captured.run(main, feed=f, fetch_list=[loss],
+                                      scope=scope)[0]))
+        got_eager.append(float(eager.run(main, feed=f, fetch_list=[loss],
+                                         scope=eager_scope)[0]))
+        want.append(float(cpu.run(main, feed=f, fetch_list=[loss],
+                                  scope=cpu_scope)[0]))
+    assert got == got_eager
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    if name == "label_semantic_roles":
+        test = main.clone(for_test=True)
+        feed = books.first_feed(book, paddle)
+        path = books.decode_var(test)
+        (on_card,) = captured.run(test, feed=feed, fetch_list=[path],
+                                  scope=scope)
+        (on_cpu,) = cpu.run(test, feed=feed, fetch_list=[path],
+                            scope=copy(scope, "cpu"))
+        np.testing.assert_array_equal(np.asarray(on_card),
+                                      np.asarray(on_cpu))

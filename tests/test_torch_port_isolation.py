@@ -25,6 +25,8 @@ mods = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # the GPU smoke script: module level only
+sys.path.insert(0, "tests")
+import torch_port_books  # noqa: F401  (the book programs of phase 27)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print(json.dumps({"modules": mods, "bad": bad}))
@@ -49,7 +51,15 @@ def test_fresh_interpreter_imports_no_jax():
                 "serving.frontend", "serving.drill",
                 "distributed.resilience", "distributed.fault_injection",
                 "distributed.elastic", "models.transformer",
-                "ops.nn_extra_ops", "fluid.layers.nn_tail2"):
+                "ops.nn_extra_ops", "fluid.layers.nn_tail2", "reader",
+                "dataset", "dataset.common", "dataset.cifar",
+                "dataset.conll05", "dataset.flowers", "dataset.image",
+                "dataset.imdb", "dataset.imikolov", "dataset.mnist",
+                "dataset.movielens", "dataset.mq2007", "dataset.sentiment",
+                "dataset.uci_housing", "dataset.voc2012", "dataset.wmt14",
+                "dataset.wmt16", "ops.sequence_ops", "ops.rnn_ops",
+                "ops.compat_ops", "ops.structured_ops", "fluid.layers.rnn",
+                "fluid.layers.structured"):
         assert f"paddle_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
