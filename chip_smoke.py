@@ -183,22 +183,29 @@ Phases, each fatal on failure:
      live replicas) with the warm model's scores; the HTTP p50 / p99 a
      request (reqtrace), tokens/s through the frontend against the
      one-replica direct generate, and one lone request direct and over
-     HTTP.  (2) The failover drill (serving/drill.py) through the
+     HTTP.  (2) Canary weight promotion (serving/promote.py,
+     drill.promotion_drill) over the two replicas: clean under
+     background traffic (promoted, the group converged, every request
+     answered, no executor-cache miss) and a planted probe error
+     (serve_error:replica0) rolled back (the canary's values restored
+     bit for bit, no miss); its seconds and K4/K5 launches (exact: a
+     layer a program run); then the checkpoint's weights applied back to
+     both.  (3) The failover drill (serving/drill.py) through the
      frontend: replica_kill:replica0 a few decode steps into a loaded
      run; every stream token-exact, failovers and recovery seconds
      booked, no executor-cache miss, the availability SLO's page alert
      fired and cleared, and a failed-over request's trace holds its
-     root, serve:replica0 in error and serve:replica1 ok.  (3) The
+     root, serve:replica0 in error and serve:replica1 ok.  (4) The
      hedge drill: two Engines of a small MLP, one slow; the hedge wins
-     and every loser is cancelled.  (4) Phase 10's waves as POST
+     and every loser is cancelled.  (5) Phase 10's waves as POST
      /v1/infer: scores bit-equal to a direct Engine submit of the same
-     feeds.  (5) /healthz, /routerz (the frontend), /servez, /metricsz
+     feeds.  (6) /healthz, /routerz (the frontend), /servez, /metricsz
      and /tracez (an exposition server) answer 200 with the JAX
-     package's top-level keys.  (6) SIGTERM lands in a child process
+     package's top-level keys.  (7) SIGTERM lands in a child process
      (one replica behind a Frontend with install_drain) mid-request:
      the client gets its complete tokens, equal to the child's
      one-replica generate, /healthz answers 503 while draining, and the
-     child exits 0 or by SIGTERM.  (7) On the card, K4 and K5 launch
+     child exits 0 or by SIGTERM.  (8) On the card, K4 and K5 launch
      exactly 12 x the program runs of both replicas (warmups
      included), K6 4 x the Engine's batches, K7 never.
  20. fp32 train path: phase 4 without the bf16 policy (Fluid's default
@@ -313,6 +320,29 @@ Phases, each fatal on failure:
      Transformer book's fp32 shapes ([32, 12, 16] with the key bias,
      causal [32, 10, 16]) against their plain versions, timed against
      their bounds and SDPA.
+ 28. health path: phase 4's BERT-base b128 s128 bf16 Adam step with
+     FLAGS_health_sentinel on (health/: the finite check before the
+     optimizer ops, the in-step gate, the host's response), the captured
+     and the eager executor in turns from one state, a new pair an arm.
+     (1) skip, nan:grad:step:3 over 6 steps: found_inf 1 on step 3 only,
+     every persistable but the @HEALTH@ ones bit-unchanged across step
+     3, the later losses finite, bad_steps_total 1, captured = eager bit
+     for bit, and the flight recorder's postmortem (reason health) holds
+     a health record with detect grad and the step records.  (2)
+     rollback: the injected run (7 program runs: the replay at the same
+     step) bit-equal to the same program with its countdown disarmed,
+     losses and state, in both modes.  (3) raise: RuntimeError naming
+     step 3.  (4) dynamic loss scaling (its own program): the scale
+     65536 until step 3, halved on it and held after.  (5) card against
+     CPU: 2 layers at full width, fp32, dropout 0, the fault on step 2
+     of 3: losses within 1e-4, found_inf [0, 1, 0] on both, the skipped
+     step's state bit-unchanged on both.  (6) captured step p50 / p95
+     with the sentinel off and on (skip, nothing planted), 20 steps each
+     in turns, and each one's launch API calls, busy and idle (one
+     profiled step).  (7) /profilez over a real scrape: 200 with the JAX
+     package's keys.  Every program run, replays included, launches K1
+     24, K2 12, K3 12, K4 13 on the card (gated run by run); the
+     wrappers see each eager run and each capture's warm-up and capture.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -326,8 +356,9 @@ phases 14, 15 and 16 (``predictor`` with phase 3's fp32 K1 at its
 shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18,
 ``--only fleet`` phase 19, ``--only fp32train`` phase 20, ``--only
 resnet`` phases 21-22, ``--only cnn`` phase 23, ``--only nmt`` phase
-3's K1-K3 at the NMT shapes and phases 24-26, and ``--only book`` phase
-3's K1-K3 at the Transformer book's shapes and phase 27.
+3's K1-K3 at the NMT shapes and phases 24-26, ``--only book`` phase
+3's K1-K3 at the Transformer book's shapes and phase 27, and ``--only
+health`` phase 28.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -2937,13 +2968,18 @@ def lane_paged_bound(cfg, scope, prompts, pool_dtype):
                 bound_ms=_bound(byts, 0)[0])
 
 
+# the paged kernel's whole-lane runs, one split (True) and split (False)
+# in turns: two runs, which keeps the whole script inside its time
+LANE_ORDER = (True, False)
+
+
 def lane_in_turns(cfg, scope, prompts, outs, pool_dtype="float32"):
     """The paged kernel (K5, or K7 over the int8 pool) over the whole
-    decode lane, captured, one split and split in turns (one, split,
-    split, one): summed device ms of the paged kernels a run, whether
-    each run's ids equal the main path's, and the lane-wide bound."""
+    decode lane, captured, one split and split in turns (LANE_ORDER):
+    summed device ms of the paged kernels a run, whether each run's ids
+    equal the main path's, and the lane-wide bound."""
     runs = []
-    for one in (True, False, False, True):
+    for one in LANE_ORDER:
         r, got = profile_lane_paged(cfg, scope, prompts, pool_dtype,
                                     one_split=one)
         r["ids_equal_main_path"] = got == outs
@@ -2952,10 +2988,11 @@ def lane_in_turns(cfg, scope, prompts, outs, pool_dtype="float32"):
         raise AssertionError(f"{pool_dtype} lane in turns: ids differ from "
                              f"the main path's: {runs}")
 
-    def mean(rs):
+    def mean(one):
+        rs = [r for r in runs if r["one_split"] == one]
         return sum(r["paged_device_ms"] for r in rs) / len(rs)
 
-    return dict(split_ms=mean(runs[1:3]), one_split_ms=mean(runs[::3]),
+    return dict(split_ms=mean(False), one_split_ms=mean(True),
                 runs=runs, bound=lane_paged_bound(cfg, scope, prompts,
                                                   pool_dtype))
 
@@ -4218,7 +4255,7 @@ def _generate_quantiles(reqtrace, n):
 
 
 def run_fleet_child():
-    """Step 6 of phase 19: the SIGTERM drill in a child process."""
+    """Step 7 of phase 19: the SIGTERM drill in a child process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here
@@ -4257,7 +4294,7 @@ def run_fleet_path(counters):
     from paddle_tpu_torch import fluid, serving
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.observability import exposition, reqtrace
-    from paddle_tpu_torch.serving import drill
+    from paddle_tpu_torch.serving import drill, promote
 
     t_phase = time.perf_counter()
     place = _gpu_place()
@@ -4380,7 +4417,48 @@ def run_fleet_path(counters):
             cold_capture_beside_live_decode=dict(
                 live_sequences=live, scores_equal_warm_model=True))
 
-        # step 2: the failover drill through the frontend
+        # step 2: canary weight promotion over the two replicas
+        # (serving/promote.py): clean under background traffic, then a
+        # planted regression rolled back; then the checkpoint's own
+        # weights back on both, so the failover drill's baseline holds
+        names = [p.name for p in main.all_parameters()]
+        saved = promote.capture_weights(scope0, names)
+
+        def program_runs():
+            return sum(r.stats()["prefill_chunks"] + r.stats()["steps"]
+                       for r in reps)
+
+        runs0, p_before = program_runs(), _snap()
+        promo = {}
+        for mode in ("clean", "regress"):
+            promo[mode] = drill.promotion_drill(
+                regress=mode == "regress", engines=[r0, r1],
+                timeout_s=900)
+            if not promo[mode]["ok"]:
+                raise AssertionError(f"fleet promotion drill ({mode}): "
+                                     f"{promo[mode]}")
+        for r in reps:
+            with r._exec_lock:
+                saved.apply(r.scope)
+        if not all(torch.equal(r.scope.get(n), saved.arrays[n])
+                   for r in reps for n in names):
+            raise AssertionError("fleet: the checkpoint's weights did not "
+                                 "come back")
+        _, p_dev = _since(p_before, counters)
+        p_runs = program_runs() - runs0
+        want_p = {"fused_bias_act": cfg.num_layers * p_runs,
+                  "paged_attention": cfg.num_layers * p_runs,
+                  "ragged_attention": 0, "paged_attention_quant": 0}
+        if p_dev != want_p:
+            raise AssertionError(f"fleet promotion: {p_dev} on the card, "
+                                 f"expected {want_p}")
+        out["promotion"] = dict(
+            clean=promo["clean"], regress=promo["regress"],
+            promote_s={m: promo[m]["promote_s"] for m in promo},
+            weights=len(names), program_runs=p_runs,
+            device_launches=p_dev)
+
+        # step 3: the failover drill through the frontend
         fail = drill.failover_drill(
             engines=[r0, r1], prompts=prompts,
             max_new_tokens=FLEET_NEW_TOKENS, kill_after=FLEET_KILL_AFTER,
@@ -4396,14 +4474,14 @@ def run_fleet_path(counters):
         trace["spans"] = [sp for sp in trace["spans"] if sp[0] != "batch"]
         out["failover"] = fail
 
-        # step 3: the hedge drill (two Engines of a small MLP, one slow)
+        # step 4: the hedge drill (two Engines of a small MLP, one slow)
         hedge = drill.hedge_drill(n_requests=FLEET_HEDGE_REQUESTS,
                                   place=place)
         if not hedge["ok"]:
             raise AssertionError(f"fleet hedge drill: {hedge}")
         out["hedge"] = hedge
 
-        # step 4: phase 10's waves over /v1/infer against a direct infer
+        # step 5: phase 10's waves over /v1/infer against a direct infer
         def direct_wave(feeds):
             fs = [eng.submit("scorer", f) for f in feeds]
             return [f.result(timeout=300)[fetch] for f in fs]
@@ -4425,7 +4503,7 @@ def run_fleet_path(counters):
                             requests=sum(len(w) for w in waves),
                             wall_s=infer_s, scores_bit_equal=True)
 
-        # step 5: the pages
+        # step 6: the pages
         got = {}
         for path, url in (("/healthz", base), ("/routerz", base),
                           ("/servez", f"http://127.0.0.1:{pages.port}"),
@@ -4464,10 +4542,10 @@ def run_fleet_path(counters):
     runs = {r.name: r.stats()["prefill_chunks"] + r.stats()["steps"] + 2
             for r in reps}
 
-    # step 6: SIGTERM in a child process
+    # step 7: SIGTERM in a child process
     out["sigterm_child"] = run_fleet_child()
 
-    # step 7: launches, by the wrappers and by the card
+    # step 8: launches, by the wrappers and by the card
     k6_batches = sum(stats_engine[m]["batches"]
                      + stats_engine[m]["warmup_batches"]
                      for m in ("scorer", "scorer_cold"))
@@ -5994,6 +6072,405 @@ def book_summary(path):
             for n, b in path["books"].items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the health sentinel on the BERT-base train step
+# ---------------------------------------------------------------------------
+
+HEALTH_STEPS = 6
+HEALTH_BAD_STEP = 3
+HEALTH_FAULT = f"nan:grad:step:{HEALTH_BAD_STEP}"
+HEALTH_TIMED_STEPS = 20  # a program, sentinel off and on in turns
+HEALTH_PARITY_STEPS = 3  # card vs CPU, the fault on step 2
+# /profilez's top-level keys in the JAX package
+# (paddle_tpu/observability/profiling.py profilez_payload)
+PROFILEZ_KEYS = ["device", "feed", "flight_recorder", "phase_seconds",
+                 "signatures"]
+
+
+@contextlib.contextmanager
+def health_flags(action="skip", fault=HEALTH_FAULT, **flags):
+    """FLAGS_health_sentinel on with ``action`` (and ``flags``) and the
+    FaultPlan ``fault`` installed: a program's first run under them
+    inserts the sentinel and plants the fault.  Restored after."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fault_injection
+
+    names = ["FLAGS_health_sentinel", "FLAGS_health_action",
+             *flags]
+    old = fluid.get_flags(names)
+    fluid.set_flags({"FLAGS_health_sentinel": True,
+                     "FLAGS_health_action": action, **flags})
+    if fault:
+        fault_injection.install(fault)
+    else:
+        fault_injection.uninstall()
+    try:
+        yield
+    finally:
+        fluid.set_flags(old)
+        fault_injection.uninstall()
+
+
+def _state_names(main, scope):
+    """The persistables the sentinel guards: every one but its own."""
+    return [n for n, v in main.global_block().vars.items()
+            if v.persistable and not n.startswith("@HEALTH@")
+            and scope.get(n) is not None]
+
+
+def _health_scalar(scope, name):
+    return float(scope.get(name).reshape(-1)[0])
+
+
+def _health_modes(what, main, loss, feed, start, counters, per_run, steps,
+                  action, disarm=False, bad_step=None):
+    """``steps`` steps of ``main`` under the sentinel's ``action``, each
+    mode of ``modes`` in turns from a copy of ``start``, with a new
+    executor a mode (its sentinel attached at its first run); with
+    ``disarm`` the planted fault's countdown reads 0, so it never fires.
+    Every program run (a rollback's replay too) launches ``per_run`` on
+    the card, as the step without the sentinel; the wrappers see the
+    eager mode's runs and the captured mode's warm-up and capture.  On
+    ``bad_step`` found_inf fires and every guarded persistable is
+    bit-unchanged; found_inf fires on no other step (under rollback the
+    replay's 0 is left).  Returns {mode: losses, found, scales (with
+    loss scaling), runs, launches, device_launches} and {mode: scope},
+    the executors closed."""
+    scopes = {m: _clone_scope(start) for m, _ in MODES}
+    exes = _executors()
+    out = {m: dict(losses=[], found=[], scales=[], runs=0, launches={},
+                   device_launches={}) for m in exes}
+    for step in range(1, steps + 1):
+        for m, exe in exes.items():
+            sent = exe.health_sentinel(main)
+            sent.ensure_state(scopes[m])
+            if disarm:
+                scopes[m].get("@HEALTH@fault_0").zero_()
+            pre = ({n: scopes[m].get(n).clone()
+                    for n in _state_names(main, scopes[m])}
+                   if step == bad_step else None)
+            replays = _counter_value("pt_health_rollbacks_total")
+            before = _snap()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[m])
+            py, dev = _since(before, counters)
+            runs = 1 + int(_counter_value("pt_health_rollbacks_total")
+                           - replays)
+            if dev != _times(per_run, runs):
+                raise AssertionError(f"{what} ({m}, step {step}): {dev} on "
+                                     f"the card over {runs} run(s)")
+            r = out[m]
+            r["runs"] += runs
+            _add(r["launches"], py)
+            _add(r["device_launches"], dev)
+            r["losses"].append(float(lv))
+            r["found"].append(_health_scalar(scopes[m], "@HEALTH@found_inf"))
+            if scopes[m].get("@HEALTH@loss_scale") is not None:
+                r["scales"].append(_health_scalar(scopes[m],
+                                                  "@HEALTH@loss_scale"))
+            if pre is not None:
+                moved = [n for n, t in pre.items()
+                         if not torch.equal(t, scopes[m].get(n))]
+                if moved:
+                    raise AssertionError(f"{what} ({m}): the skipped step "
+                                         f"moved {moved[:5]}")
+    for m, exe in exes.items():
+        want = [1.0 if s == bad_step and not disarm else 0.0
+                for s in range(1, steps + 1)]
+        if action == "rollback":
+            want = [0.0] * steps  # the replay's found_inf is left
+        if out[m]["found"] != want:
+            raise AssertionError(f"{what} ({m}): found_inf "
+                                 f"{out[m]['found']}, expected {want}")
+        want_py = _times(per_run, out[m]["runs"] if m == "eager" else 2)
+        if out[m]["launches"] != want_py:
+            raise AssertionError(f"{what} ({m}): the wrappers read "
+                                 f"{out[m]['launches']}, expected {want_py}")
+        exe.close()
+    return out, scopes
+
+
+def _modes_bit_equal(what, main, out, scopes):
+    """The captured and the eager run's losses and guarded state equal
+    bit for bit."""
+    diff = [n for n in _state_names(main, scopes["captured"])
+            if not torch.equal(scopes["captured"].get(n),
+                               scopes["eager"].get(n))]
+    if out["captured"]["losses"] != out["eager"]["losses"] or diff:
+        raise AssertionError(f"{what}: captured and eager differ: "
+                             f"{out['captured']['losses']} against "
+                             f"{out['eager']['losses']}, state {diff[:5]}")
+
+
+def _health_parity():
+    """Full width, 2 layers, b4 s128, fp32, dropout 0, the sentinel on
+    with the fault on step 2: HEALTH_PARITY_STEPS Adam steps on the card
+    and on the CPU from one state, losses within TRAIN_LOSS_RTOL and
+    the skipped step's guarded state bit-unchanged on both."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(vocab_size=30528, num_layers=2,
+                               use_flash_attention=True, attn_dropout=0.0,
+                               hidden_dropout=0.0)
+    main, startup, loss = _bert_program(cfg, bf16=False)
+    feed = bert.make_fake_batch(cfg, 4, 128, seed=1)
+    gpu = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=gpu)
+    cpu = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+    convert.load_params(cpu, {p.name: gpu.get(p.name).cpu().numpy()
+                              for p in main.all_parameters()},
+                        fluid.CPUPlace(), program=main)
+    losses, found = {}, {}
+    with health_flags(fault="nan:grad:step:2"):
+        for key, scope, place in (("gpu", gpu, _gpu_place()),
+                                  ("cpu", cpu, fluid.CPUPlace())):
+            exe = fluid.Executor(place)
+            losses[key], found[key] = [], []
+            for step in range(1, HEALTH_PARITY_STEPS + 1):
+                pre = ({n: scope.get(n).clone()
+                        for n in _state_names(main, scope)}
+                       if step == 2 else None)
+                (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)
+                losses[key].append(float(lv))
+                found[key].append(_health_scalar(scope,
+                                                 "@HEALTH@found_inf"))
+                if pre is not None and any(
+                        not torch.equal(t, scope.get(n))
+                        for n, t in pre.items()):
+                    raise AssertionError(f"health parity ({key}): the "
+                                         f"skipped step moved the state")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["gpu"],
+                                                  losses["cpu"]))
+    if not rel < TRAIN_LOSS_RTOL or found["gpu"] != found["cpu"] \
+            or found["gpu"] != [0.0, 1.0, 0.0]:
+        raise AssertionError(f"health parity: losses {losses}, found "
+                             f"{found}, max rel diff {rel}")
+    return dict(losses=losses, found=found["gpu"], loss_max_rel_diff=rel,
+                loss_rtol=TRAIN_LOSS_RTOL, skipped_step_bit_unchanged=True)
+
+
+def _health_timing(cfg, start, feed):
+    """Captured step p50 / p95 of phase 4's program with the sentinel off
+    and on (``skip``, no fault planted), one executor each,
+    HEALTH_TIMED_STEPS steps each in turns after a warm-up step, and
+    each one's launch API calls, device busy and idle share (one
+    profiled step).  The "on" step adds the check, the in-step gate and
+    the host's read of found_inf."""
+    from paddle_tpu_torch import fluid
+
+    main_off, _, loss_off = _bert_program(cfg, bf16=True)
+    main_on, _, loss_on = _bert_program(cfg, bf16=True)
+    arms = {"off": (main_off, loss_off), "on": (main_on, loss_on)}
+    scopes = {a: _clone_scope(start) for a in arms}
+    exes = {a: fluid.Executor(_gpu_place()) for a in arms}
+    old = fluid.get_flags("FLAGS_health_sentinel")
+    fluid.set_flags({"FLAGS_health_sentinel": False})
+    try:  # the off arm's first run attaches nothing, for good
+        exes["off"].run(main_off, feed=feed, fetch_list=[loss_off],
+                        scope=scopes["off"])
+    finally:
+        fluid.set_flags(old)
+    with health_flags(fault=None):
+        exes["on"].run(main_on, feed=feed, fetch_list=[loss_on],
+                       scope=scopes["on"])
+        secs = {a: [] for a in arms}
+        for _ in range(HEALTH_TIMED_STEPS):
+            for a, (main, loss) in arms.items():
+                t0 = time.perf_counter()
+                exes[a].run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[a])
+                secs[a].append(time.perf_counter() - t0)
+        out = {a: _ms_quantiles(s) for a, s in secs.items()}
+        for a, (main, loss) in arms.items():
+            def step(a=a, main=main, loss=loss):
+                exes[a].run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[a])
+            prof = _profile(step, 1)
+            out[a].update(launch_api_calls=prof["launch_api_calls"],
+                          device_busy_ms=prof["device_busy_ms"],
+                          device_idle_share=prof.get("device_idle_share"))
+    if exes["on"].health_sentinel(main_on) is None or any(
+            op.type == "health_fault_inject"
+            for op in main_on.global_block().ops):
+        raise AssertionError("health timing: the on arm's program")
+    out["on_over_off_p50"] = out["on"]["p50_ms"] / out["off"]["p50_ms"]
+    for exe in exes.values():
+        exe.close()
+    return out
+
+
+def run_health_path(counters):
+    """Phase 28 (see the module docstring): the health sentinel on phase
+    4's BERT-base b128 s128 bf16 train step.  ``counters``: the wrappers
+    of K1-K4, set to 0 before the phase and read after it.  Returns the
+    phase's readings; every step is gated."""
+    import urllib.request
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.observability import profiling
+
+    t_phase = time.perf_counter()
+    cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                               attn_dropout=0.0)
+    feed = bert.make_fake_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    for w in counters.values():
+        w.launches = 0
+    t_before = _snap()
+    flight_dir = tempfile.TemporaryDirectory(prefix="pt_flight_")
+    old_dir = fluid.get_flags("FLAGS_flight_recorder_dir")
+    fluid.set_flags({"FLAGS_flight_recorder_dir": flight_dir.name})
+    profiling.reset()
+    out = {}
+    try:
+        per_run = _train_step_launches(cfg)
+        main, startup, loss = _bert_program(cfg, bf16=True)
+        start = fluid.Scope()
+        fluid.Executor(_gpu_place()).run(startup, scope=start)
+        # (1) skip: the planted NaN gradient's step is masked
+        with health_flags("skip"):
+            skip, skip_scopes = _health_modes(
+                "health skip", main, loss, feed, start, counters, per_run,
+                HEALTH_STEPS, "skip", bad_step=HEALTH_BAD_STEP)
+        _modes_bit_equal("health skip", main, skip, skip_scopes)
+        n_ops = [op.type for op in main.global_block().ops]
+        for m, r in skip.items():
+            bad_total = _health_scalar(skip_scopes[m],
+                                       "@HEALTH@bad_steps_total")
+            if bad_total != 1.0 or not np.isfinite(
+                    r["losses"][HEALTH_BAD_STEP:]).all():
+                raise AssertionError(f"health skip ({m}): bad_steps_total "
+                                     f"{bad_total}, losses {r['losses']}")
+        fr = profiling.flight_recorder()
+        meta, records = profiling.read_flight_record(fr.last_dump_path)
+        health = [r for r in records if r.get("kind") == "health"]
+        steps = [r for r in records if r.get("kind") == "step"]
+        if (meta.get("reason") != "health" or not steps or not health
+                or health[0]["detect"] != "grad"):
+            raise AssertionError(f"health skip: flight record {meta}, "
+                                 f"{len(health)} health and {len(steps)} "
+                                 f"step records")
+        out["skip"] = dict(
+            modes=skip, captured_eager_bit_equal=True,
+            bad_steps_total=1.0, skipped_step_bit_unchanged=True,
+            sentinel_ops=[t for t in n_ops if t.startswith(("health_",
+                                                            "check_"))],
+            flight_record=dict(reason=meta["reason"],
+                               records=meta["records"],
+                               health_records=health,
+                               step_records=len(steps), dumps=fr.dumps))
+        del skip_scopes
+        torch.cuda.empty_cache()
+
+        # (2) rollback: the run equals the one that never met the fault
+        with health_flags("rollback"):
+            rb, rb_scopes = _health_modes(
+                "health rollback", main, loss, feed, start, counters,
+                per_run, HEALTH_STEPS, "rollback")
+            base, base_scopes = _health_modes(
+                "health rollback base", main, loss, feed, start, counters,
+                per_run, HEALTH_STEPS, "rollback", disarm=True)
+        for m in rb:
+            diff = [n for n in _state_names(main, rb_scopes[m])
+                    if not torch.equal(rb_scopes[m].get(n),
+                                       base_scopes[m].get(n))]
+            if rb[m]["losses"] != base[m]["losses"] or diff \
+                    or rb[m]["runs"] != HEALTH_STEPS + 1:
+                raise AssertionError(
+                    f"health rollback ({m}): {rb[m]['losses']} against the "
+                    f"uninjected {base[m]['losses']}, state {diff[:5]}, "
+                    f"{rb[m]['runs']} runs")
+        _modes_bit_equal("health rollback", main, rb, rb_scopes)
+        out["rollback"] = dict(modes=rb, uninjected=base,
+                               bit_equal_uninjected=True)
+        del rb_scopes, base_scopes
+        torch.cuda.empty_cache()
+
+        # (3) raise: RuntimeError naming the step
+        with health_flags("raise"):
+            exe = fluid.Executor(_gpu_place())
+            sc = _clone_scope(start)
+            raised = None
+            for step in range(1, HEALTH_BAD_STEP + 1):
+                try:
+                    exe.run(main, feed=feed, fetch_list=[loss], scope=sc)
+                except RuntimeError as e:
+                    raised = (step, str(e))
+                    break
+            exe.close()
+        if raised is None or raised[0] != HEALTH_BAD_STEP or \
+                f"step {HEALTH_BAD_STEP} " not in raised[1]:
+            raise AssertionError(f"health raise: {raised}")
+        out["raise"] = dict(step=raised[0], message=raised[1][:160])
+        del sc
+
+        # (4) dynamic loss scaling: the scale halves on the bad step
+        with health_flags("skip", FLAGS_health_loss_scaling=True):
+            main_ls, _, loss_ls = _bert_program(cfg, bf16=True)
+            ls, ls_scopes = _health_modes(
+                "health loss scaling", main_ls, loss_ls, feed, start,
+                counters, per_run, HEALTH_BAD_STEP + 1, "skip",
+                bad_step=HEALTH_BAD_STEP)
+        _modes_bit_equal("health loss scaling", main_ls, ls, ls_scopes)
+        init = fluid.get_flags("FLAGS_health_loss_scale_init")[
+            "FLAGS_health_loss_scale_init"]
+        # halved on the bad step, then held (the next growth is 1000
+        # good steps away)
+        want = [init] * (HEALTH_BAD_STEP - 1) + [init / 2] * 2
+        for m, r in ls.items():
+            if r["scales"] != want or not np.isfinite(
+                    r["losses"][HEALTH_BAD_STEP:]).all():
+                raise AssertionError(f"health loss scaling ({m}): scales "
+                                     f"{r['scales']}, expected {want}; "
+                                     f"losses {r['losses']}")
+        out["loss_scaling"] = dict(modes=ls, scale_init=init)
+        del ls_scopes, main_ls
+        torch.cuda.empty_cache()
+
+        # (5) the card against the CPU
+        out["parity"] = _health_parity()
+        torch.cuda.empty_cache()
+
+        # (6) the sentinel's cost a step, and the launch API calls
+        out["timing"] = _health_timing(cfg, start, feed)
+        torch.cuda.empty_cache()
+
+        # (7) /profilez over a real scrape
+        srv = obs.MetricsServer(port=0)
+        try:
+            resp = urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/profilez", timeout=30)
+            page = json.loads(resp.read())
+            code = resp.status
+        finally:
+            srv.stop()
+        single = [v for v in page["signatures"].values()
+                  if v.get("lane") == "single"]
+        if code != 200 or sorted(page) != PROFILEZ_KEYS or not single \
+                or page["flight_recorder"]["dumps"] < 1:
+            raise AssertionError(f"health /profilez: {code}, keys "
+                                 f"{sorted(page)}")
+        out["profilez"] = dict(status=code, keys=sorted(page),
+                               signatures=len(page["signatures"]),
+                               flight_recorder=page["flight_recorder"])
+    finally:
+        fluid.set_flags(old_dir)
+        flight_dir.cleanup()
+    py, dev = _since(t_before, counters)
+    out["launches"] = py
+    out["device_launches"] = dev
+    out["program_runs_on_card"] = sum(
+        r["runs"] for part in ("skip", "rollback", "loss_scaling")
+        for r in out[part]["modes"].values()) + sum(
+        r["runs"] for r in out["rollback"]["uninjected"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
                  "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -6029,9 +6506,10 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         # K1-K3 on phase 25's path, none on phase 24's: every library
         "nmt": (ALL_LIBRARIES, ("check_flash_nmt",)),
         # K1-K3 on the fused Transformer book, none on the others
-        "book": (ALL_LIBRARIES, ("check_flash_book",))}
+        "book": (ALL_LIBRARIES, ("check_flash_book",)),
+        "health": (("flash_attention", "fused_bias_act"), ())}
 NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
-              "resnet", "cnn", "nmt", "book")
+              "resnet", "cnn", "nmt", "book", "health")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -6039,12 +6517,12 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 20, 14-19 and 21-27 (those of ``keys``, in that order);
+    """Phases 20, 14-19 and 21-28 (those of ``keys``, in that order);
     returns their path readings (None for a phase not run).  Phase 16's
     ids are compared with ``fp32_outs``, the fp32-weight lane's, where
     given (printed, not gated)."""
     ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = nmt = None
-    book = None
+    book = health = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -6132,7 +6610,22 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         say("book path", {"card": smi, **book})
         say("book summary", {"card": smi, **book_summary(book)})
         torch.cuda.empty_cache()
-    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book
+    if "health" in keys:
+        torch.cuda.empty_cache()
+        health = run_health_path({k: wrappers[k] for k in train_kernels})
+        say("health path", {"card": smi, **health})
+        t = health["timing"]
+        say("health summary", {
+            "card": smi,
+            "step_ms_off": t["off"], "step_ms_on": t["on"],
+            "on_over_off_p50": t["on_over_off_p50"],
+            "rollback_bit_equal_uninjected": True,
+            "parity_loss_max_rel_diff":
+                health["parity"]["loss_max_rel_diff"],
+            "device_launches": health["device_launches"],
+            "health_seconds": health["seconds"]})
+        torch.cuda.empty_cache()
+    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book, health
 
 
 def run_only(keys, dev, smi, say):
@@ -6177,7 +6670,8 @@ def main(argv=None):
                                  "GPU (see the module docstring).")
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
-                    "gpt, fleet, fp32train, resnet, cnn, nmt, book): "
+                    "gpt, fleet, fp32train, resnet, cnn, nmt, book, "
+                    "health): "
                     "phases 1-3 "
                     "for those kernels alone (flash: with phase 2's flash "
                     "report; engine: phases 10-11; passes, predictor, "
@@ -6185,7 +6679,8 @@ def main(argv=None):
                     "17-18; fleet: phase 19; fp32train: phase 20; resnet: "
                     "phases 21-22; cnn: phase 23; nmt: K1-K3 at the NMT "
                     "shapes and phases 24-26; book: K1-K3 at the "
-                    "Transformer book's shapes and phase 27); the default "
+                    "Transformer book's shapes and phase 27; health: phase "
+                    "28); the default "
                     "runs every phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6335,8 +6830,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     say("dp train parity", run_dp_parity())
 
-    (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt,
-     book) = run_new_phases(wrappers, train_kernels, fp32_outs, smi, say)
+    (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
+     health) = run_new_phases(wrappers, train_kernels, fp32_outs, smi, say)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
@@ -6361,6 +6856,8 @@ def main(argv=None):
                          "nmt_train", "nmt_train_flash", "nmt_decode")},
                      # phase 27: K1-K3 on the fused Transformer book
                      "book": book[key],
+                     # phase 28: the train step under the health sentinel
+                     "health": health[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}

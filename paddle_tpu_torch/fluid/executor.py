@@ -575,6 +575,8 @@ class CapturedGraph:
     persistable the plan writes as a new tensor is copied back into its
     input tensor at the end of the graph; one the plan writes but never
     reads is the graph's own output (``outputs``), as are the fetches.
+    ``body`` is the op loop captured (``run_plan``, or the health
+    sentinel's gate around it: health/gating.py).
     Every generator of ``ctxs``' streams is registered with the graph,
     so its draws advance from the seed it holds at each replay.  A
     kernel wrapper's launch counter counts the capture (where it
@@ -583,7 +585,7 @@ class CapturedGraph:
     (``kernels.device_launch_counts``) count every run on the card."""
 
     def __init__(self, plan, inputs, feeds, ctxs, bf16, stream, label,
-                 fetch_names):
+                 fetch_names, body):
         self.label = label
         self.inputs = inputs
         self.feeds = [{n: torch.empty_like(v) for n, v in f.items()}
@@ -606,7 +608,7 @@ class CapturedGraph:
             with torch.cuda.stream(stream), torch.cuda.graph(
                     self.graph, stream=stream,
                     capture_error_mode="thread_local"):
-                run_plan(plan, envs, ctxs, bf16)
+                body(plan, envs, ctxs, bf16)
                 for env, inp in zip(envs, inputs):
                     for n in plan.writes:
                         if n in inp and env[n] is not inp[n]:
@@ -681,11 +683,16 @@ class _Signature:
     a RandomStreams a replica and, once captured, its graph.  A
     capturing executor keys an entry by its scope as well, so a graph
     only ever reads and writes the tensors of the scope it was captured
-    on."""
+    on.  Its op loop is ``run_plan``, with the health sentinel's in-step
+    gate around it when the program carries a health plan
+    (health/gating.py)."""
 
     def __init__(self, program, plan, devices, label, group=None):
+        from paddle_tpu_torch.health import gating
+
         self.program = program
         self.plan = plan
+        self.body = gating.wrap_body(program, run_plan)
         self.devices = list(devices)
         self.label = label
         self.group = group
@@ -737,9 +744,9 @@ class _Signature:
             with ph.phase("dispatch"):
                 if capture:
                     warm_up(exe._side_stream(),
-                            lambda: run_plan(plan, envs, ctxs, bf16))
+                            lambda: self.body(plan, envs, ctxs, bf16))
                 else:
-                    run_plan(plan, envs, ctxs, bf16)
+                    self.body(plan, envs, ctxs, bf16)
             fetches = [[env[n] for env in envs] for n in fetch_names]
             with ph.phase("device_wait"):
                 ph.wait(fetches)
@@ -749,7 +756,8 @@ class _Signature:
                 return fetches, 0.0
             self.graph = CapturedGraph(
                 plan, binding.values(scope, plan.scope_reads), feeds, ctxs,
-                bf16, exe._side_stream(), self.label, fetch_names)
+                bf16, exe._side_stream(), self.label, fetch_names,
+                self.body)
             # the capture's in-place calls moved version counters that
             # no value change goes with
             binding.left(scope, plan.scope_reads, self.graph.inputs)
@@ -809,6 +817,7 @@ class Executor:
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._step = 0
         self._stream = None
+        self._sentinels: dict = {}  # id(program) -> HealthSentinel | None
         # FLAGS_metrics_port: the process's exposition server (and the
         # flag-driven SLO evaluator) start with its first executor
         from paddle_tpu_torch.observability import exposition
@@ -826,6 +835,7 @@ class Executor:
         self._cache.clear()
         self._pins.clear()
         self._graphs.clear()
+        self._sentinels.clear()
 
     def compiled_for(self, program):
         """The cache entries of ``program`` (one a signature, and one a
@@ -852,6 +862,35 @@ class Executor:
         _passes.apply_graph_passes(program, lane="single",
                                    keep_vars=fetch_names)
 
+    def health_sentinel(self, program):
+        """The health sentinel this executor attached to ``program``,
+        attaching it now if needed (FLAGS_health_sentinel is read once a
+        program here): ``health.attach`` inserts it into the program,
+        which moves its version before the plan is keyed, as the JAX
+        executor attaches it; None when the flag is off or the program
+        has nothing to guard."""
+        key = id(program)
+        if key not in self._sentinels:
+            from paddle_tpu_torch import health
+
+            self._sentinels[key] = health.attach(program, lane="single",
+                                                 device=self.device)
+            self._pins[("health", key)] = (program,)
+        return self._sentinels[key]
+
+    def _check_nan_inf(self, plan, label, scope, fetch_names, fetches):
+        """FLAGS_check_nan_inf: the host scan (health/detect.py) of every
+        persistable the run wrote and every fetch; raises naming the
+        first that holds a NaN or an Inf."""
+        from . import flags
+
+        if not flags.flag("check_nan_inf"):
+            return
+        from paddle_tpu_torch.health import detect
+
+        detect.host_scan([(n, scope.get(n)) for n in plan.writes]
+                         + list(zip(fetch_names, fetches)), label)
+
     def _coerce_feed(self, program, feed, device=None):
         """Feeds become tensors on the device (the executor's unless
         ``device`` is given), in the var's dtype."""
@@ -874,14 +913,16 @@ class Executor:
     def _prepare(self, program, feed, fetch_list, scope):
         """The shared preamble of run() and run_steps(): the program
         (default main), the scope (the ambient one), the fetch names,
-        the graph passes and the coerced feeds."""
+        the graph passes, the health sentinel and the coerced feeds."""
         program = program if program is not None \
             else framework.default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
         self._graph_passes(program, fetch_names)  # before the plan key
-        return program, scope, fetch_names, self._coerce_feed(program, feed)
+        sent = self.health_sentinel(program)  # may insert it: before the key
+        return (program, scope, fetch_names,
+                self._coerce_feed(program, feed), sent)
 
     def _pin(self, key, entry, *owners):
         self._cache[key] = entry
@@ -950,22 +991,37 @@ class Executor:
 
         if isinstance(program, CompiledProgram):
             return program._run(self, feed, fetch_list, scope, return_numpy)
-        program, scope, fetch_names, feeds = self._prepare(
+        from paddle_tpu_torch.health import run_guarded
+
+        program, scope, fetch_names, feeds, sent = self._prepare(
             program, feed, fetch_list, scope)
         sig, new = self._signature(program, scope, feeds, fetch_names,
                                    "single")
-        first_run = not sig.ran
-        t0 = time.perf_counter()
-        with profiling.step_phases("single", sig.label) as ph:
-            fetches = self._run_signature(sig, _ScopeBinding, scope, [feeds],
-                                          fetch_names, ph, "single", new)
-            with ph.phase("fetch_sync"):
-                fetches = [f[0] for f in fetches]
-                if sig.graph is not None or return_numpy:
-                    fetches = _fetch_copies(fetches, return_numpy)
-        _record_step("single", time.perf_counter() - t0, first_run)
-        sig.ran = True
-        self._step += 1
+        step0 = self._step
+
+        def attempt():
+            # the replay of a rolled-back attempt runs at the same step
+            # (the same random draws); the step counts once, below
+            nonlocal new
+            first_run = not sig.ran
+            t0 = time.perf_counter()
+            with profiling.step_phases("single", sig.label) as ph:
+                fetches = self._run_signature(sig, _ScopeBinding, scope,
+                                              [feeds], fetch_names, ph,
+                                              "single", new)
+                with ph.phase("fetch_sync"):
+                    fetches = [f[0] for f in fetches]
+                    if sig.graph is not None or return_numpy:
+                        fetches = _fetch_copies(fetches, return_numpy)
+                    self._check_nan_inf(sig.plan, sig.label, scope,
+                                        fetch_names, fetches)
+            _record_step("single", time.perf_counter() - t0, first_run)
+            sig.ran = True
+            new = False
+            return fetches
+
+        fetches = run_guarded(sent, scope, fetch_names, attempt)
+        self._step = step0 + 1
         return fetches
 
     def run_steps(self, program=None, feed=None, n_steps=1, fetch_list=None,
@@ -998,7 +1054,9 @@ class Executor:
         n = int(n_steps)
         if n < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-        program, scope, fetch_names, feeds = self._prepare(
+        from paddle_tpu_torch.health import run_guarded
+
+        program, scope, fetch_names, feeds, sent = self._prepare(
             program, feed, fetch_list, scope)
         if stacked_feed:
             bad = {k: tuple(v.shape) for k, v in feeds.items()
@@ -1015,28 +1073,43 @@ class Executor:
             chain = _Chain(f"program@{id(program):x}/v{program._version}"
                            f"/chain{n}", n, bool(stacked_feed))
             self._pin(key, chain, program, scope)
-        first_run = not chain.ran
-        t0 = time.perf_counter()
-        with profiling.step_phases("chain", chain.label) as ph:
-            for i in range(n):
-                with ph.phase("feed_prep"):
-                    one = ({k: v[i] for k, v in feeds.items()}
-                           if stacked_feed else feeds)
-                    sig, _ = self._signature(program, scope, one,
-                                             fetch_names, "chain")
-                chain.plan = sig.plan
-                fetches = self._run_signature(sig, _ScopeBinding, scope,
-                                              [one], fetch_names, ph,
-                                              "chain", None)
-                sig.ran = True
-                if i < n - 1:
-                    self._step += 1
-            with ph.phase("fetch_sync"):
-                fetches = [f[0] for f in fetches]
-                if sig.graph is not None or return_numpy:
-                    fetches = _fetch_copies(fetches, return_numpy)
-        _record_step("chain", time.perf_counter() - t0, first_run)
-        chain.ran = True
-        chain.graph = sig.graph
-        self._step += 1
+        step0 = self._step
+
+        def attempt():
+            # the sentinel acts on the whole chain: a bad step inside it
+            # was masked in its own iteration; a rollback restores the
+            # state before the chain and replays it from its first step
+            self._step = step0
+            first_run = not chain.ran
+            t0 = time.perf_counter()
+            with profiling.step_phases("chain", chain.label) as ph:
+                for i in range(n):
+                    with ph.phase("feed_prep"):
+                        one = ({k: v[i] for k, v in feeds.items()}
+                               if stacked_feed else feeds)
+                        sig, _ = self._signature(program, scope, one,
+                                                 fetch_names, "chain")
+                    chain.plan = sig.plan
+                    fetches = self._run_signature(sig, _ScopeBinding, scope,
+                                                  [one], fetch_names, ph,
+                                                  "chain", None)
+                    sig.ran = True
+                    if i < n - 1:
+                        self._step += 1
+                with ph.phase("fetch_sync"):
+                    fetches = [f[0] for f in fetches]
+                    if sig.graph is not None or return_numpy:
+                        fetches = _fetch_copies(fetches, return_numpy)
+                    # chain granularity: a NaN born mid-chain stays in
+                    # the state the last iteration writes
+                    self._check_nan_inf(sig.plan, chain.label, scope,
+                                        fetch_names, fetches)
+            _record_step("chain", time.perf_counter() - t0, first_run)
+            chain.ran = True
+            chain.graph = sig.graph
+            return fetches
+
+        fetches = run_guarded(sent, scope, fetch_names, attempt,
+                              chain=n > 1)
+        self._step = step0 + n
         return fetches

@@ -69,9 +69,29 @@ _DEFS = {
     "FLAGS_fused_update": (True, _parse_bool),
     # gradient bucket cap in MB
     "FLAGS_fuse_grad_size_in_MB": (32, int),
-    # lanes not ported: DataParallelRunner raises when either is on
+    # lane not ported: DataParallelRunner raises when it is on
     "FLAGS_gspmd_executor": (False, _parse_bool),
+    # FLAGS_check_nan_inf: after each executor run, scan every written
+    # persistable and fetch on the host and raise naming the first one
+    # holding a NaN or an Inf (health/detect.py host_scan)
+    "FLAGS_check_nan_inf": (False, _parse_bool),
+    # the training health sentinel (health/): an on-device found_inf
+    # scalar a step, the bad step's state writes masked inside the
+    # step, the response "raise" | "skip" | "rollback" (restore the
+    # snapshot window, FLAGS_health_rollback_keep steps deep, and replay
+    # the step), the loss-spike detector (z-score over the loss EMA,
+    # after a warm-up of good steps; 0 disables) and dynamic loss
+    # scaling (halve on a bad step, double after N good ones).  The
+    # single-device executor attaches it; the data-parallel runner
+    # raises when it is on
     "FLAGS_health_sentinel": (False, _parse_bool),
+    "FLAGS_health_action": ("skip", str),
+    "FLAGS_health_rollback_keep": (2, int),
+    "FLAGS_health_spike_zscore": (6.0, float),
+    "FLAGS_health_spike_warmup": (8, int),
+    "FLAGS_health_loss_scaling": (False, _parse_bool),
+    "FLAGS_health_loss_scale_init": (65536.0, float),
+    "FLAGS_health_scale_growth_steps": (1000, int),
     # the executor on a CUDA place captures each fixed-shape program
     # once per signature as a CUDA graph and replays it
     # (fluid/executor.py); off runs the eager op loop there too, the
@@ -87,6 +107,14 @@ _DEFS = {
     "FLAGS_device_peak_flops": (0.0, float),
     "FLAGS_device_peak_bandwidth": (0.0, float),
     "FLAGS_device_peak_ici_bandwidth": (0.0, float),
+    # the flight recorder (observability/profiling.py): a ring of the
+    # last N steps' records and health events; where its JSONL
+    # postmortems land (empty: the event-log directory, else the
+    # system's temporary directory); the slow-step z-score over a
+    # lane's step-time EMA that dumps it (0 disables)
+    "FLAGS_flight_recorder_steps": (256, int),
+    "FLAGS_flight_recorder_dir": ("", str),
+    "FLAGS_profile_slow_step_zscore": (8.0, float),
     # directory of the structured JSONL event log
     # (observability/events.py); empty disables it, PT_EVENT_LOG_DIR
     # wins

@@ -4,9 +4,9 @@ lane books on), ``exposition`` (the text format, the parser and the
 HTTP endpoint with /metricsz and the registered pages), ``events`` (the
 JSONL event log), ``tracing`` (process identity and span ids),
 ``reqtrace`` (request traces, /tracez), ``slo`` (burn-rate alerts,
-/sloz) and the executor's part of ``profiling`` (step phases,
-per-signature stats, MFU and roofline against the card's peaks).  The
-flight recorder and /profilez are still to be ported."""
+/sloz) and ``profiling`` (step phases, per-signature stats, MFU and
+roofline against the card's peaks, the flight recorder and /profilez;
+not its HLO inventory, which reads XLA's HLO text)."""
 
 from . import events, exposition, metrics, profiling  # noqa: F401
 from . import reqtrace, slo, tracing  # noqa: F401

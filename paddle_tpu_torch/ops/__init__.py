@@ -1,6 +1,6 @@
 """Op lowerings: importing this package registers every ported op."""
 
-from . import (collective_ops, compat_ops, decode_ops,  # noqa: F401
-               fused_ops, interop_tail_ops, math_ops, nn_extra_ops, nn_ops,
-               optimizer_ops, quant_ops, rnn_ops, sequence_ops,
-               structured_ops, tensor_ops)
+from . import (amp_ops, collective_ops, compat_ops,  # noqa: F401
+               decode_ops, fused_ops, health_ops, interop_tail_ops,
+               math_ops, nn_extra_ops, nn_ops, optimizer_ops, quant_ops,
+               rnn_ops, sequence_ops, structured_ops, tensor_ops)

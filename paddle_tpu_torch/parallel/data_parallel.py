@@ -458,7 +458,8 @@ class DataParallelRunner:
         if _flags.flag("health_sentinel"):
             raise NotImplementedError(
                 "the health sentinel (FLAGS_health_sentinel) is not ported "
-                "to paddle_tpu_torch")
+                "to the data-parallel lane of paddle_tpu_torch (its check "
+                "reads the fused buckets' QScale)")
         self.quant_grads = bool(knob("quant_allreduce", flag=True))
         # graph passes before the transpile, so the bucket and
         # fused-update scans see the final forward graph

@@ -13,9 +13,10 @@ pipeline names them.
   transpile_data_parallel, with the fused dequant→update rewrite,
   ordered after the fusions: its bucket and fused-update scans must see
   the final forward graph.
-- ``health_sentinel``: the health sentinel is not ported (ROADMAP 1.6);
-  the pass raises rather than leave a program without the checks its
-  caller asked for.
+- ``health_sentinel``: health.transpile.insert_health_sentinel, last:
+  its check must read the gradients the optimizer ops finally consume.
+  The single-device executor attaches the sentinel itself under
+  FLAGS_health_sentinel (health.attach).
 """
 
 from __future__ import annotations
@@ -59,11 +60,15 @@ class DataParallelTranspilePass(ProgramPass):
 
 @register_program_pass
 class HealthSentinelPass(ProgramPass):
-    """The health sentinel's place in the order; not ported."""
+    """Adapter over health.transpile.insert_health_sentinel (idempotent
+    through ``program._health_plan``)."""
 
     name = "health_sentinel"
 
     def apply(self, program, ctx):
-        raise NotImplementedError(
-            "health_sentinel: the health sentinel is not ported to "
-            "paddle_tpu_torch (ROADMAP 1.6)")
+        from paddle_tpu_torch.health import insert_health_sentinel
+
+        before = getattr(program, "_health_plan", None)
+        plan = insert_health_sentinel(program, loss_name=ctx.loss_name)
+        return {"changed": plan is not None and before is None,
+                "sites": 1 if plan else 0}

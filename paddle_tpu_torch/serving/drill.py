@@ -12,6 +12,13 @@ measured, deterministically, with the FaultPlan grammar.
                   failover (no new plan, no new capture) and on the
                   availability SLO's page alert firing during the kill
                   and clearing after recovery.
+  promotion_drill canary weight promotion (serving/promote.py) over the
+                  live group: clean (perturbed weights pass the gates,
+                  the group converges, background traffic completes with
+                  no error, the swap costs no executor-cache miss) and
+                  regress (a ``serve_error:`` rule fails the canary's
+                  post-swap probe: rolled back, the canary's old values
+                  restored bit for bit, no miss).
   hedge_drill     two ``serving.Engine`` replicas of one model, the first
                   built slow (a long batch wait); hedged requests beat
                   it to the fast replica, and each hedge's loser is
@@ -20,10 +27,11 @@ measured, deterministically, with the FaultPlan grammar.
 Each returns a plain report dict with ``ok``.  Called with no engines,
 they build their own tiny models on ``place`` (CUDAPlace(0) when None;
 pass CPUPlace() without a GPU).  ``failover_drill`` also takes a live
-group, a router and a submit function, which is how ``chip_smoke.py``
-runs it over full-width replicas behind the HTTP frontend.
-
-Not ported yet: ``promotion_drill``, which needs ``serving/promote.py``.
+group, a router and a submit function, and ``promotion_drill`` a live
+group, which is how ``chip_smoke.py`` runs them over full-width
+replicas.  ``run_drill`` composes them into one report and
+``python -m paddle_tpu_torch.serving.drill [--cpu] [drill ...]`` prints
+it as one JSON line.
 """
 
 from __future__ import annotations
@@ -32,8 +40,10 @@ import threading
 import time
 
 import numpy as np
+import torch
 
-__all__ = ["failover_drill", "hedge_drill"]
+__all__ = ["failover_drill", "promotion_drill", "hedge_drill",
+           "run_drill", "main"]
 
 _GPT_CFG = dict(num_layers=2, hidden_dropout=0.0, use_flash_attention=False)
 
@@ -255,6 +265,123 @@ def failover_drill(engines=None, prompts=None, max_new_tokens=8,
                 eng.close()
 
 
+def promotion_drill(regress=False, engines=None, place=None, n_traffic=4,
+                    max_new_tokens=6, probe_count=3, timeout_s=300.0):
+    """Canary promotion over a live 2-replica group.  ``regress=False``:
+    perturbed weights pass the gates, the whole group converges, the
+    background traffic completes with no error and the swap costs no
+    executor-cache miss.  ``regress=True``: a ``serve_error:`` rule lands
+    in the canary's post-swap probe window, so it is rolled back and its
+    old values are restored bit for bit, still with no miss.
+
+    ``engines``: two started DecodeEngine replicas of equal weights, the
+    first the canary (default: a tiny GPT group built on ``place``,
+    closed at the end).  What is published: the decode program's
+    parameters."""
+    from paddle_tpu_torch.distributed import fault_injection as _fault
+
+    from . import promote as _promote
+    from .router import Router
+
+    owned = engines is None
+    if owned:
+        from paddle_tpu_torch.fluid.framework import resolve_place
+
+        cfg, engines = _build_decode_group(2, resolve_place(place))
+    else:
+        cfg = engines[0].cfg
+    param_names = [p.name for p in engines[0]._dec_prog.all_parameters()]
+    scopes = [e.scope for e in engines]
+    router = None
+    try:
+        router = Router(engines, name="promo", hedge_ms=0,
+                        probe_interval_ms=20)
+        # the checkpoint published: the same parameters nudged by a small
+        # seeded delta (a stand-in for a training delta, large enough
+        # that a restored rollback is told apart)
+        gen = torch.Generator(device=scopes[0].get(param_names[0]).device)
+        gen.manual_seed(5)
+        with torch.no_grad():
+            new_weights = _promote.WeightSet({
+                n: scopes[0].get(n) + 1e-3 * torch.randn(
+                    scopes[0].get(n).shape, generator=gen,
+                    device=scopes[0].get(n).device,
+                    dtype=scopes[0].get(n).dtype)
+                for n in param_names})
+        probe_prompts = _prompts(cfg, probe_count, seed=23)
+        old_sample = {n: scopes[0].get(n).clone() for n in param_names[:2]}
+        if regress:
+            # fail the canary's first post-swap probe: a replica's probes
+            # count its baseline (probe_count) first
+            _fault.install(f"serve_error:{engines[0].name}:req:"
+                           f"{probe_count + 1}")
+        traffic_outs, traffic_errors = [], []
+
+        def _traffic():
+            prompts = _prompts(cfg, n_traffic, seed=31)
+            futs = [router.submit(p, max_new_tokens) for p in prompts]
+            for f in futs:
+                try:
+                    traffic_outs.append(f.result(timeout=timeout_s))
+                except Exception as e:  # surfaced in the report
+                    traffic_errors.append(repr(e))
+
+        misses_before = _compile_misses()
+        traffic_thread = None
+        if not regress:
+            # background load across the rolling swap (the regress run
+            # has none: its traffic would take the serve_error count
+            # meant for the probe window)
+            traffic_thread = threading.Thread(target=_traffic, daemon=True)
+            traffic_thread.start()
+        gates = _promote.PromotionGates(max_error_rate=0.0,
+                                        max_latency_ratio=None,
+                                        max_drift=None)
+        t0 = time.monotonic()
+        report_p = _promote.promote(
+            router, new_weights, probe_prompts=probe_prompts,
+            probe_max_new_tokens=4, gates=gates,
+            probe_timeout_s=timeout_s)
+        promote_s = time.monotonic() - t0
+        if traffic_thread is not None:
+            traffic_thread.join(timeout=timeout_s)
+        misses_delta = _compile_misses() - misses_before
+        restored = all(torch.equal(scopes[0].get(n), old_sample[n])
+                       for n in old_sample)
+        converged = all(
+            torch.equal(s.get(param_names[0]),
+                        new_weights.arrays[param_names[0]].to(
+                            s.get(param_names[0]).device))
+            for s in scopes)
+        report = {
+            "mode": "regress" if regress else "clean",
+            "outcome": report_p["outcome"],
+            "replicas": report_p["replicas"],
+            "compile_miss_delta": misses_delta,
+            "traffic_completed": len(traffic_outs),
+            "traffic_errors": traffic_errors,
+            "canary_restored_bit_exact": restored,
+            "group_converged": converged,
+            "promote_s": promote_s,
+        }
+        if regress:
+            report["ok"] = (report_p["outcome"] == "rolled_back"
+                            and restored and misses_delta == 0)
+        else:
+            report["ok"] = (report_p["outcome"] == "promoted"
+                            and converged and not traffic_errors
+                            and len(traffic_outs) == n_traffic
+                            and misses_delta == 0)
+        return report
+    finally:
+        _fault.uninstall()
+        if router is not None:
+            router.close()
+        if owned:
+            for eng in engines:
+                eng.close()
+
+
 def hedge_drill(n_requests=12, hedge_ms=30, slow_wait_ms=300, place=None,
                 timeout_s=120.0):
     """Two ``serving.Engine`` replicas serving one small model on
@@ -335,3 +462,51 @@ def hedge_drill(n_requests=12, hedge_ms=30, slow_wait_ms=300, place=None,
             router.close()
         for eng in engines:
             eng.close()
+
+
+def run_drill(include=("failover", "promotion_clean", "promotion_rollback",
+                       "hedge"), place=None):
+    """The drills of ``include``, each over its own tiny models on
+    ``place``, in one report with ``ok`` over them all."""
+    report = {}
+    if "failover" in include:
+        report["failover"] = failover_drill(place=place)
+    if "promotion_clean" in include:
+        report["promotion_clean"] = promotion_drill(regress=False,
+                                                    place=place)
+    if "promotion_rollback" in include:
+        report["promotion_rollback"] = promotion_drill(regress=True,
+                                                       place=place)
+    if "hedge" in include:
+        report["hedge"] = hedge_drill(place=place)
+    report["ok"] = all(r.get("ok") for r in report.values()
+                       if isinstance(r, dict))
+    return report
+
+
+def main(argv=None):
+    """``python -m paddle_tpu_torch.serving.drill [--cpu] [drill ...]``:
+    one ``SERVE_DRILL_RESULT <json>`` line; exit 0 when every drill
+    passed.  ``--cpu`` runs on CPUPlace() (the default is the card)."""
+    import json
+    import sys
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    place = None
+    if "--cpu" in args:
+        from paddle_tpu_torch import fluid
+
+        args.remove("--cpu")
+        place = fluid.CPUPlace()
+    include = tuple(args) or ("failover", "promotion_clean",
+                              "promotion_rollback", "hedge")
+    report = run_drill(include=include, place=place)
+    print("SERVE_DRILL_RESULT " + json.dumps(report, default=str),
+          flush=True)
+    return 0 if report["ok"] else 1
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -2330,3 +2330,94 @@ def test_book_train_steps_on_card_match_cpu(dev, name):
                             scope=copy(scope, "cpu"))
         np.testing.assert_array_equal(np.asarray(on_card),
                                       np.asarray(on_cpu))
+
+
+def _sentinel_bert(plan, action="skip"):
+    """BERT-tiny (hidden dropout 0.1) with the health sentinel armed as
+    ``action`` and ``plan`` planted when its first run inserts it."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fault_injection
+
+    fluid.set_flags({"FLAGS_health_sentinel": True,
+                     "FLAGS_health_action": action})
+    if plan:
+        fault_injection.install(plan)
+    return _bert_tiny_train()
+
+
+@pytest.fixture
+def sentinel_flags():
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.distributed import fault_injection
+
+    names = ["FLAGS_health_sentinel", "FLAGS_health_action"]
+    old = fluid.get_flags(names)
+    yield
+    fluid.set_flags(old)
+    fault_injection.uninstall()
+
+
+def _state(main, scope):
+    return {n: scope.get(n).clone() for n, v in main.global_block().vars.items()
+            if v.persistable and not n.startswith("@HEALTH@")
+            and scope.get(n) is not None}
+
+
+def test_health_sentinel_skips_bad_step_on_card(dev, sentinel_flags):
+    """A planted NaN gradient on step 2 of four BERT-tiny steps, captured
+    and eager in turns from one state: found_inf fires on step 2 only,
+    every persistable is bit-unchanged across it, the later losses are
+    finite, the two modes bit-equal, and each step runs K1-K4 as without
+    the sentinel (the kernels' own counters)."""
+    from paddle_tpu_torch.health.transpile import BAD_TOTAL_VAR, FOUND_INF_VAR
+    from paddle_tpu_torch.models import bert
+
+    cfg, main, loss, scope = _sentinel_bert("nan:grad:step:2")
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = {"captured": _executor(True), "eager": _executor(False)}
+    feed = bert.make_fake_batch(cfg, 4, 32, seed=1)
+    losses = {k: [] for k in exes}
+    for step in range(1, 5):
+        for m, exe in exes.items():
+            pre = _state(main, scopes[m])
+            before = _on_card()
+            (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[m])
+            assert _delta(before, _on_card()) == _bert_step_launches(cfg)
+            losses[m].append(float(lv))
+            found = bool(scopes[m].get(FOUND_INF_VAR).reshape(-1)[0])
+            assert found == (step == 2), (m, step)
+            if step == 2:
+                post = _state(main, scopes[m])
+                assert [n for n in pre if not torch.equal(pre[n], post[n])] \
+                    == [], m
+    assert losses["captured"] == losses["eager"]
+    assert np.isfinite(losses["captured"][2:]).all()
+    for m in exes:
+        assert float(scopes[m].get(BAD_TOTAL_VAR)[0]) == 1.0
+    for n in _state(main, scope):
+        assert torch.equal(scopes["captured"].get(n),
+                           scopes["eager"].get(n)), n
+
+
+def test_health_sentinel_rollback_is_bit_exact_on_card(dev, sentinel_flags):
+    """rollback under dropout, captured: the replay runs at the same
+    step, so four steps with a planted NaN on step 3 equal four steps
+    with the injector disarmed, bit for bit."""
+    from paddle_tpu_torch.health.transpile import HEALTH_PREFIX
+    from paddle_tpu_torch.models import bert
+
+    cfg, main, loss, scope = _sentinel_bert("nan:grad:step:3", "rollback")
+    base = _clone_scope(scope)
+    feed = bert.make_fake_batch(cfg, 4, 32, seed=1)
+    runs = {}
+    for key, sc in (("injected", scope), ("base", base)):
+        exe = _executor(True)
+        exe.health_sentinel(main).ensure_state(sc)
+        if key == "base":  # the same program, its countdown disarmed
+            sc.get(HEALTH_PREFIX + "fault_0").zero_()
+        runs[key] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=sc)[0]) for _ in range(4)]
+    assert runs["injected"] == runs["base"]
+    for n in _state(main, scope):
+        assert torch.equal(scope.get(n), base.get(n)), n

@@ -59,7 +59,10 @@ def test_fresh_interpreter_imports_no_jax():
                 "dataset.uci_housing", "dataset.voc2012", "dataset.wmt14",
                 "dataset.wmt16", "ops.sequence_ops", "ops.rnn_ops",
                 "ops.compat_ops", "ops.structured_ops", "fluid.layers.rnn",
-                "fluid.layers.structured"):
+                "fluid.layers.structured", "health", "health.detect",
+                "health.transpile", "health.gating", "health.sentinel",
+                "ops.amp_ops", "ops.health_ops", "serving.promote",
+                "observability.profiling"):
         assert f"paddle_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 

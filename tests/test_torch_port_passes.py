@@ -179,9 +179,20 @@ def test_default_passes_and_order_are_the_jax_packages():
 
 
 def test_health_sentinel_raises_by_name():
-    main = _bert("port", num_layers=1)
-    with pytest.raises(NotImplementedError, match="health sentinel"):
-        tpasses.PassManager(["health_sentinel"]).run(main)
+    """The health_sentinel pass is ported (health/transpile.py): on a
+    1-layer BERT it inserts the sentinel as the JAX package's adapter
+    does, the same op list, idempotently.  What raises by name under the
+    sentinel is the data-parallel runner
+    (test_torch_port_data_parallel.py)."""
+    types = {}
+    for pkg in PKGS:
+        main = _bert(pkg, num_layers=1)
+        rep = _run(pkg, main, ["health_sentinel"])
+        assert rep[-1]["changed"] and rep[-1]["sites"] == 1
+        assert not _run(pkg, main, ["health_sentinel"])[-1]["changed"]
+        types[pkg] = _types(main)
+    assert types["port"] == types["jax"]
+    assert types["port"].count("health_check") == 1
 
 
 def test_data_parallel_transpile_adapter_needs_loss_name():
