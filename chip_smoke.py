@@ -300,8 +300,8 @@ Phases, each fatal on failure:
      (tests/torch_port_books.py: fit_a_line, recognize_digits mlp and
      conv, image_classification vgg and resnet, word2vec, ctr,
      understand_sentiment conv and stacked LSTM, rnn_encoder_decoder,
-     recommender_system, label_semantic_roles and the attention-fusion
-     Transformer book), each at its own batch, widths, epochs, optimizer
+     recommender_system, label_semantic_roles, the attention-fusion
+     Transformer book and machine_translation), each at its own batch, widths, epochs, optimizer
      and learning rate on CUDAPlace(0), the captured and the eager
      executor in turns from one state (one executor pair a book, freed
      after it): the modes' losses and whole state bit-equal, every
@@ -311,7 +311,10 @@ Phases, each fatal on failure:
      losses within 1e-4 of a CPUPlace run of the port from the card's
      startup state; label_semantic_roles' Viterbi paths from the card's
      trained state equal to the CPU's on the same batch (a differing
-     step prints the margin between its top two path scores).  K1 8, K2
+     step prints the margin between its top two path scores);
+     machine_translation's two beam decodes from the card's trained
+     state, the unrolled one (captured) and the While over tensor arrays
+     (eager by rule), ids equal and scores within 1e-5.  K1 8, K2
      4 and K3 4 a step on the fused Transformer book (4 self-attention
      sites, fp32: split TF32 at D 16), none elsewhere, gated exactly in
      each mode; per book the step p50 / p95 a mode, examples/s, launch
@@ -343,6 +346,28 @@ Phases, each fatal on failure:
      package's keys.  Every program run, replays included, launches K1
      24, K2 12, K3 12, K4 13 on the card (gated run by run); the
      wrappers see each eager run and each capture's warm-up and capture.
+ 29. generate path: GPT beam generation at GPTConfig() width (seeded
+     random weights), fp32, batch 8, beam 4, a 64-token prompt and 32
+     new tokens, in its three builds — the prefix recomputed each step
+     and the KV-cached one (both captured), and the while-loop scan
+     (eager in both modes by rule) — each with a new executor pair, 2
+     runs a mode in turns: every run of a build bit-equal, ids equal
+     across the builds and scores within 1e-4; K1 and K4 launches a run
+     exactly what the pruned plan after the graph passes holds
+     (recompute 384 / 384, cached 12 / 12 + 12 x 31, scan 12 / 12), on
+     the card and in the wrappers; a run's ms, tokens/s (8 x 32 over its
+     p50) and launch API calls (one profiled run a mode; the scan
+     build's one, the same eager loop under either executor).  Card against
+     CPU at 2 layers and full width (the cached and scan builds): ids
+     equal, scores within 1e-4, beside the smallest gap between the
+     K-th and (K+1)-th candidate over every step.  The scheduled step:
+     phase 4's BERT-base b128 s128 bf16 step with linear_lr_warmup over
+     polynomial_decay(power 1) (the Switch crossed at step 4), 8 steps
+     captured and eager in turns: bit-equal, the LR within 1e-7 of the
+     closed form, one graph (launch API calls equal to the constant-LR
+     step's, one cudaGraphLaunch), K1 24, K2 12, K3 12, K4 13 a run;
+     its p50 beside the constant-LR step's (its own executor).  Phase 3
+     holds K1-K3 at the generation prefills' fp32 causal shapes.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -357,8 +382,9 @@ shape), ``--only gpt`` phase 3's K1-K4 checks and phases 17-18,
 ``--only fleet`` phase 19, ``--only fp32train`` phase 20, ``--only
 resnet`` phases 21-22, ``--only cnn`` phase 23, ``--only nmt`` phase
 3's K1-K3 at the NMT shapes and phases 24-26, ``--only book`` phase
-3's K1-K3 at the Transformer book's shapes and phase 27, and ``--only
-health`` phase 28.
+3's K1-K3 at the Transformer book's shapes and phase 27, ``--only
+health`` phase 28, and ``--only generate`` phase 3's K1-K3 at the
+generation shapes and phase 29.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -427,7 +453,9 @@ FP32_FLOPS = 67e12
 TF32_TC_FLOPS = 494.7e12
 BF16_TC_FLOPS = 989e12
 GELU_FLOPS_PER_ELEMENT = 10  # add, scale, erfc, mul... as counted in PERF.md
-SLEEP_CYCLES = 400_000_000  # ~0.2 s of device sleep ahead of a timed run
+# device sleep ahead of a timed run, ~0.08 s: many times the few ms the
+# host takes to enqueue a timed run (_time_ms raises if it does not)
+SLEEP_CYCLES = 150_000_000
 
 
 def _gpu_place():
@@ -5913,6 +5941,38 @@ def _book_viterbi_on_cpu(paddle, books, main, scope, feed, exe):
                 viterbi_paths_equal_cpu=True)
 
 
+def _mt_decodes(paddle, books, scope):
+    """machine_translation's two beam decodes from the card's trained
+    state (``scope``) on the reader's first batch: the unrolled one
+    (captured) and the While over tensor arrays (eager by rule), ids
+    equal and scores within 1e-5, as the CPU test holds them."""
+    fluid = paddle.fluid
+    feed = {"src": books.first_feed(books.BOOKS["machine_translation"],
+                                     paddle)["src"]}
+    exe = fluid.Executor(_gpu_place())
+    outs, eager = {}, {}
+    for tag, builder in (("unrolled", books.mt_build_decode),
+                         ("while", books.mt_build_decode_while)):
+        prog, start = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, start), fluid.unique_name.guard():
+            _, sent, scores = builder(paddle)
+        t0 = time.perf_counter()
+        outs[tag] = exe.run(prog, feed=feed, fetch_list=[sent, scores],
+                            scope=scope)
+        (entry,) = exe.compiled_for(prog)
+        eager[tag] = dict(eager_only=entry.plan.eager_only,
+                          first_run_s=time.perf_counter() - t0)
+    exe.close()
+    (ids, sc), (wids, wsc) = outs["unrolled"], outs["while"]
+    if not np.array_equal(ids, wids) or not np.allclose(
+            wsc, sc, rtol=1e-5, atol=1e-6) or eager["unrolled"][
+                "eager_only"] or not eager["while"]["eager_only"]:
+        raise AssertionError(f"book machine_translation: the while decode "
+                             f"differs from the unrolled one ({eager})")
+    return dict(decodes_equal=True, decode_runs=eager,
+                decode_score_max_abs=float(np.abs(wsc - sc).max()))
+
+
 def run_book(book, counters, books):
     """One book of phase 27 (see the module docstring); returns its
     readings."""
@@ -6008,6 +6068,8 @@ def run_book(book, counters, books):
         out.update(_book_viterbi_on_cpu(
             paddle, books, main, scope,
             books.first_feed(book, paddle), exes["captured"]))
+    if book.name == "machine_translation":
+        out.update(_mt_decodes(paddle, books, scope))
     # one profiled step a mode, on the last batch (after the gates)
     prof = {m: _profile(lambda: exe.run(main, feed=feeds[-1],
                                         fetch_list=[loss],
@@ -6471,6 +6533,429 @@ def run_health_path(counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: GPT beam generation (three builds) and BERT's LR schedule on
+# the BERT-base train step
+# ---------------------------------------------------------------------------
+
+GEN_BATCH, GEN_BEAM, GEN_PROMPT, GEN_NEW = 8, 4, 64, 32
+GEN_BUILDS = ("build_gpt_generate", "build_gpt_generate_cached",
+              "build_gpt_generate_scan")
+GEN_RUNS = 2  # runs a mode and build; the first warms up (and captures)
+# scores across the builds and card against CPU: fp32 log-probs summed
+# over 32 steps, through flash (split TF32) or composed attention and
+# two BLAS libraries
+GEN_SCORE_RTOL = 1e-4
+GEN_PARITY_LAYERS = 2
+# the builds the card-vs-CPU check runs: the recompute build's CPU run
+# (the whole prefix again each step: 2.3 TFLOP at 2 layers) is held
+# through the cross-build gate on the card instead
+GEN_PARITY_BUILDS = GEN_BUILDS[1:]
+GEN_FLASH_CASES = (
+    ("gen_recompute_s64_fp32", 32, 12, 64, 64, torch.float32, True, "zero",
+     True),
+    ("gen_recompute_s95_fp32", 32, 12, 95, 64, torch.float32, True, "zero",
+     True),
+    ("gen_prefill_s64_fp32", 8, 12, 64, 64, torch.float32, True, "zero",
+     True))
+# BERT's schedule on phase 4's step: a linear warm-up to SCHED_PEAK over
+# SCHED_WARMUP steps, then polynomial_decay(power=1) to 0 at SCHED_DECAY
+# (the Switch is crossed at step SCHED_WARMUP)
+SCHED_STEPS, SCHED_WARMUP, SCHED_DECAY, SCHED_PEAK = 8, 4, 16, TRAIN_LR
+SCHED_LR_RTOL = 1e-7
+
+
+def check_flash_generate(dev, rng):
+    """K1 (and K2, K3) against their plain versions and timed at the
+    generation programs' causal fp32 prefills: the recompute build's
+    [B·K·12, 64..95, 64] and the cached and scan builds' [B·12, 64,
+    64]."""
+    return check_flash(dev, rng, GEN_FLASH_CASES)
+
+
+def gen_expected_launches(cfg, build):
+    """{kernel: launches} a run of ``build``: one K1 a layer a causal
+    prefix pass and one K4 a layer an FFN that the run needs.  The cached
+    build's last step computes a decoder pass that no fetch reads (the
+    plan prunes it), so its steps run 31 of their 32; the scan build's
+    while body is a sub-block, which no graph pass rewrites, so its FFN
+    stays unfused."""
+    n, g = cfg.num_layers, GEN_NEW
+    return {"build_gpt_generate": {"flash_fwd": n * g,
+                                   "fused_bias_act": n * g},
+            "build_gpt_generate_cached": {"flash_fwd": n,
+                                          "fused_bias_act": n + n * (g - 1)},
+            "build_gpt_generate_scan": {"flash_fwd": n,
+                                        "fused_bias_act": n}}[build]
+
+
+def _gen_pass_report(plan):
+    """{kernel: launches} a run, read off the plan of the program after
+    the graph passes (its pruned global block): one K1 a flash_attention
+    op, one K4 a fused_bias_act_dropout op."""
+    types = [step[0].type for step in plan.steps]
+    return {"flash_fwd": types.count("flash_attention"),
+            "fused_bias_act": types.count("fused_bias_act_dropout")}
+
+
+def _gen_program(cfg, build):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, sent, scores = getattr(gpt, build)(
+            cfg, GEN_PROMPT, GEN_NEW, beam_size=GEN_BEAM, end_id=0)
+    startup.random_seed = SEED
+    return main, startup, sent, scores
+
+
+def gen_feed(cfg, seed=0):
+    rng = np.random.RandomState(seed)
+    return {"gpt_prompt": rng.randint(0, cfg.vocab_size, (
+        GEN_BATCH, GEN_PROMPT)).astype("int64")}
+
+
+def _gen_compare(what, got, ref, rtol=GEN_SCORE_RTOL):
+    """ids equal and scores within ``rtol``; the largest relative score
+    difference."""
+    (ids, sc), (rids, rsc) = got, ref
+    if not np.array_equal(ids, rids):
+        where = np.argwhere(ids != rids)[:5].tolist()
+        raise AssertionError(f"{what}: ids differ at {where}")
+    rel = float((np.abs(sc - rsc) / np.abs(rsc)).max())
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: scores {sc.ravel()[:4]} vs "
+                             f"{rsc.ravel()[:4]}: relative {rel} > {rtol}")
+    return rel
+
+
+def run_generate_path(counters):
+    """Phase 29 (1): the three GPT generation programs at GPTConfig()
+    width (see the module docstring)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    t_path = time.perf_counter()
+    cfg = gpt.GPTConfig()
+    feed = gen_feed(cfg)
+    scope = fluid.Scope()
+    builds, results = {}, {}
+    totals = {"launches": {}, "device_launches": {}}
+    for bi, build in enumerate(GEN_BUILDS):
+        what = f"generate {build}"
+        t0 = time.perf_counter()
+        main, startup, sent, scores = _gen_program(cfg, build)
+        build_s = time.perf_counter() - t0
+        if bi == 0:  # the three builds name the same parameters
+            fluid.Executor(_gpu_place()).run(startup, scope=scope)
+        exes = _executors()
+        launches = {m: {} for m in exes}
+        on_card = {m: {} for m in exes}
+        secs = {m: [] for m in exes}
+        got = {m: [] for m in exes}
+        torch.cuda.synchronize()
+        t_runs = time.perf_counter()
+        for r in range(GEN_RUNS):
+            for m, exe in exes.items():  # in turns
+                before = _snap()
+                t1 = time.perf_counter()
+                ids, sc = exe.run(main, feed=feed, fetch_list=[sent, scores],
+                                  scope=scope)
+                dt = time.perf_counter() - t1  # the fetch syncs
+                py, dev = _since(before, counters)
+                _add(launches[m], py)
+                _add(on_card[m], dev)
+                got[m].append((ids, sc))
+                if r:
+                    secs[m].append(dt)
+        (entry,) = exes["captured"].compiled_for(main)
+        per_run = _gen_pass_report(entry.plan)
+        if per_run != gen_expected_launches(cfg, build):
+            raise AssertionError(f"{what}: the passes left {per_run} "
+                                 f"kernel sites, expected "
+                                 f"{gen_expected_launches(cfg, build)}")
+        eager_only = entry.plan.eager_only
+        if eager_only != (build == "build_gpt_generate_scan"):
+            raise AssertionError(f"{what}: eager_only {eager_only} (host "
+                                 f"ops {entry.plan.host_ops})")
+        if eager_only:  # a while plan runs eagerly in both modes
+            want = _times(per_run, GEN_RUNS)
+            if any(launches[m] != want or on_card[m] != want
+                   for m in exes):
+                raise AssertionError(f"{what}: launches {launches} "
+                                     f"(wrappers) and {on_card} (on the "
+                                     f"card), expected {want} a mode")
+            if entry.graph is not None:
+                raise AssertionError(f"{what}: a while plan was captured")
+        else:
+            _gate_launches(what, launches, on_card, per_run, GEN_RUNS, 1)
+            if entry.graph is None:
+                raise AssertionError(f"{what}: no graph captured")
+        ref = got["captured"][0]
+        for m in exes:
+            for i, (ids, sc) in enumerate(got[m]):
+                if not (np.array_equal(ids, ref[0])
+                        and np.array_equal(sc, ref[1])):
+                    raise AssertionError(f"{what}: {m} run {i} differs "
+                                         f"from the captured first run")
+        ids, sc = ref
+        if ids.shape != (GEN_BATCH, GEN_BEAM, GEN_NEW) \
+                or not np.isfinite(sc).all() \
+                or not np.all(np.diff(sc, axis=1) <= 0):
+            raise AssertionError(f"{what}: ids {ids.shape}, scores {sc}")
+        results[build] = ref
+        t_prof = time.perf_counter()
+        # the card's events alone (a run's launch API calls among them:
+        # the host's op events of a 20,000-launch eager run make a trace
+        # many times slower); a while plan runs the same eager loop under
+        # either executor: it is profiled once (the captured executor's
+        # run), for both
+        prof = {m: _profile(lambda: exe.run(main, feed=feed,
+                                            fetch_list=[sent, scores],
+                                            scope=scope), 1,
+                            device_only=True)
+                for m, exe in exes.items()
+                if not (eager_only and m == "eager")}
+        if eager_only:
+            prof["eager"] = prof["captured"]
+        modes = {m: dict(**_ms_quantiles(v),
+                         tokens_per_s=GEN_BATCH * GEN_NEW
+                         / float(np.median(v)),
+                         launch_api_calls=prof[m]["launch_api_calls"],
+                         device_busy_ms=prof[m]["device_busy_ms"],
+                         device_idle_share=prof[m].get("device_idle_share"),
+                         launches=launches[m], device_launches=on_card[m])
+                 for m, v in secs.items()}
+        modes["captured"]["capture_s"] = _capture_seconds(exes["captured"],
+                                                          main)
+        seconds = dict(build=build_s, runs=t_prof - t_runs,
+                       profiles=time.perf_counter() - t_prof)
+        _close(exes)
+        for key, per_mode in (("launches", launches),
+                              ("device_launches", on_card)):
+            _add(totals[key], _summed(per_mode))
+        builds[build] = dict(
+            ops=len(main.global_block().ops), seconds=seconds,
+            kernels_a_run=per_run, eager_only=eager_only,
+            captured_eager_bit_equal=True, modes=modes,
+            scores_beam0=sc[:, 0].tolist())
+        torch.cuda.empty_cache()
+    rel = {b: _gen_compare(f"generate {b} vs {GEN_BUILDS[0]}", results[b],
+                           results[GEN_BUILDS[0]])
+           for b in GEN_BUILDS[1:]}
+    return dict(model="GPTConfig()", batch=GEN_BATCH, beam=GEN_BEAM,
+                prompt=GEN_PROMPT, new_tokens=GEN_NEW, dtype="float32",
+                builds=builds, ids_equal_across_builds=True,
+                score_max_rel_vs_recompute=rel,
+                tokens_per_s_note="batch x new tokens over a run's p50",
+                seconds=time.perf_counter() - t_path, **totals)
+
+
+def _beam_gaps(fetched, k):
+    """The smallest gap, over every row and step, between the K-th and
+    the (K+1)-th best candidate beam_search chose among (its inputs as
+    the card computed them: pre_ids, pre_scores, scores)."""
+    gaps = []
+    for pre_ids, pre, scores in fetched:
+        total = pre[:, :, None].astype(np.float64) + scores
+        total[pre_ids == 0] = -1e30  # a finished beam (end id 0): only
+        fin = np.argwhere(pre_ids == 0)  # end id, at its own score
+        for b, j in fin:
+            total[b, j, 0] = pre[b, j]
+        flat = np.sort(total.reshape(total.shape[0], -1), axis=1)[:, ::-1]
+        gaps.append(flat[:, k - 1] - flat[:, k])
+    return float(np.min(gaps))
+
+
+def run_generate_parity():
+    """Phase 29 (2): 2 layers at GPTConfig() width, fp32: the cached and
+    scan builds on the card against a CPUPlace run from the same
+    weights; ids equal, scores within GEN_SCORE_RTOL; beside the largest
+    difference, the smallest gap between the K-th and (K+1)-th candidate
+    over all steps of the cached build."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    t0 = time.perf_counter()
+    cfg = gpt.GPTConfig(num_layers=GEN_PARITY_LAYERS)
+    feed = gen_feed(cfg, seed=1)
+    out = {}
+    card_scope = cpu_scope = None
+    for build in GEN_PARITY_BUILDS:
+        main, startup, sent, scores = _gen_program(cfg, build)
+        if card_scope is None:
+            card_scope = fluid.Scope()
+            fluid.Executor(_gpu_place()).run(startup, scope=card_scope)
+            cpu_scope = _clone_scope(card_scope, "cpu")
+        fetch = [sent, scores]
+        steps = [op for op in main.global_block().ops
+                 if op.type == "beam_search"]
+        for op in steps:
+            fetch += [op.input(s)[0] for s in ("PreIds", "PreScores",
+                                               "Scores")]
+        exe = fluid.Executor(_gpu_place())
+        card = exe.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+        exe.close()
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch[:2], scope=cpu_scope)
+        rel = _gen_compare(f"generate parity {build}", card[:2], cpu)
+        row = dict(score_max_rel=rel, ids_equal=True)
+        if steps:
+            rest = card[2:]
+            row["min_topk_gap"] = _beam_gaps(
+                [tuple(rest[i:i + 3]) for i in range(0, len(rest), 3)],
+                GEN_BEAM)
+        out[build] = row
+    return dict(layers=GEN_PARITY_LAYERS, builds=out,
+                seconds=time.perf_counter() - t0)
+
+
+def _sched_bert_program(cfg):
+    """Phase 4's program with BERT's schedule for its learning rate;
+    returns (main, startup, loss, lr)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        L = fluid.layers
+        lr = L.linear_lr_warmup(
+            L.polynomial_decay(SCHED_PEAK, SCHED_DECAY,
+                               end_learning_rate=0.0, power=1.0),
+            SCHED_WARMUP, 0.0, SCHED_PEAK)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    enable_bf16_policy(main)
+    startup.random_seed = SEED
+    return main, startup, loss, lr
+
+
+def sched_lr(step):
+    """The schedule's closed form at ``step`` (1-based, the step
+    counter's value in that run)."""
+    if step < SCHED_WARMUP:
+        return SCHED_PEAK * step / SCHED_WARMUP
+    return SCHED_PEAK * (1.0 - min(step, SCHED_DECAY) / SCHED_DECAY)
+
+
+def run_sched_train_path(counters):
+    """Phase 29 (3): phase 4's BERT-base b128 s128 bf16 step with BERT's
+    schedule (see the module docstring)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                               attn_dropout=0.0)
+    main, startup, loss, lr = _sched_bert_program(cfg)
+    cmain, cstartup, closs = _bert_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    cscope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(cstartup, scope=cscope)
+    exes = _executors()
+    # the constant-LR step on an executor of its own: an executor's step
+    # keys the random streams (dropout), so each runs one program
+    cexe = _executors()["captured"]
+    feed = bert.make_fake_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    losses = {m: [] for m in exes}
+    lrs = {m: [] for m in exes}
+    secs = {m: [] for m in list(exes) + ["constant_lr"]}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    torch.cuda.synchronize()
+    for _ in range(SCHED_STEPS):
+        for m, exe in exes.items():  # in turns
+            before = _snap()
+            t1 = time.perf_counter()
+            lv, lrv = exe.run(main, feed=feed, fetch_list=[loss, lr],
+                              scope=scopes[m])
+            secs[m].append(time.perf_counter() - t1)
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            losses[m].append(float(lv))
+            lrs[m].append(float(np.asarray(lrv).reshape(-1)[0]))
+        t1 = time.perf_counter()
+        cexe.run(cmain, feed=feed, fetch_list=[closs], scope=cscope)
+        secs["constant_lr"].append(time.perf_counter() - t1)
+    what = "scheduled train path"
+    _gate_launches(what, launches, on_card, _train_step_launches(cfg),
+                   SCHED_STEPS, 1)
+    want = [sched_lr(s) for s in range(1, SCHED_STEPS + 1)]
+    rel = max(abs(a - b) / b for m in exes for a, b in zip(lrs[m], want))
+    if not rel <= SCHED_LR_RTOL:
+        raise AssertionError(f"{what}: learning rates {lrs} vs the closed "
+                             f"form {want}: relative {rel}")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"{what}: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
+    if not all(np.isfinite(losses["captured"])):
+        raise AssertionError(f"{what}: losses {losses}")
+    (entry,) = exes["captured"].compiled_for(main)
+    if entry.plan.eager_only or entry.graph is None:
+        raise AssertionError(f"{what}: the step is not one captured graph")
+    ops = [op.type for op in main.global_block().ops]
+    prof = _profile(lambda: exes["captured"].run(
+        main, feed=feed, fetch_list=[loss, lr], scope=scopes["captured"]), 1)
+    cprof = _profile(lambda: cexe.run(cmain, feed=feed, fetch_list=[closs],
+                                      scope=cscope), 1)
+    calls, ccalls = prof["launch_api_calls"], cprof["launch_api_calls"]
+    if calls.get("cudaGraphLaunch") != 1 or calls != ccalls:
+        raise AssertionError(f"{what}: launch API calls a step {calls}, the "
+                             f"constant-LR step's {ccalls}")
+    _close({**exes, "constant_lr": cexe})
+    return dict(
+        model="BertConfig.base(vocab_size=30528)", batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, dtype_policy="bf16", steps=SCHED_STEPS,
+        schedule=dict(warmup=SCHED_WARMUP, decay_steps=SCHED_DECAY,
+                      peak=SCHED_PEAK, end=0.0, power=1.0),
+        conditional_blocks=ops.count("conditional_block"),
+        lr=lrs["captured"], lr_closed_form=want, lr_max_rel=rel,
+        losses=losses["captured"], captured_eager_bit_equal=True,
+        one_graph=True, launch_api_calls=calls,
+        launch_api_calls_constant_lr=ccalls,
+        p50_ms={m: _ms_quantiles(v[1:])["p50_ms"] for m, v in secs.items()},
+        p95_ms={m: _ms_quantiles(v[1:])["p95_ms"] for m, v in secs.items()},
+        device_busy_ms=prof["device_busy_ms"],
+        device_busy_ms_constant_lr=cprof["device_busy_ms"],
+        launches=_summed(launches), device_launches=_summed(on_card),
+        seconds=time.perf_counter() - t0)
+
+
+def run_generate_phase(wrappers, say, smi):
+    """Phase 29: generation, its card-vs-CPU parity and the scheduled
+    BERT step, each with its counts zeroed just before and read just
+    after; returns {path: readings}."""
+    torch.cuda.empty_cache()
+    gen = run_generate_path({k: wrappers[k] for k in ("flash_fwd",
+                                                      "fused_bias_act")})
+    say("generate path", {"card": smi, **gen})
+    torch.cuda.empty_cache()
+    say("generate parity", run_generate_parity())
+    torch.cuda.empty_cache()
+    sched = run_sched_train_path({k: wrappers[k] for k in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "fused_bias_act")})
+    say("scheduled train path", {"card": smi, **sched})
+    torch.cuda.empty_cache()
+    say("generate summary", {
+        "card": smi,
+        **{b: {m: dict(p50_ms=r["modes"][m]["p50_ms"],
+                       tokens_per_s=r["modes"][m]["tokens_per_s"],
+                       launch_api_calls=r["modes"][m]["launch_api_calls"])
+               for m in r["modes"]}
+           for b, r in gen["builds"].items()},
+        "sched_p50_ms": sched["p50_ms"], "sched_lr_max_rel":
+            sched["lr_max_rel"], "generate_seconds": gen["seconds"],
+        "sched_seconds": sched["seconds"]})
+    return {"generate": gen, "sched_train": sched}
+
+
 ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
                  "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -6482,7 +6967,9 @@ ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
 # (GPT-2 small's shapes among them) and phases 17-18, "fleet" phase 19,
 # "fp32train" phase 20, "resnet" phases 21-22, "cnn" phase 23, "nmt"
 # phase 3's K1-K3 at the NMT shapes and phases 24-26, and "book" phase
-# 3's K1-K3 at the Transformer book's shapes and phase 27
+# 3's K1-K3 at the Transformer book's shapes and phase 27, "health"
+# phase 28, and "generate" phase 3's K1-K3 at the generation programs'
+# prefill shapes and phase 29
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -6507,9 +6994,11 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         "nmt": (ALL_LIBRARIES, ("check_flash_nmt",)),
         # K1-K3 on the fused Transformer book, none on the others
         "book": (ALL_LIBRARIES, ("check_flash_book",)),
-        "health": (("flash_attention", "fused_bias_act"), ())}
+        "health": (("flash_attention", "fused_bias_act"), ()),
+        "generate": (("flash_attention", "fused_bias_act"),
+                     ("check_flash_generate",))}
 NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
-              "resnet", "cnn", "nmt", "book", "health")
+              "resnet", "cnn", "nmt", "book", "health", "generate")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -6517,12 +7006,12 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    keys=NEW_PHASES):
-    """Phases 20, 14-19 and 21-28 (those of ``keys``, in that order);
+    """Phases 20, 14-19 and 21-29 (those of ``keys``, in that order);
     returns their path readings (None for a phase not run).  Phase 16's
     ids are compared with ``fp32_outs``, the fp32-weight lane's, where
     given (printed, not gated)."""
     ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = nmt = None
-    book = health = None
+    book = health = gen = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -6625,7 +7114,10 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
             "device_launches": health["device_launches"],
             "health_seconds": health["seconds"]})
         torch.cuda.empty_cache()
-    return ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book, health
+    if "generate" in keys:
+        gen = run_generate_phase(wrappers, say, smi)
+    return (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
+            health, gen)
 
 
 def run_only(keys, dev, smi, say):
@@ -6671,7 +7163,7 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
                     "gpt, fleet, fp32train, resnet, cnn, nmt, book, "
-                    "health): "
+                    "health, generate): "
                     "phases 1-3 "
                     "for those kernels alone (flash: with phase 2's flash "
                     "report; engine: phases 10-11; passes, predictor, "
@@ -6680,7 +7172,8 @@ def main(argv=None):
                     "phases 21-22; cnn: phase 23; nmt: K1-K3 at the NMT "
                     "shapes and phases 24-26; book: K1-K3 at the "
                     "Transformer book's shapes and phase 27; health: phase "
-                    "28); the default "
+                    "28; generate: K1-K3 at the generation programs' "
+                    "shapes and phase 29); the default "
                     "runs every phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -6760,6 +7253,7 @@ def main(argv=None):
     k1p_err, k1p_t = check_flash_fp32_predictor(dev, rng)
     nmt_err, nmt_t = check_flash_nmt(dev, rng)
     book_err, book_t = check_flash_book(dev, rng)
+    gen_err, gen_t = check_flash_generate(dev, rng)
     torch.cuda.empty_cache()
     for k, timed in (("K5", k5_t), ("K7", k7_t)):
         for name, t in timed.items():
@@ -6773,7 +7267,7 @@ def main(argv=None):
         "ragged_attention_contract": k6c_t, "k4_bf16_loop_sass": k4_loop,
         "paged_attention_quant": k7_t, "fused_update": k8_t,
         "fused_update_group": k8g_t, "flash_fp32_predictor": k1p_t,
-        "flash_nmt": nmt_t, "flash_book": book_t,
+        "flash_nmt": nmt_t, "flash_book": book_t, "flash_generate": gen_t,
         "launch_floor_ms": launch_floor_ms(), "card": smi})
 
     wrappers = kernel_wrappers()
@@ -6831,7 +7325,8 @@ def main(argv=None):
     say("dp train parity", run_dp_parity())
 
     (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
-     health) = run_new_phases(wrappers, train_kernels, fp32_outs, smi, say)
+     health, gen) = run_new_phases(wrappers, train_kernels, fp32_outs, smi,
+                                   say)
 
     dec = k5_t["decode"]
     k4 = k4b_t["[16384,3072] bf16"]
@@ -6858,6 +7353,10 @@ def main(argv=None):
                      "book": book[key],
                      # phase 28: the train step under the health sentinel
                      "health": health[key],
+                     # phase 29: GPT generation (K1, K4), and the train
+                     # step under BERT's LR schedule (K1-K4)
+                     "generate": gen["generate"][key],
+                     "sched_train": gen["sched_train"][key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}
@@ -6901,22 +7400,24 @@ def main(argv=None):
                 **{case[0]: nmt_t[case[0]][kern]
                    for case in NMT_FLASH_CASES},
                 **{case[0]: book_t[case[0]][kern]
-                   for case in BOOK_FLASH_CASES}}
+                   for case in BOOK_FLASH_CASES},
+                **{case[0]: gen_t[case[0]][kern]
+                   for case in GEN_FLASH_CASES}}
 
     kernels = [
         row("flash_fwd", flash_src, f"{flash_py}:78",
             max(fl_err["flash_fwd"], k1p_err, nmt_err["flash_fwd"],
-                book_err["flash_fwd"]),
+                book_err["flash_fwd"], gen_err["flash_fwd"]),
             fl_t["flash_fwd"],
             fl_t["gpt"]["flash_fwd"], k1p_t, flash_shapes("flash_fwd")),
         row("flash_bwd_dq", flash_src, f"{flash_py}:130",
             max(fl_err["flash_bwd_dq"], nmt_err["flash_bwd_dq"],
-                book_err["flash_bwd_dq"]),
+                book_err["flash_bwd_dq"], gen_err["flash_bwd_dq"]),
             fl_t["flash_bwd_dq"],
             fl_t["gpt"]["flash_bwd_dq"], shapes=flash_shapes("flash_bwd_dq")),
         row("flash_bwd_dkv", flash_src, f"{flash_py}:167",
             max(fl_err["flash_bwd_dkv"], nmt_err["flash_bwd_dkv"],
-                book_err["flash_bwd_dkv"]),
+                book_err["flash_bwd_dkv"], gen_err["flash_bwd_dkv"]),
             fl_t["flash_bwd_dkv"],
             fl_t["gpt"]["flash_bwd_dkv"],
             shapes=flash_shapes("flash_bwd_dkv")),

@@ -187,7 +187,11 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
 def _default_grad_descs(op, info, out_grads, wanted, uniq):
     """The generic ``<type>_grad`` desc: every forward input, one
     ``<Out>@GRAD`` per forward output that has a grad, one
-    ``<In>@GRAD`` per wanted input."""
+    ``<In>@GRAD`` per wanted input.  A list-valued output slot needs a
+    grad for each of its names, by position: one no reader
+    differentiates gets a ``fill_zeros_like`` op (``<name>@GRAD@ZERO``)
+    ahead of the grad op, as in the JAX package."""
+    pre_descs = []
     gins = {}
     for slot in info.input_slots:
         cslot = slot.rstrip("*")
@@ -199,11 +203,19 @@ def _default_grad_descs(op, info, out_grads, wanted, uniq):
         if not names:
             continue
         if info.is_variadic(slot):
-            # the JAX package zero-fills missing grads of a list-valued
-            # output; no op the port has so far has one
-            raise NotImplementedError(
-                f"{op.type}: grads of the variadic output {slot!r}")
-        if names[0] in out_grads:
+            if not any(n in out_grads for n in names):
+                continue
+            gnames = []
+            for n in names:
+                if n in out_grads:
+                    gnames.append(out_grads[n])
+                else:
+                    z = grad_var_name(n) + "@ZERO"
+                    pre_descs.append(("fill_zeros_like", {"X": [n]},
+                                      {"Out": [z]}, {}))
+                    gnames.append(z)
+            gins[cslot + "@GRAD"] = gnames
+        elif names[0] in out_grads:
             gins[cslot + "@GRAD"] = [out_grads[names[0]]]
     gouts = {}
     pairs = []
@@ -231,4 +243,5 @@ def _default_grad_descs(op, info, out_grads, wanted, uniq):
             g = uniq(n)
             gouts[cslot + "@GRAD"] = [g]
             pairs.append((n, g))
-    return [(info.type + "_grad", gins, gouts, dict(op.attrs))], pairs
+    return pre_descs + [(info.type + "_grad", gins, gouts,
+                         dict(op.attrs))], pairs

@@ -20,8 +20,11 @@ reads (:class:`_Plan`).  Then:
   CUDA graph (:class:`CapturedGraph`); every later run copies its feeds
   into the graph's buffers and replays it.  A replay costs one
   ``cudaGraphLaunch`` where the loop paid a launch a kernel.  A plan
-  with a control-flow op, or one that reads neither scope nor feed (a
-  startup program), runs eagerly by rule.  A capture that fails raises,
+  with a ``while`` or a ``print`` op (at any depth of sub-blocks: the
+  loop reads its predicate on the host each iteration, print writes
+  from the host), or one that reads neither scope nor feed (a startup
+  program), runs eagerly by rule; ``conditional_block`` and
+  ``static_rnn`` keep fixed shapes and are captured with the rest.  A capture that fails raises,
   naming the op; nothing falls back.  A graph keeps a private memory
   pool of one run's intermediates while it is held: an executor holds
   the graphs of its ``MAX_GRAPHS`` (8) most recently run signatures and
@@ -49,8 +52,13 @@ the executor step before each run (fluid/registry.py
 ``RandomStreams``), registered with the graph, so a replay draws what
 the eager run of the same step draws.
 
-Each value leaves the run's environment after its last reader, so a
-training step holds what the backward still needs and no more.  Under
+Each value leaves the run's environment after its last reader (a
+sub-block's reads count as its op's), so a training step holds what
+the backward still needs and no more.  A control-flow op's lowering
+runs its sub-block's ops over an environment of its own
+(:func:`run_sub_block`, the counterpart of the JAX package's
+``_trace_sub``), with the run's place, random streams, ``is_test``
+and dtype policy.  Under
 the bf16 dtype policy (``program._dtype_policy == "bf16"``) each op's
 inputs are cast at the lowering, as in the JAX package's
 ``trace_block`` (:func:`_apply_bf16_policy`).
@@ -80,13 +88,18 @@ import torch
 
 from . import framework, registry
 from .framework import Variable
+from .struct_values import is_struct_value
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard",
-           "CapturedGraph", "MAX_GRAPHS"]
+           "CapturedGraph", "MAX_GRAPHS", "HOST_OPS", "run_sub_block"]
 
 # graphs an executor holds (each with a private pool of one run's
 # intermediates); beyond it the least recently run one is freed
 MAX_GRAPHS = 8
+
+# ops that need the host during a run: a plan holding one (at any depth
+# of sub-blocks) runs the eager loop, never a captured graph
+HOST_OPS = frozenset({"while", "print"})
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +241,10 @@ _BF16_KEEP_FP32_INPUTS = {
 
 def _map_floats(vals, fn):
     def one(v):
-        if v is None:
-            return None
+        if v is None or is_struct_value(v):
+            # a tensor array or rank table passes through: the op that
+            # made its buffer set the buffer's dtype
+            return v
         if isinstance(v, (list, tuple)):
             return [one(x) for x in v]
         return fn(v) if v.is_floating_point() else v
@@ -243,7 +258,7 @@ def _all_float_inputs_scalar(vals):
     stack = list(vals)
     while stack:
         v = stack.pop()
-        if v is None:
+        if v is None or is_struct_value(v):
             continue
         if isinstance(v, (list, tuple)):
             stack.extend(v)
@@ -299,6 +314,46 @@ def _prune_ops(block, fetch_names):
             kept.append(op)
             needed.update(op.input_arg_names)
     return list(reversed(kept))
+
+
+def _sub_block_ops(program, op):
+    """Every op of ``op``'s sub-block and of the sub-blocks inside it."""
+    if "sub_block" not in op.attrs:
+        return
+    for sop in program.block(op.attrs["sub_block"]).ops:
+        yield sop
+        yield from _sub_block_ops(program, sop)
+
+
+def _bind(op, info):
+    """(op, info, input bindings, output bindings): each slot's name, or
+    its list of names for a variadic slot."""
+    ins = []
+    for slot in info.input_slots:
+        names = op.inputs.get(slot.rstrip("*"), [])
+        if info.is_variadic(slot):
+            ins.append((True, list(names)))
+        else:
+            ins.append((False, names[0] if names else None))
+    outs = []
+    for slot in info.output_slots:
+        names = op.outputs.get(slot.rstrip("*"), [])
+        outs.append((info.is_variadic(slot), list(names)))
+    return op, info, ins, outs
+
+
+def _optional_in_out(op, info, block):
+    """The names ``op`` reads through an optional slot and also writes
+    that are not persistable (write_to_array's Array at the first
+    write): a value the op makes when it is absent, not a scope read."""
+    out_names = set(op.output_arg_names)
+    names = set()
+    for slot in info.optional:
+        for n in op.inputs.get(slot, []):
+            v = block._find_var_recursive(n)
+            if n in out_names and (v is None or not v.persistable):
+                names.add(n)
+    return names
 
 
 class _Group(typing.NamedTuple):
@@ -365,33 +420,28 @@ class _Plan:
         for op in ops:
             op_index.append((block.idx << 16) | position[id(op)])
             info = registry.get_op(op.type)
-            ins = []
-            for slot in info.input_slots:
-                names = op.inputs.get(slot.rstrip("*"), [])
-                if info.is_variadic(slot):
-                    ins.append((True, list(names)))
-                else:
-                    ins.append((False, names[0] if names else None))
-            outs = []
-            for slot in info.output_slots:
-                names = op.outputs.get(slot.rstrip("*"), [])
-                outs.append((info.is_variadic(slot), list(names)))
-            steps.append((op, info, ins, outs))
+            steps.append(_bind(op, info))
+            made_here = _optional_in_out(op, info, block)
             for n in op.input_arg_names:
-                if n not in produced and n not in self.scope_reads:
+                if n not in produced and n not in self.scope_reads \
+                        and n not in made_here:
                     self.scope_reads.append(n)
             for n in op.output_arg_names:
                 produced.add(n)
                 v = block._find_var_recursive(n)
                 if v is not None and v.persistable and n not in self.writes:
                     self.writes.append(n)
-        # runs the eager loop by rule: a control-flow op (a sub-block:
-        # none is ported yet) runs its body from the host, which a CUDA
-        # graph cannot hold; and a plan that reads neither the scope nor
-        # a feed (a startup program) makes the same values from nothing
-        # every run, so a graph would only pin a second copy of them
-        self.eager_only = (any("sub_block" in op.attrs for op in ops)
-                           or not (self.scope_reads or feed_names))
+        # runs the eager loop by rule: a HOST_OPS op (a while loop reads
+        # its predicate each iteration, print writes from the host),
+        # which a CUDA graph cannot hold; and a plan that reads neither
+        # the scope nor a feed (a startup program) makes the same values
+        # from nothing every run, so a graph would only pin a second
+        # copy of them
+        self.host_ops = sorted({o.type for op in ops
+                                for o in [op, *_sub_block_ops(program, op)]
+                                if o.type in HOST_OPS})
+        self.eager_only = bool(self.host_ops) or not (self.scope_reads
+                                                      or feed_names)
         bad = [n for n in fetch_names if n not in produced]
         if bad:
             raise ValueError(f"fetch target(s) {bad} are not produced by "
@@ -406,6 +456,10 @@ class _Plan:
             for op in step.ops if isinstance(step, _Group) else step[:1]:
                 for n in op.input_arg_names + op.output_arg_names:
                     last[n] = i
+                # a name a sub-block reads lives as long as its op
+                for sop in _sub_block_ops(program, op):
+                    for n in sop.input_arg_names:
+                        last[n] = i
         self.frees = [[] for _ in self.steps]
         for n, i in last.items():
             if n not in keep:
@@ -521,6 +575,8 @@ def run_plan(plan, envs, ctxs, bf16):
     env after their last reader.  An exception leaves with the failing
     op's type in its ``pt_op`` attribute."""
     _precision_policy(bf16, ctxs[0].device)
+    for ctx in ctxs:
+        ctx.bf16 = bf16  # the sub-blocks of control-flow ops read it
     step = None
     try:
         with torch.no_grad():
@@ -540,6 +596,49 @@ def run_plan(plan, envs, ctxs, bf16):
             except AttributeError:  # an exception type without a dict
                 pass
         raise
+
+
+def _sub_steps(block):
+    """The bound ops of a sub-block with their op indices, made once a
+    program version."""
+    version = block.program._version
+    cached = getattr(block, "_pt_steps", None)
+    if cached is None or cached[0] != version:
+        steps = []
+        for pos, op in enumerate(block.ops):
+            info = registry.get_op(op.type)
+            if info.collective:
+                raise NotImplementedError(
+                    f"{op.type} inside a sub-block: collectives under "
+                    f"control flow are not ported")
+            steps.append((_bind(op, info), (block.idx << 16) | pos))
+        cached = block._pt_steps = (version, steps)
+    return cached[1]
+
+
+def run_sub_block(ctx, block, env):
+    """Run ``block``'s ops in order over ``env`` (name -> value, updated
+    in place and returned) with ``ctx``: the run's device, random
+    streams, step, ``is_test`` and bf16 policy (``ctx.bf16``) carry into
+    the sub-block.  Each op's index in its block keys a seeded random
+    op's stream, as at the top level.  The context's current op is
+    restored on the way out."""
+    bf16 = getattr(ctx, "bf16", False)
+    prev = ctx.cur_op, ctx.op_index
+    try:
+        for (op, info, ins, outs), idx in _sub_steps(block):
+            vals = _inputs(env, ins)
+            if bf16:
+                vals = _apply_bf16_policy(op, vals)
+            ctx.cur_op, ctx.op_index = op, idx
+            if info.group is not None:
+                out = info.group.lower([(ctx, vals, op.attrs)])[0]
+            else:
+                out = info.lower(ctx, *vals, attrs=op.attrs)
+            _write(env, outs, _as_tuple(out))
+    finally:
+        ctx.cur_op, ctx.op_index = prev
+    return env
 
 
 # ---------------------------------------------------------------------------
@@ -715,7 +814,8 @@ class _Signature:
     def _contexts(self, step):
         return [registry.LowerContext(
             dev, seed=s, is_test=self.program._is_test, step=step,
-            replica=st.replica, group=self.group, streams=st)
+            replica=st.replica, group=self.group, streams=st,
+            program=self.program)
             for dev, st, s in zip(self.devices, self.streams,
                                   self._reseed(step))]
 
@@ -787,8 +887,11 @@ class _Chain:
 
 
 def _fetch_copies(fetches, return_numpy):
+    """Copies of the fetches: numpy arrays (a bf16 tensor as float32,
+    which holds it exactly: numpy has no bfloat16), else tensors."""
     if return_numpy:
-        return [f.detach().cpu().numpy() for f in fetches]
+        return [(f.float() if f.dtype == torch.bfloat16 else f)
+                .detach().cpu().numpy() for f in fetches]
     return [f.clone() for f in fetches]
 
 

@@ -24,6 +24,7 @@ __all__ = [
     "default_main_program", "default_startup_program", "program_guard",
     "unique_name", "CPUPlace", "CUDAPlace", "TPUPlace", "resolve_place",
     "convert_np_dtype_to_dtype_", "grad_var_name", "GRAD_SUFFIX",
+    "is_float_dtype",
 ]
 
 GRAD_SUFFIX = "@GRAD"
@@ -48,6 +49,11 @@ def convert_np_dtype_to_dtype_(dtype) -> str:
     if isinstance(dtype, torch.dtype):
         return str(dtype).replace("torch.", "")
     return np.dtype(dtype).name
+
+
+def is_float_dtype(dtype) -> bool:
+    return convert_np_dtype_to_dtype_(dtype) in (
+        "float16", "bfloat16", "float32", "float64")
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +220,11 @@ class Variable:
     def __truediv__(self, other):
         return self._binary(other, "elementwise_div")
 
+    def __rtruediv__(self, other):
+        from .layers import nn as _nn
+
+        return _nn._elementwise_binary_var(other, self, "elementwise_div")
+
     def __matmul__(self, other):
         from .layers import nn as _nn
 
@@ -326,6 +337,12 @@ class Block:
                 self.parent_idx)._find_var_recursive(name)
         return None
 
+    @property
+    def parent_block(self):
+        if self.parent_idx < 0:
+            return None
+        return self.program.block(self.parent_idx)
+
     def create_var(self, **kw):
         name = kw.get("name")
         if name is not None and name in self.vars:
@@ -408,6 +425,19 @@ class Program:
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def _create_block(self, parent_idx=None):
+        """A new block whose parent is ``parent_idx`` (the current block
+        by default); it becomes the current block, where layers append
+        their ops until :meth:`_rollback`."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
 
     def _bump_version(self):
         self._version += 1

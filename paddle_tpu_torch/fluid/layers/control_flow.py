@@ -1,0 +1,678 @@
+"""Control-flow layers (counterpart of
+``paddle_tpu/fluid/layers/control_flow.py``).
+
+While, Switch, ConditionalBlock and StaticRNN build sub-blocks of op
+descs; then a capture analysis (:func:`_analyze_sub_block`) declares
+every value a sub-block reads from an enclosing block as an input of its
+op, so the lowerings (ops/control_flow_ops.py) and append_backward see
+the whole dataflow.  The tensor-array and rank-table layers, IfElse,
+DynamicRNN (over StaticRNN on padded batches and a length) and Print are
+the JAX package's, op for op.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from ..framework import unique_name
+from ..layer_helper import LayerHelper
+from .. import framework
+
+__all__ = [
+    "While", "Switch", "ConditionalBlock", "StaticRNN", "increment",
+    "less_than", "less_equal", "greater_than", "greater_equal", "equal",
+    "not_equal", "array_write", "array_read", "array_length", "create_array",
+    "autoincreased_step_counter",
+]
+
+
+def _analyze_sub_block(sub_block, extra_exclude=()):
+    """Classify the sub-block's dataflow against enclosing blocks.
+
+    Returns (carries, extras, extras_ng): carries = outer-block vars written
+    by sub ops; extras / extras_ng = outer-block vars read (float / non-float),
+    excluding carries.  Order is deterministic (first occurrence).
+    """
+    parent = sub_block.parent_block
+    local = set(sub_block.vars.keys())
+
+    def outer_var(name):
+        if name in local:
+            return None
+        return parent._find_var_recursive(name) if parent is not None else None
+
+    carries, extras, extras_ng = [], [], []
+    seen_w, seen_r = set(), set()
+    for op in sub_block.ops:
+        for n in op.output_arg_names:
+            if n in seen_w:
+                continue
+            if outer_var(n) is not None:
+                seen_w.add(n)
+                carries.append(n)
+    for op in sub_block.ops:
+        for n in op.input_arg_names:
+            if n in seen_r or n in seen_w or n in extra_exclude:
+                continue
+            v = outer_var(n)
+            if v is None:
+                continue
+            seen_r.add(n)
+            if framework.is_float_dtype(v.dtype or "float32"):
+                extras.append(n)
+            else:
+                extras_ng.append(n)
+    return carries, extras, extras_ng
+
+
+class While:
+    """while loop (reference control_flow.py While, while_op.cc).
+
+    cond: bool Variable of shape [1]; the body MUST update it (e.g.
+    `layers.less_than(i, n, cond=cond)`), and every loop-carried var must be
+    assigned a value before the loop.  Not differentiable — use StaticRNN for
+    trainable recurrence.
+    """
+
+    def __init__(self, cond, is_test=False, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+
+    @contextlib.contextmanager
+    def block(self):
+        program = self.helper.main_program
+        parent_block = program.current_block()
+        sub_block = program._create_block()
+        try:
+            yield
+        finally:
+            program._rollback()
+        carries, extras, extras_ng = _analyze_sub_block(sub_block)
+        if self.cond_var.name not in carries:
+            raise ValueError(
+                "While body never updates the condition variable "
+                f"{self.cond_var.name!r}; finish the body with e.g. "
+                "layers.less_than(i, n, cond=cond)")
+        parent_block.append_op(
+            "while",
+            inputs={"Condition": [self.cond_var], "Carry": list(carries),
+                    "Extra": extras, "ExtraNG": extras_ng},
+            outputs={"Out": list(carries)},
+            attrs={"sub_block": sub_block.idx, "carry_names": list(carries),
+                   "extra_names": extras, "extra_ng_names": extras_ng,
+                   "cond_name": self.cond_var.name})
+
+
+class ConditionalBlock:
+    """conditional_block (reference conditional_block_op.cc): run the block
+    iff the scalar condition holds; written outer vars keep their prior value
+    otherwise (so they must be initialized before the block)."""
+
+    def __init__(self, inputs, is_scalar_condition=True, name=None):
+        self.inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        self.helper = LayerHelper("conditional_block", name=name)
+
+    @contextlib.contextmanager
+    def block(self):
+        program = self.helper.main_program
+        parent_block = program.current_block()
+        sub_block = program._create_block()
+        try:
+            yield
+        finally:
+            program._rollback()
+        cond = self.inputs[0]
+        carries, extras, extras_ng = _analyze_sub_block(
+            sub_block, extra_exclude={cond.name})
+        parent_block.append_op(
+            "conditional_block",
+            inputs={"Cond": [cond], "Carry": list(carries), "Extra": extras,
+                    "ExtraNG": extras_ng},
+            outputs={"Out": list(carries)},
+            attrs={"sub_block": sub_block.idx, "carry_names": list(carries),
+                   "extra_names": extras, "extra_ng_names": extras_ng})
+
+
+class Switch:
+    """First-true-wins case dispatch (reference control_flow.py Switch; used
+    by the piecewise/warmup lr schedulers).  Each case becomes a
+    conditional_block guarded by `cond_i AND none-of-the-previous`."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self._not_prev = None  # Variable: no previous case matched
+
+    @contextlib.contextmanager
+    def case(self, condition):
+        from . import nn
+
+        if self._not_prev is None:
+            guard_cond = condition
+        else:
+            guard_cond = nn.logical_and(self._not_prev, condition)
+        cb = ConditionalBlock([guard_cond])
+        with cb.block():
+            yield
+        taken_not = nn.logical_not(condition)
+        self._not_prev = (taken_not if self._not_prev is None
+                          else nn.logical_and(self._not_prev, taken_not))
+
+    @contextlib.contextmanager
+    def default(self):
+        if self._not_prev is None:
+            raise ValueError("Switch.default() requires at least one case()")
+        cb = ConditionalBlock([self._not_prev])
+        with cb.block():
+            yield
+
+    # parity: reference Switch is itself used as a context manager
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class StaticRNN:
+    """Static (fixed-length) RNN over a sub-block: the ``static_rnn``
+    op, a loop over the time axis (reference control_flow.py StaticRNN /
+    recurrent_op.cc).
+
+    Sequence inputs are time-major: [T, B, ...] — transpose before use, as in
+    the reference's book examples.  Differentiable end-to-end.
+    """
+
+    BEFORE_RNN, IN_RNN, AFTER_RNN = range(3)
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("static_rnn", name=name)
+        self.status = self.BEFORE_RNN
+        self._sub_block = None
+        self._step_ins = []      # (outer seq var, local step var)
+        self._mems = []          # (local mem var, init outer var)
+        self._updates = {}       # local mem name -> local new-value name
+        self._step_outs = []     # local per-step output vars
+        self._outputs = []       # outer stacked output vars
+
+    @contextlib.contextmanager
+    def step(self):
+        program = self.helper.main_program
+        self._parent_block = program.current_block()
+        self._sub_block = program._create_block()
+        self.status = self.IN_RNN
+        try:
+            yield
+        finally:
+            program._rollback()
+            self.status = self.AFTER_RNN
+            self._complete()
+
+    def _assert_in_rnn(self, api):
+        if self.status != self.IN_RNN:
+            raise ValueError(f"StaticRNN.{api} must be called inside step()")
+
+    def step_input(self, x):
+        self._assert_in_rnn("step_input")
+        if x.shape is None or len(x.shape) < 1:
+            raise ValueError("step input needs a known rank")
+        local = self._sub_block.create_var(
+            name=unique_name.generate(x.name + "@step"),
+            shape=tuple(x.shape[1:]), dtype=x.dtype)
+        self._step_ins.append((x, local))
+        return local
+
+    def memory(self, init=None, shape=None, batch_ref=None, init_value=0.0,
+               init_batch_dim_idx=0, ref_batch_dim_idx=1):
+        self._assert_in_rnn("memory")
+        if init is None:
+            raise ValueError(
+                "StaticRNN.memory requires init= (shape-only boot "
+                "memory would need a data-dependent batch dim)")
+        local = self._sub_block.create_var(
+            name=unique_name.generate(init.name + "@mem"),
+            shape=init.shape, dtype=init.dtype)
+        self._mems.append((local, init))
+        return local
+
+    def update_memory(self, mem, var):
+        self._assert_in_rnn("update_memory")
+        self._updates[mem.name] = var.name
+
+    def step_output(self, o):
+        self._assert_in_rnn("step_output")
+        self._step_outs.append(o)
+
+    def output(self, *outputs):
+        for o in outputs:
+            self.step_output(o)
+
+    def _complete(self):
+        sub, parent = self._sub_block, self._parent_block
+        missing = [m.name for m, _ in self._mems if m.name not in self._updates]
+        if missing:
+            raise ValueError(f"StaticRNN memories never updated: {missing}")
+        local_decl = ({l.name for _, l in self._step_ins}
+                      | {m.name for m, _ in self._mems})
+        carries, extras, extras_ng = _analyze_sub_block(sub)
+        # memory inits are explicit Init inputs, not generic captures
+        init_names = {i.name for _, i in self._mems}
+        extras = [n for n in extras if n not in init_names]
+        extras_ng = [n for n in extras_ng if n not in init_names]
+        if carries:
+            raise ValueError(
+                f"StaticRNN body writes outer vars {carries}; use "
+                "update_memory/step_output instead")
+        self._outputs = []
+        for o in self._step_outs:
+            stacked = parent.create_var(
+                name=unique_name.generate(o.name + "@stacked"),
+                shape=(None if o.shape is None else (-1,) + tuple(o.shape)),
+                dtype=o.dtype)
+            self._outputs.append(stacked)
+        last_mems = [
+            parent.create_var(name=unique_name.generate(m.name + "@last"),
+                              shape=i.shape, dtype=i.dtype)
+            for m, i in self._mems]
+        parent.append_op(
+            "static_rnn",
+            inputs={"StepIn": [x for x, _ in self._step_ins],
+                    "Init": [i for _, i in self._mems],
+                    "Extra": extras, "ExtraNG": extras_ng},
+            outputs={"StackedOut": self._outputs, "LastMem": last_mems},
+            attrs={"sub_block": sub.idx,
+                   "step_in_names": [l.name for _, l in self._step_ins],
+                   "mem_names": [m.name for m, _ in self._mems],
+                   "update_map": dict(self._updates),
+                   "out_names": [o.name for o in self._step_outs],
+                   "extra_names": extras, "extra_ng_names": extras_ng})
+        self.last_memories = last_mems
+
+    def __call__(self):
+        if self.status != self.AFTER_RNN:
+            raise ValueError("call the StaticRNN after its step() block closes")
+        if len(self._outputs) == 1:
+            return self._outputs[0]
+        return list(self._outputs)
+
+
+# ---------------------------------------------------------------------------
+# small helper layers
+# ---------------------------------------------------------------------------
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"step": float(value)})
+    return out
+
+
+# comparison layers live in nn.py (with cond=/out= support); re-exported here
+# for reference API parity (control_flow.py also exported them)
+from .nn import (  # noqa: E402,F401
+    equal, greater_equal, greater_than, less_equal, less_than, not_equal,
+)
+
+
+# ---------------------------------------------------------------------------
+# Tensor arrays.  The reference models LOD_TENSOR_ARRAY as a growable list
+# written per while-iteration (framework/lod_tensor_array.h); here, as in
+# the JAX package, an array is a fixed-capacity stacked buffer [cap, ...]
+# and a count on the device (ops/tensor_array_ops.py,
+# fluid/struct_values.py), written at an index, so a plan with arrays
+# keeps fixed shapes.
+# ---------------------------------------------------------------------------
+
+
+def create_array(dtype, initialized_list=None, capacity=None):
+    """New tensor-array variable (reference layers/control_flow.py
+    create_array).  `capacity` (an extension) bounds how many entries the
+    first standalone array_write preallocates; default 128.  The runtime
+    buffer materializes at the first write (or lod_tensor_to_array)."""
+    helper = LayerHelper("create_array")
+    arr = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    arr._array_capacity = int(capacity) if capacity else 0
+    if initialized_list:
+        for idx, x in enumerate(initialized_list):
+            i = fill_constant(shape=[1], dtype="int64", value=idx)
+            array_write(x, i, array=arr)
+    return arr
+
+
+def array_write(x, i, array=None):
+    """array[i] = x (reference write_to_array).  The array rides as BOTH an
+    op input and output — the functional lowering consumes the previous
+    buffer and produces the next, and the while capture analysis sees a
+    loop carry."""
+    helper = LayerHelper("array_write")
+    if array is None:
+        array = create_array(x.dtype)
+    helper.append_op(
+        "write_to_array",
+        inputs={"X": [x], "I": [i], "Array": [array]},
+        outputs={"Out": [array]},
+        attrs={"capacity": getattr(array, "_array_capacity", 0)})
+    # the array var's static shape records the ENTRY shape so array_read
+    # results feed shape-dependent layers (fc) inside loop bodies
+    if array.shape is None and x.shape is not None:
+        array.shape = tuple(x.shape)
+    return array
+
+
+def array_read(array, i):
+    """array[i] (reference read_from_array)."""
+    helper = LayerHelper("array_read")
+    out = helper.create_variable_for_type_inference(array.dtype)
+    if array.shape is not None:
+        out.shape = tuple(array.shape)
+    helper.append_op("read_from_array", inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def array_length(array):
+    """1 + highest index written, int64 [1] (reference lod_array_length)."""
+    helper = LayerHelper("array_length")
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    out.shape = (1,)
+    helper.append_op("lod_array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def lod_rank_table(x, level=0, length=None):
+    """Rank table of (row, length) sorted by length desc (reference
+    control_flow.py:719 / lod_rank_table_op.cc).  The dense ragged
+    convention passes row lengths explicitly via `length` [B]; without it
+    every row spans x's full time axis."""
+    helper = LayerHelper("lod_rank_table")
+    table = helper.create_variable_for_type_inference("int32",
+                                                      stop_gradient=True)
+    ins = {"X": [x]}
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op("lod_rank_table", inputs=ins,
+                     outputs={"Out": [table]}, attrs={"level": int(level)})
+    return table
+
+
+def max_sequence_len(rank_table):
+    """Longest length in the table, int64 [1] (max_sequence_len_op.cc)."""
+    helper = LayerHelper("max_sequence_len")
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    out.shape = (1,)
+    helper.append_op("max_sequence_len", inputs={"RankTable": [rank_table]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def lod_tensor_to_array(x, table):
+    """[B, T, ...] → array of T time entries in rank-table row order
+    (lod_tensor_to_array_op.cc)."""
+    helper = LayerHelper("lod_tensor_to_array")
+    arr = helper.create_variable_for_type_inference(x.dtype,
+                                                    stop_gradient=True)
+    if x.shape is not None and len(x.shape) >= 2:
+        arr.shape = (x.shape[0],) + tuple(x.shape[2:])  # entry: [B, ...]
+    helper.append_op("lod_tensor_to_array",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [arr]}, attrs={})
+    return arr
+
+
+def array_to_lod_tensor(x, table):
+    """Inverse of lod_tensor_to_array: padded [B, T, ...] in original row
+    order, zeros past each row's length (array_to_lod_tensor_op.cc)."""
+    helper = LayerHelper("array_to_lod_tensor")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("array_to_lod_tensor",
+                     inputs={"X": [x], "RankTable": [table]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def shrink_memory(x, i, table):
+    """Dynamic-RNN memory shrink at step i (shrink_rnn_memory_op.cc);
+    identity on the dense all-rows encoding — see ops/tensor_array_ops.py."""
+    helper = LayerHelper("shrink_memory")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("shrink_rnn_memory",
+                     inputs={"X": [x], "I": [i], "RankTable": [table]},
+                     outputs={"Out": [out]}, attrs={})
+    return out
+
+
+def split_lod_tensor(input, mask, level=0):
+    """Row split by bool mask into (true, false) branches
+    (split_lod_tensor_op.cc); dense: same-shape outputs, other branch's
+    rows zeroed."""
+    helper = LayerHelper("split_lod_tensor")
+    out_true = helper.create_variable_for_type_inference(input.dtype)
+    out_false = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("split_lod_tensor",
+                     inputs={"X": [input], "Mask": [mask]},
+                     outputs={"OutTrue": [out_true],
+                              "OutFalse": [out_false]},
+                     attrs={"level": int(level)})
+    return out_true, out_false
+
+
+def merge_lod_tensor(in_true, in_false, x, mask, level=0):
+    """Row-wise merge of the two branches by mask (merge_lod_tensor_op.cc)."""
+    helper = LayerHelper("merge_lod_tensor")
+    out = helper.create_variable_for_type_inference(in_true.dtype)
+    helper.append_op("merge_lod_tensor",
+                     inputs={"X": [x], "Mask": [mask], "InTrue": [in_true],
+                             "InFalse": [in_false]},
+                     outputs={"Out": [out]}, attrs={"level": int(level)})
+    return out
+
+
+from .tensor import fill_constant  # noqa: E402  (used by create_array)
+
+__all__ += [
+    "lod_rank_table", "max_sequence_len", "lod_tensor_to_array",
+    "array_to_lod_tensor", "shrink_memory", "split_lod_tensor",
+    "merge_lod_tensor",
+]
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """Persistable int64 counter incremented once per executed step
+    (reference layers/tensor.py autoincreased_step_counter) — the clock of
+    every lr scheduler."""
+    helper = LayerHelper("global_step_counter")
+    name = counter_name or "@LR_DECAY_COUNTER@"
+    block = helper.main_program.global_block()
+    if name in block.vars:
+        counter = block.vars[name]
+    else:
+        counter = helper.create_global_variable(
+            name=name, shape=[1], dtype="int64", persistable=True,
+            stop_gradient=True)
+        from ..initializer import Constant
+
+        helper.set_variable_initializer(counter, Constant(float(begin - step)))
+        helper.append_op("increment", inputs={"X": [counter]},
+                         outputs={"Out": [counter]},
+                         attrs={"step": float(step)})
+    return counter
+
+
+# ---------------------------------------------------------------------------
+# DynamicRNN / IfElse / Print (reference control_flow.py:  DynamicRNN builds
+# a while loop over a LoD rank table; IfElse partitions rows by a bool mask.
+# Here, as in the JAX package: DynamicRNN adapts the padded dense+length
+# representation onto StaticRNN; IfElse computes both branches on all rows
+# and selects elementwise — same results, no data-dependent shapes.)
+# ---------------------------------------------------------------------------
+
+
+class DynamicRNN:
+    """Variable-length RNN over padded [B, T, ...] batches + a length tensor
+    (reference DynamicRNN's LoD walk, re-based on StaticRNN).
+
+    with drnn.block():
+        x_t = drnn.step_input(x, length=seq_len)   # [B, D] per step
+        h = drnn.memory(init=h0)
+        new_h = ...                                 # build step computation
+        drnn.update_memory(h, new_h)
+        drnn.output(new_h)
+    out = drnn()                                    # [B, T, D_out]
+
+    Positions past each row's length hold zeros in the stacked output (the
+    scan itself runs the full padded T; feed zero padding so memories see
+    null inputs on padded steps).
+    """
+
+    def __init__(self, name=None):
+        self._srnn = StaticRNN(name=name)
+        self._length = None
+        self._in_block = False
+
+    @contextlib.contextmanager
+    def block(self):
+        self._in_block = True
+        try:
+            with self._srnn.step():
+                yield
+        finally:
+            self._in_block = False
+
+    def step_input(self, x, level=0, length=None):
+        """x: [B, T, ...] padded batch; returns the [B, ...] step slice."""
+        if not self._in_block:
+            raise ValueError("step_input must be called inside block()")
+        if length is not None:
+            self._length = length
+        # time-major transpose must live in the PARENT block (it runs before
+        # the scan), but we're inside the sub-block here — append directly
+        parent = self._srnn._parent_block
+        perm = [1, 0] + list(range(2, len(x.shape)))
+        xt = parent.create_var(
+            name=unique_name.generate(x.name + "@tmajor"),
+            shape=tuple(x.shape[i] for i in perm), dtype=x.dtype)
+        xshape = parent.create_var(
+            name=unique_name.generate(x.name + "@tmajor_xs"),
+            dtype=x.dtype, stop_gradient=True)
+        parent.append_op("transpose2", inputs={"X": [x]},
+                         outputs={"Out": [xt], "XShape": [xshape]},
+                         attrs={"axis": perm})
+        return self._srnn.step_input(xt)
+
+    def static_input(self, x):
+        """Non-sequence input visible at every step (reference
+        static_input); captured by the scan body as a closure."""
+        return x
+
+    def memory(self, init=None, shape=None, value=0.0, need_reorder=False,
+               dtype="float32"):
+        if init is None:
+            raise ValueError("DynamicRNN.memory requires init= "
+                             "(value-only boot needs a dynamic batch dim)")
+        return self._srnn.memory(init=init)
+
+    def update_memory(self, ex_mem, new_mem):
+        self._srnn.update_memory(ex_mem, new_mem)
+
+    def output(self, *outputs):
+        self._srnn.output(*outputs)
+
+    def __call__(self):
+        from . import nn as nn_mod
+
+        outs = []
+        for stacked in self._srnn._outputs:  # [T, B, ...] time-major
+            o = nn_mod.transpose(
+                stacked, [1, 0] + list(range(2, len(stacked.shape or [0, 0]))))
+            if self._length is not None:
+                o = nn_mod.sequence_unpad(o, self._length)  # zero the tail
+            outs.append(o)
+        return outs[0] if len(outs) == 1 else outs
+
+
+class IfElse:
+    """Row-wise two-branch select (reference IfElse partitions rows where
+    cond is true/false, runs each branch on its rows, and merges).  Dense
+    analog: both branches run on ALL rows inside their own blocks and the
+    merge is an elementwise where(cond) — identical results for the
+    reference's per-row usage, fixed shapes."""
+
+    OUT_IF_ELSE_BLOCKS = 2
+
+    def __init__(self, cond, name=None):
+        self.cond = cond
+        self.helper = LayerHelper("ifelse", name=name)
+        self._true_outs = None
+        self._false_outs = None
+        self._phase = None
+
+    def input(self, x):
+        if self._phase is None:
+            raise ValueError("IfElse.input must be called inside "
+                             "true_block()/false_block()")
+        return x
+
+    @contextlib.contextmanager
+    def true_block(self):
+        self._phase = True
+        try:
+            yield
+        finally:
+            self._phase = None
+
+    @contextlib.contextmanager
+    def false_block(self):
+        self._phase = False
+        try:
+            yield
+        finally:
+            self._phase = None
+
+    def output(self, *outs):
+        if self._phase is True:
+            self._true_outs = list(outs)
+        elif self._phase is False:
+            self._false_outs = list(outs)
+        else:
+            raise ValueError("IfElse.output must be called inside a branch")
+
+    def __call__(self):
+        from . import nn as nn_mod
+
+        if self._true_outs is None or self._false_outs is None:
+            raise ValueError("both true_block and false_block must produce "
+                             "output()")
+        if len(self._true_outs) != len(self._false_outs):
+            raise ValueError("branch output arity mismatch")
+        merged = []
+        helper = self.helper
+        for t, f in zip(self._true_outs, self._false_outs):
+            out = helper.create_variable_for_type_inference(dtype=t.dtype)
+            helper.append_op("where",
+                             inputs={"Condition": [self.cond], "X": [t],
+                                     "Y": [f]},
+                             outputs={"Out": [out]}, attrs={})
+            merged.append(out)
+        return merged if len(merged) > 1 else merged[0]
+
+
+def Print(input, first_n=-1, message=None, summarize=-1,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """Pass-through tensor printing (reference print_op): the op prints
+    from the host, so a plan with one runs eagerly."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op("print", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"message": message or "",
+                            "first_n": first_n, "summarize": summarize})
+    return out
+
+
+__all__ += ["DynamicRNN", "IfElse", "Print"]

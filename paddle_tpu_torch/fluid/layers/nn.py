@@ -35,6 +35,9 @@ __all__ = [
     "sequence_reverse", "sequence_first_step", "sequence_last_step",
     "sequence_mask", "sequence_unpad", "sequence_concat",
     "sequence_expand_as", "sequence_slice", "sequence_enumerate",
+    "not_equal", "less_than", "less_equal", "greater_than", "greater_equal",
+    "logical_and", "logical_or", "logical_xor", "logical_not", "exp", "log",
+    "pow", "floor", "ceil", "cos", "stack", "unstack", "one_hot",
 ]
 
 
@@ -498,6 +501,96 @@ def _cmp_layer(op_type, x, y, name=None, out=None):
 
 def equal(x, y, cond=None):
     return _cmp_layer("equal", x, y, out=cond)
+
+
+def not_equal(x, y, cond=None):
+    return _cmp_layer("not_equal", x, y, out=cond)
+
+
+def less_than(x, y, cond=None, force_cpu=None):
+    """x < y; ``cond`` names an existing bool var to write (a While's
+    condition, computed again at the end of its body)."""
+    return _cmp_layer("less_than", x, y, out=cond)
+
+
+def less_equal(x, y, cond=None):
+    return _cmp_layer("less_equal", x, y, out=cond)
+
+
+def greater_than(x, y, cond=None):
+    return _cmp_layer("greater_than", x, y, out=cond)
+
+
+def greater_equal(x, y, cond=None):
+    return _cmp_layer("greater_equal", x, y, out=cond)
+
+
+def logical_and(x, y, out=None, name=None):
+    return _cmp_layer("logical_and", x, y, out=out)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _cmp_layer("logical_or", x, y, out=out)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _cmp_layer("logical_xor", x, y, out=out)
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not")
+    return _single_out_layer(helper, "logical_not", {"X": [x]},
+                             dtype="bool", out=out)
+
+
+def exp(x, name=None):
+    return _act_layer("exp", x, name=name)
+
+
+def log(x, name=None):
+    return _act_layer("log", x, name=name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _act_layer("pow", x, {"factor": factor}, name)
+
+
+def floor(x, name=None):
+    return _act_layer("floor", x, name=name)
+
+
+def ceil(x, name=None):
+    return _act_layer("ceil", x, name=name)
+
+
+def cos(x, name=None):
+    return _act_layer("cos", x, name=name)
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", inputs={"X": list(x)}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    n = num if num is not None else x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(n)]
+    helper.append_op("unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": n})
+    return outs
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """fp32 one-hot rows [..., depth]; a trailing dim of 1 on ``input``
+    is squeezed first, and an id outside [0, depth) gives a zero row."""
+    helper = LayerHelper("one_hot")
+    return _single_out_layer(helper, "one_hot", {"X": [input]},
+                             {"depth": depth}, dtype="float32")
 
 
 def expand_as(x, target_tensor, name=None):

@@ -1,13 +1,15 @@
-"""Structured-prediction layers: linear_chain_crf and crf_decoding
-(counterpart of ``paddle_tpu/fluid/layers/structured.py``; its nce,
-hsigmoid, beam_search and beam_search_decode are still to come)."""
+"""Structured-prediction layers: linear_chain_crf, crf_decoding,
+beam_search and beam_search_decode (counterpart of
+``paddle_tpu/fluid/layers/structured.py``; its nce and hsigmoid are
+still to come)."""
 
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["linear_chain_crf", "crf_decoding"]
+__all__ = ["linear_chain_crf", "crf_decoding", "beam_search",
+           "beam_search_decode"]
 
 
 def linear_chain_crf(input, label, param_attr=None, length=None, name=None):
@@ -47,3 +49,40 @@ def crf_decoding(input, param_attr, label=None, length=None, name=None):
     helper.append_op("crf_decoding", inputs=inputs,
                      outputs={"ViterbiPath": [path]})
     return path
+
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id, name=None):
+    """One step of the dense [B, K] beam (ops/structured_ops.py).
+    scores: [B, K, V] log-probs.  Returns (selected_ids, selected_scores,
+    parent_idx)."""
+    helper = LayerHelper("beam_search", name=name)
+    ids = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    sc = helper.create_variable_for_type_inference(dtype=pre_scores.dtype,
+                                                   stop_gradient=True)
+    parent = helper.create_variable_for_type_inference(dtype="int32",
+                                                       stop_gradient=True)
+    helper.append_op("beam_search",
+                     inputs={"PreIds": [pre_ids], "PreScores": [pre_scores],
+                             "Scores": [scores]},
+                     outputs={"SelectedIds": [ids], "SelectedScores": [sc],
+                              "ParentIdx": [parent]},
+                     attrs={"beam_size": beam_size, "end_id": end_id})
+    return ids, sc, parent
+
+
+def beam_search_decode(ids, parent_idx, beam_size=None, end_id=0,
+                       name=None):
+    """Backtrack stacked beam steps (ids, parent_idx: [T, B, K]) into
+    sentence ids [B, K, T]."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent = helper.create_variable_for_type_inference(dtype="int64",
+                                                     stop_gradient=True)
+    scores = helper.create_variable_for_type_inference(dtype="float32",
+                                                       stop_gradient=True)
+    helper.append_op("beam_search_decode",
+                     inputs={"Ids": [ids], "ParentIdx": [parent_idx]},
+                     outputs={"SentenceIds": [sent],
+                              "SentenceScores": [scores]},
+                     attrs={"end_id": end_id})
+    return sent

@@ -2,7 +2,9 @@
 ``paddle_tpu/fluid/layers/tensor.py``).  Ported so far:
 ``create_parameter`` (the BERT MLM head's output bias),
 ``fill_constant``, ``fill_constant_batch_size_like`` and ``assign``
-(Transformer NMT: its pad bias and its greedy decode's buffer)."""
+(Transformer NMT: its pad bias and its greedy decode's buffer), and
+``tensor_array_to_tensor`` (the machine-translation book's array
+decode)."""
 
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "fill_constant",
-           "fill_constant_batch_size_like", "assign"]
+           "fill_constant_batch_size_like", "assign",
+           "tensor_array_to_tensor"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -70,3 +73,18 @@ def assign(input, output=None):
     helper.append_op("assign", inputs={"X": [input]},
                      outputs={"Out": [output]})
     return output
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """Every entry of a tensor array (its whole capacity: entries past
+    the written count are zero) concatenated along ``axis``, or stacked
+    with ``use_stack``; the second return holds each entry's extent
+    along ``axis``."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_index = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    helper.append_op("tensor_array_to_tensor", inputs={"X": [input]},
+                     outputs={"Out": [out], "OutIndex": [out_index]},
+                     attrs={"axis": int(axis), "use_stack": bool(use_stack)})
+    return out, out_index

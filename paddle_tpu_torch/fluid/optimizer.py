@@ -54,6 +54,11 @@ class Optimizer:
         self._lr_var = None
 
     def _create_lr_var(self):
+        """The [1] learning-rate var the update ops read: the caller's
+        Variable (a schedule, fluid/layers/learning_rate_scheduler.py),
+        else a persistable var the startup program sets to the number."""
+        if isinstance(self._learning_rate, framework.Variable):
+            self._lr_var = self._learning_rate
         if self._lr_var is not None:
             return
         helper = LayerHelper("learning_rate")

@@ -130,10 +130,15 @@ class LowerContext:
         block (set by the executor), so a grad lowering can skip the
         products of grads no op asked for and a seeded random op can key
         its own stream.
+      program: the program the run belongs to (a control-flow op finds
+        its sub-block there), else None.
+      bf16: whether the run applies the bf16 dtype policy (set by the
+        executor's op loop; the sub-blocks of control-flow ops apply it
+        too).
     """
 
     def __init__(self, device, seed=0, is_test=False, step=0, replica=None,
-                 group=None, streams=None):
+                 group=None, streams=None, program=None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.is_test = is_test
@@ -146,6 +151,8 @@ class LowerContext:
         self.streams = streams
         self.cur_op = None
         self.op_index = 0
+        self.bf16 = False
+        self.program = program
 
     @property
     def generator(self):
@@ -395,7 +402,7 @@ def infer_op_outputs(op, block):
             if m is None:
                 return
             args.append(m)
-    ctx = LowerContext(device="meta")
+    ctx = LowerContext(device="meta", program=block.program)
     try:
         if info.collective:
             out = info.lower(ctx, *[[a] for a in args], attrs=op.attrs)

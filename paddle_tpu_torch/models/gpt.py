@@ -1,19 +1,20 @@
-"""GPT-style causal decoder LM: the paged decode lane's two programs
-(counterpart of ``paddle_tpu/models/gpt.py``).
+"""GPT-style causal decoder LM (counterpart of
+``paddle_tpu/models/gpt.py``).
 
-Ported: the config, the shared block builders, the causal-LM training
-program (``build_gpt_lm``: pre-LN blocks, causal flash attention or the
+The config, the shared block builders, the causal-LM training program
+(``build_gpt_lm``: pre-LN blocks, causal flash attention or the
 composed matmul / ``softmax_mask_fuse_upper_triangle`` / matmul chain,
-the weight-tied LM head, ``make_fake_lm_batch``), and the two
-fixed-shape programs of the decode serving lane —
-``build_gpt_decode_step`` and ``build_gpt_prefill_chunk`` — over a
-paged KV pool in fp32 or in the dual-int8 format (``pool_dtype="int8"``:
-hi/lo int8 + a per-vector fp32 scale per K and V).  Parameter names are
-the JAX package's (``gpt_word_embedding``,
+the weight-tied LM head, ``make_fake_lm_batch``), the two fixed-shape
+programs of the decode serving lane — ``build_gpt_decode_step`` and
+``build_gpt_prefill_chunk`` — over a paged KV pool in fp32 or in the
+dual-int8 format (``pool_dtype="int8"``: hi/lo int8 + a per-vector fp32
+scale per K and V), and the three whole-sequence generation programs
+over the dense beam ops: ``build_gpt_generate`` (the prefix recomputed
+each step), ``build_gpt_generate_cached`` (KV caches, the steps
+unrolled) and ``build_gpt_generate_scan`` (fixed-size caches in a while
+loop).  Parameter names are the JAX package's (``gpt_word_embedding``,
 ``decoder_layer_{i}_att_query_fc.w_0``, ...), so weights carry across by
-name.  The whole-sequence generation programs (``build_gpt_generate*``)
-are still to be ported: they need the while and beam-search ops.
-"""
+name."""
 
 from __future__ import annotations
 
@@ -21,13 +22,16 @@ import numpy as np
 
 from paddle_tpu_torch import fluid
 from paddle_tpu_torch.fluid import layers
+from paddle_tpu_torch.fluid.framework import Variable
 from paddle_tpu_torch.fluid.initializer import Normal
 from paddle_tpu_torch.fluid.param_attr import ParamAttr
 
 __all__ = ["GPTConfig", "KVSink", "causal_self_attention", "decoder_layer",
            "gpt_decoder", "build_gpt_lm", "make_fake_lm_batch",
            "KV_POOL_PREFIX", "kv_pool_var_names", "kv_pool_quant_var_names",
-           "build_gpt_decode_step", "build_gpt_prefill_chunk"]
+           "build_gpt_decode_step", "build_gpt_prefill_chunk",
+           "decoder_layer_incremental", "build_gpt_generate",
+           "build_gpt_generate_cached", "build_gpt_generate_scan"]
 
 
 class GPTConfig:
@@ -87,6 +91,42 @@ def _lm_logits(h, cfg: GPTConfig):
 # ---------------------------------------------------------------------------
 # The causal-LM training program
 # ---------------------------------------------------------------------------
+
+
+def _attention_incremental(x_new, k_cache, v_cache, cfg: GPTConfig, name):
+    """One-token attention against cached K/V (KV-cache decode step).
+    x_new: [B', 1, H]; k_cache/v_cache: [B', n, L, d] or None (first step).
+    Returns (ctx [B', 1, H], k_cat, v_cat)."""
+    h, n = cfg.hidden_size, cfg.num_heads
+    d = h // n
+    q = _fc(x_new, h, name + "_query_fc", init_std=cfg.initializer_range)
+    k = _fc(x_new, h, name + "_key_fc", init_std=cfg.initializer_range)
+    v = _fc(x_new, h, name + "_value_fc", init_std=cfg.initializer_range)
+
+    def to_heads(t):
+        r = layers.reshape(t, shape=[0, 0, n, d])
+        return layers.transpose(r, perm=[0, 2, 1, 3])  # [B', n, 1, d]
+
+    q, k, v = to_heads(q), to_heads(k), to_heads(v)
+    k_cat = k if k_cache is None else layers.concat([k_cache, k], axis=2)
+    v_cat = v if v_cache is None else layers.concat([v_cache, v], axis=2)
+    scores = layers.matmul(q, k_cat, transpose_y=True,
+                           alpha=float(d) ** -0.5)   # [B', n, 1, L]
+    probs = layers.softmax(scores)  # attends only to past+self: no mask
+    ctx = layers.matmul(probs, v_cat)                # [B', n, 1, d]
+    ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = layers.reshape(ctx, shape=[0, 0, h])
+    out = _fc(ctx, h, name + "_output_fc", init_std=cfg.initializer_range)
+    return out, k_cat, v_cat
+
+
+def decoder_layer_incremental(x, caches, cfg: GPTConfig, name):
+    """Pre-LN block on ONE new token position with KV caches.
+    caches: (k_cache, v_cache) or (None, None).  Returns (x', new caches)."""
+    attn, k_cat, v_cat = _attention_incremental(
+        _ln(x, name + "_ln_attn"), caches[0], caches[1], cfg, name + "_att")
+    x = layers.elementwise_add(x, attn)
+    return _ffn_block(x, cfg, name), (k_cat, v_cat)
 
 
 class KVSink(list):
@@ -218,6 +258,331 @@ def make_fake_lm_batch(cfg: GPTConfig, batch, seq_len, seed=0):
                                (batch, 1)),
         "gpt_labels": toks[:, 1:seq_len + 1],
     }
+
+
+# ---------------------------------------------------------------------------
+# Whole-sequence generation programs: beam (or greedy, beam 1) search over
+# the dense [B, K] beam ops, recomputing the prefix each step, over KV
+# caches unrolled step by step, or over fixed-size caches in a while loop.
+# ---------------------------------------------------------------------------
+
+
+def _init_beam_state(prompt, prompt_len, k):
+    """Shared beam bookkeeping: last prompt token tiled to K beams and
+    scores with only beam 0 alive (so step 0 picks distinct top-K)."""
+    L = layers
+    last = L.slice(prompt, axes=[1], starts=[prompt_len - 1],
+                   ends=[prompt_len])
+    pre_ids = L.reshape(L.stack([last] * k, axis=1), shape=[-1, k])
+    bias = np.zeros((1, k), "float32")
+    bias[0, 1:] = -1e9
+    pre_scores = L.fill_constant_batch_size_like(
+        prompt, shape=[-1, k], dtype="float32", value=0.0)
+    return pre_ids, pre_scores + L.assign(bias)
+
+
+def _tile_beams(tsr, k):
+    """[B, ...] -> [B*K, ...] beam replication (shared by both KV-cache
+    generation variants)."""
+    if k == 1:
+        return tsr
+    L = layers
+    shp = tsr.shape
+    r = L.stack([tsr] * k, axis=1)
+    return L.reshape(r, shape=[-1] + [int(sd) for sd in shp[1:]])
+
+
+def _reorder_beam_dim(tsr, parent, k, tail_shape):
+    """Gather the beam dim of [B*K, *tail_shape] by parent [B, K] with a
+    one-hot matmul (static shapes; shared by both generation variants)."""
+    if k == 1:
+        return tsr
+    L = layers
+    numel = int(np.prod(tail_shape))
+    flat = L.reshape(tsr, shape=[-1, k, numel])
+    sel = L.matmul(L.one_hot(parent, k), flat)           # [B, K, numel]
+    return L.reshape(sel, shape=[-1] + [int(sd) for sd in tail_shape])
+
+
+def _decode_tail(step_ids, step_parents, end_id):
+    L = layers
+    return L.beam_search_decode(L.concat(step_ids, axis=0),
+                                L.concat(step_parents, axis=0),
+                                end_id=end_id)
+
+
+def build_gpt_generate(cfg: GPTConfig, prompt_len, gen_len, beam_size=1,
+                       end_id=0):
+    """Statically-unrolled generation program (greedy when beam_size=1).
+
+    Recomputes the full prefix each step — O(S²) per sequence, but the
+    program has fixed shapes (captured as one CUDA graph on the card); a
+    KV-cache variant trades memory for compute.  Returns (prompt_var, sentence_ids [B, K, gen_len],
+    final_beam_scores [B, K])."""
+    L = layers
+    prompt = fluid.data("gpt_prompt", [-1, prompt_len], False, dtype="int64")
+
+    k = beam_size
+    # beams: maintain the full token history [B, K, cur_len]
+    hist = L.stack([prompt] * k, axis=1)  # [B, K, P]
+    pre_ids, pre_scores = _init_beam_state(prompt, prompt_len, k)
+
+    step_ids, step_parents = [], []
+    for t in range(gen_len):
+        cur = prompt_len + t
+        flat = L.reshape(hist, shape=[-1, cur])          # [B*K, cur]
+        pos = L.fill_constant_batch_size_like(
+            flat, shape=[-1, cur], dtype="int64", value=0)
+        pos = L.elementwise_add(pos, L.assign(
+            np.arange(cur, dtype="int64")[None, :]))
+        h = gpt_decoder(flat, pos, cfg, is_test=True)
+        last = L.slice(h, axes=[1], starts=[cur - 1], ends=[cur])
+        logits = _lm_logits(last, cfg)                   # [B*K, V]
+        logp = L.log_softmax(logits)
+        logp3 = L.reshape(logp, shape=[-1, k, cfg.vocab_size])
+        ids, scores, parent = L.beam_search(pre_ids, pre_scores, logp3,
+                                            beam_size=k, end_id=end_id)
+        # reorder histories by parent and append the chosen tokens.
+        # k == 1 skips the reorder (parent is identically 0) — and MUST:
+        # one_hot on a [B, 1] input follows the reference's trailing-1
+        # squeeze semantics and would collapse the beam rank (the same
+        # guard _reorder_beam_dim has always had; greedy build was
+        # broken before it)
+        if k > 1:
+            onehot = L.one_hot(parent, k)                # [B,K,K]
+            hist_f = L.cast(hist, "float32")
+            hist = L.cast(L.matmul(onehot, hist_f), "int64")
+        hist = L.concat([hist, L.unsqueeze(ids, axes=[2])], axis=2)
+        pre_ids, pre_scores = ids, scores
+        step_ids.append(L.unsqueeze(ids, axes=[0]))
+        step_parents.append(L.unsqueeze(L.cast(parent, "int32"), axes=[0]))
+
+    sent = _decode_tail(step_ids, step_parents, end_id)
+    return prompt, sent, pre_scores
+
+
+def _embed_token(tok, pos_value, cfg: GPTConfig):
+    """tok: [B', 1] int64 → [B', 1, H] word+position embedding.
+    pos_value: python int OR an int64 [1] Variable (while-loop decode)."""
+    L = layers
+    emb = L.embedding(tok, size=[cfg.vocab_size, cfg.hidden_size],
+                      param_attr=ParamAttr(name="gpt_word_embedding"))
+    pos = L.fill_constant_batch_size_like(
+        tok, shape=[-1, 1], dtype="int64",
+        value=0 if isinstance(pos_value, Variable) else pos_value)
+    if isinstance(pos_value, Variable):
+        pos = L.elementwise_add(pos, pos_value)
+    pemb = L.embedding(pos, size=[cfg.max_position, cfg.hidden_size],
+                       param_attr=ParamAttr(name="gpt_pos_embedding"))
+    # lookup_table squeezes trailing [*, 1] ids to [B, H]: restore the
+    # singleton time axis the incremental decoder layers expect
+    return L.reshape(L.elementwise_add(emb, pemb),
+                     shape=[-1, 1, cfg.hidden_size])
+
+
+def build_gpt_generate_cached(cfg: GPTConfig, prompt_len, gen_len,
+                              beam_size=1, end_id=0):
+    """KV-cache generation program: each step computes q/k/v for ONE new
+    token and attends against cached K/V — O(L) per step instead of the
+    O(L²) full-prefix recompute of build_gpt_generate.  Same beam/greedy
+    semantics; caches are reordered by beam parent each step.
+
+    Returns (prompt_var, sentence_ids [B, K, gen_len], final_scores)."""
+    L = layers
+    n, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    k = beam_size
+    prompt = fluid.data("gpt_prompt", [-1, prompt_len], False, dtype="int64")
+
+    # ---- prefill: ONE batched causal pass over the whole prompt that
+    # also captures every layer's K/V (no per-token unroll)
+    pos0 = L.fill_constant_batch_size_like(prompt, shape=[-1, prompt_len],
+                                           dtype="int64", value=0)
+    pos0 = L.elementwise_add(pos0, L.assign(
+        np.arange(prompt_len, dtype="int64")[None, :]))
+    kv_sink = []
+    x_full = gpt_decoder(prompt, pos0, cfg, is_test=True, kv_sink=kv_sink,
+                         final_ln=False)                    # [B, P, H]
+    caches = list(kv_sink)                                  # [(K, V)] per layer
+    last_x = L.slice(x_full, axes=[1], starts=[prompt_len - 1],
+                     ends=[prompt_len])                     # [B, 1, H]
+
+    caches = [(_tile_beams(c[0], k), _tile_beams(c[1], k)) for c in caches]
+    h_last = _tile_beams(last_x, k)
+
+    pre_ids, pre_scores = _init_beam_state(prompt, prompt_len, k)
+
+
+    # logits for the token AFTER the prompt come from the prefill's last h
+    x = h_last
+    step_ids, step_parents = [], []
+    for t in range(gen_len):
+        cur = prompt_len + t
+        logits = _lm_logits(_ln(x, "gpt_final_ln"), cfg)  # [B*K, V]
+        logp = L.log_softmax(logits)
+        logp3 = L.reshape(logp, shape=[-1, k, cfg.vocab_size])
+        ids, scores, parent = L.beam_search(pre_ids, pre_scores, logp3,
+                                            beam_size=k, end_id=end_id)
+        caches = [(_reorder_beam_dim(kc, parent, k, (n, cur, d)),
+                   _reorder_beam_dim(vc, parent, k, (n, cur, d)))
+                  for kc, vc in caches]
+        tok = L.reshape(ids, shape=[-1, 1])
+        x = _embed_token(tok, cur, cfg)
+        new_caches = []
+        for li in range(cfg.num_layers):
+            x, c = decoder_layer_incremental(x, caches[li], cfg,
+                                             f"decoder_layer_{li}")
+            new_caches.append(c)
+        caches = new_caches
+        pre_ids, pre_scores = ids, scores
+        step_ids.append(L.unsqueeze(ids, axes=[0]))
+        step_parents.append(L.unsqueeze(L.cast(parent, "int32"), axes=[0]))
+
+    sent = _decode_tail(step_ids, step_parents, end_id)
+    return prompt, sent, pre_scores
+
+
+def build_gpt_generate_scan(cfg: GPTConfig, prompt_len, gen_len,
+                            beam_size=1, end_id=0):
+    """Beam/greedy KV-cache generation as ONE while loop over FIXED-SIZE
+    caches: the step body is built once, where build_gpt_generate_cached
+    unrolls gen_len steps into the program.  The loop runs from the host
+    (the executor runs a plan with a while op eagerly).
+
+    Caches are preallocated [B*K, n, P+G, d]; each step
+      1. runs the SAME beam_search op as the unrolled variant (greedy is
+         beam_size=1) — scores and end_id freezing are op-identical,
+      2. reorders caches by beam parent with a one-hot matmul (static
+         shapes; no gather needed),
+      3. writes the new K/V at position `cur` with a one-hot masked
+         update and attends over the full cache, positions > cur masked.
+
+    Returns (prompt_var, sentence_ids [B, K, gen_len], scores [B, K]).
+    """
+    L = layers
+    n, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    P, G, k = prompt_len, gen_len, beam_size
+    Ltot = P + G
+    neg = -1e9
+
+    prompt = fluid.data("gpt_prompt", [-1, P], False, dtype="int64")
+
+    # ---- prefill (batched causal pass, captures per-layer K/V) ----
+    pos0 = L.fill_constant_batch_size_like(prompt, shape=[-1, P],
+                                           dtype="int64", value=0)
+    pos0 = L.elementwise_add(pos0, L.assign(np.arange(P, dtype="int64")[None, :]))
+    kv_sink = []
+    x_full = gpt_decoder(prompt, pos0, cfg, is_test=True, kv_sink=kv_sink,
+                         final_ln=False)
+    last_x = L.slice(x_full, axes=[1], starts=[P - 1], ends=[P])  # [B,1,H]
+
+    # ---- loop-carried state (assigned before the loop, re-assigned in
+    # the body -> while carries) ----
+    caches = []
+    for kc, vc in kv_sink:
+        kc, vc = _tile_beams(kc, k), _tile_beams(vc, k)   # [B*K, n, P, d]
+        pad = L.fill_constant_batch_size_like(
+            kc, shape=[-1, n, G, d], dtype="float32", value=0.0)
+        caches.append((L.assign(L.concat([kc, pad], axis=2)),
+                       L.assign(L.concat([vc, pad], axis=2))))
+    x = L.assign(_tile_beams(last_x, k))                  # [B*K, 1, H]
+    pre_ids, pre_scores = _init_beam_state(prompt, P, k)  # [B, K] each
+    pre_ids, pre_scores = L.assign(pre_ids), L.assign(pre_scores)
+    ids_buf = L.assign(L.fill_constant_batch_size_like(
+        prompt, shape=[G, -1, k], dtype="float32", value=0.0,
+        output_dim_idx=1))
+    par_buf = L.assign(L.fill_constant_batch_size_like(
+        prompt, shape=[G, -1, k], dtype="float32", value=0.0,
+        output_dim_idx=1))
+    t = L.fill_constant(shape=[1], value=0, dtype="int64")
+    g_const = L.fill_constant(shape=[1], value=G, dtype="int64")
+    p_const = L.fill_constant(shape=[1], value=P, dtype="int64")
+    arange_l = L.assign(np.arange(Ltot, dtype="int64"))   # read-only
+    cond = L.less_than(t, g_const)
+
+    w = L.While(cond)
+    with w.block():
+        # 1. beam step on the carried hidden state (same op as unrolled)
+        logits = _lm_logits(_ln(x, "gpt_final_ln"), cfg)  # [B*K, V]
+        logp3 = L.reshape(L.log_softmax(logits),
+                          shape=[-1, k, cfg.vocab_size])
+        ids, scores, parent = L.beam_search(pre_ids, pre_scores, logp3,
+                                            beam_size=k, end_id=end_id)
+        # record this step's choices at buf[t]
+        oh_g = L.reshape(L.one_hot(L.reshape(t, shape=[1, 1]), G),
+                         shape=[G, 1, 1])
+        keep_g = L.elementwise_sub(
+            L.fill_constant(shape=[G, 1, 1], value=1.0, dtype="float32"),
+            oh_g)
+        L.assign(L.elementwise_add(
+            L.elementwise_mul(ids_buf, keep_g),
+            L.elementwise_mul(L.unsqueeze(L.cast(ids, "float32"), axes=[0]),
+                              oh_g)), ids_buf)
+        L.assign(L.elementwise_add(
+            L.elementwise_mul(par_buf, keep_g),
+            L.elementwise_mul(L.unsqueeze(L.cast(parent, "float32"),
+                                          axes=[0]), oh_g)), par_buf)
+
+        cur = L.elementwise_add(p_const, t)               # [1] int64
+        tok = L.reshape(ids, shape=[-1, 1])
+        x_new = _embed_token(tok, cur, cfg)
+
+        oh_l4 = L.reshape(L.one_hot(L.reshape(cur, shape=[1, 1]), Ltot),
+                          shape=[1, 1, Ltot, 1])
+        keep_l4 = L.elementwise_sub(
+            L.fill_constant(shape=[1, 1, Ltot, 1], value=1.0,
+                            dtype="float32"), oh_l4)
+        future = L.cast(L.greater_than(arange_l, cur), "float32")
+        amask = L.scale(future, scale=neg)                # [Ltot]
+
+        # 3. one decoder pass on the new token against the fixed caches
+        xi = x_new
+        for li in range(cfg.num_layers):
+            name = f"decoder_layer_{li}"
+            xa = _ln(xi, name + "_ln_attn")
+            q = _fc(xa, cfg.hidden_size, name + "_att_query_fc",
+                    init_std=cfg.initializer_range)
+            kk = _fc(xa, cfg.hidden_size, name + "_att_key_fc",
+                     init_std=cfg.initializer_range)
+            vv = _fc(xa, cfg.hidden_size, name + "_att_value_fc",
+                     init_std=cfg.initializer_range)
+
+            def to_heads(tn):
+                r = L.reshape(tn, shape=[0, 0, n, d])
+                return L.transpose(r, perm=[0, 2, 1, 3])  # [B*K,n,1,d]
+
+            q, kk, vv = to_heads(q), to_heads(kk), to_heads(vv)
+            kc, vc = caches[li]
+            kc_r = _reorder_beam_dim(kc, parent, k, (n, Ltot, d))
+            vc_r = _reorder_beam_dim(vc, parent, k, (n, Ltot, d))
+            # the genuinely-new piece vs decoder_layer_incremental: masked
+            # one-hot write into the FIXED-size cache (no concat — while
+            # carries must keep their shape)
+            kc_new = L.elementwise_add(L.elementwise_mul(kc_r, keep_l4),
+                                       L.elementwise_mul(kk, oh_l4))
+            vc_new = L.elementwise_add(L.elementwise_mul(vc_r, keep_l4),
+                                       L.elementwise_mul(vv, oh_l4))
+            L.assign(kc_new, kc)
+            L.assign(vc_new, vc)
+            scores_att = L.matmul(q, kc_new, transpose_y=True,
+                                  alpha=float(d) ** -0.5)  # [B*K,n,1,Ltot]
+            scores_att = L.elementwise_add(scores_att, amask)
+            probs = L.softmax(scores_att)
+            ctx = L.matmul(probs, vc_new)                  # [B*K,n,1,d]
+            ctx = L.transpose(ctx, perm=[0, 2, 1, 3])
+            ctx = L.reshape(ctx, shape=[0, 0, cfg.hidden_size])
+            attn = _fc(ctx, cfg.hidden_size, name + "_att_output_fc",
+                       init_std=cfg.initializer_range)
+            xi = _ffn_block(L.elementwise_add(xi, attn), cfg, name)
+
+        L.assign(xi, x)
+        L.assign(ids, pre_ids)
+        L.assign(scores, pre_scores)
+        L.increment(t, in_place=True)
+        L.less_than(t, g_const, cond=cond)
+
+    sent = _decode_tail([L.cast(ids_buf, "int64")],
+                        [L.cast(par_buf, "int32")], end_id)
+    return prompt, sent, pre_scores
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,9 @@ the decoder's causal) to ``flash_attention``, which runs K1-K3 on the
 card; a cross-attention stays composed, since its queries and keys
 come from different sequences.  ``build_greedy_decode`` is a separate
 program over the same parameters (by name): a fixed [B, max_out_len +
-1] target buffer, the decoder run once per position.  The while-loop
-form (``build_greedy_decode_scan``) is still to be ported: it needs
-the control-flow ops.  Op lists, parameter names and feed names are
+1] target buffer, the decoder run once per position;
+``build_greedy_decode_scan`` is the same decode as one while loop.  Op
+lists, parameter names and feed names are
 the JAX package's, so weights carry across by name
 (``convert.load_params``).
 """
@@ -27,7 +27,8 @@ from paddle_tpu_torch.fluid.initializer import Normal
 from paddle_tpu_torch.fluid.param_attr import ParamAttr
 
 __all__ = ["TransformerConfig", "build_transformer_nmt",
-           "build_greedy_decode", "make_fake_batch"]
+           "build_greedy_decode", "build_greedy_decode_scan",
+           "make_fake_batch"]
 
 
 class TransformerConfig:
@@ -223,6 +224,49 @@ def build_greedy_decode(cfg: TransformerConfig, max_out_len=16, pad_id=0):
         keep = layers.elementwise_mul(trg, inv)
         write = layers.elementwise_mul(onehot_b, nxt)         # bcast [B,1]
         trg = layers.elementwise_add(keep, write)
+    return src, trg
+
+
+def build_greedy_decode_scan(cfg: TransformerConfig, max_out_len=16,
+                             pad_id=0):
+    """build_greedy_decode as ONE while loop: the unrolled variant puts
+    max_out_len copies of the whole decoder in the program; here the body
+    (one decoder pass and one buffer write) is built once and runs from
+    the host each iteration.  The same fixed buffer, whose tail the
+    causal mask hides, and the same ids.  Returns (src var, out ids
+    [B, cap])."""
+    L = layers
+    cap = max_out_len + 1
+    src = L.data("src_ids", [-1, -1], False, dtype="int64")
+    src_bias = _pad_bias(src, pad_id)
+    enc = L.assign(transformer_encoder(src, src_bias, cfg, is_test=True))
+    src_bias_ro = L.assign(src_bias)
+
+    trg = L.assign(L.fill_constant_batch_size_like(
+        src, [-1, cap], "int64", float(cfg.bos_id)))
+    i = L.fill_constant(shape=[1], value=0, dtype="int64")
+    n_const = L.fill_constant(shape=[1], value=max_out_len, dtype="int64")
+    cond = L.less_than(i, n_const)
+    w = L.While(cond)
+    with w.block():
+        logits = transformer_decoder(trg, enc, src_bias_ro, cfg,
+                                     is_test=True)            # [B,cap,V]
+        # dynamic position pick: one-hot(i) over the time axis
+        oh_i = L.reshape(L.one_hot(L.reshape(i, shape=[1, 1]), cap),
+                         shape=[1, cap, 1])
+        pos = L.reduce_sum(L.elementwise_mul(logits, oh_i), dim=1)  # [B,V]
+        nxt = L.reshape(L.cast(L.argmax(pos, axis=-1), "int64"), [-1, 1])
+        # write buffer position i+1
+        ip1 = L.increment(i, in_place=False)
+        oh_w = L.cast(L.reshape(
+            L.one_hot(L.reshape(ip1, shape=[1, 1]), cap),
+            shape=[1, cap]), "int64")
+        one = L.fill_constant(shape=[1, cap], value=1, dtype="int64")
+        keep = L.elementwise_mul(trg, L.elementwise_sub(one, oh_w))
+        write = L.elementwise_mul(oh_w, nxt)
+        L.assign(L.elementwise_add(keep, write), trg)
+        L.increment(i, in_place=True)
+        L.less_than(i, n_const, cond=cond)
     return src, trg
 
 

@@ -60,6 +60,11 @@ _cmp("less_than", torch.lt)
 _cmp("less_equal", torch.le)
 _cmp("greater_than", torch.gt)
 _cmp("greater_equal", torch.ge)
+_cmp("logical_and", torch.logical_and)
+_cmp("logical_or", torch.logical_or)
+_cmp("logical_xor", torch.logical_xor)
+register_op("logical_not", ["X"], ["Out"],
+            lambda ctx, x, attrs: torch.logical_not(x), grad=None)
 
 
 @simple_op("mul", ["X", "Y"], ["Out"])
@@ -195,6 +200,23 @@ def _sqrt(ctx, x, attrs):
     return torch.sqrt(x)
 
 
+def _unary(name, fn):
+    register_op(name, ["X"], ["Out"], lambda ctx, x, attrs: fn(x))
+
+
+_unary("exp", torch.exp)
+_unary("log", torch.log)
+_unary("floor", torch.floor)
+_unary("ceil", torch.ceil)
+_unary("cos", torch.cos)
+
+
+@simple_op("pow", ["X", "FactorTensor"], ["Out"], optional=("FactorTensor",),
+           no_grad_inputs=("FactorTensor",))
+def _pow(ctx, x, f, attrs):
+    return torch.pow(x, f if f is not None else attrs.get("factor", 1.0))
+
+
 @simple_op("relu", ["X"], ["Out"])
 def _relu(ctx, x, attrs):
     return torch.relu(x)
@@ -275,6 +297,11 @@ def _softmax_ce(ctx, logits, label, attrs):
         return sm, -(label * logp).sum(dim=axis, keepdim=True)
     lbl = label.squeeze(axis) if label.dim() == logits.dim() else label
     lbl = lbl.long()[..., None]
+    if lbl.shape[:-1] != logp.shape[:-1]:
+        # torch.gather would take a smaller label silently
+        raise ValueError(f"softmax_with_cross_entropy: label shape "
+                         f"{tuple(label.shape)} does not match logits "
+                         f"{tuple(logits.shape)}")
     loss = -torch.gather(logp, axis, lbl.clamp(0, logp.shape[axis] - 1))
     ignore = attrs.get("ignore_index", -100)
     return sm, torch.where(lbl == ignore, torch.zeros_like(loss), loss)

@@ -9,8 +9,13 @@ length), so a program of them captures as one CUDA graph.
 ``linear_chain_crf``'s grad is derived by the registry (autograd through
 the logsumexp recurrence); ``crf_decoding`` has none.
 
-Still to come, with the machine-translation book: ``beam_search``,
-``beam_search_decode``, ``nce`` and ``hierarchical_sigmoid``.
+``beam_search`` and ``beam_search_decode`` keep the JAX package's dense
+[B, K] beam.  ``lax.top_k`` puts the lower index first among equal
+scores, and ties are there by design (the -1e9 scores of the beams that
+are not alive at the first step, a finished beam's candidates), while
+``torch.topk`` on the card promises no order among them: the step takes
+its K best with a stable descending sort instead, so ids and parents
+are the JAX op's.  Still to come: ``nce`` and ``hierarchical_sigmoid``.
 """
 
 from __future__ import annotations
@@ -115,3 +120,48 @@ def _crf_decoding(ctx, emission, transition, label, length, attrs):
         lbl = label.reshape(b, t).long()
         return torch.where(mask, (path == lbl).long(), 0)
     return path
+
+
+_NEG = -1e30
+
+
+@simple_op("beam_search", ["PreIds", "PreScores", "Scores"],
+           ["SelectedIds", "SelectedScores", "ParentIdx"], grad=None)
+def _beam_search(ctx, pre_ids, pre_scores, scores, attrs):
+    """One beam step on the dense [B, K] beam.  pre_ids, pre_scores:
+    [B, K]; scores: [B, K, V] log-probs of the next token.  A finished
+    beam (pre_id == end_id) keeps its score, with end_id its only
+    candidate.  Returns the K best (id, score) pairs over the K x V
+    candidates of a row, best first (the lower flat index first among
+    equal scores), and each one's parent beam."""
+    end_id = int(attrs.get("end_id", 0))
+    b, k, v = scores.shape
+    finished = pre_ids.to(torch.int32) == end_id
+    total = pre_scores[:, :, None].float() + scores.float()
+    carry = torch.full((b, k, v), _NEG, dtype=torch.float32,
+                       device=scores.device)
+    carry[:, :, end_id] = pre_scores.float()
+    total = torch.where(finished[:, :, None], carry, total)
+    top, idx = torch.sort(total.reshape(b, k * v), dim=1, descending=True,
+                          stable=True)
+    top, idx = top[:, :k], idx[:, :k]
+    return ((idx % v).to(torch.int64), top.to(pre_scores.dtype),
+            torch.div(idx, v, rounding_mode="floor").to(torch.int32))
+
+
+@simple_op("beam_search_decode", ["Ids", "ParentIdx"],
+           ["SentenceIds", "SentenceScores"], grad=None,
+           optional=("ParentIdx",))
+def _beam_search_decode(ctx, ids, parents, attrs):
+    """Backtrack T stacked beam steps (ids, parents: [T, B, K]) into
+    sentences [B, K, T]: beam j's tokens, walking its parents from the
+    last step back.  SentenceScores stays empty (the scores are the
+    last step's PreScores), as in the JAX op."""
+    t, b, k = ids.shape
+    cur = torch.arange(k, device=ids.device).expand(b, k)
+    toks = []
+    for s in reversed(range(t)):
+        toks.append(torch.gather(ids[s].long(), 1, cur))
+        if parents is not None:
+            cur = torch.gather(parents[s].long(), 1, cur)
+    return torch.stack(toks[::-1], dim=-1), None

@@ -48,6 +48,11 @@ def _fill_constant_batch_size_like(ctx, inp, attrs):
                       device=ctx.device)
 
 
+@simple_op("fill_zeros_like", ["X"], ["Out"], grad=None)
+def _fill_zeros_like(ctx, x, attrs):
+    return torch.zeros_like(x)
+
+
 @simple_op("assign", ["X"], ["Out"])
 def _assign(ctx, x, attrs):
     """A copy of X: ops update scope tensors in place (``adam``), so the
@@ -311,3 +316,48 @@ def _accuracy(ctx, out, indices, label, attrs):
                        device=indices.device)
     correct = correct_rows.to(torch.int32).sum().to(torch.int32)
     return correct.float() / total.float(), correct, total
+
+
+@simple_op("increment", ["X"], ["Out"], grad=None)
+def _increment(ctx, x, attrs):
+    """X + step in X's dtype (a step cast to an integer dtype truncates,
+    as ``jnp.asarray(step, x.dtype)`` does)."""
+    step = attrs.get("step", 1.0)
+    return x + (step if x.is_floating_point() else int(step))
+
+
+@simple_op("stack", ["X*"], ["Y"])
+def _stack(ctx, xs, attrs):
+    return torch.stack(list(xs), dim=attrs.get("axis", 0))
+
+
+@simple_op("unstack", ["X"], ["Y*"])
+def _unstack(ctx, x, attrs):
+    return (list(torch.unbind(x, dim=attrs.get("axis", 0))),)
+
+
+def _one_hot_rows(ids, depth):
+    """fp32 one-hot rows of ``ids`` over ``depth`` classes; an id outside
+    [0, depth) gives a zero row, as ``jax.nn.one_hot`` does (where
+    ``F.one_hot`` raises)."""
+    classes = torch.arange(depth, device=ids.device)
+    return (ids.long()[..., None] == classes).to(torch.float32)
+
+
+@simple_op("one_hot", ["X"], ["Out"], grad=None)
+def _one_hot(ctx, x, attrs):
+    """A trailing dim of 1 is squeezed first ([B, 1] ids give [B,
+    depth]), as in the JAX op."""
+    sq = x.squeeze(-1) if x.dim() and x.shape[-1] == 1 else x
+    return _one_hot_rows(sq, int(attrs["depth"]))
+
+
+@simple_op("one_hot_v2", ["X"], ["Out"], grad=None)
+def _one_hot_v2(ctx, x, attrs):
+    return _one_hot_rows(x, int(attrs["depth"]))
+
+
+@simple_op("where", ["Condition", "X", "Y"], ["Out"],
+           no_grad_inputs=("Condition",))
+def _where(ctx, c, x, y, attrs):
+    return torch.where(c.bool(), x, y)

@@ -6,8 +6,8 @@ each book's program, reader, optimizer, epochs and threshold are its
 tests/book/ script's): fit_a_line, recognize_digits (mlp, conv),
 image_classification (vgg, resnet), word2vec, ctr (local),
 understand_sentiment (conv, stacked LSTM), rnn_encoder_decoder,
-recommender_system, label_semantic_roles and the attention-fusion
-Transformer book.
+recommender_system, label_semantic_roles, the attention-fusion
+Transformer book and machine_translation (StaticRNN GRUs).
 
 - Each is built in both packages under one ``unique_name.guard()`` (and
   the Transformer's numpy seed): the op lists (types, slots, attrs)
@@ -33,6 +33,8 @@ Transformer book.
 - label_semantic_roles: the trained tagger's Viterbi decode beats
   chance (accuracy > 0.5), and the paths equal the JAX op's on the
   port's emissions and transitions.
+- machine_translation: the While-over-tensor-arrays beam decode gives
+  the unrolled decode's ids from the trained parameters.
 - The Transformer book: ``fuse_attention`` fuses the 4 self-attention
   sites (2 with a key bias, 2 causal) and rejects the 2
   cross-attention sites; at dropout 0.1 nothing fuses; the fused
@@ -202,7 +204,7 @@ _SRL = {}
 
 
 @pytest.mark.parametrize("name", [n for n in NAMES if n not in (
-    "label_semantic_roles", "transformer_fusion")])
+    "label_semantic_roles", "transformer_fusion", "machine_translation")])
 def test_book_trains_to_threshold(name, tmp_path):
     book = books.BOOKS[name]
     with _Passes(book.graph_passes):
@@ -253,6 +255,54 @@ def test_srl_crf_decode_accuracy(tmp_path):
         ctx, jnp.asarray(np.asarray(em)), jnp.asarray(trans), None,
         jnp.asarray(feed["length"].astype(np.int32)), attrs={})
     np.testing.assert_array_equal(np.asarray(path), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# machine_translation: StaticRNN training, two beam decodes
+# ---------------------------------------------------------------------------
+
+_MT = {}
+
+
+def _mt_trained(tmp_path):
+    if not _MT:
+        losses, scope, main = train_save_load_infer(
+            books.BOOKS["machine_translation"], tmp_path, return_scope=True)
+        _MT.update(losses=losses, scope=scope, main=main)
+    return _MT
+
+
+def test_machine_translation_trains_to_threshold(tmp_path):
+    losses = _mt_trained(tmp_path)["losses"]
+    assert losses[0] > 4.0  # ln(64) = 4.16 at the start
+
+
+def test_machine_translation_while_decode_equals_unrolled(tmp_path):
+    """The While-over-tensor-arrays decode (the reference book's
+    construction) gives the unrolled decode's ids and scores from the
+    trained parameters, and beam 0 recovers a good share of the
+    targets (chance: 1/61)."""
+    t = _mt_trained(tmp_path)
+    fluid = tpaddle.fluid
+    feed = books.first_feed(books.BOOKS["machine_translation"], tpaddle)
+    outs = {}
+    for tag, builder in (("unrolled", books.mt_build_decode),
+                         ("while", books.mt_build_decode_while)):
+        prog, start = fluid.Program(), fluid.Program()
+        with fluid.program_guard(prog, start), fluid.unique_name.guard():
+            _, sent, scores = builder(tpaddle)
+        outs[tag] = fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed={"src": feed["src"]}, fetch_list=[sent, scores],
+            scope=t["scope"])
+    sent, scores = outs["unrolled"]
+    assert sent.shape == (books.MT_BATCH, books.MT_BEAM, books.MT_TRG)
+    np.testing.assert_array_equal(outs["while"][0], sent)
+    np.testing.assert_allclose(outs["while"][1], scores, rtol=1e-5,
+                               atol=1e-6)
+    assert np.all(scores[:, 0] >= scores[:, 1] - 1e-5)
+    mask = feed["mask"] > 0
+    acc = (sent[:, 0, :] == feed["trg_next"])[mask].mean()
+    assert acc > 0.35, acc
 
 
 # ---------------------------------------------------------------------------

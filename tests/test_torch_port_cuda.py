@@ -2421,3 +2421,132 @@ def test_health_sentinel_rollback_is_bit_exact_on_card(dev, sentinel_flags):
     assert runs["injected"] == runs["base"]
     for n in _state(main, scope):
         assert torch.equal(scope.get(n), base.get(n)), n
+
+
+# ---------------------------------------------------------------------------
+# control flow on the card: conditional_block and static_rnn captured,
+# while eager; GPT generation; BERT's LR schedule on the train step
+# ---------------------------------------------------------------------------
+
+
+def test_switch_sgd_captured_leaves_param_when_false(dev):
+    """A Switch case running sgd on a parameter: the plan is captured as
+    one graph; a false predicate leaves the parameter bit-unchanged, a
+    true one updates it as the eager executor and the CPU do."""
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        flag = fluid.data("flag", [1], False, dtype="bool")
+        grad = fluid.data("g", [3, 2], False, dtype="float32")
+        w = L.create_parameter([3, 2], "float32", name="sw_w")
+        lr = L.fill_constant([1], "float32", 0.25)
+        with L.Switch() as switch:
+            with switch.case(flag):
+                main.current_block().append_op(
+                    "sgd", inputs={"Param": [w], "Grad": [grad],
+                                   "LearningRate": [lr]},
+                    outputs={"ParamOut": [w]})
+        out = L.scale(w, scale=1.0)
+    g = np.random.RandomState(0).randn(3, 2).astype("float32")
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    runs = {"captured": (_executor(True), scope),
+            "eager": (_executor(False), _clone_scope(scope)),
+            "cpu": (fluid.Executor(fluid.CPUPlace()), fluid.Scope())}
+    for n in scope.keys():
+        runs["cpu"][1].set(n, scope.get(n).cpu().clone())
+    w0 = scope.get("sw_w").clone()
+    seen = {m: [] for m in runs}
+    for f in (False, True, False, False):
+        for m, (exe, sc) in runs.items():
+            seen[m].append(exe.run(main, feed={"flag": np.array([f]),
+                                               "g": g},
+                                   fetch_list=[out], scope=sc)[0])
+    (entry,) = runs["captured"][0].compiled_for(main)
+    assert entry.graph is not None and not entry.plan.eager_only
+    assert np.array_equal(seen["captured"][0], w0.cpu().numpy())
+    for a, b in zip(seen["captured"], seen["eager"]):
+        assert np.array_equal(a, b)
+    for a, b in zip(seen["captured"], seen["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=0)
+    assert np.array_equal(seen["captured"][1], seen["captured"][3])
+
+
+def test_gpt_generation_builds_on_card_match_cpu(dev):
+    """GPTConfig.tiny, beam 3: the three generation builds on the card
+    (the recompute and cached builds captured, the scan build eager by
+    rule) give the CPU's ids and scores within 1e-5, and each other's."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.tiny(num_layers=2)
+    feed = {"gpt_prompt": np.random.RandomState(0).randint(
+        2, cfg.vocab_size, (2, 6)).astype("int64")}
+    scope = cpu_scope = None
+    ids = {}
+    for build in ("build_gpt_generate", "build_gpt_generate_cached",
+                  "build_gpt_generate_scan"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            _, sent, scores = getattr(gpt, build)(cfg, 6, 4, beam_size=3)
+        if scope is None:
+            scope = fluid.Scope()
+            fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+            cpu_scope = fluid.Scope()
+            for n in scope.keys():
+                cpu_scope.set(n, scope.get(n).cpu().clone())
+        exe = _executor(True)
+        for _ in range(2):  # the warm-up and capture, then a replay
+            got = exe.run(main, feed=feed, fetch_list=[sent, scores],
+                          scope=scope)
+        want = fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=[sent, scores], scope=cpu_scope)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+        (entry,) = exe.compiled_for(main)
+        assert (entry.graph is None) == (build == "build_gpt_generate_scan")
+        ids[build] = got[0]
+    for v in ids.values():
+        np.testing.assert_array_equal(v, ids["build_gpt_generate"])
+
+
+def test_scheduled_bert_step_captured_matches_eager_and_cpu(dev):
+    """BERT-tiny with linear_lr_warmup over polynomial_decay, 6 steps
+    across the Switch: captured and eager bit-equal, the learning rates
+    the CPU's, the losses within 1e-4 of the CPU's (fp32, no
+    dropout)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(use_flash_attention=True, attn_dropout=0.0,
+                               hidden_dropout=0.0)
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        lr = L.linear_lr_warmup(L.polynomial_decay(1e-3, 10, 0.0, 1.0),
+                                3, 0.0, 1e-3)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    cpu_scope = fluid.Scope()
+    for n in scope.keys():
+        cpu_scope.set(n, scope.get(n).cpu().clone())
+    runs = {"captured": (_executor(True), scope),
+            "eager": (_executor(False), _clone_scope(scope)),
+            "cpu": (fluid.Executor(fluid.CPUPlace()), cpu_scope)}
+    feed = bert.make_fake_batch(cfg, 4, 32, seed=1)
+    seen = {m: [] for m in runs}
+    for _ in range(6):
+        for m, (exe, sc) in runs.items():
+            lv, lrv = exe.run(main, feed=feed, fetch_list=[loss, lr],
+                              scope=sc)
+            seen[m].append((float(lv), float(lrv[0])))
+    (entry,) = runs["captured"][0].compiled_for(main)
+    assert entry.graph is not None
+    assert seen["captured"] == seen["eager"]
+    assert [x[1] for x in seen["captured"]] == [x[1] for x in seen["cpu"]]
+    np.testing.assert_allclose([x[0] for x in seen["captured"]],
+                               [x[0] for x in seen["cpu"]], rtol=1e-4)

@@ -18,7 +18,7 @@ import importlib
 import numpy as np
 
 __all__ = ["Book", "BOOKS", "train_feeds", "first_feed", "pad_ids",
-           "ctr_clicks"]
+           "ctr_clicks", "mt_build_decode", "mt_build_decode_while"]
 
 
 class Book:
@@ -642,6 +642,203 @@ def _transformer_reader(paddle):
 
 
 # ---------------------------------------------------------------------------
+# machine_translation: a GRU encoder and decoder on StaticRNN, a masked
+# loss, and two beam decodes over the trained parameters (by name): the
+# decode steps unrolled, and the same decode as a While over tensor arrays
+# ---------------------------------------------------------------------------
+
+MT_DICT, MT_EMB, MT_HID, MT_SRC, MT_TRG, MT_BATCH, MT_BEAM = \
+    64, 32, 32, 9, 10, 64, 3
+
+
+def _mt_gru_cell(fluid, x_t, h_prev, prefix):
+    """One GRU step from fc layers."""
+    hid = MT_HID
+    gates = fluid.layers.fc(input=x_t, size=2 * hid,
+                            param_attr=fluid.ParamAttr(name=f"{prefix}_xg"),
+                            bias_attr=fluid.ParamAttr(name=f"{prefix}_bg"))
+    gates = gates + fluid.layers.fc(
+        input=h_prev, size=2 * hid, bias_attr=False,
+        param_attr=fluid.ParamAttr(name=f"{prefix}_hg"))
+    gates = fluid.layers.sigmoid(gates)
+    u = fluid.layers.slice(gates, axes=[1], starts=[0], ends=[hid])
+    r = fluid.layers.slice(gates, axes=[1], starts=[hid], ends=[2 * hid])
+    cand = fluid.layers.fc(input=x_t, size=hid,
+                           param_attr=fluid.ParamAttr(name=f"{prefix}_xc"),
+                           bias_attr=fluid.ParamAttr(name=f"{prefix}_bc"))
+    cand = cand + fluid.layers.fc(
+        input=r * h_prev, size=hid, bias_attr=False,
+        param_attr=fluid.ParamAttr(name=f"{prefix}_hc"))
+    cand = fluid.layers.tanh(cand)
+    one_minus_u = fluid.layers.scale(u, scale=-1.0, bias=1.0)
+    return one_minus_u * h_prev + u * cand
+
+
+def _mt_pad(ids, length, pad=1):  # pads with EOS
+    out = np.full(length, pad, dtype="int64")
+    n = min(len(ids), length)
+    out[:n] = ids[:n]
+    return out, n
+
+
+def _mt_feed(batch):
+    return {
+        "src": np.stack([_mt_pad(s[0], MT_SRC)[0] for s in batch]),
+        "trg": np.stack([_mt_pad(s[1], MT_TRG)[0] for s in batch]),
+        "trg_next": np.stack([_mt_pad(s[2], MT_TRG)[0] for s in batch]),
+        "mask": np.stack([
+            (np.arange(MT_TRG) < _mt_pad(s[2], MT_TRG)[1]).astype("float32")
+            for s in batch])}
+
+
+def _mt_encoder(fluid, src):
+    src_emb = fluid.layers.embedding(
+        src, size=[MT_DICT, MT_EMB],
+        param_attr=fluid.ParamAttr(name="src_emb_w"))
+    src_tm = fluid.layers.transpose(src_emb, perm=[1, 0, 2])  # time-major
+    h0 = fluid.layers.fill_constant_batch_size_like(
+        input=src, shape=[-1, MT_HID], dtype="float32", value=0.0)
+    enc = fluid.layers.StaticRNN()
+    with enc.step():
+        x_t = enc.step_input(src_tm)
+        h_prev = enc.memory(init=h0)
+        h = _mt_gru_cell(fluid, x_t, h_prev, "enc")
+        enc.update_memory(h_prev, h)
+        enc.step_output(h)
+    enc_last = fluid.layers.slice(enc(), axes=[0], starts=[MT_SRC - 1],
+                                  ends=[MT_SRC])
+    return fluid.layers.reshape(enc_last, shape=[-1, MT_HID])
+
+
+def _machine_translation(paddle):
+    fluid = paddle.fluid
+    L = fluid.layers
+    src = L.data(name="src", shape=[MT_SRC], dtype="int64")
+    trg = L.data(name="trg", shape=[MT_TRG], dtype="int64")
+    trg_next = L.data(name="trg_next", shape=[MT_TRG], dtype="int64")
+    mask = L.data(name="mask", shape=[MT_TRG], dtype="float32")
+    enc_last = _mt_encoder(fluid, src)
+    trg_emb = L.embedding(trg, size=[MT_DICT, MT_EMB],
+                          param_attr=fluid.ParamAttr(name="trg_emb_w"))
+    trg_tm = L.transpose(trg_emb, perm=[1, 0, 2])
+    dec = L.StaticRNN()
+    with dec.step():
+        y_t = dec.step_input(trg_tm)
+        h_prev = dec.memory(init=enc_last)
+        h = _mt_gru_cell(fluid, y_t, h_prev, "dec")
+        dec.update_memory(h_prev, h)
+        dec.step_output(L.fc(input=h, size=MT_DICT,
+                             param_attr=fluid.ParamAttr(name="out_w"),
+                             bias_attr=fluid.ParamAttr(name="out_b")))
+    logits_bm = L.transpose(dec(), perm=[1, 0, 2])  # [B, T, V]
+    ce = L.softmax_with_cross_entropy(logits_bm,
+                                      L.unsqueeze(trg_next, axes=[2]))
+    masked = L.squeeze(ce, axes=[2]) * mask
+    loss = L.reduce_sum(masked) / (L.reduce_sum(mask) + 1e-6)
+    return [src, trg], loss, logits_bm
+
+
+def _mt_beam_start(paddle, src):
+    """pre_ids (BOS) and pre_scores (beam 0 alive, the rest -1e9)."""
+    L = paddle.fluid.layers
+    pre_ids = L.fill_constant_batch_size_like(
+        src, shape=[-1, MT_BEAM], dtype="int64",
+        value=paddle.dataset.wmt16.BOS)
+    init_bias = np.zeros((1, MT_BEAM), "float32")
+    init_bias[0, 1:] = -1e9
+    pre_scores = L.fill_constant_batch_size_like(
+        src, shape=[-1, MT_BEAM], dtype="float32", value=0.0) \
+        + L.assign(init_bias)
+    return pre_ids, pre_scores
+
+
+def _mt_beam_step(paddle, pre_ids, pre_scores, h):
+    """One decode step: the GRU on each beam, beam_search (EOS ends a
+    beam), and the new states reordered by parent with a one-hot
+    matmul."""
+    fluid = paddle.fluid
+    L = fluid.layers
+    emb = L.embedding(pre_ids, size=[MT_DICT, MT_EMB],
+                      param_attr=fluid.ParamAttr(name="trg_emb_w"))
+    h_new = _mt_gru_cell(fluid, L.reshape(emb, shape=[-1, MT_EMB]),
+                         L.reshape(h, shape=[-1, MT_HID]), "dec")
+    logits = L.fc(input=h_new, size=MT_DICT,
+                  param_attr=fluid.ParamAttr(name="out_w"),
+                  bias_attr=fluid.ParamAttr(name="out_b"))
+    logp3 = L.reshape(L.log_softmax(logits), shape=[-1, MT_BEAM, MT_DICT])
+    ids, scores, parent = L.beam_search(pre_ids, pre_scores, logp3,
+                                        beam_size=MT_BEAM,
+                                        end_id=paddle.dataset.wmt16.EOS)
+    h_sel = L.matmul(L.one_hot(parent, MT_BEAM),
+                     L.reshape(h_new, shape=[-1, MT_BEAM, MT_HID]))
+    return ids, scores, parent, h_sel
+
+
+def mt_build_decode(paddle):
+    """The book's unrolled beam decode (MT_TRG steps, then
+    beam_search_decode).  Returns (src, sentences [B, K, T], scores)."""
+    fluid = paddle.fluid
+    L = fluid.layers
+    src = L.data(name="src", shape=[MT_SRC], dtype="int64")
+    h = L.stack([_mt_encoder(fluid, src)] * MT_BEAM, axis=1)
+    pre_ids, pre_scores = _mt_beam_start(paddle, src)
+    step_ids, step_parents = [], []
+    for _ in range(MT_TRG):
+        pre_ids, pre_scores, parent, h = _mt_beam_step(
+            paddle, pre_ids, pre_scores, h)
+        step_ids.append(L.unsqueeze(pre_ids, axes=[0]))
+        step_parents.append(L.unsqueeze(L.cast(parent, "int32"), axes=[0]))
+    sent = L.beam_search_decode(L.concat(step_ids, axis=0),
+                                L.concat(step_parents, axis=0),
+                                end_id=paddle.dataset.wmt16.EOS)
+    return src, sent, pre_scores
+
+
+def mt_build_decode_while(paddle):
+    """The same decode as a While over tensor arrays (the reference
+    book's construction): token-identical to mt_build_decode."""
+    fluid = paddle.fluid
+    L = fluid.layers
+    src = L.data(name="src", shape=[MT_SRC], dtype="int64")
+    h0 = L.stack([_mt_encoder(fluid, src)] * MT_BEAM, axis=1)
+    pre_ids0, pre_scores0 = _mt_beam_start(paddle, src)
+    counter = L.fill_constant(shape=[1], dtype="int64", value=0)
+    limit = L.fill_constant(shape=[1], dtype="int64", value=MT_TRG)
+    cap = MT_TRG + 1
+    ids_arr = L.create_array("int64", capacity=cap)
+    sc_arr = L.create_array("float32", capacity=cap)
+    par_arr = L.create_array("int32", capacity=cap)
+    st_arr = L.create_array("float32", capacity=cap)
+    L.array_write(pre_ids0, counter, array=ids_arr)
+    L.array_write(pre_scores0, counter, array=sc_arr)
+    L.array_write(L.fill_constant_batch_size_like(
+        src, shape=[-1, MT_BEAM], dtype="int32", value=0), counter,
+        array=par_arr)
+    L.array_write(h0, counter, array=st_arr)
+    cond = L.less_than(counter, limit)
+    w = L.While(cond)
+    with w.block():
+        ids, scores, parent, h_sel = _mt_beam_step(
+            paddle, L.array_read(ids_arr, counter),
+            L.array_read(sc_arr, counter), L.array_read(st_arr, counter))
+        L.increment(counter, value=1, in_place=True)
+        L.array_write(ids, counter, array=ids_arr)
+        L.array_write(scores, counter, array=sc_arr)
+        L.array_write(L.cast(parent, "int32"), counter, array=par_arr)
+        L.array_write(h_sel, counter, array=st_arr)
+        L.less_than(counter, limit, cond=cond)
+    ids_stacked, _ = L.tensor_array_to_tensor(ids_arr, axis=0,
+                                              use_stack=True)
+    par_stacked, _ = L.tensor_array_to_tensor(par_arr, axis=0,
+                                              use_stack=True)
+    sent = L.beam_search_decode(
+        L.slice(ids_stacked, axes=[0], starts=[1], ends=[cap]),
+        L.slice(par_stacked, axes=[0], starts=[1], ends=[cap]),
+        end_id=paddle.dataset.wmt16.EOS)
+    return src, sent, L.array_read(sc_arr, limit)
+
+
+# ---------------------------------------------------------------------------
 
 BOOKS = {b.name: b for b in (
     Book("fit_a_line", _fit_a_line,
@@ -691,6 +888,11 @@ BOOKS = {b.name: b for b in (
          batch=SRL_BATCH),
     Book("transformer_fusion", _transformer, _transformer_reader, TF_STEPS,
          _adam(1e-3), _falls, batch=TF_BATCH, graph_passes="fuse_attention"),
+    Book("machine_translation", _machine_translation,
+         _batched(lambda p: p.dataset.wmt16.train(MT_DICT, MT_DICT),
+                  MT_BATCH, _mt_feed),
+         12, _adam(8e-3), _below(2.5, 4), feed_names=["src", "trg"],
+         batch=MT_BATCH),
 )}
 
 
