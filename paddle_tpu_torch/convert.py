@@ -1,5 +1,5 @@
 """Carrying weights across: numpy arrays keyed by var name into the
-port's scope.
+port's scope, and checkpoint directories between the two packages.
 
 Parameter names are the same in both packages
 (``gpt_word_embedding``, ``decoder_layer_{i}_att_query_fc.w_0``, ...),
@@ -7,6 +7,14 @@ so the JAX package's scope, read out as numpy, loads here by name with
 no renaming table.  A weight that the ``int8_weight_storage`` pass has
 claimed may arrive as its dual-int8 storage triple instead (a scope the
 JAX package's ``quantize_scope_weights`` converted).
+
+:func:`load_checkpoint` reads a directory the JAX package's
+``fluid.io.save_persistables`` wrote (its JSON layout: a ``.npy`` a var
+or one ``.npz``; or Fluid's, ``reference_format=True``: a LoDTensor
+stream a var or one combined file) into the port's scope, held to the
+program as :func:`load_params` holds it; :func:`save_checkpoint` writes
+the port's scope in either layout for the JAX package's
+``load_persistables``.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import torch
 from .fluid.framework import resolve_place
 from .fluid.registry import torch_dtype
 
-__all__ = ["load_params"]
+__all__ = ["load_params", "load_checkpoint", "save_checkpoint"]
 
 
 def load_params(scope, arrays, place, program=None):
@@ -90,3 +98,79 @@ def _model_state(program):
     return [v for n, v in sorted(block.vars.items())
             if v.persistable and n in read and n not in params
             and v.initializer is not None]
+
+
+def _persistables(program):
+    from .fluid.io import _is_persistable
+
+    return [v for v in program.list_vars() if _is_persistable(v)]
+
+
+def read_checkpoint(dirname, program, filename=None, reference_format=None):
+    """{name: array} of ``program``'s persistables from a checkpoint
+    directory.  ``reference_format`` None tells the layout from the
+    files: ``.npy`` / ``.npz`` files are the JSON layout, anything else
+    Fluid's LoDTensor streams.  A bfloat16 stream record comes back as
+    its float32 value (exact), for :func:`load_params`."""
+    import os
+
+    from .fluid import io
+
+    wanted = _persistables(program)
+    if reference_format is None:
+        if filename is not None:
+            reference_format = not (filename.endswith(".npz") or
+                                    os.path.exists(os.path.join(
+                                        dirname, filename + ".npz")))
+        else:
+            reference_format = not any(
+                os.path.exists(os.path.join(
+                    dirname, v.name.replace("/", "__") + ".npy"))
+                for v in wanted)
+    out = {}
+    if reference_format:
+        def put(name, arr):
+            if isinstance(arr, torch.Tensor):
+                arr = arr.float().numpy()
+            out[name] = arr
+
+        io._read_streams(dirname, filename, wanted, put)
+        return out
+    if filename is not None:
+        path = io._npz_path(dirname, filename)
+        with np.load(path, allow_pickle=False) as data:
+            for v in wanted:
+                if v.name not in data:
+                    raise ValueError(f"read_checkpoint: {v.name} not in "
+                                     f"{path}")
+                out[v.name] = data[v.name]
+        return out
+    for v in wanted:
+        path = os.path.join(dirname, v.name.replace("/", "__") + ".npy")
+        if not os.path.exists(path):
+            raise ValueError(f"read_checkpoint: {path} not found")
+        out[v.name] = np.load(path)
+    return out
+
+
+def load_checkpoint(scope, dirname, program, place, filename=None,
+                    reference_format=None):
+    """Load a checkpoint directory (:func:`read_checkpoint`) into
+    ``scope`` on ``place``, every parameter and model state of
+    ``program`` checked as :func:`load_params` checks them.  Returns the
+    sorted names loaded."""
+    arrays = read_checkpoint(dirname, program, filename, reference_format)
+    return load_params(scope, arrays, place, program=program)
+
+
+def save_checkpoint(scope, dirname, program, filename=None,
+                    reference_format=False):
+    """Write ``program``'s persistables from ``scope`` to ``dirname`` in
+    the JAX package's JSON layout (or Fluid's, ``reference_format``),
+    which its ``fluid.io.load_persistables`` reads.  Returns the sorted
+    names written."""
+    from .fluid import io
+
+    return io.save_vars(None, dirname, program, vars=_persistables(program),
+                        filename=filename, scope=scope,
+                        reference_format=reference_format)

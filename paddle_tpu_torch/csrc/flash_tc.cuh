@@ -67,8 +67,12 @@
 //   into the A fragments of the second products and never touch shared
 //   memory.  Rounding: P·V and Pᵀ·dO take P rounded to bf16 where the
 //   JAX kernel keeps it fp32 (flash.py:114-115, 197): at most 2^-9
-//   relative error a term, FlashAttention-2's standard choice; P lies in
-//   [0, 1], so the error stays under the outputs' own bf16 rounding.  dS
+//   relative error a term, FlashAttention-2's standard choice.  Summed
+//   over a key's S query rows that is up to 2^-8 of sum P·|dO|, which
+//   outgrows dV's own bf16 rounding where dV cancels (a real key of a
+//   short row: P ~ 1/n from every row); chip_smoke.py holds dK and dV to
+//   that bound against the exact answer (flash.flash_bwd_dkv_bf16_bound),
+//   not to 2e-2 of the plain version.  dS
 //   is not bounded so: where every key of a row is masked, P is 1 for
 //   every key (the JAX kernel's lse rounds to -1e30) and dS is of order
 //   1, and its bf16 rounding alone would move dK and dQ by about

@@ -26,6 +26,7 @@ from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import flags, initializer, layers  # noqa: F401
 from . import (backward, clip, compiler, contrib, io, ir,  # noqa: F401
                nets, optimizer, regularizer)
+from . import aot_cache, incubate, proto_compat  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
 from .backward import append_backward  # noqa: F401

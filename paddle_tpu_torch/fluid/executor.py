@@ -86,6 +86,7 @@ import typing
 import numpy as np
 import torch
 
+from ..kernels import _build
 from . import framework, registry
 from .framework import Variable
 from .struct_values import is_struct_value
@@ -124,9 +125,13 @@ def _m_compile_seconds():
 
     return metrics.counter(
         "pt_compile_seconds_total",
-        "Seconds spent building executables: phase=trace is the plan "
-        "build, phase=capture the CUDA graph capture, phase=first_run "
-        "the signature's whole first run (its eager warm-up and capture "
+        "Seconds spent building executables: phase=passes is a "
+        "program's graph passes, phase=trace the plan build, "
+        "phase=aot_load the warm-start cache's lookup (and on a hit "
+        "the plan from its entry), phase=aot_save a miss's entry "
+        "written, "
+        "phase=capture the CUDA graph capture, phase=first_run the "
+        "signature's whole first run (its eager warm-up and capture "
         "included)", labels=("path", "phase"))
 
 
@@ -291,6 +296,25 @@ def _apply_bf16_policy(op, vals):
 # ---------------------------------------------------------------------------
 
 
+def _adopt_program(program, entry):
+    """Give ``program`` the blocks and pass report of a warm-start cache
+    entry (fluid/aot_cache.py): the pass-rewritten form, so the passes
+    do not run again."""
+    from .io import program_from_dict
+
+    cached = program_from_dict(entry["program"])
+    for b in cached.blocks:
+        b.program = program
+    program.blocks = cached.blocks
+    program.current_block_idx = 0
+    passes = entry["passes"]
+    program._graph_passes_done = tuple(passes["done"])
+    program._graph_passes_spec = passes["spec"]
+    if passes["report"] is not None:
+        program._pass_report = passes["report"]
+    program._bump_version()
+
+
 def _prune_ops(block, fetch_names):
     """Dead-op elimination: keep ops that contribute to a fetch target or
     write a persistable var.  The kv_cache_write ops are never fetched;
@@ -405,12 +429,21 @@ class _Plan:
     pruned ops with their lowerings and slot bindings (runs of ops with
     a group form merged into one step each), the names read from the
     scope, the names written back to it, and after each step the names
-    no later step, fetch or write-back reads."""
+    no later step, fetch or write-back reads.
 
-    def __init__(self, program, feed_names, fetch_names):
+    ``cached`` (a :meth:`to_cache` dict, from the warm-start cache,
+    fluid/aot_cache.py) gives the pruned ops' positions, the scope
+    reads and writes, the host ops and the frees: the pruning and the
+    liveness analysis do not run, and only the lowerings are bound."""
+
+    def __init__(self, program, feed_names, fetch_names, cached=None):
         block = program.global_block()
-        ops = _prune_ops(block, fetch_names)
+        if cached is not None:
+            ops = [block.ops[i] for i in cached["ops"]]
+        else:
+            ops = _prune_ops(block, fetch_names)
         position = {id(op): i for i, op in enumerate(block.ops)}
+        self.positions = [position[id(op)] for op in ops]
         steps = []
         # each op's index in its block, as the JAX executor numbers ops
         # for the random streams (ctx.op_index)
@@ -421,6 +454,8 @@ class _Plan:
             op_index.append((block.idx << 16) | position[id(op)])
             info = registry.get_op(op.type)
             steps.append(_bind(op, info))
+            if cached is not None:
+                continue
             made_here = _optional_in_out(op, info, block)
             for n in op.input_arg_names:
                 if n not in produced and n not in self.scope_reads \
@@ -431,25 +466,37 @@ class _Plan:
                 v = block._find_var_recursive(n)
                 if v is not None and v.persistable and n not in self.writes:
                     self.writes.append(n)
-        # runs the eager loop by rule: a HOST_OPS op (a while loop reads
-        # its predicate each iteration, print writes from the host),
-        # which a CUDA graph cannot hold; and a plan that reads neither
-        # the scope nor a feed (a startup program) makes the same values
-        # from nothing every run, so a graph would only pin a second
-        # copy of them
-        self.host_ops = sorted({o.type for op in ops
-                                for o in [op, *_sub_block_ops(program, op)]
-                                if o.type in HOST_OPS})
+        if cached is not None:
+            self.scope_reads = list(cached["scope_reads"])
+            self.writes = list(cached["writes"])
+            self.host_ops = list(cached["host_ops"])
+        else:
+            # runs the eager loop by rule: a HOST_OPS op (a while loop
+            # reads its predicate each iteration, print writes from the
+            # host), which a CUDA graph cannot hold
+            self.host_ops = sorted({o.type for op in ops
+                                    for o in [op, *_sub_block_ops(program,
+                                                                  op)]
+                                    if o.type in HOST_OPS})
+            bad = [n for n in fetch_names if n not in produced]
+            if bad:
+                raise ValueError(f"fetch target(s) {bad} are not produced "
+                                 f"by this program (not an op output or a "
+                                 f"feed)")
+        # and a plan that reads neither the scope nor a feed (a startup
+        # program) makes the same values from nothing every run, so a
+        # graph would only pin a second copy of them
         self.eager_only = bool(self.host_ops) or not (self.scope_reads
                                                       or feed_names)
-        bad = [n for n in fetch_names if n not in produced]
-        if bad:
-            raise ValueError(f"fetch target(s) {bad} are not produced by "
-                             f"this program (not an op output or a feed)")
         self.steps, self.op_index = _merge_groups(steps, op_index)
         # (op type, members) of each group step
         self.group_sizes = [(g.ops[0].type, len(g.ops)) for g in self.steps
                             if isinstance(g, _Group)]
+        if cached is not None:
+            if len(cached["frees"]) != len(self.steps):
+                raise ValueError("the cached plan's steps do not match")
+            self.frees = [list(f) for f in cached["frees"]]
+            return
         keep = set(fetch_names) | set(self.writes)
         last = {}
         for i, step in enumerate(self.steps):
@@ -464,6 +511,12 @@ class _Plan:
         for n, i in last.items():
             if n not in keep:
                 self.frees[i].append(n)
+
+    def to_cache(self):
+        """What the warm-start cache keeps of this plan (JSON)."""
+        return {"ops": self.positions, "scope_reads": self.scope_reads,
+                "writes": self.writes, "host_ops": self.host_ops,
+                "frees": self.frees}
 
     def check_scope(self, scope):
         missing = [n for n in self.scope_reads if scope.get(n) is None]
@@ -799,6 +852,7 @@ class _Signature:
             d, None if group is None else r) for r, d in enumerate(devices)]
         self.graph = None
         self.ran = False
+        self.aot_hit = False  # its plan came from the warm-start cache
 
     def _reseed(self, step):
         """Seed the random streams for the run at ``step``: a replica's
@@ -1022,10 +1076,110 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else f
                        for f in (fetch_list or [])]
+        feeds = self._coerce_feed(program, feed)
+        self._aot_lookup(program, feeds, fetch_names)  # before the passes
+        first = getattr(program, "_graph_passes_done", None) is None
+        t0 = time.perf_counter()
         self._graph_passes(program, fetch_names)  # before the plan key
+        if first:
+            _m_compile_seconds().labels(path="single", phase="passes").inc(
+                time.perf_counter() - t0)
+        self._aot_note_passes(program)
         sent = self.health_sentinel(program)  # may insert it: before the key
-        return (program, scope, fetch_names,
-                self._coerce_feed(program, feed), sent)
+        return program, scope, fetch_names, feeds, sent
+
+    # -- the warm-start cache (FLAGS_aot_cache_dir, fluid/aot_cache.py) --
+    @staticmethod
+    def _aot_signature(feeds, fetch_names):
+        return (tuple((k, tuple(v.shape), str(v.dtype))
+                      for k, v in sorted(feeds.items())),
+                tuple(fetch_names))
+
+    def _aot_lookup(self, program, feeds, fetch_names):
+        """Before a program's passes first run: look its first signature
+        up in the warm-start cache.  On a hit the program takes the
+        cached pass-rewritten form (its blocks and pass report), so the
+        passes do not run; the plan is taken from the entry when the
+        signature is built (:meth:`_signature`)."""
+        from . import aot_cache
+
+        if not aot_cache.enabled() or hasattr(program, "_aot") \
+                or getattr(program, "_graph_passes_done", None) is not None:
+            return
+        t0 = time.perf_counter()
+        key = aot_cache.entry_key(program, feeds, fetch_names, self.device)
+        entry = aot_cache.load(key)
+        if entry is not None:
+            try:
+                _adopt_program(program, entry)
+            except (KeyError, TypeError, ValueError) as e:
+                aot_cache.stale(key, f"does not rebuild its program "
+                                     f"({e!r})", "adopt")
+                entry = None
+        program._aot = {"key": key, "entry": entry,
+                        "sig": self._aot_signature(feeds, fetch_names),
+                        "seconds": time.perf_counter() - t0}
+
+    @staticmethod
+    def _aot_note_passes(program):
+        """On a miss: the pass-rewritten program as the entry will keep
+        it (the health sentinel, attached next, inserts its ops again
+        on a hit)."""
+        aot = getattr(program, "_aot", None)
+        if aot is None or aot["entry"] is not None or "program" in aot:
+            return
+        from .io import program_to_dict
+
+        aot["program"] = program_to_dict(program)
+        aot["passes"] = {
+            "done": list(getattr(program, "_graph_passes_done", ()) or ()),
+            "spec": getattr(program, "_graph_passes_spec", None),
+            "report": getattr(program, "_pass_report", None)}
+
+    def _aot_plan(self, program, feeds, fetch_names):
+        """The plan of a warm-start cache hit for this signature, else
+        None (and a stale entry warns and goes)."""
+        from . import aot_cache
+
+        aot = getattr(program, "_aot", None)
+        if aot is None or aot["entry"] is None or aot.get("used") \
+                or aot["sig"] != self._aot_signature(feeds, fetch_names):
+            return None
+        aot["used"] = True
+        plan = aot["entry"]["plan"]
+        try:
+            if plan["fingerprint"] != aot_cache.program_fingerprint(
+                    program):
+                raise ValueError("the program differs from the cached one")
+            kernels = aot["entry"].get("kernels")
+            if kernels:  # their builds are there (or are made now)
+                _build.build_all(kernels)
+            return _Plan(program, feeds.keys(), fetch_names, cached=plan)
+        except (KeyError, IndexError, TypeError, ValueError) as e:
+            aot_cache.stale(aot["key"], f"is stale ({e})")
+            # the plan is built from the cached program, and the entry
+            # saved again with it after the first run
+            aot.update(program=aot["entry"]["program"],
+                       passes=aot["entry"]["passes"])
+            return None
+
+    def _aot_save(self, program, sig):
+        """After a miss's first run: save the entry (the program, the
+        pass report, the plan and the kernel libraries loaded)."""
+        from . import aot_cache
+
+        aot = getattr(program, "_aot", None)
+        if aot is None or "program" not in aot or aot.get("saved"):
+            return
+        aot["saved"] = True
+        t0 = time.perf_counter()
+        aot_cache.save(aot["key"], {
+            "program": aot["program"], "passes": aot["passes"],
+            "plan": dict(sig.plan.to_cache(),
+                         fingerprint=aot_cache.program_fingerprint(program)),
+            "kernels": _build.loaded()})
+        _m_compile_seconds().labels(path="single", phase="aot_save").inc(
+            time.perf_counter() - t0)
 
     def _pin(self, key, entry, *owners):
         self._cache[key] = entry
@@ -1039,12 +1193,25 @@ class Executor:
         if sig is not None:
             return sig, False
         t0 = time.perf_counter()
-        plan = _Plan(program, feeds.keys(), fetch_names)
+        plan = self._aot_plan(program, feeds, fetch_names)
+        aot_hit = plan is not None
+        if plan is None:
+            plan = _Plan(program, feeds.keys(), fetch_names)
         sig = _Signature(program, plan, [self.device],
                          f"program@{id(program):x}/v{program._version}")
+        sig.aot_hit = aot_hit
         self._pin(key, sig, program, scope)
-        _m_compile_seconds().labels(path=path, phase="trace").inc(
-            time.perf_counter() - t0)
+        aot = getattr(program, "_aot", None)
+        if aot_hit:  # the lookup and the plan from the entry
+            _m_compile_seconds().labels(path=path, phase="aot_load").inc(
+                time.perf_counter() - t0 + aot.pop("seconds"))
+        else:
+            _m_compile_seconds().labels(path=path, phase="trace").inc(
+                time.perf_counter() - t0)
+            if aot is not None and "seconds" in aot:  # a miss's lookup
+                _m_compile_seconds().labels(path=path,
+                                            phase="aot_load").inc(
+                    aot.pop("seconds"))
         return sig, True
 
     def _captures(self, plan):
@@ -1069,8 +1236,11 @@ class Executor:
                                         phase="capture").inc(cap_s)
         if new is not None:
             result = ("eager" if self.capture and not capture
+                      else "aot_hit" if new and sig.aot_hit
                       else "miss" if new or cap_s else "hit")
             _m_cache().labels(path=path, result=result).inc()
+        if not sig.ran:
+            self._aot_save(sig.program, sig)
         self._hold(sig)
         return fetches
 

@@ -131,6 +131,20 @@ _DEFS = {
     # and its ';'-separated specs (empty: no evaluator)
     "FLAGS_slo_eval_interval_s": (10.0, float),
     "FLAGS_slo_specs": ("", str),
+    # the durable rollback window (health/persist.py, read by
+    # AutoCheckpoint(sentinel=)): > 0 offloads the health sentinel's
+    # snapshot window to the checkpoint directory at most every N
+    # seconds (a device-to-host copy on a worker thread, then a
+    # temp+rename manifest, PTHWIN1); 0 leaves only the offload inside
+    # every full checkpoint save and on the preemption signal path
+    "FLAGS_rollback_persist_interval_s": (0.0, float),
+    # the warm-start cache (fluid/aot_cache.py): where the executor keeps
+    # each signature's pass-rewritten program and plan, keyed by the
+    # program's fingerprint, the feeds, the fetches, the card and the
+    # torch and CUDA versions, so a restarted process runs neither the
+    # passes nor the plan build; empty disables it.  A CUDA graph itself
+    # cannot be kept: a restart still captures
+    "FLAGS_aot_cache_dir": ("", str),
 }
 
 _VALUES = {}

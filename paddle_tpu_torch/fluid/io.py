@@ -1,30 +1,39 @@
 """Model / checkpoint IO: save and load variables, programs and inference
-models (counterpart of ``paddle_tpu/fluid/io.py``, JSON format only).
+models (counterpart of ``paddle_tpu/fluid/io.py``).
 
-The on-disk layout is the JAX package's, so a model either package saved
-loads in the other: ``__model__`` is the program as JSON (the
-ProgramDesc equivalent, plus ``feed_names`` / ``fetch_names`` for an
-inference model) and the variables are one ``.npy`` per var or one
-combined ``.npz`` (``__params__.npz`` for an inference model).
+The on-disk layouts are the JAX package's, so a model either package
+saved loads in the other.  Two formats:
+
+- JSON (the default): ``__model__`` is the program as JSON (the
+  ProgramDesc equivalent, plus ``feed_names`` / ``fetch_names`` for an
+  inference model) and the variables are one ``.npy`` per var or one
+  combined ``.npz`` (``__params__.npz`` for an inference model);
+- Fluid's own (``model_format="protobuf"``, ``reference_format=True``;
+  ``fluid/proto_compat.py``): ``__model__`` is a binary ProgramDesc with
+  Fluid's feed and fetch ops, and each variable a LoDTensor stream, in a
+  file named by the var or all in one file in name order
+  (``save_combine``).  ``load_inference_model`` tells the two
+  ``__model__`` formats apart by their first byte.
+
 Persistence is a host-side scope operation: values are pulled to the
-host as numpy, and loaded values are put on the executor's device as
-tensors.
-
-Not ported: the reference-protobuf format (``model_format="protobuf"``,
-``reference_format=True`` and the loader of a binary ``__model__``,
-``paddle_tpu/fluid/proto_compat.py``); asking for it raises
-NotImplementedError.
+host, and loaded values are put on the executor's device as tensors.
+``load_vars`` with ``in_place=True`` copies each value into the scope's
+tensor where one of the same shape, dtype and device is there, so a
+captured CUDA graph, which reads the scope's tensors in place, reads
+the loaded values on its next replay (``fluid/incubate/checkpoint``'s
+resume uses it).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 
 import numpy as np
 import torch
 
-from . import framework
+from . import framework, proto_compat
 from .executor import global_scope
 from .framework import Parameter, Program, Variable
 from .registry import torch_dtype
@@ -39,8 +48,6 @@ __all__ = [
 
 MODEL_FILENAME = "__model__"
 PARAMS_FILENAME = "__params__.npz"
-_PROTOBUF = ("the reference-protobuf model format is not ported to "
-             "paddle_tpu_torch yet; save with the JSON format")
 
 
 # ---------------------------------------------------------------------------
@@ -180,35 +187,100 @@ def _to_numpy(val):
 
 
 def _to_device(arr, executor):
-    """A loaded array as a tensor on the executor's device (a copy:
-    ops such as adam update scope tensors in place)."""
+    """A loaded array (numpy, or a CPU tensor: a bfloat16 record of a
+    LoDTensor stream) as a tensor on the executor's device (a copy: ops
+    such as adam update scope tensors in place)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=executor.device, copy=True)
     a = np.ascontiguousarray(arr)
     return torch.from_numpy(a).to(device=executor.device,
                                   dtype=torch_dtype(a.dtype.name),
                                   copy=True)
 
 
-def _no_reference_format(reference_format):
-    if reference_format:
-        raise NotImplementedError(_PROTOBUF)
+def _put(scope, name, arr, executor, in_place):
+    """Put a loaded value into the scope: copied into the scope's own
+    tensor when ``in_place`` and it fits (same shape and dtype), else as
+    a new tensor on the executor's device."""
+    cur = scope.get(name) if in_place else None
+    if isinstance(cur, torch.Tensor):
+        src = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(arr))
+        if tuple(src.shape) == tuple(cur.shape) and src.dtype == cur.dtype:
+            with torch.no_grad():
+                cur.copy_(src)
+            return
+    scope.set(name, _to_device(arr, executor))
+
+
+def _value(scope, name):
+    val = scope.get(name)
+    if val is None:
+        raise RuntimeError(f"variable {name} has no value in scope; run "
+                           f"the startup program before saving")
+    return val
+
+
+def _write_streams(dirname, filename, values):
+    """{name: value} as LoDTensor streams: a file a var (nested paths
+    for names with '/', as Fluid writes them) or one combined file in
+    name order."""
+    if filename is None:
+        for name, val in values.items():
+            path = os.path.join(dirname, name)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                proto_compat.serialize_lod_tensor(f, val)
+    else:
+        with open(os.path.join(dirname, filename), "wb") as f:
+            for name in sorted(values):
+                proto_compat.serialize_lod_tensor(f, values[name])
+
+
+def _read_streams(dirname, filename, vars, put):
+    """Read LoDTensor streams of ``vars`` (``put(name, value)`` each).
+    A combined file carries no names: each record's shape must match
+    its var's, and the file must end with the last."""
+    if filename is not None:
+        with open(os.path.join(dirname, filename), "rb") as f:
+            for v in sorted(vars, key=lambda v: v.name):
+                arr, _lod = proto_compat.deserialize_lod_tensor(f)
+                if v.shape is not None and -1 not in v.shape \
+                        and tuple(arr.shape) != tuple(v.shape):
+                    raise RuntimeError(
+                        f"combined file record for {v.name!r} has shape "
+                        f"{tuple(arr.shape)}, expected {tuple(v.shape)}: "
+                        f"was it saved with another set of vars?")
+                put(v.name, arr)
+            if f.read(1):
+                raise RuntimeError(
+                    "combined file has more records than the vars asked "
+                    "for: was it saved with another set of vars?")
+        return
+    for v in vars:
+        path = os.path.join(dirname, v.name)
+        if not os.path.exists(path):
+            raise RuntimeError(f"var file {path} not found")
+        with open(path, "rb") as f:
+            arr, _lod = proto_compat.deserialize_lod_tensor(f)
+        put(v.name, arr)
 
 
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None,
               reference_format=False):
     """Save selected vars from the scope: one .npy per var
-    (filename=None) or one combined npz."""
-    _no_reference_format(reference_format)
+    (filename=None) or one combined npz; with ``reference_format``,
+    Fluid's LoDTensor streams instead (a file a var, named by the var,
+    or one combined file in name order), which Fluid loads."""
     scope = scope or global_scope()
     vars = _collect_vars(main_program, vars, predicate)
     os.makedirs(dirname, exist_ok=True)
-    arrays = {}
-    for v in vars:
-        val = scope.get(v.name)
-        if val is None:
-            raise RuntimeError(f"variable {v.name} has no value in scope; "
-                               f"run the startup program before saving")
-        arrays[v.name] = _to_numpy(val)
+    if reference_format:
+        values = {v.name: _value(scope, v.name) for v in vars}
+        _write_streams(dirname, filename, values)
+        return sorted(values)
+    arrays = {v.name: _to_numpy(_value(scope, v.name)) for v in vars}
     if filename is None:
         for name, arr in arrays.items():
             np.save(os.path.join(dirname, name.replace("/", "__") + ".npy"),
@@ -220,24 +292,32 @@ def save_vars(executor, dirname, main_program=None, vars=None,
 
 def load_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None,
-              reference_format=False):
-    """Load selected vars into the scope, on the executor's device."""
-    _no_reference_format(reference_format)
+              reference_format=False, in_place=False):
+    """Load selected vars into the scope, on the executor's device
+    (``reference_format``: from Fluid's LoDTensor streams).  With
+    ``in_place`` a value is copied into the scope's tensor where one of
+    its shape and dtype is there (module docstring)."""
     scope = scope or global_scope()
     vars = _collect_vars(main_program, vars, predicate)
-    if filename is not None:
+
+    def put(name, arr):
+        _put(scope, name, arr, executor, in_place)
+
+    if reference_format:
+        _read_streams(dirname, filename, vars, put)
+    elif filename is not None:
         path = _npz_path(dirname, filename)
         data = np.load(path, allow_pickle=False)
         for v in vars:
             if v.name not in data:
                 raise RuntimeError(f"variable {v.name} not found in {path}")
-            scope.set(v.name, _to_device(data[v.name], executor))
+            put(v.name, data[v.name])
     else:
         for v in vars:
             path = os.path.join(dirname, v.name.replace("/", "__") + ".npy")
             if not os.path.exists(path):
                 raise RuntimeError(f"variable file {path} not found")
-            scope.set(v.name, _to_device(np.load(path), executor))
+            put(v.name, np.load(path))
     return sorted(v.name for v in vars)
 
 
@@ -249,10 +329,10 @@ def save_params(executor, dirname, main_program=None, filename=None,
 
 
 def load_params(executor, dirname, main_program=None, filename=None,
-                scope=None, reference_format=False):
+                scope=None, reference_format=False, in_place=False):
     return load_vars(executor, dirname, main_program,
                      predicate=_is_parameter, filename=filename, scope=scope,
-                     reference_format=reference_format)
+                     reference_format=reference_format, in_place=in_place)
 
 
 def save_persistables(executor, dirname, main_program=None, filename=None,
@@ -264,10 +344,11 @@ def save_persistables(executor, dirname, main_program=None, filename=None,
 
 
 def load_persistables(executor, dirname, main_program=None, filename=None,
-                      scope=None, reference_format=False):
+                      scope=None, reference_format=False, in_place=False):
     return load_vars(executor, dirname, main_program,
                      predicate=_is_persistable, filename=filename,
-                     scope=scope, reference_format=reference_format)
+                     scope=scope, reference_format=reference_format,
+                     in_place=in_place)
 
 
 # ---------------------------------------------------------------------------
@@ -294,10 +375,14 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename=None,
                          params_filename=None, scope=None,
                          model_format="json"):
-    """Prune to the inference subgraph and write ``__model__`` (JSON)
-    and the parameters it reads (``__params__.npz``)."""
-    if model_format != "json":
-        raise NotImplementedError(_PROTOBUF)
+    """Prune to the inference subgraph and write ``__model__`` and the
+    parameters it reads: JSON and ``__params__.npz`` (the default), or
+    with ``model_format="protobuf"`` Fluid's layout, a binary
+    ProgramDesc with feed and fetch ops and the parameters as LoDTensor
+    streams (a file a parameter, or all in ``params_filename``)."""
+    if model_format not in ("json", "protobuf"):
+        raise ValueError(f"model_format must be 'json' or 'protobuf', got "
+                         f"{model_format!r}")
     main_program = main_program or framework.default_main_program()
     feed_names = [v.name if isinstance(v, Variable) else v
                   for v in feeded_var_names]
@@ -310,30 +395,98 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         used.update(op.input_arg_names)
     params = [v for v in main_program.list_vars()
               if _is_persistable(v) and v.name in used]
+    model_path = os.path.join(dirname, model_filename or MODEL_FILENAME)
+    if model_format == "protobuf":
+        _add_feed_fetch_ops(pruned, feed_names, target_names)
+        # vars no op references any more leave the program, as Fluid's
+        # prune drops them (a stale learning rate would read as a
+        # parameter on the other side)
+        for blk in pruned.blocks:
+            ref = set()
+            for op in blk.ops:
+                ref.update(op.input_arg_names)
+                ref.update(op.output_arg_names)
+            blk.vars = collections.OrderedDict(
+                (n, v) for n, v in blk.vars.items() if n in ref)
+        with open(model_path, "wb") as f:
+            f.write(proto_compat.serialize_program(pruned))
+        scope = scope or global_scope()
+        _write_streams(dirname, params_filename,
+                       {v.name: _value(scope, v.name) for v in params})
+        return target_names
     desc = program_to_dict(pruned)
     desc["feed_names"] = feed_names
     desc["fetch_names"] = target_names
-    with open(os.path.join(dirname, model_filename or MODEL_FILENAME),
-              "w") as f:
+    with open(model_path, "w") as f:
         json.dump(desc, f)
     save_vars(executor, dirname, main_program, vars=params,
               filename=params_filename or PARAMS_FILENAME, scope=scope)
     return target_names
 
 
+def _add_feed_fetch_ops(program, feed_names, fetch_names):
+    """Fluid's deployment convention (python/paddle/fluid/io.py:887
+    prepend_feed_ops, :908 append_fetch_ops): a ``feed`` op a feed and a
+    ``fetch`` op a target, numbered by ``col``, which Fluid's
+    load_inference_model reads the feed and fetch names from."""
+    from .framework import Operator
+
+    blk = program.global_block()
+    feed_var = blk.create_var(name="feed", persistable=True)
+    fetch_var = blk.create_var(name="fetch", persistable=True)
+    for i, name in enumerate(feed_names):
+        blk.ops.insert(i, Operator(blk, "feed", inputs={"X": [feed_var]},
+                                   outputs={"Out": [blk.var(name)]},
+                                   attrs={"col": i}))
+    for i, name in enumerate(fetch_names):
+        blk.ops.append(Operator(blk, "fetch", inputs={"X": [blk.var(name)]},
+                                outputs={"Out": [fetch_var]},
+                                attrs={"col": i}))
+    program._bump_version()
+
+
+def _load_protobuf_inference_model(dirname, data, params_filename, scope,
+                                   executor):
+    """A model in Fluid's layout: the binary ProgramDesc, the feed and
+    fetch names from its feed and fetch ops, and the parameters the
+    program reads from LoDTensor streams (a file each, or one combined
+    file read in name order as ``load_combine`` reads it)."""
+    program = proto_compat.parse_program_bytes(data)
+    blk = program.global_block()
+    feeds, fetches = [], []
+    for op in blk.ops:
+        if op.type == "feed":
+            feeds.append((op.attrs.get("col", 0), op.output("Out")[0]))
+        elif op.type == "fetch":
+            fetches.append((op.attrs.get("col", 0), op.input("X")[0]))
+    used = set()
+    for b in program.blocks:
+        for op in b.ops:
+            if op.type not in ("feed", "fetch"):
+                used.update(op.input_arg_names)
+    params = [v for v in program.list_vars()
+              if _is_persistable(v) and v.name in used]
+    _read_streams(dirname, params_filename, params,
+                  lambda n, a: scope.set(n, _to_device(a, executor)))
+    return (program, [n for _, n in sorted(feeds)],
+            [blk.var(n) for _, n in sorted(fetches)])
+
+
 def load_inference_model(dirname, executor, model_filename=None,
                          params_filename=None, scope=None):
     """Returns (program, feed_names, fetch_targets); the parameters go
-    into the scope as tensors on the executor's device."""
+    into the scope as tensors on the executor's device.  ``__model__``
+    may be JSON or Fluid's binary ProgramDesc
+    (``proto_compat.is_program_proto``); for the latter,
+    ``params_filename`` names the combined parameter file, if any."""
     scope = scope or global_scope()
     model_path = os.path.join(dirname, model_filename or MODEL_FILENAME)
     with open(model_path, "rb") as f:
         raw = f.read()
-    try:
-        desc = json.loads(raw.decode("utf-8"))
-    except (UnicodeDecodeError, json.JSONDecodeError) as e:
-        raise NotImplementedError(
-            f"{model_path} is not a JSON program ({_PROTOBUF})") from e
+    if proto_compat.is_program_proto(raw):
+        return _load_protobuf_inference_model(dirname, raw, params_filename,
+                                              scope, executor)
+    desc = json.loads(raw.decode("utf-8"))
     program = program_from_dict(desc)
     params_path = _npz_path(dirname, params_filename or PARAMS_FILENAME)
     if not os.path.exists(params_path):

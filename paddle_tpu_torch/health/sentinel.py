@@ -25,9 +25,10 @@ acts:
 
 The window's snapshots are device clones taken before each step, only
 under ``rollback``; a restore copies them back into the scope's tensors
-in place, so a captured graph goes on reading the same storage.  The
-durable window of ``paddle_tpu/health/persist.py`` (``export_state``,
-``restore_state``) is not ported.
+in place, so a captured graph goes on reading the same storage.
+``export_state`` and ``restore_state`` carry the window, the
+``@HEALTH@`` state and the detector's state across a restart
+(health/persist.py, the durable window).
 """
 
 from __future__ import annotations
@@ -217,6 +218,81 @@ class HealthSentinel:
                     scope.set(n, v)
         _m_rollbacks().inc()
         return True
+
+    # -- the durable window (health/persist.py, AutoCheckpoint) ---------
+    def export_state(self, scope):
+        """What a restarted process needs to re-arm this sentinel bit for
+        bit: the rollback window (references to its device clones: no
+        copy under the step loop; persist.py's worker copies them to the
+        host), device clones of the ``@HEALTH@`` scope state (loss
+        scale, counts, fault countdowns) and the host detector's state
+        (loss EMA, warm-up count, the bad-step baseline)."""
+        names = set(self.plan["state"]) | {
+            self.plan["found_var"], self.plan["scale_var"],
+            self.plan["bad_total_var"]}
+        health = {}
+        with torch.no_grad():
+            for n in sorted(names):
+                v = scope.get(n)
+                if isinstance(v, torch.Tensor):
+                    health[n] = v.detach().clone()
+                elif v is not None:
+                    health[n] = np.array(v, copy=True)
+        return {
+            "window": [dict(snap) for snap in self._window],
+            "scope_health": health,
+            "ema": self._ema,
+            "emvar": self._emvar,
+            "good_samples": self._good_samples,
+            "bad_total_seen": self._bad_total_seen,
+            "steps_seen": self._steps_seen,
+            "keep": self.keep,
+        }
+
+    def put(self, scope, name, value):
+        """Put a restored value into the scope: copied into the scope's
+        tensor where it has the same shape and dtype (a captured graph
+        reads that storage), else as a tensor on the sentinel's
+        device."""
+        src = value if isinstance(value, torch.Tensor) \
+            else torch.as_tensor(np.array(value, copy=True))
+        cur = scope.get(name)
+        with torch.no_grad():
+            if isinstance(cur, torch.Tensor) and cur.shape == src.shape \
+                    and cur.dtype == src.dtype:
+                cur.copy_(src)
+            else:
+                scope.set(name, src.to(self.device, copy=True))
+
+    def restore_state(self, state, scope, rearm_scope=True):
+        """Re-arm from an ``export_state`` payload (as persist.py loads
+        it): the window oldest to newest (its entries stay valid
+        pre-step states, so a rollback after the restart can walk past a
+        bad step from before the kill), with ``rearm_scope`` the
+        ``@HEALTH@`` scope state (the loss scale resumes where it was),
+        and the detector's state.  Returns the window's depth."""
+        with torch.no_grad():
+            self._window = collections.deque(
+                ({n: (v if isinstance(v, torch.Tensor)
+                      else torch.as_tensor(np.array(v, copy=True)))
+                  .to(self.device, copy=True) for n, v in snap.items()}
+                 for snap in state.get("window", ())), maxlen=self.keep)
+        if rearm_scope:
+            for n, v in state.get("scope_health", {}).items():
+                self.put(scope, n, v)
+        ema = state.get("ema")
+        self._ema = None if ema is None else float(ema)
+        self._emvar = float(state.get("emvar", 0.0))
+        self._good_samples = int(state.get("good_samples", 0))
+        self._bad_total_seen = float(state.get("bad_total_seen", 0.0))
+        self._steps_seen = int(state.get("steps_seen", 0))
+        # with rearm_scope the baseline above is the restored scope's
+        # bad_steps_total, which ensure_state must not re-sync away;
+        # without it (a ring older than the restored checkpoint) it must
+        # re-sync, or the first step would book the difference as bad
+        # steps
+        self._cum_scope = scope if rearm_scope else None
+        return len(self._window)
 
     # -- scalar reads ----------------------------------------------------
     @staticmethod

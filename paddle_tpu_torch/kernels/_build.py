@@ -31,7 +31,8 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
-           "build_log", "library_path", "load", "device_launches", "ptr",
+           "build_log", "library_path", "load", "loaded", "device_launches",
+           "ptr",
            "stream_of"]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -42,6 +43,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+# seconds each library's first load took in this process (its build, if
+# it was not built yet, and the dynamic load)
+LOAD_SECONDS: dict = {}
 
 
 def sources():
@@ -122,6 +126,7 @@ def load(name, signatures):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             build_all([name])
             lib = ctypes.CDLL(str(_so_path(name)))
             signatures = dict(signatures, pt_device_launch_counts=(
@@ -131,7 +136,14 @@ def load(name, signatures):
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
             _libs[name] = lib
+            LOAD_SECONDS[name] = time.perf_counter() - t0
         return lib
+
+
+def loaded():
+    """Names of the kernel libraries this process has loaded."""
+    with _lock:
+        return sorted(_libs)
 
 
 def device_launches(name, n):

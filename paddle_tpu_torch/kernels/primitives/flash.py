@@ -138,6 +138,73 @@ def flash_bwd_dkv_reference(q, k, v, bias, do, lse, delta, causal, scale):
     return dk.to(k.dtype), dv.to(v.dtype), dl.sum(dim=-2).reshape(bias.shape)
 
 
+# unit roundoff of bf16 (8 significant bits) and of fp32 (24)
+_U_BF16, _U_FP32 = 2.0 ** -8, 2.0 ** -24
+
+
+def flash_bwd_dkv_truth(q, k, v, bias, do, lse, delta, causal, scale):
+    """(dK, dV) of K3 exactly, as far as fp32 holds it: the plain
+    version's arithmetic on the inputs widened to fp32, not rounded back
+    to their dtype."""
+    dk, dv, _ = flash_bwd_dkv_reference(q.float(), k.float(), v.float(),
+                                        bias, do.float(), lse, delta,
+                                        causal, scale)
+    return dk, dv
+
+
+def flash_bwd_dkv_bf16_bound(q, k, v, bias, do, lse, delta, causal, scale):
+    """Elementwise bound on |K3 - exact| for bf16 q, k, v, dO: (dK bound,
+    dV bound), fp32 and shaped like dK, dV.
+
+    The bf16 kernel (``csrc/flash_tc.cuh``) takes P rounded to bf16 into
+    Pᵀ·dO, carries dS as two bf16 parts (hi + lo) into dSᵀ·Q, sums the
+    products in fp32 over the S query rows, and rounds dK and dV to
+    bf16.  To first order, with u = 2^-8 (bf16) and e = 2^-24 (fp32):
+
+    - P = exp(x), x = s + bias - lse, computed in fp32: the D-term dot
+      product errs by at most D·e·scale·(|Q|·|K|ᵀ), each of at most 8
+      more fp32 roundings by e·|x|, and ``ex2.approx`` by 2^-22, so P
+      errs relatively by eps_P = D·e·scale·(|Q|·|K|ᵀ) + 8·e·|x| + 2^-22;
+    - dV: bf16(P) errs by u·P, so Σ_q P·|dO| weighs u + eps_P, the
+      fp32 sum adds S·e of the same sum, and the output rounding
+      u·|dV|;
+    - dK: dS = P·(dP - delta) errs by eps_P·|dS| and by P times dP's
+      own D-term error D·e·(|dO|·|V|ᵀ); hi + lo hold dS to u²; the sum
+      over the S rows adds S·e·Σ|dS|·|Q|, and the output rounding u·|dK|.
+
+    A pad key (the NMT encoder's -1e9, as bf16 holds it: -999817216)
+    has x near -1e9, where fp32 keeps no digit of s, and exp(x) is 0
+    exactly, in the kernel and in the exact answer alike: its P, dS, dK
+    and dV are 0 with no error, and it adds nothing to any other key's
+    sums.  So the bound is set by the real keys of short rows: where a
+    sentence has a few keys, each of its real keys takes P of order 1/n
+    from every one of the S query rows, u·Σ_q P·|dO| grows as S/n while
+    dV = Σ_q P·dO may cancel to near 0, and the P rounding alone can
+    move dV by many of its own ulps (chip_smoke's 2e-2 against the
+    plain bf16 version does not hold there)."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    d = q.shape[-1]
+    n_rows = q.shape[-2]
+    s = _scores(qf, kf, bias, causal, scale)
+    p = torch.exp(s - _rows(lse, q))
+    x = torch.where(p > 0, (s - _rows(lse, q)).abs(), torch.zeros_like(s))
+    qk_abs = torch.matmul(qf.abs(), kf.abs().transpose(-1, -2)) * scale
+    eps_p = d * _U_FP32 * qk_abs + 8 * _U_FP32 * x + 2.0 ** -22
+    dv_abs = torch.matmul(p.transpose(-1, -2), dof.abs())
+    dv_eps = torch.matmul((p * eps_p).transpose(-1, -2), dof.abs())
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    dl = p * (dp - _rows(delta, q))
+    dp_err = d * _U_FP32 * torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+    ds_err = (dl.abs() * (eps_p + _U_BF16 ** 2 + n_rows * _U_FP32)
+              + p * dp_err) * scale
+    dk_err = torch.matmul(ds_err.transpose(-1, -2), qf.abs())
+    dk = torch.matmul((dl * scale).transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dv_err = (_U_BF16 + n_rows * _U_FP32) * dv_abs + dv_eps
+    return (_U_BF16 * (dk.abs() + dk_err) + dk_err,
+            _U_BF16 * (dv.abs() + dv_err) + dv_err)
+
+
 # ---------------------------------------------------------------------------
 # the three launchers
 # ---------------------------------------------------------------------------

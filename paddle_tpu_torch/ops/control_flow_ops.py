@@ -31,6 +31,14 @@ control flow:
                     loop under the reference's names.
   print             prints from the host (jax.debug.print); a plan with
                     one runs eagerly.
+
+``conditional_block_infer`` is the reference's inference-mode twin of
+``conditional_block`` (``paddle_tpu/ops/interop_tail_ops.py:235``, an
+alias there): the same lowering, no grad.  Programs in Fluid's protobuf
+format name the reference signatures of ``while`` (X, Condition → Out,
+StepScopes) and ``conditional_block`` (Input, Cond → Out, Scope);
+``fluid/proto_compat.py`` rewrites them onto the slots above when it
+reads the program.
 """
 
 from __future__ import annotations
@@ -112,6 +120,11 @@ def _conditional_block(ctx, cond, carries, extras, extras_ng, attrs):
     pred = _as_pred(cond)
     return ([struct_select(pred, _match_carry(ref, env[n]), ref)
              for ref, n in zip(carries, carry_names)],)
+
+
+simple_op("conditional_block_infer",
+          ["Cond", "Carry*", "Extra*", "ExtraNG*"], ["Out*"],
+          no_grad_inputs=("Cond", "ExtraNG"), grad=None)(_conditional_block)
 
 
 @simple_op("static_rnn", ["StepIn*", "Init*", "Extra*", "ExtraNG*"],

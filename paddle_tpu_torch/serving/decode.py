@@ -521,8 +521,10 @@ class DecodeEngine:
         land only on the trash page).  On a CUDA place this is where
         the executor warms up and captures each program as a CUDA graph
         (fluid/executor.py), which every later run replays — from the
-        scheduler's thread too.  Returns the number of programs warmed
-        (2)."""
+        scheduler's thread too.  With FLAGS_aot_cache_dir set, a
+        restarted engine's warm-up takes each program's passes and plan
+        from the warm-start cache (fluid/aot_cache.py) and still
+        captures.  Returns the number of programs warmed (2)."""
         self._run_prefill_feed(
             tokens=[0], pos0=0, table_row=self.pool.padded_table(None),
             write_pages=np.zeros(self.prefill_chunk // self.pool.page_size,

@@ -2550,3 +2550,178 @@ def test_scheduled_bert_step_captured_matches_eager_and_cpu(dev):
     assert [x[1] for x in seen["captured"]] == [x[1] for x in seen["cpu"]]
     np.testing.assert_allclose([x[0] for x in seen["captured"]],
                                [x[0] for x in seen["cpu"]], rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", range(64))
+def test_bf16_k3_nmt_encoder_within_rounding_bound(dev, seed):
+    """bf16 K3 at chip_smoke's nmt_enc_s256 ([32 x 16, 256, 64], the
+    bf16 -1e9 pad bias, sentence lengths uniform in [1, 256]), inputs
+    from a torch.Generator a seed: dK and dV within the rounding bound
+    of the kernel's arithmetic (flash.flash_bwd_dkv_bf16_bound) of the
+    exact answer, as the plain bf16 version is; 2e-2 against the plain
+    version does not hold on a short sentence's real keys (P rounded to
+    bf16, summed over 256 rows: chip_smoke.py FLASH_TOL's comment)."""
+    b, h, s, d = 32, 16, 256, 64
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g)
+                   .to(dev, torch.bfloat16).transpose(1, 2)
+                   for _ in range(4))
+    lengths = torch.randint(1, s + 1, (b,), generator=g)
+    bias = torch.zeros(b, s)
+    pad = torch.tensor(-1e9).to(torch.bfloat16).item()
+    for i, ln in enumerate(lengths.tolist()):
+        bias[i, ln:] = pad
+    rows = bias.repeat_interleave(h, dim=0).to(dev)
+    scale = d ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, rows, False, scale, force="reference")
+    lse = lse.reshape(b * h, s)
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, s)
+    args = (q, k, v, rows, do, lse, delta, False, scale)
+    got = flash.flash_bwd_dkv(*args)[:2]
+    plain = flash.flash_bwd_dkv(*args, force="reference")[:2]
+    truth = flash.flash_bwd_dkv_truth(*args)
+    bound = flash.flash_bwd_dkv_bf16_bound(*args)
+    for g_, p_, t_, b_ in zip(got, plain, truth, bound):
+        assert torch.isfinite(g_).all()
+        assert bool(((g_.float() - t_).abs() <= b_).all())
+        assert bool(((p_.float() - t_).abs() <= b_).all())
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase 30 (persist), at small sizes
+# ---------------------------------------------------------------------------
+
+
+def test_resume_after_capture_is_read_by_the_next_replay(dev, tmp_path):
+    """AutoCheckpoint.resume() after the train step was captured copies
+    the checkpoint into the scope's tensors, which the graph reads: the
+    next replays' losses and final state equal an uninterrupted run's
+    from the checkpoint, dropout's masks included (the executor's step
+    counter comes back with the state)."""
+    from paddle_tpu_torch.fluid.incubate.checkpoint import AutoCheckpoint
+    from paddle_tpu_torch.models import bert
+
+    cfg, main, loss, scope = _bert_tiny_train(bf16=True, hidden_dropout=0.1)
+    feed = bert.make_fake_batch(cfg, 4, 32, seed=1)
+    exe = _executor(True)
+    ref = _clone_scope(scope)
+    ref_exe = _executor(True)
+    ref_losses = [ref_exe.run(main, feed=feed, fetch_list=[loss],
+                              scope=ref)[0].item() for _ in range(6)]
+    ck = AutoCheckpoint(tmp_path / "ck", exe, main, scope=scope,
+                        install_signal_handler=False)
+    for i in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        ck.step(i)
+    ck.save(2)
+    for _ in range(2):  # steps the resume takes back
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    (sig,) = exe.compiled_for(main)
+    held = {n: scope.get(n) for n in sig.graph.inputs[0]}
+    assert ck.resume() == 3
+    got = [exe.run(main, feed=feed, fetch_list=[loss],
+                   scope=scope)[0].item() for _ in range(3)]
+    assert (sig,) == tuple(exe.compiled_for(main)) and sig.graph is not None
+    assert all(scope.get(n) is t for n, t in held.items())
+    assert got == ref_losses[3:]
+    for n in held:
+        assert torch.equal(scope.get(n), ref.get(n)), n
+
+
+def test_protobuf_predictor_on_card_equals_json(dev, tmp_path):
+    """A 2-layer BERT encoder saved as JSON and in the protobuf format:
+    the card's predictors over the two agree within 1e-6, K1 and K4 a
+    layer a run."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.tiny(use_flash_attention=False, num_layers=2)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds = [fluid.data(n, [-1, -1], False, dtype=dt)
+                 for n, dt in (("src_ids", "int64"), ("pos_ids", "int64"),
+                               ("sent_ids", "int64"),
+                               ("input_mask", "float32"))]
+        enc = bert.bert_encoder(*feeds, cfg, is_test=True)
+    startup.random_seed = 3
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    names = [f.name for f in feeds]
+    for fmt in ("json", "protobuf"):
+        fluid.io.save_inference_model(
+            str(tmp_path / fmt), names, [enc], exe, main_program=main,
+            scope=scope, model_format=fmt,
+            params_filename="__params__" if fmt == "protobuf" else None)
+    data = bert.make_fake_batch(cfg, 2, 32, seed=9)
+    tensors = [inf.PaddleTensor(data[n], name=n) for n in names]
+    outs = {}
+    for fmt in ("json", "protobuf"):
+        d = tmp_path / fmt
+        config = (inf.AnalysisConfig(str(d)) if fmt == "json" else
+                  inf.AnalysisConfig(prog_file=str(d / "__model__"),
+                                     params_file=str(d / "__params__")))
+        p = inf.create_paddle_predictor(config)
+        p.run(tensors)
+        before = _on_card()
+        (out,) = p.run(tensors)
+        assert _delta(before, _on_card()) == {"flash_fwd": 2,
+                                              "fused_bias_act": 2}
+        outs[fmt] = out.as_ndarray()
+    np.testing.assert_allclose(outs["protobuf"], outs["json"], rtol=0,
+                               atol=1e-6)
+    assert kernels.launch_counts()["flash_fwd"] > 0
+
+
+def test_warm_start_cache_restart_on_card(dev, tmp_path):
+    """Two DecodeEngines over fresh programs (as a restarted process
+    builds them) and one FLAGS_aot_cache_dir: the second books aot_hit
+    for both programs, runs no passes and no plan analysis, still
+    captures, and serves the same ids."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = gpt.GPTConfig.tiny(num_layers=2)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        gpt.build_gpt_decode_step(cfg, 4, 33, 16, 8)
+    startup.random_seed = 3
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    prior = fluid.get_flags("FLAGS_aot_cache_dir")
+    fluid.set_flags({"FLAGS_aot_cache_dir": str(tmp_path)})
+
+    def secs():
+        snap = obs.snapshot()["pt_compile_seconds_total"]["samples"]
+        return {k[1]: v for k, v in snap.items() if k[0] == "single"}
+
+    try:
+        ids, hits = [], []
+        for _ in range(2):
+            before = secs()
+            eng = DecodeEngine(cfg, scope=_clone_scope(scope),
+                               pool_slots=4, page_size=16, max_len=128,
+                               auto_start=False)
+            eng.warmup()
+            eng.start()
+            ids.append(eng.generate([[3, 5, 7, 9], [11, 2]],
+                                    max_new_tokens=8, timeout=300))
+            after = secs()
+            hits.append([e.aot_hit for p in (eng._dec_prog, eng._pf_prog)
+                         for e in eng._exe.compiled_for(p)])
+            graphs = [e.graph is not None
+                      for p in (eng._dec_prog, eng._pf_prog)
+                      for e in eng._exe.compiled_for(p)]
+            assert graphs == [True, True]
+            eng.close()
+        assert hits == [[False, False], [True, True]]
+        assert after.get("trace", 0) == before.get("trace", 0)
+        assert after.get("passes", 0) == before.get("passes", 0)
+        assert after["capture"] > before.get("capture", 0)
+        assert ids[0] == ids[1]
+    finally:
+        fluid.set_flags(prior)

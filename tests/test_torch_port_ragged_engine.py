@@ -417,8 +417,9 @@ def test_predictor_and_engine_run_on_the_card_unless_told():
 
 def test_io_round_trip(tmp_path):
     """program_to_dict / from_dict keep every var and op; save_vars and
-    load_vars move values through .npy or one .npz; the protobuf format
-    raises."""
+    load_vars move values through .npy or one .npz, and through Fluid's
+    LoDTensor streams (reference_format); a model format that is neither
+    JSON nor protobuf raises."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         _build_ragged(fluid, L)
@@ -432,19 +433,22 @@ def test_io_round_trip(tmp_path):
     exe = fluid.Executor(fluid.CPUPlace())
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    for filename in (None, "all.npz"):
-        d = str(tmp_path / str(filename))
-        names = fluid.io.save_params(exe, d, main, filename=filename,
-                                     scope=scope)
-        other = fluid.Scope()
-        assert fluid.io.load_params(exe, d, main, filename=filename,
-                                    scope=other) == names
-        for n in names:
-            assert torch.equal(other.get(n), scope.get(n))
-    with pytest.raises(NotImplementedError, match="protobuf"):
+    for reference_format in (False, True):
+        for filename in (None, "all.npz"):
+            d = str(tmp_path / f"{filename}_{reference_format}")
+            names = fluid.io.save_params(exe, d, main, filename=filename,
+                                         scope=scope,
+                                         reference_format=reference_format)
+            other = fluid.Scope()
+            assert fluid.io.load_params(
+                exe, d, main, filename=filename, scope=other,
+                reference_format=reference_format) == names
+            for n in names:
+                assert torch.equal(other.get(n), scope.get(n))
+    with pytest.raises(ValueError, match="model_format"):
         fluid.io.save_inference_model(str(tmp_path / "pb"), ["ids"], [],
                                       exe, main_program=main,
-                                      model_format="protobuf")
+                                      model_format="onnx")
 
 
 def test_clone_for_test_drops_backward_and_flips_is_test():
