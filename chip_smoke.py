@@ -83,9 +83,9 @@ Phases, each fatal on failure:
      greedy ids of two requests, against the card's.
   8. int8 decode path: phase 6 over the dual-int8 KV pool
      (pool_dtype="int8"): K4 and K7 launch exactly 12 x program runs on
-     the card, K5 never; K7's device time summed over whole lane runs,
-     one split and split in turns, each run's ids equal to the main
-     path's.
+     the card, K5 never; K7's device time summed over runs of the
+     lane's first 4 requests (LANE_REQUESTS), one split and split in
+     turns, each run's ids equal to the main path's.
   9. int8 decode parity: phase 7 over the int8 pool.
  10. ragged Engine path: the repo's ragged scorer (vocab 8192, hidden
      256, 8 heads, 4 layers, a causal ragged_attention a layer), saved
@@ -170,8 +170,9 @@ Phases, each fatal on failure:
      AdamW with the global-norm clip at b2 s1024, then each optimizer
      of the training front end (LarsMomentum, Adagrad, Adamax,
      DecayedAdagrad, Adadelta, RMSProp, Ftrl, Lamb, and Adam with
-     L2Decay and GradientClipByValue) at b2 s256, 3 steps on the card
-     and on a CPUPlace executor from the same parameters: losses within
+     L2Decay and GradientClipByValue) at b2 s256, 2 steps on the card
+     and on a CPUPlace executor from the same parameters (the CPU's
+     runs made in the CPU reference child, below): losses within
      1e-4; Adam's family phase 5's parameter rule, the others each
      parameter's change within 1e-3 of its norm (leaves at the
      gradient's rounding floor printed only); the worst leaf of each.
@@ -262,7 +263,7 @@ Phases, each fatal on failure:
      previous bucket, bucket], source pads 0, label_weight zero past
      each length) by the port's make_fake_batch.  Captured and eager in
      turns from one state: one warm-up round (an eager warm-up and a
-     capture a bucket: 4 graphs), then 3 timed rounds.  Losses finite,
+     capture a bucket: 4 graphs), then 2 timed rounds.  Losses finite,
      the modes' losses and whole state bit-equal, 4 graphs held, the
      pass report's fuse_attention sites 0 (the attention dropout vetoes
      the rewrite), K1-K8 launched 0 times (wrappers and card); per mode
@@ -291,7 +292,7 @@ Phases, each fatal on failure:
      same program on the same feed (logits within 1e-3; a row's ids may
      part only at a near-tie).  Then the card-vs-CPU parity: 2 + 2
      layers at full width, fp32, dropout 0, the passes on, a padded
-     bucket-32 batch of 16: 3 Adam steps on the card and on a CPUPlace
+     bucket-32 batch of 16: 2 Adam steps on the card and on a CPUPlace
      executor from one state, losses within 1e-4; on every parameter
      above the gradient floor the first step's gradient within 4e-3 of
      its norm and the updates within 1e-6 mean abs and 5e-2 of their
@@ -307,11 +308,13 @@ Phases, each fatal on failure:
      recommender_system, label_semantic_roles, the attention-fusion
      Transformer book and machine_translation), each at its own batch, widths, epochs, optimizer
      and learning rate on CUDAPlace(0), the captured and the eager
-     executor in turns from one state (one executor pair a book, freed
-     after it): the modes' losses and whole state bit-equal, every
+     executor in turns from one state for the first 8 steps
+     (BOOK_EAGER_STEPS; one executor pair a book, freed after it): the
+     modes' losses and whole state bit-equal there; the captured one
+     then trains on alone; every
      state tensor on the card, the book's own loss threshold met; the
      inference model saved and reloaded on the card, its prediction
-     within rtol 2e-4, atol 2e-5 of clone(for_test=True); the first 3
+     within rtol 2e-4, atol 2e-5 of clone(for_test=True); the first 2
      losses within 1e-4 of a CPUPlace run of the port from the card's
      startup state; label_semantic_roles' Viterbi paths from the card's
      trained state equal to the CPU's on the same batch (a differing
@@ -344,7 +347,7 @@ Phases, each fatal on failure:
      CPU: 2 layers at full width, fp32, dropout 0, the fault on step 2
      of 3: losses within 1e-4, found_inf [0, 1, 0] on both, the skipped
      step's state bit-unchanged on both.  (6) captured step p50 / p95
-     with the sentinel off and on (skip, nothing planted), 20 steps each
+     with the sentinel off and on (skip, nothing planted), 10 steps each
      in turns, and each one's launch API calls, busy and idle (one
      profiled step).  (7) /profilez over a real scrape: 200 with the JAX
      package's keys.  Every program run, replays included, launches K1
@@ -398,6 +401,80 @@ Phases, each fatal on failure:
      no passes and no trace seconds; their ids equal to each other's
      and to the lane's; K4 and K5 12 a program run; the seconds from
      the process's start to its first token, split.
+ 31. resnet dp path: phase 21's ResNet-50 (224², the bf16 policy,
+     Momentum(0.1, 0.9)) through CompiledProgram(...).with_data_parallel
+     over [CUDAPlace(0)] x 4, b32 a replica, BuildStrategy with the
+     quantized all-reduce, sync_batch_norm and the fused update; the
+     captured and the eager executor in turns from one state, 2 warm-up
+     and 4 timed steps each.  After every step of each mode: finite
+     losses (falling over the run), every replica's parameters,
+     velocities and moving statistics bit-identical and replica 0's the
+     scope's, every moving statistic changed and within 8 ulps of its
+     dtype of the mean of the replicas' batch statistics (SavedMean,
+     and the batch variance from SavedVariance) folded into the
+     previous value (the bf16 policy casts the c_allreduce_avg's
+     inputs, so the statistics are bf16 from the first step on, as in
+     the JAX package); K8's momentum group form launched exactly as the
+     plan's group steps take it, K1-K7 and K8's per-parameter form
+     never; the modes' losses and whole state bit-equal.  Images/s,
+     step p50 / p95, MFU, peak memory, the graph pool, capture seconds,
+     the bucket plan, modeled wire bytes and the fused-update bytes
+     saved (one card runs the four replicas: not a scaling figure); a
+     profiled step a mode (busy, idle, launch API calls, K8's device
+     time).  Then ResNet-50 fp32 at 64x64 over 2 replicas of b4, 2
+     steps, CPU replicas taking each step from the card's state:
+     phase 21's parity gates.  Phase 3 holds K8's momentum group form
+     at this program's members (161 parameters x 4 replicas) against
+     its plain version, timed against its bound.
+ 32. amp path: the train cell's BERT-base b128 s128 (attention dropout
+     0, hidden dropout 0.1, Adam(1e-4), the default passes) with no
+     bf16 policy, under fluid.contrib.mixed_precision.decorate twice:
+     (a) the default, bf16 with a static scale of 1.0; (b) fp16 with a
+     dynamic scale from 2^15 (up x2 after 4 good steps, x0.8 on each
+     bad one).  Each arm captured and eager
+     in turns, 2 warm-up and 4
+     timed steps: finite losses, the scale after each step equal to the
+     rule over the card's own found-inf flags, the modes bit-equal, the
+     pass report the JAX package's (no fuse_attention site, 13
+     fuse_bias_act_dropout sites, no fused loss; amp_pass_sites), K1
+     24, K2 12, K3 12 (their fp32 forms: the rewrite's fp32 bias adds
+     promote Q, K and V) and K4 13 (bf16 in (a), its fp16 form in (b),
+     an fp32 bias) a step, the kernels' input dtypes recorded on one
+     more eager step.  Tokens/s, step p50 / p95, MFU, memory and graph
+     pool an arm, and a profiled step an arm and mode, beside phase
+     4's bf16-policy step.  Then each arm at 2 layers, full width, b2
+     s64, 2 steps card against CPU (the CPU's fp16 matrix products are
+     slow) on two seeded batches: losses, first gradients and updates
+     within limits (AMP_PARITY_LIMITS) that planted faults in K4's
+     rounding must each break (toward zero in both arms; through 8 bits
+     in the fp16 arm); and in the fp16 arm one more step on a batch
+     with an inf in input_mask: found-inf on both, the scale cut to 0.8
+     of itself on both, on each device the grads zeroed by a multiply
+     (0, or NaN where they were not finite) and each parameter NaN
+     exactly where its grad is (the JAX package's rule).  Phase 3
+     holds K4's fp16 form at the step's [16384,
+     3072] and [2048, 768], with and without a mask and at fp16's edge,
+     within one fp16 ulp of its plain version (infs equal), timed
+     against the bytes bound and a device copy of the same bytes.
+ 33. moe path: BERT-base with the MoE FFN (moe_experts 4, top 2; dense
+     dispatch), b128 s128, the bf16 policy, Adam(1e-4), attention
+     dropout 0: captured and eager in turns for 2 steps (losses and
+     state bit-equal), then 4 more captured (timed): finite falling
+     losses, K1 24, K2 12, K3 12 and K4 1 (the MLM head) a step; step
+     p50, MFU from the FLOPs the dense dispatch computes
+     (moe_train_flops_per_step), memory and the graph pool, a profiled
+     step a mode.  Then 2 layers at full width, fp32, dropout 0, b4
+     s128, 3 Adam steps card against CPU: losses within 1e-4 and phase
+     5's update gates.
+
+The CPU runs of phases 18's, 26's and 32's parities, from their
+programs' startups on the CPU, are made in one child process at a
+lower priority that sees no card (CpuChild).  It starts with the
+kernels' builds and runs beside them and phase 3, whose readings are
+device times; the script waits for it to end before phase 4, so that
+no host reading of a later phase is taken beside it.  The builds start
+together (``_build.start_builds``), and phase 3 holds K4-K8 while the
+flash kernels still build.
 
 Phases 1-13 also check that this slice's passes (fuse_attention,
 fuse_softmax_cross_entropy) match nothing on their programs.  Each
@@ -414,7 +491,10 @@ resnet`` phases 21-22, ``--only cnn`` phase 23, ``--only nmt`` phase
 3's K1-K3 at the NMT shapes and phases 24-26, ``--only book`` phase
 3's K1-K3 at the Transformer book's shapes and phase 27, ``--only
 health`` phase 28, ``--only generate`` phase 3's K1-K3 at the
-generation shapes and phase 29, and ``--only persist`` phase 30.
+generation shapes and phase 29, ``--only persist`` phase 30, ``--only
+resnetdp`` phase 3's K8 momentum group check and phase 31, ``--only
+amp`` phase 3's fp16 K4 check and phase 32, and ``--only moe`` phase
+33.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -431,10 +511,12 @@ last lines are the kernels JSON, the nvidia-smi line, and
 without CUDA or without the package beside it.
 """
 
+import atexit
 import contextlib
 import difflib
 import json
 import os
+import shutil
 import signal
 import subprocess
 import tempfile
@@ -900,7 +982,9 @@ def k4_k6_build_report():
         for mangled, label, props in _ptxas_entries(name):
             r = dict(props)
             if mangled in sass:
-                elem = 2 if "<__nv_bfloat16" in label else 4  # out's
+                # out's element size: bf16 and fp16 2 bytes, fp32 4
+                elem = 2 if ("<__nv_bfloat16" in label
+                             or "<__half" in label) else 4
                 r["main_loop"] = _main_loop(*sass[mangled], elem)
                 if ("__nv_bfloat16, __nv_bfloat16" in label
                         and label.endswith("false, false>")
@@ -1310,6 +1394,103 @@ def check_bias_gelu_bf16(dev, rng):
     return worst, timings
 
 
+# the AMP step's fp16 K4 shapes (phase 32's arm (b)): the 12 FFN fc_0
+# outputs [b*s, 3072] and the MLM head [b*s/8, 768], fp16 x and the
+# fp32 bias the AMP rewrite leaves it
+K4_FP16_CASES = ((16384, 3072), (2048, 768))
+
+
+def _fp16_ulp(t):
+    """One fp16 ulp at each value of ``t`` (fp32): 2^(e - 11) for a
+    value in [2^(e-1), 2^e), 2^-24 below the smallest normal."""
+    _, e = torch.frexp(t.abs())
+    return torch.where(t.abs() < 2.0 ** -14, 2.0 ** -24,
+                       torch.pow(2.0, (e - 11).float()))
+
+
+def _fp16_k4_close(got, want):
+    """Max |got - want| in ulps of ``want`` (fp16 results), every inf of
+    either in the same place and of the same sign in both."""
+    g, w = got.float(), want.float()
+    inf = torch.isinf(w)
+    if not torch.equal(torch.isinf(g), inf) or not torch.equal(g[inf],
+                                                               w[inf]):
+        raise AssertionError("fused_bias_gelu fp16: the infs differ from "
+                             "the plain version's")
+    if torch.isnan(g).any():
+        raise AssertionError("fused_bias_gelu fp16: NaN in the result")
+    return float(((g - w).abs()[~inf] / _fp16_ulp(w[~inf])).max())
+
+
+def check_bias_gelu_fp16(dev, rng):
+    """K4's fp16 form (phase 32's arm (b)) at K4_FP16_CASES, with and
+    without a dropout mask: fp16 x, fp32 bias, a result within one fp16
+    ulp of the plain version (both round an fp32 GeLU to nearest-even),
+    its infs where the plain version's are.  The first rows sit at fp16's
+    edge: x 65504 or 65472 with a bias that puts x + bias just under,
+    at and past 65519.99 (the last value that rounds to 65504), so the
+    result is 65504 or +inf, and the mask's 1.25 scale pushes more past
+    it.  The bias also in bf16 and fp16 at the MLM head's shape
+    (untimed).  Timed: the kernel, the plain version, a device copy of
+    x (the same bytes moved), against the bytes bound.  Inputs from a
+    device generator of their own, so the later checks' data stays as
+    it was."""
+    from paddle_tpu_torch.kernels import fused_bias_act as fba
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    worst, timings = 0.0, {}
+    for r, h in K4_FP16_CASES:
+        x = (torch.randn(r, h, generator=gen, device=dev) * 3).half()
+        bias = torch.randn(h, generator=gen, device=dev)
+        x[:4, :8] = torch.tensor([65504, 65504, 65504, 65504, 65472, 60000,
+                                  -65504, -60000], device=dev).half()
+        bias[:8] = torch.tensor([15.0, 15.99, 16.0, 200.0, 47.0, 5519.0,
+                                 -16.0, 1.0], device=dev)
+        mask = (torch.rand(r, h, generator=gen, device=dev) > 0.1).to(
+            torch.uint8)
+        for with_mask in (False, True):
+            kw = dict(mask=mask if with_mask else None,
+                      scale=1.25 if with_mask else 1.0)
+            got = fba.fused_bias_gelu(x, bias, **kw)
+            want = fba.fused_bias_gelu_reference(x, bias, **kw)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float16:
+                raise AssertionError(f"fused_bias_gelu fp16: {got.dtype}")
+            ulps = _fp16_k4_close(got, want)
+            n_inf = int(torch.isinf(got).sum())
+            if ulps > 1.0 or n_inf < 3:
+                raise AssertionError(f"fused_bias_gelu fp16 [{r},{h}] "
+                                     f"mask={with_mask}: {ulps} ulp from "
+                                     f"the plain version, {n_inf} infs")
+            err = float((got.float() - want.float())[
+                torch.isfinite(want)].abs().max())
+            worst = max(worst, err)
+            ms = _time_ms(lambda: fba.fused_bias_gelu(x, bias, **kw), 50)
+            plain_ms = _time_ms(
+                lambda: fba.fused_bias_gelu_reference(x, bias, **kw), 20)
+            dst = torch.empty_like(x)
+            copy_ms = _time_ms(lambda: dst.copy_(x), 50)
+            byts = r * h * 2 * 2 + h * 4 + (r * h if with_mask else 0)
+            bound_ms, bound_by = _bound(byts, r * h * GELU_FLOPS_PER_ELEMENT)
+            timings[f"[{r},{h}] fp16 mask={with_mask}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=byts, max_abs_err=err,
+                max_ulps=ulps, infs=n_inf, copy_ms=copy_ms, shape=[r, h],
+                dtype="float16", bias_dtype="float32", library_ms=None)
+        for bdt in (torch.bfloat16, torch.float16):
+            if r != 2048:
+                continue
+            b2 = bias.to(bdt)
+            got = fba.fused_bias_gelu(x, b2)
+            ulps = _fp16_k4_close(got, fba.fused_bias_gelu_reference(x, b2))
+            if ulps > 1.0:
+                raise AssertionError(f"fused_bias_gelu fp16, {bdt} bias: "
+                                     f"{ulps} ulp")
+            timings[f"[{r},{h}] fp16 bias {bdt}"] = dict(max_ulps=ulps)
+    return worst, timings
+
+
 def _flash_inputs(dev, b, h, s, d, dtype, rng, bias_mode="pads"):
     """q, k, v, dO as the BERT and GPT programs hand them to the op:
     [B, H, S, D] transposed views of [B, S, H, D] activations; a key
@@ -1645,20 +1826,27 @@ def _k8_case(dev, numel, rng, offset_blocks=3):
     """Parameter state and a gradient bucket slice for one K8 call: the
     member's blocks start ``offset_blocks`` into a wire image quantized
     by the port's codec from random fp32 (zero in the member's padding),
-    with two blocks after it."""
+    with two blocks after it.  The random values are drawn on the card
+    (a generator seeded from ``rng``): the host's draws of the 23.4 M
+    element embedding took most of the check's seconds."""
     from paddle_tpu_torch.kernels import quantized_collectives as qc
 
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.randint(2 ** 31)))
+
+    def randn(n, scale):
+        return torch.randn(n, generator=gen, device=dev) * scale
+
     def f32(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+        return torch.tensor(a, dtype=torch.float32, device=dev)
 
     nb = -(-numel // K8_BLOCK)
-    bucket = rng.randn((offset_blocks + nb + 2) * K8_BLOCK)
+    bucket = randn((offset_blocks + nb + 2) * K8_BLOCK, 1.0)
     # the member's alignment padding is zero, as coalesce_tensor pads it
     bucket[offset_blocks * K8_BLOCK + numel:(offset_blocks + nb) * K8_BLOCK] = 0
-    hi, lo, sc = qc.quantize_block_scaled(f32(bucket), K8_BLOCK)
-    state = dict(p=f32(rng.randn(numel) * 0.1),
-                 m1=f32(rng.randn(numel) * 0.01),
-                 m2=f32(np.abs(rng.randn(numel)) * 0.01),
+    hi, lo, sc = qc.quantize_block_scaled(bucket, K8_BLOCK)
+    state = dict(p=randn(numel, 0.1), m1=randn(numel, 0.01),
+                 m2=randn(numel, 0.01).abs(),
                  lr=f32([1e-3]), b1p=f32([0.9 ** 3]), b2p=f32([0.999 ** 3]))
     return state, (hi, lo, sc, offset_blocks, numel)
 
@@ -1754,9 +1942,6 @@ def _dp_group_members(dev):
     from seeded data of the bucket's padded size.  Returns (members,
     hyper, block size, ops a replica)."""
     from paddle_tpu_torch import fluid
-    from paddle_tpu_torch.fluid import executor as ex
-    from paddle_tpu_torch.kernels import fused_update as fu
-    from paddle_tpu_torch.kernels import quantized_collectives as qc
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.parallel.data_parallel import DataParallelRunner
 
@@ -1767,13 +1952,32 @@ def _dp_group_members(dev):
     strategy.quant_allreduce = True
     prog = DataParallelRunner(main, loss.name, build_strategy=strategy,
                               places=[_gpu_place()] * DP_REPLICAS).program
-    plan = ex._Plan(prog, list(bert.make_fake_batch(cfg, 1, 8)),
-                    [loss.name])
-    (group,) = [g for g in plan.steps if isinstance(g, ex._Group)]
-    attrs = group.ops[0].attrs
+    members, hyper, bs, groups = _plan_group_members(
+        dev, prog, list(bert.make_fake_batch(cfg, 1, 8)), loss.name)
+    (n_ops,) = groups
+    return members, hyper, bs, n_ops
+
+
+def _plan_group_members(dev, prog, feed_names, loss_name):
+    """The K8 group members of a transpiled data-parallel program: each
+    group step of its plan (one kind), and for each member on each of
+    DP_REPLICAS replicas (replica-major within a group step, as the
+    executor hands them over) seeded fp32 state and its bucket's wire
+    image.  Returns (members, hyper, block size, ops of each group step
+    a replica)."""
+    from paddle_tpu_torch.fluid import executor as ex
+    from paddle_tpu_torch.kernels import fused_update as fu
+    from paddle_tpu_torch.kernels import quantized_collectives as qc
+
+    plan = ex._Plan(prog, feed_names, [loss_name])
+    group_steps = [g for g in plan.steps if isinstance(g, ex._Group)]
+    attrs = group_steps[0].ops[0].attrs
     bs = int(attrs["block_size"])
-    hyper = dict(beta1=attrs["beta1"], beta2=attrs["beta2"],
-                 epsilon=attrs["epsilon"])
+    momentum = group_steps[0].ops[0].type == "fused_momentum_quant_grad"
+    hyper = (dict(mu=attrs["mu"], use_nesterov=attrs["use_nesterov"])
+             if momentum else dict(beta1=attrs["beta1"],
+                                   beta2=attrs["beta2"],
+                                   epsilon=attrs["epsilon"]))
     block = prog.global_block()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1782,35 +1986,70 @@ def _dp_group_members(dev):
         return torch.randn(n, generator=gen, device=dev) * scale
 
     members = []
-    for _ in range(DP_REPLICAS):
-        images = {}
-        lr = torch.tensor([1e-4], device=dev)
-        for op in group.ops:
-            name = op.inputs["QHi"][0]
-            if name not in images:
-                images[name] = qc.quantize_block_scaled(
-                    randn(block.var(name).shape[0], 1e-3), bs)
-            hi, lo, sc = images[name]
-            numel = int(op.attrs["numel"])
-            members.append(fu.GroupMember(
-                randn(numel, 0.02), (hi, lo, sc, int(op.attrs["offset_blocks"]),
-                                     numel),
-                lr, randn(numel, 1e-4), randn(numel, 1e-4).abs(),
-                torch.tensor([0.9 ** 3], device=dev),
-                torch.tensor([0.999 ** 3], device=dev)))
-    return members, hyper, bs, len(group.ops)
+    for group in group_steps:
+        for _ in range(DP_REPLICAS):
+            images = {}
+            lr = torch.tensor([1e-4], device=dev)
+            for op in group.ops:
+                name = op.inputs["QHi"][0]
+                if name not in images:
+                    images[name] = qc.quantize_block_scaled(
+                        randn(block.var(name).shape[0], 1e-3), bs)
+                hi, lo, sc = images[name]
+                numel = int(op.attrs["numel"])
+                grad = (hi, lo, sc, int(op.attrs["offset_blocks"]), numel)
+                if momentum:
+                    members.append(fu.GroupMember(
+                        randn(numel, 0.02), grad, lr, randn(numel, 1e-4)))
+                else:
+                    members.append(fu.GroupMember(
+                        randn(numel, 0.02), grad, lr, randn(numel, 1e-4),
+                        randn(numel, 1e-4).abs(),
+                        torch.tensor([0.9 ** 3], device=dev),
+                        torch.tensor([0.999 ** 3], device=dev)))
+    return members, hyper, bs, [len(g.ops) for g in group_steps]
+
+
+def _group_launches(kind, members, hyper, bs):
+    """A call making launch_group's launches over ``members`` from launch
+    tables built once: launch_group builds and checks them on the host
+    at each call (~13 ms over 824 members), which outlasts _time_ms's
+    device sleep over 20 calls; the card's work is the same.  These
+    launches are not counted."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    rows, dual = fu._group_rows(kind, members, bs)
+    lib = _build.load("fused_update", fu._SIGNATURES)
+    cap = lib.pt_fused_update_group_capacity()
+    consts = fu._consts(kind, **hyper)
+    stream = _build.stream_of(members[0].p.device)
+    tables = [np.ascontiguousarray(rows[i:i + cap])
+              for i in range(0, len(rows), cap)]
+
+    def launch():
+        for table in tables:
+            _build.check("fused_update_group", lib.pt_fused_update_group(
+                fu._KIND[kind], int(dual), bs, len(table),
+                table.ctypes.data_as(ctypes.c_void_p), *consts, stream))
+
+    return launch
 
 
 def check_fused_update_group(dev):
     """K8's group form over the dp lane's real segment list (206
     parameters x 4 replicas): held against the plain version member by
     member under the per-parameter gate, with the launches it takes;
-    its kernels' device time (torch.profiler) against the same segments
-    as 824 single launches and against its bound, both entries' whole
-    device time (the beta powers included), and torch._fused_adam_ over
-    the same tensors with an fp32 gradient (a yardstick only: another
-    function); and the word embedding alone as a one-segment group
-    against its single launch, in turns."""
+    its launches' device time (CUDA events, as every kernel row is
+    timed; torch.profiler's summed kernel time and event count beside
+    it) against the same segments as 824 single launches and against
+    its bound, both entries' whole device time (the beta powers
+    included), and torch._fused_adam_ over the same tensors with an
+    fp32 gradient (a yardstick only: another function); and the word
+    embedding alone as a one-segment group against its single launch,
+    in turns."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import fused_update as fu
 
@@ -1856,6 +2095,7 @@ def check_fused_update_group(dev):
             fu.fused_adam_update(m.p, m.grad, m.m1, m.m2, m.lr, m.b1p,
                                  m.b2p, **hyper, block_size=bs)
 
+    group_ms = _time_ms(_group_launches("adam", members, hyper, bs), 20)
     group = _profile(lambda: fu.launch_group("adam", members, hyper, bs), 3,
                      match="fused_update_group_kernel")
     single = _profile(singles, 1, match="fused_update_kernel")
@@ -1887,9 +2127,11 @@ def check_fused_update_group(dev):
     bound_ms, bound_by = _bound(byts, 0)
     return worst, dict(
         members=len(members), ops_a_replica=n_ops, table=cap,
-        launches=launches[0], differing_elements=differing,
-        ms=group["fused_update_group_kernel_device_ms"],
+        launches=launches[0], differing_elements=differing, ms=group_ms,
+        profiler_ms=group["fused_update_group_kernel_device_ms"],
         group_kernel_events=group["fused_update_group_kernel_events"],
+        profiler_kept_every_launch=(
+            group["fused_update_group_kernel_events"] == launches[0]),
         single_launches_ms=single["fused_update_kernel_device_ms"],
         single_launch_events=single["fused_update_kernel_events"],
         group_entry_device_ms=group_entry["device_busy_ms"],
@@ -1905,6 +2147,72 @@ def check_fused_update_group(dev):
         word_embedding=dict(numel=we.grad[4], in_turns_ms=we_turns,
                             single_ms=(we_turns[0] + we_turns[3]) / 2,
                             group_ms=(we_turns[1] + we_turns[2]) / 2))
+
+
+def check_fused_update_group_momentum(dev, rng=None):
+    """K8's group form in its momentum kind over phase 31's members:
+    ResNet-50's training program (the bf16 policy, Momentum(0.1, 0.9))
+    transpiled for DP_REPLICAS replicas with the quantized all-reduce,
+    every fused_momentum_quant_grad op of its plan on every replica,
+    seeded fp32 parameters and velocities and their buckets' wire
+    images: held against the plain version member by member under
+    K8_RTOL, with the launches it takes; its launches' device time
+    (CUDA events; torch.profiler's reading and event count beside it:
+    the profiler has been seen to keep 2 of a call's 3 kernels) against
+    the plain version's (torch.profiler) and the bound."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_update as fu
+    from paddle_tpu_torch.parallel.data_parallel import DataParallelRunner
+
+    main, _, loss, _ = _image_program()
+    prog = DataParallelRunner(main, loss.name,
+                              build_strategy=_resnet_dp_strategy(),
+                              places=[_gpu_place()] * DP_REPLICAS).program
+    members, hyper, bs, n_ops = _plan_group_members(
+        dev, prog, ["img", "label"], loss.name)
+    cap = _build.load("fused_update",
+                      fu._SIGNATURES).pt_fused_update_group_capacity()
+    ref = [fu.GroupMember(*(t.clone() if isinstance(t, torch.Tensor) else t
+                            for t in m)) for m in members]
+    before = (fu.fused_update_group.launches, fu.fused_update_kernel.launches)
+    fu.fused_update_group("momentum", members, hyper, bs)
+    launches = (fu.fused_update_group.launches - before[0],
+                fu.fused_update_kernel.launches - before[1])
+    fu.fused_update_group("momentum", ref, hyper, bs, force="reference")
+    torch.cuda.synchronize()
+    if launches != (-(-len(members) // cap), 0):
+        raise AssertionError(f"fused_update_group momentum: {launches} "
+                             f"(group, single) launches over "
+                             f"{len(members)} members, table of {cap}")
+    worst = 0.0
+    for i, (m, r) in enumerate(zip(members, ref)):
+        for g, w in ((m.p, r.p), (m.m1, r.m1)):
+            err = (g - w).abs().max().item()
+            if not torch.allclose(g, w, rtol=K8_RTOL,
+                                  atol=K8_RTOL * w.abs().max()) \
+                    or not torch.isfinite(g).all():
+                raise AssertionError(f"fused_update_group momentum member "
+                                     f"{i}: max abs err {err}")
+            worst = max(worst, err)
+    del ref
+    group_ms = _time_ms(_group_launches("momentum", members, hyper, bs),
+                        20)
+    group = _profile(lambda: fu.launch_group("momentum", members, hyper,
+                                             bs), 3,
+                     match="fused_update_group_kernel")
+    plain = _profile(lambda: fu.fused_update_group(
+        "momentum", members, hyper, bs, force="reference"), 1)
+    byts = sum(_k8_bytes("momentum", m.grad[4]) for m in members)
+    bound_ms, bound_by = _bound(byts, 0)
+    return worst, dict(
+        kind="momentum", members=len(members), ops_a_replica=n_ops,
+        table=cap, launches=launches[0], ms=group_ms,
+        profiler_ms=group["fused_update_group_kernel_device_ms"],
+        group_kernel_events=group["fused_update_group_kernel_events"],
+        profiler_kept_every_launch=(
+            group["fused_update_group_kernel_events"] == launches[0]),
+        plain_ms=plain["device_busy_ms"], bound_ms=bound_ms,
+        bound_by=bound_by, bytes=byts, library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -1955,17 +2263,18 @@ def _train_step_launches(cfg, replicas=1):
 def _gate_launches(what, launches, on_card, per_run, runs, first_runs):
     """The exact launch gates of a path run in both modes: on the card
     (the kernels' own counters) every program run of either mode
-    launches ``per_run``, ``runs`` runs a mode; the wrappers see every
-    eager run, and of the captured mode only its ``first_runs`` (each a
-    signature's eager warm-up and its capture: a replay runs no
-    Python)."""
-    want_card = _times(per_run, runs)
+    launches ``per_run``, ``runs`` runs a mode (or {mode: runs}); the
+    wrappers see every eager run, and of the captured mode only its
+    ``first_runs`` (each a signature's eager warm-up and its capture: a
+    replay runs no Python)."""
+    runs = runs if isinstance(runs, dict) else dict.fromkeys(on_card, runs)
+    want_card = {m: _times(per_run, runs[m]) for m in on_card}
     want = {"captured": _times(per_run, 2 * first_runs),
-            "eager": want_card}
-    if any(on_card[m] != want_card for m in on_card) or launches != want:
+            "eager": want_card["eager"]}
+    if on_card != want_card or launches != want:
         raise AssertionError(
             f"{what}: launches {launches} (wrappers) and {on_card} (on the "
-            f"card), expected {want} and {want_card} a mode")
+            f"card), expected {want} and {want_card}")
 
 
 def run_train_path(counters, bf16=True):
@@ -2237,6 +2546,29 @@ def _profile(step, n, match=None, device_only=False, kernels=False):
         out[f"{name}_events"] = sum(c for _, c in hits) // n
     if kernels:
         out["prof"] = prof
+    return out
+
+
+def profile_modes(state, match=None):
+    """One step of each mode of a path's ``state`` (its executors,
+    scopes, feed, ``fetch`` list (the path's own, so the captured step
+    replays its graph), and ``compiled`` programs or ``main``) under
+    torch.profiler, and one unprofiled (``step_wall_ms``): device busy
+    and idle, the launch API calls and the device time of ``match``."""
+    out = {}
+    for m, exe in state["exes"].items():
+        target = (state["compiled"][m] if "compiled" in state
+                  else state["main"])
+
+        def step():
+            exe.run(target, feed=state["feed"], fetch_list=state["fetch"],
+                    scope=state["scopes"][m])
+
+        r = _profile(step, 1, match=match)
+        t0 = time.perf_counter()
+        step()
+        r["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        out[m] = r
     return out
 
 
@@ -2605,30 +2937,20 @@ def run_dp_path(counters):
         modes=modes, launches=total, device_launches=_summed(on_card),
         new_pass_sites=sites)
     state = dict(exes=exes, compiled=compiled, scopes=scopes, feed=feed,
-                 loss=loss, n_fused=n_fused)
+                 loss=loss, fetch=[loss], n_fused=n_fused)
     return state, path
 
 
 def profile_dp_step(state):
-    """One data-parallel step of each mode under torch.profiler: device
-    busy and idle, the top kernels, the launch API calls, K8's summed
-    device time (its group kernel, and its per-parameter kernel, which
-    must not run) against its bound (every fused op's bytes, every
-    replica, at the HBM rate), and the multi-tensor kernels that advance
-    the beta powers."""
-    out = {}
-    for m, exe in state["exes"].items():
-        def step():
-            exe.run(state["compiled"][m], feed=state["feed"],
-                    fetch_list=[state["loss"]], scope=state["scopes"][m])
-
-        r = _profile(step, 1, match=("fused_update_group_kernel",
-                                     "fused_update_kernel",
-                                     "multi_tensor_apply"))
-        t0 = time.perf_counter()
-        step()
-        r["step_wall_ms"] = 1e3 * (time.perf_counter() - t0)
-        out[m] = r
+    """One data-parallel step of each mode under torch.profiler
+    (profile_modes): device busy and idle, the top kernels, the launch
+    API calls, K8's summed device time (its group kernel, and its
+    per-parameter kernel, which must not run) against its bound (every
+    fused op's bytes, every replica, at the HBM rate), and the
+    multi-tensor kernels that advance the beta powers."""
+    out = profile_modes(state, match=("fused_update_group_kernel",
+                                      "fused_update_kernel",
+                                      "multi_tensor_apply"))
     prog = state["compiled"]["captured"]._dp_runner.program
     byts = sum(_k8_bytes("adam", int(op.attrs["numel"]))
                for op in prog.global_block().ops
@@ -3087,16 +3409,21 @@ def lane_paged_bound(cfg, scope, prompts, pool_dtype):
                 bound_ms=_bound(byts, 0)[0])
 
 
-# the paged kernel's whole-lane runs, one split (True) and split (False)
-# in turns: two runs, which keeps the whole script inside its time
+# the paged kernel's lane runs, one split (True) and split (False) in
+# turns: two runs, over the lane's first LANE_REQUESTS requests (of 8
+# to 512 prompt tokens, within one wave of its 8 pool slots), which
+# keeps the whole script inside its time
 LANE_ORDER = (True, False)
+LANE_REQUESTS = 4
 
 
 def lane_in_turns(cfg, scope, prompts, outs, pool_dtype="float32"):
-    """The paged kernel (K5, or K7 over the int8 pool) over the whole
-    decode lane, captured, one split and split in turns (LANE_ORDER):
-    summed device ms of the paged kernels a run, whether each run's ids
-    equal the main path's, and the lane-wide bound."""
+    """The paged kernel (K5, or K7 over the int8 pool) over the decode
+    lane's first LANE_REQUESTS requests, captured, one split and split
+    in turns (LANE_ORDER): summed device ms of the paged kernels a run,
+    whether each run's ids equal the main path's, and the run's
+    bound."""
+    prompts, outs = prompts[:LANE_REQUESTS], outs[:LANE_REQUESTS]
     runs = []
     for one in LANE_ORDER:
         r, got = profile_lane_paged(cfg, scope, prompts, pool_dtype,
@@ -3854,7 +4181,7 @@ GPT_UNFUSED_WARMUP, GPT_UNFUSED_STEPS = 2, 3
 # Megatron and nanoGPT settings): AdamW, beta2 0.95, decoupled weight
 # decay 0.1, the gradients' global norm clipped at 1.0
 GPT_LR, GPT_BETA2, GPT_WEIGHT_DECAY, GPT_CLIP_NORM = 6e-4, 0.95, 0.1, 1.0
-# card vs CPU, fp32, 3 steps (phase 5's rules): losses within 1e-4
+# card vs CPU, fp32, 2 steps (phase 5's rules): losses within 1e-4
 # relative; for Adam's family the parameters within 3 x lr max and 1e-6
 # mean abs difference (an element's update is at most about lr in size,
 # and its sign can follow a gradient that is zero up to the two BLAS
@@ -3863,7 +4190,7 @@ GPT_LR, GPT_BETA2, GPT_WEIGHT_DECAY, GPT_CLIP_NORM = 6e-4, 0.95, 0.1, 1.0
 # whose gradient sits at the rounding floor (DP_GRAD_FLOOR of the median
 # leaf's RMS: the attention key biases, whose true gradient is 0) has no
 # direction to hold and is printed only
-GPT_PARITY_STEPS = 3
+GPT_PARITY_STEPS = 2
 GPT_CHANGE_RTOL = 1e-3
 # the parity runs' batch and sequence: the recipe's, then each optimizer's
 GPT_PARITY_SHAPE, GPT_PARITY_OPT_SHAPE = (2, 1024), (2, 256)
@@ -4129,15 +4456,55 @@ def _gpt_parity_run(cfg, place, feed, init, make_opt, steps):
     return losses, init, final, first
 
 
-def _gpt_parity(cfg, batch, seq, make_opt, adam_family, lr):
-    """One card-vs-CPU parity reading (see GPT_PARITY_STEPS)."""
+def _gpt_parity_cases():
+    """Phase 18's parities: (name, (batch, seq), make_opt, Adam's family,
+    lr) of the recipe and of every optimizer of GPT_PARITY_OPTIMIZERS."""
+    return [("adamw_global_norm_clip", GPT_PARITY_SHAPE, None, True,
+             GPT_LR)] + [(name, GPT_PARITY_OPT_SHAPE, make, family, lr)
+                         for name, (make, family, lr)
+                         in GPT_PARITY_OPTIMIZERS.items()]
+
+
+def gpt_cpu_child(dirname):
+    """The CPU reference child's part for phase 18: the parities' one
+    starting state, the 2-layer GPT's parameters after its startup on
+    the CPU, into ``gpt.init`` (the optimizers add no parameter, so it
+    is every case's); then every case's run on a CPUPlace executor from
+    it, its losses, each leaf's first-gradient RMS and its parameters
+    after the run into ``gpt.<case>``."""
     from paddle_tpu_torch import fluid
 
+    cfg = gpt_config(num_layers=2, hidden_dropout=0.0)
+    main, startup, _, _ = _gpt_program(cfg, bf16=False)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    init = {p.name: scope.get(p.name).numpy().copy()
+            for p in main.all_parameters()}
+    _child_result(dirname, "gpt.init", **init)
+    for name, shape, make, _, _ in _gpt_parity_cases():
+        feed = _gpt_feed(cfg, *shape, seed=1)
+        try:
+            losses, _, final, grads = _gpt_parity_run(
+                cfg, fluid.CPUPlace(), feed, init, make, GPT_PARITY_STEPS)
+        finally:
+            fluid.clip.set_gradient_clip(None)
+        meta = dict(losses=losses, g_rms={n: _rms(g)
+                                          for n, g in grads.items()})
+        _child_result(dirname, f"gpt.{name}", __meta__=np.array(
+            json.dumps(meta)), **{n: v.astype(np.float32)
+                                  for n, v in final.items()})
+
+
+def _gpt_parity(cfg, init, child, name, batch, seq, make_opt, adam_family,
+                lr):
+    """One card-vs-CPU parity reading (see GPT_PARITY_STEPS), the CPU's
+    run from the CPU reference child."""
     feed = _gpt_feed(cfg, batch, seq, seed=1)
-    gl, init, gpu, _ = _gpt_parity_run(cfg, _gpu_place(), feed, None,
-                                       make_opt, GPT_PARITY_STEPS)
-    cl, _, cpu, grads = _gpt_parity_run(cfg, fluid.CPUPlace(), feed, init,
-                                        make_opt, GPT_PARITY_STEPS)
+    gl, _, gpu, _ = _gpt_parity_run(cfg, _gpu_place(), feed, init,
+                                    make_opt, GPT_PARITY_STEPS)
+    z = child.take(f"gpt.{name}")
+    meta = json.loads(str(z["__meta__"]))
+    cl, cpu = meta["losses"], {n: z[n].astype(np.float64) for n in init}
     rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
     if not rel < TRAIN_LOSS_RTOL:
         raise AssertionError(f"gpt parity: losses {gl} (card) vs {cl} "
@@ -4149,30 +4516,47 @@ def _gpt_parity(cfg, batch, seq, make_opt, adam_family, lr):
               if adam_family else (("change_rel", GPT_CHANGE_RTOL),))
     return dict(losses_gpu=gl, losses_cpu=cl, loss_max_rel_diff=rel,
                 **_update_gates("gpt parity", _update_readings(
-                    init, gpu, cpu, grads), checks))
+                    init, gpu, cpu, None, g_rms=meta["g_rms"]), checks))
 
 
-def _update_readings(init, gpu, cpu, grads, init_gpu=None):
+def _f64(a):
+    """``a`` (numpy) as a float64 tensor where the readings compute: on
+    the card (the embeddings hold up to 54 M elements a leaf), or on
+    the CPU where no card is seen (the CPU reference child)."""
+    return torch.as_tensor(np.asarray(a)).to(
+        "cuda" if torch.cuda.is_available() else "cpu").double()
+
+
+def _rms(g):
+    return float(_f64(g).square().mean().sqrt())
+
+
+def _norm(t):
+    return float(torch.linalg.vector_norm(t))
+
+
+def _update_readings(init, gpu, cpu, grads, init_gpu=None, g_rms=None):
     """Each parameter's update in a card run (``gpu``, from ``init_gpu``,
     default ``init``) against the CPU's (``cpu``, from ``init``), on
-    every leaf whose first gradient's RMS (``grads``) is at least
-    DP_GRAD_FLOOR of the median leaf's.  Returns the counts and each
-    reading's worst leaf (max_abs, mean_abs, and change_rel: the
-    difference of the updates over the norm of the CPU's)."""
-    g_rms = {n: float(np.sqrt(np.mean(g * g))) for n, g in grads.items()}
+    every leaf whose first gradient's RMS (from ``grads``, or ``g_rms``
+    given) is at least DP_GRAD_FLOOR of the median leaf's.  Returns the
+    counts and each reading's worst leaf (max_abs, mean_abs, and
+    change_rel: the difference of the updates over the norm of the
+    CPU's)."""
+    if g_rms is None:
+        g_rms = {n: _rms(g) for n, g in grads.items()}
     median = float(np.median(list(g_rms.values())))
     init_gpu = init if init_gpu is None else init_gpu
     leaves = {}
     for n, p in gpu.items():
-        up = p.astype(np.float64) - init_gpu[n]
-        uc = cpu[n].astype(np.float64) - init[n]
-        d = np.abs(up - uc)
+        up = _f64(p) - _f64(init_gpu[n])
+        uc = _f64(cpu[n]) - _f64(init[n])
+        d = (up - uc).abs()
         leaves[n] = dict(
             grad_rms_to_median=g_rms[n] / median,
             held=g_rms[n] >= DP_GRAD_FLOOR * median,
             max_abs=float(d.max()), mean_abs=float(d.mean()),
-            change_rel=float(np.linalg.norm(up - uc)
-                             / max(np.linalg.norm(uc), 1e-30)))
+            change_rel=_norm(up - uc) / max(_norm(uc), 1e-30))
     held = {n: r for n, r in leaves.items() if r["held"]}
     worst = {}
     for key in ("max_abs", "mean_abs", "change_rel"):
@@ -4222,22 +4606,21 @@ GPT_PARITY_OPTIMIZERS = {
 }
 
 
-def run_gpt_parity():
+def run_gpt_parity(child):
     """2 layers at full width (hidden 768, vocab 50304), fp32, dropout
     0: the recipe's AdamW with the global-norm clip at b2 s1024, then
-    each optimizer of the training front end at b2 s256, 3 steps on the
-    card and on a CPUPlace executor from the same parameters."""
+    each optimizer of the training front end at b2 s256, 2 steps on the
+    card and on a CPUPlace executor (in the CPU reference ``child``)
+    from the same parameters (the child's CPU startup)."""
     from paddle_tpu_torch import fluid
 
     cfg = gpt_config(num_layers=2, hidden_dropout=0.0)
-    out = {"adamw_global_norm_clip": dict(
-        batch_seq=GPT_PARITY_SHAPE, **_gpt_parity(
-            cfg, *GPT_PARITY_SHAPE, None, True, GPT_LR))}
-    for name, (make, adam_family, lr) in GPT_PARITY_OPTIMIZERS.items():
+    init = child.take("gpt.init")
+    out = {}
+    for name, shape, make, adam_family, lr in _gpt_parity_cases():
         try:
-            out[name] = dict(batch_seq=GPT_PARITY_OPT_SHAPE, lr=lr,
-                             **_gpt_parity(cfg, *GPT_PARITY_OPT_SHAPE, make,
-                                           adam_family, lr))
+            out[name] = dict(batch_seq=shape, lr=lr, **_gpt_parity(
+                cfg, init, child, name, *shape, make, adam_family, lr))
         finally:
             fluid.clip.set_gradient_clip(None)
     return out
@@ -5279,7 +5662,7 @@ def run_cnn_path(counters):
 # NMT_TOKENS // bucket sentences, Adam(1e-4), the bf16 policy
 NMT_BUCKETS = (32, 64, 128, 256)
 NMT_TOKENS = 8192
-NMT_ROUNDS = 3   # timed rounds over the buckets, after one warm-up round
+NMT_ROUNDS = 2   # timed rounds over the buckets, after one warm-up round
 NMT_LR = 1e-4
 # phases 24-25: the eager peak and a program's four bucket graphs, each
 # in a private pool, held together (82 GB of an H100's 85 at dropout
@@ -5293,8 +5676,8 @@ NMT_DECODE_RUNS = 5  # timed runs a mode, after one warm-up (capture)
 # distinct id rows among the batch's (a quarter)
 NMT_DECODE_MIN_DISTINCT = NMT_DECODE_BATCH // 4
 # the card-vs-CPU parity: 2 layers a stack at full width, fp32, a padded
-# bucket-32 batch of 16 sentences, 3 Adam steps; then greedy ids
-NMT_PARITY_LAYERS, NMT_PARITY_STEPS, NMT_PARITY_OUT = 2, 3, 8
+# bucket-32 batch of 16 sentences, 2 Adam steps; then greedy ids
+NMT_PARITY_LAYERS, NMT_PARITY_STEPS, NMT_PARITY_OUT = 2, 2, 8
 # Its updates and gradients are ill-conditioned element by element: a
 # ReLU unit at its threshold switches one token's term of its FFN
 # weights' gradient, and a gradient element at its rounding floor flips
@@ -5912,8 +6295,8 @@ def _nmt_parity_run(cfg, place, feed, init, steps):
 
 def _grad_rel(grads, ref, held):
     """Worst ||g - ref|| / ||ref|| over the ``held`` leaves, and its leaf."""
-    rel = {n: float(np.linalg.norm(grads[n] - ref[n])
-                    / max(np.linalg.norm(ref[n]), 1e-30)) for n in held}
+    rel = {n: _norm(_f64(grads[n]) - _f64(ref[n]))
+           / max(_norm(_f64(ref[n])), 1e-30) for n in held}
     leaf = max(rel, key=rel.get)
     return dict(leaf=leaf, rel=rel[leaf])
 
@@ -5941,41 +6324,89 @@ def _planted_dq_fault(eps):
         flash.flash_bwd_dq = kernel
 
 
-def run_nmt_parity():
-    """2 + 2 layers at full width (hidden 1024, 16 heads, FFN 4096,
-    vocabularies 30000), dropout 0, fp32, the default passes (the
-    self-attentions on flash: fp32 K1-K3 on the card, their plain
-    versions on the CPU): a padded bucket-32 batch of 16 sentences
-    (nmt_batches' recipe, seed 1), 3 Adam steps on the card and on a
-    CPUPlace executor from the same parameters.  Gates (see
-    NMT_PARITY_GRAD_RTOL): losses within TRAIN_LOSS_RTOL; on every leaf
-    above the gradient floor, the first step's gradient within
-    NMT_PARITY_GRAD_RTOL of its norm, and NMT_PARITY_CHECKS on the
-    updates; each control (_planted_dq_fault on the card, see
-    NMT_PARITY_CONTROLS) failing the gates it names; the CPU's
-    conditioning (a run from a start moved by NMT_PARITY_NUDGE of each
-    element) printed beside.  Then the greedy decode (NMT_PARITY_OUT new
-    ids) of the card run's final parameters over the batch's sources,
-    held against the CPU's (_nmt_decode_on_cpu)."""
-    from paddle_tpu_torch import convert, fluid
-
+def _nmt_parity_setup():
+    """The parity's 2 + 2-layer configuration and its padded batch."""
     cfg = nmt_config(num_encoder_layers=NMT_PARITY_LAYERS,
                      num_decoder_layers=NMT_PARITY_LAYERS, dropout=0.0)
     (_, feed, _), = nmt_batches(cfg, buckets=(32,), tokens=16 * 32, seed=1)
-    gl, init, gpu, ggrads = _nmt_parity_run(cfg, _gpu_place(), feed, None,
-                                            NMT_PARITY_STEPS)
+    return cfg, feed
+
+
+def _nmt_held(g_rms):
+    """The leaves above the gradient floor (_update_readings' rule)."""
+    median = float(np.median(list(g_rms.values())))
+    return [n for n, r in g_rms.items() if r >= DP_GRAD_FLOOR * median]
+
+
+def nmt_cpu_child(dirname):
+    """The CPU reference child's part for phase 26's parity: the
+    starting state, the program's parameters after its startup on the
+    CPU, into ``nmt.init``; the run on a CPUPlace executor from it (its
+    losses, first gradients and final parameters into ``nmt.cpu``), and
+    the CPU's conditioning, a run from the start moved by
+    NMT_PARITY_NUDGE of each element, read against it."""
+    from paddle_tpu_torch import fluid
+
+    cfg, feed = _nmt_parity_setup()
+    main, startup, _ = _nmt_program(cfg, bf16=False)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    init = {p.name: scope.get(p.name).numpy().copy()
+            for p in main.all_parameters()}
+    _child_result(dirname, "nmt.init", **init)
     cl, _, cpu, grads = _nmt_parity_run(cfg, fluid.CPUPlace(), feed, init,
                                         NMT_PARITY_STEPS)
-    controls = {}
-    for eps in NMT_PARITY_CONTROLS:
-        with _planted_dq_fault(eps):
-            controls[eps] = _nmt_parity_run(cfg, _gpu_place(), feed, init,
-                                            NMT_PARITY_STEPS)
     signs = np.random.RandomState(SEED)
     nudged = {n: (a * (1 + NMT_PARITY_NUDGE * signs.choice(
         [-1.0, 1.0], a.shape))).astype(a.dtype) for n, a in init.items()}
     nl, _, ncpu, ngrads = _nmt_parity_run(cfg, fluid.CPUPlace(), feed,
                                           nudged, NMT_PARITY_STEPS)
+    g_rms = {n: _rms(g) for n, g in grads.items()}
+    held = _nmt_held(g_rms)
+    conditioning = dict(
+        nudge=NMT_PARITY_NUDGE, losses=nl,
+        loss_max_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(nl, cl)),
+        first_grad=_grad_rel(ngrads, grads, held),
+        worst_held=_update_readings(init, ncpu, cpu, grads,
+                                    init_gpu=nudged)["worst_held"])
+    _child_result(dirname, "nmt.cpu", __meta__=np.array(json.dumps(dict(
+        losses=cl, g_rms=g_rms, conditioning=conditioning))),
+        **{f"final:{n}": v for n, v in cpu.items()},
+        **{f"grad:{n}": g.astype(np.float32) for n, g in grads.items()})
+
+
+def run_nmt_parity(child):
+    """2 + 2 layers at full width (hidden 1024, 16 heads, FFN 4096,
+    vocabularies 30000), dropout 0, fp32, the default passes (the
+    self-attentions on flash: fp32 K1-K3 on the card, their plain
+    versions on the CPU): a padded bucket-32 batch of 16 sentences
+    (nmt_batches' recipe, seed 1), 2 Adam steps on the card and on a
+    CPUPlace executor (in the CPU reference ``child``) from the same
+    parameters.  Gates (see NMT_PARITY_GRAD_RTOL): losses within
+    TRAIN_LOSS_RTOL; on every leaf above the gradient floor, the first
+    step's gradient within NMT_PARITY_GRAD_RTOL of its norm, and
+    NMT_PARITY_CHECKS on the updates; each control (_planted_dq_fault on
+    the card, see NMT_PARITY_CONTROLS) failing the gates it names; the
+    CPU's conditioning (a run from a start moved by NMT_PARITY_NUDGE of
+    each element) printed beside.  Then the greedy decode
+    (NMT_PARITY_OUT new ids) of the card run's final parameters over the
+    batch's sources, held against the CPU's (_nmt_decode_on_cpu)."""
+    from paddle_tpu_torch import convert, fluid
+
+    cfg, feed = _nmt_parity_setup()
+    init = child.take("nmt.init")
+    gl, _, gpu, ggrads = _nmt_parity_run(cfg, _gpu_place(), feed, init,
+                                         NMT_PARITY_STEPS)
+    controls = {}
+    for eps in NMT_PARITY_CONTROLS:
+        with _planted_dq_fault(eps):
+            controls[eps] = _nmt_parity_run(cfg, _gpu_place(), feed, init,
+                                            NMT_PARITY_STEPS)
+    z = child.take("nmt.cpu")
+    meta = json.loads(str(z["__meta__"]))
+    cl = meta["losses"]
+    cpu = {n: z[f"final:{n}"] for n in init}
+    grads = {n: z[f"grad:{n}"].astype(np.float64) for n in meta["g_rms"]}
 
     def loss_rel(losses):
         return max(abs(a - b) / abs(b) for a, b in zip(losses, cl))
@@ -5995,13 +6426,7 @@ def run_nmt_parity():
     reading = dict(batch=list(feed["src_ids"].shape), losses_gpu=gl,
                    losses_cpu=cl, loss_max_rel_diff=rel, first_grad=grad,
                    grad_rtol=NMT_PARITY_GRAD_RTOL, controls=control,
-                   cpu_conditioning=dict(
-                       nudge=NMT_PARITY_NUDGE, losses=nl,
-                       loss_max_rel_diff=loss_rel(nl),
-                       first_grad=_grad_rel(ngrads, grads, held),
-                       worst_held=_update_readings(
-                           init, ncpu, cpu, grads,
-                           init_gpu=nudged)["worst_held"]))
+                   cpu_conditioning=meta["conditioning"])
     bounds = dict(NMT_PARITY_CHECKS)
     for c in control.values():
         seen = {k: w[k] > bounds[k] for k, w in c["worst_held"].items()
@@ -6026,7 +6451,7 @@ def run_nmt_parity():
                                              ids.tolist()}))
 
 
-def run_nmt_phases(wrappers, say, smi):
+def run_nmt_phases(wrappers, say, smi, child):
     """Phases 24-26 and the card-vs-CPU parity; returns {path: readings}
     for the kernels line."""
     out = {}
@@ -6046,7 +6471,7 @@ def run_nmt_phases(wrappers, say, smi):
     out["nmt_decode"] = run_nmt_decode_path(wrappers)
     say("nmt decode path", {"card": smi, **out["nmt_decode"]})
     torch.cuda.empty_cache()
-    say("nmt parity", run_nmt_parity())
+    say("nmt parity", run_nmt_parity(child))
     return out
 
 
@@ -6064,7 +6489,11 @@ BOOK_FLASH_CASES = (
     ("book_dec_s10_fp32", 8, 4, 10, 16, torch.float32, True, "zero", True))
 # the card against a CPUPlace run of the port from the card's startup
 # state: the first BOOK_PARITY_STEPS losses within BOOK_CPU_RTOL
-BOOK_PARITY_STEPS, BOOK_CPU_RTOL = 3, 1e-4
+BOOK_PARITY_STEPS, BOOK_CPU_RTOL = 2, 1e-4
+# the eager executor's steps a book, in turns with the captured one from
+# one state: the two modes' losses and whole state bit-equal there; the
+# captured one then trains on alone to the book's threshold
+BOOK_EAGER_STEPS = 8
 # the reloaded inference model against clone(for_test=True): the book
 # harness's tolerance (tests/book/book_util.py)
 BOOK_INFER_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -6192,9 +6621,18 @@ def run_book(book, counters, books):
     secs = {m: [] for m in exes}
     launches = {m: {} for m in exes}
     on_card = {m: {} for m in exes}
+    n_eager = min(BOOK_EAGER_STEPS, len(feeds))
     torch.cuda.synchronize()
     for i, feed in enumerate(feeds):
+        if i == n_eager:  # the modes compared; the captured one goes on
+            diff = _scope_diff(scopes["captured"], scopes["eager"])
+            if losses["captured"] != losses["eager"] or diff:
+                raise AssertionError(f"{what}: captured and eager differ "
+                                     f"after {i} steps: losses {losses}, "
+                                     f"state {diff[:5]}")
         for m, exe in exes.items():  # in turns
+            if m == "eager" and i >= n_eager:
+                continue
             before = _snap()
             t0 = time.perf_counter()
             (lv,) = exe.run(main, feed=feed, fetch_list=[loss],
@@ -6206,13 +6644,15 @@ def run_book(book, counters, books):
             losses[m].append(float(lv))
             if i:
                 secs[m].append(dt)
-    _gate_launches(what, launches, on_card, per_step, len(feeds), 1)
+    _gate_launches(what, launches, on_card, per_step,
+                   {"captured": len(feeds), "eager": n_eager}, 1)
     if not all(np.isfinite(losses["captured"])):
         raise AssertionError(f"{what}: losses not finite: {losses}")
-    diff = _scope_diff(scopes["captured"], scopes["eager"])
-    if losses["captured"] != losses["eager"] or diff:
-        raise AssertionError(f"{what}: captured and eager differ: losses "
-                             f"{losses}, state {diff[:5]}")
+    if n_eager == len(feeds):
+        diff = _scope_diff(scopes["captured"], scopes["eager"])
+        if losses["captured"] != losses["eager"] or diff:
+            raise AssertionError(f"{what}: captured and eager differ: "
+                                 f"losses {losses}, state {diff[:5]}")
     off_card = sorted({n for sc in scopes.values() for n in sc.keys()
                        if sc.get(n).device.type != "cuda"})
     if off_card:
@@ -6288,6 +6728,7 @@ def run_book(book, counters, books):
         first_loss=losses["captured"][0], final_loss=losses["captured"][-1],
         tail_loss_mean_5=float(np.mean(losses["captured"][-5:])),
         threshold_met=True, captured_eager_bit_equal=True,
+        eager_steps=n_eager,
         card_vs_cpu_losses=dict(card=card_losses, cpu=cpu_losses,
                                 max_rel=max(cpu_rel)),
         infer_max_abs=float(np.abs(np.asarray(got)
@@ -6337,7 +6778,7 @@ def book_summary(path):
 HEALTH_STEPS = 6
 HEALTH_BAD_STEP = 3
 HEALTH_FAULT = f"nan:grad:step:{HEALTH_BAD_STEP}"
-HEALTH_TIMED_STEPS = 20  # a program, sentinel off and on in turns
+HEALTH_TIMED_STEPS = 10  # a program, sentinel off and on in turns
 HEALTH_PARITY_STEPS = 3  # card vs CPU, the fault on step 2
 # /profilez's top-level keys in the JAX package
 # (paddle_tpu/observability/profiling.py profilez_payload)
@@ -7736,6 +8177,1121 @@ def run_persist_phase(wrappers, say, smi, lane_ids=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 31: ResNet-50 over the data-parallel lane (synced batch-norm
+# statistics, K8's momentum form)
+# ---------------------------------------------------------------------------
+
+RESNET_DP_BATCH = DP_REPLICAS * 32  # b32 a replica
+RESNET_DP_WARMUP, RESNET_DP_STEPS = 2, 4
+# a moving statistic after a step against its rule: each replica folds
+# its batch statistic into the old value (momentum 0.9) and
+# c_allreduce_avg averages the four results, in another order than the
+# rule computed here in float64.  Under the bf16 policy the collective's
+# inputs are cast to bf16 like any compute op's, so from the first step
+# on the statistics are bf16 (the JAX package does the same).  The
+# batch variance comes back from SavedVariance, the inverse standard
+# deviation (fp32).  Held within RESNET_DP_STAT_ULPS ulps of the
+# statistic's own dtype at the terms' size (0.9·|old| + 0.1·max over
+# replicas of |batch|): the fold and the average round a few times; a
+# statistic left unsynced, or synced as a sum, is off by a share of
+# itself
+RESNET_DP_STAT_ULPS = 8
+# card against CPU replicas: ResNet-50 fp32 at 64x64, b4 a replica over
+# 2 replicas, 2 steps each from the card's state, phase 21's gates (the
+# same conditioning: RESNET_PARITY_CHANGE_RTOL on each update); the
+# card's runs of every parity eager (the modes are held bit-equal on
+# the paths themselves)
+RESNET_DP_PARITY_REPLICAS, RESNET_DP_PARITY_STEPS = 2, 2
+
+
+def _resnet_dp_strategy():
+    """Phase 31's build strategy: the quantized all-reduce, the moving
+    statistics synced, the fused update."""
+    from paddle_tpu_torch import fluid
+
+    bs = fluid.BuildStrategy()
+    bs.quant_allreduce = True
+    bs.sync_batch_norm = True
+    bs.fused_update = True
+    return bs
+
+
+def _resnet_dp_compiled(main, loss, places):
+    from paddle_tpu_torch import fluid
+
+    return fluid.CompiledProgram(
+        main, build_strategy=_resnet_dp_strategy()).with_data_parallel(
+            loss_name=loss.name, places=places)
+
+
+def _bn_ops(main):
+    """The program's training batch norms: (Mean, Variance, SavedMean,
+    SavedVariance, momentum, epsilon) each."""
+    return [(op.inputs["Mean"][0], op.inputs["Variance"][0],
+             op.outputs["SavedMean"][0], op.outputs["SavedVariance"][0],
+             float(op.attrs.get("momentum", 0.9)),
+             float(op.attrs.get("epsilon", 1e-5)))
+            for op in main.global_block().ops if op.type == "batch_norm"]
+
+
+def _replicas_differ(runner, scope, names):
+    """The names whose replicas are not bit-identical (compared on the
+    card, one read back for all), or whose scope tensor is not replica
+    0's."""
+    flags, owner = [], []
+    for name in names:
+        vals = runner.replica_values(name)
+        if scope.get(name) is not vals[0]:
+            return [name]
+        for v in vals[1:]:
+            flags.append((v != vals[0]).any())
+            owner.append(name)
+    bad = torch.stack(flags).cpu().numpy()
+    return sorted({n for n, b in zip(owner, bad) if b})
+
+
+def _folded_stats_ulps(bns, prev, scope, saved, n):
+    """Worst distance, in ulps of the statistic's dtype at the terms'
+    size, of each moving statistic in ``scope`` from the mean over ``n``
+    replicas of momentum·old + (1 − momentum)·batch (``saved``: each
+    SavedMean and SavedVariance fetched, the replicas' values
+    concatenated)."""
+    worst = {"mean": 0.0, "variance": 0.0, "dtypes": set()}
+    for mean, var, smean, sinv, mom, eps in bns:
+        bm = np.asarray(saved[smean], np.float64).reshape(n, -1)
+        bv = 1.0 / np.asarray(saved[sinv], np.float64).reshape(n, -1) ** 2 \
+            - eps
+        for kind, name, batch in (("mean", mean, bm), ("variance", var, bv)):
+            old = prev[name].double().cpu().numpy()
+            t = scope.get(name)
+            now = t.double().cpu().numpy()
+            want = (mom * old + (1 - mom) * batch).mean(axis=0)
+            size = mom * np.abs(old) + (1 - mom) * np.abs(batch).max(axis=0)
+            ulp = float(torch.finfo(t.dtype).eps)
+            ulps = float((np.abs(now - want) / (ulp * np.maximum(
+                size, 1e-30))).max())
+            worst[kind] = max(worst[kind], ulps)
+            worst["dtypes"].add(str(t.dtype))
+    worst["dtypes"] = sorted(worst["dtypes"])
+    return worst
+
+
+def run_resnet_dp_path(counters):
+    """Phase 31: phase 21's ResNet-50 (224², the bf16 policy,
+    Momentum(0.1, 0.9)) over [CUDAPlace(0)] x DP_REPLICAS, b32 a replica,
+    quantized all-reduce, sync_batch_norm, the fused update; the captured
+    and the eager executor in turns from one state, RESNET_DP_WARMUP +
+    RESNET_DP_STEPS steps each.  Gated after every step of each mode:
+    finite losses (falling over the run), every replica's parameters,
+    velocities and moving statistics bit-identical and replica 0's the
+    scope's, every moving statistic changed and within
+    RESNET_DP_STAT_ULPS of its rule (_folded_stats_ulps); K8's group
+    form launched as the plan's group steps take it a step, K1-K7 and
+    K8's per-parameter form never (on the card and in the wrappers);
+    the modes' losses and state bit-equal.  One card runs the four
+    replicas: not a scaling figure."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import fused_update as fu
+
+    progs = {m: _image_program() for m, _ in MODES}
+    main, startup, loss, _ = progs["captured"]
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    n = DP_REPLICAS
+    compiled = {m: _resnet_dp_compiled(progs[m][0], progs[m][2],
+                                       [_gpu_place()] * n) for m in exes}
+    feed = _image_feed(RESNET_DP_BATCH, RESNET_IMAGE, RESNET_CLASSES)
+    bns = _bn_ops(main)
+    saved_names = [b[2] for b in bns] + [b[3] for b in bns]
+    stats = _state_of(main, "stats")
+    velocities = _state_of(main, "velocity")
+    params = [p.name for p in main.all_parameters()]
+    saved0 = _counter_value("pt_fused_update_bytes_saved_total")
+    names = list(counters) + ["fused_update_kernel"]
+    losses = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    stat_ulps = {m: [] for m in exes}
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    fu.fused_update_kernel.launches = 0
+    steps = RESNET_DP_WARMUP + RESNET_DP_STEPS
+    for i in range(steps):
+        for m, exe in exes.items():  # in turns
+            prev = {s: scopes[m].get(s).clone() for s in stats}
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            out = exe.run(compiled[m], feed=feed,
+                          fetch_list=[loss] + saved_names, scope=scopes[m])
+            secs[m].append(time.perf_counter() - t0)  # the fetch syncs
+            py, dev = _since(before, names)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            if i >= RESNET_DP_WARMUP:
+                peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+            losses[m].append([float(v) for v in out[0]])
+            differ = _replicas_differ(compiled[m]._dp_runner, scopes[m],
+                                      params + velocities + stats)
+            if differ:
+                raise AssertionError(
+                    f"resnet dp ({m}, step {i}): replicas differ on, or "
+                    f"replica 0 is not the scope's: {differ[:5]}")
+            unmoved = [s for s in stats
+                       if torch.equal(scopes[m].get(s), prev[s])]
+            ulps = _folded_stats_ulps(bns, prev, scopes[m],
+                                      dict(zip(saved_names, out[1:])), n)
+            stat_ulps[m].append(ulps)
+            if unmoved or max(ulps["mean"],
+                              ulps["variance"]) > RESNET_DP_STAT_ULPS:
+                raise AssertionError(
+                    f"resnet dp ({m}, step {i}): moving statistics "
+                    f"unchanged {unmoved[:5]}, or off their rule by "
+                    f"{ulps} ulps (limit {RESNET_DP_STAT_ULPS})")
+    runner = compiled["captured"]._dp_runner
+    prog = runner.program
+    (exec_plan,) = runner._plans.values()
+    cap = _build.load("fused_update",
+                      fu._SIGNATURES).pt_fused_update_group_capacity()
+    groups = exec_plan.group_sizes
+    n_fused = sum(op.type == "fused_momentum_quant_grad"
+                  for op in prog.global_block().ops)
+    if not groups or {t for t, _ in groups} != {"fused_momentum_quant_grad"} \
+            or sum(c for _, c in groups) != n_fused \
+            or n_fused != len(params):
+        raise AssertionError(f"resnet dp: plan groups {groups}, "
+                             f"{n_fused} fused momentum ops for "
+                             f"{len(params)} parameters")
+    group_launches = sum(-(-c * n // cap) for _, c in groups)
+    per = {k: 0 for k in names}
+    per["fused_update"] = group_launches
+    _gate_launches("resnet dp path", launches, on_card, per, steps, 1)
+    means = [float(np.mean(x)) for x in losses["captured"]]
+    if not np.isfinite(losses["captured"]).all() or not means[-1] < means[0]:
+        raise AssertionError(f"resnet dp losses not finite and falling: "
+                             f"{losses['captured']}")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"resnet dp: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
+    n_avg = sum(op.type == "c_allreduce_avg" for op in prog.global_block().ops)
+    if n_avg != 2 * len(bns):
+        raise AssertionError(f"resnet dp: {n_avg} c_allreduce_avg ops for "
+                             f"{len(bns)} batch norms")
+    fwd = cnn_flops_per_image(main)
+    modes = {}
+    for m in exes:
+        timed = np.asarray(secs[m][RESNET_DP_WARMUP:])
+        p50 = float(np.median(timed))
+        modes[m] = dict(
+            images_per_s=RESNET_DP_BATCH * RESNET_DP_STEPS
+            / float(timed.sum()),
+            step_p50_ms=1e3 * p50,
+            step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+            first_step_s=secs[m][0],
+            mfu=3 * fwd * RESNET_DP_BATCH / p50 / BF16_TC_FLOPS,
+            peak_memory_gb=peak[m] / 1e9, launches=launches[m],
+            device_launches=on_card[m],
+            stat_ulps_worst={k: max(u[k] for u in stat_ulps[m])
+                             for k in ("mean", "variance")},
+            stat_dtypes=sorted({d for u in stat_ulps[m]
+                                for d in u["dtypes"]}))
+    (graph,) = [e.graph for e in runner._entries.values()]
+    if exes["captured"].capture and graph is None:
+        raise AssertionError("resnet dp: the captured executor holds no "
+                             "graph")
+    modes["captured"]["capture_s"] = getattr(graph, "capture_seconds", None)
+    modes["captured"]["graph_pools_gb"] = graph_pools_gb()
+    plan = prog._quant_allreduce_plan
+    path = dict(
+        model="models.resnet.build_resnet(depth=50), bench.py:412-452",
+        replicas=n, places=f"[CUDAPlace(0)] x {n}",
+        global_batch=RESNET_DP_BATCH, image=list(RESNET_IMAGE),
+        optimizer=f"Momentum({RESNET_LR}, {RESNET_MOMENTUM})",
+        dtype_policy="bf16", build_strategy=dict(
+            quant_allreduce=True, sync_batch_norm=True, fused_update=True),
+        steps=RESNET_DP_STEPS, warmup_steps=RESNET_DP_WARMUP,
+        losses=losses["captured"], plan_groups=groups, group_table=cap,
+        group_launches_per_step=group_launches,
+        fused_momentum_quant_grad_ops=n_fused, batch_norms=len(bns),
+        c_allreduce_avg_ops=n_avg,
+        stat_ulps_limit=RESNET_DP_STAT_ULPS,
+        buckets=[[b["elements"], b["algo"], b["fused_update"]]
+                 for b in plan["buckets"]],
+        modeled_wire_bytes_per_step=prog._collective_bytes_per_step,
+        fused_update_bytes_saved_per_step=prog._fused_update_bytes_saved,
+        pt_fused_update_bytes_saved_total=_counter_value(
+            "pt_fused_update_bytes_saved_total") - saved0,
+        images_per_s_note=("global images a step over the host-clock step; "
+                           "one card runs the four replicas, so this is "
+                           "not a scaling figure"),
+        replicas_bit_identical=True, captured_eager_bit_equal=True,
+        moving_stats_change_each_step=True, modes=modes,
+        launches=_summed(launches), device_launches=_summed(on_card))
+    state = dict(exes=exes, compiled=compiled, scopes=scopes, feed=feed,
+                 loss=loss, fetch=[loss] + saved_names)
+    return state, path
+
+
+def run_resnet_dp_parity():
+    """ResNet-50 fp32 at RESNET_PARITY_IMAGE over
+    RESNET_DP_PARITY_REPLICAS replicas of RESNET_PARITY_BATCH images
+    each, phase 31's build strategy, RESNET_DP_PARITY_STEPS Momentum steps
+    at RESNET_PARITY_LR on the card, CPU replicas taking each step from
+    the card's state (parameters, velocities, moving statistics):
+    run_resnet_parity's gates, each replica's loss within
+    RESNET_PARITY_LOSS_RTOL and each update within
+    RESNET_PARITY_CHANGE_RTOL of the CPU's, the CPU's own conditioning
+    (the same step with the input scaled by 1 + 1e-6) beside it."""
+    from paddle_tpu_torch import convert, fluid
+
+    n = RESNET_DP_PARITY_REPLICAS
+    feed = _image_feed(n * RESNET_PARITY_BATCH, RESNET_PARITY_IMAGE,
+                       RESNET_CLASSES, seed=1)
+    nudged = dict(feed, img=feed["img"] * np.float32(1 + 1e-6))
+    runs = {}
+    for key, place in (("card", _gpu_place()), ("cpu", fluid.CPUPlace()),
+                       ("nudged", fluid.CPUPlace())):
+        main, startup, loss, _ = _image_program(
+            image=RESNET_PARITY_IMAGE, lr=RESNET_PARITY_LR, bf16=False)
+        scope = fluid.Scope()
+        with capture_mode(False):
+            exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        runs[key] = (main, loss, scope, exe,
+                     _resnet_dp_compiled(main, loss, [place] * n))
+    main, _, gpu = runs["card"][:3]
+    names = sorted({p.name for p in main.all_parameters()}
+                   | set(_state_of(main, "stats")))
+    persist = sorted(nm for nm, v in main.global_block().vars.items()
+                     if v.persistable and gpu.get(nm) is not None)
+
+    def rel(x, y, floor):
+        return float(np.linalg.norm(x - y) / max(np.linalg.norm(y), floor,
+                                                 1e-30))
+
+    losses = {"card": [], "cpu": []}
+    worst, nudge = ("", 0.0), []
+    for _ in range(RESNET_DP_PARITY_STEPS):
+        start = {nm: np.array(gpu.get(nm).cpu()) for nm in persist}
+        for key in ("cpu", "nudged"):
+            convert.load_params(runs[key][2], start, fluid.CPUPlace(),
+                                program=runs[key][0])
+        for key in ("card", "cpu", "nudged"):
+            m_, loss, scope, exe, cp = runs[key]
+            out = exe.run(cp, feed=nudged if key == "nudged" else feed,
+                          fetch_list=[loss], scope=scope)[0]
+            if key in losses:
+                losses[key].append([float(v) for v in out])
+        cpu, ncpu = runs["cpu"][2], runs["nudged"][2]
+        for nm in names:
+            g, c = gpu.get(nm).cpu().numpy(), cpu.get(nm).numpy()
+            floor = 1e-6 * np.linalg.norm(start[nm])
+            worst = max(worst, (nm, rel(g - start[nm], c - start[nm],
+                                        floor)), key=lambda t: t[1])
+            nudge.append(rel(ncpu.get(nm).numpy() - start[nm],
+                             c - start[nm], floor))
+    a, b = np.asarray(losses["card"]), np.asarray(losses["cpu"])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    if not (np.all(np.isfinite(a)) and a[-1].mean() < a[0].mean()
+            and loss_rel <= RESNET_PARITY_LOSS_RTOL
+            and worst[1] <= RESNET_PARITY_CHANGE_RTOL):
+        raise AssertionError(f"resnet dp parity: losses {losses} (max rel "
+                             f"{loss_rel}), worst update {worst}")
+    return dict(model="resnet50 fp32", replicas=n,
+                batch_per_replica=RESNET_PARITY_BATCH,
+                image=list(RESNET_PARITY_IMAGE), lr=RESNET_PARITY_LR,
+                steps=RESNET_DP_PARITY_STEPS,
+                each_step_from_the_cards_state=True, losses=losses,
+                loss_max_rel=loss_rel, loss_rtol=RESNET_PARITY_LOSS_RTOL,
+                change_worst=list(worst),
+                change_rtol=RESNET_PARITY_CHANGE_RTOL,
+                **{"cpu_update_vs_input_1e-6": dict(
+                    median=float(np.median(nudge)),
+                    max=float(np.max(nudge)))})
+
+
+# ---------------------------------------------------------------------------
+# phase 32: AMP decorate on the BERT-base step, bf16 and fp16
+# ---------------------------------------------------------------------------
+
+AMP_ARMS = {"bf16": {},
+            "fp16": dict(dest_dtype="float16", init_loss_scaling=2.0 ** 15,
+                         use_dynamic_loss_scaling=True, incr_every_n_steps=4,
+                         decr_every_n_nan_or_inf=1)}
+AMP_WARMUP, AMP_STEPS = 2, 4
+
+
+def amp_pass_sites(cfg):
+    """The JAX package's graph-pass sites on the decorated BERT train
+    step: BERT builds flash_attention itself, the AMP rewrite leaves each
+    FFN's and the MLM head's bias + GeLU to fuse, no fused loss
+    (tests/test_torch_port_amp.py holds these to the JAX package's
+    report on BERT-base)."""
+    return {"fuse_attention": 0, "fuse_bias_act_dropout": cfg.num_layers + 1,
+            "fuse_softmax_cross_entropy": 0}
+
+# card against CPU, 2 layers at full width, dropout 0, b2 s64, 2 steps
+# from one state, at each batch of AMP_PARITY_SEEDS: each arm's losses
+# (largest relative difference), the first gradient on every leaf above
+# the gradient floor (its worst leaf's difference over its norm) and
+# the updates (the worst held leaf's largest and mean absolute
+# difference, _update_readings) within AMP_PARITY_LIMITS; each limit
+# lies between the card's readings and those of AMP_CONTROLS, card runs
+# with K4's result rounded wrong, each of which must be over one of
+# them.  On an H100 (700 W), seeds 1 and 2: bf16 read losses 1.55e-4 and
+# 1.51e-4, first gradients 5.76e-3 and 6.06e-3, its control (toward
+# zero) 3.68e-4 / 7.71e-3 and 1.75e-4 / 8.08e-3, so the gradient's limit
+# catches it (the losses do not on seed 2); fp16 read losses 1.20e-5
+# and 1.42e-5, first gradients 7.31e-4 and 7.75e-4, toward zero
+# 3.65e-5 / 9.43e-4 and 3.03e-5 / 9.45e-4 (the loss limit catches it),
+# through 8 bits 2.00e-5 / 2.14e-3 and 9.06e-6 / 2.03e-3 (the
+# gradient's); the updates read at most 3.94e-4 (max, two Adam steps:
+# a sign flip moves 2 lr a step) and 1.25e-6 (mean, bf16) and 4.16e-7
+# (fp16) and separate no control.  Each run repeats its readings
+# (seeded inputs, deterministic kernels on both devices)
+AMP_PARITY_BATCH, AMP_PARITY_SEQ, AMP_PARITY_STEPS = 2, 64, 2
+AMP_PARITY_SEEDS = {"bf16": (1, 2), "fp16": (1, 2)}
+AMP_PARITY_LIMITS = {
+    "bf16": dict(loss=2e-4, first_grad=6.8e-3, update_max_abs=4.5e-4,
+                 update_mean_abs=2e-6),
+    "fp16": dict(loss=2.1e-5, first_grad=1.25e-3, update_max_abs=4.5e-4,
+                 update_mean_abs=6e-7)}
+# the planted faults: K4's fp32 result rounded toward zero in the
+# output dtype (one unit in the last place where nearest-even went
+# away from zero), or to bf16's 8 bits and then to fp16
+AMP_CONTROLS = {"bf16": ("toward_zero",),
+                "fp16": ("toward_zero", "to_8_bits")}
+
+
+def _amp_program(cfg, arm):
+    """The BERT train step under decorate(Adam(TRAIN_LR), **AMP_ARMS[arm])
+    (no bf16 policy); returns (main, startup, loss, the decorated
+    optimizer, the found-inf var's name)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib import mixed_precision as mp
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        dec = mp.decorate(fluid.optimizer.Adam(learning_rate=TRAIN_LR),
+                          **AMP_ARMS[arm])
+        dec.minimize(loss, startup_program=startup)
+    startup.random_seed = SEED
+    (found,) = [op.outputs["FoundInfinite"][0]
+                for op in main.global_block().ops
+                if op.type == "check_finite_and_unscale"]
+    return main, startup, loss, dec, found
+
+
+def amp_scale_rule(found, arm):
+    """The loss scale after each step by update_loss_scaling's rule over
+    the steps' found-inf flags (fp32 arithmetic, as the op's)."""
+    kw = AMP_ARMS[arm]
+    s = np.float32(kw.get("init_loss_scaling", 1.0))
+    if not kw.get("use_dynamic_loss_scaling"):
+        return [float(s)] * len(found)
+    good = bad = 0
+    out = []
+    for f in found:
+        good, bad = (0, bad + 1) if f else (good + 1, 0)
+        if bad >= kw["decr_every_n_nan_or_inf"]:
+            s = max(np.float32(s * np.float32(0.8)), np.float32(1.0))
+            good = bad = 0
+        elif good >= kw["incr_every_n_steps"]:
+            s = np.float32(s * np.float32(2.0))
+            good = 0
+        out.append(float(s))
+    return out
+
+
+@contextlib.contextmanager
+def _k4_dtype_recorder(seen):
+    """Records (x dtype, bias dtype) of each K4 call and the q dtype of
+    each K1 call into ``seen`` while the block runs (the ops look both
+    up in their modules at each call)."""
+    from paddle_tpu_torch.kernels import fused_bias_act as fba
+    from paddle_tpu_torch.kernels.primitives import flash
+
+    k4, k1 = fba.fused_bias_gelu, flash.flash_fwd
+
+    def rec4(x, bias, *a, **kw):
+        seen.setdefault("fused_bias_act", set()).add((str(x.dtype),
+                                                      str(bias.dtype)))
+        return k4(x, bias, *a, **kw)
+
+    def rec1(q, *a, **kw):
+        seen.setdefault("flash_fwd", set()).add(str(q.dtype))
+        return k1(q, *a, **kw)
+
+    rec4.launches = rec1.launches = 0
+    fba.fused_bias_gelu, flash.flash_fwd = rec4, rec1
+    try:
+        yield seen
+    finally:
+        fba.fused_bias_gelu, flash.flash_fwd = k4, k1
+
+
+def run_amp_arm(counters, arm):
+    """Phase 32, one arm: BERT-base b128 s128 (attention dropout 0,
+    hidden dropout 0.1, the default passes) under decorate, the captured
+    and the eager executor in turns from one state, AMP_WARMUP +
+    AMP_STEPS steps each.  Gated: finite losses; the loss scale after
+    every step equal to amp_scale_rule over the card's own found-inf
+    flags; the modes' losses, flags and state bit-equal; the pass report
+    amp_pass_sites; K1 24, K2 12, K3 12, K4 13 a step on the card and in
+    the wrappers; K1 fed fp32 and K4 the arm's dtype with an fp32 bias
+    (one more eager step, recorded)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                               attn_dropout=0.0)
+    main, startup, loss, dec, found = _amp_program(cfg, arm)
+    scale_name = dec.get_loss_scaling().name
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    feed = bert.make_fake_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    steps = AMP_WARMUP + AMP_STEPS
+    losses = {m: [] for m in exes}
+    founds = {m: [] for m in exes}
+    scales = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    for i in range(steps):
+        for m, exe in exes.items():
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            lv, fv = exe.run(main, feed=feed, fetch_list=[loss, found],
+                             scope=scopes[m])
+            secs[m].append(time.perf_counter() - t0)
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            if i >= AMP_WARMUP:
+                peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+            losses[m].append(float(lv))
+            founds[m].append(bool(np.asarray(fv).reshape(-1)[0]))
+            scales[m].append(float(scopes[m].get(scale_name).reshape(-1)[0]))
+    what = f"amp {arm}"
+    _gate_launches(what, launches, on_card, _train_step_launches(cfg),
+                   steps, 1)
+    want_scales = amp_scale_rule(founds["captured"], arm)
+    if not all(np.isfinite(losses["captured"])) \
+            or scales["captured"] != want_scales:
+        raise AssertionError(f"{what}: losses {losses['captured']}, found "
+                             f"inf {founds['captured']}, scales "
+                             f"{scales['captured']} (the rule: "
+                             f"{want_scales})")
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if (losses["captured"], founds["captured"], scales["captured"]) != (
+            losses["eager"], founds["eager"], scales["eager"]) or diff:
+        raise AssertionError(f"{what}: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
+    sites = {e["pass"]: e["sites"] for e in main._pass_report}
+    if sites != amp_pass_sites(cfg):
+        raise AssertionError(f"{what}: pass report {sites}, expected "
+                             f"{amp_pass_sites(cfg)}")
+    seen = {}
+    with _k4_dtype_recorder(seen):
+        exes["eager"].run(main, feed=feed, fetch_list=[loss],
+                          scope=_clone_scope(scopes["eager"]))
+    dest = "torch.bfloat16" if arm == "bf16" else "torch.float16"
+    if seen != {"fused_bias_act": {(dest, "torch.float32")},
+                "flash_fwd": {"torch.float32"}}:
+        raise AssertionError(f"{what}: kernel input dtypes {seen}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = bert.train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    modes = {}
+    for m in exes:
+        timed = np.asarray(secs[m][AMP_WARMUP:])
+        modes[m] = dict(
+            tokens_per_s=tokens * AMP_STEPS / float(timed.sum()),
+            step_p50_ms=1e3 * float(np.percentile(timed, 50)),
+            step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+            first_step_s=secs[m][0],
+            mfu=flops / float(np.median(timed)) / BF16_TC_FLOPS,
+            peak_memory_gb=peak[m] / 1e9, launches=launches[m],
+            device_launches=on_card[m])
+    modes["captured"]["capture_s"] = _capture_seconds(exes["captured"], main)
+    modes["captured"]["graph_pools_gb"] = graph_pools_gb()
+    path = dict(model="BertConfig.base(vocab_size=30528)",
+                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                amp=dict(AMP_ARMS[arm], dest_dtype=dest.split(".")[1]),
+                steps=AMP_STEPS, warmup_steps=AMP_WARMUP,
+                losses=losses["captured"], found_inf=founds["captured"],
+                loss_scales=scales["captured"], pass_sites=sites,
+                kernel_input_dtypes={k: sorted(v) for k, v in seen.items()},
+                captured_eager_bit_equal=True, model_flops_per_step=flops,
+                mfu_peak_flops=BF16_TC_FLOPS, modes=modes,
+                launches=_summed(launches), device_launches=_summed(on_card))
+    state = dict(exes=exes, main=main, scopes=scopes, feed=feed, loss=loss,
+                 fetch=[loss, found])
+    return state, path
+
+
+@contextlib.contextmanager
+def _planted_k4_rounding(how):
+    """A control of phase 32's parity: K4's result computed in fp32 (its
+    plain version) and rounded wrong into its dtype: ``toward_zero``
+    (every inexact value one step toward zero where nearest-even went
+    away from it) or ``to_8_bits`` (through bf16 first).  The op looks
+    ``fused_bias_gelu`` up in its module at each call."""
+    from paddle_tpu_torch.kernels import fused_bias_act as fba
+
+    kernel = fba.fused_bias_gelu
+
+    def planted(x, bias, mask=None, scale=1.0, approximate=False,
+                force=None):
+        y = fba.fused_bias_gelu_reference(x.float(), bias, mask, scale,
+                                          approximate)
+        if how == "to_8_bits":
+            return y.to(torch.bfloat16).to(x.dtype)
+        r = y.to(x.dtype)
+        # one step toward zero: the magnitude's bits less one
+        down = (r.view(torch.int16) - 1).view(x.dtype)
+        return torch.where(r.float().abs() > y.abs(), down, r)
+
+    planted.launches = 0
+    fba.fused_bias_gelu = planted
+    try:
+        yield
+    finally:
+        fba.fused_bias_gelu = kernel
+
+
+def _amp_parity_run(cfg, arm, place, feed, init, plant_inf=False):
+    """AMP_PARITY_STEPS steps (and with ``plant_inf`` one more on a batch
+    whose input_mask holds an inf) of the 2-layer AMP program on
+    ``place`` from ``init`` (None: the startup's every persistable,
+    returned).  Returns the losses, ``init``, the parameters after
+    AMP_PARITY_STEPS steps (``final``) and after the run (``last``),
+    each parameter's first-step gradient (unscaled), the found-inf flags
+    and the loss scales."""
+    from paddle_tpu_torch import convert, fluid
+
+    main, startup, loss, dec, found = _amp_program(cfg, arm)
+    scope = fluid.Scope()
+    with capture_mode(False):
+        exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    persist = [n for n, v in main.global_block().vars.items()
+               if v.persistable and scope.get(n) is not None]
+    if init is None:
+        init = {n: scope.get(n).cpu().numpy().copy() for n in persist}
+    else:
+        convert.load_params(scope, init, place, program=main)
+    grads = dict(main._params_grads)
+    feeds = [feed] * AMP_PARITY_STEPS
+    if plant_inf:
+        bad = {k: v.copy() for k, v in feed.items()}
+        bad["input_mask"][0, 0] = np.inf
+        feeds.append(bad)
+    losses, first, scales, flags, final = [], None, [], [], None
+    planted = None
+    for i, f in enumerate(feeds):
+        if i == AMP_PARITY_STEPS:
+            final = {p: scope.get(p).float().cpu().numpy().astype(np.float64)
+                     for p in grads}
+        fetch = [loss, found] + (list(grads.values())
+                                 if i in (0, AMP_PARITY_STEPS) else [])
+        out = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+        if i == AMP_PARITY_STEPS:  # the gated grads of the planted step
+            planted = {p: np.asarray(g, np.float64)
+                       for p, g in zip(grads, out[2:])}
+        losses.append(float(out[0]))
+        flags.append(bool(np.asarray(out[1]).reshape(-1)[0]))
+        scales.append(float(scope.get(dec.get_loss_scaling().name)
+                            .reshape(-1)[0]))
+        if i == 0:
+            first = {p: np.asarray(g, np.float64)
+                     for p, g in zip(grads, out[2:])}
+    last = {p: scope.get(p).float().cpu().numpy().astype(np.float64)
+            for p in grads}
+    return dict(losses=losses, init=init, final=final or last, last=last,
+                first=first, scales=scales, found_inf=flags,
+                planted_grads=planted)
+
+
+def _amp_parity_setup(seed=1):
+    """The parity's 2-layer configuration and its batch of ``seed``."""
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base(vocab_size=30528, num_layers=2,
+                               use_flash_attention=True, attn_dropout=0.0,
+                               hidden_dropout=0.0)
+    return cfg, bert.make_fake_batch(cfg, AMP_PARITY_BATCH, AMP_PARITY_SEQ,
+                                     seed=seed)
+
+
+def _save_run(path, run):
+    """One _amp_parity_run result as an npz file."""
+    arrays = {f"{k}:{n}": v for k in ("init", "final", "last", "first",
+                                      "planted_grads")
+              for n, v in (run.get(k) or {}).items()}
+    lists = {k: run[k] for k in ("losses", "scales", "found_inf")}
+    np.savez(path, __lists__=np.array(json.dumps(lists)), **arrays)
+
+
+def _load_run(z):
+    """An _amp_parity_run result from its arrays (_save_run)."""
+    run = json.loads(str(z["__lists__"]))
+    for k in ("init", "final", "last", "first", "planted_grads"):
+        run[k] = {n.split(":", 1)[1]: v for n, v in z.items()
+                  if n.startswith(k + ":")} or None
+    return run
+
+
+def amp_cpu_child(dirname):
+    """The CPU reference child's part for phase 32: for each arm, the
+    starting state (every persistable of the 2-layer AMP program after
+    its startup on the CPU) into ``amp.<arm>.init``, and its parity run
+    on the CPU at each of AMP_PARITY_SEEDS[arm] (the fp16 arm's first
+    with the planted inf) into ``amp.<arm>.<seed>.cpu``."""
+    from paddle_tpu_torch import fluid
+
+    for arm in AMP_ARMS:
+        run = None
+        for seed in AMP_PARITY_SEEDS[arm]:
+            cfg, feed = _amp_parity_setup(seed)
+            run = _amp_parity_run(cfg, arm, fluid.CPUPlace(), feed,
+                                  run and run["init"],
+                                  arm == "fp16" and run is None)
+            if seed == AMP_PARITY_SEEDS[arm][0]:
+                _child_result(dirname, f"amp.{arm}.init", **run["init"])
+            _save_run(os.path.join(dirname, f"amp.{arm}.{seed}.cpu.npz"),
+                      run)
+
+
+# ---------------------------------------------------------------------------
+# the CPU reference child: the CPU runs of phases 18's, 26's and 32's
+# parities, made in one child process at a lower priority that sees no
+# card, beside the builds and phase 3; the script waits for it to end
+# before phase 4's host readings
+# ---------------------------------------------------------------------------
+
+_CPU_CHILD = r"""
+import os, sys, time
+import torch
+import chip_smoke as cs
+os.nice(10)  # the parent's work first: the child takes idle cores
+torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
+for part in sys.argv[2:]:
+    t0 = time.perf_counter()
+    cs.CPU_CHILD_PARTS[part](sys.argv[1])
+    print(f"CPU_CHILD_PART {part} {time.perf_counter() - t0:.3f}", flush=True)
+print("CPU_CHILD_OK", flush=True)
+"""
+CPU_CHILD_PARTS = {"gpt": gpt_cpu_child, "nmt": nmt_cpu_child,
+                   "amp": amp_cpu_child}
+
+
+def _child_result(dirname, name, **arrays):
+    """One result of the child: ``<dir>/<name>.npz``."""
+    np.savez(os.path.join(dirname, name + ".npz"), **arrays)
+
+
+class CpuChild:
+    """The CPU reference child of ``parts`` (keys of CPU_CHILD_PARTS),
+    started on a temporary directory with CUDA_VISIBLE_DEVICES empty
+    (its readings compute on the CPU: _f64).  ``join()`` waits for it to
+    end and returns its readings; ``take(name)`` then returns the arrays
+    of its result ``name``; ``close()`` ends it and removes the
+    directory."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(PYTHONPATH=here, CUDA_VISIBLE_DEVICES="")
+        self.log = open(os.path.join(self.dir, "child.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _CPU_CHILD, self.dir, *self.parts],
+            cwd=here, env=env, stdout=self.log, stderr=subprocess.STDOUT,
+            text=True)
+        self.readings = None
+
+    def join(self, timeout=900):
+        """Wait for the child's end (raises if it failed); returns its
+        seconds, each part's, and the seconds waited here."""
+        if self.readings is None:
+            t0 = time.perf_counter()
+            try:
+                rc = self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                rc = None
+            waited = time.perf_counter() - t0
+            self.log.flush()
+            with open(self.log.name) as f:
+                text = f.read()
+            if rc != 0 or "CPU_CHILD_OK" not in text:
+                raise AssertionError(f"the CPU reference child failed (rc "
+                                     f"{rc}): {text[-3000:]}")
+            parts = {ln.split()[1]: float(ln.split()[2])
+                     for ln in text.splitlines()
+                     if ln.startswith("CPU_CHILD_PART ")}
+            self.readings = dict(parts=parts, waited_s=waited,
+                                 seconds=time.perf_counter() - self.t0)
+        return self.readings
+
+    def take(self, name):
+        """The arrays of the child's result ``name``; its file removed."""
+        self.join()
+        path = os.path.join(self.dir, name + ".npz")
+        with np.load(path) as z:
+            out = {k: z[k] for k in z.files}
+        os.remove(path)
+        return out
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _amp_parity_reading(arm, init, cpu, card, controls):
+    """One seed's readings of phase 32's parity: the card run (``card``)
+    and each control's against the CPU's (``cpu``), all from ``init``:
+    the losses' largest relative difference, the first gradient's worst
+    held leaf (_grad_rel) and the updates' worst held leaves
+    (_update_readings)."""
+    n = AMP_PARITY_STEPS
+
+    def loss_rel(r):
+        return max(abs(a - b) / abs(b)
+                   for a, b in zip(r["losses"][:n], cpu["losses"][:n]))
+
+    start = {p: init[p].astype(np.float64) for p in cpu["final"]}
+    readings = _update_readings(start, card["final"], cpu["final"],
+                                cpu["first"])
+    held = [p for p in cpu["first"] if p not in readings["floor_leaves"]]
+
+    def of(r, worst):
+        return dict(loss_max_rel_diff=loss_rel(r),
+                    first_grad=_grad_rel(r["first"], cpu["first"], held),
+                    update_max_abs=worst["max_abs"]["max_abs"],
+                    update_mean_abs=worst["mean_abs"]["mean_abs"])
+
+    return dict(
+        losses_gpu=card["losses"], losses_cpu=cpu["losses"],
+        **of(card, readings["worst_held"]), updates=readings["worst_held"],
+        controls={how: of(r, _update_readings(start, r["final"],
+                                              cpu["final"], cpu["first"])
+                          ["worst_held"])
+                  for how, r in controls.items()})
+
+
+def _amp_parity_over(arm, r):
+    """The limits of AMP_PARITY_LIMITS[arm] that reading ``r``
+    (_amp_parity_reading's card or control) is over."""
+    lim = AMP_PARITY_LIMITS[arm]
+    got = dict(loss=r["loss_max_rel_diff"], first_grad=r["first_grad"]["rel"],
+               update_max_abs=r["update_max_abs"],
+               update_mean_abs=r["update_mean_abs"])
+    return sorted(k for k, v in got.items() if not v <= lim[k])
+
+
+def _amp_parity_gate(arm, reading):
+    """Phase 32's parity gates on one arm's ``reading``: at every seed
+    the card run within every limit and each control over one."""
+    for seed, r in reading["seeds"].items():
+        over = _amp_parity_over(arm, r)
+        if over:
+            raise AssertionError(f"amp parity {arm}, seed {seed}: over "
+                                 f"{over}: {reading}")
+        for how, c in r["controls"].items():
+            if not _amp_parity_over(arm, c):
+                raise AssertionError(f"amp parity {arm}, seed {seed}: the "
+                                     f"control {how} is within every "
+                                     f"limit: {reading}")
+
+
+def run_amp_parity(arm, child):
+    """Phase 32's card against CPU for one arm: 2 layers at full width,
+    dropout 0, AMP_PARITY_BATCH x AMP_PARITY_SEQ, AMP_PARITY_STEPS steps
+    from one state (the CPU's startup) at each of AMP_PARITY_SEEDS[arm]'s
+    batches (the CPU's runs, its K4 the plain version, made by the CPU
+    reference ``child``).  Gates (_amp_parity_gate): the losses, every
+    held leaf's first gradient and the updates' worst held leaves within
+    AMP_PARITY_LIMITS[arm], and each AMP_CONTROLS[arm] fault (on the
+    card) over one of them.  fp16 arm: one more step on its first
+    batch with an inf in input_mask, on both: found-inf on both, the
+    scale cut to 0.8 of itself on both, and the parameters as the rule
+    leaves them on each device (_found_inf_rule: the gated grads 0 or
+    NaN, as the JAX package's check_finite_and_unscale multiplies an inf
+    or NaN element to NaN, and each parameter NaN exactly where its grad
+    is).  The two devices' NaN elements may differ: where an inf bias
+    makes a NaN is each kernel's own."""
+    init = child.take(f"amp.{arm}.init")
+    n = AMP_PARITY_STEPS
+    seeds, planted = {}, None
+    for seed in AMP_PARITY_SEEDS[arm]:
+        cfg, feed = _amp_parity_setup(seed)
+        plant = arm == "fp16" and seed == AMP_PARITY_SEEDS[arm][0]
+        card = _amp_parity_run(cfg, arm, _gpu_place(), feed, init, plant)
+        cpu = _load_run(child.take(f"amp.{arm}.{seed}.cpu"))
+        controls = {}
+        for how in AMP_CONTROLS[arm]:
+            with _planted_k4_rounding(how):
+                controls[how] = _amp_parity_run(cfg, arm, _gpu_place(),
+                                                feed, init)
+        seeds[seed] = _amp_parity_reading(arm, init, cpu, card, controls)
+        seeds[seed].update(scales_gpu=card["scales"],
+                           scales_cpu=cpu["scales"],
+                           found_inf_gpu=card["found_inf"],
+                           found_inf_cpu=cpu["found_inf"])
+        if plant:
+            want = float(np.float32(card["scales"][n - 1])
+                         * np.float32(0.8))
+            rule = {k: _found_inf_rule(r) for k, r in (("card", card),
+                                                        ("cpu", cpu))}
+            planted = dict(scale_after=want, **rule)
+            if not (card["found_inf"][n] and cpu["found_inf"][n]
+                    and card["scales"][n] == cpu["scales"][n] == want
+                    and all(r["holds"] for r in rule.values())):
+                raise AssertionError(f"amp parity {arm}, the planted inf: "
+                                     f"{planted}, {seeds[seed]}")
+    reading = dict(arm=arm, batch=AMP_PARITY_BATCH, seq_len=AMP_PARITY_SEQ,
+                   steps=n, limits=AMP_PARITY_LIMITS[arm], seeds=seeds)
+    if planted is not None:
+        reading["planted_inf"] = planted
+    _amp_parity_gate(arm, reading)
+    return reading
+
+
+def _found_inf_rule(run):
+    """What check_finite_and_unscale and Adam leave on a found-inf step,
+    as the JAX package's rule has it: every grad element multiplied by
+    zero (0, or NaN where it was inf or NaN), and each parameter NaN
+    exactly where its grad is (the others moved by Adam's decayed
+    moments).  Returns the counts and whether the rule holds."""
+    grads, params = run["planted_grads"], run["last"]
+    bad_grad = sum(int(((g != 0) & ~np.isnan(g)).sum())
+                   for g in grads.values())
+    mismatch = sum(int((np.isnan(params[p]) != np.isnan(g)).sum())
+                   for p, g in grads.items())
+    nan = sum(int(np.isnan(g).sum()) for g in grads.values())
+    return dict(holds=bad_grad == 0 and mismatch == 0,
+                nonzero_finite_grad_elements=bad_grad,
+                nan_mask_mismatches=mismatch, nan_grad_elements=nan,
+                elements=sum(g.size for g in grads.values()))
+
+
+def run_amp_path(counters, say, smi, child, train=None):
+    """Phase 32: both arms (run_amp_arm) with a profiled step of each arm
+    and mode, then each arm's parity (run_amp_parity, its CPU runs the
+    CPU reference ``child``'s); beside phase 4's bf16-policy step where
+    it ran in the same call (``train``)."""
+    out = {}
+    for arm in AMP_ARMS:
+        torch.cuda.empty_cache()
+        state, path = run_amp_arm(counters, arm)
+        say(f"amp {arm} path", {"card": smi, **path})
+        say(f"amp {arm} step", {"card": smi, **profile_modes(state)})
+        del state
+        out[arm] = path
+    torch.cuda.empty_cache()
+    for arm in AMP_ARMS:
+        out[arm]["parity"] = run_amp_parity(arm, child)
+        say(f"amp {arm} parity", out[arm]["parity"])
+    out["launches"] = _summed({a: out[a]["launches"] for a in AMP_ARMS})
+    out["device_launches"] = _summed({a: out[a]["device_launches"]
+                                      for a in AMP_ARMS})
+    say("amp summary", {
+        "card": smi,
+        **{f"{a}_{m}_p50_ms": out[a]["modes"][m]["step_p50_ms"]
+           for a in AMP_ARMS for m in ("captured", "eager")},
+        **{f"{a}_captured_mfu": out[a]["modes"]["captured"]["mfu"]
+           for a in AMP_ARMS},
+        "bf16_policy_step_p50_ms": None if train is None else {
+            m: train["modes"][m]["step_p50_ms"] for m in train["modes"]},
+        "fp16_loss_scales": out["fp16"]["loss_scales"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 33: the MoE FFN on the BERT-base step
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS, MOE_TOP_K = 4, 2  # tests/test_moe.py:61
+MOE_TURN_STEPS, MOE_CAPTURED_STEPS = 2, 4
+MOE_PARITY_BATCH, MOE_PARITY_STEPS = 4, 3
+
+
+def moe_train_flops_per_step(cfg, batch, seq):
+    """The FLOPs the MoE step really computes: models/bert.py
+    train_flops_per_step (a dense FFN, 4·b·s·h·i a layer forward) plus,
+    a layer, the dense dispatch's other E − 1 experts' FFNs, the gate
+    (2·b·s·h·E) and the combine (2·b·s·h·E), x 3 for the backward."""
+    from paddle_tpu_torch.models import bert
+
+    b, s, h, i = batch, seq, cfg.hidden_size, cfg.intermediate_size
+    e = cfg.moe_experts
+    extra = (e - 1) * 4 * b * s * h * i + 4 * b * s * h * e
+    return bert.train_flops_per_step(cfg, b, s) + 3.0 * cfg.num_layers * extra
+
+
+def _moe_config(**kw):
+    from paddle_tpu_torch.models import bert
+
+    return bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                                attn_dropout=0.0, moe_experts=MOE_EXPERTS,
+                                moe_top_k=MOE_TOP_K, **kw)
+
+
+def run_moe_path(counters):
+    """Phase 33: BERT-base with the MoE FFN (MOE_EXPERTS experts, top
+    MOE_TOP_K), b128 s128, the bf16 policy, Adam(1e-4), attention
+    dropout 0: the captured and the eager executor in turns for
+    MOE_TURN_STEPS steps from one state (losses and state bit-equal),
+    then the captured one alone for MOE_CAPTURED_STEPS more (timed).
+    Losses finite and falling; K1 24, K2 12, K3 12 and K4 1 (the MLM
+    head: the MoE FFN has no bias-GeLU site) a step on the card, exactly,
+    and in the wrappers; step p50, MFU from moe_train_flops_per_step,
+    peak memory and the graph pool."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = _moe_config()
+    main, startup, loss = _bert_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    feed = bert.make_fake_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    losses = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = {m: 0 for m in exes}
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    order = [(m, i) for i in range(MOE_TURN_STEPS) for m in exes] + [
+        ("captured", MOE_TURN_STEPS + i) for i in range(MOE_CAPTURED_STEPS)]
+    diff = None
+    for m, i in order:
+        if i == MOE_TURN_STEPS and diff is None:
+            diff = _scope_diff(scopes["captured"], scopes["eager"])
+        torch.cuda.reset_peak_memory_stats()
+        before = _snap()
+        t0 = time.perf_counter()
+        (lv,) = exes[m].run(main, feed=feed, fetch_list=[loss],
+                            scope=scopes[m])
+        secs[m].append(time.perf_counter() - t0)
+        py, dev = _since(before, counters)
+        _add(launches[m], py)
+        _add(on_card[m], dev)
+        peak[m] = max(peak[m], torch.cuda.max_memory_allocated())
+        losses[m].append(float(lv))
+    per = {"flash_fwd": 2 * cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
+           "flash_bwd_dkv": cfg.num_layers, "fused_bias_act": 1}
+    per = {k: v for k, v in per.items() if k in counters}
+    _gate_launches("moe path", launches, on_card, per,
+                   {m: len(secs[m]) for m in exes}, 1)
+    loss_c = losses["captured"]
+    if not all(np.isfinite(loss_c)) or not loss_c[-1] < loss_c[0]:
+        raise AssertionError(f"moe path: losses not finite and falling: "
+                             f"{loss_c}")
+    if losses["captured"][:MOE_TURN_STEPS] != losses["eager"] or diff:
+        raise AssertionError(f"moe path: captured and eager differ: "
+                             f"{losses}, state {diff[:5]}")
+    n_moe = sum(op.type == "moe_ffn" for op in main.global_block().ops)
+    flops = moe_train_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    timed = np.asarray(secs["captured"][MOE_TURN_STEPS:])
+    p50 = float(np.median(timed))
+    path = dict(
+        model=f"BertConfig.base(vocab_size=30528, moe_experts="
+              f"{MOE_EXPERTS}, moe_top_k={MOE_TOP_K})",
+        batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, dtype_policy="bf16",
+        moe_ffn_ops=n_moe, losses=loss_c, losses_eager=losses["eager"],
+        captured_eager_bit_equal_steps=MOE_TURN_STEPS,
+        step_p50_ms=1e3 * p50,
+        step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+        eager_step_ms=[1e3 * t for t in secs["eager"]],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * len(timed)
+        / float(timed.sum()),
+        model_flops_per_step_dense_dispatch=flops,
+        model_flops_per_step_train_flops=bert.train_flops_per_step(
+            cfg, TRAIN_BATCH, TRAIN_SEQ),
+        mfu_dense_dispatch=flops / p50 / BF16_TC_FLOPS,
+        peak_memory_gb={m: peak[m] / 1e9 for m in exes},
+        capture_s=_capture_seconds(exes["captured"], main),
+        graph_pools_gb=graph_pools_gb(),
+        launches=_summed(launches), device_launches=_summed(on_card))
+    state = dict(exes=exes, main=main, scopes=scopes, feed=feed, loss=loss,
+                 fetch=[loss])
+    return state, path
+
+
+def run_moe_parity():
+    """2 layers of phase 33's model at full width, fp32, dropout 0,
+    b4 s128: MOE_PARITY_STEPS Adam steps on the card and on a CPUPlace
+    executor from the same parameters; losses within TRAIN_LOSS_RTOL and
+    phase 5's Adam update gates on every leaf above the gradient floor
+    (_update_readings)."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = _moe_config(num_layers=2, hidden_dropout=0.0)
+    feed = bert.make_fake_batch(cfg, MOE_PARITY_BATCH, TRAIN_SEQ, seed=1)
+    runs = {}
+    init = None
+    for key, place in (("card", _gpu_place()), ("cpu", fluid.CPUPlace())):
+        main, startup, loss = _bert_program(cfg, bf16=False)
+        scope = fluid.Scope()
+        with capture_mode(False):
+            exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        if init is None:
+            init = {p.name: scope.get(p.name).cpu().numpy().copy()
+                    for p in main.all_parameters()}
+        else:
+            convert.load_params(scope, init, place, program=main)
+        grads = dict(main._params_grads)
+        losses, first = [], None
+        for i in range(MOE_PARITY_STEPS):
+            fetch = [loss] + (list(grads.values()) if i == 0 else [])
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            losses.append(float(out[0]))
+            if i == 0:
+                first = {p: np.asarray(g, np.float64)
+                         for p, g in zip(grads, out[1:])}
+        runs[key] = (losses, {n: scope.get(n).cpu().numpy().astype(
+            np.float64) for n in init}, first)
+    (gl, gpu, _), (cl, cpu, grads) = runs["card"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    if not rel < TRAIN_LOSS_RTOL:
+        raise AssertionError(f"moe parity: losses {gl} (card) vs {cl} "
+                             f"(CPU), max rel diff {rel}")
+    checks = (("max_abs", TRAIN_PARAM_MAX_ATOL),
+              ("mean_abs", TRAIN_PARAM_MEAN_ATOL))
+    return dict(batch=MOE_PARITY_BATCH, seq_len=TRAIN_SEQ, losses_gpu=gl,
+                losses_cpu=cl, loss_max_rel_diff=rel,
+                **_update_gates("moe parity", _update_readings(
+                    init, gpu, cpu, grads), checks))
+
+
 ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
                  "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -7749,7 +9305,9 @@ ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
 # phase 3's K1-K3 at the NMT shapes and phases 24-26, and "book" phase
 # 3's K1-K3 at the Transformer book's shapes and phase 27, "health"
 # phase 28, and "generate" phase 3's K1-K3 at the generation programs'
-# prefill shapes and phase 29
+# prefill shapes and phase 29, "persist" phase 30, "resnetdp" K8's
+# momentum group form at phase 31's members and phase 31, "amp" K4's
+# fp16 form and phase 32, and "moe" phase 33
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -7778,24 +9336,32 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         "generate": (("flash_attention", "fused_bias_act"),
                      ("check_flash_generate",)),
         "persist": (("flash_attention", "fused_bias_act",
-                     "paged_attention"), ())}
+                     "paged_attention"), ()),
+        # K8's momentum group form on its path, none of K1-K7: every
+        # library
+        "resnetdp": (ALL_LIBRARIES, ("check_fused_update_group_momentum",)),
+        "amp": (("flash_attention", "fused_bias_act"),
+                ("check_bias_gelu_fp16",)),
+        "moe": (("flash_attention", "fused_bias_act"), ())}
 NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
               "resnet", "cnn", "nmt", "book", "health", "generate",
-              "persist")
+              "persist", "resnetdp", "amp", "moe")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
 
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
-                   keys=NEW_PHASES):
-    """Phases 20, 14-19 and 21-30 (those of ``keys``, in that order);
+                   cpu_child, keys=NEW_PHASES, train=None):
+    """Phases 20, 14-19 and 21-33 (those of ``keys``, in that order);
     returns their path readings (None for a phase not run).  Phase 16's
     ids are compared with ``fp32_outs``, the fp32-weight lane's, where
     given (printed, not gated); phase 30's decode ids with its first
-    requests' (gated)."""
+    requests' (gated); phase 32's steps are printed beside phase 4's
+    (``train``) where it ran.  ``cpu_child``: the CPU reference child
+    (CpuChild) of phases 18 and 32 among ``keys``."""
     ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = nmt = None
-    book = health = gen = persist = None
+    book = health = gen = persist = resnetdp = amp = moe = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -7841,7 +9407,7 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         gpt["unfused"] = run_gpt_unfused(counters)
         say("gpt unfused path", {"card": smi, **gpt["unfused"]})
         torch.cuda.empty_cache()
-        say("gpt parity", run_gpt_parity())
+        say("gpt parity", run_gpt_parity(cpu_child))
     if "fleet" in keys:
         torch.cuda.empty_cache()
         fleet = run_fleet_path({k: wrappers[k] for k in FLEET_KERNELS})
@@ -7876,7 +9442,7 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         say("cnn path", {"card": smi, **cnn})
         torch.cuda.empty_cache()
     if "nmt" in keys:
-        nmt = run_nmt_phases(wrappers, say, smi)
+        nmt = run_nmt_phases(wrappers, say, smi, cpu_child)
     if "book" in keys:
         torch.cuda.empty_cache()
         book = run_book_path(wrappers)
@@ -7904,8 +9470,32 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         persist = run_persist_phase(
             wrappers, say, smi,
             lane_ids=fp32_outs[:PERSIST_REQUESTS] if fp32_outs else None)
+    if "resnetdp" in keys:
+        torch.cuda.empty_cache()
+        state, resnetdp = run_resnet_dp_path(dict(wrappers))
+        say("resnet dp path", {"card": smi, **resnetdp})
+        say("resnet dp step", {"card": smi, **profile_modes(
+            state, match=("fused_update_group_kernel",
+                          "fused_update_kernel"))})
+        del state
+        torch.cuda.empty_cache()
+        resnetdp["parity"] = run_resnet_dp_parity()
+        say("resnet dp parity", resnetdp["parity"])
+    if "amp" in keys:
+        amp = run_amp_path({k: wrappers[k] for k in train_kernels}, say,
+                           smi, cpu_child, train)
+        torch.cuda.empty_cache()
+    if "moe" in keys:
+        torch.cuda.empty_cache()
+        state, moe = run_moe_path({k: wrappers[k] for k in train_kernels})
+        say("moe path", {"card": smi, **moe})
+        say("moe step", {"card": smi, **profile_modes(state)})
+        del state
+        torch.cuda.empty_cache()
+        moe["parity"] = run_moe_parity()
+        say("moe parity", moe["parity"])
     return (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
-            health, gen, persist)
+            health, gen, persist, resnetdp, amp, moe)
 
 
 def run_only(keys, dev, smi, say):
@@ -7916,31 +9506,139 @@ def run_only(keys, dev, smi, say):
     from paddle_tpu_torch.kernels import kernel_wrappers
 
     libs = sorted({lib for k in keys for lib in ONLY[k][0]})
-    say("build", {k: round(v, 2) for k, v in _build.build_all(libs).items()})
-    if "flash_attention" in libs:
-        for label, r in flash_build_report().items():  # fails on a spill
-            print(f"ptxas flash_attention: {label}: " + json.dumps(r))
-    rng = np.random.RandomState(SEED)
-    timings = {}
-    for k in keys:
-        for check in ONLY[k][1]:
-            err, timed = globals()[check](dev, rng)
-            timings[check] = dict(max_abs_err=err, timings=timed)
-    say("kernel timings", {"card": smi, "launch_floor_ms": launch_floor_ms(),
-                           **timings})
-    if "engine" in keys:
-        arms, parity = run_ragged_path(kernel_wrappers()["ragged_attention"])
-        say("ragged engine waves", {"card": smi, **wave_readings(arms)})
-        say("ragged engine parity", parity)
+    _build.start_builds(libs)
     new = [k for k in keys if k in NEW_PHASES]
-    if new:
-        run_new_phases(kernel_wrappers(), ("flash_fwd", "flash_bwd_dq",
-                                           "flash_bwd_dkv", "fused_bias_act"),
-                       None, smi, say, keys=new)
+    parts = [p for p in CPU_CHILD_PARTS if p in new]
+    child = CpuChild(parts) if parts else None
+    try:
+        say("build", {k: round(v, 2)
+                      for k, v in _build.build_all(libs).items()})
+        if "flash_attention" in libs:
+            for label, r in flash_build_report().items():  # fails on a spill
+                print(f"ptxas flash_attention: {label}: " + json.dumps(r))
+        rng = np.random.RandomState(SEED)
+        timings = {}
+        for k in keys:
+            for check in ONLY[k][1]:
+                err, timed = globals()[check](dev, rng)
+                timings[check] = dict(max_abs_err=err, timings=timed)
+        if child is not None:  # ended before the host readings
+            timings["cpu_reference_child"] = child.join()
+        say("kernel timings", {"card": smi,
+                               "launch_floor_ms": launch_floor_ms(),
+                               **timings})
+        if "engine" in keys:
+            arms, parity = run_ragged_path(
+                kernel_wrappers()["ragged_attention"])
+            say("ragged engine waves", {"card": smi, **wave_readings(arms)})
+            say("ragged engine parity", parity)
+        if new:
+            run_new_phases(kernel_wrappers(), ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv",
+                                               "fused_bias_act"),
+                           None, smi, say, child, keys=new)
+    finally:
+        if child is not None:
+            child.close()
     report, bf16_loop = k4_k6_build_report()  # fails on a spill
     for label, r in report.items():
         print(f"ptxas {label}: " + json.dumps(r))
     say("K4 bf16 loop", {"sass": bf16_loop})
+
+
+def run_phases_1_to_3(dev, smi, say):
+    """Phases 1-3 of a whole run: every kernel's build (all started
+    together), the build reports, and every kernel's checks against its
+    plain version with their timings; K4-K8's while the flash kernels
+    still build, K1-K3's after.  The CPU reference child (CpuChild)
+    starts with the builds and is waited for before the timings line,
+    whose launch floor is a host reading.  Returns the checks' worst
+    errors (``errs``) and timings (``timings``, as printed) and the
+    child (``cpu_child``, ended)."""
+    from paddle_tpu_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    _build.start_builds()
+    # phases 18's, 26's and 32's CPU runs, in a child beside the builds
+    # and phase 3
+    cpu_child = CpuChild(list(CPU_CHILD_PARTS))
+    atexit.register(cpu_child.close)
+    rng = np.random.RandomState(SEED)
+    check_s, ended_s, errs, t = {}, {}, {}, {}
+
+    def check(key, fn, *args, **kw):
+        """One phase-3 check, its seconds (and when it ended, from the
+        builds' start) kept for the timings line."""
+        t0 = time.perf_counter()
+        errs[key], t[key] = fn(*args, **kw)
+        label = fn.__name__ + ("_quant" if kw.get("quant") else "")
+        check_s[label] = time.perf_counter() - t0
+        ended_s[label] = time.perf_counter() - t_start
+
+    check("k5", check_paged, dev, rng)
+    check("k4", check_bias_gelu, dev, rng)
+    check("k4b", check_bias_gelu_bf16, dev, rng)
+    check("k4h", check_bias_gelu_fp16, dev, rng)
+    # the flash checks draw from the state K4's checks leave, so their
+    # inputs do not depend on K6-K8's, which run while the flash
+    # kernels build
+    flash_rng = np.random.RandomState()
+    flash_rng.set_state(rng.get_state())
+    check("k6", check_ragged, dev, rng)
+    check("k6c", check_ragged_contract, dev, rng)
+    check("k7", check_paged, dev, rng, quant=True)
+    check("k8", check_fused_update, dev, rng)
+    check("k8g", check_fused_update_group, dev)
+    check("k8m", check_fused_update_group_momentum, dev)
+    for name in _build.sources():
+        if name in ("flash_attention", "paged_attention", "fused_bias_act",
+                    "ragged_attention"):
+            continue  # reported kernel by kernel below
+        for _, label, props in _ptxas_entries(name):
+            print(f"ptxas {name}: {label}: " + json.dumps(props))
+    for label, r in paged_build_report().items():
+        print(f"ptxas paged_attention: {label}: " + json.dumps(r))
+    k4k6_report, k4_loop = k4_k6_build_report()
+    for label, r in k4k6_report.items():
+        print(f"ptxas {label}: " + json.dumps(r))
+    _build.build_all()  # the flash kernels' build, if it still runs
+    took = dict(_build.BUILD_SECONDS)
+    print(f"build: {max(took.values()):.2f} s (one nvcc a source, all "
+          f"started together; K4-K8 checked meanwhile) "
+          f"{json.dumps({k: round(v, 2) for k, v in took.items()})}",
+          flush=True)
+    for label, r in flash_build_report().items():
+        print(f"ptxas flash_attention: {label}: " + json.dumps(r))
+    say("K4 bf16 loop", {"sass": k4_loop})
+    check("fl", check_flash, dev, flash_rng)
+    check("k1p", check_flash_fp32_predictor, dev, flash_rng)
+    check("nmt", check_flash_nmt, dev, flash_rng)
+    check("book", check_flash_book, dev, flash_rng)
+    check("gen", check_flash_generate, dev, flash_rng)
+    torch.cuda.empty_cache()
+    for k, timed in (("K5", t["k5"]), ("K7", t["k7"])):
+        for name, r in timed.items():
+            print(f"{k} {name}: split plan {r['splits']} x "
+                  f"{r['pages_per_split']} pages, partials {r['workspace']} "
+                  f"= {r['workspace_bytes']} bytes; {r['ms']:.4f} ms (one "
+                  f"split {r['one_split_ms']:.4f})", flush=True)
+    child = cpu_child.join()
+    timings = {
+        "paged_attention": t["k5"], "fused_bias_act": {
+            **t["k4"], **t["k4b"], **t["k4h"]},
+        "flash": t["fl"], "ragged_attention": t["k6"],
+        "ragged_attention_contract": t["k6c"], "k4_bf16_loop_sass": k4_loop,
+        "paged_attention_quant": t["k7"], "fused_update": t["k8"],
+        "fused_update_group": t["k8g"],
+        "fused_update_group_momentum": t["k8m"],
+        "flash_fp32_predictor": t["k1p"], "flash_nmt": t["nmt"],
+        "flash_book": t["book"], "flash_generate": t["gen"],
+        "check_seconds": check_s, "check_ended_s": ended_s,
+        "build_seconds": took,
+        "cpu_reference_child": child, "launch_floor_ms": launch_floor_ms(),
+        "card": smi}
+    say("kernel timings", timings)
+    return dict(errs=errs, timings=t, cpu_child=cpu_child)
 
 
 def main(argv=None):
@@ -7951,7 +9649,7 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
                     "gpt, fleet, fp32train, resnet, cnn, nmt, book, "
-                    "health, generate, persist): "
+                    "health, generate, persist, resnetdp, amp, moe): "
                     "phases 1-3 "
                     "for those kernels alone (flash: with phase 2's flash "
                     "report; engine: phases 10-11; passes, predictor, "
@@ -7961,7 +9659,10 @@ def main(argv=None):
                     "shapes and phases 24-26; book: K1-K3 at the "
                     "Transformer book's shapes and phase 27; health: phase "
                     "28; generate: K1-K3 at the generation programs' "
-                    "shapes and phase 29; persist: phase 30); the "
+                    "shapes and phase 29; persist: phase 30; resnetdp: "
+                    "K8's momentum group form at phase 31's members and "
+                    "phase 31; amp: K4's fp16 form and phase 32; moe: "
+                    "phase 33); the "
                     "default "
                     "runs every phase")
     args = ap.parse_args(argv)
@@ -7975,7 +9676,7 @@ def main(argv=None):
         print(f"chip_smoke: the paddle_tpu_torch package is missing: {e}",
               file=sys.stderr)
         return 3
-    from paddle_tpu_torch.kernels import _build, kernel_wrappers
+    from paddle_tpu_torch.kernels import kernel_wrappers
 
     t_main = time.perf_counter()
     t_last = [t_main]
@@ -8009,55 +9710,8 @@ def main(argv=None):
             "count": torch.cuda.device_count()}}))
         return 0
 
-    t0 = time.perf_counter()
-    took = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"{json.dumps({k: round(v, 2) for k, v in took.items()})}",
-          flush=True)
-    for name in _build.sources():
-        if name in ("flash_attention", "paged_attention", "fused_bias_act",
-                    "ragged_attention"):
-            continue  # reported kernel by kernel below
-        for _, label, props in _ptxas_entries(name):
-            print(f"ptxas {name}: {label}: " + json.dumps(props))
-    for label, r in flash_build_report().items():
-        print(f"ptxas flash_attention: {label}: " + json.dumps(r))
-    for label, r in paged_build_report().items():
-        print(f"ptxas paged_attention: {label}: " + json.dumps(r))
-    k4k6_report, k4_loop = k4_k6_build_report()
-    for label, r in k4k6_report.items():
-        print(f"ptxas {label}: " + json.dumps(r))
-    say("K4 bf16 loop", {"sass": k4_loop})
-
-    rng = np.random.RandomState(SEED)
-    k5_err, k5_t = check_paged(dev, rng)
-    k4_err, k4_t = check_bias_gelu(dev, rng)
-    k4b_err, k4b_t = check_bias_gelu_bf16(dev, rng)
-    fl_err, fl_t = check_flash(dev, rng)
-    k6_err, k6_t = check_ragged(dev, rng)
-    k6c_err, k6c_t = check_ragged_contract(dev, rng)
-    k7_err, k7_t = check_paged(dev, rng, quant=True)
-    k8_err, k8_t = check_fused_update(dev, rng)
-    k8g_err, k8g_t = check_fused_update_group(dev)
-    k1p_err, k1p_t = check_flash_fp32_predictor(dev, rng)
-    nmt_err, nmt_t = check_flash_nmt(dev, rng)
-    book_err, book_t = check_flash_book(dev, rng)
-    gen_err, gen_t = check_flash_generate(dev, rng)
-    torch.cuda.empty_cache()
-    for k, timed in (("K5", k5_t), ("K7", k7_t)):
-        for name, t in timed.items():
-            print(f"{k} {name}: split plan {t['splits']} x "
-                  f"{t['pages_per_split']} pages, partials {t['workspace']} "
-                  f"= {t['workspace_bytes']} bytes; {t['ms']:.4f} ms (one "
-                  f"split {t['one_split_ms']:.4f})", flush=True)
-    say("kernel timings", {
-        "paged_attention": k5_t, "fused_bias_act": {**k4_t, **k4b_t},
-        "flash": fl_t, "ragged_attention": k6_t,
-        "ragged_attention_contract": k6c_t, "k4_bf16_loop_sass": k4_loop,
-        "paged_attention_quant": k7_t, "fused_update": k8_t,
-        "fused_update_group": k8g_t, "flash_fp32_predictor": k1p_t,
-        "flash_nmt": nmt_t, "flash_book": book_t, "flash_generate": gen_t,
-        "launch_floor_ms": launch_floor_ms(), "card": smi})
+    p3 = run_phases_1_to_3(dev, smi, say)
+    cpu_child, err, tm = p3["cpu_child"], p3["errs"], p3["timings"]
 
     wrappers = kernel_wrappers()
     train_kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -8114,11 +9768,13 @@ def main(argv=None):
     say("dp train parity", run_dp_parity())
 
     (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
-     health, gen, persist) = run_new_phases(wrappers, train_kernels,
-                                            fp32_outs, smi, say)
+     health, gen, persist, resnetdp, amp, moe) = run_new_phases(
+        wrappers, train_kernels, fp32_outs, smi, say, cpu_child,
+        train=train)
+    cpu_child.close()
 
-    dec = k5_t["decode"]
-    k4 = k4b_t["[16384,3072] bf16"]
+    dec = tm["k5"]["decode"]
+    k4 = tm["k4b"]["[16384,3072] bf16"]
     # each path's counts over its run in both modes: the wrappers'
     # (eager runs, warm-ups and captures) and the card's (every run)
     by_path = {key: {"train": train[key], "dp_train": dp[key],
@@ -8150,6 +9806,10 @@ def main(argv=None):
                      # children), the predictor's two formats, the two
                      # decode children
                      "persist": persist[key],
+                     # phase 31: K8's momentum group form; 32: K1-K4
+                     # (fp32 K1-K3, bf16 and fp16 K4); 33: K1-K3, K4 once
+                     "resnet_dp": resnetdp[key], "amp": amp[key],
+                     "moe": moe[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}
@@ -8180,7 +9840,8 @@ def main(argv=None):
         for label, st in (shapes or {}).items():  # other timed shapes
             out[f"at_{label}"] = {
                 k: st[k] for k in keys + ("shape", "dtype", "causal",
-                                          "bound_simt_ms", "bound_simt_by")
+                                          "bound_simt_ms", "bound_simt_by",
+                                          "copy_ms", "kind")
                 if k in st}
         return out
 
@@ -8188,50 +9849,56 @@ def main(argv=None):
     flash_py = "paddle_tpu/kernels/primitives/flash.py"
 
     def flash_shapes(kern):
-        return {**{n: fl_t[n][kern] for n in ("gpt3_6p7b", "fp32_d128",
+        return {**{n: tm["fl"][n][kern] for n in ("gpt3_6p7b", "fp32_d128",
                                               "fp32_path", "fp32_gpt")},
-                **{case[0]: nmt_t[case[0]][kern]
+                **{case[0]: tm["nmt"][case[0]][kern]
                    for case in NMT_FLASH_CASES},
-                **{case[0]: book_t[case[0]][kern]
+                **{case[0]: tm["book"][case[0]][kern]
                    for case in BOOK_FLASH_CASES},
-                **{case[0]: gen_t[case[0]][kern]
+                **{case[0]: tm["gen"][case[0]][kern]
                    for case in GEN_FLASH_CASES}}
 
     kernels = [
         row("flash_fwd", flash_src, f"{flash_py}:78",
-            max(fl_err["flash_fwd"], k1p_err, nmt_err["flash_fwd"],
-                book_err["flash_fwd"], gen_err["flash_fwd"]),
-            fl_t["flash_fwd"],
-            fl_t["gpt"]["flash_fwd"], k1p_t, flash_shapes("flash_fwd")),
+            max(err["fl"]["flash_fwd"], err["k1p"], err["nmt"]["flash_fwd"],
+                err["book"]["flash_fwd"], err["gen"]["flash_fwd"]),
+            tm["fl"]["flash_fwd"],
+            tm["fl"]["gpt"]["flash_fwd"], tm["k1p"],
+            flash_shapes("flash_fwd")),
         row("flash_bwd_dq", flash_src, f"{flash_py}:130",
-            max(fl_err["flash_bwd_dq"], nmt_err["flash_bwd_dq"],
-                book_err["flash_bwd_dq"], gen_err["flash_bwd_dq"]),
-            fl_t["flash_bwd_dq"],
-            fl_t["gpt"]["flash_bwd_dq"], shapes=flash_shapes("flash_bwd_dq")),
+            max(err["fl"]["flash_bwd_dq"], err["nmt"]["flash_bwd_dq"],
+                err["book"]["flash_bwd_dq"], err["gen"]["flash_bwd_dq"]),
+            tm["fl"]["flash_bwd_dq"],
+            tm["fl"]["gpt"]["flash_bwd_dq"],
+            shapes=flash_shapes("flash_bwd_dq")),
         row("flash_bwd_dkv", flash_src, f"{flash_py}:167",
-            max(fl_err["flash_bwd_dkv"], nmt_err["flash_bwd_dkv"],
-                book_err["flash_bwd_dkv"], gen_err["flash_bwd_dkv"]),
-            fl_t["flash_bwd_dkv"],
-            fl_t["gpt"]["flash_bwd_dkv"],
+            max(err["fl"]["flash_bwd_dkv"], err["nmt"]["flash_bwd_dkv"],
+                err["book"]["flash_bwd_dkv"], err["gen"]["flash_bwd_dkv"]),
+            tm["fl"]["flash_bwd_dkv"],
+            tm["fl"]["gpt"]["flash_bwd_dkv"],
             shapes=flash_shapes("flash_bwd_dkv")),
         row("fused_bias_act", "paddle_tpu_torch/csrc/fused_bias_act.cu",
-            "paddle_tpu/kernels/fused_bias_act.py:106", max(k4_err, k4b_err),
-            k4, k4b_t["[8192,3072] bf16"], shapes={
-                f"fp32_{n}_mask_{m}".lower(): k4_t[f"[{r},{h}] mask={m}"]
+            "paddle_tpu/kernels/fused_bias_act.py:106",
+            max(err["k4"], err["k4b"], err["k4h"]),
+            k4, tm["k4b"]["[8192,3072] bf16"], shapes={
+                f"{d}_{n}_mask_{m}".lower(): t[f"[{r},{h}] {x}mask={m}"]
+                for d, t, x in (("fp32", tm["k4"], ""),
+                                ("fp16", tm["k4h"], "fp16 "))
                 for n, r, h in (("ffn", 16384, 3072), ("mlm", 2048, 768))
                 for m in (False, True)}),
         row("paged_attention", "paddle_tpu_torch/csrc/paged_attention.cu",
-            "paddle_tpu/kernels/primitives/paged.py:121", k5_err, dec),
+            "paddle_tpu/kernels/primitives/paged.py:121", err["k5"], dec),
         row("ragged_attention", "paddle_tpu_torch/csrc/ragged_attention.cu",
-            "paddle_tpu/kernels/primitives/ragged.py:74", k6_err,
-            k6_t["path"]),
+            "paddle_tpu/kernels/primitives/ragged.py:74", err["k6"],
+            tm["k6"]["path"]),
         row("paged_attention_quant",
             "paddle_tpu_torch/csrc/paged_attention.cu",
-            "paddle_tpu/kernels/primitives/paged.py:241", k7_err,
-            k7_t["decode"]),
+            "paddle_tpu/kernels/primitives/paged.py:241", err["k7"],
+            tm["k7"]["decode"]),
         row("fused_update", "paddle_tpu_torch/csrc/fused_update.cu",
-            "paddle_tpu/kernels/fused_update.py:322", max(k8_err, k8g_err),
-            k8g_t),
+            "paddle_tpu/kernels/fused_update.py:322",
+            max(err["k8"], err["k8g"], err["k8m"]), tm["k8g"],
+            shapes={"resnet_dp_momentum_group": tm["k8m"]}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,12 +5,16 @@
 // :106):  out = gelu(x + bias) [* mask * scale], over x [R, H], bias [H]
 // broadcast along the last dim, an optional uint8 mask [R, H] (drawn
 // outside the kernel; scale = 1/(1-p)), out [R, H] in x's dtype.  x and
-// out are float32 or bfloat16, and so is bias (each its own template
-// parameter); the arithmetic is fp32 either way, as in the JAX function.
+// out are float32, bfloat16 or float16, and so is bias (each its own
+// template parameter); the arithmetic is fp32 either way, as in the JAX
+// function.  A float16 result is rounded to nearest-even (__floats2half2_rn,
+// __float2half_rn): a value past fp16's range becomes ±inf, as
+// astype(float16) gives it in the JAX function (the AMP rewrite's fp16
+// mode hands the FFN fp16 x and an fp32 bias).
 // GeLU is the exact form, 0.5·x·erfc(−x/√2) as jax.nn.gelu spells it,
 // or the tanh form.
 //
-// What bounds it on this card: one pass, 2 (bf16) or 4 (fp32) bytes read
+// What bounds it on this card: one pass, 2 (bf16, fp16) or 4 (fp32) bytes read
 // and written an element, plus one with the mask.  At 3.35 TB/s over 132
 // SMs the bf16 pass streams about 3.2 elements an SM-cycle, which leaves
 // about 40 thread-instructions an element at the full issue rate.  The
@@ -21,7 +25,7 @@
 // Design, to cut the instructions an element:
 // - A 2-D grid: blockIdx.x a tile of 128 column vectors, blockIdx.y a
 //   set of row groups.  A thread owns V consecutive columns (16 bytes of
-//   x: 8 bf16 or 4 fp32), converts their bias to fp32 once, and walks
+//   x: 8 bf16 or fp16, or 4 fp32), converts their bias to fp32 once, and walks
 //   rows two at a time, the next two rows' loads issued before this
 //   pair is computed (so a thread has four rows in flight).  No division
 //   or modulo an element.
@@ -54,6 +58,7 @@
 // tiling constraints and are not kept.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include "launch_count.cuh"
 
@@ -105,6 +110,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 // the unsigned type of B bytes, which __ldcs / __stcs take
 template <int B>
@@ -167,6 +173,23 @@ __device__ __forceinline__ void store_cs(__nv_bfloat16* p,
   } else {
 #pragma unroll
     for (int e = 0; e < V; ++e) v[e] = __float2bfloat16(y[e]);
+  }
+  typename Bits<V * 2>::type raw;
+  memcpy(&raw, v, sizeof(raw));
+  __stcs(reinterpret_cast<typename Bits<V * 2>::type*>(p), raw);
+}
+template <int V>
+__device__ __forceinline__ void store_cs(__half* p, const float (&y)[V]) {
+  __half v[V];
+  if constexpr (V % 2 == 0) {
+#pragma unroll
+    for (int e = 0; e < V; e += 2) {
+      const __half2 two = __floats2half2_rn(y[e], y[e + 1]);
+      memcpy(v + e, &two, sizeof(two));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = __float2half_rn(y[e]);
   }
   typename Bits<V * 2>::type raw;
   memcpy(&raw, v, sizeof(raw));
@@ -296,30 +319,40 @@ cudaError_t dispatch(const void* x, const void* bias,
                                                    scale, s);
 }
 
+template <typename T>
+cudaError_t dispatch_bias(int bias_dtype, const void* x, const void* bias,
+                          const unsigned char* mask, void* out, long long R,
+                          int H, float scale, int approximate,
+                          cudaStream_t s) {
+  if (bias_dtype == 0)
+    return dispatch<T, float>(x, bias, mask, out, R, H, scale, approximate, s);
+  if (bias_dtype == 1)
+    return dispatch<T, __nv_bfloat16>(x, bias, mask, out, R, H, scale,
+                                      approximate, s);
+  return dispatch<T, __half>(x, bias, mask, out, R, H, scale, approximate, s);
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  x_dtype and
-// bias_dtype: 0 = float32, 1 = bfloat16 (out has x's dtype).  mask may
-// be null (no dropout); every other pointer is a device pointer; stream
-// is a cudaStream_t.
+// bias_dtype: 0 = float32, 1 = bfloat16, 2 = float16 (out has x's
+// dtype).  mask may be null (no dropout); every other pointer is a
+// device pointer; stream is a cudaStream_t.
 extern "C" int pt_fused_bias_gelu(int x_dtype, int bias_dtype, const void* x,
                                   const void* bias, const unsigned char* mask,
                                   void* out, long long R, int H, float scale,
                                   int approximate, void* stream) {
-  if (H < 1 || R < 0 || x_dtype < 0 || x_dtype > 1 || bias_dtype < 0 ||
-      bias_dtype > 1)
+  if (H < 1 || R < 0 || x_dtype < 0 || x_dtype > 2 || bias_dtype < 0 ||
+      bias_dtype > 2)
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0)
-    return (int)(bias_dtype == 0
-                     ? dispatch<float, float>(x, bias, mask, out, R, H, scale,
-                                              approximate, s)
-                     : dispatch<float, __nv_bfloat16>(
-                           x, bias, mask, out, R, H, scale, approximate, s));
-  return (int)(bias_dtype == 0
-                   ? dispatch<__nv_bfloat16, float>(x, bias, mask, out, R, H,
-                                                    scale, approximate, s)
-                   : dispatch<__nv_bfloat16, __nv_bfloat16>(
-                         x, bias, mask, out, R, H, scale, approximate, s));
+    return (int)dispatch_bias<float>(bias_dtype, x, bias, mask, out, R, H,
+                                     scale, approximate, s);
+  if (x_dtype == 1)
+    return (int)dispatch_bias<__nv_bfloat16>(bias_dtype, x, bias, mask, out,
+                                             R, H, scale, approximate, s);
+  return (int)dispatch_bias<__half>(bias_dtype, x, bias, mask, out, R, H,
+                                    scale, approximate, s);
 }

@@ -38,6 +38,7 @@ __all__ = [
     "not_equal", "less_than", "less_equal", "greater_than", "greater_equal",
     "logical_and", "logical_or", "logical_xor", "logical_not", "exp", "log",
     "pow", "floor", "ceil", "cos", "stack", "unstack", "one_hot",
+    "moe_ffn",
 ]
 
 
@@ -438,6 +439,44 @@ def flash_attention(q, k, v, attn_bias=None, causal=False, sm_scale=None,
         attrs["sm_scale"] = float(sm_scale)
     helper.append_op("flash_attention", inputs=inputs, outputs={"Out": [out]},
                      attrs=attrs)
+    return out
+
+
+def moe_ffn(x, num_experts, d_ff, top_k=2, act="gelu", param_attr=None,
+            name=None):
+    """Mixture-of-experts feed-forward over [B, S, D] (ops/nn_ops.py
+    ``moe_ffn``: top-k gating, dense dispatch).  Parameters
+    ``<name>_moe_gate.w_0`` [D, E], ``_moe_w1.w_0`` [E, D, d_ff],
+    ``_moe_w1.b_0`` [E, d_ff], ``_moe_w2.w_0`` [E, d_ff, D] and
+    ``_moe_w2.b_0`` [E, D]; the weights drawn from ``param_attr``'s
+    initializer (Normal(0, 0.02) by default), the biases 0."""
+    helper = LayerHelper("moe_ffn", name=name)
+    d = x.shape[-1]
+    pname = name or helper.name
+    init = (param_attr.initializer
+            if param_attr is not None and param_attr.initializer else
+            Normal(0.0, 0.02))
+    gate = helper.create_parameter(
+        ParamAttr(name=pname + "_moe_gate.w_0", initializer=init),
+        shape=[d, num_experts])
+    w1 = helper.create_parameter(
+        ParamAttr(name=pname + "_moe_w1.w_0", initializer=init),
+        shape=[num_experts, d, d_ff])
+    b1 = helper.create_parameter(
+        ParamAttr(name=pname + "_moe_w1.b_0", initializer=Constant(0.0)),
+        shape=[num_experts, d_ff], is_bias=True)
+    w2 = helper.create_parameter(
+        ParamAttr(name=pname + "_moe_w2.w_0", initializer=init),
+        shape=[num_experts, d_ff, d])
+    b2 = helper.create_parameter(
+        ParamAttr(name=pname + "_moe_w2.b_0", initializer=Constant(0.0)),
+        shape=[num_experts, d], is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("moe_ffn",
+                     inputs={"X": [x], "GateW": [gate], "W1": [w1],
+                             "B1": [b1], "W2": [w2], "B2": [b2]},
+                     outputs={"Out": [out]},
+                     attrs={"top_k": int(top_k), "act": act})
     return out
 
 

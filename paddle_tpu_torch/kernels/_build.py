@@ -10,6 +10,8 @@ module:
   in ``.gitignore``);
 - names the ``.so`` by a hash of the source and the flags, so an
   unchanged source builds once per checkout;
+- starts every build at once: ``start_builds`` returns while ``nvcc``
+  runs, and a later ``load`` waits for its own library alone;
 - loads it with ``ctypes`` and declares every C function's argument
   types (a pointer or a stream passed without a declaration would be
   cut to 32 bits).
@@ -30,7 +32,9 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "build_all",
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BUILD_SECONDS", "sources",
+           "start_builds",
+           "build_all",
            "build_log", "library_path", "load", "loaded", "device_launches",
            "ptr",
            "stream_of"]
@@ -46,6 +50,8 @@ _libs: dict = {}
 # seconds each library's first load took in this process (its build, if
 # it was not built yet, and the dynamic load)
 LOAD_SECONDS: dict = {}
+# seconds each library's nvcc run took in this process
+BUILD_SECONDS: dict = {}
 
 
 def sources():
@@ -73,34 +79,75 @@ def _so_path(name):
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=None):
-    """Build every named kernel (default: all of ``csrc``) that is not
-    built yet, one ``nvcc`` per source, all started together.  Returns
-    {name: seconds} for the builds that ran; raises on any failure."""
+class _Build:
+    """One ``nvcc`` run, waited for on a thread of its own, so that its
+    seconds are its own and a caller can wait for it by name."""
+
+    def __init__(self, name, so):
+        self.name, self.so = name, so
+        self.tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        self.log = open(so.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(self.tmp),
+               str(CSRC / f"{name}.cu")]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        self.seconds = self.error = None
+        self.done = threading.Event()
+        threading.Thread(target=self._finish, daemon=True).start()
+
+    def _finish(self):
+        rc = self.proc.wait()
+        self.seconds = time.perf_counter() - self.t0
+        BUILD_SECONDS[self.name] = self.seconds
+        self.log.close()
+        if rc != 0:
+            self.error = (f"{self.name} (rc {rc}):\n"
+                          f"{self.so.with_suffix('.log').read_text()[-4000:]}")
+        else:
+            os.replace(self.tmp, self.so)  # atomic: never a partial .so
+        self.done.set()
+
+
+# builds started by this process and not yet waited for, by library path
+_builds: dict = {}
+_builds_lock = threading.Lock()
+
+
+def start_builds(names=None):
+    """Start one ``nvcc`` for every named kernel (default: all of
+    ``csrc``) that is neither built nor building, and return at once;
+    :func:`build_all` (and so :func:`load`) waits for them."""
     names = list(names or sources())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
+    with _builds_lock:
+        for name in names:
+            so = _so_path(name)
+            if so not in _builds and not so.exists():
+                _builds[so] = _Build(name, so)
+
+
+def build_all(names=None):
+    """Build every named kernel (default: all of ``csrc``) that is not
+    built yet, one ``nvcc`` per source, all started together (or waits
+    for the ones :func:`start_builds` started).  Returns {name: seconds}
+    for the builds that ran; raises on any failure."""
+    names = list(names or sources())
+    start_builds(names)
+    took, failed = {}, []
     for name in names:
         so = _so_path(name)
-        if so.exists():
+        with _builds_lock:
+            b = _builds.get(so)
+        if b is None:
             continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        log = open(so.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        started[name] = (subprocess.Popen(cmd, stdout=log,
-                                          stderr=subprocess.STDOUT),
-                         tmp, so, log, time.perf_counter())
-    took, failed = {}, []
-    for name, (proc, tmp, so, log, t0) in started.items():
-        rc = proc.wait()
-        took[name] = time.perf_counter() - t0
-        log.close()
-        if rc != 0:
-            failed.append(f"{name} (rc {rc}):\n"
-                          f"{so.with_suffix('.log').read_text()[-4000:]}")
-            continue
-        os.replace(tmp, so)  # atomic: a reader never sees a partial .so
+        b.done.wait()
+        with _builds_lock:
+            _builds.pop(so, None)
+        if b.error is not None:
+            failed.append(b.error)
+        else:
+            took[name] = b.seconds
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return took

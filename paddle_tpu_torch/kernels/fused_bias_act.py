@@ -11,9 +11,11 @@ Bound: one elementwise pass, bytes-bound on paper; the source note in
 the ``.cu`` file says why the first kernel was bound by issue instead,
 and how the redesign (a 2-D grid with the bias in registers, 16-byte
 streaming accesses, the exact GeLU as 2^(−u²)·P(q) in place of erfcf)
-cuts the instructions an element.  x and bias are float32 or bfloat16 (the bf16 dtype
-policy hands the training path bf16 activations); the kernel computes
-in fp32 and returns x's dtype, as the JAX function does.  The dropout
+cuts the instructions an element.  x and bias are each float32,
+bfloat16 or float16 (the bf16 dtype policy hands the training path bf16
+activations, the fp16 AMP rewrite fp16 x with an fp32 bias); the kernel
+computes in fp32 and returns x's dtype, rounded to nearest-even, as the
+JAX function does (an fp16 result past fp16's range is ±inf).  The dropout
 mask is drawn outside the kernel and passed in as uint8, as in the JAX
 package.
 
@@ -48,7 +50,7 @@ _SIGNATURES = {
                            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def gelu_reference(x, approximate=False):
@@ -101,8 +103,9 @@ def _check(x, bias, mask):
         raise ValueError(f"fused_bias_gelu: bias {tuple(bias.shape)} must be "
                          f"[H] for x {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE or bias.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_bias_gelu: x and bias must be float32 or "
-                        f"bfloat16, got {x.dtype} and {bias.dtype}")
+        raise TypeError(f"fused_bias_gelu: x and bias must be float32, "
+                        f"bfloat16 or float16, got {x.dtype} and "
+                        f"{bias.dtype}")
     if mask is not None and (mask.dtype != torch.uint8
                              or mask.shape != x.shape):
         raise ValueError(f"fused_bias_gelu: mask must be uint8 of x's shape "
@@ -130,8 +133,8 @@ def _use_kernel(x, force):
 def fused_bias_gelu(x, bias, mask=None, scale=1.0, approximate=False,
                     force=None):
     """``gelu(x + bias) [* mask * scale]`` over x [..., H] with bias [H]
-    (each float32 or bfloat16), computed in fp32; returns x's shape and
-    dtype."""
+    (each float32, bfloat16 or float16), computed in fp32; returns x's
+    shape and dtype."""
     _check(x, bias, mask)
     if not _use_kernel(x, force):
         return fused_bias_gelu_reference(x, bias, mask, scale, approximate)

@@ -392,8 +392,10 @@ def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None,
     if bias is None:
         rows = torch.zeros(b * h, s, dtype=torch.float32, device=q.device)
     elif q.dim() == 4 and bias.numel() == b * s:
+        # at b 1 the reshape of the expanded view is a view with a zero
+        # stride, which the kernels do not take
         rows = bias.float().reshape(b, 1, s).expand(b, h, s) \
-            .reshape(b * h, s)
+            .reshape(b * h, s).contiguous()
     else:
         rows = bias.float().reshape(b * h, -1).expand(b * h, s) \
             .contiguous()

@@ -6,10 +6,9 @@ so under ``unique_name.guard`` both packages build the same program and
 one's parameters load into the other's scope by name.  Feeds:
 src_ids/pos_ids/sent_ids [B, S] int64, input_mask [B, S] float32,
 mask_label/mask_pos [M, 1] int64 (mask_pos holds flat positions into
-B*S), labels [B, 1] int64.
-
-Not ported: the mixture-of-experts FFN (``moe_experts``), which is the
-expert-parallel lane's.
+B*S), labels [B, 1] int64.  ``moe_experts`` > 0 puts the mixture-of-
+experts FFN (``layers.moe_ffn``, top ``moe_top_k`` gating) in every
+layer in place of the two FFN fcs.
 """
 
 from __future__ import annotations
@@ -31,9 +30,6 @@ class BertConfig:
                  type_vocab_size=2, hidden_dropout=0.1, attn_dropout=0.1,
                  initializer_range=0.02, use_flash_attention=True,
                  sequence_parallel=False, moe_experts=0, moe_top_k=2):
-        if moe_experts:
-            raise NotImplementedError("the MoE FFN is not ported to "
-                                      "paddle_tpu_torch")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -46,7 +42,7 @@ class BertConfig:
         self.initializer_range = initializer_range
         self.use_flash_attention = use_flash_attention
         self.sequence_parallel = sequence_parallel
-        self.moe_experts = moe_experts
+        self.moe_experts = moe_experts  # > 0: the MoE FFN
         self.moe_top_k = moe_top_k
 
     @classmethod
@@ -118,10 +114,17 @@ def encoder_layer(x, attn_bias, cfg, name, is_test=False):
         layers.elementwise_add(x, attn), begin_norm_axis=2,
         param_attr=ParamAttr(name=name + "_post_att_ln_scale"),
         bias_attr=ParamAttr(name=name + "_post_att_ln_bias"))
-    ffn = _fc(x, cfg.intermediate_size, name + "_ffn_fc_0", act="gelu",
-              init_std=cfg.initializer_range)
-    ffn = _fc(ffn, cfg.hidden_size, name + "_ffn_fc_1",
-              init_std=cfg.initializer_range)
+    if cfg.moe_experts:
+        ffn = layers.moe_ffn(x, cfg.moe_experts, cfg.intermediate_size,
+                             top_k=cfg.moe_top_k, act="gelu",
+                             param_attr=ParamAttr(initializer=Normal(
+                                 0.0, cfg.initializer_range)),
+                             name=name + "_ffn")
+    else:
+        ffn = _fc(x, cfg.intermediate_size, name + "_ffn_fc_0", act="gelu",
+                  init_std=cfg.initializer_range)
+        ffn = _fc(ffn, cfg.hidden_size, name + "_ffn_fc_1",
+                  init_std=cfg.initializer_range)
     ffn = _dropout(ffn, cfg, is_test)
     return layers.layer_norm(
         layers.elementwise_add(x, ffn), begin_norm_axis=2,

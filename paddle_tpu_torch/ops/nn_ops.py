@@ -7,7 +7,8 @@ JAX package leaves them to XLA; their grad ops are written by hand, one
 would run the forward conv again every step.  ``batch_norm`` has a grad
 maker that emits one ``batch_norm_grad`` (closed form).  The grads of
 ``pool2d``, ``layer_norm``, ``flash_attention`` and
-``softmax_mask_fuse_upper_triangle`` are derived by the registry;
+``softmax_mask_fuse_upper_triangle`` and ``moe_ffn`` are derived by
+the registry;
 ``dropout`` has a grad maker that replays its saved mask;
 ``ragged_attention`` is inference-only."""
 
@@ -362,6 +363,43 @@ def _flash_attention(ctx, q, k, v, bias, attrs):
                                   causal=attrs.get("causal", False),
                                   sm_scale=attrs.get("sm_scale"),
                                   force=attrs.get("force"))
+
+
+@simple_op("moe_ffn", ["X", "GateW", "W1", "B1", "W2", "B2"], ["Out"],
+           optional=("B1", "B2"))
+def _moe_ffn(ctx, x, gate_w, w1, b1, w2, b2, attrs):
+    """Mixture-of-experts FFN with top-k gating, dense dispatch: every
+    expert runs over every token and the kept gate probabilities
+    combine them (the JAX op's formulation, built for an expert dim
+    sharded over an 'ep' mesh axis).
+
+    x [B, S, D]; gate_w [D, E]; w1 [E, D, H]; b1 [E, H]; w2 [E, H, D];
+    b2 [E, D].  The gate logits accumulate in fp32 and the softmax runs
+    there.  With top_k < E the mask is ``probs >= kth``, kth the k-th
+    largest probability (so a tie keeps more than k experts), and the
+    kept probabilities are renormalized and cast to the experts'
+    dtype.  ``act`` is "gelu" (``jax.nn.gelu``'s default: the tanh
+    form) or "relu"."""
+    from paddle_tpu_torch.kernels.fused_bias_act import gelu_reference
+
+    top_k = int(attrs.get("top_k", 2))
+    e = w1.shape[0]
+    logits = torch.einsum("bsd,de->bse", x.float(), gate_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    if top_k < e:
+        kth = torch.topk(probs, top_k, dim=-1).values[..., -1:]
+        probs = torch.where(probs >= kth, probs, 0.0)
+        probs = probs / probs.sum(dim=-1, keepdim=True)
+    h = torch.einsum("bsd,edh->ebsh", x, w1.to(x.dtype))
+    if b1 is not None:
+        h = h + b1[:, None, None, :].to(h.dtype)
+    h = (gelu_reference(h, approximate=True)
+         if attrs.get("act", "gelu") == "gelu" else torch.relu(h))
+    y = torch.einsum("ebsh,ehd->ebsd", h, w2.to(h.dtype))
+    if b2 is not None:
+        y = y + b2[:, None, None, :].to(y.dtype)
+    out = torch.einsum("ebsd,bse->bsd", y, probs.to(y.dtype))
+    return out.to(x.dtype)
 
 
 @simple_op("ragged_attention", ["Q", "K", "V", "Lengths"], ["Out"],

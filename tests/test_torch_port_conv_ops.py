@@ -593,3 +593,45 @@ def test_nets_build_the_jax_programs():
     want = _describe(*_layer_program(jfluid, build))
     got = _describe(*_layer_program(fluid, build))
     assert got[:3] == want[:3]
+
+
+# ---------------------------------------------------------------------------
+# aliases (compat_ops): sync_batch_norm and depthwise_conv2d_transpose
+# ---------------------------------------------------------------------------
+
+_DW_T_ATTRS = {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+               "groups": 4}
+ALIAS_CASES = {
+    "sync_batch_norm": ("batch_norm", _bn_inputs(seed=5), BN_ATTRS,
+                        FWD_TOL),
+    "sync_batch_norm_grad": (
+        "batch_norm_grad", _bn_inputs(seed=6) + [_f(3, 4, 5, 6, seed=12)],
+        BN_ATTRS, GRAD_TOL),
+    "depthwise_conv2d_transpose": (
+        "conv2d_transpose", [_f(2, 4, 5, 5), _f(4, 1, 3, 3, seed=1), None],
+        _DW_T_ATTRS, FWD_TOL),
+    "depthwise_conv2d_transpose_grad": (
+        "conv2d_transpose_grad",
+        [_f(2, 4, 5, 5), _f(4, 1, 3, 3, seed=1), None,
+         _f(2, 4, 9, 9, seed=9)], _DW_T_ATTRS, GRAD_TOL),
+}
+
+
+@pytest.mark.parametrize("alias", sorted(ALIAS_CASES))
+def test_alias_matches_jax_registry(alias):
+    """Each alias registers the JAX package's slots and in-place
+    outputs, takes its base op's grad kind, grad maker and optional
+    slots, runs to the JAX registry's alias within the base op's
+    tolerance, and is its own base op bit for bit."""
+    base, inputs, attrs, tol = ALIAS_CASES[alias]
+    got, want = treg.get_op(alias), jreg.get_op(alias)
+    assert (list(got.input_slots), list(got.output_slots), got.inplace) \
+        == (list(want.input_slots), list(want.output_slots), want.inplace)
+    own = treg.get_op(base)
+    assert (got.grad, got.grad_maker, got.optional, got.lower) == \
+        (own.grad, own.grad_maker, own.optional, own.lower)
+    outs = _compare(alias, inputs, attrs, tol)
+    for o, b in zip(outs, _run_port(base, inputs, attrs)):
+        assert (o is None) == (b is None)
+        if o is not None:
+            np.testing.assert_array_equal(o, b)

@@ -12,7 +12,8 @@ terms, other order); K6
 2e-5 in fp32 (sums over 32-key tiles vs one matmul) and 2e-2 in bf16
 (both round one fp32 result to bf16); K4 1e-6 in
 fp32 (the same elementwise formula; erfcf/tanhf may differ by an ulp)
-and one bf16 rounding step (8e-3 relative) in bf16; K1-K3 2e-5 in fp32
+and one bf16 rounding step (8e-3 relative) in bf16, one fp16 ulp in
+fp16 (infs equal); K1-K3 2e-5 in fp32
 (each product split TF32, about 2^-21 relative, summed over 64-key
 tiles vs one fp32 matmul) and 2e-2 in bf16 (both
 round an fp32 result to bf16, so they may differ by an ulp of it; the
@@ -233,6 +234,55 @@ def test_bias_gelu_kernel_bf16_matches_plain(dev, rows, h, bias_dtype):
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got, want, **K4_BF16_TOL)
+
+
+@pytest.mark.parametrize("rows,h", [(16384, 3072), (2048, 768), (5, 37)])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.float16,
+                                        torch.bfloat16])
+def test_bias_gelu_kernel_fp16_matches_plain(dev, rows, h, with_mask,
+                                             bias_dtype):
+    """fp16 x (the fp16 AMP rewrite's FFN and MLM-head inputs): the
+    kernel launches (never the plain version), returns fp16 within one
+    fp16 ulp of the plain version, and its infs where the plain
+    version's are: the first rows put x + bias around fp16's largest
+    value (65519.99 rounds to 65504, 65520 to +inf)."""
+    import chip_smoke
+
+    rng = np.random.RandomState(rows + h)
+    xn = (rng.randn(rows, h) * 3).astype(np.float16)
+    bn = rng.randn(h).astype(np.float32)
+    k = min(h, 8)
+    xn[:min(rows, 4), :k] = np.float16(65504)
+    bn[:k] = [15.0, 15.99, 16.0, 200.0, 47.0, -16.0, 1.0, 0.5][:k]
+    x = torch.from_numpy(xn).to(dev)
+    bias = torch.from_numpy(bn).to(dev, bias_dtype)
+    mask = (torch.from_numpy((rng.rand(rows, h) > .1).astype(np.uint8))
+            .to(dev) if with_mask else None)
+    kw = dict(mask=mask, scale=1.25 if with_mask else 1.0)
+    before = fba.fused_bias_gelu.launches
+    got = fba.fused_bias_gelu(x, bias, **kw)
+    assert fba.fused_bias_gelu.launches == before + 1
+    want = fba.fused_bias_gelu_reference(x, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16
+    assert chip_smoke._fp16_k4_close(got, want) <= 1.0
+    if bias_dtype == torch.float32 and h >= 8:
+        assert torch.isinf(got).any()
+
+
+def test_fused_update_group_momentum_on_resnet_dp_members(dev):
+    """K8's momentum group form over the ResNet-50 data-parallel
+    program's members (every fused_momentum_quant_grad op of its plan, 4
+    replicas): one launch a table-full, none of the per-parameter form,
+    each member within 1e-6 of the plain version (chip_smoke phase 3's
+    check)."""
+    import chip_smoke
+
+    worst, t = chip_smoke.check_fused_update_group_momentum(dev)
+    assert t["members"] == 4 * t["ops_a_replica"][0] == 4 * 161
+    assert t["launches"] == -(-t["members"] // t["table"])
+    assert worst < 1e-3
 
 
 def _flash_case(dev, b, h, s, d, dtype, strided, seed=0):
@@ -506,6 +556,22 @@ def test_flash_kernels_raise_not_fall_back(dev):
     q, k, v, do, bias = _flash_case(dev, 1, 2, 16, 8, torch.float16, False)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash.flash_fwd(q, k, v, bias, False, 0.1)
+
+
+def test_flash_batch_of_one_with_key_bias_matches_plain(dev):
+    """K1 over one sequence with a [1, 1, 1, S] key bias (a
+    data-parallel replica of one sequence): the bias rows reach the
+    kernel contiguous, and the output is the plain version's."""
+    q, k, v, _, bias = _flash_case(dev, 1, 12, 128, 64, torch.float32,
+                                   False)
+    b4 = bias[:1].reshape(1, 1, 1, -1).contiguous()
+    before = flash.flash_fwd.launches
+    got = flash.flash_attention(q, k, v, bias=b4, sm_scale=0.125)
+    assert flash.flash_fwd.launches == before + 1
+    want = flash.flash_attention(q, k, v, bias=b4, sm_scale=0.125,
+                                 force="reference")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
 
 
 def test_bert_train_steps_on_cuda_match_cpu(dev):

@@ -165,6 +165,29 @@ def test_flash_three_dim_input_and_bias_forms_agree():
     torch.testing.assert_close(got3.reshape(want.shape), want)
 
 
+@pytest.mark.parametrize("b", [1, 3])
+def test_flash_key_bias_rows_are_contiguous(monkeypatch, b):
+    """The [B, 1, 1, S] key bias becomes the [B*H, S] fp32 rows the
+    kernels take contiguous: at b 1 the reshape of its expanded view was
+    a zero-stride view, which K1 refused on the card (a data-parallel
+    replica of one sequence)."""
+    seen = {}
+
+    def apply(q, k, v, rows, causal, scale, force):
+        seen["rows"] = rows
+        return (q,)
+
+    monkeypatch.setattr(tflash._FlashAttention, "apply", apply)
+    q = torch.zeros(b, 4, 16, 8)
+    bias = torch.from_numpy(
+        np.random.RandomState(b).randn(b, 1, 1, 16).astype(np.float32))
+    tflash.flash_attention(q, q, q, bias=bias)
+    rows = seen["rows"]
+    assert rows.is_contiguous() and rows.shape == (b * 4, 16)
+    assert torch.equal(rows, bias.reshape(b, 1, 16).expand(b, 4, 16)
+                       .reshape(b * 4, 16))
+
+
 def test_flash_wrapper_checks():
     q, k, v, bias, _ = (torch.from_numpy(a) for a in _case(64))
     with pytest.raises(ValueError, match="must match"):

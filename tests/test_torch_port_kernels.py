@@ -434,7 +434,9 @@ class _FakeK4:
 @pytest.mark.parametrize("x_dtype,b_dtype,codes", [
     (torch.bfloat16, torch.bfloat16, (1, 1)),
     (torch.bfloat16, torch.float32, (1, 0)),
-    (torch.float32, torch.float32, (0, 0))])
+    (torch.float32, torch.float32, (0, 0)),
+    (torch.float16, torch.float32, (2, 0)),
+    (torch.float16, torch.float16, (2, 2))])
 def test_bias_gelu_wrapper_hands_kernel_its_arguments(monkeypatch, x_dtype,
                                                       b_dtype, codes):
     """The kernel branch with the build stubbed: the dtype codes, x, bias,

@@ -213,7 +213,7 @@ def _ref_write_to_array(pkg):
     fluid = PKGS[pkg][0]
     layers = fluid.layers
     main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
         x = layers.data(name="x", shape=[2], dtype="float32")
         arr = layers.create_array("float32", capacity=4)
         i0 = layers.fill_constant(shape=[1], dtype="int64", value=0)
@@ -294,6 +294,22 @@ def test_reference_signature_control_flow_imports_and_runs(build):
             got = _run_program("port", tprog, feed, fetch)
             for g, w in zip(got, want):
                 np.testing.assert_allclose(g, w, rtol=0, atol=0)
+
+
+def test_write_to_array_import_after_jax_layers_built():
+    """The write_to_array case after the JAX package has built a
+    fill_constant of its own outside any guard (as an earlier test in
+    the same worker may): its name counter is then one ahead of the
+    port's, and the two programs must still agree name for name.  Both
+    packages' counters start fresh here and are given back on exit, so
+    the drift is the same whatever the worker ran before and does not
+    outlive the test."""
+    with jfluid.unique_name.guard(), tfluid.unique_name.guard():
+        main, startup = jfluid.Program(), jfluid.Program()
+        with jfluid.program_guard(main, startup):
+            jfluid.layers.fill_constant(shape=[1], dtype="int64", value=0)
+        test_reference_signature_control_flow_imports_and_runs(
+            _ref_write_to_array)
 
 
 def test_imported_while_without_cond_update_fails_loudly():
