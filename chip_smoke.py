@@ -385,7 +385,9 @@ Phases, each fatal on failure:
      The resumed losses, found_inf and whole final state (every
      persistable, @HEALTH@ included) bit-equal to the uninterrupted
      run's; the sentinel's state after the restore bit-equal to the
-     killed child's last save; K1 24, K2 12, K3 12, K4 13 a step on the
+     killed child's last save (the two children are warm children,
+     started with the builds: their seconds count from their job, not
+     from a fresh process); K1 24, K2 12, K3 12, K4 13 a step on the
      card in every run; at most 2 complete checkpoints and no temp
      left.  save() seconds and bytes, SIGTERM-to-exit seconds, resume()
      seconds and the first captured step after it.  (2) Phase 13's
@@ -466,10 +468,32 @@ Phases, each fatal on failure:
      step a mode.  Then 2 layers at full width, fp32, dropout 0, b4
      s128, 3 Adam steps card against CPU: losses within 1e-4 and phase
      5's update gates.
+ 34. gm path: BERT-base b32 s128 micro-batches under the bf16 policy with
+     GradientMergeOptimizer(Adam(1e-4), k_steps=4) (b128 a boundary) and
+     a ModelAverage updated in the program, 8 micro-steps over four
+     fixed batches, captured and eager in turns: off the boundary every
+     parameter, Adam moment and beta power bit-equal to the last
+     boundary's, at steps 4 and 8 every parameter changed and each beta
+     power advanced once; K1-K4 24/12/12/13 a micro-step; the modes
+     bit-equal.  The fp32 is_test program with the auc and accuracy ops
+     on the NSP head, captured before ModelAverage.apply() and replayed
+     inside it on 4 batches: the averages in the scope's own tensors,
+     the replays equal to an eager run, the auc op's histograms equal to
+     fluid.metrics.Auc's fed the fetched probabilities (value within
+     1e-6), fluid.metrics.Accuracy against the host's count, the trained
+     parameters back after it.  GM's first boundary over four b32 slices
+     against one plain b128 Adam step (hidden dropout 0): within 4x the
+     plain step's distance from itself on the permuted batch in fp32;
+     the bf16 distances printed.  fluid.gradients: the saliency of the
+     loss to the summed embeddings at full width (K2, K3 12 each), at 2
+     layers fp32 against the CPU (4e-3), and the WGAN-GP penalty of
+     tests/test_double_grad.py, 3 steps card against CPU, and its conv2d
+     double grad (conv2d_grad_grad) card against CPU.
 
 The CPU runs of phases 18's, 26's and 32's parities, from their
-programs' startups on the CPU, are made in one child process at a
-lower priority that sees no card (CpuChild).  It starts with the
+programs' startups on the CPU, are made in child processes at a lower
+priority that see no card (CpuChild: a process a part, two for phase
+18's, the cores shared among them).  It starts with the
 kernels' builds and runs beside them and phase 3, whose readings are
 device times; the script waits for it to end before phase 4, so that
 no host reading of a later phase is taken beside it.  The builds start
@@ -493,8 +517,8 @@ resnet`` phases 21-22, ``--only cnn`` phase 23, ``--only nmt`` phase
 health`` phase 28, ``--only generate`` phase 3's K1-K3 at the
 generation shapes and phase 29, ``--only persist`` phase 30, ``--only
 resnetdp`` phase 3's K8 momentum group check and phase 31, ``--only
-amp`` phase 3's fp16 K4 check and phase 32, and ``--only moe`` phase
-33.
+amp`` phase 3's fp16 K4 check and phase 32, ``--only moe`` phase
+33, and ``--only gm`` phase 34.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -4425,6 +4449,21 @@ def profile_gpt_step(state):
     return out
 
 
+def _run_startup(exe, startup, scope, loaded=None):
+    """Run ``startup`` on ``scope``; with ``loaded`` (the names the
+    caller loads right after), less the ops that write only those (their
+    random initializers: a 2-layer GPT's 50 M draws a parity case on the
+    CPU).  The other ops draw nothing, so what is left is the same."""
+    if loaded:
+        prog = startup.clone()
+        block = prog.global_block()
+        block.ops = [op for op in block.ops
+                     if not set(op.output_arg_names) <= set(loaded)]
+        prog._bump_version()
+        startup = prog
+    exe.run(startup, scope=scope)
+
+
 def _gpt_parity_run(cfg, place, feed, init, make_opt, steps):
     """``steps`` fp32 steps of the GPT program minimized by
     ``make_opt(fluid)`` on ``place`` from ``init`` (None: the startup's,
@@ -4436,7 +4475,7 @@ def _gpt_parity_run(cfg, place, feed, init, make_opt, steps):
                                           make_opt=make_opt)
     scope = fluid.Scope()
     exe = fluid.Executor(place)
-    exe.run(startup, scope=scope)
+    _run_startup(exe, startup, scope, init)
     if init is None:
         init = {p.name: scope.get(p.name).cpu().numpy().copy()
                 for p in main.all_parameters()}
@@ -4465,23 +4504,30 @@ def _gpt_parity_cases():
                          in GPT_PARITY_OPTIMIZERS.items()]
 
 
-def gpt_cpu_child(dirname):
+def gpt_cpu_child(dirname, half=None):
     """The CPU reference child's part for phase 18: the parities' one
     starting state, the 2-layer GPT's parameters after its startup on
     the CPU, into ``gpt.init`` (the optimizers add no parameter, so it
     is every case's); then every case's run on a CPUPlace executor from
     it, its losses, each leaf's first-gradient RMS and its parameters
-    after the run into ``gpt.<case>``."""
+    after the run into ``gpt.<case>``.  ``half`` 0 or 1: every other
+    case (from the first or the second), half 1 reading ``gpt.init``
+    once half 0 has written it (two processes of the child)."""
     from paddle_tpu_torch import fluid
 
     cfg = gpt_config(num_layers=2, hidden_dropout=0.0)
-    main, startup, _, _ = _gpt_program(cfg, bf16=False)
-    scope = fluid.Scope()
-    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
-    init = {p.name: scope.get(p.name).numpy().copy()
-            for p in main.all_parameters()}
-    _child_result(dirname, "gpt.init", **init)
-    for name, shape, make, _, _ in _gpt_parity_cases():
+    if half == 1:
+        init = _wait_child_result(dirname, "gpt.init")
+    else:
+        main, startup, _, _ = _gpt_program(cfg, bf16=False)
+        scope = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+        init = {p.name: scope.get(p.name).numpy().copy()
+                for p in main.all_parameters()}
+        _child_result(dirname, "gpt.init", **init)
+    cases = _gpt_parity_cases()
+    for name, shape, make, _, _ in (cases if half is None
+                                    else cases[half::2]):
         feed = _gpt_feed(cfg, *shape, seed=1)
         try:
             losses, _, final, grads = _gpt_parity_run(
@@ -4762,13 +4808,10 @@ def _generate_quantiles(reqtrace, n):
 
 def run_fleet_child():
     """Step 7 of phase 19: the SIGTERM drill in a child process."""
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    here = os.path.dirname(os.path.abspath(__file__))
-    env["PYTHONPATH"] = here
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _FLEET_CHILD], cwd=here,
-                          env=env, capture_output=True, text=True,
-                          timeout=600)
+    p = take_warm_child("fleet").start(_FLEET_CHILD, [])
+    out, err = p.communicate(timeout=600)
+    proc = subprocess.CompletedProcess(p.args, p.returncode, out, err)
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("FLEET_CHILD ")]
     if not lines:
@@ -6274,7 +6317,7 @@ def _nmt_parity_run(cfg, place, feed, init, steps):
     main, startup, cost = _nmt_program(cfg, bf16=False)
     scope = fluid.Scope()
     exe = fluid.Executor(place)
-    exe.run(startup, scope=scope)
+    _run_startup(exe, startup, scope, init)
     if init is None:
         init = {p.name: scope.get(p.name).cpu().numpy().copy()
                 for p in main.all_parameters()}
@@ -7733,13 +7776,112 @@ def persist_child_resumed(dirname, export_dir):
                     steps=steps, state=_state_digest(main, scope))
 
 
-def _persist_spawn(args, env=None):
+def _persist_spawn(args, env):
+    """A new process running _PERSIST_CHILD on ``args`` with ``env``
+    added to its environment: the decode children, whose readings start
+    at their spawn (the train children are warm: take_warm_child)."""
     here = os.path.dirname(os.path.abspath(__file__))
     full = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    full.update(PYTHONPATH=here, **(env or {}))
+    full.update(PYTHONPATH=here, **env)
     return subprocess.Popen([sys.executable, "-c", _PERSIST_CHILD, *args],
                             cwd=here, env=full, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
+
+
+# ---------------------------------------------------------------------------
+# warm children: phases 19's and 30's child processes, started at the top
+# of the script beside the builds, which import the port and build their
+# program's kind once (warming the meta kernels and the shape cache) at a
+# lower priority and touch no card until their job arrives
+# ---------------------------------------------------------------------------
+
+_WARM_CHILD = r"""
+import json, os, sys
+os.nice(10)  # the parent's phase-3 host work first
+import chip_smoke as cs
+cs.warm_child_prepare(sys.argv[1])
+print("WARM_READY", flush=True)
+job = json.loads(sys.stdin.readline())
+sys.argv = ["-c"] + job["argv"]
+exec(job["code"], {"__name__": "__main__"})
+"""
+WARM_ROLES = {"persist": 2, "fleet": 1}  # role: children of it
+_WARM = {}      # role: the started children no job has taken yet
+_STARTED = []   # every warm child, closed when the script ends
+
+
+def warm_child_prepare(role):
+    """A warm child's work before its job: the port's imports and one
+    build of its job's program kind (host only: no CUDA call)."""
+    from paddle_tpu_torch import fluid, kernels, serving  # noqa: F401
+    from paddle_tpu_torch.models import gpt
+
+    if role == "persist":
+        _bert_program(_persist_cfg(), bf16=True)
+    else:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            gpt.build_gpt_decode_step(_model_config(), 8, 513, 16, 64)
+
+
+class WarmChild:
+    """A child process started now, which prepares (warm_child_prepare)
+    and waits; ``start(code, argv)`` hands it its job, the code a new
+    process would run with ``argv``, and returns its Popen (its stdout
+    then carries the job's output, as a new process's would)."""
+
+    def __init__(self, role):
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = here
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _WARM_CHILD, role], cwd=here, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        if not _STARTED:
+            atexit.register(close_warm_children)
+        _STARTED.append(self)
+
+    def start(self, code, argv):
+        line = self.proc.stdout.readline()
+        if line.strip() != "WARM_READY":
+            self.proc.kill()
+            raise AssertionError(f"warm child: {line!r} "
+                                 f"{self.proc.stderr.read()[-3000:]}")
+        self.proc.stdin.write(json.dumps({"code": code, "argv": list(argv)})
+                              + "\n")
+        self.proc.stdin.close()
+        self.proc.stdin = None  # communicate() writes nothing more
+        return self.proc
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def start_warm_children(roles=tuple(WARM_ROLES)):
+    """Start the children of ``roles`` (WARM_ROLES' counts) now, so that
+    their preparation runs beside the builds; they end with the
+    script."""
+    for role in roles:
+        if role not in _WARM:
+            _WARM[role] = [WarmChild(role) for _ in range(WARM_ROLES[role])]
+
+
+def take_warm_child(role):
+    """A started warm child of ``role``, or a new one when none waits
+    (its start() then waits for its preparation)."""
+    left = _WARM.get(role)
+    return left.pop(0) if left else WarmChild(role)
+
+
+def close_warm_children():
+    """Kill every warm child still running (one whose job failed or
+    never came)."""
+    _WARM.clear()
+    while _STARTED:
+        _STARTED.pop().close()
 
 
 def _persist_result(proc, what, timeout=600):
@@ -7765,8 +7907,9 @@ def run_persist_train(counters):
     per_step = _train_step_launches(_persist_cfg())
     tmp = tempfile.mkdtemp(prefix="pt_persist_")
     ck_dir = os.path.join(tmp, "ck")
-    t0 = time.perf_counter()
-    killed = _persist_spawn(["killed", ck_dir])
+    killed = take_warm_child("persist").start(_PERSIST_CHILD,
+                                              ["killed", ck_dir])
+    t0 = time.perf_counter()  # the job handed over: no import, no build
     steps_killed = []
     for line in killed.stdout:
         if line.startswith("PERSIST_STEP "):
@@ -7790,10 +7933,12 @@ def run_persist_train(counters):
     ring_killed, m_killed = persist.load_window(os.path.join(
         ck_dir, "health_window"))
     export_dir = os.path.join(tmp, "export")
-    resumed = _persist_result(_persist_spawn(["resumed", ck_dir,
-                                              export_dir]), "resumed")
+    proc = take_warm_child("persist").start(
+        _PERSIST_CHILD, ["resumed", ck_dir, export_dir])
+    t1 = time.perf_counter()
+    resumed = _persist_result(proc, "resumed")
+    resumed_s = time.perf_counter() - t1
     ring_resumed, m_resumed = persist.load_window(export_dir)
-    resumed_s = time.perf_counter() - t0 - killed_s
     # the uninterrupted run, here
     for w in counters.values():
         w.launches = 0
@@ -7879,7 +8024,11 @@ def run_persist_train(counters):
         sigterm_to_exit_s=sigterm_to_exit, resume_s=resumed["resume_s"],
         first_step_after_resume_s=got[0]["seconds"],
         steady_step_p50_ms=1e3 * float(np.percentile(steady, 50)),
-        killed_child_s=killed_s, resumed_child_s=resumed_s,
+        killed_child_job_s=killed_s, resumed_child_job_s=resumed_s,
+        children="warm: the port imported and a BERT-base program built "
+                 "before the job, outside the *_job_s clocks, the job run at "
+                 "nice 10; a fresh process's restart is the decode "
+                 "children's to_first_token_s",
         per_step_device_launches=per_step,
         launches=_times(per_step, 6),  # 2 a run, three runs
         device_launches=_times(per_step, len(steps_killed) + len(got)
@@ -8790,7 +8939,7 @@ def _amp_parity_run(cfg, arm, place, feed, init, plant_inf=False):
     scope = fluid.Scope()
     with capture_mode(False):
         exe = fluid.Executor(place)
-    exe.run(startup, scope=scope)
+    _run_startup(exe, startup, scope, init)
     persist = [n for n, v in main.global_block().vars.items()
                if v.persistable and scope.get(n) is not None]
     if init is None:
@@ -8881,9 +9030,10 @@ def amp_cpu_child(dirname):
 
 # ---------------------------------------------------------------------------
 # the CPU reference child: the CPU runs of phases 18's, 26's and 32's
-# parities, made in one child process at a lower priority that sees no
-# card, beside the builds and phase 3; the script waits for it to end
-# before phase 4's host readings
+# parities, made in child processes (a process a part, two for phase
+# 18's) at a lower priority that see no card, beside the builds and
+# phase 3; the script waits for them to end before phase 4's host
+# readings
 # ---------------------------------------------------------------------------
 
 _CPU_CHILD = r"""
@@ -8891,28 +9041,53 @@ import os, sys, time
 import torch
 import chip_smoke as cs
 os.nice(10)  # the parent's work first: the child takes idle cores
-torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
-for part in sys.argv[2:]:
+torch.set_num_threads(int(sys.argv[2]))
+for arg in sys.argv[3:]:
+    part, _, half = arg.partition(":")
     t0 = time.perf_counter()
-    cs.CPU_CHILD_PARTS[part](sys.argv[1])
-    print(f"CPU_CHILD_PART {part} {time.perf_counter() - t0:.3f}", flush=True)
+    if half:
+        cs.CPU_CHILD_PARTS[part](sys.argv[1], int(half))
+    else:
+        cs.CPU_CHILD_PARTS[part](sys.argv[1])
+    print(f"CPU_CHILD_PART {arg} {time.perf_counter() - t0:.3f}", flush=True)
 print("CPU_CHILD_OK", flush=True)
 """
 CPU_CHILD_PARTS = {"gpt": gpt_cpu_child, "nmt": nmt_cpu_child,
                    "amp": amp_cpu_child}
+# parts that run as two processes (gpt_cpu_child's ``half``); each part,
+# or half, is a process of its own, the cores shared among them
+CPU_CHILD_HALVES = ("gpt",)
 
 
 def _child_result(dirname, name, **arrays):
-    """One result of the child: ``<dir>/<name>.npz``."""
-    np.savez(os.path.join(dirname, name + ".npz"), **arrays)
+    """One result of the child: ``<dir>/<name>.npz``, whole once it has
+    its name (written under another, then renamed)."""
+    part = os.path.join(dirname, name + ".part.npz")
+    np.savez(part, **arrays)
+    os.replace(part, os.path.join(dirname, name + ".npz"))
+
+
+def _wait_child_result(dirname, name, timeout=600):
+    """The arrays of another process's result ``name`` once written."""
+    path = os.path.join(dirname, name + ".npz")
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"CPU child: {name} never written")
+        time.sleep(0.2)
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 class CpuChild:
     """The CPU reference child of ``parts`` (keys of CPU_CHILD_PARTS),
     started on a temporary directory with CUDA_VISIBLE_DEVICES empty
-    (its readings compute on the CPU: _f64).  ``join()`` waits for it to
-    end and returns its readings; ``take(name)`` then returns the arrays
-    of its result ``name``; ``close()`` ends it and removes the
+    (its readings compute on the CPU: _f64): a process a part (two for a
+    part of CPU_CHILD_HALVES), the cores but one shared among them as
+    torch threads (its many mid-sized ops run faster side by side than
+    as one process's threads).  ``join()`` waits for them to end and
+    returns their readings; ``take(name)`` then returns the arrays of
+    its result ``name``; ``close()`` ends them and removes the
     directory."""
 
     def __init__(self, parts):
@@ -8921,12 +9096,19 @@ class CpuChild:
         here = os.path.dirname(os.path.abspath(__file__))
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env.update(PYTHONPATH=here, CUDA_VISIBLE_DEVICES="")
-        self.log = open(os.path.join(self.dir, "child.log"), "w")
+        args = [a for p in self.parts for a in (
+            [f"{p}:0", f"{p}:1"] if p in CPU_CHILD_HALVES else [p])]
+        cores = (os.cpu_count() or 2) - 1
+        threads = max(1, -(-cores // max(1, len(args))))
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", _CPU_CHILD, self.dir, *self.parts],
-            cwd=here, env=env, stdout=self.log, stderr=subprocess.STDOUT,
-            text=True)
+        self.procs = []
+        for a in args:
+            log = open(os.path.join(self.dir, f"child.{a}.log"), "w")
+            self.procs.append((log, subprocess.Popen(
+                [sys.executable, "-c", _CPU_CHILD, self.dir, str(threads),
+                 a], cwd=here, env=env, stdout=log,
+                stderr=subprocess.STDOUT, text=True)))
+        self.threads = threads
         self.readings = None
 
     def join(self, timeout=900):
@@ -8934,21 +9116,25 @@ class CpuChild:
         seconds, each part's, and the seconds waited here."""
         if self.readings is None:
             t0 = time.perf_counter()
-            try:
-                rc = self.proc.wait(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                rc = None
-            waited = time.perf_counter() - t0
-            self.log.flush()
-            with open(self.log.name) as f:
-                text = f.read()
-            if rc != 0 or "CPU_CHILD_OK" not in text:
-                raise AssertionError(f"the CPU reference child failed (rc "
-                                     f"{rc}): {text[-3000:]}")
-            parts = {ln.split()[1]: float(ln.split()[2])
-                     for ln in text.splitlines()
-                     if ln.startswith("CPU_CHILD_PART ")}
-            self.readings = dict(parts=parts, waited_s=waited,
+            parts = {}
+            for log, proc in self.procs:
+                try:
+                    rc = proc.wait(timeout=max(1.0, timeout - (
+                        time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                log.flush()
+                with open(log.name) as f:
+                    text = f.read()
+                if rc != 0 or "CPU_CHILD_OK" not in text:
+                    raise AssertionError(f"the CPU reference child failed "
+                                         f"(rc {rc}): {text[-3000:]}")
+                parts.update({ln.split()[1]: float(ln.split()[2])
+                              for ln in text.splitlines()
+                              if ln.startswith("CPU_CHILD_PART ")})
+            self.readings = dict(parts=parts, processes=len(self.procs),
+                                 threads=self.threads,
+                                 waited_s=time.perf_counter() - t0,
                                  seconds=time.perf_counter() - self.t0)
         return self.readings
 
@@ -8962,10 +9148,11 @@ class CpuChild:
         return out
 
     def close(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-        self.proc.wait()
-        self.log.close()
+        for log, proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -9292,6 +9479,706 @@ def run_moe_parity():
                     init, gpu, cpu, grads), checks))
 
 
+# ---------------------------------------------------------------------------
+# phase 34: gradient merge, ModelAverage, the metric ops and
+# fluid.gradients on the BERT-base step
+# ---------------------------------------------------------------------------
+
+GM_K, GM_BATCH = 4, 32     # k_steps, the micro-batch: b128 a boundary
+GM_MICRO_STEPS = 2 * GM_K  # two boundaries
+GM_EVAL_BATCHES = 4
+# the equivalence gate: GM's first boundary update against one plain
+# b128 Adam step may differ from it at most this many times as much as
+# the plain step differs from itself with the batch's rows permuted (the
+# control: the same sums in another order; GM adds four partial grads),
+# both over every held leaf at once (_gm_update_rel's global_rel): a
+# worst leaf would set one leaf's rounding against another's, and the
+# control cannot move some leaves at all (an embedding's exact
+# index-add sums in one order whatever the rows' order).  The gate must
+# fail a wrong merge: the same GM run with its step counter started one
+# ahead (the boundary after three micro-batches, the fourth dropped from
+# the merge) is read against the same limit and must exceed it
+GM_EQUIV_FACTOR = 4.0
+GM_AUC_ATOL = 1e-6         # the op's fp32 AUC against the host's fp64
+GM_ACC_ATOL = 1e-6         # the op's fp32 accuracy against the count
+GM_WGAN_LR, GM_WGAN_STEPS = 1e-3, 3
+
+
+def _gm_cfg(**kw):
+    from paddle_tpu_torch.models import bert
+
+    return bert.BertConfig.base(vocab_size=30528, use_flash_attention=True,
+                                attn_dropout=0.0, **kw)
+
+
+def _gm_program(cfg, bf16, k=GM_K, average=True):
+    """BERT-base pretraining with GradientMergeOptimizer(Adam(TRAIN_LR),
+    k) (``k`` None: plain Adam) and, with ``average``, a ModelAverage
+    updated in the program; returns (main, startup, loss, average)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    avg = None
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg)
+        opt = fluid.optimizer.Adam(learning_rate=TRAIN_LR)
+        if k is not None:
+            opt = fluid.optimizer.GradientMergeOptimizer(opt, k_steps=k)
+        opt.minimize(loss)
+        if average:
+            avg = fluid.optimizer.ModelAverage(0.15)
+            avg.update()
+    if bf16:
+        enable_bf16_policy(main)
+    startup.random_seed = SEED
+    return main, startup, loss, avg
+
+
+def _gm_batches(cfg, seed, n=GM_K):
+    from paddle_tpu_torch.models import bert
+
+    return [bert.make_fake_batch(cfg, GM_BATCH, TRAIN_SEQ, seed=seed + i)
+            for i in range(n)]
+
+
+def _gm_metrics(feeds, outs, stats):
+    """The auc op's last value and histograms (``stats``, pos and neg)
+    against fluid.metrics.Auc fed the fetched probabilities, and
+    fluid.metrics.Accuracy over the fetched accuracy outputs against the
+    host's count; raises past GM_AUC_ATOL / GM_ACC_ATOL."""
+    from paddle_tpu_torch import fluid
+
+    m_auc = fluid.metrics.Auc(num_thresholds=4095)
+    m_acc = fluid.metrics.Accuracy()
+    right = rows = 0
+    for f, (_, prob, acc, _, total) in zip(feeds, outs):
+        m_auc.update(prob, f["labels"])
+        m_acc.update(value=float(acc), weight=int(total))
+        right += int((prob.argmax(1) == f["labels"].reshape(-1)).sum())
+        rows += len(prob)
+    pos, neg = (t.cpu().numpy() for t in stats)
+    if not (np.array_equal(pos, m_auc._stat_pos)
+            and np.array_equal(neg, m_auc._stat_neg)):
+        raise AssertionError("gm eval: the auc op's stat buffers differ from "
+                             "fluid.metrics.Auc's")
+    auc_op, auc_host = float(outs[-1][0]), m_auc.eval()
+    acc_metric, acc_host = m_acc.eval(), right / rows
+    if not (abs(auc_op - auc_host) <= GM_AUC_ATOL
+            and abs(acc_metric - acc_host) <= GM_ACC_ATOL):
+        raise AssertionError(f"gm eval: auc {auc_op} against {auc_host}, "
+                             f"accuracy {acc_metric} against {acc_host}")
+    return dict(auc_op=auc_op, auc_metrics=auc_host,
+                accuracy_metrics=acc_metric, accuracy_host=acc_host,
+                buckets_used=int(((pos + neg) > 0).sum()),
+                positives=int(pos.sum()), negatives=int(neg.sum()))
+
+
+def _gm_join(parts, perm=None):
+    """The micro-batches ``parts`` as one batch, its samples in order or
+    in the order ``perm``: ``mask_pos`` indexes the flattened [b·s] rows,
+    so each masked position moves with its sample (the masked list keeps
+    its order)."""
+    b, seq = parts[0]["src_ids"].shape
+    out = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    out["mask_pos"] = np.concatenate(
+        [p["mask_pos"] + i * b * seq for i, p in enumerate(parts)])
+    if perm is not None:
+        for k in ("src_ids", "pos_ids", "sent_ids", "input_mask", "labels"):
+            out[k] = out[k][perm]
+        sample, off = np.divmod(out["mask_pos"], seq)
+        out["mask_pos"] = np.argsort(perm)[sample] * seq + off
+    return out
+
+
+def _gm_state_names(main):
+    """The parameters and the inner Adam's moments and beta powers (not
+    the merge's own ``_gm_`` state nor the averages)."""
+    block = main.global_block()
+    params = [p.name for p in main.all_parameters()]
+    adam = sorted(n for n, v in block.vars.items() if v.persistable
+                  and "_gm_" not in n and any(
+                      s in n for s in ("_moment1_", "_moment2_",
+                                       "_beta1_pow_acc_", "_beta2_pow_acc_")))
+    return params, adam
+
+
+def run_gm_path(counters):
+    """Phase 34 (1): BERT-base b32 s128 micro-batches, the bf16 policy,
+    GradientMergeOptimizer(Adam(1e-4), k_steps=4) and a ModelAverage,
+    GM_MICRO_STEPS micro-steps over four fixed batches, captured and
+    eager in turns from one state.
+
+    Gates: off the boundary (micro-steps 1-3, 5-7) every parameter, Adam
+    moment and beta power equals its value at the last boundary bit for
+    bit: the merge's blend selects the snapshot exactly (0·x + 1·s), so
+    any difference is a fault, whatever its size; at 4 and 8 every
+    parameter changes and each beta power is the last boundary's times
+    its beta, computed as the adam op computes it (one advance a
+    boundary); the two modes' losses and final state bit-equal, as on
+    phases 4 and 32 (the same ops on the same inputs); K1-K4 launch
+    _train_step_launches(cfg) a micro-step on the card and in the
+    wrappers, exactly, since the merge adds no kernel."""
+    from paddle_tpu_torch import fluid
+
+    cfg = _gm_cfg()
+    main, startup, loss, avg = _gm_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    scopes = {"captured": scope, "eager": _clone_scope(scope)}
+    exes = _executors()
+    feeds = _gm_batches(cfg, seed=200)
+    params, adam = _gm_state_names(main)
+    watched = params + adam
+    pows = {n: 0.9 if "_beta1_pow_acc_" in n else 0.999
+            for n in adam if "_pow_acc_" in n}
+    last = {n: scope.get(n).clone() for n in watched}
+    losses = {m: [] for m in exes}
+    secs = {m: [] for m in exes}
+    peak = 0
+    launches = {m: {} for m in exes}
+    on_card = {m: {} for m in exes}
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    for i in range(GM_MICRO_STEPS):
+        for m, exe in exes.items():  # in turns
+            torch.cuda.reset_peak_memory_stats()
+            before = _snap()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed=feeds[i % GM_K], fetch_list=[loss],
+                            scope=scopes[m])
+            secs[m].append(time.perf_counter() - t0)
+            py, dev = _since(before, counters)
+            _add(launches[m], py)
+            _add(on_card[m], dev)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            losses[m].append(float(lv))
+        now = scopes["captured"]
+        if (i + 1) % GM_K:
+            moved = [n for n in watched if not torch.equal(now.get(n),
+                                                           last[n])]
+            if moved:
+                raise AssertionError(f"gm path: micro-step {i + 1} moved "
+                                     f"{len(moved)} vars off the boundary, "
+                                     f"{moved[:5]}")
+        else:
+            still = [n for n in params if torch.equal(now.get(n), last[n])]
+            bad = [n for n, b in pows.items() if not torch.equal(
+                now.get(n), last[n].clone().mul_(b))]
+            if still or bad:
+                raise AssertionError(f"gm path: boundary {i + 1}: "
+                                     f"unchanged {still[:5]}, beta powers "
+                                     f"not advanced once {bad[:5]}")
+            last = {n: now.get(n).clone() for n in watched}
+    _gate_launches("gm path", launches, on_card, _train_step_launches(cfg),
+                   GM_MICRO_STEPS, 1)
+    diff = _scope_diff(scopes["captured"], scopes["eager"])
+    if losses["captured"] != losses["eager"] or diff:
+        raise AssertionError(f"gm path: captured and eager differ: losses "
+                             f"{losses}, state {diff[:5]}")
+    if not all(np.isfinite(losses["captured"])):
+        raise AssertionError(f"gm path: losses {losses['captured']}")
+    modes = {}
+    for m in exes:
+        t = np.asarray(secs[m][1:])  # the first run warms up (captures)
+        boundary = [secs[m][i] for i in range(1, GM_MICRO_STEPS)
+                    if (i + 1) % GM_K == 0]
+        off = [secs[m][i] for i in range(1, GM_MICRO_STEPS)
+               if (i + 1) % GM_K]
+        modes[m] = dict(micro_step_p50_ms=1e3 * float(np.median(t)),
+                        boundary_extra_ms=1e3 * (float(np.median(boundary))
+                                                 - float(np.median(off))),
+                        first_step_s=secs[m][0],
+                        launches=launches[m], device_launches=on_card[m])
+    modes["captured"]["capture_s"] = _capture_seconds(exes["captured"], main)
+    n_acc = sum("_gm_acc" in n for n in main.global_block().vars)
+    n_snap = sum("_gm_snap" in n for n in main.global_block().vars)
+    path = dict(
+        model="BertConfig.base(vocab_size=30528)", micro_batch=GM_BATCH,
+        seq_len=TRAIN_SEQ, k_steps=GM_K, effective_batch=GM_K * GM_BATCH,
+        dtype_policy="bf16", micro_steps=GM_MICRO_STEPS,
+        losses=losses["captured"], watched_vars=len(watched),
+        gm_accumulators=n_acc, gm_snapshots=n_snap,
+        off_boundary_bit_equal=True, beta_pow_advanced_once=True,
+        captured_eager_bit_equal=True, modes=modes,
+        peak_memory_gb=peak / 1e9, graph_pools_gb=graph_pools_gb(),
+        per_micro_step_launches=_train_step_launches(cfg),
+        launches=_summed(launches), device_launches=_summed(on_card))
+    state = dict(cfg=cfg, main=main, scope=scope, avg=avg, exes=exes)
+    return state, path
+
+
+def _gm_eval_program(cfg):
+    """The is_test pretraining graph (fp32) with the auc op on the NSP
+    head's probabilities; returns (main, startup, fetch names)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        bert.build_bert_pretrain(cfg, is_test=True)
+        block = main.global_block()
+        topk = [op for op in block.ops if op.type == "top_k"][-1]
+        acc_op = [op for op in block.ops if op.type == "accuracy"][-1]
+        prob = block.var(topk.input("X")[0])
+        auc_out, stats = fluid.layers.auc(prob, block.var("labels"))
+    fetch = [auc_out.name, prob.name, acc_op.output("Accuracy")[0],
+             acc_op.output("Correct")[0], acc_op.output("Total")[0]]
+    return main, startup, fetch, [s.name for s in stats]
+
+
+def run_gm_eval(state, counters):
+    """Phase 34 (2): the evaluation under ModelAverage.apply().
+
+    The fp32 is_test program with the auc and accuracy ops on the NSP
+    head is captured on the training scope before the context; inside,
+    the scope's own parameter tensors hold the averages bit for bit (a
+    copy, so no rounding: equal or a fault), and GM_EVAL_BATCHES batches
+    replay the graph, which reads them; an eager run of the same batches
+    on a copy of the scope gives the same bits (both modes run the same
+    ops).  The auc op's stat buffers equal fluid.metrics.Auc's fed the
+    fetched probabilities (integers: equal), its value within
+    GM_AUC_ATOL (fp32 against fp64 of the same sums); fluid.metrics.
+    Accuracy over the fetched accuracy outputs within GM_ACC_ATOL of the
+    host's count (argmax of the fetched probabilities).  After the
+    context the parameters are the trained ones bit for bit, in the same
+    tensor objects, and the metric gates hold again for the same
+    batches on them (the averages of 8 micro-steps, not bias-corrected,
+    are about 1% of the weights: their probabilities fill few
+    buckets)."""
+    from paddle_tpu_torch import fluid
+
+    cfg, scope, avg = state["cfg"], state["scope"], state["avg"]
+    main, _, fetch, stat_names = _gm_eval_program(cfg)
+    for n in stat_names:  # the startup's zeros (it would also reseed
+        # every parameter over the trained ones)
+        scope.set(n, torch.zeros(main.global_block().var(n).shape,
+                                 dtype=torch.int64,
+                                 device=_gpu_place().torch_device()))
+    feeds = _gm_batches(cfg, seed=300, n=GM_EVAL_BATCHES)
+    exes = _executors()
+    exes["captured"].run(main, feed=feeds[0], fetch_list=fetch,
+                         scope=scope)  # warm-up and capture, outside
+    for n in stat_names:
+        scope.get(n).zero_()
+    params = list(avg._ema_vars)
+    objs = {p: scope.get(p) for p in params}
+    trained = {p: objs[p].clone() for p in params}
+    for w in counters.values():
+        w.launches = 0
+    before = _snap()
+    outs = []
+    with fluid.scope_guard(scope), avg.apply(exes["captured"]):
+        swapped = [p for p in params if scope.get(p) is not objs[p]
+                   or not torch.equal(objs[p], scope.get(
+                       avg._ema_vars[p].name))]
+        if swapped:
+            raise AssertionError(f"gm eval: inside apply() {swapped[:5]} "
+                                 f"are not the averages in place")
+        for f in feeds:
+            outs.append(exes["captured"].run(main, feed=f, fetch_list=fetch,
+                                             scope=scope))
+        stats = {n: scope.get(n).clone() for n in stat_names}
+        copy = _clone_scope(scope)
+    launches, dev = _since(before, counters)
+    restored = [p for p in params if scope.get(p) is not objs[p]
+                or not torch.equal(objs[p], trained[p])]
+    if restored:
+        raise AssertionError(f"gm eval: after apply() {restored[:5]} are not "
+                             f"the trained tensors")
+    for n in stat_names:
+        copy.get(n).zero_()
+    eager = [exes["eager"].run(main, feed=f, fetch_list=fetch, scope=copy)
+             for f in feeds]
+    if not all(np.array_equal(a, b) for x, y in zip(outs, eager)
+               for a, b in zip(x, y)):
+        raise AssertionError("gm eval: the captured replays inside apply() "
+                             "and an eager run on the averages differ")
+    averaged = _gm_metrics(feeds, outs, [stats[n] for n in stat_names])
+    # the same batches on the trained parameters, the graph replayed
+    for n in stat_names:
+        scope.get(n).zero_()
+    outs = [exes["captured"].run(main, feed=f, fetch_list=fetch,
+                                 scope=scope) for f in feeds]
+    trained_m = _gm_metrics(feeds, outs, [scope.get(n) for n in stat_names])
+    return dict(batches=GM_EVAL_BATCHES, dtype="float32",
+                averaged=averaged, trained=trained_m,
+                auc_op=averaged["auc_op"], stats_equal=True,
+                averages_in_place=True, restored_bit_equal=True,
+                captured_eager_bit_equal=True, launches=launches,
+                device_launches=dev)
+
+
+def _gm_update_rel(init, a, b, g_rms):
+    """Run ``a``'s update against run ``b``'s (both from ``init``) over
+    the leaves whose first gradient's RMS (``g_rms``, run ``b``'s) is at
+    least DP_GRAD_FLOOR of the median leaf's, as phase 5's
+    _update_readings holds them (below it, such as an attention key
+    bias, whose exact gradient is 0, a gradient of rounding only, which
+    Adam's first step turns into ±lr at random): ``global_rel``, the
+    norm of the difference of the two updates over the norm of ``b``'s,
+    both over every held leaf at once (gated); and, printed, the worst
+    leaf's ||Δa − Δb|| / ||Δb|| (``change_rel``) and mean |Δa − Δb|
+    (``mean_abs``)."""
+    median = float(np.median(list(g_rms.values())))
+    held = [n for n, r in g_rms.items() if r >= DP_GRAD_FLOOR * median]
+    rel, mean = {}, {}
+    diff2 = base2 = 0.0
+    for n in held:
+        da = a[n].double() - init[n].double()
+        db = b[n].double() - init[n].double()
+        d2 = float(torch.linalg.vector_norm(da - db)) ** 2
+        b2 = float(torch.linalg.vector_norm(db)) ** 2
+        diff2, base2 = diff2 + d2, base2 + b2
+        rel[n] = (d2 / max(b2, 1e-60)) ** 0.5
+        mean[n] = float((da - db).abs().mean())
+    worst_rel, worst_mean = max(rel, key=rel.get), max(mean, key=mean.get)
+    return dict(leaves=len(g_rms), leaves_held=len(held),
+                global_rel=(diff2 / max(base2, 1e-60)) ** 0.5,
+                change_rel=rel[worst_rel], change_rel_leaf=worst_rel,
+                mean_abs=mean[worst_mean], mean_abs_leaf=worst_mean)
+
+
+def run_gm_equivalence():
+    """Phase 34 (3): hidden dropout 0, GM's first boundary over the four
+    b32 slices of one b128 batch against one plain Adam step at b128 on
+    that batch, from the same parameters; and, as the control, the plain
+    step against itself on the batch with its samples permuted (only the
+    order of the sums moves).  Under the fp32 policy (phase 20's) GM's
+    distance is gated at GM_EQUIV_FACTOR x the control's, and a planted
+    fault (GM's counter started at 1: the boundary after three slices,
+    the fourth dropped from the merge) must read past that limit, or
+    the gate could not see a wrong merge; under the bf16
+    policy it is printed beside its control, not gated: the merge adds
+    its micro-batch grads in bf16 (its accumulation ops are backward
+    ops, which the policy runs in bf16, as the JAX package does).  The
+    distance is _gm_update_rel's global_rel over the held leaves."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+
+    cfg = _gm_cfg(hidden_dropout=0.0)
+    parts = _gm_batches(cfg, seed=400)
+    full = _gm_join(parts)
+    perm = np.random.RandomState(SEED).permutation(GM_K * GM_BATCH)
+    fullp = _gm_join(parts, perm)
+    gm_main, gm_start, gm_loss, _ = _gm_program(cfg, False, average=False)
+    pl_main, pl_start, pl_loss, _ = _gm_program(cfg, False, k=None,
+                                                average=False)
+    names = [p.name for p in pl_main.all_parameters()]
+    with capture_mode(False):
+        exe = fluid.Executor(_gpu_place())
+    out = {}
+    for policy in ("fp32", "bf16"):
+        if policy == "bf16":
+            enable_bf16_policy(gm_main)
+            enable_bf16_policy(pl_main)
+        base = fluid.Scope()
+        exe.run(pl_start, scope=base)
+        init = {n: base.get(n).clone() for n in names}
+        runs, losses, g_rms = {}, {}, None
+        grads = [g for _, g in pl_main._params_grads]
+        for key, feed in (("plain", full), ("permuted", fullp)):
+            s = _clone_scope(base)
+            got = exe.run(pl_main, feed=feed, fetch_list=[pl_loss] + grads,
+                          scope=s, return_numpy=False)
+            losses[key] = float(got[0])
+            if g_rms is None:
+                g_rms = {p: float(g.double().square().mean().sqrt())
+                         for (p, _), g in zip(pl_main._params_grads,
+                                              got[1:])}
+            runs[key] = {n: s.get(n) for n in names}
+        s = fluid.Scope()
+        exe.run(gm_start, scope=s)
+        for n in names:
+            s.get(n).copy_(init[n])
+        micro = [float(exe.run(gm_main, feed=f, fetch_list=[gm_loss],
+                               scope=s)[0]) for f in parts]
+        runs["gm"] = {n: s.get(n) for n in names}
+        gm = _gm_update_rel(init, runs["gm"], runs["plain"], g_rms)
+        ctl = _gm_update_rel(init, runs["permuted"], runs["plain"], g_rms)
+        out[policy] = dict(gm=gm, control=ctl, losses=losses,
+                           micro_losses=micro,
+                           micro_loss_mean=float(np.mean(micro)))
+        if policy == "fp32":
+            s = fluid.Scope()
+            exe.run(gm_start, scope=s)
+            for n in names:
+                s.get(n).copy_(init[n])
+            (counter,) = [v.name for v in gm_main.list_vars()
+                          if v.name.startswith("gm_step")]
+            s.get(counter).fill_(1)
+            for f in parts[:GM_K - 1]:
+                exe.run(gm_main, feed=f, fetch_list=[gm_loss], scope=s)
+            out[policy]["planted_dropped_slice"] = _gm_update_rel(
+                init, {n: s.get(n) for n in names}, runs["plain"], g_rms)
+        del base, s, runs
+        torch.cuda.empty_cache()
+    r = out["fp32"]
+    limit = GM_EQUIV_FACTOR * r["control"]["global_rel"]
+    if not (0 < r["control"]["global_rel"]
+            and r["gm"]["global_rel"] <= limit):
+        raise AssertionError(f"gm equivalence (fp32): GM {r['gm']} against "
+                             f"the plain b128 step, control {r['control']}, "
+                             f"limit {limit}")
+    if not r["planted_dropped_slice"]["global_rel"] > limit:
+        raise AssertionError(f"gm equivalence (fp32): a slice dropped from "
+                             f"the merge reads {r['planted_dropped_slice']}"
+                             f", within the limit {limit}: the gate cannot "
+                             f"see a wrong merge")
+    return dict(batch=GM_K * GM_BATCH, slices=GM_K, factor=GM_EQUIV_FACTOR,
+                fp32_limit=limit, **out)
+
+
+def _gm_saliency_program(cfg, bf16):
+    """The is_test pretraining loss and fluid.gradients of it with
+    respect to the summed embeddings (the first layer_norm's input)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        enable_bf16_policy)
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, _, _ = bert.build_bert_pretrain(cfg, is_test=True)
+        block = main.global_block()
+        ln = [op for op in block.ops if op.type == "layer_norm"][0]
+        emb = block.var(ln.input("X")[0])
+        (sal,) = fluid.gradients(loss, [emb])
+    if bf16:
+        enable_bf16_policy(main)
+    startup.random_seed = SEED
+    return main, startup, loss, sal
+
+
+def _gm_wgan_program():
+    """tests/test_double_grad.py's WGAN-GP critic step (b8, d6): the
+    gradient penalty through fluid.gradients, Adam(GM_WGAN_LR)."""
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        real = L.data(name="real", shape=[6], dtype="float32")
+        fake = L.data(name="fake", shape=[6], dtype="float32")
+        alpha = L.data(name="alpha", shape=[1], dtype="float32")
+
+        def critic(v):
+            h = L.fc(v, size=16, act="relu", param_attr="c_w1",
+                     bias_attr="c_b1")
+            return L.fc(h, size=1, param_attr="c_w2", bias_attr="c_b2")
+
+        inter = L.elementwise_add(
+            L.elementwise_mul(real, alpha),
+            L.elementwise_mul(fake, L.elementwise_sub(L.ones_like(alpha),
+                                                      alpha)))
+        inter.stop_gradient = False
+        (g,) = fluid.gradients(critic(inter), inter)
+        norm = L.sqrt(L.reduce_sum(L.square(g), dim=1, keep_dim=False))
+        gp = L.mean(L.square(norm - 1.0))
+        loss = L.mean(critic(fake)) - L.mean(critic(real)) + 10.0 * gp
+        fluid.optimizer.Adam(learning_rate=GM_WGAN_LR).minimize(loss)
+    startup.random_seed = SEED
+    return main, startup, loss, gp
+
+
+def _gm_conv_double_program():
+    """tests/test_double_grad.py's conv2d case (x [2, 1, 5, 5], W [2, 1,
+    3, 3]): z = mean((d mean(sigmoid(conv2d(x, W))) / dx)²) and dz/dW,
+    through conv2d_grad_grad (derived)."""
+    from paddle_tpu_torch import fluid
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data(name="x", shape=[1, 5, 5], dtype="float32")
+        x.stop_gradient = False
+        w = L.create_parameter([2, 1, 3, 3], "float32", name="Wc")
+        blk = main.current_block()
+        conv = blk.create_var(name="convy", shape=None, dtype="float32")
+        blk.append_op("conv2d", inputs={"Input": [x], "Filter": [w]},
+                      outputs={"Output": [conv]},
+                      attrs={"strides": [1, 1], "paddings": [1, 1],
+                             "dilations": [1, 1], "groups": 1})
+        (dx,) = fluid.gradients(L.mean(L.sigmoid(conv)), x)
+        z = L.mean(L.square(dx))
+        (dw,) = fluid.gradients(z, w)
+    startup.random_seed = SEED
+    return main, startup, z, dw
+
+
+def run_gm_gradients(counters):
+    """Phase 34 (4): fluid.gradients on the card.  The saliency of the
+    loss with respect to the summed embeddings at full width (b32 s128,
+    the bf16 policy): finite, not all zero, and its backward launches
+    K2 and K3 once a layer on the card.  At 2 layers, fp32, b4 s128,
+    the card's saliency and loss against a CPUPlace run from the same
+    parameters: the grad within NMT_PARITY_GRAD_RTOL (relative L2, the
+    earlier fp32 parities' gradient limit), the loss within
+    TRAIN_LOSS_RTOL.  The WGAN-GP penalty of tests/test_double_grad.py
+    at its size (mul and relu double grads, derived): GM_WGAN_STEPS Adam
+    steps on the card and on the CPU from the same parameters, losses
+    within TRAIN_LOSS_RTOL and every parameter within 3 x its learning
+    rate (phase 5's rule for an Adam step's sign flips).  And the same
+    file's conv2d case (conv2d_grad_grad, derived from the conv grad's
+    convolution_backward): dW of the gradient norm on the card against
+    the CPU within NMT_PARITY_GRAD_RTOL, z within TRAIN_LOSS_RTOL."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.models import bert
+
+    out = {}
+    cfg = _gm_cfg()
+    main, startup, loss, sal = _gm_saliency_program(cfg, bf16=True)
+    scope = fluid.Scope()
+    fluid.Executor(_gpu_place()).run(startup, scope=scope)
+    feed = bert.make_fake_batch(cfg, GM_BATCH, TRAIN_SEQ, seed=500)
+    with capture_mode(False):
+        exe = fluid.Executor(_gpu_place())
+    for w in counters.values():
+        w.launches = 0
+    before = _snap()
+    _, g = exe.run(main, feed=feed, fetch_list=[loss, sal], scope=scope)
+    launches, dev = _since(before, counters)
+    want = {"flash_fwd": 2 * cfg.num_layers, "flash_bwd_dq": cfg.num_layers,
+            "flash_bwd_dkv": cfg.num_layers}
+    if not (np.isfinite(g).all() and np.abs(g).max() > 0
+            and {k: dev[k] for k in want} == want):
+        raise AssertionError(f"gm saliency: finite {np.isfinite(g).all()}, "
+                             f"max {np.abs(g).max()}, launches {dev}")
+    out["saliency"] = dict(shape=list(g.shape), max_abs=float(np.abs(g).max()),
+                           launches=launches, device_launches=dev)
+    del scope
+    cfg2 = _gm_cfg(num_layers=2, hidden_dropout=0.0)
+    main, startup, loss, sal = _gm_saliency_program(cfg2, bf16=False)
+    feed = bert.make_fake_batch(cfg2, 4, TRAIN_SEQ, seed=501)
+    got = {}
+    init = None
+    for key, place in (("card", _gpu_place()), ("cpu", fluid.CPUPlace())):
+        s = fluid.Scope()
+        with capture_mode(False):
+            e = fluid.Executor(place)
+        e.run(startup, scope=s)
+        if init is None:
+            init = {p.name: s.get(p.name).cpu().numpy().copy()
+                    for p in main.all_parameters()}
+        else:
+            convert.load_params(s, init, place, program=main)
+        got[key] = e.run(main, feed=feed, fetch_list=[loss, sal], scope=s)
+    (lc, gc), (lh, gh) = got["card"], got["cpu"]
+    grel = float(np.linalg.norm(gc.astype(np.float64) - gh)
+                 / np.linalg.norm(gh.astype(np.float64)))
+    lrel = abs(float(lc) - float(lh)) / abs(float(lh))
+    if not (grel <= NMT_PARITY_GRAD_RTOL and lrel < TRAIN_LOSS_RTOL):
+        raise AssertionError(f"gm saliency parity: grad rel {grel}, loss rel "
+                             f"{lrel}")
+    out["saliency_parity"] = dict(layers=2, batch=4, grad_rel=grel,
+                                  grad_rtol=NMT_PARITY_GRAD_RTOL,
+                                  loss_rel=lrel, loss_rtol=TRAIN_LOSS_RTOL)
+    main, startup, loss, gp = _gm_wgan_program()
+    rng = np.random.RandomState(2)
+    feeds = [{"real": rng.randn(8, 6).astype("float32") + 2.0,
+              "fake": rng.randn(8, 6).astype("float32"),
+              "alpha": rng.uniform(size=(8, 1)).astype("float32")}
+             for _ in range(GM_WGAN_STEPS)]
+    runs, init = {}, None
+    for key, place in (("card", _gpu_place()), ("cpu", fluid.CPUPlace())):
+        s = fluid.Scope()
+        e = fluid.Executor(place)
+        e.run(startup, scope=s)
+        if init is None:
+            init = {p.name: s.get(p.name).cpu().numpy().copy()
+                    for p in main.all_parameters()}
+        else:
+            convert.load_params(s, init, place, program=main)
+        ls = [[float(v) for v in e.run(main, feed=f, fetch_list=[loss, gp],
+                                       scope=s)] for f in feeds]
+        runs[key] = (ls, {n: s.get(n).cpu().numpy() for n in init})
+    (lc, pc), (lh, ph) = runs["card"], runs["cpu"]
+    lrel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(lc, lh))
+    pdiff = max(float(np.abs(pc[n] - ph[n]).max()) for n in init)
+    second = sorted({op.type for op in main.global_block().ops
+                     if op.type.endswith("_grad_grad")})
+    if not (lrel < TRAIN_LOSS_RTOL and pdiff <= 3 * GM_WGAN_LR
+            and all(np.isfinite(v) for r in lc for v in r) and second):
+        raise AssertionError(f"gm wgan-gp: losses {lc} vs {lh} (rel {lrel}), "
+                             f"params {pdiff}, second-order ops {second}")
+    out["wgan_gp"] = dict(steps=GM_WGAN_STEPS, losses_card=lc, losses_cpu=lh,
+                          loss_max_rel_diff=lrel, param_max_abs_diff=pdiff,
+                          param_atol=3 * GM_WGAN_LR, double_grad_ops=second)
+    main, startup, z, dw = _gm_conv_double_program()
+    feed = {"x": np.random.RandomState(1).randn(2, 1, 5, 5)
+            .astype("float32")}
+    got, init = {}, None
+    for key, place in (("card", _gpu_place()), ("cpu", fluid.CPUPlace())):
+        s = fluid.Scope()
+        e = fluid.Executor(place)
+        e.run(startup, scope=s)
+        if init is None:
+            init = {"Wc": s.get("Wc").cpu().numpy().copy()}
+        else:
+            convert.load_params(s, init, place, program=main)
+        got[key] = e.run(main, feed=feed, fetch_list=[z, dw], scope=s)
+    (zc, gc), (zh, gh) = got["card"], got["cpu"]
+    grel = float(np.linalg.norm(gc.astype(np.float64) - gh)
+                 / np.linalg.norm(gh.astype(np.float64)))
+    zrel = abs(float(zc) - float(zh)) / abs(float(zh))
+    second = sorted({op.type for op in main.global_block().ops
+                     if op.type.endswith("_grad_grad")})
+    if not (grel <= NMT_PARITY_GRAD_RTOL and zrel < TRAIN_LOSS_RTOL
+            and "conv2d_grad_grad" in second):
+        raise AssertionError(f"gm conv2d double grad: dW rel {grel}, z rel "
+                             f"{zrel}, second-order ops {second}")
+    out["conv2d_double_grad"] = dict(
+        dw_rel=grel, z_rel=zrel, grad_rtol=NMT_PARITY_GRAD_RTOL,
+        loss_rtol=TRAIN_LOSS_RTOL, double_grad_ops=second)
+    return out
+
+
+def run_gm_phase(wrappers, say, smi):
+    """Phase 34: its four parts, each with its counts zeroed just before
+    and read just after; returns the phase's readings (launches summed
+    over the parts)."""
+    t0 = time.perf_counter()
+    counters = {k: wrappers[k] for k in TRAIN_KERNELS}
+    torch.cuda.empty_cache()
+    state, path = run_gm_path(counters)
+    say("gm path", {"card": smi, **path})
+    ev = run_gm_eval(state, counters)
+    say("gm eval", {"card": smi, **ev})
+    del state
+    torch.cuda.empty_cache()
+    eq = run_gm_equivalence()
+    say("gm equivalence", {"card": smi, **eq})
+    torch.cuda.empty_cache()
+    gr = run_gm_gradients(counters)
+    say("gm gradients", {"card": smi, **gr})
+    torch.cuda.empty_cache()
+    out = {"path": path, "eval": ev, "equivalence": eq, "gradients": gr,
+           "seconds": time.perf_counter() - t0}
+    for key in ("launches", "device_launches"):
+        total = {}
+        for part in (path, ev, gr["saliency"]):
+            _add(total, part[key])
+        out[key] = total
+    m = path["modes"]
+    say("gm summary", {
+        "card": smi,
+        "micro_step_ms": {k: m[k]["micro_step_p50_ms"] for k in m},
+        "boundary_extra_ms": {k: m[k]["boundary_extra_ms"] for k in m},
+        "peak_memory_gb": path["peak_memory_gb"],
+        "equivalence_fp32": eq["fp32"]["gm"]["global_rel"],
+        "equivalence_fp32_control": eq["fp32"]["control"]["global_rel"],
+        "equivalence_fp32_planted_dropped_slice":
+            eq["fp32"]["planted_dropped_slice"]["global_rel"],
+        "equivalence_bf16": eq["bf16"]["gm"]["global_rel"],
+        "equivalence_bf16_control": eq["bf16"]["control"]["global_rel"],
+        "auc": ev["auc_op"], "gm_seconds": out["seconds"]})
+    return out
+
+
 ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
                  "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -9307,7 +10194,7 @@ ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
 # phase 28, and "generate" phase 3's K1-K3 at the generation programs'
 # prefill shapes and phase 29, "persist" phase 30, "resnetdp" K8's
 # momentum group form at phase 31's members and phase 31, "amp" K4's
-# fp16 form and phase 32, and "moe" phase 33
+# fp16 form and phase 32, "moe" phase 33, and "gm" phase 34
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -9342,10 +10229,11 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         "resnetdp": (ALL_LIBRARIES, ("check_fused_update_group_momentum",)),
         "amp": (("flash_attention", "fused_bias_act"),
                 ("check_bias_gelu_fp16",)),
-        "moe": (("flash_attention", "fused_bias_act"), ())}
+        "moe": (("flash_attention", "fused_bias_act"), ()),
+        "gm": (("flash_attention", "fused_bias_act"), ())}
 NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
               "resnet", "cnn", "nmt", "book", "health", "generate",
-              "persist", "resnetdp", "amp", "moe")
+              "persist", "resnetdp", "amp", "moe", "gm")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -9353,7 +10241,7 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    cpu_child, keys=NEW_PHASES, train=None):
-    """Phases 20, 14-19 and 21-33 (those of ``keys``, in that order);
+    """Phases 20, 14-19 and 21-34 (those of ``keys``, in that order);
     returns their path readings (None for a phase not run).  Phase 16's
     ids are compared with ``fp32_outs``, the fp32-weight lane's, where
     given (printed, not gated); phase 30's decode ids with its first
@@ -9361,7 +10249,7 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
     (``train``) where it ran.  ``cpu_child``: the CPU reference child
     (CpuChild) of phases 18 and 32 among ``keys``."""
     ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = nmt = None
-    book = health = gen = persist = resnetdp = amp = moe = None
+    book = health = gen = persist = resnetdp = amp = moe = gm = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -9494,8 +10382,10 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         torch.cuda.empty_cache()
         moe["parity"] = run_moe_parity()
         say("moe parity", moe["parity"])
+    if "gm" in keys:
+        gm = run_gm_phase(wrappers, say, smi)
     return (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
-            health, gen, persist, resnetdp, amp, moe)
+            health, gen, persist, resnetdp, amp, moe, gm)
 
 
 def run_only(keys, dev, smi, say):
@@ -9507,6 +10397,7 @@ def run_only(keys, dev, smi, say):
 
     libs = sorted({lib for k in keys for lib in ONLY[k][0]})
     _build.start_builds(libs)
+    start_warm_children([r for r in WARM_ROLES if r in keys])
     new = [k for k in keys if k in NEW_PHASES]
     parts = [p for p in CPU_CHILD_PARTS if p in new]
     child = CpuChild(parts) if parts else None
@@ -9549,8 +10440,9 @@ def run_only(keys, dev, smi, say):
 def run_phases_1_to_3(dev, smi, say):
     """Phases 1-3 of a whole run: every kernel's build (all started
     together), the build reports, and every kernel's checks against its
-    plain version with their timings; K4-K8's while the flash kernels
-    still build, K1-K3's after.  The CPU reference child (CpuChild)
+    plain version with their timings; K4's, K6's and K8's while the
+    paged and flash kernels still build, K5's and K7's next, K1-K3's
+    after.  The CPU reference child (CpuChild)
     starts with the builds and is waited for before the timings line,
     whose launch floor is a host reading.  Returns the checks' worst
     errors (``errs``) and timings (``timings``, as printed) and the
@@ -9575,21 +10467,23 @@ def run_phases_1_to_3(dev, smi, say):
         check_s[label] = time.perf_counter() - t0
         ended_s[label] = time.perf_counter() - t_start
 
-    check("k5", check_paged, dev, rng)
+    # the kernels whose builds end first are checked first: K4, K6 and
+    # K8 while the paged and flash kernels still build, then K5 and K7
     check("k4", check_bias_gelu, dev, rng)
     check("k4b", check_bias_gelu_bf16, dev, rng)
     check("k4h", check_bias_gelu_fp16, dev, rng)
     # the flash checks draw from the state K4's checks leave, so their
-    # inputs do not depend on K6-K8's, which run while the flash
+    # inputs do not depend on K5-K8's, which run while the flash
     # kernels build
     flash_rng = np.random.RandomState()
     flash_rng.set_state(rng.get_state())
     check("k6", check_ragged, dev, rng)
     check("k6c", check_ragged_contract, dev, rng)
-    check("k7", check_paged, dev, rng, quant=True)
     check("k8", check_fused_update, dev, rng)
     check("k8g", check_fused_update_group, dev)
     check("k8m", check_fused_update_group_momentum, dev)
+    check("k5", check_paged, dev, rng)
+    check("k7", check_paged, dev, rng, quant=True)
     for name in _build.sources():
         if name in ("flash_attention", "paged_attention", "fused_bias_act",
                     "ragged_attention"):
@@ -9649,7 +10543,7 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
                     "gpt, fleet, fp32train, resnet, cnn, nmt, book, "
-                    "health, generate, persist, resnetdp, amp, moe): "
+                    "health, generate, persist, resnetdp, amp, moe, gm): "
                     "phases 1-3 "
                     "for those kernels alone (flash: with phase 2's flash "
                     "report; engine: phases 10-11; passes, predictor, "
@@ -9662,7 +10556,7 @@ def main(argv=None):
                     "shapes and phase 29; persist: phase 30; resnetdp: "
                     "K8's momentum group form at phase 31's members and "
                     "phase 31; amp: K4's fp16 form and phase 32; moe: "
-                    "phase 33); the "
+                    "phase 33; gm: phase 34); the "
                     "default "
                     "runs every phase")
     args = ap.parse_args(argv)
@@ -9710,6 +10604,7 @@ def main(argv=None):
             "count": torch.cuda.device_count()}}))
         return 0
 
+    start_warm_children()  # phases 19's and 30's, beside the builds
     p3 = run_phases_1_to_3(dev, smi, say)
     cpu_child, err, tm = p3["cpu_child"], p3["errs"], p3["timings"]
 
@@ -9768,7 +10663,7 @@ def main(argv=None):
     say("dp train parity", run_dp_parity())
 
     (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
-     health, gen, persist, resnetdp, amp, moe) = run_new_phases(
+     health, gen, persist, resnetdp, amp, moe, gm) = run_new_phases(
         wrappers, train_kernels, fp32_outs, smi, say, cpu_child,
         train=train)
     cpu_child.close()
@@ -9810,6 +10705,9 @@ def main(argv=None):
                      # (fp32 K1-K3, bf16 and fp16 K4); 33: K1-K3, K4 once
                      "resnet_dp": resnetdp[key], "amp": amp[key],
                      "moe": moe[key],
+                     # phase 34: the merged micro-steps (K1-K4), the
+                     # evaluation (K1, K4), the saliency pass (K1-K3)
+                     "gm": gm[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}

@@ -15,6 +15,12 @@ stream a var or one combined file) into the port's scope, held to the
 program as :func:`load_params` holds it; :func:`save_checkpoint` writes
 the port's scope in either layout for the JAX package's
 ``load_persistables``.
+
+Every persistable carries across by name, optimizer state included
+(``GradientMergeOptimizer``'s ``_gm_acc``/``_gm_snap`` and step counter,
+``ModelAverage``'s averages, the ``auc`` histograms); with a program
+given, an int32 array of a var declared int64 (the JAX package's x64-off
+form) loads as int64.
 """
 
 from __future__ import annotations
@@ -26,6 +32,11 @@ from .fluid.framework import resolve_place
 from .fluid.registry import torch_dtype
 
 __all__ = ["load_params", "load_checkpoint", "save_checkpoint"]
+
+# (array dtype, declared dtype) pairs that load as the declared dtype: the
+# JAX package runs with x64 off, so its int64 state (the auc op's
+# histograms, say) is held and saved as int32
+_X64_OFF = {("int32", "int64")}
 
 
 def load_params(scope, arrays, place, program=None):
@@ -59,7 +70,8 @@ def load_params(scope, arrays, place, program=None):
             elif tuple(a.shape) != tuple(shape):
                 problems.append(f"{name}: shape {tuple(a.shape)} != "
                                 f"{tuple(shape)}")
-            elif np.dtype(a.dtype).name != dtype:
+            elif np.dtype(a.dtype).name != dtype \
+                    and (np.dtype(a.dtype).name, dtype) not in _X64_OFF:
                 problems.append(f"{name}: dtype {a.dtype} != {dtype}")
 
         for p in program.all_parameters():
@@ -76,11 +88,15 @@ def load_params(scope, arrays, place, program=None):
             raise ValueError("load_params: parameters and model state do "
                              "not match the program: "
                              + "; ".join(problems))
+    declared = ({v.name: v.dtype for v in _persistables(program)}
+                if program is not None else {})
     for name, a in arrays.items():
+        dtype = np.dtype(a.dtype).name
+        if (dtype, declared.get(name)) in _X64_OFF:
+            dtype = declared[name]
         # a copy: ops such as adam update the scope's tensors in place
         t = torch.from_numpy(np.ascontiguousarray(a))
-        scope.set(name, t.to(device=device,
-                             dtype=torch_dtype(np.dtype(a.dtype).name),
+        scope.set(name, t.to(device=device, dtype=torch_dtype(dtype),
                              copy=True))
     return sorted(arrays)
 

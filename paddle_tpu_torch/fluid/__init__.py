@@ -24,12 +24,12 @@ from .framework import (  # noqa: F401
 )
 from .executor import Executor, Scope, global_scope, scope_guard  # noqa: F401
 from . import flags, initializer, layers  # noqa: F401
-from . import (backward, clip, compiler, contrib, io, ir,  # noqa: F401
-               nets, optimizer, regularizer)
+from . import (average, backward, clip, compiler, contrib,  # noqa: F401
+               evaluator, io, ir, metrics, nets, optimizer, regularizer)
 from . import aot_cache, incubate, proto_compat  # noqa: F401
 from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
                        ExecutionStrategy)
-from .backward import append_backward  # noqa: F401
+from .backward import append_backward, gradients  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .layers.io import data  # noqa: F401

@@ -9,6 +9,12 @@ autograd or a hand-written one replaces.  A var read by
 several ops collects one partial grad per reader (``@GRAD@RENAME@<n>``)
 and a ``sum`` op adds them.  Grad var names, attrs and op order are the
 JAX package's, so both packages build the same training program.
+
+:func:`gradients` (``fluid.gradients``) is a pass of its own over a
+program that may already carry grad ops: its grad names never reuse an
+earlier pass's, and the grad ops it differentiates get their
+second-order grad ops from the registry (fluid/registry.py,
+``grad="lazy"``).
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import collections
 from . import registry
 from .framework import Variable, grad_var_name
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "gradients"]
 
 _FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
 
@@ -46,10 +52,14 @@ def _requires_grad_vars(block, no_grad_set):
     return live
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None, loss_grad_var=None):
     """Append grad ops for ``loss`` to its program; returns
     [(param, param_grad_var)] for the trainable parameters that receive
-    a gradient."""
+    a gradient.  ``loss_grad_var`` (a var or its name) seeds the pass in
+    place of ones (``gradients``' ``target_gradients``).  ``callbacks``
+    and ``checkpoints`` are accepted and unused, as in the JAX
+    package."""
     program = loss.block.program
     block = program.global_block()
     no_grad_set = {v.name if isinstance(v, Variable) else v
@@ -88,20 +98,25 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
                              stop_gradient=True)
         return name
 
-    # seed: d loss / d loss = 1
-    loss_grad = grad_var_name(loss.name)
-    if loss_grad in pre_existing:
-        loss_grad = uniq(loss.name)
-    make_grad_var(loss_grad, loss.name)
-    if loss.shape is not None and all(d != -1 for d in loss.shape):
-        block.append_op("fill_constant", outputs={"Out": [loss_grad]},
-                        attrs={"shape": list(loss.shape),
-                               "dtype": loss.dtype, "value": 1.0,
-                               "op_role": "backward"})
-    else:  # a loss with a dynamic dim: ones of the run-time shape
-        block.append_op("fill_any_like", inputs={"X": [loss]},
-                        outputs={"Out": [loss_grad]},
-                        attrs={"value": 1.0, "op_role": "backward"})
+    # seed: d loss / d loss = 1, or the caller's target gradient
+    if loss_grad_var is not None:
+        loss_grad = (loss_grad_var.name
+                     if isinstance(loss_grad_var, Variable)
+                     else loss_grad_var)
+    else:
+        loss_grad = grad_var_name(loss.name)
+        if loss_grad in pre_existing:
+            loss_grad = uniq(loss.name)
+        make_grad_var(loss_grad, loss.name)
+        if loss.shape is not None and all(d != -1 for d in loss.shape):
+            block.append_op("fill_constant", outputs={"Out": [loss_grad]},
+                            attrs={"shape": list(loss.shape),
+                                   "dtype": loss.dtype, "value": 1.0,
+                                   "op_role": "backward"})
+        else:  # a target with a dynamic dim: ones of the run-time shape
+            block.append_op("fill_any_like", inputs={"X": [loss]},
+                            outputs={"Out": [loss_grad]},
+                            attrs={"value": 1.0, "op_role": "backward"})
 
     # partials[var] = grad var names still to be added up
     partials: dict = collections.defaultdict(list)
@@ -245,3 +260,29 @@ def _default_grad_descs(op, info, out_grads, wanted, uniq):
             pairs.append((n, g))
     return pre_descs + [(info.type + "_grad", gins, gouts,
                          dict(op.attrs))], pairs
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    """``fluid.gradients``: the grads of ``targets`` with respect to
+    ``inputs``, one var (or None) an input.
+
+    The inputs ride through ``parameter_list``, so each call returns
+    its own pass's grad vars, never a stale ``<name>@GRAD`` of an
+    earlier pass over the same program; every trainable parameter's
+    grad is finalized in the same pass, as an optimizer stacked on a
+    penalty loss expects.  ``target_gradients`` seeds the pass (ones by
+    default)."""
+    t = targets[0] if isinstance(targets, (list, tuple)) else targets
+    tg = (target_gradients[0]
+          if isinstance(target_gradients, (list, tuple))
+          else target_gradients)
+    names = [iv.name if isinstance(iv, Variable) else iv
+             for iv in (inputs if isinstance(inputs, (list, tuple))
+                        else [inputs])]
+    block = t.block.program.global_block()
+    wanted = list(dict.fromkeys(
+        names + [p.name for p in block.all_parameters() if p.trainable]))
+    pairs = append_backward(t, parameter_list=wanted,
+                            no_grad_set=no_grad_set, loss_grad_var=tg)
+    gmap = {p.name: g for p, g in pairs}
+    return [gmap.get(name) for name in names]

@@ -478,7 +478,18 @@ class _Plan:
                                     for o in [op, *_sub_block_ops(program,
                                                                   op)]
                                     if o.type in HOST_OPS})
-            bad = [n for n in fetch_names if n not in produced]
+            # a persistable no op writes is fetched from the scope (an
+            # evaluator's state program is vars and no ops)
+            bad = []
+            for n in fetch_names:
+                if n in produced:
+                    continue
+                v = block._find_var_recursive(n)
+                if v is not None and v.persistable:
+                    if n not in self.scope_reads:
+                        self.scope_reads.append(n)
+                else:
+                    bad.append(n)
             if bad:
                 raise ValueError(f"fetch target(s) {bad} are not produced "
                                  f"by this program (not an op output or a "
@@ -486,8 +497,8 @@ class _Plan:
         # and a plan that reads neither the scope nor a feed (a startup
         # program) makes the same values from nothing every run, so a
         # graph would only pin a second copy of them
-        self.eager_only = bool(self.host_ops) or not (self.scope_reads
-                                                      or feed_names)
+        self.eager_only = bool(self.host_ops) or not ops \
+            or not (self.scope_reads or feed_names)
         self.steps, self.op_index = _merge_groups(steps, op_index)
         # (op type, members) of each group step
         self.group_sizes = [(g.ops[0].type, len(g.ops)) for g in self.steps
@@ -824,9 +835,18 @@ class _ScopeBinding:
 
     @staticmethod
     def left(scope, names, values):
-        """The scope takes the replica's ``names`` from ``values``."""
+        """The scope takes the replica's ``names`` from ``values``.  A
+        value of another dtype than the scope's tensor of that shape
+        (an integer counter blended with a float gate) is cast to the
+        scope's dtype, as a captured graph's copy into its input
+        tensor casts it: both modes leave the var's dtype."""
         for n in names:
-            scope.set(n, values[0][n])
+            v, have = values[0][n], scope.get(n)
+            if isinstance(have, torch.Tensor) and isinstance(
+                    v, torch.Tensor) and v.dtype != have.dtype \
+                    and v.shape == have.shape:
+                v = v.to(have.dtype)
+            scope.set(n, v)
 
 
 class _Signature:

@@ -68,6 +68,9 @@ class LayerHelperBase:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_variable(self, **kw):
+        return self.block.create_var(**kw)
+
     def create_global_variable(self, persistable=False, **kw):
         return self.main_program.global_block().create_var(
             persistable=persistable, **kw)

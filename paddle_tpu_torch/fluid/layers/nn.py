@@ -38,7 +38,7 @@ __all__ = [
     "not_equal", "less_than", "less_equal", "greater_than", "greater_equal",
     "logical_and", "logical_or", "logical_xor", "logical_not", "exp", "log",
     "pow", "floor", "ceil", "cos", "stack", "unstack", "one_hot",
-    "moe_ffn",
+    "moe_ffn", "mul", "split", "chunk_eval",
 ]
 
 
@@ -863,6 +863,54 @@ def concat(input, axis=0, name=None):
     helper = LayerHelper("concat", name=name)
     return _single_out_layer(helper, "concat", {"X": list(input)},
                              {"axis": axis})
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    """The ``mul`` op: x and y flattened to 2-D at their col dims, then
+    one product."""
+    helper = LayerHelper("mul", name=name)
+    return _single_out_layer(helper, "mul", {"X": [x], "Y": [y]},
+                             {"x_num_col_dims": x_num_col_dims,
+                              "y_num_col_dims": y_num_col_dims})
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """``num_or_sections`` equal parts (an int) or parts of the given
+    sizes (a list) along ``dim``: one ``split`` op, a var a part."""
+    helper = LayerHelper("split", name=name)
+    axis = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": axis}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": axis}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs},
+                     attrs=attrs)
+    return outs
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types, length=None,
+               name=None):
+    """Chunking precision, recall and F1 (the ``chunk_eval`` op, IOB
+    scheme).  Returns (precision, recall, f1, n_infer, n_label,
+    n_correct), the counts int32."""
+    helper = LayerHelper("chunk_eval", name=name)
+    outs = {s: helper.create_variable_for_type_inference(
+        dtype="float32" if i < 3 else "int32", stop_gradient=True)
+        for i, s in enumerate(["Precision", "Recall", "F1-Score",
+                               "NumInferChunks", "NumLabelChunks",
+                               "NumCorrectChunks"])}
+    inputs = {"Inference": [input], "Label": [label]}
+    if length is not None:
+        inputs["Length"] = [length]
+    helper.append_op("chunk_eval", inputs=inputs,
+                     outputs={k: [v] for k, v in outs.items()},
+                     attrs={"chunk_scheme": chunk_scheme,
+                            "num_chunk_types": num_chunk_types})
+    return tuple(outs.values())
 
 
 def _with_xshape(op_type, x, attrs, name):

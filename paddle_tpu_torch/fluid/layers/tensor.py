@@ -17,7 +17,7 @@ from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "fill_constant",
            "fill_constant_batch_size_like", "assign",
-           "tensor_array_to_tensor"]
+           "tensor_array_to_tensor", "sums", "ones_like"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -88,3 +88,24 @@ def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
                      outputs={"Out": [out], "OutIndex": [out_index]},
                      attrs={"axis": int(axis), "use_stack": bool(use_stack)})
     return out, out_index
+
+
+def sums(input, out=None):
+    """The sum of the vars of ``input`` (one ``sum`` op), into ``out``
+    when given."""
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("sum", inputs={"X": list(input)}, outputs={"Out": [out]})
+    return out
+
+
+def ones_like(x, out=None):
+    """Ones of ``x``'s run-time shape and dtype (``fill_any_like``)."""
+    helper = LayerHelper("fill_any_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype,
+                                                        stop_gradient=True)
+    helper.append_op("fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"value": 1.0})
+    return out

@@ -1,12 +1,14 @@
 """Composed networks (counterpart of ``paddle_tpu/fluid/nets.py``):
-conv + pool blocks of layers.  Ported so far: ``simple_img_conv_pool``
-and ``img_conv_group``, which the image models build with."""
+conv + pool blocks (``simple_img_conv_pool``, ``img_conv_group``), the
+sequence conv + pool (``sequence_conv_pool``), the gated linear unit
+(``glu``) and multi-head ``scaled_dot_product_attention``."""
 
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -62,3 +64,44 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                                      is_test=is_test)
     return layers.pool2d(input=tmp, pool_size=pool_size, pool_type=pool_type,
                          pool_stride=pool_stride)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max", bias_attr=None):
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr,
+                                    bias_attr=bias_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: split in half along ``dim``, a · sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """Multi-head scaled-dot-product attention over [batch, seq, hidden]
+    vars, composed of matmul and softmax ops."""
+    head_dim = queries.shape[-1] // num_heads
+
+    def split_heads(x):
+        if num_heads == 1:
+            return x
+        r = layers.reshape(x, shape=[0, 0, num_heads,
+                                     x.shape[-1] // num_heads])
+        return layers.transpose(r, perm=[0, 2, 1, 3])
+
+    q, k, v = split_heads(queries), split_heads(keys), split_heads(values)
+    product = layers.matmul(q, k, transpose_y=True,
+                            alpha=float(head_dim) ** -0.5)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx = layers.matmul(weights, v)
+    if num_heads == 1:
+        return ctx
+    t = layers.transpose(ctx, perm=[0, 2, 1, 3])
+    return layers.reshape(t, shape=[0, 0, t.shape[2] * t.shape[3]])

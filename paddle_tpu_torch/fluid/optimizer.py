@@ -19,14 +19,17 @@ donates buffers.
 Ported: the ``Optimizer`` base, ``SGD``, ``Momentum`` (with
 ``use_nesterov``), ``LarsMomentum``, ``Adagrad``, ``Adam``, ``AdamW``,
 ``Adamax``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp``, ``Ftrl``,
-``Lamb`` and ``ExponentialMovingAverage``.  Not ported: ``DGCMomentum``
-(the ``dgc`` ops), ``ModelAverage``, ``GradientMergeOptimizer`` and the
-dygraph paths.
+``Lamb``, ``ExponentialMovingAverage``, ``ModelAverage`` and
+``GradientMergeOptimizer``.  Not ported: ``DGCMomentum`` (the ``dgc``
+ops), ``PipelineOptimizer`` and the dygraph paths.
 """
 
 from __future__ import annotations
 
 import contextlib
+
+import numpy as np
+import torch
 
 from . import clip, framework
 from .backward import append_backward
@@ -41,6 +44,7 @@ __all__ = [
     "AdamaxOptimizer", "AdamWOptimizer", "DecayedAdagradOptimizer",
     "AdadeltaOptimizer", "RMSPropOptimizer", "FtrlOptimizer",
     "LambOptimizer", "LarsMomentumOptimizer", "ExponentialMovingAverage",
+    "ModelAverage", "GradientMergeOptimizer",
 ]
 
 
@@ -476,6 +480,41 @@ class ExponentialMovingAverage:
         contract)."""
 
 
+class ModelAverage(ExponentialMovingAverage):
+    """The JAX package's ``ModelAverage``: an exponential moving average
+    of decay 0.999 (the window arguments are accepted and unused).  It
+    maintains averages and is no training optimizer: ``minimize``,
+    ``backward`` and ``apply_gradients`` raise."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kw):
+        super().__init__(decay=0.999, **kw)
+
+    def backward(self, *a, **kw):
+        raise NotImplementedError("ModelAverage maintains averages; use a "
+                                  "training optimizer for backward")
+
+    apply_gradients = apply_optimize = minimize = backward
+
+    def get_opti_var_name_list(self):
+        return [v.name for v in self._ema_vars.values()]
+
+    def load(self, stat_dict):
+        """Copy the averages named in ``stat_dict`` into the global
+        scope's own tensors."""
+        from .executor import global_scope
+
+        scope = global_scope()
+        for name in self.get_opti_var_name_list():
+            if name in stat_dict:
+                have = scope.get(name)
+                val = torch.as_tensor(np.asarray(stat_dict[name]))
+                if have is None:
+                    scope.set(name, val)
+                else:
+                    have.copy_(val.to(have.dtype))
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
@@ -488,3 +527,177 @@ RMSProp = RMSPropOptimizer
 Ftrl = FtrlOptimizer
 Lamb = LambOptimizer
 LarsMomentum = LarsMomentumOptimizer
+
+
+class GradientMergeOptimizer:
+    """Gradient accumulation over ``k_steps`` micro-batches, the JAX
+    package's program-rewrite form: the step stays one fixed-shape
+    program and the boundary is chosen by arithmetic on the device, with
+    no host read of the counter, so a captured graph replays it like
+    any other step::
+
+        acc   += grad                  every micro-step
+        gate   = (step % k == 0)       1.0 on boundary steps
+        <snapshot the parameters>
+        <inner optimizer's update with the merged grad acc/k>
+        state  = gate * updated + (1 - gate) * snapshot
+
+    The snapshot and blend cover the parameters and every accumulator of
+    the inner optimizer (Adam's moments and beta powers), each against a
+    persistable ``_gm_snap`` that holds its value at the last boundary
+    and that the startup program copies from the accumulator after the
+    accumulator's own init (Adam's ``beta_pow`` starts at beta, not 0).
+    ``@LR_DECAY_COUNTER@`` is reverted the same way, so a schedule
+    advances once a boundary.  ``program._params_grads`` names the raw
+    micro-batch grads.  The accumulation ops carry ``op_role=
+    "backward"``, so under the bf16 policy the merged grad adds up in
+    bf16, as in the JAX package; the blend and snapshot ops see fp32.
+    ``k_steps=1`` is the inner optimizer."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        if int(k_steps) < 1:
+            raise ValueError(f"k_steps must be >= 1, got {k_steps}")
+        self.inner_optimizer = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = avg
+        self.type = "gradient_merge"
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .layers import tensor as tensor_mod
+
+        if self.k_steps == 1:
+            return self.inner_optimizer.minimize(
+                loss, startup_program, parameter_list, no_grad_set)
+        program = loss.block.program
+        with framework.program_guard(program, startup_program):
+            params_grads = self.inner_optimizer.backward(
+                loss, startup_program, parameter_list, no_grad_set)
+            block = program.global_block()
+            helper = LayerHelper("gradient_merge")
+            counter = helper.create_global_variable(
+                name=unique_name.generate("gm_step"), shape=[1],
+                dtype="int32", persistable=True, stop_gradient=True)
+            helper.set_variable_initializer(counter, Constant(0.0))
+            block.append_op("increment", inputs={"X": [counter]},
+                            outputs={"Out": [counter]},
+                            attrs={"step": 1.0, "op_role": "backward"})
+            modk = block.create_var(name=unique_name.generate("gm_mod"),
+                                    dtype="int32", stop_gradient=True)
+            block.append_op(
+                "elementwise_mod",
+                inputs={"X": [counter],
+                        "Y": [tensor_mod.fill_constant([1], "int32",
+                                                       self.k_steps)]},
+                outputs={"Out": [modk]}, attrs={"op_role": "backward"})
+            gate_b = block.create_var(name=unique_name.generate("gm_gate_b"),
+                                      dtype="bool", stop_gradient=True)
+            block.append_op(
+                "equal",
+                inputs={"X": [modk],
+                        "Y": [tensor_mod.fill_constant([1], "int32", 0)]},
+                outputs={"Out": [gate_b]}, attrs={"op_role": "backward"})
+            gate = block.create_var(name=unique_name.generate("gm_gate"),
+                                    dtype="float32", stop_gradient=True)
+            block.append_op("cast", inputs={"X": [gate_b]},
+                            outputs={"Out": [gate]},
+                            attrs={"out_dtype": "float32",
+                                   "op_role": "backward"})
+            inv_gate = block.create_var(
+                name=unique_name.generate("gm_inv_gate"), dtype="float32",
+                stop_gradient=True)
+            block.append_op("scale", inputs={"X": [gate]},
+                            outputs={"Out": [inv_gate]},
+                            attrs={"scale": -1.0, "bias": 1.0,
+                                   "op_role": "backward"})
+
+            merged, accs = [], []
+            scale = 1.0 / self.k_steps if self.avg else 1.0
+            for p, g in params_grads:
+                acc = helper.create_global_variable(
+                    name=unique_name.generate(p.name + "_gm_acc"),
+                    shape=list(p.shape), dtype=p.dtype, persistable=True,
+                    stop_gradient=True)
+                acc.is_optimizer_state = True
+                helper.set_variable_initializer(acc, Constant(0.0))
+                accs.append(acc)
+                block.append_op("elementwise_add",
+                                inputs={"X": [acc], "Y": [g]},
+                                outputs={"Out": [acc]},
+                                attrs={"op_role": "backward"})
+                eff = block.create_var(
+                    name=unique_name.generate(g.name + "_gm_eff"),
+                    dtype=p.dtype, stop_gradient=True)
+                block.append_op("scale", inputs={"X": [acc]},
+                                outputs={"Out": [eff]},
+                                attrs={"scale": scale,
+                                       "op_role": "backward"})
+                merged.append((p, block.var(eff.name)))
+
+            def snapshot(var):
+                snap = block.create_var(
+                    name=unique_name.generate(var.name + "_gm_snap"),
+                    dtype=var.dtype, stop_gradient=True)
+                block.append_op("assign", inputs={"X": [var]},
+                                outputs={"Out": [snap]},
+                                attrs={"op_role": "optimize"})
+                return snap
+
+            def select(var, snap):
+                """var = gate·var + (1 − gate)·snap: a boundary keeps the
+                update, a micro-step goes back to the snapshot."""
+                keep = block.create_var(
+                    name=unique_name.generate(var.name + "_gm_keep"),
+                    dtype=var.dtype, stop_gradient=True)
+                block.append_op("elementwise_mul",
+                                inputs={"X": [var], "Y": [gate]},
+                                outputs={"Out": [keep]},
+                                attrs={"axis": -1, "op_role": "optimize"})
+                old = block.create_var(
+                    name=unique_name.generate(var.name + "_gm_old"),
+                    dtype=var.dtype, stop_gradient=True)
+                block.append_op("elementwise_mul",
+                                inputs={"X": [snap], "Y": [inv_gate]},
+                                outputs={"Out": [old]},
+                                attrs={"axis": -1, "op_role": "optimize"})
+                block.append_op("elementwise_add",
+                                inputs={"X": [keep], "Y": [old]},
+                                outputs={"Out": [var]},
+                                attrs={"op_role": "optimize"})
+
+            param_snaps = [(p, snapshot(p)) for p, _ in merged]
+            optimize_ops = self.inner_optimizer.apply_gradients(merged)
+            acc_vars = [v for accs_ in
+                        self.inner_optimizer._accumulators.values()
+                        for v in accs_.values()
+                        if not isinstance(v, (int, float))]
+            for p, snap in param_snaps:
+                select(p, snap)
+            lr_counter = block.vars.get("@LR_DECAY_COUNTER@")
+            if lr_counter is not None:
+                acc_vars.append(lr_counter)
+            for acc_var in acc_vars:
+                snap = helper.create_global_variable(
+                    name=unique_name.generate(acc_var.name + "_gm_snap"),
+                    shape=list(acc_var.shape) if acc_var.shape else None,
+                    dtype=acc_var.dtype, persistable=True,
+                    stop_gradient=True)
+                snap.is_optimizer_state = True
+                # after the accumulator's own init in the startup program
+                sb = helper.startup_program.global_block()
+                sb.create_var(name=snap.name, shape=snap.shape,
+                              dtype=snap.dtype, persistable=True)
+                sb.append_op("assign", inputs={"X": [acc_var.name]},
+                             outputs={"Out": [snap.name]}, attrs={})
+                select(acc_var, snap)
+                block.append_op("assign", inputs={"X": [acc_var]},
+                                outputs={"Out": [snap]},
+                                attrs={"op_role": "optimize"})
+            for acc in accs:  # the merged grad restarts after a boundary
+                block.append_op("elementwise_mul",
+                                inputs={"X": [acc], "Y": [inv_gate]},
+                                outputs={"Out": [acc]},
+                                attrs={"axis": -1, "op_role": "optimize"})
+            program._params_grads = [(p.name, g.name)
+                                     for p, g in params_grads]
+        return optimize_ops, params_grads

@@ -23,6 +23,15 @@ read (flash attention's backward launches K2/K3 from there).  XLA's CSE
 removes the forward that the JAX derivation traces again; eager
 autograd runs it again, so the grads of the matrix products are written
 by hand (ops/math_ops.py).
+
+A derived grad op, and a hand-written one registered with
+``grad="lazy"``, is itself differentiable: its own ``<type>_grad``
+(``mul_grad_grad``, ``conv2d_grad_grad``, ...) is registered on first
+demand (:func:`_materialize_lazy_grad`), derived from the grad
+lowering the same way, so a ``gradients()`` pass over a program that
+already carries grad ops (a gradient penalty) gets second-order grads.
+Such a lowering must be differentiable by autograd: no ``.detach()``
+of its inputs, no in-place writes on them, no host arrays.
 """
 
 from __future__ import annotations
@@ -181,8 +190,9 @@ class OpInfo:
     output_slots: list
     lower: _t.Callable  # lower(ctx, *inputs, attrs) -> output or tuple
     optional: frozenset
-    # None | "auto" | "custom": whether append_backward differentiates
-    # the op (a "custom" op brings its grad_maker)
+    # None | "auto" | "custom" | "lazy": whether append_backward
+    # differentiates the op (a "custom" op brings its grad_maker; a
+    # "lazy" one's grad op is derived on first demand)
     grad: _t.Optional[str] = "auto"
     # slots whose grad never flows (int labels, indices, masks)
     no_grad_inputs: frozenset = frozenset()
@@ -215,12 +225,27 @@ class OpInfo:
 _OP_REGISTRY: dict[str, OpInfo] = {}
 
 
+def _materialize_lazy_grad(type_):
+    """A lazily differentiable op's grad op (``grad="lazy"``: every
+    derived grad op, and the hand-written ones that say so) is
+    registered on first demand by deriving it from that op's lowering:
+    grads of any order without an endless chain of registrations at
+    import (the JAX registry's ``_materialize_lazy_grad``)."""
+    if type_.endswith("_grad"):
+        base = _OP_REGISTRY.get(type_[:-len("_grad")])
+        if base is not None and base.grad == "lazy":
+            return _register_auto_grad(base)
+    return None
+
+
 def has_op(type_):
-    return type_ in _OP_REGISTRY
+    return type_ in _OP_REGISTRY or _materialize_lazy_grad(type_) is not None
 
 
 def get_op(type_) -> OpInfo:
     info = _OP_REGISTRY.get(type_)
+    if info is None:
+        info = _materialize_lazy_grad(type_)
     if info is None:
         raise KeyError(f"op type {type_!r} has no registered lowering; "
                        f"registered: {sorted(_OP_REGISTRY)}")
@@ -291,6 +316,12 @@ def _register_auto_grad(fwd: OpInfo):
     cotangent), and an integer output (a mask, indices) has none.
     Random ops are never derived this way: they carry ``grad="custom"``
     and a grad maker that replays their saved mask.
+
+    Called with autograd on and inputs that require grad (a derived
+    ``<type>_grad_grad`` differentiating this lowering), the inputs are
+    used as they are and the grads are taken with ``create_graph``, so
+    the result stays differentiable with respect to them; otherwise
+    each input is a detached leaf, as before.
     """
     gtype = fwd.type + "_grad"
     in_slots = list(fwd.input_slots) + [_grad_slot(s)
@@ -302,6 +333,17 @@ def _register_auto_grad(fwd: OpInfo):
         fwd_vals = list(vals[:n_in])
         out_grads = list(vals[n_in:])
         wanted = wanted_grads(ctx, gtype, out_slots)
+        # differentiated itself: a derived grad of this grad op calls it
+        # with autograd on and inputs that require grad
+        outer = torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for v in vals for t in (v if isinstance(v, (list, tuple))
+                                    else [v]))
+
+        def leaf(x):
+            return x if outer and x.requires_grad \
+                else x.detach().requires_grad_()
+
         full = list(fwd_vals)
         leaves = {}  # input position -> its leaf tensor(s)
         for i, (slot, v) in enumerate(zip(fwd.input_slots, fwd_vals)):
@@ -311,10 +353,9 @@ def _register_auto_grad(fwd: OpInfo):
                 continue
             if fwd.is_variadic(slot):
                 if v and all(_is_float(x) for x in v):
-                    full[i] = leaves[i] = [x.detach().requires_grad_()
-                                           for x in v]
+                    full[i] = leaves[i] = [leaf(x) for x in v]
             elif _is_float(v):
-                full[i] = leaves[i] = v.detach().requires_grad_()
+                full[i] = leaves[i] = leaf(v)
         if not leaves:
             return (None,) * n_in
         flat = [t for i in leaves for t in
@@ -338,7 +379,8 @@ def _register_auto_grad(fwd: OpInfo):
                             outs.append(t)
                             cots.append(gt.reshape(t.shape).to(t.dtype))
                 grads = (torch.autograd.grad(outs, flat, cots,
-                                             allow_unused=True)
+                                             allow_unused=True,
+                                             create_graph=outer)
                          if outs else [None] * len(flat))
         finally:
             ctx.cur_op = prev
@@ -351,7 +393,7 @@ def _register_auto_grad(fwd: OpInfo):
         return tuple(result)
 
     info = OpInfo(type=gtype, input_slots=in_slots, output_slots=out_slots,
-                  lower=lower_grad, grad=None,
+                  lower=lower_grad, grad="lazy",
                   optional=frozenset(s.rstrip("*") for s in in_slots))
     _OP_REGISTRY[gtype] = info
     return info
@@ -373,35 +415,100 @@ def torch_dtype(name) -> torch.dtype:
     return dt
 
 
+# attrs that name an op's place in the program, not its arithmetic
+_PLACE_ATTRS = frozenset(("op_role", "fwd_op_idx", "op_namescope",
+                          "op_callstack", "rng_op_index"))
+_INFER_CACHE: dict = {}
+_INFER_CACHE_MAX = 1 << 16
+
+
+def _attr_key(v):
+    """A hashable form of an attr value, or raise TypeError for one that
+    has none worth keying on (arrays, tensors, objects)."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if isinstance(v, (list, tuple)):
+        return tuple(_attr_key(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _attr_key(x)) for k, x in v.items()))
+    raise TypeError(type(v).__name__)
+
+
+def _infer_key(op, info, ins):
+    """The key of an op's inferred outputs: its type, its attrs but the
+    ones of :data:`_PLACE_ATTRS`, and its inputs' shapes and dtypes.
+    None for an op whose lowering may read more (a sub-block, a
+    collective) or whose attrs have no hashable form."""
+    if info.collective or "sub_block" in op.attrs:
+        return None
+    try:
+        attrs = tuple(sorted((k, _attr_key(v)) for k, v in op.attrs.items()
+                             if k not in _PLACE_ATTRS))
+    except TypeError:
+        return None
+    return op.type, attrs, ins
+
+
 def infer_op_outputs(op, block):
     """Set shape/dtype on op's output Variables by running the lowering on
-    meta tensors.  Best-effort: leaves vars untouched on failure."""
+    meta tensors.  Best-effort: leaves vars untouched on failure.
+
+    The result is kept a key (:func:`_infer_key`): a program that
+    unrolls a loop appends the same op on the same shapes many times,
+    and the meta run of a lowering costs far more than the lookup."""
     if not has_op(op.type):
         return
     info = get_op(op.type)
 
-    def meta_of(name):
+    def sig_of(name):
         v = block._find_var_recursive(name)
         if v is None or v.shape is None:
             return None
-        shape = tuple(_DYN_SENTINEL if s == -1 else int(s) for s in v.shape)
-        return torch.empty(shape, dtype=torch_dtype(v.dtype), device="meta")
+        return tuple(_DYN_SENTINEL if s == -1 else int(s)
+                     for s in v.shape), v.dtype
 
-    args = []
+    sigs = []
     for slot in info.input_slots:
         names = op.inputs.get(slot.rstrip("*"), [])
         if info.is_variadic(slot):
-            metas = [meta_of(n) for n in names]
-            if any(m is None for m in metas):
+            got = tuple(sig_of(n) for n in names)
+            if any(g is None for g in got):
                 return
-            args.append(metas)
+            sigs.append(got)
         elif not names:
-            args.append(None)
+            sigs.append(None)
         else:
-            m = meta_of(names[0])
-            if m is None:
+            g = sig_of(names[0])
+            if g is None:
                 return
-            args.append(m)
+            sigs.append(g)
+    key = _infer_key(op, info, tuple(sigs))
+    outs = _INFER_CACHE.get(key) if key is not None else None
+    if outs is None:
+        outs = _infer_outputs(op, info, block, sigs)
+        if key is not None:
+            if len(_INFER_CACHE) >= _INFER_CACHE_MAX:
+                _INFER_CACHE.clear()
+            _INFER_CACHE[key] = outs
+    for slot, vals in zip(info.output_slots, outs):
+        names = op.outputs.get(slot.rstrip("*"), [])
+        for n, sd in zip(names, vals):
+            v = block._find_var_recursive(n) if sd is not None else None
+            if v is None:
+                continue
+            v.shape, v.dtype = sd
+
+
+def _infer_outputs(op, info, block, sigs):
+    """The lowering on meta tensors of the inputs' shapes and dtypes
+    ``sigs``: for each output slot, a (shape, dtype) or None a name (an
+    empty tuple for each slot when the lowering raises)."""
+    def meta(sd):
+        return torch.empty(sd[0], dtype=torch_dtype(sd[1]), device="meta")
+
+    args = [None if g is None else [meta(x) for x in g]
+            if info.is_variadic(slot) else meta(g)
+            for slot, g in zip(info.input_slots, sigs)]
     ctx = LowerContext(device="meta", program=block.program)
     try:
         if info.collective:
@@ -411,17 +518,13 @@ def infer_op_outputs(op, block):
         else:
             out = info.lower(ctx, *args, attrs=op.attrs)
     except Exception:  # best-effort, like the JAX package's eval_shape
-        return
+        return tuple(() for _ in info.output_slots)
     out = out if isinstance(out, tuple) else (out,)
+    result = []
     for slot, val in zip(info.output_slots, out):
-        names = op.outputs.get(slot.rstrip("*"), [])
         vals = val if info.is_variadic(slot) else [val]
-        for n, t in zip(names, vals or []):
-            if not isinstance(t, torch.Tensor):
-                continue
-            v = block._find_var_recursive(n)
-            if v is None:
-                continue
-            v.shape = tuple(-1 if d == _DYN_SENTINEL else int(d)
-                            for d in t.shape)
-            v.dtype = str(t.dtype).replace("torch.", "")
+        result.append(tuple(
+            (tuple(-1 if d == _DYN_SENTINEL else int(d) for d in t.shape),
+             str(t.dtype).replace("torch.", ""))
+            if isinstance(t, torch.Tensor) else None for t in vals or []))
+    return tuple(result)

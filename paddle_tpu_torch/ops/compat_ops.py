@@ -60,7 +60,7 @@ def _register_aliases():
             ginfo = get_op(f"{base}_grad")
             register_op(f"{alias}_grad", list(ginfo.input_slots),
                         list(ginfo.output_slots), ginfo.lower,
-                        grad=None, optional=tuple(ginfo.optional),
+                        grad=ginfo.grad, optional=tuple(ginfo.optional),
                         no_grad_inputs=tuple(ginfo.no_grad_inputs),
                         inplace=ginfo.inplace)
 

@@ -76,7 +76,7 @@ def _mul(ctx, x, y, attrs):
 
 
 @simple_op("mul_grad", ["X", "Y", "Out@GRAD"], ["X@GRAD", "Y@GRAD"],
-           grad=None, optional=("X", "Y", "Out@GRAD"))
+           grad="lazy", optional=("X", "Y", "Out@GRAD"))
 def _mul_grad(ctx, x, y, dout, attrs):
     """dX = dOut·Yᵀ and dY = Xᵀ·dOut over the 2-D views ``mul`` used;
     only the grads the op names are computed."""
@@ -144,7 +144,7 @@ def _unbroadcast(g, shape):
 
 
 @simple_op("matmul_grad", ["X", "Y", "Out@GRAD"], ["X@GRAD", "Y@GRAD"],
-           grad=None, optional=("X", "Y", "Out@GRAD"))
+           grad="lazy", optional=("X", "Y", "Out@GRAD"))
 def _matmul_grad(ctx, x, y, dout, attrs):
     """With A = op(X), B = op(Y) as ``matmul`` formed them and
     G = alpha·dOut: dA = G·Bᵀ, dB = Aᵀ·G, taken back through the

@@ -68,7 +68,9 @@ def _register_conv(op_type, nd, depthwise=False):
         return dx, dw, _bias_grad(dout, bias, want)
 
     simple_op(op_type, *_CONV_SLOTS, optional=("Bias",))(lower)
-    simple_op(op_type + "_grad", *_CONV_GRAD_SLOTS, grad=None,
+    # differentiable (convolution_backward has a derivative): the
+    # second-order conv grads derive from it
+    simple_op(op_type + "_grad", *_CONV_GRAD_SLOTS, grad="lazy",
               optional=("Bias", "Output@GRAD"))(lower_grad)
 
 
@@ -95,7 +97,7 @@ def _conv2d_transpose(ctx, x, w, bias, attrs):
     return _add_bias(out.to(x.dtype), bias)
 
 
-@simple_op("conv2d_transpose_grad", *_CONV_GRAD_SLOTS, grad=None,
+@simple_op("conv2d_transpose_grad", *_CONV_GRAD_SLOTS, grad="lazy",
            optional=("Bias", "Output@GRAD"))
 def _conv2d_transpose_grad(ctx, x, w, bias, dout, attrs):
     want = wanted_grads(ctx, "conv2d_transpose_grad", _CONV_GRAD_SLOTS[1])

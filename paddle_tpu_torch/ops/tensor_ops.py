@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.fluid.registry import simple_op
+from paddle_tpu_torch.fluid.registry import register_op, simple_op
 
 from .common import np_dtype, op_generator
 
@@ -324,6 +324,25 @@ def _increment(ctx, x, attrs):
     as ``jnp.asarray(step, x.dtype)`` does)."""
     step = attrs.get("step", 1.0)
     return x + (step if x.is_floating_point() else int(step))
+
+
+@simple_op("split", ["X"], ["Out*"])
+def _split(ctx, x, attrs):
+    """``num`` equal parts, or the given ``sections``, along ``axis``
+    (grad derived)."""
+    axis = attrs.get("axis", 0)
+    sections = list(attrs.get("sections", []) or [])
+    if not sections:
+        num = int(attrs.get("num", 0))
+        if x.shape[axis] % num:
+            raise ValueError(f"split: dim {axis} of size {x.shape[axis]} "
+                             f"does not divide into {num} parts")
+        sections = [x.shape[axis] // num] * num
+    return (list(torch.split(x, sections, dim=axis)),)
+
+
+# split_op.cc's by-reference twin, as the JAX package's alias (no grad)
+register_op("split_byref", ["X"], ["Out*"], _split, grad=None)
 
 
 @simple_op("stack", ["X*"], ["Y"])

@@ -2,6 +2,7 @@
 implementations (the role CPU kernels play for CUDA in the reference's
 OpTest: an independent implementation to cross-check against)."""
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 

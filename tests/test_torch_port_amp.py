@@ -44,6 +44,7 @@ package's scope.
   rounded the other way moves it by up to 2·lr.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

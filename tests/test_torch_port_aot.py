@@ -20,6 +20,7 @@ passes nor the plan's analysis (no ``phase="passes"`` and no
   same tokens (tests/test_aot_warmstart.py:111's assertions).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import subprocess

@@ -23,6 +23,7 @@ Also here: the two repairs this slice needed — K4 on bf16 input, and
 ``fuse_bias_act_dropout`` pass rewrote.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import subprocess

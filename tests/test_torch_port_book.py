@@ -42,6 +42,7 @@ Transformer book and machine_translation (StaticRNN GRUs).
   book's own).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch
@@ -59,17 +60,6 @@ BN_RTOL = {"image_classification_vgg": (5e-6, 2e-3),
            "image_classification_resnet": (5e-6, 2e-3)}
 INFER_RTOL, INFER_ATOL = 2e-4, 2e-5
 NAMES = sorted(books.BOOKS)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test runs PyTorch's CPU ops on one thread: the suite runs
-    several test processes at once, and their small ops slow down many
-    times over when every process spreads them over every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _op_list(program):

@@ -25,6 +25,7 @@ on a thread joined with a timeout, so a hang fails its test rather
 than the suite's clock.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import importlib
 import itertools
 import threading
@@ -44,17 +45,6 @@ import paddle_tpu_torch.ops  # noqa: F401  (registers the port's lowerings)
 from paddle_tpu_torch.fluid import registry as treg
 
 EXACT, ELEM, RED = 0.0, 1e-6, 1e-5
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test runs PyTorch's CPU ops on one thread: the suite runs
-    several test processes at once, and their small ops slow down many
-    times over when every process spreads them over every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run_jax(op_type, inputs, attrs):

@@ -14,6 +14,7 @@ copies into the scope's own tensors, which a captured graph reads
 (tests/test_torch_port_cuda.py replays one on the card).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import signal

@@ -16,6 +16,7 @@ Tolerances: 0 for sign, mod and floordiv; 1e-6 for elementwise fp32
 math; 1e-5 where a reduction sums in another order.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

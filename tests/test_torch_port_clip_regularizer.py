@@ -16,6 +16,7 @@ placing the accumulators where the JAX package places them, and ``fc``
 over two inputs.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 
 import numpy as np

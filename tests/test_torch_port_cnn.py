@@ -38,6 +38,7 @@ package's, and ``convert.load_params`` naming a missing moving
 statistic.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import subprocess

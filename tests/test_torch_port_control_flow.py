@@ -12,6 +12,7 @@ counts exact, each scheduler's learning rate over 12 steps 1e-7
 relative, training losses and grads 1e-5.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch
@@ -24,14 +25,6 @@ from paddle_tpu_torch.fluid import executor as texecutor
 RTOL = 1e-5
 LR_RTOL = 1e-7
 LR_STEPS = 12
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _build(pkg, build):

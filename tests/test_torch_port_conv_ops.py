@@ -19,6 +19,7 @@ magnitude, grads within 1e-4 of it (sums in another order); data
 movement exact.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -29,6 +29,7 @@ all-reduce forms within 1e-6 of each block's max of CPU replicas, and a
 dp 2 BERT-tiny run's losses within 1e-4 of CPU replicas'.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch
@@ -2791,3 +2792,118 @@ def test_warm_start_cache_restart_on_card(dev, tmp_path):
         assert ids[0] == ids[1]
     finally:
         fluid.set_flags(prior)
+
+
+def test_gradient_merge_reverts_off_boundary_bit_exact_on_card(dev):
+    """GradientMergeOptimizer(Adam, k_steps=2) on a small fc model,
+    captured: off the boundary every parameter, moment and beta power
+    equals its value at the last boundary bit for bit (the blend selects
+    the snapshot exactly), at the boundary the parameters move and each
+    beta power advances once; an eager executor in turns gives the same
+    state."""
+    from paddle_tpu_torch import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = 5
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[32], dtype="float32")
+        loss = fluid.layers.mean(fluid.layers.square(
+            fluid.layers.fc(fluid.layers.fc(x, size=64, act="tanh"),
+                            size=8)))
+        fluid.optimizer.GradientMergeOptimizer(
+            fluid.optimizer.Adam(1e-3), k_steps=2).minimize(loss)
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.randn(16, 32).astype(np.float32)} for _ in range(6)]
+    scopes = {True: fluid.Scope(), False: None}
+    _executor(True).run(startup, scope=scopes[True])
+    scopes[False] = _clone_scope(scopes[True])
+    exes = {c: _executor(c) for c in (True, False)}
+    block = main.global_block()
+    watched = [n for n, v in block.vars.items() if v.persistable
+               and "_gm_" not in n and (n in {p.name for p in
+                                              main.all_parameters()}
+                                        or "moment" in n or "pow_acc" in n)]
+    last = {n: scopes[True].get(n).clone() for n in watched}
+    for i, f in enumerate(feeds):
+        for c, exe in exes.items():
+            exe.run(main, feed=f, fetch_list=[loss], scope=scopes[c])
+        now = scopes[True]
+        if (i + 1) % 2:
+            for n in watched:
+                assert torch.equal(now.get(n), last[n]), (i, n)
+        else:
+            for n in watched:
+                if "beta1_pow" in n:
+                    assert torch.equal(now.get(n), last[n].clone().mul_(0.9))
+                elif "pow_acc" not in n and "moment" not in n:
+                    assert not torch.equal(now.get(n), last[n]), (i, n)
+            last = {n: now.get(n).clone() for n in watched}
+    for n in scopes[True].keys():
+        assert torch.equal(scopes[True].get(n), scopes[False].get(n)), n
+
+
+def _metric_cases():
+    r = np.random.RandomState(7)
+    p = r.rand(64).astype(np.float32)
+    infer = r.randint(0, 7, (5, 12))
+    return {
+        "auc": ([np.stack([1 - p, p], 1), r.randint(0, 2, (64, 1)),
+                 np.zeros(201, np.int64), np.zeros(201, np.int64)],
+                {"curve": "ROC", "num_thresholds": 200}),
+        "auc_pr": ([np.stack([1 - p, p], 1), r.randint(0, 2, (64, 1)),
+                    np.zeros(201, np.int64), np.zeros(201, np.int64)],
+                   {"curve": "PR", "num_thresholds": 200}),
+        "precision_recall": ([None, r.randint(0, 4, (32, 1)),
+                              r.randint(0, 4, (32, 1)),
+                              r.rand(32, 1).astype(np.float32),
+                              r.rand(4, 4).astype(np.float32)],
+                             {"class_number": 4}),
+        "edit_distance": ([r.randint(0, 5, (6, 7)), r.randint(0, 5, (6, 5)),
+                           np.array([7, 3, 0, 5, 6, 1]),
+                           np.array([5, 5, 2, 0, 4, 3])],
+                          {"normalized": True}),
+        "warpctc": ([r.randn(3, 9, 6).astype(np.float32),
+                     r.randint(1, 6, (3, 4)), np.array([9, 7, 5]),
+                     np.array([4, 4, 2])], {"blank": 0}),
+        "warpctc_grad": ([r.randn(3, 9, 6).astype(np.float32),
+                          r.randint(1, 6, (3, 4)), np.array([9, 7, 5]),
+                          np.array([4, 4, 2]), None,
+                          r.rand(3, 1).astype(np.float32)], {"blank": 0}),
+        "chunk_eval": ([infer, np.where(r.rand(5, 12) < 0.3, 0, infer),
+                        np.array([12, 9, 4, 12, 1])],
+                       {"chunk_scheme": "IOB", "num_chunk_types": 3}),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_metric_cases()))
+def test_metric_op_on_card_matches_its_cpu_lowering(dev, case):
+    """Each metric op's lowering on CUDA tensors against the same
+    lowering on the CPU: integers (histograms, counts) equal, floats
+    within 1e-6 relative (1e-5 for the CTC loop); the auc histograms are
+    updated in the card tensors given, in place."""
+    from paddle_tpu_torch.fluid import registry
+
+    inputs, attrs = _metric_cases()[case]
+    op = case.replace("_pr", "")
+    info = registry.get_op(op)
+    outs = {}
+    for d in ("cpu", dev):
+        ctx = registry.LowerContext(d)
+        vals = [None if a is None else torch.from_numpy(np.array(a)).to(d)
+                for a in inputs]
+        got = info.lower(ctx, *vals, attrs=dict(attrs))
+        got = got if isinstance(got, tuple) else (got,)
+        if op == "auc":
+            assert got[1] is vals[2] and got[2] is vals[3]
+        outs[str(d)] = [None if g is None else g.detach().cpu()
+                        for g in got]
+    tol = 1e-5 if op.startswith("warpctc") else 1e-6
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        if a.is_floating_point():
+            np.testing.assert_allclose(b.double().numpy(), a.double().numpy(),
+                                       rtol=tol, atol=tol)
+        else:
+            assert torch.equal(a, b)

@@ -27,6 +27,7 @@ process, each on ``CPUPlace()`` (parallel/mesh.py).
   replica draws its own dropout mask.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import subprocess

@@ -13,6 +13,7 @@ parameters through ``convert.load_params`` on CPUPlace and must be:
 - built of the same ops, in the same order, after the graph passes.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import os
 import subprocess
 import sys

@@ -19,6 +19,7 @@ Tolerances across packages: 1e-6 on fp32 losses and parameters
 (bf16 rounds at other places in the two frameworks).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -29,6 +29,7 @@ backward in interpret mode.  Rows whose keys all carry the -1e30 bias
 get uniform weights, as in the JAX kernel.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import math
 import pathlib
 

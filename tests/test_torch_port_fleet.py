@@ -7,6 +7,7 @@ Frontend (error mapping, drain order, SIGTERM in a child), the drain
 handler, the Engine's spans and phases, and the hedge drill.  No device
 programs beyond tiny CPU engines."""
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import concurrent.futures
 import json
 import os

@@ -8,6 +8,7 @@ timestamps).  The postmortem of an injected NaN gradient is the port's
 counterpart of ``test_injected_nan_grad_dumps_postmortem``: the port's
 Executor under the health sentinel, a skipped step, the dump."""
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import urllib.request
 

@@ -35,6 +35,7 @@ MLP dp-4 program share a group step, where a run breaks, and a grouped
 dp step bit-equal to the same step op by op.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import contextlib
 import ctypes
 

@@ -12,11 +12,11 @@ picks freezes it.  The Transformer's ``build_greedy_decode_scan`` gives
 the JAX package's ids and the unrolled decode's.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 from importlib import import_module
 
 import numpy as np
 import pytest
-import torch
 
 import paddle_tpu as jpaddle
 import paddle_tpu_torch as tpaddle
@@ -26,14 +26,6 @@ P, G, BATCH = 6, 4, 2
 SCORE_RTOL = 1e-5
 BUILDS = ("build_gpt_generate", "build_gpt_generate_cached",
           "build_gpt_generate_scan")
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _prompt(vocab, seed=0):

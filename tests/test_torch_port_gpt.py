@@ -22,6 +22,7 @@ its own front end, loads the initial parameters through
   by up to about lr = 1e-4 whichever sign its grad has).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import subprocess

@@ -21,6 +21,7 @@ its ``@HEALTH@`` variables and its plan against the JAX package's on the
 same programs.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import re
 
 import numpy as np

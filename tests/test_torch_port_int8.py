@@ -24,6 +24,7 @@ The CUDA kernel itself runs only on a GPU: tests/test_torch_port_cuda.py
 and ``python3 chip_smoke.py`` hold it against the plain version there.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import os
 import subprocess
 import sys

@@ -11,6 +11,7 @@ fp32 (the codec keeps ~14.6 significant bits) and within 1e-6 of the
 JAX int8 run; the fake-quantize ops within 1e-6.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import subprocess

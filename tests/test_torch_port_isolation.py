@@ -2,6 +2,7 @@
 the JAX package, its entry points run on the GPU unless the caller asks
 for the CPU, and weights load only where they fit."""
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import json
 import os
 import subprocess

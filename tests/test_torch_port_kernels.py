@@ -12,6 +12,7 @@ Tolerances: K5 1e-5 (fp32, the oracles sum keys in another order); K4
 1e-6 (the same elementwise formula; erfc/tanh may differ by an ulp).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import ctypes
 
 import numpy as np

@@ -23,6 +23,7 @@ package, on the CPU (``ops/nn_ops.py`` ``moe_ffn``, ``layers.moe_ffn``,
   tenth of lr, the gate of tests/test_torch_port_bert.py).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

@@ -35,6 +35,7 @@ the same masks).  ``build_greedy_decode``'s ids equal the JAX
 package's with its weights copied across.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import fcntl
 import json
 import os

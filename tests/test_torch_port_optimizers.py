@@ -16,6 +16,7 @@ and ops/optimizer_ops.py) against the JAX package, on the CPU:
   ``restore()`` a no-op.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch

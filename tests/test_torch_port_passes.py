@@ -12,6 +12,7 @@ fused softmax + cross-entropy head bit-equal to the composed one over
 passes on and off and by the JAX package's predictor (1e-5).
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import warnings
 
 import numpy as np

@@ -9,6 +9,7 @@ recorder, EMA and MFU cases.  The recorder test drives both packages
 from one stub clock, so their moving averages compare exactly, and
 books its phases on a lane of its own, which no executor uses."""
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import time
 import types
 

@@ -14,6 +14,7 @@ time or a sleep race: the gates run with ``max_latency_ratio=None``, the
 routers without a probe thread.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import concurrent.futures
 import json
 import os

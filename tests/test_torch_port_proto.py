@@ -26,6 +26,7 @@ package's codec (``paddle_tpu_torch/fluid/proto_compat.py``,
   port does), within a time limit.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import io
 import os
 import time

@@ -9,6 +9,7 @@ stub clock and compares exactly: the clocks are patched, so even the
 float durations are equal.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import concurrent.futures
 import itertools
 import os

@@ -15,6 +15,7 @@ Tolerances: 0 for data movement and integer ops; 1e-6 for elementwise
 fp32 math; 1e-5 where a reduction or matmul sums in another order.
 """
 
+import torch_port_threads  # noqa: F401  (one torch thread a process)
 import numpy as np
 import pytest
 import torch
