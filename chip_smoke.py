@@ -489,9 +489,36 @@ Phases, each fatal on failure:
      layers fp32 against the CPU (4e-3), and the WGAN-GP penalty of
      tests/test_double_grad.py, 3 steps card against CPU, and its conv2d
      double grad (conv2d_grad_grad) card against CPU.
+ 35. ssd path: MobileNet-v1 SSD 300² as PaddleCV/ssd builds and trains it
+     (tests/torch_port_detection_models.py: the backbone of
+     models/mobilenet.py, four extra blocks, multi_box_head over six
+     maps with the published priors, 1917 of them, 21 VOC classes,
+     ssd_loss summed; RMSProp on piecewise_decay from 1e-3 with
+     L2Decay(5e-5)) at b64, fp32, one seeded synthetic batch of 1-8
+     boxes an image, captured and eager in turns from one state, 2
+     warm-up and 6 timed steps each: losses finite and falling, every
+     moving statistic changed by every captured step, the modes
+     bit-equal, K1-K8 never launched; images/s, step p50 / p95, MFU
+     (cnn_flops_per_image over the fp32 peak), memory and the graph
+     pool, a profiled step a mode.  The test program
+     (clone(for_test=True) + detection_output: NMS 0.45, top 400, keep
+     200) on the trained scope, captured and eager in turns: every run's
+     rows bit-equal, the kernels of a replay and of one multiclass_nms
+     call, the 11-point and integral mAP (fluid.metrics.DetectionMAP,
+     not gated).  Width 0.25, b4, fp32, 3 steps card against CPU, each
+     from the card's state: losses 1e-4, updates within 0.1 of the CPU's
+     (the CPU's reading from a nudged input beside it); the head outputs
+     from one state 1e-5 and the CPU's decode and NMS of the card's head
+     outputs equal to the card's rows.  Then every detection op off the
+     path at a realistic shape against the CPU child's run (YOLOv3-608's
+     head at b8: yolov3_loss and its grad, yolo_box and resize_nearest
+     at each grid and the NMS over the three heads; Faster and Mask
+     R-CNN, FPN, RetinaNet, the deformable ops, R-FCN, an OCR warp, EAST,
+     CVM and SSD's matching ops), each within its tolerance.
 
 The CPU runs of phases 18's, 26's and 32's parities, from their
-programs' startups on the CPU, are made in child processes at a lower
+programs' startups on the CPU, and of phase 35's detection op checks
+(each case's lowering on the CPU), are made in child processes at a lower
 priority that see no card (CpuChild: a process a part, two for phase
 18's, the cores shared among them).  It starts with the
 kernels' builds and runs beside them and phase 3, whose readings are
@@ -518,7 +545,7 @@ health`` phase 28, ``--only generate`` phase 3's K1-K3 at the
 generation shapes and phase 29, ``--only persist`` phase 30, ``--only
 resnetdp`` phase 3's K8 momentum group check and phase 31, ``--only
 amp`` phase 3's fp16 K4 check and phase 32, ``--only moe`` phase
-33, and ``--only gm`` phase 34.
+33, ``--only gm`` phase 34, and ``--only ssd`` phase 35.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel of the path launched no time fails the run.  Two
@@ -10179,6 +10206,538 @@ def run_gm_phase(wrappers, say, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 35: MobileNet-SSD 300² training and detection; the detection ops
+# off its path, card against CPU (the CPU side in the CPU reference child)
+# ---------------------------------------------------------------------------
+
+SSD_BATCH, SSD_IMAGE = 64, 300
+SSD_WARMUP, SSD_STEPS = 2, 6
+SSD_EVAL_RUNS = 4      # runs of the test program a mode; the first warms up
+SSD_MAP_OVERLAP = 0.5  # VOC's IoU for a true positive
+# card against CPU: width 0.25, b4, fp32, each step from the card's state
+SSD_PARITY_SCALE, SSD_PARITY_BATCH, SSD_PARITY_STEPS = 0.25, 4, 3
+SSD_PARITY_LOSS_RTOL, SSD_PARITY_CHANGE_RTOL = 1e-4, 0.1
+# RMSProp's first steps move an element by ~4.5 x lr x sign(g) wherever
+# |g| > 4.5e-3 (decay 0.95, eps 1e-6), so a gradient that is zero up to
+# the two devices' roundings flips its element's whole update; and the
+# step is ill-conditioned (batch norm over 4 values a channel on the 1x1
+# map, the hard-negative ranks: on the CPU an input nudged by 1e-6 moves
+# one batch norm scale's gradient by 13%, one bias's update by 35%).
+# So the 0.1 is held on the gradient and on the update of every leaf at
+# once, and on each leaf's gradient (its norm floored at 1e-3 of its
+# largest element times its size's root) where its own control (the
+# CPU's reading from the nudged input) stays under 0.1 / SSD_PARITY_CTL;
+# above it, within SSD_PARITY_CTL x the control.  Each leaf's update is
+# read beside its control.
+SSD_PARITY_CTL = 4.0
+# the network's head outputs (locs, softmax scores) card against CPU from
+# one state: fp32 convs in other orders; the detection rows decoded from
+# the same head outputs: labels equal, scores and boxes within 1e-5
+SSD_HEAD_TOL, SSD_ROW_TOL = 1e-5, 1e-5
+
+
+def _detection_models():
+    """tests/torch_port_detection_models.py: the detection programs and
+    op cases, written once for either package (it imports neither)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_port_detection_models
+
+    return torch_port_detection_models
+
+
+def _lower_on(op_type, inputs, attrs, device):
+    """The port's lowering of ``op_type`` on numpy ``inputs`` on
+    ``device``: its outputs, flat, as numpy arrays."""
+    from paddle_tpu_torch.fluid import registry
+
+    return _detection_models().run_lowering(registry, op_type, inputs,
+                                            attrs, device)
+
+
+def _detection_op_cases():
+    dm = _detection_models()
+    return {**dm.yolo_head_cases(), **dm.other_op_cases()}
+
+
+def ssd_cpu_child(dirname):
+    """The CPU reference child's part for phase 35: each detection op
+    case (tests/torch_port_detection_models.py) on the CPU, its outputs
+    and its derived grad's (seeded cotangents) into ``ssd.<case>``; the
+    YOLOv3 NMS over the three heads' CPU yolo_box outputs into
+    ``ssd.yolo_nms``."""
+    dm = _detection_models()
+    boxes = []
+    for name, (op_type, inputs, attrs, _, grad_tol) in \
+            _detection_op_cases().items():
+        out = _lower_on(op_type, inputs, attrs, "cpu")
+        arrays = {f"out{i}": o for i, o in enumerate(out) if o is not None}
+        if grad_tol is not None:
+            grads = _lower_on(op_type + "_grad",
+                              list(inputs) + dm.cotangents(out), attrs,
+                              "cpu")
+            arrays.update({f"grad{i}": g for i, g in enumerate(grads)
+                           if g is not None})
+        if op_type == "yolo_box":
+            boxes.append(out)
+        _child_result(dirname, f"ssd.{name}", **arrays)
+    nms_in = dm.yolo_nms_inputs(boxes)
+    rows = _lower_on("multiclass_nms", nms_in, dm.YOLO_NMS_ATTRS, "cpu")[0]
+    _child_result(dirname, "ssd.yolo_nms", boxes=nms_in[0],
+                  scores=nms_in[1], rows=rows)
+
+
+CPU_CHILD_PARTS["ssd"] = ssd_cpu_child
+
+
+def _eager_call_ms(fn, n=3):
+    """Median device ms of ``n`` eager calls of ``fn``, CUDA events around
+    each: for a call of thousands of small launches (an NMS loop), whose
+    enqueueing outlasts _time_ms's device sleep, so the reading includes
+    the launch gaps."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def _stored(arrays, key, n):
+    return [arrays.get(f"{key}{i}") for i in range(n)]
+
+
+def run_detection_op_checks(child, dev=None):
+    """Each detection op case on the card against the CPU child's run of
+    the same lowering on the same seeded inputs (and each derived grad
+    on the same cotangents), within its tolerance; then YOLOv3-608's
+    NMS over the three heads' CPU yolo_box outputs: the rows equal, its
+    device ms (CUDA events) and its kernels a call (profiler)."""
+    dm = _detection_models()
+    dev = dev or torch.device("cuda", 0)
+    checks, worst = {}, 0.0
+    t0 = time.perf_counter()
+    for name, (op_type, inputs, attrs, tol, grad_tol) in \
+            _detection_op_cases().items():
+        cpu = child.take(f"ssd.{name}")
+        got = _lower_on(op_type, inputs, attrs, dev)
+        want = _stored(cpu, "out", len(got))
+        fwd, fwd_abs = dm.outputs_close(got, want, tol)
+        rec = dict(op=op_type, ratio=fwd, max_abs_err=fwd_abs, tol=tol)
+        if grad_tol is not None:
+            gg = _lower_on(op_type + "_grad",
+                           list(inputs) + dm.cotangents(want), attrs, dev)
+            g, g_abs = dm.outputs_close(gg, _stored(cpu, "grad", len(gg)),
+                                        grad_tol)
+            rec.update(grad_ratio=g, grad_max_abs_err=g_abs,
+                       grad_tol=grad_tol)
+            fwd = max(fwd, g)
+        checks[name] = rec
+        worst = max(worst, fwd)
+    nms = child.take("ssd.yolo_nms")
+    inputs = [nms["boxes"], nms["scores"]]
+    args = [torch.from_numpy(a).to(dev) for a in inputs]
+    from paddle_tpu_torch.fluid import registry
+
+    lower = registry.get_op("multiclass_nms").lower
+    ctx = registry.LowerContext(dev)
+    rows = lower(ctx, *args, attrs=dict(dm.YOLO_NMS_ATTRS)).cpu().numpy()
+    ratio, err = dm.outputs_close([rows], [nms["rows"]], 0)
+    ms = _eager_call_ms(lambda: lower(ctx, *args,
+                                      attrs=dict(dm.YOLO_NMS_ATTRS)))
+    prof = _profile(lambda: lower(ctx, *args, attrs=dict(dm.YOLO_NMS_ATTRS)),
+                    1)
+    checks["yolo_nms"] = dict(
+        op="multiclass_nms", ratio=ratio, max_abs_err=err, tol=0,
+        shape=[list(a.shape) for a in inputs], eager_call_ms=ms,
+        kernels_a_call=prof["device_events"],
+        loop_kernels_a_call=4 * dm.YOLO_NMS_ATTRS["nms_top_k"],
+        detections_an_image=[int(v) for v in (rows[..., 0] >= 0).sum(1)])
+    worst = max(worst, ratio)
+    bad = {k: v for k, v in checks.items()
+           if v["ratio"] > 1 or v.get("grad_ratio", 0) > 1}
+    if bad:
+        raise AssertionError(f"detection op checks: card against CPU out "
+                             f"of tolerance: {bad}")
+    return dict(checks=checks, worst_ratio=worst, cases=len(checks),
+                seconds=time.perf_counter() - t0)
+
+
+def _ssd_program(scale=1.0, batch=SSD_BATCH):
+    """The MobileNet-SSD training and test programs
+    (tests/torch_port_detection_models.py) with a seeded startup."""
+    import paddle_tpu_torch
+
+    built = _detection_models().build_mobilenet_ssd(
+        paddle_tpu_torch, scale=scale, image=SSD_IMAGE, batch=batch)
+    built["startup"].random_seed = SEED
+    return built
+
+
+def run_ssd_path(counters):
+    """Phase 35's training: MobileNet-SSD 300² at b64, fp32, RMSProp on
+    piecewise_decay with L2Decay, one seeded synthetic batch, the
+    captured and the eager executor in turns from one state
+    (``_cnn_in_turns``: K1-K8 never launched, the modes bit-equal, every
+    moving statistic changed by every captured step), SSD_WARMUP +
+    SSD_STEPS steps each."""
+    dm = _detection_models()
+    built = _ssd_program()
+    main, loss = built["main"], built["loss"]
+    feed = dm.ssd_batch(SSD_BATCH, SSD_IMAGE, seed=0)
+    steps = SSD_WARMUP + SSD_STEPS
+    r = _cnn_in_turns(main, built["startup"], loss, feed, counters, steps,
+                      "ssd path", stats_move=True)
+    loss_c = r["losses"]["captured"]
+    if not loss_c[-1] < loss_c[0]:
+        raise AssertionError(f"ssd path: losses not falling: {loss_c}")
+    fwd = cnn_flops_per_image(main)
+    flops = 3 * fwd * SSD_BATCH
+    types = [op.type for op in main.global_block().ops]
+    modes = {}
+    for m in r["exes"]:
+        timed = np.asarray(r["secs"][m][SSD_WARMUP:])
+        p50 = float(np.median(timed))
+        modes[m] = dict(
+            images_per_s=SSD_BATCH * SSD_STEPS / float(timed.sum()),
+            step_p50_ms=1e3 * p50,
+            step_p95_ms=1e3 * float(np.percentile(timed, 95)),
+            first_step_s=r["secs"][m][0], mfu_fp32=flops / p50 / FP32_FLOPS,
+            peak_memory_gb=r["peak"][m] / 1e9, launches=r["launches"][m],
+            device_launches=r["on_card"][m])
+    modes["captured"]["capture_s"] = _capture_seconds(r["exes"]["captured"],
+                                                      main)
+    modes["captured"]["graph_pools_gb"] = graph_pools_gb()
+    path = dict(
+        model="MobileNet-v1 SSD 300², PaddleCV/ssd mobilenet_ssd.py + "
+              "train.py (tests/torch_port_detection_models.py)",
+        batch=SSD_BATCH, image=SSD_IMAGE, classes=dm.VOC_CLASSES,
+        priors=int(built["locs"].shape[1]),
+        optimizer="RMSProp(piecewise_decay from 1e-3), L2Decay(5e-5)",
+        dtype="fp32", steps=SSD_STEPS, warmup_steps=SSD_WARMUP,
+        losses=loss_c, captured_eager_bit_equal=True,
+        moving_stats_change_each_step=True, ops=len(types),
+        conv_ops=types.count("conv2d") + types.count("depthwise_conv2d"),
+        batch_norm_ops=types.count("batch_norm"),
+        model_flops_per_image_fwd=fwd, model_flops_per_step=flops,
+        mfu_formula="2 x multiply-adds of the program's conv2d, "
+                    "depthwise_conv2d and mul ops a forward image x 3 x "
+                    "batch / step p50 / 67 TFLOP/s (fp32, no TF32)",
+        modes=modes, launches=_summed(r["launches"]),
+        device_launches=_summed(r["on_card"]))
+    state = dict(exes=r["exes"], scopes=r["scopes"], main=main, feed=feed,
+                 loss=loss, fetch=[loss], built=built)
+    return state, path
+
+
+def _image_map(rows, feed, ap_version):
+    """fluid.metrics.DetectionMAP over a batch's rows against its
+    ground truth."""
+    from paddle_tpu_torch import fluid
+
+    m = fluid.metrics.DetectionMAP(overlap_threshold=SSD_MAP_OVERLAP)
+    for i in range(rows.shape[0]):
+        r = rows[i]
+        k = feed["gt_box"][i, :, 2] > feed["gt_box"][i, :, 0]
+        m.update(r[r[:, 0] >= 0], feed["gt_box"][i][k],
+                 feed["gt_label"][i, k, 0])
+    return float(m.eval(ap_version))
+
+
+def run_ssd_eval(state, counters):
+    """The test program (``clone(for_test=True)`` + detection_output:
+    NMS 0.45, top 400, keep 200) on the trained scope, captured and
+    eager in turns: every run's rows bit-equal to the eager run's, K1-K8
+    never launched; its run p50 a mode, the kernels of one replay and
+    those one multiclass_nms call adds (profiler), and the 11-point
+    and integral mAP of the rows against the batch's ground truth (not
+    gated: random-start weights after a few steps on one batch)."""
+    built = state["built"]
+    test, det = built["test"], built["det"]
+    scope = state["scopes"]["captured"]
+    feed = {"image": state["feed"]["image"]}
+    exes = _executors()
+    rows, secs = {m: [] for m in exes}, {m: [] for m in exes}
+    before = _snap()
+    for _ in range(SSD_EVAL_RUNS):
+        for m, exe in exes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (out,) = exe.run(test, feed=feed, fetch_list=[det], scope=scope)
+            secs[m].append(time.perf_counter() - t0)
+            rows[m].append(np.asarray(out))
+    py, dev = _since(before, counters)
+    if py != _no_launches(counters) or dev != _no_launches(counters):
+        raise AssertionError(f"ssd eval: K1-K8 launched: {py}, {dev}")
+    ref = rows["eager"][0]
+    diff = [(m, i) for m in rows for i, r in enumerate(rows[m])
+            if not np.array_equal(r, ref)]
+    if diff:
+        raise AssertionError(f"ssd eval: rows differ from the eager "
+                             f"run's: {diff}")
+    held = [h.graph for h in exes["captured"].compiled_for(test)]
+    if held == [None]:
+        raise AssertionError("ssd eval: the captured executor holds no "
+                             "graph")
+    replay = _profile(lambda: exes["captured"].run(
+        test, feed=feed, fetch_list=[det], scope=scope), 1)
+    # the kernels one multiclass_nms call adds, at this program's shapes
+    from paddle_tpu_torch.fluid import registry
+
+    nms_op = next(op for op in test.global_block().ops
+                  if op.type == "multiclass_nms")
+    box_op = next(op for op in test.global_block().ops
+                  if op.type == "box_coder")
+    sm_name = nms_op.inputs["Scores"][0]
+    dec, scores = exes["eager"].run(
+        test, feed=feed, fetch_list=[box_op.outputs["OutputBox"][0],
+                                     sm_name], scope=scope)
+    ctx = registry.LowerContext(torch.device("cuda", 0))
+    args = [torch.from_numpy(np.asarray(a)).cuda() for a in (dec, scores)]
+    nms_lower = registry.get_op("multiclass_nms").lower
+    nms = _profile(lambda: nms_lower(ctx, *args, attrs=dict(nms_op.attrs)),
+                   1)
+    nms_ms = _eager_call_ms(lambda: nms_lower(ctx, *args,
+                                              attrs=dict(nms_op.attrs)))
+    return dict(
+        runs_a_mode=SSD_EVAL_RUNS, rows_bit_equal=True,
+        run_p50_ms={m: 1e3 * float(np.median(secs[m][1:])) for m in secs},
+        first_run_s={m: secs[m][0] for m in secs},
+        capture_s=_capture_seconds(exes["captured"], test),
+        replay_kernels=replay["device_events"],
+        replay_busy_ms=replay["device_busy_ms"],
+        replay_launch_api_calls=replay["launch_api_calls"],
+        nms_kernels_a_call=nms["device_events"],
+        nms_loop_kernels=4 * int(nms_op.attrs.get("nms_top_k", 400)),
+        nms_eager_call_ms=nms_ms, nms_input_shapes=[list(a.shape) for a in args],
+        detections_an_image=[int(v) for v in (ref[..., 0] >= 0).sum(1)],
+        map_11point=_image_map(ref, state["feed"], "11point"),
+        map_integral=_image_map(ref, state["feed"], "integral"))
+
+
+def _ssd_rows_close(got, want):
+    """Labels equal; scores and boxes within SSD_ROW_TOL where ``want``
+    is a detection.  Returns the worst error (inf on a label)."""
+    if got.shape != want.shape or not np.array_equal(got[..., 0],
+                                                     want[..., 0]):
+        return float("inf")
+    valid = want[..., 0] >= 0
+    return float(np.abs(got[valid][:, 1:] - want[valid][:, 1:]).max()) \
+        if valid.any() else 0.0
+
+
+def run_ssd_parity():
+    """MobileNet-SSD at width 0.25, 300², b4, fp32: SSD_PARITY_STEPS
+    RMSProp steps on the card, the port on the CPU taking each step from
+    the card's state (phase 21's rule): each loss within 1e-4; the
+    gradients and the update of every parameter (and moving statistic)
+    at once within 0.1 of the CPU's; each leaf's gradient within 0.1 of
+    the CPU's, or within SSD_PARITY_CTL x its own control where that is
+    larger (SSD_PARITY_CHANGE_RTOL's comment says why); each reading
+    beside the CPU's own from an input nudged by 1e-6.  Then the test
+    program from the card's final state on both: the head outputs
+    (locs, softmax scores) within SSD_HEAD_TOL of their largest
+    magnitude, and the CPU's detection_output (box_coder, NMS) of the
+    card's head outputs equal to the card's rows (labels equal, scores
+    and boxes within SSD_ROW_TOL); the CPU's own rows against the card's
+    printed beside (their labels can part where two candidates' scores
+    are closer than the two devices' convs)."""
+    from paddle_tpu_torch import convert, fluid
+    from paddle_tpu_torch.fluid import registry
+
+    dm = _detection_models()
+    built = _ssd_program(scale=SSD_PARITY_SCALE, batch=SSD_PARITY_BATCH)
+    main, loss = built["main"], built["loss"]
+    feed = dm.ssd_batch(SSD_PARITY_BATCH, SSD_IMAGE, seed=1)
+    gpu = fluid.Scope()
+    gexe = fluid.Executor(_gpu_place())
+    gexe.run(built["startup"], scope=gpu)
+    cexe = fluid.Executor(fluid.CPUPlace())
+    cpu, cpu2 = fluid.Scope(), fluid.Scope()
+    _run_startup(cexe, built["startup"], cpu)
+    _run_startup(cexe, built["startup"], cpu2)
+    params = sorted(p.name for p in main.all_parameters())
+    names = sorted(set(params) | set(_state_of(main, "stats")))
+    persist = sorted(n for n, v in main.global_block().vars.items()
+                     if v.persistable and gpu.get(n) is not None)
+    nudged = dict(feed, image=feed["image"] * np.float32(1 + 1e-6))
+    fetch = [loss.name] + [p + "@GRAD" for p in params]
+
+    def rel(x, y, floor):
+        return float(np.linalg.norm(x - y) / max(np.linalg.norm(y), floor,
+                                                 1e-30))
+
+    def global_rel(xs, ys):
+        num = sum(float(np.sum((x.astype(np.float64) - y) ** 2))
+                  for x, y in zip(xs, ys))
+        den = sum(float(np.sum(y.astype(np.float64) ** 2)) for y in ys)
+        return float(np.sqrt(num / max(den, 1e-60)))
+
+    losses = {"card": [], "cpu": []}
+    grad_worst, grad_ctl, grad_over = ("", 0.0), ("", 0.0), ("", 0.0, 0.0)
+    upd_worst, upd_ctl = ("", 0.0), ("", 0.0)
+    grad_global, grad_global_ctl = [], []
+    upd_global, upd_global_ctl = [], []
+    for _ in range(SSD_PARITY_STEPS):
+        start = {n: gpu.get(n).cpu().numpy().copy() for n in persist}
+        convert.load_params(cpu, start, fluid.CPUPlace(), program=main)
+        convert.load_params(cpu2, start, fluid.CPUPlace(), program=main)
+        g_out = [np.asarray(v) for v in gexe.run(main, feed=feed,
+                                                 fetch_list=fetch,
+                                                 scope=gpu)]
+        c_out = [np.asarray(v) for v in cexe.run(main, feed=feed,
+                                                 fetch_list=fetch,
+                                                 scope=cpu)]
+        n_out = [np.asarray(v) for v in cexe.run(main, feed=nudged,
+                                                 fetch_list=fetch,
+                                                 scope=cpu2)]
+        losses["card"].append(float(g_out[0]))
+        losses["cpu"].append(float(c_out[0]))
+        for p, g, c, u in zip(params, g_out[1:], c_out[1:], n_out[1:]):
+            floor = 1e-3 * np.sqrt(c.size) * float(np.abs(c).max() or 1.0)
+            got, ctl = rel(g, c, floor), rel(u, c, floor)
+            grad_worst = max(grad_worst, (p, got), key=lambda t: t[1])
+            grad_ctl = max(grad_ctl, (p, ctl), key=lambda t: t[1])
+            limit = max(SSD_PARITY_CHANGE_RTOL, SSD_PARITY_CTL * ctl)
+            grad_over = max(grad_over, (p, got / limit, ctl),
+                            key=lambda t: t[1])
+        grad_global.append(global_rel(g_out[1:], c_out[1:]))
+        grad_global_ctl.append(global_rel(n_out[1:], c_out[1:]))
+        ups = {}
+        for n in names:
+            ups[n] = (gpu.get(n).cpu().numpy() - start[n],
+                      cpu.get(n).numpy() - start[n],
+                      cpu2.get(n).numpy() - start[n])
+            floor = 1e-6 * np.linalg.norm(start[n])
+            upd_worst = max(upd_worst, (n, rel(ups[n][0], ups[n][1], floor)),
+                            key=lambda t: t[1])
+            upd_ctl = max(upd_ctl, (n, rel(ups[n][2], ups[n][1], floor)),
+                          key=lambda t: t[1])
+        upd_global.append(global_rel([u[0] for u in ups.values()],
+                                     [u[1] for u in ups.values()]))
+        upd_global_ctl.append(global_rel([u[2] for u in ups.values()],
+                                         [u[1] for u in ups.values()]))
+    a, b = np.asarray(losses["card"]), np.asarray(losses["cpu"])
+    loss_rel = float(np.max(np.abs(a - b) / np.abs(b)))
+    if not (np.all(np.isfinite(a)) and loss_rel <= SSD_PARITY_LOSS_RTOL
+            and grad_over[1] <= 1
+            and max(grad_global) <= SSD_PARITY_CHANGE_RTOL
+            and max(upd_global) <= SSD_PARITY_CHANGE_RTOL):
+        raise AssertionError(
+            f"ssd parity: losses {losses} (max rel {loss_rel}), the "
+            f"gradient of every leaf {grad_global} (control "
+            f"{grad_global_ctl}), worst leaf gradient over its limit "
+            f"{grad_over} (worst {grad_worst}, control {grad_ctl}), the "
+            f"update of every leaf {upd_global} (control "
+            f"{upd_global_ctl}), worst leaf update {upd_worst} (control "
+            f"{upd_ctl})")
+    # the test program from the card's final state on both devices
+    test = built["test"]
+    nms_op = next(op for op in test.global_block().ops
+                  if op.type == "multiclass_nms")
+    box_op = next(op for op in test.global_block().ops
+                  if op.type == "box_coder")
+    tr_op = next(op for op in test.global_block().ops
+                 if op.type == "transpose2"
+                 and op.outputs["Out"][0] == nms_op.inputs["Scores"][0])
+    heads = [box_op.inputs["TargetBox"][0], tr_op.inputs["X"][0],
+             box_op.inputs["PriorBox"][0], box_op.inputs["PriorBoxVar"][0]]
+    tfeed = {"image": feed["image"]}
+    convert.load_params(cpu, {n: gpu.get(n).cpu().numpy()
+                              for n in persist}, fluid.CPUPlace(),
+                        program=main)
+    card = [np.asarray(v) for v in gexe.run(
+        test, feed=tfeed, fetch_list=[built["det"]] + heads, scope=gpu)]
+    host = [np.asarray(v) for v in cexe.run(
+        test, feed=tfeed, fetch_list=[built["det"]] + heads, scope=cpu)]
+    head_err = max(float(np.abs(c - h).max() / max(np.abs(h).max(), 1.0))
+                   for c, h in zip(card[1:3], host[1:3]))
+    # the CPU's detection_output of the card's head outputs
+    ctx = registry.LowerContext("cpu")
+    loc, sm, prior, pvar = (torch.from_numpy(x) for x in card[1:])
+    dec = registry.get_op("box_coder").lower(ctx, prior, pvar, loc,
+                                             attrs=dict(box_op.attrs))
+    rows = registry.get_op("multiclass_nms").lower(
+        ctx, dec, sm.permute(0, 2, 1).contiguous(),
+        attrs=dict(nms_op.attrs)).numpy()
+    row_err = _ssd_rows_close(card[0], rows)
+    own = host[0]
+    if head_err > SSD_HEAD_TOL or row_err > SSD_ROW_TOL:
+        raise AssertionError(f"ssd parity: head outputs {head_err} (limit "
+                             f"{SSD_HEAD_TOL}), rows of the card's heads "
+                             f"decoded on the CPU {row_err} (limit "
+                             f"{SSD_ROW_TOL})")
+    return dict(
+        model="MobileNet-SSD 300² width 0.25 fp32", batch=SSD_PARITY_BATCH,
+        steps=SSD_PARITY_STEPS, each_step_from_the_cards_state=True,
+        losses=losses, loss_max_rel=loss_rel,
+        loss_rtol=SSD_PARITY_LOSS_RTOL, grad_all_leaves=grad_global,
+        grad_all_leaves_control=grad_global_ctl,
+        grad_worst_leaf=list(grad_worst),
+        grad_worst_leaf_control=list(grad_ctl),
+        grad_worst_leaf_over_limit=list(grad_over),
+        grad_control_factor=SSD_PARITY_CTL,
+        update_all_leaves=upd_global,
+        update_all_leaves_control=upd_global_ctl,
+        update_worst_leaf=list(upd_worst),
+        update_worst_leaf_control=list(upd_ctl),
+        change_rtol=SSD_PARITY_CHANGE_RTOL,
+        head_max_rel=head_err, head_tol=SSD_HEAD_TOL,
+        rows_of_card_heads_decoded_on_cpu_max_err=row_err,
+        row_tol=SSD_ROW_TOL,
+        cpu_own_rows=dict(
+            labels_equal=bool(np.array_equal(own[..., 0], card[0][..., 0])),
+            label_match_share=float(np.mean(own[..., 0] == card[0][..., 0])),
+            max_err=_ssd_rows_close(card[0], own)),
+        detections_an_image=[int(v) for v in (card[0][..., 0] >= 0).sum(1)])
+
+
+def run_ssd_phase(wrappers, say, smi, child):
+    """Phase 35: MobileNet-SSD's training and its captured evaluation
+    (counts zeroed just before each and read just after), a profiled
+    training step a mode, the card-against-CPU parity and the detection
+    op checks; returns the phase's readings (launches summed over the
+    training and the evaluation)."""
+    t0 = time.perf_counter()
+    counters = {k: wrappers[k] for k in wrappers}
+    torch.cuda.empty_cache()
+    state, path = run_ssd_path(counters)
+    say("ssd train path", {"card": smi, **path})
+    say("ssd train step", {"card": smi, **profile_modes(state)})
+    ev = run_ssd_eval(state, counters)
+    say("ssd eval", {"card": smi, **ev})
+    del state
+    torch.cuda.empty_cache()
+    parity = run_ssd_parity()
+    say("ssd parity", {"card": smi, **parity})
+    torch.cuda.empty_cache()
+    ops = run_detection_op_checks(child)
+    say("detection op checks", {"card": smi, **ops})
+    torch.cuda.empty_cache()
+    out = {"path": path, "eval": ev, "parity": parity, "ops": ops,
+           "seconds": time.perf_counter() - t0,
+           "launches": path["launches"],
+           "device_launches": path["device_launches"]}
+    m = path["modes"]
+    say("ssd summary", {
+        "card": smi,
+        "images_per_s": {k: m[k]["images_per_s"] for k in m},
+        "step_p50_ms": {k: m[k]["step_p50_ms"] for k in m},
+        "mfu_fp32": {k: m[k]["mfu_fp32"] for k in m},
+        "eval_p50_ms": ev["run_p50_ms"], "map_11point": ev["map_11point"],
+        "nms_kernels_a_call": ev["nms_kernels_a_call"],
+        "parity_loss_max_rel": parity["loss_max_rel"],
+        "op_checks_worst_ratio": ops["worst_ratio"],
+        "ssd_seconds": out["seconds"]})
+    return out
+
+
 ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
                  "paged_attention", "ragged_attention")
 # what ``--only`` selects: {key: (kernel libraries, phase-3 checks)};
@@ -10194,7 +10753,8 @@ ALL_LIBRARIES = ("flash_attention", "fused_bias_act", "fused_update",
 # phase 28, and "generate" phase 3's K1-K3 at the generation programs'
 # prefill shapes and phase 29, "persist" phase 30, "resnetdp" K8's
 # momentum group form at phase 31's members and phase 31, "amp" K4's
-# fp16 form and phase 32, "moe" phase 33, and "gm" phase 34
+# fp16 form and phase 32, "moe" phase 33, "gm" phase 34 and "ssd"
+# phase 35
 ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
                                      "check_bias_gelu_bf16")),
         "k6": (("ragged_attention",), ("check_ragged",)),
@@ -10230,10 +10790,12 @@ ONLY = {"k4": (("fused_bias_act",), ("check_bias_gelu",
         "amp": (("flash_attention", "fused_bias_act"),
                 ("check_bias_gelu_fp16",)),
         "moe": (("flash_attention", "fused_bias_act"), ()),
-        "gm": (("flash_attention", "fused_bias_act"), ())}
+        "gm": (("flash_attention", "fused_bias_act"), ()),
+        # no TPU kernel on phase 35's path: every library
+        "ssd": (ALL_LIBRARIES, ())}
 NEW_PHASES = ("fp32train", "passes", "predictor", "int8w", "gpt", "fleet",
               "resnet", "cnn", "nmt", "book", "health", "generate",
-              "persist", "resnetdp", "amp", "moe", "gm")
+              "persist", "resnetdp", "amp", "moe", "gm", "ssd")
 # the kernels phase 19 counts: K4, K5 and K6 on its path, K7 off it
 FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
                  "paged_attention_quant")
@@ -10241,15 +10803,15 @@ FLEET_KERNELS = ("fused_bias_act", "paged_attention", "ragged_attention",
 
 def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
                    cpu_child, keys=NEW_PHASES, train=None):
-    """Phases 20, 14-19 and 21-34 (those of ``keys``, in that order);
+    """Phases 20, 14-19 and 21-35 (those of ``keys``, in that order);
     returns their path readings (None for a phase not run).  Phase 16's
     ids are compared with ``fp32_outs``, the fp32-weight lane's, where
     given (printed, not gated); phase 30's decode ids with its first
     requests' (gated); phase 32's steps are printed beside phase 4's
     (``train``) where it ran.  ``cpu_child``: the CPU reference child
-    (CpuChild) of phases 18 and 32 among ``keys``."""
+    (CpuChild) of phases 18, 26, 32 and 35 among ``keys``."""
     ab = pred = path_w = gpt = fleet = fp32 = resnet = cnn = nmt = None
-    book = health = gen = persist = resnetdp = amp = moe = gm = None
+    book = health = gen = persist = resnetdp = amp = moe = gm = ssd = None
     if "fp32train" in keys:
         torch.cuda.empty_cache()
         pools = graph_pools_gb()
@@ -10384,8 +10946,10 @@ def run_new_phases(wrappers, train_kernels, fp32_outs, smi, say,
         say("moe parity", moe["parity"])
     if "gm" in keys:
         gm = run_gm_phase(wrappers, say, smi)
+    if "ssd" in keys:
+        ssd = run_ssd_phase(wrappers, say, smi, cpu_child)
     return (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
-            health, gen, persist, resnetdp, amp, moe, gm)
+            health, gen, persist, resnetdp, amp, moe, gm, ssd)
 
 
 def run_only(keys, dev, smi, say):
@@ -10543,7 +11107,8 @@ def main(argv=None):
     ap.add_argument("--only", help="comma-separated keys of ONLY (k4, k6, "
                     "k6_contract, flash, engine, passes, predictor, int8w, "
                     "gpt, fleet, fp32train, resnet, cnn, nmt, book, "
-                    "health, generate, persist, resnetdp, amp, moe, gm): "
+                    "health, generate, persist, resnetdp, amp, moe, gm, "
+                    "ssd): "
                     "phases 1-3 "
                     "for those kernels alone (flash: with phase 2's flash "
                     "report; engine: phases 10-11; passes, predictor, "
@@ -10556,7 +11121,7 @@ def main(argv=None):
                     "shapes and phase 29; persist: phase 30; resnetdp: "
                     "K8's momentum group form at phase 31's members and "
                     "phase 31; amp: K4's fp16 form and phase 32; moe: "
-                    "phase 33; gm: phase 34); the "
+                    "phase 33; gm: phase 34; ssd: phase 35); the "
                     "default "
                     "runs every phase")
     args = ap.parse_args(argv)
@@ -10663,7 +11228,7 @@ def main(argv=None):
     say("dp train parity", run_dp_parity())
 
     (ab, pred, path_w, gpt, fleet, fp32, resnet, cnn, nmt, book,
-     health, gen, persist, resnetdp, amp, moe, gm) = run_new_phases(
+     health, gen, persist, resnetdp, amp, moe, gm, ssd) = run_new_phases(
         wrappers, train_kernels, fp32_outs, smi, say, cpu_child,
         train=train)
     cpu_child.close()
@@ -10708,6 +11273,8 @@ def main(argv=None):
                      # phase 34: the merged micro-steps (K1-K4), the
                      # evaluation (K1, K4), the saliency pass (K1-K3)
                      "gm": gm[key],
+                     # phase 35: MobileNet-SSD, no TPU kernel on its path
+                     "ssd": ssd[key],
                      **{f"engine_{k}": {"ragged_attention": a[key]
                                         + a["eager"][key]}
                         for k, a in arms.items()}}

@@ -20,9 +20,10 @@ reads (:class:`_Plan`).  Then:
   CUDA graph (:class:`CapturedGraph`); every later run copies its feeds
   into the graph's buffers and replays it.  A replay costs one
   ``cudaGraphLaunch`` where the loop paid a launch a kernel.  A plan
-  with a ``while`` or a ``print`` op (at any depth of sub-blocks: the
-  loop reads its predicate on the host each iteration, print writes
-  from the host), or one that reads neither scope nor feed (a startup
+  with a ``while``, a ``print`` or a ``detection_map`` op (at any depth
+  of sub-blocks: the loop reads its predicate on the host each
+  iteration, print writes from the host, detection_map computes on it),
+  or one that reads neither scope nor feed (a startup
   program), runs eagerly by rule; ``conditional_block`` and
   ``static_rnn`` keep fixed shapes and are captured with the rest.  A capture that fails raises,
   naming the op; nothing falls back.  A graph keeps a private memory
@@ -100,7 +101,9 @@ MAX_GRAPHS = 8
 
 # ops that need the host during a run: a plan holding one (at any depth
 # of sub-blocks) runs the eager loop, never a captured graph
-HOST_OPS = frozenset({"while", "print"})
+# (detection_map reads its inputs on the host, as the JAX package's
+# host_run does)
+HOST_OPS = frozenset({"while", "print", "detection_map"})
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,8 @@ __all__ = [
     "not_equal", "less_than", "less_equal", "greater_than", "greater_equal",
     "logical_and", "logical_or", "logical_xor", "logical_not", "exp", "log",
     "pow", "floor", "ceil", "cos", "stack", "unstack", "one_hot",
-    "moe_ffn", "mul", "split", "chunk_eval",
+    "moe_ffn", "mul", "split", "chunk_eval", "leaky_relu", "image_resize",
+    "resize_bilinear", "resize_nearest",
 ]
 
 
@@ -208,6 +209,10 @@ def square(x, name=None):
     return _act_layer("square", x, name=name)
 
 
+def leaky_relu(x, alpha=0.02, name=None):
+    return _act_layer("leaky_relu", x, {"alpha": alpha}, name)
+
+
 def sign(x, name=None):
     return _act_layer("sign", x, name=name)
 
@@ -220,6 +225,34 @@ def clip(x, min, max, name=None):
 def clip_by_norm(x, max_norm, name=None):
     return _act_layer("clip_by_norm", x, {"max_norm": float(max_norm)},
                       name)
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", align_corners=True, align_mode=1):
+    """bilinear_interp or nearest_interp to ``out_shape`` (or the input's
+    size times ``scale``); align_corners defaults to true, as in the
+    reference."""
+    op = ("bilinear_interp" if resample.upper() == "BILINEAR"
+          else "nearest_interp")
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    helper = LayerHelper(op, name=name)
+    return _single_out_layer(helper, op, {"X": [input]},
+                             {"out_h": out_shape[0], "out_w": out_shape[1],
+                              "align_corners": bool(align_corners),
+                              "align_mode": int(align_mode)})
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    align_corners=True, align_mode=1, **kw):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        align_corners=align_corners, align_mode=align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   align_corners=True, **kw):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        align_corners=align_corners)
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False,

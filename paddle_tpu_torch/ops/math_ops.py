@@ -227,6 +227,14 @@ def _sigmoid(ctx, x, attrs):
     return torch.sigmoid(x)
 
 
+@simple_op("leaky_relu", ["X"], ["Out"])
+def _leaky_relu(ctx, x, attrs):
+    """x where x >= 0, else alpha·x (``jax.nn.leaky_relu``; alpha rounded
+    to x's dtype first, as the JAX package's weakly typed scalar is)."""
+    return torch.where(x >= 0, x, rounded(attrs.get("alpha", 0.02), x.dtype)
+                       * x)
+
+
 @simple_op("square", ["X"], ["Out"])
 def _square(ctx, x, attrs):
     return torch.square(x)

@@ -6,8 +6,9 @@ JAX package leaves them to XLA; their grad ops are written by hand, one
 ``convolution_backward`` each, since the registry's autograd derivation
 would run the forward conv again every step.  ``batch_norm`` has a grad
 maker that emits one ``batch_norm_grad`` (closed form).  The grads of
-``pool2d``, ``layer_norm``, ``flash_attention`` and
-``softmax_mask_fuse_upper_triangle`` and ``moe_ffn`` are derived by
+``pool2d``, ``layer_norm``, ``flash_attention``,
+``softmax_mask_fuse_upper_triangle``, ``moe_ffn`` and the two
+interpolations (``bilinear_interp``, ``nearest_interp``) are derived by
 the registry;
 ``dropout`` has a grad maker that replays its saved mask;
 ``ragged_attention`` is inference-only."""
@@ -415,3 +416,93 @@ def _ragged_attention(ctx, q, k, v, lengths, attrs):
         q, k, v, lengths.int().contiguous(),
         causal=attrs.get("causal", False), sm_scale=attrs.get("sm_scale"),
         force=attrs.get("force"))
+
+
+# ---------------------------------------------------------------------------
+# interpolation (interpolate_op.h): bilinear_interp and nearest_interp, the
+# upsampling of YOLOv3's and FPN's heads; grads derived by the registry
+# ---------------------------------------------------------------------------
+
+
+def _interp_out_hw(attrs, h, w, out_size):
+    """The out_h/out_w attrs, else the ``scale`` attr (used when out_h
+    <= 0).  The reference's OutSize tensor input is a run-time shape,
+    which a static-shape program cannot honour: it raises by name."""
+    if out_size is not None:
+        raise NotImplementedError(
+            "interp ops: the OutSize tensor input is a run-time shape "
+            "override a static-shape program cannot honor; set static "
+            "out_h/out_w (or scale) attrs instead")
+    oh, ow = attrs.get("out_h"), attrs.get("out_w")
+    scale = float(attrs.get("scale", 0.0) or 0.0)
+    if (not oh or oh <= 0) and scale > 0:
+        oh = int(h * scale)
+    if (not ow or ow <= 0) and scale > 0:
+        ow = int(w * scale)
+    if not oh or not ow or oh <= 0 or ow <= 0:
+        raise ValueError(
+            "interp ops need a static output size: set out_h/out_w > 0 "
+            f"or scale > 0 (got out_h={attrs.get('out_h')!r}, "
+            f"out_w={attrs.get('out_w')!r}, scale={scale!r})")
+    return int(oh), int(ow)
+
+
+def _interp_src_coords(out_len, in_len, align_corners, align_mode, device):
+    """Source coordinates (interpolate_op.h): align_corners → ratio
+    (in-1)/(out-1), src = ratio·dst; else ratio in/out with align_mode
+    0 half-pixel (max(ratio·(dst+½)−½, 0)) and mode 1 src = ratio·dst."""
+    d = torch.arange(out_len, dtype=torch.float32, device=device)
+    if align_corners:
+        return d * ((in_len - 1) / max(out_len - 1, 1))
+    ratio = in_len / out_len
+    if int(align_mode) == 0:
+        return torch.clamp(ratio * (d + 0.5) - 0.5, min=0.0)
+    return ratio * d
+
+
+@simple_op("bilinear_interp", ["X", "OutSize"], ["Out"],
+           optional=("OutSize",), no_grad_inputs=("OutSize",))
+def _bilinear_interp(ctx, x, out_size, attrs):
+    """Bilinear resize of NCHW x (interpolate_op.h
+    BilinearInterpolation); align_corners defaults to true, as in the
+    reference op maker."""
+    n, c, h, w = x.shape
+    oh, ow = _interp_out_hw(attrs, h, w, out_size)
+    ac = bool(attrs.get("align_corners", True))
+    am = attrs.get("align_mode", 1)
+    sy = _interp_src_coords(oh, h, ac, am, x.device)
+    sx = _interp_src_coords(ow, w, ac, am, x.device)
+    y0 = torch.clamp(torch.floor(sy).to(torch.int32), 0, h - 1)
+    x0 = torch.clamp(torch.floor(sx).to(torch.int32), 0, w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    wy = (sy - y0.float()).to(x.dtype)
+    wx = (sx - x0.float()).to(x.dtype)
+    rows0 = torch.index_select(x, 2, y0)
+    rows1 = torch.index_select(x, 2, y1)
+    top = rows0 * (1 - wy)[None, None, :, None] \
+        + rows1 * wy[None, None, :, None]
+    left = torch.index_select(top, 3, x0)
+    right = torch.index_select(top, 3, x1)
+    return left * (1 - wx)[None, None, None, :] \
+        + right * wx[None, None, None, :]
+
+
+@simple_op("nearest_interp", ["X", "OutSize"], ["Out"],
+           optional=("OutSize",), no_grad_inputs=("OutSize",))
+def _nearest_interp(ctx, x, out_size, attrs):
+    """Nearest-neighbour resize of NCHW x (interpolate_op.h): with
+    align_corners (the default) ratio·dst rounded half up, ratio
+    (in-1)/(out-1); else floor with in/out."""
+    n, c, h, w = x.shape
+    oh, ow = _interp_out_hw(attrs, h, w, out_size)
+    ac = bool(attrs.get("align_corners", True))
+    iy = _interp_src_coords(oh, h, ac, 1, x.device)
+    ix = _interp_src_coords(ow, w, ac, 1, x.device)
+    if ac:
+        iy, ix = torch.floor(iy + 0.5), torch.floor(ix + 0.5)
+    else:
+        iy, ix = torch.floor(iy), torch.floor(ix)
+    iy = torch.clamp(iy.to(torch.int32), 0, h - 1)
+    ix = torch.clamp(ix.to(torch.int32), 0, w - 1)
+    return torch.index_select(torch.index_select(x, 2, iy), 3, ix)

@@ -2907,3 +2907,131 @@ def test_metric_op_on_card_matches_its_cpu_lowering(dev, case):
                                        rtol=tol, atol=tol)
         else:
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the detection family: each op off the SSD path at a
+# realistic shape, card against CPU; MobileNet-SSD's steps and rows
+# captured against eager, and against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _detection_models():
+    import torch_port_detection_models
+
+    return torch_port_detection_models
+
+
+@pytest.fixture(scope="module")
+def detection_cases():
+    dm = _detection_models()
+    return {**dm.yolo_head_cases(), **dm.other_op_cases()}
+
+
+def _lower_flat(op_type, inputs, attrs, device):
+    from paddle_tpu_torch.fluid import registry
+
+    return _detection_models().run_lowering(registry, op_type, inputs,
+                                            attrs, device)
+
+
+@pytest.mark.parametrize("case", [
+    "yolov3_loss_19", "yolov3_loss_38", "yolov3_loss_76", "yolo_box_19",
+    "yolo_box_38", "yolo_box_76", "resize_nearest_19", "resize_nearest_38",
+    "anchor_generator", "generate_proposals", "rpn_target_assign",
+    "generate_proposal_labels", "generate_mask_labels", "roi_align",
+    "roi_pool", "collect_fpn_proposals", "distribute_fpn_proposals",
+    "box_decoder_and_assign", "retinanet_detection_output",
+    "retinanet_target_assign", "sigmoid_focal_loss", "deformable_conv",
+    "psroi_pool", "deformable_psroi_pooling", "roi_perspective_transform",
+    "polygon_box_transform", "cvm", "leaky_relu", "bilinear_interp",
+    "iou_similarity", "bipartite_match", "target_assign",
+    "mine_hard_examples", "box_coder_encode", "box_clip",
+    "density_prior_box"])
+def test_detection_op_on_card_matches_its_cpu_lowering(dev, case,
+                                                       detection_cases):
+    """Each detection op (tests/torch_port_detection_models.py, the shape
+    its model gives it) on the card against the same lowering on the
+    CPU, and its derived grad on a seeded cotangent: indices, labels and
+    masks equal, floats within the case's tolerance of the CPU's largest
+    magnitude (1e-6 elementwise, 1e-5 for reductions and for grads that
+    scatter into repeated indices with atomics)."""
+    dm = _detection_models()
+    op_type, inputs, attrs, tol, grad_tol = detection_cases[case]
+    want = _lower_flat(op_type, inputs, attrs, "cpu")
+    got = _lower_flat(op_type, inputs, attrs, dev)
+    ratio, err = dm.outputs_close(got, want, tol)
+    assert ratio <= 1, (case, ratio, err)
+    if grad_tol is not None:
+        cots = dm.cotangents(want)
+        gw = _lower_flat(op_type + "_grad", list(inputs) + cots, attrs,
+                         "cpu")
+        gg = _lower_flat(op_type + "_grad", list(inputs) + cots, attrs, dev)
+        ratio, err = dm.outputs_close(gg, gw, grad_tol)
+        assert ratio <= 1, (case, "grad", ratio, err)
+
+
+def test_yolo_nms_on_card_equals_cpu(dev, detection_cases):
+    """YOLOv3-608's NMS (top 1000 a class, keep 100, 80 classes, b8) over
+    the three heads' CPU yolo_box outputs: the card's rows equal the
+    CPU's."""
+    dm = _detection_models()
+    boxes = [_lower_flat("yolo_box", *detection_cases[f"yolo_box_{g}"][1:3],
+                         "cpu") for g, *_ in dm.YOLO_HEADS]
+    inputs = dm.yolo_nms_inputs(boxes)
+    want = _lower_flat("multiclass_nms", inputs, dm.YOLO_NMS_ATTRS, "cpu")
+    got = _lower_flat("multiclass_nms", inputs, dm.YOLO_NMS_ATTRS, dev)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert (got[0][..., 0] >= 0).any()
+
+
+def test_mobilenet_ssd_captured_equals_eager_and_cpu(dev):
+    """MobileNet-SSD at width 0.25, 300², b4, fp32: 3 steps captured and
+    eager in turns from one state, losses and whole state bit-equal; each
+    captured loss within 1e-4 of the CPU's step from the same state (the
+    card's before the step: run freely, the ill-conditioned step lets the
+    two devices' fp32 roundings grow to ~2e-3 in three steps); the test
+    program's rows captured equal to eager."""
+    import torch_port_detection_models as dm
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch import convert, fluid
+
+    built = dm.build_mobilenet_ssd(paddle_tpu_torch, scale=0.25, batch=4)
+    built["startup"].random_seed = 7
+    feed = dm.ssd_batch(4, seed=2)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(built["startup"], scope=scope)
+    eager_scope = fluid.Scope()
+    for n in scope.keys():
+        eager_scope.set(n, scope.get(n).clone())
+    cpu = fluid.Scope()
+    cexe = fluid.Executor(fluid.CPUPlace())
+    cexe.run(built["startup"], scope=cpu)
+    fluid.set_flags({"FLAGS_cuda_graph_capture": False})
+    try:
+        eager = fluid.Executor(fluid.CUDAPlace(0))
+    finally:
+        fluid.set_flags({"FLAGS_cuda_graph_capture": True})
+    captured = fluid.Executor(fluid.CUDAPlace(0))
+    losses = {"captured": [], "eager": [], "cpu": []}
+    for _ in range(3):
+        convert.load_params(cpu, {n: scope.get(n).cpu().numpy()
+                                  for n in scope.keys()},
+                            fluid.CPUPlace(), program=built["main"])
+        for name, exe, sc in (("captured", captured, scope),
+                              ("eager", eager, eager_scope),
+                              ("cpu", cexe, cpu)):
+            losses[name].append(float(exe.run(
+                built["main"], feed=feed, fetch_list=[built["loss"]],
+                scope=sc)[0]))
+    assert losses["captured"] == losses["eager"]
+    for n in scope.keys():
+        assert torch.equal(scope.get(n), eager_scope.get(n)), n
+    np.testing.assert_allclose(losses["captured"], losses["cpu"], rtol=1e-4)
+    tfeed = {"image": feed["image"]}
+    rows = [np.asarray(exe.run(built["test"], feed=tfeed,
+                               fetch_list=[built["det"]], scope=scope)[0])
+            for exe in (captured, captured, eager)]
+    assert np.array_equal(rows[0], rows[1]) and np.array_equal(rows[0],
+                                                               rows[2])

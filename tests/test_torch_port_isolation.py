@@ -28,6 +28,7 @@ for m in mods:
 import chip_smoke  # the GPU smoke script: module level only
 sys.path.insert(0, "tests")
 import torch_port_books  # noqa: F401  (the book programs of phase 27)
+import torch_port_detection_models  # noqa: F401  (phase 35's programs)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
 print(json.dumps({"modules": mods, "bad": bad}))
@@ -69,7 +70,9 @@ def test_fresh_interpreter_imports_no_jax():
                 "fluid.layers.learning_rate_scheduler", "models.gpt",
                 "fluid.contrib.mixed_precision.fp16_lists",
                 "fluid.contrib.mixed_precision.fp16_utils",
-                "fluid.contrib.mixed_precision.decorator"):
+                "fluid.contrib.mixed_precision.decorator",
+                "ops.detection_ops", "ops.detection_extra_ops",
+                "fluid.layers.detection"):
         assert f"paddle_tpu_torch.{mod}" in res["modules"], mod
     assert res["bad"] == []
 
